@@ -5,21 +5,39 @@
 
 Run from the root of a checkout. Phases, each of which must pass:
 
-  1. the card (nvidia-smi name and power limit); build the CUDA kernel
-     (nvcc, sm_90a) and the block allocator (g++) from the checkout's
-     sources, timed;
-  2. every kernel of the serving path against its plain PyTorch version
-     on the card, at the engine's shapes, timed with CUDA events beside
-     the roofline bound of the same work;
-  3. gpt3_1p3b (bf16, all 24 layers, random weights from seed 0) served
+  1. the card (nvidia-smi name and power limit); build the CUDA kernels
+     (nvcc, sm_90a: ragged paged attention, flash attention) and the
+     block allocator (g++) from the checkout's sources, all at once, timed;
+  2. the serving kernel (B3) against its plain PyTorch version on the
+     card, at the engine's shapes, timed with CUDA events beside the
+     roofline bound of the same work;
+  3. the training kernels (B1 flash-attention forward, B2 backward)
+     against their plain versions in seven cases (gpt2_small's and
+     gpt3_1p3b's training shapes, GQA, segment ids, non-causal,
+     cross-length causal both ways, head_dim 256), in bf16 and in f32,
+     element by element relative to each row's size, with two faults
+     planted in the kernels' outputs that the check must reject; timed
+     beside their bound, the plain versions and one
+     torch.nn.functional.scaled_dot_product_attention call (a yardstick
+     only: the port never calls it);
+  4. gpt3_1p3b (bf16, all 24 layers, random weights from seed 0) served
      by LLMEngine: 16 requests sharing a 512-token prefix, 64 new tokens
-     each; the kernel launch counters are read around this run;
-  4. the engine against the port's dense `generate` in f32 (TF32 off)
-     on a 2-layer model at gpt3_1p3b's widths.
+     each; B3's launch counters are read around this run;
+  5. the engine against the port's dense `generate` in f32 (TF32 off)
+     on a 2-layer model at gpt3_1p3b's widths;
+  6. gpt2_small (all 12 layers, random weights from seed 0) trained by
+     TrainStep in bf16 O1 with AdamW and flash attention, batch 16,
+     seq 1024: 2 warm-up steps and 10 timed ones; B1/B2's launch
+     counters are read around this run;
+  7. TrainStep with the flash kernels against TrainStep with the plain
+     attention composite, in f32 (TF32 off), on 2 layers at gpt2_small's
+     widths: per-step losses, and the parameters after 3 steps (the
+     largest difference and the share of elements that differ).
 
-The last two lines of standard output are a JSON record of the kernels
-and the final {"ok": true, "device": ...} line. Without a CUDA device,
-or outside a checkout, it exits non-zero and prints no result.
+The last three lines of standard output are a JSON record of the
+kernels, the card's name and power limit, and the final
+{"ok": true, "device": ...} line. Without a CUDA device, or outside a
+checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -84,8 +102,10 @@ def build_all() -> dict:
     """Build every native library at once (one compiler per source, all
     started together); returns {name: seconds}."""
     from paddle_tpu_torch.inference import paged_cache
+    from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
     jobs = {"ragged_paged_attention.cu (nvcc)": rpa._load_kernel,
+            "flash_attention.cu (nvcc)": fa._load_kernel,
             "_block_allocator.cpp (g++)": paged_cache._load_lib}
     secs, errors = {}, {}
 
@@ -276,7 +296,7 @@ def kernel_phase() -> list:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: gpt3_1p3b served at full width and depth
+# phase 4: gpt3_1p3b served at full width and depth
 # ---------------------------------------------------------------------------
 def engine_phase() -> dict:
     import torch
@@ -412,7 +432,7 @@ def engine_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: engine == dense generate (f32, TF32 off)
+# phase 5: engine == dense generate (f32, TF32 off)
 # ---------------------------------------------------------------------------
 def parity_phase() -> dict:
     import torch
@@ -452,6 +472,433 @@ def parity_phase() -> dict:
     return dict(guarded=guarded, n_new=n_new)
 
 
+# ---------------------------------------------------------------------------
+# phase 3: B1/B2 (flash attention) vs their plain versions
+# ---------------------------------------------------------------------------
+# name: (b, sq, sk, H, Hk, D, causal, segments)
+FLASH_CASES = [
+    ("a gpt2_small train", (16, 1024, 1024, 12, 12, 64, True, False)),
+    ("b gpt3_1p3b train", (4, 2048, 2048, 16, 16, 128, True, False)),
+    ("c GQA H16/Hk4", (4, 1024, 1024, 16, 4, 128, True, False)),
+    ("d segment ids", (4, 1024, 1024, 12, 12, 64, True, True)),
+    ("e non-causal", (4, 1024, 1024, 12, 12, 64, False, False)),
+    ("f cross sq<sk", (4, 512, 1024, 12, 12, 64, True, False)),
+    ("f cross sq>sk", (4, 1024, 512, 12, 12, 64, True, False)),
+    ("g head_dim 256", (2, 1024, 1024, 8, 8, 256, True, False)),
+]
+# kernel vs plain tolerances, element by element: |got - want| <= tol *
+# (|want| + rms of want's row + rms of want), a row being the head_dim
+# axis of one (batch, token, head), so a late query row, ~30x smaller
+# than row 0 in a causal 1024-token case, is held to about its own size.
+# The tensor's rms covers rows that are 0 only by cancellation (dq of
+# the first causal row), where both sides hold f32 noise. bf16: both sides
+# round p (and ds) to bf16 before the products, the kernel relative to
+# its running row max and the plain version to the final one; each
+# rounding is off by up to 2^-9 relative, which moves a row by ~2^-9 of
+# its rms; both round their outputs to bf16 (ulp 2^-8..2^-7 relative):
+# 2^-6 is 2-4 ulps. f32: only the summation order differs (~1e-6
+# relative). lse is held at the f32 limit to 1 + |lse|.
+FLASH_TOL = {"bf16": 2.0 ** -6, "f32": 1e-4}
+# faults planted in each case's kernel outputs, which the check must
+# reject: the second half of the query rows' o off by 5 %, and the last
+# 64-key tile's dv zeroed
+PLANTED = ("o late rows x1.05", "dv last k tile zeroed")
+
+
+def _flash_inputs(spec, dtype, seed):
+    import torch
+    b, sq, sk, H, Hk, D, causal, seg = spec
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)
+    qs = rnd(b, sq, H, D) * torch.tensor(D ** -0.5, dtype=dtype,
+                                         device="cuda")
+    k, v, do = rnd(b, sk, Hk, D), rnd(b, sk, Hk, D), rnd(b, sq, H, D)
+    segs = None
+    if seg:
+        # three packed documents per row and tail padding (-1 on both
+        # sides); in row 0 the last 64 queries carry an id no key has,
+        # so their rows are fully masked
+        qseg = torch.full((b, sq), -1, dtype=torch.int32, device="cuda")
+        kseg = torch.full((b, sk), -1, dtype=torch.int32, device="cuda")
+        for r in range(b):
+            cuts = [0, 300 + 17 * r, 620 + 9 * r, sq - 96, sq]
+            for i in range(3):
+                qseg[r, cuts[i]:cuts[i + 1]] = i
+                kseg[r, cuts[i]:cuts[i + 1]] = i
+        qseg[0, sq - 64:] = 9
+        segs = (qseg, kseg)
+    return qs, k, v, do, segs
+
+
+def _valid_pairs(spec, segs):
+    """(q head, q, k) pairs the mask leaves valid, counted from the data."""
+    import torch
+    b, sq, sk, H, Hk, D, causal, seg = spec
+    ok = torch.ones((1, sq, sk), dtype=torch.bool, device="cuda")
+    if causal:
+        ok = (torch.arange(sq, device="cuda")[:, None] + (sk - sq)
+              >= torch.arange(sk, device="cuda")[None, :])[None]
+    if segs is not None:
+        ok = ok & (segs[0][:, :, None] == segs[1][:, None, :])
+        return int(ok.sum()) * H
+    return int(ok.sum()) * b * H
+
+
+def _flash_bound(spec, pairs, itemsize, bwd):
+    """(bound_ms, bound_by, bytes, flops): 4*D flops per valid pair
+    forward, 10*D backward (s recomputed, dv, dp, dk, dq); bytes are q, k,
+    v, o (+ do, dq, dk, dv backward) and lse (+ delta), each once."""
+    b, sq, sk, H, Hk, D, causal, seg = spec
+    qo = b * sq * H * D * itemsize
+    kv = b * sk * Hk * D * itemsize
+    stats = b * H * sq * 4
+    if bwd:
+        nbytes, flops = 4 * qo + 4 * kv + 2 * stats, 10 * D * pairs
+    else:
+        nbytes, flops = 2 * qo + 2 * kv + stats, 4 * D * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", int(nbytes), int(flops))
+
+
+def _norm_err(got, want, rows=True):
+    """The largest |got - want| / (|want| + rms of want's row + rms of
+    want) over the elements, rows along the last axis (rows=False:
+    |want| + 1); where `want` is all 0, any difference counts inf."""
+    import torch
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    base = (want.pow(2).mean(-1, keepdim=True).sqrt()
+            + want.pow(2).mean().sqrt()) if rows else 1.0
+    scale = base + want.abs()
+    r = torch.where(scale > 0, d / scale,
+                    torch.where(d > 0, float("inf"), 0.0))
+    return float(r.max())
+
+
+def _check_flash(name, dt, got, want):
+    """({tensor: max abs error}, {tensor: normalised error}, {planted
+    fault: normalised error}) of the kernels' (o, lse, dq, dk, dv) against
+    the plain versions'; raises unless every tensor is within FLASH_TOL
+    and every planted fault beyond it."""
+    abs_errs, errs = {}, {}
+    for what, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        if not torch_isfinite(g):
+            raise RuntimeError(f"flash case {name!r} {dt}: {what} not finite")
+        if what == "lse":
+            # rows both sides mask fully (lse -1e30) compare exactly
+            dead = w < -1e29
+            if not bool((g[dead] == w[dead]).all()):
+                raise RuntimeError(f"flash case {name!r}: masked rows' lse")
+            g, w = g[~dead], w[~dead]
+            err, tol = _norm_err(g, w, rows=False), FLASH_TOL["f32"]
+        else:
+            err, tol = _norm_err(g, w), FLASH_TOL[dt]
+        if err > tol:
+            raise RuntimeError(
+                f"flash case {name!r} {dt}: {what} normalised err {err} > "
+                f"{tol}")
+        abs_errs[what] = float((g.float() - w.float()).abs().max())
+        errs[what] = err
+    o, dv = got[0].clone(), got[4].clone()
+    o[:, o.shape[1] // 2:] *= 1.05
+    dv[:, -64:] = 0
+    planted = dict(zip(PLANTED, (_norm_err(o, want[0]),
+                                 _norm_err(dv, want[4]))))
+    for what, e in planted.items():
+        if e <= FLASH_TOL[dt]:
+            raise RuntimeError(f"flash case {name!r} {dt}: the check passes "
+                               f"a planted fault ({what}: {e})")
+    return abs_errs, errs, planted
+
+
+def torch_isfinite(t):
+    import torch
+    return bool(torch.isfinite(t).all()) if t.dtype.is_floating_point \
+        else True
+
+
+def flash_phase() -> list:
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    out = []
+    for i, (name, spec) in enumerate(FLASH_CASES):
+        b, sq, sk, H, Hk, D, causal, seg = spec
+        if fa.attention_path((b, sq, H, D), (b, sk, Hk, D)) != ("cuda", ""):
+            raise RuntimeError(f"flash case {name!r} would not take the "
+                               "kernels")
+        rec = dict(case=name, b=b, sq=sq, sk=sk, H=H, Hk=Hk, D=D,
+                   causal=causal, segments=seg)
+        for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            qs, k, v, do, segs = _flash_inputs(spec, dtype, seed=i)
+            sc = D ** -0.5
+            o, lse = fa.flash_fwd(qs, k, v, causal, segs, path="cuda")
+            dq, dk, dv = fa.flash_bwd(qs, k, v, o, lse, do, sc, causal,
+                                      segs, path="cuda")
+            torch.cuda.synchronize()
+            wo, wlse = fa.flash_fwd(qs, k, v, causal, segs, path="torch")
+            # B2 from the same (o, lse) on both sides
+            wdq, wdk, wdv = fa.flash_bwd(qs, k, v, o, lse, do, sc, causal,
+                                         segs, path="torch")
+            abs_errs, errs, planted = _check_flash(
+                name, dt, (o, lse, dq, dk, dv), (wo, wlse, wdq, wdk, wdv))
+            rec[f"max_abs_err_{dt}"] = abs_errs
+            rec[f"norm_err_{dt}"] = errs
+            rec[f"planted_norm_err_{dt}"] = planted
+            del wo, wlse, wdq, wdk, wdv
+            if dt == "bf16":
+                pairs = _valid_pairs(spec, segs)
+                rec["valid_pairs"] = pairs
+                rec["fwd_ms"] = cuda_ms(lambda: fa.flash_fwd(
+                    qs, k, v, causal, segs, path="cuda"))
+                rec["bwd_ms"] = cuda_ms(lambda: fa.flash_bwd(
+                    qs, k, v, o, lse, do, sc, causal, segs, path="cuda"))
+                rec["plain_fwd_ms"] = cuda_ms(lambda: fa.flash_fwd(
+                    qs, k, v, causal, segs, path="torch"), iters=5)
+                rec["plain_bwd_ms"] = cuda_ms(lambda: fa.flash_bwd(
+                    qs, k, v, o, lse, do, sc, causal, segs, path="torch"),
+                    iters=5)
+                for kind in ("fwd", "bwd"):
+                    bms, by, nb, fl = _flash_bound(spec, pairs, 2,
+                                                   kind == "bwd")
+                    rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = bms, by
+                    rec[f"{kind}_bytes"], rec[f"{kind}_flops"] = nb, fl
+                rec["library_fwd_ms"] = rec["library_fwd_bwd_ms"] = None
+                if sq == sk and not seg:
+                    # the yardstick: one library call for the same function
+                    # on [b, H, s, D] (torch aligns is_causal top-left, so
+                    # only sq == sk compares)
+                    lq, lk, lv = (t.transpose(1, 2).contiguous()
+                                  .requires_grad_() for t in (qs, k, v))
+                    ldo = do.transpose(1, 2).contiguous()
+
+                    def lib():
+                        return tF.scaled_dot_product_attention(
+                            lq, lk, lv, is_causal=causal, scale=1.0,
+                            enable_gqa=Hk != H)
+
+                    rec["library_fwd_ms"] = cuda_ms(lib)
+                    rec["library_fwd_bwd_ms"] = cuda_ms(
+                        lambda: torch.autograd.grad(lib(), (lq, lk, lv),
+                                                    ldo))
+                    del lq, lk, lv, ldo
+            del qs, k, v, do, o, lse, dq, dk, dv
+            torch.cuda.empty_cache()
+        fmt = lambda d: {k: f"{e:.2e}" for k, e in d.items()}
+        log(f"[flash] {name}: b={b} sq={sq} sk={sk} H={H}/{Hk} D={D} "
+            f"causal={causal} seg={seg}; normalised err bf16 "
+            f"{fmt(rec['norm_err_bf16'])} (tol {FLASH_TOL['bf16']:.2e}; "
+            f"planted {fmt(rec['planted_norm_err_bf16'])}) f32 "
+            f"{fmt(rec['norm_err_f32'])} (tol {FLASH_TOL['f32']:.0e}; "
+            f"planted {fmt(rec['planted_norm_err_f32'])}); max abs err bf16 "
+            f"{fmt(rec['max_abs_err_bf16'])}; B1 {rec['fwd_ms']:.4f} ms "
+            f"(bound {rec['fwd_bound_ms']:.4f}, {rec['fwd_bound_by']}; plain "
+            f"{rec['plain_fwd_ms']:.3f}; library {rec['library_fwd_ms']}); "
+            f"B2 {rec['bwd_ms']:.4f} ms (bound {rec['bwd_bound_ms']:.4f}, "
+            f"{rec['bwd_bound_by']}; plain {rec['plain_bwd_ms']:.3f}; "
+            f"library fwd+bwd {rec['library_fwd_bwd_ms']})")
+        out.append(rec)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: gpt2_small trained by TrainStep at full width and depth
+# ---------------------------------------------------------------------------
+def _gpt2_train_step(cfg, use_amp, lr=1e-4, seed=0):
+    """bench.py::bench_gpt's step: an f32 GPTForCausalLM, AdamW(lr,
+    weight decay 0.01), bf16 O1 auto_cast around the forward when
+    `use_amp`, GPTPretrainingCriterion."""
+    from paddle_tpu_torch import TrainStep, amp
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    model = GPTForCausalLM(cfg, dtype="float32", seed=seed)
+    model.train()
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+                weight_decay=0.01)
+    crit = GPTPretrainingCriterion()
+
+    def loss_fn(m, ids, labels):
+        with amp.auto_cast(enable=use_amp, level="O1", dtype="bfloat16"):
+            logits = m(ids)
+        return crit(logits, labels)
+
+    return model, TrainStep(model, opt, loss_fn)
+
+
+def train_phase() -> dict:
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import gpt2_small, num_params
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                     use_flash_attention=True)
+    batch, seq, warmup, steps = 16, 1024, 2, 10
+    path = fa.attention_path((batch, seq, cfg.num_heads, cfg.head_dim),
+                             (batch, seq, cfg.num_heads, cfg.head_dim))
+    if path != ("cuda", ""):
+        raise RuntimeError(f"gpt2_small attention would not take the "
+                           f"kernels: {path}")
+    t0 = time.perf_counter()
+    model, step = _gpt2_train_step(cfg, use_amp=True)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # measurement only: device time of every B1/B2 call (CUDA events
+    # around the wrappers, read after the run)
+    events = {"fwd": [], "bwd": []}
+    fwd_cuda, bwd_cuda = fa._fwd_cuda, fa._bwd_cuda
+
+    def timed(kind, fn):
+        def run(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            r = fn(*a, **kw)
+            e.record()
+            events[kind].append((s, e))
+            return r
+        return run
+
+    torch.cuda.reset_peak_memory_stats()
+    fa._fwd_cuda, fa._bwd_cuda = timed("fwd", fwd_cuda), timed("bwd",
+                                                              bwd_cuda)
+    try:
+        for f in (fa.flash_fwd, fa.flash_bwd):
+            f.kernel_launches = f.plain_calls = 0
+        losses, step_s = [], []
+        for i in range(warmup + steps):
+            if i == warmup:
+                for k in events:
+                    events[k].clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = step(ids, labels)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            losses.append(loss)
+        launches = (fa.flash_fwd.kernel_launches,
+                    fa.flash_bwd.kernel_launches)
+        plain = (fa.flash_fwd.plain_calls, fa.flash_bwd.plain_calls)
+    finally:
+        fa._fwd_cuda, fa._bwd_cuda = fwd_cuda, bwd_cuda
+    losses = [float(x) for x in losses]
+    timed_s = step_s[warmup:]
+    per_step = {k: sum(s.elapsed_time(e) for s, e in v) / steps
+                for k, v in events.items()}
+    n_steps = warmup + steps
+    checks = {
+        "every loss finite": all(np.isfinite(losses)),
+        "B1 and B2 launched 12 times per step": launches == (
+            cfg.num_layers * n_steps, cfg.num_layers * n_steps),
+        "plain versions never ran on CUDA tensors": plain == (0, 0),
+        "attention_path names the kernels": path == ("cuda", ""),
+    }
+    for what, ok in checks.items():
+        log(f"[train] check: {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise RuntimeError(f"training phase failed: launches {launches} "
+                           f"plain {plain} losses {losses}")
+    n = num_params(cfg)
+    tok_s = batch * seq * steps / sum(timed_s)
+    med = statistics.median(timed_s)
+    rec = dict(config="gpt2_small", layers=cfg.num_layers, batch=batch,
+               seq=seq, params=n, warmup_steps=warmup, timed_steps=steps,
+               tokens_per_s=tok_s, step_ms_median=1e3 * med,
+               step_ms=[1e3 * x for x in timed_s],
+               mfu=6.0 * n * tok_s / BF16_FLOPS_PER_S,
+               step_floor_ms=6.0 * n * batch * seq / BF16_FLOPS_PER_S * 1e3,
+               b1_ms_per_step=per_step["fwd"],
+               b2_ms_per_step=per_step["bwd"],
+               b1_launches=launches[0], b2_launches=launches[1],
+               plain_calls=list(plain), losses=losses, setup_s=setup_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"[train] gpt2_small bf16 O1 AdamW, {cfg.num_layers} layers, batch "
+        f"{batch} x seq {seq}: {tok_s:.1f} tokens/s, step median "
+        f"{1e3 * med:.2f} ms (6ND floor {rec['step_floor_ms']:.2f} ms), "
+        f"MFU {rec['mfu']:.4f}; B1 {per_step['fwd']:.3f} ms + B2 "
+        f"{per_step['bwd']:.3f} ms of device time per step over "
+        f"{launches[0]}/{launches[1]} launches in {n_steps} steps; peak "
+        f"mem {rec['peak_mem_gb']:.2f} GiB; losses "
+        f"{[round(x, 4) for x in losses]}")
+    del model, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 7: TrainStep with the kernels == TrainStep with the composite
+# ---------------------------------------------------------------------------
+def train_parity_phase() -> dict:
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import gpt2_small
+    from paddle_tpu_torch.nn import functional as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lr, n_steps = 1e-4, 3
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, 50304, (2, 512)).astype(np.int32)
+    labels = rng.integers(0, 50304, (2, 512)).astype(np.int32)
+    runs = {}
+    sdpa_takes_kernel = F._sdpa_takes_kernel
+    for flash in (True, False):
+        cfg = dataclasses.replace(
+            gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                       use_flash_attention=flash), num_layers=2)
+        model, step = _gpt2_train_step(cfg, use_amp=False, lr=lr, seed=1)
+        n0 = fa.flash_fwd.kernel_launches, fa.flash_bwd.kernel_launches
+        if not flash:
+            # the composite, forced plain: SDPA would route this call into
+            # the kernels on the card
+            F._sdpa_takes_kernel = lambda *a: False
+        try:
+            losses = [float(step(ids, labels)) for _ in range(n_steps)]
+        finally:
+            F._sdpa_takes_kernel = sdpa_takes_kernel
+        n1 = fa.flash_fwd.kernel_launches, fa.flash_bwd.kernel_launches
+        want = 2 * n_steps if flash else 0
+        if (n1[0] - n0[0], n1[1] - n0[1]) != (want, want):
+            raise RuntimeError(f"parity run flash={flash}: kernel launches "
+                               f"{n1} from {n0}, expected +{want}")
+        runs[flash] = (losses, {k: v.detach().clone() for k, v in
+                                model.state_dict().items()})
+        del model, step
+    (lk, pk), (lc, pc) = runs[True], runs[False]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lc))
+    param_err = max(float((pk[k] - pc[k]).abs().max()) for k in pk)
+    bound = 2 * lr * n_steps
+    # the share of parameter elements that differ by more than 1e-3 * lr:
+    # a sign flip of a near-zero gradient moves an Adam parameter by up to
+    # ~2 lr a step, so one element may reach the bound, but in f32 such
+    # flips are rare (the key bias, whose gradient is zero up to rounding);
+    # a wrong dq, dk or dv moves every parameter it reaches by ~lr
+    n = sum(v.numel() for v in pk.values())
+    far = sum(int(((pk[k] - pc[k]).abs() > 1e-3 * lr).sum()) for k in pk)
+    # f32 on both sides (kernels in full f32, cuBLAS without TF32): only
+    # summation order differs, ~1e-6 relative on the loss
+    ok = loss_err <= 1e-5 and param_err <= bound and far / n < 2e-3
+    log(f"[train-parity] f32, 2 layers, batch 2 x seq 512, {n_steps} "
+        f"steps: losses kernels {[round(x, 6) for x in lk]} vs composite "
+        f"{[round(x, 6) for x in lc]} (max rel diff {loss_err:.2e}, tol "
+        f"1e-5); params max abs diff {param_err:.2e} (bound 2*lr*steps = "
+        f"{bound:.1e}), {far} of {n} elements differ by more than "
+        f"1e-3*lr (share {far / n:.2e}, tol 2e-3): "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("TrainStep with the kernels differs from the "
+                           "composite")
+    torch.cuda.empty_cache()
+    return dict(losses_kernels=lk, losses_composite=lc,
+                loss_max_rel_diff=loss_err, param_max_abs_diff=param_err,
+                param_bound=bound, params_far=far, params_total=n)
+
+
 def main() -> int:
     try:
         import torch
@@ -474,20 +921,43 @@ def main() -> int:
     secs = build_all()
     log("[build] " + "; ".join(f"{k}: {v:.1f} s" for k, v in secs.items()))
     cases = kernel_phase()
+    flash = flash_phase()
     engine = engine_phase()
     parity = parity_phase()
+    train = train_phase()
+    train_parity = train_parity_phase()
     main_case = cases[0]    # the engine's fresh wave: its largest launch
+    fmain = flash[0]        # gpt2_small's training shape
+    src = "paddle_tpu_torch/kernels/csrc/"
     kernels = [dict(
         name="ragged_paged_attention", route="cuda",
-        source="paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu",
+        source=src + "ragged_paged_attention.cu",
         replaces="paddle_tpu/kernels/pallas/ragged_paged_attention.py:313",
         launches=engine["kernel_launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=main_case["ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
         library_ms=None, cases=cases)]
+    for kind, name, line, launches in (
+            ("fwd", "flash_attention_fwd", 267, train["b1_launches"]),
+            ("bwd", "flash_attention_bwd", 457, train["b2_launches"])):
+        kernels.append(dict(
+            name=name, route="cuda", source=src + "flash_attention.cu",
+            replaces=f"paddle_tpu/kernels/pallas/flash_attention.py:{line}",
+            launches=launches,
+            max_abs_err=max(e for c in flash for what, e in
+                            c["max_abs_err_bf16"].items()
+                            if (what in ("o", "lse")) == (kind == "fwd")),
+            ms=fmain[f"{kind}_ms"], plain_ms=fmain[f"plain_{kind}_ms"],
+            bound_ms=fmain[f"{kind}_bound_ms"],
+            bound_by=fmain[f"{kind}_bound_by"],
+            library_ms=fmain["library_fwd_ms" if kind == "fwd"
+                             else "library_fwd_bwd_ms"],
+            cases=flash))
     log("[engine] " + json.dumps(engine))
     log("[parity] " + json.dumps(parity))
+    log("[train] " + json.dumps(train))
+    log("[train-parity] " + json.dumps(train_parity))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

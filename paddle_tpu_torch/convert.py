@@ -1,4 +1,4 @@
-"""Carry paddle_tpu GPT weights into the port.
+"""Carry paddle_tpu GPT weights and optimizer state into the port.
 
 paddle_tpu's ``state_dict()`` names match the port's parameter names
 one for one, and Linear weights keep paddle_tpu's [in, out] layout in
@@ -13,7 +13,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["gpt_params_from_numpy"]
+__all__ = ["gpt_params_from_numpy", "optimizer_state_from_numpy"]
+
+_ADAM_ACCUMULATORS = ("moment1", "moment2", "beta1_pow", "beta2_pow")
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -28,3 +30,32 @@ def gpt_params_from_numpy(named: Dict[str, np.ndarray]
     """paddle_tpu GPTForCausalLM state_dict (as numpy) -> a state_dict
     for the port's GPTForCausalLM (``model.load_state_dict(...)``)."""
     return {name: _to_tensor(np.asarray(arr)) for name, arr in named.items()}
+
+
+def optimizer_state_from_numpy(state: Dict, names: Dict[str, str]) -> Dict:
+    """paddle_tpu ``Optimizer.state_dict()`` (arrays as numpy) -> a state
+    dict for the port's ``Optimizer.set_state_dict``.
+
+    paddle_tpu keys accumulators ``<tensor name>_<accumulator>`` with its
+    tensors' own names (``p.name``); `names` maps those to the port's
+    parameter names (``{p.name: n for n, p in
+    paddle_model.named_parameters()}``), and the port's optimizer must
+    be built with ``parameters=model.named_parameters()``. Values are
+    copied with their dtypes (the bias-correction powers stay f32
+    scalars); "LR_Scheduler" and "global_step" pass through. A run
+    resumed from the result continues as the reference run would."""
+    out = {}
+    for key, val in state.items():
+        if key in ("LR_Scheduler", "global_step"):
+            out[key] = val
+            continue
+        acc = next((a for a in _ADAM_ACCUMULATORS
+                    if key.endswith("_" + a)), None)
+        if acc is None:
+            raise KeyError(f"optimizer state key {key!r} names none of the "
+                           f"accumulators {_ADAM_ACCUMULATORS}")
+        ref_name = key[:-len(acc) - 1]
+        if ref_name not in names:
+            raise KeyError(f"no port parameter name for {ref_name!r}")
+        out[f"{names[ref_name]}_{acc}"] = _to_tensor(np.asarray(val))
+    return out

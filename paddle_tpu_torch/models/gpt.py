@@ -7,9 +7,11 @@ Module and parameter names follow paddle_tpu's exactly
 paddle_tpu state_dict loads name for name (see ``convert.py``). The
 fused qkv columns are [q all heads | k | v].
 
-The forward pass without a cache runs the plain attention composite;
-on a TPU paddle_tpu routes that call into its flash-attention kernel,
-which the port brings with the training slice.
+Attention runs ``fused_flash_attention`` when the config sets
+``use_flash_attention``, else ``scaled_dot_product_attention``, which on
+the CUDA card routes eligible calls into the same kernels (as
+paddle_tpu does on its TPU). ``recompute`` (activation remat) is not
+ported yet and raises.
 """
 from __future__ import annotations
 
@@ -21,12 +23,14 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..core.dtype import to_dtype
+from ..incubate.nn.functional import fused_flash_attention
 from ..nn import functional as F
 from ..nn.layers import Dropout, Embedding, LayerList, LayerNorm, Linear
 
 __all__ = ["GPTConfig", "gpt_tiny", "gpt2_small", "gpt3_1p3b",
            "GPTAttention", "GPTMLP", "GPTDecoderLayer", "GPTEmbeddings",
-           "GPTModel", "GPTForCausalLM"]
+           "GPTModel", "GPTForCausalLM", "GPTPretrainingCriterion",
+           "num_params"]
 
 
 @dataclass
@@ -44,10 +48,24 @@ class GPTConfig:
     tie_word_embeddings: bool = True
     use_flash_attention: bool = False
     recompute: bool = False
+    # remat save-policy and interval (paddle_tpu models/gpt.py:39-47);
+    # validated as there, so a config that constructs in paddle_tpu
+    # constructs here; remat itself is not ported yet
+    recompute_policy: str = "full"
+    recompute_interval: int = 1
 
     def __post_init__(self):
         if self.intermediate_size == 0:
             self.intermediate_size = 4 * self.hidden_size
+        if self.recompute_interval < 1:
+            raise ValueError(
+                f"recompute_interval must be >= 1 (got "
+                f"{self.recompute_interval}); use recompute=False to "
+                "disable remat")
+        if self.recompute_policy not in ("full", "dots",
+                                         "dots_no_batch"):
+            raise ValueError(
+                f"unknown recompute_policy {self.recompute_policy!r}")
 
     @property
     def head_dim(self):
@@ -70,7 +88,10 @@ def gpt3_1p3b(**kw):
 
 
 class GPTAttention(nn.Module):
-    """Causal self-attention with a fused QKV projection."""
+    """Causal self-attention with a fused QKV projection. `generator`
+    (set by GPTForCausalLM) draws the attention-dropout masks of the
+    composite path; the flash path has no attention dropout, as in
+    paddle_tpu (fused_flash_attention is called with dropout 0)."""
 
     def __init__(self, config: GPTConfig, **fk):
         super().__init__()
@@ -80,13 +101,21 @@ class GPTAttention(nn.Module):
         self.qkv_proj = Linear(config.hidden_size, 3 * config.hidden_size,
                                **fk)
         self.out_proj = Linear(config.hidden_size, config.hidden_size, **fk)
+        self.attn_dropout_prob = config.attention_dropout_prob
+        self.use_flash_attention = config.use_flash_attention
+        self.generator = None
 
     def forward(self, x):
         b, s, _ = x.shape
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
         q, k, v = qkv.unbind(dim=2)                      # [b, s, h, d]
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        if self.use_flash_attention:
+            out = fused_flash_attention(q, k, v, causal=True)
+        else:
+            out = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, dropout_p=self.attn_dropout_prob,
+                training=self.training, generator=self.generator)
         return self.out_proj(out.reshape(b, s, self.hidden_size))
 
 
@@ -158,15 +187,16 @@ class GPTForCausalLM(nn.Module):
     request. Weights are drawn on the device from a ``torch.Generator``
     seeded with ``seed``: normal(0, initializer_range), with the
     residual projections (out_proj, fc2) scaled by 1/sqrt(2 * layers)
-    as in paddle_tpu; biases 0, LayerNorm weights 1."""
+    as in paddle_tpu; biases 0, LayerNorm weights 1. Dropout masks are
+    drawn from a second generator on the device, seeded with
+    ``seed + 1``."""
 
     def __init__(self, config: GPTConfig, *, device=None,
                  dtype="float32", seed: int = 0):
         super().__init__()
-        if config.use_flash_attention or config.recompute:
+        if config.recompute:
             raise NotImplementedError(
-                "use_flash_attention and recompute belong to the training "
-                "slice, which the port does not have yet")
+                "recompute (activation remat) is not ported yet")
         dev = resolve_device(device)
         fk = {"device": dev, "dtype": to_dtype(dtype)}
         self.config = config
@@ -174,6 +204,11 @@ class GPTForCausalLM(nn.Module):
         self.lm_head = None if config.tie_word_embeddings else Linear(
             config.hidden_size, config.vocab_size, bias=False, **fk)
         self._init_weights(seed)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 1)
+        for m in self.modules():
+            if isinstance(m, (Dropout, GPTAttention)):
+                m.generator = gen
 
     @torch.no_grad()
     def _init_weights(self, seed: int):
@@ -198,8 +233,33 @@ class GPTForCausalLM(nn.Module):
         """Project hidden states to vocab logits (tied or untied head)."""
         if self.lm_head is None:
             w = self.gpt.embeddings.word_embeddings.weight
-            return torch.matmul(hidden, w.t())
+            return F.matmul(hidden, w, transpose_y=True)
         return self.lm_head(hidden)
 
     def forward(self, input_ids, position_ids=None):
         return self.lm_logits(self.gpt(input_ids, position_ids))
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Next-token cross-entropy (labels = input shifted by the caller),
+    paddle_tpu models/gpt.py:261: the mean over tokens, or the
+    loss_mask-weighted mean."""
+
+    def forward(self, logits, labels, loss_mask=None):
+        loss = F.cross_entropy(logits, labels, reduction="none")
+        if loss_mask is not None:
+            loss_mask = loss_mask.reshape(loss.shape)
+            return (loss * loss_mask).sum() / torch.clamp(
+                loss_mask.sum(), min=1e-6)
+        return loss.mean()
+
+
+def num_params(config: GPTConfig) -> int:
+    """Parameter count (for MFU math), paddle_tpu models/gpt.py:273."""
+    h, v, L = config.hidden_size, config.vocab_size, config.num_layers
+    i = config.intermediate_size
+    per_layer = (3 * h * h + 3 * h) + (h * h + h) + (h * i + i) + (
+        i * h + h) + 4 * h
+    emb = v * h + config.max_position_embeddings * h
+    head = 0 if config.tie_word_embeddings else v * h
+    return emb + L * per_layer + 2 * h + head

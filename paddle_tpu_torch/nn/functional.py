@@ -1,32 +1,66 @@
 """The functional ops GPT uses (counterparts of paddle_tpu/ops/nn_ops.py
-and ops/linalg.py), with the reference's cast order kept."""
+and ops/linalg.py), with the reference's cast order kept.
+
+Each op applies the reference's AMP rule for its name and per-op policy
+first (``amp.state.maybe_cast_inputs``; the policies are those of the
+reference registry: linear, matmul and scaled_dot_product_attention are
+white, layer_norm and cross_entropy black, the rest follow their
+input)."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-__all__ = ["linear", "embedding", "layer_norm", "gelu",
-           "scaled_dot_product_attention"]
+from ..amp.state import maybe_cast_inputs as _amp
+from ..kernels.flash_attention import _shapes_ok, flash_attention
+
+__all__ = ["linear", "matmul", "embedding", "layer_norm", "gelu", "dropout",
+           "cross_entropy", "scaled_dot_product_attention"]
+
+
+def _mm(x, y):
+    """x @ y as the reference computes it (ops/linalg.py:22-31): mixed
+    inputs promote as jnp.matmul promotes them (torch.matmul refuses
+    them), f32 accumulation, and a low-precision x casts the product
+    back to its own dtype."""
+    dt = torch.promote_types(x.dtype, y.dtype)
+    out = torch.matmul(x.to(dt), y.to(dt))
+    return out.to(x.dtype) if x.dtype in (torch.bfloat16, torch.float16) \
+        else out
 
 
 def linear(x, weight, bias=None):
     """y = x @ W + b with W laid out [in, out], as paddle_tpu's Linear
     keeps it (nn/layers/common.py:12). bf16 products accumulate in f32
     and round once to bf16 before the bias, as ops/nn_ops.py:210 does."""
-    out = torch.matmul(x, weight)
+    x, weight, bias = _amp("linear", "white", x, weight, bias)
+    out = _mm(x, weight)
     if bias is not None:
         out = out + bias
     return out
 
 
+def matmul(x, y, transpose_x=False, transpose_y=False):
+    """ops/linalg.py:22: optional transposes of the last two axes, then
+    x @ y (bf16 products accumulate in f32 and round once)."""
+    x, y = _amp("matmul", "white", x, y)
+    if transpose_x and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if transpose_y and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    return _mm(x, y)
+
+
 def embedding(ids, weight):
+    (weight,) = _amp("embedding", None, weight)
     return weight[ids]
 
 
 def layer_norm(x, weight=None, bias=None, epsilon=1e-5):
     """LayerNorm over the last axis: f32 statistics, then a cast back to
     the input dtype BEFORE the affine (ops/nn_ops.py:501-509)."""
+    x, weight, bias = _amp("layer_norm", "black", x, weight, bias)
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, unbiased=False, keepdim=True)
@@ -39,17 +73,88 @@ def layer_norm(x, weight=None, bias=None, epsilon=1e-5):
 
 
 def gelu(x, approximate=False):
+    (x,) = _amp("gelu", None, x)
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
 
 
+def dropout(x, p=0.5, training=True, mode="upscale_in_train",
+            generator=None):
+    """ops/nn_ops.py:165: keep each element with probability 1 - p, drawn
+    from `generator` (a torch.Generator on x's device; None draws from
+    torch's default generator). The draws are torch's, not jax.random's,
+    so a test compares dropout by its masks, never by seed."""
+    (x,) = _amp("dropout", None, x)
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - p
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+    return torch.where(keep, x, 0.0).to(x.dtype)
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0):
+    """Hard-label softmax cross entropy (ops/nn_ops.py:657, :686-696):
+    loss = logsumexp(z) - z[label] with the logsumexp in f32 and the
+    picked logit widened to f32, so no f32 log-softmax of the whole
+    vocab is materialised; tokens whose label is `ignore_index` give 0
+    and leave the mean's denominator. reduction: "mean" | "sum" |
+    "none"."""
+    if soft_label or not use_softmax or weight is not None \
+            or label_smoothing:
+        raise NotImplementedError(
+            "cross_entropy: the port has hard labels with softmax only "
+            "(soft_label, use_softmax=False, weight and label_smoothing "
+            "are not ported yet)")
+    (input,) = _amp("cross_entropy", "black", input)
+    lbl = label
+    if lbl.dim() == input.dim():
+        lbl = lbl.squeeze(axis)
+    lbl = lbl.long()
+    valid = lbl != ignore_index
+    safe = torch.where(valid, lbl, 0)
+    lse = torch.logsumexp(input.float(), dim=axis)
+    picked = input.gather(axis, safe.unsqueeze(axis)).squeeze(axis).float()
+    loss = torch.where(valid, lse - picked, 0.0)
+    if reduction == "mean":
+        return loss.sum() / valid.float().sum().clamp_min(1.0)
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "none":
+        return loss
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def _sdpa_takes_kernel(q_shape, k_shape, attn_mask, dropout_p, training):
+    """nn_ops.py:869-874's test for sending an SDPA call to the flash
+    kernels, less its device check: no mask, no live dropout, and shapes
+    the kernels take."""
+    return attn_mask is None and (dropout_p == 0.0 or not training) \
+        and _shapes_ok(q_shape, k_shape)
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 is_causal=False):
-    """The plain attention composite of ops/nn_ops.py:875-899 on the
-    paddle layout [batch, seq, heads, head_dim]: f32 scores, an optional
-    bottom-right-aligned causal mask, a boolean or additive mask, f32
-    softmax cast back to the query dtype, then probs @ v. Dropout-free
-    (the serving slice runs in eval mode)."""
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, generator=None):
+    """Attention on the paddle layout [batch, seq, heads, head_dim]
+    (ops/nn_ops.py:862).
+
+    On CUDA tensors an eligible call — no mask, no live dropout, shapes
+    the kernels take — goes to the flash-attention kernels, as the
+    reference sends it to its TPU kernel (nn_ops.py:869-874). Otherwise
+    the plain composite of nn_ops.py:875-899 runs: f32 scores, an
+    optional bottom-right-aligned causal mask, a boolean or additive
+    mask, f32 softmax cast back to the query dtype, dropout of the
+    probabilities (drawn from `generator`), then probs @ v."""
+    query, key, value, attn_mask = _amp(
+        "scaled_dot_product_attention", "white", query, key, value,
+        attn_mask)
+    if query.device.type == "cuda" and _sdpa_takes_kernel(
+            query.shape, key.shape, attn_mask, dropout_p, training):
+        return flash_attention(query, key, value, causal=is_causal)
     q = query.transpose(1, 2)                            # [b, h, s, d]
     k = key.transpose(1, 2)
     v = value.transpose(1, 2)
@@ -67,5 +172,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         else:
             scores = scores + attn_mask.to(scores.dtype)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if dropout_p > 0.0 and training:
+        keep = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) < 1.0 - dropout_p
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            0.0).to(q.dtype)
     out = torch.matmul(probs, v)
     return out.transpose(1, 2)                           # [b, s, h, d]

@@ -42,9 +42,16 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    def __init__(self, p=0.5):
+    """Dropout in training mode (nn/layers/common.py:44). `generator`: a
+    torch.Generator on the layer's device that the masks are drawn from
+    (None: torch's default generator)."""
+
+    def __init__(self, p=0.5, mode="upscale_in_train", *, generator=None):
         super().__init__()
         self.p = p
+        self.mode = mode
+        self.generator = generator
 
     def forward(self, x):
-        return nn.functional.dropout(x, self.p, self.training)
+        return F.dropout(x, self.p, self.training, self.mode,
+                         generator=self.generator)

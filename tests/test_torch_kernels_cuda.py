@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels.ragged_paged_attention import (
     ragged_paged_attention)
+from paddle_tpu_torch.nn import functional as F
 
 
 @pytest.fixture
@@ -141,3 +143,127 @@ def test_ragged_kernel_reads_strided_token_views(cuda_device):
                                   v.contiguous(), *rest, **kw,
                                   path="torch")
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: B1 (forward) and B2 (backward) against their plain
+# versions
+# ---------------------------------------------------------------------------
+FLASH = {
+    # name: (b, sq, sk, H, Hk, D, causal, segments)
+    "causal_d64": (2, 256, 256, 4, 4, 64, True, False),
+    "noncausal_d128": (1, 128, 256, 2, 2, 128, False, False),
+    "gqa_d128": (1, 256, 256, 8, 2, 128, True, False),
+    "mqa_d256": (1, 128, 128, 4, 1, 256, True, False),
+    "segments": (2, 256, 256, 2, 2, 64, True, True),
+    "cross_sq_lt_sk": (1, 128, 384, 2, 2, 64, True, False),
+    "cross_sq_gt_sk": (1, 384, 128, 2, 2, 64, True, False),  # masked rows
+}
+# f32: the kernels compute in f32 like the plain version; only the
+# summation order differs. bf16: both round p (and ds) to bf16 before the
+# products, the kernel relative to its running row max, which moves a
+# row by ~2^-9 of its rms; outputs are bf16 (ulp 2^-8..2^-7 relative)
+F32_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _bf16_close(got, want, what):
+    """|got - want| <= 2^-6 * (|want| + rms of want's row + rms of want)
+    element by element, a row being the head_dim axis: a late query row,
+    far smaller than the first rows, is held to about its own size; the
+    tensor's rms covers rows that are 0 only by cancellation."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    row = want.pow(2).mean(-1, keepdim=True).sqrt()
+    bad = err > 2 ** -6 * (want.abs() + row + want.pow(2).mean().sqrt())
+    assert not bad.any(), (what, err[bad].max().item(), int(bad.sum()))
+
+
+def _flash_case(name, dtype, dev):
+    b, sq, sk, H, Hk, D, causal, seg = FLASH[name]
+    rng = np.random.default_rng(len(name))
+    mk = lambda *s: torch.as_tensor(
+        rng.standard_normal(s).astype(np.float32), device=dev).to(dtype)
+    q, do = mk(b, sq, H, D), mk(b, sq, H, D)
+    k, v = mk(b, sk, Hk, D), mk(b, sk, Hk, D)
+    segs = None
+    if seg:
+        qs = np.zeros((b, sq), np.int32)
+        ks = np.zeros((b, sk), np.int32)
+        qs[0, sq // 3:] = 1
+        ks[0, sk // 3:] = 1
+        qs[1, sq // 2:] = 5          # no key carries 5: rows fully masked
+        segs = (torch.as_tensor(qs, device=dev),
+                torch.as_tensor(ks, device=dev))
+    return q * torch.tensor(D ** -0.5, dtype=dtype, device=dev), k, v, do, \
+        causal, segs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(FLASH))
+def test_flash_kernels_match_plain(cuda_device, name, dtype):
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    qs, k, v, do, causal, segs = _flash_case(name, dt, cuda_device)
+    sc = qs.shape[-1] ** -0.5
+    n_f, n_b = fa.flash_fwd.kernel_launches, fa.flash_bwd.kernel_launches
+    o, lse = fa.flash_fwd(qs, k, v, causal, segs, path="cuda")
+    dq, dk, dv = fa.flash_bwd(qs, k, v, o, lse, do, sc, causal, segs,
+                              path="cuda")
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.kernel_launches == n_f + 1
+    assert fa.flash_bwd.kernel_launches == n_b + 1
+    wo, wlse = fa.flash_fwd(qs, k, v, causal, segs, path="torch")
+    # B2 from the same (o, lse) on both sides, so only B2 differs
+    wdq, wdk, wdv = fa.flash_bwd(qs, k, v, o, lse, do, sc, causal, segs,
+                                 path="torch")
+    torch.testing.assert_close(lse, wlse, **F32_TOL)
+    for what, got, want in (("o", o, wo), ("dq", dq, wdq), ("dk", dk, wdk),
+                            ("dv", dv, wdv)):
+        assert got.dtype == want.dtype and got.shape == want.shape, what
+        assert torch.isfinite(got).all(), what
+        if dt == torch.float32:
+            torch.testing.assert_close(got, want, **F32_TOL)
+        else:
+            _bf16_close(got, want, what)
+    dead = wlse < -1e29                                  # [b, H, sq]
+    if dead.any():
+        rows = dead.transpose(1, 2)                      # [b, sq, H]
+        assert (o[rows] == 0).all() and (dq[rows] == 0).all()
+
+
+@pytest.mark.cuda
+def test_flash_kernels_read_strided_qkv_views(cuda_device):
+    """GPT hands q/k/v as views of the fused qkv projection
+    [b, s, 3, H, D] (token stride 3*H*D): read in place, no copy."""
+    b, s, H, D = 2, 256, 4, 64
+    rng = np.random.default_rng(3)
+    qkv = torch.as_tensor(rng.standard_normal((b, s, 3, H, D)).astype(
+        np.float32), device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv.unbind(dim=2)
+    assert not k.is_contiguous()
+    o, lse = fa.flash_fwd(q, k, v, True, None, path="cuda")
+    wo, wlse = fa.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                            True, None, path="cuda")
+    torch.testing.assert_close(o, wo, rtol=0, atol=0)
+    torch.testing.assert_close(lse, wlse, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_sdpa_on_cuda_routes_into_the_kernels(cuda_device):
+    """An eligible SDPA call on CUDA tensors launches B1 and, through
+    autograd, B2 (the routing of nn_ops.py:869-874); a masked one does
+    not."""
+    b, s, H, D = 1, 256, 2, 64
+    rng = np.random.default_rng(4)
+    x = [torch.as_tensor(rng.standard_normal((b, s, H, D)).astype(
+        np.float32), device=cuda_device).requires_grad_() for _ in range(3)]
+    n_f, n_b = fa.flash_fwd.kernel_launches, fa.flash_bwd.kernel_launches
+    out = F.scaled_dot_product_attention(*x, is_causal=True)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.kernel_launches == n_f + 1
+    assert fa.flash_bwd.kernel_launches == n_b + 1
+    mask = torch.ones((s, s), dtype=torch.bool, device=cuda_device).tril()
+    want = F.scaled_dot_product_attention(*x, attn_mask=mask)
+    assert fa.flash_fwd.kernel_launches == n_f + 1
+    torch.testing.assert_close(out, want, **F32_TOL)

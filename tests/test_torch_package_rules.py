@@ -1,6 +1,7 @@
 """paddle_tpu_torch's package rules: it never imports jax or anything of
-paddle_tpu (chip_smoke.py neither), and its entry points run on the CUDA
-card unless the caller asks for the CPU."""
+paddle_tpu (chip_smoke.py neither), serving and training included, and
+its entry points run on the CUDA card unless the caller asks for the
+CPU."""
 import os
 import re
 import subprocess
@@ -27,6 +28,20 @@ eng = LLMEngine(m, max_batch=2, block_size=16, max_model_len=64,
                 prompt_quantum=16, decode_chunk=2, device="cpu")
 res = eng.generate([np.arange(5, dtype=np.int32)], max_new_tokens=3)
 assert len(res[0].output_ids) == 3
+from paddle_tpu_torch import TrainStep, amp
+from paddle_tpu_torch.models import GPTPretrainingCriterion
+from paddle_tpu_torch.optimizer import AdamW
+tm = GPTForCausalLM(gpt_tiny(hidden_dropout_prob=0.0,
+                             attention_dropout_prob=0.0), device="cpu")
+crit = GPTPretrainingCriterion()
+def loss_fn(model, ids, labels):
+    with amp.auto_cast(level="O1"):
+        logits = model(ids)
+    return crit(logits, labels)
+step = TrainStep(tm, AdamW(learning_rate=1e-4,
+                           parameters=tm.parameters()), loss_fn)
+ids = np.arange(32, dtype=np.int32).reshape(2, 16)
+assert np.isfinite(float(step(ids, ids)))
 bad = [k for k in sys.modules
        if k == "jax" or k.startswith("jax.") or k == "paddle_tpu"
        or k.startswith("paddle_tpu.")]

@@ -6,15 +6,17 @@
 Run from the root of a checkout. Phases, each of which must pass:
 
   1. the card (nvidia-smi name and power limit); build the CUDA kernels
-     (nvcc, sm_90a: ragged paged attention, flash attention) and the
+     (nvcc, sm_90a: ragged paged attention, flash attention, norms) and the
      block allocator (g++) from the checkout's sources, all at once, timed;
   2. the serving kernel (B3) against its plain PyTorch version on the
-     card, at the engine's shapes, timed with CUDA events beside the
-     roofline bound of the same work;
-  3. the training kernels (B1 flash-attention forward, B2 backward)
-     against their plain versions in seven cases (gpt2_small's and
-     gpt3_1p3b's training shapes, GQA, segment ids, non-causal,
-     cross-length causal both ways, head_dim 256), in bf16 and in f32,
+     card, at the engine's shapes (gpt3_1p3b's 16 heads, GQA, int8,
+     padding, and llama2_7b's 32 heads), timed with CUDA events beside
+     the roofline bound of the same work;
+  3. the flash-attention kernels (B1 forward, B2 backward) against their
+     plain versions in nine cases (gpt2_small's and gpt3_1p3b's training
+     shapes, GQA, segment ids, non-causal, cross-length causal both ways,
+     head_dim 256, and the fused encoder's non-causal call on k/v views
+     of a packed qkv projection), in bf16 and in f32,
      element by element relative to each row's size, with two faults
      planted in the kernels' outputs that the check must reject; timed
      beside their bound, the plain versions and one
@@ -32,7 +34,28 @@ Run from the root of a checkout. Phases, each of which must pass:
   7. TrainStep with the flash kernels against TrainStep with the plain
      attention composite, in f32 (TF32 off), on 2 layers at gpt2_small's
      widths: per-step losses, and the parameters after 3 steps (the
-     largest difference and the share of elements that differ).
+     largest difference and the share of elements that differ);
+  8. the norm kernels (B4 layer norm, B5 RMS norm) against their plain
+     versions at the main paths' shapes and two edge cases, in bf16 and
+     f32, with the affine on and off, element by element, with two
+     faults planted that the check must reject; timed by CUDA-graph
+     replay (device time only) beside their bound, the plain versions
+     and one torch.nn.functional.layer_norm / rms_norm call (a
+     yardstick only);
+  9. llama2_7b (bf16, all 32 layers, random weights from seed 0) served
+     by LLMEngine as in phase 4; B3's counters are read around it, and
+     B5 runs through incubate fused_rms_norm on every decoder layer's
+     input captured during the first packed wave, held to the layer's
+     own RMSNorm within the reference's split of the two forms, with
+     B5's counters read around those calls;
+ 10. phase 5 for LLaMA: 2 layers at llama2_7b's widths with 8 kv heads
+     (GQA through B3 and the decode path);
+ 11. 12 FusedTransformerEncoderLayers at bert_base's widths (post-LN,
+     eval, bf16, batch 16 x seq 512): B4's and B1's counters read
+     around one forward (24 and 12), B1's operands in that forward
+     recorded and its results held to its plain version, the forward
+     timed, and a 2-layer f32 copy on the card held to the same stack
+     run on the CPU.
 
 The last three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
@@ -41,6 +64,7 @@ checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -56,6 +80,7 @@ import numpy as np
 # flops / bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12          # outside the tensor cores
 
 # kernel vs plain tolerance (absolute, on f32 outputs of order 1): the
 # plain version runs in f32 on the same bf16 values the kernel reads,
@@ -67,6 +92,57 @@ KERNEL_ATOL = 1e-3
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def kernel_events(**targets):
+    """Measurement only: while the block runs, each wrapper named by
+    targets (name=(module, attribute)) is timed by CUDA events around
+    every call; yields {name: [(start, end), ...]}, read after a
+    synchronise. The wrappers are restored on exit."""
+    import torch
+    events = {name: [] for name in targets}
+    saved = {name: getattr(m, a) for name, (m, a) in targets.items()}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            r = fn(*args, **kw)
+            e.record()
+            events[name].append((s, e))
+            return r
+        return run
+
+    for name, (m, a) in targets.items():
+        setattr(m, a, timed(name, saved[name]))
+    try:
+        yield events
+    finally:
+        for name, (m, a) in targets.items():
+            setattr(m, a, saved[name])
+
+
+@contextlib.contextmanager
+def kernel_calls(module, attr):
+    """Checking only: while the block runs, every call of the wrapper
+    module.attr is recorded as (args, result), for holding the kernel's
+    results on the main path against its plain version afterwards. The
+    wrapper is restored on exit; nothing is launched by the recording."""
+    calls = []
+    saved = getattr(module, attr)
+
+    def run(*args):
+        r = saved(*args)
+        calls.append((args, r))
+        return r
+
+    setattr(module, attr, run)
+    try:
+        yield calls
+    finally:
+        setattr(module, attr, saved)
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -87,6 +163,38 @@ def cuda_ms(fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
+def graph_ms(fn, reps=20, iters=10):
+    """Median device time of one `fn` call: `reps` calls captured in one
+    CUDA graph and replayed `iters` times between CUDA events. Unlike
+    cuda_ms, no host time enters: a call shorter than its wrapper's
+    host path (argument checks, allocation, the launch) is timed as what
+    the device spends on it."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / reps)
+    del graph
+    return statistics.median(times)
+
+
 # ---------------------------------------------------------------------------
 # phase 1: card and builds
 # ---------------------------------------------------------------------------
@@ -103,9 +211,11 @@ def build_all() -> dict:
     started together); returns {name: seconds}."""
     from paddle_tpu_torch.inference import paged_cache
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import norms
     from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
     jobs = {"ragged_paged_attention.cu (nvcc)": rpa._load_kernel,
             "flash_attention.cu (nvcc)": fa._load_kernel,
+            "norms.cu (nvcc)": norms._load_kernel,
             "_block_allocator.cpp (g++)": paged_cache._load_lib}
     secs, errors = {}, {}
 
@@ -247,6 +357,12 @@ def kernel_phase() -> list:
         ("dead padding rows",
          dict(rows_spec=[(100, 16), (0, 0), (777, 1), (0, 0), (64, 9),
                          (300, 5), (0, 0), (1000, 3)])),
+        # llama2_7b's waves in phase 9: 32 heads, as many kv heads
+        ("llama2_7b fresh wave H=32",
+         dict(rows_spec=[(0, 512 + int(m)) for m in rng.integers(8, 33, 8)],
+              H=32, Hk=32)),
+        ("llama2_7b prefix-resume H=32",
+         dict(rows_spec=prefix_tails, H=32, Hk=32, shared_prefix_pages=8)),
     ]
     out = []
     for name, kw in specs:
@@ -298,18 +414,21 @@ def kernel_phase() -> list:
 # ---------------------------------------------------------------------------
 # phase 4: gpt3_1p3b served at full width and depth
 # ---------------------------------------------------------------------------
-def engine_phase() -> dict:
+def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
+    """Serve 16 requests sharing a 512-token prefix (64 new tokens each)
+    through LLMEngine on the model `build()` returns ((model, cfg), bf16
+    at full width and depth). `wave_hooks(model)` names modules whose
+    inputs are captured during the first packed wave; `after(model,
+    captured)` runs checks on them before the model is freed and returns
+    a dict merged into the record."""
     import torch
     from paddle_tpu_torch.inference import LLMEngine
     from paddle_tpu_torch.inference import llm_engine as eng_mod
     from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
 
-    cfg = gpt3_1p3b()
     t0 = time.perf_counter()
-    model = GPTForCausalLM(cfg, dtype="bfloat16", seed=0)
-    eng = LLMEngine(model, max_batch=8, block_size=64, decode_chunk=16,
-                    prompt_quantum=128)
+    model, cfg = build()
+    eng = LLMEngine(model, **engine_kw)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
@@ -322,16 +441,22 @@ def engine_phase() -> dict:
     # measurement only: wall time of each packed wave and of each decode
     # chunk (with its step count), and device time of each attention call
     # inside the waves (CUDA events, read after the run)
-    waves, chunks, events = [], [], []
+    waves, chunks, captured = [], [], []
     run_ragged = eng._run_ragged
     decode_chunk = eng._decode_chunk
-    attn = eng_mod.ragged_paged_attention
+    hooked = wave_hooks(model) if wave_hooks else []
 
     def timed_wave(entries):
+        # measurement only: the first wave's hooked inputs are copied out
+        handles = [] if waves else [m.register_forward_pre_hook(
+            lambda _m, args: captured.append(args[0].detach().clone()))
+            for m in hooked]
         torch.cuda.synchronize()
         t = time.perf_counter()
         r = run_ragged(entries)
         waves.append(time.perf_counter() - t)
+        for h in handles:
+            h.remove()
         return r
 
     def timed_chunk(cur, lens, tbl, flat):
@@ -341,20 +466,10 @@ def engine_phase() -> dict:
         chunks.append((time.perf_counter() - t, flat.shape[0]))
         return r
 
-    def timed_attn(*a, **kw):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        o = attn(*a, **kw)
-        e.record()
-        events.append((s, e))
-        return o
-
     eng._run_ragged = timed_wave
     eng._decode_chunk = timed_chunk
-    eng_mod.ragged_paged_attention = timed_attn
     torch.cuda.reset_peak_memory_stats()
-    try:
+    with kernel_events(attn=(eng_mod, "ragged_paged_attention")) as events:
         for i, p in enumerate(prompts):
             eng.add_request(i, p, max_new_tokens=n_new)
         done, step_s = {}, []
@@ -370,9 +485,7 @@ def engine_phase() -> dict:
         run_s = time.perf_counter() - t_run
         launches = rpa.ragged_paged_attention.kernel_launches
         plain_calls = rpa.ragged_paged_attention.plain_calls
-    finally:
-        eng_mod.ragged_paged_attention = attn
-    attn_ms = sum(s.elapsed_time(e) for s, e in events)
+    attn_ms = sum(s.elapsed_time(e) for s, e in events["attn"])
 
     bad = [i for i in range(len(prompts))
            if i not in done or done[i].finish_reason != "length"
@@ -395,7 +508,8 @@ def engine_phase() -> dict:
     decode_steps = sum(n for _s, n in chunks)
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
-    rec = dict(tokens=n_tok, run_s=run_s, tokens_per_s=n_tok / run_s,
+    rec = dict(config=label, layers=cfg.num_layers, tokens=n_tok,
+               run_s=run_s, tokens_per_s=n_tok / run_s,
                steps=len(step_s), step_ms_mean=1e3 * run_s / len(step_s),
                step_ms_median=1e3 * statistics.median(step_s),
                step_ms_max=1e3 * max(step_s),
@@ -414,7 +528,9 @@ def engine_phase() -> dict:
                    "prefills", "preemptions", "decode_chunks",
                    "decode_tokens", "prefix_cache_hit_tokens",
                    "prefix_cache_miss_tokens", "ragged_launches")})
-    log(f"[engine] gpt3_1p3b bf16 {cfg.num_layers} layers: {n_tok} tokens "
+    if after is not None:
+        rec.update(after(model, captured))
+    log(f"[engine] {label} bf16 {cfg.num_layers} layers: {n_tok} tokens "
         f"in {run_s:.3f} s = {rec['tokens_per_s']:.1f} tokens/s; "
         f"{len(step_s)} steps, step wall ms mean "
         f"{rec['step_ms_mean']:.2f} median {rec['step_ms_median']:.2f} "
@@ -426,23 +542,40 @@ def engine_phase() -> dict:
         f"{rec['weight_read_ms']:.3f} ms); "
         f"peak mem {rec['peak_mem_gb']:.2f} GiB; "
         f"stats {rec['stats']}")
-    del eng, model
+    del eng, model, captured
     torch.cuda.empty_cache()
     return rec
+
+
+def engine_phase() -> dict:
+    """Phase 4: gpt3_1p3b served at full width and depth."""
+    def build():
+        from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+        cfg = gpt3_1p3b()
+        return GPTForCausalLM(cfg, dtype="bfloat16", seed=0), cfg
+
+    return serve_phase("gpt3_1p3b", build, dict(
+        max_batch=8, block_size=64, decode_chunk=16, prompt_quantum=128))
 
 
 # ---------------------------------------------------------------------------
 # phase 5: engine == dense generate (f32, TF32 off)
 # ---------------------------------------------------------------------------
-def parity_phase() -> dict:
+def parity_phase(label="gpt3_1p3b", build=None) -> dict:
+    """Greedy tokens of LLMEngine against the port's dense `generate`, in
+    f32 with TF32 off, under the logit-margin guard, on the 2-layer
+    model `build()` returns (gpt3_1p3b's widths by default)."""
     import torch
     from paddle_tpu_torch.inference import LLMEngine
     from paddle_tpu_torch.models import GPTForCausalLM, generate, gpt3_1p3b
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(gpt3_1p3b(), num_layers=2)
-    model = GPTForCausalLM(cfg, dtype="float32", seed=1)
+    if build is None:
+        cfg = dataclasses.replace(gpt3_1p3b(), num_layers=2)
+        model = GPTForCausalLM(cfg, dtype="float32", seed=1)
+    else:
+        model, cfg = build()
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
                for n in rng.integers(190, 211, 4)]
@@ -464,27 +597,33 @@ def parity_phase() -> dict:
             guarded.append(n)
             if not np.array_equal(r.output_ids[:n], dense[len(p):][:n]):
                 mismatched.append(i)
-    log(f"[parity] engine vs dense generate (f32, 2 layers): tokens "
+    log(f"[parity] {label}: engine vs dense generate (f32, 2 layers): tokens "
         f"compared per request {guarded} of {n_new} (margin guard "
         f"{margin}); mismatched requests {mismatched}")
     if mismatched or min(guarded) == 0:
         raise RuntimeError("engine tokens differ from dense generate")
-    return dict(guarded=guarded, n_new=n_new)
+    del eng, model
+    torch.cuda.empty_cache()
+    return dict(config=label, guarded=guarded, n_new=n_new)
 
 
 # ---------------------------------------------------------------------------
 # phase 3: B1/B2 (flash attention) vs their plain versions
 # ---------------------------------------------------------------------------
-# name: (b, sq, sk, H, Hk, D, causal, segments)
+# name: (b, sq, sk, H, Hk, D, causal, segments, packed): packed = k and v
+# are strided views of one [b, s, 3, H, D] projection, as
+# fused_multi_head_attention hands them to B1
 FLASH_CASES = [
-    ("a gpt2_small train", (16, 1024, 1024, 12, 12, 64, True, False)),
-    ("b gpt3_1p3b train", (4, 2048, 2048, 16, 16, 128, True, False)),
-    ("c GQA H16/Hk4", (4, 1024, 1024, 16, 4, 128, True, False)),
-    ("d segment ids", (4, 1024, 1024, 12, 12, 64, True, True)),
-    ("e non-causal", (4, 1024, 1024, 12, 12, 64, False, False)),
-    ("f cross sq<sk", (4, 512, 1024, 12, 12, 64, True, False)),
-    ("f cross sq>sk", (4, 1024, 512, 12, 12, 64, True, False)),
-    ("g head_dim 256", (2, 1024, 1024, 8, 8, 256, True, False)),
+    ("a gpt2_small train", (16, 1024, 1024, 12, 12, 64, True, False, False)),
+    ("b gpt3_1p3b train", (4, 2048, 2048, 16, 16, 128, True, False, False)),
+    ("c GQA H16/Hk4", (4, 1024, 1024, 16, 4, 128, True, False, False)),
+    ("d segment ids", (4, 1024, 1024, 12, 12, 64, True, True, False)),
+    ("e non-causal", (4, 1024, 1024, 12, 12, 64, False, False, False)),
+    ("f cross sq<sk", (4, 512, 1024, 12, 12, 64, True, False, False)),
+    ("f cross sq>sk", (4, 1024, 512, 12, 12, 64, True, False, False)),
+    ("g head_dim 256", (2, 1024, 1024, 8, 8, 256, True, False, False)),
+    ("h fused encoder, packed qkv",
+     (16, 512, 512, 12, 12, 64, False, False, True)),
 ]
 # kernel vs plain tolerances, element by element: |got - want| <= tol *
 # (|want| + rms of want's row + rms of want), a row being the head_dim
@@ -507,13 +646,22 @@ PLANTED = ("o late rows x1.05", "dv last k tile zeroed")
 
 def _flash_inputs(spec, dtype, seed):
     import torch
-    b, sq, sk, H, Hk, D, causal, seg = spec
+    b, sq, sk, H, Hk, D, causal, seg, packed = spec
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     rnd = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)
-    qs = rnd(b, sq, H, D) * torch.tensor(D ** -0.5, dtype=dtype,
-                                         device="cuda")
-    k, v, do = rnd(b, sk, Hk, D), rnd(b, sk, Hk, D), rnd(b, sq, H, D)
+    scale = torch.tensor(D ** -0.5, dtype=dtype, device="cuda")
+    if packed:
+        # k and v stay views of the projection (read in place, row stride
+        # 3*H*D); q is pre-scaled into a tensor of its own, as _FlashCore
+        # does
+        q, k, v = rnd(b, sq, 3, H, D).unbind(2)
+        qs, do = q * scale, rnd(b, sq, H, D)
+        if k.is_contiguous() or v.is_contiguous():
+            raise RuntimeError("packed case: k/v are not strided views")
+    else:
+        qs = rnd(b, sq, H, D) * scale
+        k, v, do = rnd(b, sk, Hk, D), rnd(b, sk, Hk, D), rnd(b, sq, H, D)
     segs = None
     if seg:
         # three packed documents per row and tail padding (-1 on both
@@ -534,7 +682,7 @@ def _flash_inputs(spec, dtype, seed):
 def _valid_pairs(spec, segs):
     """(q head, q, k) pairs the mask leaves valid, counted from the data."""
     import torch
-    b, sq, sk, H, Hk, D, causal, seg = spec
+    b, sq, sk, H, Hk, D, causal, _seg, _packed = spec
     ok = torch.ones((1, sq, sk), dtype=torch.bool, device="cuda")
     if causal:
         ok = (torch.arange(sq, device="cuda")[:, None] + (sk - sq)
@@ -549,7 +697,7 @@ def _flash_bound(spec, pairs, itemsize, bwd):
     """(bound_ms, bound_by, bytes, flops): 4*D flops per valid pair
     forward, 10*D backward (s recomputed, dv, dp, dk, dq); bytes are q, k,
     v, o (+ do, dq, dk, dv backward) and lse (+ delta), each once."""
-    b, sq, sk, H, Hk, D, causal, seg = spec
+    b, sq, sk, H, Hk, D, _causal, _seg, _packed = spec
     qo = b * sq * H * D * itemsize
     kv = b * sk * Hk * D * itemsize
     stats = b * H * sq * 4
@@ -626,12 +774,12 @@ def flash_phase() -> list:
     from paddle_tpu_torch.kernels import flash_attention as fa
     out = []
     for i, (name, spec) in enumerate(FLASH_CASES):
-        b, sq, sk, H, Hk, D, causal, seg = spec
+        b, sq, sk, H, Hk, D, causal, seg, packed = spec
         if fa.attention_path((b, sq, H, D), (b, sk, Hk, D)) != ("cuda", ""):
             raise RuntimeError(f"flash case {name!r} would not take the "
                                "kernels")
         rec = dict(case=name, b=b, sq=sq, sk=sk, H=H, Hk=Hk, D=D,
-                   causal=causal, segments=seg)
+                   causal=causal, segments=seg, packed_qkv=packed)
         for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             qs, k, v, do, segs = _flash_inputs(spec, dtype, seed=i)
             sc = D ** -0.5
@@ -749,26 +897,10 @@ def train_phase() -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    # measurement only: device time of every B1/B2 call (CUDA events
-    # around the wrappers, read after the run)
-    events = {"fwd": [], "bwd": []}
-    fwd_cuda, bwd_cuda = fa._fwd_cuda, fa._bwd_cuda
-
-    def timed(kind, fn):
-        def run(*a, **kw):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            r = fn(*a, **kw)
-            e.record()
-            events[kind].append((s, e))
-            return r
-        return run
-
+    # measurement only: device time of every B1/B2 call
     torch.cuda.reset_peak_memory_stats()
-    fa._fwd_cuda, fa._bwd_cuda = timed("fwd", fwd_cuda), timed("bwd",
-                                                              bwd_cuda)
-    try:
+    with kernel_events(fwd=(fa, "_fwd_cuda"), bwd=(fa, "_bwd_cuda")) \
+            as events:
         for f in (fa.flash_fwd, fa.flash_bwd):
             f.kernel_launches = f.plain_calls = 0
         losses, step_s = [], []
@@ -785,8 +917,6 @@ def train_phase() -> dict:
         launches = (fa.flash_fwd.kernel_launches,
                     fa.flash_bwd.kernel_launches)
         plain = (fa.flash_fwd.plain_calls, fa.flash_bwd.plain_calls)
-    finally:
-        fa._fwd_cuda, fa._bwd_cuda = fwd_cuda, bwd_cuda
     losses = [float(x) for x in losses]
     timed_s = step_s[warmup:]
     per_step = {k: sum(s.elapsed_time(e) for s, e in v) / steps
@@ -899,6 +1029,342 @@ def train_parity_phase() -> dict:
                 param_bound=bound, params_far=far, params_total=n)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: B4 (layer norm) and B5 (RMS norm) vs their plain versions
+# ---------------------------------------------------------------------------
+# (name, rows, width): the main paths' shapes and two edge cases
+NORM_CASES = [
+    ("llama2_7b prefill", 8192, 4096),
+    ("llama decode", 8, 4096),
+    ("bert_base", 8192, 768),
+    ("gpt3_1p3b", 8192, 2048),
+    # rows not 16-byte aligned: the scalar path, 8 warps a row
+    ("odd rows, width not a multiple of 8", 7, 1001),
+    ("wide row", 64, 16384),
+]
+# kernel vs plain, element by element: |got - want| <= tol * (|want| +
+# floor * rms of want's row). Both compute the same f32 value (sums in
+# other orders, rsqrtf within 2 ulps) and round it once: one ulp of the
+# output dtype apart (bf16 <= 2^-7 relative), or, for a value near 0
+# after centring, f32 noise of the row's size.
+NORM_TOL = {"bf16": (2.0 ** -7, 2.0 ** -8), "f32": (1e-5, 1.0)}
+# fused_rms_norm (the kernel form: weight in f32, one cast) against
+# LLaMA's RMSNorm (the reference's plain op: cast, then the weight in
+# bf16): the known split of the reference, two bf16 roundings apart
+SPLIT_TOL = (2.0 ** -6, 2.0 ** -8)
+NORM_PLANTED = ("late row x(1+2^-5)", "last column's weight dropped")
+
+
+def _lim_err(got, want, tol):
+    """The largest |got - want| / (tol[0] * (|want| + tol[1] * rms of
+    want's row)) over the elements: above 1 fails."""
+    import torch
+    got, want = got.float(), want.float()
+    row = want.pow(2).mean(-1, keepdim=True).sqrt()
+    lim = tol[0] * (want.abs() + tol[1] * row)
+    d = (got - want).abs()
+    return float(torch.where(lim > 0, d / lim,
+                             torch.where(d > 0, float("inf"), 0.0)).max())
+
+
+def _norm_bound(kind, n, h, itemsize, affine):
+    """(bound_ms, bound_by, bytes, flops): x read and out written once,
+    w (and b) read once; f32 flops per element (layer norm: sum, centre,
+    square-add, centre, scale = 6; RMS: square-add, scale = 3; +1 for
+    each affine term) over the card's f32 rate outside the tensor cores."""
+    terms = (2 if kind == "layer_norm" else 1) if affine else 0
+    nbytes = 2 * n * h * itemsize + terms * h * itemsize
+    flops = n * h * ((6 if kind == "layer_norm" else 3) + terms)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", int(nbytes), int(flops))
+
+
+def norm_phase() -> list:
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.kernels import norms
+    out = []
+    for ci, (name, n, h) in enumerate(NORM_CASES):
+        for kind in ("layer_norm", "rms_norm"):
+            fwd = norms.layer_norm_fwd if kind == "layer_norm" \
+                else norms.rms_norm_fwd
+            eps = 1e-5 if kind == "layer_norm" else 1e-6
+            for dt, dtype in (("bf16", torch.bfloat16),
+                              ("f32", torch.float32)):
+                g = torch.Generator(device="cuda")
+                g.manual_seed(ci)
+                x = (torch.randn((n, h), generator=g, device="cuda") * 2
+                     + 1).to(dtype)
+                w = torch.rand((h,), generator=g, device="cuda") + 0.5
+                w[-1] = 0.6          # away from 1: dropping it is a fault
+                w = w.to(dtype)
+                b = torch.randn((h,), generator=g, device="cuda").to(dtype)
+                for affine in (True, False):
+                    wa = w if affine else None
+                    ba = b if affine and kind == "layer_norm" else None
+                    args = (x, wa, ba) if kind == "layer_norm" else (x, wa)
+
+                    def kern():
+                        return fwd(*args, eps, path="cuda")
+
+                    def plain():
+                        return fwd(*args, eps, path="torch")
+
+                    got = kern()
+                    torch.cuda.synchronize()
+                    want = plain()
+                    if not torch.isfinite(got).all() or \
+                            got.dtype != dtype or got.shape != x.shape:
+                        raise RuntimeError(f"norm case {name!r} {kind} {dt}"
+                                           ": non-finite or wrong shape")
+                    err = _lim_err(got, want, NORM_TOL[dt])
+                    if err > 1.0:
+                        raise RuntimeError(
+                            f"norm case {name!r} {kind} {dt} affine="
+                            f"{affine}: normalised err {err} > 1")
+                    planted = {}
+                    if affine:
+                        late = got.clone()
+                        r = n - 1 - n // 4
+                        late[r] = (late[r].float() * (1 + 2 ** -5)).to(dtype)
+                        # a copy: float() of an f32 tensor is the tensor
+                        no_w = got.float().clone()
+                        shift = b[-1].float() if ba is not None else 0.0
+                        no_w[:, -1] = (no_w[:, -1] - shift) / w[-1].float() \
+                            + shift
+                        planted = dict(zip(NORM_PLANTED, (
+                            _lim_err(late, want, NORM_TOL[dt]),
+                            _lim_err(no_w.to(dtype), want, NORM_TOL[dt]))))
+                        for what, e in planted.items():
+                            if e <= 1.0:
+                                raise RuntimeError(
+                                    f"norm case {name!r} {kind} {dt}: the "
+                                    f"check passes a planted fault ({what}:"
+                                    f" {e})")
+                    if kind == "layer_norm":
+                        lib = lambda: tF.layer_norm(x, (h,), wa, ba, eps)
+                    else:
+                        lib = lambda: tF.rms_norm(x, (h,), wa, eps)
+                    bms, by, nb, fl = _norm_bound(kind, n, h,
+                                                  x.element_size(), affine)
+                    rec = dict(case=name, kind=kind, n=n, h=h, dtype=dt,
+                               affine=affine, norm_err=err,
+                               max_abs_err=float((got.float() - want.float())
+                                                 .abs().max()),
+                               planted_norm_err=planted, ms=graph_ms(kern),
+                               plain_ms=graph_ms(plain),
+                               library_ms=graph_ms(lib),
+                               call_ms=cuda_ms(kern), bound_ms=bms,
+                               bound_by=by, bytes=nb, flops=fl)
+                    out.append(rec)
+                    log(f"[norms] {kind} {name} [{n}, {h}] {dt} affine="
+                        f"{affine}: normalised err {err:.3f} (planted "
+                        f"{ {k: round(v, 2) for k, v in planted.items()} }) "
+                        f"max abs err {rec['max_abs_err']:.2e}; kernel "
+                        f"{rec['ms']:.4f} ms (bound {bms:.4f}, {by}; one "
+                        f"call with its host path {rec['call_ms']:.4f}); "
+                        f"plain {rec['plain_ms']:.4f}; library "
+                        f"{rec['library_ms']:.4f}")
+                del x, w, b
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: llama2_7b served at full width and depth; B5 on its activations
+# ---------------------------------------------------------------------------
+def _rms_on_activations(model, captured) -> dict:
+    """B5 through fused_rms_norm on the inputs of every decoder layer's
+    input norm, captured during the first packed wave, against the
+    model's own RMSNorm (the reference's plain op) within the split of
+    the two forms, and against B5's plain version. B5's counters are set
+    to 0 just before the fused_rms_norm calls and read just after."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.functional import fused_rms_norm
+    from paddle_tpu_torch.kernels import norms
+    layers = list(model.llama.layers)
+    if len(captured) != len(layers):
+        raise RuntimeError(f"captured {len(captured)} layer inputs, "
+                           f"expected {len(layers)}")
+    fwd = norms.rms_norm_fwd
+    with torch.no_grad():
+        fwd.kernel_launches = fwd.plain_calls = 0
+        outs = [fused_rms_norm(x, l.input_layernorm.weight,
+                               l.input_layernorm.epsilon)
+                for l, x in zip(layers, captured)]
+        torch.cuda.synchronize()
+        launches, plain_calls = fwd.kernel_launches, fwd.plain_calls
+        split = max(_lim_err(o, l.input_layernorm(x), SPLIT_TOL)
+                    for o, l, x in zip(outs, layers, captured))
+        vs_plain = max(_lim_err(o, fwd(x, l.input_layernorm.weight,
+                                       l.input_layernorm.epsilon,
+                                       path="torch"), NORM_TOL["bf16"])
+                       for o, l, x in zip(outs, layers, captured))
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
+    checks = {
+        f"B5 launched once per layer ({len(layers)})":
+            launches == len(layers),
+        "B5's plain version never ran on CUDA tensors": plain_calls == 0,
+        "fused_rms_norm == the layer's RMSNorm within the split":
+            split <= 1.0 and finite,
+        "B5 == its plain version on real activations": vs_plain <= 1.0,
+    }
+    for what, ok in checks.items():
+        log(f"[engine] check: {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise RuntimeError(f"B5 on real activations failed: launches "
+                           f"{launches} plain {plain_calls} split {split} "
+                           f"vs plain {vs_plain}")
+    log(f"[engine] B5 on {len(outs)} layers' real inputs "
+        f"{list(captured[0].shape)}: normalised err vs RMSNorm {split:.3f} "
+        f"(tol {SPLIT_TOL}), vs plain {vs_plain:.3f}")
+    return dict(b5_launches=launches, b5_plain_calls=plain_calls,
+                b5_rows=int(captured[0].shape[0]),
+                b5_split_norm_err=split, b5_vs_plain_norm_err=vs_plain)
+
+
+def llama_engine_phase() -> dict:
+    def build():
+        import torch
+        from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+        cfg = llama2_7b()
+        model = LlamaForCausalLM(cfg, dtype="bfloat16", seed=0)
+        # RMSNorm weights are constructed as 1; a trained model's are not,
+        # and at 1 the two forms of the norm would not differ: draw them
+        # from N(1, 0.1), seeded
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("norm.weight"):
+                    p.normal_(1.0, 0.1, generator=g)
+        return model, cfg
+
+    return serve_phase(
+        "llama2_7b", build,
+        dict(max_batch=8, block_size=64, decode_chunk=16, prompt_quantum=128,
+             max_model_len=1024),
+        wave_hooks=lambda m: [l.input_layernorm for l in m.llama.layers],
+        after=_rms_on_activations)
+
+
+def llama_parity_phase() -> dict:
+    """Phase 10: engine == dense generate on 2 layers at llama2_7b's
+    widths with 8 kv heads (GQA through B3 and decode)."""
+    def build():
+        from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+        cfg = dataclasses.replace(llama2_7b(), num_layers=2, num_kv_heads=8)
+        return LlamaForCausalLM(cfg, dtype="float32", seed=1), cfg
+
+    return parity_phase("llama2_7b 2 layers GQA 32/8", build)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the incubate fused path (FusedTransformerEncoderLayer)
+# ---------------------------------------------------------------------------
+BERT_BASE = dict(d_model=768, nhead=12, dim_feedforward=3072,
+                 activation="gelu")
+
+
+def _encoder_stack(n_layers, dtype, device="cuda"):
+    """bert_base-wide post-LN FusedTransformerEncoderLayers in eval,
+    layer i seeded with 4 * i."""
+    import torch
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+    stack = torch.nn.Sequential(*[FusedTransformerEncoderLayer(
+        **BERT_BASE, dropout_rate=0.1, normalize_before=False,
+        device=device, dtype=dtype, seed=4 * i) for i in range(n_layers)])
+    return stack.eval()
+
+
+def fused_phase() -> dict:
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import norms
+    n_layers, batch, seq = 12, 16, 512
+    stack = _encoder_stack(n_layers, "bfloat16")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    x = torch.randn((batch, seq, BERT_BASE["d_model"]), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    counters = (norms.layer_norm_fwd, fa.flash_fwd)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        for c in counters:
+            c.kernel_launches = c.plain_calls = 0
+        with kernel_calls(fa, "_fwd_cuda") as b1_calls:
+            y = stack(x)
+        torch.cuda.synchronize()
+        launches = tuple(c.kernel_launches for c in counters)
+        plain = tuple(c.plain_calls for c in counters)
+        # B1 on the main path's operands (pre-scaled q, k and v as views
+        # of each layer's qkv projection) against its plain version
+        b1_err = b1_lse_err = 0.0
+        for (qs, k, v, causal, segs), (o, lse) in b1_calls:
+            wo, wlse = fa.flash_fwd(qs, k, v, causal, segs, path="torch")
+            b1_err = max(b1_err, _norm_err(o, wo))
+            b1_lse_err = max(b1_lse_err, _norm_err(lse, wlse, rows=False))
+        strided = bool(b1_calls) and not b1_calls[0][0][1].is_contiguous()
+        del b1_calls
+        fwd_ms = cuda_ms(lambda: stack(x), iters=5, warmup=1)
+        with kernel_events(b4=(norms, "_norm_cuda"), b1=(fa, "_fwd_cuda")) \
+                as events:
+            stack(x)
+        torch.cuda.synchronize()
+    split = {k: sum(s.elapsed_time(e) for s, e in v)
+             for k, v in events.items()}
+    ok_out = bool(torch.isfinite(y).all()) and y.shape == x.shape
+    # 2 layers in f32: the card (kernels, TF32 off) against the same
+    # stack and weights on the CPU (plain versions)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = _encoder_stack(2, "float32")
+    cpu = _encoder_stack(2, "float32", device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in small.state_dict().items()})
+    xs = torch.randn((2, seq, BERT_BASE["d_model"]), generator=g,
+                     device="cuda")
+    with torch.no_grad():
+        got = small(xs)
+        want = cpu(xs.cpu())
+    parity = _lim_err(got.cpu(), want, (1e-4, 1.0))
+    checks = {
+        "output finite, of the input's shape": ok_out,
+        f"B4 launched twice per layer ({2 * n_layers})":
+            launches[0] == 2 * n_layers,
+        f"B1 launched once per layer ({n_layers})": launches[1] == n_layers,
+        "plain versions never ran on CUDA tensors": plain == (0, 0),
+        "B1 read k and v in place as strided views": strided,
+        f"B1 == its plain version on the layers' operands (o within "
+        f"{FLASH_TOL['bf16']:.2e}, lse within {FLASH_TOL['f32']:.0e})":
+            b1_err <= FLASH_TOL["bf16"] and b1_lse_err <= FLASH_TOL["f32"],
+        "2-layer f32 stack on the card == on the CPU (1e-4 relative)":
+            parity <= 1.0,
+    }
+    for what, ok in checks.items():
+        log(f"[fused] check: {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise RuntimeError(f"fused phase failed: launches {launches} plain "
+                           f"{plain} B1 err {b1_err} lse {b1_lse_err} "
+                           f"parity {parity}")
+    rec = dict(layers=n_layers, batch=batch, seq=seq, forward_ms=fwd_ms,
+               b4_ms_per_forward=split["b4"], b1_ms_per_forward=split["b1"],
+               b4_launches=launches[0], b1_launches=launches[1],
+               plain_calls=list(plain), b1_norm_err=b1_err,
+               b1_lse_norm_err=b1_lse_err, parity_norm_err=parity)
+    log(f"[fused] {n_layers} x FusedTransformerEncoderLayer (bert_base, "
+        f"post-LN, bf16, eval), batch {batch} x seq {seq}: forward "
+        f"{fwd_ms:.3f} ms, of which B4 {split['b4']:.3f} ms and B1 "
+        f"{split['b1']:.3f} ms of device time (events around the "
+        f"wrappers); B4 {launches[0]} and B1 {launches[1]} launches; B1 vs "
+        f"plain on the layers' operands: o {b1_err:.2e}, lse "
+        f"{b1_lse_err:.2e}; 2-layer f32 card vs CPU normalised err "
+        f"{parity:.3f}")
+    del stack, small, cpu, x, y
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -926,6 +1392,10 @@ def main() -> int:
     parity = parity_phase()
     train = train_phase()
     train_parity = train_parity_phase()
+    norm_cases = norm_phase()
+    llama = llama_engine_phase()
+    llama_parity = llama_parity_phase()
+    fused = fused_phase()
     main_case = cases[0]    # the engine's fresh wave: its largest launch
     fmain = flash[0]        # gpt2_small's training shape
     src = "paddle_tpu_torch/kernels/csrc/"
@@ -954,10 +1424,29 @@ def main() -> int:
             library_ms=fmain["library_fwd_ms" if kind == "fwd"
                              else "library_fwd_bwd_ms"],
             cases=flash))
+    # B4 at the fused encoder's shape, B5 at LLaMA-2-7B's packed prefill,
+    # both bf16 with their affine; launches from phases 11 and 9
+    for kind, main_name, line, launches in (
+            ("layer_norm", "bert_base", 68, fused["b4_launches"]),
+            ("rms_norm", "llama2_7b prefill", 88, llama["b5_launches"])):
+        mine = [c for c in norm_cases if c["kind"] == kind]
+        m = next(c for c in mine if c["case"] == main_name
+                 and c["dtype"] == "bf16" and c["affine"])
+        kernels.append(dict(
+            name=kind, route="cuda", source=src + "norms.cu",
+            replaces=f"paddle_tpu/kernels/pallas/norms.py:{line}",
+            launches=launches,
+            max_abs_err=max(c["max_abs_err"] for c in mine),
+            ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+            bound_by=m["bound_by"], library_ms=m["library_ms"],
+            cases=mine))
     log("[engine] " + json.dumps(engine))
     log("[parity] " + json.dumps(parity))
     log("[train] " + json.dumps(train))
     log("[train-parity] " + json.dumps(train_parity))
+    log("[llama] " + json.dumps(llama))
+    log("[llama-parity] " + json.dumps(llama_parity))
+    log("[fused] " + json.dumps(fused))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

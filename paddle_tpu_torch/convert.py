@@ -1,10 +1,12 @@
-"""Carry paddle_tpu GPT weights and optimizer state into the port.
+"""Carry paddle_tpu weights (GPT, LLaMA, the fused incubate layers) and
+optimizer state into the port.
 
 paddle_tpu's ``state_dict()`` names match the port's parameter names
 one for one, and Linear weights keep paddle_tpu's [in, out] layout in
-the port, so nothing is transposed: each array is copied into a torch
-tensor of the same dtype (bf16 arrays arrive as ml_dtypes bfloat16 and
-are reinterpreted bit for bit).
+the port (the fused layers keep its [3, H, D, dm] qkv layout too), so
+nothing is transposed: each array is copied into a torch tensor of the
+same dtype (bf16 arrays arrive as ml_dtypes bfloat16 and are
+reinterpreted bit for bit).
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["gpt_params_from_numpy", "optimizer_state_from_numpy"]
+__all__ = ["gpt_params_from_numpy", "llama_params_from_numpy",
+           "fused_params_from_numpy", "optimizer_state_from_numpy"]
 
 _ADAM_ACCUMULATORS = ("moment1", "moment2", "beta1_pow", "beta2_pow")
 
@@ -30,6 +33,12 @@ def gpt_params_from_numpy(named: Dict[str, np.ndarray]
     """paddle_tpu GPTForCausalLM state_dict (as numpy) -> a state_dict
     for the port's GPTForCausalLM (``model.load_state_dict(...)``)."""
     return {name: _to_tensor(np.asarray(arr)) for name, arr in named.items()}
+
+
+# LLaMA's and the fused incubate layers' state_dicts carry the same way:
+# names one for one, layouts unchanged
+llama_params_from_numpy = gpt_params_from_numpy
+fused_params_from_numpy = gpt_params_from_numpy
 
 
 def optimizer_state_from_numpy(state: Dict, names: Dict[str, str]) -> Dict:

@@ -1,3 +1,6 @@
 from . import functional
+from .layer import (FusedFeedForward, FusedMultiHeadAttention,
+                    FusedTransformerEncoderLayer)
 
-__all__ = ["functional"]
+__all__ = ["functional", "FusedFeedForward", "FusedMultiHeadAttention",
+           "FusedTransformerEncoderLayer"]

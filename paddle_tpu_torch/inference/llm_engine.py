@@ -21,6 +21,10 @@ exactly on the same traffic.
     step writes its k/v straight into the pool and attends over the
     row's pages at positions <= its length. Between chunks the host
     reads back only the [B, chunk] tokens.
+  * The GPT and LLaMA families (``_family_for``). LLaMA's q and k are
+    rotated (f32 half tables built once for max_model_len) before the
+    pool write, in the packed wave and in each decode step; its GQA kv
+    heads stay un-repeated in the pool.
   * Automatic prefix caching (enable_prefix_caching, default on): full
     prompt blocks are content-hashed in the PagedKVCache, a request
     sharing a page-aligned prefix leases the computed pages and prefills
@@ -43,8 +47,10 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..incubate.nn.functional.serving import _apply_rotary
 from ..kernels.ragged_paged_attention import ragged_paged_attention
 from ..models.generation import _pick_token
+from ..models.llama import _rope_cos_sin
 from .paged_cache import PagedKVCache
 
 __all__ = ["LLMEngine", "GenerationResult"]
@@ -119,6 +125,13 @@ class _GPTFamily:
         cfg = model.config
         self.kv_heads = cfg.num_heads
         self.head_dim = cfg.head_dim
+        self.dtype = model.gpt.embeddings.word_embeddings.weight.dtype
+
+    def rope_tables(self, max_len, device):
+        return None
+
+    def rotate(self, q, k, cos_sin):
+        return q, k
 
     def embed(self, ids, pos):
         """ids/pos [...] -> [..., hidden] (dropout-free: serving)."""
@@ -146,11 +159,75 @@ class _GPTFamily:
         return self.model.lm_logits(x)
 
 
+class _LlamaFamily:
+    """LLaMA: split q/k/v projections (GQA kv heads un-repeated in the
+    pool), RMSNorm, rotary embeddings in the neox half-split layout."""
+
+    def __init__(self, model):
+        self.model = model
+        cfg = model.config
+        self.kv_heads = cfg.num_kv_heads
+        self.head_dim = cfg.head_dim
+        self.dtype = model.llama.embed_tokens.weight.dtype
+
+    def rope_tables(self, max_len, device):
+        """[2, max_len, head_dim // 2] f32: the cos and sin half tables."""
+        cfg = self.model.config
+        cos, sin = _rope_cos_sin(max_len, cfg.head_dim, cfg.rope_theta,
+                                 torch.float32, device)
+        d2 = cfg.head_dim // 2
+        return torch.stack([cos[:, :d2], sin[:, :d2]])
+
+    def rotate(self, q, k, cos_sin):
+        """q [T, H, D] and k [T, kvH, D] rotated in f32 and cast back to
+        their dtypes (the reference's ragged wave and decode step,
+        llm_engine.py:1308-1314, :1509-1515)."""
+        cos, sin = cos_sin
+        return (_apply_rotary(q, cos, sin, True).to(q.dtype),
+                _apply_rotary(k, cos, sin, True).to(k.dtype))
+
+    def embed(self, ids, pos):
+        return self.model.llama.embed_tokens.weight[ids]
+
+    def layers(self):
+        return list(self.model.llama.layers)
+
+    def qkv(self, layer, x):
+        """x [T, hidden] -> [T, (H + 2kvH) * D]: the three projections
+        side by side."""
+        h = layer.input_layernorm(x)
+        a = layer.self_attn
+        return torch.cat([a.q_proj(h), a.k_proj(h), a.v_proj(h)], dim=-1)
+
+    def attn_out(self, layer, x, o):
+        return x + layer.self_attn.o_proj(o)
+
+    def mlp(self, layer, x):
+        return x + layer.mlp(layer.post_attention_layernorm(x))
+
+    def final(self, x):
+        return self.model.llama.norm(x)
+
+    def logits(self, x):
+        return self.model.lm_head(x)
+
+
 def _family_for(model):
     if hasattr(model, "gpt"):
         return _GPTFamily(model)
+    if hasattr(model, "llama"):
+        return _LlamaFamily(model)
     raise NotImplementedError(
-        "the port's LLMEngine serves the GPT family; LLaMA comes later")
+        "LLMEngine serves the GPT and LLaMA families")
+
+
+def _rope_at(rope, pos):
+    """(cos, sin) [T, 1, D/2] f32 rows of the half tables `rope` at
+    positions `pos` [T], or None for a family without rope. Gathered once
+    per wave or decode step and shared by every layer."""
+    if rope is None:
+        return None
+    return rope[0][pos][:, None, :], rope[1][pos][:, None, :]
 
 
 def _pool_decode_attention(q, kpool, vpool, tbl, lens, scale, block_size):
@@ -254,7 +331,7 @@ class LLMEngine:
             num_layers=cfg.num_layers, num_blocks=int(num_blocks),
             kv_heads=self.fam.kv_heads, block_size=self.block_size,
             head_dim=self.fam.head_dim,
-            dtype=model.gpt.embeddings.word_embeddings.weight.dtype,
+            dtype=self.fam.dtype,
             layout="token",
             enable_prefix_caching=bool(enable_prefix_caching),
             device=self.device)
@@ -262,6 +339,8 @@ class LLMEngine:
         # the trash page: inactive batch rows point their whole block
         # table here so their (ignored) writes never touch live pages
         self._trash_page = self.cache.allocator.alloc(1)[0]
+        # rope half tables built once (None for a family without rope)
+        self._rope = self.fam.rope_tables(self.max_model_len, self.device)
 
         self.waiting: collections.deque = collections.deque()
         self.slots: List[Optional[_Seq]] = [None] * self.max_batch
@@ -452,11 +531,13 @@ class LLMEngine:
         tb = ids.shape[0]
         n_live = wf.shape[0]
         x = fam.embed(ids, pos)                              # [tb, h]
+        cos_sin = _rope_at(self._rope, pos.long())
         for li, layer in enumerate(fam.layers()):
             qkv = fam.qkv(layer, x)
             q = qkv[:, :nH * hd].reshape(tb, nH, hd)
             k = qkv[:, nH * hd:(nH + kvH) * hd].reshape(tb, kvH, hd)
             v = qkv[:, (nH + kvH) * hd:].reshape(tb, kvH, hd)
+            q, k = fam.rotate(q, k, cos_sin)
             # the pool read covers positions < kv_start only, and this
             # wave writes positions >= kv_start, so reading before
             # writing matches paddle_tpu's order
@@ -588,11 +669,13 @@ class LLMEngine:
         for i in range(flat.shape[0]):
             li_lens = lens + i
             x = fam.embed(cur, li_lens)                      # [B, h]
+            cos_sin = _rope_at(self._rope, li_lens)
             for li, layer in enumerate(fam.layers()):
                 qkv = fam.qkv(layer, x)
                 q = qkv[:, :nH * hd].reshape(B, nH, hd)
                 k = qkv[:, nH * hd:(nH + kvH) * hd].reshape(B, kvH, hd)
                 v = qkv[:, (nH + kvH) * hd:].reshape(B, kvH, hd)
+                q, k = fam.rotate(q, k, cos_sin)
                 kcs[li].index_copy_(0, flat[i], k.to(kcs[li].dtype))
                 vcs[li].index_copy_(0, flat[i], v.to(vcs[li].dtype))
                 o = _pool_decode_attention(q, kcs[li], vcs[li], tbl,

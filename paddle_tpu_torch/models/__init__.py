@@ -2,7 +2,10 @@ from .generation import generate
 from .gpt import (GPTConfig, GPTForCausalLM, GPTModel,
                   GPTPretrainingCriterion, gpt2_small, gpt3_1p3b, gpt_tiny,
                   num_params)
+from .llama import (LlamaConfig, LlamaForCausalLM, LlamaModel, llama2_7b,
+                    llama2_13b, llama_tiny)
 
 __all__ = ["generate", "GPTConfig", "GPTForCausalLM", "GPTModel",
            "GPTPretrainingCriterion", "gpt2_small", "gpt3_1p3b", "gpt_tiny",
-           "num_params"]
+           "num_params", "LlamaConfig", "LlamaForCausalLM", "LlamaModel",
+           "llama2_7b", "llama2_13b", "llama_tiny"]

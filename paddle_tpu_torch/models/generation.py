@@ -1,26 +1,30 @@
-"""Autoregressive decoding for the GPT family (counterpart of
-paddle_tpu/models/generation.py): the dense, per-request oracle that
-the serving engine is held to.
+"""Autoregressive decoding for the GPT and LLaMA families (counterpart
+of paddle_tpu/models/generation.py): the dense, per-request oracle that
+the serving engine is held to (``_family`` picks the family).
 
-The KV cache is preallocated at [b, max_len, heads, head_dim] and
-written in place; attention over the padded cache is masked by
-position. paddle_tpu compiles the decode loop into one executable; the
-port runs the same steps as an eager loop.
+The KV cache is preallocated at [b, max_len, kv_heads, head_dim] (GQA
+kv heads stored un-repeated) and written in place; attention over the
+padded cache is masked by position. paddle_tpu compiles the decode loop
+into one executable; the port runs the same steps as an eager loop.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.device import resolve_device
+from ..incubate.nn.functional import fused_rotary_position_embedding
 from ..nn import functional as F
+from .llama import _rope_cos_sin
 
 __all__ = ["generate"]
 
 
 def _static_cache(model, batch, max_len, dtype):
-    """One [b, max_len, heads, head_dim] k/v pair per layer."""
+    """One [b, max_len, kv_heads, head_dim] k/v pair per layer; a model
+    with num_kv_heads < num_heads stores its GQA cache un-repeated."""
     cfg = model.config
-    shape = (batch, max_len, cfg.num_heads, cfg.head_dim)
+    kv_heads = getattr(cfg, "num_kv_heads", None) or cfg.num_heads
+    shape = (batch, max_len, kv_heads, cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=dtype, device=model.device),
              "v": torch.zeros(shape, dtype=dtype, device=model.device)}
             for _ in range(cfg.num_layers)]
@@ -59,6 +63,64 @@ def _forward_with_cache(model, input_ids, caches, pos):
     return model.lm_logits(x[:, -1:]), caches
 
 
+def _llama_decode_attention(attn, x, cache, pos, rope_full):
+    """LLaMA chunk attention against the static cache: rotary at the
+    chunk's absolute positions (tables built to max_len, sliced at
+    `pos`), GQA kv heads stored un-repeated in the cache and repeated
+    for the attention."""
+    b, s, _ = x.shape
+    q = attn.q_proj(x).reshape(b, s, attn.num_heads, attn.head_dim)
+    k = attn.k_proj(x).reshape(b, s, attn.num_kv_heads, attn.head_dim)
+    v = attn.v_proj(x).reshape(b, s, attn.num_kv_heads, attn.head_dim)
+    cos_full, sin_full = rope_full
+    q, k = fused_rotary_position_embedding(
+        q, k, sin=sin_full[pos:pos + s], cos=cos_full[pos:pos + s])
+    cache["k"][:, pos:pos + s] = k
+    cache["v"][:, pos:pos + s] = v
+    kr, vr = cache["k"], cache["v"]
+    if attn.num_kv_heads != attn.num_heads:
+        rep = attn.num_heads // attn.num_kv_heads
+        kr = kr.repeat_interleave(rep, dim=2)
+        vr = vr.repeat_interleave(rep, dim=2)
+    max_len = kr.shape[1]
+    kpos = torch.arange(max_len, device=x.device)[None, :]
+    qpos = pos + torch.arange(s, device=x.device)[:, None]
+    mask = (kpos <= qpos)[None, None]                    # [1, 1, s, L]
+    out = F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
+    return attn.o_proj(out.reshape(b, s, attn.hidden_size)), cache
+
+
+def _llama_forward_with_cache(model, input_ids, caches, pos):
+    """LLaMA trunk forward writing into the static caches at `pos`; only
+    the LAST position's logits are returned."""
+    trunk = model.llama
+    cfg = model.config
+    x = trunk.embed_tokens(input_ids)
+    rope_full = _rope_cos_sin(caches[0]["k"].shape[1], cfg.head_dim,
+                              cfg.rope_theta, x.dtype, x.device)
+    for layer, cache in zip(trunk.layers, caches):
+        h, _ = _llama_decode_attention(
+            layer.self_attn, layer.input_layernorm(x), cache, pos,
+            rope_full)
+        x = x + h
+        x = x + layer.mlp(layer.post_attention_layernorm(x))
+    x = trunk.norm(x)
+    return model.lm_head(x[:, -1:]), caches
+
+
+def _family(model):
+    """(cached_forward, embedding_dtype) of each causal-LM family the
+    decode stack supports."""
+    if hasattr(model, "gpt"):
+        return (_forward_with_cache,
+                model.gpt.embeddings.word_embeddings.weight.dtype)
+    if hasattr(model, "llama"):
+        return (_llama_forward_with_cache,
+                model.llama.embed_tokens.weight.dtype)
+    raise NotImplementedError(
+        "generate() supports the GPT and LLaMA families")
+
+
 def _pick_token(lf, generator, do_sample, temperature, top_p, top_k=0):
     """Greedy / temperature+top-k+top-p token selection, shared by
     `generate` and the serving engine. lf: [b, vocab] f32 logits;
@@ -86,12 +148,13 @@ def _pick_token(lf, generator, do_sample, temperature, top_p, top_k=0):
 def generate(model, input_ids, max_new_tokens=32, do_sample=False,
              temperature=1.0, top_p=1.0, top_k=0, eos_token_id=None,
              seed=0, device=None):
-    """Greedy / sampled decode for GPT causal LMs.
+    """Greedy / sampled decode for GPT and LLaMA causal LMs.
 
     input_ids: [b, prompt_len] ints (array or tensor). Returns a
     [b, prompt_len + max_new_tokens] int32 tensor (positions after an
     eos stay eos). device: None = the CUDA card; the model must live on
     the resolved device."""
+    fwd_fn, emb_dtype = _family(model)
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(
@@ -110,14 +173,13 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
                   cfg.max_position_embeddings)
     was_training = model.training
     model.eval()
-    emb_dtype = model.gpt.embeddings.word_embeddings.weight.dtype
     caches = _static_cache(model, b, max_len, emb_dtype)
     gen = None
     if do_sample:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
     try:
-        logits, caches = _forward_with_cache(model, ids, caches, 0)
+        logits, caches = fwd_fn(model, ids, caches, 0)
         nxt = _pick_token(logits[:, -1].float(), gen, do_sample,
                           temperature, top_p, top_k)
         out = torch.cat([ids, torch.zeros((b, max_new_tokens),
@@ -129,8 +191,7 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
             pos = prompt_len + step - 1
             if eos_token_id is not None:
                 finished = finished | (nxt == eos_token_id)
-            logits, caches = _forward_with_cache(model, nxt[:, None],
-                                                 caches, pos)
+            logits, caches = fwd_fn(model, nxt[:, None], caches, pos)
             nxt = _pick_token(logits[:, -1].float(), gen, do_sample,
                               temperature, top_p, top_k)
             if eos_token_id is not None:

@@ -5,7 +5,12 @@ Each op applies the reference's AMP rule for its name and per-op policy
 first (``amp.state.maybe_cast_inputs``; the policies are those of the
 reference registry: linear, matmul and scaled_dot_product_attention are
 white, layer_norm and cross_entropy black, the rest follow their
-input)."""
+input).
+
+``layer_norm`` and ``rms_norm`` here are the plain ops the model layers
+call (nn_ops.py:490, :514), not the fused kernels B4/B5 of
+``kernels/norms.py``, which only the incubate fused ops reach, as in
+the reference."""
 from __future__ import annotations
 
 import math
@@ -13,10 +18,12 @@ import math
 import torch
 
 from ..amp.state import maybe_cast_inputs as _amp
+from ..kernels import norms as _norms
 from ..kernels.flash_attention import _shapes_ok, flash_attention
 
-__all__ = ["linear", "matmul", "embedding", "layer_norm", "gelu", "dropout",
-           "cross_entropy", "scaled_dot_product_attention"]
+__all__ = ["linear", "matmul", "embedding", "layer_norm", "rms_norm", "gelu",
+           "relu", "silu", "dropout", "cross_entropy",
+           "scaled_dot_product_attention"]
 
 
 def _mm(x, y):
@@ -59,23 +66,35 @@ def embedding(ids, weight):
 
 def layer_norm(x, weight=None, bias=None, epsilon=1e-5):
     """LayerNorm over the last axis: f32 statistics, then a cast back to
-    the input dtype BEFORE the affine (ops/nn_ops.py:501-509)."""
+    the input dtype BEFORE the affine (ops/nn_ops.py:501-509): the same
+    form as the reference's off-TPU ``_ln_xla``."""
     x, weight, bias = _amp("layer_norm", "black", x, weight, bias)
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = x32.var(dim=-1, unbiased=False, keepdim=True)
-    out = ((x32 - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
-    if weight is not None:
-        out = out * weight
-    if bias is not None:
-        out = out + bias
-    return out
+    return _norms._ln_xla(x, weight, bias, epsilon)
+
+
+def rms_norm(x, weight=None, epsilon=1e-6):
+    """RMSNorm over the last axis (ops/nn_ops.py:514): rsqrt of the f32
+    mean of squares, a cast back to the input dtype BEFORE the weight
+    (the form of ``_rms_xla``)."""
+    x, weight = _amp("rms_norm", "black", x, weight)
+    return _norms._rms_xla(x, weight, epsilon)
 
 
 def gelu(x, approximate=False):
     (x,) = _amp("gelu", None, x)
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
+
+
+def relu(x):
+    (x,) = _amp("relu", None, x)
+    return torch.relu(x)
+
+
+def silu(x):
+    """x * sigmoid(x) (ops/nn_ops.py:65)."""
+    (x,) = _amp("silu", None, x)
+    return torch.nn.functional.silu(x)
 
 
 def dropout(x, p=0.5, training=True, mode="upscale_in_train",

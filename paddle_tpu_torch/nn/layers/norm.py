@@ -1,4 +1,7 @@
-"""LayerNorm (counterpart of paddle_tpu/nn/layers/norm.py:12)."""
+"""LayerNorm and RMSNorm (counterparts of paddle_tpu/nn/layers/norm.py:12,
+:40). Both call the plain functional ops, as the reference's layers do
+(norm.py:33, :52): the fused kernels B4/B5 are reached only through
+``incubate.nn.functional``."""
 from __future__ import annotations
 
 import torch
@@ -19,3 +22,17 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return F.layer_norm(x, self.weight, self.bias, self.epsilon)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm over the last axis with a weight initialised to 1."""
+
+    def __init__(self, hidden_size: int, epsilon=1e-6, *, device=None,
+                 dtype=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(
+            (hidden_size,), device=device, dtype=dtype))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.epsilon)

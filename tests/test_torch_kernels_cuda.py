@@ -267,3 +267,162 @@ def test_sdpa_on_cuda_routes_into_the_kernels(cuda_device):
     want = F.scaled_dot_product_attention(*x, attn_mask=mask)
     assert fa.flash_fwd.kernel_launches == n_f + 1
     torch.testing.assert_close(out, want, **F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# B4 (layer norm) and B5 (RMS norm) against their plain versions
+# ---------------------------------------------------------------------------
+# element by element, |got - want| <= tol * (|want| + floor * row rms of
+# want): both sides compute the f32 value (sums in other orders, rsqrtf
+# within 2 ulps) and round it once, so they differ by at most one ulp of
+# the output dtype, or, for a value near 0 after centring, by f32 noise
+# of the row's size. bf16 ulp <= 2^-7 relative, f16 <= 2^-10.
+NORM_TOL = {torch.float32: (1e-5, 1.0), torch.bfloat16: (2.0 ** -7, 2.0 ** -8),
+            torch.float16: (2.0 ** -10, 2.0 ** -8)}
+# (7, 1001): rows not 16-byte aligned, so the scalar path with a
+# multi-warp reduction; (1, 1001): one aligned row, so 16-byte vectors
+# in and out and a scalar tail
+NORM_SHAPES = [(64, 4096), (7, 1001), (1, 1001), (3, 5, 768), (2, 16384),
+               (1, 1), (33, 8)]
+
+
+def _norm_err(got, want, dtype):
+    """The largest |got - want| / limit over the elements (> 1 fails)."""
+    tol, floor = NORM_TOL[dtype]
+    got, want = got.float(), want.float()
+    row = want.pow(2).mean(-1, keepdim=True).sqrt()
+    lim = tol * (want.abs() + floor * row)
+    d = (got - want).abs()
+    return float(torch.where(lim > 0, d / lim,
+                             torch.where(d > 0, float("inf"), 0.0)).max())
+
+
+def _norm_case(shape, dtype, affine, dev, seed=0, wdtype=None):
+    rng = np.random.default_rng(seed)
+    h = shape[-1]
+    x = torch.as_tensor((rng.standard_normal(shape) * 2 + 1).astype(
+        np.float32), device=dev).to(dtype)
+    w = rng.uniform(0.5, 1.5, (h,)).astype(np.float32)
+    w[-1] = 0.6              # away from 1, so dropping it is a fault
+    w = torch.as_tensor(w, device=dev).to(wdtype or dtype)
+    b = torch.as_tensor(rng.standard_normal((h,)).astype(np.float32),
+                        device=dev).to(wdtype or dtype)
+    return x, (w if affine else None), (b if affine else None)
+
+
+def _run_norm(kind, x, w, b, path):
+    from paddle_tpu_torch.kernels import norms
+    if kind == "rms_norm":
+        return norms.rms_norm_fwd(x, w, 1e-6, path=path)
+    return norms.layer_norm_fwd(x, w, b, 1e-5, path=path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("affine", [False, True], ids=["plain", "affine"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("shape", NORM_SHAPES, ids=str)
+@pytest.mark.parametrize("kind", ["layer_norm", "rms_norm"])
+def test_norm_kernels_match_plain(cuda_device, kind, shape, dtype, affine):
+    from paddle_tpu_torch.kernels import norms
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16,
+          "f16": torch.float16}[dtype]
+    x, w, b = _norm_case(shape, dt, affine, cuda_device)
+    fwd = norms.rms_norm_fwd if kind == "rms_norm" else norms.layer_norm_fwd
+    n0 = fwd.kernel_launches
+    got = _run_norm(kind, x, w, b, "cuda")
+    torch.cuda.synchronize()
+    assert fwd.kernel_launches == n0 + 1
+    want = _run_norm(kind, x, w, b, "torch")
+    assert got.dtype == dt and got.shape == x.shape
+    assert torch.isfinite(got).all()
+    assert _norm_err(got, want, dt) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["layer_norm", "rms_norm"])
+def test_norm_kernels_take_mixed_param_dtypes_and_row_views(cuda_device,
+                                                            kind):
+    """bf16 rows with f32 weight and bias (the kernel form keeps x's
+    dtype), read in place from a row-strided view."""
+    x, w, b = _norm_case((40, 3000), torch.bfloat16, True, cuda_device,
+                         wdtype=torch.float32)
+    view = x[:, 8:8 + 1024]
+    assert not view.is_contiguous()
+    w, b = w[:1024].contiguous(), b[:1024].contiguous()
+    got = _run_norm(kind, view, w, b, "cuda")
+    want = _run_norm(kind, view.contiguous(), w, b, "torch")
+    assert got.dtype == torch.bfloat16
+    assert _norm_err(got, want, torch.bfloat16) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["layer_norm", "rms_norm"])
+def test_norm_kernels_take_aligned_rows_with_a_tail(cuda_device, kind,
+                                                    dtype):
+    """x[:, :1001] of a [n, 1008] tensor: 16-byte aligned rows whose
+    width is not a multiple of the vector, so the kernel reads whole
+    vectors, then the scalar tail (the output, [n, 1001], is stored by
+    element)."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    x, w, b = _norm_case((37, 1008), dt, True, cuda_device)
+    view = x[:, :1001]
+    w, b = w[:1001].contiguous(), b[:1001].contiguous()
+    got = _run_norm(kind, view, w, b, "cuda")
+    want = _run_norm(kind, view.contiguous(), w, b, "torch")
+    assert got.shape == view.shape and got.dtype == dt
+    assert _norm_err(got, want, dt) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["layer_norm", "rms_norm"])
+def test_norm_check_rejects_planted_faults(cuda_device, kind):
+    """The check above would catch a kernel whose late row is off by
+    2^-5, or which drops the weight of its last column."""
+    x, w, b = _norm_case((64, 4096), torch.bfloat16, True, cuda_device)
+    got = _run_norm(kind, x, w, b, "cuda")
+    want = _run_norm(kind, x, w, b, "torch")
+    assert _norm_err(got, want, torch.bfloat16) <= 1.0
+    late = got.clone()
+    late[-3] = (late[-3].float() * (1 + 2 ** -5)).to(late.dtype)
+    assert _norm_err(late, want, torch.bfloat16) > 1.0
+    no_w = got.float().clone()      # float() of f32 is the tensor itself
+    shift = b[-1].float() if kind == "layer_norm" else 0.0
+    no_w[:, -1] = (no_w[:, -1] - shift) / w[-1].float() + shift
+    assert _norm_err(no_w.to(got.dtype), want, torch.bfloat16) > 1.0
+
+
+@pytest.mark.cuda
+def test_fused_norms_on_cuda_launch_the_kernels(cuda_device):
+    """The incubate entry points take B4/B5 on CUDA tensors, and the
+    autograd backward (the reference's off-TPU form) still runs."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.kernels import norms
+    x, w, b = _norm_case((16, 512), torch.float32, True, cuda_device)
+    x.requires_grad_()
+    n0 = (norms.layer_norm_fwd.kernel_launches,
+          norms.rms_norm_fwd.kernel_launches)
+    y = IF.fused_layer_norm(x, w, b) + IF.fused_rms_norm(x, w)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert (norms.layer_norm_fwd.kernel_launches,
+            norms.rms_norm_fwd.kernel_launches) == (n0[0] + 1, n0[1] + 1)
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+@pytest.mark.cuda
+def test_fused_encoder_refuses_shapes_b1_does_not_take(cuda_device):
+    """On the card the fused encoder's attention is B1 or an error: 40
+    tokens raise rather than run the composite, while an explicit
+    attn_mask is the caller's choice of the composite."""
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+    layer = FusedTransformerEncoderLayer(128, 2, 256, device=cuda_device,
+                                         seed=0).eval()
+    x = torch.randn((2, 40, 128), device=cuda_device)
+    with torch.no_grad(), pytest.raises(ValueError, match="B1 does not"):
+        layer(x)
+    mask = torch.ones((40, 40), dtype=torch.bool, device=cuda_device)
+    n0 = fa.flash_fwd.kernel_launches
+    with torch.no_grad():
+        y = layer(x, src_mask=mask)
+    assert y.shape == x.shape and fa.flash_fwd.kernel_launches == n0

@@ -1,7 +1,7 @@
 """paddle_tpu_torch's package rules: it never imports jax or anything of
-paddle_tpu (chip_smoke.py neither), serving and training included, and
-its entry points run on the CUDA card unless the caller asks for the
-CPU."""
+paddle_tpu (chip_smoke.py neither), serving GPT and LLaMA, training and
+the fused incubate ops included, and its entry points run on the CUDA
+card unless the caller asks for the CPU."""
 import os
 import re
 import subprocess
@@ -12,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
 from paddle_tpu_torch.inference import LLMEngine
-from paddle_tpu_torch.models import GPTForCausalLM, generate, gpt_tiny
+from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                     generate, gpt_tiny, llama_tiny)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -42,6 +44,18 @@ step = TrainStep(tm, AdamW(learning_rate=1e-4,
                            parameters=tm.parameters()), loss_fn)
 ids = np.arange(32, dtype=np.int32).reshape(2, 16)
 assert np.isfinite(float(step(ids, ids)))
+import torch
+from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+from paddle_tpu_torch.incubate.nn import functional as IF
+lm = LlamaForCausalLM(llama_tiny(), device="cpu")
+eng = LLMEngine(lm, max_batch=2, block_size=16, max_model_len=64,
+                prompt_quantum=16, decode_chunk=2, device="cpu")
+res = eng.generate([np.arange(7, dtype=np.int32)], max_new_tokens=3)
+assert len(res[0].output_ids) == 3
+x = torch.randn(4, 64)
+assert IF.fused_rms_norm(x, torch.ones(64)).shape == (4, 64)
+assert IF.fused_layer_norm(x, torch.ones(64), torch.zeros(64)).shape \
+    == (4, 64)
 bad = [k for k in sys.modules
        if k == "jax" or k.startswith("jax.") or k == "paddle_tpu"
        or k.startswith("paddle_tpu.")]
@@ -79,3 +93,14 @@ def test_entry_points_need_cuda_unless_cpu_requested():
         LLMEngine(m)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generate(m, np.zeros((1, 4), np.int32), max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LlamaForCausalLM(llama_tiny())
+    lm = LlamaForCausalLM(llama_tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMEngine(lm)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate(lm, np.zeros((1, 4), np.int32), max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FusedTransformerEncoderLayer(64, 4, 128)
+    layer = FusedTransformerEncoderLayer(64, 4, 128, device="cpu")
+    assert {p.device.type for p in layer.parameters()} == {"cpu"}

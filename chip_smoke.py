@@ -6,8 +6,9 @@
 Run from the root of a checkout. Phases, each of which must pass:
 
   1. the card (nvidia-smi name and power limit); build the CUDA kernels
-     (nvcc, sm_90a: ragged paged attention, flash attention, norms) and the
-     block allocator (g++) from the checkout's sources, all at once, timed;
+     (nvcc, sm_90a: ragged paged attention, flash attention, B1's sm90
+     design, norms) and the block allocator (g++) from the checkout's
+     sources, all at once, timed;
   2. the serving kernel (B3) against its plain PyTorch version on the
      card, at the engine's shapes (gpt3_1p3b's 16 heads, GQA, int8,
      padding, and llama2_7b's 32 heads), timed with CUDA events beside
@@ -18,10 +19,14 @@ Run from the root of a checkout. Phases, each of which must pass:
      head_dim 256, and the fused encoder's non-causal call on k/v views
      of a packed qkv projection), in bf16 and in f32,
      element by element relative to each row's size, with two faults
-     planted in the kernels' outputs that the check must reject; timed
-     beside their bound, the plain versions and one
+     planted in the kernels' outputs that the check must reject; the
+     design each B1 call ran (sm90 for bf16 at head_dim 64/128, PR 2's
+     simple kernel otherwise) and its launches; timed beside their
+     bound, the plain versions and one
      torch.nn.functional.scaled_dot_product_attention call (a yardstick
-     only: the port never calls it);
+     only: the port never calls it); B1 in bf16 by single-call events
+     and by CUDA-graph replay, beside PR 2's simple kernel and SDPA's
+     forward timed both ways in the same run;
   4. gpt3_1p3b (bf16, all 24 layers, random weights from seed 0) served
      by LLMEngine: 16 requests sharing a 512-token prefix, 64 new tokens
      each; B3's launch counters are read around this run;
@@ -215,6 +220,7 @@ def build_all() -> dict:
     from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
     jobs = {"ragged_paged_attention.cu (nvcc)": rpa._load_kernel,
             "flash_attention.cu (nvcc)": fa._load_kernel,
+            "flash_fwd_sm90.cu (nvcc)": fa._load_sm90,
             "norms.cu (nvcc)": norms._load_kernel,
             "_block_allocator.cpp (g++)": paged_cache._load_lib}
     secs, errors = {}, {}
@@ -728,9 +734,9 @@ def _norm_err(got, want, rows=True):
 
 def _check_flash(name, dt, got, want):
     """({tensor: max abs error}, {tensor: normalised error}, {planted
-    fault: normalised error}) of the kernels' (o, lse, dq, dk, dv) against
-    the plain versions'; raises unless every tensor is within FLASH_TOL
-    and every planted fault beyond it."""
+    fault: normalised error}) of the kernels' (o, lse, dq, dk, dv), or of
+    B1's (o, lse) alone, against the plain versions'; raises unless every
+    tensor is within FLASH_TOL and every planted fault beyond it."""
     abs_errs, errs = {}, {}
     for what, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
         if not torch_isfinite(g):
@@ -750,11 +756,13 @@ def _check_flash(name, dt, got, want):
                 f"{tol}")
         abs_errs[what] = float((g.float() - w.float()).abs().max())
         errs[what] = err
-    o, dv = got[0].clone(), got[4].clone()
+    o = got[0].clone()
     o[:, o.shape[1] // 2:] *= 1.05
-    dv[:, -64:] = 0
-    planted = dict(zip(PLANTED, (_norm_err(o, want[0]),
-                                 _norm_err(dv, want[4]))))
+    planted = {PLANTED[0]: _norm_err(o, want[0])}
+    if len(got) == 5:           # B2's outputs too
+        dv = got[4].clone()
+        dv[:, -64:] = 0
+        planted[PLANTED[1]] = _norm_err(dv, want[4])
     for what, e in planted.items():
         if e <= FLASH_TOL[dt]:
             raise RuntimeError(f"flash case {name!r} {dt}: the check passes "
@@ -768,9 +776,51 @@ def torch_isfinite(t):
         else True
 
 
+def _sdpa_fwd(qs, k, v, causal, grad):
+    """SDPA's forward on [b, H, s, D] copies of the operands (a yardstick
+    only: torch aligns is_causal top-left, so only sq == sk compares).
+    `grad`: the inputs require grad, as in training, so the forward also
+    keeps what its backward needs."""
+    import torch.nn.functional as tF
+    lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_(grad)
+                  for t in (qs, k, v))
+    gqa = lk.shape[1] != lq.shape[1]
+    return (lambda: tF.scaled_dot_product_attention(
+        lq, lk, lv, is_causal=causal, scale=1.0, enable_gqa=gqa)), (lq, lk,
+                                                                   lv)
+
+
+def b1_times(spec, qs, k, v, segs, simple=True) -> dict:
+    """Device times (ms) of B1 at one bf16 case: the design the main path
+    takes, by single-call CUDA events (`fwd_ms`, host path included) and
+    by CUDA-graph replay (`fwd_ms_graph`, device only); PR 2's simple
+    kernel the same way where the design is not the simple one (and
+    `simple`); SDPA's forward the same way where sq == sk and no
+    segments (else None)."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    b, sq, sk, H, Hk, D, causal, seg, _packed = spec
+    design = fa._fwd_design(qs.dtype, D)
+    run = lambda **kw: fa._fwd_cuda(qs, k, v, causal, segs, **kw)
+    rec = dict(fwd_design=design, fwd_ms=cuda_ms(run),
+               fwd_ms_graph=graph_ms(run), simple_fwd_ms=None,
+               simple_fwd_ms_graph=None, library_fwd_ms=None,
+               library_fwd_ms_graph=None)
+    if simple and design != "simple":
+        pr2 = lambda: run(design="simple")
+        rec["simple_fwd_ms"] = cuda_ms(pr2)
+        rec["simple_fwd_ms_graph"] = graph_ms(pr2)
+    if sq == sk and not seg:
+        lib, _ = _sdpa_fwd(qs, k, v, causal, grad=True)
+        rec["library_fwd_ms"] = cuda_ms(lib)
+        lib, _ = _sdpa_fwd(qs, k, v, causal, grad=False)
+        with torch.no_grad():
+            rec["library_fwd_ms_graph"] = graph_ms(lib)
+    return rec
+
+
 def flash_phase() -> list:
     import torch
-    import torch.nn.functional as tF
     from paddle_tpu_torch.kernels import flash_attention as fa
     out = []
     for i, (name, spec) in enumerate(FLASH_CASES):
@@ -783,7 +833,10 @@ def flash_phase() -> list:
         for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             qs, k, v, do, segs = _flash_inputs(spec, dtype, seed=i)
             sc = D ** -0.5
+            n0 = dict(fa.flash_fwd.design_launches)
             o, lse = fa.flash_fwd(qs, k, v, causal, segs, path="cuda")
+            rec[f"fwd_design_launches_{dt}"] = {
+                d: n - n0[d] for d, n in fa.flash_fwd.design_launches.items()}
             dq, dk, dv = fa.flash_bwd(qs, k, v, o, lse, do, sc, causal,
                                       segs, path="cuda")
             torch.cuda.synchronize()
@@ -800,8 +853,7 @@ def flash_phase() -> list:
             if dt == "bf16":
                 pairs = _valid_pairs(spec, segs)
                 rec["valid_pairs"] = pairs
-                rec["fwd_ms"] = cuda_ms(lambda: fa.flash_fwd(
-                    qs, k, v, causal, segs, path="cuda"))
+                rec.update(b1_times(spec, qs, k, v, segs))
                 rec["bwd_ms"] = cuda_ms(lambda: fa.flash_bwd(
                     qs, k, v, o, lse, do, sc, causal, segs, path="cuda"))
                 rec["plain_fwd_ms"] = cuda_ms(lambda: fa.flash_fwd(
@@ -814,25 +866,14 @@ def flash_phase() -> list:
                                                    kind == "bwd")
                     rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = bms, by
                     rec[f"{kind}_bytes"], rec[f"{kind}_flops"] = nb, fl
-                rec["library_fwd_ms"] = rec["library_fwd_bwd_ms"] = None
+                rec["library_fwd_bwd_ms"] = None
                 if sq == sk and not seg:
-                    # the yardstick: one library call for the same function
-                    # on [b, H, s, D] (torch aligns is_causal top-left, so
-                    # only sq == sk compares)
-                    lq, lk, lv = (t.transpose(1, 2).contiguous()
-                                  .requires_grad_() for t in (qs, k, v))
+                    # B2's yardstick: SDPA's forward and backward
+                    lib, lqkv = _sdpa_fwd(qs, k, v, causal, grad=True)
                     ldo = do.transpose(1, 2).contiguous()
-
-                    def lib():
-                        return tF.scaled_dot_product_attention(
-                            lq, lk, lv, is_causal=causal, scale=1.0,
-                            enable_gqa=Hk != H)
-
-                    rec["library_fwd_ms"] = cuda_ms(lib)
                     rec["library_fwd_bwd_ms"] = cuda_ms(
-                        lambda: torch.autograd.grad(lib(), (lq, lk, lv),
-                                                    ldo))
-                    del lq, lk, lv, ldo
+                        lambda: torch.autograd.grad(lib(), lqkv, ldo))
+                    del lib, lqkv, ldo
             del qs, k, v, do, o, lse, dq, dk, dv
             torch.cuda.empty_cache()
         fmt = lambda d: {k: f"{e:.2e}" for k, e in d.items()}
@@ -842,9 +883,16 @@ def flash_phase() -> list:
             f"planted {fmt(rec['planted_norm_err_bf16'])}) f32 "
             f"{fmt(rec['norm_err_f32'])} (tol {FLASH_TOL['f32']:.0e}; "
             f"planted {fmt(rec['planted_norm_err_f32'])}); max abs err bf16 "
-            f"{fmt(rec['max_abs_err_bf16'])}; B1 {rec['fwd_ms']:.4f} ms "
-            f"(bound {rec['fwd_bound_ms']:.4f}, {rec['fwd_bound_by']}; plain "
-            f"{rec['plain_fwd_ms']:.3f}; library {rec['library_fwd_ms']}); "
+            f"{fmt(rec['max_abs_err_bf16'])}; B1 launches by design bf16 "
+            f"{rec['fwd_design_launches_bf16']} f32 "
+            f"{rec['fwd_design_launches_f32']}")
+        log(f"[flash] {name}: B1 bf16 ({rec['fwd_design']}) "
+            f"{rec['fwd_ms']:.4f} ms by events, {rec['fwd_ms_graph']:.4f} "
+            f"by graph replay (bound {rec['fwd_bound_ms']:.4f}, "
+            f"{rec['fwd_bound_by']}; simple {rec['simple_fwd_ms']} / "
+            f"{rec['simple_fwd_ms_graph']}; library {rec['library_fwd_ms']}"
+            f" / {rec['library_fwd_ms_graph']}; plain "
+            f"{rec['plain_fwd_ms']:.3f}); "
             f"B2 {rec['bwd_ms']:.4f} ms (bound {rec['bwd_bound_ms']:.4f}, "
             f"{rec['bwd_bound_by']}; plain {rec['plain_bwd_ms']:.3f}; "
             f"library fwd+bwd {rec['library_fwd_bwd_ms']})")
@@ -901,8 +949,7 @@ def train_phase() -> dict:
     torch.cuda.reset_peak_memory_stats()
     with kernel_events(fwd=(fa, "_fwd_cuda"), bwd=(fa, "_bwd_cuda")) \
             as events:
-        for f in (fa.flash_fwd, fa.flash_bwd):
-            f.kernel_launches = f.plain_calls = 0
+        fa.reset_counters()
         losses, step_s = [], []
         for i in range(warmup + steps):
             if i == warmup:
@@ -916,6 +963,7 @@ def train_phase() -> dict:
             losses.append(loss)
         launches = (fa.flash_fwd.kernel_launches,
                     fa.flash_bwd.kernel_launches)
+        designs = dict(fa.flash_fwd.design_launches)
         plain = (fa.flash_fwd.plain_calls, fa.flash_bwd.plain_calls)
     losses = [float(x) for x in losses]
     timed_s = step_s[warmup:]
@@ -926,6 +974,8 @@ def train_phase() -> dict:
         "every loss finite": all(np.isfinite(losses)),
         "B1 and B2 launched 12 times per step": launches == (
             cfg.num_layers * n_steps, cfg.num_layers * n_steps),
+        "every B1 launch ran the sm90 design": designs == {
+            "sm90": cfg.num_layers * n_steps, "simple": 0},
         "plain versions never ran on CUDA tensors": plain == (0, 0),
         "attention_path names the kernels": path == ("cuda", ""),
     }
@@ -933,7 +983,8 @@ def train_phase() -> dict:
         log(f"[train] check: {what}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
         raise RuntimeError(f"training phase failed: launches {launches} "
-                           f"plain {plain} losses {losses}")
+                           f"B1 by design {designs} plain {plain} losses "
+                           f"{losses}")
     n = num_params(cfg)
     tok_s = batch * seq * steps / sum(timed_s)
     med = statistics.median(timed_s)
@@ -946,6 +997,7 @@ def train_phase() -> dict:
                b1_ms_per_step=per_step["fwd"],
                b2_ms_per_step=per_step["bwd"],
                b1_launches=launches[0], b2_launches=launches[1],
+               b1_design_launches=designs,
                plain_calls=list(plain), losses=losses, setup_s=setup_s,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f"[train] gpt2_small bf16 O1 AdamW, {cfg.num_layers} layers, batch "
@@ -953,7 +1005,8 @@ def train_phase() -> dict:
         f"{1e3 * med:.2f} ms (6ND floor {rec['step_floor_ms']:.2f} ms), "
         f"MFU {rec['mfu']:.4f}; B1 {per_step['fwd']:.3f} ms + B2 "
         f"{per_step['bwd']:.3f} ms of device time per step over "
-        f"{launches[0]}/{launches[1]} launches in {n_steps} steps; peak "
+        f"{launches[0]}/{launches[1]} launches in {n_steps} steps (B1 by "
+        f"design {designs}); peak "
         f"mem {rec['peak_mem_gb']:.2f} GiB; losses "
         f"{[round(x, 4) for x in losses]}")
     del model, step
@@ -1292,12 +1345,14 @@ def fused_phase() -> dict:
     counters = (norms.layer_norm_fwd, fa.flash_fwd)
     with torch.no_grad():
         torch.cuda.synchronize()
-        for c in counters:
-            c.kernel_launches = c.plain_calls = 0
+        norms.layer_norm_fwd.kernel_launches = 0
+        norms.layer_norm_fwd.plain_calls = 0
+        fa.reset_counters()
         with kernel_calls(fa, "_fwd_cuda") as b1_calls:
             y = stack(x)
         torch.cuda.synchronize()
         launches = tuple(c.kernel_launches for c in counters)
+        designs = dict(fa.flash_fwd.design_launches)
         plain = tuple(c.plain_calls for c in counters)
         # B1 on the main path's operands (pre-scaled q, k and v as views
         # of each layer's qkv projection) against its plain version
@@ -1333,6 +1388,8 @@ def fused_phase() -> dict:
         f"B4 launched twice per layer ({2 * n_layers})":
             launches[0] == 2 * n_layers,
         f"B1 launched once per layer ({n_layers})": launches[1] == n_layers,
+        "every B1 launch ran the sm90 design": designs == {
+            "sm90": n_layers, "simple": 0},
         "plain versions never ran on CUDA tensors": plain == (0, 0),
         "B1 read k and v in place as strided views": strided,
         f"B1 == its plain version on the layers' operands (o within "
@@ -1344,12 +1401,14 @@ def fused_phase() -> dict:
     for what, ok in checks.items():
         log(f"[fused] check: {what}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
-        raise RuntimeError(f"fused phase failed: launches {launches} plain "
+        raise RuntimeError(f"fused phase failed: launches {launches} B1 by "
+                           f"design {designs} plain "
                            f"{plain} B1 err {b1_err} lse {b1_lse_err} "
                            f"parity {parity}")
     rec = dict(layers=n_layers, batch=batch, seq=seq, forward_ms=fwd_ms,
                b4_ms_per_forward=split["b4"], b1_ms_per_forward=split["b1"],
                b4_launches=launches[0], b1_launches=launches[1],
+               b1_design_launches=designs,
                plain_calls=list(plain), b1_norm_err=b1_err,
                b1_lse_norm_err=b1_lse_err, parity_norm_err=parity)
     log(f"[fused] {n_layers} x FusedTransformerEncoderLayer (bert_base, "
@@ -1408,11 +1467,13 @@ def main() -> int:
         ms=main_case["ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
         library_ms=None, cases=cases)]
-    for kind, name, line, launches in (
-            ("fwd", "flash_attention_fwd", 267, train["b1_launches"]),
-            ("bwd", "flash_attention_bwd", 457, train["b2_launches"])):
+    for kind, name, line, launches, source in (
+            ("fwd", "flash_attention_fwd", 267,
+             train["b1_design_launches"]["sm90"], "flash_fwd_sm90.cu"),
+            ("bwd", "flash_attention_bwd", 457, train["b2_launches"],
+             "flash_attention.cu")):
         kernels.append(dict(
-            name=name, route="cuda", source=src + "flash_attention.cu",
+            name=name, route="cuda", source=src + source,
             replaces=f"paddle_tpu/kernels/pallas/flash_attention.py:{line}",
             launches=launches,
             max_abs_err=max(e for c in flash for what, e in
@@ -1424,6 +1485,12 @@ def main() -> int:
             library_ms=fmain["library_fwd_ms" if kind == "fwd"
                              else "library_fwd_bwd_ms"],
             cases=flash))
+    # B1 by graph replay (device time only), its design, and PR 2's simple
+    # kernel at the same shape by graph replay
+    kernels[1].update(ms_graph=fmain["fwd_ms_graph"],
+                      library_ms_graph=fmain["library_fwd_ms_graph"],
+                      design=fmain["fwd_design"],
+                      simple_ms=fmain["simple_fwd_ms_graph"])
     # B4 at the fused encoder's shape, B5 at LLaMA-2-7B's packed prefill,
     # both bf16 with their affine; launches from phases 11 and 9
     for kind, main_name, line, launches in (

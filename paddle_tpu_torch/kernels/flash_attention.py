@@ -4,7 +4,10 @@ FA2 backward (B2), with the plain PyTorch versions beside them.
 Counterpart of paddle_tpu/kernels/pallas/flash_attention.py. Its TPU
 kernels ``_flash_fwd_fused`` (flash_attention.py:267, kernel
 ``_fwd_kernel`` :101) and ``_flash_bwd_fused`` (:457, kernel
-``_bwd_kernel`` :364) become the hand-written CUDA kernels in
+``_bwd_kernel`` :364) become hand-written CUDA kernels: B1 in two
+designs, ``csrc/flash_fwd_sm90.cu`` for bf16 at head_dim 64 and 128 (the
+main paths' calls) and ``csrc/flash_attention.cu``'s ``flash_fwd_kernel``
+for f32 and head_dim 256 (``_fwd_design`` picks one), B2 in
 ``csrc/flash_attention.cu``; ``_flash_core`` (:664, a jax.custom_vjp)
 becomes ``_FlashCore``, a ``torch.autograd.Function``; the composite
 ``_xla_attention`` (:606) is ported as it is.
@@ -43,6 +46,11 @@ __all__ = ["flash_attention", "attention_path", "flash_fwd", "flash_bwd"]
 _NEG_INF = -1e30
 _SUPPORTED_D = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# B1's designs: "sm90" (flash_fwd_sm90.cu) takes bf16 at these head_dims,
+# "simple" (flash_attention.cu's flash_fwd_kernel) every call the kernels
+# take
+_FWD_DESIGNS = ("sm90", "simple")
+_SM90_D = (64, 128)
 
 
 def _wide(t):
@@ -177,29 +185,56 @@ def _flash_bwd_reference(qs, k, v, o, lse, do, causal=False,
 # CUDA kernels: build and launch
 # ---------------------------------------------------------------------------
 _LIB = None
+_SM90_LIB = None
 _LIB_LOCK = threading.Lock()
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# (q, k, v, q_seg, kv_seg, o, lse, b, sq, sk, H, Hk, D, causal, dtype,
+#  q_sb, q_st, k_sb, k_st, v_sb, v_st, stream): both B1 entries
+_FWD_ARGTYPES = [_P] * 7 + [_I] * 8 + [_L] * 6 + [_P]
+
+
+def _csrc(name):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                        name)
 
 
 def _load_kernel():
-    """Build (nvcc, sm_90a) and load the kernel library at first use."""
+    """Build (nvcc, sm_90a) and load flash_attention.cu (B1's simple
+    design and B2) at first use."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
             from ..utils.build import NVCC_FLAGS, build_shared, nvcc_path
-            src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               "csrc", "flash_attention.cu")
-            lib = ctypes.CDLL(build_shared("flash_attention", [src],
+            lib = ctypes.CDLL(build_shared("flash_attention",
+                                           [_csrc("flash_attention.cu")],
                                            nvcc_path(), NVCC_FLAGS))
-            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             fwd = lib.flash_attention_fwd_launch
-            fwd.restype = I
-            fwd.argtypes = [P] * 7 + [I] * 8 + [L] * 6 + [P]
+            fwd.restype, fwd.argtypes = _I, _FWD_ARGTYPES
             bwd = lib.flash_attention_bwd_launch
-            bwd.restype = I
-            bwd.argtypes = ([P] * 11 + [I] * 8 + [ctypes.c_float] + [L] * 8
-                            + [P])
+            bwd.restype = _I
+            bwd.argtypes = ([_P] * 11 + [_I] * 8 + [ctypes.c_float]
+                            + [_L] * 8 + [_P])
             _LIB = lib
     return _LIB
+
+
+def _load_sm90(extra_flags=()):
+    """Build (nvcc, sm_90a) and load flash_fwd_sm90.cu (B1's sm90
+    design), its own library, at first use. `extra_flags` (-D tile
+    sizes) builds and returns a variant without installing it."""
+    global _SM90_LIB
+    from ..utils.build import NVCC_FLAGS, build_shared, nvcc_path
+    with _LIB_LOCK:
+        if _SM90_LIB is None or extra_flags:
+            lib = ctypes.CDLL(build_shared(
+                "flash_fwd_sm90", [_csrc("flash_fwd_sm90.cu")], nvcc_path(),
+                (*NVCC_FLAGS, *extra_flags)))
+            fwd = lib.flash_fwd_sm90_launch
+            fwd.restype, fwd.argtypes = _I, _FWD_ARGTYPES
+            if extra_flags:
+                return lib
+            _SM90_LIB = lib
+    return _SM90_LIB
 
 
 def _kernel_operand(name, t, dev, dtype, heads, d):
@@ -241,10 +276,30 @@ def _check_kernel_call(qs, k):
         raise ValueError(f"flash attention CUDA kernel: {reason}")
 
 
-def _fwd_cuda(qs, k, v, causal, segment_ids):
-    """Launch B1 on the current stream. Returns (o, lse [b, H, sq])."""
+def _fwd_design(dtype, d, design=None):
+    """B1's design for q of `dtype` and head_dim `d`: "sm90" for bf16 at
+    head_dim 64 or 128, "simple" otherwise. `design` forces one (the
+    same-run comparison of the two); it raises for an unknown name, and
+    for "sm90" on a call that design does not take."""
+    auto = "sm90" if dtype == torch.bfloat16 and d in _SM90_D else "simple"
+    if design is None:
+        return auto
+    if design not in _FWD_DESIGNS:
+        raise ValueError(f"unknown B1 design {design!r}, not in "
+                         f"{_FWD_DESIGNS}")
+    if design == "sm90" and auto != "sm90":
+        raise ValueError(f"B1's sm90 design takes bf16 at head_dim "
+                         f"{_SM90_D}, got {dtype} at {d}")
+    return design
+
+
+def _fwd_cuda(qs, k, v, causal, segment_ids, design=None):
+    """Launch B1 on the current stream. Returns (o, lse [b, H, sq]).
+    `design` is private: it forces a design (see _fwd_design); nothing on
+    a main path passes it."""
     _check_kernel_call(qs, k)
     b, sq, h, d = qs.shape
+    design = _fwd_design(qs.dtype, d, design)
     sk, hk = k.shape[1], k.shape[2]
     dev = qs.device
     qs = _kernel_operand("q", qs, dev, qs.dtype, h, d)
@@ -253,8 +308,9 @@ def _fwd_cuda(qs, k, v, causal, segment_ids):
     q_seg, kv_seg = _seg_operands(segment_ids, b, sq, sk, dev)
     o = torch.empty((b, sq, h, d), dtype=qs.dtype, device=dev)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    lib = _load_kernel()
-    rc = lib.flash_attention_fwd_launch(
+    launch = (_load_sm90().flash_fwd_sm90_launch if design == "sm90"
+              else _load_kernel().flash_attention_fwd_launch)
+    rc = launch(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if q_seg is None else q_seg.data_ptr(),
         None if kv_seg is None else kv_seg.data_ptr(),
@@ -263,9 +319,10 @@ def _fwd_cuda(qs, k, v, causal, segment_ids):
         k.stride(1), v.stride(0), v.stride(1),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash attention forward kernel launch failed: "
-                           f"error {rc}")
+        raise RuntimeError(f"flash attention forward kernel ({design}) "
+                           f"launch failed: error {rc}")
     flash_fwd.kernel_launches += 1
+    flash_fwd.design_launches[design] += 1
     return o, lse
 
 
@@ -344,12 +401,21 @@ def flash_bwd(qs, k, v, o, lse, do, sm_scale, causal=False,
 
 
 # launches of the CUDA kernels (one per call: B2's call launches its dk/dv
-# and dq kernels), and calls of the plain versions through the dispatchers:
-# a run reads them to show which implementation it went through
+# and dq kernels), B1's launches by design, and calls of the plain versions
+# through the dispatchers: a run reads them to show which implementation it
+# went through
 flash_fwd.kernel_launches = 0
+flash_fwd.design_launches = dict.fromkeys(_FWD_DESIGNS, 0)
 flash_fwd.plain_calls = 0
 flash_bwd.kernel_launches = 0
 flash_bwd.plain_calls = 0
+
+
+def reset_counters():
+    """Set every launch and plain-call counter of B1 and B2 to 0."""
+    for f in (flash_fwd, flash_bwd):
+        f.kernel_launches = f.plain_calls = 0
+    flash_fwd.design_launches = dict.fromkeys(_FWD_DESIGNS, 0)
 
 
 class _FlashCore(torch.autograd.Function):

@@ -227,6 +227,35 @@ def test_attention_path_gates():
         assert jfa._shape_reject_reason(qs, ks)
 
 
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 256, "simple"), (torch.float32, 64, "simple"),
+    (torch.float32, 128, "simple"), (torch.float32, 256, "simple")])
+def test_b1_design_selection(dtype, d, want):
+    """B1's sm90 kernel takes bf16 at head_dim 64 and 128, PR 2's simple
+    kernel the rest; `design` forces the simple kernel anywhere, refuses
+    sm90 where it does not apply, and raises on an unknown name."""
+    assert tfa._fwd_design(dtype, d) == want
+    assert tfa._fwd_design(dtype, d, "simple") == "simple"
+    if want == "sm90":
+        assert tfa._fwd_design(dtype, d, "sm90") == "sm90"
+    else:
+        with pytest.raises(ValueError, match="sm90"):
+            tfa._fwd_design(dtype, d, "sm90")
+    with pytest.raises(ValueError, match="unknown B1 design"):
+        tfa._fwd_design(dtype, d, "wgmma")
+
+
+def test_b1_counters_reset_per_design():
+    """reset_counters zeroes every B1/B2 counter, B1's per design too."""
+    tfa.flash_fwd.design_launches["sm90"] += 3
+    tfa.flash_bwd.kernel_launches += 1
+    tfa.reset_counters()
+    assert tfa.flash_fwd.design_launches == {"sm90": 0, "simple": 0}
+    assert (tfa.flash_fwd.kernel_launches, tfa.flash_bwd.kernel_launches,
+            tfa.flash_fwd.plain_calls, tfa.flash_bwd.plain_calls) == (0,) * 4
+
+
 @pytest.mark.parametrize("qs,ks", [((2, 256, 3, 64), (2, 256, 3, 64)),
                                    ((2, 256, 8, 64), (2, 256, 1, 64))])
 def test_tpu_lane_rule_is_dropped(qs, ks):

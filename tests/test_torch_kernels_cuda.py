@@ -232,20 +232,94 @@ def test_flash_kernels_match_plain(cuda_device, name, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_kernels_read_strided_qkv_views(cuda_device):
-    """GPT hands q/k/v as views of the fused qkv projection
-    [b, s, 3, H, D] (token stride 3*H*D): read in place, no copy."""
-    b, s, H, D = 2, 256, 4, 64
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernels_read_strided_qkv_views(cuda_device, D):
+    """GPT and the fused encoder hand q/k/v as views of the fused qkv
+    projection [b, s, 3, H, D] (token stride 3*H*D): read in place, no
+    copy, by B1's sm90 design at both of its head_dims."""
+    b, s, H = 2, 256, 4
     rng = np.random.default_rng(3)
     qkv = torch.as_tensor(rng.standard_normal((b, s, 3, H, D)).astype(
         np.float32), device=cuda_device).to(torch.bfloat16)
     q, k, v = qkv.unbind(dim=2)
     assert not k.is_contiguous()
+    n0 = fa.flash_fwd.design_launches["sm90"]
     o, lse = fa.flash_fwd(q, k, v, True, None, path="cuda")
+    assert fa.flash_fwd.design_launches["sm90"] == n0 + 1
     wo, wlse = fa.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
                             True, None, path="cuda")
     torch.testing.assert_close(o, wo, rtol=0, atol=0)
     torch.testing.assert_close(lse, wlse, rtol=0, atol=0)
+    po, plse = fa.flash_fwd(q, k, v, True, None, path="torch")
+    _bf16_close(o, po, "o")
+    torch.testing.assert_close(lse, plse, **F32_TOL)
+
+
+# B1's sm90 design (bf16, head_dim 64 and 128) on the FLASH cases it takes
+# and three edges: one 128-row q tile over three k tiles with the causal
+# offset (and GQA, at D 128), and segments that leave rows 40-90 of a
+# 128-row tile with no valid key beside live rows
+SM90_EDGES = {
+    # name: (b, sq, sk, H, Hk, D, causal, segments)
+    "one_q_tile_sk384_causal_d128": (2, 128, 384, 4, 2, 128, True, False),
+    "dead_rows_inside_a_tile": (2, 256, 256, 2, 2, 64, True, "dead"),
+    "dead_rows_inside_a_tile_d128": (1, 256, 256, 2, 1, 128, False, "dead"),
+}
+SM90_CASES = sorted([n for n, c in FLASH.items() if c[5] in (64, 128)]
+                    + list(SM90_EDGES))
+
+
+def _sm90_case(name, dev):
+    if name in FLASH:
+        qs, k, v, _do, causal, segs = _flash_case(name, torch.bfloat16, dev)
+        return qs, k, v, causal, segs
+    b, sq, sk, H, Hk, D, causal, seg = SM90_EDGES[name]
+    rng = np.random.default_rng(7)
+    mk = lambda *s: torch.as_tensor(
+        rng.standard_normal(s).astype(np.float32), device=dev).to(
+            torch.bfloat16)
+    qs = mk(b, sq, H, D) * torch.tensor(D ** -0.5, dtype=torch.bfloat16,
+                                        device=dev)
+    k, v = mk(b, sk, Hk, D), mk(b, sk, Hk, D)
+    segs = None
+    if seg:
+        q_ids = np.zeros((b, sq), np.int32)
+        k_ids = np.zeros((b, sk), np.int32)
+        q_ids[:, 40:91] = 7                  # no key carries 7
+        q_ids[:, 160:] = k_ids[:, 150:] = 1
+        segs = (torch.as_tensor(q_ids, device=dev),
+                torch.as_tensor(k_ids, device=dev))
+    return qs, k, v, causal, segs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SM90_CASES)
+def test_sm90_fwd_matches_plain_and_simple(cuda_device, name):
+    """B1's sm90 kernel against the plain version and against PR 2's
+    simple kernel on the same bf16 inputs; each design's launch counter
+    moves by one for its own call only."""
+    qs, k, v, causal, segs = _sm90_case(name, cuda_device)
+    n0 = dict(fa.flash_fwd.design_launches)
+    o, lse = fa.flash_fwd(qs, k, v, causal, segs, path="cuda")
+    n1 = dict(fa.flash_fwd.design_launches)
+    so, slse = fa._fwd_cuda(qs, k, v, causal, segs, design="simple")
+    torch.cuda.synchronize()
+    assert (n1["sm90"] - n0["sm90"], n1["simple"] - n0["simple"]) == (1, 0)
+    assert fa.flash_fwd.design_launches["simple"] == n1["simple"] + 1
+    wo, wlse = fa.flash_fwd(qs, k, v, causal, segs, path="torch")
+    assert o.dtype == torch.bfloat16 and o.shape == wo.shape
+    assert lse.dtype == torch.float32 and lse.shape == wlse.shape
+    assert torch.isfinite(o).all()
+    _bf16_close(o, wo, "o vs plain")
+    _bf16_close(o, so, "o vs simple")
+    torch.testing.assert_close(lse, wlse, **F32_TOL)
+    torch.testing.assert_close(lse, slse, **F32_TOL)
+    dead = wlse < -1e29                                  # [b, H, sq]
+    assert (lse[dead] == wlse[dead]).all()
+    if dead.any():
+        assert (o[dead.transpose(1, 2)] == 0).all()
+    if name.startswith("dead_rows"):
+        assert dead[:, :, 40:91].all() and not dead[:, :, :40].any()
 
 
 @pytest.mark.cuda

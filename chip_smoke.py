@@ -20,12 +20,12 @@ Run from the root of a checkout. Phases, each of which must pass:
      of a packed qkv projection), in bf16 and in f32,
      element by element relative to each row's size, with two faults
      planted in the kernels' outputs that the check must reject; the
-     design each B1 call ran (sm90 for bf16 at head_dim 64/128, PR 2's
+     design each B1 call ran (sm90 for bf16 at head_dim 64/128, the
      simple kernel otherwise) and its launches; timed beside their
      bound, the plain versions and one
      torch.nn.functional.scaled_dot_product_attention call (a yardstick
      only: the port never calls it); B1 in bf16 by single-call events
-     and by CUDA-graph replay, beside PR 2's simple kernel and SDPA's
+     and by CUDA-graph replay, beside the simple kernel and SDPA's
      forward timed both ways in the same run;
   4. gpt3_1p3b (bf16, all 24 layers, random weights from seed 0) served
      by LLMEngine: 16 requests sharing a 512-token prefix, 64 new tokens
@@ -793,7 +793,7 @@ def _sdpa_fwd(qs, k, v, causal, grad):
 def b1_times(spec, qs, k, v, segs, simple=True) -> dict:
     """Device times (ms) of B1 at one bf16 case: the design the main path
     takes, by single-call CUDA events (`fwd_ms`, host path included) and
-    by CUDA-graph replay (`fwd_ms_graph`, device only); PR 2's simple
+    by CUDA-graph replay (`fwd_ms_graph`, device only); the simple
     kernel the same way where the design is not the simple one (and
     `simple`); SDPA's forward the same way where sq == sk and no
     segments (else None)."""
@@ -807,9 +807,9 @@ def b1_times(spec, qs, k, v, segs, simple=True) -> dict:
                simple_fwd_ms_graph=None, library_fwd_ms=None,
                library_fwd_ms_graph=None)
     if simple and design != "simple":
-        pr2 = lambda: run(design="simple")
-        rec["simple_fwd_ms"] = cuda_ms(pr2)
-        rec["simple_fwd_ms_graph"] = graph_ms(pr2)
+        simple_run = lambda: run(design="simple")
+        rec["simple_fwd_ms"] = cuda_ms(simple_run)
+        rec["simple_fwd_ms_graph"] = graph_ms(simple_run)
     if sq == sk and not seg:
         lib, _ = _sdpa_fwd(qs, k, v, causal, grad=True)
         rec["library_fwd_ms"] = cuda_ms(lib)
@@ -1485,7 +1485,7 @@ def main() -> int:
             library_ms=fmain["library_fwd_ms" if kind == "fwd"
                              else "library_fwd_bwd_ms"],
             cases=flash))
-    # B1 by graph replay (device time only), its design, and PR 2's simple
+    # B1 by graph replay (device time only), its design, and the simple
     # kernel at the same shape by graph replay
     kernels[1].update(ms_graph=fmain["fwd_ms_graph"],
                       library_ms_graph=fmain["library_fwd_ms_graph"],

@@ -27,34 +27,41 @@
 // against 0.0403). At the fused encoder's (b 16, s 512, H 12, D 64,
 // non-causal) 12.9 GFLOP over 50.7 MB: bytes (0.0151 against 0.0130).
 // Both lines are close, so the kernel has to feed the tensor cores from
-// shared memory at their rate and keep device memory busy meanwhile.
+// shared memory at their rate and keep device memory busy meanwhile;
+// the softmax (one ex2 a score, 16 a clock an SM) costs about as much
+// as the products at D 64, so another warpgroup's products have to run
+// beside it (two a CTA, and two CTAs an SM at D 64).
 //
-// Design (stage 1 of the redesign: mma.sync; stage 2, wgmma, did not
-// ship), against PR 2's flash_fwd_kernel:
+// Design. This is stage 2 of the redesign, wgmma; stage 1 (mma.sync
+// m16n8k16 with ldmatrix fragments, Q in registers) was measured and
+// replaced. Against flash_attention.cu's flash_fwd_kernel (the simple
+// design):
 //   1. q tiles of 128 rows per CTA (one CTA per (q tile, head, batch)),
-//      so each K/V tile brought in serves 128 rows, not 64. D 64: 4 warps
-//      of 32 rows (two m16 tiles share every K/V fragment, halving
-//      shared-memory reads per product), k tiles of 64 keys. D 128: 8
-//      warps of 16 rows, k tiles of 64 keys (32 rows a warp would need
-//      64 registers of Q and 128 of o at once). A warp loads its Q
-//      fragments once with ldmatrix and holds them in registers for the
-//      whole k loop (PR 2 re-read them from shared memory on every tile).
-//   2. K and V tiles go through a ring of STAGES buffers in dynamic
-//      shared memory, filled by cp.async.cg 16-byte copies with
-//      commit_group / wait_group: tile kb + STAGES - 1 is in flight while
-//      tile kb is computed, one __syncthreads a tile (PR 2 loaded each
-//      tile synchronously between two barriers). Rows are XOR-swizzled by
-//      16-byte chunk (chunk c of row r at c ^ (r & 7)), so every ldmatrix
-//      phase and every cp.async store touches 32 distinct banks.
-//   3. ldmatrix.x4 gives the A fragments of Q and the B fragments of K
-//      (four 8x8 matrices, two n8 tiles, per instruction);
-//      ldmatrix.x4.trans gives V's B fragments for p·v. No scalar
-//      shared-memory loads remain (PR 2 built each of V's fragments from
-//      four 16-bit loads).
-//   4. P stays in registers: the accumulator layout of two neighbouring
-//      n8 score tiles is the A-fragment layout of one k16 step, so the
-//      f32 scores are packed to bf16 pairs and fed to p·v directly (PR 2
-//      stored P to shared memory and read it back).
+//      two consumer warpgroups of 64 rows, so each K/V tile brought in
+//      serves 128 rows, not 64. Q is loaded once into shared memory and
+//      read from there by every product (the simple design re-reads its
+//      fragments by scalar loads on every k tile).
+//   2. K and V tiles of 64 keys go through a ring of STAGES buffers in
+//      dynamic shared memory, filled by cp.async.cg 16-byte copies with
+//      commit_group / wait_group, so tiles kb + 1 .. kb + STAGES - 1 are
+//      in flight while tile kb is computed (3 buffers at both head_dims:
+//      at D 64 two CTAs then share an SM, at D 128 one CTA takes it); one
+//      __syncthreads a tile (the simple design loads each tile
+//      synchronously between two barriers). Tiles are laid out in the
+//      128-byte swizzle (16-byte chunk c of a 128-byte row r at
+//      c ^ (r & 7)): every cp.async store phase touches 32 distinct
+//      banks, and it is the layout wgmma's descriptors read.
+//   3. S = Q Kᵀ by wgmma m64n64k16 with Q and K read from shared memory
+//      through matrix descriptors (K-major), and O += P V by wgmma
+//      m64nDk16 with V read MN-major by the transpose bit. No fragment
+//      is built by the threads: no ldmatrix, no scalar shared-memory
+//      loads (the simple design builds each of V's fragments from four
+//      16-bit loads).
+//   4. P stays in registers: the wgmma accumulator layout of two
+//      neighbouring n8 score columns is the register A-fragment layout of
+//      one k16 step, so the f32 scores are packed to bf16 pairs and fed
+//      to P V directly (the simple design stores P to shared memory and
+//      reads it back).
 //   5. The softmax is in base 2: exp2(s·log2e − m·log2e), one FFMA and
 //      one ex2.approx a score; the running max stays in natural units,
 //      so lse = m + log(l) as the reference computes it. Row sums are
@@ -64,35 +71,38 @@
 //   6. Causal calls take q tiles in reverse order of blockIdx.x: each
 //      (batch, head) launches its longest tile first, and the grid ends
 //      on short tiles. k tiles above the diagonal are never loaded, a
-//      warp skips the products of a tile its rows cannot see, and the
-//      mask is evaluated only on tiles that straddle its diagonal or
-//      carry segment ids.
+//      warpgroup skips the products of a tile its rows cannot see, and
+//      the mask is evaluated only on tiles that straddle a warp's
+//      diagonal or carry segment ids.
 //
 // Tile sizes are compile-time (FA90_D64_* / FA90_D128_*), so a probe can
-// build variants (tools/flash_fwd_probe.py). Launches run on the caller's
-// stream, allocate nothing and do not synchronise; the C entry returns
-// cudaGetLastError().
+// build variants and time them beside the default
+// (tools/flash_fwd_probe.py). Launches
+// run on the caller's stream, allocate nothing and do not synchronise;
+// the C entry returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef FA90_D64_WARPS
-#define FA90_D64_WARPS 4
-#endif
+// k-tile width, ring depth and CTAs an SM asked of the compiler, per
+// head_dim
 #ifndef FA90_D64_BN
 #define FA90_D64_BN 64
 #endif
 #ifndef FA90_D64_STAGES
 #define FA90_D64_STAGES 3
 #endif
-#ifndef FA90_D128_WARPS
-#define FA90_D128_WARPS 8
+#ifndef FA90_D64_MINB
+#define FA90_D64_MINB 2
 #endif
 #ifndef FA90_D128_BN
 #define FA90_D128_BN 64
 #endif
 #ifndef FA90_D128_STAGES
-#define FA90_D128_STAGES 2
+#define FA90_D128_STAGES 3
+#endif
+#ifndef FA90_D128_MINB
+#define FA90_D128_MINB 1
 #endif
 
 namespace {
@@ -104,32 +114,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float neg_inf() {
   return __uint_as_float(0xff800000u);
-}
-
-// BM = 128 q rows over WARPS warps of MT m16 tiles each; BN keys a k tile
-template <int D_, int WARPS_, int BN_, int STAGES_>
-struct Cfg {
-  static constexpr int D = D_, WARPS = WARPS_, BN = BN_, STAGES = STAGES_;
-  static constexpr int BM = 128;
-  static constexpr int MT = BM / (16 * WARPS);
-  static constexpr int THREADS = WARPS * 32;
-  static constexpr int NT_S = BN / 8;   // n8 tiles across a score row
-  static constexpr int NT_D = D / 8;    // n8 tiles across an o row
-  static constexpr int KQ = D / 16;     // k16 steps of q·kᵀ
-  static constexpr int KP = BN / 16;    // k16 steps of p·v
-  static constexpr int TILE = BN * D;   // elements of one K or V tile
-  static constexpr size_t SMEM = (BM * D + 2 * STAGES * TILE) * sizeof(bf16);
-  static_assert(MT * 16 * WARPS == BM, "128 rows over the warps");
-  static_assert(D % 64 == 0, "the swizzle needs 8 chunks a row");
-  static_assert(BN % 16 == 0 && STAGES >= 2, "k tile");
-  static_assert((BM * D / 8) % THREADS == 0 && (BN * D / 8) % THREADS == 0,
-                "tiles split evenly into 16-byte copies");
-};
-
-// byte offset of 16-byte chunk c of row r in a [rows][D] bf16 tile
-template <int D>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>(r * D * 2 + ((c ^ (r & 7)) << 4));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -147,42 +131,6 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// R rows of a head's [*, D] slice (row i at src + i * stride) into a
-// swizzled [R][D] tile, 16 bytes a thread a step
-template <int D, int R, int THREADS>
-__device__ __forceinline__ void cp_tile(uint32_t dst, const bf16* src,
-                                        long long stride) {
-  constexpr int CPR = D / 8;
-#pragma unroll
-  for (int it = 0; it < R * CPR / THREADS; ++it) {
-    const int i = it * THREADS + static_cast<int>(threadIdx.x);
-    const int r = i / CPR, c = i % CPR;
-    cp_async16(dst + swz<D>(r, c), src + r * stride + c * 8);
-  }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // two f32 as a bf16 pair (round to nearest even, as torch's cast), the
@@ -207,42 +155,262 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// grid (sq / 128, H, b). Lane (g = lane / 4, t = lane % 4) of a warp holds,
-// in each of its m16 tiles mt, rows g and g + 8 and, in n8 tile j,
-// columns 8j + 2t and 8j + 2t + 1 (the m16n8k16 accumulator layout).
+template <int D_, int BN_, int STAGES_, int MINB_>
+struct Cfg {
+  static constexpr int D = D_, BN = BN_, STAGES = STAGES_, MINB = MINB_;
+  static constexpr int BM = 128, THREADS = 256;
+  static constexpr int NT_S = BN / 8, NT_D = D / 8, KQ = D / 16, KP = BN / 16;
+  static constexpr uint32_t QB = BM * D * 2;  // bytes of the Q tile
+  static constexpr uint32_t TB = BN * D * 2;  // bytes of one K or V tile
+  // + 1024: the tiles start on a 1024-byte boundary (the swizzle atom)
+  static constexpr size_t SMEM = QB + 2 * STAGES * TB + 1024;
+  static_assert(D % 64 == 0 && (BN == 64 || BN == 128) && STAGES >= 2,
+                "64-column swizzle blocks, wgmma widths, a ring");
+  static_assert((BM * D / 8) % THREADS == 0 && (BN * D / 8) % THREADS == 0,
+                "tiles split evenly into 16-byte copies");
+};
+
+// byte offset of 16-byte chunk c (along D) of row r in an R-row tile laid
+// out as D / 64 blocks of [R][64], each row 128 bytes with the 128-byte
+// swizzle (chunk c of row r at c ^ (r & 7)): what wgmma's SWIZZLE_128B
+// descriptors read, K-major for Q and K, MN-major for V
+template <int R>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>((c >> 3) * (R * 128) + r * 128 +
+                               (((c & 7) ^ (r & 7)) << 4));
+}
+
+template <int D, int R, int THREADS>
+__device__ __forceinline__ void cp_tile(uint32_t dst, const bf16* src,
+                                         long long stride) {
+  constexpr int CPR = D / 8;
+#pragma unroll
+  for (int it = 0; it < R * CPR / THREADS; ++it) {
+    const int i = it * THREADS + static_cast<int>(threadIdx.x);
+    const int r = i / CPR, c = i % CPR;
+    cp_async16(dst + swz<R>(r, c), src + r * stride + c * 8);
+  }
+}
+
+// a wgmma matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), layout SWIZZLE_128B (1 << 62)
+__device__ __forceinline__ uint64_t wdesc(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// registers a wgmma in flight reads or writes: pinned in place, so the
+// compiler neither moves their uses across the wait nor reuses them early
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
+}
+
+// d[N/8][4] (+)= A · B for one k16 step of a 64-row warpgroup tile:
+// wgmma_ss reads A (K-major) and B (K-major) through descriptors,
+// scale_d = 0 overwrites d; wgmma_rs_t takes A from registers (the
+// m16n8k16 A layout per warp) and B MN-major (transposed)
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b,
+                         int scale_d);
+template <int N>
+__device__ void wgmma_rs_t(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                           uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[8][4], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_t<64>(float (&d)[8][4],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[16][4], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_t<128>(float (&d)[16][4],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// what the mask and the softmax of one warp need to know of its rows
+struct Rows {
+  int r0, g, t, offset, causal, bi, sk;
+  const int* kv_seg;  // nullptr without segment ids
+  int qsg[2];         // the segment ids of rows r0 + g and r0 + g + 8
+};
+
+// the online-softmax step of one k tile (keys k0 .. k0 + N - 1) for a warp's
+// 16 rows: masks s where it has to, folds its row max into m, turns s into
+// unnormalised p (base 2; masked scores are -inf, so p = 0), adds p's row
+// sums to l and returns in alpha the factor the accumulator takes
+template <int N>
+__device__ __forceinline__ void softmax_step(float (&s)[N / 8][4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0,
+                                             const Rows& w) {
+  // mask only tiles that straddle the warp's diagonal or carry segments
+  if (w.kv_seg || (w.causal && k0 + N - 1 > w.r0 + w.offset)) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int c = k0 + 8 * j + 2 * w.t;
+      int ks[2] = {0, 0};
+      if (w.kv_seg) {
+        ks[0] = __ldg(w.kv_seg + static_cast<long long>(w.bi) * w.sk + c);
+        ks[1] = __ldg(w.kv_seg + static_cast<long long>(w.bi) * w.sk + c + 1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = w.r0 + w.g + 8 * (e >> 1);
+        bool ok = !w.causal || c + (e & 1) <= row + w.offset;
+        if (w.kv_seg) ok = ok && w.qsg[e >> 1] == ks[e & 1];
+        if (!ok) s[j][e] = neg_inf();
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = m[i];
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+    mx = quad_max(mx);
+    const float ms = mx * kLog2e;
+    // (m_old - mx) first: exactly 0 when the max did not move, also at
+    // -1e30, where m_old * log2e - ms could carry ms's rounding error
+    // (~1e22) into ex2
+    alpha[i] = ex2((m[i] - mx) * kLog2e);
+    m[i] = mx;
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 2 * i; e < 2 * i + 2; ++e) {
+        const float p = ex2(fmaf(s[j][e], kLog2e, -ms));
+        s[j][e] = p;
+        rs += p;
+      }
+    l[i] = l[i] * alpha[i] + rs;
+  }
+}
+
+// P as bf16 A fragments of p·v: two n8 score tiles are one k16 step
+template <int N>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[N / 16][4],
+                                       const float (&s)[N / 8][4]) {
+#pragma unroll
+  for (int kp = 0; kp < N / 16; ++kp) {
+    pa[kp][0] = pack_bf16(s[2 * kp][0], s[2 * kp][1]);
+    pa[kp][1] = pack_bf16(s[2 * kp][2], s[2 * kp][3]);
+    pa[kp][2] = pack_bf16(s[2 * kp + 1][0], s[2 * kp + 1][1]);
+    pa[kp][3] = pack_bf16(s[2 * kp + 1][2], s[2 * kp + 1][3]);
+  }
+}
+
+// grid (sq / 128, H, b); warpgroup wg owns q rows [64 wg, 64 wg + 64) of the
+// tile, its warp w rows 16 w .. 16 w + 15 of those, in the m16n8k16
+// accumulator layout (lane g = lane / 4, t = lane % 4: rows g and g + 8,
+// columns 8j + 2t and 8j + 2t + 1 of n8 tile j). Each k tile: S = Q Kᵀ as
+// one wgmma group, waited for; the softmax; O += P V as another.
 template <class C>
-__global__ void __launch_bounds__(C::THREADS)
+__global__ void __launch_bounds__(C::THREADS, C::MINB)
 flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const int* __restrict__ q_seg,
                const int* __restrict__ kv_seg, bf16* __restrict__ o,
                float* __restrict__ lse, int sq, int sk, int H, int Hk,
                int causal, long long q_sb, long long q_st, long long k_sb,
                long long k_st, long long v_sb, long long v_st) {
-  constexpr int D = C::D, BM = C::BM, BN = C::BN, MT = C::MT;
-  constexpr int S = C::STAGES, THREADS = C::THREADS;
-  constexpr uint32_t TB = C::TILE * 2;  // bytes of one K or V tile
+  constexpr int D = C::D, BM = C::BM, BN = C::BN, S = C::STAGES;
+  constexpr int THREADS = C::THREADS;
+  constexpr uint32_t TB = C::TB;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const uint32_t Qs = smem_addr(smem_raw);  // [BM][D]
-  const uint32_t Ks = Qs + BM * D * 2;      // [S][BN][D]
-  const uint32_t Vs = Ks + S * TB;          // [S][BN][D]
+  const uint32_t Qs = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t Ks = Qs + C::QB;   // [S] tiles
+  const uint32_t Vs = Ks + S * TB;  // [S] tiles
 
   // causal: longest q tile of each (batch, head) first
   const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = qt * BM, h = blockIdx.y, bi = blockIdx.z;
   const int hk = h / (H / Hk);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int offset = sk - sq;
-  const bool has_seg = q_seg != nullptr;
-  const int r0 = q0 + warp * 16 * MT;  // this warp's first query row
+  const int wg = warp >> 2;
+  const int rg0 = q0 + wg * 64;  // this warpgroup's first query row
+  Rows w;
+  w.r0 = rg0 + (warp & 3) * 16;  // this warp's first query row
+  w.g = lane >> 2;
+  w.t = lane & 3;
+  w.offset = sk - sq;
+  w.causal = causal;
+  w.bi = bi;
+  w.sk = sk;
+  w.kv_seg = kv_seg;
+  w.qsg[0] = w.qsg[1] = 0;
 
   const bf16* kbase = k + bi * k_sb + static_cast<long long>(hk) * D;
   const bf16* vbase = v + bi * v_sb + static_cast<long long>(hk) * D;
-  // keys [0, kend) are visible to some row of this tile
-  const int kend = causal ? min(sk, q0 + BM + offset) : sk;
+  // keys [0, kend) are visible to some row of this tile; this
+  // warpgroup's rows see tiles [0, nkw) (uniform over it, as wgmma needs)
+  const int kend = causal ? min(sk, q0 + BM + w.offset) : sk;
   const int nkb = kend > 0 ? (kend + BN - 1) / BN : 0;
+  const int kw = causal ? min(sk, rg0 + 64 + w.offset) : sk;
+  const int nkw = kw > 0 ? (kw + BN - 1) / BN : 0;
 
-  // prologue: Q and k tile 0 in group 0, tiles 1 .. S-2 one group each
+  // prologue: Q and tile 0 in group 0, tiles 1 .. S - 2 one group each
   if (nkb > 0) {
     cp_tile<D, BM, THREADS>(
         Qs, q + bi * q_sb + q0 * q_st + static_cast<long long>(h) * D, q_st);
@@ -255,51 +423,25 @@ flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_commit();
     }
   }
-
-  int qsg[MT][2];
-  if (has_seg) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        qsg[mt][i] = q_seg[static_cast<long long>(bi) * sq + r0 + mt * 16 +
-                           g + 8 * i];
+  if (q_seg) {
+    w.qsg[0] = q_seg[static_cast<long long>(bi) * sq + w.r0 + w.g];
+    w.qsg[1] = q_seg[static_cast<long long>(bi) * sq + w.r0 + w.g + 8];
   }
 
-  // ldmatrix rows: every row a lane addresses is 8-aligned plus lane & 7,
-  // so its swizzled chunk depends on the lane and the chunk only. K: lane
-  // row (keys) (lane / 16) * 8 + lane % 8, chunk 2 kk + (lane / 8) % 2;
-  // V (.trans): row (keys) ((lane / 8) % 2) * 8 + lane % 8, chunk
-  // 2 jd + lane / 16.
-  const uint32_t krow = ((lane >> 4) * 8 + (lane & 7)) * D * 2;
-  const uint32_t vrow = (((lane >> 3) & 1) * 8 + (lane & 7)) * D * 2;
-  uint32_t kcol[C::KQ], vcol[C::NT_D / 2];
+  float acc[C::NT_D][4];
 #pragma unroll
-  for (int kk = 0; kk < C::KQ; ++kk)
-    kcol[kk] = ((2 * kk + ((lane >> 3) & 1)) ^ (lane & 7)) << 4;
+  for (int j = 0; j < C::NT_D; ++j)
 #pragma unroll
-  for (int jd = 0; jd < C::NT_D / 2; ++jd)
-    vcol[jd] = ((2 * jd + (lane >> 4)) ^ (lane & 7)) << 4;
-
-  uint32_t qf[MT][C::KQ][4];
-  float acc[MT][C::NT_D][4];
-  float m[MT][2], l[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int j = 0; j < C::NT_D; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      m[mt][i] = kNegInf;
-      l[mt][i] = 0.f;
-    }
-  }
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // Q's rows of this warpgroup, K-major: k16 step kk is 32 bytes into
+  // 64-column block kk / 4; 8-row groups 1024 bytes apart
+  const uint32_t qrow = Qs + wg * 64 * 128;
 
   for (int kb = 0; kb < nkb; ++kb) {
-    cp_wait<S - 2>();  // tile kb (and, at kb = 0, Q) has landed
-    __syncthreads();   // ... for every thread; tile kb - 1 is consumed
+    cp_wait<S - 2>();     // tile kb (and, at kb = 0, Q) has landed ...
+    fence_proxy_async();  // ... is visible to wgmma's reads ...
+    __syncthreads();      // ... for every thread; tile kb - 1 is consumed
     {
       const int nb = kb + S - 1;  // refill the buffer of tile kb - 1
       if (nb < nkb) {
@@ -309,167 +451,90 @@ flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       cp_commit();
     }
-    if (kb == 0) {
-      // A fragments of Q: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15)
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int kk = 0; kk < C::KQ; ++kk)
-          ldsm_x4(qf[mt][kk],
-                  Qs + swz<D>(r0 - q0 + mt * 16 + ((lane >> 3) & 1) * 8 +
-                                  (lane & 7),
-                              2 * kk + (lane >> 4)));
-    }
-    const int k0 = kb * BN;
-    // a tile wholly right of this warp's last row's diagonal adds nothing
-    if (causal && k0 > r0 + 16 * MT - 1 + offset) continue;
-    const uint32_t Kt = Ks + (kb % S) * TB + krow;
-    const uint32_t Vt = Vs + (kb % S) * TB + vrow;
+    // a tile wholly right of this warpgroup's last row's diagonal adds
+    // nothing
+    if (kb >= nkw) continue;
+    const uint32_t Kt = Ks + (kb % S) * TB;
+    const uint32_t Vt = Vs + (kb % S) * TB;
 
-    float s[MT][C::NT_S][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < C::NT_S; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
-    // s = q kᵀ: K's B fragments, matrices (keys 0-7 | 8-15) x (d 0-7 | 8-15)
+    // S = Q Kᵀ; K is K-major, as Q
+    float s[C::NT_S][4];
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < C::KQ; ++kk)
-#pragma unroll
-      for (int jp = 0; jp < C::NT_S / 2; ++jp) {
-        uint32_t b[4];
-        ldsm_x4(b, Kt + jp * 16 * D * 2 + kcol[kk]);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][2 * jp], qf[mt][kk], b[0], b[1]);
-          mma_bf16(s[mt][2 * jp + 1], qf[mt][kk], b[2], b[3]);
-        }
-      }
+      wgmma_ss<BN>(s,
+                   wdesc(qrow + (kk >> 2) * (BM * 128) + (kk & 3) * 32, 16,
+                         1024),
+                   wdesc(Kt + (kk >> 2) * (BN * 128) + (kk & 3) * 32, 16,
+                         1024),
+                   kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
 
-    // mask only tiles that straddle this warp's diagonal or carry segments
-    if (has_seg || (causal && k0 + BN - 1 > r0 + offset)) {
+    float alpha[2];
+    softmax_step<BN>(s, m, l, alpha, kb * BN, w);
 #pragma unroll
-      for (int j = 0; j < C::NT_S; ++j) {
-        const int c = k0 + 8 * j + 2 * t;
-        int ks[2] = {0, 0};
-        if (has_seg) {
-          ks[0] = __ldg(kv_seg + static_cast<long long>(bi) * sk + c);
-          ks[1] = __ldg(kv_seg + static_cast<long long>(bi) * sk + c + 1);
-        }
+    for (int j = 0; j < C::NT_D; ++j)
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = r0 + mt * 16 + g + 8 * (e >> 1);
-            bool ok = !causal || c + (e & 1) <= row + offset;
-            if (has_seg) ok = ok && qsg[mt][e >> 1] == ks[e & 1];
-            if (!ok) s[mt][j][e] = neg_inf();
-          }
-      }
-    }
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+    uint32_t pa[C::KP][4];
+    pack_p<BN>(pa, s);
 
-    // online softmax in base 2; masked scores (-inf) give p = 0
+    // O += P V; V is MN-major: k16 step kp is two 8-key groups (1024
+    // bytes each) on, and 64-column blocks of D are BN * 128 bytes apart
+    pin(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float mx = m[mt][i];
-#pragma unroll
-        for (int j = 0; j < C::NT_S; ++j)
-          mx = fmaxf(mx, fmaxf(s[mt][j][2 * i], s[mt][j][2 * i + 1]));
-        mx = quad_max(mx);
-        const float ms = mx * kLog2e;
-        // (m_old - mx) first: exactly 0 when the max did not move, also at
-        // -1e30, where m_old * log2e - ms could carry ms's rounding error
-        // (~1e22) into ex2
-        const float alpha = ex2((m[mt][i] - mx) * kLog2e);
-        m[mt][i] = mx;
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < C::NT_S; ++j)
-#pragma unroll
-          for (int e = 2 * i; e < 2 * i + 2; ++e) {
-            const float p = ex2(fmaf(s[mt][j][e], kLog2e, -ms));
-            s[mt][j][e] = p;
-            rs += p;
-          }
-        l[mt][i] = l[mt][i] * alpha + rs;
-#pragma unroll
-        for (int j = 0; j < C::NT_D; ++j) {
-          acc[mt][j][2 * i] *= alpha;
-          acc[mt][j][2 * i + 1] *= alpha;
-        }
-      }
-
-    // o += p v: two n8 score tiles are one k16 A fragment of p (bf16);
-    // V's B fragments by ldmatrix.trans, matrices (keys 0-7 | 8-15) x
-    // (d 0-7 | 8-15)
-#pragma unroll
-    for (int kp = 0; kp < C::KP; ++kp) {
-      uint32_t pa[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        pa[mt][0] = pack_bf16(s[mt][2 * kp][0], s[mt][2 * kp][1]);
-        pa[mt][1] = pack_bf16(s[mt][2 * kp][2], s[mt][2 * kp][3]);
-        pa[mt][2] = pack_bf16(s[mt][2 * kp + 1][0], s[mt][2 * kp + 1][1]);
-        pa[mt][3] = pack_bf16(s[mt][2 * kp + 1][2], s[mt][2 * kp + 1][3]);
-      }
-#pragma unroll
-      for (int jd = 0; jd < C::NT_D / 2; ++jd) {
-        uint32_t b[4];
-        ldsm_x4_t(b, Vt + kp * 16 * D * 2 + vcol[jd]);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][2 * jd], pa[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * jd + 1], pa[mt], b[2], b[3]);
-        }
-      }
-    }
+    for (int kp = 0; kp < C::KP; ++kp)
+      wgmma_rs_t<D>(acc, pa[kp], wdesc(Vt + kp * 2048, BN * 128, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    pin(pa);
   }
   cp_wait<0>();  // only empty groups can be left; drained before exit
 
   // o = acc / l (the reference divides; a row with no valid key has
   // acc = 0, l = 0, m = -1e30, so o = 0 and lse = -1e30)
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int i = 0; i < 2; ++i) {
+    const float lt = quad_sum(l[i]);
+    const float sl = lt == 0.f ? 1.f : lt;
+    const int row = w.r0 + w.g + 8 * i;
+    bf16* orow = o + ((static_cast<long long>(bi) * sq + row) * H + h) *
+                         static_cast<long long>(D);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float lt = quad_sum(l[mt][i]);
-      const float sl = lt == 0.f ? 1.f : lt;
-      const int row = r0 + mt * 16 + g + 8 * i;
-      bf16* orow = o + ((static_cast<long long>(bi) * sq + row) * H + h) *
-                           static_cast<long long>(D);
-#pragma unroll
-      for (int j = 0; j < C::NT_D; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
-            __floats2bfloat162_rn(acc[mt][j][2 * i] / sl,
-                                  acc[mt][j][2 * i + 1] / sl);
-      if (t == 0)
-        lse[(static_cast<long long>(bi) * H + h) * sq + row] =
-            m[mt][i] + logf(sl);
-    }
+    for (int j = 0; j < C::NT_D; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * w.t) =
+          __floats2bfloat162_rn(acc[j][2 * i] / sl, acc[j][2 * i + 1] / sl);
+    if (w.t == 0)
+      lse[(static_cast<long long>(bi) * H + h) * sq + row] = m[i] + logf(sl);
+  }
 }
 
-using Cfg64 = Cfg<64, FA90_D64_WARPS, FA90_D64_BN, FA90_D64_STAGES>;
-using Cfg128 = Cfg<128, FA90_D128_WARPS, FA90_D128_BN, FA90_D128_STAGES>;
+using Cfg64 = Cfg<64, FA90_D64_BN, FA90_D64_STAGES, FA90_D64_MINB>;
+using Cfg128 = Cfg<128, FA90_D128_BN, FA90_D128_STAGES, FA90_D128_MINB>;
 
 template <class C>
-int launch(const void* q, const void* k, const void* v, const int* q_seg,
-           const int* kv_seg, void* o, float* lse, int b, int sq, int sk,
+int launch(const void* q, const void* k, const void* v, const void* q_seg,
+           const void* kv_seg, void* o, void* lse, int b, int sq, int sk,
            int H, int Hk, int causal, long long q_sb, long long q_st,
            long long k_sb, long long k_st, long long v_sb, long long v_st,
-           cudaStream_t stream) {
+           void* stream) {
   // once per instantiation, outside any stream capture that follows
   static const int attr = static_cast<int>(cudaFuncSetAttribute(
       flash_fwd_sm90<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::SMEM)));
   if (attr) return attr;
   if (sq % C::BM || sk % C::BN || Hk < 1 || H % Hk) return -2;
-  flash_fwd_sm90<C><<<dim3(sq / C::BM, H, b), C::THREADS, C::SMEM, stream>>>(
+  flash_fwd_sm90<C><<<dim3(sq / C::BM, H, b), C::THREADS, C::SMEM,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), q_seg, kv_seg, static_cast<bf16*>(o), lse,
-      sq, sk, H, Hk, causal, q_sb, q_st, k_sb, k_st, v_sb, v_st);
+      static_cast<const bf16*>(v), static_cast<const int*>(q_seg),
+      static_cast<const int*>(kv_seg), static_cast<bf16*>(o),
+      static_cast<float*>(lse), sq, sk, H, Hk, causal, q_sb, q_st, k_sb, k_st,
+      v_sb, v_st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -488,14 +553,11 @@ extern "C" int flash_fwd_sm90_launch(const void* q, const void* k,
                                      long long v_sb, long long v_st,
                                      void* stream) {
   if (dtype != 1) return -1;
-#define FA90(CC)                                                            \
-  return launch<CC>(q, k, v, static_cast<const int*>(q_seg),                \
-                    static_cast<const int*>(kv_seg), o,                     \
-                    static_cast<float*>(lse), b, sq, sk, H, Hk, causal, q_sb, \
-                    q_st, k_sb, k_st, v_sb, v_st,                           \
-                    static_cast<cudaStream_t>(stream))
-  if (D == 64) FA90(Cfg64);
-  if (D == 128) FA90(Cfg128);
-#undef FA90
+  if (D == 64)
+    return launch<Cfg64>(q, k, v, q_seg, kv_seg, o, lse, b, sq, sk, H, Hk,
+                         causal, q_sb, q_st, k_sb, k_st, v_sb, v_st, stream);
+  if (D == 128)
+    return launch<Cfg128>(q, k, v, q_seg, kv_seg, o, lse, b, sq, sk, H, Hk,
+                          causal, q_sb, q_st, k_sb, k_st, v_sb, v_st, stream);
   return -1;
 }

@@ -232,8 +232,8 @@ def test_attention_path_gates():
     (torch.bfloat16, 256, "simple"), (torch.float32, 64, "simple"),
     (torch.float32, 128, "simple"), (torch.float32, 256, "simple")])
 def test_b1_design_selection(dtype, d, want):
-    """B1's sm90 kernel takes bf16 at head_dim 64 and 128, PR 2's simple
-    kernel the rest; `design` forces the simple kernel anywhere, refuses
+    """B1's sm90 kernel takes bf16 at head_dim 64 and 128, the simple
+    kernel (flash_attention.cu) the rest; `design` forces the simple kernel anywhere, refuses
     sm90 where it does not apply, and raises on an unknown name."""
     assert tfa._fwd_design(dtype, d) == want
     assert tfa._fwd_design(dtype, d, "simple") == "simple"

@@ -295,7 +295,7 @@ def _sm90_case(name, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", SM90_CASES)
 def test_sm90_fwd_matches_plain_and_simple(cuda_device, name):
-    """B1's sm90 kernel against the plain version and against PR 2's
+    """B1's sm90 kernel against the plain version and against the
     simple kernel on the same bf16 inputs; each design's launch counter
     moves by one for its own call only."""
     qs, k, v, causal, segs = _sm90_case(name, cuda_device)

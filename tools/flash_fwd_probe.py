@@ -3,7 +3,7 @@
 working on paddle_tpu_torch/kernels/csrc/flash_fwd_sm90.cu.
 
     python3 tools/flash_fwd_probe.py [--cases a,b,h] [--simple]
-        [--variant FA90_D64_WARPS=8,FA90_D64_BN=128 ...]
+        [--variant FA90_D64_STAGES=4,FA90_D128_BN=128 ...] [--out PATH]
 
 Run from the root of a checkout. It builds only flash_fwd_sm90.cu
 (flash_attention.cu too with --simple), prints what `nvcc -Xptxas -v`
@@ -12,11 +12,13 @@ bf16 cases of chip_smoke.py's phase 3 whose head_dim the design takes
 (all of them, or those whose letters --cases names). For each it holds
 B1's (o, lse) to the plain version with the phase's limits and planted
 fault, and times B1 by single-call CUDA events and by CUDA-graph replay,
-beside the bound, SDPA's forward and, with --simple, PR 2's kernel.
-Every --variant rebuilds the source with those -D tile sizes, prints its
-registers, and checks and times it on the same cases. The record goes to
-chiprun_out/flash_fwd_probe.json. The inputs, checks and timers are
-chip_smoke.py's own.
+beside the bound, SDPA's forward and, with --simple, the simple kernel
+(flash_attention.cu's flash_fwd_kernel). Every --variant rebuilds the
+source with those -D tile-size macros, prints its
+registers, and checks and times it on the same cases; a variant that
+does not build is reported and skipped. The record goes to --out
+(build/flash_fwd_probe.json by default). The inputs, checks and timers
+are chip_smoke.py's own.
 """
 from __future__ import annotations
 
@@ -34,9 +36,10 @@ import chip_smoke as cs  # noqa: E402
 
 
 def ptxas_report(extra_flags=()) -> list:
-    """[{entry, registers, stack, spill_stores, spill_loads}] of every
-    kernel in flash_fwd_sm90.cu, from `nvcc -Xptxas -v` (an object file
-    compiled into the build directory with the library's flags)."""
+    """[{entry, registers, stack, spill_stores, spill_loads, warnings}] of
+    every kernel in flash_fwd_sm90.cu, from `nvcc -Xptxas -v` (an object
+    file compiled into the build directory with the library's flags);
+    raises with the compiler's last lines if the source does not build."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.utils.build import NVCC_FLAGS, build_dir, nvcc_path
     flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
@@ -44,15 +47,25 @@ def ptxas_report(extra_flags=()) -> list:
     out = build_dir() / "flash_fwd_sm90_ptxas.o"
     cmd = [nvcc_path(), *flags, *extra_flags, "-Xptxas", "-v", "-c", "-o",
            str(out), fa._csrc("flash_fwd_sm90.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=True)
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            (proc.stdout + proc.stderr).splitlines()[-40:]))
     report, cur = [], None
     for line in (proc.stdout + proc.stderr).splitlines():
+        # e.g. ptxas's note that it serialised wgmma in some function
+        if "warning" in line.lower() and cur is not None:
+            cur.setdefault("warnings", []).append(line.strip()[-300:])
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            cfg = re.search(r"CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+            # the kernel and its tile config, e.g. flash_fwd_sm90_wgmma
+            # <WCfg<64, 64, 3>>
+            cfg = re.search(r"(flash_fwd_\w+?)I\w*?(W?Cfg)I((?:Li\d+E)+)",
                             m.group(1))
-            cur = dict(entry=("D %s, %s warps, BN %s, %s stages"
-                              % cfg.groups()) if cfg else m.group(1))
+            cur = dict(entry="%s<%s<%s>>" % (
+                cfg.group(1), cfg.group(2),
+                ", ".join(re.findall(r"Li(\d+)E", cfg.group(3))))
+                if cfg else m.group(1))
             report.append(cur)
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -113,9 +126,12 @@ def main() -> int:
                     help="letters of phase 3's cases (default: every one "
                          "the sm90 design takes)")
     ap.add_argument("--simple", action="store_true",
-                    help="also build and time PR 2's simple kernel")
+                    help="also build and time the simple kernel")
     ap.add_argument("--variant", action="append", default=[],
-                    help="NAME=VALUE,... tile-size macros for one more build")
+                    help="NAME=VALUE,... macros for one more build")
+    ap.add_argument("--out", default=os.path.join(ROOT, "build",
+                                                  "flash_fwd_probe.json"),
+                    help="where the JSON record goes")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -126,13 +142,19 @@ def main() -> int:
     want = set(args.cases.split(",")) - {""}
     cases = [(i, name, spec) for i, (name, spec) in enumerate(cs.FLASH_CASES)
              if spec[5] in fa._SM90_D and (not want or name[0] in want)]
-    fa._load_sm90()
     if args.simple:
         fa._load_kernel()
     out = dict(card=cs.card_line(), builds=[])
     for variant in [""] + args.variant:
         flags = tuple(f"-D{x}" for x in variant.split(",") if x)
-        regs = ptxas_report(flags)
+        try:
+            regs = ptxas_report(flags)
+        except RuntimeError as e:
+            # a variant that does not build is reported, not fatal
+            cs.log(f"[ptxas] {variant or 'default'}: {e}")
+            out["builds"].append(dict(variant=variant or "default",
+                                      error=str(e), cases=[]))
+            continue
         for r in regs:
             cs.log(f"[ptxas] {variant or 'default'}: {r}")
         saved = fa._SM90_LIB
@@ -145,9 +167,8 @@ def main() -> int:
             fa._SM90_LIB = saved
         out["builds"].append(dict(variant=variant or "default", ptxas=regs,
                                   cases=recs))
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "flash_fwd_probe.json"),
-              "w") as f:
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     cs.log(json.dumps({"probe": [
         dict(variant=b["variant"], **{
@@ -155,7 +176,8 @@ def main() -> int:
             else "FAILED" for c in b["cases"]})
         for b in out["builds"]]}))
     failed = [c["case"] for b in out["builds"] for c in b["cases"]
-              if "error" in c]
+              if "error" in c] + [b["variant"] for b in out["builds"]
+                                  if "error" in b]
     return 1 if failed else 0
 
 

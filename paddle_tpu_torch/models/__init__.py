@@ -1,11 +1,11 @@
 from .generation import generate
 from .gpt import (GPTConfig, GPTForCausalLM, GPTModel,
-                  GPTPretrainingCriterion, gpt2_small, gpt3_1p3b, gpt_tiny,
-                  num_params)
+                  GPTPretrainingCriterion, gpt2_small, gpt3_1p3b, gpt3_6p7b,
+                  gpt_tiny, num_params)
 from .llama import (LlamaConfig, LlamaForCausalLM, LlamaModel, llama2_7b,
                     llama2_13b, llama_tiny)
 
 __all__ = ["generate", "GPTConfig", "GPTForCausalLM", "GPTModel",
-           "GPTPretrainingCriterion", "gpt2_small", "gpt3_1p3b", "gpt_tiny",
-           "num_params", "LlamaConfig", "LlamaForCausalLM", "LlamaModel",
+           "GPTPretrainingCriterion", "gpt2_small", "gpt3_1p3b", "gpt3_6p7b",
+           "gpt_tiny", "num_params", "LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "llama2_7b", "llama2_13b", "llama_tiny"]

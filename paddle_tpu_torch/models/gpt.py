@@ -27,7 +27,7 @@ from ..incubate.nn.functional import fused_flash_attention
 from ..nn import functional as F
 from ..nn.layers import Dropout, Embedding, LayerList, LayerNorm, Linear
 
-__all__ = ["GPTConfig", "gpt_tiny", "gpt2_small", "gpt3_1p3b",
+__all__ = ["GPTConfig", "gpt_tiny", "gpt2_small", "gpt3_1p3b", "gpt3_6p7b",
            "GPTAttention", "GPTMLP", "GPTDecoderLayer", "GPTEmbeddings",
            "GPTModel", "GPTForCausalLM", "GPTPretrainingCriterion",
            "num_params"]
@@ -85,6 +85,11 @@ def gpt2_small(**kw):
 def gpt3_1p3b(**kw):
     return GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=24,
                      num_heads=16, max_position_embeddings=2048, **kw)
+
+
+def gpt3_6p7b(**kw):
+    return GPTConfig(vocab_size=50304, hidden_size=4096, num_layers=32,
+                     num_heads=32, max_position_embeddings=2048, **kw)
 
 
 class GPTAttention(nn.Module):

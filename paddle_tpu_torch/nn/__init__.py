@@ -1,6 +1,9 @@
 from . import functional
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   clip_grad_norm_)
 from .layers import (Dropout, Embedding, LayerList, LayerNorm, Linear,
                      RMSNorm)
 
-__all__ = ["functional", "Dropout", "Embedding", "LayerList", "LayerNorm",
-           "Linear", "RMSNorm"]
+__all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
+           "ClipGradByValue", "clip_grad_norm_", "Dropout", "Embedding",
+           "LayerList", "LayerNorm", "Linear", "RMSNorm"]

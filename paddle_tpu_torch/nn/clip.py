@@ -1,14 +1,15 @@
-"""Gradient clipping (counterpart of paddle_tpu/nn/clip.py:13-84).
+"""Gradient clipping (counterpart of paddle_tpu/nn/clip.py:13-103).
 
 Clippers are callables over [(param, grad)] lists, the contract the
 optimizers use; they return new gradient tensors and leave the given
-ones untouched."""
+ones untouched. ``clip_grad_norm_`` scales the ``.grad`` of parameters
+in place."""
 from __future__ import annotations
 
 import torch
 
 __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
-           "ClipGradByGlobalNorm"]
+           "ClipGradByGlobalNorm", "clip_grad_norm_"]
 
 
 class ClipGradBase:
@@ -73,3 +74,28 @@ class ClipGradByGlobalNorm(ClipGradBase):
                                              min=self.clip_norm)
         return [(p, None if g is None else (g.float() * scale).to(g.dtype))
                 for p, g in params_grads]
+
+
+def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
+                    error_if_nonfinite=False):
+    """Scale every parameter's ``.grad`` in place by min(max_norm /
+    max(total, 1e-6), 1), total being the norm_type-norm of all the
+    grads taken over f32 copies (inf: the largest absolute value), and
+    return total as a 0-d tensor (zeros when no parameter has a grad).
+    error_if_nonfinite is accepted and ignored, as the reference does
+    (:84-103)."""
+    if isinstance(parameters, torch.Tensor):
+        parameters = [parameters]
+    parameters = list(parameters)
+    grads = [p.grad for p in parameters if p.grad is not None]
+    if not grads:
+        return torch.zeros(())
+    if norm_type == float("inf"):
+        total = torch.stack([g.abs().max().float() for g in grads]).max()
+    else:
+        total = sum(g.float().abs().pow(norm_type).sum()
+                    for g in grads).pow(1.0 / norm_type)
+    scale = torch.clamp(max_norm / total.clamp_min(1e-6), max=1.0)
+    for g in grads:
+        g.mul_(scale.to(g.device))
+    return total

@@ -1,0 +1,143 @@
+"""paddle_tpu_torch.nn.clip.clip_grad_norm_ and the gpt3_6p7b preset
+against paddle_tpu's, and the public names of each module the port calls
+ported against its reference module's."""
+import importlib
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as pt
+from paddle_tpu.models import gpt3_6p7b as j_gpt3_6p7b
+from paddle_tpu.nn import clip as jclip
+from paddle_tpu_torch.models import gpt3_6p7b
+from paddle_tpu_torch.nn import clip_grad_norm_
+
+# both sides sum the same f32 values in another order (XLA on the CPU
+# against torch), a few ulps of the total apart; the grads are scaled by
+# one f32 factor each side
+CLIP_TOL = dict(rtol=2e-6, atol=1e-7)
+
+
+def _grads(seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((4, 8), (8,), (3, 5, 2))]
+
+
+@pytest.mark.parametrize("norm_type", [2.0, 1.0, float("inf")])
+@pytest.mark.parametrize("max_norm", [0.5, 1e4], ids=["clips", "no-clip"])
+def test_clip_grad_norm_matches_reference(norm_type, max_norm):
+    gs = _grads()
+    jps = [pt.to_tensor(np.zeros_like(g)) for g in gs]
+    for p, g in zip(jps, gs):
+        p.grad = pt.to_tensor(g)
+    # a parameter with no grad is skipped on both sides
+    jps.append(pt.to_tensor(np.zeros((2,), np.float32)))
+    tps = [torch.zeros(g.shape, requires_grad=True) for g in gs]
+    for p, g in zip(tps, gs):
+        p.grad = torch.from_numpy(g.copy())
+    tps.append(torch.zeros(2, requires_grad=True))
+
+    want = jclip.clip_grad_norm_(jps, max_norm, norm_type=norm_type)
+    got = clip_grad_norm_(tps, max_norm, norm_type=norm_type)
+    assert got.shape == () and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want._data),
+                               **CLIP_TOL)
+    for tp, jp, g in zip(tps, jps, gs):
+        np.testing.assert_allclose(tp.grad.numpy(), np.asarray(jp.grad._data),
+                                   **CLIP_TOL)
+        if max_norm > 1e3:
+            np.testing.assert_array_equal(tp.grad.numpy(), g)
+    assert tps[-1].grad is None
+    if max_norm < 1:
+        # the clipped grads have the norm asked for
+        flat = np.concatenate([p.grad.numpy().ravel() for p in tps[:-1]])
+        np.testing.assert_allclose(
+            np.linalg.norm(flat.astype(np.float64), ord=norm_type),
+            max_norm, rtol=1e-5)
+
+
+def test_clip_grad_norm_without_grads_returns_zero():
+    want = jclip.clip_grad_norm_([pt.to_tensor(np.ones(3, np.float32))], 1.0)
+    got = clip_grad_norm_([torch.ones(3, requires_grad=True)], 1.0)
+    assert got.shape == () and float(got) == float(want.numpy()) == 0.0
+    # a single tensor is taken as a list of one; error_if_nonfinite is
+    # accepted and ignored, as the reference does
+    p = torch.ones(3, requires_grad=True)
+    p.grad = torch.full((3,), 4.0)
+    total = clip_grad_norm_(p, 1.0, error_if_nonfinite=True)
+    np.testing.assert_allclose(float(total), np.sqrt(48.0), rtol=1e-6)
+    np.testing.assert_allclose(p.grad.numpy(), np.full(3, 1 / np.sqrt(3)),
+                               rtol=1e-6)
+
+
+def test_gpt3_6p7b_equals_the_reference():
+    want, got = j_gpt3_6p7b(), gpt3_6p7b()
+    for f in ("vocab_size", "hidden_size", "num_layers", "num_heads",
+              "intermediate_size", "max_position_embeddings", "head_dim"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert (got.hidden_size, got.num_layers, got.num_heads) == (4096, 32, 32)
+
+
+# reference module -> (port module, public names still to port)
+PORTED_MODULES = {
+    "paddle_tpu.models": ("paddle_tpu_torch.models", {
+        "bert", "BertConfig", "BertModel", "BertForMaskedLM", "bert_tiny",
+        "bert_base"}),
+    "paddle_tpu.models.gpt": ("paddle_tpu_torch.models.gpt", set()),
+    "paddle_tpu.models.llama": ("paddle_tpu_torch.models.llama", set()),
+    "paddle_tpu.models.generation": ("paddle_tpu_torch.models.generation",
+                                     set()),
+    "paddle_tpu.nn.clip": ("paddle_tpu_torch.nn.clip", set()),
+    "paddle_tpu.optimizer.lr": ("paddle_tpu_torch.optimizer.lr", set()),
+    "paddle_tpu.kernels.pallas.flash_attention": (
+        "paddle_tpu_torch.kernels.flash_attention", set()),
+    "paddle_tpu.kernels.pallas.norms": ("paddle_tpu_torch.kernels.norms",
+                                        set()),
+    "paddle_tpu.kernels.pallas.ragged_paged_attention": (
+        "paddle_tpu_torch.kernels.ragged_paged_attention", set()),
+    "paddle_tpu.inference.paged_cache": (
+        "paddle_tpu_torch.inference.paged_cache", set()),
+    "paddle_tpu.inference.llm_engine": (
+        "paddle_tpu_torch.inference.llm_engine", {"calibrate_kv_scales"}),
+}
+
+
+def _public_names(mod):
+    """Names a module defines or re-exports from its own submodules, and
+    its submodules: not its imports from elsewhere."""
+    out = set()
+    for n in dir(mod):
+        if n.startswith("_"):
+            continue
+        o = getattr(mod, n)
+        where = o.__name__ if isinstance(o, types.ModuleType) \
+            else getattr(o, "__module__", None)
+        if where and (where == mod.__name__ and not isinstance(
+                o, types.ModuleType) or where.startswith(mod.__name__ + ".")):
+            out.add(n)
+    return out
+
+
+@pytest.mark.parametrize("ref_name", sorted(PORTED_MODULES))
+def test_ported_module_carries_reference_names(ref_name):
+    port_name, todo = PORTED_MODULES[ref_name]
+    ref = importlib.import_module(ref_name)
+    port = importlib.import_module(port_name)
+    want = _public_names(ref)
+    assert todo <= want, f"names listed as still to port that {ref_name} " \
+                         f"does not have: {sorted(todo - want)}"
+    missing = sorted(n for n in want - todo if not hasattr(port, n))
+    assert not missing, f"{port_name} lacks {missing} of {ref_name}"
+    # a name listed as still to port that the port now has is crossed off
+    done = sorted(n for n in todo if hasattr(port, n))
+    assert not done, f"{port_name} now has {done}: take them off the list"
+
+
+def test_nn_exports_the_clips():
+    from paddle_tpu_torch import nn
+    for n in ("ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+              "clip_grad_norm_"):
+        assert getattr(nn, n) is getattr(nn.clip, n)

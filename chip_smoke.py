@@ -6,9 +6,9 @@
 Run from the root of a checkout. Phases, each of which must pass:
 
   1. the card (nvidia-smi name and power limit); build the CUDA kernels
-     (nvcc, sm_90a: ragged paged attention, flash attention, B1's sm90
-     design, norms) and the block allocator (g++) from the checkout's
-     sources, all at once, timed;
+     (nvcc, sm_90a: ragged paged attention, flash attention, B1's and
+     B2's sm90 designs, norms) and the block allocator (g++) from the
+     checkout's sources, all at once, timed;
   2. the serving kernel (B3) against its plain PyTorch version on the
      card, at the engine's shapes (gpt3_1p3b's 16 heads, GQA, int8,
      padding, and llama2_7b's 32 heads), timed with CUDA events beside
@@ -20,13 +20,13 @@ Run from the root of a checkout. Phases, each of which must pass:
      of a packed qkv projection), in bf16 and in f32,
      element by element relative to each row's size, with two faults
      planted in the kernels' outputs that the check must reject; the
-     design each B1 call ran (sm90 for bf16 at head_dim 64/128, the
-     simple kernel otherwise) and its launches; timed beside their
-     bound, the plain versions and one
-     torch.nn.functional.scaled_dot_product_attention call (a yardstick
-     only: the port never calls it); B1 in bf16 by single-call events
-     and by CUDA-graph replay, beside the simple kernel and SDPA's
-     forward timed both ways in the same run;
+     design each B1 and B2 call ran (sm90 for bf16 at head_dim 64/128,
+     the simple kernels otherwise, or the phase fails) and its launches;
+     timed beside their bound, the plain versions and
+     torch.nn.functional.scaled_dot_product_attention (a yardstick
+     only: the port never calls it); B1 and B2 in bf16 by single-call
+     events and by CUDA-graph replay, beside the simple kernels and
+     SDPA's forward (and its backward alone, by replay) in the same run;
   4. gpt3_1p3b (bf16, all 24 layers, random weights from seed 0) served
      by LLMEngine: 16 requests sharing a 512-token prefix, 64 new tokens
      each; B3's launch counters are read around this run;
@@ -35,7 +35,7 @@ Run from the root of a checkout. Phases, each of which must pass:
   6. gpt2_small (all 12 layers, random weights from seed 0) trained by
      TrainStep in bf16 O1 with AdamW and flash attention, batch 16,
      seq 1024: 2 warm-up steps and 10 timed ones; B1/B2's launch
-     counters are read around this run;
+     counters, by design, are read around this run;
   7. TrainStep with the flash kernels against TrainStep with the plain
      attention composite, in f32 (TF32 off), on 2 layers at gpt2_small's
      widths: per-step losses, and the parameters after 3 steps (the
@@ -221,6 +221,7 @@ def build_all() -> dict:
     jobs = {"ragged_paged_attention.cu (nvcc)": rpa._load_kernel,
             "flash_attention.cu (nvcc)": fa._load_kernel,
             "flash_fwd_sm90.cu (nvcc)": fa._load_sm90,
+            "flash_bwd_sm90.cu (nvcc)": fa._load_sm90_bwd,
             "norms.cu (nvcc)": norms._load_kernel,
             "_block_allocator.cpp (g++)": paged_cache._load_lib}
     secs, errors = {}, {}
@@ -819,6 +820,39 @@ def b1_times(spec, qs, k, v, segs, simple=True) -> dict:
     return rec
 
 
+def b2_times(spec, qs, k, v, o, lse, do, segs, simple=True) -> dict:
+    """Device times (ms) of B2 at one bf16 case, as b1_times times B1:
+    the design the main path takes by single-call events (`bwd_ms`) and
+    by CUDA-graph replay (`bwd_ms_graph`); the simple kernel both ways
+    where the design is not the simple one (and `simple`); where sq ==
+    sk and no segments, SDPA's forward + backward by events
+    (`library_fwd_bwd_ms`) and its backward alone by replay
+    (`library_bwd_ms_graph`: the captured forward + backward less the
+    captured forward, both with inputs that require grad), else None."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    b, sq, sk, H, Hk, D, causal, seg, _packed = spec
+    sc = D ** -0.5
+    design = fa._bwd_design(qs.dtype, D)
+    run = lambda **kw: fa._bwd_cuda(qs, k, v, o, lse, do, causal, segs, sc,
+                                    **kw)
+    rec = dict(bwd_design=design, bwd_ms=cuda_ms(run),
+               bwd_ms_graph=graph_ms(run), simple_bwd_ms=None,
+               simple_bwd_ms_graph=None, library_fwd_bwd_ms=None,
+               library_bwd_ms_graph=None)
+    if simple and design != "simple":
+        simple_run = lambda: run(design="simple")
+        rec["simple_bwd_ms"] = cuda_ms(simple_run)
+        rec["simple_bwd_ms_graph"] = graph_ms(simple_run)
+    if sq == sk and not seg:
+        lib, lqkv = _sdpa_fwd(qs, k, v, causal, grad=True)
+        ldo = do.transpose(1, 2).contiguous()
+        fwd_bwd = lambda: torch.autograd.grad(lib(), lqkv, ldo)
+        rec["library_fwd_bwd_ms"] = cuda_ms(fwd_bwd)
+        rec["library_bwd_ms_graph"] = graph_ms(fwd_bwd) - graph_ms(lib)
+    return rec
+
+
 def flash_phase() -> list:
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -837,9 +871,19 @@ def flash_phase() -> list:
             o, lse = fa.flash_fwd(qs, k, v, causal, segs, path="cuda")
             rec[f"fwd_design_launches_{dt}"] = {
                 d: n - n0[d] for d, n in fa.flash_fwd.design_launches.items()}
+            n0 = dict(fa.flash_bwd.design_launches)
             dq, dk, dv = fa.flash_bwd(qs, k, v, o, lse, do, sc, causal,
                                       segs, path="cuda")
             torch.cuda.synchronize()
+            got = {d: n - n0[d]
+                   for d, n in fa.flash_bwd.design_launches.items()}
+            rec[f"bwd_design_launches_{dt}"] = got
+            # bf16 at head_dim 64/128 runs the sm90 design, the rest the
+            # simple one
+            want = "sm90" if dt == "bf16" and D in fa._SM90_D else "simple"
+            if got != {d: int(d == want) for d in got}:
+                raise RuntimeError(f"flash case {name!r} {dt}: B2 ran "
+                                   f"{got}, expected one {want} launch")
             wo, wlse = fa.flash_fwd(qs, k, v, causal, segs, path="torch")
             # B2 from the same (o, lse) on both sides
             wdq, wdk, wdv = fa.flash_bwd(qs, k, v, o, lse, do, sc, causal,
@@ -854,8 +898,7 @@ def flash_phase() -> list:
                 pairs = _valid_pairs(spec, segs)
                 rec["valid_pairs"] = pairs
                 rec.update(b1_times(spec, qs, k, v, segs))
-                rec["bwd_ms"] = cuda_ms(lambda: fa.flash_bwd(
-                    qs, k, v, o, lse, do, sc, causal, segs, path="cuda"))
+                rec.update(b2_times(spec, qs, k, v, o, lse, do, segs))
                 rec["plain_fwd_ms"] = cuda_ms(lambda: fa.flash_fwd(
                     qs, k, v, causal, segs, path="torch"), iters=5)
                 rec["plain_bwd_ms"] = cuda_ms(lambda: fa.flash_bwd(
@@ -866,14 +909,6 @@ def flash_phase() -> list:
                                                    kind == "bwd")
                     rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = bms, by
                     rec[f"{kind}_bytes"], rec[f"{kind}_flops"] = nb, fl
-                rec["library_fwd_bwd_ms"] = None
-                if sq == sk and not seg:
-                    # B2's yardstick: SDPA's forward and backward
-                    lib, lqkv = _sdpa_fwd(qs, k, v, causal, grad=True)
-                    ldo = do.transpose(1, 2).contiguous()
-                    rec["library_fwd_bwd_ms"] = cuda_ms(
-                        lambda: torch.autograd.grad(lib(), lqkv, ldo))
-                    del lib, lqkv, ldo
             del qs, k, v, do, o, lse, dq, dk, dv
             torch.cuda.empty_cache()
         fmt = lambda d: {k: f"{e:.2e}" for k, e in d.items()}
@@ -883,9 +918,11 @@ def flash_phase() -> list:
             f"planted {fmt(rec['planted_norm_err_bf16'])}) f32 "
             f"{fmt(rec['norm_err_f32'])} (tol {FLASH_TOL['f32']:.0e}; "
             f"planted {fmt(rec['planted_norm_err_f32'])}); max abs err bf16 "
-            f"{fmt(rec['max_abs_err_bf16'])}; B1 launches by design bf16 "
+            f"{fmt(rec['max_abs_err_bf16'])}; launches by design: B1 bf16 "
             f"{rec['fwd_design_launches_bf16']} f32 "
-            f"{rec['fwd_design_launches_f32']}")
+            f"{rec['fwd_design_launches_f32']}, B2 bf16 "
+            f"{rec['bwd_design_launches_bf16']} f32 "
+            f"{rec['bwd_design_launches_f32']}")
         log(f"[flash] {name}: B1 bf16 ({rec['fwd_design']}) "
             f"{rec['fwd_ms']:.4f} ms by events, {rec['fwd_ms_graph']:.4f} "
             f"by graph replay (bound {rec['fwd_bound_ms']:.4f}, "
@@ -893,9 +930,13 @@ def flash_phase() -> list:
             f"{rec['simple_fwd_ms_graph']}; library {rec['library_fwd_ms']}"
             f" / {rec['library_fwd_ms_graph']}; plain "
             f"{rec['plain_fwd_ms']:.3f}); "
-            f"B2 {rec['bwd_ms']:.4f} ms (bound {rec['bwd_bound_ms']:.4f}, "
-            f"{rec['bwd_bound_by']}; plain {rec['plain_bwd_ms']:.3f}; "
-            f"library fwd+bwd {rec['library_fwd_bwd_ms']})")
+            f"B2 bf16 ({rec['bwd_design']}) {rec['bwd_ms']:.4f} ms by "
+            f"events, {rec['bwd_ms_graph']:.4f} by graph replay (bound "
+            f"{rec['bwd_bound_ms']:.4f}, {rec['bwd_bound_by']}; simple "
+            f"{rec['simple_bwd_ms']} / {rec['simple_bwd_ms_graph']}; "
+            f"library fwd+bwd {rec['library_fwd_bwd_ms']} by events, bwd "
+            f"{rec['library_bwd_ms_graph']} by replay; plain "
+            f"{rec['plain_bwd_ms']:.3f})")
         out.append(rec)
     return out
 
@@ -964,6 +1005,7 @@ def train_phase() -> dict:
         launches = (fa.flash_fwd.kernel_launches,
                     fa.flash_bwd.kernel_launches)
         designs = dict(fa.flash_fwd.design_launches)
+        bwd_designs = dict(fa.flash_bwd.design_launches)
         plain = (fa.flash_fwd.plain_calls, fa.flash_bwd.plain_calls)
     losses = [float(x) for x in losses]
     timed_s = step_s[warmup:]
@@ -976,6 +1018,8 @@ def train_phase() -> dict:
             cfg.num_layers * n_steps, cfg.num_layers * n_steps),
         "every B1 launch ran the sm90 design": designs == {
             "sm90": cfg.num_layers * n_steps, "simple": 0},
+        "every B2 launch ran the sm90 design": bwd_designs == {
+            "sm90": cfg.num_layers * n_steps, "simple": 0},
         "plain versions never ran on CUDA tensors": plain == (0, 0),
         "attention_path names the kernels": path == ("cuda", ""),
     }
@@ -983,8 +1027,8 @@ def train_phase() -> dict:
         log(f"[train] check: {what}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
         raise RuntimeError(f"training phase failed: launches {launches} "
-                           f"B1 by design {designs} plain {plain} losses "
-                           f"{losses}")
+                           f"B1 by design {designs} B2 by design "
+                           f"{bwd_designs} plain {plain} losses {losses}")
     n = num_params(cfg)
     tok_s = batch * seq * steps / sum(timed_s)
     med = statistics.median(timed_s)
@@ -997,7 +1041,7 @@ def train_phase() -> dict:
                b1_ms_per_step=per_step["fwd"],
                b2_ms_per_step=per_step["bwd"],
                b1_launches=launches[0], b2_launches=launches[1],
-               b1_design_launches=designs,
+               b1_design_launches=designs, b2_design_launches=bwd_designs,
                plain_calls=list(plain), losses=losses, setup_s=setup_s,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f"[train] gpt2_small bf16 O1 AdamW, {cfg.num_layers} layers, batch "
@@ -1006,7 +1050,7 @@ def train_phase() -> dict:
         f"MFU {rec['mfu']:.4f}; B1 {per_step['fwd']:.3f} ms + B2 "
         f"{per_step['bwd']:.3f} ms of device time per step over "
         f"{launches[0]}/{launches[1]} launches in {n_steps} steps (B1 by "
-        f"design {designs}); peak "
+        f"design {designs}, B2 {bwd_designs}); peak "
         f"mem {rec['peak_mem_gb']:.2f} GiB; losses "
         f"{[round(x, 4) for x in losses]}")
     del model, step
@@ -1470,8 +1514,8 @@ def main() -> int:
     for kind, name, line, launches, source in (
             ("fwd", "flash_attention_fwd", 267,
              train["b1_design_launches"]["sm90"], "flash_fwd_sm90.cu"),
-            ("bwd", "flash_attention_bwd", 457, train["b2_launches"],
-             "flash_attention.cu")):
+            ("bwd", "flash_attention_bwd", 457,
+             train["b2_design_launches"]["sm90"], "flash_bwd_sm90.cu")):
         kernels.append(dict(
             name=name, route="cuda", source=src + source,
             replaces=f"paddle_tpu/kernels/pallas/flash_attention.py:{line}",
@@ -1484,13 +1528,14 @@ def main() -> int:
             bound_by=fmain[f"{kind}_bound_by"],
             library_ms=fmain["library_fwd_ms" if kind == "fwd"
                              else "library_fwd_bwd_ms"],
+            # by graph replay (device time only), the design, and the
+            # simple kernel at the same shape by graph replay; B2's
+            # library time by replay is SDPA's backward alone
+            ms_graph=fmain[f"{kind}_ms_graph"],
+            library_ms_graph=fmain[f"library_{kind}_ms_graph"],
+            design=fmain[f"{kind}_design"],
+            simple_ms=fmain[f"simple_{kind}_ms_graph"],
             cases=flash))
-    # B1 by graph replay (device time only), its design, and the simple
-    # kernel at the same shape by graph replay
-    kernels[1].update(ms_graph=fmain["fwd_ms_graph"],
-                      library_ms_graph=fmain["library_fwd_ms_graph"],
-                      design=fmain["fwd_design"],
-                      simple_ms=fmain["simple_fwd_ms_graph"])
     # B4 at the fused encoder's shape, B5 at LLaMA-2-7B's packed prefill,
     # both bf16 with their affine; launches from phases 11 and 9
     for kind, main_name, line, launches in (

@@ -14,7 +14,7 @@
 //     no valid key gives o = 0 and lse = -1e30;
 //   * an online softmax in f32; p is cast to bf16 before p·v and o is
 //     divided by the f32 row sum; lse = m + log(l) in natural log, f32
-//     [b, H, sq], which B2 (flash_attention.cu) reads back;
+//     [b, H, sq], which B2 reads back;
 //   * q, k and v are read through a batch and a token stride (views of a
 //     packed qkv projection are read in place); heads and head_dim dense,
 //     rows 16-byte aligned (the wrapper checks).
@@ -75,14 +75,13 @@
 //      the mask is evaluated only on tiles that straddle a warp's
 //      diagonal or carry segment ids.
 //
-// Tile sizes are compile-time (FA90_D64_* / FA90_D128_*), so a probe can
-// build variants and time them beside the default
-// (tools/flash_fwd_probe.py). Launches
+// The copies, descriptors and wgmma products are sm90_wgmma.cuh's, shared
+// with B2 (flash_bwd_sm90.cu). Tile sizes are compile-time (FA90_D64_* /
+// FA90_D128_*), so a probe can build variants and time them beside the
+// default (tools/flash_fwd_probe.py). Launches
 // run on the caller's stream, allocate nothing and do not synchronise;
 // the C entry returns cudaGetLastError().
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_wgmma.cuh"
 
 // k-tile width, ring depth and CTAs an SM asked of the compiler, per
 // head_dim
@@ -107,53 +106,7 @@
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float neg_inf() {
-  return __uint_as_float(0xff800000u);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// shared-memory operands are 32-bit addresses in the shared window
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// two f32 as a bf16 pair (round to nearest even, as torch's cast), the
-// first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 template <int D_, int BN_, int STAGES_, int MINB_>
 struct Cfg {
@@ -169,124 +122,6 @@ struct Cfg {
   static_assert((BM * D / 8) % THREADS == 0 && (BN * D / 8) % THREADS == 0,
                 "tiles split evenly into 16-byte copies");
 };
-
-// byte offset of 16-byte chunk c (along D) of row r in an R-row tile laid
-// out as D / 64 blocks of [R][64], each row 128 bytes with the 128-byte
-// swizzle (chunk c of row r at c ^ (r & 7)): what wgmma's SWIZZLE_128B
-// descriptors read, K-major for Q and K, MN-major for V
-template <int R>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>((c >> 3) * (R * 128) + r * 128 +
-                               (((c & 7) ^ (r & 7)) << 4));
-}
-
-template <int D, int R, int THREADS>
-__device__ __forceinline__ void cp_tile(uint32_t dst, const bf16* src,
-                                         long long stride) {
-  constexpr int CPR = D / 8;
-#pragma unroll
-  for (int it = 0; it < R * CPR / THREADS; ++it) {
-    const int i = it * THREADS + static_cast<int>(threadIdx.x);
-    const int r = i / CPR, c = i % CPR;
-    cp_async16(dst + swz<R>(r, c), src + r * stride + c * 8);
-  }
-}
-
-// a wgmma matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units), layout SWIZZLE_128B (1 << 62)
-__device__ __forceinline__ uint64_t wdesc(uint32_t addr, uint32_t lbo,
-                                          uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// registers a wgmma in flight reads or writes: pinned in place, so the
-// compiler neither moves their uses across the wait nor reuses them early
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
-}
-
-// d[N/8][4] (+)= A · B for one k16 step of a 64-row warpgroup tile:
-// wgmma_ss reads A (K-major) and B (K-major) through descriptors,
-// scale_d = 0 overwrites d; wgmma_rs_t takes A from registers (the
-// m16n8k16 A layout per warp) and B MN-major (transposed)
-template <int N>
-__device__ void wgmma_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b,
-                         int scale_d);
-template <int N>
-__device__ void wgmma_rs_t(float (&d)[N / 8][4], const uint32_t (&a)[4],
-                           uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[8][4], uint64_t a,
-                                             uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs_t<64>(float (&d)[8][4],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[16][4], uint64_t a,
-                                             uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs_t<128>(float (&d)[16][4],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
 
 // what the mask and the softmax of one warp need to know of its rows
 struct Rows {
@@ -346,19 +181,6 @@ __device__ __forceinline__ void softmax_step(float (&s)[N / 8][4],
         rs += p;
       }
     l[i] = l[i] * alpha[i] + rs;
-  }
-}
-
-// P as bf16 A fragments of p·v: two n8 score tiles are one k16 step
-template <int N>
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[N / 16][4],
-                                       const float (&s)[N / 8][4]) {
-#pragma unroll
-  for (int kp = 0; kp < N / 16; ++kp) {
-    pa[kp][0] = pack_bf16(s[2 * kp][0], s[2 * kp][1]);
-    pa[kp][1] = pack_bf16(s[2 * kp][2], s[2 * kp][3]);
-    pa[kp][2] = pack_bf16(s[2 * kp + 1][0], s[2 * kp + 1][1]);
-    pa[kp][3] = pack_bf16(s[2 * kp + 1][2], s[2 * kp + 1][3]);
   }
 }
 

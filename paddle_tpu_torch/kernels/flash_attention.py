@@ -7,10 +7,13 @@ kernels ``_flash_fwd_fused`` (flash_attention.py:267, kernel
 ``_bwd_kernel`` :364) become hand-written CUDA kernels: B1 in two
 designs, ``csrc/flash_fwd_sm90.cu`` for bf16 at head_dim 64 and 128 (the
 main paths' calls) and ``csrc/flash_attention.cu``'s ``flash_fwd_kernel``
-for f32 and head_dim 256 (``_fwd_design`` picks one), B2 in
-``csrc/flash_attention.cu``; ``_flash_core`` (:664, a jax.custom_vjp)
-becomes ``_FlashCore``, a ``torch.autograd.Function``; the composite
-``_xla_attention`` (:606) is ported as it is.
+for f32 and head_dim 256 (``_fwd_design`` picks one), B2 likewise in
+``csrc/flash_bwd_sm90.cu`` (bf16 at head_dim 64 and 128, the training
+path's calls) and ``csrc/flash_attention.cu``'s ``flash_bwd_dkdv_kernel``
+/ ``flash_bwd_dq_kernel`` (``_bwd_design``), both after
+``flash_bwd_sm90.cu``'s delta kernel; ``_flash_core`` (:664, a
+jax.custom_vjp) becomes ``_FlashCore``, a ``torch.autograd.Function``;
+the composite ``_xla_attention`` (:606) is ported as it is.
 
 Public layout [batch, seq, heads, head_dim]; k and v may carry fewer
 heads (GQA/MQA: q head h reads kv head h // (H / Hk)). Causal masking is
@@ -46,10 +49,10 @@ __all__ = ["flash_attention", "attention_path", "flash_fwd", "flash_bwd"]
 _NEG_INF = -1e30
 _SUPPORTED_D = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# B1's designs: "sm90" (flash_fwd_sm90.cu) takes bf16 at these head_dims,
-# "simple" (flash_attention.cu's flash_fwd_kernel) every call the kernels
-# take
-_FWD_DESIGNS = ("sm90", "simple")
+# B1's and B2's designs: "sm90" (flash_fwd_sm90.cu, flash_bwd_sm90.cu)
+# takes bf16 at these head_dims, "simple" (flash_attention.cu) every call
+# the kernels take
+_FWD_DESIGNS = _BWD_DESIGNS = ("sm90", "simple")
 _SM90_D = (64, 128)
 
 
@@ -150,6 +153,12 @@ def _flash_fwd_reference(qs, k, v, causal=False, segment_ids=None):
             lse.reshape(b, h, sq).contiguous())
 
 
+def _delta_reference(do, o):
+    """The plain delta: rowsum(do·o) in f32 as [b, H, sq], laid out like
+    lse (the reference's einsum, :521-525)."""
+    return (_wide(do) * _wide(o)).sum(-1).transpose(1, 2).contiguous()
+
+
 def _flash_bwd_reference(qs, k, v, o, lse, do, causal=False,
                          segment_ids=None):
     """B2's plain version: the FA2 backward from (q_scaled, k, v, o, lse,
@@ -168,7 +177,7 @@ def _flash_bwd_reference(qs, k, v, o, lse, do, causal=False,
     dog = _grouped(do, hk)                           # [b, Hk, G, sq, D]
     kt = k.permute(0, 2, 1, 3)[:, :, None]           # [b, Hk, 1, sk, D]
     vt = v.permute(0, 2, 1, 3)[:, :, None]
-    delta = (_wide(dog) * _wide(_grouped(o, hk))).sum(-1, keepdim=True)
+    delta = _delta_reference(do, o).reshape(b, hk, h // hk, sq, 1)
     dv = torch.matmul(_wide(p.to(do.dtype)).transpose(-1, -2),
                       _wide(dog)).sum(2)
     dp = torch.matmul(_wide(dog), _wide(vt).transpose(-1, -2))
@@ -186,11 +195,20 @@ def _flash_bwd_reference(qs, k, v, o, lse, do, causal=False,
 # ---------------------------------------------------------------------------
 _LIB = None
 _SM90_LIB = None
+_SM90_BWD_LIB = None
 _LIB_LOCK = threading.Lock()
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (q, k, v, q_seg, kv_seg, o, lse, b, sq, sk, H, Hk, D, causal, dtype,
 #  q_sb, q_st, k_sb, k_st, v_sb, v_st, stream): both B1 entries
 _FWD_ARGTYPES = [_P] * 7 + [_I] * 8 + [_L] * 6 + [_P]
+# (q, k, v, do, lse, delta, q_seg, kv_seg, dq, dk, dv, b, sq, sk, H, Hk, D,
+#  causal, dtype, sm_scale, q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb,
+#  do_st, stream): both B2 entries
+_BWD_ARGTYPES = [_P] * 11 + [_I] * 8 + [ctypes.c_float] + [_L] * 8 + [_P]
+# (do, o, delta, b, sq, H, D, dtype, do_sb, do_st, o_sb, o_st, stream)
+_DELTA_ARGTYPES = [_P] * 3 + [_I] * 5 + [_L] * 4 + [_P]
+# the Hopper sources' shared helpers, hashed with them
+_SM90_HEADERS = ("sm90_wgmma.cuh",)
 
 
 def _csrc(name):
@@ -198,43 +216,61 @@ def _csrc(name):
                         name)
 
 
+def _build(name, headers=(), extra_flags=()):
+    """csrc/<name>.cu built (nvcc, sm_90a) into its own library and
+    loaded."""
+    from ..utils.build import NVCC_FLAGS, build_shared, nvcc_path
+    return ctypes.CDLL(build_shared(
+        name, [_csrc(name + ".cu")], nvcc_path(),
+        (*NVCC_FLAGS, *extra_flags), headers=[_csrc(h) for h in headers]))
+
+
+def _bind(fn, argtypes):
+    fn.restype, fn.argtypes = _I, argtypes
+
+
 def _load_kernel():
-    """Build (nvcc, sm_90a) and load flash_attention.cu (B1's simple
-    design and B2) at first use."""
+    """Build and load flash_attention.cu (B1's and B2's simple design)
+    at first use."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
-            from ..utils.build import NVCC_FLAGS, build_shared, nvcc_path
-            lib = ctypes.CDLL(build_shared("flash_attention",
-                                           [_csrc("flash_attention.cu")],
-                                           nvcc_path(), NVCC_FLAGS))
-            fwd = lib.flash_attention_fwd_launch
-            fwd.restype, fwd.argtypes = _I, _FWD_ARGTYPES
-            bwd = lib.flash_attention_bwd_launch
-            bwd.restype = _I
-            bwd.argtypes = ([_P] * 11 + [_I] * 8 + [ctypes.c_float]
-                            + [_L] * 8 + [_P])
+            lib = _build("flash_attention")
+            _bind(lib.flash_attention_fwd_launch, _FWD_ARGTYPES)
+            _bind(lib.flash_attention_bwd_launch, _BWD_ARGTYPES)
             _LIB = lib
     return _LIB
 
 
 def _load_sm90(extra_flags=()):
-    """Build (nvcc, sm_90a) and load flash_fwd_sm90.cu (B1's sm90
-    design), its own library, at first use. `extra_flags` (-D tile
-    sizes) builds and returns a variant without installing it."""
+    """Build and load flash_fwd_sm90.cu (B1's sm90 design), its own
+    library, at first use. `extra_flags` (-D tile sizes) builds and
+    returns a variant without installing it."""
     global _SM90_LIB
-    from ..utils.build import NVCC_FLAGS, build_shared, nvcc_path
     with _LIB_LOCK:
         if _SM90_LIB is None or extra_flags:
-            lib = ctypes.CDLL(build_shared(
-                "flash_fwd_sm90", [_csrc("flash_fwd_sm90.cu")], nvcc_path(),
-                (*NVCC_FLAGS, *extra_flags)))
-            fwd = lib.flash_fwd_sm90_launch
-            fwd.restype, fwd.argtypes = _I, _FWD_ARGTYPES
+            lib = _build("flash_fwd_sm90", _SM90_HEADERS, extra_flags)
+            _bind(lib.flash_fwd_sm90_launch, _FWD_ARGTYPES)
             if extra_flags:
                 return lib
             _SM90_LIB = lib
     return _SM90_LIB
+
+
+def _load_sm90_bwd(extra_flags=()):
+    """Build and load flash_bwd_sm90.cu (B2's sm90 design and the delta
+    kernel both designs run), its own library, at first use.
+    `extra_flags` as for _load_sm90."""
+    global _SM90_BWD_LIB
+    with _LIB_LOCK:
+        if _SM90_BWD_LIB is None or extra_flags:
+            lib = _build("flash_bwd_sm90", _SM90_HEADERS, extra_flags)
+            _bind(lib.flash_bwd_sm90_launch, _BWD_ARGTYPES)
+            _bind(lib.flash_bwd_delta_launch, _DELTA_ARGTYPES)
+            if extra_flags:
+                return lib
+            _SM90_BWD_LIB = lib
+    return _SM90_BWD_LIB
 
 
 def _kernel_operand(name, t, dev, dtype, heads, d):
@@ -276,21 +312,32 @@ def _check_kernel_call(qs, k):
         raise ValueError(f"flash attention CUDA kernel: {reason}")
 
 
+def _design(kernel, dtype, d, design):
+    auto = "sm90" if dtype == torch.bfloat16 and d in _SM90_D else "simple"
+    if design is None:
+        return auto
+    if design not in _FWD_DESIGNS:
+        raise ValueError(f"unknown {kernel} design {design!r}, not in "
+                         f"{_FWD_DESIGNS}")
+    if design == "sm90" and auto != "sm90":
+        raise ValueError(f"{kernel}'s sm90 design takes bf16 at head_dim "
+                         f"{_SM90_D}, got {dtype} at {d}")
+    return design
+
+
 def _fwd_design(dtype, d, design=None):
     """B1's design for q of `dtype` and head_dim `d`: "sm90" for bf16 at
     head_dim 64 or 128, "simple" otherwise. `design` forces one (the
     same-run comparison of the two); it raises for an unknown name, and
     for "sm90" on a call that design does not take."""
-    auto = "sm90" if dtype == torch.bfloat16 and d in _SM90_D else "simple"
-    if design is None:
-        return auto
-    if design not in _FWD_DESIGNS:
-        raise ValueError(f"unknown B1 design {design!r}, not in "
-                         f"{_FWD_DESIGNS}")
-    if design == "sm90" and auto != "sm90":
-        raise ValueError(f"B1's sm90 design takes bf16 at head_dim "
-                         f"{_SM90_D}, got {dtype} at {d}")
-    return design
+    return _design("B1", dtype, d, design)
+
+
+def _bwd_design(dtype, d, design=None):
+    """B2's design, by _fwd_design's rule: "sm90" (flash_bwd_sm90.cu) for
+    bf16 at head_dim 64 or 128, "simple" (flash_attention.cu)
+    otherwise."""
+    return _design("B2", dtype, d, design)
 
 
 def _fwd_cuda(qs, k, v, causal, segment_ids, design=None):
@@ -326,28 +373,48 @@ def _fwd_cuda(qs, k, v, causal, segment_ids, design=None):
     return o, lse
 
 
-def _bwd_cuda(qs, k, v, o, lse, do, causal, segment_ids, sm_scale):
-    """Launch B2 (the dk/dv kernel, then the dq kernel) on the current
-    stream. Returns (dq in q's dtype, scaled by sm_scale; dk; dv)."""
+def _delta_cuda(do, o):
+    """delta = rowsum(do·o) in f32 [b, H, sq] by flash_bwd_sm90.cu's
+    delta kernel, on the current stream; do and o as the kernels read
+    them (_kernel_operand)."""
+    b, sq, h, d = do.shape
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=do.device)
+    rc = _load_sm90_bwd().flash_bwd_delta_launch(
+        do.data_ptr(), o.data_ptr(), delta.data_ptr(), b, sq, h, d,
+        _DTYPE_CODE[do.dtype], do.stride(0), do.stride(1), o.stride(0),
+        o.stride(1), torch.cuda.current_stream(do.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash attention delta kernel launch failed: "
+                           f"error {rc}")
+    return delta
+
+
+def _bwd_cuda(qs, k, v, o, lse, do, causal, segment_ids, sm_scale,
+              design=None):
+    """Launch B2 on the current stream: the delta kernel, then the dk/dv
+    kernel and the dq kernel of its design. Returns (dq in q's dtype,
+    scaled by sm_scale; dk; dv). `design` is private, as for _fwd_cuda."""
     _check_kernel_call(qs, k)
     b, sq, h, d = qs.shape
+    design = _bwd_design(qs.dtype, d, design)
     sk, hk = k.shape[1], k.shape[2]
     dev = qs.device
     qs = _kernel_operand("q", qs, dev, qs.dtype, h, d)
     k = _kernel_operand("k", k, dev, qs.dtype, hk, d)
     v = _kernel_operand("v", v, dev, qs.dtype, hk, d)
     do = _kernel_operand("do", do, dev, qs.dtype, h, d)
+    o = _kernel_operand("o", o, dev, qs.dtype, h, d)
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 [{b}, {h}, {sq}]")
     lse = lse.contiguous()
     q_seg, kv_seg = _seg_operands(segment_ids, b, sq, sk, dev)
-    # delta = rowsum(do * o) in f32, laid out like lse (:521-525)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    delta = _delta_cuda(do, o)
     dq = torch.empty((b, sq, h, d), dtype=qs.dtype, device=dev)
     dk = torch.empty((b, sk, hk, d), dtype=qs.dtype, device=dev)
     dv = torch.empty((b, sk, hk, d), dtype=qs.dtype, device=dev)
-    lib = _load_kernel()
-    rc = lib.flash_attention_bwd_launch(
+    launch = (_load_sm90_bwd().flash_bwd_sm90_launch if design == "sm90"
+              else _load_kernel().flash_attention_bwd_launch)
+    rc = launch(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         None if q_seg is None else q_seg.data_ptr(),
@@ -358,9 +425,10 @@ def _bwd_cuda(qs, k, v, o, lse, do, causal, segment_ids, sm_scale):
         v.stride(1), do.stride(0), do.stride(1),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash attention backward kernel launch failed: "
-                           f"error {rc}")
+        raise RuntimeError(f"flash attention backward kernel ({design}) "
+                           f"launch failed: error {rc}")
     flash_bwd.kernel_launches += 1
+    flash_bwd.design_launches[design] += 1
     return dq, dk, dv
 
 
@@ -400,22 +468,23 @@ def flash_bwd(qs, k, v, o, lse, do, sm_scale, causal=False,
     return (dq * sm_scale).to(qs.dtype), dk, dv
 
 
-# launches of the CUDA kernels (one per call: B2's call launches its dk/dv
-# and dq kernels), B1's launches by design, and calls of the plain versions
-# through the dispatchers: a run reads them to show which implementation it
-# went through
+# launches of the CUDA kernels (one per call: B2's call launches its delta,
+# dk/dv and dq kernels), each kernel's launches by design, and calls of the
+# plain versions through the dispatchers: a run reads them to show which
+# implementation it went through
 flash_fwd.kernel_launches = 0
 flash_fwd.design_launches = dict.fromkeys(_FWD_DESIGNS, 0)
 flash_fwd.plain_calls = 0
 flash_bwd.kernel_launches = 0
+flash_bwd.design_launches = dict.fromkeys(_BWD_DESIGNS, 0)
 flash_bwd.plain_calls = 0
 
 
 def reset_counters():
     """Set every launch and plain-call counter of B1 and B2 to 0."""
-    for f in (flash_fwd, flash_bwd):
+    for f, designs in ((flash_fwd, _FWD_DESIGNS), (flash_bwd, _BWD_DESIGNS)):
         f.kernel_launches = f.plain_calls = 0
-    flash_fwd.design_launches = dict.fromkeys(_FWD_DESIGNS, 0)
+        f.design_launches = dict.fromkeys(designs, 0)
 
 
 class _FlashCore(torch.autograd.Function):

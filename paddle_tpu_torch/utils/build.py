@@ -48,11 +48,13 @@ def nvcc_path() -> str:
 
 
 def build_shared(name: str, sources: Sequence[str], compiler: str,
-                 flags: Sequence[str]) -> str:
+                 flags: Sequence[str], headers: Sequence[str] = ()) -> str:
     """Compile ``sources`` with ``compiler`` and ``flags`` into
-    ``build_dir()/<name>_<hash>.so``; returns the library's path."""
+    ``build_dir()/<name>_<hash>.so``; returns the library's path.
+    ``headers`` are the files the sources include: hashed with them, so
+    an edited header rebuilds every library that names it."""
     tag = hashlib.sha256()
-    for s in sources:
+    for s in (*sources, *headers):
         tag.update(Path(s).read_bytes())
     tag.update(" ".join([os.path.basename(compiler), *flags]).encode())
     out = build_dir() / f"{name}_{tag.hexdigest()[:16]}.so"

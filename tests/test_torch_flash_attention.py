@@ -256,6 +256,57 @@ def test_b1_counters_reset_per_design():
             tfa.flash_fwd.plain_calls, tfa.flash_bwd.plain_calls) == (0,) * 4
 
 
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 256, "simple"), (torch.float32, 64, "simple"),
+    (torch.float32, 128, "simple"), (torch.float32, 256, "simple")])
+def test_b2_design_selection(dtype, d, want):
+    """B2's sm90 kernel (flash_bwd_sm90.cu) takes bf16 at head_dim 64 and
+    128, the simple kernels (flash_attention.cu) the rest; `design`
+    forces the simple kernels anywhere, refuses sm90 where it does not
+    apply, and raises on an unknown name."""
+    assert tfa._bwd_design(dtype, d) == want
+    assert tfa._bwd_design(dtype, d, "simple") == "simple"
+    if want == "sm90":
+        assert tfa._bwd_design(dtype, d, "sm90") == "sm90"
+    else:
+        with pytest.raises(ValueError, match="B2's sm90"):
+            tfa._bwd_design(dtype, d, "sm90")
+    with pytest.raises(ValueError, match="unknown B2 design"):
+        tfa._bwd_design(dtype, d, "wgmma")
+
+
+def test_b2_counters_reset_per_design():
+    """reset_counters zeroes B2's launches per design too."""
+    tfa.flash_bwd.design_launches["sm90"] += 2
+    tfa.flash_bwd.design_launches["simple"] += 1
+    tfa.reset_counters()
+    assert tfa.flash_bwd.design_launches == {"sm90": 0, "simple": 0}
+    assert tfa.flash_fwd.design_launches == {"sm90": 0, "simple": 0}
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 128, 4, 64), (1, 256, 2, 128)])
+def test_delta_plain_form_matches_reference_einsum(shape, dt):
+    """delta = rowsum(do·o) in f32, laid out like lse [b, H, sq]: the
+    port's plain form (what flash_bwd_sm90.cu's delta kernel is held to
+    on the card) against the reference's jnp.einsum over f32 copies
+    (flash_attention.py:521-523). Both sum the same f32 products of the
+    same values in other orders."""
+    rng = np.random.default_rng(11)
+    do = rng.standard_normal(shape).astype(np.float32)
+    o = rng.standard_normal(shape).astype(np.float32)
+    jdo, jo = (jnp.asarray(x, JDT[dt]) for x in (do, o))
+    want = jnp.einsum("bshd,bshd->bhs", jdo.astype(jnp.float32),
+                      jo.astype(jnp.float32))
+    tdo, to = (torch.from_numpy(x).to(TDT[dt]) for x in (do, o))
+    got = tfa._delta_reference(tdo, to)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert got.shape == (shape[0], shape[2], shape[1])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("qs,ks", [((2, 256, 3, 64), (2, 256, 3, 64)),
                                    ((2, 256, 8, 64), (2, 256, 1, 64))])
 def test_tpu_lane_rule_is_dropped(qs, ks):

@@ -6,6 +6,9 @@ that has only the port's dependencies:
 
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -320,6 +323,139 @@ def test_sm90_fwd_matches_plain_and_simple(cuda_device, name):
         assert (o[dead.transpose(1, 2)] == 0).all()
     if name.startswith("dead_rows"):
         assert dead[:, :, 40:91].all() and not dead[:, :, :40].any()
+
+
+# chip_smoke.py's phase 3 cases (its inputs, at their full size), for B2's
+# sm90 design on every bf16 case at head_dim 64 and 128
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
+B2_PHASE3 = [name for name, spec in cs.FLASH_CASES if spec[5] in (64, 128)]
+B2_CASES = B2_PHASE3 + sorted(SM90_EDGES)
+
+
+def _b2_case(name, dev):
+    """(qs, k, v, do, causal, segs) in bf16: a phase 3 case by its name,
+    or one of B1's sm90 edges with a do of its own."""
+    if name in B2_PHASE3:
+        i = [n for n, _ in cs.FLASH_CASES].index(name)
+        spec = cs.FLASH_CASES[i][1]
+        qs, k, v, do, segs = cs._flash_inputs(spec, torch.bfloat16, seed=i)
+        return qs, k, v, do, spec[6], segs
+    qs, k, v, causal, segs = _sm90_case(name, dev)
+    rng = np.random.default_rng(8)
+    do = torch.as_tensor(rng.standard_normal(qs.shape).astype(np.float32),
+                         device=dev).to(torch.bfloat16)
+    return qs, k, v, do, causal, segs
+
+
+def _b2_run(name, dev):
+    """B2's sm90 design and the simple kernels on one case, from the same
+    (o, lse): (sm90's, simple's, the plain version's) (dq, dk, dv), with
+    the design counters checked, and the plain forward's lse."""
+    qs, k, v, do, causal, segs = _b2_case(name, dev)
+    sc = qs.shape[-1] ** -0.5
+    o, lse = fa.flash_fwd(qs, k, v, causal, segs, path="cuda")
+    n0 = dict(fa.flash_bwd.design_launches)
+    got = fa.flash_bwd(qs, k, v, o, lse, do, sc, causal, segs, path="cuda")
+    n1 = dict(fa.flash_bwd.design_launches)
+    simple = fa._bwd_cuda(qs, k, v, o, lse, do, causal, segs, sc,
+                          design="simple")
+    torch.cuda.synchronize()
+    assert (n1["sm90"] - n0["sm90"], n1["simple"] - n0["simple"]) == (1, 0)
+    assert fa.flash_bwd.design_launches["simple"] == n1["simple"] + 1
+    want = fa.flash_bwd(qs, k, v, o, lse, do, sc, causal, segs, path="torch")
+    return got, simple, want, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", B2_CASES)
+def test_sm90_bwd_matches_plain_and_simple(cuda_device, name):
+    """B2's sm90 kernel (flash_bwd_sm90.cu) against the plain version and
+    against the simple kernels on the same bf16 inputs and (o, lse), at
+    phase 3's full-size cases (GQA, segments with fully masked rows,
+    non-causal, cross lengths both ways, the encoder's packed-qkv views)
+    and B1's sm90 edges; each design's counter moves by one for its own
+    call only. Rows with no valid key get dq = 0, and keys no query sees
+    dk = dv = 0."""
+    got, simple, want, lse = _b2_run(name, cuda_device)
+    for what, g, sg, w in zip(("dq", "dk", "dv"), got, simple, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, what
+        assert torch.isfinite(g).all(), what
+        _bf16_close(g, w, f"{what} vs plain")
+        _bf16_close(g, sg, f"{what} vs simple")
+    dead = (lse < -1e29).transpose(1, 2)                 # [b, sq, H]
+    if dead.any():
+        assert (got[0][dead] == 0).all()
+    for g, w in zip(got[1:], want[1:]):
+        unseen = (w == 0).all(-1)                        # [b, sk, Hk]
+        assert (g[unseen] == 0).all()
+
+
+@pytest.mark.cuda
+def test_sm90_bwd_check_rejects_planted_faults(cuda_device):
+    """The limit that holds B2 to its plain version rejects a dq 5 % off
+    on the late query rows and a dv whose last 64-key tile is zeroed."""
+    got, _simple, want, _lse = _b2_run("a gpt2_small train", cuda_device)
+    dq = got[0].clone()
+    dq[:, dq.shape[1] // 2:] *= 1.05
+    dv = got[2].clone()
+    dv[:, -64:] = 0
+    for what, bad, w in (("dq", dq, want[0]), ("dv", dv, want[2])):
+        with pytest.raises(AssertionError):
+            _bf16_close(bad, w, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_delta_kernel_matches_plain(cuda_device, D, dtype):
+    """delta = rowsum(do·o) by flash_bwd_sm90.cu's delta kernel against
+    its plain form, on do given as a strided view (a packed projection's
+    slice) and o dense: f32 sums of the same products in another order."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    rng = np.random.default_rng(D)
+    b, s, H = 2, 384, 3
+    packed = torch.as_tensor(rng.standard_normal((b, s, 2, H, D)).astype(
+        np.float32), device=cuda_device).to(dt)
+    do = packed[:, :, 1]
+    o = torch.as_tensor(rng.standard_normal((b, s, H, D)).astype(
+        np.float32), device=cuda_device).to(dt)
+    assert not do.is_contiguous()
+    got = fa._delta_cuda(do, o)
+    torch.cuda.synchronize()
+    want = fa._delta_reference(do, o)
+    assert got.shape == (b, H, s) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_training_shape_backward_launches_sm90(cuda_device):
+    """gpt2_small's training call (b 16, s 1024, 12 heads, D 64, causal)
+    through flash_attention and autograd: B2 runs once, on the sm90
+    design, and its gradients equal the plain version's from the same
+    forward."""
+    b, s, H, D = 16, 1024, 12, 64
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.as_tensor(rng.standard_normal((b, s, H, D)).astype(
+        np.float32), device=cuda_device).to(torch.bfloat16)
+        for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    n0 = dict(fa.flash_bwd.design_launches)
+    out = fa.flash_attention(q, k, v, causal=True)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd.design_launches["sm90"] == n0["sm90"] + 1
+    assert fa.flash_bwd.design_launches["simple"] == n0["simple"]
+    sc = D ** -0.5
+    qs = (q * torch.tensor(sc, dtype=q.dtype, device=cuda_device)).detach()
+    o, lse = fa.flash_fwd(qs, k.detach(), v.detach(), True, path="cuda")
+    torch.testing.assert_close(o, out.detach(), rtol=0, atol=0)
+    want = fa.flash_bwd(qs, k.detach(), v.detach(), o, lse, do, sc, True,
+                        path="torch")
+    for what, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        _bf16_close(g, w, what)
 
 
 @pytest.mark.cuda

@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
-"""B1's sm90 design on its own, on one NVIDIA GPU: a short run for
-working on paddle_tpu_torch/kernels/csrc/flash_fwd_sm90.cu.
+"""B1's or B2's sm90 design on its own, on one NVIDIA GPU: a short run
+for working on paddle_tpu_torch/kernels/csrc/flash_fwd_sm90.cu or, with
+--bwd, flash_bwd_sm90.cu.
 
-    python3 tools/flash_fwd_probe.py [--cases a,b,h] [--simple]
-        [--variant FA90_D64_STAGES=4,FA90_D128_BN=128 ...] [--out PATH]
+    python3 tools/flash_fwd_probe.py [--bwd] [--cases a,b,h] [--simple]
+        [--check] [--variant FA90_D64_STAGES=4,FA90_D128_BN=128 ...]
+        [--out PATH]
 
-Run from the root of a checkout. It builds only flash_fwd_sm90.cu
-(flash_attention.cu too with --simple), prints what `nvcc -Xptxas -v`
-says of each instantiation (registers, spills, stack), then takes the
-bf16 cases of chip_smoke.py's phase 3 whose head_dim the design takes
-(all of them, or those whose letters --cases names). For each it holds
-B1's (o, lse) to the plain version with the phase's limits and planted
-fault, and times B1 by single-call CUDA events and by CUDA-graph replay,
-beside the bound, SDPA's forward and, with --simple, the simple kernel
-(flash_attention.cu's flash_fwd_kernel). Every --variant rebuilds the
-source with those -D tile-size macros, prints its
-registers, and checks and times it on the same cases; a variant that
-does not build is reported and skipped. The record goes to --out
+Run from the root of a checkout. It builds only the design's source
+(flash_attention.cu too with --simple; B1's sm90 source too with --bwd,
+for the forward that feeds B2), prints what `nvcc -Xptxas -v` says of
+each instantiation (registers, spills, stack), then takes the bf16
+cases of chip_smoke.py's phase 3 whose head_dim the design takes (all
+of them, or those whose letters --cases names). For each it holds B1's
+(o, lse), or B2's (dq, dk, dv) from the same (o, lse) on both sides, to
+the plain version with the phase's limits and planted faults, and
+times the kernel by single-call CUDA events and by CUDA-graph replay,
+beside the bound, SDPA's forward (B2: SDPA's backward by replay) and,
+with --simple, the simple kernel (flash_attention.cu). --check stops
+after the checks, timing nothing. Every --variant rebuilds the source
+with those -D tile-size macros (FA90_* for B1, FB90_* for B2), prints
+its registers, and checks and times it on the same cases; a variant
+that does not build is reported and skipped. The record goes to --out
 (build/flash_fwd_probe.json by default). The inputs, checks and timers
 are chip_smoke.py's own.
 """
@@ -35,18 +40,18 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 
-def ptxas_report(extra_flags=()) -> list:
+def ptxas_report(source, extra_flags=()) -> list:
     """[{entry, registers, stack, spill_stores, spill_loads, warnings}] of
-    every kernel in flash_fwd_sm90.cu, from `nvcc -Xptxas -v` (an object
+    every kernel in csrc/<source>.cu, from `nvcc -Xptxas -v` (an object
     file compiled into the build directory with the library's flags);
     raises with the compiler's last lines if the source does not build."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.utils.build import NVCC_FLAGS, build_dir, nvcc_path
     flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
                                                  "-fPIC")]
-    out = build_dir() / "flash_fwd_sm90_ptxas.o"
+    out = build_dir() / f"{source}_ptxas.o"
     cmd = [nvcc_path(), *flags, *extra_flags, "-Xptxas", "-v", "-c", "-o",
-           str(out), fa._csrc("flash_fwd_sm90.cu")]
+           str(out), fa._csrc(source + ".cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
@@ -58,14 +63,7 @@ def ptxas_report(extra_flags=()) -> list:
             cur.setdefault("warnings", []).append(line.strip()[-300:])
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            # the kernel and its tile config, e.g. flash_fwd_sm90_wgmma
-            # <WCfg<64, 64, 3>>
-            cfg = re.search(r"(flash_fwd_\w+?)I\w*?(W?Cfg)I((?:Li\d+E)+)",
-                            m.group(1))
-            cur = dict(entry="%s<%s<%s>>" % (
-                cfg.group(1), cfg.group(2),
-                ", ".join(re.findall(r"Li(\d+)E", cfg.group(3))))
-                if cfg else m.group(1))
+            cur = dict(entry=_kernel_name(m.group(1)))
             report.append(cur)
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -78,7 +76,25 @@ def ptxas_report(extra_flags=()) -> list:
     return report
 
 
-def probe_case(i, name, spec, simple) -> dict:
+def _kernel_name(mangled) -> str:
+    """The kernel and its tile config of a mangled entry, e.g.
+    flash_fwd_sm90<Cfg<64, 64, 3, 2>> or flash_bwd_delta<bf16, 64>."""
+    # the name follows its length; nvcc's anonymous namespace, which
+    # names the file, comes before it
+    cfg = re.search(r"\d(flash_\w+?)I(?:NS_)?\d*([A-Za-z]*Cfg)I"
+                    r"((?:Li\d+E)+)", mangled)
+    if cfg:
+        return "%s<%s<%s>>" % (cfg.group(1), cfg.group(2), ", ".join(
+            re.findall(r"Li(\d+)E", cfg.group(3))))
+    typed = re.search(r"\d(flash_\w+?)I(\d+__nv_bfloat16|f)Li(\d+)E",
+                      mangled)
+    if typed:
+        return "%s<%s, %s>" % (typed.group(1), "f32" if typed.group(2) == "f"
+                               else "bf16", typed.group(3))
+    return mangled
+
+
+def probe_case(i, name, spec, simple, check_only=False) -> dict:
     """Check and time B1's default design at phase 3's case i (bf16)."""
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -106,8 +122,11 @@ def probe_case(i, name, spec, simple) -> dict:
     bound = cs._flash_bound(spec, cs._valid_pairs(spec, segs), 2, False)
     rec = dict(case=name, max_abs_err=abs_errs, norm_err=errs,
                planted_norm_err=planted, bound_ms=bound[0],
-               bound_by=bound[1],
-               **cs.b1_times(spec, qs, k, v, segs, simple=simple))
+               bound_by=bound[1])
+    if check_only:
+        cs.log(f"[probe] {name}: norm err {errs}")
+        return rec
+    rec.update(cs.b1_times(spec, qs, k, v, segs, simple=simple))
     del qs, k, v, o, lse, want
     torch.cuda.empty_cache()
     cs.log(f"[probe] {name}: norm err o {errs['o']:.2e} lse "
@@ -120,8 +139,63 @@ def probe_case(i, name, spec, simple) -> dict:
     return rec
 
 
+def probe_bwd_case(i, name, spec, simple, check_only=False) -> dict:
+    """Check and time B2's default design at phase 3's case i (bf16),
+    from B1's (o, lse) of the same inputs."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    qs, k, v, do, segs = cs._flash_inputs(spec, torch.bfloat16, seed=i)
+    causal, sc = spec[6], spec[5] ** -0.5
+    o, lse = fa.flash_fwd(qs, k, v, causal, segs, path="cuda")
+    n0 = fa.flash_bwd.design_launches["sm90"]
+    got = fa.flash_bwd(qs, k, v, o, lse, do, sc, causal, segs, path="cuda")
+    torch.cuda.synchronize()
+    if fa.flash_bwd.design_launches["sm90"] != n0 + 1:
+        raise RuntimeError(f"{name}: the sm90 design did not launch")
+    want = fa.flash_bwd(qs, k, v, o, lse, do, sc, causal, segs,
+                        path="torch")
+    try:
+        abs_errs, errs, planted = cs._check_flash(
+            name, "bf16", (o, lse, *got), (o, lse, *want))
+    except RuntimeError as e:
+        # where the kernel went wrong: (batch, row, head) of the rows off
+        # in each of dq, dk, dv
+        at = {}
+        for what, g, w in zip(("dq", "dk", "dv"), got, want):
+            d = (g.float() - w.float()).abs().amax(-1)
+            bad = ~torch.isfinite(d) | (
+                d > 0.05 * (w.float().abs().amax(-1) + 1))
+            at[what] = (int(bad.sum()), bad.nonzero()[:8].tolist())
+        cs.log(f"[probe] {name}: FAILED {e}; rows off (count, first (b, "
+               f"row, head)) {at}")
+        return dict(case=name, error=str(e), rows_off=at)
+    bound = cs._flash_bound(spec, cs._valid_pairs(spec, segs), 2, True)
+    rec = dict(case=name, max_abs_err=abs_errs, norm_err=errs,
+               planted_norm_err=planted, bound_ms=bound[0],
+               bound_by=bound[1])
+    if check_only:
+        cs.log(f"[probe] {name}: norm err {errs} planted {planted}")
+        return rec
+    rec.update(cs.b2_times(spec, qs, k, v, o, lse, do, segs, simple=simple))
+    del qs, k, v, o, lse, do, got, want
+    torch.cuda.empty_cache()
+    cs.log(f"[probe] {name}: norm err dq {errs['dq']:.2e} dk "
+           f"{errs['dk']:.2e} dv {errs['dv']:.2e} (planted "
+           f"{planted[cs.PLANTED[1]]:.2e}); sm90 {rec['bwd_ms']:.4f} ms by "
+           f"events, {rec['bwd_ms_graph']:.4f} by graph replay; bound "
+           f"{bound[0]:.4f} ({bound[1]}); simple {rec['simple_bwd_ms']} / "
+           f"{rec['simple_bwd_ms_graph']}; library fwd+bwd "
+           f"{rec['library_fwd_bwd_ms']} by events, bwd "
+           f"{rec['library_bwd_ms_graph']} by replay")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--bwd", action="store_true",
+                    help="B2 (flash_bwd_sm90.cu) in place of B1")
+    ap.add_argument("--check", action="store_true",
+                    help="check only, time nothing")
     ap.add_argument("--cases", default="",
                     help="letters of phase 3's cases (default: every one "
                          "the sm90 design takes)")
@@ -144,11 +218,18 @@ def main() -> int:
              if spec[5] in fa._SM90_D and (not want or name[0] in want)]
     if args.simple:
         fa._load_kernel()
-    out = dict(card=cs.card_line(), builds=[])
+    if args.bwd:
+        fa._load_sm90()
+    source, attr, loader, probe = (
+        ("flash_bwd_sm90", "_SM90_BWD_LIB", fa._load_sm90_bwd, probe_bwd_case)
+        if args.bwd else
+        ("flash_fwd_sm90", "_SM90_LIB", fa._load_sm90, probe_case))
+    out = dict(card=cs.card_line(), kernel="B2" if args.bwd else "B1",
+               builds=[])
     for variant in [""] + args.variant:
         flags = tuple(f"-D{x}" for x in variant.split(",") if x)
         try:
-            regs = ptxas_report(flags)
+            regs = ptxas_report(source, flags)
         except RuntimeError as e:
             # a variant that does not build is reported, not fatal
             cs.log(f"[ptxas] {variant or 'default'}: {e}")
@@ -157,23 +238,24 @@ def main() -> int:
             continue
         for r in regs:
             cs.log(f"[ptxas] {variant or 'default'}: {r}")
-        saved = fa._SM90_LIB
+        saved = getattr(fa, attr)
         if flags:
-            fa._SM90_LIB = fa._load_sm90(flags)
+            setattr(fa, attr, loader(flags))
         try:
-            recs = [probe_case(i, name, spec, args.simple and not flags)
-                    for i, name, spec in cases]
+            recs = [probe(i, name, spec, args.simple and not flags,
+                          args.check) for i, name, spec in cases]
         finally:
-            fa._SM90_LIB = saved
+            setattr(fa, attr, saved)
         out["builds"].append(dict(variant=variant or "default", ptxas=regs,
                                   cases=recs))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
+    key = "bwd_ms_graph" if args.bwd else "fwd_ms_graph"
     cs.log(json.dumps({"probe": [
         dict(variant=b["variant"], **{
-            c["case"]: round(c["fwd_ms_graph"], 5) if "error" not in c
-            else "FAILED" for c in b["cases"]})
+            c["case"]: "FAILED" if "error" in c else
+            round(c[key], 5) if key in c else "ok" for c in b["cases"]})
         for b in out["builds"]]}))
     failed = [c["case"] for b in out["builds"] for c in b["cases"]
               if "error" in c] + [b["variant"] for b in out["builds"]

@@ -45,10 +45,14 @@
 //        Sᵀ  = K·Qᵀ           wgmma, K and Q K-major from shared memory
 //        dPᵀ = V·dOᵀ          wgmma, issued right behind Sᵀ
 //        Pᵀ  = exp(Sᵀ - lse)  in the accumulator registers, while dPᵀ runs
+//        dSᵀ = Pᵀ∘(dPᵀ - δ)   in dPᵀ's registers
 //        dV += Pᵀ·dO          wgmma, Pᵀ packed from registers, dO MN-major
 //                              through the transpose bit (as B1 reads V)
-//        dSᵀ = Pᵀ∘(dPᵀ - δ)   in registers, while dV runs
-//        dK += dSᵀ·Q          wgmma, dSᵀ from registers, Q MN-major
+//        dK += dSᵀ·Q          wgmma, dSᵀ packed from registers, Q MN-major,
+//                              in one group with dV
+//      Packing both after dSᵀ keeps at most Sᵀ, dPᵀ, dK and dV live (not
+//      the packed Pᵀ beside them), which is what lets 128-query tiles fit
+//      at D 64.
 //      dK and dV stay in registers and are written once, at the end.
 //   2. dq kernel, grid (sq / 128, H, b), longest causal tile first: two
 //      warpgroups own 64 queries each; Q and dO load once, K and V tiles
@@ -68,14 +72,20 @@
 //      diagonal or carry segment ids.
 // What stage 1 leaves on the table: S and dP are computed in both
 // kernels, 7 score-sized products a pair instead of the 5 of a single
-// pass (dq accumulated across key tiles by atomics); and each warpgroup
-// waits on its last product before the next tile, so copies overlap the
-// math only through the ring. The sums are deterministic: every output
-// element is owned by one thread of one CTA.
+// pass (dq accumulated across key tiles by atomics). A single pass needs
+// dS with query rows as a wgmma operand while the dk/dv kernel holds dSᵀ
+// with key rows in registers, so dS would have to go through shared
+// memory. The sums are deterministic: every output element is owned by
+// one thread of one CTA.
 //
-// Registers: at D 128 a dk/dv thread holds dK and dV (2 × 64 f32), Sᵀ
-// and dPᵀ (2 × BQ / 2) and Pᵀ packed (BQ / 4): BQ is a -D macro (the
-// first knob if it spills), as are the ring depths (FB90_*).
+// Registers bound the tiles: a dk/dv thread holds dK and dV (2 × D / 2
+// f32) beside Sᵀ and dPᵀ (2 × BQ / 2), so BQ is 128 at D 64 and 64 at
+// D 128; a dq thread holds dQ (D / 2) beside S and dP (2 × BN / 2), BN
+// 128. nvcc -Xptxas -v (tools/flash_fwd_probe.py --bwd): dk/dv 252 and
+// 243 registers, dq 206 and 243, delta 26-28, no spills, no stack; one
+// 256-thread CTA an SM. Tile widths and ring depths are -D macros
+// (FB90_*), so the probe can build variants and time them beside the
+// default.
 // Launches run on the caller's stream, allocate nothing and do not
 // synchronise; the C entries return cudaGetLastError().
 #include "sm90_wgmma.cuh"
@@ -83,13 +93,13 @@
 // q-tile width and ring depth of the dk/dv loop, k-tile width and ring
 // depth of the dq loop, per head_dim
 #ifndef FB90_D64_BQ
-#define FB90_D64_BQ 64
+#define FB90_D64_BQ 128
 #endif
 #ifndef FB90_D64_KV_STAGES
-#define FB90_D64_KV_STAGES 2
+#define FB90_D64_KV_STAGES 3
 #endif
 #ifndef FB90_D64_BN
-#define FB90_D64_BN 64
+#define FB90_D64_BN 128
 #endif
 #ifndef FB90_D64_DQ_STAGES
 #define FB90_D64_DQ_STAGES 3
@@ -98,10 +108,10 @@
 #define FB90_D128_BQ 64
 #endif
 #ifndef FB90_D128_KV_STAGES
-#define FB90_D128_KV_STAGES 2
+#define FB90_D128_KV_STAGES 3
 #endif
 #ifndef FB90_D128_BN
-#define FB90_D128_BN 64
+#define FB90_D128_BN 128
 #endif
 #ifndef FB90_D128_DQ_STAGES
 #define FB90_D128_DQ_STAGES 2
@@ -136,7 +146,8 @@ struct QCfg {
   static constexpr uint32_t QB = BM * D * 2;  // bytes of the Q (or dO) tile
   static constexpr uint32_t TB = BN * D * 2;  // bytes of one K (or V) tile
   static constexpr size_t SMEM = 2 * QB + 2 * STAGES * TB + 1024;
-  static_assert(D % 64 == 0 && (BN == 64 || BN == 128) && STAGES >= 2,
+  static_assert(D % 64 == 0 && (BN == 32 || BN == 64 || BN == 128) &&
+                    STAGES >= 2,
                 "64-column swizzle blocks, wgmma widths, a ring");
   static_assert((BM * D / 8) % THREADS == 0 && (BN * D / 8) % THREADS == 0,
                 "tiles split evenly into 16-byte copies");
@@ -153,6 +164,17 @@ __device__ __forceinline__ uint64_t kdesc(uint32_t row, int kk) {
 template <int R>
 __device__ __forceinline__ uint64_t tdesc(uint32_t tile, int kp) {
   return wdesc(tile + kp * 2048, R * 128, 1024);
+}
+
+// two f32 from shared memory at a 32-bit address (ordered after the
+// barrier that publishes them)
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // one output row pair of a warp's accumulator (rows g and g + 8 of its 16,
@@ -176,21 +198,35 @@ __device__ __forceinline__ void store_acc(bf16* base, long long row0,
 }
 
 // ---------------------------------------------------------------------------
-// delta = rowsum(do · o) in f32, [b, H, sq]: one warp a (batch, token,
-// head) row, tokens fastest across warps so the writes coalesce
+// delta = rowsum(do · o) in f32, [b, H, sq]: L lanes a (batch, token, head)
+// row, each reading 16 bytes of do and of o at a time, 32 / L rows a warp,
+// tokens fastest so that a warp's writes are contiguous
 // ---------------------------------------------------------------------------
-template <typename T>
-struct Pair;
-template <>
-struct Pair<bf16> {
-  using V = __nv_bfloat162;
-  __device__ static float2 f(V x) { return __bfloat1622float2(x); }
+template <typename T, int D>
+struct DeltaCfg {
+  static constexpr int CH = D * static_cast<int>(sizeof(T)) / 16;  // chunks
+  static constexpr int L = CH < 32 ? CH : 32;  // lanes of a row
+  static constexpr int ROWS = 8 * (32 / L);    // rows of a 256-thread block
 };
-template <>
-struct Pair<float> {
-  using V = float2;
-  __device__ static float2 f(V x) { return x; }
-};
+
+// the f32 dot product of two 16-byte chunks
+__device__ __forceinline__ float dot16(const uint4& x, const uint4& y, float) {
+  return fmaf(__uint_as_float(x.x), __uint_as_float(y.x),
+              fmaf(__uint_as_float(x.y), __uint_as_float(y.y),
+                   fmaf(__uint_as_float(x.z), __uint_as_float(y.z),
+                        __uint_as_float(x.w) * __uint_as_float(y.w))));
+}
+__device__ __forceinline__ float dot16(const uint4& x, const uint4& y, bf16) {
+  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&y);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(a[i]), w = __bfloat1622float2(b[i]);
+    acc = fmaf(u.x, w.x, fmaf(u.y, w.y, acc));
+  }
+  return acc;
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
@@ -198,27 +234,29 @@ flash_bwd_delta(const T* __restrict__ dout, const T* __restrict__ o,
                 float* __restrict__ delta, int b, int sq, int H,
                 long long do_sb, long long do_st, long long o_sb,
                 long long o_st) {
-  using V = typename Pair<T>::V;
-  const long long r = static_cast<long long>(blockIdx.x) * 8 +
-                      (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= static_cast<long long>(b) * H * sq) return;
-  const int s = static_cast<int>(r % sq);
-  const int h = static_cast<int>((r / sq) % H);
-  const int bi = static_cast<int>(r / (static_cast<long long>(sq) * H));
-  const V* dp = reinterpret_cast<const V*>(
-      dout + bi * do_sb + s * do_st + static_cast<long long>(h) * D);
-  const V* op = reinterpret_cast<const V*>(
-      o + bi * o_sb + s * o_st + static_cast<long long>(h) * D);
+  using C = DeltaCfg<T, D>;
+  const int lane = threadIdx.x & 31, c0 = lane % C::L;
+  const long long r = static_cast<long long>(blockIdx.x) * C::ROWS +
+                      (threadIdx.x >> 5) * (32 / C::L) + lane / C::L;
+  const bool live = r < static_cast<long long>(b) * H * sq;
   float acc = 0.f;
+  if (live) {
+    const int s = static_cast<int>(r % sq);
+    const int h = static_cast<int>((r / sq) % H);
+    const int bi = static_cast<int>(r / (static_cast<long long>(sq) * H));
+    const uint4* dp = reinterpret_cast<const uint4*>(
+        dout + bi * do_sb + s * do_st + static_cast<long long>(h) * D);
+    const uint4* op = reinterpret_cast<const uint4*>(
+        o + bi * o_sb + s * o_st + static_cast<long long>(h) * D);
 #pragma unroll
-  for (int i = lane; i < D / 2; i += 32) {
-    const float2 x = Pair<T>::f(dp[i]), y = Pair<T>::f(op[i]);
-    acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
+    for (int c = c0; c < C::CH; c += C::L)
+      acc += dot16(__ldg(dp + c), __ldg(op + c), T());
   }
+  // every lane takes part in the shuffles, live or not
 #pragma unroll
-  for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
-  if (lane == 0) delta[r] = acc;
+  for (int m = C::L / 2; m > 0; m >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (live && c0 == 0) delta[r] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -243,14 +281,11 @@ flash_bwd_dkdv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int THREADS = C::THREADS;
   constexpr uint32_t TB = C::TB, RB = C::RB;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const uint32_t base = smem_addr(smem_raw);
-  const uint32_t Ks = (base + 1023u) & ~1023u;
+  const uint32_t Ks = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t Vs = Ks + C::KB;
   const uint32_t Qs = Vs + C::KB;    // [S] tiles
   const uint32_t Os = Qs + S * TB;   // [S] dO tiles
   const uint32_t Ls = Os + S * TB;   // [S] lse rows, then [S] delta rows
-  const float* lse_s = reinterpret_cast<const float*>(smem_raw + (Ls - base));
-  const float* delta_s = lse_s + S * BQ;
 
   const int k0 = blockIdx.x * BK, hk = blockIdx.y, bi = blockIdx.z;
   const int G = H / Hk;
@@ -295,12 +330,6 @@ flash_bwd_dkdv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_commit();
     }
   }
-  int ksg[2] = {0, 0};  // segment ids of keys kr0 + g and kr0 + g + 8
-  if (kv_seg) {
-    ksg[0] = kv_seg[static_cast<long long>(bi) * sk + kr0 + g];
-    ksg[1] = kv_seg[static_cast<long long>(bi) * sk + kr0 + g + 8];
-  }
-
   float dk_acc[C::NT_D][4], dv_acc[C::NT_D][4];
 #pragma unroll
   for (int j = 0; j < C::NT_D; ++j)
@@ -310,7 +339,7 @@ flash_bwd_dkdv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t krow = Ks + wg * 64 * 128, vrow = Vs + wg * 64 * 128;
 
   for (int it = 0; it < nit; ++it) {
-    cp_wait<S - 2>();     // pair it (and, at it = 0, K and V) has landed ...
+    cp_wait<S - 2>();     // pair it (at it = 0 K and V too) landed ...
     fence_proxy_async();  // ... is visible to wgmma's reads ...
     __syncthreads();      // ... for every thread; pair it - 1 is consumed
     {
@@ -335,26 +364,32 @@ flash_bwd_dkdv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < C::KD; ++kk)
       wgmma_ss<BQ>(dp, kdesc<BK>(vrow, kk), kdesc<BQ>(Ot, kk), kk > 0);
     wgmma_commit();
-    wgmma_wait<1>();
+    wgmma_wait<1>();  // Sᵀ has landed
     pin(s);
 
     // Pᵀ = exp(Sᵀ - lse), column j's lse; masked pairs exactly 0
-    const float* ls = lse_s + st * BQ;
-    const float* dl = delta_s + st * BQ;
+    const uint32_t ls = Ls + st * RB, dl = Ls + (S + st) * RB;
     const bool masked = q_seg || (causal && kr0 + 15 > q0 + offset);
 #pragma unroll
     for (int j = 0; j < C::NT_S; ++j) {
       const int c = 8 * j + 2 * t;
-      const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+      const float2 l2 = lds_f2(ls + 4 * c);
       s[j][0] = ex2(fmaf(s[j][0], kLog2e, -l2.x * kLog2e));
       s[j][1] = ex2(fmaf(s[j][1], kLog2e, -l2.y * kLog2e));
       s[j][2] = ex2(fmaf(s[j][2], kLog2e, -l2.x * kLog2e));
       s[j][3] = ex2(fmaf(s[j][3], kLog2e, -l2.y * kLog2e));
       if (masked) {
-        int qsg[2] = {0, 0};
+        // segment ids of queries c, c + 1 and of keys g, g + 8 (loaded
+        // here, not held across the loop: registers are what bounds this
+        // kernel)
+        int qsg[2] = {0, 0}, ksg[2] = {0, 0};
         if (q_seg) {
-          qsg[0] = __ldg(q_seg + static_cast<long long>(bi) * sq + q0 + c);
-          qsg[1] = __ldg(q_seg + static_cast<long long>(bi) * sq + q0 + c + 1);
+          const long long qb = static_cast<long long>(bi) * sq + q0 + c;
+          const long long kb = static_cast<long long>(bi) * sk + kr0 + g;
+          qsg[0] = __ldg(q_seg + qb);
+          qsg[1] = __ldg(q_seg + qb + 1);
+          ksg[0] = __ldg(kv_seg + kb);
+          ksg[1] = __ldg(kv_seg + kb + 8);
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -365,43 +400,38 @@ flash_bwd_dkdv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
     }
-    uint32_t pa[C::KQ][4];
-    pack_p<BQ>(pa, s);  // p cast to do's dtype
+    wgmma_wait<0>();  // dPᵀ has landed
+    pin(dp);
 
-    // dV += Pᵀ dO, dO MN-major
+    // dSᵀ = Pᵀ (dPᵀ - delta) into dPᵀ's registers, column j's delta
+#pragma unroll
+    for (int j = 0; j < C::NT_S; ++j) {
+      const float2 d2 = lds_f2(dl + 4 * (8 * j + 2 * t));
+      dp[j][0] = s[j][0] * (dp[j][0] - d2.x);
+      dp[j][1] = s[j][1] * (dp[j][1] - d2.y);
+      dp[j][2] = s[j][2] * (dp[j][2] - d2.x);
+      dp[j][3] = s[j][3] * (dp[j][3] - d2.y);
+    }
+    uint32_t pa[C::KQ][4], da[C::KQ][4];
+    pack_p<BQ>(pa, s);   // p cast to do's dtype
+    pack_p<BQ>(da, dp);  // ds cast to q's dtype
+
+    // dV += Pᵀ dO and dK += dSᵀ Q, one group: dO and Q MN-major
     pin(dv_acc);
+    pin(dk_acc);
     wgmma_fence();
 #pragma unroll
     for (int kp = 0; kp < C::KQ; ++kp)
       wgmma_rs_t<D>(dv_acc, pa[kp], tdesc<BQ>(Ot, kp));
-    wgmma_commit();
-    wgmma_wait<1>();  // dPᵀ has landed; dV may still run
-    pin(dp);
-
-    // dSᵀ = Pᵀ (dPᵀ - delta), column j's delta
-#pragma unroll
-    for (int j = 0; j < C::NT_S; ++j) {
-      const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
-      s[j][0] *= dp[j][0] - d2.x;
-      s[j][1] *= dp[j][1] - d2.y;
-      s[j][2] *= dp[j][2] - d2.x;
-      s[j][3] *= dp[j][3] - d2.y;
-    }
-    wgmma_wait<0>();  // dV has read Pᵀ's registers
-    pin(dv_acc);
-    pin(pa);
-    pack_p<BQ>(pa, s);  // ds cast to q's dtype
-
-    // dK += dSᵀ Q, Q MN-major
-    pin(dk_acc);
-    wgmma_fence();
 #pragma unroll
     for (int kp = 0; kp < C::KQ; ++kp)
-      wgmma_rs_t<D>(dk_acc, pa[kp], tdesc<BQ>(Qt, kp));
+      wgmma_rs_t<D>(dk_acc, da[kp], tdesc<BQ>(Qt, kp));
     wgmma_commit();
     wgmma_wait<0>();
+    pin(dv_acc);
     pin(dk_acc);
     pin(pa);
+    pin(da);
   }
   cp_wait<0>();  // only empty groups can be left; drained before exit
 
@@ -517,7 +547,7 @@ flash_bwd_dq_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < C::KD; ++kk)
       wgmma_ss<BN>(dp, kdesc<BM>(orow, kk), kdesc<BN>(Vt, kk), kk > 0);
     wgmma_commit();
-    wgmma_wait<1>();
+    wgmma_wait<1>();  // S has landed
     pin(s);
 
     // P = exp(S - lse), row i's lse; masked pairs exactly 0
@@ -622,7 +652,8 @@ int launch_delta(const void* dout, const void* o, void* delta, int b, int sq,
                  int H, long long do_sb, long long do_st, long long o_sb,
                  long long o_st, cudaStream_t stream) {
   const long long rows = static_cast<long long>(b) * H * sq;
-  flash_bwd_delta<T, D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
+  constexpr int R = DeltaCfg<T, D>::ROWS;
+  flash_bwd_delta<T, D><<<static_cast<unsigned>((rows + R - 1) / R), 256, 0,
                           stream>>>(
       static_cast<const T*>(dout), static_cast<const T*>(o),
       static_cast<float*>(delta), b, sq, H, do_sb, do_st, o_sb, o_st);
@@ -660,7 +691,7 @@ extern "C" int flash_bwd_sm90_launch(
 
 // delta = rowsum(do · o) in f32 into [b, H, sq], for both of B2's designs:
 // dtype 0 = float32, 1 = bfloat16, head_dim 64, 128 or 256; batch and
-// token strides in elements (heads and head_dim dense, rows 8-byte
+// token strides in elements (heads and head_dim dense, rows 16-byte
 // aligned). Returns cudaGetLastError(), or -1 for what it is not built for.
 extern "C" int flash_bwd_delta_launch(const void* dout, const void* o,
                                       void* delta, int b, int sq, int H,

@@ -5,7 +5,7 @@ for working on paddle_tpu_torch/kernels/csrc/flash_fwd_sm90.cu or, with
 
     python3 tools/flash_fwd_probe.py [--bwd] [--cases a,b,h] [--simple]
         [--check] [--variant FA90_D64_STAGES=4,FA90_D128_BN=128 ...]
-        [--out PATH]
+        [--rounds N] [--out PATH]
 
 Run from the root of a checkout. It builds only the design's source
 (flash_attention.cu too with --simple; B1's sm90 source too with --bwd,
@@ -21,7 +21,9 @@ with --simple, the simple kernel (flash_attention.cu). --check stops
 after the checks, timing nothing. Every --variant rebuilds the source
 with those -D tile-size macros (FA90_* for B1, FB90_* for B2), prints
 its registers, and checks and times it on the same cases; a variant
-that does not build is reported and skipped. The record goes to --out
+that does not build is reported and skipped. --rounds N takes the
+builds in turn N times over (A, B, A, B), so that they compare within
+one call. The record goes to --out
 (build/flash_fwd_probe.json by default). The inputs, checks and timers
 are chip_smoke.py's own.
 """
@@ -139,6 +141,27 @@ def probe_case(i, name, spec, simple, check_only=False) -> dict:
     return rec
 
 
+def kernel_split(fn, iters=10) -> dict:
+    """{kernel: device ms a call of `fn`} by torch.profiler over `iters`
+    calls (empty where the profiler records no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or 0
+        if us > 0:
+            key = re.sub(r"\(.*", "", e.key.replace("(anonymous namespace)::",
+                                                    ""))
+            out[key[-90:]] = out.get(key[-90:], 0.0) + us / iters / 1e3
+    return out
+
+
 def probe_bwd_case(i, name, spec, simple, check_only=False) -> dict:
     """Check and time B2's default design at phase 3's case i (bf16),
     from B1's (o, lse) of the same inputs."""
@@ -177,6 +200,9 @@ def probe_bwd_case(i, name, spec, simple, check_only=False) -> dict:
         cs.log(f"[probe] {name}: norm err {errs} planted {planted}")
         return rec
     rec.update(cs.b2_times(spec, qs, k, v, o, lse, do, segs, simple=simple))
+    rec["kernels_ms"] = kernel_split(lambda: fa._bwd_cuda(
+        qs, k, v, o, lse, do, causal, segs, sc))
+    cs.log(f"[probe] {name}: device ms by kernel {rec['kernels_ms']}")
     del qs, k, v, o, lse, do, got, want
     torch.cuda.empty_cache()
     cs.log(f"[probe] {name}: norm err dq {errs['dq']:.2e} dk "
@@ -203,6 +229,8 @@ def main() -> int:
                     help="also build and time the simple kernel")
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=VALUE,... macros for one more build")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="times every build is checked and timed, in turn")
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "flash_fwd_probe.json"),
                     help="where the JSON record goes")
@@ -226,34 +254,45 @@ def main() -> int:
         ("flash_fwd_sm90", "_SM90_LIB", fa._load_sm90, probe_case))
     out = dict(card=cs.card_line(), kernel="B2" if args.bwd else "B1",
                builds=[])
-    for variant in [""] + args.variant:
+    regs = {}
+
+    def run_build(variant, rnd):
         flags = tuple(f"-D{x}" for x in variant.split(",") if x)
-        try:
-            regs = ptxas_report(source, flags)
-        except RuntimeError as e:
-            # a variant that does not build is reported, not fatal
-            cs.log(f"[ptxas] {variant or 'default'}: {e}")
-            out["builds"].append(dict(variant=variant or "default",
-                                      error=str(e), cases=[]))
-            continue
-        for r in regs:
-            cs.log(f"[ptxas] {variant or 'default'}: {r}")
+        if variant not in regs:
+            try:
+                regs[variant] = ptxas_report(source, flags)
+            except RuntimeError as e:
+                # a variant that does not build is reported, not fatal
+                cs.log(f"[ptxas] {variant or 'default'}: {e}")
+                regs[variant] = None
+                out["builds"].append(dict(variant=variant or "default",
+                                          error=str(e), cases=[]))
+            for r in regs[variant] or ():
+                cs.log(f"[ptxas] {variant or 'default'}: {r}")
+        if regs[variant] is None:
+            return
         saved = getattr(fa, attr)
         if flags:
             setattr(fa, attr, loader(flags))
         try:
-            recs = [probe(i, name, spec, args.simple and not flags,
+            recs = [probe(i, name, spec,
+                          args.simple and not flags and rnd == 0,
                           args.check) for i, name, spec in cases]
         finally:
             setattr(fa, attr, saved)
-        out["builds"].append(dict(variant=variant or "default", ptxas=regs,
-                                  cases=recs))
+        out["builds"].append(dict(variant=variant or "default", round=rnd,
+                                  ptxas=regs[variant], cases=recs))
+
+    # every build in turn, --rounds times over (A, B, ..., A, B, ...)
+    for rnd in range(args.rounds):
+        for variant in [""] + args.variant:
+            run_build(variant, rnd)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     key = "bwd_ms_graph" if args.bwd else "fwd_ms_graph"
     cs.log(json.dumps({"probe": [
-        dict(variant=b["variant"], **{
+        dict(variant=b["variant"], round=b.get("round"), **{
             c["case"]: "FAILED" if "error" in c else
             round(c[key], 5) if key in c else "ok" for c in b["cases"]})
         for b in out["builds"]]}))

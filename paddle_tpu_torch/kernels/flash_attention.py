@@ -375,9 +375,15 @@ def _fwd_cuda(qs, k, v, causal, segment_ids, design=None):
 
 def _delta_cuda(do, o):
     """delta = rowsum(do·o) in f32 [b, H, sq] by flash_bwd_sm90.cu's
-    delta kernel, on the current stream; do and o as the kernels read
-    them (_kernel_operand)."""
+    delta kernel, on the current stream. do and o are CUDA tensors of
+    one shape [b, sq, H, D] and one dtype, read through their batch and
+    token strides (_kernel_operand)."""
+    if o.shape != do.shape:
+        raise ValueError(f"delta: o {list(o.shape)} and do "
+                         f"{list(do.shape)} differ")
     b, sq, h, d = do.shape
+    do = _kernel_operand("do", do, do.device, do.dtype, h, d)
+    o = _kernel_operand("o", o, do.device, do.dtype, h, d)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=do.device)
     rc = _load_sm90_bwd().flash_bwd_delta_launch(
         do.data_ptr(), o.data_ptr(), delta.data_ptr(), b, sq, h, d,
@@ -403,7 +409,6 @@ def _bwd_cuda(qs, k, v, o, lse, do, causal, segment_ids, sm_scale,
     k = _kernel_operand("k", k, dev, qs.dtype, hk, d)
     v = _kernel_operand("v", v, dev, qs.dtype, hk, d)
     do = _kernel_operand("do", do, dev, qs.dtype, h, d)
-    o = _kernel_operand("o", o, dev, qs.dtype, h, d)
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 [{b}, {h}, {sq}]")
     lse = lse.contiguous()

@@ -307,6 +307,14 @@ def test_delta_plain_form_matches_reference_einsum(shape, dt):
                                atol=1e-5)
 
 
+def test_delta_kernel_refuses_mismatched_operands():
+    """The delta kernel's wrapper checks do and o against each other
+    before it passes a pointer (raised here before any build)."""
+    with pytest.raises(ValueError, match="differ"):
+        tfa._delta_cuda(torch.zeros(1, 128, 2, 64),
+                        torch.zeros(1, 128, 2, 128))
+
+
 @pytest.mark.parametrize("qs,ks", [((2, 256, 3, 64), (2, 256, 3, 64)),
                                    ((2, 256, 8, 64), (2, 256, 1, 64))])
 def test_tpu_lane_rule_is_dropped(qs, ks):

@@ -93,6 +93,9 @@ F32_FLOPS_PER_S = 67e12          # outside the tensor cores
 # summation order (~1e-6). 1e-3 still catches a single key wrongly
 # masked in or out of a ~500-key row (an error of order 1e-3..1e-2).
 KERNEL_ATOL = 1e-3
+# the design every B3 launch of the serving runs (phases 4 and 9) takes
+B3_MAIN_DESIGN = "simple"
+B3_SOURCES = {"simple": "ragged_paged_attention.cu"}
 
 
 def log(*a):
@@ -258,7 +261,7 @@ def _token_bucket(n, quantum=128):
 
 
 def _case(name, rng, *, rows_spec, H=16, Hk=16, D=128, bs=64, NB=257,
-          int8=False, shared_prefix_pages=0):
+          int8=False, shared_prefix_pages=0, dev="cuda"):
     """One packed launch. rows_spec: [(cached_tokens, new_tokens)] per
     live row (a row with 0 new tokens is an empty slot). Pages are drawn
     at random from the pool; the first `shared_prefix_pages` pages of
@@ -285,7 +288,6 @@ def _case(name, rng, *, rows_spec, H=16, Hk=16, D=128, bs=64, NB=257,
         pages = pages + [free.pop() for _ in range(npg - len(pages))]
         off[b, pages] = np.arange(npg) * bs
         c += m
-    dev = "cuda"
     bf = torch.bfloat16
 
     def rnd(*shape):
@@ -347,12 +349,10 @@ def _bound(meta, pool_itemsize):
             else "operations", int(nbytes), int(flops))
 
 
-def kernel_phase() -> list:
-    import torch
-    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
-    rng = np.random.default_rng(0)
+# B3's specs at the engine's shapes: (name, _case keywords)
+def _ragged_specs(rng):
     prefix_tails = [(512, int(m)) for m in rng.integers(8, 33, 8)]
-    specs = [
+    return [
         ("fresh wave, no pool",
          dict(rows_spec=[(0, 512 + int(m)) for m in rng.integers(8, 33, 8)])),
         ("prefix-resume wave", dict(rows_spec=prefix_tails,
@@ -371,50 +371,250 @@ def kernel_phase() -> list:
         ("llama2_7b prefix-resume H=32",
          dict(rows_spec=prefix_tails, H=32, Hk=32, shared_prefix_pages=8)),
     ]
-    out = []
-    for name, kw in specs:
-        x, meta = _case(name, rng, **kw)
-        wp = meta["with_pool"]
-        common = dict(block_size=meta["bs"], scale=1.0 / np.sqrt(meta["D"]),
-                      kdq=x["kdq"], vdq=x["vdq"], with_pool=wp)
-        args = [x[k] for k in ("q", "k_new", "v_new", "kpool", "vpool",
-                               "rows", "pos", "kv_start", "off")]
 
-        def kern():
-            return rpa.ragged_paged_attention(*args, path="cuda", **common)
 
-        def plain():
-            return rpa.ragged_paged_attention(*args, path="torch", **common)
+# faults planted in the plain version's masks (f32); their effect on the
+# output, added to each design's result, must fail that design's check
+RAGGED_PLANTED = ("one page's valid slots dropped",
+                  "one fresh key past the diagonal let in")
 
-        got = kern()
+
+def _ragged_planted(rpa, f32_args, common, meta, want) -> dict:
+    """{fault: output change} of RAGGED_PLANTED on this case (a fault with
+    no place in the case, such as a dropped page without a pool, is
+    left out): the plain version in f32 run with the fault in its
+    masks, less `want`. The dropped page is the first valid page of the
+    first row with a pool; the key let in is the next token of the row
+    of the query with the fewest valid keys."""
+    import torch
+    rows, pos, kv_start, off, bs = (meta[k] for k in (
+        "rows", "pos", "kv_start", "off", "bs"))
+    live = rows >= 0
+    spots = {}
+    if meta["with_pool"]:
+        r = int(next(b for b in rows[live] if kv_start[b] > 0))
+        pg = int(np.argmin(np.where(off[r] >= 0, off[r].astype(np.int64),
+                                     2 ** 31)))
+        n = int(min(kv_start[r] - off[r, pg], bs))
+        spots[RAGGED_PLANTED[0]] = ("pool", np.flatnonzero(rows == r),
+                                    slice(pg * bs, pg * bs + n))
+    nkeys = [(kv_start[rows[t]] + int(((rows == rows[t])
+                                       & (pos <= pos[t])).sum()), t)
+             for t in np.flatnonzero(live)
+             if ((rows == rows[t]) & (pos == pos[t] + 1)).any()]
+    if nkeys:
+        t = min(nkeys)[1]
+        u = int(np.flatnonzero((rows == rows[t]) & (pos == pos[t] + 1))[0])
+        spots[RAGGED_PLANTED[1]] = ("pack", np.array([t]), u)
+    saved = rpa._masks_reference
+    out = {}
+    for what, (kind, toks, cols) in spots.items():
+        def planted(*a, **kw):
+            pool_ok, pack_ok = saved(*a, **kw)
+            m = (pool_ok if kind == "pool" else pack_ok).clone()
+            for t in toks:
+                m[int(t), cols] = kind != "pool"
+            return (m, pack_ok) if kind == "pool" else (pool_ok, m)
+        rpa._masks_reference = planted
+        try:
+            bad = rpa._ragged_reference(*f32_args, meta["bs"],
+                                        common["scale"], kdq=common["kdq"],
+                                        vdq=common["vdq"],
+                                        with_pool=common["with_pool"])
+        finally:
+            rpa._masks_reference = saved
+        out[what] = bad - want
+        del bad
+    torch.cuda.synchronize()
+    return out
+
+
+def _sdpa_yardstick(x, meta, scale):
+    """(call, unpack) for one torch.nn.functional.scaled_dot_product_attention
+    call that computes the case's function (a yardstick only: the port
+    never calls it for B3), or None for an int8 pool. Operands are
+    padded and gathered outside the timed call: each live row's tokens,
+    sorted by position, are one batch entry [B_live, H, Lq_max, D].
+    Without a pool each row starts at position 0, so top-left is_causal
+    is right for its valid tokens; with a pool the keys are the row's
+    valid pool slots (in page order) then its fresh keys [B_live, Hk,
+    Lk_max, D], under a boolean mask. unpack(o) scatters SDPA's output
+    back to the packed [T, H, D] rows."""
+    import torch
+    import torch.nn.functional as tF
+    if x["kpool"].dtype == torch.int8:
+        return None
+    rows, pos, kv_start, off, bs = (meta[k] for k in (
+        "rows", "pos", "kv_start", "off", "bs"))
+    wp = meta["with_pool"]
+    live_rows = sorted({int(r) for r in rows if r >= 0})
+    toks = [np.flatnonzero(rows == r) for r in live_rows]
+    toks = [t[np.argsort(pos[t], kind="stable")] for t in toks]
+    ctx = []
+    for r in live_rows:
+        sl = []
+        if wp:
+            for p in np.argsort(np.where(off[r] >= 0, off[r].astype(np.int64),
+                                         2 ** 31), kind="stable"):
+                n = int(np.clip(kv_start[r] - off[r, p], 0, bs))
+                if off[r, p] < 0 or n == 0:
+                    break
+                sl.extend(range(p * bs, p * bs + n))
+        ctx.append(np.asarray(sl, np.int64))
+    Bl, H, D = len(live_rows), meta["H"], meta["D"]
+    Hk = meta["Hk"]
+    Lq = max(len(t) for t in toks)
+    Lk = max(len(c) + len(t) for c, t in zip(ctx, toks))
+    dev = x["q"].device
+    qp = torch.zeros((Bl, H, Lq, D), dtype=x["q"].dtype, device=dev)
+    kp = torch.zeros((Bl, Hk, Lk, D), dtype=x["q"].dtype, device=dev)
+    vp = torch.zeros_like(kp)
+    mask = torch.zeros((Bl, 1, Lq, Lk), dtype=torch.bool, device=dev)
+    for i, (t, c) in enumerate(zip(toks, ctx)):
+        ti = torch.from_numpy(t).to(dev)
+        qp[i, :, :len(t)] = x["q"][ti].transpose(0, 1)
+        if len(c):
+            ci = torch.from_numpy(c).to(dev)
+            kp[i, :, :len(c)] = x["kpool"][ci].transpose(0, 1)
+            vp[i, :, :len(c)] = x["vpool"][ci].transpose(0, 1)
+        kp[i, :, len(c):len(c) + len(t)] = x["k_new"][ti].transpose(0, 1)
+        vp[i, :, len(c):len(c) + len(t)] = x["v_new"][ti].transpose(0, 1)
+        ok = np.zeros((Lq, Lk), bool)
+        ok[:, :len(c)] = True
+        ok[:len(t), len(c):len(c) + len(t)] = pos[t][None, :] <= pos[t][:, None]
+        ok[len(t):, 0] = True            # padded queries: any one key
+        mask[i, 0] = torch.from_numpy(ok).to(dev)
+    gqa = Hk != H
+    if wp:
+        call = lambda: tF.scaled_dot_product_attention(
+            qp, kp, vp, attn_mask=mask, scale=scale, enable_gqa=gqa)
+    else:
+        call = lambda: tF.scaled_dot_product_attention(
+            qp, kp, vp, is_causal=True, scale=scale, enable_gqa=gqa)
+
+    def unpack(o):
+        out = torch.zeros((len(rows), H, D), dtype=torch.float32,
+                          device=dev)
+        for i, t in enumerate(toks):
+            out[torch.from_numpy(t).to(dev)] = \
+                o[i, :, :len(t)].transpose(0, 1).float()
+        return out
+    return call, unpack
+
+
+def ragged_case(rpa, name, kw, rng, timed=True) -> dict:
+    """B3 at one phase 2 case: every design that takes the case (the
+    simple one always; the tiled one for bf16 at head_dim 64/128) held
+    to the plain version in f32 on the same bf16 values, each within its
+    limit, with dead rows exactly 0 and the planted faults rejected; then
+    (`timed`) each design by single-call events and by CUDA-graph replay
+    with the plan built outside, the plan alone, the plain version, and
+    the SDPA yardstick by events and by replay."""
+    import torch
+    x, meta = _case(name, rng, **kw)
+    wp = meta["with_pool"]
+    common = dict(block_size=meta["bs"], scale=1.0 / np.sqrt(meta["D"]),
+                  kdq=x["kdq"], vdq=x["vdq"], with_pool=wp)
+    args = [x[k] for k in ("q", "k_new", "v_new", "kpool", "vpool",
+                           "rows", "pos", "kv_start", "off")]
+    meta_args = (x["rows"], x["pos"], x["kv_start"], x["off"], meta["bs"],
+                 wp)
+    plan = rpa.ragged_plan(*meta_args)
+    auto = rpa._rpa_design(x["q"].dtype, x["kpool"].dtype if wp else None,
+                           meta["D"], True)
+    designs = [d for d in rpa._RPA_DESIGNS if d == "simple" or d == auto]
+
+    def kern(design):
+        return lambda: rpa._ragged_cuda(*args, **common, _plan=plan,
+                                        design=design)
+
+    def plain():
+        return rpa.ragged_paged_attention(*args, path="torch", **common)
+
+    f32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+    want = rpa.ragged_paged_attention(*f32, path="torch", **common)
+    # the reference's own rounding: the plain version in its cast order
+    # (q * scale and p cast to bf16 before the products) against f32
+    gap = float((plain() - want).abs().max())
+    tols = {"simple": KERNEL_ATOL, "sm90": max(KERNEL_ATOL, 2 * gap)}
+    planted = _ragged_planted(rpa, f32, common, meta, want)
+    dead = torch.from_numpy(meta["rows"] < 0).to(want.device)
+    rec = dict(case=name, T=meta["T"], T_live=meta["T_live"], H=meta["H"],
+               Hk=meta["Hk"], D=meta["D"], with_pool=wp, design=auto,
+               reference_gap=gap, designs={})
+    for d in designs:
+        n0 = dict(rpa.ragged_paged_attention.design_launches)
+        got = kern(d)()
         torch.cuda.synchronize()
-        f32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
-        want = rpa.ragged_paged_attention(*f32, path="torch", **common)
+        moved = {k: v - n0[k] for k, v in
+                 rpa.ragged_paged_attention.design_launches.items()}
         err = float((got - want).abs().max())
-        dead = torch.from_numpy(meta["rows"] < 0).to(got.device)
-        if not torch.isfinite(got).all() or err > KERNEL_ATOL or \
-                (dead.any() and got[dead].abs().max() != 0):
+        bad = {what: float((got + delta - want).abs().max())
+               for what, delta in planted.items()}
+        ok = (moved == {k: int(k == d) for k in moved}
+              and bool(torch.isfinite(got).all()) and err <= tols[d]
+              and (not dead.any() or bool((got[dead] == 0).all()))
+              and all(e > tols[d] for e in bad.values()))
+        if not ok:
             raise RuntimeError(
-                f"kernel case {name!r}: max abs err {err} > {KERNEL_ATOL} "
+                f"kernel case {name!r} ({d}): max abs err {err} (limit "
+                f"{tols[d]}), launches by design {moved}, planted {bad}, "
                 "or non-finite / non-zero dead rows")
-        ms = cuda_ms(kern)
-        prep_ms = cuda_ms(lambda: rpa._prep_operands(
-            x["rows"], x["pos"], x["kv_start"], x["off"], meta["bs"], wp))
-        plain_ms = cuda_ms(plain, iters=10)
-        bound_ms, bound_by, nbytes, flops = _bound(
-            meta, x["kpool"].element_size())
-        rec = dict(case=name, T=meta["T"], T_live=meta["T_live"],
-                   H=meta["H"], Hk=meta["Hk"], with_pool=wp,
-                   max_abs_err=err, ms=ms, prep_ms=prep_ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   bytes=nbytes, flops=flops)
-        log(f"[kernel] {name}: T={meta['T']} (live {meta['T_live']}) "
-            f"H={meta['H']} Hk={meta['Hk']} max_abs_err={err:.3e} "
-            f"kernel_ms={ms:.4f} (prep {prep_ms:.4f}) plain_ms="
-            f"{plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
+        rec["designs"][d] = dict(max_abs_err=err, tol=tols[d],
+                                 planted_max_abs_err=bad)
+        del got
+    rec["max_abs_err"] = rec["designs"][auto]["max_abs_err"]
+    if timed:
+        for d in designs:
+            rec["designs"][d].update(ms=cuda_ms(kern(d)),
+                                     ms_graph=graph_ms(kern(d)))
+        rec["ms"] = rec["designs"][auto]["ms"]
+        rec["ms_graph"] = rec["designs"][auto]["ms_graph"]
+        rec["simple_ms"] = rec["designs"]["simple"]["ms"]
+        rec["simple_ms_graph"] = rec["designs"]["simple"]["ms_graph"]
+        rec["plan_ms"] = cuda_ms(lambda: rpa.ragged_plan(*meta_args))
+        rec["plain_ms"] = cuda_ms(plain, iters=10)
+        lib = _sdpa_yardstick(x, meta, common["scale"])
+        rec["library_ms"] = rec["library_ms_graph"] = None
+        if lib is not None:
+            call, unpack = lib
+            with torch.no_grad():
+                live = torch.from_numpy(meta["rows"] >= 0).to(want.device)
+                rec["library_max_abs_err"] = float(
+                    (unpack(call()) - want)[live].abs().max())
+                rec["library_ms"] = cuda_ms(call)
+                rec["library_ms_graph"] = graph_ms(call)
+        (rec["bound_ms"], rec["bound_by"], rec["bytes"],
+         rec["flops"]) = _bound(meta, x["kpool"].element_size())
+    del x, args, f32, want, plan, planted
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _fmt_ms(v):
+    return "n/a" if v is None else f"{v:.4f}"
+
+
+def kernel_phase() -> list:
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    rng = np.random.default_rng(0)
+    out = []
+    for name, kw in _ragged_specs(rng):
+        rec = ragged_case(rpa, name, kw, rng)
+        by = "; ".join(
+            f"{d} err {r['max_abs_err']:.3e} (limit {r['tol']:.3e}, planted "
+            f"{ {k[:12]: round(v, 4) for k, v in r['planted_max_abs_err'].items()} }) "
+            f"{r['ms']:.4f} ms by events, {r['ms_graph']:.4f} by replay"
+            for d, r in rec["designs"].items())
+        log(f"[kernel] {name}: T={rec['T']} (live {rec['T_live']}) "
+            f"H={rec['H']} Hk={rec['Hk']} design {rec['design']}; {by}; "
+            f"plan {rec['plan_ms']:.4f} ms; plain {rec['plain_ms']:.4f}; "
+            f"SDPA {_fmt_ms(rec['library_ms'])} / "
+            f"{_fmt_ms(rec['library_ms_graph'])} (err "
+            f"{rec.get('library_max_abs_err')}); reference gap "
+            f"{rec['reference_gap']:.3e}; bound {rec['bound_ms']:.5f} "
+            f"({rec['bound_by']})")
         out.append(rec)
-        del x, args, got, want, f32
-        torch.cuda.empty_cache()
     return out
 
 
@@ -476,12 +676,12 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
     eng._run_ragged = timed_wave
     eng._decode_chunk = timed_chunk
     torch.cuda.reset_peak_memory_stats()
-    with kernel_events(attn=(eng_mod, "ragged_paged_attention")) as events:
+    with kernel_events(attn=(eng_mod, "ragged_paged_attention"),
+                       plan=(eng_mod, "ragged_plan")) as events:
         for i, p in enumerate(prompts):
             eng.add_request(i, p, max_new_tokens=n_new)
         done, step_s = {}, []
-        rpa.ragged_paged_attention.kernel_launches = 0
-        rpa.ragged_paged_attention.plain_calls = 0
+        rpa.reset_counters()
         t_run = time.perf_counter()
         while eng.has_unfinished:
             t = time.perf_counter()
@@ -490,9 +690,11 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
             step_s.append(time.perf_counter() - t)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t_run
-        launches = rpa.ragged_paged_attention.kernel_launches
-        plain_calls = rpa.ragged_paged_attention.plain_calls
+        f = rpa.ragged_paged_attention
+        launches, plain_calls = f.kernel_launches, f.plain_calls
+        designs, plans = dict(f.design_launches), f.plan_builds
     attn_ms = sum(s.elapsed_time(e) for s, e in events["attn"])
+    plan_ms = sum(s.elapsed_time(e) for s, e in events["plan"])
 
     bad = [i for i in range(len(prompts))
            if i not in done or done[i].finish_reason != "length"
@@ -505,7 +707,12 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
         "prefix cache hit (with_pool wave ran)":
             st["prefix_cache_hit_tokens"] > 0,
         "kernel launched": launches > 0,
+        f"every B3 launch ran the {B3_MAIN_DESIGN} design":
+            designs == {d: launches * (d == B3_MAIN_DESIGN)
+                        for d in designs},
         "plain version never ran on CUDA tensors": plain_calls == 0,
+        f"one plan built per packed wave ({len(waves)})":
+            plans == len(waves),
     }
     for what, ok in checks.items():
         log(f"[engine] check: {what}: {'ok' if ok else 'FAILED'}")
@@ -521,7 +728,8 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
                step_ms_median=1e3 * statistics.median(step_s),
                step_ms_max=1e3 * max(step_s),
                ragged_waves_ms=[1e3 * w for w in waves],
-               ragged_attention_ms=attn_ms,
+               ragged_attention_ms=attn_ms, ragged_plan_ms=plan_ms,
+               ragged_design_launches=designs, ragged_plan_builds=plans,
                decode_chunks_ms=[1e3 * s for s, _n in chunks],
                decode_steps=decode_steps,
                decode_ms_per_step=1e3 * sum(s for s, _n in chunks)
@@ -544,7 +752,7 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
         f"max {rec['step_ms_max']:.2f}; ragged waves ms "
         f"{[round(w, 2) for w in rec['ragged_waves_ms']]}, attention "
         f"kernel time within them {attn_ms:.2f} ms over {launches} "
-        f"launches; decode {decode_steps} steps at "
+        f"launches ({designs}) and {plan_ms:.2f} ms of {plans} plans; decode {decode_steps} steps at "
         f"{rec['decode_ms_per_step']:.2f} ms each (weight read floor "
         f"{rec['weight_read_ms']:.3f} ms); "
         f"peak mem {rec['peak_mem_gb']:.2f} GiB; "
@@ -574,6 +782,7 @@ def parity_phase(label="gpt3_1p3b", build=None) -> dict:
     model `build()` returns (gpt3_1p3b's widths by default)."""
     import torch
     from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
     from paddle_tpu_torch.models import GPTForCausalLM, generate, gpt3_1p3b
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -589,7 +798,10 @@ def parity_phase(label="gpt3_1p3b", build=None) -> dict:
     n_new, margin = 16, 1e-3
     eng = LLMEngine(model, max_batch=4, block_size=64, decode_chunk=16,
                     prompt_quantum=128)
+    rpa.reset_counters()
     res = eng.generate(prompts, max_new_tokens=n_new)
+    # f32: B3's simple design (the tiled one takes bf16 only)
+    designs = dict(rpa.ragged_paged_attention.design_launches)
     guarded, mismatched = [], []
     with torch.no_grad():
         for i, (p, r) in enumerate(zip(prompts, res)):
@@ -606,12 +818,15 @@ def parity_phase(label="gpt3_1p3b", build=None) -> dict:
                 mismatched.append(i)
     log(f"[parity] {label}: engine vs dense generate (f32, 2 layers): tokens "
         f"compared per request {guarded} of {n_new} (margin guard "
-        f"{margin}); mismatched requests {mismatched}")
-    if mismatched or min(guarded) == 0:
-        raise RuntimeError("engine tokens differ from dense generate")
+        f"{margin}); mismatched requests {mismatched}; B3 launches by "
+        f"design {designs}")
+    if mismatched or min(guarded) == 0 or designs["simple"] == 0:
+        raise RuntimeError("engine tokens differ from dense generate, or "
+                           "B3's simple design did not run")
     del eng, model
     torch.cuda.empty_cache()
-    return dict(config=label, guarded=guarded, n_new=n_new)
+    return dict(config=label, guarded=guarded, n_new=n_new,
+                b3_design_launches=designs)
 
 
 # ---------------------------------------------------------------------------
@@ -1504,13 +1719,20 @@ def main() -> int:
     src = "paddle_tpu_torch/kernels/csrc/"
     kernels = [dict(
         name="ragged_paged_attention", route="cuda",
-        source=src + "ragged_paged_attention.cu",
+        source=src + B3_SOURCES[main_case["design"]],
         replaces="paddle_tpu/kernels/pallas/ragged_paged_attention.py:313",
         launches=engine["kernel_launches"],
-        max_abs_err=max(c["max_abs_err"] for c in cases),
-        ms=main_case["ms"], plain_ms=main_case["plain_ms"],
+        max_abs_err=max(r["max_abs_err"] for c in cases
+                        for r in c["designs"].values()),
+        # ms by single-call events (the wrapper's host path included) and
+        # by CUDA-graph replay (device only), the plan built outside both;
+        # the simple design and SDPA's yardstick by replay
+        ms=main_case["ms"], ms_graph=main_case["ms_graph"],
+        design=main_case["design"], simple_ms=main_case["simple_ms_graph"],
+        plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-        library_ms=None, cases=cases)]
+        library_ms=main_case["library_ms"],
+        library_ms_graph=main_case["library_ms_graph"], cases=cases)]
     for kind, name, line, launches, source in (
             ("fwd", "flash_attention_fwd", 267,
              train["b1_design_launches"]["sm90"], "flash_fwd_sm90.cu"),

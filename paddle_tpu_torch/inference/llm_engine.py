@@ -48,7 +48,8 @@ import torch
 
 from ..core.device import resolve_device
 from ..incubate.nn.functional.serving import _apply_rotary
-from ..kernels.ragged_paged_attention import ragged_paged_attention
+from ..kernels.ragged_paged_attention import (ragged_paged_attention,
+                                              ragged_plan)
 from ..models.generation import _pick_token
 from ..models.llama import _rope_cos_sin
 from .paged_cache import PagedKVCache
@@ -532,6 +533,9 @@ class LLMEngine:
         n_live = wf.shape[0]
         x = fam.embed(ids, pos)                              # [tb, h]
         cos_sin = _rope_at(self._rope, pos.long())
+        # the kernels' index operands depend on the wave's metadata only:
+        # built once here, read by every layer's launch
+        plan = ragged_plan(rows, pos, kvs, off, bs, with_pool)
         for li, layer in enumerate(fam.layers()):
             qkv = fam.qkv(layer, x)
             q = qkv[:, :nH * hd].reshape(tb, nH, hd)
@@ -543,7 +547,7 @@ class LLMEngine:
             # writing matches paddle_tpu's order
             o = ragged_paged_attention(
                 q, k, v, kcs[li], vcs[li], rows, pos, kvs, off,
-                block_size=bs, scale=scale, with_pool=with_pool)
+                block_size=bs, scale=scale, with_pool=with_pool, _plan=plan)
             kcs[li].index_copy_(0, wf, k[:n_live].to(kcs[li].dtype))
             vcs[li].index_copy_(0, wf, v[:n_live].to(vcs[li].dtype))
             x = fam.attn_out(layer, x, o.reshape(tb, nH * hd).to(x.dtype))

@@ -44,9 +44,12 @@ import threading
 
 import torch
 
-__all__ = ["ragged_paged_attention", "ragged_attention_path"]
+__all__ = ["ragged_paged_attention", "ragged_attention_path", "ragged_plan"]
 
 _SUPPORTED_D = (64, 128, 256)
+# q tile of the tiled design: 64 tokens (one warpgroup) or 128 (two)
+_Q_TILES = (64, 128)
+_Q_TILE = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _INT32_MAX = 2 ** 31 - 1
 
@@ -131,8 +134,9 @@ def _ragged_reference(q, k_new, v_new, kpool, vpool, rows, pos, kv_start,
 # CUDA kernel: operand prep, build and launch
 # ---------------------------------------------------------------------------
 def _prep_operands(rows, pos, kv_start, off, block_size, with_pool):
-    """Compact per-row operands the kernel walks instead of the whole
-    pool and the whole packed stream (all torch ops on rows' device):
+    """Compact per-row operands the simple design walks instead of the
+    whole pool and the whole packed stream (all torch ops on rows'
+    device):
 
       span_lo/span_hi [B] int32: first/last packed index of each row
         (lo > hi when the row has no packed token);
@@ -162,6 +166,101 @@ def _prep_operands(rows, pos, kv_start, off, block_size, with_pool):
         out["page_cnt"] = cnt.to(torch.int32).contiguous()
         out["npages"] = (cnt > 0).sum(dim=1).to(torch.int32).contiguous()
     return out
+
+
+def _tile_operands(rows, pos, B, q_tile, pool_keys):
+    """The q tiles of the tiled design (torch ops on rows' device, no
+    host sync): the live tokens sorted by (row, position) into `perm`,
+    dead tokens after them, and each row's run cut into tiles of at
+    most q_tile tokens.
+
+      perm [T] int32, spos [T] int32: packed index and position of each
+        sorted token;
+      tiles [NT, 8] int32, one per tile slot: (row, first sorted index,
+        tokens, packed keys it needs, the row's first sorted index, the
+        row's packed tokens, 0, 0). A tile needs the row's keys up to
+        the last one at or below its largest position. Dead tokens come
+        in tiles of row -1 (their outputs are zeroed); unused slots
+        have 0 tokens. NT = T // q_tile + B + 2 bounds both for any
+        packing. Slots are ordered by the keys they walk (pool_keys
+        [B] of the row's plus the packed ones), largest first, so the
+        longest tiles start first.
+    """
+    T = rows.shape[0]
+    dev = rows.device
+    i64 = torch.int64
+    live = rows >= 0
+    # pos + 2^31 keeps the (row, pos) key increasing for any int32 pos
+    key = torch.where(live, rows.to(i64) * 2 ** 32 + pos.to(i64) + 2 ** 31,
+                      2 ** 62)
+    skey, perm = torch.sort(key, stable=True)
+    spos = pos[perm]
+    ridx = torch.where(live, rows, B).long()
+    cnt = torch.zeros(B + 1, dtype=i64, device=dev).scatter_add_(
+        0, ridx, torch.ones(T, dtype=i64, device=dev))[:B]
+    rs = torch.cumsum(cnt, 0) - cnt
+    n_live = cnt.sum()
+    nt = (cnt + q_tile - 1) // q_tile
+    tend = torch.cumsum(nt, 0)
+    NT = T // q_tile + B + 2
+    slot = torch.arange(NT, dtype=i64, device=dev)
+    trow = torch.searchsorted(tend, slot, right=True)
+    is_live = trow < B
+    tr = trow.clamp(max=B - 1)
+    j = slot - (tend - nt)[tr]
+    lo = rs[tr] + j * q_tile
+    n = torch.minimum(cnt[tr] - j * q_tile, torch.full_like(j, q_tile))
+    last = (lo + n - 1).clamp(0, T - 1)
+    kend = torch.searchsorted(skey, skey[last], right=True) - rs[tr]
+    # dead tokens: tiles after the live ones
+    k = slot - tend[-1]
+    dead_n = (T - n_live - k * q_tile).clamp(0, q_tile)
+    zero = torch.zeros_like(slot)
+    tiles = torch.stack([
+        torch.where(is_live, tr, -1),
+        torch.where(is_live, lo, n_live + k * q_tile),
+        torch.where(is_live, n, torch.where(k >= 0, dead_n, 0)),
+        torch.where(is_live, kend, zero),
+        torch.where(is_live, rs[tr], zero),
+        torch.where(is_live, cnt[tr], zero), zero, zero], dim=1)
+    work = torch.where(is_live, pool_keys.to(i64)[tr] + kend, zero)
+    order = torch.sort(work, descending=True, stable=True).indices
+    return {"perm": perm.to(torch.int32).contiguous(),
+            "spos": spos.to(torch.int32).contiguous(),
+            "tiles": tiles[order].to(torch.int32).contiguous()}
+
+
+def ragged_plan(rows, pos, kv_start, off, block_size, with_pool,
+                q_tile=None):
+    """Every index operand the kernels need for one packed launch,
+    built by torch ops on rows' device (no host sync). The metadata of
+    a packed wave is the same for each of its layers, so the engine
+    builds the plan once a wave and passes it to every layer's call
+    (``_plan=``). It holds both designs' operands (_prep_operands,
+    _tile_operands) and the shapes it was built for; the wrapper
+    raises if a call's differ."""
+    q_tile = _Q_TILE if q_tile is None else int(q_tile)
+    if q_tile not in _Q_TILES:
+        raise ValueError(f"q_tile must be one of {_Q_TILES}, got {q_tile}")
+    B, NB = off.shape
+    plan = _prep_operands(rows, pos, kv_start, off, block_size, with_pool)
+    pool_keys = (plan["page_cnt"].sum(dim=1) if with_pool
+                 else torch.zeros(B, dtype=torch.int32, device=rows.device))
+    plan.update(_tile_operands(rows, pos, B, q_tile, pool_keys))
+    plan["shape"] = (rows.shape[0], B, NB, int(block_size), bool(with_pool),
+                     rows.device)
+    plan["q_tile"] = q_tile
+    ragged_paged_attention.plan_builds += 1
+    return plan
+
+
+def _check_plan(plan, T, B, NB, block_size, with_pool, device):
+    want = (T, B, NB, int(block_size), bool(with_pool), device)
+    if plan["shape"] != want:
+        raise ValueError(
+            f"ragged_paged_attention: the plan was built for (T, B, NB, "
+            f"block_size, with_pool, device) = {plan['shape']}, the call "
+            f"is {want}")
 
 
 _LIB = None
@@ -220,11 +319,33 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+_RPA_DESIGNS = ("simple",)
+
+
+def _rpa_design(dtype, pool_dtype, d, aligned, design=None):
+    """B3's design for q of `dtype` over pools of `pool_dtype` (None
+    without a pool) at head_dim `d`; `aligned`: q/k_new/v_new and the
+    pools start on 16 bytes with 16-byte token strides. "simple"
+    (ragged_paged_attention.cu) takes every call. `design` forces one
+    (the same-run comparison of the designs); it raises for an unknown
+    name."""
+    if design is None:
+        return "simple"
+    if design not in _RPA_DESIGNS:
+        raise ValueError(f"unknown B3 design {design!r}, not in "
+                         f"{_RPA_DESIGNS}")
+    return design
+
+
 def _ragged_cuda(q, k_new, v_new, kpool, vpool, rows, pos, kv_start, off,
-                 block_size, scale, kdq=None, vdq=None, with_pool=True):
+                 block_size, scale, kdq=None, vdq=None, with_pool=True,
+                 _plan=None, design=None):
     """Launch the CUDA kernel on the current stream. q/k_new/v_new may be
     views with any token stride (the engine slices them out of the fused
-    qkv projection); heads and head_dim must be dense."""
+    qkv projection); heads and head_dim must be dense. `_plan` is
+    ragged_plan's result for this call's metadata (built here when
+    None). `design` is private: it forces a design (see _rpa_design);
+    nothing on a main path passes it."""
     T, H, D = q.shape
     Hk = k_new.shape[1]
     dev = q.device
@@ -265,7 +386,12 @@ def _ragged_cuda(q, k_new, v_new, kpool, vpool, rows, pos, kv_start, off,
                                   with_pool)
     if reason:
         raise ValueError(f"ragged_paged_attention CUDA kernel: {reason}")
-    prep = _prep_operands(rows, pos, kv_start, off, block_size, with_pool)
+    design = _rpa_design(q.dtype, kpool.dtype if with_pool else None, D,
+                         True, design)
+    if _plan is None:
+        _plan = ragged_plan(rows, pos, kv_start, off, block_size, with_pool)
+    _check_plan(_plan, T, B, NB, block_size, with_pool, dev)
+    prep = _plan
     dq = [None, None]
     if with_pool:
         for i, s in enumerate((kdq, vdq)):
@@ -292,6 +418,7 @@ def _ragged_cuda(q, k_new, v_new, kpool, vpool, rows, pos, kv_start, off,
         raise RuntimeError(
             f"ragged_paged_attention kernel launch failed: error {rc}")
     ragged_paged_attention.kernel_launches += 1
+    ragged_paged_attention.design_launches[design] += 1
     return out
 
 
@@ -300,13 +427,16 @@ def _ragged_cuda(q, k_new, v_new, kpool, vpool, rows, pos, kv_start, off,
 # ---------------------------------------------------------------------------
 def ragged_paged_attention(q, k_new, v_new, kpool, vpool, rows, pos,
                            kv_start, off, *, block_size, scale,
-                           kdq=None, vdq=None, with_pool=True, path=None):
+                           kdq=None, vdq=None, with_pool=True, path=None,
+                           _plan=None):
     """Mixed prefill/decode attention over the paged pool for a packed
     token stream (the module docstring has the layout contract).
 
     path: None = auto (the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors); "cuda" | "torch" force one (tests and the
-    kernel-vs-plain comparison)."""
+    kernel-vs-plain comparison). `_plan` is private: ragged_plan's
+    result for this metadata, built once for many calls (the engine's
+    layers); the plain version ignores it."""
     T, H, D = q.shape
     Hk = k_new.shape[1]
     T_pool = kpool.shape[0] if (with_pool and kpool is not None) else 0
@@ -318,7 +448,7 @@ def ragged_paged_attention(q, k_new, v_new, kpool, vpool, rows, pos,
     if path == "cuda":
         return _ragged_cuda(q, k_new, v_new, kpool, vpool, rows, pos,
                             kv_start, off, block_size, scale, kdq=kdq,
-                            vdq=vdq, with_pool=with_pool)
+                            vdq=vdq, with_pool=with_pool, _plan=_plan)
     if path != "torch":
         raise ValueError(f"unknown path {path!r}")
     ragged_paged_attention.plain_calls += 1
@@ -327,7 +457,17 @@ def ragged_paged_attention(q, k_new, v_new, kpool, vpool, rows, pos,
                              vdq=vdq, with_pool=with_pool)
 
 
-# launches of the CUDA kernel, and calls of the plain version through the
-# dispatcher: a run reads them to show which implementation it went through
+# launches of the CUDA kernel, calls of the plain version through the
+# dispatcher, and plans built: a run reads them to show which
+# implementation it went through, and that a wave built its plan once
 ragged_paged_attention.kernel_launches = 0
 ragged_paged_attention.plain_calls = 0
+ragged_paged_attention.design_launches = dict.fromkeys(_RPA_DESIGNS, 0)
+ragged_paged_attention.plan_builds = 0
+
+
+def reset_counters():
+    """Set B3's launch, plain-call and plan counters to 0."""
+    f = ragged_paged_attention
+    f.kernel_launches = f.plain_calls = f.plan_builds = 0
+    f.design_launches = dict.fromkeys(_RPA_DESIGNS, 0)

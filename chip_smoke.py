@@ -6,13 +6,19 @@
 Run from the root of a checkout. Phases, each of which must pass:
 
   1. the card (nvidia-smi name and power limit); build the CUDA kernels
-     (nvcc, sm_90a: ragged paged attention, flash attention, B1's and
-     B2's sm90 designs, norms) and the block allocator (g++) from the
-     checkout's sources, all at once, timed;
-  2. the serving kernel (B3) against its plain PyTorch version on the
-     card, at the engine's shapes (gpt3_1p3b's 16 heads, GQA, int8,
-     padding, and llama2_7b's 32 heads), timed with CUDA events beside
-     the roofline bound of the same work;
+     (nvcc, sm_90a: ragged paged attention's simple and sm90 designs,
+     flash attention, B1's and B2's sm90 designs, norms) and the block
+     allocator (g++) from the checkout's sources, all at once, timed;
+  2. the serving kernel (B3) against its plain PyTorch version in f32 on
+     the card, at the engine's shapes (gpt3_1p3b's 16 heads, GQA, int8,
+     padding, and llama2_7b's 32 heads), each design that takes a case
+     within its limit (the simple one KERNEL_ATOL, the sm90 one twice
+     the reference's own bf16 rounding), dead rows exactly 0, two faults
+     planted in the plain version's masks rejected; timed by CUDA events
+     and by CUDA-graph replay with the plan built outside, beside the
+     plan alone, the plain version, the roofline bound of the same work
+     and one torch.nn.functional.scaled_dot_product_attention call on
+     the rows padded into a batch (a yardstick only);
   3. the flash-attention kernels (B1 forward, B2 backward) against their
      plain versions in nine cases (gpt2_small's and gpt3_1p3b's training
      shapes, GQA, segment ids, non-causal, cross-length causal both ways,
@@ -29,9 +35,10 @@ Run from the root of a checkout. Phases, each of which must pass:
      SDPA's forward (and its backward alone, by replay) in the same run;
   4. gpt3_1p3b (bf16, all 24 layers, random weights from seed 0) served
      by LLMEngine: 16 requests sharing a 512-token prefix, 64 new tokens
-     each; B3's launch counters are read around this run;
+     each; B3's launch counters are read around this run (every launch
+     sm90, one plan built per packed wave);
   5. the engine against the port's dense `generate` in f32 (TF32 off)
-     on a 2-layer model at gpt3_1p3b's widths;
+     on a 2-layer model at gpt3_1p3b's widths (B3's simple design);
   6. gpt2_small (all 12 layers, random weights from seed 0) trained by
      TrainStep in bf16 O1 with AdamW and flash attention, batch 16,
      seq 1024: 2 warm-up steps and 10 timed ones; B1/B2's launch
@@ -48,13 +55,14 @@ Run from the root of a checkout. Phases, each of which must pass:
      and one torch.nn.functional.layer_norm / rms_norm call (a
      yardstick only);
   9. llama2_7b (bf16, all 32 layers, random weights from seed 0) served
-     by LLMEngine as in phase 4; B3's counters are read around it, and
-     B5 runs through incubate fused_rms_norm on every decoder layer's
-     input captured during the first packed wave, held to the layer's
-     own RMSNorm within the reference's split of the two forms, with
-     B5's counters read around those calls;
+     by LLMEngine as in phase 4; B3's counters are read around it, as
+     in phase 4, and B5 runs through incubate fused_rms_norm on every
+     decoder layer's input captured during the first packed wave, held
+     to the layer's own RMSNorm within the reference's split of the two
+     forms, with B5's counters read around those calls;
  10. phase 5 for LLaMA: 2 layers at llama2_7b's widths with 8 kv heads
-     (GQA through B3 and the decode path);
+     (GQA through B3's simple design, whose launches it reports, and the
+     decode path);
  11. 12 FusedTransformerEncoderLayers at bert_base's widths (post-LN,
      eval, bf16, batch 16 x seq 512): B4's and B1's counters read
      around one forward (24 and 12), B1's operands in that forward
@@ -94,8 +102,9 @@ F32_FLOPS_PER_S = 67e12          # outside the tensor cores
 # masked in or out of a ~500-key row (an error of order 1e-3..1e-2).
 KERNEL_ATOL = 1e-3
 # the design every B3 launch of the serving runs (phases 4 and 9) takes
-B3_MAIN_DESIGN = "simple"
-B3_SOURCES = {"simple": "ragged_paged_attention.cu"}
+B3_MAIN_DESIGN = "sm90"
+B3_SOURCES = {"sm90": "ragged_paged_attention_sm90.cu",
+              "simple": "ragged_paged_attention.cu"}
 
 
 def log(*a):
@@ -222,6 +231,7 @@ def build_all() -> dict:
     from paddle_tpu_torch.kernels import norms
     from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
     jobs = {"ragged_paged_attention.cu (nvcc)": rpa._load_kernel,
+            "ragged_paged_attention_sm90.cu (nvcc)": rpa._load_sm90,
             "flash_attention.cu (nvcc)": fa._load_kernel,
             "flash_fwd_sm90.cu (nvcc)": fa._load_sm90,
             "flash_bwd_sm90.cu (nvcc)": fa._load_sm90_bwd,

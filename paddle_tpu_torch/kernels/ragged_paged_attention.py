@@ -4,8 +4,9 @@ prefill suffixes, prefix-resume tails, single decode tokens).
 
 Counterpart of paddle_tpu/kernels/pallas/ragged_paged_attention.py.
 Its TPU kernel ``_ragged_pallas`` (ragged_paged_attention.py:313,
-kernel ``_ragged_kernel`` :166) becomes the hand-written CUDA kernel in
-``csrc/ragged_paged_attention.cu``; its jnp reference
+kernel ``_ragged_kernel`` :166) becomes two hand-written CUDA kernels,
+``csrc/ragged_paged_attention_sm90.cu`` and
+``csrc/ragged_paged_attention.cu`` (below); its jnp reference
 ``_ragged_reference`` (:101) becomes the plain PyTorch version below.
 
   * each packed query token attends to (a) its row's already-cached
@@ -25,16 +26,31 @@ pos [T] int32 absolute positions; kv_start [B] int32 tokens already
 in the pool per row; off [B, NB] int32 block -> start position in the
 row's sequence, -1 when not owned. Output [T, H, D] float32.
 
-Dispatch: CPU tensors take the plain version; CUDA tensors take the
-kernel, or raise when the kernel refuses the shape. Nothing falls back.
+Dispatch: CPU tensors take the plain version; CUDA tensors take a
+kernel, or raise when no kernel takes the call. Nothing falls back.
 
-The CUDA kernel does not walk the pool or the packed stream the way
-the Pallas kernel does (every pool tile and every packed tile for every
-q tile). The wrapper first prepares compact operands on the device
-(``_prep_operands``): per row, its owned pages sorted by start position
+The kernels do not walk the pool or the packed stream the way the
+Pallas kernel does (every pool tile and every packed tile for every q
+tile). ``ragged_plan`` first builds compact index operands on the
+device, once for all the calls that share a wave's metadata (the
+engine's layers): per row, its owned pages sorted by start position
 with the count of valid slots in each, and the [first, last] index span
-of its packed tokens. The kernel reads only those, and keeps the
-row/position test inside the span, so any packing stays right.
+of its packed tokens (the simple design); the live tokens sorted by
+(row, position) and cut into q tiles of one row each (the tiled
+design). Two designs (``_rpa_design`` picks one, ``design_launches``
+counts each):
+
+  * "sm90", ``csrc/ragged_paged_attention_sm90.cu``: bf16 q/k/v and
+    pools at head_dim 64 or 128 with 16-byte aligned token rows (the
+    engine's case). A q tile of 64 or 128 sorted tokens walks its
+    row's pool pages, then its row's packed tokens, in key tiles of 64
+    gathered by cp.async, with S and P·V on wgmma.
+  * "simple", ``csrc/ragged_paged_attention.cu``: everything else (f32,
+    int8 pools, head_dim 256, unaligned strides). One warp per
+    (packed token, q head) walks the row's valid pages and its packed
+    span, keeping the row/position test inside the span.
+
+Both are right for any packing.
 """
 from __future__ import annotations
 
@@ -264,27 +280,59 @@ def _check_plan(plan, T, B, NB, block_size, with_pool, device):
 
 
 _LIB = None
+_SM90_LIB = None
 _LIB_LOCK = threading.Lock()
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the Hopper sources' shared helpers, hashed with them
+_SM90_HEADERS = ("sm90_wgmma.cuh",)
+
+
+def _csrc(name):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                        name)
+
+
+def _build(name, headers=(), extra_flags=()):
+    """csrc/<name>.cu built (nvcc, sm_90a) into its own library and
+    loaded."""
+    from ..utils.build import NVCC_FLAGS, build_shared, nvcc_path
+    return ctypes.CDLL(build_shared(
+        name, [_csrc(name + ".cu")], nvcc_path(),
+        (*NVCC_FLAGS, *extra_flags), headers=[_csrc(h) for h in headers]))
 
 
 def _load_kernel():
-    """Build (nvcc, sm_90a) and load the kernel library at first use."""
+    """Build and load ragged_paged_attention.cu (the simple design) at
+    first use."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
-            from ..utils.build import NVCC_FLAGS, build_shared, nvcc_path
-            src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               "csrc", "ragged_paged_attention.cu")
-            lib = ctypes.CDLL(build_shared("ragged_paged_attention", [src],
-                                           nvcc_path(), NVCC_FLAGS))
+            lib = _build("ragged_paged_attention")
             fn = lib.ragged_paged_attention_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 15
-                           + [ctypes.c_int] * 9
-                           + [ctypes.c_longlong] * 3
-                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.restype = _I
+            fn.argtypes = [_P] * 15 + [_I] * 9 + [_L] * 3 + [
+                ctypes.c_float, _P]
             _LIB = lib
     return _LIB
+
+
+def _load_sm90(extra_flags=()):
+    """Build and load ragged_paged_attention_sm90.cu (the tiled design),
+    its own library, at first use. `extra_flags` (-D ring depths) builds
+    and returns a variant without installing it."""
+    global _SM90_LIB
+    with _LIB_LOCK:
+        if _SM90_LIB is None or extra_flags:
+            lib = _build("ragged_paged_attention_sm90", _SM90_HEADERS,
+                         extra_flags)
+            fn = lib.ragged_paged_attention_sm90_launch
+            fn.restype = _I
+            fn.argtypes = [_P] * 12 + [_I] * 9 + [_L] * 3 + [
+                ctypes.c_float, _P]
+            if extra_flags:
+                return lib
+            _SM90_LIB = lib
+    return _SM90_LIB
 
 
 def _shape_reject_reason(T, T_pool, H, Hk, D, block_size, with_pool):
@@ -319,21 +367,43 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-_RPA_DESIGNS = ("simple",)
+_RPA_DESIGNS = ("sm90", "simple")
+_SM90_D = (64, 128)
 
 
-def _rpa_design(dtype, pool_dtype, d, aligned, design=None):
+def _aligned16(*ts):
+    """Every tensor starts on 16 bytes and has a 16-byte token stride
+    (the tiled design copies 16 bytes a lane)."""
+    return all(t.data_ptr() % 16 == 0 and (t.stride(0) * t.element_size())
+               % 16 == 0 for t in ts)
+
+
+def _rpa_design(dtype, pool_dtype, d, aligned, design=None, dequant=False):
     """B3's design for q of `dtype` over pools of `pool_dtype` (None
     without a pool) at head_dim `d`; `aligned`: q/k_new/v_new and the
-    pools start on 16 bytes with 16-byte token strides. "simple"
-    (ragged_paged_attention.cu) takes every call. `design` forces one
-    (the same-run comparison of the designs); it raises for an unknown
-    name."""
+    pools start on 16 bytes with 16-byte token strides; `dequant`: the
+    call carries pool dequant scales. "sm90"
+    (ragged_paged_attention_sm90.cu) for bf16 q and pools at head_dim
+    64 or 128 when aligned; "simple" (ragged_paged_attention.cu) for
+    the rest: f32, int8 pools (and dequant scales), head_dim 256,
+    unaligned token strides.
+    `design` forces one (the same-run comparison of the designs); it
+    raises for an unknown name, and for "sm90" on a call that design
+    does not take."""
+    bf = torch.bfloat16
+    auto = "sm90" if (dtype == bf and pool_dtype in (None, bf)
+                      and d in _SM90_D and aligned and not dequant) \
+        else "simple"
     if design is None:
-        return "simple"
+        return auto
     if design not in _RPA_DESIGNS:
         raise ValueError(f"unknown B3 design {design!r}, not in "
                          f"{_RPA_DESIGNS}")
+    if design == "sm90" and auto != "sm90":
+        raise ValueError(
+            f"B3's sm90 design takes bf16 q and pools at head_dim "
+            f"{_SM90_D} with 16-byte aligned token rows, got {dtype} over "
+            f"{pool_dtype} at {d} (aligned: {aligned})")
     return design
 
 
@@ -386,37 +456,54 @@ def _ragged_cuda(q, k_new, v_new, kpool, vpool, rows, pos, kv_start, off,
                                   with_pool)
     if reason:
         raise ValueError(f"ragged_paged_attention CUDA kernel: {reason}")
+    pools = (kpool, vpool) if with_pool else ()
     design = _rpa_design(q.dtype, kpool.dtype if with_pool else None, D,
-                         True, design)
+                         _aligned16(q, k_new, v_new, *pools), design,
+                         dequant=with_pool and (kdq is not None
+                                                or vdq is not None))
     if _plan is None:
         _plan = ragged_plan(rows, pos, kv_start, off, block_size, with_pool)
     _check_plan(_plan, T, B, NB, block_size, with_pool, dev)
-    prep = _plan
-    dq = [None, None]
-    if with_pool:
-        for i, s in enumerate((kdq, vdq)):
-            if s is not None:
-                dq[i] = s.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty((T, H, D), dtype=torch.float32, device=dev)
-    lib = _load_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.ragged_paged_attention_launch(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        _ptr(kpool) if with_pool else None,
-        _ptr(vpool) if with_pool else None,
-        rows.data_ptr(), pos.data_ptr(),
-        _ptr(prep.get("page_ids")), _ptr(prep.get("page_cnt")),
-        _ptr(prep.get("npages")),
-        prep["span_lo"].data_ptr(), prep["span_hi"].data_ptr(),
-        _ptr(dq[0]), _ptr(dq[1]), out.data_ptr(),
-        T, H, Hk, D, NB, block_size, int(bool(with_pool)),
-        _DTYPE_CODE[q.dtype],
-        _DTYPE_CODE[kpool.dtype] if with_pool else _DTYPE_CODE[q.dtype],
-        q.stride(0), k_new.stride(0), v_new.stride(0),
-        float(scale), stream)
+    if design == "sm90":
+        tiles = _plan["tiles"]
+        rc = _load_sm90().ragged_paged_attention_sm90_launch(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            _ptr(kpool) if with_pool else None,
+            _ptr(vpool) if with_pool else None,
+            _plan["perm"].data_ptr(), _plan["spos"].data_ptr(),
+            tiles.data_ptr(), _ptr(_plan.get("page_ids")),
+            _ptr(_plan.get("page_cnt")), _ptr(_plan.get("npages")),
+            out.data_ptr(), tiles.shape[0], _plan["q_tile"], H, Hk, D, NB,
+            block_size, T_pool // block_size if with_pool else 0,
+            int(bool(with_pool)), q.stride(0), k_new.stride(0),
+            v_new.stride(0), float(scale), stream)
+    else:
+        dq = [None, None]
+        if with_pool:
+            for i, s in enumerate((kdq, vdq)):
+                if s is not None:
+                    dq[i] = s.to(device=dev,
+                                 dtype=torch.float32).contiguous()
+        rc = _load_kernel().ragged_paged_attention_launch(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            _ptr(kpool) if with_pool else None,
+            _ptr(vpool) if with_pool else None,
+            rows.data_ptr(), pos.data_ptr(),
+            _ptr(_plan.get("page_ids")), _ptr(_plan.get("page_cnt")),
+            _ptr(_plan.get("npages")),
+            _plan["span_lo"].data_ptr(), _plan["span_hi"].data_ptr(),
+            _ptr(dq[0]), _ptr(dq[1]), out.data_ptr(),
+            T, H, Hk, D, NB, block_size, int(bool(with_pool)),
+            _DTYPE_CODE[q.dtype],
+            _DTYPE_CODE[kpool.dtype] if with_pool else _DTYPE_CODE[q.dtype],
+            q.stride(0), k_new.stride(0), v_new.stride(0),
+            float(scale), stream)
     if rc != 0:
         raise RuntimeError(
-            f"ragged_paged_attention kernel launch failed: error {rc}")
+            f"ragged_paged_attention kernel ({design}) launch failed: "
+            f"error {rc}")
     ragged_paged_attention.kernel_launches += 1
     ragged_paged_attention.design_launches[design] += 1
     return out

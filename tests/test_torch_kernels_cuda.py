@@ -14,9 +14,18 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
 from paddle_tpu_torch.kernels.ragged_paged_attention import (
     ragged_paged_attention)
 from paddle_tpu_torch.nn import functional as F
+
+
+# chip_smoke.py, for its phase 2 checks (B3's limits and planted faults)
+# and its phase 3 cases
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
 
 
 @pytest.fixture
@@ -27,15 +36,15 @@ def cuda_device():
 
 
 def _packed_case(H=4, Hk=2, D=128, bs=8, NB=16, int8=False, dtype=np.float32,
-                 interleave=False, seed=0):
+                 interleave=False, seed=0, spec=None, T=64):
     """Rows of every kind the engine ships (fresh prefill, one decode
     token, a short window, a prefix-resume tail, an empty slot) on
     randomly placed pages, with dead padding at the end; `interleave`
-    shuffles the packed tokens so rows are not contiguous."""
+    shuffles the packed tokens so rows are not contiguous. `spec`:
+    (cached, new) tokens per row in place of those."""
     rng = np.random.default_rng(seed)
-    spec = [(0, 20), (24, 1), (10, 5), (16, 7), (0, 0)]
+    spec = spec or [(0, 20), (24, 1), (10, 5), (16, 7), (0, 0)]
     B = len(spec)
-    T = 64
     rows = np.full((T,), -1, np.int32)
     pos = np.zeros((T,), np.int32)
     kv_start = np.zeros((B,), np.int32)
@@ -77,7 +86,7 @@ _ARR = ("q", "k_new", "v_new", "kpool", "vpool", "rows", "pos",
         "kv_start", "off")
 
 
-def _run(case, kw, dev, path, torch_dtype, with_pool=True, upcast=False):
+def _args(case, dev, torch_dtype, upcast=False):
     def t(a):
         x = torch.as_tensor(a.astype(np.float32) if a.dtype.kind == "f"
                             else a, device=dev)
@@ -86,8 +95,37 @@ def _run(case, kw, dev, path, torch_dtype, with_pool=True, upcast=False):
         return x
     args = [t(case[k]) for k in _ARR]
     dq = {k: None if case[k] is None else t(case[k]) for k in ("kdq", "vdq")}
+    return args, dq
+
+
+def _run(case, kw, dev, path, torch_dtype, with_pool=True, upcast=False,
+         design=None):
+    args, dq = _args(case, dev, torch_dtype, upcast)
+    if design is not None:
+        return rpa._ragged_cuda(*args, **kw, **dq, with_pool=with_pool,
+                                design=design)
     return ragged_paged_attention(*args, **kw, **dq, with_pool=with_pool,
                                   path=path)
+
+
+def _rounded(case, tdt):
+    """The case with its float tensors rounded to `tdt` (what the kernel
+    reads), for the plain version in f32 on the same values."""
+    return {k: (torch.as_tensor(v).to(tdt).float().numpy()
+                if isinstance(v, np.ndarray) and v.dtype.kind == "f"
+                and v.ndim == 3 else v) for k, v in case.items()}
+
+
+def _sm90_limit(case, kw, dev, with_pool=True):
+    """(the plain version in f32 on the bf16 values, the sm90 design's
+    limit): KERNEL_ATOL, or twice the reference's own rounding (the plain
+    version in its cast order, q·scale and p cast to bf16, against f32)
+    where that is larger. The kernel keeps q exact and rounds only p, so
+    it may be no further from exact than twice the reference."""
+    want = _run(_rounded(case, torch.bfloat16), kw, dev, "torch",
+                torch.bfloat16, with_pool, upcast=True)
+    ref = _run(case, kw, dev, "torch", torch.bfloat16, with_pool)
+    return want, max(cs.KERNEL_ATOL, 2 * float((ref - want).abs().max()))
 
 
 KINDS = {
@@ -100,30 +138,140 @@ KINDS = {
     "interleaved": dict(dtype=torch.bfloat16, interleave=True),
     "no_pool": dict(dtype=torch.bfloat16, with_pool=False),
 }
+# the kinds the sm90 design takes: bf16 q and pools at head_dim 64 / 128
+SM90_KINDS = {"bf16", "gqa_d64", "interleaved", "no_pool"}
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("design", ["sm90", "simple"])
 @pytest.mark.parametrize("kind", sorted(KINDS))
-def test_ragged_kernel_matches_plain(cuda_device, kind):
+def test_ragged_kernel_matches_plain(cuda_device, kind, design):
+    """Each design, forced through the private design argument, against
+    the plain version in f32 on the same (bf16-rounded) values. The
+    simple design computes in f32 too, so only the summation order
+    differs (1e-4); the sm90 design rounds p to bf16 before P·V and is
+    held to _sm90_limit. Forcing sm90 on a kind it does not take
+    raises."""
     spec = dict(KINDS[kind])
     tdt = spec.pop("dtype")
     with_pool = spec.pop("with_pool", True)
     case, kw = _packed_case(**spec)
+    if design == "sm90" and kind not in SM90_KINDS:
+        with pytest.raises(ValueError, match="sm90 design takes"):
+            _run(case, kw, cuda_device, "cuda", tdt, with_pool,
+                 design=design)
+        return
     n0 = ragged_paged_attention.kernel_launches
-    got = _run(case, kw, cuda_device, "cuda", tdt, with_pool)
+    d0 = dict(ragged_paged_attention.design_launches)
+    got = _run(case, kw, cuda_device, "cuda", tdt, with_pool, design=design)
     torch.cuda.synchronize()
     assert ragged_paged_attention.kernel_launches == n0 + 1
-    # the plain version in f32 on the same (bf16-rounded) values: the
-    # kernel computes in f32 too, so only the summation order differs
-    rounded = {k: (torch.as_tensor(v).to(tdt).float().numpy()
-                   if isinstance(v, np.ndarray) and v.dtype.kind == "f"
-                   and v.ndim == 3 else v) for k, v in case.items()}
-    want = _run(rounded, kw, cuda_device, "torch", tdt, with_pool,
-                upcast=True)
+    assert {d: n - d0[d] for d, n in
+            ragged_paged_attention.design_launches.items()} == {
+        d: int(d == design) for d in d0}
+    want = _run(_rounded(case, tdt), kw, cuda_device, "torch", tdt,
+                with_pool, upcast=True)
     assert got.dtype == torch.float32 and got.shape == want.shape
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    if design == "simple":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        _, lim = _sm90_limit(case, kw, cuda_device, with_pool)
+        assert float((got - want).abs().max()) <= lim
     dead = torch.as_tensor(case["rows"] < 0, device=cuda_device)
     assert (got[dead] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(KINDS) + ["unaligned"])
+def test_ragged_design_by_kind(cuda_device, kind):
+    """The dispatcher runs sm90 for bf16 q and pools at head_dim 64 and
+    128 with 16-byte aligned token rows, and the simple design for every
+    other kind: f32, int8 pools, head_dim 256, and q/k/v views whose
+    token stride is not a multiple of 16 bytes."""
+    spec = dict(KINDS["bf16" if kind == "unaligned" else kind])
+    tdt = spec.pop("dtype")
+    with_pool = spec.pop("with_pool", True)
+    case, kw = _packed_case(**spec)
+    args, dq = _args(case, cuda_device, tdt)
+    if kind == "unaligned":
+        # views into a projection with 2 extra columns a token
+        for i in range(3):
+            x = args[i]
+            wide = torch.zeros((x.shape[0], x.shape[1] * x.shape[2] + 2),
+                               dtype=x.dtype, device=cuda_device)
+            wide[:, :-2] = x.reshape(x.shape[0], -1)
+            args[i] = wide[:, :-2].reshape(x.shape)
+    d0 = dict(ragged_paged_attention.design_launches)
+    ragged_paged_attention(*args, **kw, **dq, with_pool=with_pool,
+                           path="cuda")
+    torch.cuda.synchronize()
+    want = "sm90" if kind in SM90_KINDS else "simple"
+    assert {d: n - d0[d] for d, n in
+            ragged_paged_attention.design_launches.items()} == {
+        d: int(d == want) for d in d0}
+
+
+# the engine's head counts (gpt3_1p3b 16/16, llama2_7b 32/32 and its GQA
+# variant 32/8 at D 128, gpt2_small 12/12 at D 64), rows long enough for
+# several q tiles and pool key tiles, partial last pages
+ENGINE_HEADS = [(16, 16, 128), (32, 32, 128), (32, 8, 128), (12, 12, 64)]
+LONG_SPEC = [(0, 150), (130, 70), (0, 0), (37, 1), (64, 33), (200, 9)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("heads", ENGINE_HEADS, ids=str)
+def test_ragged_sm90_engine_shapes_strided_views(cuda_device, heads, bs):
+    """sm90 at the engine's head counts on q/k/v views of one fused qkv
+    projection (as LLMEngine hands them), interleaved packing, block
+    sizes 16 and 64, against the plain version within _sm90_limit."""
+    H, Hk, D = heads
+    case, kw = _packed_case(H=H, Hk=Hk, D=D, bs=bs, NB=64, spec=LONG_SPEC,
+                            T=384, interleave=True, seed=H + bs)
+    T = case["q"].shape[0]
+    qkv = torch.as_tensor(np.concatenate(
+        [case["q"].reshape(T, -1), case["k_new"].reshape(T, -1),
+         case["v_new"].reshape(T, -1)], axis=1),
+        device=cuda_device).to(torch.bfloat16)
+    q = qkv[:, :H * D].reshape(T, H, D)
+    k = qkv[:, H * D:(H + Hk) * D].reshape(T, Hk, D)
+    v = qkv[:, (H + Hk) * D:].reshape(T, Hk, D)
+    assert not q.is_contiguous() and not k.is_contiguous()
+    rest = [torch.as_tensor(case[n], device=cuda_device)
+            for n in _ARR[3:]]
+    rest[:2] = [x.to(torch.bfloat16) for x in rest[:2]]
+    d0 = ragged_paged_attention.design_launches["sm90"]
+    got = ragged_paged_attention(q, k, v, *rest, **kw, path="cuda")
+    torch.cuda.synchronize()
+    assert ragged_paged_attention.design_launches["sm90"] == d0 + 1
+    want, lim = _sm90_limit(case, kw, cuda_device)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= lim
+    dead = torch.as_tensor(case["rows"] < 0, device=cuda_device)
+    assert (got[dead] == 0).all()
+
+
+@pytest.mark.cuda
+def test_ragged_sm90_check_rejects_planted_faults(cuda_device):
+    """The limit that holds sm90 to the plain version rejects its result
+    with one page's valid slots dropped, and with one fresh key past the
+    diagonal let in (chip_smoke.py's planted faults)."""
+    case, kw = _packed_case(H=16, Hk=16, D=128, bs=16, NB=64,
+                            spec=LONG_SPEC, T=384, seed=3)
+    got = _run(case, kw, cuda_device, "cuda", torch.bfloat16,
+               design="sm90")
+    want, lim = _sm90_limit(case, kw, cuda_device)
+    assert float((got - want).abs().max()) <= lim
+    f32, _ = _args(_rounded(case, torch.bfloat16), cuda_device,
+                   torch.float32, upcast=True)
+    meta = dict(rows=case["rows"], pos=case["pos"],
+                kv_start=case["kv_start"], off=case["off"],
+                bs=kw["block_size"], with_pool=True)
+    planted = cs._ragged_planted(
+        rpa, f32, dict(kw, kdq=None, vdq=None, with_pool=True), meta, want)
+    assert sorted(planted) == sorted(cs.RAGGED_PLANTED)
+    for what, delta in planted.items():
+        assert float((got + delta - want).abs().max()) > lim, what
 
 
 @pytest.mark.cuda
@@ -327,10 +475,6 @@ def test_sm90_fwd_matches_plain_and_simple(cuda_device, name):
 
 # chip_smoke.py's phase 3 cases (its inputs, at their full size), for B2's
 # sm90 design on every bf16 case at head_dim 64 and 128
-_spec = importlib.util.spec_from_file_location(
-    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-cs = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(cs)
 B2_PHASE3 = [name for name, spec in cs.FLASH_CASES if spec[5] in (64, 128)]
 B2_CASES = B2_PHASE3 + sorted(SM90_EDGES)
 

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""B1's or B2's sm90 design on its own, on one NVIDIA GPU: a short run
-for working on paddle_tpu_torch/kernels/csrc/flash_fwd_sm90.cu or, with
---bwd, flash_bwd_sm90.cu.
+"""B1's, B2's or B3's sm90 design on its own, on one NVIDIA GPU: a short
+run for working on paddle_tpu_torch/kernels/csrc/flash_fwd_sm90.cu or,
+with --bwd, flash_bwd_sm90.cu or, with --ragged,
+ragged_paged_attention_sm90.cu.
 
-    python3 tools/flash_fwd_probe.py [--bwd] [--cases a,b,h] [--simple]
-        [--check] [--variant FA90_D64_STAGES=4,FA90_D128_BN=128 ...]
+    python3 tools/flash_fwd_probe.py [--bwd | --ragged] [--cases a,b,h]
+        [--simple] [--check] [--variant FA90_D64_STAGES=4,FA90_D128_BN=128 ...]
         [--rounds N] [--out PATH]
 
 Run from the root of a checkout. It builds only the design's source
@@ -26,6 +27,16 @@ builds in turn N times over (A, B, A, B), so that they compare within
 one call. The record goes to --out
 (build/flash_fwd_probe.json by default). The inputs, checks and timers
 are chip_smoke.py's own.
+
+--ragged takes B3 (ragged paged attention) instead: every case of
+chip_smoke.py's phase 2 (--cases does not apply), each held by
+chip_smoke.ragged_case to the plain version in f32 (the sm90 design
+within twice the reference's own bf16 rounding, the simple one within
+KERNEL_ATOL, planted faults rejected) and timed by events and by graph
+replay with the plan built outside, beside the simple kernel, the plan
+alone and the SDPA yardstick. Its variants take RPA90_* ring-depth
+macros, and Q_TILE=64|128, which sets the plan's q tile (chosen at run
+time, no rebuild).
 """
 from __future__ import annotations
 
@@ -83,7 +94,7 @@ def _kernel_name(mangled) -> str:
     flash_fwd_sm90<Cfg<64, 64, 3, 2>> or flash_bwd_delta<bf16, 64>."""
     # the name follows its length; nvcc's anonymous namespace, which
     # names the file, comes before it
-    cfg = re.search(r"\d(flash_\w+?)I(?:NS_)?\d*([A-Za-z]*Cfg)I"
+    cfg = re.search(r"\d((?:flash|rpa)_\w+?)I(?:NS_)?\d*([A-Za-z]*Cfg)I"
                     r"((?:Li\d+E)+)", mangled)
     if cfg:
         return "%s<%s<%s>>" % (cfg.group(1), cfg.group(2), ", ".join(
@@ -216,10 +227,41 @@ def probe_bwd_case(i, name, spec, simple, check_only=False) -> dict:
     return rec
 
 
+def probe_ragged(rnd, check_only=False) -> list:
+    """chip_smoke.ragged_case on every phase 2 case (the case inputs are
+    drawn afresh from phase 2's seed, so every build and round sees the
+    same ones)."""
+    import numpy as np
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    rng = np.random.default_rng(0)
+    recs = []
+    for name, kw in cs._ragged_specs(rng):
+        try:
+            rec = cs.ragged_case(rpa, name, kw, rng, timed=not check_only)
+        except RuntimeError as e:
+            cs.log(f"[probe] {name}: FAILED {e}")
+            recs.append(dict(case=name, error=str(e)))
+            continue
+        r = rec["designs"][rec["design"]]
+        cs.log(f"[probe] {name} (round {rnd}): design {rec['design']} err "
+               f"{r['max_abs_err']:.3e} (limit {r['tol']:.3e}; planted "
+               f"{r['planted_max_abs_err']})" + ("" if check_only else
+               f"; {rec['ms']:.4f} ms by events, {rec['ms_graph']:.4f} by "
+               f"replay; simple {rec['simple_ms_graph']:.4f}; plan "
+               f"{rec['plan_ms']:.4f}; SDPA {cs._fmt_ms(rec['library_ms'])}"
+               f" / {cs._fmt_ms(rec['library_ms_graph'])}; bound "
+               f"{rec['bound_ms']:.5f} ({rec['bound_by']})"))
+        recs.append(rec)
+    return recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bwd", action="store_true",
                     help="B2 (flash_bwd_sm90.cu) in place of B1")
+    ap.add_argument("--ragged", action="store_true",
+                    help="B3 (ragged_paged_attention_sm90.cu) in place of "
+                         "B1")
     ap.add_argument("--check", action="store_true",
                     help="check only, time nothing")
     ap.add_argument("--cases", default="",
@@ -240,24 +282,34 @@ def main() -> int:
         print("flash_fwd_probe: no CUDA device is available", file=sys.stderr)
         return 1
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
     cs.log(f"[card] {cs.card_line()}")
     want = set(args.cases.split(",")) - {""}
     cases = [(i, name, spec) for i, (name, spec) in enumerate(cs.FLASH_CASES)
              if spec[5] in fa._SM90_D and (not want or name[0] in want)]
-    if args.simple:
+    if args.simple and not args.ragged:
         fa._load_kernel()
     if args.bwd:
         fa._load_sm90()
-    source, attr, loader, probe = (
-        ("flash_bwd_sm90", "_SM90_BWD_LIB", fa._load_sm90_bwd, probe_bwd_case)
-        if args.bwd else
-        ("flash_fwd_sm90", "_SM90_LIB", fa._load_sm90, probe_case))
-    out = dict(card=cs.card_line(), kernel="B2" if args.bwd else "B1",
-               builds=[])
+    if args.ragged:
+        rpa._load_kernel()      # the simple design, timed beside
+        mod, source, attr, loader = (rpa, "ragged_paged_attention_sm90",
+                                     "_SM90_LIB", rpa._load_sm90)
+    else:
+        mod = fa
+        source, attr, loader, probe = (
+            ("flash_bwd_sm90", "_SM90_BWD_LIB", fa._load_sm90_bwd,
+             probe_bwd_case) if args.bwd else
+            ("flash_fwd_sm90", "_SM90_LIB", fa._load_sm90, probe_case))
+    out = dict(card=cs.card_line(), kernel="B3" if args.ragged else
+               "B2" if args.bwd else "B1", builds=[])
     regs = {}
 
     def run_build(variant, rnd):
-        flags = tuple(f"-D{x}" for x in variant.split(",") if x)
+        flags = tuple(f"-D{x}" for x in variant.split(",")
+                      if x and not x.startswith("Q_TILE="))
+        q_tile = [int(x.split("=")[1]) for x in variant.split(",")
+                  if x.startswith("Q_TILE=")]
         if variant not in regs:
             try:
                 regs[variant] = ptxas_report(source, flags)
@@ -271,15 +323,20 @@ def main() -> int:
                 cs.log(f"[ptxas] {variant or 'default'}: {r}")
         if regs[variant] is None:
             return
-        saved = getattr(fa, attr)
+        saved, saved_q = getattr(mod, attr), rpa._Q_TILE
         if flags:
-            setattr(fa, attr, loader(flags))
+            setattr(mod, attr, loader(flags))
         try:
-            recs = [probe(i, name, spec,
-                          args.simple and not flags and rnd == 0,
-                          args.check) for i, name, spec in cases]
+            if args.ragged:
+                rpa._Q_TILE = q_tile[-1] if q_tile else saved_q
+                recs = probe_ragged(rnd, args.check)
+            else:
+                recs = [probe(i, name, spec,
+                              args.simple and not flags and rnd == 0,
+                              args.check) for i, name, spec in cases]
         finally:
-            setattr(fa, attr, saved)
+            setattr(mod, attr, saved)
+            rpa._Q_TILE = saved_q
         out["builds"].append(dict(variant=variant or "default", round=rnd,
                                   ptxas=regs[variant], cases=recs))
 
@@ -290,7 +347,8 @@ def main() -> int:
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
-    key = "bwd_ms_graph" if args.bwd else "fwd_ms_graph"
+    key = ("ms_graph" if args.ragged else
+           "bwd_ms_graph" if args.bwd else "fwd_ms_graph")
     cs.log(json.dumps({"probe": [
         dict(variant=b["variant"], round=b.get("round"), **{
             c["case"]: "FAILED" if "error" in c else

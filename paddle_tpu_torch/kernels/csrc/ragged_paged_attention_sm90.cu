@@ -50,13 +50,20 @@
 //      at or below the tile's largest position are loaded (the plan's
 //      kend). The loading threads write each key's mask word (its
 //      position, or INT_MIN for a valid pool slot and INT_MAX for an
-//      invalid one) beside the tile, so the mask is one compare a score.
+//      invalid one) beside the tile, so the mask is one compare a score,
+//      and it is skipped where a thread's rows see the whole tile: a pool
+//      tile within the row's leading valid slots (the plan's count), a
+//      packed tile whose last, largest word lies at or below the rows'
+//      positions. The gather indices of a key tile (perm, spos, the page
+//      lookups) are fetched into registers one tile ahead of its copies,
+//      so their loads run under the previous tile's products.
 //   4. Products. S = Q Kᵀ by wgmma m64n64k16 from shared memory with f32
 //      accumulation; the softmax scale is applied to S in f32 after the
 //      product, so Q stays exact (the reference rounds q·scale to bf16
 //      first). O += P V by wgmma with P packed to bf16 from the score
 //      registers and V read MN-major through the transpose bit; l is
-//      summed from the f32 p. Softmax in base 2, as B1's.
+//      summed from the f32 p. Softmax in base 2 with the max taken on the
+//      raw scores, as B1's: one FFMA and one ex2 a score.
 //   5. Epilogue. o = acc / l, or 0 where l = 0; f32 rows stored through
 //      the permutation (each quad writes 32 contiguous bytes a row).
 //
@@ -64,8 +71,12 @@
 // shared with B1 and B2. Ring depths are compile-time (RPA90_D64_STAGES,
 // RPA90_D128_STAGES), so a probe can build variants and time them beside
 // the default (tools/flash_fwd_probe.py --ragged); the q tile is chosen
-// at run time by the plan. Launches run on the caller's stream, allocate
-// nothing and do not synchronise; the C entry returns cudaGetLastError().
+// at run time by the plan (64 by default: 128 was faster on some waves
+// and slower on others, PERF.md). At D 128 a 64-token tile takes 220
+// registers and 81 KB of shared memory with a 2-buffer ring, so two CTAs
+// share an SM; a third buffer leaves one and was slower. Launches run on
+// the caller's stream, allocate nothing and do not synchronise; the C
+// entry returns cudaGetLastError().
 #include <limits.h>
 
 #include "sm90_wgmma.cuh"
@@ -106,7 +117,7 @@ struct Params {
   const bf16* vpool;
   const int* perm;      // [T] packed index of each sorted token
   const int* spos;      // [T] position of each sorted token
-  const int* tiles;     // [n_tiles, 8] (row, lo, n, kend, rs, cnt, 0, 0)
+  const int* tiles;     // [n_tiles, 8] (row, lo, n, kend, rs, cnt, full, 0)
   const int* page_ids;  // [B, NB] the row's pages in start order
   const int* page_cnt;  // [B, NB] valid slots of each
   const int* npages;    // [B]
@@ -116,77 +127,103 @@ struct Params {
   float scale_log2;  // softmax scale * log2(e)
 };
 
-// the sources of key row i of key tile kb (the row's pool tiles first,
-// then its packed ones) and its mask word: INT_MIN for a valid pool slot
-// (every query sees it), INT_MAX for an invalid slot or a key past the
-// row's tokens (no query sees it), else the key's position
-template <int D>
-__device__ __forceinline__ int key_row(const Params& p, int r, int rs,
-                                       int cnt, int np, int NP, int hk,
-                                       int kb, int i, const bf16*& ksrc,
-                                       const bf16*& vsrc) {
-  if (kb < NP) {
-    const int vs = kb * BN + i;  // the row's virtual pool slot
-    const int jp = vs / p.bs;
-    const int s = vs - jp * p.bs;
-    const int jc = min(jp, p.NB - 1);
-    const bool ok = jp < np && s < __ldg(p.page_cnt + r * p.NB + jc);
-    // past the row's pages: a slot of a page inside the pool, masked
-    const int page = min(__ldg(p.page_ids + r * p.NB + jc), p.pool_pages - 1);
-    const long long row =
-        (static_cast<long long>(page) * p.bs + s) * p.Hk + hk;
-    ksrc = p.kpool + row * D;
-    vsrc = p.vpool + row * D;
-    return ok ? INT_MIN : INT_MAX;
+// what a CTA walks: its row, the row's first sorted token and its packed
+// tokens, its valid pages, its pool key tiles, the leading pool slots
+// that are all valid, and the kv head
+struct Walk {
+  int r, rs, cnt, np, NP, full, hk;
+};
+
+// the key rows one thread copies of a key tile, fetched ahead of the
+// copies: each row's index (a pool row page * bs + slot, or a packed
+// token) and its mask word (INT_MIN for a valid pool slot, which every
+// query sees; INT_MAX for an invalid slot or a key past the row's
+// tokens, which none sees; else the key's position)
+template <class C>
+struct KeyRows {
+  static constexpr int N = BN * C::CPR / C::THREADS;
+  int idx[N];
+  int word[N];
+};
+
+// fetch the key rows of key tile kb (the row's pool tiles first, then
+// its packed ones). A pool slot past the row's pages reads a slot of a
+// page inside the pool, masked.
+template <class C>
+__device__ __forceinline__ void fetch_rows(const Params& p, const Walk& w,
+                                           int kb, KeyRows<C>& kr) {
+#pragma unroll
+  for (int it = 0; it < KeyRows<C>::N; ++it) {
+    const int i = (it * C::THREADS + static_cast<int>(threadIdx.x)) / C::CPR;
+    if (kb < w.NP) {
+      const int vs = kb * BN + i;  // the row's virtual pool slot
+      const int jp = vs / p.bs;
+      const int s = vs - jp * p.bs;
+      const int jc = min(jp, p.NB - 1);
+      const bool ok = jp < w.np && s < __ldg(p.page_cnt + w.r * p.NB + jc);
+      const int page =
+          min(__ldg(p.page_ids + w.r * p.NB + jc), p.pool_pages - 1);
+      kr.idx[it] = page * p.bs + s;
+      kr.word[it] = ok ? INT_MIN : INT_MAX;
+    } else {
+      const int idx = (kb - w.NP) * BN + i;  // the row's sorted token
+      const int u = w.rs + min(idx, w.cnt - 1);
+      kr.idx[it] = __ldg(p.perm + u);
+      kr.word[it] = idx < w.cnt ? __ldg(p.spos + u) : INT_MAX;
+    }
   }
-  const int idx = (kb - NP) * BN + i;  // the row's sorted token
-  const int u = rs + min(idx, cnt - 1);
-  const long long tok = __ldg(p.perm + u);
-  ksrc = p.k + tok * p.k_st + static_cast<long long>(hk) * D;
-  vsrc = p.v + tok * p.v_st + static_cast<long long>(hk) * D;
-  return idx < cnt ? __ldg(p.spos + u) : INT_MAX;
 }
 
-// issue the cp.async copies of key tile kb into ring buffers Kt / Vt and
-// write its mask words (plain shared stores, read after the barrier
-// that precedes the tile's use)
+// issue the cp.async copies of key tile kb's fetched rows into ring
+// buffers Kt / Vt and write its mask words (plain shared stores, read
+// after the barrier that precedes the tile's use)
 template <class C>
-__device__ __forceinline__ void load_kv(const Params& p, int r, int rs,
-                                        int cnt, int np, int NP, int hk,
-                                        int kb, uint32_t Kt, uint32_t Vt,
-                                        int* words) {
-  constexpr int CPR = C::CPR;
+__device__ __forceinline__ void issue_rows(const Params& p, const Walk& w,
+                                           int kb, const KeyRows<C>& kr,
+                                           uint32_t Kt, uint32_t Vt,
+                                           int* words) {
+  constexpr int D = C::D, CPR = C::CPR;
 #pragma unroll
-  for (int it = 0; it < BN * CPR / C::THREADS; ++it) {
+  for (int it = 0; it < KeyRows<C>::N; ++it) {
     const int i = it * C::THREADS + static_cast<int>(threadIdx.x);
     const int row = i / CPR, c = i % CPR;
     const bf16* ks;
     const bf16* vs;
-    const int w = key_row<C::D>(p, r, rs, cnt, np, NP, hk, kb, row, ks, vs);
+    if (kb < w.NP) {
+      const long long at =
+          (static_cast<long long>(kr.idx[it]) * p.Hk + w.hk) * D;
+      ks = p.kpool + at;
+      vs = p.vpool + at;
+    } else {
+      const long long tok = kr.idx[it];
+      ks = p.k + tok * p.k_st + static_cast<long long>(w.hk) * D;
+      vs = p.v + tok * p.v_st + static_cast<long long>(w.hk) * D;
+    }
     cp_async16(Kt + swz<BN>(row, c), ks + c * 8);
     cp_async16(Vt + swz<BN>(row, c), vs + c * 8);
-    if (c == 0) words[row] = w;
+    if (c == 0) words[row] = kr.word[it];
   }
 }
 
-// the online-softmax step of one key tile for a warp's 16 rows: masks s
-// by the tile's words against the rows' positions, scales it into base-2
-// units, folds its row max into m, turns s into unnormalised p (masked
-// scores are -inf, so p = 0), adds p's row sums to l and returns in alpha
-// the factor the accumulator takes
+// the online-softmax step of one key tile for a warp's 16 rows: where
+// `mask`, masks s by the tile's words against the rows' positions; folds
+// s's row max into m (raw units: the scale is positive), turns s into
+// unnormalised p = 2^(s·scale·log2e − m·scale·log2e) (masked scores are
+// -inf, so p = 0), adds p's row sums to l and returns in alpha the
+// factor the accumulator takes
 __device__ __forceinline__ void softmax_step(float (&s)[BN / 8][4],
                                              float (&m)[2], float (&l)[2],
                                              float (&alpha)[2],
-                                             const int* words,
+                                             const int* words, bool mask,
                                              const int (&qpos)[2], int t,
-                                             float scale_log2) {
+                                             float sl2) {
+  if (mask) {
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int2 w = *reinterpret_cast<const int2*>(words + 8 * j + 2 * t);
+    for (int j = 0; j < BN / 8; ++j) {
+      const int2 w = *reinterpret_cast<const int2*>(words + 8 * j + 2 * t);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kw = (e & 1) ? w.y : w.x;
-      s[j][e] = kw <= qpos[e >> 1] ? s[j][e] * scale_log2 : neg_inf();
+      for (int e = 0; e < 4; ++e)
+        if (((e & 1) ? w.y : w.x) > qpos[e >> 1]) s[j][e] = neg_inf();
     }
   }
 #pragma unroll
@@ -196,15 +233,17 @@ __device__ __forceinline__ void softmax_step(float (&s)[BN / 8][4],
     for (int j = 0; j < BN / 8; ++j)
       mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
     mx = quad_max(mx);
-    // exactly 1 while the max stays at its -1e30 start
-    alpha[i] = ex2(m[i] - mx);
+    const float ms = mx * sl2;
+    // (m_old - mx) first: exactly 0 when the max did not move, also at
+    // the -1e30 start
+    alpha[i] = ex2((m[i] - mx) * sl2);
     m[i] = mx;
     float rs = 0.f;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 2 * i; e < 2 * i + 2; ++e) {
-        const float pe = ex2(s[j][e] - mx);
+        const float pe = ex2(fmaf(s[j][e], sl2, -ms));
         s[j][e] = pe;
         rs += pe;
       }
@@ -234,7 +273,6 @@ rpa_sm90(const Params p) {
   const int4 t1 = __ldg(reinterpret_cast<const int4*>(p.tiles) +
                         2 * static_cast<long long>(blockIdx.y) + 1);
   const int r = t0.x, lo = t0.y, n = t0.z, kend = t0.w;
-  const int rs = t1.x, cnt = t1.y;
   if (n <= 0) return;
   if (r < 0) {  // dead tokens: their rows of this head are 0
     for (int i = threadIdx.x; i < n * (D / 4); i += THREADS) {
@@ -244,10 +282,15 @@ rpa_sm90(const Params p) {
     }
     return;
   }
-  const int hk = h / (p.H / p.Hk);
-  const int np = p.with_pool ? __ldg(p.npages + r) : 0;
-  const int NP = (np * p.bs + BN - 1) / BN;  // pool key tiles
-  const int nkb = NP + (kend + BN - 1) / BN;   // + packed key tiles
+  Walk w;
+  w.r = r;
+  w.rs = t1.x;
+  w.cnt = t1.y;
+  w.full = t1.z;
+  w.hk = h / (p.H / p.Hk);
+  w.np = p.with_pool ? __ldg(p.npages + r) : 0;
+  w.NP = (w.np * p.bs + BN - 1) / BN;        // pool key tiles
+  const int nkb = w.NP + (kend + BN - 1) / BN;  // + packed key tiles
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2;
   const int g = lane >> 2, t = lane & 3;
@@ -255,7 +298,7 @@ rpa_sm90(const Params p) {
 
   // prologue: Q (gathered through the permutation; rows past n repeat
   // the tile's last token) and key tile 0 in group 0, tiles 1 .. S - 2
-  // one group each
+  // one group each; the rows of tile S - 1 fetched
 #pragma unroll
   for (int it = 0; it < BM * CPR / THREADS; ++it) {
     const int i = it * THREADS + static_cast<int>(threadIdx.x);
@@ -264,13 +307,16 @@ rpa_sm90(const Params p) {
     cp_async16(Qs + swz<BM>(row, c),
                p.q + tok * p.q_st + static_cast<long long>(h) * D + c * 8);
   }
+  KeyRows<C> kr;
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
-    if (s < nkb)
-      load_kv<C>(p, r, rs, cnt, np, NP, hk, s, Ks + s * TB, Vs + s * TB,
-                 words[s]);
+    if (s < nkb) {
+      fetch_rows<C>(p, w, s, kr);
+      issue_rows<C>(p, w, s, kr, Ks + s * TB, Vs + s * TB, words[s]);
+    }
     cp_commit();
   }
+  if (S - 1 < nkb) fetch_rows<C>(p, w, S - 1, kr);
   // rows past the tile's tokens see no packed key (they are not stored)
   int qpos[2];
 #pragma unroll
@@ -293,13 +339,16 @@ rpa_sm90(const Params p) {
     fence_proxy_async();  // ... is visible to wgmma's reads ...
     __syncthreads();      // ... for every thread; tile kb - 1 is consumed
     {
-      const int nb = kb + S - 1;  // refill the buffer of tile kb - 1
+      // refill the buffer of tile kb - 1 with tile nb, from the rows
+      // fetched during tile kb - 1; then fetch tile nb + 1's rows, whose
+      // loads run while tile kb is computed
+      const int nb = kb + S - 1;
       if (nb < nkb) {
         const int st = nb % S;
-        load_kv<C>(p, r, rs, cnt, np, NP, hk, nb, Ks + st * TB,
-                   Vs + st * TB, words[st]);
+        issue_rows<C>(p, w, nb, kr, Ks + st * TB, Vs + st * TB, words[st]);
       }
       cp_commit();
+      if (nb + 1 < nkb) fetch_rows<C>(p, w, nb + 1, kr);
     }
     if (!wg_rows) continue;
     const int st = kb % S;
@@ -321,8 +370,13 @@ rpa_sm90(const Params p) {
     wgmma_wait<0>();
     pin(sc);
 
+    // a pool tile wholly inside the row's leading valid slots, or a
+    // packed tile whose last (largest) word none of this thread's rows
+    // is below, needs no mask
+    const bool mask = kb < w.NP ? (kb + 1) * BN > w.full
+                                : words[st][BN - 1] > min(qpos[0], qpos[1]);
     float alpha[2];
-    softmax_step(sc, m, l, alpha, words[st], qpos, t, p.scale_log2);
+    softmax_step(sc, m, l, alpha, words[st], mask, qpos, t, p.scale_log2);
 #pragma unroll
     for (int j = 0; j < C::NT_D; ++j)
 #pragma unroll

@@ -184,7 +184,7 @@ def _prep_operands(rows, pos, kv_start, off, block_size, with_pool):
     return out
 
 
-def _tile_operands(rows, pos, B, q_tile, pool_keys):
+def _tile_operands(rows, pos, B, q_tile, pool_keys, pool_full):
     """The q tiles of the tiled design (torch ops on rows' device, no
     host sync): the live tokens sorted by (row, position) into `perm`,
     dead tokens after them, and each row's run cut into tiles of at
@@ -194,7 +194,8 @@ def _tile_operands(rows, pos, B, q_tile, pool_keys):
         sorted token;
       tiles [NT, 8] int32, one per tile slot: (row, first sorted index,
         tokens, packed keys it needs, the row's first sorted index, the
-        row's packed tokens, 0, 0). A tile needs the row's keys up to
+        row's packed tokens, the row's leading pool slots that are all
+        valid (pool_full [B]), 0). A tile needs the row's keys up to
         the last one at or below its largest position. Dead tokens come
         in tiles of row -1 (their outputs are zeroed); unused slots
         have 0 tokens. NT = T // q_tile + B + 2 bounds both for any
@@ -238,7 +239,8 @@ def _tile_operands(rows, pos, B, q_tile, pool_keys):
         torch.where(is_live, n, torch.where(k >= 0, dead_n, 0)),
         torch.where(is_live, kend, zero),
         torch.where(is_live, rs[tr], zero),
-        torch.where(is_live, cnt[tr], zero), zero, zero], dim=1)
+        torch.where(is_live, cnt[tr], zero),
+        torch.where(is_live, pool_full.to(i64)[tr], zero), zero], dim=1)
     work = torch.where(is_live, pool_keys.to(i64)[tr] + kend, zero)
     order = torch.sort(work, descending=True, stable=True).indices
     return {"perm": perm.to(torch.int32).contiguous(),
@@ -260,9 +262,18 @@ def ragged_plan(rows, pos, kv_start, off, block_size, with_pool,
         raise ValueError(f"q_tile must be one of {_Q_TILES}, got {q_tile}")
     B, NB = off.shape
     plan = _prep_operands(rows, pos, kv_start, off, block_size, with_pool)
-    pool_keys = (plan["page_cnt"].sum(dim=1) if with_pool
-                 else torch.zeros(B, dtype=torch.int32, device=rows.device))
-    plan.update(_tile_operands(rows, pos, B, q_tile, pool_keys))
+    if with_pool:
+        # the row's pages in start order, each block_size virtual slots:
+        # the slots before the first page that is not full are all valid
+        cnt = plan["page_cnt"]
+        j = torch.arange(NB, dtype=torch.int32, device=rows.device)
+        pool_keys = cnt.sum(dim=1)
+        pool_full = torch.where(cnt < block_size, j * block_size + cnt,
+                                NB * block_size).amin(dim=1)
+    else:
+        pool_keys = pool_full = torch.zeros(B, dtype=torch.int32,
+                                            device=rows.device)
+    plan.update(_tile_operands(rows, pos, B, q_tile, pool_keys, pool_full))
     plan["shape"] = (rows.shape[0], B, NB, int(block_size), bool(with_pool),
                      rows.device)
     plan["q_tile"] = q_tile

@@ -233,7 +233,8 @@ def test_plan_tiles_cover_live_tokens_once(name, shuffle, q_tile):
     sorted by position and at most q_tile long, covering each row's run
     in order; dead tokens lie only in dead tiles (row -1), once; each
     tile asks for exactly the row's keys at or below its last position;
-    slots are ordered by the keys they walk, largest first."""
+    slots are ordered by the keys they walk, largest first; a tile
+    carries its row's count of leading valid pool slots."""
     kw, with_pool = PLAN_CASES[name]
     c = _rows_case(**kw)
     if shuffle:
@@ -250,14 +251,15 @@ def test_plan_tiles_cover_live_tokens_once(name, shuffle, q_tile):
     pool_keys = (plan["page_cnt"].numpy().sum(1) if with_pool
                  else np.zeros(B, int))
     work = []
-    for r, lo, n, kend, rs, cnt, z0, z1 in tiles:
-        assert 0 <= n <= q_tile and z0 == z1 == 0
+    for r, lo, n, kend, rs, cnt, full, z in tiles:
+        assert 0 <= n <= q_tile and z == 0
         toks = perm[lo:lo + n]
         seen[toks] += 1
         if r < 0 or n == 0:
-            assert (rows[toks] < 0).all() and kend == rs == cnt == 0
+            assert (rows[toks] < 0).all() and kend == rs == cnt == full == 0
             work.append(0)
             continue
+        assert full == (_leading_valid_slots(c, r) if with_pool else 0)
         mine = np.flatnonzero(rows == r)
         assert (rows[toks] == r).all()
         assert (np.diff(pos[toks]) > 0).all()
@@ -269,18 +271,33 @@ def test_plan_tiles_cover_live_tokens_once(name, shuffle, q_tile):
     assert work == sorted(work, reverse=True)
 
 
+def _leading_valid_slots(c, r):
+    """How many of row r's pool slots, its pages taken in start order
+    block_size slots each, are valid before the first invalid one."""
+    bs, off = c["bs"], c["off"][r]
+    n = 0
+    for p in np.argsort(np.where(off >= 0, off.astype(np.int64), 2 ** 40),
+                        kind="stable"):
+        for s in range(bs):
+            if off[p] < 0 or off[p] + s >= c["kv_start"][r]:
+                return n
+            n += 1
+    return n
+
+
 def _masks_from_plan(plan, c, with_pool):
     """(pool_ok, pack_ok) rebuilt from the tiled operands by walking them
     as the sm90 kernel does: each tile's pool key tiles of 64 virtual
     slots (slot i of key tile kt is slot (64 kt + i) % bs of the row's
-    (64 kt + i) // bs-th page), then its packed key tiles from the row's
-    sorted tokens, masked by position."""
+    (64 kt + i) // bs-th page; a key tile within the row's leading valid
+    slots is taken whole, unmasked), then its packed key tiles from the
+    row's sorted tokens, masked by position."""
     T, bs = len(c["rows"]), c["bs"]
     NB = c["off"].shape[1]
     perm, spos = plan["perm"].numpy(), plan["spos"].numpy()
     pool_ok = np.zeros((T, NB * bs), bool)
     pack_ok = np.zeros((T, T), bool)
-    for r, lo, n, kend, rs, cnt, _, _ in plan["tiles"].numpy():
+    for r, lo, n, kend, rs, cnt, full, _ in plan["tiles"].numpy():
         if r < 0 or n == 0:
             continue
         toks, qp = perm[lo:lo + n], spos[lo:lo + n]
@@ -290,7 +307,8 @@ def _masks_from_plan(plan, c, with_pool):
                 vs = kt * 64 + np.arange(64)
                 jp, s = vs // bs, vs % bs
                 jc = np.minimum(jp, NB - 1)
-                ok = (jp < np_) & (s < plan["page_cnt"][r, jc].numpy())
+                ok = (jp < np_) & (s < plan["page_cnt"][r, jc].numpy()) \
+                    | ((kt + 1) * 64 <= full)
                 slots = plan["page_ids"][r, jc].numpy() * bs + s
                 pool_ok[np.ix_(toks, slots[ok])] = True
         for kt in range(-(-kend // 64)):

@@ -271,7 +271,7 @@ def _token_bucket(n, quantum=128):
 
 
 def _case(name, rng, *, rows_spec, H=16, Hk=16, D=128, bs=64, NB=257,
-          int8=False, shared_prefix_pages=0, dev="cuda"):
+          int8=False, shared_prefix_pages=0):
     """One packed launch. rows_spec: [(cached_tokens, new_tokens)] per
     live row (a row with 0 new tokens is an empty slot). Pages are drawn
     at random from the pool; the first `shared_prefix_pages` pages of
@@ -298,6 +298,7 @@ def _case(name, rng, *, rows_spec, H=16, Hk=16, D=128, bs=64, NB=257,
         pages = pages + [free.pop() for _ in range(npg - len(pages))]
         off[b, pages] = np.arange(npg) * bs
         c += m
+    dev = "cuda"
     bf = torch.bfloat16
 
     def rnd(*shape):

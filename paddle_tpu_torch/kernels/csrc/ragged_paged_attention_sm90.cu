@@ -31,8 +31,9 @@
 // ragged_plan builds once per packed wave:
 //   1. q tiles from the plan. The plan sorts the live tokens by (row,
 //      position) into a permutation and cuts each row's run into tiles of
-//      BM = 64 tokens (one consumer warpgroup) or 128 (two); each tile
-//      belongs to one row. The grid is (q head, tile slot), tile slots
+//      BM = 64 tokens, one warpgroup; each tile belongs to one row (128
+//      tokens over two warpgroups was tried: faster on some waves, slower
+//      on others, PERF.md). The grid is (q head, tile slot), tile slots
 //      ordered by the keys they walk, longest first. The tile's q rows
 //      are gathered through the permutation by cp.async (16 bytes a lane)
 //      into the 128-byte-swizzled layout the wgmma descriptors read, and
@@ -70,13 +71,11 @@
 // The copies, descriptors and wgmma products are sm90_wgmma.cuh's,
 // shared with B1 and B2. Ring depths are compile-time (RPA90_D64_STAGES,
 // RPA90_D128_STAGES), so a probe can build variants and time them beside
-// the default (tools/flash_fwd_probe.py --ragged); the q tile is chosen
-// at run time by the plan (64 by default: 128 was faster on some waves
-// and slower on others, PERF.md). At D 128 a 64-token tile takes 220
-// registers and 81 KB of shared memory with a 2-buffer ring, so two CTAs
-// share an SM; a third buffer leaves one and was slower. Launches run on
-// the caller's stream, allocate nothing and do not synchronise; the C
-// entry returns cudaGetLastError().
+// the default (tools/flash_fwd_probe.py --ragged). At D 128 a CTA takes
+// 215 registers a thread and 81 KB of shared memory with a 2-buffer
+// ring, so two share an SM; a third buffer leaves one and was slower.
+// Launches run on the caller's stream, allocate nothing and do not
+// synchronise; the C entry returns cudaGetLastError().
 #include <limits.h>
 
 #include "sm90_wgmma.cuh"
@@ -93,18 +92,18 @@ namespace {
 constexpr float kNegInit = -1e30f;
 constexpr int BN = 64;  // keys a tile
 
-template <int D_, int BM_, int STAGES_>
+template <int D_, int STAGES_>
 struct Cfg {
-  static constexpr int D = D_, BM = BM_, STAGES = STAGES_;
-  static constexpr int THREADS = BM * 2;  // one warpgroup per 64 q rows
+  static constexpr int D = D_, STAGES = STAGES_;
+  static constexpr int BM = 64, THREADS = 128;  // q rows: one warpgroup
   static constexpr int NT_S = BN / 8, NT_D = D / 8, KQ = D / 16, KP = BN / 16;
   static constexpr int CPR = D / 8;       // 16-byte chunks a row
   static constexpr uint32_t QB = BM * D * 2;  // bytes of the Q tile
   static constexpr uint32_t TB = BN * D * 2;  // bytes of one K or V tile
   // + 1024: the tiles start on a 1024-byte boundary (the swizzle atom)
   static constexpr size_t SMEM = QB + 2 * STAGES * TB + 1024;
-  static_assert(D % 64 == 0 && (BM == 64 || BM == 128) && STAGES >= 2,
-                "64-column swizzle blocks, one or two warpgroups, a ring");
+  static_assert(D % 64 == 0 && STAGES >= 2,
+                "64-column swizzle blocks, a ring");
   static_assert((BM * CPR) % THREADS == 0 && (BN * CPR) % THREADS == 0,
                 "tiles split evenly into 16-byte copies");
 };
@@ -251,8 +250,8 @@ __device__ __forceinline__ void softmax_step(float (&s)[BN / 8][4],
   }
 }
 
-// grid (H, tile slots); warpgroup wg owns q rows [64 wg, 64 wg + 64) of
-// the tile, its warp w rows 16 w .. 16 w + 15 of those, in the m16n8k16
+// grid (H, tile slots); warp w of the warpgroup owns q rows 16 w ..
+// 16 w + 15 of the tile, in the m16n8k16
 // accumulator layout (lane g = lane / 4, t = lane % 4: rows g and g + 8,
 // columns 8j + 2t and 8j + 2t + 1 of n8 tile j)
 template <class C>
@@ -292,9 +291,8 @@ rpa_sm90(const Params p) {
   w.NP = (w.np * p.bs + BN - 1) / BN;        // pool key tiles
   const int nkb = w.NP + (kend + BN - 1) / BN;  // + packed key tiles
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wg = warp >> 2;
   const int g = lane >> 2, t = lane & 3;
-  const int i0 = wg * 64 + (warp & 3) * 16 + g;  // this thread's first row
+  const int i0 = warp * 16 + g;  // this thread's first row
 
   // prologue: Q (gathered through the permutation; rows past n repeat
   // the tile's last token) and key tile 0 in group 0, tiles 1 .. S - 2
@@ -322,7 +320,6 @@ rpa_sm90(const Params p) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
     qpos[i] = i0 + 8 * i < n ? __ldg(p.spos + lo + i0 + 8 * i) : INT_MIN;
-  const bool wg_rows = wg * 64 < n;  // uniform over the warpgroup
 
   float acc[C::NT_D][4];
 #pragma unroll
@@ -330,9 +327,6 @@ rpa_sm90(const Params p) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   float m[2] = {kNegInit, kNegInit}, l[2] = {0.f, 0.f};
-  // Q's rows of this warpgroup, K-major: k16 step kk is 32 bytes into
-  // 64-column block kk / 4; 8-row groups 1024 bytes apart
-  const uint32_t qrow = Qs + wg * 64 * 128;
 
   for (int kb = 0; kb < nkb; ++kb) {
     cp_wait<S - 2>();     // tile kb (and, at kb = 0, Q) has landed ...
@@ -350,18 +344,18 @@ rpa_sm90(const Params p) {
       cp_commit();
       if (nb + 1 < nkb) fetch_rows<C>(p, w, nb + 1, kr);
     }
-    if (!wg_rows) continue;
     const int st = kb % S;
     const uint32_t Kt = Ks + st * TB;
     const uint32_t Vt = Vs + st * TB;
 
-    // S = Q Kᵀ; K is K-major, as Q
+    // S = Q Kᵀ; Q and K K-major: k16 step kk is 32 bytes into 64-column
+    // block kk / 4, 8-row groups 1024 bytes apart
     float sc[BN / 8][4];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < C::KQ; ++kk)
       wgmma_ss<BN>(sc,
-                   wdesc(qrow + (kk >> 2) * (BM * 128) + (kk & 3) * 32, 16,
+                   wdesc(Qs + (kk >> 2) * (BM * 128) + (kk & 3) * 32, 16,
                          1024),
                    wdesc(Kt + (kk >> 2) * (BN * 128) + (kk & 3) * 32, 16,
                          1024),
@@ -428,23 +422,20 @@ int launch(const Params& p, int n_tiles, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-using Cfg64x64 = Cfg<64, 64, RPA90_D64_STAGES>;
-using Cfg64x128 = Cfg<64, 128, RPA90_D64_STAGES>;
-using Cfg128x64 = Cfg<128, 64, RPA90_D128_STAGES>;
-using Cfg128x128 = Cfg<128, 128, RPA90_D128_STAGES>;
+using Cfg64 = Cfg<64, RPA90_D64_STAGES>;
+using Cfg128 = Cfg<128, RPA90_D128_STAGES>;
 
 }  // namespace
 
 // bf16 q/k/v and pools (kpool/vpool may be null without a pool), head_dim
-// 64 or 128, q tile 64 or 128 (the plan's); token strides in elements;
-// n_tiles rows of `tiles`. Returns cudaGetLastError() after the launch, -1
-// for a head_dim or q tile this kernel is not built for, -2 for heads
-// that do not group.
+// 64 or 128; token strides in elements; n_tiles rows of `tiles`. Returns
+// cudaGetLastError() after the launch, -1 for a head_dim this kernel is
+// not built for, -2 for heads that do not group.
 extern "C" int ragged_paged_attention_sm90_launch(
     const void* q, const void* k_new, const void* v_new, const void* kpool,
     const void* vpool, const void* perm, const void* spos, const void* tiles,
     const void* page_ids, const void* page_cnt, const void* npages, void* out,
-    int n_tiles, int q_tile, int H, int Hk, int D, int NB, int bs,
+    int n_tiles, int H, int Hk, int D, int NB, int bs,
     int pool_pages, int with_pool, long long q_st, long long k_st,
     long long v_st, float scale, void* stream) {
   Params p;
@@ -470,10 +461,7 @@ extern "C" int ragged_paged_attention_sm90_launch(
   p.k_st = k_st;
   p.v_st = v_st;
   p.scale_log2 = scale * kLog2e;
-  if (D == 64 && q_tile == 64) return launch<Cfg64x64>(p, n_tiles, stream);
-  if (D == 64 && q_tile == 128) return launch<Cfg64x128>(p, n_tiles, stream);
-  if (D == 128 && q_tile == 64) return launch<Cfg128x64>(p, n_tiles, stream);
-  if (D == 128 && q_tile == 128)
-    return launch<Cfg128x128>(p, n_tiles, stream);
+  if (D == 64) return launch<Cfg64>(p, n_tiles, stream);
+  if (D == 128) return launch<Cfg128>(p, n_tiles, stream);
   return -1;
 }

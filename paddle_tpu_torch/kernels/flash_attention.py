@@ -39,10 +39,11 @@ from __future__ import annotations
 
 import ctypes
 import math
-import os
 import threading
 
 import torch
+
+from ..utils.build import load_cuda
 
 __all__ = ["flash_attention", "attention_path", "flash_fwd", "flash_bwd"]
 
@@ -211,20 +212,6 @@ _DELTA_ARGTYPES = [_P] * 3 + [_I] * 5 + [_L] * 4 + [_P]
 _SM90_HEADERS = ("sm90_wgmma.cuh",)
 
 
-def _csrc(name):
-    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                        name)
-
-
-def _build(name, headers=(), extra_flags=()):
-    """csrc/<name>.cu built (nvcc, sm_90a) into its own library and
-    loaded."""
-    from ..utils.build import NVCC_FLAGS, build_shared, nvcc_path
-    return ctypes.CDLL(build_shared(
-        name, [_csrc(name + ".cu")], nvcc_path(),
-        (*NVCC_FLAGS, *extra_flags), headers=[_csrc(h) for h in headers]))
-
-
 def _bind(fn, argtypes):
     fn.restype, fn.argtypes = _I, argtypes
 
@@ -235,7 +222,7 @@ def _load_kernel():
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
-            lib = _build("flash_attention")
+            lib = load_cuda("flash_attention")
             _bind(lib.flash_attention_fwd_launch, _FWD_ARGTYPES)
             _bind(lib.flash_attention_bwd_launch, _BWD_ARGTYPES)
             _LIB = lib
@@ -249,7 +236,7 @@ def _load_sm90(extra_flags=()):
     global _SM90_LIB
     with _LIB_LOCK:
         if _SM90_LIB is None or extra_flags:
-            lib = _build("flash_fwd_sm90", _SM90_HEADERS, extra_flags)
+            lib = load_cuda("flash_fwd_sm90", _SM90_HEADERS, extra_flags)
             _bind(lib.flash_fwd_sm90_launch, _FWD_ARGTYPES)
             if extra_flags:
                 return lib
@@ -264,7 +251,7 @@ def _load_sm90_bwd(extra_flags=()):
     global _SM90_BWD_LIB
     with _LIB_LOCK:
         if _SM90_BWD_LIB is None or extra_flags:
-            lib = _build("flash_bwd_sm90", _SM90_HEADERS, extra_flags)
+            lib = load_cuda("flash_bwd_sm90", _SM90_HEADERS, extra_flags)
             _bind(lib.flash_bwd_sm90_launch, _BWD_ARGTYPES)
             _bind(lib.flash_bwd_delta_launch, _DELTA_ARGTYPES)
             if extra_flags:

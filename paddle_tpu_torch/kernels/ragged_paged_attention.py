@@ -42,7 +42,7 @@ counts each):
 
   * "sm90", ``csrc/ragged_paged_attention_sm90.cu``: bf16 q/k/v and
     pools at head_dim 64 or 128 with 16-byte aligned token rows (the
-    engine's case). A q tile of 64 or 128 sorted tokens walks its
+    engine's case). A q tile of 64 sorted tokens walks its
     row's pool pages, then its row's packed tokens, in key tiles of 64
     gathered by cp.async, with S and P·V on wgmma.
   * "simple", ``csrc/ragged_paged_attention.cu``: everything else (f32,
@@ -55,16 +55,16 @@ Both are right for any packing.
 from __future__ import annotations
 
 import ctypes
-import os
 import threading
 
 import torch
 
+from ..utils.build import load_cuda
+
 __all__ = ["ragged_paged_attention", "ragged_attention_path", "ragged_plan"]
 
 _SUPPORTED_D = (64, 128, 256)
-# q tile of the tiled design: 64 tokens (one warpgroup) or 128 (two)
-_Q_TILES = (64, 128)
+# q tile of the tiled design: 64 sorted tokens, one warpgroup
 _Q_TILE = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _INT32_MAX = 2 ** 31 - 1
@@ -184,11 +184,11 @@ def _prep_operands(rows, pos, kv_start, off, block_size, with_pool):
     return out
 
 
-def _tile_operands(rows, pos, B, q_tile, pool_keys, pool_full):
+def _tile_operands(rows, pos, B, pool_keys, pool_full):
     """The q tiles of the tiled design (torch ops on rows' device, no
     host sync): the live tokens sorted by (row, position) into `perm`,
     dead tokens after them, and each row's run cut into tiles of at
-    most q_tile tokens.
+    most _Q_TILE tokens.
 
       perm [T] int32, spos [T] int32: packed index and position of each
         sorted token;
@@ -198,7 +198,7 @@ def _tile_operands(rows, pos, B, q_tile, pool_keys, pool_full):
         valid (pool_full [B]), 0). A tile needs the row's keys up to
         the last one at or below its largest position. Dead tokens come
         in tiles of row -1 (their outputs are zeroed); unused slots
-        have 0 tokens. NT = T // q_tile + B + 2 bounds both for any
+        have 0 tokens. NT = T // _Q_TILE + B + 2 bounds both for any
         packing. Slots are ordered by the keys they walk (pool_keys
         [B] of the row's plus the packed ones), largest first, so the
         longest tiles start first.
@@ -206,6 +206,7 @@ def _tile_operands(rows, pos, B, q_tile, pool_keys, pool_full):
     T = rows.shape[0]
     dev = rows.device
     i64 = torch.int64
+    q_tile = _Q_TILE
     live = rows >= 0
     # pos + 2^31 keeps the (row, pos) key increasing for any int32 pos
     key = torch.where(live, rows.to(i64) * 2 ** 32 + pos.to(i64) + 2 ** 31,
@@ -248,8 +249,7 @@ def _tile_operands(rows, pos, B, q_tile, pool_keys, pool_full):
             "tiles": tiles[order].to(torch.int32).contiguous()}
 
 
-def ragged_plan(rows, pos, kv_start, off, block_size, with_pool,
-                q_tile=None):
+def ragged_plan(rows, pos, kv_start, off, block_size, with_pool):
     """Every index operand the kernels need for one packed launch,
     built by torch ops on rows' device (no host sync). The metadata of
     a packed wave is the same for each of its layers, so the engine
@@ -257,9 +257,6 @@ def ragged_plan(rows, pos, kv_start, off, block_size, with_pool,
     (``_plan=``). It holds both designs' operands (_prep_operands,
     _tile_operands) and the shapes it was built for; the wrapper
     raises if a call's differ."""
-    q_tile = _Q_TILE if q_tile is None else int(q_tile)
-    if q_tile not in _Q_TILES:
-        raise ValueError(f"q_tile must be one of {_Q_TILES}, got {q_tile}")
     B, NB = off.shape
     plan = _prep_operands(rows, pos, kv_start, off, block_size, with_pool)
     if with_pool:
@@ -273,10 +270,9 @@ def ragged_plan(rows, pos, kv_start, off, block_size, with_pool,
     else:
         pool_keys = pool_full = torch.zeros(B, dtype=torch.int32,
                                             device=rows.device)
-    plan.update(_tile_operands(rows, pos, B, q_tile, pool_keys, pool_full))
+    plan.update(_tile_operands(rows, pos, B, pool_keys, pool_full))
     plan["shape"] = (rows.shape[0], B, NB, int(block_size), bool(with_pool),
                      rows.device)
-    plan["q_tile"] = q_tile
     ragged_paged_attention.plan_builds += 1
     return plan
 
@@ -298,27 +294,13 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SM90_HEADERS = ("sm90_wgmma.cuh",)
 
 
-def _csrc(name):
-    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                        name)
-
-
-def _build(name, headers=(), extra_flags=()):
-    """csrc/<name>.cu built (nvcc, sm_90a) into its own library and
-    loaded."""
-    from ..utils.build import NVCC_FLAGS, build_shared, nvcc_path
-    return ctypes.CDLL(build_shared(
-        name, [_csrc(name + ".cu")], nvcc_path(),
-        (*NVCC_FLAGS, *extra_flags), headers=[_csrc(h) for h in headers]))
-
-
 def _load_kernel():
     """Build and load ragged_paged_attention.cu (the simple design) at
     first use."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
-            lib = _build("ragged_paged_attention")
+            lib = load_cuda("ragged_paged_attention")
             fn = lib.ragged_paged_attention_launch
             fn.restype = _I
             fn.argtypes = [_P] * 15 + [_I] * 9 + [_L] * 3 + [
@@ -334,11 +316,11 @@ def _load_sm90(extra_flags=()):
     global _SM90_LIB
     with _LIB_LOCK:
         if _SM90_LIB is None or extra_flags:
-            lib = _build("ragged_paged_attention_sm90", _SM90_HEADERS,
-                         extra_flags)
+            lib = load_cuda("ragged_paged_attention_sm90", _SM90_HEADERS,
+                            extra_flags)
             fn = lib.ragged_paged_attention_sm90_launch
             fn.restype = _I
-            fn.argtypes = [_P] * 12 + [_I] * 9 + [_L] * 3 + [
+            fn.argtypes = [_P] * 12 + [_I] * 8 + [_L] * 3 + [
                 ctypes.c_float, _P]
             if extra_flags:
                 return lib
@@ -486,7 +468,7 @@ def _ragged_cuda(q, k_new, v_new, kpool, vpool, rows, pos, kv_start, off,
             _plan["perm"].data_ptr(), _plan["spos"].data_ptr(),
             tiles.data_ptr(), _ptr(_plan.get("page_ids")),
             _ptr(_plan.get("page_cnt")), _ptr(_plan.get("npages")),
-            out.data_ptr(), tiles.shape[0], _plan["q_tile"], H, Hk, D, NB,
+            out.data_ptr(), tiles.shape[0], H, Hk, D, NB,
             block_size, T_pool // block_size if with_pool else 0,
             int(bool(with_pool)), q.stride(0), k_new.stride(0),
             v_new.stride(0), float(scale), stream)

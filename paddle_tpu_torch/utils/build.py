@@ -17,7 +17,7 @@ import subprocess
 from pathlib import Path
 from typing import Sequence
 
-__all__ = ["build_dir", "build_shared", "nvcc_path"]
+__all__ = ["build_dir", "build_shared", "csrc_path", "load_cuda", "nvcc_path"]
 
 # CUDA kernels are compiled for Hopper only: sm_90a keeps wgmma/setmaxnreg
 # available to the kernels that will use them
@@ -70,3 +70,19 @@ def build_shared(name: str, sources: Sequence[str], compiler: str,
             f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return str(out)
+
+
+def csrc_path(name: str) -> str:
+    """``paddle_tpu_torch/kernels/csrc/<name>``."""
+    return str(Path(__file__).resolve().parents[1] / "kernels" / "csrc" / name)
+
+
+def load_cuda(name: str, headers: Sequence[str] = (),
+              extra_flags: Sequence[str] = ()):
+    """``kernels/csrc/<name>.cu`` built (nvcc, sm_90a, ``extra_flags``
+    added) into its own library and loaded through ctypes; ``headers``
+    are csrc files it includes."""
+    import ctypes
+    return ctypes.CDLL(build_shared(
+        name, [csrc_path(name + ".cu")], nvcc_path(),
+        (*NVCC_FLAGS, *extra_flags), headers=[csrc_path(h) for h in headers]))

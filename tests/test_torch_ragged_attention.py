@@ -219,18 +219,17 @@ PLAN_CASES = {
 }
 
 
-def _plan_of(c, with_pool, q_tile=64):
+def _plan_of(c, with_pool):
     args = [torch.as_tensor(c[k]) for k in ("rows", "pos", "kv_start",
                                             "off")]
-    return ragged_plan(*args, c["bs"], with_pool, q_tile=q_tile)
+    return ragged_plan(*args, c["bs"], with_pool)
 
 
-@pytest.mark.parametrize("q_tile", [64, 128])
 @pytest.mark.parametrize("shuffle", [False, True])
 @pytest.mark.parametrize("name", sorted(PLAN_CASES))
-def test_plan_tiles_cover_live_tokens_once(name, shuffle, q_tile):
+def test_plan_tiles_cover_live_tokens_once(name, shuffle):
     """Every live token lies in exactly one tile of its own row, tiles
-    sorted by position and at most q_tile long, covering each row's run
+    sorted by position and at most _Q_TILE long, covering each row's run
     in order; dead tokens lie only in dead tiles (row -1), once; each
     tile asks for exactly the row's keys at or below its last position;
     slots are ordered by the keys they walk, largest first; a tile
@@ -239,7 +238,8 @@ def test_plan_tiles_cover_live_tokens_once(name, shuffle, q_tile):
     c = _rows_case(**kw)
     if shuffle:
         c = _shuffle(c)
-    plan = _plan_of(c, with_pool, q_tile)
+    plan = _plan_of(c, with_pool)
+    q_tile = rpa._Q_TILE
     rows, pos = c["rows"], c["pos"]
     perm, spos = plan["perm"].numpy(), plan["spos"].numpy()
     tiles = plan["tiles"].numpy()

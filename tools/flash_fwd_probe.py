@@ -35,8 +35,7 @@ within twice the reference's own bf16 rounding, the simple one within
 KERNEL_ATOL, planted faults rejected) and timed by events and by graph
 replay with the plan built outside, beside the simple kernel, the plan
 alone and the SDPA yardstick. Its variants take RPA90_* ring-depth
-macros, and Q_TILE=64|128, which sets the plan's q tile (chosen at run
-time, no rebuild).
+macros.
 """
 from __future__ import annotations
 
@@ -58,13 +57,13 @@ def ptxas_report(source, extra_flags=()) -> list:
     every kernel in csrc/<source>.cu, from `nvcc -Xptxas -v` (an object
     file compiled into the build directory with the library's flags);
     raises with the compiler's last lines if the source does not build."""
-    from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.utils.build import NVCC_FLAGS, build_dir, nvcc_path
+    from paddle_tpu_torch.utils.build import (NVCC_FLAGS, build_dir,
+                                              csrc_path, nvcc_path)
     flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
                                                  "-fPIC")]
     out = build_dir() / f"{source}_ptxas.o"
     cmd = [nvcc_path(), *flags, *extra_flags, "-Xptxas", "-v", "-c", "-o",
-           str(out), fa._csrc(source + ".cu")]
+           str(out), csrc_path(source + ".cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
@@ -306,10 +305,7 @@ def main() -> int:
     regs = {}
 
     def run_build(variant, rnd):
-        flags = tuple(f"-D{x}" for x in variant.split(",")
-                      if x and not x.startswith("Q_TILE="))
-        q_tile = [int(x.split("=")[1]) for x in variant.split(",")
-                  if x.startswith("Q_TILE=")]
+        flags = tuple(f"-D{x}" for x in variant.split(",") if x)
         if variant not in regs:
             try:
                 regs[variant] = ptxas_report(source, flags)
@@ -323,12 +319,11 @@ def main() -> int:
                 cs.log(f"[ptxas] {variant or 'default'}: {r}")
         if regs[variant] is None:
             return
-        saved, saved_q = getattr(mod, attr), rpa._Q_TILE
+        saved = getattr(mod, attr)
         if flags:
             setattr(mod, attr, loader(flags))
         try:
             if args.ragged:
-                rpa._Q_TILE = q_tile[-1] if q_tile else saved_q
                 recs = probe_ragged(rnd, args.check)
             else:
                 recs = [probe(i, name, spec,
@@ -336,7 +331,6 @@ def main() -> int:
                               args.check) for i, name, spec in cases]
         finally:
             setattr(mod, attr, saved)
-            rpa._Q_TILE = saved_q
         out["builds"].append(dict(variant=variant or "default", round=rnd,
                                   ptxas=regs[variant], cases=recs))
 

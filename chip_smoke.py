@@ -103,6 +103,10 @@ F32_FLOPS_PER_S = 67e12          # outside the tensor cores
 KERNEL_ATOL = 1e-3
 # the design every B3 launch of the serving runs (phases 4 and 9) takes
 B3_MAIN_DESIGN = "sm90"
+# decode graphs a serving run may capture: one per page-table width
+# bucket its chunks meet (tests/test_torch_decode_graph.py holds the
+# bucket rule to this on the runs' traffic)
+MAX_DECODE_GRAPHS = 4
 B3_SOURCES = {"sm90": "ragged_paged_attention_sm90.cu",
               "simple": "ragged_paged_attention.cu"}
 
@@ -642,6 +646,7 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
     import torch
     from paddle_tpu_torch.inference import LLMEngine
     from paddle_tpu_torch.inference import llm_engine as eng_mod
+    from paddle_tpu_torch.jit import cuda_graph
     from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
 
     t0 = time.perf_counter()
@@ -677,11 +682,11 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
             h.remove()
         return r
 
-    def timed_chunk(cur, lens, tbl, flat):
+    def timed_chunk(cur, lens, tbl, chunk):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        r = decode_chunk(cur, lens, tbl, flat)      # ends in a host copy
-        chunks.append((time.perf_counter() - t, flat.shape[0]))
+        r = decode_chunk(cur, lens, tbl, chunk)     # ends in a host copy
+        chunks.append((time.perf_counter() - t, chunk, tbl.shape[1]))
         return r
 
     eng._run_ragged = timed_wave
@@ -693,6 +698,7 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
             eng.add_request(i, p, max_new_tokens=n_new)
         done, step_s = {}, []
         rpa.reset_counters()
+        cuda_graph.reset_counters()
         t_run = time.perf_counter()
         while eng.has_unfinished:
             t = time.perf_counter()
@@ -704,6 +710,9 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
         f = rpa.ragged_paged_attention
         launches, plain_calls = f.kernel_launches, f.plain_calls
         designs, plans = dict(f.design_launches), f.plan_builds
+        graph_captures = cuda_graph.captures["engine_decode"]
+        graph_replays = cuda_graph.replays["engine_decode"]
+        capture_s = cuda_graph.capture_seconds["engine_decode"]
     attn_ms = sum(s.elapsed_time(e) for s, e in events["attn"])
     plan_ms = sum(s.elapsed_time(e) for s, e in events["plan"])
 
@@ -713,8 +722,15 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
            or not ((done[i].output_ids >= 0)
                    & (done[i].output_ids < cfg.vocab_size)).all()]
     st = eng.stats
+    decode_steps = sum(n for _s, n, _w in chunks)
+    widths = sorted({w for _s, _n, w in chunks})
     checks = {
         "every request returned 64 in-vocab tokens": not bad,
+        f"every decode step replayed a captured graph ({decode_steps})":
+            graph_replays == decode_steps,
+        f"one graph captured per width bucket {widths}, at most "
+        f"{MAX_DECODE_GRAPHS}": graph_captures == len(widths)
+            <= MAX_DECODE_GRAPHS,
         "prefix cache hit (with_pool wave ran)":
             st["prefix_cache_hit_tokens"] > 0,
         "kernel launched": launches > 0,
@@ -730,9 +746,10 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
     if not all(checks.values()):
         raise RuntimeError(f"engine phase failed: bad={bad} stats={st}")
     n_tok = sum(len(r.output_ids) for r in done.values())
-    decode_steps = sum(n for _s, n in chunks)
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms, attn_step_ms = _decode_device_ms(eng, widths[-1])
     rec = dict(config=label, layers=cfg.num_layers, tokens=n_tok,
                run_s=run_s, tokens_per_s=n_tok / run_s,
                steps=len(step_s), step_ms_mean=1e3 * run_s / len(step_s),
@@ -741,15 +758,25 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
                ragged_waves_ms=[1e3 * w for w in waves],
                ragged_attention_ms=attn_ms, ragged_plan_ms=plan_ms,
                ragged_design_launches=designs, ragged_plan_builds=plans,
-               decode_chunks_ms=[1e3 * s for s, _n in chunks],
+               decode_chunks_ms=[1e3 * s for s, _n, _w in chunks],
                decode_steps=decode_steps,
-               decode_ms_per_step=1e3 * sum(s for s, _n in chunks)
-               / decode_steps,
+               # the chunks' wall time less the graphs' capture
+               decode_ms_per_step=1e3 * (sum(s for s, _n, _w in chunks)
+                                         - capture_s) / decode_steps,
+               decode_graph_captures=graph_captures,
+               decode_graph_replays=graph_replays,
+               decode_graph_widths=widths, decode_capture_s=capture_s,
+               # device time by replay: one graph step, and the
+               # attention of one layer at the last width bucket
+               decode_step_replay_ms=step_ms,
+               decode_attention_replay_ms=attn_step_ms,
+               decode_attention_share=cfg.num_layers * attn_step_ms
+               / step_ms,
                # a floor for one batch decode step: every weight read once
                weight_read_ms=1e3 * weight_bytes / HBM_BYTES_PER_S,
                kernel_launches=launches,
                plain_calls=plain_calls, setup_s=setup_s,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+               peak_mem_gb=peak_gb,
                stats={k: st[k] for k in (
                    "prefills", "preemptions", "decode_chunks",
                    "decode_tokens", "prefix_cache_hit_tokens",
@@ -763,14 +790,58 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
         f"max {rec['step_ms_max']:.2f}; ragged waves ms "
         f"{[round(w, 2) for w in rec['ragged_waves_ms']]}, attention "
         f"kernel time within them {attn_ms:.2f} ms over {launches} "
-        f"launches ({designs}) and {plan_ms:.2f} ms of {plans} plans; decode {decode_steps} steps at "
-        f"{rec['decode_ms_per_step']:.2f} ms each (weight read floor "
-        f"{rec['weight_read_ms']:.3f} ms); "
+        f"launches ({designs}) and {plan_ms:.2f} ms of {plans} plans; "
+        f"decode {decode_steps} steps at {rec['decode_ms_per_step']:.2f} ms "
+        f"each (weight read floor {rec['weight_read_ms']:.3f} ms; "
+        f"{graph_captures} graphs captured at widths {widths} in "
+        f"{capture_s:.3f} s, {graph_replays} replays; a step by replay "
+        f"{step_ms:.3f} ms, of which attention {cfg.num_layers} x "
+        f"{attn_step_ms:.4f} ms = {100 * rec['decode_attention_share']:.1f} "
+        f"%); "
         f"peak mem {rec['peak_mem_gb']:.2f} GiB; "
-        f"stats {rec['stats']}")
+        f"stats {rec['stats']}; card {card_line()}")
     del eng, model, captured
     torch.cuda.empty_cache()
     return rec
+
+
+def _decode_device_ms(eng, width):
+    """Device ms of one decode step by replaying the engine's captured
+    graph at `width` (chunks of 16 steps from the step counter's 0, 5
+    times, between CUDA events), and of one layer's
+    `_pool_decode_attention` by graph_ms at that width (8 rows, each
+    row's length in its last page, the engine's pool). Measurement
+    only: the engine has served its requests, and the replays rewrite
+    the slots its last chunk wrote."""
+    import torch
+    from paddle_tpu_torch.inference import llm_engine as eng_mod
+    graph = eng._dec_graphs[width]
+    n = eng.decode_chunk
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(5):
+        eng._dec_step.zero_()
+        for _ in range(n):
+            graph.graph.replay()
+    e.record()
+    e.synchronize()
+    step_ms = s.elapsed_time(e) / (5 * n)
+    cfg = eng.model.config
+    B, bs = eng.max_batch, eng.block_size
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    q = torch.randn((B, cfg.num_heads, eng.fam.head_dim), generator=g,
+                    device="cuda").to(eng.fam.dtype)
+    nb = eng.cache.allocator.num_blocks
+    tbl = (torch.arange(B * width, device="cuda") % (nb - 1) + 1
+           ).reshape(B, width)
+    lens = torch.full((B,), width * bs - 1, device="cuda")
+    kc, vc = eng.cache.key_caches[0], eng.cache.value_caches[0]
+    scale = 1.0 / eng.fam.head_dim ** 0.5
+    attn_ms = graph_ms(lambda: eng_mod._pool_decode_attention(
+        q, kc, vc, tbl, lens, scale, bs))
+    return step_ms, attn_ms
 
 
 def engine_phase() -> dict:
@@ -793,6 +864,7 @@ def parity_phase(label="gpt3_1p3b", build=None) -> dict:
     model `build()` returns (gpt3_1p3b's widths by default)."""
     import torch
     from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.jit import cuda_graph
     from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
     from paddle_tpu_torch.models import GPTForCausalLM, generate, gpt3_1p3b
 
@@ -807,12 +879,22 @@ def parity_phase(label="gpt3_1p3b", build=None) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
                for n in rng.integers(190, 211, 4)]
     n_new, margin = 16, 1e-3
-    eng = LLMEngine(model, max_batch=4, block_size=64, decode_chunk=16,
-                    prompt_quantum=128)
+    engine_kw = dict(max_batch=4, block_size=64, decode_chunk=16,
+                     prompt_quantum=128)
+    eng = LLMEngine(model, **engine_kw)
     rpa.reset_counters()
+    cuda_graph.reset_counters()
     res = eng.generate(prompts, max_new_tokens=n_new)
     # f32: B3's simple design (the tiled one takes bf16 only)
     designs = dict(rpa.ragged_paged_attention.design_launches)
+    replays = cuda_graph.replays["engine_decode"]
+    # the same traffic with the engine's decode steps run eagerly on the
+    # card: the graphs' tokens must be exactly these
+    eager = LLMEngine(model, **engine_kw)
+    eager._eager_decode = True
+    eager_res = eager.generate(prompts, max_new_tokens=n_new)
+    graph_vs_eager = [i for i, (a, b) in enumerate(zip(res, eager_res))
+                      if not np.array_equal(a.output_ids, b.output_ids)]
     guarded, mismatched = [], []
     with torch.no_grad():
         for i, (p, r) in enumerate(zip(prompts, res)):
@@ -830,14 +912,20 @@ def parity_phase(label="gpt3_1p3b", build=None) -> dict:
     log(f"[parity] {label}: engine vs dense generate (f32, 2 layers): tokens "
         f"compared per request {guarded} of {n_new} (margin guard "
         f"{margin}); mismatched requests {mismatched}; B3 launches by "
-        f"design {designs}")
+        f"design {designs}; engine decode graph replays {replays}, "
+        f"requests whose graph tokens differ from the eager steps' "
+        f"{graph_vs_eager}")
     if mismatched or min(guarded) == 0 or designs["simple"] == 0:
         raise RuntimeError("engine tokens differ from dense generate, or "
                            "B3's simple design did not run")
-    del eng, model
+    if graph_vs_eager or replays == 0:
+        raise RuntimeError("the engine's decode graphs did not run, or "
+                           "their tokens differ from the eager steps'")
+    del eng, eager, model
     torch.cuda.empty_cache()
     return dict(config=label, guarded=guarded, n_new=n_new,
-                b3_design_launches=designs)
+                b3_design_launches=designs, engine_graph_replays=replays,
+                engine_graph_vs_eager_mismatched=graph_vs_eager)
 
 
 # ---------------------------------------------------------------------------

@@ -19,8 +19,11 @@ exactly on the same traffic.
     pool that is both scattered into and read in one XLA scan body
     loses in-place aliasing. PyTorch updates tensors in place, so each
     step writes its k/v straight into the pool and attends over the
-    row's pages at positions <= its length. Between chunks the host
-    reads back only the [B, chunk] tokens.
+    row's pages at positions <= its length. On the card a step is one
+    CUDA graph per page-table width bucket (`_width_bucket`), replayed
+    `chunk` times over static inputs; the pools never move and the
+    engine's generator is registered with every graph. Between chunks
+    the host reads back only the [B, chunk] tokens.
   * The GPT and LLaMA families (``_family_for``). LLaMA's q and k are
     rotated (f32 half tables built once for max_model_len) before the
     pool write, in the packed wave and in each decode step; its GQA kv
@@ -48,6 +51,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..incubate.nn.functional.serving import _apply_rotary
+from ..jit.cuda_graph import CapturedStep
 from ..kernels.ragged_paged_attention import (ragged_paged_attention,
                                               ragged_plan)
 from ..models.generation import _pick_token
@@ -115,6 +119,17 @@ def _pow2_floor(n: int) -> int:
     while b * 2 <= n:
         b *= 2
     return b
+
+
+def _width_bucket(width: int, cap: int) -> int:
+    """Page-table width a decode graph is captured for: `width` pages
+    rounded up to a multiple of a quarter of its power-of-two floor (1,
+    2, ..., 8, 10, 12, 14, 16, 20, 24, ...), at most `cap`. The padding
+    stays under a quarter of the width, so under a quarter more slots
+    to attend over, and rows growing a page at a time meet at most four
+    buckets an octave."""
+    quarter = max(1, _pow2_floor(max(width, 1)) // 4)
+    return min(cap, _bucket(width, quarter))
 
 
 class _GPTFamily:
@@ -352,6 +367,19 @@ class LLMEngine:
             ragged_launches=0)
         # in-step pool-occupancy high-water (pages off the free list)
         self.peak_used_blocks = 0
+        # the decode step's static state: the step counter and the
+        # chunk's tokens, and by width bucket its inputs and (on the
+        # card) its captured graph
+        self._dec_step = torch.zeros((), dtype=torch.int64,
+                                     device=self.device)
+        self._dec_out = torch.zeros((self.max_batch, self.decode_chunk),
+                                    dtype=torch.int64, device=self.device)
+        self._dec_inputs: Dict[int, torch.Tensor] = {}
+        self._dec_graphs: Dict[int, CapturedStep] = {}
+        # checking only: True runs the card's decode steps eagerly, the
+        # plain version the graphs are held to (chip_smoke.py, the cuda
+        # tests); the CPU always runs them eagerly
+        self._eager_decode = self.device.type == "cpu"
 
     # -- request lifecycle -------------------------------------------------
     def add_request(self, request_id, prompt_ids, max_new_tokens: int = 32,
@@ -638,12 +666,12 @@ class LLMEngine:
             lens[s.slot] = s.length
             pages = self.cache.pages(s.rid)
             tbl[s.slot, :len(pages)] = pages
-        # flat pool row written by each (step, row)
-        gpos = lens[None, :] + np.arange(chunk)[:, None]     # [chunk, B]
-        page = np.clip(gpos // bs, 0, self.npb_full - 1)
-        flat = np.take_along_axis(tbl, page.T, axis=1).T * bs + gpos % bs
-        width = min(self.npb_full, -(-int(gpos.max() + 1) // bs))
-        toks = self._decode_chunk(cur, lens, tbl[:, :width], flat)
+        # pages the chunk reaches, rounded up to the width bucket its
+        # graph was captured for; the padding is trash pages past every
+        # row's length, which the attention masks out
+        width = -(-int(lens.max() + chunk) // bs)
+        toks = self._decode_chunk(
+            cur, lens, tbl[:, :_width_bucket(width, self.npb_full)], chunk)
         self.stats["decode_chunks"] += 1
         out = {}
         for s in active:
@@ -651,13 +679,17 @@ class LLMEngine:
             s.length += chunk
         return out
 
-    @torch.no_grad()
-    def _decode_chunk(self, cur, lens, tbl, flat) -> np.ndarray:
-        """`chunk` decode steps for the whole batch (the math of
-        paddle_tpu's _decode_fn scan body). Each step writes its k/v
-        into the pool in place, then attends over the row's pages at
-        positions <= its length. Returns [B, chunk] int32 tokens."""
-        dev = self.device
+    def _decode_step(self, inp):
+        """One decode step for the whole batch (the math of paddle_tpu's
+        _decode_fn scan body). inp [B, 2 + W] int64 holds each row's
+        current token, its length when the chunk began and its page table
+        (W pages). The step's position is that length plus the step
+        counter; the step writes its k/v into the pool in place at the
+        row's page for it, attends over the row's pages at positions <=
+        it, then writes the sampled token over the current one and into
+        the chunk's output at the step, and advances the counter. It
+        takes nothing from the host, so the same function replays as a
+        CUDA graph on the card and runs eagerly on the CPU."""
         fam = self.fam
         bs = self.block_size
         kvH, hd = fam.kv_heads, fam.head_dim
@@ -665,32 +697,66 @@ class LLMEngine:
         B = self.max_batch
         scale = 1.0 / math.sqrt(hd)
         kcs, vcs = self.cache.key_caches, self.cache.value_caches
-        cur = torch.from_numpy(cur).to(dev)
-        lens = torch.from_numpy(lens).to(dev)
-        tbl = torch.from_numpy(tbl).to(dev)
-        flat = torch.from_numpy(flat).to(dev)
-        toks = []
-        for i in range(flat.shape[0]):
-            li_lens = lens + i
-            x = fam.embed(cur, li_lens)                      # [B, h]
-            cos_sin = _rope_at(self._rope, li_lens)
-            for li, layer in enumerate(fam.layers()):
-                qkv = fam.qkv(layer, x)
-                q = qkv[:, :nH * hd].reshape(B, nH, hd)
-                k = qkv[:, nH * hd:(nH + kvH) * hd].reshape(B, kvH, hd)
-                v = qkv[:, (nH + kvH) * hd:].reshape(B, kvH, hd)
-                q, k = fam.rotate(q, k, cos_sin)
-                kcs[li].index_copy_(0, flat[i], k.to(kcs[li].dtype))
-                vcs[li].index_copy_(0, flat[i], v.to(vcs[li].dtype))
-                o = _pool_decode_attention(q, kcs[li], vcs[li], tbl,
-                                           li_lens, scale, bs)
-                x = fam.attn_out(layer, x, o.to(x.dtype))
-                x = fam.mlp(layer, x)
-            lg = fam.logits(fam.final(x))                    # [B, vocab]
-            cur = _pick_token(lg.float(), self._gen, self.do_sample,
-                              self.temperature, self.top_p, self.top_k)
-            toks.append(cur)
-        return torch.stack(toks, dim=1).cpu().numpy().astype(np.int32)
+        cur, tbl = inp[:, 0], inp[:, 2:]
+        pos = inp[:, 1] + self._dec_step                     # [B]
+        page = torch.clamp(pos // bs, max=tbl.shape[1] - 1)
+        flat = tbl.gather(1, page[:, None])[:, 0] * bs + pos % bs
+        x = fam.embed(cur, pos)                              # [B, h]
+        cos_sin = _rope_at(self._rope, pos)
+        for li, layer in enumerate(fam.layers()):
+            qkv = fam.qkv(layer, x)
+            q = qkv[:, :nH * hd].reshape(B, nH, hd)
+            k = qkv[:, nH * hd:(nH + kvH) * hd].reshape(B, kvH, hd)
+            v = qkv[:, (nH + kvH) * hd:].reshape(B, kvH, hd)
+            q, k = fam.rotate(q, k, cos_sin)
+            kcs[li].index_copy_(0, flat, k.to(kcs[li].dtype))
+            vcs[li].index_copy_(0, flat, v.to(vcs[li].dtype))
+            o = _pool_decode_attention(q, kcs[li], vcs[li], tbl, pos,
+                                       scale, bs)
+            x = fam.attn_out(layer, x, o.to(x.dtype))
+            x = fam.mlp(layer, x)
+        lg = fam.logits(fam.final(x))                        # [B, vocab]
+        nxt = _pick_token(lg.float(), self._gen, self.do_sample,
+                          self.temperature, self.top_p, self.top_k)
+        cur.copy_(nxt)
+        self._dec_out.index_copy_(1, self._dec_step.view(1), nxt[:, None])
+        self._dec_step.add_(1)
+
+    @torch.no_grad()
+    def _decode_chunk(self, cur, lens, tbl, chunk) -> np.ndarray:
+        """`chunk` decode steps for the whole batch: paddle_tpu runs them
+        as one executable per chunk bucket. cur/lens [B] and the
+        trash-padded page table tbl [B, W] (host int64 arrays, W a width
+        bucket) are copied into W's static inputs. On the card each step
+        replays the graph of `_decode_step` captured at W's first chunk;
+        on the CPU (or with `_eager_decode`) the same step runs eagerly. Returns [B, chunk] int32
+        tokens, read back once: the chunk's only host sync."""
+        W = tbl.shape[1]
+        host = torch.from_numpy(np.concatenate(
+            [cur[:, None], lens[:, None], tbl], axis=1))
+        inp = self._dec_inputs.get(W)
+        if inp is None:
+            inp = self._dec_inputs[W] = torch.empty_like(
+                host, device=self.device)
+
+        def load():
+            inp.copy_(host)
+            self._dec_step.zero_()
+
+        load()
+        if self._eager_decode:
+            for _ in range(chunk):
+                self._decode_step(inp)
+        else:
+            graph = self._dec_graphs.get(W)
+            if graph is None:
+                graph = self._dec_graphs[W] = CapturedStep(
+                    "engine_decode", lambda: self._decode_step(inp),
+                    generators=(self._gen,))
+                load()
+            for _ in range(chunk):
+                graph.replay()
+        return self._dec_out[:, :chunk].cpu().numpy().astype(np.int32)
 
     def _last_token(self, seq: _Seq) -> int:
         return int(seq.out[-1]) if seq.out else int(seq.prompt[-1])

@@ -895,10 +895,16 @@ def parity_phase(label="gpt3_1p3b", build=None) -> dict:
     eager_res = eager.generate(prompts, max_new_tokens=n_new)
     graph_vs_eager = [i for i, (a, b) in enumerate(zip(res, eager_res))
                       if not np.array_equal(a.output_ids, b.output_ids)]
-    guarded, mismatched = [], []
+    guarded, mismatched, dense_vs_eager = [], [], []
     with torch.no_grad():
         for i, (p, r) in enumerate(zip(prompts, res)):
+            # dense generate's graphs (use_fused_step=True) against its
+            # eager loop on the card: exactly the same tokens
             dense = generate(model, p[None], max_new_tokens=n_new)
+            if not torch.equal(dense, generate(model, p[None],
+                                               max_new_tokens=n_new,
+                                               use_fused_step=False)):
+                dense_vs_eager.append(i)
             dense = dense[0].cpu().numpy()
             lg = model(torch.as_tensor(dense[None].astype(np.int64),
                                        device="cuda"))[0]
@@ -909,23 +915,34 @@ def parity_phase(label="gpt3_1p3b", build=None) -> dict:
             guarded.append(n)
             if not np.array_equal(r.output_ids[:n], dense[len(p):][:n]):
                 mismatched.append(i)
+    dense_replays = {k: cuda_graph.replays[k]
+                     for k in ("generate_prefill", "generate_decode")}
     log(f"[parity] {label}: engine vs dense generate (f32, 2 layers): tokens "
         f"compared per request {guarded} of {n_new} (margin guard "
         f"{margin}); mismatched requests {mismatched}; B3 launches by "
         f"design {designs}; engine decode graph replays {replays}, "
         f"requests whose graph tokens differ from the eager steps' "
-        f"{graph_vs_eager}")
+        f"{graph_vs_eager}; dense generate graph replays "
+        f"{dict(dense_replays)}, requests whose graph tokens differ from "
+        f"its eager loop's {dense_vs_eager}")
     if mismatched or min(guarded) == 0 or designs["simple"] == 0:
         raise RuntimeError("engine tokens differ from dense generate, or "
                            "B3's simple design did not run")
     if graph_vs_eager or replays == 0:
         raise RuntimeError("the engine's decode graphs did not run, or "
                            "their tokens differ from the eager steps'")
+    if dense_vs_eager or dense_replays["generate_decode"] != len(prompts) \
+            * (n_new - 1):
+        raise RuntimeError("dense generate's graphs did not run every "
+                           "decode step, or their tokens differ from its "
+                           "eager loop's")
     del eng, eager, model
     torch.cuda.empty_cache()
     return dict(config=label, guarded=guarded, n_new=n_new,
                 b3_design_launches=designs, engine_graph_replays=replays,
-                engine_graph_vs_eager_mismatched=graph_vs_eager)
+                engine_graph_vs_eager_mismatched=graph_vs_eager,
+                generate_graph_replays=dense_replays,
+                generate_graph_vs_eager_mismatched=dense_vs_eager)
 
 
 # ---------------------------------------------------------------------------

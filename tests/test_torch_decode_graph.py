@@ -15,15 +15,20 @@ around them:
 """
 import collections
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
+import torch
 
+import paddle_tpu as pt
+from paddle_tpu.models.generation import generate as jax_generate
 from paddle_tpu_torch.inference import LLMEngine
 from paddle_tpu_torch.inference import llm_engine
 from paddle_tpu_torch.jit import cuda_graph
-from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
-from torch_port_helpers import twin_gpts, twin_llamas
+from paddle_tpu_torch.models import GPTForCausalLM, generate, gpt_tiny
+from torch_port_helpers import (assert_tokens_equal_guarded, twin_gpts,
+                                twin_llamas)
 
 # the engine tests' traffic: a shared prefix, and a pool small enough to
 # preempt (tests/test_torch_llm_engine.py)
@@ -161,3 +166,82 @@ def test_cpu_decode_captures_no_graph(gpt_twins, monkeypatch):
     cuda_graph.reset_counters()
     _serve(gpt_twins[1], monkeypatch, RULES["bucket"])
     assert not cuda_graph.captures and not cuda_graph.replays
+
+
+def _greedy_eos(tm, p, n_new):
+    """An eos id the greedy run of `p` reaches a few tokens in, so the
+    run's tail is forced."""
+    toks = generate(tm, p[None], max_new_tokens=n_new,
+                    device="cpu").numpy()[0, len(p):]
+    return int(toks[3])
+
+
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+@pytest.mark.parametrize("sampling", [
+    dict(), dict(do_sample=True, temperature=0.8, top_p=0.9, top_k=50,
+                 seed=3)], ids=["greedy", "sampled"])
+def test_fused_generate_equals_the_eager_loop(request, family, sampling):
+    _jm, tm = _models(request, family)
+    rng = np.random.default_rng(2)
+    p = rng.integers(0, 1024, (2, 9)).astype(np.int32)
+    eos = _greedy_eos(tm, p[0], 12)
+    for kw in (dict(), dict(eos_token_id=eos)):
+        fused = generate(tm, p, max_new_tokens=12, device="cpu",
+                         **sampling, **kw)
+        eager = generate(tm, p, max_new_tokens=12, device="cpu",
+                         use_fused_step=False, **sampling, **kw)
+        assert fused.dtype == torch.int32 and fused.shape == (2, 21)
+        torch.testing.assert_close(fused, eager, rtol=0, atol=0)
+    if not sampling:
+        row = fused[0, 9:].numpy()
+        first = int(np.flatnonzero(row == eos)[0])
+        assert (row[first:] == eos).all() and first < len(row) - 1
+
+
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+def test_fused_generate_equals_reference(request, family):
+    jm, tm = _models(request, family)
+    rng = np.random.default_rng(5)
+    for n in (7, 19):
+        p = rng.integers(0, 1024, (n,)).astype(np.int32)
+        eos = _greedy_eos(tm, p, 12)
+        want = np.asarray(jax_generate(
+            jm, pt.to_tensor(p[None]), max_new_tokens=12,
+            eos_token_id=eos, use_fused_step=True).numpy())[0, n:]
+        got = generate(tm, p[None], max_new_tokens=12, eos_token_id=eos,
+                       device="cpu", use_fused_step=True).numpy()[0, n:]
+        assert eos in want
+        assert assert_tokens_equal_guarded(tm, p, want, got) > 0
+
+
+def test_generate_has_the_reference_parameters():
+    from paddle_tpu.models import generation as ref
+    mine = inspect.signature(generate).parameters
+    theirs = inspect.signature(ref.generate).parameters
+    assert [n for n in mine if n != "device"] == list(theirs)
+    assert mine["use_fused_step"].default is True
+    assert theirs["use_fused_step"].default is True
+
+
+def test_fused_loops_are_an_lru_of_eight(gpt_twins):
+    _jm, tm = gpt_twins
+    tm.__dict__.pop("_fused_decode_loops", None)
+    p = np.arange(1, 6, dtype=np.int32)[None]
+    for eos in range(10):
+        generate(tm, p, max_new_tokens=3, eos_token_id=eos, device="cpu")
+    loops = tm.__dict__["_fused_decode_loops"]
+    assert isinstance(loops, collections.OrderedDict)
+    assert [k[4] for k in loops] == list(range(2, 10))
+    # a loop whose model's weights moved is built again
+    loop = loops[next(reversed(loops))]
+    generate(tm, p, max_new_tokens=3, eos_token_id=9, device="cpu")
+    assert loops[next(reversed(loops))] is loop
+    w = tm.gpt.final_norm.weight
+    saved = w.data
+    w.data = saved.clone()
+    try:
+        generate(tm, p, max_new_tokens=3, eos_token_id=9, device="cpu")
+        assert loops[next(reversed(loops))] is not loop
+    finally:
+        w.data = saved
+        tm.__dict__.pop("_fused_decode_loops", None)

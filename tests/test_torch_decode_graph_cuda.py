@@ -16,6 +16,8 @@ consumed, and each replay reads the generator's state when it starts,
 so the graphs draw the same numbers as the eager steps from the same
 seed, not only numbers of the same distribution.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -44,9 +46,12 @@ def cuda_device():
 
 
 def _model(family, dtype):
+    """2 layers at head_dim 64, which B3's kernels take (LLaMA with
+    GQA, 4 heads over 2 kv heads)."""
     cls, cfg = {"gpt": (GPTForCausalLM, gpt_tiny),
                 "llama": (LlamaForCausalLM, llama_tiny)}[family]
-    return cls(cfg(), device="cuda", dtype=dtype, seed=0)
+    cfg = dataclasses.replace(cfg(), hidden_size=256)
+    return cls(cfg, device="cuda", dtype=dtype, seed=0)
 
 
 def _prompts(seed=7):
@@ -124,3 +129,31 @@ def test_engine_captures_one_graph_per_width_bucket(cuda_device):
     assert len(buckets) < len(reached)
     assert cuda_graph.captures["engine_decode"] == len(buckets)
     assert cuda_graph.replays["engine_decode"] == len(w)
+
+
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_generate_equals_eager_loop(cuda_device, family, dtype):
+    model = _model(family, dtype)
+    rng = np.random.default_rng(2)
+    p = rng.integers(0, 1024, (2, 9)).astype(np.int32)
+    eos = int(generate(model, p, max_new_tokens=8,
+                       use_fused_step=False)[0, 9 + 3])
+    model.__dict__.pop("_fused_decode_loops", None)
+    cuda_graph.reset_counters()
+    for kw in (dict(), dict(eos_token_id=eos), SAMPLING):
+        eager = generate(model, p, max_new_tokens=12, use_fused_step=False,
+                         **kw)
+        fused = generate(model, p, max_new_tokens=12, **kw)
+        again = generate(model, p, max_new_tokens=12, **kw)
+        torch.testing.assert_close(fused, eager, rtol=0, atol=0)
+        torch.testing.assert_close(again, eager, rtol=0, atol=0)
+    # one prefill and one step graph a key; every later call replays
+    assert cuda_graph.captures["generate_prefill"] == 3
+    assert cuda_graph.captures["generate_decode"] == 3
+    assert cuda_graph.replays["generate_prefill"] == 6
+    assert cuda_graph.replays["generate_decode"] == 6 * 11
+    # a shorter prompt in the same cache bucket replays the same step
+    generate(model, p[:, :5], max_new_tokens=12)
+    assert cuda_graph.captures["generate_decode"] == 3
+    assert cuda_graph.captures["generate_prefill"] == 4

@@ -749,7 +749,14 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_ms, attn_step_ms = _decode_device_ms(eng, widths[-1])
+    step_ms, attn_step_ms, attn_err, attn_tol = _decode_device_ms(
+        eng, widths[-1])
+    ok = attn_err <= attn_tol
+    log(f"[engine] check: decode attention on the card == on the CPU "
+        f"(err {attn_err:.3e}, limit {attn_tol:.3e}): "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("decode attention differs from its CPU version")
     rec = dict(config=label, layers=cfg.num_layers, tokens=n_tok,
                run_s=run_s, tokens_per_s=n_tok / run_s,
                steps=len(step_s), step_ms_mean=1e3 * run_s / len(step_s),
@@ -770,6 +777,8 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
                # attention of one layer at the last width bucket
                decode_step_replay_ms=step_ms,
                decode_attention_replay_ms=attn_step_ms,
+               decode_attention_err=attn_err,
+               decode_attention_tol=attn_tol,
                decode_attention_share=cfg.num_layers * attn_step_ms
                / step_ms,
                # a floor for one batch decode step: every weight read once
@@ -810,9 +819,14 @@ def _decode_device_ms(eng, width):
     graph at `width` (chunks of 16 steps from the step counter's 0, 5
     times, between CUDA events), and of one layer's
     `_pool_decode_attention` by graph_ms at that width (8 rows, each
-    row's length in its last page, the engine's pool). Measurement
-    only: the engine has served its requests, and the replays rewrite
-    the slots its last chunk wrote."""
+    row's length in its last page, the engine's first pool), and that
+    attention's largest difference from the same call on the CPU (the
+    card's bf16 products into f32 against the CPU's widened operands)
+    with its limit: a p rounded the other way moves an output by at
+    most one bf16 ulp of p (2^-7 of it) times |v|, so 2^-7 max |v|,
+    plus 1e-5 for the f32 sums' order. Measurement only: the engine has
+    served its requests, and the replays rewrite the slots its last
+    chunk wrote."""
     import torch
     from paddle_tpu_torch.inference import llm_engine as eng_mod
     graph = eng._dec_graphs[width]
@@ -841,7 +855,12 @@ def _decode_device_ms(eng, width):
     scale = 1.0 / eng.fam.head_dim ** 0.5
     attn_ms = graph_ms(lambda: eng_mod._pool_decode_attention(
         q, kc, vc, tbl, lens, scale, bs))
-    return step_ms, attn_ms
+    got = eng_mod._pool_decode_attention(q, kc, vc, tbl, lens, scale, bs)
+    want = eng_mod._pool_decode_attention(q.cpu(), kc.cpu(), vc.cpu(),
+                                          tbl.cpu(), lens.cpu(), scale, bs)
+    err = float((got.cpu() - want).abs().max())
+    tol = 2.0 ** -7 * float(vc.float().abs().max()) + 1e-5
+    return step_ms, attn_ms, err, tol
 
 
 def engine_phase() -> dict:

@@ -246,6 +246,17 @@ def _rope_at(rope, pos):
     return rope[0][pos][:, None, :], rope[1][pos][:, None, :]
 
 
+def _bmm_f32(a, b):
+    """a @ b over the leading batch dimension with f32 products and sums.
+    On the card cuBLAS multiplies half-precision operands into f32
+    (torch.bmm's out_dtype); the CPU build has no such product, so there
+    the operands are widened first: the same products, since a product
+    of two bf16 values is exact in f32."""
+    if a.device.type == "cuda" and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def _pool_decode_attention(q, kpool, vpool, tbl, lens, scale, block_size):
     """One-token-per-row attention over each row's pages.
 
@@ -257,25 +268,35 @@ def _pool_decode_attention(q, kpool, vpool, tbl, lens, scale, block_size):
     llm_engine.py:476): a row's owned pages in table order hold exactly
     its positions, so gathering them replaces masking the whole pool.
     An inactive row's table is the trash page and its length 0, so it
-    attends one (ignored) slot, as it does in paddle_tpu's engine."""
+    attends one (ignored) slot, as it does in paddle_tpu's engine.
+
+    The reference's arithmetic: q·scale and p rounded to the pool's
+    dtype, products and sums in f32, f32 scores and softmax. Each row's
+    gathered pages [T, kvH*D] are read in place by one batched product
+    per row and side: q enters as a block-diagonal [H, kvH*D] (each
+    head's q in its kv head's columns, zeros elsewhere), so the scores
+    are [H, T] with nothing added but exact zeros, and P·V yields
+    [H, kvH*D], of which each head keeps its own kv head's block. (The
+    zeros carry a non-finite value of one kv head's k at a slot into
+    every head's score there; a finite pool gives the reference's
+    scores.)"""
     B, H, D = q.shape
     kvH = kpool.shape[1]
     rep = H // kvH
-    P = tbl.shape[1]
-    kc = kpool.view(-1, block_size, kvH, D)[tbl].reshape(B, P * block_size,
-                                                         kvH, D)
-    vc = vpool.view(-1, block_size, kvH, D)[tbl].reshape(B, P * block_size,
-                                                         kvH, D)
-    q4 = (q.float() * scale).reshape(B, kvH, rep, D)
-    s = torch.einsum("bkrd,btkd->bkrt", q4.to(kpool.dtype).float(),
-                     kc.float())
-    gpos = torch.arange(P * block_size, device=q.device)
-    valid = gpos[None, :] <= lens[:, None]                   # [B, P*bs]
-    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkrt,btkd->bkrd", p.to(vpool.dtype).float(),
-                       vc.float())
-    return out.reshape(B, H * D)
+    T = tbl.shape[1] * block_size
+    kc = kpool.view(-1, block_size, kvH, D)[tbl].reshape(B, T, kvH * D)
+    vc = vpool.view(-1, block_size, kvH, D)[tbl].reshape(B, T, kvH * D)
+    q4 = (q.float() * scale).to(kpool.dtype).reshape(B, kvH, rep, 1, D)
+    eye = torch.eye(kvH, dtype=kpool.dtype, device=q.device)
+    qbd = (q4 * eye[:, None, :, None]).reshape(B, H, kvH * D)
+    s = _bmm_f32(qbd, kc.transpose(1, 2))                     # [B, H, T]
+    gpos = torch.arange(T, device=q.device)
+    valid = gpos[None, :] <= lens[:, None]                   # [B, T]
+    s = s.masked_fill(~valid[:, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1).to(vpool.dtype)
+    o = _bmm_f32(p, vc).reshape(B, kvH, rep, kvH, D)         # f32
+    return torch.diagonal(o, dim1=1, dim2=3).permute(0, 3, 1, 2) \
+        .reshape(B, H * D)
 
 
 class LLMEngine:

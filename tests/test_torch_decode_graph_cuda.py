@@ -157,3 +157,33 @@ def test_fused_generate_equals_eager_loop(cuda_device, family, dtype):
     generate(model, p[:, :5], max_new_tokens=12)
     assert cuda_graph.captures["generate_decode"] == 3
     assert cuda_graph.captures["generate_prefill"] == 4
+
+
+@pytest.mark.parametrize("heads", [(4, 2), (8, 8), (8, 1)],
+                         ids=["gqa", "mha", "mqa"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_on_the_card_equals_cpu(cuda_device, heads, dtype):
+    """The engine's decode attention: on the card half-precision
+    operands are multiplied into f32 by cuBLAS, on the CPU they are
+    widened first. A p rounded the other way moves an output by at most
+    one bf16 ulp of p (2^-7 of it) times |v|; the f32 sums' order adds
+    ~1e-6."""
+    H, kvH = heads
+    D, bs, NB, B, P = 64, 8, 40, 5, 6
+    g = torch.Generator().manual_seed(0)
+    kp = torch.randn(NB * bs, kvH, D, generator=g).to(dtype)
+    vp = torch.randn(NB * bs, kvH, D, generator=g).to(dtype)
+    q = torch.randn(B, H, D, generator=g).to(dtype)
+    tbl = torch.randperm(NB, generator=g)[:B * P].reshape(B, P)
+    lens = torch.tensor([0, 7, 8, 30, P * bs - 1])
+    args = (q, kp, vp, tbl, lens)
+    want = llm_engine._pool_decode_attention(*args, 0.125, bs)
+    got = llm_engine._pool_decode_attention(
+        *(a.to(cuda_device) for a in args), 0.125, bs).cpu()
+    assert got.dtype == want.dtype == torch.float32
+    tol = 2.0 ** -7 * float(vp.float().abs().max()) + 1e-5
+    assert float((got - want).abs().max()) <= tol
+    # a kv head's block taken from the wrong head is far outside it
+    wrong = want.reshape(B, kvH, H // kvH, D).roll(1, dims=1).reshape(B, -1)
+    if kvH > 1:
+        assert float((got - wrong).abs().max()) > 10 * tol

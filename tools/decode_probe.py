@@ -6,16 +6,17 @@
 Run from the root of a checkout, on a machine with one NVIDIA GPU. At
 the serving runs' decode shapes (chip_smoke.py phases 4 and 9: 8 rows,
 10 pages of 64 slots a row, bf16 pools; gpt3_1p3b's 16 heads and
-llama2_7b's 32, head_dim 128) it times
-`inference/llm_engine.py::_pool_decode_attention` by CUDA-graph replay
-(chip_smoke.graph_ms: device time only), beside the least time of its
-one necessary read (each row's K and V slots once, at the published
-HBM rate) and the bytes the function's form moves (the gathered K/V
-copies, their f32 widening, the two f32 products' operands). Where
-`torch.bmm` takes `out_dtype`, it also times the same attention with
-bf16 operands and f32 products (a candidate form) and prints its
-largest difference from the engine's form. The card's name and power
-limit lead the output; the JSON record goes to --out.
+llama2_7b's 32, head_dim 128) it times by CUDA-graph replay
+(chip_smoke.graph_ms: device time only) three forms of the same
+attention, bf16 products summed in f32 with f32 scores:
+`inference/llm_engine.py::_pool_decode_attention` (the gathered pages
+read in place by bf16 products into f32, q block-diagonal), the form
+before it (the gathered pages widened to f32, two f32 einsums) and a
+third (each kv head's pages copied out whole, then bf16 products into
+f32), beside the least time of the one necessary read (each row's K and
+V slots once, at the published HBM rate), and prints each form's
+largest difference from the engine's. The card's name and power limit
+lead the output; the JSON record goes to --out.
 """
 from __future__ import annotations
 
@@ -31,17 +32,38 @@ SHAPES = {"gpt3_1p3b": dict(H=16, kvH=16, D=128, NB=257),
 B, PAGES, BS = 8, 10, 64
 
 
-def _bmm_form(q, kpool, vpool, tbl, lens, scale, bs):
-    """_pool_decode_attention with bf16 products accumulated into f32
-    scores and outputs by torch.bmm(..., out_dtype=torch.float32)."""
+def _widened_form(q, kpool, vpool, tbl, lens, scale, bs):
+    """The engine's form before the bf16 products: the gathered pages
+    widened to f32, two f32 einsums."""
+    import torch
+    B, H, D = q.shape
+    kvH = kpool.shape[1]
+    rep = H // kvH
+    P = tbl.shape[1]
+    kc = kpool.view(-1, bs, kvH, D)[tbl].reshape(B, P * bs, kvH, D)
+    vc = vpool.view(-1, bs, kvH, D)[tbl].reshape(B, P * bs, kvH, D)
+    q4 = (q.float() * scale).reshape(B, kvH, rep, D)
+    s = torch.einsum("bkrd,btkd->bkrt", q4.to(kpool.dtype).float(),
+                     kc.float())
+    valid = torch.arange(P * bs, device=q.device)[None, :] \
+        <= lens[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkrt,btkd->bkrd", p.to(vpool.dtype).float(),
+                       vc.float())
+    return out.reshape(B, H * D)
+
+
+def _per_head_form(q, kpool, vpool, tbl, lens, scale, bs):
+    """Each kv head's gathered pages copied out as [B * kvH, T, D], then
+    bf16 products into f32 by torch.bmm(..., out_dtype=torch.float32)."""
     import torch
     Bq, H, D = q.shape
     kvH = kpool.shape[1]
     rep = H // kvH
-    P = tbl.shape[1]
-    T = P * bs
+    T = tbl.shape[1] * bs
 
-    def gather(pool):                   # [B * kvH, T, D]
+    def gather(pool):
         c = pool.view(-1, bs, kvH, D)[tbl].reshape(Bq, T, kvH, D)
         return c.permute(0, 2, 1, 3).reshape(Bq * kvH, T, D)
 
@@ -72,14 +94,6 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(f"{card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
-    try:
-        torch.bmm(torch.ones(1, 2, 16, dtype=torch.bfloat16, device="cuda"),
-                  torch.ones(1, 16, 2, dtype=torch.bfloat16, device="cuda"),
-                  out_dtype=torch.float32)
-        has_out_dtype = True
-    except (TypeError, RuntimeError) as e:     # the probe reports it
-        has_out_dtype = False
-        print(f"torch.bmm(..., out_dtype=float32) is not offered: {e}")
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     recs = {}
@@ -103,34 +117,29 @@ def main() -> int:
 
         ms = graph_ms(engine_form)
         kv = 2 * B * T * kvH * D * 2                  # bf16 K and V slots
-        # the form's traffic: gather (read + write the bf16 copy), widen
-        # (read it, write f32), both f32 products read their operands
-        form_bytes = kv * (2 + 3 + 2)
         rec = dict(H=H, kvH=kvH, D=D, rows=B, slots=T, ms=ms,
-                   kv_read_bound_ms=1e3 * kv / HBM_BYTES_PER_S,
-                   form_bytes=form_bytes,
-                   form_bytes_ms=1e3 * form_bytes / HBM_BYTES_PER_S)
-        if has_out_dtype:
-            want = engine_form()
-            got = _bmm_form(q, kp, vp, tbl, lens, scale, BS)
-            rec["bmm_out_dtype_ms"] = graph_ms(
-                lambda: _bmm_form(q, kp, vp, tbl, lens, scale, BS))
-            rec["bmm_out_dtype_max_abs_diff"] = float(
+                   kv_read_bound_ms=1e3 * kv / HBM_BYTES_PER_S)
+        want = engine_form()
+        for form_name, form in (("widened", _widened_form),
+                                ("per_head", _per_head_form)):
+            got = form(q, kp, vp, tbl, lens, scale, BS)
+            rec[f"{form_name}_ms"] = graph_ms(
+                lambda f=form: f(q, kp, vp, tbl, lens, scale, BS))
+            rec[f"{form_name}_max_abs_diff"] = float(
                 (got - want).abs().max())
         recs[name] = rec
         print(f"{name}: _pool_decode_attention {ms:.4f} ms by replay "
               f"(rows {B}, slots {T}, H {H}, kvH {kvH}); KV read bound "
-              f"{rec['kv_read_bound_ms']:.4f} ms; the form's bytes "
-              f"{form_bytes / 1e6:.1f} MB = {rec['form_bytes_ms']:.4f} ms"
-              + (f"; bmm out_dtype form {rec['bmm_out_dtype_ms']:.4f} ms, "
-                 f"max abs diff {rec['bmm_out_dtype_max_abs_diff']:.3e}"
-                 if has_out_dtype else ""), flush=True)
+              f"{rec['kv_read_bound_ms']:.4f} ms; widened form "
+              f"{rec['widened_ms']:.4f} ms (max abs diff "
+              f"{rec['widened_max_abs_diff']:.3e}); per-head form "
+              f"{rec['per_head_ms']:.4f} ms (max abs diff "
+              f"{rec['per_head_max_abs_diff']:.3e})", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(card=card, torch=torch.__version__,
-                           bmm_out_dtype=has_out_dtype, shapes=recs), f,
-                      indent=1)
+                           shapes=recs), f, indent=1)
     return 0
 
 

@@ -22,6 +22,7 @@ caller gives its graphs ("engine_decode", "generate_prefill",
 from __future__ import annotations
 
 import collections
+import gc
 import time
 
 import torch
@@ -59,7 +60,12 @@ class CapturedStep:
     the caller copies its inputs in again before the first replay. The
     states of the ``generators`` fn draws from are put back after it and
     registered with the graph, so each replay advances them as an eager
-    call would."""
+    call would.
+
+    The cyclic garbage collector is off while the graph is captured: a
+    dead cycle holding an older graph, freed then, would release that
+    graph's memory in the middle of the capture, which CUDA refuses
+    (the capture is invalidated)."""
 
     def __init__(self, name: str, fn, generators=()):
         t0 = time.perf_counter()
@@ -75,8 +81,14 @@ class CapturedStep:
         self.graph = torch.cuda.CUDAGraph()
         for g in generators:
             self.graph.register_generator_state(g)
-        with torch.cuda.graph(self.graph, pool=_graph_pool()):
-            self.output = fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=_graph_pool()):
+                self.output = fn()
+        finally:
+            if collecting:
+                gc.enable()
         captures[name] += 1
         capture_seconds[name] += time.perf_counter() - t0
 

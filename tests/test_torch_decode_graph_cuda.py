@@ -17,6 +17,7 @@ so the graphs draw the same numbers as the eager steps from the same
 seed, not only numbers of the same distribution.
 """
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -187,3 +188,27 @@ def test_decode_attention_on_the_card_equals_cpu(cuda_device, heads, dtype):
     wrong = want.reshape(B, kvH, H // kvH, D).roll(1, dims=1).reshape(B, -1)
     if kvH > 1:
         assert float((got - wrong).abs().max()) > 10 * tol
+
+
+def test_capture_survives_a_dead_cycle_holding_a_graph(cuda_device):
+    """A graph kept only by a dead reference cycle is freed by the
+    cyclic collector, not during another graph's capture (the collector
+    runs at every allocation here)."""
+    x = torch.zeros(4, device=cuda_device)
+
+    class Holder:
+        pass
+
+    for _ in range(3):
+        h = Holder()
+        h.me = h
+        h.graph = cuda_graph.CapturedStep("test", lambda: x.add_(1))
+        del h
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        step = cuda_graph.CapturedStep("test", lambda: x.mul(2))
+    finally:
+        gc.set_threshold(*thresholds)
+    x.fill_(3)
+    torch.testing.assert_close(step.replay(), torch.full_like(x, 6))

@@ -819,8 +819,10 @@ def _decode_device_ms(eng, width):
     graph at `width` (chunks of 16 steps from the step counter's 0, 5
     times, between CUDA events), and of one layer's
     `_pool_decode_attention` by graph_ms at that width (8 rows, each
-    row's length in its last page, the engine's first pool), and that
-    attention's largest difference from the same call on the CPU (the
+    row's length in its last page; every layer's pool in turn, so each
+    read finds its pool cold in L2 as a step does), and that
+    attention's largest difference (the first layer's pool) from the
+    same call on the CPU (the
     card's bf16 products into f32 against the CPU's widened operands)
     with its limit: a p rounded the other way moves an output by at
     most one bf16 ulp of p (2^-7 of it) times |v|, so 2^-7 max |v|,
@@ -851,10 +853,12 @@ def _decode_device_ms(eng, width):
     tbl = (torch.arange(B * width, device="cuda") % (nb - 1) + 1
            ).reshape(B, width)
     lens = torch.full((B,), width * bs - 1, device="cuda")
-    kc, vc = eng.cache.key_caches[0], eng.cache.value_caches[0]
+    kcs, vcs = eng.cache.key_caches, eng.cache.value_caches
+    kc, vc = kcs[0], vcs[0]
     scale = 1.0 / eng.fam.head_dim ** 0.5
-    attn_ms = graph_ms(lambda: eng_mod._pool_decode_attention(
-        q, kc, vc, tbl, lens, scale, bs))
+    attn_ms = graph_ms(lambda: [eng_mod._pool_decode_attention(
+        q, k, v, tbl, lens, scale, bs) for k, v in zip(kcs, vcs)],
+        reps=2) / len(kcs)
     got = eng_mod._pool_decode_attention(q, kc, vc, tbl, lens, scale, bs)
     want = eng_mod._pool_decode_attention(q.cpu(), kc.cpu(), vc.cpu(),
                                           tbl.cpu(), lens.cpu(), scale, bs)

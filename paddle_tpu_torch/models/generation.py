@@ -181,7 +181,7 @@ class _FusedLoop:
         self.nxt = torch.zeros((b,), **i64)
         self.finished = torch.zeros((b,), dtype=torch.bool, device=dev)
         self.out = torch.zeros((b, max_len), **i64)
-        self.ids = collections.OrderedDict()     # prompt_len -> [b, len]
+        # prompt_len -> (static ids [b, prompt_len], its prefill graph)
         self.prefills = collections.OrderedDict()
         self.step_graph = None
         self.params = _param_ptrs(model)
@@ -199,19 +199,16 @@ class _FusedLoop:
         if self.dev.type == "cpu":
             return self._prefill(ids)
         n = ids.shape[1]
-        buf = self.ids.get(n)
-        if buf is None:
-            if len(self.ids) >= _LOOP_CACHE:
-                old, _ = self.ids.popitem(last=False)
-                del self.prefills[old]
-            buf = self.ids[n] = torch.empty_like(ids)
-            buf.copy_(ids)
-            self.prefills[n] = CapturedStep(
-                "generate_prefill", lambda: self._prefill(buf))
-        self.ids.move_to_end(n)
+        if n not in self.prefills:
+            if len(self.prefills) >= _LOOP_CACHE:
+                self.prefills.popitem(last=False)
+            buf = ids.clone()
+            self.prefills[n] = (buf, CapturedStep(
+                "generate_prefill", lambda: self._prefill(buf)))
         self.prefills.move_to_end(n)
+        buf, graph = self.prefills[n]
         buf.copy_(ids)
-        return self.prefills[n].replay()
+        return graph.replay()
 
     def step(self):
         """One decode token for the batch: the reference's scan body

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time LLMEngine's decode attention alone on the card.
 
-    python3 tools/decode_probe.py [--out chiprun_out/decode_probe.json]
+    python3 tools/decode_probe.py [--out decode_probe.json]
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU. At
 the serving runs' decode shapes (chip_smoke.py phases 4 and 9: 8 rows,

@@ -13,6 +13,10 @@ into TrainStep's forward, backward and update (with the span each of the
 forward and the update covers on the device timeline), the kernel time
 split by kind (the flash-attention kernels, cuBLAS matrix products, the
 rest), and the 25 kernels that take the most device time.
+Without the profiler it also times 10 steps by wall (synchronised after
+each), and one step captured once as a CUDA graph and replayed by
+events: the step's device time with no host in it, so 1 - replay / wall
+is the device's idle share in an ordinary step.
 The card's name and power limit lead the output.
 """
 from __future__ import annotations
@@ -39,6 +43,35 @@ def _part(name: str) -> str:
     return "elementwise, reductions, copies"
 
 
+def _replay_ms(torch, fn, iters=5):
+    """Median device time of one call of `fn`, captured once as a CUDA
+    graph after a warm-up call on a side stream, replayed between CUDA
+    events. The replays repeat the captured call's kernels on the
+    captured addresses: the same work as a step, with no host between
+    its kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    del graph
+    return float(np.median(times))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=2)
@@ -58,11 +91,20 @@ def main() -> int:
                      use_flash_attention=True)
     model, step = _gpt2_train_step(cfg, use_amp=True)
     rng = np.random.default_rng(0)
-    ids = rng.integers(0, cfg.vocab_size, (16, 1024)).astype(np.int32)
-    labels = rng.integers(0, cfg.vocab_size, (16, 1024)).astype(np.int32)
+    # the batch on the card, so a step copies nothing from the host
+    ids, labels = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (16, 1024)).astype(np.int32)).cuda()
+        for _ in range(2))
     for _ in range(3):
         step(ids, labels)
     torch.cuda.synchronize()
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall_med = float(np.median(walls))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -119,6 +161,11 @@ def main() -> int:
     print("top kernels (ms per step, calls per step):")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
         print(f"  {us / 1e3 / n:8.3f}  {calls[name] / n:6.0f}  {name[:110]}")
+    replay_ms = _replay_ms(torch, lambda: step(ids, labels))
+    print(f"without the profiler: wall {wall_med:.2f} ms/step (median of "
+          f"10; {min(walls):.2f}-{max(walls):.2f}), one step by CUDA-graph "
+          f"replay {replay_ms:.2f} ms, device idle "
+          f"{100 * (1 - replay_ms / wall_med):.1f} %", flush=True)
     return 0
 
 

@@ -232,6 +232,7 @@ def build_all() -> dict:
     started together); returns {name: seconds}."""
     from paddle_tpu_torch.inference import paged_cache
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
     from paddle_tpu_torch.kernels import norms
     from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
     jobs = {"ragged_paged_attention.cu (nvcc)": rpa._load_kernel,
@@ -240,6 +241,7 @@ def build_all() -> dict:
             "flash_fwd_sm90.cu (nvcc)": fa._load_sm90,
             "flash_bwd_sm90.cu (nvcc)": fa._load_sm90_bwd,
             "norms.cu (nvcc)": norms._load_kernel,
+            "multi_tensor_adam.cu (nvcc)": mta._load_kernel,
             "_block_allocator.cpp (g++)": paged_cache._load_lib}
     secs, errors = {}, {}
 
@@ -1323,6 +1325,7 @@ def _gpt2_train_step(cfg, use_amp, lr=1e-4, seed=0):
 def train_phase() -> dict:
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
     from paddle_tpu_torch.models import gpt2_small, num_params
     cfg = gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
                      use_flash_attention=True)
@@ -1345,6 +1348,8 @@ def train_phase() -> dict:
     with kernel_events(fwd=(fa, "_fwd_cuda"), bwd=(fa, "_bwd_cuda")) \
             as events:
         fa.reset_counters()
+        mta.multi_tensor_adam.kernel_launches = 0
+        mta.multi_tensor_adam.plain_calls = 0
         losses, step_s = [], []
         for i in range(warmup + steps):
             if i == warmup:
@@ -1361,6 +1366,8 @@ def train_phase() -> dict:
         designs = dict(fa.flash_fwd.design_launches)
         bwd_designs = dict(fa.flash_bwd.design_launches)
         plain = (fa.flash_fwd.plain_calls, fa.flash_bwd.plain_calls)
+        update = (mta.multi_tensor_adam.kernel_launches,
+                  mta.multi_tensor_adam.plain_calls)
     losses = [float(x) for x in losses]
     timed_s = step_s[warmup:]
     per_step = {k: sum(s.elapsed_time(e) for s, e in v) / steps
@@ -1396,7 +1403,8 @@ def train_phase() -> dict:
                b2_ms_per_step=per_step["bwd"],
                b1_launches=launches[0], b2_launches=launches[1],
                b1_design_launches=designs, b2_design_launches=bwd_designs,
-               plain_calls=list(plain), losses=losses, setup_s=setup_s,
+               plain_calls=list(plain), update_launches=update[0],
+               update_plain_calls=update[1], losses=losses, setup_s=setup_s,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f"[train] gpt2_small bf16 O1 AdamW, {cfg.num_layers} layers, batch "
         f"{batch} x seq {seq}: {tok_s:.1f} tokens/s, step median "
@@ -1822,6 +1830,187 @@ def fused_phase() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the multi-tensor Adam update vs its plain version
+# ---------------------------------------------------------------------------
+# (name, AdamW (decoupled decay) or Adam (coupled L2), moment dtype, grad
+# dtype, bf16 parameters with f32 masters, decays of the two groups:
+# matrices, then vectors)
+UPDATE_CASES = [
+    ("adamw f32, two groups' decays", True, "float32", "float32", False,
+     (0.01, 0.1)),
+    ("adamw bf16 moments", True, "bfloat16", "float32", False, (0.01, 0.0)),
+    ("adam coupled L2", False, "float32", "float32", False, (0.01, 0.01)),
+    ("adamw bf16 params with f32 masters", True, "float32", "bfloat16", True,
+     (0.01, 0.01)),
+]
+# kernel vs plain, element by element, in units of the last place of the
+# stored type at the plain value (or at the tensor's rms, if larger): the
+# kernel computes the plain
+# version's f32 operations in the same order with no FMA contraction and
+# rounds each store to nearest even as the plain casts do, so 2 f32 ulps
+# and 1 bf16 ulp; a planted 1 % error in one tensor's lr moves its
+# elements by ~1e-2 of an update, hundreds of f32 ulps
+UPDATE_ULPS = {"float32": 2, "bfloat16": 1}
+UPDATE_MANTISSA = {"float32": 23, "bfloat16": 7}
+UPDATE_LR, UPDATE_STEPS = 1e-4, 3
+
+
+def _ulp_err(got, want):
+    """The largest |got - want| in units of the last place of want's
+    dtype at |want|, or at the tensor's rms where |want| is smaller (a
+    value that is small by cancellation carries its terms' rounding)."""
+    import torch
+    dt = str(want.dtype).split(".")[-1]
+    w = want.double()
+    floor = max(float(w.square().mean().sqrt()) if w.numel() else 0.0,
+                torch.finfo(want.dtype).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(floor)))
+                     - UPDATE_MANTISSA[dt])
+    return float(((got.double() - w).abs() / ulp).max()) if w.numel() \
+        else 0.0
+
+
+def _update_bound(slots):
+    """(bound_ms, bound_by, bytes, flops): each element reads w, g, m
+    and v once and writes w, m, v (and a master's cast) once; ~17 f32
+    operations an element over the card's f32 rate outside the tensor
+    cores."""
+    nbytes = flops = 0
+    for s in slots:
+        n = s.w.numel()
+        nbytes += n * (2 * 4 + s.g.element_size()
+                       + 4 * s.m.element_size()
+                       + (0 if s.out is None else s.out.element_size()))
+        flops += 17 * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", int(nbytes), int(flops))
+
+
+def _update_slots(shapes, init, case, seed):
+    """One case's slots at gpt2_small's parameter shapes: w from the
+    model's initial weights, a gradient and moments from `seed` (the
+    moments of a run some steps in), powers at step 10."""
+    import torch
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
+    _, _, mdt, gdt, masters, decays = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    slots = []
+    for shape, w0 in zip(shapes, init):
+        w = w0.clone()
+        g = (torch.randn(shape, device="cuda", generator=gen) * 1e-3).to(
+            getattr(torch, gdt))
+        m = (torch.randn(shape, device="cuda", generator=gen) * 1e-4).to(
+            getattr(torch, mdt))
+        v = (torch.rand(shape, device="cuda", generator=gen) * 1e-7).to(
+            getattr(torch, mdt))
+        pows = [torch.full((), b ** 10, device="cuda") for b in (0.9, 0.999)]
+        slots.append(mta.AdamSlot(
+            w, g, m, v, *pows, wd=decays[0] if len(shape) > 1 else decays[1],
+            out=w.to(torch.bfloat16) if masters else None))
+    return slots
+
+
+def _update_errs(got, want):
+    """{array: largest error in ulps} over every slot, and whether the
+    powers agree exactly."""
+    errs = {}
+    for k in ("w", "m", "v", "out"):
+        pairs = [(getattr(a, k), getattr(b, k)) for a, b in zip(got, want)
+                 if getattr(a, k) is not None]
+        if pairs:
+            errs[k] = max(_ulp_err(a, b) for a, b in pairs)
+    pows = all(bool(a.beta1_pow == b.beta1_pow)
+               and bool(a.beta2_pow == b.beta2_pow)
+               for a, b in zip(got, want))
+    return errs, pows
+
+
+def update_phase() -> list:
+    """Phase 12: the update kernel against its plain version at
+    gpt2_small's 148 parameter shapes, a fault planted, timed."""
+    import torch
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
+    model = GPTForCausalLM(gpt2_small(), device="cuda", dtype="float32",
+                           seed=0)
+    init = [p.detach().clone() for p in model.parameters()]
+    shapes = [tuple(p.shape) for p in init]
+    del model
+    lr = torch.full((), UPDATE_LR, device="cuda")
+    out = []
+    for ci, case in enumerate(UPDATE_CASES):
+        name, decoupled, mdt, gdt, masters, _ = case
+        kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, decoupled=decoupled)
+        got = _update_slots(shapes, init, case, seed=ci)
+        want = _update_slots(shapes, init, case, seed=ci)
+        planted = _update_slots(shapes, init, case, seed=ci)
+        n0 = mta.multi_tensor_adam.kernel_launches
+        big = max(range(len(shapes)), key=lambda i: got[i].w.numel())
+        for _ in range(UPDATE_STEPS):
+            mta.multi_tensor_adam(got, lr, **kw)
+            mta.multi_tensor_adam(want, lr, path="torch", **kw)
+            # the planted fault: the largest tensor's lr off by 1 %
+            mta.multi_tensor_adam(planted[:big] + planted[big + 1:], lr,
+                                  path="torch", **kw)
+            mta.multi_tensor_adam(planted[big:big + 1], lr * 1.01,
+                                  path="torch", **kw)
+        torch.cuda.synchronize()
+        launches = mta.multi_tensor_adam.kernel_launches - n0
+        errs, pows = _update_errs(got, want)
+        perrs, _ = _update_errs(got, planted)
+        limits = {"w": UPDATE_ULPS["float32"], "m": UPDATE_ULPS[mdt],
+                  "v": UPDATE_ULPS[mdt], "out": UPDATE_ULPS["bfloat16"]}
+        max_abs = max(float((a.w - b.w).abs().max())
+                      for a, b in zip(got, want))
+        moved = max(float((a.w - w0).abs().max())
+                    for a, w0 in zip(got, init))
+        del planted
+        bms, by, nbytes, flops = _update_bound(got)
+        rec = dict(case=name, tensors=len(shapes),
+                   elements=sum(s.w.numel() for s in got), ulp_err=errs,
+                   planted_ulp_err=perrs, powers_equal=pows,
+                   max_abs_err=max_abs, moved=moved, launches=launches,
+                   bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
+        rec["ms_graph"] = graph_ms(
+            lambda: mta.multi_tensor_adam(got, lr, **kw), reps=5, iters=10)
+        rec["ms"] = cuda_ms(lambda: mta.multi_tensor_adam(got, lr, **kw),
+                            iters=10)
+        rec["plain_ms"] = cuda_ms(lambda: mta.multi_tensor_adam(
+            want, lr, path="torch", **kw), iters=5)
+        rec["library_ms"] = None
+        if ci == 0:
+            # a yardstick only, never on the port's path: torch's fused
+            # AdamW decays first and rounds in another order
+            steps = [torch.full((), 10.0, device="cuda") for _ in got]
+            ws, gs = [s.w for s in got], [s.g for s in got]
+            ms_, vs = [s.m for s in got], [s.v for s in got]
+            rec["library_ms"] = graph_ms(lambda: torch._fused_adamw_(
+                ws, gs, ms_, vs, [], steps, lr=UPDATE_LR, beta1=0.9,
+                beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+                maximize=False), reps=5, iters=10)
+        ok = (launches == UPDATE_STEPS and pows and moved > UPDATE_LR
+              and all(e <= limits[k] for k, e in errs.items())
+              and perrs["w"] > limits["w"])
+        log(f"[update] {name}: {len(shapes)} tensors, {rec['elements']} "
+            f"elements, {launches} launches in {UPDATE_STEPS} steps; err "
+            f"in ulps {errs} (limits {limits}), powers equal {pows}; "
+            f"planted lr x1.01 on the largest tensor: w err "
+            f"{perrs['w']:.1f} ulps (must exceed {limits['w']}); kernel "
+            f"{rec['ms_graph']:.4f} ms by replay, {rec['ms']:.4f} by "
+            f"events; bound {bms:.4f} ({by}); plain {rec['plain_ms']:.3f};"
+            f" torch._fused_adamw_ {rec['library_ms']}: "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"update phase failed: {rec}")
+        del got, want
+        torch.cuda.empty_cache()
+        out.append(rec)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1853,6 +2042,7 @@ def main() -> int:
     llama = llama_engine_phase()
     llama_parity = llama_parity_phase()
     fused = fused_phase()
+    updates = update_phase()
     main_case = cases[0]    # the engine's fresh wave: its largest launch
     fmain = flash[0]        # gpt2_small's training shape
     src = "paddle_tpu_torch/kernels/csrc/"
@@ -1913,6 +2103,18 @@ def main() -> int:
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=m["library_ms"],
             cases=mine))
+    # the update at gpt2_small's shapes, AdamW in f32 (phase 6's case);
+    # launches from phase 6
+    u = updates[0]
+    kernels.append(dict(
+        name="multi_tensor_adam", route="cuda",
+        source=src + "multi_tensor_adam.cu",
+        replaces="paddle_tpu/optimizer/optimizer.py:317",
+        launches=train["update_launches"],
+        max_abs_err=max(c["max_abs_err"] for c in updates),
+        ms=u["ms"], ms_graph=u["ms_graph"], plain_ms=u["plain_ms"],
+        bound_ms=u["bound_ms"], bound_by=u["bound_by"],
+        library_ms=u["library_ms"], cases=updates))
     log("[engine] " + json.dumps(engine))
     log("[parity] " + json.dumps(parity))
     log("[train] " + json.dumps(train))

@@ -1383,6 +1383,7 @@ def train_phase() -> dict:
             "sm90": cfg.num_layers * n_steps, "simple": 0},
         "plain versions never ran on CUDA tensors": plain == (0, 0),
         "attention_path names the kernels": path == ("cuda", ""),
+        "the update kernel launched once per step": update == (n_steps, 0),
     }
     for what, ok in checks.items():
         log(f"[train] check: {what}: {'ok' if ok else 'FAILED'}")

@@ -19,6 +19,8 @@ __all__ = ["gpt_params_from_numpy", "llama_params_from_numpy",
            "fused_params_from_numpy", "optimizer_state_from_numpy"]
 
 _ADAM_ACCUMULATORS = ("moment1", "moment2", "beta1_pow", "beta2_pow")
+# multi_precision's f32 master of a parameter (reference optimizer.py:491)
+_MASTER = "master"
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -51,20 +53,25 @@ def optimizer_state_from_numpy(state: Dict, names: Dict[str, str]) -> Dict:
     paddle_model.named_parameters()}``), and the port's optimizer must
     be built with ``parameters=model.named_parameters()``. Values are
     copied with their dtypes (the bias-correction powers stay f32
-    scalars); "LR_Scheduler" and "global_step" pass through. A run
-    resumed from the result continues as the reference run would."""
+    scalars); a multi_precision master (``<tensor name>_master``) is
+    carried as an f32 tensor; "LR_Scheduler" and "global_step" pass
+    through. A run resumed from the result continues as the reference
+    run would."""
     out = {}
     for key, val in state.items():
         if key in ("LR_Scheduler", "global_step"):
             out[key] = val
             continue
-        acc = next((a for a in _ADAM_ACCUMULATORS
+        acc = next((a for a in (*_ADAM_ACCUMULATORS, _MASTER)
                     if key.endswith("_" + a)), None)
         if acc is None:
             raise KeyError(f"optimizer state key {key!r} names none of the "
-                           f"accumulators {_ADAM_ACCUMULATORS}")
+                           f"accumulators {_ADAM_ACCUMULATORS} nor a "
+                           f"master")
         ref_name = key[:-len(acc) - 1]
         if ref_name not in names:
             raise KeyError(f"no port parameter name for {ref_name!r}")
-        out[f"{names[ref_name]}_{acc}"] = _to_tensor(np.asarray(val))
+        t = _to_tensor(np.asarray(val))
+        out[f"{names[ref_name]}_{acc}"] = (t.float() if acc == _MASTER
+                                           else t)
     return out

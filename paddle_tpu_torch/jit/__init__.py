@@ -2,9 +2,11 @@
 
 paddle_tpu compiles forward, backward and the optimizer update into one
 XLA executable with donated buffers. The port runs the same three as
-one eager call: forward and backward through torch.autograd, then the
-optimizer's ``functional_update`` written into the parameters in place
-(the analog of donation). A CUDA graph of the step is later work.
+one eager call: forward and backward through torch.autograd, then on
+CUDA parameters the optimizer's update in place (Adam/AdamW: one
+multi-tensor kernel launch for every f32 parameter), on CPU parameters
+``functional_update`` written into the parameters (the analog of
+donation). A CUDA graph of the step is the next stage.
 
 The forward and the update run inside profiler ranges
 "TrainStep.forward" and "TrainStep.update", so a torch.profiler trace
@@ -36,15 +38,20 @@ class TrainStep:
 
     If loss_fn is None the model itself must return the scalar loss. Batch
     arrays (numpy or tensors) are moved to the device of the model's
-    parameters. As in the reference:
-      * the update goes through ``optimizer.functional_update``, so it
-        uses the first parameter group's hyperparameters and applies NO
-        ``grad_clip`` (``Optimizer.step`` does clip);
+    parameters. On CUDA parameters each batch signature (shapes and
+    dtypes of the arrays, values of the other arguments) is captured
+    once as a CUDA graph, the last 8 kept; loss_fn must then take
+    nothing from the host (no ``.item()``, no shape that depends on
+    data). As in the reference:
+      * the update uses the first parameter group's hyperparameters and
+        applies NO ``grad_clip`` (``Optimizer.step`` does clip), and
+        updates the parameters themselves, not multi_precision masters
+        (``functional_update``);
       * the learning rate is read at every call (a scheduler's or a
         ``set_lr`` value);
       * an ``LRScheduler`` steps after the call.
-    The returned loss is a detached device tensor: reading it is the
-    caller's host sync."""
+    The returned loss is a detached device tensor of its own: reading it
+    is the caller's host sync."""
 
     def __init__(self, model: torch.nn.Module, optimizer,
                  loss_fn: Callable = None, has_aux=False, donate=True,
@@ -62,6 +69,7 @@ class TrainStep:
             raise ValueError("TrainStep: the model has no trainable "
                              "parameters")
         self.device = self._params[0].device
+        # the optimizer's state exists before any capture
         for p in self._params:
             optimizer._get_state(p)
         self._step_count = 0
@@ -72,30 +80,62 @@ class TrainStep:
         return torch.as_tensor(a, device=self.device)
 
     def __call__(self, *args, **kwargs):
+        opt = self.optimizer
+        lr = opt._lr_tensor(opt.get_lr(), self.device)
+        if self.device.type != "cuda":
+            loss = self._functional_step(args, kwargs, lr)
+        else:
+            loss = self._step_in_place(
+                [self._batch(a) for a in args],
+                {k: self._batch(v) if isinstance(v, torch.Tensor) else v
+                 for k, v in kwargs.items()}, lr)
+        self._step_count += 1
+        if isinstance(opt._lr, LRScheduler):
+            opt._lr.step()
+        return loss
+
+    def _loss(self, args, kwargs):
+        with record_function("TrainStep.forward"):
+            if self.loss_fn is None:
+                return self.model(*args, **kwargs)
+            return self.loss_fn(self.model, *args, **kwargs)
+
+    def _grads(self, loss):
+        grads = torch.autograd.grad(loss, self._params, allow_unused=True)
+        # an unused parameter gets a zero gradient, as jax.grad gives
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(self._params, grads)]
+
+    def _functional_step(self, args, kwargs, lr):
+        """The CPU step: functional_update's new tensors copied into the
+        parameters, the new states bound in their place."""
         args = [self._batch(a) for a in args]
         kwargs = {k: self._batch(v) if isinstance(v, torch.Tensor) else v
                   for k, v in kwargs.items()}
         opt = self.optimizer
-        lr = opt._lr_tensor(opt.get_lr(), self.device)
-        with record_function("TrainStep.forward"):
-            if self.loss_fn is None:
-                loss = self.model(*args, **kwargs)
-            else:
-                loss = self.loss_fn(self.model, *args, **kwargs)
-        grads = torch.autograd.grad(loss, self._params, allow_unused=True)
+        loss = self._loss(args, kwargs)
+        grads = self._grads(loss)
         with torch.no_grad(), record_function("TrainStep.update"):
-            # an unused parameter gets a zero gradient, as jax.grad gives
-            grads = [torch.zeros_like(p) if g is None else g
-                     for p, g in zip(self._params, grads)]
             states = [opt._get_state(p) for p in self._params]
             new_params, new_states = opt.functional_update(
                 [p.detach() for p in self._params], grads, states, lr)
             for p, n, st in zip(self._params, new_params, new_states):
                 p.copy_(n)
                 opt._accumulators[id(p)] = st
-        self._step_count += 1
-        if isinstance(opt._lr, LRScheduler):
-            opt._lr.step()
+        return loss.detach()
+
+    def _step_in_place(self, args, kwargs, lr):
+        """One step that writes parameters and state in place (what a
+        graph captures): the first group's hyperparameters, no clip, no
+        masters."""
+        opt = self.optimizer
+        loss = self._loss(args, kwargs)
+        grads = self._grads(loss)
+        group = opt._param_groups[0] if opt._param_groups else {}
+        with torch.no_grad(), record_function("TrainStep.update"):
+            opt._update_in_place(
+                [(p, g, group) for p, g in zip(self._params, grads)],
+                lambda dev: lr, group=group, masters=False)
         return loss.detach()
 
     def sync(self, copy=None):

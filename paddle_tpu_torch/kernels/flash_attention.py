@@ -489,8 +489,9 @@ class _FlashCore(torch.autograd.Function):
     def forward(ctx, q, k, v, q_seg, kv_seg, causal, sm_scale):
         seg = None if q_seg is None else (q_seg, kv_seg)
         # the scale is rounded to q's dtype first, as jax's weak-typed
-        # python float is: (q * sm_scale).astype(q.dtype) (:677)
-        qs = q * torch.tensor(sm_scale, dtype=q.dtype, device=q.device)
+        # python float is: (q * sm_scale).astype(q.dtype) (:677); rounded
+        # on the host, so a CUDA graph can capture the product
+        qs = q * float(torch.tensor(sm_scale, dtype=q.dtype))
         o, lse = flash_fwd(qs, k, v, causal, seg)
         ctx.save_for_backward(qs, k, v, o, lse, q_seg, kv_seg)
         ctx.causal, ctx.sm_scale = causal, sm_scale

@@ -2,16 +2,29 @@
 
 Each optimizer defines ``_update_rule(param, grad, state, lr, group) ->
 (new_param, new_state)`` over tensors, op for op as paddle_tpu writes it
-in jnp. The eager ``step()`` applies it per parameter after the
-optional ``grad_clip``; ``TrainStep`` applies it through
+in jnp. ``step()`` applies, after the optional ``grad_clip``:
+
+  * the optimizer's multi-tensor form of the rule (Adam and AdamW:
+    ``kernels/multi_tensor_adam.py``) to every parameter whose work
+    array is f32, in one call: one kernel launch on the card, the plain
+    per-tensor rule on the CPU. This is the reference's fused step
+    (``_fused_step_apply`` :317-458), one executable for all of them;
+  * the per-tensor rule to the rest (bf16/f16 parameters without
+    masters, as the reference keeps them off its fused path :331-337).
+
+Both write parameters, moments and powers in place, so a CUDA graph that
+captured an update (``TrainStep``) replays it on the same storage.
+``TrainStep`` on CPU parameters applies the rule through
 ``functional_update``, which (as in the reference, :523-534) uses the
 first group's hyperparameters and applies no clip. The learning rate
-enters the rule as an f32 scalar tensor on the parameters' device, so
-no step reads a value back to the host.
+enters the rule as one f32 scalar tensor per device, refilled in place,
+so no step reads a value back to the host.
 
-Not ported yet: ``multi_precision`` master weights (raises) and the
-reference's fused one-executable step (``_fused_step_apply`` :317), a
-performance path.
+``multi_precision=True`` keeps an f32 master of every parameter that is
+not f32 (``_master``, reference :173-183): the update runs on the master
+and its cast is written into the parameter; the moments follow the
+master's dtype unless ``moment_dtype`` is set; ``state_dict`` carries it
+as ``<name>_master`` (reference :491-494, :512-515).
 """
 from __future__ import annotations
 
@@ -43,19 +56,20 @@ class Optimizer:
 
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, multi_precision=False, name=None):
-        if multi_precision:
-            raise NotImplementedError(
-                "multi_precision master weights are not ported yet")
         self._lr = learning_rate
         self._names: Dict[int, str] = {}
         self._parameter_list, self._param_groups = self._build_groups(
             parameters)
         self.weight_decay = weight_decay
         self._grad_clip = grad_clip
+        self._multi_precision = multi_precision
         # state: param id -> dict of accumulator name -> tensor
         self._accumulators: Dict[int, Dict[str, torch.Tensor]] = {}
+        # param id -> f32 master of a parameter that is not f32
+        self._master_weights: Dict[int, torch.Tensor] = {}
         self._step_count = 0
-        self._lr_cache = None
+        # device -> [f32 scalar tensor, the value it holds]
+        self._lr_scalars: Dict[torch.device, list] = {}
 
     # -- param plumbing --
     def _build_groups(self, parameters):
@@ -101,14 +115,18 @@ class Optimizer:
         self._lr = scheduler
 
     def _lr_tensor(self, lr, device):
-        """The learning rate as an f32 scalar tensor on `device`, made once
-        per value (the reference's _lr32 cache, :303)."""
-        hit = self._lr_cache
-        if hit is not None and hit[0] == (lr, device):
-            return hit[1]
-        t = torch.tensor(lr, dtype=torch.float32, device=device)
-        self._lr_cache = ((lr, device), t)
-        return t
+        """The learning rate as an f32 scalar tensor on `device` (the
+        reference's _lr32, :303): one static tensor per device, refilled
+        in place when the value changes, so a captured graph that reads
+        it sees each call's value."""
+        hit = self._lr_scalars.get(device)
+        if hit is None:
+            hit = [torch.empty((), dtype=torch.float32, device=device), None]
+            self._lr_scalars[device] = hit
+        if hit[1] != lr:
+            hit[0].fill_(lr)
+            hit[1] = lr
+        return hit[0]
 
     # -- state --
     def _state_names(self) -> List[str]:
@@ -125,9 +143,27 @@ class Optimizer:
             self._accumulators[id(p)] = st
         return st
 
+    def _master(self, p):
+        """The f32 master of `p` under multi_precision (made at first
+        use from p's value), None for an f32 parameter or without
+        multi_precision (reference :173-183)."""
+        if not self._multi_precision or p.dtype == torch.float32:
+            return None
+        mw = self._master_weights.get(id(p))
+        if mw is None:
+            mw = p.detach().to(torch.float32).clone()
+            self._master_weights[id(p)] = mw
+        return mw
+
     # -- the rule (override) --
     def _update_rule(self, param, grad, state, lr, group):
         raise NotImplementedError
+
+    # the rule over many f32 work arrays in one call, in place (override):
+    # items are (work, grad, state, group, out: the parameter receiving
+    # the work array's cast, or None). None: the optimizer has none, and
+    # every parameter takes the per-tensor rule.
+    _multi_tensor_update = None
 
     def _apply_decay(self, param, grad, group):
         """coupled L2: grad += wd * param (ref: regularizer semantics)."""
@@ -155,13 +191,41 @@ class Optimizer:
                             zip(params_grads, clipped)]
         self._step_count += 1
         lr = self.get_lr()
-        for p, g, group in params_grads:
-            garr = g if g.dtype == p.dtype else g.to(p.dtype)
-            new_p, new_state = self._update_rule(
-                p.detach(), garr, self._get_state(p),
-                self._lr_tensor(lr, p.device), group)
-            p.copy_(new_p)
-            self._accumulators[id(p)] = new_state
+        self._update_in_place(
+            params_grads, lambda dev: self._lr_tensor(lr, dev), group=None)
+
+    @torch.no_grad()
+    def _update_in_place(self, params_grads, lr_of, group=None,
+                         masters=True):
+        """Update each (param, grad, its group) in place: every f32 work
+        array (an f32 parameter, or a master) through
+        ``_multi_tensor_update`` in one call per device, the rest through
+        ``_update_rule`` tensor by tensor. `lr_of(device)` gives the f32
+        lr scalar. TrainStep passes `group` (the first group, for every
+        parameter) and ``masters=False``: like the reference's
+        functional_update, it updates the parameters themselves."""
+        fused = {}
+        for p, g, grp in params_grads:
+            grp = grp if group is None else group
+            mw = self._master(p) if masters else None
+            work = p.detach() if mw is None else mw
+            state = self._get_state(p)
+            out = None if mw is None else p.detach()
+            if self._multi_tensor_update is not None \
+                    and work.dtype == torch.float32:
+                fused.setdefault(work.device, []).append(
+                    (work, g, state, grp, out))
+                continue
+            garr = g if g.dtype == work.dtype else g.to(work.dtype)
+            new_w, new_state = self._update_rule(
+                work, garr, state, lr_of(work.device), grp)
+            work.copy_(new_w)
+            if out is not None:
+                out.copy_(new_w)
+            for k, v in new_state.items():
+                state[k].copy_(v)
+        for dev, items in fused.items():
+            self._multi_tensor_update(items, lr_of(dev))
 
     def clear_grad(self, set_to_zero=False):
         for p in self._all_params():
@@ -192,21 +256,37 @@ class Optimizer:
         for p in self._all_params():
             for k, v in (self._accumulators.get(id(p)) or {}).items():
                 sd[f"{self._names[id(p)]}_{k}"] = v.clone()
+            mw = self._master_weights.get(id(p))
+            if mw is not None:
+                sd[f"{self._names[id(p)]}_master"] = mw.clone()
         if isinstance(self._lr, LRScheduler):
             sd["LR_Scheduler"] = self._lr.state_dict()
         sd["global_step"] = self._step_count
         return sd
 
     def set_state_dict(self, state_dict):
+        """Load accumulators and masters. A tensor that already exists
+        with the same shape and dtype is refilled in place, so a
+        captured TrainStep graph goes on reading the loaded values."""
+        def load(old, value, dtype=None):
+            new = torch.as_tensor(value).to(p.device, dtype)
+            if old is not None and old.shape == new.shape \
+                    and old.dtype == new.dtype:
+                return old.copy_(new)
+            return new.clone()
+
         for p in self._all_params():
-            st = {}
-            for name in self._state_names():
-                key = f"{self._names[id(p)]}_{name}"
-                if key in state_dict:
-                    st[name] = torch.as_tensor(state_dict[key]).to(
-                        p.device).clone()
+            name = self._names[id(p)]
+            old = self._accumulators.get(id(p)) or {}
+            st = {k: load(old.get(k), state_dict[f"{name}_{k}"])
+                  for k in self._state_names()
+                  if f"{name}_{k}" in state_dict}
             if st:
-                self._accumulators[id(p)] = st
+                self._accumulators[id(p)] = dict(old, **st)
+            if f"{name}_master" in state_dict:
+                self._master_weights[id(p)] = load(
+                    self._master_weights.get(id(p)),
+                    state_dict[f"{name}_master"], torch.float32)
         if "LR_Scheduler" in state_dict and isinstance(self._lr,
                                                       LRScheduler):
             self._lr.set_state_dict(state_dict["LR_Scheduler"])

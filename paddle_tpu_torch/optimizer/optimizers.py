@@ -1,15 +1,19 @@
 """Adam and AdamW (counterparts of paddle_tpu/optimizer/optimizers.py:56,
-:123), op for op: f32 moment math (moments stored in `moment_dtype`),
-bias-correction powers kept as f32 scalar tensors on the device, the
-update cast to the parameter's dtype before it is subtracted, and
-AdamW's decoupled decay taken from the OLD parameter after the Adam
-step (:150-154). ``torch.optim.AdamW`` rounds in another order (it
-decays first, in place), so it is not used."""
+:123), op for op: f32 moment math (moments stored in `moment_dtype`,
+else in the work array's dtype: the master's under multi_precision,
+:83-92), bias-correction powers kept as f32 scalar tensors on the
+device, the update cast to the parameter's dtype before it is
+subtracted, and AdamW's decoupled decay taken from the OLD parameter
+after the Adam step (:150-154). Their multi-tensor form is
+``kernels/multi_tensor_adam.py`` (one CUDA launch for every f32 work
+array). ``torch.optim.AdamW`` rounds in another order (it decays first,
+in place), so it is not used."""
 from __future__ import annotations
 
 import torch
 
 from ..core.dtype import to_dtype
+from ..kernels.multi_tensor_adam import AdamSlot, multi_tensor_adam
 from .optimizer import Optimizer
 
 __all__ = ["Adam", "AdamW"]
@@ -33,12 +37,31 @@ class Adam(Optimizer):
         return ["moment1", "moment2", "beta1_pow", "beta2_pow"]
 
     def _init_state(self, p):
-        mdt = p.dtype if self.moment_dtype is None \
+        mw = self._master(p)
+        base = p if mw is None else mw
+        mdt = base.dtype if self.moment_dtype is None \
             else to_dtype(self.moment_dtype)
         one = torch.ones((), dtype=torch.float32, device=p.device)
         return {"moment1": torch.zeros(p.shape, dtype=mdt, device=p.device),
                 "moment2": torch.zeros(p.shape, dtype=mdt, device=p.device),
                 "beta1_pow": one, "beta2_pow": one.clone()}
+
+    # Adam's decay is coupled L2 into the gradient; AdamW's is decoupled
+    _decoupled = False
+
+    def _decay(self, group):
+        """The group's weight decay as a float (0: none)."""
+        wd = group.get("weight_decay", self.weight_decay)
+        return float(getattr(wd, "_coeff", wd)) if wd else 0.0
+
+    def _multi_tensor_update(self, items, lr):
+        """The rule over every (work, grad, state, group, out) item in one
+        multi_tensor_adam call: one launch on the card."""
+        multi_tensor_adam(
+            [AdamSlot(w, g, st["moment1"], st["moment2"], st["beta1_pow"],
+                      st["beta2_pow"], self._decay(grp), out)
+             for w, g, st, grp, out in items], lr, beta1=self.beta1,
+            beta2=self.beta2, eps=self.epsilon, decoupled=self._decoupled)
 
     def _decayed_grad(self, param, grad, group):
         return self._apply_decay(param, grad, group)
@@ -85,6 +108,8 @@ class AdamW(Adam):
                          moment_dtype=moment_dtype)
         self.weight_decay = weight_decay or 0.0
         self.apply_decay_param_fun = apply_decay_param_fun
+
+    _decoupled = True
 
     def _decayed_grad(self, param, grad, group):
         return grad  # decoupled: no L2 into grad

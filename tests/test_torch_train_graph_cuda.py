@@ -122,9 +122,11 @@ def test_update_kernel_matches_plain(cuda_device, case):
             assert ulp_err(a, b) <= ULPS[b.dtype], k
         assert torch.equal(s.beta1_pow, p.beta1_pow)
         assert torch.equal(s.beta2_pow, p.beta2_pow)
+    # the steps moved the weights (by ~1e-4 each: |m_hat / sqrt(v_hat)|
+    # is ~0.1 from these moments)
     moved = max(float((s.w - p0.w).abs().max()) for s, p0 in
                 zip(slots, _slots(cuda_device, mdt, gdt, masters, seed=1)))
-    assert moved > 1e-3
+    assert moved > 1e-5
 
 
 def test_update_kernel_check_catches_a_planted_fault(cuda_device):
@@ -133,11 +135,12 @@ def test_update_kernel_check_catches_a_planted_fault(cuda_device):
     lr = torch.full((), 1e-3, device=cuda_device)
     kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, decoupled=True)
     mta.multi_tensor_adam(slots, lr, **kw)
-    mta.multi_tensor_adam(plain[:5], lr, path="torch", **kw)
-    mta.multi_tensor_adam(plain[5:6], lr * 1.01, path="torch", **kw)
-    mta.multi_tensor_adam(plain[6:], lr, path="torch", **kw)
+    # tensor 3 (16385 elements) planted: its lr off by 1 %
+    mta.multi_tensor_adam(plain[:3], lr, path="torch", **kw)
+    mta.multi_tensor_adam(plain[3:4], lr * 1.01, path="torch", **kw)
+    mta.multi_tensor_adam(plain[4:], lr, path="torch", **kw)
     errs = [ulp_err(s.w, p.w) for s, p in zip(slots, plain)]
-    assert max(errs[:5] + errs[6:]) <= 2 and errs[5] > 2
+    assert max(errs[:3] + errs[4:]) <= 2 and errs[3] > 2
 
 
 def test_update_kernel_refuses_what_it_does_not_take(cuda_device):

@@ -7,7 +7,8 @@ Run from the root of a checkout. Phases, each of which must pass:
 
   1. the card (nvidia-smi name and power limit); build the CUDA kernels
      (nvcc, sm_90a: ragged paged attention's simple and sm90 designs,
-     flash attention, B1's and B2's sm90 designs, norms) and the block
+     flash attention, B1's and B2's sm90 designs, norms, the
+     multi-tensor update) and the block
      allocator (g++) from the checkout's sources, all at once, timed;
   2. the serving kernel (B3) against its plain PyTorch version in f32 on
      the card, at the engine's shapes (gpt3_1p3b's 16 heads, GQA, int8,
@@ -41,12 +42,20 @@ Run from the root of a checkout. Phases, each of which must pass:
      on a 2-layer model at gpt3_1p3b's widths (B3's simple design);
   6. gpt2_small (all 12 layers, random weights from seed 0) trained by
      TrainStep in bf16 O1 with AdamW and flash attention, batch 16,
-     seq 1024: 2 warm-up steps and 10 timed ones; B1/B2's launch
-     counters, by design, are read around this run;
-  7. TrainStep with the flash kernels against TrainStep with the plain
-     attention composite, in f32 (TF32 off), on 2 layers at gpt2_small's
-     widths: per-step losses, and the parameters after 3 steps (the
-     largest difference and the share of elements that differ);
+     seq 1024: 2 warm-up steps and 10 timed ones, the first call an
+     eager step that is then captured as one CUDA graph, every later
+     call a replay; the counters of B1/B2, the update kernel and the
+     graphs, by design, are read around this run (a counter counts the
+     eager step's launch and the captured one); the step timed by wall
+     and by replay of its graph (the device's idle share), the update
+     alone by replay beside its bound, B1/B2 by events in the eager
+     step, peak memory;
+  7. TrainStep with the flash kernels through its graph against the
+     plain attention composite through its graph and against the
+     kernels in eager steps, in f32 (TF32 off), on 2 layers at
+     gpt2_small's widths: per-step losses, and the parameters after 3
+     steps (the largest difference and the share of elements that
+     differ);
   8. the norm kernels (B4 layer norm, B5 RMS norm) against their plain
      versions at the main paths' shapes and two edge cases, in bf16 and
      f32, with the affine on and off, element by element, with two
@@ -68,7 +77,14 @@ Run from the root of a checkout. Phases, each of which must pass:
      around one forward (24 and 12), B1's operands in that forward
      recorded and its results held to its plain version, the forward
      timed, and a 2-layer f32 copy on the card held to the same stack
-     run on the CPU.
+     run on the CPU;
+ 12. the multi-tensor Adam update kernel against its plain version at
+     gpt2_small's 148 parameter shapes: AdamW in f32 with two groups'
+     decays, bf16 moments, Adam with coupled L2, bf16 parameters with
+     f32 masters; element by element in ulps, a planted fault (one
+     tensor's lr x 1.01) rejected; timed by events and by CUDA-graph
+     replay beside its bound, the plain version and
+     torch._fused_adamw_ (a yardstick only).
 
 The last three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
@@ -119,14 +135,17 @@ def log(*a):
 def kernel_events(**targets):
     """Measurement only: while the block runs, each wrapper named by
     targets (name=(module, attribute)) is timed by CUDA events around
-    every call; yields {name: [(start, end), ...]}, read after a
-    synchronise. The wrappers are restored on exit."""
+    every call outside a CUDA-graph capture (a replay calls no wrapper);
+    yields {name: [(start, end), ...]}, read after a synchronise. The
+    wrappers are restored on exit."""
     import torch
     events = {name: [] for name in targets}
     saved = {name: getattr(m, a) for name, (m, a) in targets.items()}
 
     def timed(name, fn):
         def run(*args, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                return fn(*args, **kw)      # a capture runs nothing
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -1322,8 +1341,24 @@ def _gpt2_train_step(cfg, use_amp, lr=1e-4, seed=0):
     return model, TrainStep(model, opt, loss_fn)
 
 
+def _replay_ms(graph, iters=5):
+    """Median device time of one replay of `graph` (CUDA events)."""
+    import torch
+    times = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
 def train_phase() -> dict:
     import torch
+    from paddle_tpu_torch.jit import cuda_graph
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import multi_tensor_adam as mta
     from paddle_tpu_torch.models import gpt2_small, num_params
@@ -1343,18 +1378,21 @@ def train_phase() -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    # measurement only: device time of every B1/B2 call
+    # the first call runs the step eagerly (B1/B2 timed by events around
+    # each call, measurement only) and captures it; every later call
+    # replays the graph, which runs the captured launches again without
+    # calling the wrappers: a counter counts a launch of the eager step
+    # and one of the captured step, and the card runs the captured
+    # launches once a replay
     torch.cuda.reset_peak_memory_stats()
     with kernel_events(fwd=(fa, "_fwd_cuda"), bwd=(fa, "_bwd_cuda")) \
             as events:
         fa.reset_counters()
         mta.multi_tensor_adam.kernel_launches = 0
         mta.multi_tensor_adam.plain_calls = 0
+        cuda_graph.reset_counters()
         losses, step_s = [], []
-        for i in range(warmup + steps):
-            if i == warmup:
-                for k in events:
-                    events[k].clear()
+        for _ in range(warmup + steps):
             torch.cuda.synchronize()
             t = time.perf_counter()
             loss = step(ids, labels)
@@ -1368,53 +1406,97 @@ def train_phase() -> dict:
         plain = (fa.flash_fwd.plain_calls, fa.flash_bwd.plain_calls)
         update = (mta.multi_tensor_adam.kernel_launches,
                   mta.multi_tensor_adam.plain_calls)
+        captures = dict(cuda_graph.captures)
+        replays = dict(cuda_graph.replays)
+        capture_s = cuda_graph.capture_seconds["train_step"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    distinct = len({x.data_ptr() for x in losses}) == len(losses)
     losses = [float(x) for x in losses]
     timed_s = step_s[warmup:]
-    per_step = {k: sum(s.elapsed_time(e) for s, e in v) / steps
+    # B1/B2 device time of the eager step (the only one that calls them)
+    per_step = {k: sum(s.elapsed_time(e) for s, e in v)
                 for k, v in events.items()}
     n_steps = warmup + steps
+    L = cfg.num_layers
     checks = {
         "every loss finite": all(np.isfinite(losses)),
-        "B1 and B2 launched 12 times per step": launches == (
-            cfg.num_layers * n_steps, cfg.num_layers * n_steps),
+        "every returned loss a tensor of its own": distinct,
+        "one graph captured, every later step a replay": (
+            captures, replays) == ({"train_step": 1},
+                                   {"train_step": n_steps - 1}),
+        "B1 and B2 at 12 launches per captured step (eager + captured)":
+            launches == (2 * L, 2 * L),
         "every B1 launch ran the sm90 design": designs == {
-            "sm90": cfg.num_layers * n_steps, "simple": 0},
+            "sm90": 2 * L, "simple": 0},
         "every B2 launch ran the sm90 design": bwd_designs == {
-            "sm90": cfg.num_layers * n_steps, "simple": 0},
+            "sm90": 2 * L, "simple": 0},
         "plain versions never ran on CUDA tensors": plain == (0, 0),
         "attention_path names the kernels": path == ("cuda", ""),
-        "the update kernel launched once per step": update == (n_steps, 0),
+        "the update kernel at one launch a step (eager + captured)":
+            update == (2, 0),
     }
     for what, ok in checks.items():
         log(f"[train] check: {what}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
         raise RuntimeError(f"training phase failed: launches {launches} "
                            f"B1 by design {designs} B2 by design "
-                           f"{bwd_designs} plain {plain} losses {losses}")
+                           f"{bwd_designs} plain {plain} update {update} "
+                           f"captures {captures} replays {replays} losses "
+                           f"{losses}")
+    graph = next(iter(step._graphs.values()))[0].graph
+    replay_ms = _replay_ms(graph)
+    # the update alone, by replay, on the model's own tensors and state
+    # (a gradient from a seed; measurement after the run)
+    opt = step.optimizer
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    slots = [mta.AdamSlot(p.detach(), torch.randn(
+        p.shape, device="cuda", generator=gen) * 1e-3,
+        *(opt._get_state(p)[k] for k in ("moment1", "moment2",
+                                          "beta1_pow", "beta2_pow")),
+        wd=0.01) for p in model.parameters()]
+    lr_t = opt._lr_tensor(opt.get_lr(), torch.device("cuda"))
+    update_ms = graph_ms(lambda: mta.multi_tensor_adam(
+        slots, lr_t, beta1=opt.beta1, beta2=opt.beta2, eps=opt.epsilon,
+        decoupled=True), reps=5, iters=10)
+    update_bound = _update_bound(slots)
+    del slots
     n = num_params(cfg)
     tok_s = batch * seq * steps / sum(timed_s)
     med = statistics.median(timed_s)
-    rec = dict(config="gpt2_small", layers=cfg.num_layers, batch=batch,
-               seq=seq, params=n, warmup_steps=warmup, timed_steps=steps,
+    rec = dict(config="gpt2_small", layers=L, batch=batch, seq=seq,
+               params=n, warmup_steps=warmup, timed_steps=steps,
                tokens_per_s=tok_s, step_ms_median=1e3 * med,
                step_ms=[1e3 * x for x in timed_s],
+               first_step_ms=1e3 * step_s[0], captures=captures,
+               capture_s=capture_s, replays=replays,
+               step_ms_replay=replay_ms,
+               idle_share=1 - replay_ms / (1e3 * med),
                mfu=6.0 * n * tok_s / BF16_FLOPS_PER_S,
                step_floor_ms=6.0 * n * batch * seq / BF16_FLOPS_PER_S * 1e3,
                b1_ms_per_step=per_step["fwd"],
                b2_ms_per_step=per_step["bwd"],
                b1_launches=launches[0], b2_launches=launches[1],
                b1_design_launches=designs, b2_design_launches=bwd_designs,
+               b1_launches_on_device=L * n_steps,
                plain_calls=list(plain), update_launches=update[0],
-               update_plain_calls=update[1], losses=losses, setup_s=setup_s,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-    log(f"[train] gpt2_small bf16 O1 AdamW, {cfg.num_layers} layers, batch "
-        f"{batch} x seq {seq}: {tok_s:.1f} tokens/s, step median "
-        f"{1e3 * med:.2f} ms (6ND floor {rec['step_floor_ms']:.2f} ms), "
-        f"MFU {rec['mfu']:.4f}; B1 {per_step['fwd']:.3f} ms + B2 "
-        f"{per_step['bwd']:.3f} ms of device time per step over "
-        f"{launches[0]}/{launches[1]} launches in {n_steps} steps (B1 by "
-        f"design {designs}, B2 {bwd_designs}); peak "
-        f"mem {rec['peak_mem_gb']:.2f} GiB; losses "
+               update_launches_on_device=n_steps,
+               update_plain_calls=update[1], update_ms_graph=update_ms,
+               update_bound_ms=update_bound[0],
+               update_bound_by=update_bound[1], losses=losses,
+               setup_s=setup_s, peak_mem_gb=peak)
+    log(f"[train] gpt2_small bf16 O1 AdamW, {L} layers, batch {batch} x "
+        f"seq {seq}: {tok_s:.1f} tokens/s, step median {1e3 * med:.2f} ms "
+        f"by wall, {replay_ms:.2f} ms by replay of the step graph (device "
+        f"idle {100 * rec['idle_share']:.1f} %; 6ND floor "
+        f"{rec['step_floor_ms']:.2f} ms), MFU {rec['mfu']:.4f}; first "
+        f"call (eager step + capture) {rec['first_step_ms']:.1f} ms, "
+        f"captures {captures} in {capture_s:.3f} s, replays {replays}; "
+        f"update {update_ms:.4f} ms by replay (bound {update_bound[0]:.4f}"
+        f" ms, {update_bound[1]}); B1 {per_step['fwd']:.3f} ms + B2 "
+        f"{per_step['bwd']:.3f} ms of device time in the eager step; "
+        f"launches counted B1 {launches[0]} B2 {launches[1]} update "
+        f"{update[0]} (eager + captured), on the card {L * n_steps} / "
+        f"{L * n_steps} / {n_steps}; peak mem {peak:.2f} GiB; losses "
         f"{[round(x, 4) for x in losses]}")
     del model, step
     torch.cuda.empty_cache()
@@ -1424,6 +1506,13 @@ def train_phase() -> dict:
 # ---------------------------------------------------------------------------
 # phase 7: TrainStep with the kernels == TrainStep with the composite
 # ---------------------------------------------------------------------------
+def _params_diff(pa, pb, lr):
+    """(largest |a - b|, elements beyond 1e-3 * lr, elements)."""
+    err = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
+    far = sum(int(((pa[k] - pb[k]).abs() > 1e-3 * lr).sum()) for k in pa)
+    return err, far, sum(v.numel() for v in pa.values())
+
+
 def train_parity_phase() -> dict:
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -1437,11 +1526,14 @@ def train_parity_phase() -> dict:
     labels = rng.integers(0, 50304, (2, 512)).astype(np.int32)
     runs = {}
     sdpa_takes_kernel = F._sdpa_takes_kernel
-    for flash in (True, False):
+    # (flash kernels, through the step graph): the kernels and the
+    # composite through the graph, and the kernels in eager steps
+    for flash, graphed in ((True, True), (False, True), (True, False)):
         cfg = dataclasses.replace(
             gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
                        use_flash_attention=flash), num_layers=2)
         model, step = _gpt2_train_step(cfg, use_amp=False, lr=lr, seed=1)
+        step._eager = not graphed
         n0 = fa.flash_fwd.kernel_launches, fa.flash_bwd.kernel_launches
         if not flash:
             # the composite, forced plain: SDPA would route this call into
@@ -1452,41 +1544,46 @@ def train_parity_phase() -> dict:
         finally:
             F._sdpa_takes_kernel = sdpa_takes_kernel
         n1 = fa.flash_fwd.kernel_launches, fa.flash_bwd.kernel_launches
-        want = 2 * n_steps if flash else 0
+        # a graph counts the eager first step's launches and the
+        # captured step's; eager steps count each of theirs
+        want = cfg.num_layers * (2 if graphed else n_steps) if flash else 0
         if (n1[0] - n0[0], n1[1] - n0[1]) != (want, want):
-            raise RuntimeError(f"parity run flash={flash}: kernel launches "
-                               f"{n1} from {n0}, expected +{want}")
-        runs[flash] = (losses, {k: v.detach().clone() for k, v in
-                                model.state_dict().items()})
+            raise RuntimeError(f"parity run flash={flash} graphed={graphed}:"
+                               f" kernel launches {n1} from {n0}, expected "
+                               f"+{want}")
+        runs[flash, graphed] = (losses, {k: v.detach().clone() for k, v in
+                                         model.state_dict().items()})
         del model, step
-    (lk, pk), (lc, pc) = runs[True], runs[False]
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lc))
-    param_err = max(float((pk[k] - pc[k]).abs().max()) for k in pk)
     bound = 2 * lr * n_steps
     # the share of parameter elements that differ by more than 1e-3 * lr:
     # a sign flip of a near-zero gradient moves an Adam parameter by up to
     # ~2 lr a step, so one element may reach the bound, but in f32 such
     # flips are rare (the key bias, whose gradient is zero up to rounding);
-    # a wrong dq, dk or dv moves every parameter it reaches by ~lr
-    n = sum(v.numel() for v in pk.values())
-    far = sum(int(((pk[k] - pc[k]).abs() > 1e-3 * lr).sum()) for k in pk)
+    # a wrong dq, dk or dv moves every parameter it reaches by ~lr.
     # f32 on both sides (kernels in full f32, cuBLAS without TF32): only
     # summation order differs, ~1e-6 relative on the loss
-    ok = loss_err <= 1e-5 and param_err <= bound and far / n < 2e-3
-    log(f"[train-parity] f32, 2 layers, batch 2 x seq 512, {n_steps} "
-        f"steps: losses kernels {[round(x, 6) for x in lk]} vs composite "
-        f"{[round(x, 6) for x in lc]} (max rel diff {loss_err:.2e}, tol "
-        f"1e-5); params max abs diff {param_err:.2e} (bound 2*lr*steps = "
-        f"{bound:.1e}), {far} of {n} elements differ by more than "
-        f"1e-3*lr (share {far / n:.2e}, tol 2e-3): "
-        f"{'ok' if ok else 'FAILED'}")
-    if not ok:
-        raise RuntimeError("TrainStep with the kernels differs from the "
-                           "composite")
+    out = {}
+    for what, other in (("composite", (False, True)),
+                        ("eager", (True, False))):
+        (lk, pk), (lc, pc) = runs[True, True], runs[other]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lc))
+        param_err, far, n = _params_diff(pk, pc, lr)
+        ok = loss_err <= 1e-5 and param_err <= bound and far / n < 2e-3
+        log(f"[train-parity] f32, 2 layers, batch 2 x seq 512, {n_steps} "
+            f"steps, kernels through the step graph vs {what}: losses "
+            f"{[round(x, 6) for x in lk]} vs {[round(x, 6) for x in lc]} "
+            f"(max rel diff {loss_err:.2e}, tol 1e-5); params max abs diff "
+            f"{param_err:.2e} (bound 2*lr*steps = {bound:.1e}), {far} of "
+            f"{n} elements differ by more than 1e-3*lr (share "
+            f"{far / n:.2e}, tol 2e-3): {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"TrainStep with the kernels through the "
+                               f"graph differs from the {what} run")
+        out[what] = dict(losses=lc, loss_max_rel_diff=loss_err,
+                         param_max_abs_diff=param_err, params_far=far)
     torch.cuda.empty_cache()
-    return dict(losses_kernels=lk, losses_composite=lc,
-                loss_max_rel_diff=loss_err, param_max_abs_diff=param_err,
-                param_bound=bound, params_far=far, params_total=n)
+    return dict(losses_kernels_graph=runs[True, True][0],
+                param_bound=bound, params_total=n, **out)
 
 
 # ---------------------------------------------------------------------------
@@ -2071,7 +2168,10 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=src + source,
             replaces=f"paddle_tpu/kernels/pallas/flash_attention.py:{line}",
+            # counted: the eager first step's and the captured step's;
+            # run on the card: once a step
             launches=launches,
+            launches_on_device=train["b1_launches_on_device"],
             max_abs_err=max(e for c in flash for what, e in
                             c["max_abs_err_bf16"].items()
                             if (what in ("o", "lse")) == (kind == "fwd")),
@@ -2112,6 +2212,7 @@ def main() -> int:
         source=src + "multi_tensor_adam.cu",
         replaces="paddle_tpu/optimizer/optimizer.py:317",
         launches=train["update_launches"],
+        launches_on_device=train["update_launches_on_device"],
         max_abs_err=max(c["max_abs_err"] for c in updates),
         ms=u["ms"], ms_graph=u["ms_graph"], plain_ms=u["plain_ms"],
         bound_ms=u["bound_ms"], bound_by=u["bound_by"],

@@ -1,27 +1,37 @@
 """The fused train step (counterpart of paddle_tpu/jit/__init__.py:314).
 
 paddle_tpu compiles forward, backward and the optimizer update into one
-XLA executable with donated buffers. The port runs the same three as
-one eager call: forward and backward through torch.autograd, then on
-CUDA parameters the optimizer's update in place (Adam/AdamW: one
-multi-tensor kernel launch for every f32 parameter), on CPU parameters
-``functional_update`` written into the parameters (the analog of
-donation). A CUDA graph of the step is the next stage.
+XLA executable with donated buffers (:450-481). The port, on CUDA
+parameters, captures the same three as one CUDA graph per batch
+signature (``jit/cuda_graph.py::CapturedStep``, name "train_step") and
+replays it at every later call: the forward under the caller's
+``loss_fn``, ``torch.autograd.grad``, and the optimizer's update in
+place (Adam/AdamW: one multi-tensor kernel launch for every f32
+parameter). Parameters, moments and powers are written in place (the
+analog of donation), the batch is copied into static inputs and the lr
+refilled into the optimizer's static scalar before each replay. The
+first call of a signature runs the step eagerly before capturing it:
+that run is the call's step, so N calls make N updates. A capture that
+fails raises; nothing falls back to the eager step. On CPU parameters
+every step runs eagerly, through ``optimizer.functional_update``.
 
 The forward and the update run inside profiler ranges
 "TrainStep.forward" and "TrainStep.update", so a torch.profiler trace
-splits a step's device time into forward, backward (the rest: autograd
-launches it from its own thread) and update
-(tools/torch_train_profile.py); with no profiler active a range costs a
-few microseconds a step."""
+of an eager step splits its device time into forward, backward (the
+rest: autograd launches it from its own thread) and update
+(tools/torch_train_profile.py); a replay is one graph launch to the
+profiler. With no profiler active a range costs a few microseconds."""
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Callable
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from ..optimizer.lr import LRScheduler
+from .cuda_graph import CapturedStep
 
 __all__ = ["TrainStep"]
 
@@ -53,6 +63,9 @@ class TrainStep:
     The returned loss is a detached device tensor of its own: reading it
     is the caller's host sync."""
 
+    # graphs kept, one per batch signature (generation._FusedLoop's rule)
+    MAX_GRAPHS = 8
+
     def __init__(self, model: torch.nn.Module, optimizer,
                  loss_fn: Callable = None, has_aux=False, donate=True,
                  mesh=None, shard_param=None, shard_data=None):
@@ -73,6 +86,10 @@ class TrainStep:
         for p in self._params:
             optimizer._get_state(p)
         self._step_count = 0
+        self._graphs: OrderedDict = OrderedDict()
+        # checking only: run steps on CUDA parameters eagerly, without a
+        # graph (the same update in place)
+        self._eager = False
 
     def _batch(self, a):
         if isinstance(a, torch.Tensor):
@@ -84,11 +101,13 @@ class TrainStep:
         lr = opt._lr_tensor(opt.get_lr(), self.device)
         if self.device.type != "cuda":
             loss = self._functional_step(args, kwargs, lr)
-        else:
+        elif self._eager:
             loss = self._step_in_place(
                 [self._batch(a) for a in args],
                 {k: self._batch(v) if isinstance(v, torch.Tensor) else v
-                 for k, v in kwargs.items()}, lr)
+                 for k, v in kwargs.items()}, lr).clone()
+        else:
+            loss = self._graph_step(args, kwargs, lr)
         self._step_count += 1
         if isinstance(opt._lr, LRScheduler):
             opt._lr.step()
@@ -137,6 +156,48 @@ class TrainStep:
                 [(p, g, group) for p, g in zip(self._params, grads)],
                 lambda dev: lr, group=group, masters=False)
         return loss.detach()
+
+    @staticmethod
+    def _signature(a):
+        if isinstance(a, (torch.Tensor, np.ndarray)):
+            return ("array", tuple(a.shape), torch.as_tensor(a).dtype)
+        return ("value", a)
+
+    def _graph_step(self, args, kwargs, lr):
+        """Replay the graph of this batch signature, capturing it first
+        (the capture's warm-up run is this call's step)."""
+        names = sorted(kwargs)
+        key = (tuple(map(self._signature, args)),
+               tuple((k, self._signature(kwargs[k])) for k in names))
+        entry = self._graphs.get(key)
+        if entry is not None:
+            self._graphs.move_to_end(key)
+            captured, statics = entry
+            self._fill(statics, list(args) + [kwargs[k] for k in names])
+            return captured.replay().clone()
+        vals = list(args) + [kwargs[k] for k in names]
+        statics = [torch.empty(tuple(v.shape), device=self.device,
+                               dtype=torch.as_tensor(v).dtype)
+                   if isinstance(v, (torch.Tensor, np.ndarray)) else None
+                   for v in vals]
+        self._fill(statics, vals)
+        inputs = [v if s is None else s for v, s in zip(vals, statics)]
+        s_args = inputs[:len(args)]
+        s_kwargs = dict(zip(names, inputs[len(args):]))
+        captured = CapturedStep(
+            "train_step", lambda: self._step_in_place(s_args, s_kwargs, lr),
+            warmup_counts=True)
+        self._graphs[key] = (captured, statics)
+        if len(self._graphs) > self.MAX_GRAPHS:
+            self._graphs.popitem(last=False)
+        return captured.warmup_output.clone()
+
+    @staticmethod
+    def _fill(statics, vals):
+        """Copy the call's arrays into the static inputs."""
+        for s, v in zip(statics, vals):
+            if s is not None:
+                s.copy_(torch.as_tensor(v))
 
     def sync(self, copy=None):
         """The reference writes its compiled loop's state back into the

@@ -17,7 +17,7 @@ next replay, so one graph's scratch may reuse another's.
 
 ``captures``, ``capture_seconds`` and ``replays`` count by the name each
 caller gives its graphs ("engine_decode", "generate_prefill",
-"generate_decode"), as the kernels count their launches.
+"generate_decode", "train_step"), as the kernels count their launches.
 """
 from __future__ import annotations
 
@@ -60,24 +60,32 @@ class CapturedStep:
     the caller copies its inputs in again before the first replay. The
     states of the ``generators`` fn draws from are put back after it and
     registered with the graph, so each replay advances them as an eager
-    call would.
+    call would. With ``warmup_counts`` the warm-up is the caller's first
+    real call instead (``warmup_output`` holds what it returned), and
+    nothing is put back. The default CUDA generator needs no entry in
+    ``generators``: PyTorch registers it with every graph.
 
     The cyclic garbage collector is off while the graph is captured: a
     dead cycle holding an older graph, freed then, would release that
     graph's memory in the middle of the capture, which CUDA refuses
     (the capture is invalidated)."""
 
-    def __init__(self, name: str, fn, generators=()):
+    def __init__(self, name: str, fn, generators=(), warmup_counts=False):
         t0 = time.perf_counter()
         self.name = name
         states = [g.get_state() for g in generators]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            fn()
+            out = fn()
         torch.cuda.current_stream().wait_stream(side)
-        for g, s in zip(generators, states):
-            g.set_state(s)
+        # warmup_counts: the warm-up is one real call of fn (a train
+        # step updates the model once), so its output is kept and the
+        # generators go on from where it left them
+        self.warmup_output = out if warmup_counts else None
+        if not warmup_counts:
+            for g, s in zip(generators, states):
+                g.set_state(s)
         self.graph = torch.cuda.CUDAGraph()
         for g in generators:
             self.graph.register_generator_state(g)

@@ -92,6 +92,13 @@ PORTED_MODULES = {
                                      set()),
     "paddle_tpu.nn.clip": ("paddle_tpu_torch.nn.clip", set()),
     "paddle_tpu.optimizer.lr": ("paddle_tpu_torch.optimizer.lr", set()),
+    "paddle_tpu.optimizer.optimizer": ("paddle_tpu_torch.optimizer.optimizer",
+                                       set()),
+    # Adam and AdamW are ported; the rest take ROADMAP Queue A item 15
+    "paddle_tpu.optimizer.optimizers": (
+        "paddle_tpu_torch.optimizer.optimizers", {
+            "SGD", "Momentum", "Lamb", "Adagrad", "Adadelta", "Adamax",
+            "RMSProp", "AdamW8bitStub"}),
     "paddle_tpu.kernels.pallas.flash_attention": (
         "paddle_tpu_torch.kernels.flash_attention", set()),
     "paddle_tpu.kernels.pallas.norms": ("paddle_tpu_torch.kernels.norms",

@@ -5,18 +5,26 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU. It
 builds chip_smoke.py's training step (gpt2_small, bf16 O1, AdamW, flash
-attention, batch 16 x seq 1024, random weights and batch from seed 0),
-runs 3 warm-up steps, then traces `--steps` steps with torch.profiler
-and prints: the wall time of the traced steps, the summed device time of
-every kernel (and so the device's idle share), that kernel time split
-into TrainStep's forward, backward and update (with the span each of the
-forward and the update covers on the device timeline), the kernel time
-split by kind (the flash-attention kernels, cuBLAS matrix products, the
-rest), and the 25 kernels that take the most device time.
-Without the profiler it also times 10 steps by wall (synchronised after
-each), and one step captured once as a CUDA graph and replayed by
-events: the step's device time with no host in it, so 1 - replay / wall
-is the device's idle share in an ordinary step.
+attention, batch 16 x seq 1024, random weights and batch from seed 0)
+and traces with torch.profiler, separately:
+
+  * the eager step: TrainStep's first call, which runs the step eagerly
+    and then captures it as a CUDA graph (the capture runs nothing on
+    the card). Its kernel time is split into TrainStep's forward,
+    backward and update (with the span each of the forward and the
+    update covers on the device timeline);
+  * `--steps` replays of the graph, after 2 untraced ones. A replay is
+    one graph launch to the host, so its kernels carry no TrainStep
+    range and are not split by part.
+
+For each it prints the wall time under the profiler, the summed device
+time of every kernel (and so the device's idle share), that kernel time
+split by kind (the flash-attention kernels, the multi-tensor update,
+cuBLAS matrix products, the rest) and the 25 kernels that take the most
+device time. Without the profiler it also times 10 replayed steps by
+wall (synchronised after each), and one replay of the step's graph
+alone by CUDA events: the step's device time with no host in it, so
+1 - replay / wall is the device's idle share in a step.
 The card's name and power limit lead the output.
 """
 from __future__ import annotations
@@ -31,87 +39,23 @@ import numpy as np
 
 
 def _part(name: str) -> str:
-    """The step's part a CUDA kernel belongs to, from its name."""
+    """The kind of work a CUDA kernel does, from its name."""
     n = name.lower()
-    if "flash_fwd_kernel" in n:
+    if "flash_fwd" in n:
         return "B1 flash forward"
     if "flash_bwd" in n:
         return "B2 flash backward"
+    if "mta_" in n:
+        return "multi-tensor update"
     if any(w in n for w in ("gemm", "cutlass", "sm90_xmma", "nvjet",
                             "cublas", "matmul")):
         return "matrix products (cuBLAS)"
     return "elementwise, reductions, copies"
 
 
-def _replay_ms(torch, fn, iters=5):
-    """Median device time of one call of `fn`, captured once as a CUDA
-    graph after a warm-up call on a side stream, replayed between CUDA
-    events. The replays repeat the captured call's kernels on the
-    captured addresses: the same work as a step, with no host between
-    its kernels."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        graph.replay()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    del graph
-    return float(np.median(times))
-
-
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=2)
-    args = ap.parse_args()
-    import torch
-    if not torch.cuda.is_available():
-        print("torch_train_profile: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.getcwd())
-    from torch.profiler import ProfilerActivity, profile
-    from chip_smoke import _gpt2_train_step
-    from paddle_tpu_torch.models import gpt2_small
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
-    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
-                     use_flash_attention=True)
-    model, step = _gpt2_train_step(cfg, use_amp=True)
-    rng = np.random.default_rng(0)
-    # the batch on the card, so a step copies nothing from the host
-    ids, labels = (torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (16, 1024)).astype(np.int32)).cuda()
-        for _ in range(2))
-    for _ in range(3):
-        step(ids, labels)
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        step(ids, labels)
-        torch.cuda.synchronize()
-        walls.append(1e3 * (time.perf_counter() - t0))
-    wall_med = float(np.median(walls))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            step(ids, labels)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+def _report(torch, prof, n, wall_ms, label, split):
+    """Print one trace's kernel time: by part (`split`: the eager step's
+    TrainStep ranges), by kind, and the top kernels."""
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     # the step's profiler ranges appear on the device timeline as spans
@@ -124,9 +68,8 @@ def main() -> int:
                 spans[part].append((e.time_range.start, e.time_range.end))
     kernels = [e for e in dev if not e.name.startswith("TrainStep.")]
     if not kernels:
-        print("torch_train_profile: the trace holds no device events",
-              file=sys.stderr)
-        return 1
+        raise RuntimeError(f"the trace of the {label} holds no device "
+                           "events")
 
     def part_of(e):
         t = e.time_range.start
@@ -144,27 +87,80 @@ def main() -> int:
         by_kind[kind] = by_kind.get(kind, 0.0) + us
         part = part_of(e)
         by_part[part] = by_part.get(part, 0.0) + us
-    n = args.steps
     busy_ms = sum(by_name.values()) / 1e3
-    print(f"{cfg.num_layers} layers, batch 16 x seq 1024, {n} traced "
-          f"steps: wall {wall_ms / n:.2f} ms/step (under the profiler), "
-          f"kernels {busy_ms / n:.2f} ms/step, device idle "
+    print(f"{label}, {n} traced: wall {wall_ms / n:.2f} ms/step (under the "
+          f"profiler), kernels {busy_ms / n:.2f} ms/step over "
+          f"{len(kernels) / n:.0f} launches, device idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f} %")
-    for part in ("forward", "backward", "update"):
-        span = sum(b - a for a, b in spans.get(part, ())) / 1e3
-        extra = f", span {span / n:.2f} ms/step" if span else ""
-        print(f"  {part:34s} kernels {by_part.get(part, 0.0) / 1e3 / n:8.2f}"
-              f" ms/step{extra}")
+    if split:
+        for part in ("forward", "backward", "update"):
+            span = sum(b - a for a, b in spans.get(part, ())) / 1e3
+            extra = f", span {span / n:.2f} ms/step" if span else ""
+            print(f"  {part:34s} kernels "
+                  f"{by_part.get(part, 0.0) / 1e3 / n:8.2f} ms/step{extra}")
     for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {kind:34s} {us / 1e3 / n:8.2f} ms/step "
               f"({100 * us / 1e3 / busy_ms:5.1f} % of kernel time)")
     print("top kernels (ms per step, calls per step):")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
         print(f"  {us / 1e3 / n:8.3f}  {calls[name] / n:6.0f}  {name[:110]}")
-    replay_ms = _replay_ms(torch, lambda: step(ids, labels))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=2)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_train_profile: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.getcwd())
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import _gpt2_train_step, _replay_ms
+    from paddle_tpu_torch.models import gpt2_small
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                     use_flash_attention=True)
+    model, step = _gpt2_train_step(cfg, use_amp=True)
+    rng = np.random.default_rng(0)
+    # the batch on the card, so a step copies nothing from the host
+    ids, labels = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (16, 1024)).astype(np.int32)).cuda()
+        for _ in range(2))
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+    _report(torch, prof, 1, first_ms,
+            f"{cfg.num_layers} layers, batch 16 x seq 1024: the eager step "
+            f"(the first call, then captured)", split=True)
+    for _ in range(2):
+        step(ids, labels)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall_med = float(np.median(walls))
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step(ids, labels)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    _report(torch, prof, args.steps, wall_ms, "replays of the step graph",
+            split=False)
+    replay_ms = _replay_ms(next(iter(step._graphs.values()))[0].graph)
     print(f"without the profiler: wall {wall_med:.2f} ms/step (median of "
-          f"10; {min(walls):.2f}-{max(walls):.2f}), one step by CUDA-graph "
-          f"replay {replay_ms:.2f} ms, device idle "
+          f"10 replayed steps; {min(walls):.2f}-{max(walls):.2f}), one "
+          f"step by CUDA-graph replay {replay_ms:.2f} ms, device idle "
           f"{100 * (1 - replay_ms / wall_med):.1f} %", flush=True)
     return 0
 

@@ -87,6 +87,7 @@ class TrainStep:
             optimizer._get_state(p)
         self._step_count = 0
         self._graphs: OrderedDict = OrderedDict()
+        self._pool = None       # the graphs' memory pool, made at need
         # checking only: run steps on CUDA parameters eagerly, without a
         # graph (the same update in place)
         self._eager = False
@@ -184,13 +185,29 @@ class TrainStep:
         inputs = [v if s is None else s for v, s in zip(vals, statics)]
         s_args = inputs[:len(args)]
         s_kwargs = dict(zip(names, inputs[len(args):]))
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
         captured = CapturedStep(
             "train_step", lambda: self._step_in_place(s_args, s_kwargs, lr),
-            warmup_counts=True)
+            generators=self._generators(), warmup_counts=True,
+            pool=self._pool)
         self._graphs[key] = (captured, statics)
         if len(self._graphs) > self.MAX_GRAPHS:
             self._graphs.popitem(last=False)
         return captured.warmup_output.clone()
+
+    def _generators(self):
+        """The CUDA generators the model's modules draw dropout masks
+        from (a ``generator`` attribute, as GPT's layers keep theirs):
+        registered with the graph, each replay draws new masks, as
+        eager steps would. The default generator is registered by
+        PyTorch itself."""
+        gens = {}
+        for m in self.model.modules():
+            g = getattr(m, "generator", None)
+            if isinstance(g, torch.Generator) and g.device.type == "cuda":
+                gens[id(g)] = g
+        return tuple(gens.values())
 
     @staticmethod
     def _fill(statics, vals):

@@ -10,10 +10,11 @@ read after it) and takes nothing from the host: no ``.item()``, no copy
 from host memory, no shape that depends on data. A capture that meets
 such an operation raises; nothing falls back to an eager run.
 
-Every graph is captured into one memory pool shared by all of them
-(``torch.cuda.graph_pool_handle``): they run one at a time on one
-stream, and their callers keep nothing a graph allocated beyond the
-next replay, so one graph's scratch may reuse another's.
+The decode graphs are captured into one memory pool shared by all of
+them (``torch.cuda.graph_pool_handle``), a TrainStep's graphs into a
+pool of its own: they run one at a time on one stream, and their
+callers keep nothing a graph allocated beyond the next replay, so one
+graph's scratch may reuse another's.
 
 ``captures``, ``capture_seconds`` and ``replays`` count by the name each
 caller gives its graphs ("engine_decode", "generate_prefill",
@@ -65,12 +66,19 @@ class CapturedStep:
     nothing is put back. The default CUDA generator needs no entry in
     ``generators``: PyTorch registers it with every graph.
 
+    ``pool`` gives the graph an owner's own memory pool in place of the
+    shared one: a pool whose graphs have all been freed cannot take a
+    new capture while any block of it is still allocated (a library's
+    workspace made during a capture stays), so an owner that is freed
+    and made again (a TrainStep) brings a pool of its own.
+
     The cyclic garbage collector is off while the graph is captured: a
     dead cycle holding an older graph, freed then, would release that
     graph's memory in the middle of the capture, which CUDA refuses
     (the capture is invalidated)."""
 
-    def __init__(self, name: str, fn, generators=(), warmup_counts=False):
+    def __init__(self, name: str, fn, generators=(), warmup_counts=False,
+                 pool=None):
         t0 = time.perf_counter()
         self.name = name
         states = [g.get_state() for g in generators]
@@ -92,7 +100,7 @@ class CapturedStep:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph, pool=_graph_pool()):
+            with torch.cuda.graph(self.graph, pool=pool or _graph_pool()):
                 self.output = fn()
         finally:
             if collecting:

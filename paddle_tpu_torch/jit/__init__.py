@@ -13,7 +13,8 @@ refilled into the optimizer's static scalar before each replay. The
 first call of a signature runs the step eagerly before capturing it:
 that run is the call's step, so N calls make N updates. A capture that
 fails raises; nothing falls back to the eager step. On CPU parameters
-every step runs eagerly, through ``optimizer.functional_update``.
+every step runs eagerly: the same step, with the update's plain
+version.
 
 The forward and the update run inside profiler ranges
 "TrainStep.forward" and "TrainStep.update", so a torch.profiler trace
@@ -55,8 +56,8 @@ class TrainStep:
     data). As in the reference:
       * the update uses the first parameter group's hyperparameters and
         applies NO ``grad_clip`` (``Optimizer.step`` does clip), and
-        updates the parameters themselves, not multi_precision masters
-        (``functional_update``);
+        updates the parameters themselves, not multi_precision masters,
+        as ``functional_update`` does;
       * the learning rate is read at every call (a scheduler's or a
         ``set_lr`` value);
       * an ``LRScheduler`` steps after the call.
@@ -100,62 +101,36 @@ class TrainStep:
     def __call__(self, *args, **kwargs):
         opt = self.optimizer
         lr = opt._lr_tensor(opt.get_lr(), self.device)
-        if self.device.type != "cuda":
-            loss = self._functional_step(args, kwargs, lr)
-        elif self._eager:
+        if self.device.type == "cuda" and not self._eager:
+            loss = self._graph_step(args, kwargs, lr)
+        else:
             loss = self._step_in_place(
                 [self._batch(a) for a in args],
                 {k: self._batch(v) if isinstance(v, torch.Tensor) else v
-                 for k, v in kwargs.items()}, lr).clone()
-        else:
-            loss = self._graph_step(args, kwargs, lr)
+                 for k, v in kwargs.items()}, lr)
         self._step_count += 1
         if isinstance(opt._lr, LRScheduler):
             opt._lr.step()
         return loss
-
-    def _loss(self, args, kwargs):
-        with record_function("TrainStep.forward"):
-            if self.loss_fn is None:
-                return self.model(*args, **kwargs)
-            return self.loss_fn(self.model, *args, **kwargs)
-
-    def _grads(self, loss):
-        grads = torch.autograd.grad(loss, self._params, allow_unused=True)
-        # an unused parameter gets a zero gradient, as jax.grad gives
-        return [torch.zeros_like(p) if g is None else g
-                for p, g in zip(self._params, grads)]
-
-    def _functional_step(self, args, kwargs, lr):
-        """The CPU step: functional_update's new tensors copied into the
-        parameters, the new states bound in their place."""
-        args = [self._batch(a) for a in args]
-        kwargs = {k: self._batch(v) if isinstance(v, torch.Tensor) else v
-                  for k, v in kwargs.items()}
-        opt = self.optimizer
-        loss = self._loss(args, kwargs)
-        grads = self._grads(loss)
-        with torch.no_grad(), record_function("TrainStep.update"):
-            states = [opt._get_state(p) for p in self._params]
-            new_params, new_states = opt.functional_update(
-                [p.detach() for p in self._params], grads, states, lr)
-            for p, n, st in zip(self._params, new_params, new_states):
-                p.copy_(n)
-                opt._accumulators[id(p)] = st
-        return loss.detach()
 
     def _step_in_place(self, args, kwargs, lr):
         """One step that writes parameters and state in place (what a
         graph captures): the first group's hyperparameters, no clip, no
         masters."""
         opt = self.optimizer
-        loss = self._loss(args, kwargs)
-        grads = self._grads(loss)
+        with record_function("TrainStep.forward"):
+            if self.loss_fn is None:
+                loss = self.model(*args, **kwargs)
+            else:
+                loss = self.loss_fn(self.model, *args, **kwargs)
+        grads = torch.autograd.grad(loss, self._params, allow_unused=True)
         group = opt._param_groups[0] if opt._param_groups else {}
         with torch.no_grad(), record_function("TrainStep.update"):
+            # an unused parameter gets a zero gradient, as jax.grad gives
             opt._update_in_place(
-                [(p, g, group) for p, g in zip(self._params, grads)],
-                lambda dev: lr, group=group, masters=False)
+                [(p, torch.zeros_like(p) if g is None else g, group)
+                 for p, g in zip(self._params, grads)],
+                lambda dev: lr, masters=False)
         return loss.detach()
 
     @staticmethod

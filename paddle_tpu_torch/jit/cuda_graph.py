@@ -87,9 +87,6 @@ class CapturedStep:
         with torch.cuda.stream(side):
             out = fn()
         torch.cuda.current_stream().wait_stream(side)
-        # warmup_counts: the warm-up is one real call of fn (a train
-        # step updates the model once), so its output is kept and the
-        # generators go on from where it left them
         self.warmup_output = out if warmup_counts else None
         if not warmup_counts:
             for g, s in zip(generators, states):

@@ -191,22 +191,20 @@ class Optimizer:
                             zip(params_grads, clipped)]
         self._step_count += 1
         lr = self.get_lr()
-        self._update_in_place(
-            params_grads, lambda dev: self._lr_tensor(lr, dev), group=None)
+        self._update_in_place(params_grads,
+                              lambda dev: self._lr_tensor(lr, dev))
 
     @torch.no_grad()
-    def _update_in_place(self, params_grads, lr_of, group=None,
-                         masters=True):
-        """Update each (param, grad, its group) in place: every f32 work
+    def _update_in_place(self, params_grads, lr_of, masters=True):
+        """Update each (param, grad, group) in place: every f32 work
         array (an f32 parameter, or a master) through
         ``_multi_tensor_update`` in one call per device, the rest through
         ``_update_rule`` tensor by tensor. `lr_of(device)` gives the f32
-        lr scalar. TrainStep passes `group` (the first group, for every
-        parameter) and ``masters=False``: like the reference's
-        functional_update, it updates the parameters themselves."""
+        lr scalar. TrainStep passes the first group for every parameter
+        and ``masters=False``: like the reference's functional_update, it
+        updates the parameters themselves."""
         fused = {}
         for p, g, grp in params_grads:
-            grp = grp if group is None else group
             mw = self._master(p) if masters else None
             work = p.detach() if mw is None else mw
             state = self._get_state(p)

@@ -291,3 +291,26 @@ def test_resume_from_reference_state_with_masters(mp):
             np.testing.assert_allclose(
                 topt._master_weights[id(tp)].numpy(),
                 np.asarray(jopt._master_weights[id(jp)]), **MP_TOL)
+
+
+def test_set_state_dict_refills_existing_state_in_place():
+    """A loaded state lands in the tensors the optimizer already holds
+    (a captured TrainStep graph reads those addresses); a master too."""
+    init, _, _ = _reference(True, steps=1)
+    topt, tlin = _port(init, steps=1)
+    sd = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+          for k, v in topt.state_dict().items()}
+    held = {id(p): (dict(topt._accumulators[id(p)]),
+                    topt._master_weights[id(p)])
+            for p in tlin.parameters()}
+    x = torch.from_numpy(_x()).to(torch.bfloat16)
+    (tlin(x).float() ** 2).mean().backward()
+    topt.step()
+    topt.set_state_dict(sd)
+    for n, p in tlin.named_parameters():
+        st, mw = held[id(p)]
+        for k, t in st.items():
+            assert topt._accumulators[id(p)][k] is t
+            assert torch.equal(t, sd[f"{n}_{k}"])
+        assert topt._master_weights[id(p)] is mw
+        assert torch.equal(mw, sd[f"{n}_master"])

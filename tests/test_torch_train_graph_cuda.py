@@ -282,3 +282,58 @@ def test_returned_losses_are_distinct_tensors(cuda_device):
     assert len(set(values)) == 4
     step(ids, labels)
     assert [float(x) for x in losses] == values
+
+
+def test_multi_precision_step_on_the_card_matches_the_cpu(cuda_device):
+    """Optimizer.step with bf16 parameters and f32 masters: the kernel on
+    the card against the plain version on the CPU, from the same
+    gradients (the update of each master, then its cast)."""
+    rng = np.random.default_rng(5)
+    shapes = [(64, 48), (48,), (7, 3, 5)]
+    init = [rng.standard_normal(s).astype(np.float32) * 0.02
+            for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) * 1e-2
+              for s in shapes] for _ in range(3)]
+    runs = []
+    for dev in ("cpu", cuda_device):
+        ps = [torch.tensor(a, device=dev).to(torch.bfloat16)
+              .requires_grad_() for a in init]
+        opt = AdamW(learning_rate=1e-3, parameters=ps, weight_decay=0.01,
+                    multi_precision=True)
+        n0 = mta.multi_tensor_adam.kernel_launches
+        for gs in grads:
+            for p, g in zip(ps, gs):
+                p.grad = torch.tensor(g, device=dev).to(torch.bfloat16)
+            opt.step()
+        if dev != "cpu":
+            assert mta.multi_tensor_adam.kernel_launches - n0 == 3
+        runs.append(([p.detach().cpu() for p in ps],
+                     [opt._master_weights[id(p)].cpu() for p in ps]))
+    (cp, cm), (gp, gm) = runs
+    for a, b in zip(gm, cm):
+        assert a.dtype == torch.float32 and ulp_err(a, b) <= 2
+    for a, b in zip(gp, cp):
+        assert a.dtype == torch.bfloat16 and ulp_err(a, b) <= 1
+
+
+def test_loading_state_keeps_the_graph_reading_it(cuda_device,
+                                                  f32_products):
+    """set_state_dict refills the optimizer's tensors in place, so a
+    captured step replayed after a load continues from the loaded
+    state: the same as the steps first taken from it."""
+    model, step = _model_and_step(cuda_device)
+    ids, labels = _batch()
+    for _ in range(2):
+        step(ids, labels)
+    params = _params(model)
+    state = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+             for k, v in step.optimizer.state_dict().items()}
+    first = [float(step(ids, labels)) for _ in range(2)]
+    after = _params(model)
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v.copy_(params[k])
+    step.optimizer.set_state_dict(state)
+    again = [float(step(ids, labels)) for _ in range(2)]
+    assert again == first
+    assert _max_diff(_params(model), after) == 0.0

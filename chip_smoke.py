@@ -165,6 +165,34 @@ def kernel_events(**targets):
 
 
 @contextlib.contextmanager
+def capture_counts(read):
+    """Measurement only: while the block runs, `read()` (a tuple of
+    launch counters) is taken at the start and at the end of every
+    CUDA-graph capture; yields [(before, after), ...], one pair a
+    capture. A counter counts a launch of an eager run and one of a
+    capture (which runs nothing) alike: this splits the two."""
+    import torch
+    spans = []
+    base = torch.cuda.graph
+
+    class counted(base):
+        def __enter__(self):
+            self._counts_before = read()
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            out = super().__exit__(*exc)
+            spans.append((self._counts_before, read()))
+            return out
+
+    torch.cuda.graph = counted
+    try:
+        yield spans
+    finally:
+        torch.cuda.graph = base
+
+
+@contextlib.contextmanager
 def kernel_calls(module, attr):
     """Checking only: while the block runs, every call of the wrapper
     module.attr is recorded as (args, result), for holding the kernel's
@@ -1378,15 +1406,19 @@ def train_phase() -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    # the first call runs the step eagerly (B1/B2 timed by events around
-    # each call, measurement only) and captures it; every later call
-    # replays the graph, which runs the captured launches again without
-    # calling the wrappers: a counter counts a launch of the eager step
-    # and one of the captured step, and the card runs the captured
-    # launches once a replay
+    # the first call runs the step eagerly and captures it; every later
+    # call replays the graph, which runs the captured launches again
+    # without calling the wrappers: a counter counts a launch of the
+    # eager step and one of the capture, and the card runs the captured
+    # launches once a replay. The counters read around each capture
+    # split the two, so the launches on the card are the eager step's
+    # plus the captured step's times the replays counted.
+    def read():
+        return (fa.flash_fwd.kernel_launches, fa.flash_bwd.kernel_launches,
+                mta.multi_tensor_adam.kernel_launches)
+
     torch.cuda.reset_peak_memory_stats()
-    with kernel_events(fwd=(fa, "_fwd_cuda"), bwd=(fa, "_bwd_cuda")) \
-            as events:
+    with capture_counts(read) as spans:
         fa.reset_counters()
         mta.multi_tensor_adam.kernel_launches = 0
         mta.multi_tensor_adam.plain_calls = 0
@@ -1399,23 +1431,24 @@ def train_phase() -> dict:
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t)
             losses.append(loss)
-        launches = (fa.flash_fwd.kernel_launches,
-                    fa.flash_bwd.kernel_launches)
+        counted = read()
         designs = dict(fa.flash_fwd.design_launches)
         bwd_designs = dict(fa.flash_bwd.design_launches)
         plain = (fa.flash_fwd.plain_calls, fa.flash_bwd.plain_calls)
-        update = (mta.multi_tensor_adam.kernel_launches,
-                  mta.multi_tensor_adam.plain_calls)
+        update_plain = mta.multi_tensor_adam.plain_calls
         captures = dict(cuda_graph.captures)
         replays = dict(cuda_graph.replays)
         capture_s = cuda_graph.capture_seconds["train_step"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # per kernel (B1, B2, update): launches in the captured step, in the
+    # eager run, and run on the card
+    in_graph = tuple(sum(b[i] - a[i] for a, b in spans) for i in range(3))
+    eager = tuple(c - g for c, g in zip(counted, in_graph))
+    n_replays = replays.get("train_step", 0)
+    on_device = tuple(e + g * n_replays for e, g in zip(eager, in_graph))
     distinct = len({x.data_ptr() for x in losses}) == len(losses)
     losses = [float(x) for x in losses]
     timed_s = step_s[warmup:]
-    # B1/B2 device time of the eager step (the only one that calls them)
-    per_step = {k: sum(s.elapsed_time(e) for s, e in v)
-                for k, v in events.items()}
     n_steps = warmup + steps
     L = cfg.num_layers
     checks = {
@@ -1424,25 +1457,27 @@ def train_phase() -> dict:
         "one graph captured, every later step a replay": (
             captures, replays) == ({"train_step": 1},
                                    {"train_step": n_steps - 1}),
-        "B1 and B2 at 12 launches per captured step (eager + captured)":
-            launches == (2 * L, 2 * L),
+        "B1 and B2 at 12 launches in the captured step and 12 in the "
+        "eager one": in_graph[:2] == eager[:2] == (L, L),
         "every B1 launch ran the sm90 design": designs == {
             "sm90": 2 * L, "simple": 0},
         "every B2 launch ran the sm90 design": bwd_designs == {
             "sm90": 2 * L, "simple": 0},
         "plain versions never ran on CUDA tensors": plain == (0, 0),
         "attention_path names the kernels": path == ("cuda", ""),
-        "the update kernel at one launch a step (eager + captured)":
-            update == (2, 0),
+        "the update kernel at one launch in the captured step and one "
+        "in the eager one": (in_graph[2], eager[2]) == (1, 1),
+        "no plain update call": update_plain == 0,
     }
     for what, ok in checks.items():
         log(f"[train] check: {what}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
-        raise RuntimeError(f"training phase failed: launches {launches} "
+        raise RuntimeError(f"training phase failed: launches counted "
+                           f"{counted}, in the captured step {in_graph}, "
                            f"B1 by design {designs} B2 by design "
-                           f"{bwd_designs} plain {plain} update {update} "
-                           f"captures {captures} replays {replays} losses "
-                           f"{losses}")
+                           f"{bwd_designs} plain {plain} update plain "
+                           f"{update_plain} captures {captures} replays "
+                           f"{replays} losses {losses}")
     graph = next(iter(step._graphs.values()))[0].graph
     replay_ms = _replay_ms(graph)
     # the update alone, by replay, on the model's own tensors and state
@@ -1460,6 +1495,22 @@ def train_phase() -> dict:
         decoupled=True), reps=5, iters=10)
     update_bound = _update_bound(slots)
     del slots
+    # B1/B2 device time by events in an eager step (a replay calls no
+    # wrapper), outside the counted run: the second of two, since the
+    # first allocates its activations anew (the graph's pool holds the
+    # earlier ones) and the host then stretches its kernels
+    step._eager = True
+    step(ids, labels)
+    with kernel_events(fwd=(fa, "_fwd_cuda"), bwd=(fa, "_bwd_cuda")) \
+            as events:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        eager_step_ms = 1e3 * (time.perf_counter() - t)
+    step._eager = False
+    per_step = {k: sum(s.elapsed_time(e) for s, e in v)
+                for k, v in events.items()}
     n = num_params(cfg)
     tok_s = batch * seq * steps / sum(timed_s)
     med = statistics.median(timed_s)
@@ -1473,14 +1524,18 @@ def train_phase() -> dict:
                idle_share=1 - replay_ms / (1e3 * med),
                mfu=6.0 * n * tok_s / BF16_FLOPS_PER_S,
                step_floor_ms=6.0 * n * batch * seq / BF16_FLOPS_PER_S * 1e3,
+               eager_step_ms=eager_step_ms,
                b1_ms_per_step=per_step["fwd"],
                b2_ms_per_step=per_step["bwd"],
-               b1_launches=launches[0], b2_launches=launches[1],
+               b1_launches=counted[0], b2_launches=counted[1],
                b1_design_launches=designs, b2_design_launches=bwd_designs,
-               b1_launches_on_device=L * n_steps,
-               plain_calls=list(plain), update_launches=update[0],
-               update_launches_on_device=n_steps,
-               update_plain_calls=update[1], update_ms_graph=update_ms,
+               launches_in_graph=list(in_graph),
+               launches_eager=list(eager),
+               b1_launches_on_device=on_device[0],
+               b2_launches_on_device=on_device[1],
+               plain_calls=list(plain), update_launches=counted[2],
+               update_launches_on_device=on_device[2],
+               update_plain_calls=update_plain, update_ms_graph=update_ms,
                update_bound_ms=update_bound[0],
                update_bound_by=update_bound[1], losses=losses,
                setup_s=setup_s, peak_mem_gb=peak)
@@ -1492,11 +1547,12 @@ def train_phase() -> dict:
         f"call (eager step + capture) {rec['first_step_ms']:.1f} ms, "
         f"captures {captures} in {capture_s:.3f} s, replays {replays}; "
         f"update {update_ms:.4f} ms by replay (bound {update_bound[0]:.4f}"
-        f" ms, {update_bound[1]}); B1 {per_step['fwd']:.3f} ms + B2 "
-        f"{per_step['bwd']:.3f} ms of device time in the eager step; "
-        f"launches counted B1 {launches[0]} B2 {launches[1]} update "
-        f"{update[0]} (eager + captured), on the card {L * n_steps} / "
-        f"{L * n_steps} / {n_steps}; peak mem {peak:.2f} GiB; losses "
+        f" ms, {update_bound[1]}); a second eager step after the run "
+        f"{eager_step_ms:.2f} ms by wall, B1 {per_step['fwd']:.3f} ms + "
+        f"B2 {per_step['bwd']:.3f} ms of device time in it; launches "
+        f"(B1, B2, update) counted {counted}: eager {eager}, captured "
+        f"step {in_graph}, on the card {on_device} over {n_replays} "
+        f"replays; peak mem {peak:.2f} GiB; losses "
         f"{[round(x, 4) for x in losses]}")
     del model, step
     torch.cuda.empty_cache()
@@ -2169,9 +2225,11 @@ def main() -> int:
             name=name, route="cuda", source=src + source,
             replaces=f"paddle_tpu/kernels/pallas/flash_attention.py:{line}",
             # counted: the eager first step's and the captured step's;
-            # run on the card: once a step
+            # run on the card: the eager step's and the captured step's
+            # times the replays, from the counters read around the capture
             launches=launches,
-            launches_on_device=train["b1_launches_on_device"],
+            launches_on_device=train[f"b{1 if kind == 'fwd' else 2}"
+                                     "_launches_on_device"],
             max_abs_err=max(e for c in flash for what, e in
                             c["max_abs_err_bf16"].items()
                             if (what in ("o", "lse")) == (kind == "fwd")),

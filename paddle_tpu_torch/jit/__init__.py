@@ -100,20 +100,19 @@ class TrainStep:
 
     def __call__(self, *args, **kwargs):
         opt = self.optimizer
-        lr = opt._lr_tensor(opt.get_lr(), self.device)
         if self.device.type == "cuda" and not self._eager:
-            loss = self._graph_step(args, kwargs, lr)
+            loss = self._graph_step(args, kwargs)
         else:
             loss = self._step_in_place(
                 [self._batch(a) for a in args],
                 {k: self._batch(v) if isinstance(v, torch.Tensor) else v
-                 for k, v in kwargs.items()}, lr)
+                 for k, v in kwargs.items()})
         self._step_count += 1
         if isinstance(opt._lr, LRScheduler):
             opt._lr.step()
         return loss
 
-    def _step_in_place(self, args, kwargs, lr):
+    def _step_in_place(self, args, kwargs):
         """One step that writes parameters and state in place (what a
         graph captures): the first group's hyperparameters, no clip, no
         masters."""
@@ -129,8 +128,7 @@ class TrainStep:
             # an unused parameter gets a zero gradient, as jax.grad gives
             opt._update_in_place(
                 [(p, torch.zeros_like(p) if g is None else g, group)
-                 for p, g in zip(self._params, grads)],
-                lambda dev: lr, masters=False)
+                 for p, g in zip(self._params, grads)], masters=False)
         return loss.detach()
 
     @staticmethod
@@ -139,7 +137,7 @@ class TrainStep:
             return ("array", tuple(a.shape), torch.as_tensor(a).dtype)
         return ("value", a)
 
-    def _graph_step(self, args, kwargs, lr):
+    def _graph_step(self, args, kwargs):
         """Replay the graph of this batch signature, capturing it first
         (the capture's warm-up run is this call's step)."""
         names = sorted(kwargs)
@@ -150,6 +148,10 @@ class TrainStep:
             self._graphs.move_to_end(key)
             captured, statics = entry
             self._fill(statics, list(args) + [kwargs[k] for k in names])
+            # this call's lr into the static scalar the graph reads (an
+            # eager or captured step's update refills it itself)
+            opt = self.optimizer
+            opt._lr_tensor(opt.get_lr(), self.device)
             return captured.replay().clone()
         vals = list(args) + [kwargs[k] for k in names]
         statics = [torch.empty(tuple(v.shape), device=self.device,
@@ -163,7 +165,7 @@ class TrainStep:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         captured = CapturedStep(
-            "train_step", lambda: self._step_in_place(s_args, s_kwargs, lr),
+            "train_step", lambda: self._step_in_place(s_args, s_kwargs),
             generators=self._generators(), warmup_counts=True,
             pool=self._pool)
         self._graphs[key] = (captured, statics)

@@ -14,11 +14,12 @@ in jnp. ``step()`` applies, after the optional ``grad_clip``:
 
 Both write parameters, moments and powers in place, so a CUDA graph that
 captured an update (``TrainStep``) replays it on the same storage.
-``TrainStep`` on CPU parameters applies the rule through
-``functional_update``, which (as in the reference, :523-534) uses the
-first group's hyperparameters and applies no clip. The learning rate
-enters the rule as one f32 scalar tensor per device, refilled in place,
-so no step reads a value back to the host.
+``TrainStep`` takes the same in-place update on every device, with the
+first group's hyperparameters, no clip and no masters, as the
+reference's ``functional_update`` (:523-534) does; the port's
+``functional_update`` keeps that public name and its out-of-place form.
+The learning rate enters the rule as one f32 scalar tensor per device,
+refilled in place, so no step reads a value back to the host.
 
 ``multi_precision=True`` keeps an f32 master of every parameter that is
 not f32 (``_master``, reference :173-183): the update runs on the master
@@ -190,19 +191,18 @@ class Optimizer:
             params_grads = [(p, g2, grp) for (p, _g, grp), (_, g2) in
                             zip(params_grads, clipped)]
         self._step_count += 1
-        lr = self.get_lr()
-        self._update_in_place(params_grads,
-                              lambda dev: self._lr_tensor(lr, dev))
+        self._update_in_place(params_grads)
 
     @torch.no_grad()
-    def _update_in_place(self, params_grads, lr_of, masters=True):
+    def _update_in_place(self, params_grads, masters=True):
         """Update each (param, grad, group) in place: every f32 work
         array (an f32 parameter, or a master) through
         ``_multi_tensor_update`` in one call per device, the rest through
-        ``_update_rule`` tensor by tensor. `lr_of(device)` gives the f32
-        lr scalar. TrainStep passes the first group for every parameter
-        and ``masters=False``: like the reference's functional_update, it
-        updates the parameters themselves."""
+        ``_update_rule`` tensor by tensor, at the lr scalar of each
+        device (``_lr_tensor``). TrainStep passes the first group for
+        every parameter and ``masters=False``: like the reference's
+        functional_update, it updates the parameters themselves."""
+        lr = self.get_lr()
         fused = {}
         for p, g, grp in params_grads:
             mw = self._master(p) if masters else None
@@ -216,14 +216,14 @@ class Optimizer:
                 continue
             garr = g if g.dtype == work.dtype else g.to(work.dtype)
             new_w, new_state = self._update_rule(
-                work, garr, state, lr_of(work.device), grp)
+                work, garr, state, self._lr_tensor(lr, work.device), grp)
             work.copy_(new_w)
             if out is not None:
                 out.copy_(new_w)
             for k, v in new_state.items():
                 state[k].copy_(v)
         for dev, items in fused.items():
-            self._multi_tensor_update(items, lr_of(dev))
+            self._multi_tensor_update(items, self._lr_tensor(lr, dev))
 
     def clear_grad(self, set_to_zero=False):
         for p in self._all_params():

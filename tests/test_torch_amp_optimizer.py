@@ -145,8 +145,9 @@ def test_optimizer_step_matches_reference(name):
 
 @pytest.mark.parametrize("name", ["adamw", "adamw_bf16_moments"])
 def test_functional_update_matches_reference(name):
-    """The TrainStep path: functional_update with an f32 lr scalar,
-    first group's hyperparameters, no clip."""
+    """functional_update, the reference's public name (out of place):
+    an f32 lr scalar, first group's hyperparameters, no clip. TrainStep
+    itself updates in place (test_train_step_update_matches_reference)."""
     jcls, tcls, kw = OPTS[name]
     ps, grads = _params(1)
     jp = [pt.to_tensor(p, stop_gradient=False) for p in ps]
@@ -169,6 +170,55 @@ def test_functional_update_matches_reference(name):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **OPT_TOL)
     # no clip on this path: a clipped step would have moved ~1e-3 of it
     assert max(np.abs(a.numpy() - p).max() for a, p in zip(tp, ps)) > 0.03
+
+
+class _Weights(torch.nn.Module):
+    def __init__(self, arrays):
+        super().__init__()
+        self.ws = torch.nn.ParameterList(
+            [torch.nn.Parameter(torch.from_numpy(a.copy())) for a in arrays])
+
+
+@pytest.mark.parametrize("name", ["adamw", "adamw_bf16_moments"])
+def test_train_step_update_matches_reference(name):
+    """TrainStep's update (in place, on every device): the loss
+    sum(w * g) hands each parameter the gradient g exactly, so three
+    TrainStep calls on the CPU take the reference's functional_update
+    three times, first group's hyperparameters, no clip."""
+    jcls, tcls, kw = OPTS[name]
+    ps, grads = _params(1)
+    jp = [pt.to_tensor(p, stop_gradient=False) for p in ps]
+    jo = jcls(learning_rate=1e-2, parameters=jp, **kw,
+              grad_clip=jclip.ClipGradByGlobalNorm(1e-3))
+    model = _Weights(ps)
+    to = tcls(learning_rate=1e-2, parameters=model.parameters(), **kw,
+              grad_clip=tclip.ClipGradByGlobalNorm(1e-3))
+
+    def loss_fn(m, *gs):
+        return sum((w * g).sum() for w, g in zip(m.ws, gs))
+
+    step = ptt.TrainStep(model, to, loss_fn)
+    jarr = [p._data for p in jp]
+    jst = [jo._get_state(p) for p in jp]
+    for gs in grads[:3]:
+        jarr, jst = jo.functional_update(
+            jarr, [jnp.asarray(g) for g in gs], jst,
+            jnp.asarray(1e-2, jnp.float32))
+        step(*gs)
+    for a, b in zip(model.ws, jarr):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   **OPT_TOL)
+    for a, b in zip(model.ws, jst):
+        ta = to._get_state(a)
+        for k in ("moment1", "moment2"):
+            assert str(ta[k].dtype).endswith(str(b[k].dtype))
+            np.testing.assert_allclose(ta[k].float().numpy(),
+                                       np.asarray(b[k], np.float32),
+                                       rtol=1e-5, atol=1e-8)
+        assert float(ta["beta2_pow"]) == float(b["beta2_pow"])
+    # no clip on this path: a clipped step would have moved ~1e-3 of it
+    assert max(np.abs(a.detach().numpy() - p).max()
+               for a, p in zip(model.ws, ps)) > 0.02
 
 
 def test_lr_schedulers_match_reference():

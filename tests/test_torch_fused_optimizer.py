@@ -99,6 +99,81 @@ def test_multi_precision_adamw_matches_reference(fused):
         assert not np.allclose(_f32(tp), init[n].astype(np.float32))
 
 
+@pytest.mark.parametrize("moment_dtype", [None, "bfloat16"],
+                         ids=["f32_moments", "bf16_moments"])
+@pytest.mark.parametrize("fused", [True, False], ids=["ref_fused",
+                                                      "ref_eager"])
+def test_multi_precision_master_update_matches_reference(fused,
+                                                         moment_dtype):
+    """The master arithmetic alone, with no forward: the same bf16
+    gradients (seeded, rounded once from f32) go into both sides'
+    multi_precision AdamW over bf16 parameters in two groups with their
+    own decays. With f32 moments, masters and moments agree within a
+    few f32 ulps (XLA may contract a*b+c into one FMA), and each bf16
+    parameter is its master's cast on both sides, so the parameters
+    agree exactly. With bf16 moments, that ulp may round a moment one
+    bf16 ulp (2^-7 relative at most) the other way; the update it
+    feeds, at most about lr a step, then moves by that share, and the
+    parameter by one bf16 ulp."""
+    rng = np.random.default_rng(7)
+    shapes = [(16, 8), (8,), (3, 5, 4), (33, 7)]
+    ps = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) for s in shapes]
+             for _ in range(STEPS)]
+    kw = {} if moment_dtype is None else dict(moment_dtype=moment_dtype)
+    groups = lambda xs: [  # noqa: E731
+        {"params": xs[:2], "weight_decay": 0.01},
+        {"params": xs[2:], "weight_decay": 0.1}]
+    jp = [pt.to_tensor(p, stop_gradient=False).astype("bfloat16")
+          for p in ps]
+    tp = [torch.from_numpy(p.copy()).to(torch.bfloat16).requires_grad_()
+          for p in ps]
+    for a, b in zip(tp, jp):
+        np.testing.assert_array_equal(_f32(a), np.asarray(b._data,
+                                                          np.float32))
+    jopt = JAdamW(learning_rate=LR, parameters=groups(jp),
+                  multi_precision=True, **kw)
+    topt = AdamW(learning_rate=LR, parameters=groups(tp),
+                 multi_precision=True, **kw)
+    os.environ["PADDLE_TPU_FUSED_OPT"] = "1" if fused else "0"
+    try:
+        for gs in grads:
+            for p, g in zip(jp, gs):
+                p._grad = pt.to_tensor(g).astype("bfloat16")
+            for p, g in zip(tp, gs):
+                p.grad = torch.from_numpy(g.copy()).to(torch.bfloat16)
+            jopt.step()
+            topt.step()
+    finally:
+        os.environ.pop("PADDLE_TPU_FUSED_OPT", None)
+    if moment_dtype is None:
+        master_tol, moment_tol = (dict(rtol=1e-6, atol=1e-7),
+                                  dict(rtol=2e-6, atol=1e-8))
+        param_tol = dict(rtol=0, atol=0)
+    else:
+        ulp = 2.0 ** -7
+        master_tol = dict(rtol=0, atol=STEPS * LR * ulp)
+        moment_tol = param_tol = dict(rtol=ulp, atol=1e-30)
+    for a, b in zip(tp, jp):
+        tm = topt._master_weights[id(a)]
+        jm = np.asarray(jopt._master_weights[id(b)])
+        np.testing.assert_allclose(tm.numpy(), jm, **master_tol)
+        np.testing.assert_allclose(_f32(a), np.asarray(b._data, np.float32),
+                                   **param_tol)
+        assert torch.equal(a.detach(), tm.to(torch.bfloat16))
+        tst, jst = topt._accumulators[id(a)], jopt._accumulators[id(b)]
+        for k in ("moment1", "moment2"):
+            assert str(tst[k].dtype).endswith(str(jst[k].dtype)), k
+            np.testing.assert_allclose(_f32(tst[k]),
+                                       np.asarray(jst[k], np.float32),
+                                       err_msg=k, **moment_tol)
+        for k in ("beta1_pow", "beta2_pow"):
+            assert float(tst[k]) == float(np.asarray(jst[k])), k
+    # the update took effect in both groups
+    assert all(not np.array_equal(_f32(a), p.astype(np.float32))
+               for a, p in zip(tp, ps))
+
+
 def test_masters_are_f32_and_moments_follow_them():
     init, jopt, jlin = _reference(True, steps=1)
     topt, tlin = _port(init, steps=1)

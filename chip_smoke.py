@@ -84,7 +84,23 @@ Run from the root of a checkout. Phases, each of which must pass:
      f32 masters; element by element in ulps, a planted fault (one
      tensor's lr x 1.01) rejected; timed by events and by CUDA-graph
      replay beside its bound, the plain version and
-     torch._fused_adamw_ (a yardstick only).
+     torch._fused_adamw_ (a yardstick only);
+ 13. bench.py::bench_gpt_1p3b's config trained at full width and depth
+     (gpt3_1p3b: 24 layers, batch 4 x seq 2048, bf16 O1, AdamW with
+     bf16 moments, flash attention, every third block recomputed,
+     random weights from seed 0) through TrainStep's graph, 2 + 6
+     calls: B1/B2 must take their sm90 design, the counters read around
+     the eager first step and the capture must show 32 B1 launches a
+     step (24 blocks and the 8 recomputed ones), 24 of B2 and 2 of the
+     update (292 tensors, 192 a launch), every loss finite; the step by
+     wall and by replay, the idle share, tokens/s, MFU and peak memory;
+     then the same config without recompute, for what recompute costs
+     and saves;
+ 14. recompute through TrainStep's graph against eager steps without
+     it: gpt3_1p3b's widths at 4 layers, bf16 O1, dropout 0.1, one
+     seed, 3 steps, at recompute intervals 1 and 3 under the "full" and
+     "dots" policies: losses and parameters within phase 7's rule, the
+     largest difference printed.
 
 The last three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
@@ -1347,10 +1363,10 @@ def flash_phase() -> list:
 # ---------------------------------------------------------------------------
 # phase 6: gpt2_small trained by TrainStep at full width and depth
 # ---------------------------------------------------------------------------
-def _gpt2_train_step(cfg, use_amp, lr=1e-4, seed=0):
+def _gpt_train_step(cfg, use_amp, lr=1e-4, seed=0, moment_dtype=None):
     """bench.py::bench_gpt's step: an f32 GPTForCausalLM, AdamW(lr,
-    weight decay 0.01), bf16 O1 auto_cast around the forward when
-    `use_amp`, GPTPretrainingCriterion."""
+    weight decay 0.01, moments in `moment_dtype`), bf16 O1 auto_cast
+    around the forward when `use_amp`, GPTPretrainingCriterion."""
     from paddle_tpu_torch import TrainStep, amp
     from paddle_tpu_torch.models import (GPTForCausalLM,
                                          GPTPretrainingCriterion)
@@ -1358,7 +1374,7 @@ def _gpt2_train_step(cfg, use_amp, lr=1e-4, seed=0):
     model = GPTForCausalLM(cfg, dtype="float32", seed=seed)
     model.train()
     opt = AdamW(learning_rate=lr, parameters=model.parameters(),
-                weight_decay=0.01)
+                weight_decay=0.01, moment_dtype=moment_dtype)
     crit = GPTPretrainingCriterion()
 
     def loss_fn(m, ids, labels):
@@ -1384,9 +1400,61 @@ def _replay_ms(graph, iters=5):
     return statistics.median(times)
 
 
-def train_phase() -> dict:
+def _counted_steps(step, ids, labels, n_calls) -> dict:
+    """`n_calls` TrainStep calls, each synchronised and timed by wall,
+    with the counters of B1, B2, the update kernel and the graphs set to
+    0 just before and read just after. The first call runs the step
+    eagerly and captures it; every later call replays the graph, which
+    runs the captured launches again without calling the wrappers: a
+    counter counts a launch of the eager step and one of the capture,
+    and the card runs the captured launches once a replay. The counters
+    read around each capture split the two, so the launches on the card
+    are the eager step's plus the captured step's times the replays.
+    Launch tuples are (B1, B2, update)."""
     import torch
     from paddle_tpu_torch.jit import cuda_graph
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
+
+    def read():
+        return (fa.flash_fwd.kernel_launches, fa.flash_bwd.kernel_launches,
+                mta.multi_tensor_adam.kernel_launches)
+
+    with capture_counts(read) as spans:
+        fa.reset_counters()
+        mta.multi_tensor_adam.kernel_launches = 0
+        mta.multi_tensor_adam.plain_calls = 0
+        cuda_graph.reset_counters()
+        losses, step_s = [], []
+        for _ in range(n_calls):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = step(ids, labels)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            losses.append(loss)
+        counted = read()
+        run = dict(
+            designs=dict(fa.flash_fwd.design_launches),
+            bwd_designs=dict(fa.flash_bwd.design_launches),
+            plain=(fa.flash_fwd.plain_calls, fa.flash_bwd.plain_calls),
+            update_plain=mta.multi_tensor_adam.plain_calls,
+            captures=dict(cuda_graph.captures),
+            replays=dict(cuda_graph.replays),
+            capture_s=cuda_graph.capture_seconds["train_step"])
+    in_graph = tuple(sum(b[i] - a[i] for a, b in spans) for i in range(3))
+    eager = tuple(c - g for c, g in zip(counted, in_graph))
+    n_replays = run["replays"].get("train_step", 0)
+    run.update(
+        counted=counted, in_graph=in_graph, eager=eager,
+        on_device=tuple(e + g * n_replays for e, g in zip(eager, in_graph)),
+        distinct=len({x.data_ptr() for x in losses}) == len(losses),
+        losses=[float(x) for x in losses], step_s=step_s)
+    return run
+
+
+def train_phase() -> dict:
+    import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import multi_tensor_adam as mta
     from paddle_tpu_torch.models import gpt2_small, num_params
@@ -1399,61 +1467,29 @@ def train_phase() -> dict:
         raise RuntimeError(f"gpt2_small attention would not take the "
                            f"kernels: {path}")
     t0 = time.perf_counter()
-    model, step = _gpt2_train_step(cfg, use_amp=True)
+    model, step = _gpt_train_step(cfg, use_amp=True)
     rng = np.random.default_rng(0)
     ids = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
     labels = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    # the first call runs the step eagerly and captures it; every later
-    # call replays the graph, which runs the captured launches again
-    # without calling the wrappers: a counter counts a launch of the
-    # eager step and one of the capture, and the card runs the captured
-    # launches once a replay. The counters read around each capture
-    # split the two, so the launches on the card are the eager step's
-    # plus the captured step's times the replays counted.
-    def read():
-        return (fa.flash_fwd.kernel_launches, fa.flash_bwd.kernel_launches,
-                mta.multi_tensor_adam.kernel_launches)
-
     torch.cuda.reset_peak_memory_stats()
-    with capture_counts(read) as spans:
-        fa.reset_counters()
-        mta.multi_tensor_adam.kernel_launches = 0
-        mta.multi_tensor_adam.plain_calls = 0
-        cuda_graph.reset_counters()
-        losses, step_s = [], []
-        for _ in range(warmup + steps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            loss = step(ids, labels)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t)
-            losses.append(loss)
-        counted = read()
-        designs = dict(fa.flash_fwd.design_launches)
-        bwd_designs = dict(fa.flash_bwd.design_launches)
-        plain = (fa.flash_fwd.plain_calls, fa.flash_bwd.plain_calls)
-        update_plain = mta.multi_tensor_adam.plain_calls
-        captures = dict(cuda_graph.captures)
-        replays = dict(cuda_graph.replays)
-        capture_s = cuda_graph.capture_seconds["train_step"]
+    run = _counted_steps(step, ids, labels, warmup + steps)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    # per kernel (B1, B2, update): launches in the captured step, in the
-    # eager run, and run on the card
-    in_graph = tuple(sum(b[i] - a[i] for a, b in spans) for i in range(3))
-    eager = tuple(c - g for c, g in zip(counted, in_graph))
+    counted, in_graph, eager, on_device = (
+        run[k] for k in ("counted", "in_graph", "eager", "on_device"))
+    designs, bwd_designs = run["designs"], run["bwd_designs"]
+    plain, update_plain = run["plain"], run["update_plain"]
+    captures, replays = run["captures"], run["replays"]
+    capture_s, losses, step_s = run["capture_s"], run["losses"], run["step_s"]
     n_replays = replays.get("train_step", 0)
-    on_device = tuple(e + g * n_replays for e, g in zip(eager, in_graph))
-    distinct = len({x.data_ptr() for x in losses}) == len(losses)
-    losses = [float(x) for x in losses]
     timed_s = step_s[warmup:]
     n_steps = warmup + steps
     L = cfg.num_layers
     checks = {
         "every loss finite": all(np.isfinite(losses)),
-        "every returned loss a tensor of its own": distinct,
+        "every returned loss a tensor of its own": run["distinct"],
         "one graph captured, every later step a replay": (
             captures, replays) == ({"train_step": 1},
                                    {"train_step": n_steps - 1}),
@@ -1472,12 +1508,7 @@ def train_phase() -> dict:
     for what, ok in checks.items():
         log(f"[train] check: {what}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
-        raise RuntimeError(f"training phase failed: launches counted "
-                           f"{counted}, in the captured step {in_graph}, "
-                           f"B1 by design {designs} B2 by design "
-                           f"{bwd_designs} plain {plain} update plain "
-                           f"{update_plain} captures {captures} replays "
-                           f"{replays} losses {losses}")
+        raise RuntimeError(f"training phase failed: {run}")
     graph = next(iter(step._graphs.values()))[0].graph
     replay_ms = _replay_ms(graph)
     # the update alone, by replay, on the model's own tensors and state
@@ -1588,7 +1619,7 @@ def train_parity_phase() -> dict:
         cfg = dataclasses.replace(
             gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
                        use_flash_attention=flash), num_layers=2)
-        model, step = _gpt2_train_step(cfg, use_amp=False, lr=lr, seed=1)
+        model, step = _gpt_train_step(cfg, use_amp=False, lr=lr, seed=1)
         step._eager = not graphed
         n0 = fa.flash_fwd.kernel_launches, fa.flash_bwd.kernel_launches
         if not flash:
@@ -2165,6 +2196,202 @@ def update_phase() -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: bench_gpt_1p3b's config trained at full width and depth
+# ---------------------------------------------------------------------------
+# bench.py::bench_gpt_1p3b (bench.py:167-190): GPT-3 XL widths, batch 4 x
+# seq 2048, bf16 O1, AdamW with bf16 moments, flash attention, every
+# third block recomputed ("full": only its input kept)
+B1P3_BATCH, B1P3_SEQ, B1P3_INTERVAL = 4, 2048, 3
+
+
+def _train_1p3b(recompute: bool) -> dict:
+    """One TrainStep run of bench_gpt_1p3b's config (with or without
+    recompute) through its graph, 2 warm-up calls and 6 timed: counters,
+    losses, the step by wall and by replay, peak memory from a freed
+    card."""
+    import gc
+
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import gpt3_1p3b, num_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30    # by earlier phases
+    cfg = gpt3_1p3b(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                    use_flash_attention=True, recompute=recompute,
+                    recompute_interval=B1P3_INTERVAL,
+                    recompute_policy="full")
+    b, s, warmup, steps = B1P3_BATCH, B1P3_SEQ, 2, 6
+    shape = (b, s, cfg.num_heads, cfg.head_dim)
+    picked = (fa.attention_path(shape, shape),
+              fa._fwd_design(torch.bfloat16, cfg.head_dim),
+              fa._bwd_design(torch.bfloat16, cfg.head_dim))
+    if picked != (("cuda", ""), "sm90", "sm90"):
+        raise RuntimeError(f"gpt3_1p3b attention would not take B1/B2's "
+                           f"sm90 kernels: {picked}")
+    model, step = _gpt_train_step(cfg, use_amp=True, lr=1e-4, seed=0,
+                                  moment_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    run = _counted_steps(step, ids, labels, warmup + steps)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    L = cfg.num_layers
+    remat = len(range(0, L, B1P3_INTERVAL)) if recompute else 0
+    per_step = (L + remat, L, 2)
+    n_calls = warmup + steps
+    checks = {
+        "every loss finite": all(np.isfinite(run["losses"])),
+        "one graph captured, every later step a replay": (
+            run["captures"], run["replays"]) == (
+            {"train_step": 1}, {"train_step": n_calls - 1}),
+        f"(B1, B2, update) at {per_step} launches in the eager step and "
+        f"in the captured one": run["eager"] == run["in_graph"] == per_step,
+        "every B1 and B2 launch ran the sm90 design": (
+            run["designs"], run["bwd_designs"]) == (
+            {"sm90": 2 * per_step[0], "simple": 0},
+            {"sm90": 2 * per_step[1], "simple": 0}),
+        "no plain version ran on CUDA tensors": run["plain"] == (0, 0)
+            and run["update_plain"] == 0,
+    }
+    label = "recompute" if recompute else "no recompute"
+    for what, ok in checks.items():
+        log(f"[train-1p3b] {label}: check: {what}: "
+            f"{'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise RuntimeError(f"1.3B training phase failed ({label}): {run}")
+    graph = next(iter(step._graphs.values()))[0].graph
+    replay_ms = _replay_ms(graph)
+    timed = run["step_s"][warmup:]
+    wall_ms = 1e3 * statistics.median(timed)
+    n = num_params(cfg)
+    tok_s = b * s / (wall_ms / 1e3)
+    rec = dict(
+        config="gpt3_1p3b (bench_gpt_1p3b)", recompute=recompute,
+        recompute_interval=B1P3_INTERVAL if recompute else None,
+        recomputed_blocks=remat, layers=L, batch=b, seq=s, params=n,
+        timed_steps=steps, step_ms_median=wall_ms,
+        step_ms=[1e3 * x for x in timed],
+        first_step_ms=1e3 * run["step_s"][0], capture_s=run["capture_s"],
+        step_ms_replay=replay_ms, idle_share=1 - replay_ms / wall_ms,
+        tokens_per_s=tok_s, mfu=6.0 * n * tok_s / BF16_FLOPS_PER_S,
+        step_floor_ms=6.0 * n * b * s / BF16_FLOPS_PER_S * 1e3,
+        peak_mem_gb=peak, held_at_start_gb=held,
+        launches_counted=list(run["counted"]),
+        launches_eager=list(run["eager"]),
+        launches_in_graph=list(run["in_graph"]),
+        launches_on_device=list(run["on_device"]),
+        captures=run["captures"], replays=run["replays"],
+        losses=run["losses"])
+    log(f"[train-1p3b] {label}: {L} layers, batch {b} x seq {s}, "
+        f"{n} params: step median {wall_ms:.2f} ms by wall "
+        f"({min(rec['step_ms']):.2f}-{max(rec['step_ms']):.2f} over "
+        f"{steps}), {replay_ms:.2f} ms by replay (device idle "
+        f"{100 * rec['idle_share']:.1f} %); {tok_s:.1f} tokens/s, MFU "
+        f"{rec['mfu']:.4f} (6ND floor {rec['step_floor_ms']:.2f} ms); peak "
+        f"mem {peak:.2f} GiB ({held:.2f} of it held by earlier phases at "
+        f"the start); first call {rec['first_step_ms']:.0f} ms "
+        f"(capture {run['capture_s']:.2f} s); launches (B1, B2, update) "
+        f"eager {run['eager']}, captured step {run['in_graph']}, on the "
+        f"card {run['on_device']}; losses "
+        f"{[round(x, 4) for x in run['losses']]}")
+    del model, step, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_1p3b_phase() -> dict:
+    """Phase 13: bench_gpt_1p3b's config with recompute, then without
+    it: what recompute costs in step time and saves in memory."""
+    with_r = _train_1p3b(recompute=True)
+    without = _train_1p3b(recompute=False)
+    log(f"[train-1p3b] recompute costs "
+        f"{with_r['step_ms_median'] - without['step_ms_median']:.2f} ms a "
+        f"step by wall ({with_r['step_ms_replay'] - without['step_ms_replay']:.2f}"
+        f" by replay) and saves "
+        f"{without['peak_mem_gb'] - with_r['peak_mem_gb']:.2f} GiB of peak "
+        f"memory")
+    return dict(recompute=with_r, no_recompute=without)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: recompute through TrainStep's graph == no recompute, eager
+# ---------------------------------------------------------------------------
+# (recompute_interval, policy) of the graph runs held to the eager run
+RECOMPUTE_CASES = ((1, "full"), (3, "full"), (1, "dots"), (3, "dots"))
+
+
+def recompute_parity_phase() -> dict:
+    """gpt3_1p3b's widths at 4 layers, bf16 O1, dropout 0.1, one seed:
+    3 TrainStep steps through the graph with recompute, for each case,
+    against 3 eager steps without it. Equal masks and equal kernels
+    should make the two equal bit for bit; they are held to phase 7's
+    rule (no element beyond 2 * lr * steps, fewer than 2e-3 of them
+    beyond 1e-3 * lr: one block's masks drawn anew move nearly every
+    parameter by ~lr), losses within 1e-5 relative, and the largest
+    difference is recorded."""
+    import gc
+
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import gpt3_1p3b
+    lr, n_steps, layers = 1e-4, 3, 4
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, 50304, (2, 1024)).astype(np.int32)
+    labels = rng.integers(0, 50304, (2, 1024)).astype(np.int32)
+    base = dataclasses.replace(
+        gpt3_1p3b(hidden_dropout_prob=0.1, attention_dropout_prob=0.1,
+                  use_flash_attention=True), num_layers=layers)
+
+    def run(cfg, eager):
+        model, step = _gpt_train_step(cfg, use_amp=True, lr=lr, seed=0,
+                                      moment_dtype="bfloat16")
+        step._eager = eager
+        n0 = fa.flash_fwd.kernel_launches
+        losses = [float(step(ids, labels)) for _ in range(n_steps)]
+        b1 = fa.flash_fwd.kernel_launches - n0
+        params = {k: v.detach().clone()
+                  for k, v in model.state_dict().items()}
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, params, b1
+
+    want_losses, want, _ = run(base, eager=True)
+    out = []
+    for interval, policy in RECOMPUTE_CASES:
+        cfg = dataclasses.replace(base, recompute=True,
+                                  recompute_interval=interval,
+                                  recompute_policy=policy)
+        losses, got, b1 = run(cfg, eager=False)
+        # the eager first step's launches and the captured step's
+        want_b1 = 2 * (layers + len(range(0, layers, interval)))
+        loss_err = max(abs(a - w) / abs(w)
+                       for a, w in zip(losses, want_losses))
+        err, far, n = _params_diff(got, want, lr)
+        ok = (b1 == want_b1 and all(np.isfinite(losses))
+              and loss_err <= 1e-5 and err <= 2 * lr * n_steps
+              and far / n < 2e-3)
+        log(f"[recompute-parity] interval {interval}, {policy}: graph "
+            f"steps with recompute vs eager steps without, losses "
+            f"{[round(x, 5) for x in losses]} vs "
+            f"{[round(x, 5) for x in want_losses]} (max rel diff "
+            f"{loss_err:.2e}, tol 1e-5); params max abs diff {err:.3e} "
+            f"(bound {2 * lr * n_steps:.1e}), {far} of {n} beyond 1e-3*lr;"
+            f" B1 launches {b1} (expected {want_b1}): "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"recompute parity failed at interval "
+                               f"{interval}, {policy}")
+        out.append(dict(interval=interval, policy=policy, losses=losses,
+                        loss_max_rel_diff=loss_err, param_max_abs_diff=err,
+                        params_far=far, b1_launches=b1))
+    return dict(eager_losses=want_losses, cases=out)
+
+
 def main() -> int:
     try:
         import torch
@@ -2197,6 +2424,8 @@ def main() -> int:
     llama_parity = llama_parity_phase()
     fused = fused_phase()
     updates = update_phase()
+    train_1p3b = train_1p3b_phase()
+    recompute_parity = recompute_parity_phase()
     main_case = cases[0]    # the engine's fresh wave: its largest launch
     fmain = flash[0]        # gpt2_small's training shape
     src = "paddle_tpu_torch/kernels/csrc/"
@@ -2216,11 +2445,12 @@ def main() -> int:
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
         library_ms=main_case["library_ms"],
         library_ms_graph=main_case["library_ms_graph"], cases=cases)]
-    for kind, name, line, launches, source in (
+    t13 = train_1p3b["recompute"]
+    for i, (kind, name, line, launches, source) in enumerate((
             ("fwd", "flash_attention_fwd", 267,
              train["b1_design_launches"]["sm90"], "flash_fwd_sm90.cu"),
             ("bwd", "flash_attention_bwd", 457,
-             train["b2_design_launches"]["sm90"], "flash_bwd_sm90.cu")):
+             train["b2_design_launches"]["sm90"], "flash_bwd_sm90.cu"))):
         kernels.append(dict(
             name=name, route="cuda", source=src + source,
             replaces=f"paddle_tpu/kernels/pallas/flash_attention.py:{line}",
@@ -2230,6 +2460,10 @@ def main() -> int:
             launches=launches,
             launches_on_device=train[f"b{1 if kind == 'fwd' else 2}"
                                      "_launches_on_device"],
+            # phase 13's path (gpt3_1p3b, recompute every third block):
+            # counted over its eager step and capture, and run on the card
+            launches_1p3b=t13["launches_counted"][i],
+            launches_on_device_1p3b=t13["launches_on_device"][i],
             max_abs_err=max(e for c in flash for what, e in
                             c["max_abs_err_bf16"].items()
                             if (what in ("o", "lse")) == (kind == "fwd")),
@@ -2271,6 +2505,8 @@ def main() -> int:
         replaces="paddle_tpu/optimizer/optimizer.py:317",
         launches=train["update_launches"],
         launches_on_device=train["update_launches_on_device"],
+        launches_1p3b=t13["launches_counted"][2],
+        launches_on_device_1p3b=t13["launches_on_device"][2],
         max_abs_err=max(c["max_abs_err"] for c in updates),
         ms=u["ms"], ms_graph=u["ms_graph"], plain_ms=u["plain_ms"],
         bound_ms=u["bound_ms"], bound_by=u["bound_by"],
@@ -2282,6 +2518,8 @@ def main() -> int:
     log("[llama] " + json.dumps(llama))
     log("[llama-parity] " + json.dumps(llama_parity))
     log("[fused] " + json.dumps(fused))
+    log("[train-1p3b] " + json.dumps(train_1p3b))
+    log("[recompute-parity] " + json.dumps(recompute_parity))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -29,19 +29,13 @@ class auto_cast:
 
     def __enter__(self):
         st = amp_state()
-        self._saved = (st.enabled, st.level, st.dtype, st.custom_white,
-                       st.custom_black)
-        st.enabled = self.enable
-        st.level = self.level
-        st.dtype = self.dtype
-        st.custom_white = self.custom_white
-        st.custom_black = self.custom_black
+        self._saved = st.snapshot()
+        st.restore((self.enable, self.level, self.dtype, self.custom_white,
+                    self.custom_black))
         return self
 
     def __exit__(self, *exc):
-        st = amp_state()
-        (st.enabled, st.level, st.dtype, st.custom_white,
-         st.custom_black) = self._saved
+        amp_state().restore(self._saved)
         return False
 
 

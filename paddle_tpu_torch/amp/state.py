@@ -42,6 +42,16 @@ class _AmpState(threading.local):
         self.custom_white = set()
         self.custom_black = set()
 
+    def snapshot(self):
+        """(enabled, level, dtype, custom white list, custom black list):
+        what ``restore`` puts back."""
+        return (self.enabled, self.level, self.dtype, self.custom_white,
+                self.custom_black)
+
+    def restore(self, snap):
+        (self.enabled, self.level, self.dtype, self.custom_white,
+         self.custom_black) = snap
+
 
 _state = _AmpState()
 

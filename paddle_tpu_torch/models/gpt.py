@@ -10,8 +10,9 @@ fused qkv columns are [q all heads | k | v].
 Attention runs ``fused_flash_attention`` when the config sets
 ``use_flash_attention``, else ``scaled_dot_product_attention``, which on
 the CUDA card routes eligible calls into the same kernels (as
-paddle_tpu does on its TPU). ``recompute`` (activation remat) is not
-ported yet and raises.
+paddle_tpu does on its TPU). With ``recompute``, training recomputes
+every ``recompute_interval``-th decoder block in the backward
+(``distributed.meta_parallel.recompute``), as paddle_tpu does.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
+from ..distributed.meta_parallel import recompute
 from ..core.dtype import to_dtype
 from ..incubate.nn.functional import fused_flash_attention
 from ..nn import functional as F
@@ -48,9 +50,8 @@ class GPTConfig:
     tie_word_embeddings: bool = True
     use_flash_attention: bool = False
     recompute: bool = False
-    # remat save-policy and interval (paddle_tpu models/gpt.py:39-47);
-    # validated as there, so a config that constructs in paddle_tpu
-    # constructs here; remat itself is not ported yet
+    # remat save-policy and interval (paddle_tpu models/gpt.py:39-47),
+    # validated as there
     recompute_policy: str = "full"
     recompute_interval: int = 1
 
@@ -180,8 +181,16 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids, position_ids=None):
         x = self.embeddings(input_ids, position_ids)
-        for layer in self.layers:
-            x = layer(x)
+        cfg = self.config
+        remat = cfg.recompute and self.training
+        pol = cfg.recompute_policy
+        for i, layer in enumerate(self.layers):
+            if remat and i % cfg.recompute_interval == 0:
+                # paddle_tpu models/gpt.py:203-216
+                x = recompute(layer, x,
+                              policy=None if pol == "full" else pol)
+            else:
+                x = layer(x)
         return self.final_norm(x)
 
 
@@ -199,9 +208,6 @@ class GPTForCausalLM(nn.Module):
     def __init__(self, config: GPTConfig, *, device=None,
                  dtype="float32", seed: int = 0):
         super().__init__()
-        if config.recompute:
-            raise NotImplementedError(
-                "recompute (activation remat) is not ported yet")
         dev = resolve_device(device)
         fk = {"device": dev, "dtype": to_dtype(dtype)}
         self.config = config

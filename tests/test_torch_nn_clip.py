@@ -97,6 +97,8 @@ PORTED_MODULES = {
     "paddle_tpu.models.generation": ("paddle_tpu_torch.models.generation",
                                      set()),
     "paddle_tpu.nn.clip": ("paddle_tpu_torch.nn.clip", set()),
+    "paddle_tpu.distributed.meta_parallel.recompute": (
+        "paddle_tpu_torch.distributed.meta_parallel.recompute", set()),
     "paddle_tpu.optimizer.lr": ("paddle_tpu_torch.optimizer.lr", set()),
     "paddle_tpu.optimizer.optimizer": ("paddle_tpu_torch.optimizer.optimizer",
                                        set()),

@@ -186,8 +186,11 @@ def test_gpt_config_validation_and_remat_gate():
     cfg = GPTConfig(**SMOKE, recompute=True, recompute_policy="dots",
                     recompute_interval=3)
     assert cfg.recompute_interval == 3
-    with pytest.raises(NotImplementedError):
-        GPTForCausalLM(cfg, device="cpu")
+    # remat builds, and its forward is the plain one's
+    remat = GPTForCausalLM(cfg, device="cpu").train()
+    plain = GPTForCausalLM(GPTConfig(**SMOKE), device="cpu").train()
+    ids = torch.as_tensor(_batch(SMOKE, 16)[0])
+    assert torch.equal(remat(ids), plain(ids))
 
 
 def test_num_params_matches_reference():

@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
 """Where a paddle_tpu_torch training step spends the card's time.
 
-    python3 tools/torch_train_profile.py [--steps 2]
+    python3 tools/torch_train_profile.py [--steps 2] [--config gpt_1p3b]
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU. It
-builds chip_smoke.py's training step (gpt2_small, bf16 O1, AdamW, flash
-attention, batch 16 x seq 1024, random weights and batch from seed 0)
-and traces with torch.profiler, separately:
+builds one of chip_smoke.py's training steps, random weights and batch
+from seed 0: `gpt2_small` (phase 6: bf16 O1, AdamW, flash attention,
+batch 16 x seq 1024; the default) or `gpt_1p3b` (phase 13,
+bench.py::bench_gpt_1p3b's config: gpt3_1p3b, batch 4 x seq 2048, AdamW
+with bf16 moments, every third block recomputed), and traces with
+torch.profiler, separately:
 
   * the eager step: TrainStep's first call, which runs the step eagerly
     and then captures it as a CUDA graph (the capture runs nothing on
     the card). Its kernel time is split into TrainStep's forward,
-    backward and update (with the span each of the forward and the
-    update covers on the device timeline);
+    backward, the recomputed blocks' forwards inside the backward
+    (recompute's "recompute" range) and update, with the span each of
+    the forward, the recomputations and the update covers on the device
+    timeline;
   * `--steps` replays of the graph, after 2 untraced ones. A replay is
     one graph launch to the host, so its kernels carry no TrainStep
     range and are not split by part.
@@ -60,13 +65,14 @@ def _report(torch, prof, n, wall_ms, label, split):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     # the step's profiler ranges appear on the device timeline as spans
     # named after them; everything else there is a kernel (or a copy)
-    spans = {"forward": [], "update": []}
+    ranges = {"TrainStep.forward": "forward", "TrainStep.update": "update",
+              "recompute": "recompute"}
+    spans = {part: [] for part in ranges.values()}
     for e in dev:
-        for part, key in (("forward", "TrainStep.forward"),
-                          ("update", "TrainStep.update")):
-            if e.name == key:
-                spans[part].append((e.time_range.start, e.time_range.end))
-    kernels = [e for e in dev if not e.name.startswith("TrainStep.")]
+        if e.name in ranges:
+            spans[ranges[e.name]].append((e.time_range.start,
+                                          e.time_range.end))
+    kernels = [e for e in dev if e.name not in ranges]
     if not kernels:
         raise RuntimeError(f"the trace of the {label} holds no device "
                            "events")
@@ -93,7 +99,7 @@ def _report(torch, prof, n, wall_ms, label, split):
           f"{len(kernels) / n:.0f} launches, device idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f} %")
     if split:
-        for part in ("forward", "backward", "update"):
+        for part in ("forward", "backward", "recompute", "update"):
             span = sum(b - a for a, b in spans.get(part, ())) / 1e3
             extra = f", span {span / n:.2f} ms/step" if span else ""
             print(f"  {part:34s} kernels "
@@ -109,6 +115,8 @@ def _report(torch, prof, n, wall_ms, label, split):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--config", choices=("gpt2_small", "gpt_1p3b"),
+                    default="gpt2_small")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -116,18 +124,26 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.getcwd())
     from torch.profiler import ProfilerActivity, profile
-    from chip_smoke import _gpt2_train_step, _replay_ms
-    from paddle_tpu_torch.models import gpt2_small
+    from chip_smoke import (B1P3_BATCH, B1P3_INTERVAL, B1P3_SEQ,
+                            _gpt_train_step, _replay_ms)
+    from paddle_tpu_torch.models import gpt2_small, gpt3_1p3b
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
-                     use_flash_attention=True)
-    model, step = _gpt2_train_step(cfg, use_amp=True)
+    common = dict(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                  use_flash_attention=True)
+    if args.config == "gpt_1p3b":
+        cfg = gpt3_1p3b(recompute=True, recompute_interval=B1P3_INTERVAL,
+                        **common)
+        batch, seq, moments = B1P3_BATCH, B1P3_SEQ, "bfloat16"
+    else:
+        cfg = gpt2_small(**common)
+        batch, seq, moments = 16, 1024, None
+    model, step = _gpt_train_step(cfg, use_amp=True, moment_dtype=moments)
     rng = np.random.default_rng(0)
     # the batch on the card, so a step copies nothing from the host
     ids, labels = (torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (16, 1024)).astype(np.int32)).cuda()
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)).cuda()
         for _ in range(2))
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -137,8 +153,9 @@ def main() -> int:
         torch.cuda.synchronize()
         first_ms = 1e3 * (time.perf_counter() - t0)
     _report(torch, prof, 1, first_ms,
-            f"{cfg.num_layers} layers, batch 16 x seq 1024: the eager step "
-            f"(the first call, then captured)", split=True)
+            f"{args.config}, {cfg.num_layers} layers, batch {batch} x seq "
+            f"{seq}: the eager step (the first call, then captured)",
+            split=True)
     for _ in range(2):
         step(ids, labels)
     torch.cuda.synchronize()

@@ -23,8 +23,8 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from ..distributed.meta_parallel import recompute
 from ..core.dtype import to_dtype
+from ..distributed.meta_parallel import recompute
 from ..incubate.nn.functional import fused_flash_attention
 from ..nn import functional as F
 from ..nn.layers import Dropout, Embedding, LayerList, LayerNorm, Linear

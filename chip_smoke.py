@@ -12,9 +12,11 @@ Run from the root of a checkout. Phases, each of which must pass:
      allocator (g++) from the checkout's sources, all at once, timed;
   2. the serving kernel (B3) against its plain PyTorch version in f32 on
      the card, at the engine's shapes (gpt3_1p3b's 16 heads, GQA, int8,
-     padding, and llama2_7b's 32 heads), each design that takes a case
-     within its limit (the simple one KERNEL_ATOL, the sm90 one twice
-     the reference's own bf16 rounding), dead rows exactly 0, two faults
+     padding, and llama2_7b's 32 heads, in bf16; gpt3_1p3b's fresh and
+     prefix-resume waves and an int8 pool under f16 q), each design that
+     takes a case within its limit (the simple one KERNEL_ATOL, the sm90
+     one twice the reference's own bf16 or f16 rounding), dead rows
+     exactly 0, two faults
      planted in the plain version's masks rejected; timed by CUDA events
      and by CUDA-graph replay with the plan built outside, beside the
      plan alone, the plain version, the roofline bound of the same work
@@ -24,16 +26,18 @@ Run from the root of a checkout. Phases, each of which must pass:
      plain versions in nine cases (gpt2_small's and gpt3_1p3b's training
      shapes, GQA, segment ids, non-causal, cross-length causal both ways,
      head_dim 256, and the fused encoder's non-causal call on k/v views
-     of a packed qkv projection), in bf16 and in f32,
+     of a packed qkv projection), in bf16, in f16 and in f32,
      element by element relative to each row's size, with two faults
      planted in the kernels' outputs that the check must reject; the
-     design each B1 and B2 call ran (sm90 for bf16 at head_dim 64/128,
-     the simple kernels otherwise, or the phase fails) and its launches;
+     design each B1 and B2 call ran (sm90 for bf16 and f16 at head_dim
+     64/128, the simple kernels otherwise, or the phase fails) and its
+     launches;
      timed beside their bound, the plain versions and
      torch.nn.functional.scaled_dot_product_attention (a yardstick
      only: the port never calls it); B1 and B2 in bf16 by single-call
      events and by CUDA-graph replay, beside the simple kernels and
-     SDPA's forward (and its backward alone, by replay) in the same run;
+     SDPA's forward (and its backward alone, by replay) in the same run,
+     and so in f16 at gpt2_small's and gpt3_1p3b's training shapes;
   4. gpt3_1p3b (bf16, all 24 layers, random weights from seed 0) served
      by LLMEngine: 16 requests sharing a 512-token prefix, 64 new tokens
      each; B3's launch counters are read around this run (every launch
@@ -100,7 +104,22 @@ Run from the root of a checkout. Phases, each of which must pass:
      it: gpt3_1p3b's widths at 4 layers, bf16 O1, dropout 0.1, one
      seed, 3 steps, at recompute intervals 1 and 3 under the "full" and
      "dots" policies: losses and parameters within phase 7's rule, the
-     largest difference printed.
+     largest difference printed;
+ 15. gpt2_small (12 layers, batch 16 x seq 1024, flash attention, AdamW,
+     dropout 0) in f16 O1: 8 eager steps through Optimizer.step with a
+     GradScaler (decr_every_n_nan_or_inf=1), step 4's gradient poisoned
+     with inf: that update skipped, the weight kept, the scale halved,
+     one unscale pass and one host sync (torch's sync debug mode) a
+     step; 2 + 6 TrainStep calls through its graph (no scaler, as the
+     reference's TrainStep) with B1/B2's f16 launches read around the
+     capture, held to as many eager steps by phase 7's rule; one step
+     of amp.decorate(level="O2", dtype="float16"): f16 parameters, f32
+     masters, one update launch writing their casts; step ms, tokens/s
+     and MFU of both forms;
+ 16. gpt3_1p3b in f16 served as in phase 4 (f16 pools, every B3 launch
+     sm90, the decode graphs), each request's tokens held to the port's
+     f16 dense `generate` under a margin guard of twice the f16 logits'
+     own rounding error (their distance from the same weights in f32).
 
 The last three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
@@ -340,11 +359,12 @@ def _token_bucket(n, quantum=128):
 
 
 def _case(name, rng, *, rows_spec, H=16, Hk=16, D=128, bs=64, NB=257,
-          int8=False, shared_prefix_pages=0):
+          int8=False, shared_prefix_pages=0, dtype="bfloat16"):
     """One packed launch. rows_spec: [(cached_tokens, new_tokens)] per
     live row (a row with 0 new tokens is an empty slot). Pages are drawn
     at random from the pool; the first `shared_prefix_pages` pages of
-    every row are the same physical pages (a shared cached prefix)."""
+    every row are the same physical pages (a shared cached prefix).
+    q/k/v (and fp pools) are of `dtype`, bfloat16 or float16."""
     import torch
     B = len(rows_spec)
     T_raw = sum(m for _c, m in rows_spec)
@@ -368,11 +388,11 @@ def _case(name, rng, *, rows_spec, H=16, Hk=16, D=128, bs=64, NB=257,
         off[b, pages] = np.arange(npg) * bs
         c += m
     dev = "cuda"
-    bf = torch.bfloat16
+    dt = getattr(torch, dtype)
 
     def rnd(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to(dev, bf)
+            np.float32)).to(dev, dt)
 
     x = dict(q=rnd(T, H, D), k_new=rnd(T, Hk, D), v_new=rnd(T, Hk, D),
              rows=torch.from_numpy(rows).to(dev),
@@ -432,9 +452,9 @@ def _bound(meta, pool_itemsize):
 # B3's specs at the engine's shapes: (name, _case keywords)
 def _ragged_specs(rng):
     prefix_tails = [(512, int(m)) for m in rng.integers(8, 33, 8)]
+    fresh = [(0, 512 + int(m)) for m in rng.integers(8, 33, 8)]
     return [
-        ("fresh wave, no pool",
-         dict(rows_spec=[(0, 512 + int(m)) for m in rng.integers(8, 33, 8)])),
+        ("fresh wave, no pool", dict(rows_spec=fresh)),
         ("prefix-resume wave", dict(rows_spec=prefix_tails,
                                     shared_prefix_pages=8)),
         ("int8 pool + dequant", dict(rows_spec=prefix_tails,
@@ -450,6 +470,15 @@ def _ragged_specs(rng):
               H=32, Hk=32)),
         ("llama2_7b prefix-resume H=32",
          dict(rows_spec=prefix_tails, H=32, Hk=32, shared_prefix_pages=8)),
+        # phase 16's waves: gpt3_1p3b in f16 (f16 q/k/v over f16 pools),
+        # and f16 q over an int8 pool
+        ("f16 fresh wave, no pool", dict(rows_spec=fresh, dtype="float16")),
+        ("f16 prefix-resume wave", dict(rows_spec=prefix_tails,
+                                        shared_prefix_pages=8,
+                                        dtype="float16")),
+        ("f16 int8 pool + dequant", dict(rows_spec=prefix_tails,
+                                         shared_prefix_pages=8, int8=True,
+                                         dtype="float16")),
     ]
 
 
@@ -584,9 +613,10 @@ def _sdpa_yardstick(x, meta, scale):
 
 def ragged_case(rpa, name, kw, rng, timed=True) -> dict:
     """B3 at one phase 2 case: every design that takes the case (the
-    simple one always; the tiled one for bf16 at head_dim 64/128) held
-    to the plain version in f32 on the same bf16 values, each within its
-    limit, with dead rows exactly 0 and the planted faults rejected; then
+    simple one always; the tiled one for bf16 or f16 over pools of the
+    same dtype at head_dim 64/128) held to the plain version in f32 on
+    the same bf16 (or f16) values, each within its limit, with dead rows
+    exactly 0 and the planted faults rejected; then
     (`timed`) each design by single-call events and by CUDA-graph replay
     with the plan built outside, the plan alone, the plain version, and
     the SDPA yardstick by events and by replay."""
@@ -611,15 +641,18 @@ def ragged_case(rpa, name, kw, rng, timed=True) -> dict:
     def plain():
         return rpa.ragged_paged_attention(*args, path="torch", **common)
 
-    f32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+    low = (torch.bfloat16, torch.float16)
+    f32 = [a.float() if a.dtype in low else a for a in args]
     want = rpa.ragged_paged_attention(*f32, path="torch", **common)
     # the reference's own rounding: the plain version in its cast order
-    # (q * scale and p cast to bf16 before the products) against f32
+    # (q * scale and p cast to bf16 or f16 before the products) against
+    # f32
     gap = float((plain() - want).abs().max())
     tols = {"simple": KERNEL_ATOL, "sm90": max(KERNEL_ATOL, 2 * gap)}
     planted = _ragged_planted(rpa, f32, common, meta, want)
     dead = torch.from_numpy(meta["rows"] < 0).to(want.device)
-    rec = dict(case=name, T=meta["T"], T_live=meta["T_live"], H=meta["H"],
+    rec = dict(case=name, dtype=str(x["q"].dtype).removeprefix("torch."),
+               T=meta["T"], T_live=meta["T_live"], H=meta["H"],
                Hk=meta["Hk"], D=meta["D"], with_pool=wp, design=auto,
                reference_gap=gap, designs={})
     for d in designs:
@@ -686,8 +719,9 @@ def kernel_phase() -> list:
             f"{ {k[:12]: round(v, 4) for k, v in r['planted_max_abs_err'].items()} }) "
             f"{r['ms']:.4f} ms by events, {r['ms_graph']:.4f} by replay"
             for d, r in rec["designs"].items())
-        log(f"[kernel] {name}: T={rec['T']} (live {rec['T_live']}) "
-            f"H={rec['H']} Hk={rec['Hk']} design {rec['design']}; {by}; "
+        log(f"[kernel] {name}: {rec['dtype']} T={rec['T']} (live "
+            f"{rec['T_live']}) H={rec['H']} Hk={rec['Hk']} design "
+            f"{rec['design']}; {by}; "
             f"plan {rec['plan_ms']:.4f} ms; plain {rec['plain_ms']:.4f}; "
             f"SDPA {_fmt_ms(rec['library_ms'])} / "
             f"{_fmt_ms(rec['library_ms_graph'])} (err "
@@ -701,13 +735,15 @@ def kernel_phase() -> list:
 # ---------------------------------------------------------------------------
 # phase 4: gpt3_1p3b served at full width and depth
 # ---------------------------------------------------------------------------
-def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
+def serve_phase(label, build, engine_kw, wave_hooks=None, after=None,
+                oracle=None) -> dict:
     """Serve 16 requests sharing a 512-token prefix (64 new tokens each)
     through LLMEngine on the model `build()` returns ((model, cfg), bf16
-    at full width and depth). `wave_hooks(model)` names modules whose
-    inputs are captured during the first packed wave; `after(model,
+    or f16 at full width and depth). `wave_hooks(model)` names modules
+    whose inputs are captured during the first packed wave; `after(model,
     captured)` runs checks on them before the model is freed and returns
-    a dict merged into the record."""
+    a dict merged into the record; so does `oracle(model, prompts, done)`
+    with the requests' results."""
     import torch
     from paddle_tpu_torch.inference import LLMEngine
     from paddle_tpu_torch.inference import llm_engine as eng_mod
@@ -857,7 +893,11 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None) -> dict:
                    "prefix_cache_miss_tokens", "ragged_launches")})
     if after is not None:
         rec.update(after(model, captured))
-    log(f"[engine] {label} bf16 {cfg.num_layers} layers: {n_tok} tokens "
+    if oracle is not None:
+        rec.update(oracle(model, prompts, done))
+    dname = str(eng.fam.dtype).removeprefix("torch.")
+    rec["dtype"] = dname
+    log(f"[engine] {label} {dname} {cfg.num_layers} layers: {n_tok} tokens "
         f"in {run_s:.3f} s = {rec['tokens_per_s']:.1f} tokens/s; "
         f"{len(step_s)} steps, step wall ms mean "
         f"{rec['step_ms_mean']:.2f} median {rec['step_ms_median']:.2f} "
@@ -888,12 +928,13 @@ def _decode_device_ms(eng, width):
     read finds its pool cold in L2 as a step does), and that
     attention's largest difference (the first layer's pool) from the
     same call on the CPU (the
-    card's bf16 products into f32 against the CPU's widened operands)
-    with its limit: a p rounded the other way moves an output by at
-    most one bf16 ulp of p (2^-7 of it) times |v|, so 2^-7 max |v|,
-    plus 1e-5 for the f32 sums' order. Measurement only: the engine has
-    served its requests, and the replays rewrite the slots its last
-    chunk wrote."""
+    card's bf16 or f16 products into f32 against the CPU's widened
+    operands) with its limit: a p rounded the other way moves an output
+    by at most one ulp of p in the pool's dtype (eps: 2^-7 of it for
+    bf16, 2^-10 for f16) times |v|, so eps max |v|, plus 1e-5 for the
+    f32 sums' order. Measurement only: the engine has served its
+    requests, and the replays rewrite the slots its last chunk
+    wrote."""
     import torch
     from paddle_tpu_torch.inference import llm_engine as eng_mod
     graph = eng._dec_graphs[width]
@@ -928,7 +969,7 @@ def _decode_device_ms(eng, width):
     want = eng_mod._pool_decode_attention(q.cpu(), kc.cpu(), vc.cpu(),
                                           tbl.cpu(), lens.cpu(), scale, bs)
     err = float((got.cpu() - want).abs().max())
-    tol = 2.0 ** -7 * float(vc.float().abs().max()) + 1e-5
+    tol = torch.finfo(vc.dtype).eps * float(vc.float().abs().max()) + 1e-5
     return step_ms, attn_ms, err, tol
 
 
@@ -1061,9 +1102,14 @@ FLASH_CASES = [
 # its running row max and the plain version to the final one; each
 # rounding is off by up to 2^-9 relative, which moves a row by ~2^-9 of
 # its rms; both round their outputs to bf16 (ulp 2^-8..2^-7 relative):
-# 2^-6 is 2-4 ulps. f32: only the summation order differs (~1e-6
-# relative). lse is held at the f32 limit to 1 + |lse|.
-FLASH_TOL = {"bf16": 2.0 ** -6, "f32": 1e-4}
+# 2^-6 is 2-4 ulps. f16: the same roundings with 3 more mantissa bits
+# (p off by up to 2^-12 relative, outputs' ulp 2^-11..2^-10 relative):
+# 2^-9 is the same 2-4 ulps. f32: only the summation order differs
+# (~1e-6 relative). lse is held at the f32 limit to 1 + |lse|.
+FLASH_TOL = {"bf16": 2.0 ** -6, "f16": 2.0 ** -9, "f32": 1e-4}
+# the cases phase 3 also times in f16: gpt2_small's and gpt3_1p3b's
+# training shapes
+FLASH_F16_TIMED = ("a gpt2_small train", "b gpt3_1p3b train")
 # faults planted in each case's kernel outputs, which the check must
 # reject: the second half of the query rows' o off by 5 %, and the last
 # 64-key tile's dv zeroed
@@ -1211,7 +1257,8 @@ def _sdpa_fwd(qs, k, v, causal, grad):
 
 
 def b1_times(spec, qs, k, v, segs, simple=True) -> dict:
-    """Device times (ms) of B1 at one bf16 case: the design the main path
+    """Device times (ms) of B1 at one bf16 (or f16) case: the design the
+    main path
     takes, by single-call CUDA events (`fwd_ms`, host path included) and
     by CUDA-graph replay (`fwd_ms_graph`, device only); the simple
     kernel the same way where the design is not the simple one (and
@@ -1240,7 +1287,8 @@ def b1_times(spec, qs, k, v, segs, simple=True) -> dict:
 
 
 def b2_times(spec, qs, k, v, o, lse, do, segs, simple=True) -> dict:
-    """Device times (ms) of B2 at one bf16 case, as b1_times times B1:
+    """Device times (ms) of B2 at one bf16 (or f16) case, as b1_times
+    times B1:
     the design the main path takes by single-call events (`bwd_ms`) and
     by CUDA-graph replay (`bwd_ms_graph`); the simple kernel both ways
     where the design is not the simple one (and `simple`); where sq ==
@@ -1283,7 +1331,8 @@ def flash_phase() -> list:
                                "kernels")
         rec = dict(case=name, b=b, sq=sq, sk=sk, H=H, Hk=Hk, D=D,
                    causal=causal, segments=seg, packed_qkv=packed)
-        for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for dt, dtype in (("bf16", torch.bfloat16), ("f16", torch.float16),
+                          ("f32", torch.float32)):
             qs, k, v, do, segs = _flash_inputs(spec, dtype, seed=i)
             sc = D ** -0.5
             n0 = dict(fa.flash_fwd.design_launches)
@@ -1297,9 +1346,10 @@ def flash_phase() -> list:
             got = {d: n - n0[d]
                    for d, n in fa.flash_bwd.design_launches.items()}
             rec[f"bwd_design_launches_{dt}"] = got
-            # bf16 at head_dim 64/128 runs the sm90 design, the rest the
-            # simple one
-            want = "sm90" if dt == "bf16" and D in fa._SM90_D else "simple"
+            # bf16 and f16 at head_dim 64/128 run the sm90 design, the
+            # rest the simple one
+            want = "sm90" if dt in ("bf16", "f16") and D in fa._SM90_D \
+                else "simple"
             if got != {d: int(d == want) for d in got}:
                 raise RuntimeError(f"flash case {name!r} {dt}: B2 ran "
                                    f"{got}, expected one {want} launch")
@@ -1313,34 +1363,42 @@ def flash_phase() -> list:
             rec[f"norm_err_{dt}"] = errs
             rec[f"planted_norm_err_{dt}"] = planted
             del wo, wlse, wdq, wdk, wdv
-            if dt == "bf16":
+            if dt == "bf16" or (dt == "f16" and name in FLASH_F16_TIMED):
+                # bf16's times and bounds in the case's record, f16's in
+                # its "f16" entry
+                t = rec if dt == "bf16" else rec.setdefault("f16", {})
                 pairs = _valid_pairs(spec, segs)
                 rec["valid_pairs"] = pairs
-                rec.update(b1_times(spec, qs, k, v, segs))
-                rec.update(b2_times(spec, qs, k, v, o, lse, do, segs))
-                rec["plain_fwd_ms"] = cuda_ms(lambda: fa.flash_fwd(
+                t.update(b1_times(spec, qs, k, v, segs))
+                t.update(b2_times(spec, qs, k, v, o, lse, do, segs))
+                t["plain_fwd_ms"] = cuda_ms(lambda: fa.flash_fwd(
                     qs, k, v, causal, segs, path="torch"), iters=5)
-                rec["plain_bwd_ms"] = cuda_ms(lambda: fa.flash_bwd(
+                t["plain_bwd_ms"] = cuda_ms(lambda: fa.flash_bwd(
                     qs, k, v, o, lse, do, sc, causal, segs, path="torch"),
                     iters=5)
                 for kind in ("fwd", "bwd"):
                     bms, by, nb, fl = _flash_bound(spec, pairs, 2,
                                                    kind == "bwd")
-                    rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = bms, by
-                    rec[f"{kind}_bytes"], rec[f"{kind}_flops"] = nb, fl
+                    t[f"{kind}_bound_ms"], t[f"{kind}_bound_by"] = bms, by
+                    t[f"{kind}_bytes"], t[f"{kind}_flops"] = nb, fl
             del qs, k, v, do, o, lse, dq, dk, dv
             torch.cuda.empty_cache()
         fmt = lambda d: {k: f"{e:.2e}" for k, e in d.items()}
         log(f"[flash] {name}: b={b} sq={sq} sk={sk} H={H}/{Hk} D={D} "
             f"causal={causal} seg={seg}; normalised err bf16 "
             f"{fmt(rec['norm_err_bf16'])} (tol {FLASH_TOL['bf16']:.2e}; "
-            f"planted {fmt(rec['planted_norm_err_bf16'])}) f32 "
+            f"planted {fmt(rec['planted_norm_err_bf16'])}) f16 "
+            f"{fmt(rec['norm_err_f16'])} (tol {FLASH_TOL['f16']:.2e}; "
+            f"planted {fmt(rec['planted_norm_err_f16'])}) f32 "
             f"{fmt(rec['norm_err_f32'])} (tol {FLASH_TOL['f32']:.0e}; "
             f"planted {fmt(rec['planted_norm_err_f32'])}); max abs err bf16 "
-            f"{fmt(rec['max_abs_err_bf16'])}; launches by design: B1 bf16 "
-            f"{rec['fwd_design_launches_bf16']} f32 "
+            f"{fmt(rec['max_abs_err_bf16'])} f16 "
+            f"{fmt(rec['max_abs_err_f16'])}; launches by design: B1 bf16 "
+            f"{rec['fwd_design_launches_bf16']} f16 "
+            f"{rec['fwd_design_launches_f16']} f32 "
             f"{rec['fwd_design_launches_f32']}, B2 bf16 "
-            f"{rec['bwd_design_launches_bf16']} f32 "
+            f"{rec['bwd_design_launches_bf16']} f16 "
+            f"{rec['bwd_design_launches_f16']} f32 "
             f"{rec['bwd_design_launches_f32']}")
         log(f"[flash] {name}: B1 bf16 ({rec['fwd_design']}) "
             f"{rec['fwd_ms']:.4f} ms by events, {rec['fwd_ms_graph']:.4f} "
@@ -1356,6 +1414,20 @@ def flash_phase() -> list:
             f"library fwd+bwd {rec['library_fwd_bwd_ms']} by events, bwd "
             f"{rec['library_bwd_ms_graph']} by replay; plain "
             f"{rec['plain_bwd_ms']:.3f})")
+        if "f16" in rec:
+            t = rec["f16"]
+            log(f"[flash] {name}: f16 B1 ({t['fwd_design']}) "
+                f"{t['fwd_ms']:.4f} ms by events, {t['fwd_ms_graph']:.4f} "
+                f"by graph replay (simple {t['simple_fwd_ms']} / "
+                f"{t['simple_fwd_ms_graph']}; library "
+                f"{t['library_fwd_ms']} / {t['library_fwd_ms_graph']}; "
+                f"plain {t['plain_fwd_ms']:.3f}); B2 ({t['bwd_design']}) "
+                f"{t['bwd_ms']:.4f} ms by events, {t['bwd_ms_graph']:.4f} "
+                f"by graph replay (simple {t['simple_bwd_ms']} / "
+                f"{t['simple_bwd_ms_graph']}; library fwd+bwd "
+                f"{t['library_fwd_bwd_ms']}, bwd "
+                f"{t['library_bwd_ms_graph']} by replay; plain "
+                f"{t['plain_bwd_ms']:.3f}); bounds as bf16's")
         out.append(rec)
     return out
 
@@ -1363,10 +1435,12 @@ def flash_phase() -> list:
 # ---------------------------------------------------------------------------
 # phase 6: gpt2_small trained by TrainStep at full width and depth
 # ---------------------------------------------------------------------------
-def _gpt_train_step(cfg, use_amp, lr=1e-4, seed=0, moment_dtype=None):
+def _gpt_train_step(cfg, use_amp, lr=1e-4, seed=0, moment_dtype=None,
+                    amp_dtype="bfloat16"):
     """bench.py::bench_gpt's step: an f32 GPTForCausalLM, AdamW(lr,
-    weight decay 0.01, moments in `moment_dtype`), bf16 O1 auto_cast
-    around the forward when `use_amp`, GPTPretrainingCriterion."""
+    weight decay 0.01, moments in `moment_dtype`), O1 auto_cast in
+    `amp_dtype` around the forward when `use_amp`,
+    GPTPretrainingCriterion."""
     from paddle_tpu_torch import TrainStep, amp
     from paddle_tpu_torch.models import (GPTForCausalLM,
                                          GPTPretrainingCriterion)
@@ -1378,7 +1452,7 @@ def _gpt_train_step(cfg, use_amp, lr=1e-4, seed=0, moment_dtype=None):
     crit = GPTPretrainingCriterion()
 
     def loss_fn(m, ids, labels):
-        with amp.auto_cast(enable=use_amp, level="O1", dtype="bfloat16"):
+        with amp.auto_cast(enable=use_amp, level="O1", dtype=amp_dtype):
             logits = m(ids)
         return crit(logits, labels)
 
@@ -2392,6 +2466,337 @@ def recompute_parity_phase() -> dict:
     return dict(eager_losses=want_losses, cases=out)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: gpt2_small trained in f16 O1 (GradScaler, TrainStep, O2)
+# ---------------------------------------------------------------------------
+# eager steps with the scaler and the one whose gradient is poisoned; the
+# graph's calls (2 warm-up + 6 timed). MFU is taken against the bf16 peak,
+# which is the f16 peak too (989 TFLOP/s dense)
+F16_EAGER_STEPS, F16_POISON_AT = 8, 4
+F16_GRAPH_CALLS = 2 + 6
+
+
+def _sync_count(fn):
+    """(fn(), the synchronising CUDA calls it made), counted by torch's
+    sync debug mode (each one warns "called a synchronizing CUDA
+    operation" while it is on; the mode's own notice is not one)."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            r = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return r, sum("called a synchronizing" in str(w.message) for w in seen)
+
+
+def _scaler_steps(cfg, ids, labels) -> dict:
+    """F16_EAGER_STEPS eager f16 O1 steps through Optimizer.step with a
+    GradScaler (decr_every_n_nan_or_inf=1), the first weight's gradient
+    set to inf after the backward of step F16_POISON_AT: the scaler must
+    skip that update, leave the weight as it was and halve the scale,
+    and step every other time; one unscale pass and one host sync a
+    step. B1/B2 and the update kernel's launches are counted."""
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    model = GPTForCausalLM(cfg, dtype="float32", seed=0)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01)
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15,
+                            decr_every_n_nan_or_inf=1)
+    crit = GPTPretrainingCriterion()
+    ids_t, labels_t = (torch.as_tensor(a, device="cuda")
+                       for a in (ids, labels))
+    w0 = next(model.parameters())
+    fa.reset_counters()
+    mta.multi_tensor_adam.kernel_launches = 0
+    losses, step_s, scales, ran, syncs = [], [], [], [], []
+    kept = None
+    for i in range(F16_EAGER_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with amp.auto_cast(level="O1", dtype="float16"):
+            logits = model(ids_t)
+        loss = crit(logits, labels_t)
+        scaler.scale(loss).backward()
+        if i == F16_POISON_AT:
+            w0.grad.view(-1)[0] = float("inf")
+            before = w0.detach().clone()
+        n0 = mta.multi_tensor_adam.kernel_launches
+        _, n_sync = _sync_count(lambda: scaler.step(opt))
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        syncs.append(n_sync)
+        ran.append(mta.multi_tensor_adam.kernel_launches > n0)
+        scales.append(scaler._scale)
+        losses.append(loss.detach())
+        if i == F16_POISON_AT:
+            kept = bool(torch.equal(w0.detach(), before))
+    rec = dict(losses=[float(x) for x in losses], step_s=step_s,
+               scales=scales, ran=ran, syncs_in_step=syncs,
+               weight_kept_on_skip=kept,
+               unscale_stats=dict(scaler._unscale_stats),
+               b1_design_launches=dict(fa.flash_fwd.design_launches),
+               b2_design_launches=dict(fa.flash_bwd.design_launches),
+               plain_calls=[fa.flash_fwd.plain_calls,
+                            fa.flash_bwd.plain_calls],
+               update_launches=mta.multi_tensor_adam.kernel_launches)
+    del model, opt, losses
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _o2_step(cfg, ids, labels) -> dict:
+    """One scaled step of amp.decorate(model, opt, level="O2",
+    dtype="float16"): f16 parameters, f32 masters made by the step, the
+    multi-tensor update on the masters writing the f16 casts."""
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    model = GPTForCausalLM(cfg, dtype="float32", seed=0)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 10)
+    crit = GPTPretrainingCriterion()
+    ids_t, labels_t = (torch.as_tensor(a, device="cuda")
+                       for a in (ids, labels))
+    before = [p.detach().clone() for p in model.parameters()]
+    n0 = mta.multi_tensor_adam.kernel_launches
+    with amp.auto_cast(level="O2", dtype="float16"):
+        logits = model(ids_t)
+    loss = crit(logits, labels_t)
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    torch.cuda.synchronize()
+    params = list(model.parameters())
+    masters = [opt._master_weights.get(id(p)) for p in params]
+    rec = dict(
+        loss=float(loss.detach()), logits_dtype=str(logits.dtype),
+        params_f16=all(p.dtype == torch.float16 for p in params),
+        masters_f32=all(m is not None and m.dtype == torch.float32
+                        for m in masters),
+        params_are_master_casts=all(
+            torch.equal(p.detach(), m.to(torch.float16))
+            for p, m in zip(params, masters) if m is not None),
+        moved=max(float((p.detach().float() - b.float()).abs().max())
+                  for p, b in zip(params, before)),
+        update_launches=mta.multi_tensor_adam.kernel_launches - n0,
+        optimizer_steps=opt._step_count)
+    del model, opt, before, params, masters
+    torch.cuda.empty_cache()
+    return rec
+
+
+def f16_train_phase() -> dict:
+    """Phase 15: gpt2_small at full width and depth in f16 O1, batch 16 x
+    seq 1024, AdamW, flash attention, dropout 0: eager steps with a
+    GradScaler (one of them poisoned), TrainStep's graph (no scaler, as
+    the reference's TrainStep takes none) against its eager steps, and
+    one O2 decorate step."""
+    import torch
+    from paddle_tpu_torch.models import gpt2_small, num_params
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                     use_flash_attention=True)
+    batch, seq = 16, 1024
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    L, n = cfg.num_layers, num_params(cfg)
+
+    sc = _scaler_steps(cfg, ids, labels)
+    k = F16_POISON_AT
+    good = [s for i, s in enumerate(sc["step_s"]) if i >= 2 and i != k]
+    eager_med = statistics.median(good)
+
+    torch.cuda.reset_peak_memory_stats()
+    model, step = _gpt_train_step(cfg, use_amp=True, amp_dtype="float16")
+    run = _counted_steps(step, ids, labels, F16_GRAPH_CALLS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    graph_params = {kk: v.detach().clone()
+                    for kk, v in model.state_dict().items()}
+    # after the parameters are kept: each replay is one more step
+    graph = next(iter(step._graphs.values()))[0].graph
+    replay_ms = _replay_ms(graph)
+    del model, step
+    torch.cuda.empty_cache()
+    model, step = _gpt_train_step(cfg, use_amp=True, amp_dtype="float16")
+    step._eager = True
+    eager_losses = [float(step(ids, labels))
+                    for _ in range(F16_GRAPH_CALLS)]
+    lr = step.optimizer.get_lr()
+    param_err, far, n_el = _params_diff(graph_params, {
+        kk: v.detach() for kk, v in model.state_dict().items()}, lr)
+    del model, step, graph_params
+    torch.cuda.empty_cache()
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(run["losses"], eager_losses))
+    bound = 2 * lr * F16_GRAPH_CALLS
+
+    o2 = _o2_step(cfg, ids, labels)
+
+    timed = run["step_s"][2:]
+    med = statistics.median(timed)
+    n_graph = F16_GRAPH_CALLS
+    checks = {
+        "every loss finite (scaler, graph, eager)": all(np.isfinite(
+            sc["losses"] + run["losses"] + eager_losses)),
+        f"the poisoned step {k} skipped, every other step updated":
+            sc["ran"] == [i != k for i in range(F16_EAGER_STEPS)],
+        "the skipped step left the weight as it was":
+            sc["weight_kept_on_skip"] is True,
+        "the scale halved at the skip, and only there": all(
+            sc["scales"][i] == (2.0 ** 14 if i >= k else 2.0 ** 15)
+            for i in range(F16_EAGER_STEPS)),
+        "one unscale pass and one host sync a step": sc["unscale_stats"]
+            == {"dispatches": F16_EAGER_STEPS, "syncs": F16_EAGER_STEPS}
+            and sc["syncs_in_step"] == [1] * F16_EAGER_STEPS,
+        "every B1/B2 launch of the scaler steps ran sm90": (
+            sc["b1_design_launches"], sc["b2_design_launches"]) == (
+            {"sm90": L * F16_EAGER_STEPS, "simple": 0},) * 2,
+        "the graph: one capture, every later call a replay": (
+            run["captures"], run["replays"]) == (
+            {"train_step": 1}, {"train_step": n_graph - 1}),
+        "B1, B2 and the update at (12, 12, 1) in the eager step and in "
+        "the captured one": run["in_graph"] == run["eager"] == (L, L, 1),
+        "every graph B1/B2 launch ran sm90": (
+            run["designs"], run["bwd_designs"]) == (
+            {"sm90": 2 * L, "simple": 0},) * 2,
+        "plain versions never ran on CUDA tensors": sc["plain_calls"]
+            == [0, 0] and run["plain"] == (0, 0)
+            and run["update_plain"] == 0,
+        "graph steps == eager steps (phase 7's rule)": loss_err <= 1e-5
+            and param_err <= bound and far / n_el < 2e-3,
+        "O2: f16 parameters, f32 masters, one update launch writing the "
+        "masters' casts": o2["params_f16"] and o2["masters_f32"]
+            and o2["params_are_master_casts"]
+            and o2["update_launches"] == 1 and o2["optimizer_steps"] == 1
+            and o2["moved"] > 0 and np.isfinite(o2["loss"]),
+    }
+    for what, ok in checks.items():
+        log(f"[train-f16] check: {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise RuntimeError(f"f16 training phase failed: scaler {sc}, "
+                           f"graph {run}, eager {eager_losses}, O2 {o2}")
+    tok_graph = batch * seq * len(timed) / sum(timed)
+    tok_eager = batch * seq / eager_med
+    rec = dict(
+        config="gpt2_small", dtype="float16", level="O1", layers=L,
+        batch=batch, seq=seq, params=n,
+        scaler_step_ms_median=1e3 * eager_med,
+        scaler_tokens_per_s=tok_eager,
+        scaler_mfu=6.0 * n * tok_eager / BF16_FLOPS_PER_S,
+        scaler_losses=sc["losses"], scales=sc["scales"],
+        scaler_ran=sc["ran"], unscale_stats=sc["unscale_stats"],
+        syncs_in_scaler_step=sc["syncs_in_step"],
+        graph_step_ms_median=1e3 * med, graph_tokens_per_s=tok_graph,
+        graph_mfu=6.0 * n * tok_graph / BF16_FLOPS_PER_S,
+        step_ms_replay=replay_ms, idle_share=1 - replay_ms / (1e3 * med),
+        first_call_ms=1e3 * run["step_s"][0],
+        graph_losses=run["losses"], eager_losses=eager_losses,
+        graph_vs_eager_loss_rel=loss_err,
+        graph_vs_eager_param_max_abs=param_err, params_far=far,
+        b1_launches=run["counted"][0], b2_launches=run["counted"][1],
+        launches_in_graph=list(run["in_graph"]),
+        launches_eager=list(run["eager"]),
+        b1_launches_on_device=run["on_device"][0],
+        b2_launches_on_device=run["on_device"][1],
+        scaler_b1_launches=sc["b1_design_launches"]["sm90"],
+        scaler_b2_launches=sc["b2_design_launches"]["sm90"],
+        peak_mem_gb=peak, o2=o2)
+    log(f"[train-f16] gpt2_small f16 O1 AdamW, {L} layers, batch {batch} "
+        f"x seq {seq}: eager with GradScaler step median "
+        f"{1e3 * eager_med:.2f} ms by wall, {tok_eager:.1f} tokens/s, MFU "
+        f"{rec['scaler_mfu']:.4f}, scales {sc['scales']}, steps run "
+        f"{sc['ran']}, syncs in scaler.step {sc['syncs_in_step']}; "
+        f"TrainStep graph step median {1e3 * med:.2f} ms by wall, "
+        f"{replay_ms:.2f} ms by replay (device idle "
+        f"{100 * rec['idle_share']:.1f} %), {tok_graph:.1f} tokens/s, MFU "
+        f"{rec['graph_mfu']:.4f}; graph vs eager losses max rel diff "
+        f"{loss_err:.2e}, params max abs diff {param_err:.2e} (bound "
+        f"{bound:.1e}, {far} of {n_el} beyond 1e-3*lr); launches (B1, B2, "
+        f"update) eager {run['eager']}, captured {run['in_graph']}, on "
+        f"the card {run['on_device']}; O2 step loss {o2['loss']:.4f}, "
+        f"update launches {o2['update_launches']}, max move "
+        f"{o2['moved']:.2e}; peak mem {peak:.2f} GiB; card {card_line()}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 16: gpt3_1p3b served in f16
+# ---------------------------------------------------------------------------
+def _f16_generate_oracle(model, prompts, done) -> dict:
+    """Each request's engine tokens against the port's f16 dense
+    `generate` (its decode graphs), compared up to the first position
+    whose top-1/top-2 margin in the dense sequence's f16 logits is below
+    twice those logits' own rounding error: their largest difference
+    from the same weights' logits in f32 (TF32 off) over the request.
+    Engine and dense loop round at other places, each within that error
+    of exact, so a narrower race may legitimately flip."""
+    import copy
+    import torch
+    from paddle_tpu_torch.models import generate
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model.eval()
+    m32 = copy.deepcopy(model).float()
+    n_new = len(done[0].output_ids)
+    guarded, margins, mismatched = [], [], []
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            dense = generate(model, p[None], max_new_tokens=n_new)[0]
+            seq = dense[None].long()
+            lg = model(seq)[0, len(p) - 1:-1].float()
+            noise = float((m32(seq)[0, len(p) - 1:-1] - lg).abs().max())
+            margin = 2 * noise
+            top2 = torch.topk(lg, 2, dim=-1).values
+            low = np.flatnonzero(
+                (top2[:, 0] - top2[:, 1]).cpu().numpy() < margin)
+            n = int(low[0]) if len(low) else n_new
+            guarded.append(n)
+            margins.append(margin)
+            want = dense[len(p):].cpu().numpy()
+            if not np.array_equal(done[i].output_ids[:n], want[:n]):
+                mismatched.append(i)
+    del m32
+    torch.cuda.empty_cache()
+    ok = not mismatched and sum(guarded) > 0
+    log(f"[engine-f16] check: engine tokens == f16 dense generate under "
+        f"the margin guard: {'ok' if ok else 'FAILED'} (tokens compared "
+        f"per request {guarded} of {n_new}, margins "
+        f"{[round(m, 4) for m in margins]}, mismatched {mismatched})")
+    if not ok:
+        raise RuntimeError("f16 engine tokens differ from f16 generate")
+    return dict(oracle_guarded=guarded, oracle_margins=margins,
+                oracle_mismatched=mismatched)
+
+
+def f16_engine_phase() -> dict:
+    """Phase 16: gpt3_1p3b in f16 at full width and depth served by
+    LLMEngine with phase 4's traffic (f16 pools, every B3 launch sm90,
+    the decode graphs), its tokens held to f16 dense `generate`."""
+    def build():
+        from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+        cfg = gpt3_1p3b()
+        return GPTForCausalLM(cfg, dtype="float16", seed=0), cfg
+
+    return serve_phase("gpt3_1p3b", build, dict(
+        max_batch=8, block_size=64, decode_chunk=16, prompt_quantum=128),
+        oracle=_f16_generate_oracle)
+
+
 def main() -> int:
     try:
         import torch
@@ -2426,7 +2831,10 @@ def main() -> int:
     updates = update_phase()
     train_1p3b = train_1p3b_phase()
     recompute_parity = recompute_parity_phase()
+    train_f16 = f16_train_phase()
+    engine_f16 = f16_engine_phase()
     main_case = cases[0]    # the engine's fresh wave: its largest launch
+    f16_case = next(c for c in cases if c["case"] == "f16 fresh wave, no pool")
     fmain = flash[0]        # gpt2_small's training shape
     src = "paddle_tpu_torch/kernels/csrc/"
     kernels = [dict(
@@ -2444,7 +2852,22 @@ def main() -> int:
         plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
         library_ms=main_case["library_ms"],
-        library_ms_graph=main_case["library_ms_graph"], cases=cases)]
+        library_ms_graph=main_case["library_ms_graph"],
+        # the same wave in f16 (phase 2) and its launches serving
+        # gpt3_1p3b in f16 (phase 16)
+        f16=dict(launches=engine_f16["kernel_launches"],
+                 design=f16_case["design"],
+                 max_abs_err=max(r["max_abs_err"] for c in cases
+                                 if c["dtype"] == "float16"
+                                 for r in c["designs"].values()),
+                 ms=f16_case["ms"], ms_graph=f16_case["ms_graph"],
+                 simple_ms=f16_case["simple_ms_graph"],
+                 plain_ms=f16_case["plain_ms"],
+                 bound_ms=f16_case["bound_ms"],
+                 bound_by=f16_case["bound_by"],
+                 library_ms=f16_case["library_ms"],
+                 library_ms_graph=f16_case["library_ms_graph"]),
+        cases=cases)]
     t13 = train_1p3b["recompute"]
     for i, (kind, name, line, launches, source) in enumerate((
             ("fwd", "flash_attention_fwd", 267,
@@ -2464,8 +2887,8 @@ def main() -> int:
             # counted over its eager step and capture, and run on the card
             launches_1p3b=t13["launches_counted"][i],
             launches_on_device_1p3b=t13["launches_on_device"][i],
-            max_abs_err=max(e for c in flash for what, e in
-                            c["max_abs_err_bf16"].items()
+            max_abs_err=max(e for c in flash for dt in ("bf16", "f16")
+                            for what, e in c[f"max_abs_err_{dt}"].items()
                             if (what in ("o", "lse")) == (kind == "fwd")),
             ms=fmain[f"{kind}_ms"], plain_ms=fmain[f"plain_{kind}_ms"],
             bound_ms=fmain[f"{kind}_bound_ms"],
@@ -2479,6 +2902,27 @@ def main() -> int:
             library_ms_graph=fmain[f"library_{kind}_ms_graph"],
             design=fmain[f"{kind}_design"],
             simple_ms=fmain[f"simple_{kind}_ms_graph"],
+            # f16 at the same shape (phase 3) and its launches in phase
+            # 15's graph steps, counted and on the card
+            f16=dict(
+                launches=train_f16[f"b{1 if kind == 'fwd' else 2}"
+                                   "_launches"],
+                launches_on_device=train_f16[
+                    f"b{1 if kind == 'fwd' else 2}_launches_on_device"],
+                design=fmain["f16"][f"{kind}_design"],
+                ms=fmain["f16"][f"{kind}_ms"],
+                ms_graph=fmain["f16"][f"{kind}_ms_graph"],
+                simple_ms=fmain["f16"][f"simple_{kind}_ms_graph"],
+                plain_ms=fmain["f16"][f"plain_{kind}_ms"],
+                bound_ms=fmain["f16"][f"{kind}_bound_ms"],
+                bound_by=fmain["f16"][f"{kind}_bound_by"],
+                library_ms=fmain["f16"]["library_fwd_ms" if kind == "fwd"
+                                        else "library_fwd_bwd_ms"],
+                library_ms_graph=fmain["f16"][f"library_{kind}_ms_graph"],
+                max_abs_err=max(e for c in flash for what, e in
+                                c["max_abs_err_f16"].items()
+                                if (what in ("o", "lse"))
+                                == (kind == "fwd"))),
             cases=flash))
     # B4 at the fused encoder's shape, B5 at LLaMA-2-7B's packed prefill,
     # both bf16 with their affine; launches from phases 11 and 9
@@ -2520,6 +2964,8 @@ def main() -> int:
     log("[fused] " + json.dumps(fused))
     log("[train-1p3b] " + json.dumps(train_1p3b))
     log("[recompute-parity] " + json.dumps(recompute_parity))
+    log("[train-f16] " + json.dumps(train_f16))
+    log("[engine-f16] " + json.dumps(engine_f16))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -5,8 +5,8 @@ paddle_tpu's ``state_dict()`` names match the port's parameter names
 one for one, and Linear weights keep paddle_tpu's [in, out] layout in
 the port (the fused layers keep its [3, H, D, dm] qkv layout too), so
 nothing is transposed: each array is copied into a torch tensor of the
-same dtype (bf16 arrays arrive as ml_dtypes bfloat16 and are
-reinterpreted bit for bit).
+same dtype (f16 and f32 arrays as numpy's own types; bf16 arrays arrive
+as ml_dtypes bfloat16 and are reinterpreted bit for bit).
 """
 from __future__ import annotations
 

@@ -251,7 +251,7 @@ def _bmm_f32(a, b):
     On the card cuBLAS multiplies half-precision operands into f32
     (torch.bmm's out_dtype); the CPU build has no such product, so there
     the operands are widened first: the same products, since a product
-    of two bf16 values is exact in f32."""
+    of two bf16 (or two f16) values is exact in f32."""
     if a.device.type == "cuda" and a.dtype != torch.float32:
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
@@ -397,6 +397,7 @@ class LLMEngine:
                                     dtype=torch.int64, device=self.device)
         self._dec_inputs: Dict[int, torch.Tensor] = {}
         self._dec_graphs: Dict[int, CapturedStep] = {}
+        self._graph_pool = None     # the decode graphs' own, made at need
         # checking only: True runs the card's decode steps eagerly, the
         # plain version the graphs are held to (chip_smoke.py, the cuda
         # tests); the CPU always runs them eagerly
@@ -773,9 +774,11 @@ class LLMEngine:
         else:
             graph = self._dec_graphs.get(W)
             if graph is None:
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
                 graph = self._dec_graphs[W] = CapturedStep(
                     "engine_decode", lambda: self._decode_step(inp),
-                    generators=(self._gen,))
+                    pool=self._graph_pool, generators=(self._gen,))
                 load()
             for _ in range(chunk):
                 graph.replay()

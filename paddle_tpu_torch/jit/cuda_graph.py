@@ -10,11 +10,16 @@ read after it) and takes nothing from the host: no ``.item()``, no copy
 from host memory, no shape that depends on data. A capture that meets
 such an operation raises; nothing falls back to an eager run.
 
-The decode graphs are captured into one memory pool shared by all of
-them (``torch.cuda.graph_pool_handle``), a TrainStep's graphs into a
-pool of its own: they run one at a time on one stream, and their
-callers keep nothing a graph allocated beyond the next replay, so one
-graph's scratch may reuse another's.
+Each owner of graphs (an LLMEngine, a generate loop, a TrainStep)
+captures them into a memory pool of its own
+(``torch.cuda.graph_pool_handle``): its graphs run one at a time on one
+stream, and it keeps nothing a graph allocated beyond the next replay,
+so one graph's scratch may reuse another's. A pool is never shared
+between owners: once every graph of a pool is freed, the pool cannot
+take a new capture while any block of it is still allocated, and a
+library's workspace made during a capture (cuBLAS keeps one for the
+capture stream) stays allocated for the life of the process. An owner
+made after another was freed brings a fresh pool.
 
 ``captures``, ``capture_seconds`` and ``replays`` count by the name each
 caller gives its graphs ("engine_decode", "generate_prefill",
@@ -34,20 +39,12 @@ __all__ = ["CapturedStep", "captures", "capture_seconds", "replays",
 captures: collections.Counter = collections.Counter()
 capture_seconds: collections.Counter = collections.Counter()
 replays: collections.Counter = collections.Counter()
-_pool = None
 
 
 def reset_counters():
     captures.clear()
     capture_seconds.clear()
     replays.clear()
-
-
-def _graph_pool():
-    global _pool
-    if _pool is None:
-        _pool = torch.cuda.graph_pool_handle()
-    return _pool
 
 
 class CapturedStep:
@@ -66,19 +63,17 @@ class CapturedStep:
     nothing is put back. The default CUDA generator needs no entry in
     ``generators``: PyTorch registers it with every graph.
 
-    ``pool`` gives the graph an owner's own memory pool in place of the
-    shared one: a pool whose graphs have all been freed cannot take a
-    new capture while any block of it is still allocated (a library's
-    workspace made during a capture stays), so an owner that is freed
-    and made again (a TrainStep) brings a pool of its own.
+    ``pool`` is the owner's memory pool (``torch.cuda.graph_pool_handle()``,
+    made once by the owner and given to each of its graphs; the module
+    docstring says why no two owners share one).
 
     The cyclic garbage collector is off while the graph is captured: a
     dead cycle holding an older graph, freed then, would release that
     graph's memory in the middle of the capture, which CUDA refuses
     (the capture is invalidated)."""
 
-    def __init__(self, name: str, fn, generators=(), warmup_counts=False,
-                 pool=None):
+    def __init__(self, name: str, fn, *, pool, generators=(),
+                 warmup_counts=False):
         t0 = time.perf_counter()
         self.name = name
         states = [g.get_state() for g in generators]
@@ -97,7 +92,7 @@ class CapturedStep:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph, pool=pool or _graph_pool()):
+            with torch.cuda.graph(self.graph, pool=pool):
                 self.output = fn()
         finally:
             if collecting:

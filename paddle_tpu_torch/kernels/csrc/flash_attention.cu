@@ -35,9 +35,11 @@
 //     register layout of mma.m16n8k16 (lane g = lane/4, t = lane%4 holds
 //     rows g and g+8, columns 8j+2t and 8j+2t+1). Warps share only the
 //     tiles in shared memory, so no reduction crosses warps;
-//   * bf16 products run on the tensor cores (mma.sync m16n8k16, f32
-//     accumulate); f32 inputs run the same code with a SIMT product in
-//     full f32 (no TF32), which is what the f32 parity checks need;
+//   * bf16 and f16 products run on the tensor cores (mma.sync m16n8k16,
+//     f32 accumulate; one template over the 16-bit element type T, whose
+//     PTX name is the only difference); f32 inputs run the same code with
+//     a SIMT product in full f32 (no TF32), which is what the f32 parity
+//     checks need;
 //   * causal tiles above the diagonal are never visited: the forward
 //     and dq loops stop at the last k tile a q tile can see, and the
 //     dk/dv loop starts at the first q tile that can see its k tile
@@ -66,6 +68,7 @@
 // Launches run on the caller's stream, allocate nothing and do not
 // synchronise; the C entries return cudaGetLastError().
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,6 +80,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -87,6 +91,10 @@ __device__ __forceinline__ float from_f<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's cast
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);  // round to nearest even, as torch's cast
 }
 
 template <typename T, int D>
@@ -108,29 +116,47 @@ struct Cfg {
 //            = b[kk * ldb + n]  otherwise       (B is a  [k][n] tile)
 // acc follows the m16n8k16 accumulator layout described above.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
-                                          __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+__device__ __forceinline__ uint16_t bits(__nv_bfloat16 x) {
+  return __bfloat16_as_ushort(x);
+}
+__device__ __forceinline__ uint16_t bits(__half x) {
+  return __half_as_ushort(x);
+}
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(T lo, T hi) {
+  return static_cast<uint32_t>(bits(lo)) |
+         (static_cast<uint32_t>(bits(hi)) << 16);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// c += a · b, one m16n8k16 product of 16-bit T with f32 accumulation;
+// TY is T's PTX name
+template <typename T>
+__device__ void mma16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                      uint32_t b1);
+#define FA_MMA16(T, TY)                                                   \
+  template <>                                                             \
+  __device__ __forceinline__ void mma16<T>(                               \
+      float(&c)[4], const uint32_t(&a)[4], uint32_t b0, uint32_t b1) {    \
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY      \
+                 ".f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "           \
+                 "{%0,%1,%2,%3};\n"                                       \
+                 : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])         \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),   \
+                   "r"(b1));                                              \
+  }
+FA_MMA16(__nv_bfloat16, "bf16")
+FA_MMA16(__half, "f16")
+#undef FA_MMA16
 
-template <int NT, int K, bool B_K_CONTIG>
-__device__ __forceinline__ void warp_mm(float (&acc)[NT][4],
-                                        const __nv_bfloat16* a, int lda,
-                                        const __nv_bfloat16* b, int ldb) {
+template <int NT, int K, bool B_K_CONTIG, typename T>
+__device__ __forceinline__ void warp_mm(float (&acc)[NT][4], const T* a,
+                                        int lda, const T* b, int ldb) {
+  static_assert(sizeof(T) == 2, "16-bit elements: the tensor-core product");
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -152,7 +178,7 @@ __device__ __forceinline__ void warp_mm(float (&acc)[NT][4],
         b1 = pack2(b[(k0 + 2 * t + 8) * ldb + n],
                    b[(k0 + 2 * t + 9) * ldb + n]);
       }
-      mma_bf16(acc[j], af, b0, b1);
+      mma16<T>(acc[j], af, b0, b1);
     }
   }
 }
@@ -230,6 +256,9 @@ __device__ __forceinline__ void store2(float* p, float x, float y) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store2(__half* p, float x, float y) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
 }
 
 // a warp's 16 accumulator rows (scaled by `mul`) into global rows
@@ -705,9 +734,10 @@ int bwd(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. Strides are in elements; heads
-// and head_dim of q/k/v/do are dense. Returns cudaGetLastError() after the
-// launch(es), or -1 for a dtype/head_dim the kernels are not built for.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16. Strides are in
+// elements; heads and head_dim of q/k/v/do are dense. Returns
+// cudaGetLastError() after the launch(es), or -1 for a dtype/head_dim the
+// kernels are not built for.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, const void* q_seg,
     const void* kv_seg, void* o, void* lse, int b, int sq, int sk, int H,
@@ -724,6 +754,10 @@ extern "C" int flash_attention_fwd_launch(
     if (D == 64) FA_FWD(__nv_bfloat16, 64);
     if (D == 128) FA_FWD(__nv_bfloat16, 128);
     if (D == 256) FA_FWD(__nv_bfloat16, 256);
+  } else if (dtype == 2) {
+    if (D == 64) FA_FWD(__half, 64);
+    if (D == 128) FA_FWD(__half, 128);
+    if (D == 256) FA_FWD(__half, 256);
   } else if (dtype == 0) {
     if (D == 64) FA_FWD(float, 64);
     if (D == 128) FA_FWD(float, 128);
@@ -753,6 +787,10 @@ extern "C" int flash_attention_bwd_launch(
     if (D == 64) FA_BWD(__nv_bfloat16, 64);
     if (D == 128) FA_BWD(__nv_bfloat16, 128);
     if (D == 256) FA_BWD(__nv_bfloat16, 256);
+  } else if (dtype == 2) {
+    if (D == 64) FA_BWD(__half, 64);
+    if (D == 128) FA_BWD(__half, 128);
+    if (D == 256) FA_BWD(__half, 256);
   } else if (dtype == 0) {
     if (D == 64) FA_BWD(float, 64);
     if (D == 128) FA_BWD(float, 128);

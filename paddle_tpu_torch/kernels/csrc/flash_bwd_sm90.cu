@@ -1,11 +1,14 @@
-// Flash attention backward (B2) for Hopper (sm_90a), bf16 at head_dim 64
-// and 128: the design the training path runs. Hand-written CUDA C++.
+// Flash attention backward (B2) for Hopper (sm_90a), bf16 and f16 at
+// head_dim 64 and 128: the design the training path runs. Hand-written
+// CUDA C++.
 //
 // Replaces the TPU kernel paddle_tpu/kernels/pallas/flash_attention.py
 // ::_flash_bwd_fused (:457, pallas_call :544, kernel _bwd_kernel :364)
-// for bf16 q/k/v/do at D in {64, 128}. flash_attention.cu's
-// flash_bwd_dkdv_kernel / flash_bwd_dq_kernel keep f32 at any D and bf16
-// at D 256. It computes what _flash_bwd_reference
+// for bf16 or f16 q/k/v/do at D in {64, 128} (the element type T is a
+// template parameter; f16 rounds p and ds to f16 where bf16 rounds them
+// to bf16, as the reference casts them to the input dtype).
+// flash_attention.cu's flash_bwd_dkdv_kernel / flash_bwd_dq_kernel keep
+// f32 at any D and bf16/f16 at D 256. It computes what _flash_bwd_reference
 // (kernels/flash_attention.py) computes, on the paddle layout
 // [b, s, heads, D], from (q_scaled, k, v, o, lse [b, H, sq] f32 in
 // natural log, do):
@@ -178,22 +181,21 @@ __device__ __forceinline__ float2 lds_f2(uint32_t addr) {
 }
 
 // one output row pair of a warp's accumulator (rows g and g + 8 of its 16,
-// columns 8j + 2t, 8j + 2t + 1) as bf16, scaled, into [.., heads, D]
-template <int NT_D>
-__device__ __forceinline__ void store_acc(bf16* base, long long row0,
+// columns 8j + 2t, 8j + 2t + 1) as T, scaled, into [.., heads, D]
+template <int NT_D, class T>
+__device__ __forceinline__ void store_acc(T* base, long long row0,
                                           int heads, int head, int g, int t,
                                           const float (&acc)[NT_D][4],
                                           float scale) {
   constexpr int D = NT_D * 8;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    bf16* out = base + ((row0 + g + 8 * i) * heads + head) *
-                           static_cast<long long>(D);
+    T* out = base + ((row0 + g + 8 * i) * heads + head) *
+                        static_cast<long long>(D);
 #pragma unroll
     for (int j = 0; j < NT_D; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + 2 * t) =
-          __floats2bfloat162_rn(acc[j][2 * i] * scale,
-                                acc[j][2 * i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * t) =
+          pack2<T>(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
   }
 }
 
@@ -223,6 +225,17 @@ __device__ __forceinline__ float dot16(const uint4& x, const uint4& y, bf16) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 u = __bfloat1622float2(a[i]), w = __bfloat1622float2(b[i]);
+    acc = fmaf(u.x, w.x, fmaf(u.y, w.y, acc));
+  }
+  return acc;
+}
+__device__ __forceinline__ float dot16(const uint4& x, const uint4& y, f16) {
+  const __half2* a = reinterpret_cast<const __half2*>(&x);
+  const __half2* b = reinterpret_cast<const __half2*>(&y);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __half22float2(a[i]), w = __half22float2(b[i]);
     acc = fmaf(u.x, w.x, fmaf(u.y, w.y, acc));
   }
   return acc;
@@ -265,15 +278,15 @@ flash_bwd_delta(const T* __restrict__ dout, const T* __restrict__ o,
 // in the accumulator layout (lane g = lane / 4, t = lane % 4: keys g and
 // g + 8, queries 8j + 2t and 8j + 2t + 1 of n8 tile j)
 // ---------------------------------------------------------------------------
-template <class C>
+template <class C, class T>
 __global__ void __launch_bounds__(C::THREADS, 1)
-flash_bwd_dkdv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_bwd_dkdv_sm90(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     const int* __restrict__ q_seg,
-                    const int* __restrict__ kv_seg, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int sq, int sk, int H, int Hk,
+                    const int* __restrict__ kv_seg, T* __restrict__ dk,
+                    T* __restrict__ dv, int sq, int sk, int H, int Hk,
                     int causal, long long q_sb, long long q_st, long long k_sb,
                     long long k_st, long long v_sb, long long v_st,
                     long long do_sb, long long do_st) {
@@ -358,11 +371,11 @@ flash_bwd_dkdv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < C::KD; ++kk)
-      wgmma_ss<BQ>(s, kdesc<BK>(krow, kk), kdesc<BQ>(Qt, kk), kk > 0);
+      wgmma_ss<BQ, T>(s, kdesc<BK>(krow, kk), kdesc<BQ>(Qt, kk), kk > 0);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < C::KD; ++kk)
-      wgmma_ss<BQ>(dp, kdesc<BK>(vrow, kk), kdesc<BQ>(Ot, kk), kk > 0);
+      wgmma_ss<BQ, T>(dp, kdesc<BK>(vrow, kk), kdesc<BQ>(Ot, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<1>();  // Sᵀ has landed
     pin(s);
@@ -413,8 +426,8 @@ flash_bwd_dkdv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
       dp[j][3] = s[j][3] * (dp[j][3] - d2.y);
     }
     uint32_t pa[C::KQ][4], da[C::KQ][4];
-    pack_p<BQ>(pa, s);   // p cast to do's dtype
-    pack_p<BQ>(da, dp);  // ds cast to q's dtype
+    pack_p<BQ, T>(pa, s);   // p cast to do's dtype
+    pack_p<BQ, T>(da, dp);  // ds cast to q's dtype
 
     // dV += Pᵀ dO and dK += dSᵀ Q, one group: dO and Q MN-major
     pin(dv_acc);
@@ -422,10 +435,10 @@ flash_bwd_dkdv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kp = 0; kp < C::KQ; ++kp)
-      wgmma_rs_t<D>(dv_acc, pa[kp], tdesc<BQ>(Ot, kp));
+      wgmma_rs_t<D, T>(dv_acc, pa[kp], tdesc<BQ>(Ot, kp));
 #pragma unroll
     for (int kp = 0; kp < C::KQ; ++kp)
-      wgmma_rs_t<D>(dk_acc, da[kp], tdesc<BQ>(Qt, kp));
+      wgmma_rs_t<D, T>(dk_acc, da[kp], tdesc<BQ>(Qt, kp));
     wgmma_commit();
     wgmma_wait<0>();
     pin(dv_acc);
@@ -444,14 +457,14 @@ flash_bwd_dkdv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // dq. grid (sq / 128, H, b); warpgroup wg owns queries [q0 + 64 wg,
 // q0 + 64 wg + 64), in B1's accumulator layout (rows queries, columns keys)
 // ---------------------------------------------------------------------------
-template <class C>
+template <class C, class T>
 __global__ void __launch_bounds__(C::THREADS, 1)
-flash_bwd_dq_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_bwd_dq_sm90(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta,
                   const int* __restrict__ q_seg,
-                  const int* __restrict__ kv_seg, bf16* __restrict__ dq,
+                  const int* __restrict__ kv_seg, T* __restrict__ dq,
                   int sq, int sk, int H, int Hk, int causal, float sm_scale,
                   long long q_sb, long long q_st, long long k_sb,
                   long long k_st, long long v_sb, long long v_st,
@@ -475,8 +488,8 @@ flash_bwd_dq_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int rg0 = q0 + wg * 64;          // this warpgroup's first query
   const int r0 = rg0 + (warp & 3) * 16;  // this warp's first query
 
-  const bf16* kbase = k + bi * k_sb + static_cast<long long>(hk) * D;
-  const bf16* vbase = v + bi * v_sb + static_cast<long long>(hk) * D;
+  const T* kbase = k + bi * k_sb + static_cast<long long>(hk) * D;
+  const T* vbase = v + bi * v_sb + static_cast<long long>(hk) * D;
   // keys [0, kend) are visible to some row of this tile; this
   // warpgroup's rows see tiles [0, nkw) (uniform over it, as wgmma needs)
   const int kend = causal ? min(sk, q0 + BM + offset) : sk;
@@ -541,11 +554,11 @@ flash_bwd_dq_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < C::KD; ++kk)
-      wgmma_ss<BN>(s, kdesc<BM>(qrow, kk), kdesc<BN>(Kt, kk), kk > 0);
+      wgmma_ss<BN, T>(s, kdesc<BM>(qrow, kk), kdesc<BN>(Kt, kk), kk > 0);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < C::KD; ++kk)
-      wgmma_ss<BN>(dp, kdesc<BM>(orow, kk), kdesc<BN>(Vt, kk), kk > 0);
+      wgmma_ss<BN, T>(dp, kdesc<BM>(orow, kk), kdesc<BN>(Vt, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<1>();  // S has landed
     pin(s);
@@ -581,14 +594,14 @@ flash_bwd_dq_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - dl[e >> 1];
     uint32_t da[C::KP][4];
-    pack_p<BN>(da, s);  // ds cast to k's dtype
+    pack_p<BN, T>(da, s);  // ds cast to k's dtype
 
     // dQ += dS K, K MN-major
     pin(dq_acc);
     wgmma_fence();
 #pragma unroll
     for (int kp = 0; kp < C::KP; ++kp)
-      wgmma_rs_t<D>(dq_acc, da[kp], tdesc<BN>(Kt, kp));
+      wgmma_rs_t<D, T>(dq_acc, da[kp], tdesc<BN>(Kt, kp));
     wgmma_commit();
     wgmma_wait<0>();
     pin(dq_acc);
@@ -605,7 +618,7 @@ using Kv128 = KvCfg<128, FB90_D128_BQ, FB90_D128_KV_STAGES>;
 using Q64 = QCfg<64, FB90_D64_BN, FB90_D64_DQ_STAGES>;
 using Q128 = QCfg<128, FB90_D128_BN, FB90_D128_DQ_STAGES>;
 
-template <class KC, class QC>
+template <class KC, class QC, class T>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, const void* q_seg,
            const void* kv_seg, void* dq, void* dk, void* dv, int b, int sq,
@@ -615,34 +628,34 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            cudaStream_t stream) {
   // once per instantiation, outside any stream capture that follows
   static const int attr_kv = static_cast<int>(cudaFuncSetAttribute(
-      flash_bwd_dkdv_sm90<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkdv_sm90<KC, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(KC::SMEM)));
   static const int attr_q = static_cast<int>(cudaFuncSetAttribute(
-      flash_bwd_dq_sm90<QC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_sm90<QC, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(QC::SMEM)));
   if (attr_kv) return attr_kv;
   if (attr_q) return attr_q;
   if (sq % QC::BM || sq % KC::BQ || sk % KC::BK || sk % QC::BN || Hk < 1 ||
       H % Hk)
     return -2;
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* dop = static_cast<const bf16*>(dout);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* dop = static_cast<const T*>(dout);
   const float* lp = static_cast<const float*>(lse);
   const float* dlp = static_cast<const float*>(delta);
   const int* qsp = static_cast<const int*>(q_seg);
   const int* ksp = static_cast<const int*>(kv_seg);
-  flash_bwd_dkdv_sm90<KC><<<dim3(sk / KC::BK, Hk, b), KC::THREADS, KC::SMEM,
-                            stream>>>(
-      qp, kp, vp, dop, lp, dlp, qsp, ksp, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), sq, sk, H, Hk, causal, q_sb, q_st, k_sb, k_st,
+  flash_bwd_dkdv_sm90<KC, T><<<dim3(sk / KC::BK, Hk, b), KC::THREADS,
+                               KC::SMEM, stream>>>(
+      qp, kp, vp, dop, lp, dlp, qsp, ksp, static_cast<T*>(dk),
+      static_cast<T*>(dv), sq, sk, H, Hk, causal, q_sb, q_st, k_sb, k_st,
       v_sb, v_st, do_sb, do_st);
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc) return rc;
-  flash_bwd_dq_sm90<QC><<<dim3(sq / QC::BM, H, b), QC::THREADS, QC::SMEM,
-                          stream>>>(
-      qp, kp, vp, dop, lp, dlp, qsp, ksp, static_cast<bf16*>(dq), sq, sk, H,
+  flash_bwd_dq_sm90<QC, T><<<dim3(sq / QC::BM, H, b), QC::THREADS, QC::SMEM,
+                             stream>>>(
+      qp, kp, vp, dop, lp, dlp, qsp, ksp, static_cast<T*>(dq), sq, sk, H,
       Hk, causal, sm_scale, q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st);
   return static_cast<int>(cudaGetLastError());
 }
@@ -660,13 +673,35 @@ int launch_delta(const void* dout, const void* o, void* delta, int b, int sq,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class T>
+int launch_d(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, const void* q_seg,
+             const void* kv_seg, void* dq, void* dk, void* dv, int b, int sq,
+             int sk, int H, int Hk, int D, int causal, float sm_scale,
+             long long q_sb, long long q_st, long long k_sb, long long k_st,
+             long long v_sb, long long v_st, long long do_sb, long long do_st,
+             cudaStream_t st) {
+  if (D == 64)
+    return launch<Kv64, Q64, T>(q, k, v, dout, lse, delta, q_seg, kv_seg, dq,
+                                dk, dv, b, sq, sk, H, Hk, causal, sm_scale,
+                                q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb,
+                                do_st, st);
+  if (D == 128)
+    return launch<Kv128, Q128, T>(q, k, v, dout, lse, delta, q_seg, kv_seg,
+                                  dq, dk, dv, b, sq, sk, H, Hk, causal,
+                                  sm_scale, q_sb, q_st, k_sb, k_st, v_sb,
+                                  v_st, do_sb, do_st, st);
+  return -1;
+}
+
 }  // namespace
 
-// B2 for bf16 (dtype code 1) at head_dim 64 or 128, from (q_scaled, k, v,
-// do, lse, delta); the arguments of flash_attention.cu's
-// flash_attention_bwd_launch. Strides in elements. Returns
-// cudaGetLastError() after the launches, -1 for a dtype or head_dim this
-// design is not built for, -2 for lengths its tiles do not divide.
+// B2 for bf16 (dtype code 1) or f16 (dtype code 2) at head_dim 64 or
+// 128, from (q_scaled, k, v, do, lse, delta); the arguments of
+// flash_attention.cu's flash_attention_bwd_launch. Strides in elements.
+// Returns cudaGetLastError() after the launches, -1 for a dtype or
+// head_dim this design is not built for, -2 for lengths its tiles do not
+// divide.
 extern "C" int flash_bwd_sm90_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* q_seg,
@@ -675,24 +710,23 @@ extern "C" int flash_bwd_sm90_launch(
     long long q_sb, long long q_st, long long k_sb, long long k_st,
     long long v_sb, long long v_st, long long do_sb, long long do_st,
     void* stream) {
-  if (dtype != 1) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch<Kv64, Q64>(q, k, v, dout, lse, delta, q_seg, kv_seg, dq, dk,
-                             dv, b, sq, sk, H, Hk, causal, sm_scale, q_sb,
-                             q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st, st);
-  if (D == 128)
-    return launch<Kv128, Q128>(q, k, v, dout, lse, delta, q_seg, kv_seg, dq,
-                               dk, dv, b, sq, sk, H, Hk, causal, sm_scale,
-                               q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb,
-                               do_st, st);
+  if (dtype == 1)
+    return launch_d<bf16>(q, k, v, dout, lse, delta, q_seg, kv_seg, dq, dk,
+                          dv, b, sq, sk, H, Hk, D, causal, sm_scale, q_sb,
+                          q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st, st);
+  if (dtype == 2)
+    return launch_d<f16>(q, k, v, dout, lse, delta, q_seg, kv_seg, dq, dk,
+                         dv, b, sq, sk, H, Hk, D, causal, sm_scale, q_sb,
+                         q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st, st);
   return -1;
 }
 
 // delta = rowsum(do · o) in f32 into [b, H, sq], for both of B2's designs:
-// dtype 0 = float32, 1 = bfloat16, head_dim 64, 128 or 256; batch and
-// token strides in elements (heads and head_dim dense, rows 16-byte
-// aligned). Returns cudaGetLastError(), or -1 for what it is not built for.
+// dtype 0 = float32, 1 = bfloat16, 2 = float16, head_dim 64, 128 or 256;
+// batch and token strides in elements (heads and head_dim dense, rows
+// 16-byte aligned). Returns cudaGetLastError(), or -1 for what it is not
+// built for.
 extern "C" int flash_bwd_delta_launch(const void* dout, const void* o,
                                       void* delta, int b, int sq, int H,
                                       int D, int dtype, long long do_sb,
@@ -706,6 +740,10 @@ extern "C" int flash_bwd_delta_launch(const void* dout, const void* o,
     if (D == 64) FB_DELTA(bf16, 64);
     if (D == 128) FB_DELTA(bf16, 128);
     if (D == 256) FB_DELTA(bf16, 256);
+  } else if (dtype == 2) {
+    if (D == 64) FB_DELTA(f16, 64);
+    if (D == 128) FB_DELTA(f16, 128);
+    if (D == 256) FB_DELTA(f16, 256);
   } else if (dtype == 0) {
     if (D == 64) FB_DELTA(float, 64);
     if (D == 128) FB_DELTA(float, 128);

@@ -1,10 +1,14 @@
-// Flash attention forward (B1) for Hopper (sm_90a), bf16 at head_dim 64
-// and 128: the design the port's main paths run. Hand-written CUDA C++.
+// Flash attention forward (B1) for Hopper (sm_90a), bf16 and f16 at
+// head_dim 64 and 128: the design the port's main paths run. Hand-written
+// CUDA C++.
 //
 // Replaces the TPU kernel paddle_tpu/kernels/pallas/flash_attention.py
-// ::_flash_fwd_fused (:267, kernel _fwd_kernel :101) for bf16 q/k/v at
-// D in {64, 128}. flash_attention.cu::flash_fwd_kernel keeps f32 at any
-// D and bf16 at D 256 (no model of the main paths has D 256). It
+// ::_flash_fwd_fused (:267, kernel _fwd_kernel :101) for bf16 or f16
+// q/k/v at D in {64, 128}. flash_attention.cu::flash_fwd_kernel keeps f32
+// at any D and bf16/f16 at D 256 (no model of the main paths has D 256).
+// The element type T is a template parameter: f16 runs the same tiles
+// and the f16 twins of the wgmma products (sm90_wgmma.cuh), rounding p
+// and o to f16 where the bf16 instance rounds them to bf16. It
 // computes what _flash_fwd_reference (kernels/flash_attention.py)
 // computes, on the paddle layout [b, s, heads, D]:
 //   * o = softmax(q_scaled kᵀ) v per (batch, q head), q head h reading kv
@@ -12,7 +16,7 @@
 //     keys <= i + sk - sq); optional segment-id equality mask; masked
 //     scores count as -1e30 and masked probabilities as 0, so a row with
 //     no valid key gives o = 0 and lse = -1e30;
-//   * an online softmax in f32; p is cast to bf16 before p·v and o is
+//   * an online softmax in f32; p is cast to T before p·v and o is
 //     divided by the f32 row sum; lse = m + log(l) in natural log, f32
 //     [b, H, sq], which B2 reads back;
 //   * q, k and v are read through a batch and a token stride (views of a
@@ -59,7 +63,7 @@
 //      16-bit loads).
 //   4. P stays in registers: the wgmma accumulator layout of two
 //      neighbouring n8 score columns is the register A-fragment layout of
-//      one k16 step, so the f32 scores are packed to bf16 pairs and fed
+//      one k16 step, so the f32 scores are packed to T pairs and fed
 //      to P V directly (the simple design stores P to shared memory and
 //      reads it back).
 //   5. The softmax is in base 2: exp2(s·log2e − m·log2e), one FFMA and
@@ -189,11 +193,11 @@ __device__ __forceinline__ void softmax_step(float (&s)[N / 8][4],
 // accumulator layout (lane g = lane / 4, t = lane % 4: rows g and g + 8,
 // columns 8j + 2t and 8j + 2t + 1 of n8 tile j). Each k tile: S = Q Kᵀ as
 // one wgmma group, waited for; the softmax; O += P V as another.
-template <class C>
+template <class C, class T>
 __global__ void __launch_bounds__(C::THREADS, C::MINB)
-flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const int* __restrict__ q_seg,
-               const int* __restrict__ kv_seg, bf16* __restrict__ o,
+flash_fwd_sm90(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const int* __restrict__ q_seg,
+               const int* __restrict__ kv_seg, T* __restrict__ o,
                float* __restrict__ lse, int sq, int sk, int H, int Hk,
                int causal, long long q_sb, long long q_st, long long k_sb,
                long long k_st, long long v_sb, long long v_st) {
@@ -223,8 +227,8 @@ flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
   w.kv_seg = kv_seg;
   w.qsg[0] = w.qsg[1] = 0;
 
-  const bf16* kbase = k + bi * k_sb + static_cast<long long>(hk) * D;
-  const bf16* vbase = v + bi * v_sb + static_cast<long long>(hk) * D;
+  const T* kbase = k + bi * k_sb + static_cast<long long>(hk) * D;
+  const T* vbase = v + bi * v_sb + static_cast<long long>(hk) * D;
   // keys [0, kend) are visible to some row of this tile; this
   // warpgroup's rows see tiles [0, nkw) (uniform over it, as wgmma needs)
   const int kend = causal ? min(sk, q0 + BM + w.offset) : sk;
@@ -284,7 +288,7 @@ flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < C::KQ; ++kk)
-      wgmma_ss<BN>(s,
+      wgmma_ss<BN, T>(s,
                    wdesc(qrow + (kk >> 2) * (BM * 128) + (kk & 3) * 32, 16,
                          1024),
                    wdesc(Kt + (kk >> 2) * (BN * 128) + (kk & 3) * 32, 16,
@@ -301,7 +305,7 @@ flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
     uint32_t pa[C::KP][4];
-    pack_p<BN>(pa, s);
+    pack_p<BN, T>(pa, s);
 
     // O += P V; V is MN-major: k16 step kp is two 8-key groups (1024
     // bytes each) on, and 64-column blocks of D are BN * 128 bytes apart
@@ -309,7 +313,7 @@ flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kp = 0; kp < C::KP; ++kp)
-      wgmma_rs_t<D>(acc, pa[kp], wdesc(Vt + kp * 2048, BN * 128, 1024));
+      wgmma_rs_t<D, T>(acc, pa[kp], wdesc(Vt + kp * 2048, BN * 128, 1024));
     wgmma_commit();
     wgmma_wait<0>();
     pin(acc);
@@ -324,12 +328,12 @@ flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float lt = quad_sum(l[i]);
     const float sl = lt == 0.f ? 1.f : lt;
     const int row = w.r0 + w.g + 8 * i;
-    bf16* orow = o + ((static_cast<long long>(bi) * sq + row) * H + h) *
-                         static_cast<long long>(D);
+    T* orow = o + ((static_cast<long long>(bi) * sq + row) * H + h) *
+                      static_cast<long long>(D);
 #pragma unroll
     for (int j = 0; j < C::NT_D; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * w.t) =
-          __floats2bfloat162_rn(acc[j][2 * i] / sl, acc[j][2 * i + 1] / sl);
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * w.t) =
+          pack2<T>(acc[j][2 * i] / sl, acc[j][2 * i + 1] / sl);
     if (w.t == 0)
       lse[(static_cast<long long>(bi) * H + h) * sq + row] = m[i] + logf(sl);
   }
@@ -338,7 +342,7 @@ flash_fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
 using Cfg64 = Cfg<64, FA90_D64_BN, FA90_D64_STAGES, FA90_D64_MINB>;
 using Cfg128 = Cfg<128, FA90_D128_BN, FA90_D128_STAGES, FA90_D128_MINB>;
 
-template <class C>
+template <class C, class T>
 int launch(const void* q, const void* k, const void* v, const void* q_seg,
            const void* kv_seg, void* o, void* lse, int b, int sq, int sk,
            int H, int Hk, int causal, long long q_sb, long long q_st,
@@ -346,25 +350,43 @@ int launch(const void* q, const void* k, const void* v, const void* q_seg,
            void* stream) {
   // once per instantiation, outside any stream capture that follows
   static const int attr = static_cast<int>(cudaFuncSetAttribute(
-      flash_fwd_sm90<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_sm90<C, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::SMEM)));
   if (attr) return attr;
   if (sq % C::BM || sk % C::BN || Hk < 1 || H % Hk) return -2;
-  flash_fwd_sm90<C><<<dim3(sq / C::BM, H, b), C::THREADS, C::SMEM,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int*>(q_seg),
-      static_cast<const int*>(kv_seg), static_cast<bf16*>(o),
+  flash_fwd_sm90<C, T><<<dim3(sq / C::BM, H, b), C::THREADS, C::SMEM,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(q_seg),
+      static_cast<const int*>(kv_seg), static_cast<T*>(o),
       static_cast<float*>(lse), sq, sk, H, Hk, causal, q_sb, q_st, k_sb, k_st,
       v_sb, v_st);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class T>
+int launch_d(const void* q, const void* k, const void* v, const void* q_seg,
+             const void* kv_seg, void* o, void* lse, int b, int sq, int sk,
+             int H, int Hk, int D, int causal, long long q_sb, long long q_st,
+             long long k_sb, long long k_st, long long v_sb, long long v_st,
+             void* stream) {
+  if (D == 64)
+    return launch<Cfg64, T>(q, k, v, q_seg, kv_seg, o, lse, b, sq, sk, H, Hk,
+                            causal, q_sb, q_st, k_sb, k_st, v_sb, v_st,
+                            stream);
+  if (D == 128)
+    return launch<Cfg128, T>(q, k, v, q_seg, kv_seg, o, lse, b, sq, sk, H,
+                             Hk, causal, q_sb, q_st, k_sb, k_st, v_sb, v_st,
+                             stream);
+  return -1;
+}
+
 }  // namespace
 
-// bf16 only (dtype code 1), head_dim 64 or 128; strides in elements.
-// Returns cudaGetLastError() after the launch, -1 for a dtype or head_dim
-// this kernel is not built for, -2 for lengths its tiles do not divide.
+// dtype codes 1 = bfloat16, 2 = float16; head_dim 64 or 128; strides in
+// elements. Returns cudaGetLastError() after the launch, -1 for a dtype or
+// head_dim this kernel is not built for, -2 for lengths its tiles do not
+// divide.
 extern "C" int flash_fwd_sm90_launch(const void* q, const void* k,
                                      const void* v, const void* q_seg,
                                      const void* kv_seg, void* o, void* lse,
@@ -374,12 +396,13 @@ extern "C" int flash_fwd_sm90_launch(const void* q, const void* k,
                                      long long k_sb, long long k_st,
                                      long long v_sb, long long v_st,
                                      void* stream) {
-  if (dtype != 1) return -1;
-  if (D == 64)
-    return launch<Cfg64>(q, k, v, q_seg, kv_seg, o, lse, b, sq, sk, H, Hk,
-                         causal, q_sb, q_st, k_sb, k_st, v_sb, v_st, stream);
-  if (D == 128)
-    return launch<Cfg128>(q, k, v, q_seg, kv_seg, o, lse, b, sq, sk, H, Hk,
-                          causal, q_sb, q_st, k_sb, k_st, v_sb, v_st, stream);
+  if (dtype == 1)
+    return launch_d<bf16>(q, k, v, q_seg, kv_seg, o, lse, b, sq, sk, H, Hk,
+                          D, causal, q_sb, q_st, k_sb, k_st, v_sb, v_st,
+                          stream);
+  if (dtype == 2)
+    return launch_d<f16>(q, k, v, q_seg, kv_seg, o, lse, b, sq, sk, H, Hk,
+                         D, causal, q_sb, q_st, k_sb, k_st, v_sb, v_st,
+                         stream);
   return -1;
 }

@@ -35,13 +35,16 @@
 //     and every packed tile for every q tile is not carried over.
 //   * q*scale and the probabilities stay in f32, where the reference
 //     rounds them to the pool dtype before each product; the kernel is
-//     held to the plain version run in f32 on the same bf16 values.
+//     held to the plain version run in f32 on the same bf16 (or f16)
+//     values. q/k/v are f32, bf16 or f16 and the pools of q's type or
+//     int8, all widened to f32 on load.
 // Sharing K/V tiles across a q tile in shared memory, wgmma and TMA are
 // the later, faster version.
 //
 // The launch runs on the caller's stream, allocates nothing and does not
 // synchronise; the C entry returns cudaGetLastError().
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,6 +57,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(int8_t x) {
   return static_cast<float>(x);
 }
@@ -74,6 +78,19 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* __restrict__ p,
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
     const float2 f = __bfloat1622float2(p2[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_vec(const __half* __restrict__ p,
+                                         float (&out)[N]) {
+  static_assert(N % 2 == 0, "f16 rows load in pairs");
+  const __half2* p2 = reinterpret_cast<const __half2*>(p);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float2 f = __half22float2(p2[i]);
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
@@ -236,7 +253,8 @@ int dispatch_d(int D, const void* q, const void* k_new, const void* v_new,
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only).
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only),
+// 3 = float16.
 // Returns cudaGetLastError() after the launch, or -1 for a dtype/head_dim
 // combination the kernel is not built for.
 extern "C" int ragged_paged_attention_launch(
@@ -258,6 +276,9 @@ extern "C" int ragged_paged_attention_launch(
   if (q_dtype == 1) {
     if (pool_dtype == 1) return dispatch_d<__nv_bfloat16, __nv_bfloat16>(RPA_ARGS);
     if (pool_dtype == 2) return dispatch_d<__nv_bfloat16, int8_t>(RPA_ARGS);
+  } else if (q_dtype == 3) {
+    if (pool_dtype == 3) return dispatch_d<__half, __half>(RPA_ARGS);
+    if (pool_dtype == 2) return dispatch_d<__half, int8_t>(RPA_ARGS);
   } else if (q_dtype == 0) {
     if (pool_dtype == 0) return dispatch_d<float, float>(RPA_ARGS);
     if (pool_dtype == 2) return dispatch_d<float, int8_t>(RPA_ARGS);

@@ -1,10 +1,13 @@
-// Ragged paged attention (B3) for Hopper (sm_90a), bf16 at head_dim 64
-// and 128: the design the serving engine's packed waves run. Hand-written
-// CUDA C++.
+// Ragged paged attention (B3) for Hopper (sm_90a), bf16 and f16 at
+// head_dim 64 and 128: the design the serving engine's packed waves run.
+// Hand-written CUDA C++.
 //
 // Replaces the TPU kernel paddle_tpu/kernels/pallas/ragged_paged_attention.py
-// ::_ragged_pallas (:313, kernel _ragged_kernel :166) for bf16 q/k/v over
-// bf16 pools at D in {64, 128}, with 16-byte aligned token rows.
+// ::_ragged_pallas (:313, kernel _ragged_kernel :166) for bf16 (or f16)
+// q/k/v over pools of the same type at D in {64, 128}, with 16-byte
+// aligned token rows. The element type T is a template parameter: f16
+// runs the same tiles and the f16 twins of the wgmma products, rounding
+// p to f16 where bf16 rounds it to bf16.
 // ragged_paged_attention.cu (the simple design) keeps f32, int8 pools,
 // D 256 and unaligned token strides. It computes what _ragged_reference
 // (kernels/ragged_paged_attention.py) computes: for each packed query
@@ -60,8 +63,8 @@
 //      so their loads run under the previous tile's products.
 //   4. Products. S = Q Kᵀ by wgmma m64n64k16 from shared memory with f32
 //      accumulation; the softmax scale is applied to S in f32 after the
-//      product, so Q stays exact (the reference rounds q·scale to bf16
-//      first). O += P V by wgmma with P packed to bf16 from the score
+//      product, so Q stays exact (the reference rounds q·scale to T
+//      first). O += P V by wgmma with P packed to T from the score
 //      registers and V read MN-major through the transpose bit; l is
 //      summed from the f32 p. Softmax in base 2 with the max taken on the
 //      raw scores, as B1's: one FFMA and one ex2 a score.
@@ -108,12 +111,13 @@ struct Cfg {
                 "tiles split evenly into 16-byte copies");
 };
 
+template <class T>
 struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* kpool;
-  const bf16* vpool;
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* kpool;
+  const T* vpool;
   const int* perm;      // [T] packed index of each sorted token
   const int* spos;      // [T] position of each sorted token
   const int* tiles;     // [n_tiles, 8] (row, lo, n, kend, rs, cnt, full, 0)
@@ -148,8 +152,8 @@ struct KeyRows {
 // fetch the key rows of key tile kb (the row's pool tiles first, then
 // its packed ones). A pool slot past the row's pages reads a slot of a
 // page inside the pool, masked.
-template <class C>
-__device__ __forceinline__ void fetch_rows(const Params& p, const Walk& w,
+template <class C, class T>
+__device__ __forceinline__ void fetch_rows(const Params<T>& p, const Walk& w,
                                            int kb, KeyRows<C>& kr) {
 #pragma unroll
   for (int it = 0; it < KeyRows<C>::N; ++it) {
@@ -176,8 +180,8 @@ __device__ __forceinline__ void fetch_rows(const Params& p, const Walk& w,
 // issue the cp.async copies of key tile kb's fetched rows into ring
 // buffers Kt / Vt and write its mask words (plain shared stores, read
 // after the barrier that precedes the tile's use)
-template <class C>
-__device__ __forceinline__ void issue_rows(const Params& p, const Walk& w,
+template <class C, class T>
+__device__ __forceinline__ void issue_rows(const Params<T>& p, const Walk& w,
                                            int kb, const KeyRows<C>& kr,
                                            uint32_t Kt, uint32_t Vt,
                                            int* words) {
@@ -186,8 +190,8 @@ __device__ __forceinline__ void issue_rows(const Params& p, const Walk& w,
   for (int it = 0; it < KeyRows<C>::N; ++it) {
     const int i = it * C::THREADS + static_cast<int>(threadIdx.x);
     const int row = i / CPR, c = i % CPR;
-    const bf16* ks;
-    const bf16* vs;
+    const T* ks;
+    const T* vs;
     if (kb < w.NP) {
       const long long at =
           (static_cast<long long>(kr.idx[it]) * p.Hk + w.hk) * D;
@@ -254,9 +258,9 @@ __device__ __forceinline__ void softmax_step(float (&s)[BN / 8][4],
 // 16 w + 15 of the tile, in the m16n8k16
 // accumulator layout (lane g = lane / 4, t = lane % 4: rows g and g + 8,
 // columns 8j + 2t and 8j + 2t + 1 of n8 tile j)
-template <class C>
+template <class C, class T>
 __global__ void __launch_bounds__(C::THREADS, 1)
-rpa_sm90(const Params p) {
+rpa_sm90(const Params<T> p) {
   constexpr int D = C::D, BM = C::BM, S = C::STAGES, THREADS = C::THREADS;
   constexpr int CPR = C::CPR;
   constexpr uint32_t TB = C::TB;
@@ -354,7 +358,7 @@ rpa_sm90(const Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < C::KQ; ++kk)
-      wgmma_ss<BN>(sc,
+      wgmma_ss<BN, T>(sc,
                    wdesc(Qs + (kk >> 2) * (BM * 128) + (kk & 3) * 32, 16,
                          1024),
                    wdesc(Kt + (kk >> 2) * (BN * 128) + (kk & 3) * 32, 16,
@@ -376,7 +380,7 @@ rpa_sm90(const Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
     uint32_t pa[C::KP][4];
-    pack_p<BN>(pa, sc);
+    pack_p<BN, T>(pa, sc);
 
     // O += P V; V is MN-major: k16 step kp is two 8-key groups (1024
     // bytes each) on, and 64-column blocks of D are BN * 128 bytes apart
@@ -384,7 +388,7 @@ rpa_sm90(const Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kp = 0; kp < C::KP; ++kp)
-      wgmma_rs_t<D>(acc, pa[kp], wdesc(Vt + kp * 2048, BN * 128, 1024));
+      wgmma_rs_t<D, T>(acc, pa[kp], wdesc(Vt + kp * 2048, BN * 128, 1024));
     wgmma_commit();
     wgmma_wait<0>();
     pin(acc);
@@ -408,42 +412,37 @@ rpa_sm90(const Params p) {
   }
 }
 
-template <class C>
-int launch(const Params& p, int n_tiles, void* stream) {
+template <class C, class T>
+int launch(const Params<T>& p, int n_tiles, void* stream) {
   // once per instantiation, outside any stream capture that follows
   static const int attr = static_cast<int>(cudaFuncSetAttribute(
-      rpa_sm90<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rpa_sm90<C, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::SMEM)));
   if (attr) return attr;
   if (p.Hk < 1 || p.H % p.Hk) return -2;
   if (n_tiles < 1) return 0;
-  rpa_sm90<C><<<dim3(p.H, n_tiles), C::THREADS, C::SMEM,
-                 static_cast<cudaStream_t>(stream)>>>(p);
+  rpa_sm90<C, T><<<dim3(p.H, n_tiles), C::THREADS, C::SMEM,
+                    static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 using Cfg64 = Cfg<64, RPA90_D64_STAGES>;
 using Cfg128 = Cfg<128, RPA90_D128_STAGES>;
 
-}  // namespace
-
-// bf16 q/k/v and pools (kpool/vpool may be null without a pool), head_dim
-// 64 or 128; token strides in elements; n_tiles rows of `tiles`. Returns
-// cudaGetLastError() after the launch, -1 for a head_dim this kernel is
-// not built for, -2 for heads that do not group.
-extern "C" int ragged_paged_attention_sm90_launch(
-    const void* q, const void* k_new, const void* v_new, const void* kpool,
-    const void* vpool, const void* perm, const void* spos, const void* tiles,
-    const void* page_ids, const void* page_cnt, const void* npages, void* out,
-    int n_tiles, int H, int Hk, int D, int NB, int bs,
-    int pool_pages, int with_pool, long long q_st, long long k_st,
-    long long v_st, float scale, void* stream) {
-  Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k_new);
-  p.v = static_cast<const bf16*>(v_new);
-  p.kpool = static_cast<const bf16*>(kpool);
-  p.vpool = static_cast<const bf16*>(vpool);
+template <class T>
+int launch_d(const void* q, const void* k_new, const void* v_new,
+             const void* kpool, const void* vpool, const void* perm,
+             const void* spos, const void* tiles, const void* page_ids,
+             const void* page_cnt, const void* npages, void* out, int n_tiles,
+             int H, int Hk, int D, int NB, int bs, int pool_pages,
+             int with_pool, long long q_st, long long k_st, long long v_st,
+             float scale, void* stream) {
+  Params<T> p;
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k_new);
+  p.v = static_cast<const T*>(v_new);
+  p.kpool = static_cast<const T*>(kpool);
+  p.vpool = static_cast<const T*>(vpool);
   p.perm = static_cast<const int*>(perm);
   p.spos = static_cast<const int*>(spos);
   p.tiles = static_cast<const int*>(tiles);
@@ -461,7 +460,34 @@ extern "C" int ragged_paged_attention_sm90_launch(
   p.k_st = k_st;
   p.v_st = v_st;
   p.scale_log2 = scale * kLog2e;
-  if (D == 64) return launch<Cfg64>(p, n_tiles, stream);
-  if (D == 128) return launch<Cfg128>(p, n_tiles, stream);
+  if (D == 64) return launch<Cfg64, T>(p, n_tiles, stream);
+  if (D == 128) return launch<Cfg128, T>(p, n_tiles, stream);
+  return -1;
+}
+
+}  // namespace
+
+// q/k/v and pools of dtype code 1 (bfloat16) or 3 (float16) (kpool/vpool
+// may be null without a pool), head_dim 64 or 128; token strides in
+// elements; n_tiles rows of `tiles`. Returns cudaGetLastError() after the
+// launch, -1 for a dtype or head_dim this kernel is not built for, -2 for
+// heads that do not group.
+extern "C" int ragged_paged_attention_sm90_launch(
+    const void* q, const void* k_new, const void* v_new, const void* kpool,
+    const void* vpool, const void* perm, const void* spos, const void* tiles,
+    const void* page_ids, const void* page_cnt, const void* npages, void* out,
+    int n_tiles, int H, int Hk, int D, int NB, int bs, int pool_pages,
+    int with_pool, int dtype, long long q_st, long long k_st, long long v_st,
+    float scale, void* stream) {
+  if (dtype == 1)
+    return launch_d<bf16>(q, k_new, v_new, kpool, vpool, perm, spos, tiles,
+                          page_ids, page_cnt, npages, out, n_tiles, H, Hk, D,
+                          NB, bs, pool_pages, with_pool, q_st, k_st, v_st,
+                          scale, stream);
+  if (dtype == 3)
+    return launch_d<f16>(q, k_new, v_new, kpool, vpool, perm, spos, tiles,
+                         page_ids, page_cnt, npages, out, n_tiles, H, Hk, D,
+                         NB, bs, pool_pages, with_pool, q_st, k_st, v_st,
+                         scale, stream);
   return -1;
 }

@@ -2,19 +2,24 @@
 // flash_fwd_sm90.cu (B1) and flash_bwd_sm90.cu (B2): cp.async copies into
 // 128-byte-swizzled tiles, wgmma matrix descriptors, the wgmma products of
 // one 64-row warpgroup tile with A from shared memory or from registers,
-// and the packing of an f32 accumulator into a bf16 register A operand.
-// Everything is inline and in an anonymous namespace, so each library
-// that includes it gets its own copy. paddle_tpu_torch/utils/build.py
-// hashes this header with the sources, so an edit rebuilds both.
+// and the packing of an f32 accumulator into a register A operand, for
+// either 16-bit element type the kernels take (bf16 and f16: the same
+// layouts, the same f32 accumulation, only the PTX type names and the
+// rounding differ). Everything is inline and in an anonymous namespace,
+// so each library that includes it gets its own copy.
+// paddle_tpu_torch/utils/build.py hashes this header with the sources, so
+// an edit rebuilds both.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -39,10 +44,19 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// two f32 as a bf16 pair (round to nearest even, as torch's cast), the
-// first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// two f32 as a pair of T (round to nearest even, as torch's cast; out of
+// f16's range they round to inf, as torch's cast does), the first in the
+// low half
+template <class T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<bf16>(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<f16>(float lo, float hi) {
+  const __half2 p = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
@@ -71,9 +85,10 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
                                (((c & 7) ^ (r & 7)) << 4));
 }
 
-template <int D, int R, int THREADS>
-__device__ __forceinline__ void cp_tile(uint32_t dst, const bf16* src,
+template <int D, int R, int THREADS, class T>
+__device__ __forceinline__ void cp_tile(uint32_t dst, const T* src,
                                          long long stride) {
+  static_assert(sizeof(T) == 2, "16-bit elements, 8 to a copy");
   constexpr int CPR = D / 8;
 #pragma unroll
   for (int it = 0; it < R * CPR / THREADS; ++it) {
@@ -122,87 +137,97 @@ __device__ __forceinline__ void pin(uint32_t (&a)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
 }
 
-// d[N/8][4] (+)= A · B for one k16 step of a 64-row warpgroup tile:
-// wgmma_ss reads A (K-major) and B (K-major) through descriptors,
-// scale_d = 0 overwrites d; wgmma_rs_t takes A from registers (the
-// m16n8k16 A layout per warp) and B MN-major (transposed)
-template <int N>
+// d[N/8][4] (+)= A · B for one k16 step of a 64-row warpgroup tile, A and
+// B of element type T (bf16 or f16), f32 accumulation: wgmma_ss reads A
+// (K-major) and B (K-major) through descriptors, scale_d = 0 overwrites
+// d; wgmma_rs_t takes A from registers (the m16n8k16 A layout per warp)
+// and B MN-major (transposed)
+template <int N, class T>
 __device__ void wgmma_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b,
                          int scale_d);
-template <int N>
+template <int N, class T>
 __device__ void wgmma_rs_t(float (&d)[N / 8][4], const uint32_t (&a)[4],
                            uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[4][4], uint64_t a,
-                                             uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[8][4], uint64_t a,
-                                             uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs_t<64>(float (&d)[8][4],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[16][4], uint64_t a,
-                                             uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs_t<128>(float (&d)[16][4],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
 
-// an f32 accumulator tile [64][N] as bf16 A fragments of the next
+// the accumulator operands of a product n wide: d[0 .. n/8 - 1][0 .. 3]
+#define SM90_D4(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+#define SM90_N32 SM90_D4(0), SM90_D4(1), SM90_D4(2), SM90_D4(3)
+#define SM90_N64 \
+  SM90_N32, SM90_D4(4), SM90_D4(5), SM90_D4(6), SM90_D4(7)
+#define SM90_N128                                                          \
+  SM90_N64, SM90_D4(8), SM90_D4(9), SM90_D4(10), SM90_D4(11), SM90_D4(12), \
+      SM90_D4(13), SM90_D4(14), SM90_D4(15)
+#define SM90_R16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define SM90_R32                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define SM90_R64                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// the five products the kernels use, for element type T whose PTX name
+// is TY ("bf16" or "f16"): AB names the A and B operands and P the
+// scale_d flag, by operand number after the accumulators
+#define SM90_WGMMA_SS(N, T, TY, REGS, ACC, AB, P)                          \
+  template <>                                                              \
+  __device__ __forceinline__ void wgmma_ss<N, T>(                          \
+      float(&d)[N / 8][4], uint64_t a, uint64_t b, int scale_d) {          \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"            \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY      \
+                 "." TY " " REGS ", " AB ", p, 1, 1, 0, 0;\n}\n"           \
+                 : ACC                                                     \
+                 : "l"(a), "l"(b), "r"(scale_d));                          \
+  }
+#define SM90_WGMMA_RS_T(N, T, TY, REGS, ACC, AB, P)                        \
+  template <>                                                              \
+  __device__ __forceinline__ void wgmma_rs_t<N, T>(                        \
+      float(&d)[N / 8][4], const uint32_t(&a)[4], uint64_t b) {            \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"            \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY      \
+                 "." TY " " REGS ", " AB ", p, 1, 1, 1;\n}\n"              \
+                 : ACC                                                     \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),     \
+                   "r"(1));                                                \
+  }
+#define SM90_WGMMA(T, TY)                                                  \
+  SM90_WGMMA_SS(32, T, TY, SM90_R16, SM90_N32, "%16, %17", "%18")          \
+  SM90_WGMMA_SS(64, T, TY, SM90_R32, SM90_N64, "%32, %33", "%34")          \
+  SM90_WGMMA_SS(128, T, TY, SM90_R64, SM90_N128, "%64, %65", "%66")        \
+  SM90_WGMMA_RS_T(64, T, TY, SM90_R32, SM90_N64,                           \
+                  "{%32, %33, %34, %35}, %36", "%37")                      \
+  SM90_WGMMA_RS_T(128, T, TY, SM90_R64, SM90_N128,                         \
+                  "{%64, %65, %66, %67}, %68", "%69")
+SM90_WGMMA(bf16, "bf16")
+SM90_WGMMA(f16, "f16")
+#undef SM90_WGMMA
+#undef SM90_WGMMA_RS_T
+#undef SM90_WGMMA_SS
+#undef SM90_R64
+#undef SM90_R32
+#undef SM90_R16
+#undef SM90_N128
+#undef SM90_N64
+#undef SM90_N32
+#undef SM90_D4
+
+// an f32 accumulator tile [64][N] as A fragments of T for the next
 // product (P of p·v in B1, Pᵀ and dSᵀ in B2): the wgmma accumulator
 // layout of two neighbouring n8 columns is the register A layout of one
 // k16 step
-template <int N>
+template <int N, class T>
 __device__ __forceinline__ void pack_p(uint32_t (&pa)[N / 16][4],
                                        const float (&s)[N / 8][4]) {
 #pragma unroll
   for (int kp = 0; kp < N / 16; ++kp) {
-    pa[kp][0] = pack_bf16(s[2 * kp][0], s[2 * kp][1]);
-    pa[kp][1] = pack_bf16(s[2 * kp][2], s[2 * kp][3]);
-    pa[kp][2] = pack_bf16(s[2 * kp + 1][0], s[2 * kp + 1][1]);
-    pa[kp][3] = pack_bf16(s[2 * kp + 1][2], s[2 * kp + 1][3]);
+    pa[kp][0] = pack2<T>(s[2 * kp][0], s[2 * kp][1]);
+    pa[kp][1] = pack2<T>(s[2 * kp][2], s[2 * kp][3]);
+    pa[kp][2] = pack2<T>(s[2 * kp + 1][0], s[2 * kp + 1][1]);
+    pa[kp][3] = pack2<T>(s[2 * kp + 1][2], s[2 * kp + 1][3]);
   }
 }
 

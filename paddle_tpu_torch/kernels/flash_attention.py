@@ -5,12 +5,13 @@ Counterpart of paddle_tpu/kernels/pallas/flash_attention.py. Its TPU
 kernels ``_flash_fwd_fused`` (flash_attention.py:267, kernel
 ``_fwd_kernel`` :101) and ``_flash_bwd_fused`` (:457, kernel
 ``_bwd_kernel`` :364) become hand-written CUDA kernels: B1 in two
-designs, ``csrc/flash_fwd_sm90.cu`` for bf16 at head_dim 64 and 128 (the
-main paths' calls) and ``csrc/flash_attention.cu``'s ``flash_fwd_kernel``
-for f32 and head_dim 256 (``_fwd_design`` picks one), B2 likewise in
-``csrc/flash_bwd_sm90.cu`` (bf16 at head_dim 64 and 128, the training
-path's calls) and ``csrc/flash_attention.cu``'s ``flash_bwd_dkdv_kernel``
-/ ``flash_bwd_dq_kernel`` (``_bwd_design``), both after
+designs, ``csrc/flash_fwd_sm90.cu`` for bf16 and f16 at head_dim 64 and
+128 (the main paths' calls) and ``csrc/flash_attention.cu``'s
+``flash_fwd_kernel`` for f32 and head_dim 256 (``_fwd_design`` picks
+one), B2 likewise in ``csrc/flash_bwd_sm90.cu`` (bf16 and f16 at
+head_dim 64 and 128, the training path's calls) and
+``csrc/flash_attention.cu``'s ``flash_bwd_dkdv_kernel`` /
+``flash_bwd_dq_kernel`` (``_bwd_design``), both after
 ``flash_bwd_sm90.cu``'s delta kernel; ``_flash_core`` (:664, a
 jax.custom_vjp) becomes ``_FlashCore``, a ``torch.autograd.Function``;
 the composite ``_xla_attention`` (:606) is ported as it is.
@@ -49,10 +50,11 @@ __all__ = ["flash_attention", "attention_path", "flash_fwd", "flash_bwd"]
 
 _NEG_INF = -1e30
 _SUPPORTED_D = (64, 128, 256)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # B1's and B2's designs: "sm90" (flash_fwd_sm90.cu, flash_bwd_sm90.cu)
-# takes bf16 at these head_dims, "simple" (flash_attention.cu) every call
-# the kernels take
+# takes bf16 and f16 at these head_dims, "simple" (flash_attention.cu)
+# every call the kernels take
+_SM90_DTYPES = (torch.bfloat16, torch.float16)
 _FWD_DESIGNS = _BWD_DESIGNS = ("sm90", "simple")
 _SM90_D = (64, 128)
 
@@ -292,29 +294,29 @@ def _check_kernel_call(qs, k):
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if qs.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash attention CUDA kernel: q must be bf16 or "
-                        f"f32, got {qs.dtype}")
+        raise TypeError(f"flash attention CUDA kernel: q must be bf16, "
+                        f"f16 or f32, got {qs.dtype}")
     reason = _shape_reject_reason(qs.shape, k.shape)
     if reason:
         raise ValueError(f"flash attention CUDA kernel: {reason}")
 
 
 def _design(kernel, dtype, d, design):
-    auto = "sm90" if dtype == torch.bfloat16 and d in _SM90_D else "simple"
+    auto = "sm90" if dtype in _SM90_DTYPES and d in _SM90_D else "simple"
     if design is None:
         return auto
     if design not in _FWD_DESIGNS:
         raise ValueError(f"unknown {kernel} design {design!r}, not in "
                          f"{_FWD_DESIGNS}")
     if design == "sm90" and auto != "sm90":
-        raise ValueError(f"{kernel}'s sm90 design takes bf16 at head_dim "
-                         f"{_SM90_D}, got {dtype} at {d}")
+        raise ValueError(f"{kernel}'s sm90 design takes bf16 or f16 at "
+                         f"head_dim {_SM90_D}, got {dtype} at {d}")
     return design
 
 
 def _fwd_design(dtype, d, design=None):
-    """B1's design for q of `dtype` and head_dim `d`: "sm90" for bf16 at
-    head_dim 64 or 128, "simple" otherwise. `design` forces one (the
+    """B1's design for q of `dtype` and head_dim `d`: "sm90" for bf16 or
+    f16 at head_dim 64 or 128, "simple" otherwise. `design` forces one (the
     same-run comparison of the two); it raises for an unknown name, and
     for "sm90" on a call that design does not take."""
     return _design("B1", dtype, d, design)
@@ -322,7 +324,7 @@ def _fwd_design(dtype, d, design=None):
 
 def _bwd_design(dtype, d, design=None):
     """B2's design, by _fwd_design's rule: "sm90" (flash_bwd_sm90.cu) for
-    bf16 at head_dim 64 or 128, "simple" (flash_attention.cu)
+    bf16 or f16 at head_dim 64 or 128, "simple" (flash_attention.cu)
     otherwise."""
     return _design("B2", dtype, d, design)
 

@@ -13,7 +13,7 @@ kernel ``_ragged_kernel`` :166) becomes two hand-written CUDA kernels,
     context, read from the token-major paged KV pool through the
     per-row block-ownership map, and (b) the packed fresh k/v of its
     OWN row at positions <= its own (causal within the row);
-  * fp (bf16/f32) and int8 pools (per-kv-head dequant scales fold into
+  * fp (bf16/f16/f32) and int8 pools (per-kv-head dequant scales fold into
     the scores and the output);
   * GQA/MQA: packed k/v carry kv_heads <= heads; q head h reads kv head
     h // (H / Hk);
@@ -40,11 +40,11 @@ of its packed tokens (the simple design); the live tokens sorted by
 design). Two designs (``_rpa_design`` picks one, ``design_launches``
 counts each):
 
-  * "sm90", ``csrc/ragged_paged_attention_sm90.cu``: bf16 q/k/v and
-    pools at head_dim 64 or 128 with 16-byte aligned token rows (the
-    engine's case). A q tile of 64 sorted tokens walks its
-    row's pool pages, then its row's packed tokens, in key tiles of 64
-    gathered by cp.async, with S and P·V on wgmma.
+  * "sm90", ``csrc/ragged_paged_attention_sm90.cu``: bf16 or f16 q/k/v
+    over pools of the same type at head_dim 64 or 128 with 16-byte
+    aligned token rows (the engine's case). A q tile of 64 sorted
+    tokens walks its row's pool pages, then its row's packed tokens, in
+    key tiles of 64 gathered by cp.async, with S and P·V on wgmma.
   * "simple", ``csrc/ragged_paged_attention.cu``: everything else (f32,
     int8 pools, head_dim 256, unaligned strides). One warp per
     (packed token, q head) walks the row's valid pages and its packed
@@ -66,7 +66,10 @@ __all__ = ["ragged_paged_attention", "ragged_attention_path", "ragged_plan"]
 _SUPPORTED_D = (64, 128, 256)
 # q tile of the tiled design: 64 sorted tokens, one warpgroup
 _Q_TILE = 64
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float16: 3}
+# q dtypes the kernels take; a pool is of q's dtype or int8
+_Q_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -320,7 +323,7 @@ def _load_sm90(extra_flags=()):
                             extra_flags)
             fn = lib.ragged_paged_attention_sm90_launch
             fn.restype = _I
-            fn.argtypes = [_P] * 12 + [_I] * 8 + [_L] * 3 + [
+            fn.argtypes = [_P] * 12 + [_I] * 9 + [_L] * 3 + [
                 ctypes.c_float, _P]
             if extra_flags:
                 return lib
@@ -362,6 +365,7 @@ def _ptr(t):
 
 _RPA_DESIGNS = ("sm90", "simple")
 _SM90_D = (64, 128)
+_SM90_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def _aligned16(*ts):
@@ -376,15 +380,14 @@ def _rpa_design(dtype, pool_dtype, d, aligned, design=None, dequant=False):
     without a pool) at head_dim `d`; `aligned`: q/k_new/v_new and the
     pools start on 16 bytes with 16-byte token strides; `dequant`: the
     call carries pool dequant scales. "sm90"
-    (ragged_paged_attention_sm90.cu) for bf16 q and pools at head_dim
-    64 or 128 when aligned; "simple" (ragged_paged_attention.cu) for
-    the rest: f32, int8 pools (and dequant scales), head_dim 256,
-    unaligned token strides.
+    (ragged_paged_attention_sm90.cu) for bf16 or f16 q over pools of
+    the same dtype at head_dim 64 or 128 when aligned; "simple"
+    (ragged_paged_attention.cu) for the rest: f32, int8 pools (and
+    dequant scales), head_dim 256, unaligned token strides.
     `design` forces one (the same-run comparison of the designs); it
     raises for an unknown name, and for "sm90" on a call that design
     does not take."""
-    bf = torch.bfloat16
-    auto = "sm90" if (dtype == bf and pool_dtype in (None, bf)
+    auto = "sm90" if (dtype in _SM90_DTYPES and pool_dtype in (None, dtype)
                       and d in _SM90_D and aligned and not dequant) \
         else "simple"
     if design is None:
@@ -394,9 +397,9 @@ def _rpa_design(dtype, pool_dtype, d, aligned, design=None, dequant=False):
                          f"{_RPA_DESIGNS}")
     if design == "sm90" and auto != "sm90":
         raise ValueError(
-            f"B3's sm90 design takes bf16 q and pools at head_dim "
-            f"{_SM90_D} with 16-byte aligned token rows, got {dtype} over "
-            f"{pool_dtype} at {d} (aligned: {aligned})")
+            f"B3's sm90 design takes bf16 or f16 q over pools of its dtype "
+            f"at head_dim {_SM90_D} with 16-byte aligned token rows, got "
+            f"{dtype} over {pool_dtype} at {d} (aligned: {aligned})")
     return design
 
 
@@ -414,8 +417,8 @@ def _ragged_cuda(q, k_new, v_new, kpool, vpool, rows, pos, kv_start, off,
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"q must be bf16 or f32, got {q.dtype}")
+    if q.dtype not in _Q_DTYPES:
+        raise TypeError(f"q must be bf16, f16 or f32, got {q.dtype}")
     for name, t in (("k_new", k_new), ("v_new", v_new)):
         if t.dtype != q.dtype or t.shape != (T, Hk, D):
             raise ValueError(f"{name} must be {q.dtype} [{T}, {Hk}, {D}]")
@@ -470,8 +473,8 @@ def _ragged_cuda(q, k_new, v_new, kpool, vpool, rows, pos, kv_start, off,
             _ptr(_plan.get("page_cnt")), _ptr(_plan.get("npages")),
             out.data_ptr(), tiles.shape[0], H, Hk, D, NB,
             block_size, T_pool // block_size if with_pool else 0,
-            int(bool(with_pool)), q.stride(0), k_new.stride(0),
-            v_new.stride(0), float(scale), stream)
+            int(bool(with_pool)), _DTYPE_CODE[q.dtype], q.stride(0),
+            k_new.stride(0), v_new.stride(0), float(scale), stream)
     else:
         dq = [None, None]
         if with_pool:

@@ -184,7 +184,13 @@ class _FusedLoop:
         # prompt_len -> (static ids [b, prompt_len], its prefill graph)
         self.prefills = collections.OrderedDict()
         self.step_graph = None
+        self.pool = None        # the graphs' own pool, made at need
         self.params = _param_ptrs(model)
+
+    def _pool(self):
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        return self.pool
 
     def _prefill(self, ids):
         logits, _ = self.fwd_fn(self.model, ids, self.caches, self.pos0)
@@ -204,7 +210,8 @@ class _FusedLoop:
                 self.prefills.popitem(last=False)
             buf = ids.clone()
             self.prefills[n] = (buf, CapturedStep(
-                "generate_prefill", lambda: self._prefill(buf)))
+                "generate_prefill", lambda: self._prefill(buf),
+                pool=self._pool()))
         self.prefills.move_to_end(n)
         buf, graph = self.prefills[n]
         buf.copy_(ids)
@@ -239,7 +246,8 @@ class _FusedLoop:
         load()
         if n_steps and self.dev.type != "cpu" and self.step_graph is None:
             self.step_graph = CapturedStep(
-                "generate_decode", self.step, generators=(self.gen,))
+                "generate_decode", self.step, pool=self._pool(),
+                generators=(self.gen,))
             load()
         for _ in range(n_steps):
             if self.step_graph is None:

@@ -29,8 +29,8 @@ class Adam(Optimizer):
         self.beta1 = beta1
         self.beta2 = beta2
         self.epsilon = epsilon
-        # moment_dtype="bfloat16" stores m/v in bf16; the update math
-        # stays f32 (:66-72)
+        # moment_dtype="bfloat16" (or "float16") stores m/v in that type;
+        # the update math stays f32 (:66-72)
         self.moment_dtype = moment_dtype
 
     def _state_names(self):

@@ -67,16 +67,26 @@ def _op_pairs(in_dtype):
     ]
 
 
+# (input dtype, autocast dtype); the ids of the bf16 autocast cases are
+# their input dtypes
+CAST_CASES = [("float32", "bfloat16"), ("bfloat16", "bfloat16"),
+              ("float32", "float16"), ("float16", "float16")]
+
+
 @pytest.mark.parametrize("level", ["off", "O1", "O2"])
-@pytest.mark.parametrize("in_dtype", ["float32", "bfloat16"])
-def test_op_output_dtypes_under_autocast(level, in_dtype):
+@pytest.mark.parametrize(
+    "in_dtype,amp_dtype", CAST_CASES,
+    ids=["float32", "bfloat16", "float32-f16cast", "float16-f16cast"])
+def test_op_output_dtypes_under_autocast(level, in_dtype, amp_dtype):
     got, want = {}, {}
     for name, jcall, tcall in _op_pairs(in_dtype):
         with pt.amp.auto_cast(enable=level != "off",
-                              level="O1" if level == "off" else level):
+                              level="O1" if level == "off" else level,
+                              dtype=amp_dtype):
             want[name] = _dt(jcall())
         with ptt.amp.auto_cast(enable=level != "off",
-                               level="O1" if level == "off" else level):
+                               level="O1" if level == "off" else level,
+                               dtype=amp_dtype):
             got[name] = _dt(tcall())
     assert got == want
     assert not ptt.amp.is_auto_cast_enabled()
@@ -108,6 +118,8 @@ OPTS = {
     "adamw": (JAdamW, AdamW, dict(weight_decay=0.01)),
     "adamw_bf16_moments": (JAdamW, AdamW,
                            dict(weight_decay=0.1, moment_dtype="bfloat16")),
+    "adamw_f16_moments": (JAdamW, AdamW,
+                          dict(weight_decay=0.1, moment_dtype="float16")),
 }
 
 
@@ -143,7 +155,8 @@ def test_optimizer_step_matches_reference(name):
         assert float(ta["beta2_pow"]) == float(jb["beta2_pow"])
 
 
-@pytest.mark.parametrize("name", ["adamw", "adamw_bf16_moments"])
+@pytest.mark.parametrize("name", ["adamw", "adamw_bf16_moments",
+                                  "adamw_f16_moments"])
 def test_functional_update_matches_reference(name):
     """functional_update, the reference's public name (out of place):
     an f32 lr scalar, first group's hyperparameters, no clip. TrainStep
@@ -179,7 +192,8 @@ class _Weights(torch.nn.Module):
             [torch.nn.Parameter(torch.from_numpy(a.copy())) for a in arrays])
 
 
-@pytest.mark.parametrize("name", ["adamw", "adamw_bf16_moments"])
+@pytest.mark.parametrize("name", ["adamw", "adamw_bf16_moments",
+                                  "adamw_f16_moments"])
 def test_train_step_update_matches_reference(name):
     """TrainStep's update (in place, on every device): the loss
     sum(w * g) hands each parameter the gradient g exactly, so three
@@ -322,3 +336,56 @@ def test_optimizer_state_from_numpy_round_trip():
     for (_, a), b in zip(tp, jp):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b._data),
                                    **OPT_TOL)
+
+
+def test_f16_parameters_and_state_from_numpy():
+    """f16 arrays carry over as f16 tensors: a model's f16 parameters,
+    and a reference checkpoint of f16 parameters under multi_precision
+    with f16 moments (f32 masters); one more step from it continues as
+    the reference's. The masters and the update are f32 on both sides
+    (OPT_TOL); the f16 parameters are the masters' casts."""
+    from paddle_tpu_torch import gpt_params_from_numpy
+    named = {"w": np.arange(6, dtype=np.float16).reshape(2, 3) / 7}
+    got = gpt_params_from_numpy(named)["w"]
+    assert got.dtype == torch.float16
+    np.testing.assert_array_equal(got.numpy(), named["w"])
+    ps, grads = _params(4)
+    jp = [pt.to_tensor(p.astype(np.float16), stop_gradient=False)
+          for p in ps]
+    kw = dict(learning_rate=1e-2, weight_decay=0.01, multi_precision=True,
+              moment_dtype="float16")
+    jo = JAdamW(parameters=jp, **kw)
+    for gs in grads[:2]:
+        for p, g in zip(jp, gs):
+            p._grad = pt.to_tensor(g.astype(np.float16))
+        jo.step()
+    sd = {k: (v if k == "global_step" else np.asarray(v._data))
+          for k, v in jo.state_dict().items()}
+    assert any(k.endswith("_moment1") and v.dtype == np.float16
+               for k, v in sd.items())
+    names = {p.name: f"p{i}" for i, p in enumerate(jp)}
+    tp = [(f"p{i}", _to_port(np.asarray(p._data)).requires_grad_())
+          for i, p in enumerate(jp)]
+    assert all(t.dtype == torch.float16 for _, t in tp)
+    to = AdamW(parameters=tp, **kw)
+    to.set_state_dict(optimizer_state_from_numpy(sd, names))
+    st = to._get_state(tp[0][1])
+    assert st["moment1"].dtype == torch.float16
+    for (_, p), g in zip(tp, grads[2]):
+        p.grad = torch.from_numpy(g.astype(np.float16))
+    for p, g in zip(jp, grads[2]):
+        p._grad = pt.to_tensor(g.astype(np.float16))
+    to.step()
+    jo.step()
+    for (_, a), b in zip(tp, jp):
+        np.testing.assert_allclose(to._master_weights[id(a)].numpy(),
+                                   np.asarray(jo._master_weights[id(b)]),
+                                   **OPT_TOL)
+        np.testing.assert_array_equal(
+            a.detach().numpy(),
+            to._master_weights[id(a)].to(torch.float16).numpy())
+
+
+def _to_port(arr):
+    from paddle_tpu_torch.convert import _to_tensor
+    return _to_tensor(arr)

@@ -82,7 +82,7 @@ def _serve(model, eager, prompts=None, n_new=N_NEW, **kw):
 
 
 @pytest.mark.parametrize("family", ["gpt", "llama"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_engine_graphs_equal_eager_steps(cuda_device, family, dtype):
     """Greedy: the graphs' tokens are the eager steps'; the run preempts
     mid-decode and resumes on the graphs captured before, one graph a
@@ -133,7 +133,7 @@ def test_engine_captures_one_graph_per_width_bucket(cuda_device):
 
 
 @pytest.mark.parametrize("family", ["gpt", "llama"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_fused_generate_equals_eager_loop(cuda_device, family, dtype):
     model = _model(family, dtype)
     rng = np.random.default_rng(2)
@@ -162,13 +162,14 @@ def test_fused_generate_equals_eager_loop(cuda_device, family, dtype):
 
 @pytest.mark.parametrize("heads", [(4, 2), (8, 8), (8, 1)],
                          ids=["gqa", "mha", "mqa"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_decode_attention_on_the_card_equals_cpu(cuda_device, heads, dtype):
     """The engine's decode attention: on the card half-precision
     operands are multiplied into f32 by cuBLAS, on the CPU they are
     widened first. A p rounded the other way moves an output by at most
-    one bf16 ulp of p (2^-7 of it) times |v|; the f32 sums' order adds
-    ~1e-6."""
+    one ulp of p (2^-7 of it in bf16, 2^-10 in f16) times |v|; the f32
+    sums' order adds ~1e-6."""
     H, kvH = heads
     D, bs, NB, B, P = 64, 8, 40, 5, 6
     g = torch.Generator().manual_seed(0)
@@ -182,7 +183,8 @@ def test_decode_attention_on_the_card_equals_cpu(cuda_device, heads, dtype):
     got = llm_engine._pool_decode_attention(
         *(a.to(cuda_device) for a in args), 0.125, bs).cpu()
     assert got.dtype == want.dtype == torch.float32
-    tol = 2.0 ** -7 * float(vp.float().abs().max()) + 1e-5
+    ulp = 2.0 ** -10 if dtype == torch.float16 else 2.0 ** -7
+    tol = ulp * float(vp.float().abs().max()) + 1e-5
     assert float((got - want).abs().max()) <= tol
     # a kv head's block taken from the wrong head is far outside it
     wrong = want.reshape(B, kvH, H // kvH, D).roll(1, dims=1).reshape(B, -1)
@@ -199,16 +201,41 @@ def test_capture_survives_a_dead_cycle_holding_a_graph(cuda_device):
     class Holder:
         pass
 
+    pool = torch.cuda.graph_pool_handle()
     for _ in range(3):
         h = Holder()
         h.me = h
-        h.graph = cuda_graph.CapturedStep("test", lambda: x.add_(1))
+        h.graph = cuda_graph.CapturedStep("test", lambda: x.add_(1),
+                                          pool=pool)
         del h
     thresholds = gc.get_threshold()
     gc.set_threshold(1, 1, 1)
     try:
-        step = cuda_graph.CapturedStep("test", lambda: x.mul(2))
+        step = cuda_graph.CapturedStep("test", lambda: x.mul(2), pool=pool)
     finally:
         gc.set_threshold(*thresholds)
     x.fill_(3)
     torch.testing.assert_close(step.replay(), torch.full_like(x, 6))
+
+
+def test_an_engine_made_after_another_was_freed_captures(cuda_device):
+    """Each engine and each generate loop captures into a pool of its
+    own: after an engine and a generate loop were served and freed, with
+    cuBLAS's workspace for the capture stream made inside one of their
+    captures, a new engine and a new loop capture and serve (a pool
+    shared with the freed ones could not take the capture)."""
+    prompts = _prompts()
+    model = _model("gpt", "float16")
+    _e, first, _w = _serve(model, eager=False, prompts=prompts)
+    generate(model, prompts[0][None], max_new_tokens=4)
+    del _e, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = _model("gpt", "float16")
+    cuda_graph.reset_counters()
+    _e, again, _w = _serve(model, eager=False, prompts=prompts)
+    assert cuda_graph.captures["engine_decode"] >= 1
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)
+    generate(model, prompts[0][None], max_new_tokens=4)
+    assert cuda_graph.captures["generate_decode"] == 1

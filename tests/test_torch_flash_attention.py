@@ -20,16 +20,21 @@ from paddle_tpu_torch.nn import functional as F
 
 jfa = importlib.import_module("paddle_tpu.kernels.pallas.flash_attention")
 
-JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
-TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
+JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16, "f16": jnp.float16}
+TDT = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 # f32: XLA and torch sum in different orders (~1e-6 at these sizes).
 # bf16: both sides round p (and the output) to bf16, at different points
 # (the composite normalises before the cast, the flash math after), so
-# outputs of order 1 differ by a few bf16 ulps (2^-8 = 3.9e-3 each)
-TOL = {"f32": dict(rtol=1e-5, atol=2e-5), "bf16": dict(rtol=2e-2, atol=2e-2)}
+# outputs of order 1 differ by a few bf16 ulps (2^-8 = 3.9e-3 each).
+# f16: the same roundings with 3 more mantissa bits, a few f16 ulps
+# (2^-11 = 4.9e-4 each)
+TOL = {"f32": dict(rtol=1e-5, atol=2e-5), "bf16": dict(rtol=2e-2, atol=2e-2),
+       "f16": dict(rtol=2.5e-3, atol=2.5e-3)}
 # gradients in bf16 carry the cast of p and ds before each product and
-# the rounding of dk/dv/dq themselves, on values of order 1-10
-GTOL = {"f32": dict(rtol=1e-4, atol=1e-4), "bf16": dict(rtol=4e-2, atol=8e-2)}
+# the rounding of dk/dv/dq themselves, on values of order 1-10; f16 the
+# same casts 8x finer
+GTOL = {"f32": dict(rtol=1e-4, atol=1e-4), "bf16": dict(rtol=4e-2, atol=8e-2),
+        "f16": dict(rtol=5e-3, atol=1e-2)}
 
 
 def _inputs(b, sq, sk, h, hk, d, seed=0, seg=False):
@@ -85,7 +90,7 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_flash_attention_matches_composite_and_vjp(name, dt):
     """The port's flash_attention on CPU (its plain B1/B2 behind
@@ -135,7 +140,7 @@ def _fused(x):
     return x.reshape(b, s, h * d)
 
 
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("name", sorted(IN_CASES))
 def test_plain_kernels_match_pallas_interpret(name, dt):
     b, sq, sk, h, hk, causal, seg = IN_CASES[name]
@@ -230,11 +235,14 @@ def test_attention_path_gates():
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
     (torch.bfloat16, 256, "simple"), (torch.float32, 64, "simple"),
-    (torch.float32, 128, "simple"), (torch.float32, 256, "simple")])
+    (torch.float32, 128, "simple"), (torch.float32, 256, "simple"),
+    (torch.float16, 64, "sm90"), (torch.float16, 128, "sm90"),
+    (torch.float16, 256, "simple")])
 def test_b1_design_selection(dtype, d, want):
-    """B1's sm90 kernel takes bf16 at head_dim 64 and 128, the simple
-    kernel (flash_attention.cu) the rest; `design` forces the simple kernel anywhere, refuses
-    sm90 where it does not apply, and raises on an unknown name."""
+    """B1's sm90 kernel takes bf16 and f16 at head_dim 64 and 128, the
+    simple kernel (flash_attention.cu) the rest; `design` forces the
+    simple kernel anywhere, refuses sm90 where it does not apply, and
+    raises on an unknown name."""
     assert tfa._fwd_design(dtype, d) == want
     assert tfa._fwd_design(dtype, d, "simple") == "simple"
     if want == "sm90":
@@ -259,12 +267,14 @@ def test_b1_counters_reset_per_design():
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
     (torch.bfloat16, 256, "simple"), (torch.float32, 64, "simple"),
-    (torch.float32, 128, "simple"), (torch.float32, 256, "simple")])
+    (torch.float32, 128, "simple"), (torch.float32, 256, "simple"),
+    (torch.float16, 64, "sm90"), (torch.float16, 128, "sm90"),
+    (torch.float16, 256, "simple")])
 def test_b2_design_selection(dtype, d, want):
-    """B2's sm90 kernel (flash_bwd_sm90.cu) takes bf16 at head_dim 64 and
-    128, the simple kernels (flash_attention.cu) the rest; `design`
-    forces the simple kernels anywhere, refuses sm90 where it does not
-    apply, and raises on an unknown name."""
+    """B2's sm90 kernel (flash_bwd_sm90.cu) takes bf16 and f16 at
+    head_dim 64 and 128, the simple kernels (flash_attention.cu) the rest;
+    `design` forces the simple kernels anywhere, refuses sm90 where it
+    does not apply, and raises on an unknown name."""
     assert tfa._bwd_design(dtype, d) == want
     assert tfa._bwd_design(dtype, d, "simple") == "simple"
     if want == "sm90":
@@ -285,7 +295,7 @@ def test_b2_counters_reset_per_design():
     assert tfa.flash_fwd.design_launches == {"sm90": 0, "simple": 0}
 
 
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("shape", [(2, 128, 4, 64), (1, 256, 2, 128)])
 def test_delta_plain_form_matches_reference_einsum(shape, dt):
     """delta = rowsum(do·o) in f32, laid out like lse [b, H, sq]: the

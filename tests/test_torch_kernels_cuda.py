@@ -116,15 +116,16 @@ def _rounded(case, tdt):
                 and v.ndim == 3 else v) for k, v in case.items()}
 
 
-def _sm90_limit(case, kw, dev, with_pool=True):
-    """(the plain version in f32 on the bf16 values, the sm90 design's
-    limit): KERNEL_ATOL, or twice the reference's own rounding (the plain
-    version in its cast order, q·scale and p cast to bf16, against f32)
-    where that is larger. The kernel keeps q exact and rounds only p, so
-    it may be no further from exact than twice the reference."""
-    want = _run(_rounded(case, torch.bfloat16), kw, dev, "torch",
-                torch.bfloat16, with_pool, upcast=True)
-    ref = _run(case, kw, dev, "torch", torch.bfloat16, with_pool)
+def _sm90_limit(case, kw, dev, with_pool=True, tdt=torch.bfloat16):
+    """(the plain version in f32 on the values rounded to `tdt` (bf16 or
+    f16), the sm90 design's limit): KERNEL_ATOL, or twice the reference's
+    own rounding (the plain version in its cast order, q·scale and p cast
+    to `tdt`, against f32) where that is larger. The kernel keeps q exact
+    and rounds only p, so it may be no further from exact than twice the
+    reference."""
+    want = _run(_rounded(case, tdt), kw, dev, "torch", tdt, with_pool,
+                upcast=True)
+    ref = _run(case, kw, dev, "torch", tdt, with_pool)
     return want, max(cs.KERNEL_ATOL, 2 * float((ref - want).abs().max()))
 
 
@@ -132,14 +133,19 @@ KINDS = {
     "f32": dict(dtype=torch.float32),
     "bf16": dict(dtype=torch.bfloat16),
     "bf16_int8_pool": dict(dtype=torch.bfloat16, int8=True),
+    "f16": dict(dtype=torch.float16),
+    "f16_int8_pool": dict(dtype=torch.float16, int8=True),
+    "f16_gqa_d64": dict(dtype=torch.float16, H=8, Hk=2, D=64),
     "f32_int8_pool": dict(dtype=torch.float32, int8=True),
     "gqa_d64": dict(dtype=torch.bfloat16, H=8, Hk=2, D=64),
     "mqa_d256": dict(dtype=torch.bfloat16, H=4, Hk=1, D=256),
     "interleaved": dict(dtype=torch.bfloat16, interleave=True),
     "no_pool": dict(dtype=torch.bfloat16, with_pool=False),
 }
-# the kinds the sm90 design takes: bf16 q and pools at head_dim 64 / 128
-SM90_KINDS = {"bf16", "gqa_d64", "interleaved", "no_pool"}
+# the kinds the sm90 design takes: bf16 or f16 q over pools of its dtype
+# at head_dim 64 / 128
+SM90_KINDS = {"bf16", "gqa_d64", "interleaved", "no_pool", "f16",
+              "f16_gqa_d64"}
 
 
 @pytest.mark.cuda
@@ -147,10 +153,10 @@ SM90_KINDS = {"bf16", "gqa_d64", "interleaved", "no_pool"}
 @pytest.mark.parametrize("kind", sorted(KINDS))
 def test_ragged_kernel_matches_plain(cuda_device, kind, design):
     """Each design, forced through the private design argument, against
-    the plain version in f32 on the same (bf16-rounded) values. The
-    simple design computes in f32 too, so only the summation order
-    differs (1e-4); the sm90 design rounds p to bf16 before P·V and is
-    held to _sm90_limit. Forcing sm90 on a kind it does not take
+    the plain version in f32 on the same (bf16- or f16-rounded) values.
+    The simple design computes in f32 too, so only the summation order
+    differs (1e-4); the sm90 design rounds p to the input dtype before
+    P·V and is held to _sm90_limit. Forcing sm90 on a kind it does not take
     raises."""
     spec = dict(KINDS[kind])
     tdt = spec.pop("dtype")
@@ -175,7 +181,7 @@ def test_ragged_kernel_matches_plain(cuda_device, kind, design):
     if design == "simple":
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     else:
-        _, lim = _sm90_limit(case, kw, cuda_device, with_pool)
+        _, lim = _sm90_limit(case, kw, cuda_device, with_pool, tdt)
         assert float((got - want).abs().max()) <= lim
     dead = torch.as_tensor(case["rows"] < 0, device=cuda_device)
     assert (got[dead] == 0).all()
@@ -184,10 +190,10 @@ def test_ragged_kernel_matches_plain(cuda_device, kind, design):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", sorted(KINDS) + ["unaligned"])
 def test_ragged_design_by_kind(cuda_device, kind):
-    """The dispatcher runs sm90 for bf16 q and pools at head_dim 64 and
-    128 with 16-byte aligned token rows, and the simple design for every
-    other kind: f32, int8 pools, head_dim 256, and q/k/v views whose
-    token stride is not a multiple of 16 bytes."""
+    """The dispatcher runs sm90 for bf16 or f16 q over pools of its dtype
+    at head_dim 64 and 128 with 16-byte aligned token rows, and the
+    simple design for every other kind: f32, int8 pools, head_dim 256,
+    and q/k/v views whose token stride is not a multiple of 16 bytes."""
     spec = dict(KINDS["bf16" if kind == "unaligned" else kind])
     tdt = spec.pop("dtype")
     with_pool = spec.pop("with_pool", True)
@@ -219,12 +225,16 @@ LONG_SPEC = [(0, 150), (130, 70), (0, 0), (37, 1), (64, 33), (200, 9)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
 @pytest.mark.parametrize("bs", [16, 64])
 @pytest.mark.parametrize("heads", ENGINE_HEADS, ids=str)
-def test_ragged_sm90_engine_shapes_strided_views(cuda_device, heads, bs):
+def test_ragged_sm90_engine_shapes_strided_views(cuda_device, heads, bs,
+                                                 dtype):
     """sm90 at the engine's head counts on q/k/v views of one fused qkv
     projection (as LLMEngine hands them), interleaved packing, block
-    sizes 16 and 64, against the plain version within _sm90_limit."""
+    sizes 16 and 64, bf16 and f16, against the plain version within
+    _sm90_limit."""
+    tdt = LOWP[dtype]
     H, Hk, D = heads
     case, kw = _packed_case(H=H, Hk=Hk, D=D, bs=bs, NB=64, spec=LONG_SPEC,
                             T=384, interleave=True, seed=H + bs)
@@ -232,19 +242,19 @@ def test_ragged_sm90_engine_shapes_strided_views(cuda_device, heads, bs):
     qkv = torch.as_tensor(np.concatenate(
         [case["q"].reshape(T, -1), case["k_new"].reshape(T, -1),
          case["v_new"].reshape(T, -1)], axis=1),
-        device=cuda_device).to(torch.bfloat16)
+        device=cuda_device).to(tdt)
     q = qkv[:, :H * D].reshape(T, H, D)
     k = qkv[:, H * D:(H + Hk) * D].reshape(T, Hk, D)
     v = qkv[:, (H + Hk) * D:].reshape(T, Hk, D)
     assert not q.is_contiguous() and not k.is_contiguous()
     rest = [torch.as_tensor(case[n], device=cuda_device)
             for n in _ARR[3:]]
-    rest[:2] = [x.to(torch.bfloat16) for x in rest[:2]]
+    rest[:2] = [x.to(tdt) for x in rest[:2]]
     d0 = ragged_paged_attention.design_launches["sm90"]
     got = ragged_paged_attention(q, k, v, *rest, **kw, path="cuda")
     torch.cuda.synchronize()
     assert ragged_paged_attention.design_launches["sm90"] == d0 + 1
-    want, lim = _sm90_limit(case, kw, cuda_device)
+    want, lim = _sm90_limit(case, kw, cuda_device, tdt=tdt)
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= lim
     dead = torch.as_tensor(case["rows"] < 0, device=cuda_device)
@@ -313,19 +323,26 @@ FLASH = {
 # f32: the kernels compute in f32 like the plain version; only the
 # summation order differs. bf16: both round p (and ds) to bf16 before the
 # products, the kernel relative to its running row max, which moves a
-# row by ~2^-9 of its rms; outputs are bf16 (ulp 2^-8..2^-7 relative)
+# row by ~2^-9 of its rms; outputs are bf16 (ulp 2^-8..2^-7 relative):
+# 2^-6 is 2-4 ulps. f16 keeps 3 more mantissa bits (p's rounding ~2^-12
+# of the row's rms, output ulp 2^-11..2^-10 relative): 2^-9 is the same
+# 2-4 ulps
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
+LOWP = {"bf16": torch.bfloat16, "f16": torch.float16}
+LOWP_TOL = {torch.bfloat16: 2.0 ** -6, torch.float16: 2.0 ** -9}
 
 
-def _bf16_close(got, want, what):
-    """|got - want| <= 2^-6 * (|want| + rms of want's row + rms of want)
-    element by element, a row being the head_dim axis: a late query row,
-    far smaller than the first rows, is held to about its own size; the
-    tensor's rms covers rows that are 0 only by cancellation."""
+def _lowp_close(got, want, what):
+    """|got - want| <= tol * (|want| + rms of want's row + rms of want)
+    element by element, tol by got's dtype (LOWP_TOL), a row being the
+    head_dim axis: a late query row, far smaller than the first rows, is
+    held to about its own size; the tensor's rms covers rows that are 0
+    only by cancellation."""
+    tol = LOWP_TOL[got.dtype]
     got, want = got.float(), want.float()
     err = (got - want).abs()
     row = want.pow(2).mean(-1, keepdim=True).sqrt()
-    bad = err > 2 ** -6 * (want.abs() + row + want.pow(2).mean().sqrt())
+    bad = err > tol * (want.abs() + row + want.pow(2).mean().sqrt())
     assert not bad.any(), (what, err[bad].max().item(), int(bad.sum()))
 
 
@@ -350,10 +367,10 @@ def _flash_case(name, dtype, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("name", sorted(FLASH))
 def test_flash_kernels_match_plain(cuda_device, name, dtype):
-    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    dt = {"f32": torch.float32, **LOWP}[dtype]
     qs, k, v, do, causal, segs = _flash_case(name, dt, cuda_device)
     sc = qs.shape[-1] ** -0.5
     n_f, n_b = fa.flash_fwd.kernel_launches, fa.flash_bwd.kernel_launches
@@ -375,7 +392,7 @@ def test_flash_kernels_match_plain(cuda_device, name, dtype):
         if dt == torch.float32:
             torch.testing.assert_close(got, want, **F32_TOL)
         else:
-            _bf16_close(got, want, what)
+            _lowp_close(got, want, what)
     dead = wlse < -1e29                                  # [b, H, sq]
     if dead.any():
         rows = dead.transpose(1, 2)                      # [b, sq, H]
@@ -402,11 +419,12 @@ def test_flash_kernels_read_strided_qkv_views(cuda_device, D):
     torch.testing.assert_close(o, wo, rtol=0, atol=0)
     torch.testing.assert_close(lse, wlse, rtol=0, atol=0)
     po, plse = fa.flash_fwd(q, k, v, True, None, path="torch")
-    _bf16_close(o, po, "o")
+    _lowp_close(o, po, "o")
     torch.testing.assert_close(lse, plse, **F32_TOL)
 
 
-# B1's sm90 design (bf16, head_dim 64 and 128) on the FLASH cases it takes
+# B1's sm90 design (bf16 and f16, head_dim 64 and 128) on the FLASH cases
+# it takes
 # and three edges: one 128-row q tile over three k tiles with the causal
 # offset (and GQA, at D 128), and segments that leave rows 40-90 of a
 # 128-row tile with no valid key beside live rows
@@ -420,17 +438,15 @@ SM90_CASES = sorted([n for n, c in FLASH.items() if c[5] in (64, 128)]
                     + list(SM90_EDGES))
 
 
-def _sm90_case(name, dev):
+def _sm90_case(name, dev, dt=torch.bfloat16):
     if name in FLASH:
-        qs, k, v, _do, causal, segs = _flash_case(name, torch.bfloat16, dev)
+        qs, k, v, _do, causal, segs = _flash_case(name, dt, dev)
         return qs, k, v, causal, segs
     b, sq, sk, H, Hk, D, causal, seg = SM90_EDGES[name]
     rng = np.random.default_rng(7)
     mk = lambda *s: torch.as_tensor(
-        rng.standard_normal(s).astype(np.float32), device=dev).to(
-            torch.bfloat16)
-    qs = mk(b, sq, H, D) * torch.tensor(D ** -0.5, dtype=torch.bfloat16,
-                                        device=dev)
+        rng.standard_normal(s).astype(np.float32), device=dev).to(dt)
+    qs = mk(b, sq, H, D) * torch.tensor(D ** -0.5, dtype=dt, device=dev)
     k, v = mk(b, sk, Hk, D), mk(b, sk, Hk, D)
     segs = None
     if seg:
@@ -444,12 +460,14 @@ def _sm90_case(name, dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
 @pytest.mark.parametrize("name", SM90_CASES)
-def test_sm90_fwd_matches_plain_and_simple(cuda_device, name):
+def test_sm90_fwd_matches_plain_and_simple(cuda_device, name, dtype):
     """B1's sm90 kernel against the plain version and against the
-    simple kernel on the same bf16 inputs; each design's launch counter
-    moves by one for its own call only."""
-    qs, k, v, causal, segs = _sm90_case(name, cuda_device)
+    simple kernel on the same bf16 (or f16) inputs; each design's launch
+    counter moves by one for its own call only."""
+    dt = LOWP[dtype]
+    qs, k, v, causal, segs = _sm90_case(name, cuda_device, dt)
     n0 = dict(fa.flash_fwd.design_launches)
     o, lse = fa.flash_fwd(qs, k, v, causal, segs, path="cuda")
     n1 = dict(fa.flash_fwd.design_launches)
@@ -458,11 +476,11 @@ def test_sm90_fwd_matches_plain_and_simple(cuda_device, name):
     assert (n1["sm90"] - n0["sm90"], n1["simple"] - n0["simple"]) == (1, 0)
     assert fa.flash_fwd.design_launches["simple"] == n1["simple"] + 1
     wo, wlse = fa.flash_fwd(qs, k, v, causal, segs, path="torch")
-    assert o.dtype == torch.bfloat16 and o.shape == wo.shape
+    assert o.dtype == dt and o.shape == wo.shape
     assert lse.dtype == torch.float32 and lse.shape == wlse.shape
     assert torch.isfinite(o).all()
-    _bf16_close(o, wo, "o vs plain")
-    _bf16_close(o, so, "o vs simple")
+    _lowp_close(o, wo, "o vs plain")
+    _lowp_close(o, so, "o vs simple")
     torch.testing.assert_close(lse, wlse, **F32_TOL)
     torch.testing.assert_close(lse, slse, **F32_TOL)
     dead = wlse < -1e29                                  # [b, H, sq]
@@ -479,26 +497,26 @@ B2_PHASE3 = [name for name, spec in cs.FLASH_CASES if spec[5] in (64, 128)]
 B2_CASES = B2_PHASE3 + sorted(SM90_EDGES)
 
 
-def _b2_case(name, dev):
-    """(qs, k, v, do, causal, segs) in bf16: a phase 3 case by its name,
-    or one of B1's sm90 edges with a do of its own."""
+def _b2_case(name, dev, dt=torch.bfloat16):
+    """(qs, k, v, do, causal, segs) in `dt` (bf16 or f16): a phase 3 case
+    by its name, or one of B1's sm90 edges with a do of its own."""
     if name in B2_PHASE3:
         i = [n for n, _ in cs.FLASH_CASES].index(name)
         spec = cs.FLASH_CASES[i][1]
-        qs, k, v, do, segs = cs._flash_inputs(spec, torch.bfloat16, seed=i)
+        qs, k, v, do, segs = cs._flash_inputs(spec, dt, seed=i)
         return qs, k, v, do, spec[6], segs
-    qs, k, v, causal, segs = _sm90_case(name, dev)
+    qs, k, v, causal, segs = _sm90_case(name, dev, dt)
     rng = np.random.default_rng(8)
     do = torch.as_tensor(rng.standard_normal(qs.shape).astype(np.float32),
-                         device=dev).to(torch.bfloat16)
+                         device=dev).to(dt)
     return qs, k, v, do, causal, segs
 
 
-def _b2_run(name, dev):
+def _b2_run(name, dev, dt=torch.bfloat16):
     """B2's sm90 design and the simple kernels on one case, from the same
     (o, lse): (sm90's, simple's, the plain version's) (dq, dk, dv), with
     the design counters checked, and the plain forward's lse."""
-    qs, k, v, do, causal, segs = _b2_case(name, dev)
+    qs, k, v, do, causal, segs = _b2_case(name, dev, dt)
     sc = qs.shape[-1] ** -0.5
     o, lse = fa.flash_fwd(qs, k, v, causal, segs, path="cuda")
     n0 = dict(fa.flash_bwd.design_launches)
@@ -514,21 +532,23 @@ def _b2_run(name, dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
 @pytest.mark.parametrize("name", B2_CASES)
-def test_sm90_bwd_matches_plain_and_simple(cuda_device, name):
+def test_sm90_bwd_matches_plain_and_simple(cuda_device, name, dtype):
     """B2's sm90 kernel (flash_bwd_sm90.cu) against the plain version and
-    against the simple kernels on the same bf16 inputs and (o, lse), at
+    against the simple kernels on the same bf16 (or f16) inputs and
+    (o, lse), at
     phase 3's full-size cases (GQA, segments with fully masked rows,
     non-causal, cross lengths both ways, the encoder's packed-qkv views)
     and B1's sm90 edges; each design's counter moves by one for its own
     call only. Rows with no valid key get dq = 0, and keys no query sees
     dk = dv = 0."""
-    got, simple, want, lse = _b2_run(name, cuda_device)
+    got, simple, want, lse = _b2_run(name, cuda_device, LOWP[dtype])
     for what, g, sg, w in zip(("dq", "dk", "dv"), got, simple, want):
         assert g.dtype == w.dtype and g.shape == w.shape, what
         assert torch.isfinite(g).all(), what
-        _bf16_close(g, w, f"{what} vs plain")
-        _bf16_close(g, sg, f"{what} vs simple")
+        _lowp_close(g, w, f"{what} vs plain")
+        _lowp_close(g, sg, f"{what} vs simple")
     dead = (lse < -1e29).transpose(1, 2)                 # [b, sq, H]
     if dead.any():
         assert (got[0][dead] == 0).all()
@@ -538,27 +558,29 @@ def test_sm90_bwd_matches_plain_and_simple(cuda_device, name):
 
 
 @pytest.mark.cuda
-def test_sm90_bwd_check_rejects_planted_faults(cuda_device):
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+def test_sm90_bwd_check_rejects_planted_faults(cuda_device, dtype):
     """The limit that holds B2 to its plain version rejects a dq 5 % off
     on the late query rows and a dv whose last 64-key tile is zeroed."""
-    got, _simple, want, _lse = _b2_run("a gpt2_small train", cuda_device)
+    got, _simple, want, _lse = _b2_run("a gpt2_small train", cuda_device,
+                                       LOWP[dtype])
     dq = got[0].clone()
     dq[:, dq.shape[1] // 2:] *= 1.05
     dv = got[2].clone()
     dv[:, -64:] = 0
     for what, bad, w in (("dq", dq, want[0]), ("dv", dv, want[2])):
         with pytest.raises(AssertionError):
-            _bf16_close(bad, w, what)
+            _lowp_close(bad, w, what)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_delta_kernel_matches_plain(cuda_device, D, dtype):
     """delta = rowsum(do·o) by flash_bwd_sm90.cu's delta kernel against
     its plain form, on do given as a strided view (a packed projection's
     slice) and o dense: f32 sums of the same products in another order."""
-    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    dt = {"f32": torch.float32, **LOWP}[dtype]
     rng = np.random.default_rng(D)
     b, s, H = 2, 384, 3
     packed = torch.as_tensor(rng.standard_normal((b, s, 2, H, D)).astype(
@@ -575,15 +597,16 @@ def test_delta_kernel_matches_plain(cuda_device, D, dtype):
 
 
 @pytest.mark.cuda
-def test_training_shape_backward_launches_sm90(cuda_device):
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+def test_training_shape_backward_launches_sm90(cuda_device, dtype):
     """gpt2_small's training call (b 16, s 1024, 12 heads, D 64, causal)
-    through flash_attention and autograd: B2 runs once, on the sm90
-    design, and its gradients equal the plain version's from the same
-    forward."""
+    through flash_attention and autograd, in bf16 and f16: B2 runs once,
+    on the sm90 design, and its gradients equal the plain version's from
+    the same forward."""
     b, s, H, D = 16, 1024, 12, 64
     rng = np.random.default_rng(5)
     q, k, v, do = (torch.as_tensor(rng.standard_normal((b, s, H, D)).astype(
-        np.float32), device=cuda_device).to(torch.bfloat16)
+        np.float32), device=cuda_device).to(LOWP[dtype])
         for _ in range(4))
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     n0 = dict(fa.flash_bwd.design_launches)
@@ -599,7 +622,7 @@ def test_training_shape_backward_launches_sm90(cuda_device):
     want = fa.flash_bwd(qs, k.detach(), v.detach(), o, lse, do, sc, True,
                         path="torch")
     for what, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
-        _bf16_close(g, w, what)
+        _lowp_close(g, w, what)
 
 
 @pytest.mark.cuda

@@ -65,3 +65,35 @@ def test_engine_equals_port_dense_generate(served):
                          device="cpu").numpy()[0, len(p):]
         assert assert_tokens_equal_guarded(tm, p, dense,
                                            tr.output_ids) > 0
+
+
+# f16 logits of order 1 round to 2^-10 apart; the engine (ragged waves,
+# paged decode) and the dense loop round at other places, so tokens are
+# compared up to the first margin below 16 of those ulps
+F16_MARGIN = 2.0 ** -6
+
+
+def test_f16_engine_equals_port_dense_generate():
+    """The tiny GPT in f16 served by the engine (f16 pools, the prefix
+    cache and preemption as above) gives the port's f16 dense `generate`
+    tokens, under the margin guard."""
+    import torch
+    _jm, tm = twin_gpts()
+    tm = tm.to(torch.float16)
+    rng = np.random.default_rng(7)
+    prefix = rng.integers(0, 1024, (16,)).astype(np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(0, 1024, (n,))])
+               .astype(np.int32) for n in (3, 5, 9, 2, 7, 4)]
+    te = LLMEngine(tm, device="cpu", **ENGINE_KW)
+    res = te.generate(prompts, max_new_tokens=N_NEW)
+    assert te.cache.key_caches[0].dtype == torch.float16
+    assert te.stats["prefix_cache_hit_tokens"] > 0
+    assert te.stats["preemptions"] >= 1
+    guarded = 0
+    for p, tr in zip(prompts, res):
+        assert len(tr.output_ids) == N_NEW
+        dense = generate(tm, p[None], max_new_tokens=N_NEW,
+                         device="cpu").numpy()[0, len(p):]
+        guarded += assert_tokens_equal_guarded(tm, p, dense, tr.output_ids,
+                                               margin=F16_MARGIN)
+    assert guarded >= N_NEW * len(prompts) // 2

@@ -117,6 +117,9 @@ PORTED_MODULES = {
         "paddle_tpu_torch.inference.paged_cache", set()),
     "paddle_tpu.inference.llm_engine": (
         "paddle_tpu_torch.inference.llm_engine", {"calibrate_kv_scales"}),
+    # to_jnp is JAX's own
+    "paddle_tpu.core.dtype": ("paddle_tpu_torch.core.dtype", {"to_jnp"}),
+    "paddle_tpu.amp": ("paddle_tpu_torch.amp", set()),
 }
 
 

@@ -24,7 +24,10 @@ from paddle_tpu_torch.kernels.ragged_paged_attention import (
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 
 # f32 on both sides; XLA and torch sum in different orders, and the
-# int8 case carries scores ~100x larger (raw int8 dot products)
+# int8 case carries scores ~100x larger (raw int8 dot products). f16
+# q/k/v (and pools) are held to the same limits: both sides round q·scale
+# and p to f16 in the reference's cast order and sum in f32, so only the
+# order of the f32 sums differs (the f16 cases differ by < 1e-6)
 TOL = {False: dict(rtol=1e-5, atol=1e-5), True: dict(rtol=1e-5, atol=5e-5)}
 
 _ARR = ("q", "k_new", "v_new", "kpool", "vpool", "rows", "pos",
@@ -55,13 +58,28 @@ CASES = {
     "gqa": dict(H=4, Hk=2, D=128, seed=3),
     "mqa": dict(H=4, Hk=1, D=128, seed=3),
     "dead_rows": dict(T=96, seed=9),
+    # f16 q/k/v over f16 pools, and over int8 pools with dequant scales
+    "f16_pool": dict(f16=True, seed=2),
+    "f16_int8_pool_dequant": dict(f16=True, int8=True, seed=2),
+    "f16_gqa_no_pool": dict(f16=True, H=4, Hk=2, D=128, seed=4),
 }
+
+
+def _as_f16(c):
+    """The case with q, k_new, v_new and fp pools in f16."""
+    return {k: (v.astype(np.float16) if isinstance(v, np.ndarray)
+                and v.dtype == np.float32 and v.ndim == 3 else v)
+            for k, v in c.items()}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_plain_matches_paddle_tpu_reference(name):
-    c = _mixed_case(**CASES[name])
-    with_pool = name != "no_pool"
+    spec = dict(CASES[name])
+    f16 = spec.pop("f16", False)
+    c = _mixed_case(**spec)
+    if f16:
+        c = _as_f16(c)
+    with_pool = not name.endswith("no_pool")
     got = _torch(c, with_pool).numpy()
     want = _jax(c, with_pool)
     np.testing.assert_allclose(got, want, **TOL["int8" in name])
@@ -464,17 +482,22 @@ def test_plan_shape_check_and_plain_path_ignores_plan():
 
 
 def test_design_picker():
-    """sm90 for bf16 q and pools at head_dim 64 / 128 with 16-byte aligned
-    token rows and no dequant scales; the simple design for every other
-    kind; forcing sm90 where it does not apply, or an unknown design,
-    raises."""
-    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    """sm90 for bf16 or f16 q over pools of its dtype at head_dim 64 / 128
+    with 16-byte aligned token rows and no dequant scales; the simple
+    design for every other kind (f16 over int8 pools among them);
+    forcing sm90 where it does not apply, or an unknown design, raises."""
+    bf, f16, f32, i8 = torch.bfloat16, torch.float16, torch.float32, \
+        torch.int8
     pick = rpa._rpa_design
     assert pick(bf, bf, 128, True) == "sm90"
     assert pick(bf, None, 64, True) == "sm90"
+    assert pick(f16, f16, 128, True) == "sm90"
+    assert pick(f16, None, 64, True) == "sm90"
     for args, kw in (((f32, f32, 128, True), {}), ((bf, i8, 128, True), {}),
                      ((bf, bf, 256, True), {}), ((bf, bf, 128, False), {}),
-                     ((bf, bf, 128, True), dict(dequant=True))):
+                     ((bf, bf, 128, True), dict(dequant=True)),
+                     ((f16, i8, 128, True), {}), ((f16, bf, 128, True), {}),
+                     ((f16, f16, 256, True), {})):
         assert pick(*args, **kw) == "simple"
         with pytest.raises(ValueError, match="sm90 design takes"):
             pick(*args, design="sm90", **kw)

@@ -24,8 +24,9 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch import TrainStep
+from paddle_tpu_torch import TrainStep, amp
 from paddle_tpu_torch.jit import cuda_graph
+from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import multi_tensor_adam as mta
 from paddle_tpu_torch.models import (GPTForCausalLM,
                                      GPTPretrainingCriterion, gpt_tiny)
@@ -337,3 +338,80 @@ def test_loading_state_keeps_the_graph_reading_it(cuda_device,
     again = [float(step(ids, labels)) for _ in range(2)]
     assert again == first
     assert _max_diff(_params(model), after) == 0.0
+
+
+def _o1_run(dev, amp_dtype, eager, steps, s=128):
+    """`steps` TrainStep calls of gpt_tiny at hidden 256 (head_dim 64)
+    under O1 in `amp_dtype`, seq `s` (128: flash attention's kernels)."""
+    model, _ = _model_and_step(dev)
+    opt = AdamW(learning_rate=LR, parameters=model.parameters(),
+                weight_decay=0.01)
+    crit = GPTPretrainingCriterion()
+
+    def loss_fn(m, ids, labels):
+        with amp.auto_cast(level="O1", dtype=amp_dtype):
+            logits = m(ids)
+        return crit(logits, labels)
+
+    step = TrainStep(model, opt, loss_fn)
+    step._eager = eager
+    ids, labels = _batch(s=s)
+    losses = [float(step(ids, labels)) for _ in range(steps)]
+    return losses, _params(model)
+
+
+@pytest.mark.parametrize("amp_dtype", ["bfloat16", "float16"])
+def test_o1_graph_step_equals_eager_steps(cuda_device, amp_dtype):
+    """TrainStep's graph under O1 (bf16 and f16: B1/B2 at head_dim 64 on
+    their sm90 design, the update kernel) against the same steps run
+    eagerly: losses within 1e-5 relative and the parameters by the
+    module's rule."""
+    steps = 3
+    fa.reset_counters()
+    cuda_graph.reset_counters()
+    gl, gp = _o1_run(cuda_device, amp_dtype, False, steps)
+    # the eager first step and the capture: 2 layers each
+    assert fa.flash_fwd.design_launches == {"sm90": 4, "simple": 0}
+    assert fa.flash_bwd.design_launches == {"sm90": 4, "simple": 0}
+    assert cuda_graph.replays["train_step"] == steps - 1
+    el, ep = _o1_run(cuda_device, amp_dtype, True, steps)
+    assert max(abs(a - b) / abs(b) for a, b in zip(gl, el)) <= 1e-5
+    ok, err = _close(gp, ep, LR, steps)
+    assert ok, err
+
+
+def test_scaler_step_syncs_once_on_the_card(cuda_device):
+    """GradScaler.step under f16 O1 on the card: one synchronising CUDA
+    call (the found-inf flag's read), as torch's sync debug mode counts
+    them, and one unscale pass; a poisoned gradient skips the update."""
+    import warnings
+    model, _ = _model_and_step(cuda_device)
+    opt = AdamW(learning_rate=LR, parameters=model.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 12,
+                            decr_every_n_nan_or_inf=1)
+    crit = GPTPretrainingCriterion()
+    ids, labels = (torch.as_tensor(a, device=cuda_device)
+                   for a in _batch(s=128))
+    for i in range(3):
+        with amp.auto_cast(level="O1", dtype="float16"):
+            loss = crit(model(ids), labels)
+        scaler.scale(loss).backward()
+        if i == 1:
+            next(model.parameters()).grad.view(-1)[0] = float("nan")
+        n0 = mta.multi_tensor_adam.kernel_launches
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                scaler.step(opt)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        opt.clear_grad()
+        # the mode's own notice ("... prototype feature ...") is no sync
+        syncs = [w for w in seen
+                 if "called a synchronizing" in str(w.message)]
+        assert len(syncs) == 1, [str(w.message) for w in seen]
+        ran = mta.multi_tensor_adam.kernel_launches > n0
+        assert ran == (i != 1)
+    assert scaler._unscale_stats == {"dispatches": 3, "syncs": 3}
+    assert scaler._scale == 2.0 ** 11

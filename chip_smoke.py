@@ -119,7 +119,29 @@ Run from the root of a checkout. Phases, each of which must pass:
  16. gpt3_1p3b in f16 served as in phase 4 (f16 pools, every B3 launch
      sm90, the decode graphs), each request's tokens held to the port's
      f16 dense `generate` under a margin guard of twice the f16 logits'
-     own rounding error (their distance from the same weights in f32).
+     own rounding error (their distance from the same weights in f32);
+ 17. LLaMA trained at LLaMA-2-13B's widths (hidden 5120, 40 heads of
+     128, FFN 13824, vocab 32000) cut to 4 layers, batch 2 x seq 4096,
+     bf16 O1, AdamW, flash attention, random weights from seed 0, the
+     reference's test loss (logits[:, :-1] against ids[:, 1:]), through
+     TrainStep's graph, 2 + 6 calls, without recompute and with every
+     layer recomputed: B1/B2 must take their sm90 design, the counters
+     read around the eager first step and the capture must show (B1,
+     B2, update) at (4, 4, 1) launches a step, (8, 4, 1) with
+     recompute, every loss finite; the step by wall and by replay, the
+     idle share, tokens/s, MFU and peak memory of both; then the GQA
+     sub-run: 2 layers at llama2_7b's widths with 8 kv heads, batch 2 x
+     seq 2048, 3 graph steps held to 3 eager steps by phase 7's rule,
+     B1/B2's sm90 launches counted and B1's calls recorded;
+ 18. bench.py::bench_bert_base's config at full width and depth
+     (bert_base, 110,104,890 parameters, batch 32 x seq 512, bf16 O1,
+     AdamW lr 1e-4, dropout 0, no mask, MLM labels at ~15 % of the
+     positions as bench.py makes them) through TrainStep's graph, 2 + 6
+     calls: (B1, B2, update) at (12, 12, 2) launches a step (204
+     tensors), all sm90, every loss finite; the same numbers as phase
+     17; then a 2-layer copy at the same widths and batch, 3 graph steps
+     held to 3 eager steps, B1's calls recorded (non-causal, head_dim
+     64, bf16).
 
 The last three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
@@ -1474,17 +1496,17 @@ def _replay_ms(graph, iters=5):
     return statistics.median(times)
 
 
-def _counted_steps(step, ids, labels, n_calls) -> dict:
-    """`n_calls` TrainStep calls, each synchronised and timed by wall,
-    with the counters of B1, B2, the update kernel and the graphs set to
-    0 just before and read just after. The first call runs the step
-    eagerly and captures it; every later call replays the graph, which
-    runs the captured launches again without calling the wrappers: a
-    counter counts a launch of the eager step and one of the capture,
-    and the card runs the captured launches once a replay. The counters
-    read around each capture split the two, so the launches on the card
-    are the eager step's plus the captured step's times the replays.
-    Launch tuples are (B1, B2, update)."""
+def _counted_steps(step, batch, n_calls) -> dict:
+    """`n_calls` TrainStep calls on the arrays `batch`, each synchronised
+    and timed by wall, with the counters of B1, B2, the update kernel and
+    the graphs set to 0 just before and read just after. The first call
+    runs the step eagerly and captures it; every later call replays the
+    graph, which runs the captured launches again without calling the
+    wrappers: a counter counts a launch of the eager step and one of the
+    capture, and the card runs the captured launches once a replay. The
+    counters read around each capture split the two, so the launches on
+    the card are the eager step's plus the captured step's times the
+    replays. Launch tuples are (B1, B2, update)."""
     import torch
     from paddle_tpu_torch.jit import cuda_graph
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -1503,7 +1525,7 @@ def _counted_steps(step, ids, labels, n_calls) -> dict:
         for _ in range(n_calls):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            loss = step(ids, labels)
+            loss = step(*batch)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t)
             losses.append(loss)
@@ -1549,7 +1571,7 @@ def train_phase() -> dict:
     setup_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    run = _counted_steps(step, ids, labels, warmup + steps)
+    run = _counted_steps(step, (ids, labels), warmup + steps)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     counted, in_graph, eager, on_device = (
         run[k] for k in ("counted", "in_graph", "eager", "on_device"))
@@ -2279,42 +2301,40 @@ def update_phase() -> list:
 B1P3_BATCH, B1P3_SEQ, B1P3_INTERVAL = 4, 2048, 3
 
 
-def _train_1p3b(recompute: bool) -> dict:
-    """One TrainStep run of bench_gpt_1p3b's config (with or without
-    recompute) through its graph, 2 warm-up calls and 6 timed: counters,
-    losses, the step by wall and by replay, peak memory from a freed
-    card."""
+def _fresh_card():
+    """Free what earlier runs left (the allocator's cache included) and
+    reset the peak: returns the GiB still held (by earlier phases)."""
     import gc
 
     import torch
-    from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.models import gpt3_1p3b, num_params
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated() / 2 ** 30    # by earlier phases
-    cfg = gpt3_1p3b(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
-                    use_flash_attention=True, recompute=recompute,
-                    recompute_interval=B1P3_INTERVAL,
-                    recompute_policy="full")
-    b, s, warmup, steps = B1P3_BATCH, B1P3_SEQ, 2, 6
-    shape = (b, s, cfg.num_heads, cfg.head_dim)
-    picked = (fa.attention_path(shape, shape),
-              fa._fwd_design(torch.bfloat16, cfg.head_dim),
-              fa._bwd_design(torch.bfloat16, cfg.head_dim))
-    if picked != (("cuda", ""), "sm90", "sm90"):
-        raise RuntimeError(f"gpt3_1p3b attention would not take B1/B2's "
-                           f"sm90 kernels: {picked}")
-    model, step = _gpt_train_step(cfg, use_amp=True, lr=1e-4, seed=0,
-                                  moment_dtype="bfloat16")
-    rng = np.random.default_rng(0)
-    ids = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
-    labels = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
-    run = _counted_steps(step, ids, labels, warmup + steps)
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def _check(prefix, checks, detail):
+    """Log each named check after `prefix`; raise if any failed."""
+    for what, ok in checks.items():
+        log(f"{prefix} check: {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise RuntimeError(f"{prefix} failed: {detail}")
+
+
+def _train_run(tag, label, model, step, batch, per_step, warmup=2,
+               steps=6) -> dict:
+    """`warmup` + `steps` TrainStep calls on `batch` through the step's
+    graph (_counted_steps), checked: every loss finite, one capture and
+    every later call a replay, (B1, B2, update) at `per_step` launches in
+    the eager first step and in the captured one, every B1/B2 launch
+    sm90, no plain version on CUDA tensors. Then the step by wall (the
+    median of the timed calls) and by replay of its graph, the idle
+    share, tokens/s, MFU (bench.py's 6·N·tokens/s over the bf16 peak, N
+    the model's parameters) and peak memory since the caller's reset.
+    `tag` prefixes the log lines, `label` names the run."""
+    import torch
+    run = _counted_steps(step, batch, warmup + steps)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    L = cfg.num_layers
-    remat = len(range(0, L, B1P3_INTERVAL)) if recompute else 0
-    per_step = (L + remat, L, 2)
     n_calls = warmup + steps
     checks = {
         "every loss finite": all(np.isfinite(run["losses"])),
@@ -2330,50 +2350,79 @@ def _train_1p3b(recompute: bool) -> dict:
         "no plain version ran on CUDA tensors": run["plain"] == (0, 0)
             and run["update_plain"] == 0,
     }
-    label = "recompute" if recompute else "no recompute"
-    for what, ok in checks.items():
-        log(f"[train-1p3b] {label}: check: {what}: "
-            f"{'ok' if ok else 'FAILED'}")
-    if not all(checks.values()):
-        raise RuntimeError(f"1.3B training phase failed ({label}): {run}")
+    _check(f"[{tag}] {label}:", checks, run)
     graph = next(iter(step._graphs.values()))[0].graph
     replay_ms = _replay_ms(graph)
+    del graph
     timed = run["step_s"][warmup:]
     wall_ms = 1e3 * statistics.median(timed)
-    n = num_params(cfg)
-    tok_s = b * s / (wall_ms / 1e3)
+    n = sum(p.numel() for p in model.parameters())
+    tokens = int(np.prod(np.shape(batch[0])))
+    tok_s = tokens / (wall_ms / 1e3)
     rec = dict(
-        config="gpt3_1p3b (bench_gpt_1p3b)", recompute=recompute,
-        recompute_interval=B1P3_INTERVAL if recompute else None,
-        recomputed_blocks=remat, layers=L, batch=b, seq=s, params=n,
-        timed_steps=steps, step_ms_median=wall_ms,
-        step_ms=[1e3 * x for x in timed],
+        params=n, tokens_per_step=tokens, timed_steps=steps,
+        step_ms_median=wall_ms, step_ms=[1e3 * x for x in timed],
         first_step_ms=1e3 * run["step_s"][0], capture_s=run["capture_s"],
         step_ms_replay=replay_ms, idle_share=1 - replay_ms / wall_ms,
         tokens_per_s=tok_s, mfu=6.0 * n * tok_s / BF16_FLOPS_PER_S,
-        step_floor_ms=6.0 * n * b * s / BF16_FLOPS_PER_S * 1e3,
-        peak_mem_gb=peak, held_at_start_gb=held,
+        step_floor_ms=6.0 * n * tokens / BF16_FLOPS_PER_S * 1e3,
+        peak_mem_gb=peak,
         launches_counted=list(run["counted"]),
         launches_eager=list(run["eager"]),
         launches_in_graph=list(run["in_graph"]),
         launches_on_device=list(run["on_device"]),
         captures=run["captures"], replays=run["replays"],
         losses=run["losses"])
-    log(f"[train-1p3b] {label}: {L} layers, batch {b} x seq {s}, "
-        f"{n} params: step median {wall_ms:.2f} ms by wall "
-        f"({min(rec['step_ms']):.2f}-{max(rec['step_ms']):.2f} over "
-        f"{steps}), {replay_ms:.2f} ms by replay (device idle "
-        f"{100 * rec['idle_share']:.1f} %); {tok_s:.1f} tokens/s, MFU "
-        f"{rec['mfu']:.4f} (6ND floor {rec['step_floor_ms']:.2f} ms); peak "
-        f"mem {peak:.2f} GiB ({held:.2f} of it held by earlier phases at "
-        f"the start); first call {rec['first_step_ms']:.0f} ms "
-        f"(capture {run['capture_s']:.2f} s); launches (B1, B2, update) "
-        f"eager {run['eager']}, captured step {run['in_graph']}, on the "
-        f"card {run['on_device']}; losses "
-        f"{[round(x, 4) for x in run['losses']]}")
-    del model, step, graph
-    gc.collect()
-    torch.cuda.empty_cache()
+    log(f"[{tag}] {label}: {n} params, {tokens} tokens a step: step "
+        f"median {wall_ms:.2f} ms by wall ({min(rec['step_ms']):.2f}-"
+        f"{max(rec['step_ms']):.2f} over {steps}), {replay_ms:.2f} ms by "
+        f"replay (device idle {100 * rec['idle_share']:.1f} %); "
+        f"{tok_s:.1f} tokens/s, MFU {rec['mfu']:.4f} (6ND floor "
+        f"{rec['step_floor_ms']:.2f} ms); peak mem {peak:.2f} GiB; first "
+        f"call {rec['first_step_ms']:.0f} ms (capture "
+        f"{run['capture_s']:.2f} s); launches (B1, B2, update) eager "
+        f"{run['eager']}, captured step {run['in_graph']}, on the card "
+        f"{run['on_device']}; losses {[round(x, 4) for x in run['losses']]}")
+    return rec
+
+
+def _train_1p3b(recompute: bool) -> dict:
+    """One TrainStep run of bench_gpt_1p3b's config (with or without
+    recompute) through its graph, 2 warm-up calls and 6 timed: counters,
+    losses, the step by wall and by replay, peak memory from a freed
+    card."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import gpt3_1p3b
+    held = _fresh_card()
+    cfg = gpt3_1p3b(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                    use_flash_attention=True, recompute=recompute,
+                    recompute_interval=B1P3_INTERVAL,
+                    recompute_policy="full")
+    b, s = B1P3_BATCH, B1P3_SEQ
+    shape = (b, s, cfg.num_heads, cfg.head_dim)
+    picked = (fa.attention_path(shape, shape),
+              fa._fwd_design(torch.bfloat16, cfg.head_dim),
+              fa._bwd_design(torch.bfloat16, cfg.head_dim))
+    if picked != (("cuda", ""), "sm90", "sm90"):
+        raise RuntimeError(f"gpt3_1p3b attention would not take B1/B2's "
+                           f"sm90 kernels: {picked}")
+    model, step = _gpt_train_step(cfg, use_amp=True, lr=1e-4, seed=0,
+                                  moment_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    L = cfg.num_layers
+    remat = len(range(0, L, B1P3_INTERVAL)) if recompute else 0
+    rec = _train_run("train-1p3b", "recompute" if recompute
+                     else "no recompute", model, step, (ids, labels),
+                     per_step=(L + remat, L, 2))
+    rec.update(config="gpt3_1p3b (bench_gpt_1p3b)", recompute=recompute,
+               recompute_interval=B1P3_INTERVAL if recompute else None,
+               recomputed_blocks=remat, layers=L, batch=b, seq=s,
+               held_at_start_gb=held)
+    del model, step
+    _fresh_card()
     return rec
 
 
@@ -2624,7 +2673,7 @@ def f16_train_phase() -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     model, step = _gpt_train_step(cfg, use_amp=True, amp_dtype="float16")
-    run = _counted_steps(step, ids, labels, F16_GRAPH_CALLS)
+    run = _counted_steps(step, (ids, labels), F16_GRAPH_CALLS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     graph_params = {kk: v.detach().clone()
                     for kk, v in model.state_dict().items()}
@@ -2797,6 +2846,282 @@ def f16_engine_phase() -> dict:
         oracle=_f16_generate_oracle)
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18: LLaMA and BERT trained through TrainStep's graph
+# ---------------------------------------------------------------------------
+def _graph_vs_eager(build, batch, n_steps) -> dict:
+    """`n_steps` TrainStep calls through the graph, then as many eager
+    steps of a model built alike from the same seed, held to each other
+    by phase 7's rule (losses within 1e-5 relative; no parameter element
+    beyond 2 * lr * steps apart, fewer than 2e-3 of them beyond
+    1e-3 * lr). B1/B2's launches are counted by design in each run, and
+    the eager run's B1 calls recorded: {(q shape, k shape, causal,
+    dtype)}."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    runs = {}
+    for eager in (False, True):
+        _fresh_card()
+        model, step = build()
+        step._eager = eager
+        fa.reset_counters()
+        with kernel_calls(fa, "_fwd_cuda") as calls:
+            losses = [float(step(*batch)) for _ in range(n_steps)]
+            b1_calls = {(tuple(a[0].shape), tuple(a[1].shape), a[3],
+                         str(a[0].dtype)) for a, _ in calls}
+            calls.clear()
+        runs[eager] = dict(
+            losses=losses, b1_calls=b1_calls,
+            designs=dict(fa.flash_fwd.design_launches),
+            bwd_designs=dict(fa.flash_bwd.design_launches),
+            plain=(fa.flash_fwd.plain_calls, fa.flash_bwd.plain_calls),
+            params={k: v.detach().clone()
+                    for k, v in model.state_dict().items()})
+        lr = step.optimizer.get_lr()
+        del model, step
+    graph, eager = runs[False], runs[True]
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(graph["losses"], eager["losses"]))
+    err, far, n = _params_diff(graph.pop("params"), eager.pop("params"), lr)
+    _fresh_card()
+    return dict(graph=graph, eager=eager, loss_max_rel_diff=loss_err,
+                param_max_abs_diff=err, params_far=far, params_total=n,
+                param_bound=2 * lr * n_steps,
+                ok=loss_err <= 1e-5 and err <= 2 * lr * n_steps
+                and far / n < 2e-3)
+
+
+def _parity_checks(res, layers, n_steps, want_calls):
+    """phase 7's rule and the launch counts of a _graph_vs_eager run:
+    the graph run launches B1 and B2 once a layer in its eager first
+    step and once in the capture, the eager run once a layer a step, all
+    sm90; the eager run's B1 calls are `want_calls`."""
+    g, e = res["graph"], res["eager"]
+    sm90 = {k: {"sm90": n * layers, "simple": 0}
+            for k, n in (("graph", 2), ("eager", n_steps))}
+    return {
+        "every loss finite": all(np.isfinite(g["losses"] + e["losses"])),
+        "graph steps == eager steps (phase 7's rule)": res["ok"],
+        "B1/B2 launches by design, graph and eager runs": (
+            g["designs"], g["bwd_designs"], e["designs"], e["bwd_designs"])
+            == (sm90["graph"], sm90["graph"], sm90["eager"], sm90["eager"]),
+        "no plain version ran on CUDA tensors": g["plain"] == e["plain"]
+            == (0, 0),
+        f"B1's calls {want_calls}": e["b1_calls"] == want_calls,
+    }
+
+
+def _parity_record(res):
+    """The JSON record of a _graph_vs_eager run."""
+    return dict(b1_calls=sorted(map(str, res["eager"]["b1_calls"])),
+                graph_losses=res["graph"]["losses"],
+                eager_losses=res["eager"]["losses"],
+                **{k: v for k, v in res.items()
+                   if k not in ("graph", "eager")})
+
+
+def _log_parity(tag, label, res):
+    log(f"[{tag}] {label}: graph steps vs eager steps, losses "
+        f"{[round(x, 5) for x in res['graph']['losses']]} vs "
+        f"{[round(x, 5) for x in res['eager']['losses']]} (max rel diff "
+        f"{res['loss_max_rel_diff']:.2e}, tol 1e-5); params max abs diff "
+        f"{res['param_max_abs_diff']:.3e} (bound "
+        f"{res['param_bound']:.1e}), {res['params_far']} of "
+        f"{res['params_total']} beyond 1e-3*lr; B1/B2 launches by design "
+        f"graph {res['graph']['designs']}/{res['graph']['bwd_designs']}, "
+        f"eager {res['eager']['designs']}/{res['eager']['bwd_designs']}")
+
+
+def _sm90_picked(shape_q, shape_k, head_dim):
+    """(attention_path, B1's design, B2's design) of a bf16 call."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    return (fa.attention_path(shape_q, shape_k),
+            fa._fwd_design(torch.bfloat16, head_dim),
+            fa._bwd_design(torch.bfloat16, head_dim))
+
+
+# phase 17: LLaMA-2-13B's widths (hidden 5120, 40 heads of 128, FFN
+# 13824, vocab 32000) cut to 4 layers, LLaMA-2's 4096-token context
+LLAMA13_LAYERS, LLAMA13_BATCH, LLAMA13_SEQ = 4, 2, 4096
+# the GQA sub-run: phase 10's config (llama2_7b's widths, 8 kv heads)
+LLAMA_GQA_LAYERS, LLAMA_GQA_KV, LLAMA_GQA_BATCH, LLAMA_GQA_SEQ = 2, 8, 2, 2048
+PARITY_STEPS = 3
+
+
+def _llama_train_step(cfg, lr=1e-4, seed=0, recompute_layers=False):
+    """An f32 LlamaForCausalLM trained by TrainStep: AdamW(lr, weight
+    decay 0.01), the loss the reference's own test takes
+    (cross_entropy(logits[:, :-1], ids[:, 1:])) with the forward under
+    bf16 O1 auto_cast. `recompute_layers`: every decoder layer runs
+    through distributed.meta_parallel.recompute (the reference's
+    LlamaConfig has no recompute option; the caller wraps the layers)."""
+    import torch
+    from paddle_tpu_torch import TrainStep, amp
+    from paddle_tpu_torch.distributed.meta_parallel import recompute
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    class RecomputedLayer(torch.nn.Module):
+        def __init__(self, layer):
+            super().__init__()
+            self.layer = layer
+
+        def forward(self, *args):
+            if self.training:
+                return recompute(self.layer, *args)
+            return self.layer(*args)
+
+    model = LlamaForCausalLM(cfg, dtype="float32", seed=seed)
+    if recompute_layers:
+        layers = model.llama.layers
+        for i, layer in enumerate(layers):
+            layers[i] = RecomputedLayer(layer)
+    model.train()
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+                weight_decay=0.01)
+
+    def loss_fn(m, ids):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            logits = m(ids)
+        return F.cross_entropy(logits[:, :-1], ids[:, 1:])
+
+    return model, TrainStep(model, opt, loss_fn)
+
+
+def llama_train_phase() -> dict:
+    """Phase 17: LLaMA-2-13B's widths at 4 layers, b2 x s4096, bf16 O1,
+    AdamW, flash attention (MHA, 40 heads of 128), random weights from
+    seed 0, through TrainStep's graph (2 + 6 calls), without recompute
+    and with every layer recomputed; then the GQA sub-run: 2 layers at
+    llama2_7b's widths with 8 kv heads, b2 x s2048, 3 graph steps held
+    to 3 eager steps."""
+    from paddle_tpu_torch.models import llama2_7b, llama2_13b
+    cfg = dataclasses.replace(llama2_13b(use_flash_attention=True),
+                              num_layers=LLAMA13_LAYERS)
+    b, s, L = LLAMA13_BATCH, LLAMA13_SEQ, cfg.num_layers
+    shape = (b, s, cfg.num_heads, cfg.head_dim)
+    picked = _sm90_picked(shape, shape, cfg.head_dim)
+    if picked != (("cuda", ""), "sm90", "sm90"):
+        raise RuntimeError(f"llama2_13b attention would not take B1/B2's "
+                           f"sm90 kernels: {picked}")
+    ids = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+    out = {}
+    for remat in (False, True):
+        held = _fresh_card()
+        model, step = _llama_train_step(cfg, recompute_layers=remat)
+        label = "every layer recomputed" if remat else "no recompute"
+        rec = _train_run("train-llama13b", label, model, step, (ids,),
+                         per_step=(2 * L if remat else L, L, 1))
+        rec.update(config="llama2_13b widths", layers=L, batch=b, seq=s,
+                   recompute=remat, held_at_start_gb=held)
+        out["recompute" if remat else "no_recompute"] = rec
+        del model, step
+    with_r, without = out["recompute"], out["no_recompute"]
+    cost = {k: with_r[k] - without[k]
+            for k in ("step_ms_median", "step_ms_replay", "peak_mem_gb")}
+    log(f"[train-llama13b] recompute costs {cost['step_ms_median']:.2f} ms "
+        f"a step by wall ({cost['step_ms_replay']:.2f} by replay) and saves "
+        f"{-cost['peak_mem_gb']:.2f} GiB of peak memory")
+
+    gcfg = dataclasses.replace(
+        llama2_7b(num_kv_heads=LLAMA_GQA_KV, use_flash_attention=True),
+        num_layers=LLAMA_GQA_LAYERS)
+    gb, gs = LLAMA_GQA_BATCH, LLAMA_GQA_SEQ
+    gids = np.random.default_rng(3).integers(
+        0, gcfg.vocab_size, (gb, gs)).astype(np.int32)
+    res = _graph_vs_eager(lambda: _llama_train_step(gcfg), (gids,),
+                          PARITY_STEPS)
+    want = {((gb, gs, gcfg.num_heads, gcfg.head_dim),
+             (gb, gs, LLAMA_GQA_KV, gcfg.head_dim), True, "torch.bfloat16")}
+    _log_parity("train-llama-gqa", f"llama2_7b widths, {LLAMA_GQA_LAYERS} "
+                f"layers, GQA {gcfg.num_heads}/{LLAMA_GQA_KV}, batch {gb} x "
+                f"seq {gs}, bf16 O1", res)
+    _check("[train-llama-gqa]", _parity_checks(
+        res, LLAMA_GQA_LAYERS, PARITY_STEPS, want), res)
+    out["gqa"] = dict(config="llama2_7b widths, 8 kv heads",
+                      layers=LLAMA_GQA_LAYERS, batch=gb, seq=gs,
+                      **_parity_record(res))
+    return out
+
+
+# phase 18: bench.py::bench_bert_base (bench.py:271-325): bert_base, batch
+# 32 x seq 512, bf16 O1, AdamW lr 1e-4, dropout 0, no attention mask
+BERT_BATCH, BERT_SEQ = 32, 512
+
+
+def _bert_train_step(cfg, lr=1e-4, seed=0):
+    """bench_bert_base's step: an f32 BertForMaskedLM, AdamW(lr) with the
+    reference's defaults, the MLM loss under bf16 O1 auto_cast."""
+    from paddle_tpu_torch import TrainStep, amp
+    from paddle_tpu_torch.models import BertForMaskedLM
+    from paddle_tpu_torch.optimizer import AdamW
+    model = BertForMaskedLM(cfg, dtype="float32", seed=seed)
+    model.train()
+    opt = AdamW(learning_rate=lr, parameters=model.parameters())
+
+    def loss_fn(m, ids, labels):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss, _ = m(ids, labels=labels)
+        return loss
+
+    return model, TrainStep(model, opt, loss_fn)
+
+
+def bert_train_phase() -> dict:
+    """Phase 18: bench_bert_base's config at full width and depth
+    through TrainStep's graph (2 + 6 calls): 12 B1 and 12 B2 launches a
+    step (non-causal, head_dim 64, sm90), 2 of the update (204
+    tensors); then a 2-layer copy at the same widths and batch, 3 graph
+    steps held to 3 eager steps, B1's calls recorded."""
+    from paddle_tpu_torch.models import bert_base
+    cfg = bert_base(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    b, s, L = BERT_BATCH, BERT_SEQ, cfg.num_layers
+    hd = cfg.hidden_size // cfg.num_heads
+    shape = (b, s, cfg.num_heads, hd)
+    picked = _sm90_picked(shape, shape, hd)
+    if picked != (("cuda", ""), "sm90", "sm90"):
+        raise RuntimeError(f"bert_base attention would not take B1/B2's "
+                           f"sm90 kernels: {picked}")
+    # bench_bert_base's batch: ids, and labels at ~15 % of the positions
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    labels = np.where(rng.random((b, s)) < 0.15, ids, -100).astype(np.int32)
+    held = _fresh_card()
+    model, step = _bert_train_step(cfg)
+    n_tensors = len(list(model.parameters()))
+    rec = _train_run("train-bert", "bert_base (bench_bert_base)", model,
+                     step, (ids, labels), per_step=(L, L, 2))
+    rec.update(config="bert_base (bench_bert_base)", layers=L, batch=b,
+               seq=s, update_tensors=n_tensors, held_at_start_gb=held,
+               masked_positions=int((labels != -100).sum()))
+    del model, step
+    two = dataclasses.replace(cfg, num_layers=2)
+    res = _graph_vs_eager(lambda: _bert_train_step(two), (ids, labels),
+                          PARITY_STEPS)
+    want = {(shape, shape, False, "torch.bfloat16")}
+    _log_parity("train-bert", f"bert_base widths, 2 layers, batch {b} x "
+                f"seq {s}, bf16 O1", res)
+    checks = _parity_checks(res, 2, PARITY_STEPS, want)
+    checks["bert_base's 204 tensors (2 update launches a step)"] = \
+        n_tensors == 204
+    _check("[train-bert]", checks, res)
+    rec["two_layers"] = _parity_record(res)
+    return rec
+
+
+def _launches_17_18(runs, i):
+    """B1's (i = 0), B2's (1) or the update's (2) launches in the runs of
+    phases 17-18: counted over the eager first step and the capture, and
+    run on the card (the captured ones once a replay)."""
+    out = {}
+    for name, rec in runs:
+        out[f"launches_{name}"] = rec["launches_counted"][i]
+        out[f"launches_on_device_{name}"] = rec["launches_on_device"][i]
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2833,6 +3158,11 @@ def main() -> int:
     recompute_parity = recompute_parity_phase()
     train_f16 = f16_train_phase()
     engine_f16 = f16_engine_phase()
+    train_llama = llama_train_phase()
+    train_bert = bert_train_phase()
+    runs_17_18 = (("llama13b", train_llama["no_recompute"]),
+                  ("llama13b_recompute", train_llama["recompute"]),
+                  ("bert_base", train_bert))
     main_case = cases[0]    # the engine's fresh wave: its largest launch
     f16_case = next(c for c in cases if c["case"] == "f16 fresh wave, no pool")
     fmain = flash[0]        # gpt2_small's training shape
@@ -2887,6 +3217,7 @@ def main() -> int:
             # counted over its eager step and capture, and run on the card
             launches_1p3b=t13["launches_counted"][i],
             launches_on_device_1p3b=t13["launches_on_device"][i],
+            **_launches_17_18(runs_17_18, i),
             max_abs_err=max(e for c in flash for dt in ("bf16", "f16")
                             for what, e in c[f"max_abs_err_{dt}"].items()
                             if (what in ("o", "lse")) == (kind == "fwd")),
@@ -2951,6 +3282,7 @@ def main() -> int:
         launches_on_device=train["update_launches_on_device"],
         launches_1p3b=t13["launches_counted"][2],
         launches_on_device_1p3b=t13["launches_on_device"][2],
+        **_launches_17_18(runs_17_18, 2),
         max_abs_err=max(c["max_abs_err"] for c in updates),
         ms=u["ms"], ms_graph=u["ms_graph"], plain_ms=u["plain_ms"],
         bound_ms=u["bound_ms"], bound_by=u["bound_by"],
@@ -2966,6 +3298,8 @@ def main() -> int:
     log("[recompute-parity] " + json.dumps(recompute_parity))
     log("[train-f16] " + json.dumps(train_f16))
     log("[engine-f16] " + json.dumps(engine_f16))
+    log("[train-llama13b] " + json.dumps(train_llama))
+    log("[train-bert] " + json.dumps(train_bert))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Carry paddle_tpu weights (GPT, LLaMA, the fused incubate layers) and
+"""Carry paddle_tpu weights (GPT, LLaMA, BERT, the fused incubate layers) and
 optimizer state into the port.
 
 paddle_tpu's ``state_dict()`` names match the port's parameter names
@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 __all__ = ["gpt_params_from_numpy", "llama_params_from_numpy",
-           "fused_params_from_numpy", "optimizer_state_from_numpy"]
+           "bert_params_from_numpy", "fused_params_from_numpy",
+           "optimizer_state_from_numpy"]
 
 _ADAM_ACCUMULATORS = ("moment1", "moment2", "beta1_pow", "beta2_pow")
 # multi_precision's f32 master of a parameter (reference optimizer.py:491)
@@ -37,9 +38,10 @@ def gpt_params_from_numpy(named: Dict[str, np.ndarray]
     return {name: _to_tensor(np.asarray(arr)) for name, arr in named.items()}
 
 
-# LLaMA's and the fused incubate layers' state_dicts carry the same way:
-# names one for one, layouts unchanged
+# LLaMA's, BERT's and the fused incubate layers' state_dicts carry the
+# same way: names one for one, layouts unchanged
 llama_params_from_numpy = gpt_params_from_numpy
+bert_params_from_numpy = gpt_params_from_numpy
 fused_params_from_numpy = gpt_params_from_numpy
 
 

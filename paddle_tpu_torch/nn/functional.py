@@ -22,7 +22,7 @@ from ..kernels import norms as _norms
 from ..kernels.flash_attention import _shapes_ok, flash_attention
 
 __all__ = ["linear", "matmul", "embedding", "layer_norm", "rms_norm", "gelu",
-           "relu", "silu", "dropout", "cross_entropy",
+           "relu", "silu", "tanh", "dropout", "cross_entropy",
            "scaled_dot_product_attention"]
 
 
@@ -95,6 +95,13 @@ def silu(x):
     """x * sigmoid(x) (ops/nn_ops.py:65)."""
     (x,) = _amp("silu", None, x)
     return torch.nn.functional.silu(x)
+
+
+def tanh(x):
+    """ops/math.py:224; no AMP policy of its own: it follows its input
+    (tanh is on neither of the reference's lists)."""
+    (x,) = _amp("tanh", None, x)
+    return torch.tanh(x)
 
 
 def dropout(x, p=0.5, training=True, mode="upscale_in_train",

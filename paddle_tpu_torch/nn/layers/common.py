@@ -1,11 +1,19 @@
 """Linear, Embedding and Dropout (counterparts of
-paddle_tpu/nn/layers/common.py:12,44,79)."""
+paddle_tpu/nn/layers/common.py:12,44,79).
+
+Linear and Embedding are built with uninitialised weights: a model
+draws them (GPT's and LLaMA's ``_init_weights``), or a layer that
+follows the reference's initializers builds them with ``_drawn`` and
+``_drawn_linear``."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ...core.device import resolve_device
+from ...core.dtype import to_dtype
 from .. import functional as F
+from ..initializer import Constant, XavierUniform, get_initializer
 
 
 class Linear(nn.Module):
@@ -55,3 +63,32 @@ class Dropout(nn.Module):
     def forward(self, x):
         return F.dropout(x, self.p, self.training, self.mode,
                          generator=self.generator)
+
+
+def _factory(device, dtype):
+    """The factory keywords of a layer built on `device` (None: the CUDA
+    card, raising without one) in `dtype` (a name or a torch dtype)."""
+    return {"device": resolve_device(device), "dtype": to_dtype(dtype)}
+
+
+def _drawn(init, shape, fk, generator):
+    """A parameter of `shape` drawn by initializer `init` in
+    ``fk["dtype"]`` on ``fk["device"]`` from `generator`."""
+    return nn.Parameter(init(shape, fk["dtype"], device=fk["device"],
+                             generator=generator))
+
+
+def _drawn_linear(in_features, out_features, weight_attr, bias_attr, fk,
+                  generator):
+    """The reference's ``Linear(in, out, weight_attr, bias_attr)``
+    (nn/layer.py:155-158 for the defaults): the weight drawn by
+    `weight_attr` (default XavierUniform), the bias by `bias_attr`
+    (default 0), no bias when `bias_attr` is False."""
+    lin = Linear(in_features, out_features, bias=bias_attr is not False,
+                 **fk)
+    lin.weight = _drawn(get_initializer(weight_attr) or XavierUniform(),
+                        (in_features, out_features), fk, generator)
+    if lin.bias is not None:
+        lin.bias = _drawn(get_initializer(bias_attr) or Constant(0.0),
+                          (out_features,), fk, generator)
+    return lin

@@ -89,14 +89,18 @@ def test_gpt3_6p7b_equals_the_reference():
 
 # reference module -> (port module, public names still to port)
 PORTED_MODULES = {
-    "paddle_tpu.models": ("paddle_tpu_torch.models", {
-        "bert", "BertConfig", "BertModel", "BertForMaskedLM", "bert_tiny",
-        "bert_base"}),
+    "paddle_tpu.models": ("paddle_tpu_torch.models", set()),
+    "paddle_tpu.models.bert": ("paddle_tpu_torch.models.bert", set()),
     "paddle_tpu.models.gpt": ("paddle_tpu_torch.models.gpt", set()),
     "paddle_tpu.models.llama": ("paddle_tpu_torch.models.llama", set()),
     "paddle_tpu.models.generation": ("paddle_tpu_torch.models.generation",
                                      set()),
     "paddle_tpu.nn.clip": ("paddle_tpu_torch.nn.clip", set()),
+    "paddle_tpu.nn.initializer": ("paddle_tpu_torch.nn.initializer", set()),
+    "paddle_tpu.nn.layers.container": ("paddle_tpu_torch.nn.layers.container",
+                                       set()),
+    "paddle_tpu.nn.layers.transformer": (
+        "paddle_tpu_torch.nn.layers.transformer", set()),
     "paddle_tpu.distributed.meta_parallel.recompute": (
         "paddle_tpu_torch.distributed.meta_parallel.recompute", set()),
     "paddle_tpu.optimizer.lr": ("paddle_tpu_torch.optimizer.lr", set()),

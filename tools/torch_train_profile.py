@@ -6,9 +6,12 @@
 Run from the root of a checkout, on a machine with one NVIDIA GPU. It
 builds one of chip_smoke.py's training steps, random weights and batch
 from seed 0: `gpt2_small` (phase 6: bf16 O1, AdamW, flash attention,
-batch 16 x seq 1024; the default) or `gpt_1p3b` (phase 13,
+batch 16 x seq 1024; the default), `gpt_1p3b` (phase 13,
 bench.py::bench_gpt_1p3b's config: gpt3_1p3b, batch 4 x seq 2048, AdamW
-with bf16 moments, every third block recomputed), and traces with
+with bf16 moments, every third block recomputed), `llama13b` (phase 17:
+LLaMA-2-13B's widths at 4 layers, batch 2 x seq 4096, no recompute) or
+`bert_base` (phase 18, bench.py::bench_bert_base's config: batch 32 x
+seq 512, MLM labels at ~15 % of the positions), and traces with
 torch.profiler, separately:
 
   * the eager step: TrainStep's first call, which runs the step eagerly
@@ -35,6 +38,7 @@ The card's name and power limit lead the output.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import subprocess
 import sys
@@ -115,7 +119,8 @@ def _report(torch, prof, n, wall_ms, label, split):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=2)
-    ap.add_argument("--config", choices=("gpt2_small", "gpt_1p3b"),
+    ap.add_argument("--config", choices=("gpt2_small", "gpt_1p3b",
+                                         "llama13b", "bert_base"),
                     default="gpt2_small")
     args = ap.parse_args()
     import torch
@@ -125,31 +130,48 @@ def main() -> int:
     sys.path.insert(0, os.getcwd())
     from torch.profiler import ProfilerActivity, profile
     from chip_smoke import (B1P3_BATCH, B1P3_INTERVAL, B1P3_SEQ,
-                            _gpt_train_step, _replay_ms)
-    from paddle_tpu_torch.models import gpt2_small, gpt3_1p3b
+                            BERT_BATCH, BERT_SEQ, LLAMA13_BATCH,
+                            LLAMA13_LAYERS, LLAMA13_SEQ, _bert_train_step,
+                            _gpt_train_step, _llama_train_step, _replay_ms)
+    from paddle_tpu_torch.models import (bert_base, gpt2_small, gpt3_1p3b,
+                                         llama2_13b)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     common = dict(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
                   use_flash_attention=True)
-    if args.config == "gpt_1p3b":
-        cfg = gpt3_1p3b(recompute=True, recompute_interval=B1P3_INTERVAL,
-                        **common)
-        batch, seq, moments = B1P3_BATCH, B1P3_SEQ, "bfloat16"
-    else:
-        cfg = gpt2_small(**common)
-        batch, seq, moments = 16, 1024, None
-    model, step = _gpt_train_step(cfg, use_amp=True, moment_dtype=moments)
     rng = np.random.default_rng(0)
+    if args.config == "llama13b":
+        cfg = dataclasses.replace(llama2_13b(use_flash_attention=True),
+                                  num_layers=LLAMA13_LAYERS)
+        batch, seq = LLAMA13_BATCH, LLAMA13_SEQ
+        model, step = _llama_train_step(cfg)
+        arrays = [rng.integers(0, cfg.vocab_size, (batch, seq))]
+    elif args.config == "bert_base":
+        cfg = bert_base(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+        batch, seq = BERT_BATCH, BERT_SEQ
+        model, step = _bert_train_step(cfg)
+        ids = rng.integers(0, cfg.vocab_size, (batch, seq))
+        arrays = [ids, np.where(rng.random((batch, seq)) < 0.15, ids, -100)]
+    else:
+        if args.config == "gpt_1p3b":
+            cfg = gpt3_1p3b(recompute=True,
+                            recompute_interval=B1P3_INTERVAL, **common)
+            batch, seq, moments = B1P3_BATCH, B1P3_SEQ, "bfloat16"
+        else:
+            cfg = gpt2_small(**common)
+            batch, seq, moments = 16, 1024, None
+        model, step = _gpt_train_step(cfg, use_amp=True,
+                                      moment_dtype=moments)
+        arrays = [rng.integers(0, cfg.vocab_size, (batch, seq))
+                  for _ in range(2)]
     # the batch on the card, so a step copies nothing from the host
-    ids, labels = (torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (batch, seq)).astype(np.int32)).cuda()
-        for _ in range(2))
+    batch_t = [torch.from_numpy(a.astype(np.int32)).cuda() for a in arrays]
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        step(ids, labels)
+        step(*batch_t)
         torch.cuda.synchronize()
         first_ms = 1e3 * (time.perf_counter() - t0)
     _report(torch, prof, 1, first_ms,
@@ -157,19 +179,19 @@ def main() -> int:
             f"{seq}: the eager step (the first call, then captured)",
             split=True)
     for _ in range(2):
-        step(ids, labels)
+        step(*batch_t)
     torch.cuda.synchronize()
     walls = []
     for _ in range(10):
         t0 = time.perf_counter()
-        step(ids, labels)
+        step(*batch_t)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     wall_med = float(np.median(walls))
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            step(ids, labels)
+            step(*batch_t)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     _report(torch, prof, args.steps, wall_ms, "replays of the step graph",

@@ -250,17 +250,20 @@ def capture_counts(read):
 
 
 @contextlib.contextmanager
-def kernel_calls(module, attr):
+def kernel_calls(module, attr, keep=None):
     """Checking only: while the block runs, every call of the wrapper
     module.attr is recorded as (args, result), for holding the kernel's
-    results on the main path against its plain version afterwards. The
-    wrapper is restored on exit; nothing is launched by the recording."""
+    results on the main path against its plain version afterwards, or
+    as `keep(args, result)` where that is given (a training run keeps no
+    tensor: one kept from a step would keep that step's autograd graph
+    alive into the next). The wrapper is restored on exit; nothing is
+    launched by the recording."""
     calls = []
     saved = getattr(module, attr)
 
     def run(*args):
         r = saved(*args)
-        calls.append((args, r))
+        calls.append((args, r) if keep is None else keep(args, r))
         return r
 
     setattr(module, attr, run)
@@ -268,6 +271,40 @@ def kernel_calls(module, attr):
         yield calls
     finally:
         setattr(module, attr, saved)
+
+
+@contextlib.contextmanager
+def stream_mismatch_warnings():
+    """Checking only: while the block runs, torch gives each warning it
+    would give once a process every time (torch.set_warn_always), and
+    the block's warnings are recorded; yields a list that holds, after
+    the block, the messages of torch's "AccumulateGrad node's stream
+    does not match" warning. torch gives it when a backward reaches a
+    parameter's gradient node made on another stream by an earlier step
+    whose autograd graph is still alive: in a capture, a dependency on
+    another stream that the eager step does not have. Other warnings
+    are shown once each."""
+    import warnings
+
+    import torch
+    always = torch.is_warn_always_enabled()
+    found = []
+    torch.set_warn_always(True)
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            yield found
+    finally:
+        torch.set_warn_always(always)
+    shown = set()
+    for w in seen:
+        msg = str(w.message)
+        if "AccumulateGrad node's stream" in msg:
+            found.append(msg)
+        elif msg not in shown:
+            shown.add(msg)
+            warnings.showwarning(w.message, w.category, w.filename,
+                                 w.lineno)
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -1113,6 +1150,12 @@ FLASH_CASES = [
     ("g head_dim 256", (2, 1024, 1024, 8, 8, 256, True, False, False)),
     ("h fused encoder, packed qkv",
      (16, 512, 512, 12, 12, 64, False, False, True)),
+    # the training calls of phases 17 and 18: LLaMA-2-13B's widths (MHA,
+    # 40 heads of 128, LLaMA-2's context), the GQA sub-run, bert_base
+    ("i llama2_13b train", (2, 4096, 4096, 40, 40, 128, True, False, False)),
+    ("j llama GQA 32/8 train",
+     (2, 2048, 2048, 32, 8, 128, True, False, False)),
+    ("k bert_base train", (32, 512, 512, 12, 12, 64, False, False, False)),
 ]
 # kernel vs plain tolerances, element by element: |got - want| <= tol *
 # (|want| + rms of want's row + rms of want), a row being the head_dim
@@ -1506,7 +1549,8 @@ def _counted_steps(step, batch, n_calls) -> dict:
     capture, and the card runs the captured launches once a replay. The
     counters read around each capture split the two, so the launches on
     the card are the eager step's plus the captured step's times the
-    replays. Launch tuples are (B1, B2, update)."""
+    replays. Launch tuples are (B1, B2, update). torch's AccumulateGrad
+    stream-mismatch warnings are counted (stream_mismatch_warnings)."""
     import torch
     from paddle_tpu_torch.jit import cuda_graph
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -1516,7 +1560,8 @@ def _counted_steps(step, batch, n_calls) -> dict:
         return (fa.flash_fwd.kernel_launches, fa.flash_bwd.kernel_launches,
                 mta.multi_tensor_adam.kernel_launches)
 
-    with capture_counts(read) as spans:
+    with stream_mismatch_warnings() as warned, \
+            capture_counts(read) as spans:
         fa.reset_counters()
         mta.multi_tensor_adam.kernel_launches = 0
         mta.multi_tensor_adam.plain_calls = 0
@@ -1545,7 +1590,8 @@ def _counted_steps(step, batch, n_calls) -> dict:
         counted=counted, in_graph=in_graph, eager=eager,
         on_device=tuple(e + g * n_replays for e, g in zip(eager, in_graph)),
         distinct=len({x.data_ptr() for x in losses}) == len(losses),
-        losses=[float(x) for x in losses], step_s=step_s)
+        losses=[float(x) for x in losses], step_s=step_s,
+        stream_warnings=len(warned))
     return run
 
 
@@ -1600,6 +1646,8 @@ def train_phase() -> dict:
         "the update kernel at one launch in the captured step and one "
         "in the eager one": (in_graph[2], eager[2]) == (1, 1),
         "no plain update call": update_plain == 0,
+        "no AccumulateGrad stream-mismatch warning":
+            run["stream_warnings"] == 0,
     }
     for what, ok in checks.items():
         log(f"[train] check: {what}: {'ok' if ok else 'FAILED'}")
@@ -1642,6 +1690,7 @@ def train_phase() -> dict:
     tok_s = batch * seq * steps / sum(timed_s)
     med = statistics.median(timed_s)
     rec = dict(config="gpt2_small", layers=L, batch=batch, seq=seq,
+               stream_warnings=run["stream_warnings"],
                params=n, warmup_steps=warmup, timed_steps=steps,
                tokens_per_s=tok_s, step_ms_median=1e3 * med,
                step_ms=[1e3 * x for x in timed_s],
@@ -1690,10 +1739,37 @@ def train_phase() -> dict:
 # phase 7: TrainStep with the kernels == TrainStep with the composite
 # ---------------------------------------------------------------------------
 def _params_diff(pa, pb, lr):
-    """(largest |a - b|, elements beyond 1e-3 * lr, elements)."""
-    err = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
-    far = sum(int(((pa[k] - pb[k]).abs() > 1e-3 * lr).sum()) for k in pa)
-    return err, far, sum(v.numel() for v in pa.values())
+    """(largest |a - b|, elements beyond 1e-3 * lr, elements) of two
+    sequences of parameter tensors in one order."""
+    if len(pa) != len(pb):
+        raise ValueError(f"{len(pa)} tensors against {len(pb)}")
+    err = max(float((a - b).abs().max()) for a, b in zip(pa, pb))
+    far = sum(int(((a - b).abs() > 1e-3 * lr).sum()) for a, b in zip(pa, pb))
+    return err, far, sum(a.numel() for a in pa)
+
+
+def _held_to(losses, want_losses, params, want_params, lr, n_steps):
+    """Phase 7's rule, which every comparison of two training runs
+    uses: losses within 1e-5 relative, no parameter element beyond
+    2 * lr * steps apart, and fewer than 2e-3 of the elements beyond
+    1e-3 * lr. A sign flip of a near-zero gradient moves an Adam
+    parameter by up to ~2 lr a step, so one element may reach the
+    bound, but such flips are rare (the key bias, whose gradient is
+    zero up to rounding); a wrong dq, dk or dv moves every parameter it
+    reaches by ~lr. `params`, `want_params`: the runs' parameters (state
+    dict values) in one order. Returns the comparison's record, `ok`
+    whether it holds."""
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    err, far, n = _params_diff(params, want_params, lr)
+    bound = 2 * lr * n_steps
+    return dict(loss_max_rel_diff=loss_err, param_max_abs_diff=err,
+                params_far=far, params_total=n, param_bound=bound,
+                ok=loss_err <= 1e-5 and err <= bound and far / n < 2e-3)
+
+
+def _state(model):
+    """A copy of the model's state dict values, in their order."""
+    return [v.detach().clone() for v in model.state_dict().values()]
 
 
 def train_parity_phase() -> dict:
@@ -1734,39 +1810,33 @@ def train_parity_phase() -> dict:
             raise RuntimeError(f"parity run flash={flash} graphed={graphed}:"
                                f" kernel launches {n1} from {n0}, expected "
                                f"+{want}")
-        runs[flash, graphed] = (losses, {k: v.detach().clone() for k, v in
-                                         model.state_dict().items()})
+        runs[flash, graphed] = (losses, _state(model))
         del model, step
-    bound = 2 * lr * n_steps
-    # the share of parameter elements that differ by more than 1e-3 * lr:
-    # a sign flip of a near-zero gradient moves an Adam parameter by up to
-    # ~2 lr a step, so one element may reach the bound, but in f32 such
-    # flips are rare (the key bias, whose gradient is zero up to rounding);
-    # a wrong dq, dk or dv moves every parameter it reaches by ~lr.
-    # f32 on both sides (kernels in full f32, cuBLAS without TF32): only
-    # summation order differs, ~1e-6 relative on the loss
+    # phase 7's rule (_held_to). f32 on both sides (kernels in full f32,
+    # cuBLAS without TF32): only summation order differs, ~1e-6 relative
+    # on the loss
     out = {}
     for what, other in (("composite", (False, True)),
                         ("eager", (True, False))):
         (lk, pk), (lc, pc) = runs[True, True], runs[other]
-        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lc))
-        param_err, far, n = _params_diff(pk, pc, lr)
-        ok = loss_err <= 1e-5 and param_err <= bound and far / n < 2e-3
+        cmp = _held_to(lk, lc, pk, pc, lr, n_steps)
+        far, n = cmp["params_far"], cmp["params_total"]
         log(f"[train-parity] f32, 2 layers, batch 2 x seq 512, {n_steps} "
             f"steps, kernels through the step graph vs {what}: losses "
             f"{[round(x, 6) for x in lk]} vs {[round(x, 6) for x in lc]} "
-            f"(max rel diff {loss_err:.2e}, tol 1e-5); params max abs diff "
-            f"{param_err:.2e} (bound 2*lr*steps = {bound:.1e}), {far} of "
-            f"{n} elements differ by more than 1e-3*lr (share "
-            f"{far / n:.2e}, tol 2e-3): {'ok' if ok else 'FAILED'}")
-        if not ok:
+            f"(max rel diff {cmp['loss_max_rel_diff']:.2e}, tol 1e-5); "
+            f"params max abs diff {cmp['param_max_abs_diff']:.2e} (bound "
+            f"2*lr*steps = {cmp['param_bound']:.1e}), {far} of {n} "
+            f"elements differ by more than 1e-3*lr (share {far / n:.2e}, "
+            f"tol 2e-3): {'ok' if cmp['ok'] else 'FAILED'}")
+        if not cmp["ok"]:
             raise RuntimeError(f"TrainStep with the kernels through the "
                                f"graph differs from the {what} run")
-        out[what] = dict(losses=lc, loss_max_rel_diff=loss_err,
-                         param_max_abs_diff=param_err, params_far=far)
+        out[what] = dict(losses=lc, **{k: cmp[k] for k in (
+            "loss_max_rel_diff", "param_max_abs_diff", "params_far")})
     torch.cuda.empty_cache()
     return dict(losses_kernels_graph=runs[True, True][0],
-                param_bound=bound, params_total=n, **out)
+                param_bound=cmp["param_bound"], params_total=n, **out)
 
 
 # ---------------------------------------------------------------------------
@@ -2327,7 +2397,8 @@ def _train_run(tag, label, model, step, batch, per_step, warmup=2,
     graph (_counted_steps), checked: every loss finite, one capture and
     every later call a replay, (B1, B2, update) at `per_step` launches in
     the eager first step and in the captured one, every B1/B2 launch
-    sm90, no plain version on CUDA tensors. Then the step by wall (the
+    sm90, no plain version on CUDA tensors, no AccumulateGrad
+    stream-mismatch warning. Then the step by wall (the
     median of the timed calls) and by replay of its graph, the idle
     share, tokens/s, MFU (bench.py's 6·N·tokens/s over the bf16 peak, N
     the model's parameters) and peak memory since the caller's reset.
@@ -2349,6 +2420,8 @@ def _train_run(tag, label, model, step, batch, per_step, warmup=2,
             {"sm90": 2 * per_step[1], "simple": 0}),
         "no plain version ran on CUDA tensors": run["plain"] == (0, 0)
             and run["update_plain"] == 0,
+        "no AccumulateGrad stream-mismatch warning":
+            run["stream_warnings"] == 0,
     }
     _check(f"[{tag}] {label}:", checks, run)
     graph = next(iter(step._graphs.values()))[0].graph
@@ -2372,7 +2445,7 @@ def _train_run(tag, label, model, step, batch, per_step, warmup=2,
         launches_in_graph=list(run["in_graph"]),
         launches_on_device=list(run["on_device"]),
         captures=run["captures"], replays=run["replays"],
-        losses=run["losses"])
+        stream_warnings=run["stream_warnings"], losses=run["losses"])
     log(f"[{tag}] {label}: {n} params, {tokens} tokens a step: step "
         f"median {wall_ms:.2f} ms by wall ({min(rec['step_ms']):.2f}-"
         f"{max(rec['step_ms']):.2f} over {steps}), {replay_ms:.2f} ms by "
@@ -2386,13 +2459,25 @@ def _train_run(tag, label, model, step, batch, per_step, warmup=2,
     return rec
 
 
+def _require_sm90(label, shape_q, shape_k):
+    """Raise unless a bf16 attention call on [b, s, H, D] operands of
+    these shapes takes B1's and B2's sm90 kernels."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    d = shape_q[-1]
+    picked = (fa.attention_path(shape_q, shape_k),
+              fa._fwd_design(torch.bfloat16, d),
+              fa._bwd_design(torch.bfloat16, d))
+    if picked != (("cuda", ""), "sm90", "sm90"):
+        raise RuntimeError(f"{label} attention would not take B1/B2's "
+                           f"sm90 kernels: {picked}")
+
+
 def _train_1p3b(recompute: bool) -> dict:
     """One TrainStep run of bench_gpt_1p3b's config (with or without
     recompute) through its graph, 2 warm-up calls and 6 timed: counters,
     losses, the step by wall and by replay, peak memory from a freed
     card."""
-    import torch
-    from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.models import gpt3_1p3b
     held = _fresh_card()
     cfg = gpt3_1p3b(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
@@ -2401,12 +2486,7 @@ def _train_1p3b(recompute: bool) -> dict:
                     recompute_policy="full")
     b, s = B1P3_BATCH, B1P3_SEQ
     shape = (b, s, cfg.num_heads, cfg.head_dim)
-    picked = (fa.attention_path(shape, shape),
-              fa._fwd_design(torch.bfloat16, cfg.head_dim),
-              fa._bwd_design(torch.bfloat16, cfg.head_dim))
-    if picked != (("cuda", ""), "sm90", "sm90"):
-        raise RuntimeError(f"gpt3_1p3b attention would not take B1/B2's "
-                           f"sm90 kernels: {picked}")
+    _require_sm90("gpt3_1p3b", shape, shape)
     model, step = _gpt_train_step(cfg, use_amp=True, lr=1e-4, seed=0,
                                   moment_dtype="bfloat16")
     rng = np.random.default_rng(0)
@@ -2452,10 +2532,8 @@ def recompute_parity_phase() -> dict:
     3 TrainStep steps through the graph with recompute, for each case,
     against 3 eager steps without it. Equal masks and equal kernels
     should make the two equal bit for bit; they are held to phase 7's
-    rule (no element beyond 2 * lr * steps, fewer than 2e-3 of them
-    beyond 1e-3 * lr: one block's masks drawn anew move nearly every
-    parameter by ~lr), losses within 1e-5 relative, and the largest
-    difference is recorded."""
+    rule (_held_to: one block's masks drawn anew would move nearly every
+    parameter by ~lr), and the largest difference is recorded."""
     import gc
 
     import torch
@@ -2476,8 +2554,7 @@ def recompute_parity_phase() -> dict:
         n0 = fa.flash_fwd.kernel_launches
         losses = [float(step(ids, labels)) for _ in range(n_steps)]
         b1 = fa.flash_fwd.kernel_launches - n0
-        params = {k: v.detach().clone()
-                  for k, v in model.state_dict().items()}
+        params = _state(model)
         del model, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -2492,26 +2569,24 @@ def recompute_parity_phase() -> dict:
         losses, got, b1 = run(cfg, eager=False)
         # the eager first step's launches and the captured step's
         want_b1 = 2 * (layers + len(range(0, layers, interval)))
-        loss_err = max(abs(a - w) / abs(w)
-                       for a, w in zip(losses, want_losses))
-        err, far, n = _params_diff(got, want, lr)
-        ok = (b1 == want_b1 and all(np.isfinite(losses))
-              and loss_err <= 1e-5 and err <= 2 * lr * n_steps
-              and far / n < 2e-3)
+        cmp = _held_to(losses, want_losses, got, want, lr, n_steps)
+        ok = b1 == want_b1 and all(np.isfinite(losses)) and cmp["ok"]
         log(f"[recompute-parity] interval {interval}, {policy}: graph "
             f"steps with recompute vs eager steps without, losses "
             f"{[round(x, 5) for x in losses]} vs "
             f"{[round(x, 5) for x in want_losses]} (max rel diff "
-            f"{loss_err:.2e}, tol 1e-5); params max abs diff {err:.3e} "
-            f"(bound {2 * lr * n_steps:.1e}), {far} of {n} beyond 1e-3*lr;"
-            f" B1 launches {b1} (expected {want_b1}): "
-            f"{'ok' if ok else 'FAILED'}")
+            f"{cmp['loss_max_rel_diff']:.2e}, tol 1e-5); params max abs "
+            f"diff {cmp['param_max_abs_diff']:.3e} (bound "
+            f"{cmp['param_bound']:.1e}), {cmp['params_far']} of "
+            f"{cmp['params_total']} beyond 1e-3*lr; B1 launches {b1} "
+            f"(expected {want_b1}): {'ok' if ok else 'FAILED'}")
         if not ok:
             raise RuntimeError(f"recompute parity failed at interval "
                                f"{interval}, {policy}")
         out.append(dict(interval=interval, policy=policy, losses=losses,
-                        loss_max_rel_diff=loss_err, param_max_abs_diff=err,
-                        params_far=far, b1_launches=b1))
+                        b1_launches=b1, **{k: cmp[k] for k in (
+                            "loss_max_rel_diff", "param_max_abs_diff",
+                            "params_far")}))
     return dict(eager_losses=want_losses, cases=out)
 
 
@@ -2675,8 +2750,7 @@ def f16_train_phase() -> dict:
     model, step = _gpt_train_step(cfg, use_amp=True, amp_dtype="float16")
     run = _counted_steps(step, (ids, labels), F16_GRAPH_CALLS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    graph_params = {kk: v.detach().clone()
-                    for kk, v in model.state_dict().items()}
+    graph_params = _state(model)
     # after the parameters are kept: each replay is one more step
     graph = next(iter(step._graphs.values()))[0].graph
     replay_ms = _replay_ms(graph)
@@ -2686,14 +2760,14 @@ def f16_train_phase() -> dict:
     step._eager = True
     eager_losses = [float(step(ids, labels))
                     for _ in range(F16_GRAPH_CALLS)]
-    lr = step.optimizer.get_lr()
-    param_err, far, n_el = _params_diff(graph_params, {
-        kk: v.detach() for kk, v in model.state_dict().items()}, lr)
+    cmp = _held_to(run["losses"], eager_losses, graph_params,
+                   list(model.state_dict().values()),
+                   step.optimizer.get_lr(), F16_GRAPH_CALLS)
+    loss_err, param_err = cmp["loss_max_rel_diff"], cmp["param_max_abs_diff"]
+    far, n_el, bound = cmp["params_far"], cmp["params_total"], \
+        cmp["param_bound"]
     del model, step, graph_params
     torch.cuda.empty_cache()
-    loss_err = max(abs(a - b) / abs(b)
-                   for a, b in zip(run["losses"], eager_losses))
-    bound = 2 * lr * F16_GRAPH_CALLS
 
     o2 = _o2_step(cfg, ids, labels)
 
@@ -2727,8 +2801,9 @@ def f16_train_phase() -> dict:
         "plain versions never ran on CUDA tensors": sc["plain_calls"]
             == [0, 0] and run["plain"] == (0, 0)
             and run["update_plain"] == 0,
-        "graph steps == eager steps (phase 7's rule)": loss_err <= 1e-5
-            and param_err <= bound and far / n_el < 2e-3,
+        "no AccumulateGrad stream-mismatch warning in the graph steps":
+            run["stream_warnings"] == 0,
+        "graph steps == eager steps (phase 7's rule)": cmp["ok"],
         "O2: f16 parameters, f32 masters, one update launch writing the "
         "masters' casts": o2["params_f16"] and o2["masters_f32"]
             and o2["params_are_master_casts"]
@@ -2765,7 +2840,7 @@ def f16_train_phase() -> dict:
         b2_launches_on_device=run["on_device"][1],
         scaler_b1_launches=sc["b1_design_launches"]["sm90"],
         scaler_b2_launches=sc["b2_design_launches"]["sm90"],
-        peak_mem_gb=peak, o2=o2)
+        stream_warnings=run["stream_warnings"], peak_mem_gb=peak, o2=o2)
     log(f"[train-f16] gpt2_small f16 O1 AdamW, {L} layers, batch {batch} "
         f"x seq {seq}: eager with GradScaler step median "
         f"{1e3 * eager_med:.2f} ms by wall, {tok_eager:.1f} tokens/s, MFU "
@@ -2849,64 +2924,67 @@ def f16_engine_phase() -> dict:
 # ---------------------------------------------------------------------------
 # phases 17-18: LLaMA and BERT trained through TrainStep's graph
 # ---------------------------------------------------------------------------
-def _graph_vs_eager(build, batch, n_steps) -> dict:
-    """`n_steps` TrainStep calls through the graph, then as many eager
-    steps of a model built alike from the same seed, held to each other
-    by phase 7's rule (losses within 1e-5 relative; no parameter element
-    beyond 2 * lr * steps apart, fewer than 2e-3 of them beyond
-    1e-3 * lr). B1/B2's launches are counted by design in each run, and
-    the eager run's B1 calls recorded: {(q shape, k shape, causal,
-    dtype)}."""
+def _b1_signature(args, _result):
+    """(q shape, k shape, causal, dtype) of a recorded B1 call."""
+    return (tuple(args[0].shape), tuple(args[1].shape), args[3],
+            str(args[0].dtype))
+
+
+def _graph_vs_eager(build, batch, n_steps, build_eager=None) -> dict:
+    """`n_steps` TrainStep calls through the graph of the model and step
+    `build()` makes, then as many eager steps of those `build_eager()`
+    (default `build`) makes from the same seed, held to each other by
+    phase 7's rule (_held_to). In each run B1/B2's launches are counted
+    by design, B1's calls recorded as {(q shape, k shape, causal,
+    dtype)}, and torch's AccumulateGrad stream-mismatch warnings
+    counted."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     runs = {}
     for eager in (False, True):
         _fresh_card()
-        model, step = build()
+        model, step = (build_eager or build)() if eager else build()
         step._eager = eager
         fa.reset_counters()
-        with kernel_calls(fa, "_fwd_cuda") as calls:
+        with stream_mismatch_warnings() as warned, kernel_calls(
+                fa, "_fwd_cuda", keep=_b1_signature) as calls:
             losses = [float(step(*batch)) for _ in range(n_steps)]
-            b1_calls = {(tuple(a[0].shape), tuple(a[1].shape), a[3],
-                         str(a[0].dtype)) for a, _ in calls}
-            calls.clear()
         runs[eager] = dict(
-            losses=losses, b1_calls=b1_calls,
+            losses=losses, b1_calls=set(calls),
             designs=dict(fa.flash_fwd.design_launches),
             bwd_designs=dict(fa.flash_bwd.design_launches),
             plain=(fa.flash_fwd.plain_calls, fa.flash_bwd.plain_calls),
-            params={k: v.detach().clone()
-                    for k, v in model.state_dict().items()})
+            stream_warnings=len(warned), params=_state(model))
         lr = step.optimizer.get_lr()
         del model, step
     graph, eager = runs[False], runs[True]
-    loss_err = max(abs(a - b) / abs(b)
-                   for a, b in zip(graph["losses"], eager["losses"]))
-    err, far, n = _params_diff(graph.pop("params"), eager.pop("params"), lr)
+    cmp = _held_to(graph["losses"], eager["losses"], graph.pop("params"),
+                   eager.pop("params"), lr, n_steps)
     _fresh_card()
-    return dict(graph=graph, eager=eager, loss_max_rel_diff=loss_err,
-                param_max_abs_diff=err, params_far=far, params_total=n,
-                param_bound=2 * lr * n_steps,
-                ok=loss_err <= 1e-5 and err <= 2 * lr * n_steps
-                and far / n < 2e-3)
+    return dict(graph=graph, eager=eager, **cmp)
 
 
-def _parity_checks(res, layers, n_steps, want_calls):
+def _parity_checks(res, layers, n_steps, want_calls, remat=False):
     """phase 7's rule and the launch counts of a _graph_vs_eager run:
     the graph run launches B1 and B2 once a layer in its eager first
-    step and once in the capture, the eager run once a layer a step, all
-    sm90; the eager run's B1 calls are `want_calls`."""
+    step and once in the capture (B1 twice with every layer recomputed,
+    `remat`), the eager run once a layer a step, all sm90; both runs'
+    B1 calls are `want_calls`; no AccumulateGrad stream-mismatch
+    warning in either run."""
     g, e = res["graph"], res["eager"]
-    sm90 = {k: {"sm90": n * layers, "simple": 0}
-            for k, n in (("graph", 2), ("eager", n_steps))}
+    sm90 = lambda n: {"sm90": n * layers, "simple": 0}
     return {
         "every loss finite": all(np.isfinite(g["losses"] + e["losses"])),
         "graph steps == eager steps (phase 7's rule)": res["ok"],
         "B1/B2 launches by design, graph and eager runs": (
             g["designs"], g["bwd_designs"], e["designs"], e["bwd_designs"])
-            == (sm90["graph"], sm90["graph"], sm90["eager"], sm90["eager"]),
+            == (sm90(4 if remat else 2), sm90(2), sm90(n_steps),
+                sm90(n_steps)),
         "no plain version ran on CUDA tensors": g["plain"] == e["plain"]
             == (0, 0),
-        f"B1's calls {want_calls}": e["b1_calls"] == want_calls,
+        f"B1's calls {want_calls} in both runs":
+            g["b1_calls"] == e["b1_calls"] == want_calls,
+        "no AccumulateGrad stream-mismatch warning in either run":
+            g["stream_warnings"] == e["stream_warnings"] == 0,
     }
 
 
@@ -2915,6 +2993,8 @@ def _parity_record(res):
     return dict(b1_calls=sorted(map(str, res["eager"]["b1_calls"])),
                 graph_losses=res["graph"]["losses"],
                 eager_losses=res["eager"]["losses"],
+                stream_warnings=[res["graph"]["stream_warnings"],
+                                 res["eager"]["stream_warnings"]],
                 **{k: v for k, v in res.items()
                    if k not in ("graph", "eager")})
 
@@ -2928,21 +3008,28 @@ def _log_parity(tag, label, res):
         f"{res['param_bound']:.1e}), {res['params_far']} of "
         f"{res['params_total']} beyond 1e-3*lr; B1/B2 launches by design "
         f"graph {res['graph']['designs']}/{res['graph']['bwd_designs']}, "
-        f"eager {res['eager']['designs']}/{res['eager']['bwd_designs']}")
+        f"eager {res['eager']['designs']}/{res['eager']['bwd_designs']}; "
+        f"AccumulateGrad stream warnings graph "
+        f"{res['graph']['stream_warnings']}, eager "
+        f"{res['eager']['stream_warnings']}")
 
 
-def _sm90_picked(shape_q, shape_k, head_dim):
-    """(attention_path, B1's design, B2's design) of a bf16 call."""
-    import torch
-    from paddle_tpu_torch.kernels import flash_attention as fa
-    return (fa.attention_path(shape_q, shape_k),
-            fa._fwd_design(torch.bfloat16, head_dim),
-            fa._bwd_design(torch.bfloat16, head_dim))
+def _parity_subrun(tag, label, build, batch, layers, want_calls,
+                   build_eager=None, remat=False) -> dict:
+    """A _graph_vs_eager run of PARITY_STEPS steps, logged, checked
+    (_parity_checks) and recorded."""
+    res = _graph_vs_eager(build, batch, PARITY_STEPS, build_eager)
+    _log_parity(tag, label, res)
+    _check(f"[{tag}]", _parity_checks(res, layers, PARITY_STEPS,
+                                      want_calls, remat), res)
+    return dict(layers=layers, **_parity_record(res))
 
 
 # phase 17: LLaMA-2-13B's widths (hidden 5120, 40 heads of 128, FFN
-# 13824, vocab 32000) cut to 4 layers, LLaMA-2's 4096-token context
+# 13824, vocab 32000) cut to 4 layers, LLaMA-2's 4096-token context; its
+# recompute sub-run cut to 2 layers
 LLAMA13_LAYERS, LLAMA13_BATCH, LLAMA13_SEQ = 4, 2, 4096
+LLAMA13_REMAT_PARITY_LAYERS = 2
 # the GQA sub-run: phase 10's config (llama2_7b's widths, 8 kv heads)
 LLAMA_GQA_LAYERS, LLAMA_GQA_KV, LLAMA_GQA_BATCH, LLAMA_GQA_SEQ = 2, 8, 2, 2048
 PARITY_STEPS = 3
@@ -2993,18 +3080,16 @@ def llama_train_phase() -> dict:
     """Phase 17: LLaMA-2-13B's widths at 4 layers, b2 x s4096, bf16 O1,
     AdamW, flash attention (MHA, 40 heads of 128), random weights from
     seed 0, through TrainStep's graph (2 + 6 calls), without recompute
-    and with every layer recomputed; then the GQA sub-run: 2 layers at
-    llama2_7b's widths with 8 kv heads, b2 x s2048, 3 graph steps held
-    to 3 eager steps."""
+    and with every layer recomputed; then two sub-runs of 3 graph steps
+    held to 3 eager steps: the same widths and batch at 2 layers, every
+    layer recomputed in the graph steps and none in the eager ones; and
+    GQA, 2 layers at llama2_7b's widths with 8 kv heads, b2 x s2048."""
     from paddle_tpu_torch.models import llama2_7b, llama2_13b
     cfg = dataclasses.replace(llama2_13b(use_flash_attention=True),
                               num_layers=LLAMA13_LAYERS)
     b, s, L = LLAMA13_BATCH, LLAMA13_SEQ, cfg.num_layers
     shape = (b, s, cfg.num_heads, cfg.head_dim)
-    picked = _sm90_picked(shape, shape, cfg.head_dim)
-    if picked != (("cuda", ""), "sm90", "sm90"):
-        raise RuntimeError(f"llama2_13b attention would not take B1/B2's "
-                           f"sm90 kernels: {picked}")
+    _require_sm90("llama2_13b", shape, shape)
     ids = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, s)).astype(np.int32)
     out = {}
@@ -3025,24 +3110,33 @@ def llama_train_phase() -> dict:
         f"a step by wall ({cost['step_ms_replay']:.2f} by replay) and saves "
         f"{-cost['peak_mem_gb']:.2f} GiB of peak memory")
 
+    rl = LLAMA13_REMAT_PARITY_LAYERS
+    rcfg = dataclasses.replace(cfg, num_layers=rl)
+    out["recompute_parity"] = dict(
+        config="llama2_13b widths", batch=b, seq=s, **_parity_subrun(
+            "train-llama13b-remat", f"llama2_13b widths, {rl} layers, "
+            f"batch {b} x seq {s}, bf16 O1, every layer recomputed in the "
+            f"graph steps, none in the eager ones",
+            lambda: _llama_train_step(rcfg, recompute_layers=True), (ids,),
+            rl, {(shape, shape, True, "torch.bfloat16")},
+            build_eager=lambda: _llama_train_step(rcfg), remat=True))
+
     gcfg = dataclasses.replace(
         llama2_7b(num_kv_heads=LLAMA_GQA_KV, use_flash_attention=True),
         num_layers=LLAMA_GQA_LAYERS)
     gb, gs = LLAMA_GQA_BATCH, LLAMA_GQA_SEQ
+    gq = (gb, gs, gcfg.num_heads, gcfg.head_dim)
+    gk = (gb, gs, LLAMA_GQA_KV, gcfg.head_dim)
+    _require_sm90("llama2_7b GQA", gq, gk)
     gids = np.random.default_rng(3).integers(
         0, gcfg.vocab_size, (gb, gs)).astype(np.int32)
-    res = _graph_vs_eager(lambda: _llama_train_step(gcfg), (gids,),
-                          PARITY_STEPS)
-    want = {((gb, gs, gcfg.num_heads, gcfg.head_dim),
-             (gb, gs, LLAMA_GQA_KV, gcfg.head_dim), True, "torch.bfloat16")}
-    _log_parity("train-llama-gqa", f"llama2_7b widths, {LLAMA_GQA_LAYERS} "
-                f"layers, GQA {gcfg.num_heads}/{LLAMA_GQA_KV}, batch {gb} x "
-                f"seq {gs}, bf16 O1", res)
-    _check("[train-llama-gqa]", _parity_checks(
-        res, LLAMA_GQA_LAYERS, PARITY_STEPS, want), res)
-    out["gqa"] = dict(config="llama2_7b widths, 8 kv heads",
-                      layers=LLAMA_GQA_LAYERS, batch=gb, seq=gs,
-                      **_parity_record(res))
+    out["gqa"] = dict(
+        config="llama2_7b widths, 8 kv heads", batch=gb, seq=gs,
+        **_parity_subrun(
+            "train-llama-gqa", f"llama2_7b widths, {LLAMA_GQA_LAYERS} "
+            f"layers, GQA {gcfg.num_heads}/{LLAMA_GQA_KV}, batch {gb} x "
+            f"seq {gs}, bf16 O1", lambda: _llama_train_step(gcfg), (gids,),
+            LLAMA_GQA_LAYERS, {(gq, gk, True, "torch.bfloat16")}))
     return out
 
 
@@ -3080,10 +3174,7 @@ def bert_train_phase() -> dict:
     b, s, L = BERT_BATCH, BERT_SEQ, cfg.num_layers
     hd = cfg.hidden_size // cfg.num_heads
     shape = (b, s, cfg.num_heads, hd)
-    picked = _sm90_picked(shape, shape, hd)
-    if picked != (("cuda", ""), "sm90", "sm90"):
-        raise RuntimeError(f"bert_base attention would not take B1/B2's "
-                           f"sm90 kernels: {picked}")
+    _require_sm90("bert_base", shape, shape)
     # bench_bert_base's batch: ids, and labels at ~15 % of the positions
     rng = np.random.default_rng(0)
     ids = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
@@ -3091,6 +3182,9 @@ def bert_train_phase() -> dict:
     held = _fresh_card()
     model, step = _bert_train_step(cfg)
     n_tensors = len(list(model.parameters()))
+    _check("[train-bert]", {
+        "bert_base's 204 tensors (2 update launches a step)":
+            n_tensors == 204}, n_tensors)
     rec = _train_run("train-bert", "bert_base (bench_bert_base)", model,
                      step, (ids, labels), per_step=(L, L, 2))
     rec.update(config="bert_base (bench_bert_base)", layers=L, batch=b,
@@ -3098,16 +3192,10 @@ def bert_train_phase() -> dict:
                masked_positions=int((labels != -100).sum()))
     del model, step
     two = dataclasses.replace(cfg, num_layers=2)
-    res = _graph_vs_eager(lambda: _bert_train_step(two), (ids, labels),
-                          PARITY_STEPS)
-    want = {(shape, shape, False, "torch.bfloat16")}
-    _log_parity("train-bert", f"bert_base widths, 2 layers, batch {b} x "
-                f"seq {s}, bf16 O1", res)
-    checks = _parity_checks(res, 2, PARITY_STEPS, want)
-    checks["bert_base's 204 tensors (2 update launches a step)"] = \
-        n_tensors == 204
-    _check("[train-bert]", checks, res)
-    rec["two_layers"] = _parity_record(res)
+    rec["two_layers"] = _parity_subrun(
+        "train-bert", f"bert_base widths, 2 layers, batch {b} x seq {s}, "
+        f"bf16 O1", lambda: _bert_train_step(two), (ids, labels), 2,
+        {(shape, shape, False, "torch.bfloat16")})
     return rec
 
 

@@ -13,7 +13,7 @@ from torch import nn
 from ...core.device import resolve_device
 from ...core.dtype import to_dtype
 from .. import functional as F
-from ..initializer import Constant, XavierUniform, get_initializer
+from ..initializer import Constant, XavierUniform
 
 
 class Linear(nn.Module):
@@ -78,17 +78,29 @@ def _drawn(init, shape, fk, generator):
                              generator=generator))
 
 
+def _attr_initializer(attr, default):
+    """The initializer the reference's ``create_parameter`` takes for a
+    ``weight_attr`` / ``bias_attr`` (nn/layer.py:143-158): a callable
+    itself, anything else (None, True, ...) `default`. A ``ParamAttr``
+    is not ported yet (ROADMAP item 14) and raises."""
+    if type(attr).__name__ == "ParamAttr":
+        raise NotImplementedError(
+            "ParamAttr is not ported yet: pass an initializer as "
+            "weight_attr / bias_attr")
+    return attr if callable(attr) else default
+
+
 def _drawn_linear(in_features, out_features, weight_attr, bias_attr, fk,
                   generator):
-    """The reference's ``Linear(in, out, weight_attr, bias_attr)``
-    (nn/layer.py:155-158 for the defaults): the weight drawn by
-    `weight_attr` (default XavierUniform), the bias by `bias_attr`
-    (default 0), no bias when `bias_attr` is False."""
+    """The reference's ``Linear(in, out, weight_attr, bias_attr)``: the
+    weight drawn by `weight_attr`, the bias by `bias_attr`, each as
+    ``_attr_initializer`` takes them (defaults XavierUniform and 0); no
+    bias when `bias_attr` is False."""
     lin = Linear(in_features, out_features, bias=bias_attr is not False,
                  **fk)
-    lin.weight = _drawn(get_initializer(weight_attr) or XavierUniform(),
+    lin.weight = _drawn(_attr_initializer(weight_attr, XavierUniform()),
                         (in_features, out_features), fk, generator)
     if lin.bias is not None:
-        lin.bias = _drawn(get_initializer(bias_attr) or Constant(0.0),
+        lin.bias = _drawn(_attr_initializer(bias_attr, Constant(0.0)),
                           (out_features,), fk, generator)
     return lin

@@ -14,7 +14,8 @@ the CUDA card, raises without one; "cpu" by request), ``dtype`` and
 drawn from (None: torch's default generator of the device; no layer
 keeps it). Defaults are the reference's: Linear weights
 ``XavierUniform``, biases 0 (``weight_attr`` / ``bias_attr`` take
-initializers; ``bias_attr=False`` drops the bias), LayerNorm 1 and 0.
+initializers, any other value the default, ``ParamAttr`` not yet;
+``bias_attr=False`` drops the bias), LayerNorm 1 and 0.
 Dropout masks, here and in the composite attention, are drawn from the
 ``generator`` attribute of each ``Dropout`` and ``MultiHeadAttention``
 (None: torch's default generator), which a model sets after

@@ -286,6 +286,35 @@ def test_layers_draw_the_reference_defaults():
     assert sorted(jax_state_numpy(jm)) == sorted(mha.state_dict())
 
 
+@pytest.mark.parametrize("attr", [True, "w"], ids=["true", "string"])
+def test_other_attrs_take_the_defaults_as_in_reference(attr):
+    """The reference's create_parameter (nn/layer.py:143-158) gives the
+    default initializer for a weight_attr / bias_attr that is neither
+    None, False, a ParamAttr nor callable: both packages build such a
+    layer with the same names, Xavier-bounded weights and zero biases.
+    A ParamAttr is not ported: the port raises NotImplementedError."""
+    from paddle_tpu.nn.param_attr import ParamAttr
+    from paddle_tpu_torch.nn import initializer as I
+    pt.seed(0)
+    want = jax_state_numpy(jt.MultiHeadAttention(
+        D_MODEL, NHEAD, weight_attr=attr, bias_attr=attr))
+    got = {k: v.numpy() for k, v in tt.MultiHeadAttention(
+        D_MODEL, NHEAD, weight_attr=attr, bias_attr=attr, device="cpu",
+        init_generator=torch.Generator().manual_seed(0)).state_dict().items()}
+    assert sorted(got) == sorted(want)
+    limit = np.sqrt(6.0 / (2 * D_MODEL))
+    for name in want:
+        for x in (got[name], want[name]):
+            if name.endswith("bias"):
+                assert not x.any()
+            else:
+                assert 0.9 * limit < np.abs(x).max() <= limit
+    with pytest.raises(NotImplementedError, match="ParamAttr"):
+        tt.MultiHeadAttention(
+            D_MODEL, NHEAD, weight_attr=ParamAttr(initializer=I.Constant(
+                0.5)), device="cpu")
+
+
 def test_transformer_layers_need_cuda_unless_cpu_requested():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CUDA default is valid here")

@@ -141,7 +141,28 @@ Run from the root of a checkout. Phases, each of which must pass:
      tensors), all sm90, every loss finite; the same numbers as phase
      17; then a 2-layer copy at the same widths and batch, 3 graph steps
      held to 3 eager steps, B1's calls recorded (non-causal, head_dim
-     64, bf16).
+     64, bf16);
+ 19. bench.py::bench_resnet50's config, BASELINE config 1, at full width
+     and depth (resnet50 NHWC with the space-to-depth stem, 1000
+     classes, 25,557,032 parameters, batch 256 x 224^2 x 3 images from
+     a numpy seed on the card, bf16 O1, Momentum lr 0.1 with momentum
+     0.9 and weight decay 1e-4, FLAGS_fast_bn_stats on, random weights
+     from seed 0) through TrainStep's graph, 2 + 10 calls: the first
+     call eager and captured, every later one a replay, every loss
+     finite, every one of the 106 batch-norm buffers bit-equal to its
+     value before the run, no kernel of the port launched, no
+     AccumulateGrad warning; the step by wall and by replay, the idle
+     share, images/s, MFU (bench.py's 3 x 4.09 GFLOP an image over the
+     bf16 peak), peak memory, and the Momentum update alone (its
+     launches by torch.profiler, its ms by replay, its byte bound); then,
+     in f32 with TF32 off and cuDNN deterministic (both put back after),
+     resnet50 at batch 8 x 64^2 through 3 graph steps held to 3 eager
+     steps by phase 7's rule with the buffers unchanged in both, NHWC +
+     s2d eval logits held to NCHW with the plain stem (the reference's
+     5e-5 plus 1e-5 of the largest logit), and SGD, Momentum (Nesterov),
+     Adamax, Adagrad, RMSProp (centered, momentum), Lamb, Adadelta and
+     AdamW8bitStub each through 3 graph steps held to 3 eager steps on
+     resnet18 at batch 8 x 64^2.
 
 The last three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
@@ -3199,6 +3220,317 @@ def bert_train_phase() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 19: bench.py::bench_resnet50 (bench.py:193-268), BASELINE config 1
+# ---------------------------------------------------------------------------
+# resnet50 NHWC with the space-to-depth stem, 1000 classes, batch 256 x
+# 224^2 x 3, bf16 O1, Momentum(lr 0.1, momentum 0.9, weight decay 1e-4),
+# FLAGS_fast_bn_stats on; the sub-runs at batch 8 x 64^2 in f32
+RESNET_BATCH, RESNET_HW = 256, 224
+RESNET_SUB_BATCH, RESNET_SUB_HW = 8, 64
+# bench.py's count: ResNet-50's forward takes 4.09 GFLOP an image at
+# 224^2, a training step 3x the forward
+RESNET_TRAIN_FLOP = 3 * 4.09e9
+# ResNet-50's 53 batch norms, two buffers each
+RESNET50_BUFFERS = 106
+# the optimizers held graph == eager on resnet18 (Momentum's graph is the
+# main run's, and the graph-vs-eager sub-run's), each with its decay
+RESNET_OPTIMIZERS = (
+    ("SGD", dict(weight_decay=1e-4)),
+    ("Momentum", dict(momentum=0.9, use_nesterov=True, weight_decay=1e-4)),
+    ("Adamax", dict(weight_decay=1e-4)),
+    ("Adagrad", dict(weight_decay=1e-4)),
+    ("RMSProp", dict(centered=True, momentum=0.5, weight_decay=1e-4)),
+    ("Lamb", dict()),
+    ("Adadelta", dict(weight_decay=1e-4)),
+    ("AdamW8bitStub", dict()),
+)
+
+
+def _resnet_train_step(arch="resnet50", opt="Momentum", lr=0.1, amp=True,
+                       seed=0, **opt_kw):
+    """bench_resnet50's step: an f32 `arch` (NHWC, space-to-depth stem,
+    1000 classes, random weights from `seed`) trained by TrainStep with
+    optimizer `opt` (default bench's Momentum(lr, 0.9, weight decay
+    1e-4)), the forward under bf16 O1 auto_cast when `amp`, the loss
+    cross_entropy of the logits outside it."""
+    from paddle_tpu_torch import TrainStep
+    from paddle_tpu_torch import amp as tamp
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import optimizers
+    from paddle_tpu_torch.vision import models
+    model = getattr(models, arch)(data_format="NHWC",
+                                  space_to_depth_stem=True, seed=seed)
+    model.train()
+    if opt == "Momentum" and not opt_kw:
+        opt_kw = dict(momentum=0.9, weight_decay=1e-4)
+    optimizer = getattr(optimizers, opt)(
+        learning_rate=lr, parameters=model.parameters(), **opt_kw)
+
+    def loss_fn(m, x, y):
+        with tamp.auto_cast(enable=amp, level="O1", dtype="bfloat16"):
+            logits = m(x)
+        return F.cross_entropy(logits, y)
+
+    return model, TrainStep(model, optimizer, loss_fn)
+
+
+def _images(batch, hw, seed, channels_last=True):
+    """Images (on the card) and int32 labels of 1000 classes, from a
+    numpy seed."""
+    import torch
+    rng = np.random.default_rng(seed)
+    shape = (batch, hw, hw, 3) if channels_last else (batch, 3, hw, hw)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    y = rng.integers(0, 1000, (batch,)).astype(np.int32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+def _same_buffers(model, before):
+    """Every buffer of `model` bit-equal to `before` (a copy, in order)."""
+    import torch
+    now = list(model.buffers())
+    return len(now) == len(before) and all(
+        torch.equal(a, b) for a, b in zip(now, before))
+
+
+@contextlib.contextmanager
+def _f32_exact():
+    """Checking only: TF32 off for cuBLAS and cuDNN (the reference's f32
+    convolutions run at Precision.HIGHEST) and cuDNN deterministic while
+    the block runs; the three flags put back after it."""
+    import torch
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+
+
+def _resnet_update(step) -> dict:
+    """The main run's optimizer update alone, on the model's parameters
+    and velocities with gradients from a seed (measurement after the
+    run): its launches on the card (torch.profiler's device events of
+    one call), its device time by CUDA-graph replay, and its byte bound
+    (each parameter read and written, its gradient read, its velocity
+    read and written, in f32)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    opt = step.optimizer
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    items = [(p, torch.randn(p.shape, device="cuda", generator=gen) * 1e-3,
+              opt._param_groups[0]) for p in step._params]
+    opt._update_in_place(items, masters=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        opt._update_in_place(items, masters=False)
+        torch.cuda.synchronize()
+    launches = sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    ms = graph_ms(lambda: opt._update_in_place(items, masters=False),
+                  reps=3, iters=5)
+    n = sum(p.numel() for p in step._params)
+    return dict(update_tensors=len(items), update_launches=launches,
+                update_ms_graph=ms,
+                update_bound_ms=20.0 * n / HBM_BYTES_PER_S * 1e3,
+                update_bound_by="bytes")
+
+
+def _resnet_main(warmup=2, steps=10) -> dict:
+    """bench_resnet50's config through TrainStep's graph: `warmup` +
+    `steps` calls, checked and timed."""
+    import torch
+    b, hw = RESNET_BATCH, RESNET_HW
+    held = _fresh_card()
+    model, step = _resnet_train_step()
+    n_params = sum(p.numel() for p in model.parameters())
+    x, y = _images(b, hw, 0)
+    before = [t.detach().clone() for t in model.buffers()]
+    torch.cuda.reset_peak_memory_stats()
+    run = _counted_steps(step, (x, y), warmup + steps)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_calls = warmup + steps
+    _check("[train-resnet50]", {
+        "every loss finite": all(np.isfinite(run["losses"])),
+        "every returned loss a tensor of its own": run["distinct"],
+        "the first call eager and captured, every later call a replay": (
+            run["captures"], run["replays"]) == (
+            {"train_step": 1}, {"train_step": n_calls - 1}),
+        f"{RESNET50_BUFFERS} batch-norm buffers, every one bit-equal to "
+        f"its value before the run": len(before) == RESNET50_BUFFERS
+            and _same_buffers(model, before),
+        "no kernel of the port on this path (B1, B2, the Adam update) and "
+        "no plain version": run["counted"] == (0, 0, 0)
+            and run["plain"] == (0, 0) and run["update_plain"] == 0,
+        "no AccumulateGrad stream-mismatch warning":
+            run["stream_warnings"] == 0,
+    }, run)
+    graph = next(iter(step._graphs.values()))[0].graph
+    replay_ms = _replay_ms(graph)
+    del graph
+    timed = run["step_s"][warmup:]
+    wall_ms = 1e3 * statistics.median(timed)
+    img_s = b / (wall_ms / 1e3)
+    flop = RESNET_TRAIN_FLOP * (hw / 224.0) ** 2
+    rec = dict(
+        config="resnet50 (bench_resnet50), NHWC, s2d stem, bf16 O1, "
+               "Momentum, FLAGS_fast_bn_stats", batch=b, image=hw,
+        params=n_params, buffers=len(before), held_at_start_gb=held,
+        timed_steps=steps, step_ms_median=wall_ms,
+        step_ms=[1e3 * t for t in timed],
+        first_step_ms=1e3 * run["step_s"][0], capture_s=run["capture_s"],
+        captures=run["captures"], replays=run["replays"],
+        step_ms_replay=replay_ms, idle_share=1 - replay_ms / wall_ms,
+        images_per_s=img_s, mfu=flop * img_s / BF16_FLOPS_PER_S,
+        step_floor_ms=flop * b / BF16_FLOPS_PER_S * 1e3, peak_mem_gb=peak,
+        stream_warnings=run["stream_warnings"], losses=run["losses"])
+    rec.update(_resnet_update(step))
+    log(f"[train-resnet50] {n_params} params, batch {b} x {hw}^2: step "
+        f"median {wall_ms:.2f} ms by wall ({min(rec['step_ms']):.2f}-"
+        f"{max(rec['step_ms']):.2f} over {steps}), {replay_ms:.2f} ms by "
+        f"replay (device idle {100 * rec['idle_share']:.1f} %); "
+        f"{img_s:.1f} images/s, MFU {rec['mfu']:.4f} (floor "
+        f"{rec['step_floor_ms']:.2f} ms); peak mem {peak:.2f} GiB; first "
+        f"call {rec['first_step_ms']:.0f} ms (capture "
+        f"{run['capture_s']:.2f} s); the update alone "
+        f"{rec['update_ms_graph']:.3f} ms by replay, "
+        f"{rec['update_launches']} launches over {rec['update_tensors']} "
+        f"tensors (byte bound {rec['update_bound_ms']:.4f} ms); buffers "
+        f"unchanged; losses {[round(v, 4) for v in run['losses']]}")
+    del model, step, x, y
+    _fresh_card()
+    return rec
+
+
+def _resnet_graph_vs_eager(build, n_steps=PARITY_STEPS, seed=1) -> dict:
+    """`n_steps` TrainStep calls through the graph of the model and step
+    `build()` makes, then as many eager steps of another from the same
+    seed, on one batch of RESNET_SUB_BATCH x RESNET_SUB_HW^2 images,
+    held by phase 7's rule (_held_to); each run's buffers after its
+    steps bit-equal to before, and its AccumulateGrad stream-mismatch
+    warnings counted."""
+    x, y = _images(RESNET_SUB_BATCH, RESNET_SUB_HW, seed)
+    runs = {}
+    for eager in (False, True):
+        model, step = build()
+        step._eager = eager
+        before = [t.detach().clone() for t in model.buffers()]
+        with stream_mismatch_warnings() as warned:
+            losses = [float(step(x, y)) for _ in range(n_steps)]
+        runs[eager] = dict(losses=losses, params=_state(model),
+                           buffers_kept=_same_buffers(model, before),
+                           stream_warnings=len(warned),
+                           captures=len(step._graphs))
+        lr = step.optimizer.get_lr()
+        del model, step
+    g, e = runs[False], runs[True]
+    bit_equal = all(bool((a == b).all()) for a, b in zip(g["params"],
+                                                          e["params"]))
+    cmp = _held_to(g["losses"], e["losses"], g.pop("params"),
+                   e.pop("params"), lr, n_steps)
+    ok = cmp["ok"] and g["buffers_kept"] and e["buffers_kept"] \
+        and g["stream_warnings"] == e["stream_warnings"] == 0 \
+        and (g["captures"], e["captures"]) == (1, 0) \
+        and all(np.isfinite(g["losses"] + e["losses"]))
+    return dict(graph=g, eager=e, bit_equal=bit_equal, **dict(cmp, ok=ok))
+
+
+def _log_resnet_parity(label, res):
+    g, e = res["graph"], res["eager"]
+    log(f"[train-resnet50] {label}: graph steps vs eager steps, losses "
+        f"{[round(v, 5) for v in g['losses']]} vs "
+        f"{[round(v, 5) for v in e['losses']]} (max rel diff "
+        f"{res['loss_max_rel_diff']:.2e}, tol 1e-5); params max abs diff "
+        f"{res['param_max_abs_diff']:.3e} (bound {res['param_bound']:.1e}),"
+        f" {res['params_far']} of {res['params_total']} beyond 1e-3*lr; "
+        f"bit-equal {res['bit_equal']}; buffers kept graph "
+        f"{g['buffers_kept']}, eager {e['buffers_kept']}; stream warnings "
+        f"{g['stream_warnings']}/{e['stream_warnings']}: "
+        f"{'ok' if res['ok'] else 'FAILED'}")
+
+
+def _resnet_layout() -> dict:
+    """NHWC with the space-to-depth stem against NCHW with the plain stem,
+    the same weights (seed 2), eval logits of RESNET_SUB_BATCH images of
+    RESNET_SUB_HW^2 in f32 with TF32 off. Tolerance: the reference's
+    5e-5 (tests/test_s2d_stem.py:42, between two NHWC models) plus 1e-5
+    of the largest logit, since cuDNN takes other algorithms, summing in
+    other orders, in the two layouts."""
+    import torch
+    from paddle_tpu_torch.vision.models import resnet50
+    nchw = resnet50(data_format="NCHW", seed=2)
+    nhwc = resnet50(data_format="NHWC", space_to_depth_stem=True, seed=3)
+    nhwc.load_state_dict(nchw.state_dict())
+    nchw.eval()
+    nhwc.eval()
+    x, _ = _images(RESNET_SUB_BATCH, RESNET_SUB_HW, 2)
+    with torch.no_grad():
+        want = nchw(x.permute(0, 3, 1, 2).contiguous())
+        got = nhwc(x)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    tol = 5e-5 + 1e-5 * scale
+    rec = dict(batch=RESNET_SUB_BATCH, image=RESNET_SUB_HW,
+               max_abs_err=err, largest_logit=scale, tol=tol,
+               ok=bool(err <= tol))
+    log(f"[train-resnet50] layout: NHWC + s2d eval logits vs NCHW plain "
+        f"stem, f32 (TF32 off), batch {RESNET_SUB_BATCH} x "
+        f"{RESNET_SUB_HW}^2: max abs diff {err:.3e} (largest logit "
+        f"{scale:.3e}, tol {tol:.3e}): {'ok' if rec['ok'] else 'FAILED'}")
+    del nchw, nhwc
+    return rec
+
+
+def resnet_train_phase() -> dict:
+    """Phase 19: bench_resnet50's config (BASELINE config 1) through
+    TrainStep's graph, 2 + 10 calls, FLAGS_fast_bn_stats on; then, in f32
+    with TF32 off and cuDNN deterministic, resnet50 (NHWC + s2d, b8 x
+    64^2, Momentum lr 0.01) through 3 graph steps held to 3 eager steps,
+    NHWC + s2d eval logits held to NCHW's, and each ported optimizer's 3
+    graph steps held to 3 eager steps on resnet18 at b8 x 64^2 (lr
+    1e-3). The flag is put back after the phase."""
+    from paddle_tpu_torch import get_flags, set_flags
+    flag = "FLAGS_fast_bn_stats"
+    saved = get_flags(flag)
+    set_flags({flag: True})
+    try:
+        rec = _resnet_main()
+        with _f32_exact():
+            sub = _resnet_graph_vs_eager(lambda: _resnet_train_step(
+                lr=0.01, amp=False, seed=1))
+            _log_resnet_parity("resnet50 f32, batch "
+                               f"{RESNET_SUB_BATCH} x {RESNET_SUB_HW}^2, "
+                               "Momentum lr 0.01", sub)
+            rec["graph_vs_eager"] = sub
+            rec["layout"] = _resnet_layout()
+            opts = {}
+            for name, kw in RESNET_OPTIMIZERS:
+                res = _resnet_graph_vs_eager(
+                    lambda: _resnet_train_step("resnet18", name, lr=1e-3,
+                                               amp=False, seed=4, **kw))
+                _log_resnet_parity(f"resnet18 f32, {name} {kw}", res)
+                opts[name] = res
+            rec["optimizers"] = opts
+        _fresh_card()
+    finally:
+        set_flags(saved)
+    _check("[train-resnet50]", {
+        "graph steps == eager steps (phase 7's rule), buffers kept":
+            rec["graph_vs_eager"]["ok"],
+        "NHWC + s2d logits == NCHW logits": rec["layout"]["ok"],
+        "every optimizer's graph steps == its eager steps, buffers kept":
+            all(r["ok"] for r in rec["optimizers"].values()),
+    }, {k: rec[k] for k in ("graph_vs_eager", "layout", "optimizers")})
+    return rec
+
+
 def _launches_17_18(runs, i):
     """B1's (i = 0), B2's (1) or the update's (2) launches in the runs of
     phases 17-18: counted over the eager first step and the capture, and
@@ -3248,6 +3580,7 @@ def main() -> int:
     engine_f16 = f16_engine_phase()
     train_llama = llama_train_phase()
     train_bert = bert_train_phase()
+    train_resnet = resnet_train_phase()
     runs_17_18 = (("llama13b", train_llama["no_recompute"]),
                   ("llama13b_recompute", train_llama["recompute"]),
                   ("bert_base", train_bert))
@@ -3388,6 +3721,7 @@ def main() -> int:
     log("[engine-f16] " + json.dumps(engine_f16))
     log("[train-llama13b] " + json.dumps(train_llama))
     log("[train-bert] " + json.dumps(train_bert))
+    log("[train-resnet50] " + json.dumps(train_resnet))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@ import threading
 import torch
 
 __all__ = ["WHITE_LIST", "BLACK_LIST", "amp_state", "amp_dtype",
-           "is_auto_cast_enabled", "maybe_cast_inputs"]
+           "is_auto_cast_enabled", "cast_target", "maybe_cast_inputs"]
 
 # ops that benefit from low precision (tensor-core bound)
 WHITE_LIST = {
@@ -68,30 +68,40 @@ def is_auto_cast_enabled() -> bool:
     return _state.enabled
 
 
-def maybe_cast_inputs(name, policy, *args):
-    """The reference's AMP rule (amp/state.py:57) for op `name` with
-    per-op `policy` (None = follow the input, "white", "black", "keep"):
-    O1 casts a white op's float inputs to the low dtype and a black op's
-    to f32, and leaves the rest; O2 casts every op's inputs to the low
-    dtype except a black op's, which go to f32. Only f32/bf16/f16
-    tensors are cast, through ``Tensor.to`` so autograd carries the
-    gradient back to the original (f32 master) tensor. Returns the
-    arguments as a tuple, non-tensors untouched."""
+def cast_target(name, policy, dtype):
+    """The dtype the reference's AMP rule (amp/state.py:57) gives a float
+    input of `dtype` to op `name` with per-op `policy` (None = follow the
+    input, "white", "black", "keep"): O1 casts a white op's float inputs
+    to the low dtype and a black op's to f32, and leaves the rest; O2
+    casts every op's inputs to the low dtype except a black op's, which
+    go to f32. Only f32/bf16/f16 are cast; any other dtype is
+    returned as it is."""
     st = _state
-    if not st.enabled or policy == "keep":
-        return args
+    if not st.enabled or policy == "keep" or dtype not in _CASTABLE:
+        return dtype
     in_white = policy == "white" or name in WHITE_LIST \
         or name in st.custom_white
     in_black = policy == "black" or name in BLACK_LIST \
         or name in st.custom_black
     if st.level == "O2":
-        target = torch.float32 if in_black else st.dtype
-    elif in_white:
-        target = st.dtype
-    elif in_black:
-        target = torch.float32
-    else:
-        return args
-    return tuple(
-        a.to(target) if isinstance(a, torch.Tensor) and a.dtype in _CASTABLE
-        and a.dtype != target else a for a in args)
+        return torch.float32 if in_black else st.dtype
+    if in_white:
+        return st.dtype
+    if in_black:
+        return torch.float32
+    return dtype
+
+
+def maybe_cast_inputs(name, policy, *args):
+    """Each tensor argument cast to ``cast_target`` of its dtype, through
+    ``Tensor.to`` so autograd carries the gradient back to the original
+    (f32 master) tensor. Returns the arguments as a tuple, non-tensors
+    untouched."""
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            target = cast_target(name, policy, a.dtype)
+            if target != a.dtype:
+                a = a.to(target)
+        out.append(a)
+    return tuple(out)

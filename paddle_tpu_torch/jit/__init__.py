@@ -58,6 +58,16 @@ class TrainStep:
         applies NO ``grad_clip`` (``Optimizer.step`` does clip), and
         updates the parameters themselves, not multi_precision masters,
         as ``functional_update`` does;
+      * the module's buffers come out of each step as they went in: the
+        reference's compiled step takes them as inputs and returns none
+        (:450-473), so what a layer writes into them during the forward
+        (a batch norm's running statistics) is dropped after the step.
+        The port copies every buffer at the start of the step and writes
+        the copy back after the update (inside the graph too). Eager
+        training (``loss.backward(); opt.step()``) keeps what the layers
+        write, as the reference's eager path does. ROADMAP Queue C
+        lists this, beside the missing ``grad_clip``, as a quirk that
+        changes on both sides together or not at all;
       * the learning rate is read at every call (a scheduler's or a
         ``set_lr`` value);
       * an ``LRScheduler`` steps after the call.
@@ -79,6 +89,7 @@ class TrainStep:
         self.optimizer = optimizer
         self.has_aux = has_aux
         self._params = [p for p in model.parameters() if p.requires_grad]
+        self._buffers = list(model.buffers())
         if not self._params:
             raise ValueError("TrainStep: the model has no trainable "
                              "parameters")
@@ -115,8 +126,9 @@ class TrainStep:
     def _step_in_place(self, args, kwargs):
         """One step that writes parameters and state in place (what a
         graph captures): the first group's hyperparameters, no clip, no
-        masters."""
+        masters; the buffers put back as they were."""
         opt = self.optimizer
+        held = [b.detach().clone() for b in self._buffers]
         with record_function("TrainStep.forward"):
             if self.loss_fn is None:
                 loss = self.model(*args, **kwargs)
@@ -129,6 +141,9 @@ class TrainStep:
             opt._update_in_place(
                 [(p, torch.zeros_like(p) if g is None else g, group)
                  for p, g in zip(self._params, grads)], masters=False)
+        with torch.no_grad():
+            for b, h in zip(self._buffers, held):
+                b.copy_(h)
         return loss.detach()
 
     @staticmethod

@@ -1,15 +1,19 @@
 from . import functional, initializer
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_)
-from .layers import (Dropout, Embedding, LayerDict, LayerList, LayerNorm,
-                     Linear, MultiHeadAttention, ParameterList, RMSNorm,
-                     Sequential, Transformer, TransformerDecoder,
+from .layers import (GELU, AdaptiveAvgPool1D, AdaptiveAvgPool2D,
+                     AdaptiveAvgPool3D, AdaptiveMaxPool2D, AvgPool1D,
+                     AvgPool2D, AvgPool3D, BatchNorm, BatchNorm1D,
+                     BatchNorm2D, BatchNorm3D, Conv1D, Conv1DTranspose,
+                     Conv2D, Conv2DTranspose, Conv3D, Conv3DTranspose,
+                     CrossEntropyLoss, Dropout, Embedding, Flatten,
+                     LayerDict, LayerList, LayerNorm, Linear, MaxPool1D,
+                     MaxPool2D, MaxPool3D, MultiHeadAttention, ParameterList,
+                     ReLU, RMSNorm, Sequential, SiLU, Silu, Swish, Tanh,
+                     Transformer, TransformerDecoder,
                      TransformerDecoderLayer, TransformerEncoder,
                      TransformerEncoderLayer)
+from .layers import __all__ as _layers
 
 __all__ = ["functional", "initializer", "ClipGradByGlobalNorm",
-           "ClipGradByNorm", "ClipGradByValue", "clip_grad_norm_", "Dropout",
-           "Embedding", "LayerDict", "LayerList", "LayerNorm", "Linear",
-           "MultiHeadAttention", "ParameterList", "RMSNorm", "Sequential",
-           "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
-           "TransformerEncoder", "TransformerEncoderLayer"]
+           "ClipGradByNorm", "ClipGradByValue", "clip_grad_norm_"] + _layers

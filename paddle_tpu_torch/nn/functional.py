@@ -1,10 +1,13 @@
-"""The functional ops GPT uses (counterparts of paddle_tpu/ops/nn_ops.py
-and ops/linalg.py), with the reference's cast order kept.
+"""The functional ops (counterparts of paddle_tpu/nn/functional, over
+ops/nn_ops.py, ops/linalg.py and ops/manipulation.py), with the
+reference's cast order kept. The convolutions, pools and batch norm are
+in ``cnn_ops.py`` and re-exported here.
 
 Each op applies the reference's AMP rule for its name and per-op policy
 first (``amp.state.maybe_cast_inputs``; the policies are those of the
 reference registry: linear, matmul and scaled_dot_product_attention are
 white, layer_norm and cross_entropy black, the rest follow their
+input; convolutions are white, batch_norm black, pools follow their
 input).
 
 ``layer_norm`` and ``rms_norm`` here are the plain ops the model layers
@@ -15,15 +18,25 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..amp.state import maybe_cast_inputs as _amp
 from ..kernels import norms as _norms
 from ..kernels.flash_attention import _shapes_ok, flash_attention
+from .cnn_ops import (adaptive_avg_pool1d, adaptive_avg_pool2d,
+                      adaptive_avg_pool3d, adaptive_max_pool2d, avg_pool1d,
+                      avg_pool2d, avg_pool3d, batch_norm, conv1d, conv2d,
+                      conv2d_transpose, conv3d, conv3d_transpose, max_pool1d,
+                      max_pool2d, max_pool3d)
 
 __all__ = ["linear", "matmul", "embedding", "layer_norm", "rms_norm", "gelu",
-           "relu", "silu", "tanh", "dropout", "cross_entropy",
-           "scaled_dot_product_attention"]
+           "relu", "silu", "tanh", "dropout", "cross_entropy", "flatten",
+           "pad", "scaled_dot_product_attention", "conv1d", "conv2d",
+           "conv3d", "conv2d_transpose", "conv3d_transpose", "max_pool1d",
+           "max_pool2d", "max_pool3d", "avg_pool1d", "avg_pool2d",
+           "avg_pool3d", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
+           "adaptive_avg_pool3d", "adaptive_max_pool2d", "batch_norm"]
 
 
 def _mm(x, y):
@@ -123,35 +136,119 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train",
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
-    """Hard-label softmax cross entropy (ops/nn_ops.py:657, :686-696):
-    loss = logsumexp(z) - z[label] with the logsumexp in f32 and the
-    picked logit widened to f32, so no f32 log-softmax of the whole
-    vocab is materialised; tokens whose label is `ignore_index` give 0
-    and leave the mean's denominator. reduction: "mean" | "sum" |
-    "none"."""
-    if soft_label or not use_softmax or weight is not None \
-            or label_smoothing:
-        raise NotImplementedError(
-            "cross_entropy: the port has hard labels with softmax only "
-            "(soft_label, use_softmax=False, weight and label_smoothing "
-            "are not ported yet)")
-    (input,) = _amp("cross_entropy", "black", input)
-    lbl = label
-    if lbl.dim() == input.dim():
-        lbl = lbl.squeeze(axis)
-    lbl = lbl.long()
-    valid = lbl != ignore_index
-    safe = torch.where(valid, lbl, 0)
-    lse = torch.logsumexp(input.float(), dim=axis)
-    picked = input.gather(axis, safe.unsqueeze(axis)).squeeze(axis).float()
-    loss = torch.where(valid, lse - picked, 0.0)
+    """ops/nn_ops.py:657-724, branch for branch, in f32 (AMP black).
+
+    Hard labels (class ids; a label with the input's rank is squeezed on
+    `axis`): with softmax, loss = logsumexp(z) - z[label] with the
+    logsumexp in f32 and the picked logit widened to f32, so no f32
+    log-softmax of the whole class axis is materialised; label smoothing
+    mixes the picked logit with the mean logit. Without softmax the
+    input is taken as probabilities: -log(max(p[label], 1e-30)), mixed
+    with the mean log-probability under smoothing. Labels equal to
+    `ignore_index` give 0; `weight` ([classes]) scales each token's loss
+    by its class's weight. "mean" divides by the count of valid tokens
+    (at least 1), or by their weights' sum (at least 1e-12) with
+    `weight`.
+
+    Soft labels (a distribution per token): -sum(label * log p) with
+    log p the f32 log-softmax (or log(max(p, 1e-30)) without softmax),
+    the labels smoothed toward uniform first; `weight` and
+    `ignore_index` are unused and "mean" is the plain mean, as in the
+    reference. reduction: "mean" | "sum" | "none"."""
+    input, label, weight = _amp("cross_entropy", "black", input, label,
+                                weight)
+    valid = w_tok = None
+    if soft_label:
+        if use_softmax:
+            logp = torch.log_softmax(input.float(), dim=axis)
+        else:
+            logp = torch.log(torch.clamp_min(input.float(), 1e-30))
+        lbl = label.float()
+        if label_smoothing > 0:
+            lbl = lbl * (1 - label_smoothing) \
+                + label_smoothing / input.shape[axis]
+        loss = -(lbl * logp).sum(axis)
+    else:
+        lbl = label
+        if lbl.dim() == input.dim():
+            lbl = lbl.squeeze(axis)
+        lbl = lbl.long()
+        valid = lbl != ignore_index
+        safe = torch.where(valid, lbl, 0).unsqueeze(axis)
+        if use_softmax:
+            lse = torch.logsumexp(input.float(), dim=axis)
+            picked = input.gather(axis, safe).squeeze(axis).float()
+            if label_smoothing > 0:
+                picked = (1 - label_smoothing) * picked \
+                    + label_smoothing * input.float().mean(axis)
+            loss = torch.where(valid, lse - picked, 0.0)
+        else:
+            logp = torch.log(torch.clamp_min(input.float(), 1e-30))
+            picked = logp.gather(axis, safe).squeeze(axis)
+            if label_smoothing > 0:
+                picked = (1 - label_smoothing) * picked \
+                    + label_smoothing * logp.mean(axis)
+            loss = torch.where(valid, -picked, 0.0)
+        if weight is not None:
+            w_tok = torch.where(valid, weight[safe.squeeze(axis)], 0.0)
+            loss = loss * w_tok
     if reduction == "mean":
-        return loss.sum() / valid.float().sum().clamp_min(1.0)
+        if valid is None:
+            return loss.mean()
+        denom = w_tok.sum().clamp_min(1e-12) if w_tok is not None \
+            else valid.float().sum().clamp_min(1.0)
+        return loss.sum() / denom
     if reduction == "sum":
         return loss.sum()
     if reduction == "none":
         return loss
     raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def flatten(x, start_axis=0, stop_axis=-1):
+    """ops/manipulation.py:35: axes start_axis..stop_axis merged into
+    one (a 0-d tensor becomes shape [1])."""
+    if x.dim() == 0:
+        return x.reshape(1)
+    return torch.flatten(x, start_axis, stop_axis)
+
+
+_PAD_MODES = {"reflect": "reflect", "replicate": "edge", "circular": "wrap"}
+
+
+def pad(x, pad, mode="constant", value=0.0, data_format="NCHW"):
+    """ops/manipulation.py:276-298. `pad` of 2 * x.dim() values pads
+    every axis, first axis first: [lo0, hi0, lo1, hi1, ...] (the reverse
+    of ``torch.nn.functional.pad``'s order). A shorter `pad` pads the
+    trailing spatial axes (the leading ones after the batch axis for a
+    channels-last `data_format`), last axis first, as
+    torch.nn.functional.pad orders it. mode: "constant" (`value`),
+    "reflect", "replicate" or "circular", as numpy.pad's "reflect",
+    "edge" and "wrap" take them (each padded axis gathered by the index
+    numpy.pad gives)."""
+    pad = [int(v) for v in pad]
+    nd = x.dim()
+    if len(pad) == 2 * nd:
+        width = [(pad[2 * i], pad[2 * i + 1]) for i in range(nd)]
+    else:
+        width = [(0, 0)] * nd
+        k = len(pad) // 2
+        if data_format.endswith("C"):
+            spatial = list(range(1, 1 + k))
+        else:
+            spatial = list(range(nd - k, nd))
+        for i, d in enumerate(spatial[::-1]):
+            width[d] = (pad[2 * i], pad[2 * i + 1])
+    if mode == "constant":
+        return torch.nn.functional.pad(
+            x, [v for lo, hi in reversed(width) for v in (lo, hi)],
+            value=value)
+    for d, (lo, hi) in enumerate(width):
+        if lo or hi:
+            idx = np.pad(np.arange(x.shape[d]), (lo, hi),
+                         mode=_PAD_MODES[mode])
+            x = x.index_select(d, torch.as_tensor(idx, device=x.device))
+    return x
 
 
 def _sdpa_takes_kernel(q_shape, k_shape, attn_mask, dropout_p, training):

@@ -1,0 +1,50 @@
+"""Activation layers (counterpart of paddle_tpu/nn/layers/activation.py)
+over the activations ``nn.functional`` has: ReLU, GELU, Silu (also
+spelt SiLU, and Swish), Tanh."""
+from __future__ import annotations
+
+from torch import nn
+
+from .. import functional as F
+
+__all__ = ["ReLU", "GELU", "Silu", "SiLU", "Swish", "Tanh"]
+
+
+class ReLU(nn.Module):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.relu(x)
+
+
+class GELU(nn.Module):
+    def __init__(self, approximate=False, name=None):
+        super().__init__()
+        self.approximate = approximate
+
+    def forward(self, x):
+        return F.gelu(x, self.approximate)
+
+
+class Tanh(nn.Module):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.tanh(x)
+
+
+class Silu(nn.Module):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.silu(x)
+
+
+class Swish(Silu):
+    pass
+
+
+SiLU = Silu  # the reference exports both spellings

@@ -1,5 +1,5 @@
-"""Linear, Embedding and Dropout (counterparts of
-paddle_tpu/nn/layers/common.py:12,44,79).
+"""Linear, Embedding, Dropout and Flatten (counterparts of
+paddle_tpu/nn/layers/common.py:12, 44, 79, 100).
 
 Linear and Embedding are built with uninitialised weights: a model
 draws them (GPT's and LLaMA's ``_init_weights``), or a layer that
@@ -63,6 +63,19 @@ class Dropout(nn.Module):
     def forward(self, x):
         return F.dropout(x, self.p, self.training, self.mode,
                          generator=self.generator)
+
+
+class Flatten(nn.Module):
+    """Axes start_axis..stop_axis merged into one (default: all but the
+    batch axis)."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return F.flatten(x, self.start_axis, self.stop_axis)
 
 
 def _factory(device, dtype):

@@ -1,6 +1,8 @@
 """Optimizers and LR schedulers (counterpart of paddle_tpu/optimizer)."""
 from . import lr
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW
+from .optimizers import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb,
+                         Momentum, RMSProp)
 
-__all__ = ["lr", "Optimizer", "Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
+           "Adagrad", "RMSProp", "Lamb", "Adadelta"]

@@ -106,11 +106,45 @@ PORTED_MODULES = {
     "paddle_tpu.optimizer.lr": ("paddle_tpu_torch.optimizer.lr", set()),
     "paddle_tpu.optimizer.optimizer": ("paddle_tpu_torch.optimizer.optimizer",
                                        set()),
-    # Adam and AdamW are ported; the rest take ROADMAP Queue A item 15
     "paddle_tpu.optimizer.optimizers": (
-        "paddle_tpu_torch.optimizer.optimizers", {
-            "SGD", "Momentum", "Lamb", "Adagrad", "Adadelta", "Adamax",
-            "RMSProp", "AdamW8bitStub"}),
+        "paddle_tpu_torch.optimizer.optimizers", set()),
+    "paddle_tpu.core.flags": ("paddle_tpu_torch.core.flags", set()),
+    "paddle_tpu.nn.layers.conv": ("paddle_tpu_torch.nn.layers.conv", set()),
+    # the rest of the layer zoo takes ROADMAP Queue A item 25
+    "paddle_tpu.nn.layers.pooling": (
+        "paddle_tpu_torch.nn.layers.pooling", {
+            "AdaptiveMaxPool1D", "AdaptiveMaxPool3D", "MaxUnPool2D"}),
+    "paddle_tpu.nn.layers.norm": (
+        "paddle_tpu_torch.nn.layers.norm", {
+            "SyncBatchNorm", "GroupNorm", "InstanceNorm1D", "InstanceNorm2D",
+            "InstanceNorm3D", "LocalResponseNorm", "SpectralNorm"}),
+    "paddle_tpu.nn.layers.activation": (
+        "paddle_tpu_torch.nn.layers.activation", {
+            "CELU", "ELU", "GLU", "Hardshrink", "Hardsigmoid", "Hardswish",
+            "Hardtanh", "LeakyReLU", "LogSigmoid", "LogSoftmax", "Maxout",
+            "Mish", "PReLU", "ReLU6", "SELU", "Sigmoid", "Softmax",
+            "Softmax2D", "Softplus", "Softshrink", "Softsign", "Tanhshrink",
+            "ThresholdedReLU"}),
+    "paddle_tpu.nn.layers.loss": (
+        "paddle_tpu_torch.nn.layers.loss", {
+            "BCELoss", "BCEWithLogitsLoss", "CosineEmbeddingLoss",
+            "HingeEmbeddingLoss", "KLDivLoss", "L1Loss", "MSELoss",
+            "MarginRankingLoss", "NLLLoss", "SmoothL1Loss",
+            "TripletMarginLoss"}),
+    # ResNet is ported; the other vision models take item 25
+    "paddle_tpu.vision.models": (
+        "paddle_tpu_torch.vision.models", {
+            "AlexNet", "DenseNet", "GoogLeNet", "InceptionV3", "LeNet",
+            "MobileNetV1", "MobileNetV2", "MobileNetV3", "ShuffleNetV2",
+            "SqueezeNet", "VGG", "alexnet", "densenet121", "densenet161",
+            "densenet169", "densenet201", "extra", "googlenet",
+            "inception_v3", "lenet_vgg_mobilenet", "mobilenet_v1",
+            "mobilenet_v2", "mobilenet_v3_large", "mobilenet_v3_small",
+            "shufflenet_v2_x0_5", "shufflenet_v2_x1_0", "shufflenet_v2_x2_0",
+            "squeezenet1_0", "squeezenet1_1", "vgg11", "vgg13", "vgg16",
+            "vgg19"}),
+    "paddle_tpu.vision.models.resnet": (
+        "paddle_tpu_torch.vision.models.resnet", set()),
     "paddle_tpu.kernels.pallas.flash_attention": (
         "paddle_tpu_torch.kernels.flash_attention", set()),
     "paddle_tpu.kernels.pallas.norms": ("paddle_tpu_torch.kernels.norms",

@@ -1,7 +1,7 @@
 """paddle_tpu_torch's package rules: it never imports jax or anything of
-paddle_tpu (chip_smoke.py neither), serving GPT and LLaMA, training and
-the fused incubate ops included, and its entry points run on the CUDA
-card unless the caller asks for the CPU."""
+paddle_tpu (chip_smoke.py neither), serving GPT and LLaMA, training (a
+ResNet too) and the fused incubate ops included, and its entry points
+run on the CUDA card unless the caller asks for the CPU."""
 import os
 import re
 import subprocess
@@ -47,6 +47,7 @@ assert np.isfinite(float(step(ids, ids)))
 import torch
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
 from paddle_tpu_torch.incubate.nn import functional as IF
+from paddle_tpu_torch.nn import functional as F
 lm = LlamaForCausalLM(llama_tiny(), device="cpu")
 eng = LLMEngine(lm, max_batch=2, block_size=16, max_model_len=64,
                 prompt_quantum=16, decode_chunk=2, device="cpu")
@@ -56,6 +57,19 @@ x = torch.randn(4, 64)
 assert IF.fused_rms_norm(x, torch.ones(64)).shape == (4, 64)
 assert IF.fused_layer_norm(x, torch.ones(64), torch.zeros(64)).shape \
     == (4, 64)
+from paddle_tpu_torch import set_flags
+from paddle_tpu_torch.optimizer import Momentum
+from paddle_tpu_torch.vision.models import resnet18
+set_flags({"FLAGS_fast_bn_stats": True})
+rm = resnet18(num_classes=10, data_format="NHWC", space_to_depth_stem=True,
+              device="cpu")
+step = TrainStep(rm, Momentum(learning_rate=0.1, momentum=0.9,
+                              parameters=rm.parameters(),
+                              weight_decay=1e-4),
+                 lambda m, x, y: F.cross_entropy(m(x), y))
+img = np.random.default_rng(0).standard_normal((2, 32, 32, 3))
+assert np.isfinite(float(step(img.astype(np.float32),
+                              np.array([1, 2], np.int32))))
 bad = [k for k in sys.modules
        if k == "jax" or k.startswith("jax.") or k == "paddle_tpu"
        or k.startswith("paddle_tpu.")]
@@ -104,3 +118,12 @@ def test_entry_points_need_cuda_unless_cpu_requested():
         FusedTransformerEncoderLayer(64, 4, 128)
     layer = FusedTransformerEncoderLayer(64, 4, 128, device="cpu")
     assert {p.device.type for p in layer.parameters()} == {"cpu"}
+    from paddle_tpu_torch.nn import BatchNorm2D, Conv2D
+    from paddle_tpu_torch.vision.models import resnet18
+    for make in (lambda **kw: resnet18(**kw),
+                 lambda **kw: Conv2D(3, 4, 3, **kw),
+                 lambda **kw: BatchNorm2D(4, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        assert {p.device.type for p in make(device="cpu").parameters()} \
+            == {"cpu"}

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a paddle_tpu_torch training step spends the card's time.
 
-    python3 tools/torch_train_profile.py [--steps 2] [--config gpt_1p3b]
+    python3 tools/torch_train_profile.py [--steps 2] [--config resnet50]
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU. It
 builds one of chip_smoke.py's training steps, random weights and batch
@@ -11,8 +11,10 @@ bench.py::bench_gpt_1p3b's config: gpt3_1p3b, batch 4 x seq 2048, AdamW
 with bf16 moments, every third block recomputed), `llama13b` (phase 17:
 LLaMA-2-13B's widths at 4 layers, batch 2 x seq 4096, no recompute) or
 `bert_base` (phase 18, bench.py::bench_bert_base's config: batch 32 x
-seq 512, MLM labels at ~15 % of the positions), and traces with
-torch.profiler, separately:
+seq 512, MLM labels at ~15 % of the positions) or `resnet50` (phase
+19, bench.py::bench_resnet50's config: NHWC with the space-to-depth
+stem, batch 256 x 224^2, bf16 O1, Momentum, FLAGS_fast_bn_stats on),
+and traces with torch.profiler, separately:
 
   * the eager step: TrainStep's first call, which runs the step eagerly
     and then captures it as a CUDA graph (the capture runs nothing on
@@ -28,8 +30,17 @@ torch.profiler, separately:
 For each it prints the wall time under the profiler, the summed device
 time of every kernel (and so the device's idle share), that kernel time
 split by kind (the flash-attention kernels, the multi-tensor update,
-cuBLAS matrix products, the rest) and the 25 kernels that take the most
-device time. Without the profiler it also times 10 replayed steps by
+cuDNN's implicit-GEMM convolutions, the GEMM kernels of cuBLAS's
+products and of the 1x1 convolutions cuDNN runs as GEMMs, and the rest
+split into reductions, casts and copies, ReLU and clamps, pools and
+elementwise arithmetic) and the 25 kernels that take the most device
+time. The eager step's kernel time is also split by the op that
+launched each kernel (torch.profiler's op of the launch and the ops
+around it): the update, the norms, attention, the convolutions, the
+pools, activations, casts and copies, the loss, the matrix products,
+adds (the residual adds and autograd's gradient sums), the rest, and
+the kernels launched outside any op.
+Without the profiler it also times 10 replayed steps by
 wall (synchronised after each), and one replay of the step's graph
 alone by CUDA events: the step's device time with no host in it, so
 1 - replay / wall is the device's idle share in a step.
@@ -56,15 +67,82 @@ def _part(name: str) -> str:
         return "B2 flash backward"
     if "mta_" in n:
         return "multi-tensor update"
+    if "convert" not in n and any(
+            w in n for w in ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                             "winograd", "cudnn")):
+        return "convolutions (cuDNN)"
     if any(w in n for w in ("gemm", "cutlass", "sm90_xmma", "nvjet",
                             "cublas", "matmul")):
-        return "matrix products (cuBLAS)"
-    return "elementwise, reductions, copies"
+        return "GEMMs (cuBLAS, 1x1 convolutions)"
+    for kind, words in (("reductions", ("reduce",)),
+                        ("casts and copies", ("copy",)),
+                        ("ReLU and clamps", ("clamp", "threshold")),
+                        ("pools", ("pool",))):
+        if any(w in n for w in words):
+            return kind
+    return "elementwise arithmetic"
+
+
+# the op categories of a step, in the order they are tried on the names
+# of a kernel's launching op and the ops around it
+_OPS = (("update", ("trainstep.update",)),
+        ("batch norm", ("_batchnormtrain", "batch_norm")),
+        ("layer and RMS norms", ("layer_norm", "rms_norm")),
+        ("attention", ("flash", "attention")),
+        ("convolutions", ("convolution",)),
+        ("pools", ("pool",)),
+        ("activations", ("relu", "threshold", "clamp", "gelu", "silu",
+                         "tanh")),
+        ("casts and copies", ("_to_copy", "tocopy", "aten::copy_",
+                              "aten::clone")),
+        ("loss", ("cross_entropy", "logsumexp", "gather", "log_softmax")),
+        ("matrix products", ("addmm", "aten::mm", "aten::bmm", "matmul",
+                             "linear")),
+        ("adds", ("add",)))
+
+
+# CUDA driver and profiler events that can carry an op's correlation id
+_NOT_OPS = ("Lazy Function Loading", "Runtime Triggered Module Loading",
+            "Activity Buffer Request")
+
+
+def _by_op(torch, prof, n, total_us):
+    """Print the kernel time of a trace by the op that launched each
+    kernel, found among the names of the launching op and its parents.
+    torch.profiler lists a kernel under every CPU event whose id is its
+    launch's correlation id, and CUDA runtime and driver events can carry
+    an op's id, so each id is counted once, at its op. Kernels launched
+    outside any op (`total_us` less the rest) are listed as such."""
+    events = [fe for fe in prof.events()
+              if fe.device_type == torch.autograd.DeviceType.CPU
+              and fe.kernels]
+    events.sort(key=lambda fe: fe.name.startswith("cuda")
+                or fe.name in _NOT_OPS)
+    out, seen = {}, set()
+    for fe in events:
+        if fe.id in seen:
+            continue
+        seen.add(fe.id)
+        names, e = [], fe
+        while e is not None:
+            names.append(e.name.lower())
+            e = e.cpu_parent
+        cat = next((c for c, words in _OPS
+                    if any(w in nm for nm in names for w in words)),
+                   "other")
+        out[cat] = out.get(cat, 0.0) + sum(k.duration for k in fe.kernels)
+    outside = total_us - sum(out.values())
+    if outside > 0:
+        out["launched outside any op"] = outside
+    print("  by the op that launched each kernel:")
+    for cat, us in sorted(out.items(), key=lambda kv: -kv[1]):
+        print(f"    {cat:32s} {us / 1e3 / n:8.2f} ms/step "
+              f"({100 * us / total_us:5.1f} %)")
 
 
 def _report(torch, prof, n, wall_ms, label, split):
     """Print one trace's kernel time: by part (`split`: the eager step's
-    TrainStep ranges), by kind, and the top kernels."""
+    TrainStep ranges, and by op), by kind, and the top kernels."""
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     # the step's profiler ranges appear on the device timeline as spans
@@ -108,6 +186,7 @@ def _report(torch, prof, n, wall_ms, label, split):
             extra = f", span {span / n:.2f} ms/step" if span else ""
             print(f"  {part:34s} kernels "
                   f"{by_part.get(part, 0.0) / 1e3 / n:8.2f} ms/step{extra}")
+        _by_op(torch, prof, n, 1e3 * busy_ms)
     for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {kind:34s} {us / 1e3 / n:8.2f} ms/step "
               f"({100 * us / 1e3 / busy_ms:5.1f} % of kernel time)")
@@ -120,7 +199,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--config", choices=("gpt2_small", "gpt_1p3b",
-                                         "llama13b", "bert_base"),
+                                         "llama13b", "bert_base",
+                                         "resnet50"),
                     default="gpt2_small")
     args = ap.parse_args()
     import torch
@@ -131,8 +211,10 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
     from chip_smoke import (B1P3_BATCH, B1P3_INTERVAL, B1P3_SEQ,
                             BERT_BATCH, BERT_SEQ, LLAMA13_BATCH,
-                            LLAMA13_LAYERS, LLAMA13_SEQ, _bert_train_step,
-                            _gpt_train_step, _llama_train_step, _replay_ms)
+                            LLAMA13_LAYERS, LLAMA13_SEQ, RESNET_BATCH,
+                            RESNET_HW, _bert_train_step, _gpt_train_step,
+                            _llama_train_step, _replay_ms,
+                            _resnet_train_step)
     from paddle_tpu_torch.models import (bert_base, gpt2_small, gpt3_1p3b,
                                          llama2_13b)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -141,7 +223,15 @@ def main() -> int:
     common = dict(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
                   use_flash_attention=True)
     rng = np.random.default_rng(0)
-    if args.config == "llama13b":
+    if args.config == "resnet50":
+        from paddle_tpu_torch import set_flags
+        set_flags({"FLAGS_fast_bn_stats": True})
+        batch, hw = RESNET_BATCH, RESNET_HW
+        model, step = _resnet_train_step()
+        what = f"resnet50, batch {batch} x {hw}^2"
+        arrays = [rng.standard_normal((batch, hw, hw, 3), dtype=np.float32),
+                  rng.integers(0, 1000, (batch,))]
+    elif args.config == "llama13b":
         cfg = dataclasses.replace(llama2_13b(use_flash_attention=True),
                                   num_layers=LLAMA13_LAYERS)
         batch, seq = LLAMA13_BATCH, LLAMA13_SEQ
@@ -166,7 +256,9 @@ def main() -> int:
         arrays = [rng.integers(0, cfg.vocab_size, (batch, seq))
                   for _ in range(2)]
     # the batch on the card, so a step copies nothing from the host
-    batch_t = [torch.from_numpy(a.astype(np.int32)).cuda() for a in arrays]
+    batch_t = [torch.from_numpy(a if a.dtype == np.float32
+                                else a.astype(np.int32)).cuda()
+               for a in arrays]
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
@@ -174,9 +266,11 @@ def main() -> int:
         step(*batch_t)
         torch.cuda.synchronize()
         first_ms = 1e3 * (time.perf_counter() - t0)
+    if args.config != "resnet50":
+        what = (f"{args.config}, {cfg.num_layers} layers, batch {batch} x "
+                f"seq {seq}")
     _report(torch, prof, 1, first_ms,
-            f"{args.config}, {cfg.num_layers} layers, batch {batch} x seq "
-            f"{seq}: the eager step (the first call, then captured)",
+            f"{what}: the eager step (the first call, then captured)",
             split=True)
     for _ in range(2):
         step(*batch_t)

@@ -13,7 +13,9 @@ Run from the root of a checkout. Phases, each of which must pass:
   2. the serving kernel (B3) against its plain PyTorch version in f32 on
      the card, at the engine's shapes (gpt3_1p3b's 16 heads, GQA, int8,
      padding, and llama2_7b's 32 heads, in bf16; gpt3_1p3b's fresh and
-     prefix-resume waves and an int8 pool under f16 q), each design that
+     prefix-resume waves and an int8 pool under f16 q; phase 20's verify
+     wave, 8 rows of 8 tokens, and phase 21's int8 wave, bf16 q over int8
+     pools), each design that
      takes a case within its limit (the simple one KERNEL_ATOL, the sm90
      one twice the reference's own bf16 or f16 rounding), dead rows
      exactly 0, two faults
@@ -21,7 +23,8 @@ Run from the root of a checkout. Phases, each of which must pass:
      and by CUDA-graph replay with the plan built outside, beside the
      plan alone, the plain version, the roofline bound of the same work
      and one torch.nn.functional.scaled_dot_product_attention call on
-     the rows padded into a batch (a yardstick only);
+     the rows padded into a batch (a yardstick only; an int8 pool is
+     dequantized first, outside the timed call);
   3. the flash-attention kernels (B1 forward, B2 backward) against their
      plain versions in nine cases (gpt2_small's and gpt3_1p3b's training
      shapes, GQA, segment ids, non-causal, cross-length causal both ways,
@@ -162,7 +165,29 @@ Run from the root of a checkout. Phases, each of which must pass:
      5e-5 plus 1e-5 of the largest logit), and SGD, Momentum (Nesterov),
      Adamax, Adagrad, RMSProp (centered, momentum), Lamb, Adadelta and
      AdamW8bitStub each through 3 graph steps held to 3 eager steps on
-     resnet18 at batch 8 x 64^2.
+     resnet18 at batch 8 x 64^2;
+ 20. bench.py::bench_spec_decode's configuration uncut (gpt3_1p3b's
+     widths, bf16, max_batch 8, block 64, decode_chunk 16, prefix caching
+     off; 16 requests, a 16-token pattern tiled 8 times, 128 new tokens
+     each) served with n-gram speculation (k = 7) and without, each
+     engine warmed on two requests first: tokens/s both ways, spec steps,
+     drafted and accepted tokens, the pool's peak, the verify waves' B3
+     launches counted around each wave (one a layer, every one sm90),
+     spec-on tokens held to spec-off's under phase 16's margin guard;
+     then spec off with one request poisoned at engine.decode.seq, one
+     aborted and one past its deadline (an injected clock): the others'
+     tokens held to the clean run's, every page back; then 2 layers in
+     f32 (TF32 off) with DraftModelProposer drafting for the model
+     itself: its acceptance rate (at least 0.95) and its tokens against
+     spec off;
+ 21. gpt3_1p3b (bf16, 24 layers) served with int8 pools on phase 4's
+     traffic, the scales from calibrate_kv_scales on the first prompt:
+     the pools int8 at half of bf16's bytes, B3's simple design launched
+     with dequant scales for the prefix-resume waves (recorded call by
+     call), the decode graphs, tokens equal to phase 4's at half the
+     positions or more, and equal under the guard of its own logit
+     margins to the same engine run with its decode eager and B3 on its
+     plain version.
 
 The last three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
@@ -562,6 +587,21 @@ def _ragged_specs(rng):
     ]
 
 
+# B3 at the two calls phases 20-21 add (drawn from a generator of their
+# own, so the cases above keep their data): a speculative verify wave at
+# bench_spec_decode's config (8 rows of 1 + 7 drafts over cached
+# contexts, the bucket pinned at 64 tokens), and the int8 engine's
+# prefix-resume wave (bf16 q over int8 pools with dequant scales)
+def _ragged_specs_new_calls(rng):
+    return [
+        ("verify wave 8x8", dict(rows_spec=[
+            (int(c), 8) for c in rng.integers(128, 256, 8)])),
+        ("int8 engine wave", dict(rows_spec=[
+            (512, int(m)) for m in rng.integers(8, 33, 8)],
+            shared_prefix_pages=8, int8=True)),
+    ]
+
+
 # faults planted in the plain version's masks (f32); their effect on the
 # output, added to each design's result, must fail that design's check
 RAGGED_PLANTED = ("one page's valid slots dropped",
@@ -621,7 +661,8 @@ def _ragged_planted(rpa, f32_args, common, meta, want) -> dict:
 def _sdpa_yardstick(x, meta, scale):
     """(call, unpack) for one torch.nn.functional.scaled_dot_product_attention
     call that computes the case's function (a yardstick only: the port
-    never calls it for B3), or None for an int8 pool. Operands are
+    never calls it for B3); an int8 pool is dequantized to q's dtype
+    first, outside the call. Operands are
     padded and gathered outside the timed call: each live row's tokens,
     sorted by position, are one batch entry [B_live, H, Lq_max, D].
     Without a pool each row starts at position 0, so top-left is_causal
@@ -631,8 +672,13 @@ def _sdpa_yardstick(x, meta, scale):
     back to the packed [T, H, D] rows."""
     import torch
     import torch.nn.functional as tF
-    if x["kpool"].dtype == torch.int8:
-        return None
+    kpool, vpool = x["kpool"], x["vpool"]
+    if kpool.dtype == torch.int8:
+        # int8 pools: SDPA on the pools dequantized to q's dtype, the
+        # dequant done here, outside the timed call (not counted)
+        kpool, vpool = ((pool.float() * dq[None, :, None]).to(x["q"].dtype)
+                        for pool, dq in ((kpool, x["kdq"]),
+                                         (vpool, x["vdq"])))
     rows, pos, kv_start, off, bs = (meta[k] for k in (
         "rows", "pos", "kv_start", "off", "bs"))
     wp = meta["with_pool"]
@@ -664,8 +710,8 @@ def _sdpa_yardstick(x, meta, scale):
         qp[i, :, :len(t)] = x["q"][ti].transpose(0, 1)
         if len(c):
             ci = torch.from_numpy(c).to(dev)
-            kp[i, :, :len(c)] = x["kpool"][ci].transpose(0, 1)
-            vp[i, :, :len(c)] = x["vpool"][ci].transpose(0, 1)
+            kp[i, :, :len(c)] = kpool[ci].transpose(0, 1)
+            vp[i, :, :len(c)] = vpool[ci].transpose(0, 1)
         kp[i, :, len(c):len(c) + len(t)] = x["k_new"][ti].transpose(0, 1)
         vp[i, :, len(c):len(c) + len(t)] = x["v_new"][ti].transpose(0, 1)
         ok = np.zeros((Lq, Lk), bool)
@@ -791,9 +837,12 @@ def _fmt_ms(v):
 def kernel_phase() -> list:
     from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
     rng = np.random.default_rng(0)
+    rng_new = np.random.default_rng(14)
     out = []
-    for name, kw in _ragged_specs(rng):
-        rec = ragged_case(rpa, name, kw, rng)
+    for name, kw, r in ([(n, kw, rng) for n, kw in _ragged_specs(rng)]
+                        + [(n, kw, rng_new)
+                           for n, kw in _ragged_specs_new_calls(rng_new)]):
+        rec = ragged_case(rpa, name, kw, r)
         by = "; ".join(
             f"{d} err {r['max_abs_err']:.3e} (limit {r['tol']:.3e}, planted "
             f"{ {k[:12]: round(v, 4) for k, v in r['planted_max_abs_err'].items()} }) "
@@ -815,15 +864,30 @@ def kernel_phase() -> list:
 # ---------------------------------------------------------------------------
 # phase 4: gpt3_1p3b served at full width and depth
 # ---------------------------------------------------------------------------
+def _all_sm90(designs, launches):
+    """serve_phase's default B3 check: every launch the sm90 design."""
+    return (f"every B3 launch ran the {B3_MAIN_DESIGN} design",
+            designs == {d: launches * (d == B3_MAIN_DESIGN)
+                        for d in designs})
+
+
+# each serving run's tokens by request, keyed by (label, dtype, pools):
+# phase 21 holds the int8 engine's to phase 4's
+SERVED = {}
+
+
 def serve_phase(label, build, engine_kw, wave_hooks=None, after=None,
-                oracle=None) -> dict:
+                oracle=None, b3_check=_all_sm90) -> dict:
     """Serve 16 requests sharing a 512-token prefix (64 new tokens each)
     through LLMEngine on the model `build()` returns ((model, cfg), bf16
-    or f16 at full width and depth). `wave_hooks(model)` names modules
+    or f16 at full width and depth); `engine_kw` is the engine's
+    keywords, or a function of (model, prompts) that makes them.
+    `wave_hooks(model)` names modules
     whose inputs are captured during the first packed wave; `after(model,
     captured)` runs checks on them before the model is freed and returns
     a dict merged into the record; so does `oracle(model, prompts, done)`
-    with the requests' results."""
+    with the requests' results. `b3_check(designs, launches)` says which
+    B3 designs the run must launch."""
     import torch
     from paddle_tpu_torch.inference import LLMEngine
     from paddle_tpu_torch.inference import llm_engine as eng_mod
@@ -832,15 +896,16 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None,
 
     t0 = time.perf_counter()
     model, cfg = build()
-    eng = LLMEngine(model, **engine_kw)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     prefix = rng.integers(0, cfg.vocab_size, (512,))
     prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size,
                                                     (int(t),))])
                .astype(np.int32) for t in rng.integers(8, 33, 16)]
     n_new = 64
+    eng = LLMEngine(model, **(engine_kw(model, prompts)
+                              if callable(engine_kw) else engine_kw))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
 
     # measurement only: wall time of each packed wave and of each decode
     # chunk (with its step count), and device time of each attention call
@@ -915,9 +980,7 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None,
         "prefix cache hit (with_pool wave ran)":
             st["prefix_cache_hit_tokens"] > 0,
         "kernel launched": launches > 0,
-        f"every B3 launch ran the {B3_MAIN_DESIGN} design":
-            designs == {d: launches * (d == B3_MAIN_DESIGN)
-                        for d in designs},
+        **dict([b3_check(designs, launches)]),
         "plain version never ran on CUDA tensors": plain_calls == 0,
         f"one plan built per packed wave ({len(waves)})":
             plans == len(waves),
@@ -977,6 +1040,8 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None,
         rec.update(oracle(model, prompts, done))
     dname = str(eng.fam.dtype).removeprefix("torch.")
     rec["dtype"] = dname
+    pools = str(eng.cache.key_caches[0].dtype).removeprefix("torch.")
+    SERVED[label, dname, pools] = {i: r.output_ids for i, r in done.items()}
     log(f"[engine] {label} {dname} {cfg.num_layers} layers: {n_tok} tokens "
         f"in {run_s:.3f} s = {rec['tokens_per_s']:.1f} tokens/s; "
         f"{len(step_s)} steps, step wall ms mean "
@@ -1042,14 +1107,27 @@ def _decode_device_ms(eng, width):
     kcs, vcs = eng.cache.key_caches, eng.cache.value_caches
     kc, vc = kcs[0], vcs[0]
     scale = 1.0 / eng.fam.head_dim ** 0.5
+    dqs = [dict(kdq=None if eng._kdq is None else eng._kdq[li],
+                vdq=None if eng._vdq is None else eng._vdq[li])
+           for li in range(len(kcs))]
     attn_ms = graph_ms(lambda: [eng_mod._pool_decode_attention(
-        q, k, v, tbl, lens, scale, bs) for k, v in zip(kcs, vcs)],
-        reps=2) / len(kcs)
-    got = eng_mod._pool_decode_attention(q, kc, vc, tbl, lens, scale, bs)
-    want = eng_mod._pool_decode_attention(q.cpu(), kc.cpu(), vc.cpu(),
-                                          tbl.cpu(), lens.cpu(), scale, bs)
+        q, k, v, tbl, lens, scale, bs, **dq)
+        for k, v, dq in zip(kcs, vcs, dqs)], reps=2) / len(kcs)
+    got = eng_mod._pool_decode_attention(q, kc, vc, tbl, lens, scale, bs,
+                                         **dqs[0])
+    want = eng_mod._pool_decode_attention(
+        q.cpu(), kc.cpu(), vc.cpu(), tbl.cpu(), lens.cpu(), scale, bs,
+        **{k: None if v is None else v.cpu() for k, v in dqs[0].items()})
     err = float((got.cpu() - want).abs().max())
-    tol = torch.finfo(vc.dtype).eps * float(vc.float().abs().max()) + 1e-5
+    if vc.dtype == torch.int8:
+        # an int8 pool is read in f32 on both sides: the sums' order
+        # only (f32 scores of up to ~1e2 moved by ~1e-5 move each weight
+        # by ~1e-5 relative), relative to the largest dequantized value
+        tol = 1e-4 * float((vc.float() * dqs[0]["vdq"][None, :, None])
+                           .abs().max()) + 1e-5
+    else:
+        tol = torch.finfo(vc.dtype).eps * float(vc.float().abs().max()) \
+            + 1e-5
     return step_ms, attn_ms, err, tol
 
 
@@ -3542,6 +3620,490 @@ def _launches_17_18(runs, i):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: speculative decoding at bench_spec_decode's configuration
+# ---------------------------------------------------------------------------
+# bench.py::bench_spec_decode (bench.py:988-1020), its TPU configuration,
+# uncut: gpt3_1p3b's widths (vocab 50304, hidden 2048, 24 layers, 16
+# heads, max_position 2048) in bf16; max_batch 8, block 64, decode_chunk
+# 16, prompt_quantum 128, prefix caching off; 16 requests, each a 16-token
+# pattern tiled 8 times, 128 new tokens each; n-gram drafting with k = 7,
+# against the same engine without speculation
+SPEC_ENGINE = dict(max_batch=8, block_size=64, decode_chunk=16,
+                   prompt_quantum=128, enable_prefix_caching=False)
+SPEC_K = 7
+SPEC_NEW = 128
+# the self-drafting sub-run's bar: a model drafting for itself accepts
+# every draft whose greedy pick the verify wave agrees with
+SELF_DRAFT_MIN_RATE = 0.95
+
+
+def _spec_prompts(vocab, n=16, pat_len=16, reps=8, seed=0):
+    """bench_spec_decode's traffic: each prompt a random `pat_len`-token
+    pattern tiled `reps` times."""
+    rng = np.random.default_rng(seed)
+    return [np.tile(rng.integers(0, vocab, (pat_len,)).astype(np.int32),
+                    reps) for _ in range(n)]
+
+
+def _serve_timed(eng, prompts, n_new, after_step=None):
+    """Serve `prompts` through `eng` to the end: (results by id, wall s,
+    steps, the verify waves' record: waves, B3 launches and launches by
+    design counted around each, their wall s). `after_step(eng, n)` runs
+    after step n (the lifecycle faults)."""
+    import torch
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    f = rpa.ragged_paged_attention
+    verify = dict(waves=0, launches=0, wall_s=0.0,
+                  designs=dict.fromkeys(f.design_launches, 0))
+    run_ragged = eng._run_ragged
+
+    def counted(entries):
+        if not entries[0][3]:                   # a prefill wave
+            return run_ragged(entries)
+        n0, d0 = f.kernel_launches, dict(f.design_launches)
+        t = time.perf_counter()
+        r = run_ragged(entries)                 # ends in a host copy
+        verify["wall_s"] += time.perf_counter() - t
+        verify["waves"] += 1
+        verify["launches"] += f.kernel_launches - n0
+        for d in d0:
+            verify["designs"][d] += f.design_launches[d] - d0[d]
+        return r
+
+    eng._run_ragged = counted
+    for i, p in enumerate(prompts):
+        eng.add_request(i, p, max_new_tokens=n_new)
+    done, steps = {}, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.has_unfinished:
+        for r in eng.step():
+            done[r.request_id] = r
+        steps += 1
+        if after_step is not None:
+            after_step(eng, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng._run_ragged = run_ragged
+    return done, wall, steps, verify
+
+
+def _guard_lengths(model, prompts, outputs, margin=None):
+    """For each request, how many leading tokens of `outputs[i]` sit at
+    positions whose top-1/top-2 margin, in `model`'s logits over prompt +
+    output, is at least `margin`; margin None: twice those logits' own
+    rounding error, their largest difference over the request from the
+    same weights' logits in f32 (TF32 off), as phase 16's guard. Two runs
+    that round at other places, each within that error of exact, may
+    legitimately differ past a narrower race. Returns (lengths,
+    margins)."""
+    import copy
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m32 = copy.deepcopy(model).float() if margin is None else None
+    lengths, margins = [], []
+    with torch.no_grad():
+        for p, out in zip(prompts, outputs):
+            seq = torch.as_tensor(np.concatenate([p, out])[None].astype(
+                np.int64), device=model.device)
+            lg = model(seq)[0, len(p) - 1:-1].float()
+            m = margin
+            if m is None:
+                m = 2 * float((m32(seq)[0, len(p) - 1:-1] - lg).abs().max())
+            top2 = torch.topk(lg, 2, dim=-1).values
+            low = np.flatnonzero((top2[:, 0] - top2[:, 1]).cpu().numpy() < m)
+            lengths.append(int(low[0]) if len(low) else len(out))
+            margins.append(m)
+    del m32
+    torch.cuda.empty_cache()
+    return lengths, margins
+
+
+def _mismatched(want, got, lengths):
+    """Requests whose `got` tokens differ from `want`'s within their
+    guarded lengths."""
+    return [i for i, n in enumerate(lengths)
+            if not np.array_equal(np.asarray(got[i])[:n],
+                                  np.asarray(want[i])[:n])]
+
+
+def _spec_self_draft(kw) -> dict:
+    """Phase 20's sub-run: 2 layers at gpt3_1p3b's widths in f32 (TF32
+    off), DraftModelProposer(model) drafting for the model itself (the
+    reference's acceptance oracle, test_spec_decode.py:254) on four of
+    the phase's prompts (32 new tokens), against the same engine without
+    speculation under the margin guard (1e-3, phase 5's)."""
+    import torch
+    from paddle_tpu_torch.inference import (DraftModelProposer, LLMEngine,
+                                            SpeculativeConfig)
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(gpt3_1p3b(), num_layers=2)
+    model = GPTForCausalLM(cfg, dtype="float32", seed=1)
+    prompts = _spec_prompts(cfg.vocab_size, n=4, seed=1)
+    n_new = 32
+    on = LLMEngine(model, speculative_config=SpeculativeConfig(
+        proposer=DraftModelProposer(model), num_speculative_tokens=SPEC_K),
+        **kw)
+    t = time.perf_counter()
+    got = [r.output_ids for r in on.generate(prompts, n_new)]
+    on_s = time.perf_counter() - t
+    want = [r.output_ids for r in LLMEngine(model, **kw).generate(
+        prompts, n_new)]
+    lengths, _m = _guard_lengths(model, prompts, want, margin=1e-3)
+    st = on.stats
+    rate = st["spec_accepted_tokens"] / max(st["spec_drafted_tokens"], 1)
+    rec = dict(spec_steps=st["spec_steps"],
+               drafted=st["spec_drafted_tokens"],
+               accepted=st["spec_accepted_tokens"], acceptance_rate=rate,
+               guarded=lengths, mismatched=_mismatched(want, got, lengths),
+               run_s=on_s)
+    del on, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def spec_phase() -> dict:
+    """Phase 20: bench_spec_decode's configuration served with n-gram
+    speculation and without (each engine warmed on two of the requests
+    first, then timed on all 16); the verify waves' B3 launches counted
+    around each wave; spec-on tokens held to spec-off's under the margin
+    guard; then the lifecycle sub-run (spec off, full width: one request
+    poisoned at engine.decode.seq, one aborted, one past its deadline on
+    an injected clock) against the clean run, and the self-drafting
+    sub-run."""
+    import torch
+    from paddle_tpu_torch.inference import LLMEngine, SpeculativeConfig
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle_tpu_torch.resilience import faults
+    cfg = gpt3_1p3b()
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, dtype="bfloat16", seed=0)
+    setup_s = time.perf_counter() - t0
+    prompts = _spec_prompts(cfg.vocab_size)
+    kw = dict(SPEC_ENGINE, max_model_len=cfg.max_position_embeddings)
+    f = rpa.ragged_paged_attention
+    runs = {}
+    for spec in (True, False):
+        eng = LLMEngine(model, speculative_config=SpeculativeConfig(
+            "ngram", num_speculative_tokens=SPEC_K) if spec else None, **kw)
+        _serve_timed(eng, prompts[:2], SPEC_NEW)        # warm-up
+        before = dict(eng.stats)
+        eng.peak_used_blocks = 0
+        rpa.reset_counters()
+        done, wall, steps, verify = _serve_timed(eng, prompts, SPEC_NEW)
+        st = {k: eng.stats[k] - before[k] for k in eng.stats}
+        n_tok = sum(len(r.output_ids) for r in done.values())
+        runs[spec] = dict(
+            done=done, tokens=n_tok, run_s=wall, tokens_per_s=n_tok / wall,
+            steps=steps, step_ms_mean=1e3 * wall / steps, stats=st,
+            peak_used_blocks=eng.peak_used_blocks,
+            pages_back=eng.cache.available_blocks
+            == eng.cache.allocator.num_blocks - 1,
+            b3_launches=f.kernel_launches, b3_plain_calls=f.plain_calls,
+            b3_designs=dict(f.design_launches), verify=verify)
+        del eng
+        torch.cuda.empty_cache()
+    on, off = runs[True], runs[False]
+    want = [off["done"][i].output_ids for i in range(len(prompts))]
+    got = [on["done"][i].output_ids for i in range(len(prompts))]
+    lengths, margins = _guard_lengths(model, prompts, want)
+    mism = _mismatched(want, got, lengths)
+    st, v = on["stats"], on["verify"]
+    layers = cfg.num_layers
+    ok_tokens = all(
+        r.finish_reason == "length" and len(r.output_ids) == SPEC_NEW
+        and ((r.output_ids >= 0) & (r.output_ids < cfg.vocab_size)).all()
+        for run in (on, off) for r in run["done"].values())
+
+    # lifecycle sub-run: the clean run is the spec-off run above
+    clock = [0.0]
+    eng = LLMEngine(model, **kw)
+    eng._now = lambda: clock[0]
+    poisoned, aborted, expired = 3, 5, 7
+    life = {}
+
+    def after_step(e, n):
+        if n == 1:
+            life["abort_hit"] = e.abort_request(aborted)
+        if n == 2:
+            clock[0] = 100.0                # request 7's deadline passes
+
+    for i, p in enumerate(prompts):
+        eng.add_request(i, p, max_new_tokens=SPEC_NEW,
+                        deadline_s=10.0 if i == expired else None)
+    with faults.inject("engine.decode.seq",
+                       exc=MemoryError("chaos decode OOM"),
+                       match={"rid": poisoned}):
+        ldone, _w, _s, _v = _serve_timed(eng, [], SPEC_NEW, after_step)
+    others = [i for i in range(len(prompts))
+              if i not in (poisoned, aborted, expired)]
+    lmism = [i for i in others if not np.array_equal(
+        ldone[i].output_ids[:lengths[i]], want[i][:lengths[i]])]
+    lst = eng.stats
+    life.update(
+        reasons={i: ldone[i].finish_reason for i in sorted(ldone)},
+        poisoned_error=ldone[poisoned].error, mismatched=lmism,
+        stats={k: lst[k] for k in ("failed_requests", "aborted_requests",
+                                   "deadline_expired", "decode_chunks")},
+        pages_back=eng.cache.available_blocks
+        == eng.cache.allocator.num_blocks - 1)
+    del eng, model
+    torch.cuda.empty_cache()
+    self_draft = _spec_self_draft(kw)
+
+    checks = {
+        f"every request returned {SPEC_NEW} in-vocab tokens, both runs":
+            ok_tokens,
+        f"speculation ran ({st['spec_steps']} spec steps)":
+            st["spec_steps"] > 0,
+        "no spec step degraded, no proposer error":
+            st["spec_step_errors"] == st["spec_proposer_errors"] == 0,
+        f"one verify wave a spec step ({v['waves']})":
+            v["waves"] == st["spec_steps"],
+        f"B3 once a layer a verify wave ({v['launches']} launches)":
+            v["launches"] == layers * v["waves"],
+        "every verify-wave B3 launch sm90":
+            v["designs"] == {d: v["launches"] * (d == "sm90")
+                             for d in v["designs"]},
+        "plain version never ran on CUDA tensors":
+            on["b3_plain_calls"] == off["b3_plain_calls"] == 0,
+        f"spec-on tokens == spec-off tokens under the margin guard "
+        f"(compared {sum(lengths)} of {SPEC_NEW * len(prompts)})":
+            not mism and sum(lengths) > 0,
+        "every page back in the pool, both runs":
+            on["pages_back"] and off["pages_back"],
+        "lifecycle: poisoned request failed alone (error), one aborted, "
+        "one past its deadline, the rest finished":
+            life["abort_hit"]
+            and life["reasons"] == {
+                i: {poisoned: "error", aborted: "aborted",
+                    expired: "deadline"}.get(i, "length")
+                for i in range(len(prompts))}
+            and "chaos decode OOM" in (life["poisoned_error"] or ""),
+        "lifecycle: the others' tokens == the clean run's under the guard":
+            not lmism,
+        "lifecycle: stats (2 failed, 1 aborted, 1 expired), every page "
+        "back": life["stats"]["failed_requests"] == 2
+            and life["stats"]["aborted_requests"] == 1
+            and life["stats"]["deadline_expired"] == 1
+            and life["pages_back"],
+        f"self-drafting acceptance rate "
+        f"{self_draft['acceptance_rate']:.4f} >= {SELF_DRAFT_MIN_RATE}":
+            self_draft["drafted"] > 0
+            and self_draft["acceptance_rate"] >= SELF_DRAFT_MIN_RATE,
+        "self-drafting tokens == spec-off tokens under the guard":
+            not self_draft["mismatched"] and sum(self_draft["guarded"]) > 0,
+    }
+    for what, ok in checks.items():
+        log(f"[spec] check: {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise RuntimeError(f"spec phase failed: spec-on {st}, verify {v}, "
+                           f"mismatched {mism}, lifecycle {life}, "
+                           f"self-draft {self_draft}")
+    rec = dict(
+        config="bench_spec_decode (gpt3_1p3b, bf16)", setup_s=setup_s,
+        guarded=lengths, margins=margins, lifecycle=life,
+        self_draft=self_draft,
+        accepted_per_step=st["spec_accepted_tokens"] / st["spec_steps"],
+        acceptance_rate=st["spec_accepted_tokens"]
+        / max(st["spec_drafted_tokens"], 1),
+        verify_wave_ms_mean=1e3 * v["wall_s"] / v["waves"],
+        speedup=on["tokens_per_s"] / off["tokens_per_s"])
+    for name, run in (("spec_on", on), ("spec_off", off)):
+        rec[name] = {k: run[k] for k in (
+            "tokens", "run_s", "tokens_per_s", "steps", "step_ms_mean",
+            "stats", "peak_used_blocks", "b3_launches", "b3_designs",
+            "verify")}
+    log(f"[spec] bench_spec_decode: spec on {on['tokens_per_s']:.1f} "
+        f"tokens/s ({on['steps']} steps, {st['spec_steps']} spec steps, "
+        f"{st['spec_drafted_tokens']} drafted, {st['spec_accepted_tokens']} "
+        f"accepted, {rec['accepted_per_step']:.3f} accepted a spec step, "
+        f"{st['decode_chunks']} decode chunks; verify waves "
+        f"{rec['verify_wave_ms_mean']:.2f} ms each by wall, "
+        f"{v['launches']} B3 launches {v['designs']}; peak "
+        f"{on['peak_used_blocks']} blocks) against spec off "
+        f"{off['tokens_per_s']:.1f} tokens/s ({off['steps']} steps, peak "
+        f"{off['peak_used_blocks']} blocks): x{rec['speedup']:.3f}; "
+        f"self-drafting (2 layers, f32) acceptance "
+        f"{self_draft['acceptance_rate']:.4f} over "
+        f"{self_draft['drafted']} drafts; lifecycle {life['reasons']}; "
+        f"card {card_line()}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 21: int8 pools at gpt3_1p3b with phase 4's traffic
+# ---------------------------------------------------------------------------
+# phase 4's engine
+SERVE_ENGINE = dict(max_batch=8, block_size=64, decode_chunk=16,
+                    prompt_quantum=128)
+
+
+def _plain_int8_run(model, engine_kw, prompts, n_new):
+    """The int8 engine's tokens with its decode steps eager and B3 on
+    its plain version (checking only), and each request's top-1/top-2
+    logit margin at each token it sampled, read from the logits of that
+    run's own sampling calls."""
+    import functools
+    import torch
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.inference import llm_engine as eng_mod
+    eng = LLMEngine(model, **engine_kw)
+    eng._eager_decode = True
+    margins = {i: [] for i in range(len(prompts))}
+    rows = []                   # the slots whose token a call samples
+    saved = (eng_mod.ragged_paged_attention, eng_mod._pick_token)
+
+    def pick(lf, *a):
+        top2 = torch.topk(lf, 2, dim=-1).values
+        m = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        for b in rows:
+            margins[eng.slots[b].rid].append(float(m[b]))
+        return saved[1](lf, *a)
+
+    run_ragged, launch = eng._run_ragged, eng._launch_decode_chunk
+
+    def wave(entries):
+        rows[:] = [e[0].slot for e in entries]
+        return run_ragged(entries)
+
+    def chunk(lease):
+        rows[:] = [] if lease is None else [s.slot for s in lease[0]]
+        return launch(lease)
+
+    eng._run_ragged, eng._launch_decode_chunk = wave, chunk
+    eng_mod.ragged_paged_attention = functools.partial(
+        saved[0], path="torch")
+    eng_mod._pick_token = pick
+    try:
+        res = eng.generate(prompts, max_new_tokens=n_new)
+    finally:
+        eng_mod.ragged_paged_attention, eng_mod._pick_token = saved
+    pool = eng.cache.key_caches[0]
+    out = dict(tokens=[r.output_ids for r in res],
+               margins=[margins[i][:n_new] for i in range(len(prompts))],
+               pool_dtype=pool.dtype,
+               pool_bytes=sum(t.numel() * t.element_size()
+                              for t in eng.cache.key_caches
+                              + eng.cache.value_caches),
+               pool_numel=sum(t.numel() for t in eng.cache.key_caches
+                              + eng.cache.value_caches))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_engine_phase() -> dict:
+    """Phase 21: gpt3_1p3b (bf16, 24 layers, seed 0) served with int8
+    pools on phase 4's traffic, the scales from calibrate_kv_scales on
+    the first prompt. B3's launches recorded by design and by whether
+    they carried dequant scales; the tokens held to phase 4's bf16
+    engine's (at least half equal, the reference's bar) and to the same
+    engine run with its decode eager and B3 on its plain version (under
+    the guard of that run's own logit margins against twice the bf16
+    logits' rounding error)."""
+    import torch
+    from paddle_tpu_torch.inference import calibrate_kv_scales
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hold = {}
+
+    def build():
+        cfg = gpt3_1p3b()
+        return GPTForCausalLM(cfg, dtype="bfloat16", seed=0), cfg
+
+    def engine_kw(model, prompts):
+        hold["kw"] = dict(SERVE_ENGINE, kv_quant_scales=calibrate_kv_scales(
+            model, prompts[0][None]))
+        return hold["kw"]
+
+    def b3_check(designs, launches):
+        return ("B3: sm90 for the fresh waves, the simple design for the "
+                "prefix-resume waves over the int8 pools",
+                designs["sm90"] > 0 and designs["simple"] > 0
+                and sum(designs.values()) == launches)
+
+    calls = []                  # (design, carried dequant scales)
+    launch = rpa._ragged_cuda
+
+    def recorded(*a, **kw):
+        d0 = dict(rpa.ragged_paged_attention.design_launches)
+        out = launch(*a, **kw)
+        moved = [d for d, n in rpa.ragged_paged_attention
+                 .design_launches.items() if n != d0[d]]
+        calls.append((moved[0], kw.get("kdq") is not None
+                      and kw.get("with_pool", True)))
+        return out
+
+    def oracle(model, prompts, done):
+        n_new = len(done[0].output_ids)
+        plain = _plain_int8_run(model, hold["kw"], prompts, n_new)
+        got = [done[i].output_ids for i in range(len(prompts))]
+        noise_len, noise = _guard_lengths(model, prompts[:1],
+                                          [plain["tokens"][0]])
+        lengths = []
+        for m in plain["margins"]:
+            low = np.flatnonzero(np.asarray(m) < noise[0])
+            lengths.append(int(low[0]) if len(low) else len(m))
+        bf16 = SERVED["gpt3_1p3b", "bfloat16", "bfloat16"]
+        agree = float(np.mean([np.mean(got[i] == bf16[i])
+                               for i in range(len(prompts))]))
+        return dict(plain_guarded=lengths, plain_margin=noise[0],
+                    plain_mismatched=_mismatched(plain["tokens"], got,
+                                                 lengths),
+                    plain_b3_calls=rpa.ragged_paged_attention.plain_calls,
+                    bf16_agreement=agree,
+                    pool_dtype=str(plain["pool_dtype"]),
+                    pool_bytes=plain["pool_bytes"],
+                    bf16_pool_bytes=2 * plain["pool_numel"])
+
+    rpa._ragged_cuda = recorded
+    try:
+        rec = serve_phase("gpt3_1p3b int8", build, engine_kw,
+                          oracle=oracle, b3_check=b3_check)
+    finally:
+        rpa._ragged_cuda = launch
+    dequant = sum(1 for d, dq in calls if dq)
+    simple_dequant = sum(1 for d, dq in calls if dq and d == "simple")
+    checks = {
+        "the pools are torch.int8, at half of bf16's bytes":
+            rec["pool_dtype"] == "torch.int8"
+            and 2 * rec["pool_bytes"] == rec["bf16_pool_bytes"],
+        f"B3's simple design launched with dequant scales "
+        f"({simple_dequant} of {dequant} dequant launches)":
+            simple_dequant == dequant > 0,
+        f"tokens equal to the bf16 engine's at >= half the positions "
+        f"({rec['bf16_agreement']:.4f})": rec["bf16_agreement"] >= 0.5,
+        f"tokens == the eager, plain-B3 run's under the guard (compared "
+        f"{sum(rec['plain_guarded'])})":
+            not rec["plain_mismatched"] and sum(rec["plain_guarded"]) > 0
+            and rec["plain_b3_calls"] > 0,
+    }
+    for what, ok in checks.items():
+        log(f"[int8] check: {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise RuntimeError(f"int8 phase failed: {checks}")
+    rec.update(b3_dequant_launches=dequant,
+               b3_simple_dequant_launches=simple_dequant,
+               b3_launches_by_design={
+                   d: sum(1 for c, _ in calls if c == d)
+                   for d in rpa._RPA_DESIGNS})
+    log(f"[int8] gpt3_1p3b int8 pools: {rec['tokens_per_s']:.1f} tokens/s, "
+        f"decode {rec['decode_ms_per_step']:.2f} ms a step (a step by "
+        f"replay {rec['decode_step_replay_ms']:.3f} ms, attention "
+        f"{100 * rec['decode_attention_share']:.1f} %), pools "
+        f"{rec['pool_bytes'] / 2 ** 30:.3f} GiB (bf16 "
+        f"{rec['bf16_pool_bytes'] / 2 ** 30:.3f}); B3 "
+        f"{rec['b3_launches_by_design']}, {dequant} with dequant; "
+        f"agreement with bf16 {rec['bf16_agreement']:.4f}; card "
+        f"{card_line()}")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -3581,13 +4143,30 @@ def main() -> int:
     train_llama = llama_train_phase()
     train_bert = bert_train_phase()
     train_resnet = resnet_train_phase()
+    spec = spec_phase()
+    int8 = int8_engine_phase()
     runs_17_18 = (("llama13b", train_llama["no_recompute"]),
                   ("llama13b_recompute", train_llama["recompute"]),
                   ("bert_base", train_bert))
     main_case = cases[0]    # the engine's fresh wave: its largest launch
     f16_case = next(c for c in cases if c["case"] == "f16 fresh wave, no pool")
     fmain = flash[0]        # gpt2_small's training shape
+    verify_case = next(c for c in cases if c["case"] == "verify wave 8x8")
+    int8_case = next(c for c in cases if c["case"] == "int8 engine wave")
     src = "paddle_tpu_torch/kernels/csrc/"
+
+    def b3_call(case, **launches):
+        """B3's record at one phase 2 case beside its launches on a
+        path."""
+        return dict(**launches, design=case["design"],
+                    max_abs_err=case["max_abs_err"], ms=case["ms"],
+                    ms_graph=case["ms_graph"],
+                    simple_ms=case["simple_ms_graph"],
+                    plain_ms=case["plain_ms"], bound_ms=case["bound_ms"],
+                    bound_by=case["bound_by"],
+                    library_ms=case["library_ms"],
+                    library_ms_graph=case["library_ms_graph"])
+
     kernels = [dict(
         name="ragged_paged_attention", route="cuda",
         source=src + B3_SOURCES[main_case["design"]],
@@ -3618,6 +4197,13 @@ def main() -> int:
                  bound_by=f16_case["bound_by"],
                  library_ms=f16_case["library_ms"],
                  library_ms_graph=f16_case["library_ms_graph"]),
+        # phase 20's verify waves (every launch sm90) at phase 2's verify
+        # case, and phase 21's int8 engine: its launches with dequant
+        # scales (the simple design) at phase 2's int8 engine wave
+        verify=b3_call(verify_case,
+                       launches=spec["spec_on"]["verify"]["launches"]),
+        int8=b3_call(int8_case, launches=int8["b3_simple_dequant_launches"],
+                     launches_by_design=int8["b3_launches_by_design"]),
         cases=cases)]
     t13 = train_1p3b["recompute"]
     for i, (kind, name, line, launches, source) in enumerate((
@@ -3722,6 +4308,8 @@ def main() -> int:
     log("[train-llama13b] " + json.dumps(train_llama))
     log("[train-bert] " + json.dumps(train_bert))
     log("[train-resnet50] " + json.dumps(train_resnet))
+    log("[spec] " + json.dumps(spec))
+    log("[int8] " + json.dumps(int8))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

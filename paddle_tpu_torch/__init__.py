@@ -10,7 +10,7 @@ TrainStep and the optimizers, which follow the model's parameters) run
 on the CUDA card unless the caller passes device="cpu"; without a card
 they raise."""
 from . import (amp, core, distributed, incubate, inference, jit, kernels,
-               models, nn, optimizer, vision)
+               models, nn, optimizer, resilience, vision)
 from .convert import (bert_params_from_numpy, fused_params_from_numpy,
                       gpt_params_from_numpy, llama_params_from_numpy,
                       optimizer_state_from_numpy, resnet_params_from_numpy)
@@ -23,7 +23,7 @@ from .models import (BertConfig, BertForMaskedLM, GPTConfig, GPTForCausalLM,
                      generate)
 
 __all__ = ["amp", "core", "distributed", "incubate", "inference", "jit",
-           "kernels", "models", "nn", "optimizer", "vision",
+           "kernels", "models", "nn", "optimizer", "resilience", "vision",
            "bert_params_from_numpy", "fused_params_from_numpy",
            "gpt_params_from_numpy", "llama_params_from_numpy",
            "optimizer_state_from_numpy", "resnet_params_from_numpy",

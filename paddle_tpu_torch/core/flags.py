@@ -4,7 +4,8 @@ Flags are typed, registered as data, and initialised from ``FLAGS_*``
 environment variables when they are defined (at import). The port's
 copy of the reference's registry. Only the flags whose behaviour the
 port has are registered: ``FLAGS_fast_bn_stats`` (read by
-``nn.functional.batch_norm``). Setting one of the reference's other
+``nn.functional.batch_norm``), ``FLAGS_watchdog_timeout_s`` and
+``FLAGS_watchdog_abort`` (read by ``utils.watchdog``). Setting one of the reference's other
 flags raises "unknown flag" here until the code that acts on it is
 ported (ROADMAP.md lists them).
 
@@ -88,3 +89,10 @@ define_flag("FLAGS_fast_bn_stats", False,
             "exceeds ~1e3 x its std while the running mean is still far "
             "from the data (cold start). Default off = exact two-pass "
             "statistics.")
+define_flag("FLAGS_watchdog_timeout_s", 0.0,
+            "hang watchdog: dump thread stacks when a blocking region "
+            "(an engine step's device call) exceeds this many seconds; "
+            "0 off")
+define_flag("FLAGS_watchdog_abort", False,
+            "hang watchdog: os._exit(124) after the dump so a "
+            "supervisor restarts the worker")

@@ -4,16 +4,17 @@
 The scheduler is host Python plus the native block allocator, and every
 decision it makes is paddle_tpu's: admission order, prefix-cache leases,
 total-token buckets, power-of-two decode chunks, page leasing, the
-trash page and the preemption victim. The two engines' `stats` agree
-exactly on the same traffic.
+trash page, the preemption victim, speculative leases, verify-bucket
+pinning and rollback, deadlines, load shedding and eviction. The two
+engines' `stats` agree exactly on the same traffic.
 
-  * Ragged packed prefill: every admission wave (fresh prompts and
-    prefix-resume tails alike) packs its rows' uncached tokens into ONE
-    [total_tokens] stream with per-token (row, position) metadata and
-    runs `kernels.ragged_paged_attention` once per layer: the
-    hand-written CUDA kernel on the card, its plain PyTorch version on
-    the CPU. paddle_tpu compiles this function into one executable per
-    token bucket; here it runs eagerly.
+  * Ragged packed waves: every admission wave (fresh prompts and
+    prefix-resume tails alike) and every speculative verify wave packs
+    its rows' tokens into ONE [total_tokens] stream with per-token (row,
+    position) metadata and runs `kernels.ragged_paged_attention` once
+    per layer: the hand-written CUDA kernel on the card, its plain
+    PyTorch version on the CPU. paddle_tpu compiles this function into
+    one executable per token bucket; here it runs eagerly.
   * Decode runs the whole batch one chunk (`decode_chunk` tokens) at a
     time. paddle_tpu stages each step's k/v in a side buffer because a
     pool that is both scattered into and read in one XLA scan body
@@ -32,33 +33,57 @@ exactly on the same traffic.
     prompt blocks are content-hashed in the PagedKVCache, a request
     sharing a page-aligned prefix leases the computed pages and prefills
     only its tail, and finished sequences' pages park in an LRU.
+  * Speculative decoding (speculative_config, greedy only): a proposer
+    drafts up to k tokens a row, one packed verify wave samples a token
+    at every position of every row's [last token, drafts...] window in
+    a token bucket pinned at B * (k + 1), the matching prefix and the
+    bonus token commit, and `PagedKVCache.truncate` rolls the lease
+    back to them.
+  * int8 pools (kv_quant_scales, from `calibrate_kv_scales`): k and v
+    are quantized with per-layer, per-kv-head static scales where they
+    are written (packed waves and decode steps); the ragged kernel takes
+    the dequant scales, and the decode attention folds them into its
+    scores and output.
+  * The request lifecycle: load shedding (shed_load, max_waiting),
+    deadlines (deadline_s, on the injectable `_now` clock),
+    `abort_request`, poisoned-request isolation of the packed prefill
+    and the decode chunk, the step watchdog (step_timeout_s) and
+    precomputed prefix hashes. Failures are isolated only when they
+    are raised before a device launch (the `resilience.faults` points,
+    the leases, the proposer); a failure raised by a launch itself
+    (a packed wave, a verify wave, a decode chunk: a kernel, a graph
+    replay, a CUDA error) propagates out of `step()`.
 
-Not in this port yet (each raises NotImplementedError): speculative
-decoding, tensor-parallel placement (mesh/shard_param), the persistent
-executable cache, int8 pools (kv_quant_scales), the step watchdog,
-load shedding (shed_load/max_waiting), request deadlines, precomputed
-prefix hashes and the observability series and spans.
+Not in this port yet (each raises NotImplementedError): tensor-parallel
+placement (mesh/shard_param), the persistent executable cache
+(exec_cache_dir), KV-page export/import and the observability series
+and spans (obs_carry).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..incubate.nn.functional.serving import _apply_rotary
+from ..incubate.nn.functional.serving import _apply_rotary, _quantize_kv
 from ..jit.cuda_graph import CapturedStep
 from ..kernels.ragged_paged_attention import (ragged_paged_attention,
                                               ragged_plan)
-from ..models.generation import _pick_token
+from ..models.generation import _family, _pick_token, _static_cache
 from ..models.llama import _rope_cos_sin
+from ..resilience import faults
+from ..utils.watchdog import watchdog
 from .paged_cache import PagedKVCache
+from .speculative import accept_drafts
 
-__all__ = ["LLMEngine", "GenerationResult"]
+__all__ = ["LLMEngine", "GenerationResult", "calibrate_kv_scales"]
 
 
 @dataclasses.dataclass
@@ -66,15 +91,22 @@ class GenerationResult:
     request_id: object
     prompt_ids: np.ndarray
     output_ids: np.ndarray          # generated tokens (no prompt)
-    finish_reason: str              # "eos" | "length"
+    finish_reason: str   # "eos" | "length" | "error" | "deadline" |
+                         # "rejected" | "aborted"
+    error: Optional[str] = None     # failure detail when not ok
+
+    @property
+    def ok(self) -> bool:
+        return self.finish_reason in ("eos", "length")
 
 
-@dataclasses.dataclass(eq=False)
-class _Request:
+@dataclasses.dataclass(eq=False)        # identity eq: waiting.remove()
+class _Request:                         # must not compare prompts
     rid: object
     prompt: np.ndarray                       # int32 [prompt_len]
     max_new_tokens: int                      # TOTAL generation budget
     resume_out: List[int] = dataclasses.field(default_factory=list)
+    deadline: Optional[float] = None         # absolute `_now()` seconds
     hash_chain: Optional[list] = None        # memoized block_hashes()
 
     @property
@@ -85,7 +117,7 @@ class _Request:
 
 class _Seq:
     __slots__ = ("rid", "prompt", "max_new", "slot", "length", "out",
-                 "admit_seq", "cached_len")
+                 "admit_seq", "deadline", "cached_len")
 
     def __init__(self, req: _Request, slot: int, admit_seq: int):
         self.rid = req.rid
@@ -95,6 +127,7 @@ class _Seq:
         self.length = 0                 # tokens currently in the cache
         self.out: List[int] = list(req.resume_out)
         self.admit_seq = admit_seq      # monotonic admission order
+        self.deadline = req.deadline
         self.cached_len = 0             # prefix tokens leased from cache
 
     @property
@@ -257,25 +290,66 @@ def _bmm_f32(a, b):
     return torch.bmm(a.float(), b.float())
 
 
-def _pool_decode_attention(q, kpool, vpool, tbl, lens, scale, block_size):
+
+
+@torch.no_grad()
+def calibrate_kv_scales(model, sample_ids):
+    """Per-layer, per-kv-head int8 quant scales (127 / amax) from one
+    dense cached forward over a representative prompt (the reference's
+    calibrate_kv_scales, llm_engine.py:440, over the port's
+    `models.generation` family forward).
+
+    sample_ids: int array (or tensor) [b, s]. Returns (k_scales,
+    v_scales), each [num_layers, kv_heads] float32 numpy."""
+    fwd_fn, emb_dtype = _family(model)
+    if isinstance(sample_ids, torch.Tensor):
+        sample_ids = sample_ids.cpu().numpy()
+    ids = np.asarray(sample_ids, dtype=np.int32)
+    b, s = ids.shape
+    dev = model.device
+    caches = _static_cache(model, b, s, emb_dtype)
+    was_training = model.training
+    model.eval()
+    try:
+        fwd_fn(model, torch.as_tensor(ids, device=dev).long(), caches,
+               torch.zeros((), dtype=torch.int64, device=dev))
+    finally:
+        if was_training:
+            model.train()
+    ks, vs = [], []
+    for c in caches:
+        # cache layout [b, max_len, kv_heads, head_dim]
+        amax_k = c["k"].float().abs().amax(dim=(0, 1, 3))
+        amax_v = c["v"].float().abs().amax(dim=(0, 1, 3))
+        ks.append(127.0 / amax_k.clamp_min(1e-6))
+        vs.append(127.0 / amax_v.clamp_min(1e-6))
+    return (torch.stack(ks).cpu().numpy().astype(np.float32),
+            torch.stack(vs).cpu().numpy().astype(np.float32))
+
+
+def _pool_decode_attention(q, kpool, vpool, tbl, lens, scale, block_size,
+                           kdq=None, vdq=None):
     """One-token-per-row attention over each row's pages.
 
     q: [B, H, D] (the current token, already written to the pool);
     kpool/vpool: [NB*bs, kvH, D] token-major; tbl: [B, P] int64 page
     table (page i of row b holds its positions i*bs .. i*bs+bs-1);
-    lens: [B], attend to positions <= lens[b]. Same function as
-    paddle_tpu's whole-pool masked form (_pool_decode_attention,
-    llm_engine.py:476): a row's owned pages in table order hold exactly
-    its positions, so gathering them replaces masking the whole pool.
-    An inactive row's table is the trash page and its length 0, so it
-    attends one (ignored) slot, as it does in paddle_tpu's engine.
+    lens: [B], attend to positions <= lens[b]; kdq/vdq: [kvH] f32
+    dequant scales of an int8 pool. Same function as paddle_tpu's
+    whole-pool masked form (_pool_decode_attention, llm_engine.py:476):
+    a row's owned pages in table order hold exactly its positions, so
+    gathering them replaces masking the whole pool. An inactive row's
+    table is the trash page and its length 0, so it attends one
+    (ignored) slot, as it does in paddle_tpu's engine.
 
     The reference's arithmetic: q·scale and p rounded to the pool's
-    dtype, products and sums in f32, f32 scores and softmax. Each row's
-    gathered pages [T, kvH*D] are read in place by one batched product
-    per row and side: q enters as a block-diagonal [H, kvH*D] (each
-    head's q in its kv head's columns, zeros elsewhere), so the scores
-    are [H, T] with nothing added but exact zeros, and P·V yields
+    dtype, products and sums in f32, f32 scores and softmax; an int8
+    pool is widened to f32 with q and p kept in f32, the dequant scales
+    multiplying the scores and the output (llm_engine.py:499-525). Each
+    row's gathered pages [T, kvH*D] are read in place by one batched
+    product per row and side: q enters as a block-diagonal [H, kvH*D]
+    (each head's q in its kv head's columns, zeros elsewhere), so the
+    scores are [H, T] with nothing added but exact zeros, and P·V yields
     [H, kvH*D], of which each head keeps its own kv head's block. (The
     zeros carry a non-finite value of one kv head's k at a slot into
     every head's score there; a finite pool gives the reference's
@@ -286,17 +360,25 @@ def _pool_decode_attention(q, kpool, vpool, tbl, lens, scale, block_size):
     T = tbl.shape[1] * block_size
     kc = kpool.view(-1, block_size, kvH, D)[tbl].reshape(B, T, kvH * D)
     vc = vpool.view(-1, block_size, kvH, D)[tbl].reshape(B, T, kvH * D)
-    q4 = (q.float() * scale).to(kpool.dtype).reshape(B, kvH, rep, 1, D)
-    eye = torch.eye(kvH, dtype=kpool.dtype, device=q.device)
+    cdt = kpool.dtype
+    if cdt == torch.int8:
+        cdt = torch.float32
+        kc, vc = kc.float(), vc.float()
+    q4 = (q.float() * scale).to(cdt).reshape(B, kvH, rep, 1, D)
+    eye = torch.eye(kvH, dtype=cdt, device=q.device)
     qbd = (q4 * eye[:, None, :, None]).reshape(B, H, kvH * D)
     s = _bmm_f32(qbd, kc.transpose(1, 2))                     # [B, H, T]
+    if kdq is not None:
+        s = s * kdq.repeat_interleave(rep)[None, :, None]
     gpos = torch.arange(T, device=q.device)
     valid = gpos[None, :] <= lens[:, None]                   # [B, T]
     s = s.masked_fill(~valid[:, None, :], float("-inf"))
-    p = torch.softmax(s, dim=-1).to(vpool.dtype)
+    p = torch.softmax(s, dim=-1).to(cdt)
     o = _bmm_f32(p, vc).reshape(B, kvH, rep, kvH, D)         # f32
-    return torch.diagonal(o, dim1=1, dim2=3).permute(0, 3, 1, 2) \
-        .reshape(B, H * D)
+    o = torch.diagonal(o, dim1=1, dim2=3).permute(0, 3, 1, 2)  # [B,kvH,r,D]
+    if vdq is not None:
+        o = o * vdq[None, :, None, None]
+    return o.reshape(B, H * D)
 
 
 class LLMEngine:
@@ -311,7 +393,15 @@ class LLMEngine:
     or simply `results = engine.generate(prompts, max_new_tokens=64)`.
 
     device: None = the CUDA card (raises without one), or "cpu" by
-    request; the model must live on that device."""
+    request; the model must live on that device.
+
+    kv_quant_scales: (k_scales, v_scales), each [num_layers, kv_heads]
+    (`calibrate_kv_scales`), turns the pools to int8. speculative_config:
+    an `inference.SpeculativeConfig` turns on speculative decoding
+    (greedy only: do_sample=True is refused). shed_load: admission
+    failures become "rejected" results instead of raising; max_waiting
+    caps the waiting queue. step_timeout_s arms the watchdog around
+    each device launch."""
 
     def __init__(self, model, max_batch: int = 8,
                  num_blocks: Optional[int] = None, block_size: int = 64,
@@ -328,12 +418,7 @@ class LLMEngine:
                  speculative_config=None,
                  mesh=None, shard_param=None,
                  exec_cache_dir: Optional[str] = None, device=None):
-        for name, val in (("kv_quant_scales", kv_quant_scales),
-                          ("shed_load", shed_load or None),
-                          ("max_waiting", max_waiting),
-                          ("step_timeout_s", step_timeout_s),
-                          ("speculative_config", speculative_config),
-                          ("mesh", mesh), ("shard_param", shard_param),
+        for name, val in (("mesh", mesh), ("shard_param", shard_param),
                           ("exec_cache_dir", exec_cache_dir)):
             if val is not None:
                 raise NotImplementedError(
@@ -364,11 +449,32 @@ class LLMEngine:
         self._gen.manual_seed(seed)
 
         model.eval()
+        # int8 pools: per-layer, per-kv-head static quant scales and
+        # their reciprocals, the dequant scales (static tensors: the
+        # decode graphs read them in place)
+        self._kq = self._vq = self._kdq = self._vdq = None
+        cache_dtype = self.fam.dtype
+        if kv_quant_scales is not None:
+            kq, vq = kv_quant_scales
+            want = (cfg.num_layers, self.fam.kv_heads)
+            self._kq, self._vq = (
+                (t if isinstance(t, torch.Tensor)
+                 else torch.from_numpy(np.array(t, np.float32)))
+                .to(device=self.device, dtype=torch.float32)
+                for t in (kq, vq))
+            for got in (self._kq, self._vq):
+                if tuple(got.shape) != want:
+                    raise ValueError(
+                        f"kv_quant_scales must be [{cfg.num_layers}, "
+                        f"{self.fam.kv_heads}]; got {tuple(got.shape)}")
+            self._kdq = 1.0 / self._kq
+            self._vdq = 1.0 / self._vq
+            cache_dtype = torch.int8
         self.cache = PagedKVCache(
             num_layers=cfg.num_layers, num_blocks=int(num_blocks),
             kv_heads=self.fam.kv_heads, block_size=self.block_size,
             head_dim=self.fam.head_dim,
-            dtype=self.fam.dtype,
+            dtype=cache_dtype,
             layout="token",
             enable_prefix_caching=bool(enable_prefix_caching),
             device=self.device)
@@ -382,9 +488,34 @@ class LLMEngine:
         self.waiting: collections.deque = collections.deque()
         self.slots: List[Optional[_Seq]] = [None] * self.max_batch
         self._admit_counter = 0
+        # load shedding / deadlines / watchdog
+        self.shed_load = bool(shed_load)
+        self.max_waiting = max_waiting
+        self.step_timeout_s = step_timeout_s
+        self._failed: List[GenerationResult] = []   # drained by step()
+        self._now = time.monotonic                  # stubbable clock
+        # speculative decoding: drafts are verified greedily, so
+        # sampling must be off (sampled verification would change the
+        # output distribution)
+        self.speculative_config = speculative_config
+        self._proposer = None
+        self._spec_k = 0
+        if speculative_config is not None:
+            if self.do_sample:
+                raise ValueError(
+                    "speculative_config requires greedy decoding "
+                    "(do_sample=False); sampled verification is not "
+                    "supported")
+            self._proposer = speculative_config.build_proposer()
+            self._spec_k = int(speculative_config.num_speculative_tokens)
         self.stats = dict(
-            preemptions=0, prefills=0, decode_chunks=0, decode_tokens=0,
-            prefix_cache_hit_tokens=0, prefix_cache_miss_tokens=0,
+            preemptions=0, prefills=0, decode_chunks=0,
+            decode_tokens=0, failed_requests=0, rejected_requests=0,
+            aborted_requests=0,
+            deadline_expired=0, prefix_cache_hit_tokens=0,
+            prefix_cache_miss_tokens=0, spec_steps=0,
+            spec_drafted_tokens=0, spec_accepted_tokens=0,
+            spec_proposer_errors=0, spec_step_errors=0,
             ragged_launches=0)
         # in-step pool-occupancy high-water (pages off the free list)
         self.peak_used_blocks = 0
@@ -404,40 +535,96 @@ class LLMEngine:
         self._eager_decode = self.device.type == "cpu"
 
     # -- request lifecycle -------------------------------------------------
+    def _reject(self, request_id, prompt, reason: str, exc_type=None):
+        """Load-shedding admission: record a rejected result instead of
+        raising (shed_load=True), or raise (the default)."""
+        if not self.shed_load:
+            raise (exc_type or RuntimeError)(reason)
+        self.stats["rejected_requests"] += 1
+        self._failed.append(GenerationResult(
+            request_id=request_id, prompt_ids=prompt,
+            output_ids=np.zeros((0,), np.int32),
+            finish_reason="rejected", error=reason))
+
     def add_request(self, request_id, prompt_ids, max_new_tokens: int = 32,
                     deadline_s: Optional[float] = None,
                     obs_carry: Optional[tuple] = None,
                     prefix_hashes: Optional[list] = None):
-        """Queue a request. Raises ValueError when prompt +
-        max_new_tokens exceeds max_model_len, MemoryError when it can
-        never fit in the pool."""
-        for name, val in (("deadline_s", deadline_s),
-                          ("obs_carry", obs_carry),
-                          ("prefix_hashes", prefix_hashes)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"add_request({name}=...) is not ported yet")
+        """Queue a request. A prompt + max_new_tokens past max_model_len
+        (ValueError), a request that can never fit in the pool
+        (MemoryError) or a full waiting queue (RuntimeError) raises, or
+        with shed_load=True becomes a "rejected" result of the next
+        step. deadline_s: a time-to-live from now (on `_now`): a request
+        not finished by then fails with finish_reason "deadline", queued
+        or running, while the others keep serving. prefix_hashes: this
+        prompt's `cache.block_hashes` chain, computed elsewhere;
+        admission uses it instead of hashing again."""
+        if obs_carry is not None:
+            raise NotImplementedError(
+                "add_request(obs_carry=...) is not ported yet")
         if isinstance(prompt_ids, torch.Tensor):
             prompt_ids = prompt_ids.cpu().numpy()
         prompt = np.asarray(prompt_ids, dtype=np.int32).reshape(-1)
         total = len(prompt) + max_new_tokens
         if total > self.max_model_len:
-            raise ValueError(
+            return self._reject(
+                request_id, prompt,
                 f"request {request_id!r}: prompt ({len(prompt)}) + "
                 f"max_new_tokens ({max_new_tokens}) = {total} exceeds "
-                f"max_model_len ({self.max_model_len})")
+                f"max_model_len ({self.max_model_len})", ValueError)
         need = -(-total // self.block_size)
         if need > self.cache.allocator.num_blocks - 1:
-            raise MemoryError(
+            return self._reject(
+                request_id, prompt,
                 f"request {request_id!r} needs {need} cache blocks but "
                 f"the pool only has "
-                f"{self.cache.allocator.num_blocks - 1} usable")
-        self.waiting.append(_Request(request_id, prompt,
-                                     int(max_new_tokens)))
+                f"{self.cache.allocator.num_blocks - 1} usable",
+                MemoryError)
+        if self.max_waiting is not None and \
+                len(self.waiting) >= self.max_waiting:
+            return self._reject(
+                request_id, prompt,
+                f"request {request_id!r}: waiting queue is full "
+                f"({self.max_waiting})", RuntimeError)
+        deadline = (self._now() + deadline_s
+                    if deadline_s is not None else None)
+        self.waiting.append(_Request(
+            request_id, prompt, int(max_new_tokens), deadline=deadline,
+            hash_chain=list(prefix_hashes) if prefix_hashes else None))
+
+    def abort_request(self, request_id) -> bool:
+        """Cancel a queued or running request: its leased pages return
+        to the pool now (full hash-indexed prefix blocks park in the
+        prefix-cache LRU, as at a normal finish), and it completes with
+        finish_reason "aborted" at the next step(). Returns False when
+        the id is neither queued nor running here."""
+        for req in self.waiting:
+            if req.rid == request_id:
+                self.waiting.remove(req)
+                self.stats["aborted_requests"] += 1
+                self._failed.append(GenerationResult(
+                    request_id=req.rid, prompt_ids=req.prompt,
+                    output_ids=np.asarray(req.resume_out, np.int32),
+                    finish_reason="aborted",
+                    error="aborted while queued"))
+                return True
+        for seq in self.slots:
+            if seq is not None and seq.rid == request_id:
+                self.stats["aborted_requests"] += 1
+                self.cache.free_sequence(seq.rid)
+                self.slots[seq.slot] = None
+                self._failed.append(GenerationResult(
+                    request_id=seq.rid, prompt_ids=seq.prompt,
+                    output_ids=np.asarray(seq.out, np.int32),
+                    finish_reason="aborted",
+                    error="aborted mid-generation"))
+                return True
+        return False
 
     @property
     def has_unfinished(self) -> bool:
-        return bool(self.waiting) or any(s is not None for s in self.slots)
+        return (bool(self.waiting) or bool(self._failed)
+                or any(s is not None for s in self.slots))
 
     # -- scheduling --------------------------------------------------------
     def _free_slot(self) -> Optional[int]:
@@ -503,7 +690,7 @@ class LLMEngine:
         self.slots[victim.slot] = None
         self.waiting.appendleft(_Request(
             victim.rid, victim.prompt, victim.max_new,
-            resume_out=list(victim.out)))
+            resume_out=list(victim.out), deadline=victim.deadline))
         return True
 
     def _grow(self, seq: _Seq, by: int) -> bool:
@@ -518,10 +705,10 @@ class LLMEngine:
                     return False
 
     # -- device steps ------------------------------------------------------
-    def _run_prefills(self, seqs: List[_Seq]) -> List[int]:
-        """ONE ragged packed pass over every admitted sequence's uncached
-        tokens. Returns each sequence's first sampled token."""
-        entries, merged = self._prefill_entries(seqs)
+    def _launch_prefills(self, seqs, entries, merged) -> List[int]:
+        """ONE ragged packed pass over the wave `_prefill_entries`
+        built for `seqs`. Returns each sequence's first sampled
+        token."""
         toks = self._run_ragged(entries)
         self._commit_prefill(seqs, merged)
         return [int(toks[s.slot][-1]) for s in seqs]
@@ -534,13 +721,15 @@ class LLMEngine:
         entries = []
         merged_by_rid = {}
         for s in seqs:
+            faults.fault_point("engine.prefill.seq", rid=s.rid)
             merged = self._merged_tokens(s)
             merged_by_rid[s.rid] = merged
             st = s.cached_len
             # COW guard: the suffix write range must not touch shared
             # pages (a no-op under page-aligned matching)
             self.cache.ensure_writable(s.rid, st)
-            entries.append((s, np.asarray(merged[st:], np.int32), st))
+            entries.append((s, np.asarray(merged[st:], np.int32), st,
+                            False))
         return entries, merged_by_rid
 
     def _commit_prefill(self, seqs: List[_Seq],
@@ -558,21 +747,24 @@ class LLMEngine:
             return _bucket(n, self.prompt_quantum)
         return max(8, _pow2_ceil(max(n, 1)))
 
-    def _ragged_wave(self, ids, rows, pos, kvs, off, wf, sel, with_pool):
+    def _ragged_wave(self, ids, rows, pos, kvs, off, wf, sel, with_pool,
+                     all_pos=False):
         """The packed-wave function (the eager counterpart of
         paddle_tpu's per-bucket "engine_ragged" executable). Rows of any
         length ride in a [tb] packed stream with per-token (row,
         position) metadata; attention over the paged pool plus the
         packed fresh k/v runs through ragged_paged_attention.
-        with_pool=False is the no-cached-context wave. Each row's last
-        hidden state is gathered through `sel` before the lm head, so
-        the [tb, vocab] logits are never built.
+        with_pool=False is the no-cached-context wave. A prefill wave
+        gathers each row's last hidden state through `sel` before the lm
+        head, so the [tb, vocab] logits are never built; a verify wave
+        (all_pos) samples a token at every packed position.
 
         ids/rows/pos [tb]: the packed token stream (rows -1 = dead
         padding); wf [n_live]: flat pool row of each live packed token
         (live tokens come first); kvs [B]: cached tokens readable per
         row; off [B, NB]: block -> start position; sel [B]: each row's
-        last packed position. Returns the sampled tokens [B]."""
+        last packed position. Returns the sampled tokens: [B], or [tb]
+        for a verify wave."""
         fam = self.fam
         bs = self.block_size
         kvH, hd = fam.kv_heads, fam.head_dim
@@ -597,30 +789,62 @@ class LLMEngine:
             # writing matches paddle_tpu's order
             o = ragged_paged_attention(
                 q, k, v, kcs[li], vcs[li], rows, pos, kvs, off,
-                block_size=bs, scale=scale, with_pool=with_pool, _plan=plan)
-            kcs[li].index_copy_(0, wf, k[:n_live].to(kcs[li].dtype))
-            vcs[li].index_copy_(0, wf, v[:n_live].to(vcs[li].dtype))
+                block_size=bs, scale=scale,
+                kdq=None if self._kdq is None else self._kdq[li],
+                vdq=None if self._vdq is None else self._vdq[li],
+                with_pool=with_pool, _plan=plan)
+            kw, vw = self._pool_values(li, k[:n_live], v[:n_live])
+            kcs[li].index_copy_(0, wf, kw)
+            vcs[li].index_copy_(0, wf, vw)
             x = fam.attn_out(layer, x, o.reshape(tb, nH * hd).to(x.dtype))
             x = fam.mlp(layer, x)
-        lg = fam.logits(fam.final(x)[sel])                   # [B, vocab]
+        x = fam.final(x)
+        lg = fam.logits(x if all_pos else x[sel])   # [tb or B, vocab]
         return _pick_token(lg.float(), self._gen, self.do_sample,
                            self.temperature, self.top_p, self.top_k)
+
+    def _pool_values(self, li, k, v):
+        """k/v [n, kvH, D] as layer li's pools store them: quantized with
+        its scales for an int8 pool (round half to even, clipped to
+        +-127: the reference's _quantize_kv(x, scale, 1, 127, -127)),
+        else cast to the pool dtype."""
+        kp, vp = self.cache.key_caches[li], self.cache.value_caches[li]
+        if self._kq is not None:
+            return (_quantize_kv(k, self._kq[li], 1, 127., -127.),
+                    _quantize_kv(v, self._vq[li], 1, 127., -127.))
+        return k.to(kp.dtype), v.to(vp.dtype)
+
+    def _step_watchdog(self, what: str):
+        """Hang detector around a device launch (step_timeout_s)."""
+        if not self.step_timeout_s:
+            return contextlib.nullcontext()
+        return watchdog(self.step_timeout_s, what=what)
 
     @torch.no_grad()
     def _run_ragged(self, entries) -> Dict[int, np.ndarray]:
         """Pack rows into ONE ragged launch and run it.
 
-        entries: [(seq, tokens int32 [m], start)]: each row computes its
-        tokens at positions start..start+m-1 while reading its cached
-        context (positions < start) from the pool through the ownership
-        map; writes land at the row's leased pages. Returns {slot: the
-        row's sampled token, shape [1]}."""
+        entries: [(seq, tokens int32 [m], start, all_positions)]: each
+        row computes its tokens at positions start..start+m-1 while
+        reading its cached context (positions < start) from the pool
+        through the ownership map; writes land at the row's leased
+        pages. A wave is a prefill wave (all_positions False everywhere)
+        or a verify wave (True everywhere). Returns {slot: every packed
+        position's sampled token [m]} for a verify wave, {slot: the
+        row's last position's [1]} for a prefill wave."""
         B = self.max_batch
         NB = self.cache.allocator.num_blocks
         bs = self.block_size
-        T_raw = sum(len(t) for _s, t, _st in entries)
-        with_pool = any(st > 0 for _s, _t, st in entries)
-        tb = self._token_bucket(T_raw)
+        T_raw = sum(len(e[1]) for e in entries)
+        with_pool = any(e[2] > 0 for e in entries)
+        all_pos = entries[0][3]
+        if all_pos:
+            # verify waves pin ONE bucket sized for every slot drafting
+            # the full k (the reference's one-executable rule: draft
+            # lengths vary step to step and must not move the bucket)
+            tb = self._token_bucket(B * (self._spec_k + 1))
+        else:
+            tb = self._token_bucket(T_raw)
         ids = np.zeros((tb,), np.int64)
         rows = np.full((tb,), -1, np.int32)
         pos = np.zeros((tb,), np.int32)
@@ -628,8 +852,9 @@ class LLMEngine:
         off = np.full((B, NB), -1, np.int32)
         wf = np.zeros((T_raw,), np.int64)
         sel = np.zeros((B,), np.int64)
+        spans = {}
         c = 0
-        for s, toks, st in entries:
+        for s, toks, st, _ap in entries:
             m = len(toks)
             b = s.slot
             ids[c:c + m] = toks
@@ -641,30 +866,40 @@ class LLMEngine:
             off[b, pages] = np.arange(len(pages), dtype=np.int32) * bs
             wf[c:c + m] = pages[gpos // bs] * bs + gpos % bs
             sel[b] = c + m - 1
+            spans[b] = (c, m)
             c += m
         dev = self.device
-        nxt = self._ragged_wave(
-            *(torch.from_numpy(a).to(dev)
-              for a in (ids, rows, pos, kvs, off, wf, sel)), with_pool)
+        with self._step_watchdog("engine ragged launch"):
+            nxt = self._ragged_wave(
+                *(torch.from_numpy(a).to(dev)
+                  for a in (ids, rows, pos, kvs, off, wf, sel)), with_pool,
+                all_pos)
+            nxt = nxt.cpu().numpy().astype(np.int32)
         self.stats["ragged_launches"] += 1
-        nxt = nxt.cpu().numpy().astype(np.int32)
-        return {s.slot: nxt[s.slot:s.slot + 1] for s, _t, _st in entries}
+        if all_pos:
+            return {b: nxt[cc:cc + m] for b, (cc, m) in spans.items()}
+        return {b: nxt[b:b + 1] for b in spans}
 
-    def _run_decode_chunk(self) -> Dict[int, np.ndarray]:
-        """One chunk of decode steps for every active slot. Returns
-        {slot: np tokens [chunk]}."""
-        active = [s for s in self.slots if s is not None]
+    def _lease_decode_chunk(self, only: Optional[_Seq] = None):
+        """The host phase of a decode chunk for every active slot (or
+        for `only`, every other row inactive: the poisoned-request
+        isolation retry), before its launch: each
+        row's fault point and its lease of the chunk's pages, capped at
+        its remaining token budget (preempting if needed; writes past
+        the budget fall through to the trash page via table padding;
+        delta-based, so a retry never double-leases). Returns (rows,
+        chunk), or None when no row is left."""
+        active = [s for s in self.slots
+                  if s is not None and (only is None or s is only)]
         if not active:
-            return {}
+            return None
         # chunk size: power-of-two bucket, never past the model cap
         headroom = min(self.max_model_len - s.length for s in active)
         chunk = _pow2_floor(max(1, min(self.decode_chunk, headroom)))
-        # lease pages for the chunk up front (preempting if needed),
-        # capped at each sequence's remaining token budget; writes past
-        # the budget fall through to the trash page via table padding
         for s in active:
             if self.slots[s.slot] is not s:     # got preempted meanwhile
                 continue
+            faults.fault_point("engine.decode.seq", rid=s.rid)
             want = min(s.length + chunk, max(s.token_budget, s.length))
             by = want - self.cache.length(s.rid)
             if by > 0 and not self._grow(s, by):
@@ -672,10 +907,22 @@ class LLMEngine:
                     "paged pool too small for even one sequence's "
                     "decode chunk — enlarge num_blocks")
             self.cache.ensure_writable(s.rid, s.length)
-        active = [s for s in self.slots if s is not None]
+        active = [s for s in self.slots
+                  if s is not None and (only is None or s is only)]
         if not active:
-            return {}
+            return None
         self._note_pool_highwater()
+        return active, chunk
+
+    def _launch_decode_chunk(self, lease) -> Dict[int, np.ndarray]:
+        """Run the leased chunk on the device (a failure here propagates:
+        nothing is isolated past the launch). Every row outside the
+        lease points at the trash page, so an isolation retry replays
+        the width bucket's graph like any chunk. Returns {slot: np
+        tokens [chunk]}."""
+        if lease is None:
+            return {}
+        active, chunk = lease
         B = self.max_batch
         bs = self.block_size
         cur = np.zeros((B,), np.int64)
@@ -692,8 +939,10 @@ class LLMEngine:
         # graph was captured for; the padding is trash pages past every
         # row's length, which the attention masks out
         width = -(-int(lens.max() + chunk) // bs)
-        toks = self._decode_chunk(
-            cur, lens, tbl[:, :_width_bucket(width, self.npb_full)], chunk)
+        with self._step_watchdog("engine decode chunk"):
+            toks = self._decode_chunk(
+                cur, lens, tbl[:, :_width_bucket(width, self.npb_full)],
+                chunk)
         self.stats["decode_chunks"] += 1
         out = {}
         for s in active:
@@ -707,11 +956,12 @@ class LLMEngine:
         current token, its length when the chunk began and its page table
         (W pages). The step's position is that length plus the step
         counter; the step writes its k/v into the pool in place at the
-        row's page for it, attends over the row's pages at positions <=
-        it, then writes the sampled token over the current one and into
-        the chunk's output at the step, and advances the counter. It
-        takes nothing from the host, so the same function replays as a
-        CUDA graph on the card and runs eagerly on the CPU."""
+        row's page for it (quantized for an int8 pool), attends over the
+        row's pages at positions <= it, then writes the sampled token
+        over the current one and into the chunk's output at the step,
+        and advances the counter. It takes nothing from the host, so the
+        same function replays as a CUDA graph on the card and runs
+        eagerly on the CPU."""
         fam = self.fam
         bs = self.block_size
         kvH, hd = fam.kv_heads, fam.head_dim
@@ -733,10 +983,13 @@ class LLMEngine:
             k = qkv[:, nH * hd:(nH + kvH) * hd].reshape(B, kvH, hd)
             v = qkv[:, (nH + kvH) * hd:].reshape(B, kvH, hd)
             q, k = fam.rotate(q, k, cos_sin)
-            kcs[li].index_copy_(0, flat, k.to(kcs[li].dtype))
-            vcs[li].index_copy_(0, flat, v.to(vcs[li].dtype))
-            o = _pool_decode_attention(q, kcs[li], vcs[li], tbl, pos,
-                                       scale, bs)
+            kw, vw = self._pool_values(li, k, v)
+            kcs[li].index_copy_(0, flat, kw)
+            vcs[li].index_copy_(0, flat, vw)
+            o = _pool_decode_attention(
+                q, kcs[li], vcs[li], tbl, pos, scale, bs,
+                kdq=None if self._kdq is None else self._kdq[li],
+                vdq=None if self._vdq is None else self._vdq[li])
             x = fam.attn_out(layer, x, o.to(x.dtype))
             x = fam.mlp(layer, x)
         lg = fam.logits(fam.final(x))                        # [B, vocab]
@@ -788,24 +1041,269 @@ class LLMEngine:
         return int(seq.out[-1]) if seq.out else int(seq.prompt[-1])
 
     def _note_pool_highwater(self) -> None:
+        """The pool's in-step occupancy high-water: pages off the free
+        list right after a lease, before any rollback releases them."""
         used = self.cache.allocator.num_blocks \
             - self.cache.allocator.num_free
         if used > self.peak_used_blocks:
             self.peak_used_blocks = used
 
+    # -- speculative decoding ---------------------------------------------
+    def _propose_drafts(self, active: List[_Seq]):
+        """Host-side drafting: {slot: int32 drafts}, {slot: context} and
+        the step's verify width k. Each row's draft budget is clamped to
+        its model-length headroom (the window writes k+1 positions) and
+        its remaining generation budget. A proposer that raises costs
+        that row its drafts this step, never the step."""
+        drafts: Dict[int, np.ndarray] = {}
+        ctxs: Dict[int, np.ndarray] = {}
+        k_step = 0
+        for s in active:
+            kmax = min(self._spec_k,
+                       self.max_model_len - s.length - 1,
+                       s.max_new - len(s.out) - 1)
+            d = np.zeros((0,), np.int32)
+            ctx = self._merged_tokens(s)
+            ctxs[s.slot] = ctx
+            if kmax > 0:
+                try:
+                    d = np.asarray(self._proposer.propose(
+                        ctx, int(kmax)), np.int32).reshape(-1)[:kmax]
+                except Exception:
+                    self.stats["spec_proposer_errors"] += 1
+            drafts[s.slot] = d
+            k_step = max(k_step, len(d))
+        return drafts, ctxs, k_step
+
+    def _run_spec_step(self, finished: List[GenerationResult]) -> bool:
+        """One speculative step for every active slot: propose drafts,
+        lease each row's verify window (`_spec_lease`), run ONE packed
+        verify wave over every window position (`_spec_device_phase`),
+        commit the longest matching prefix and the bonus token, and roll
+        the lease back to the committed length. Returns False when it
+        did not run (nothing drafted, under half the batch drafting, or
+        a failure before the launch): the caller then runs the chunked
+        decode. A failure of the verify wave itself propagates."""
+        active = [s for s in self.slots if s is not None]
+        if not active:
+            return False
+        drafts, ctxs, k_step = self._propose_drafts(active)
+        # a mostly-undrafted batch decodes faster on the chunked path
+        # (an undrafted row advances one token a verify step, a chunk a
+        # decode step): speculate only when at least half drafts
+        drafting = sum(1 for d in drafts.values() if len(d))
+        if k_step <= 0 or 2 * drafting < len(active):
+            return False
+        try:
+            entries = self._spec_lease(drafts)
+        except Exception:
+            # before the launch (a fault point, a lease's MemoryError):
+            # this step degrades to the chunked decode, which carries
+            # the poisoned-request isolation. Nothing is committed yet
+            # and the leases are delta-accounted, so it decodes from
+            # exactly the pre-step state.
+            self.stats["spec_step_errors"] += 1
+            return False
+        if entries is None:
+            return True                 # everything preempted mid-lease
+        tgt, active = self._spec_device_phase(entries)
+        self.stats["spec_steps"] += 1
+        for s in active:
+            b = s.slot
+            d = drafts[b]
+            t_row = tgt[b]                  # [1+len(d)] greedy targets
+            a = accept_drafts(d, t_row)
+            committed = t_row[:a + 1]       # accepted drafts + bonus
+            n_before = len(s.out)
+            for t in committed:
+                if len(s.out) >= s.max_new:
+                    break
+                s.out.append(int(t))
+                self.stats["decode_tokens"] += 1
+                if (self.eos_token_id is not None
+                        and int(t) == self.eos_token_id):
+                    break
+            n_app = len(s.out) - n_before
+            # KV rollback: the cache holds valid KV exactly for the
+            # committed tokens; rejected positions' writes fall past the
+            # truncated lease (pages unref'd, never hash-indexed)
+            new_len = s.length + n_app
+            self.cache.truncate(s.rid, new_len)
+            s.length = new_len
+            # accepted = drafts that COMMITTED (a match clamped by eos
+            # or max_new was rolled back like a mismatch)
+            a = min(a, n_app)
+            self.stats["spec_drafted_tokens"] += len(d)
+            self.stats["spec_accepted_tokens"] += a
+            if self.cache.enable_prefix_caching:
+                # as after a decode chunk: only fully ACCEPTED full
+                # blocks can reach the hash index
+                ntok = min(s.length, len(s.prompt) + len(s.out))
+                if self.cache.cached_prefix_len(s.rid) \
+                        + self.block_size <= ntok:
+                    merged = np.concatenate(
+                        [ctxs[b], np.asarray(s.out[n_before:], np.int32)])
+                    self.cache.commit_prefix(s.rid, merged, upto=ntok)
+            self._maybe_finish(s, finished)
+        return True
+
+    def _spec_lease(self, drafts):
+        """The host phase of a verify step, before its launch: each
+        row's fault point and the lease of its LIVE 1+len(drafts) window
+        (preempting if needed), capped at its remaining token budget as
+        a decode chunk's is. Returns the verify wave's entries [(seq,
+        [last committed token, drafts...], length, True)], or None when
+        preemption emptied the batch."""
+        for s in [s for s in self.slots if s is not None]:
+            if self.slots[s.slot] is not s:     # got preempted meanwhile
+                continue
+            faults.fault_point("engine.verify.seq", rid=s.rid)
+            live = 1 + len(drafts.get(s.slot, ()))
+            want = min(s.length + live, max(s.token_budget, s.length))
+            by = want - self.cache.length(s.rid)
+            if by > 0 and not self._grow(s, by):
+                raise MemoryError(
+                    "paged pool too small for even one sequence's "
+                    "verify window — enlarge num_blocks")
+            self.cache.ensure_writable(s.rid, s.length)
+        active = [s for s in self.slots if s is not None]
+        if not active:
+            return None
+        self._note_pool_highwater()
+        entries = []
+        for s in active:
+            d = drafts.get(s.slot, np.zeros((0,), np.int32))
+            drafts[s.slot] = d
+            window = np.concatenate(
+                [np.asarray([self._last_token(s)], np.int32), d])
+            entries.append((s, window, s.length, True))
+        return entries
+
+    def _spec_device_phase(self, entries):
+        """The verify wave: every window position of every row scored in
+        one packed launch. Returns ({slot: np.int32 [1+len(drafts)]
+        greedy targets}, the rows)."""
+        return self._run_ragged(entries), [e[0] for e in entries]
+
+    # -- failures ----------------------------------------------------------
+    def _fail_seq(self, seq: _Seq, reason: str, finish_reason: str,
+                  finished: List[GenerationResult]) -> None:
+        """Evict a running sequence as failed; the engine keeps serving
+        every other admitted request."""
+        self.stats["failed_requests"] += 1
+        self.cache.free_sequence(seq.rid)
+        self.slots[seq.slot] = None
+        finished.append(GenerationResult(
+            request_id=seq.rid, prompt_ids=seq.prompt,
+            output_ids=np.asarray(seq.out, np.int32),
+            finish_reason=finish_reason, error=reason))
+
+    def _expire_deadlines(self, finished: List[GenerationResult]) -> None:
+        """Fail requests whose time-to-live elapsed: waiting ones are
+        dropped, running ones evicted (their pages return to the
+        pool)."""
+        now = self._now()
+        expired = [r for r in self.waiting
+                   if r.deadline is not None and now >= r.deadline]
+        for req in expired:
+            self.waiting.remove(req)
+            self.stats["deadline_expired"] += 1
+            self.stats["failed_requests"] += 1
+            finished.append(GenerationResult(
+                request_id=req.rid, prompt_ids=req.prompt,
+                output_ids=np.asarray(req.resume_out, np.int32),
+                finish_reason="deadline",
+                error="deadline exceeded by "
+                      f"{now - req.deadline:.3f}s while queued"))
+        for seq in [s for s in self.slots if s is not None]:
+            if seq.deadline is not None and now >= seq.deadline:
+                self.stats["deadline_expired"] += 1
+                self._fail_seq(seq, "deadline expired mid-generation",
+                               "deadline", finished)
+
+    def _safe_prefills(self, seqs: List[_Seq],
+                       finished: List[GenerationResult]):
+        """Packed prefill with poisoned-request isolation: if building
+        the wave raises (a fault point, a COW guard), each sequence is
+        retried alone (a smaller bucket of the same packed wave) and only
+        the ones that still raise before their launch are failed and
+        evicted. A launch that raises propagates."""
+        try:
+            entries, merged = self._prefill_entries(seqs)
+        except Exception:
+            pairs = []
+            for s in seqs:
+                if self.slots[s.slot] is not s:  # preempted meanwhile
+                    continue
+                try:
+                    entries, merged = self._prefill_entries([s])
+                except Exception as e:
+                    self._fail_seq(
+                        s, f"prefill raised {type(e).__name__}: {e}",
+                        "error", finished)
+                    continue
+                (first,) = self._launch_prefills([s], entries, merged)
+                pairs.append((s, first))
+            return pairs
+        return list(zip(seqs, self._launch_prefills(seqs, entries, merged)))
+
+    def _safe_decode_chunk(self, finished: List[GenerationResult]
+                           ) -> Dict[int, np.ndarray]:
+        """The decode chunk with poisoned-request isolation: if its
+        lease phase raises, each sequence is leased and run alone, and
+        only the ones whose lease still raises are failed and evicted.
+        If no sequence survives alone the failure is systemic (an
+        undersized pool): it is raised, unless shed_load says degrade
+        anyway. A launch that raises propagates."""
+        try:
+            lease = self._lease_decode_chunk()
+        except Exception:
+            out: Dict[int, np.ndarray] = {}
+            survivors = 0
+            casualties = []
+            for s in [s for s in self.slots if s is not None]:
+                if self.slots[s.slot] is not s:  # preempted meanwhile
+                    continue
+                try:
+                    lease = self._lease_decode_chunk(only=s)
+                except Exception as e:
+                    casualties.append((s, e))
+                    continue
+                out.update(self._launch_decode_chunk(lease))
+                survivors += 1
+            if casualties and not survivors and not self.shed_load:
+                raise
+            for s, e in casualties:
+                self._fail_seq(
+                    s, f"decode raised {type(e).__name__}: {e}",
+                    "error", finished)
+            return out
+        return self._launch_decode_chunk(lease)
+
     # -- main loop ---------------------------------------------------------
     def step(self) -> List[GenerationResult]:
-        """Admit + prefill new sequences, run one decode chunk, retire
-        finished sequences (paddle_tpu's step/_step_impl). Returns the
-        results finished this step."""
+        """Drain rejected and aborted results, expire deadlines, admit +
+        prefill new sequences, run one speculative step or one decode
+        chunk, retire finished sequences (paddle_tpu's _step_impl, in
+        its order). Returns the results finished this step, failed,
+        rejected, aborted and expired ones included (check `.ok`)."""
         finished: List[GenerationResult] = []
+        if self._failed:                    # rejections and aborts
+            finished.extend(self._failed)
+            self._failed.clear()
+        faults.fault_point("engine.step")
+        self._expire_deadlines(finished)
         fresh = self._admit()
         if fresh:
-            for seq, first in zip(fresh, self._run_prefills(fresh)):
+            for seq, first in self._safe_prefills(fresh, finished):
                 seq.out.append(first)
                 self.stats["decode_tokens"] += 1
                 self._maybe_finish(seq, finished)
-        for slot, toks in self._run_decode_chunk().items():
+        if self._proposer is not None and self._run_spec_step(finished):
+            # the speculative step committed tokens, rolled the leases
+            # back and retired finished sequences itself
+            return finished
+        for slot, toks in self._safe_decode_chunk(finished).items():
             seq = self.slots[slot]
             if seq is None:
                 continue

@@ -329,6 +329,17 @@ class PagedKVCache:
         """Blocks an alloc could obtain: free + evictable parked pages."""
         return self.allocator.num_free + len(self._lru)
 
+    @property
+    def cached_pages(self) -> int:
+        """Pages currently hash-indexed (leased by sequences or parked)."""
+        return len(self._page_hash)
+
+    @property
+    def lru_pages(self) -> int:
+        """Parked cached-but-unreferenced pages awaiting reuse or
+        eviction."""
+        return len(self._lru)
+
     # -- sequence lifecycle --
     def add_sequence(self, seq_id, num_tokens: int = 0,
                      tokens=None, match=None) -> int:

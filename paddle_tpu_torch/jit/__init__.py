@@ -32,6 +32,7 @@ import torch
 from torch.profiler import record_function
 
 from ..optimizer.lr import LRScheduler
+from ..utils.watchdog import watchdog
 from .cuda_graph import CapturedStep
 
 __all__ = ["TrainStep"]
@@ -111,13 +112,19 @@ class TrainStep:
 
     def __call__(self, *args, **kwargs):
         opt = self.optimizer
-        if self.device.type == "cuda" and not self._eager:
-            loss = self._graph_step(args, kwargs)
-        else:
-            loss = self._step_in_place(
-                [self._batch(a) for a in args],
-                {k: self._batch(v) if isinstance(v, torch.Tensor) else v
-                 for k, v in kwargs.items()})
+        # FLAGS_watchdog_timeout_s arms a hang detector around the step,
+        # as the reference's TrainStep does; armed, the step waits for
+        # the card so that the detector sees the device finish
+        with watchdog(what=f"TrainStep step {self._step_count}") as wd:
+            if self.device.type == "cuda" and not self._eager:
+                loss = self._graph_step(args, kwargs)
+            else:
+                loss = self._step_in_place(
+                    [self._batch(a) for a in args],
+                    {k: self._batch(v) if isinstance(v, torch.Tensor)
+                     else v for k, v in kwargs.items()})
+            if wd is not None and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self._step_count += 1
         if isinstance(opt._lr, LRScheduler):
             opt._lr.step()

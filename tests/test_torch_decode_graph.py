@@ -146,7 +146,7 @@ def test_serving_runs_capture_few_graphs(monkeypatch, run):
 
     monkeypatch.setattr(eng, "_decode_chunk", decode_chunk)
     monkeypatch.setattr(eng, "_run_ragged", lambda entries: {
-        s.slot: np.zeros((1,), np.int32) for s, _t, _st in entries})
+        s.slot: np.zeros((1,), np.int32) for s, *_ in entries})
     rng = np.random.default_rng(0)
     prefix = rng.integers(0, 1024, (512,))
     for i, t in enumerate(rng.integers(8, 33, 16)):

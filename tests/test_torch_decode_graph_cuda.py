@@ -239,3 +239,72 @@ def test_an_engine_made_after_another_was_freed_captures(cuda_device):
         np.testing.assert_array_equal(a, b)
     generate(model, prompts[0][None], max_new_tokens=4)
     assert cuda_graph.captures["generate_decode"] == 1
+
+
+@torch.no_grad()
+def _guarded_len(model, prompt, tokens, margin=1e-3):
+    """How many leading `tokens` sit at positions whose top-1/top-2
+    logit margin, in a full forward of `model` over prompt + tokens, is
+    at least `margin` (tests/torch_port_helpers.py's guard, on the
+    card)."""
+    seq = np.concatenate([prompt, tokens]).astype(np.int64)
+    lg = model(torch.as_tensor(seq[None], device="cuda"))[0]
+    top2 = torch.topk(lg[len(prompt) - 1:len(seq) - 1].float(), 2,
+                      dim=-1).values
+    low = np.flatnonzero((top2[:, 0] - top2[:, 1]).cpu().numpy() < margin)
+    return int(low[0]) if len(low) else len(tokens)
+
+
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+def test_int8_engine_graphs_equal_eager_steps(cuda_device, family):
+    """int8 pools: the decode graphs (quantized writes, the dequant
+    folded into the attention, the scales read in place) give the eager
+    steps' tokens; the prefix-resume waves launch B3's simple design
+    with dequant scales."""
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    model = _model(family, "bfloat16")
+    scales = llm_engine.calibrate_kv_scales(model, _prompts()[1][None])
+    _e, want, _w = _serve(model, eager=True, kv_quant_scales=scales)
+    rpa.reset_counters()
+    eng, got, _w = _serve(model, eager=False, kv_quant_scales=scales)
+    assert eng.cache.key_caches[0].dtype == torch.int8
+    assert eng.stats["prefix_cache_hit_tokens"] > 0
+    assert rpa.ragged_paged_attention.design_launches["simple"] > 0
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+def test_spec_engine_verify_waves_on_the_card(cuda_device, family):
+    """Speculation on the card in f32 (TF32 off): every verify wave runs
+    B3 once a layer, and the tokens equal speculation off's under the
+    logit-margin guard (the verify wave's B3 and the decode step's pool
+    attention sum in other orders); a self-drafting model accepts at
+    least 95 % of its drafts."""
+    from paddle_tpu_torch.inference import (DraftModelProposer,
+                                            SpeculativeConfig)
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _model(family, "float32")
+    rng = np.random.default_rng(2)
+    prompts = [np.tile(rng.integers(0, 1024, (8,)).astype(np.int32), 4)
+               for _ in range(3)]
+    _e, want, _w = _serve(model, eager=False, prompts=prompts, n_new=16)
+    for proposer in ("ngram", DraftModelProposer(model)):
+        rpa.reset_counters()
+        eng, got, _w = _serve(
+            model, eager=False, prompts=prompts, n_new=16,
+            speculative_config=SpeculativeConfig(
+                proposer=proposer, num_speculative_tokens=3))
+        st = eng.stats
+        assert st["spec_steps"] > 0
+        # one B3 launch a layer for every packed wave
+        assert rpa.ragged_paged_attention.kernel_launches == \
+            st["ragged_launches"] * model.config.num_layers
+        for p, a, b in zip(prompts, want, got):
+            n = _guarded_len(model, p, a)
+            assert n > 0
+            np.testing.assert_array_equal(a[:n], b[:n])
+        if proposer != "ngram":
+            assert st["spec_accepted_tokens"] >= \
+                0.95 * st["spec_drafted_tokens"] > 0

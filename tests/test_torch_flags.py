@@ -1,7 +1,8 @@
 """paddle_tpu_torch.core.flags against paddle_tpu.core.flags: the flags
-the port acts on (FLAGS_fast_bn_stats) with the reference's default and
-type, set / get (one name or a list, strings coerced to the flag's
-type), errors for unknown names and for the reference's flags the port
+the port acts on (FLAGS_fast_bn_stats, and utils.watchdog's
+FLAGS_watchdog_timeout_s and FLAGS_watchdog_abort) with the reference's
+default and type, set / get (one name or a list, strings coerced to the
+flag's type), errors for unknown names and for the reference's flags the port
 does not act on yet, define_flag, and FLAGS_fast_bn_stats read from the
 environment when the flags are defined (in a fresh process, where the
 port imports no jax)."""
@@ -19,7 +20,8 @@ import paddle_tpu_torch as ptt
 import paddle_tpu_torch.core.flags as tflags
 
 ROOT = Path(__file__).resolve().parents[1]
-PORTED = ["FLAGS_fast_bn_stats"]
+PORTED = ["FLAGS_fast_bn_stats", "FLAGS_watchdog_abort",
+          "FLAGS_watchdog_timeout_s"]
 
 
 def test_the_ported_flags_and_defaults():

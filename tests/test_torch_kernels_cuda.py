@@ -803,3 +803,59 @@ def test_fused_encoder_refuses_shapes_b1_does_not_take(cuda_device):
     with torch.no_grad():
         y = layer(x, src_mask=mask)
     assert y.shape == x.shape and fa.flash_fwd.kernel_launches == n0
+
+
+# ---------------------------------------------------------------------------
+# B3 at the shapes of the speculative verify wave and the int8 engine
+# ---------------------------------------------------------------------------
+# a verify wave at gpt3_1p3b's heads: 8 rows of 1 + 7 drafts over cached
+# contexts, the bucket pinned at 8 * 8 = 64 tokens
+VERIFY_SPEC = [(int(c), 8) for c in
+               np.random.default_rng(20).integers(128, 256, 8)]
+# the int8 engine's prefix-resume wave: 8 rows of 8-32 new tokens over a
+# 512-token prefix
+INT8_SPEC = [(512, int(m)) for m in
+             np.random.default_rng(21).integers(8, 33, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+def test_ragged_verify_wave_shape(cuda_device, dtype):
+    """The verify wave takes the sm90 design (each 64-token q tile holds
+    one short row) within _sm90_limit, and the simple design within
+    1e-4, of the plain version."""
+    tdt = LOWP[dtype]
+    case, kw = _packed_case(H=16, Hk=16, D=128, bs=64, NB=48,
+                            spec=VERIFY_SPEC, T=64, seed=5)
+    d0 = dict(ragged_paged_attention.design_launches)
+    got = _run(case, kw, cuda_device, None, tdt)
+    torch.cuda.synchronize()
+    assert {d: n - d0[d] for d, n in
+            ragged_paged_attention.design_launches.items()} == \
+        {"sm90": 1, "simple": 0}
+    want, lim = _sm90_limit(case, kw, cuda_device, tdt=tdt)
+    assert float((got - want).abs().max()) <= lim
+    simple = _run(case, kw, cuda_device, "cuda", tdt, design="simple")
+    torch.testing.assert_close(simple, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ragged_int8_engine_wave_shape(cuda_device):
+    """bf16 q over int8 pools with dequant scales at the int8 engine's
+    prefix-resume wave: the dispatcher takes the simple design, within
+    1e-4 of the plain version; the same wave without a pool (the int8
+    engine's fresh wave) takes sm90."""
+    case, kw = _packed_case(H=16, Hk=16, D=128, bs=64, NB=80, int8=True,
+                            spec=INT8_SPEC, T=256, seed=6)
+    d0 = dict(ragged_paged_attention.design_launches)
+    got = _run(case, kw, cuda_device, None, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert {d: n - d0[d] for d, n in
+            ragged_paged_attention.design_launches.items()} == \
+        {"sm90": 0, "simple": 1}
+    want = _run(_rounded(case, torch.bfloat16), kw, cuda_device, "torch",
+                torch.bfloat16, upcast=True)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    d0 = dict(ragged_paged_attention.design_launches)
+    _run(case, kw, cuda_device, None, torch.bfloat16, with_pool=False)
+    assert ragged_paged_attention.design_launches["sm90"] == d0["sm90"] + 1

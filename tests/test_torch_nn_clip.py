@@ -154,7 +154,12 @@ PORTED_MODULES = {
     "paddle_tpu.inference.paged_cache": (
         "paddle_tpu_torch.inference.paged_cache", set()),
     "paddle_tpu.inference.llm_engine": (
-        "paddle_tpu_torch.inference.llm_engine", {"calibrate_kv_scales"}),
+        "paddle_tpu_torch.inference.llm_engine", set()),
+    "paddle_tpu.inference.speculative": (
+        "paddle_tpu_torch.inference.speculative", set()),
+    "paddle_tpu.resilience.faults": ("paddle_tpu_torch.resilience.faults",
+                                     set()),
+    "paddle_tpu.utils.watchdog": ("paddle_tpu_torch.utils.watchdog", set()),
     # to_jnp is JAX's own
     "paddle_tpu.core.dtype": ("paddle_tpu_torch.core.dtype", {"to_jnp"}),
     "paddle_tpu.amp": ("paddle_tpu_torch.amp", set()),

@@ -187,7 +187,21 @@ Run from the root of a checkout. Phases, each of which must pass:
      call), the decode graphs, tokens equal to phase 4's at half the
      positions or more, and equal under the guard of its own logit
      margins to the same engine run with its decode eager and B3 on its
-     plain version.
+     plain version;
+ 22. the eager API: every case of tests/eager_op_cases.py on CUDA
+     Tensors held to the same case on CPU Tensors (values and
+     backward() grads, TF32 off), every op of the registry dispatched on
+     the card, the largest difference by op module; the random ops' same
+     draws under one seed, their shapes and dtypes as on the CPU, and
+     the range and moments of 10^6 draws of each; then bench_gpt2_small's
+     config (b16 x s1024, bf16 O1, AdamW, dropout 0, all 12 layers) as
+     the eager script of tests/eager_gpt_script.py on Tensors for 3
+     steps, held to a GPTForCausalLM's own eager steps from the same
+     weights by phase 7's rule, B1 and B2 at 12 sm90 launches a step
+     through the scaled_dot_product_attention op, the step by wall
+     beside phase 6's graph step, the ops dispatched a step, the host
+     µs of a dispatched op and the device's idle share in a profiled
+     step.
 
 The last three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
@@ -4104,6 +4118,387 @@ def int8_engine_phase() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the eager API
+# ---------------------------------------------------------------------------
+# the op sweep's limits, CUDA Tensors against CPU Tensors (rtol = atol):
+# each case's own (tests/eager_op_cases.py) and at least 1e-5 for
+# values and 1e-4 for grads: the card's f32 kernels (TF32 off) sum in
+# other orders than the CPU's, and its transcendentals differ by a few
+# ulps; the flash kernels' f32 design against the CPU's composite (the
+# attention cases) stays within the cases' 1e-4
+SWEEP_TOL, SWEEP_GRAD_TOL = 1e-5, 1e-4
+# draws each random op's moments are taken over on the card
+SWEEP_DRAWS = 1_000_000
+# the range each bounded random op's draws must lie in
+# (tests/eager_op_cases.py RANDOM_MOMENTS's parameters; the normals are
+# unbounded)
+RANDOM_RANGES = {"rand": (0.0, 1.0), "uniform": (-2.0, 3.0),
+                 "randint": (0, 9), "bernoulli": (0, 1),
+                 "poisson": (0, float("inf")), "binomial": (0, 10),
+                 "standard_gamma": (0.0, float("inf")),
+                 "exponential": (0.0, float("inf")),
+                 "truncated_normal": (-2.0, 2.0)}
+EAGER_STEPS = 3
+EAGER_LR = 1e-4
+
+
+def _tests_module(name):
+    """A module of tests/ that imports numpy only (the op cases, the
+    eager GPT script): the same code the CPU tests run."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sweep_diff(got, want, tol):
+    """(largest |got - want|, whether every element is within tol +
+    tol * |want|); NaN against NaN and equal infinities agree."""
+    kind = np.complex128 if got.dtype.kind == "c" else np.float64
+    g, w = got.astype(kind), np.asarray(want).astype(kind)
+    same = (g == w) | (np.isnan(g) & np.isnan(w))
+    d = np.where(same, 0.0, np.abs(g - w))
+    ok = bool((d <= tol + tol * np.abs(w)).all())
+    return (float(d.max()) if d.size else 0.0), ok
+
+
+def _sweep_compare(got, want, got_g, want_g, tol, gtol):
+    """(largest difference, what disagreed or "") of one case's outputs
+    and grads on the card against the CPU's."""
+    if len(got) != len(want):
+        return float("inf"), f"{len(got)} outputs against {len(want)}"
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return float("inf"), (f"output {i}: {g.shape} {g.dtype} "
+                                  f"against {w.shape} {w.dtype}")
+        e, ok = _sweep_diff(g, w, tol)
+        err = max(err, e)
+        if not ok:
+            return err, f"output {i} off by {e:.3g} (limit {tol:g})"
+    if set(got_g) != set(want_g):
+        return err, f"grads of inputs {sorted(got_g)} against " \
+                    f"{sorted(want_g)}"
+    for k in got_g:
+        e, ok = _sweep_diff(got_g[k], want_g[k], gtol)
+        err = max(err, e)
+        if not ok:
+            return err, f"grad of input {k} off by {e:.3g} (limit {gtol:g})"
+    return err, ""
+
+
+def eager_op_sweep(C) -> dict:
+    """Every case of tests/eager_op_cases.py (module `C`) on CUDA Tensors
+    against the same case on CPU Tensors, values and backward() grads,
+    TF32 off; the registry's dispatches on the card are recorded by
+    case. Returns the failures, the ops of OPS no case dispatched on the
+    card, the ops run and the largest difference by op module."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.ops import OPS, registry
+    real = registry.dispatch
+    seen = {}
+    current = [None]
+
+    def spy(opdef, args, kwargs):
+        seen.setdefault(current[0], set()).add(opdef.name)
+        return real(opdef, args, kwargs)
+
+    failures, errs = [], {}
+    saved_place = tdevice._current_place
+    try:
+        with _f32_exact():
+            for name, fn, opts in C.CASES:
+                grad = opts.get("grad", True)
+                P.set_device("cpu")
+                want, want_g = C.run_case(P, fn, place="cpu", grad=grad)
+                P.set_device("gpu:0")
+                current[0] = name
+                registry.dispatch = spy
+                try:
+                    got, got_g = C.run_case(P, fn, place="gpu:0", grad=grad)
+                finally:
+                    registry.dispatch = real
+                errs[name], bad = _sweep_compare(
+                    got, want, got_g, want_g,
+                    max(opts.get("tol", 1e-6), SWEEP_TOL),
+                    max(opts.get("grad_tol", 1e-5), SWEEP_GRAD_TOL))
+                if bad:
+                    failures.append(f"{name}: {bad}")
+    finally:
+        tdevice._current_place = saved_place
+    ran = set().union(*seen.values()) if seen else set()
+    by_module = {}
+    for name, ops in seen.items():
+        for op in ops:
+            mod = OPS[op].fn.__module__.removeprefix("paddle_tpu_torch.")
+            by_module[mod] = max(by_module.get(mod, 0.0), errs[name])
+    return dict(cases=len(C.CASES), ops_in_table=len(OPS),
+                ops_run=len(ran), not_run=sorted(set(OPS) - ran),
+                failures=failures, max_abs_err_by_module=by_module,
+                max_abs_err=max(errs.values()))
+
+
+def eager_random_checks(C) -> dict:
+    """The random ops on the card: the same draws under the same seed,
+    each draw's shape and dtype as on the CPU, and SWEEP_DRAWS draws of
+    each op in RANDOM_MOMENTS within RANDOM_RANGES and its moments
+    within eager_op_cases.moments_ok's limits."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import device as tdevice
+    saved_place = tdevice._current_place
+    try:
+        P.set_device("cpu")
+        cpu = C.random_draws(P)
+        P.set_device("gpu:0")
+        P.seed(11)
+        a = [t.numpy() for t in C.random_draws(P)]
+        P.seed(11)
+        b = C.random_draws(P)
+        same = all(np.array_equal(x, y.numpy()) for x, y in zip(a, b))
+        layout = all(x.shape == y.shape and x.dtype == y.dtype
+                     and x.place == P.CUDAPlace(0)
+                     for x, y in zip(b, cpu))
+        moments, bad = {}, []
+        for name, draw, mean, sd in C.RANDOM_MOMENTS:
+            P.seed(2024)
+            v = draw(P, SWEEP_DRAWS).numpy()
+            ok, m, s = C.moments_ok(v, mean, sd)
+            lo, hi = RANDOM_RANGES.get(name, (-np.inf, np.inf))
+            ok = ok and bool((v >= lo).all() and (v <= hi).all())
+            moments[name] = dict(mean=m, want_mean=mean, sd=s, want_sd=sd,
+                                 ok=ok)
+            if not ok:
+                bad.append(name)
+    finally:
+        tdevice._current_place = saved_place
+    return dict(same_draws_under_seed=same, layout_as_cpu=layout,
+                moments=moments, moments_failed=bad)
+
+
+def _device_ms(prof):
+    """The device time torch.profiler recorded (ms): the sum of its
+    events' self device time."""
+    tot = 0.0
+    for e in prof.key_averages():
+        tot += getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    return tot / 1e3
+
+
+def _dispatch_overhead(P, n=5000) -> dict:
+    """Host µs of one dispatched op (P.add on two 16-element CUDA
+    Tensors) and of the same torch call on their torch tensors, each the
+    mean of n calls, synchronised at the end; their difference is the
+    registry's overhead."""
+    import torch
+    a = P.to_tensor(np.ones(16, np.float32), place="gpu:0")
+    b = P.to_tensor(np.ones(16, np.float32), place="gpu:0")
+    ad, bd = a._data, b._data
+    out = {}
+    for what, fn in (("dispatched", lambda: P.add(a, b)),
+                     ("torch", lambda: torch.add(ad, bd))):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        out[what] = 1e6 * (time.perf_counter() - t) / n
+    out["overhead"] = out["dispatched"] - out["torch"]
+    return out
+
+
+def eager_gpt_phase(train) -> dict:
+    """bench_gpt2_small's config at full width and depth (b16 x s1024,
+    bf16 O1, AdamW, dropout 0) as the eager script of
+    tests/eager_gpt_script.py on CUDA Tensors, started from a port
+    GPTForCausalLM's weights and held to that model's own eager steps
+    on the same batches by phase 7's rule; B1/B2's launches by design
+    read around each step; the step by wall beside phase 6's graph step,
+    the ops dispatched a step, the host µs of a dispatched op and the
+    device's idle share in one profiled step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt2_small)
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.optimizer import AdamW
+    S = _tests_module("eager_gpt_script")
+    _fresh_card()
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                     use_flash_attention=True)
+    L, H, batch, seq = cfg.num_layers, cfg.num_heads, 16, 1024
+    rng = np.random.default_rng(0)
+    batches = [tuple(rng.integers(0, cfg.vocab_size, (batch, seq)).astype(
+        np.int32) for _ in range(2)) for _ in range(EAGER_STEPS)]
+    model = GPTForCausalLM(cfg, seed=0)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    names = list(weights)
+
+    # the model's own eager steps on torch tensors
+    crit = GPTPretrainingCriterion()
+    opt = AdamW(learning_rate=EAGER_LR, parameters=model.parameters(),
+                weight_decay=0.01)
+    want_losses = []
+    for ids, labels in batches:
+        with P.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = crit(model(torch.as_tensor(ids, device="cuda")),
+                        torch.as_tensor(labels, device="cuda"))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        want_losses.append(float(loss.detach()))
+    state = model.state_dict()
+    want_params = [state[k].detach().clone() for k in names]
+    del model, opt, state, loss
+    _fresh_card()
+
+    # the eager script on Tensors, marks taken before each step
+    marks = []
+
+    def on_step(_i):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), registry.dispatch_count(),
+                      dict(fa.flash_fwd.design_launches),
+                      dict(fa.flash_bwd.design_launches)))
+
+    saved_place = tdevice._current_place
+    P.set_device("gpu:0")
+    try:
+        losses, params = S.eager_gpt_steps(
+            P, weights, batches, L, H, lr=EAGER_LR, amp=True, place="gpu:0",
+            on_step=on_step)
+        on_step(EAGER_STEPS)
+        steps = []
+        for (t0, n0, f0, b0), (t1, n1, f1, b1) in zip(marks, marks[1:]):
+            steps.append(dict(
+                ms=1e3 * (t1 - t0), ops=n1 - n0,
+                b1={k: f1[k] - f0[k] for k in f1},
+                b2={k: b1[k] - b0[k] for k in b1}))
+        held = _held_to(losses, want_losses,
+                        [params[k]._data for k in names], want_params,
+                        EAGER_LR, EAGER_STEPS)
+        bit_equal = losses == want_losses and all(
+            torch.equal(params[k]._data, w)
+            for k, w in zip(names, want_params))
+        del want_params
+
+        # one more step unprofiled and one profiled (the device's idle
+        # share), on the script's parameters with an optimizer of their
+        # own (its first step makes its moments)
+        ids_t = P.to_tensor(batches[0][0], place="gpu:0")
+        labels_t = P.to_tensor(batches[0][1], place="gpu:0")
+        opt2 = P.optimizer.AdamW(learning_rate=EAGER_LR,
+                                 parameters=list(params.values()),
+                                 weight_decay=0.01)
+
+        def one_step():
+            with P.amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = S.gpt_loss(P, params, ids_t, labels_t, L, H)
+            loss.backward()
+            opt2.step()
+            opt2.clear_grad()
+            torch.cuda.synchronize()
+
+        one_step()
+        t = time.perf_counter()
+        one_step()
+        step_ms_again = 1e3 * (time.perf_counter() - t)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            one_step()
+            profiled_ms = 1e3 * (time.perf_counter() - t)
+        device_ms = _device_ms(prof)
+        overhead = _dispatch_overhead(P)
+    finally:
+        tdevice._current_place = saved_place
+    timed = [s["ms"] for s in steps[1:]]
+    rec = dict(
+        config="gpt2_small", layers=L, batch=batch, seq=seq,
+        steps=EAGER_STEPS, lr=EAGER_LR, losses=losses,
+        model_losses=want_losses, held_to_model=held, bit_equal=bit_equal,
+        step_ms=[s["ms"] for s in steps],
+        step_ms_after_first=statistics.mean(timed),
+        step_ms_fourth=step_ms_again, step_ms_profiled=profiled_ms,
+        device_ms_profiled=device_ms,
+        idle_share=(1 - device_ms / profiled_ms) if device_ms else None,
+        graph_step_ms=train["step_ms_median"],
+        graph_step_ms_replay=train["step_ms_replay"],
+        trainstep_eager_step_ms=train["eager_step_ms"],
+        ops_per_step=[s["ops"] for s in steps],
+        b1_by_step=[s["b1"] for s in steps],
+        b2_by_step=[s["b2"] for s in steps],
+        host_us_dispatched_op=overhead["dispatched"],
+        host_us_torch_op=overhead["torch"],
+        host_us_dispatch_overhead=overhead["overhead"],
+        card=card_line())
+    want_designs = {"sm90": L, "simple": 0}
+    _check("[eager]", {
+        "every loss finite": all(np.isfinite(losses)),
+        "the script held to GPTForCausalLM's eager steps (phase 7's "
+        "rule)": held["ok"],
+        f"B1 at {L} sm90 launches a step": all(
+            s["b1"] == want_designs for s in steps),
+        f"B2 at {L} sm90 launches a step": all(
+            s["b2"] == want_designs for s in steps),
+        "the same ops dispatched every step": len(set(
+            rec["ops_per_step"])) == 1,
+    }, rec)
+    idle = "not measured" if rec["idle_share"] is None \
+        else f"{100 * rec['idle_share']:.1f} %"
+    log(f"[eager] gpt2_small eager script, bf16 O1 AdamW, {L} layers, "
+        f"b{batch} x s{seq}: steps {[round(x, 2) for x in rec['step_ms']]} "
+        f"ms by wall (then {step_ms_again:.2f} ms; phase 6's graph step "
+        f"{rec['graph_step_ms']:.2f} ms by wall, its eager TrainStep step "
+        f"{rec['trainstep_eager_step_ms']:.2f} ms); {rec['ops_per_step']} "
+        f"ops dispatched a step; a dispatched op {overhead['dispatched']:.2f}"
+        f" us of host time against {overhead['torch']:.2f} us for the "
+        f"torch call ({overhead['overhead']:.2f} us of registry); profiled "
+        f"step {profiled_ms:.2f} ms, device {device_ms:.2f} ms, idle "
+        f"{idle}; losses {losses} against the model's {want_losses} "
+        f"(bit-equal {bit_equal}, {held}); B1 {rec['b1_by_step']}, B2 "
+        f"{rec['b2_by_step']}; card {rec['card']}")
+    del params, weights
+    _fresh_card()
+    return rec
+
+
+def eager_phase(train) -> dict:
+    """Phase 22: the op sweep, the random ops, then the eager GPT-2
+    small."""
+    C = _tests_module("eager_op_cases")
+    sweep = eager_op_sweep(C)
+    rand = eager_random_checks(C)
+    _check("[eager-ops]", {
+        "every case on the card agrees with the CPU": not sweep["failures"],
+        "every op of the registry dispatched on the card":
+            not sweep["not_run"],
+        "the same draws under the same seed on the card":
+            rand["same_draws_under_seed"],
+        "each random op's draws shaped and typed as on the CPU":
+            rand["layout_as_cpu"],
+        "every random op's moments and range within their limits":
+            not rand["moments_failed"],
+    }, dict(sweep=sweep, random=rand))
+    log(f"[eager-ops] {sweep['cases']} cases, {sweep['ops_run']} of "
+        f"{sweep['ops_in_table']} ops of the registry run on the card and "
+        f"held to the CPU; largest difference by module "
+        f"{json.dumps(sweep['max_abs_err_by_module'])}; random ops: same "
+        f"draws under one seed, {len(rand['moments'])} moment checks of "
+        f"{SWEEP_DRAWS} draws passed")
+    return dict(sweep=sweep, random=rand, gpt=eager_gpt_phase(train))
+
+
 def main() -> int:
     try:
         import torch
@@ -4145,7 +4540,8 @@ def main() -> int:
     train_resnet = resnet_train_phase()
     spec = spec_phase()
     int8 = int8_engine_phase()
-    runs_17_18 = (("llama13b", train_llama["no_recompute"]),
+    eager = eager_phase(train)
+    runs_17_18 =(("llama13b", train_llama["no_recompute"]),
                   ("llama13b_recompute", train_llama["recompute"]),
                   ("bert_base", train_bert))
     main_case = cases[0]    # the engine's fresh wave: its largest launch
@@ -4225,6 +4621,11 @@ def main() -> int:
             launches_1p3b=t13["launches_counted"][i],
             launches_on_device_1p3b=t13["launches_on_device"][i],
             **_launches_17_18(runs_17_18, i),
+            # phase 22: the eager API's scaled_dot_product_attention op
+            # (and its backward) over the eager script's 3 steps
+            launches_eager_api=sum(
+                s["sm90"] for s in eager["gpt"]["b1_by_step" if i == 0
+                                                else "b2_by_step"]),
             max_abs_err=max(e for c in flash for dt in ("bf16", "f16")
                             for what, e in c[f"max_abs_err_{dt}"].items()
                             if (what in ("o", "lse")) == (kind == "fwd")),
@@ -4310,6 +4711,7 @@ def main() -> int:
     log("[train-resnet50] " + json.dumps(train_resnet))
     log("[spec] " + json.dumps(spec))
     log("[int8] " + json.dumps(int8))
+    log("[eager] " + json.dumps(eager))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -8,13 +8,33 @@ vision ResNets, the fused incubate layers, the nn conv, pooling and
 norm layers, the nn transformer layers, LLMEngine, generate,
 TrainStep and the optimizers, which follow the model's parameters) run
 on the CUDA card unless the caller passes device="cpu"; without a card
-they raise."""
-from . import (amp, core, distributed, incubate, inference, jit, kernels,
+they raise.
+
+The eager API (``Tensor``, ``to_tensor``, the registered ops, autograd,
+``seed``, places) keeps the reference's root names, so one eager script
+runs on either package by swapping the import. Its default place is the
+card; ``set_device("cpu")`` asks for the CPU."""
+# the op registry first: nn.functional registers its ops in it
+from . import core, ops  # noqa: I001
+from . import (amp, autograd, distributed, incubate, inference, jit, kernels,
                models, nn, optimizer, resilience, vision)
 from .convert import (bert_params_from_numpy, fused_params_from_numpy,
                       gpt_params_from_numpy, llama_params_from_numpy,
                       optimizer_state_from_numpy, resnet_params_from_numpy)
+from .autograd import (enable_grad, grad, is_grad_enabled, no_grad,
+                       set_grad_enabled)
 from .core import resolve_device
+from .core.device import (CPUPlace, CUDAPlace, Place, device_count,
+                          get_device, get_place, is_compiled_with_cuda,
+                          set_device)
+from .core.dtype import (DType, bfloat16, complex64, complex128, finfo,
+                         float16, float32, float64, iinfo, int8, int16,
+                         int32, int64, uint8)
+from .core.dtype import bool_ as bool  # noqa: A001
+from .core.generator import Generator, default_generator, seed
+from .core.tensor import Tensor, to_tensor
+from .ops import *  # noqa: F401,F403
+from .ops import cast, slice, split, unique  # noqa: F401
 from .core.flags import get_flags, set_flags
 from .inference import LLMEngine, PagedKVCache
 from .jit import TrainStep
@@ -30,4 +50,11 @@ __all__ = ["amp", "core", "distributed", "incubate", "inference", "jit",
            "resolve_device", "get_flags", "set_flags", "LLMEngine", "PagedKVCache", "TrainStep",
            "BertConfig", "BertForMaskedLM", "GPTConfig", "GPTForCausalLM",
            "GPTPretrainingCriterion", "LlamaConfig", "LlamaForCausalLM",
-           "generate"]
+           "generate", "Tensor", "to_tensor", "seed", "Generator",
+           "default_generator", "no_grad", "enable_grad",
+           "set_grad_enabled", "grad", "is_grad_enabled", "set_device",
+           "get_device", "get_place", "Place", "CPUPlace", "CUDAPlace",
+           "device_count", "is_compiled_with_cuda", "autograd", "ops",
+           "DType", "bool", "uint8", "int8", "int16", "int32", "int64",
+           "float16", "bfloat16", "float32", "float64", "complex64",
+           "complex128", "finfo", "iinfo"]

@@ -8,8 +8,14 @@ from __future__ import annotations
 
 import torch
 
+from ..core.tensor import Tensor
+
 __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
            "ClipGradByGlobalNorm", "clip_grad_norm_"]
+
+
+def _torch(t):
+    return t._data if isinstance(t, Tensor) else t
 
 
 class ClipGradBase:
@@ -23,7 +29,8 @@ class ClipGradByValue(ClipGradBase):
         self.min = -max if min is None else min
 
     def __call__(self, params_grads):
-        return [(p, None if g is None else g.clamp(self.min, self.max))
+        return [(p, None if g is None else _torch(g).clamp(self.min,
+                                                             self.max))
                 for p, g in params_grads]
 
 
@@ -40,6 +47,7 @@ class ClipGradByNorm(ClipGradBase):
             if g is None:
                 out.append((p, g))
                 continue
+            g = _torch(g)
             norm = g.float().square().sum().sqrt()
             scale = torch.clamp(self.clip_norm / norm.clamp_min(1e-12),
                                 max=1.0)
@@ -61,7 +69,7 @@ class ClipGradByGlobalNorm(ClipGradBase):
         for _p, g in params_grads:
             if g is None:
                 continue
-            s = g.float().square().sum()
+            s = _torch(g).float().square().sum()
             sq = s if sq is None else sq + s
         return sq
 
@@ -72,7 +80,8 @@ class ClipGradByGlobalNorm(ClipGradBase):
         global_norm = sq.sqrt()
         scale = self.clip_norm / torch.clamp(global_norm,
                                              min=self.clip_norm)
-        return [(p, None if g is None else (g.float() * scale).to(g.dtype))
+        return [(p, None if g is None
+                 else (_torch(g).float() * scale).to(_torch(g).dtype))
                 for p, g in params_grads]
 
 
@@ -84,9 +93,9 @@ def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
     return total as a 0-d tensor (zeros when no parameter has a grad).
     error_if_nonfinite is accepted and ignored, as the reference does
     (:84-103)."""
-    if isinstance(parameters, torch.Tensor):
+    if isinstance(parameters, (torch.Tensor, Tensor)):
         parameters = [parameters]
-    parameters = list(parameters)
+    parameters = [_torch(p) for p in parameters]
     grads = [p.grad for p in parameters if p.grad is not None]
     if not grads:
         return torch.zeros(())

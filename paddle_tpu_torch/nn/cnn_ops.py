@@ -40,6 +40,7 @@ import torch.nn.functional as TF
 from ..amp.state import cast_target
 from ..amp.state import maybe_cast_inputs as _amp
 from ..core.flags import flag_value
+from ..ops.registry import register_op
 
 __all__ = ["conv1d", "conv2d", "conv3d", "conv2d_transpose",
            "conv3d_transpose", "max_pool1d", "max_pool2d", "max_pool3d",
@@ -159,6 +160,7 @@ def _conv(x, weight, bias, stride, padding, dilation, groups, data_format):
     return _add_bias(_restore_layout(out, channel_last), bias, channel_last)
 
 
+@register_op("conv1d", amp_policy="white", amp_in_fn=True)
 def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCL"):
     x, weight, bias = _amp("conv1d", "white", x, weight, bias)
@@ -166,6 +168,7 @@ def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
                  "NWC" if data_format == "NLC" else "NCW")
 
 
+@register_op("conv2d", amp_policy="white", amp_in_fn=True)
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW"):
     x, weight, bias = _amp("conv2d", "white", x, weight, bias)
@@ -173,6 +176,7 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
                  data_format)
 
 
+@register_op("conv3d", amp_policy="white", amp_in_fn=True)
 def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCDHW"):
     x, weight, bias = _amp("conv3d", "white", x, weight, bias)
@@ -214,6 +218,7 @@ def _conv_transpose(x, weight, bias, stride, padding, output_padding,
     return _add_bias(_restore_layout(out, channel_last), bias, channel_last)
 
 
+@register_op("conv2d_transpose", amp_policy="white", amp_in_fn=True)
 def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
                      output_padding=0, dilation=1, groups=1,
                      data_format="NCHW"):
@@ -223,6 +228,7 @@ def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
                            dilation, groups, data_format, 2)
 
 
+@register_op("conv3d_transpose", amp_policy="white", amp_in_fn=True)
 def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
                      output_padding=0, dilation=1, groups=1,
                      data_format="NCDHW"):
@@ -282,29 +288,34 @@ def _pool(x, kernel, stride, padding, kind, data_format, exclusive=True):
     return _restore_layout(out, channel_last)
 
 
+@register_op("max_pool1d", amp_in_fn=True)
 def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False):
     (x,) = _amp("max_pool1d", None, x)
     return _pool(x, kernel_size, stride, padding, "max", "NCW")
 
 
+@register_op("max_pool2d", amp_in_fn=True)
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                data_format="NCHW"):
     (x,) = _amp("max_pool2d", None, x)
     return _pool(x, kernel_size, stride, padding, "max", data_format)
 
 
+@register_op("max_pool3d", amp_in_fn=True)
 def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                data_format="NCDHW"):
     (x,) = _amp("max_pool3d", None, x)
     return _pool(x, kernel_size, stride, padding, "max", data_format)
 
 
+@register_op("avg_pool1d", amp_in_fn=True)
 def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
                ceil_mode=False):
     (x,) = _amp("avg_pool1d", None, x)
     return _pool(x, kernel_size, stride, padding, "avg", "NCW", exclusive)
 
 
+@register_op("avg_pool2d", amp_in_fn=True)
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, data_format="NCHW"):
     (x,) = _amp("avg_pool2d", None, x)
@@ -312,6 +323,7 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                  exclusive)
 
 
+@register_op("avg_pool3d", amp_in_fn=True)
 def avg_pool3d(x, kernel_size, stride=None, padding=0, exclusive=True,
                ceil_mode=False, data_format="NCDHW"):
     (x,) = _amp("avg_pool3d", None, x)
@@ -339,21 +351,25 @@ def _adaptive(x, output_size, n, data_format, kind):
     return _restore_layout(fn(xc, out), channel_last)
 
 
+@register_op("adaptive_avg_pool1d", amp_in_fn=True)
 def adaptive_avg_pool1d(x, output_size):
     (x,) = _amp("adaptive_avg_pool1d", None, x)
     return _adaptive(x, output_size, 1, "NCW", "avg")
 
 
+@register_op("adaptive_avg_pool2d", amp_in_fn=True)
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
     (x,) = _amp("adaptive_avg_pool2d", None, x)
     return _adaptive(x, output_size, 2, data_format, "avg")
 
 
+@register_op("adaptive_avg_pool3d", amp_in_fn=True)
 def adaptive_avg_pool3d(x, output_size, data_format="NCDHW"):
     (x,) = _amp("adaptive_avg_pool3d", None, x)
     return _adaptive(x, output_size, 3, data_format, "avg")
 
 
+@register_op("adaptive_max_pool2d", amp_in_fn=True)
 def adaptive_max_pool2d(x, output_size, data_format="NCHW"):
     (x,) = _amp("adaptive_max_pool2d", None, x)
     return _adaptive(x, output_size, 2, data_format, "max")
@@ -430,6 +446,7 @@ class _BatchNormTrain(torch.autograd.Function):
                 dbias if ctx.has_bias else None, None, None, None)
 
 
+@register_op("batch_norm", amp_policy="black", amp_in_fn=True)
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
                data_format="NCHW"):

@@ -24,6 +24,7 @@ import torch
 from ..amp.state import maybe_cast_inputs as _amp
 from ..kernels import norms as _norms
 from ..kernels.flash_attention import _shapes_ok, flash_attention
+from ..ops.registry import register_op
 from .cnn_ops import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       adaptive_avg_pool3d, adaptive_max_pool2d, avg_pool1d,
                       avg_pool2d, avg_pool3d, batch_norm, conv1d, conv2d,
@@ -50,6 +51,7 @@ def _mm(x, y):
         else out
 
 
+@register_op("linear", amp_policy="white", amp_in_fn=True)
 def linear(x, weight, bias=None):
     """y = x @ W + b with W laid out [in, out], as paddle_tpu's Linear
     keeps it (nn/layers/common.py:12). bf16 products accumulate in f32
@@ -61,6 +63,7 @@ def linear(x, weight, bias=None):
     return out
 
 
+@register_op("matmul", amp_policy="white", amp_in_fn=True)
 def matmul(x, y, transpose_x=False, transpose_y=False):
     """ops/linalg.py:22: optional transposes of the last two axes, then
     x @ y (bf16 products accumulate in f32 and round once)."""
@@ -72,11 +75,13 @@ def matmul(x, y, transpose_x=False, transpose_y=False):
     return _mm(x, y)
 
 
+@register_op("embedding", amp_in_fn=True)
 def embedding(ids, weight):
     (weight,) = _amp("embedding", None, weight)
     return weight[ids]
 
 
+@register_op("layer_norm", amp_policy="black", amp_in_fn=True)
 def layer_norm(x, weight=None, bias=None, epsilon=1e-5):
     """LayerNorm over the last axis: f32 statistics, then a cast back to
     the input dtype BEFORE the affine (ops/nn_ops.py:501-509): the same
@@ -85,6 +90,7 @@ def layer_norm(x, weight=None, bias=None, epsilon=1e-5):
     return _norms._ln_xla(x, weight, bias, epsilon)
 
 
+@register_op("rms_norm", amp_policy="black", amp_in_fn=True)
 def rms_norm(x, weight=None, epsilon=1e-6):
     """RMSNorm over the last axis (ops/nn_ops.py:514): rsqrt of the f32
     mean of squares, a cast back to the input dtype BEFORE the weight
@@ -93,23 +99,27 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     return _norms._rms_xla(x, weight, epsilon)
 
 
+@register_op("gelu", amp_in_fn=True)
 def gelu(x, approximate=False):
     (x,) = _amp("gelu", None, x)
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
 
 
+@register_op("relu", amp_in_fn=True)
 def relu(x):
     (x,) = _amp("relu", None, x)
     return torch.relu(x)
 
 
+@register_op("silu", amp_in_fn=True)
 def silu(x):
     """x * sigmoid(x) (ops/nn_ops.py:65)."""
     (x,) = _amp("silu", None, x)
     return torch.nn.functional.silu(x)
 
 
+@register_op("tanh", amp_in_fn=True)
 def tanh(x):
     """ops/math.py:224; no AMP policy of its own: it follows its input
     (tanh is on neither of the reference's lists)."""
@@ -117,6 +127,7 @@ def tanh(x):
     return torch.tanh(x)
 
 
+@register_op("dropout", amp_in_fn=True, random=True)
 def dropout(x, p=0.5, training=True, mode="upscale_in_train",
             generator=None):
     """ops/nn_ops.py:165: keep each element with probability 1 - p, drawn
@@ -133,6 +144,7 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train",
     return torch.where(keep, x, 0.0).to(x.dtype)
 
 
+@register_op("cross_entropy", amp_policy="black", amp_in_fn=True)
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
@@ -205,6 +217,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     raise ValueError(f"unknown reduction {reduction!r}")
 
 
+@register_op("flatten", amp_in_fn=True)
 def flatten(x, start_axis=0, stop_axis=-1):
     """ops/manipulation.py:35: axes start_axis..stop_axis merged into
     one (a 0-d tensor becomes shape [1])."""
@@ -216,6 +229,7 @@ def flatten(x, start_axis=0, stop_axis=-1):
 _PAD_MODES = {"reflect": "reflect", "replicate": "edge", "circular": "wrap"}
 
 
+@register_op("pad_op", amp_in_fn=True)
 def pad(x, pad, mode="constant", value=0.0, data_format="NCHW"):
     """ops/manipulation.py:276-298. `pad` of 2 * x.dim() values pads
     every axis, first axis first: [lo0, hi0, lo1, hi1, ...] (the reverse
@@ -259,6 +273,7 @@ def _sdpa_takes_kernel(q_shape, k_shape, attn_mask, dropout_p, training):
         and _shapes_ok(q_shape, k_shape)
 
 
+@register_op("scaled_dot_product_attention", amp_policy="white", amp_in_fn=True, random=True)
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, generator=None):

@@ -34,22 +34,31 @@ from typing import Dict, List
 
 import torch
 
+from ..core.tensor import Tensor
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
 
 
 def _unpack(item, index):
-    """(name, tensor) of one `parameters` entry: a tensor (named
-    ``param_<index>``) or a (name, tensor) pair as
-    ``Module.named_parameters()`` yields."""
+    """(name, torch tensor) of one `parameters` entry: a tensor (named
+    ``param_<index>``, or by its name when it is an eager ``Tensor``) or
+    a (name, tensor) pair as ``Module.named_parameters()`` yields. An
+    eager ``Tensor`` parameter is stepped through its torch tensor
+    (``_data``), in place, and its grad is that tensor's."""
     if isinstance(item, tuple):
-        return item
-    return f"param_{index}", item
+        name, p = item
+    else:
+        name, p = None, item
+    if isinstance(p, Tensor):
+        name = name or p.name
+        p = p._data
+    return name or f"param_{index}", p
 
 
 class Optimizer:
-    """`parameters`: tensors, (name, tensor) pairs, or group dicts
+    """`parameters`: tensors (torch tensors or eager Tensors), (name,
+    tensor) pairs, or group dicts
     ``{"params": [...], "weight_decay": ..., "learning_rate": ...}``. The
     names key ``state_dict`` as ``<name>_<accumulator>``, the reference's
     key format (:481-520); pass ``model.named_parameters()`` to key it by

@@ -1,7 +1,9 @@
 """paddle_tpu_torch.core.flags against paddle_tpu.core.flags: the flags
-the port acts on (FLAGS_fast_bn_stats, and utils.watchdog's
-FLAGS_watchdog_timeout_s and FLAGS_watchdog_abort) with the reference's
-default and type, set / get (one name or a list, strings coerced to the
+the port acts on (FLAGS_fast_bn_stats, utils.watchdog's
+FLAGS_watchdog_timeout_s and FLAGS_watchdog_abort, the op registry's
+FLAGS_check_nan_inf and core.generator's FLAGS_seed) with the
+reference's default and type, what FLAGS_check_nan_inf and FLAGS_seed
+do, set / get (one name or a list, strings coerced to the
 flag's type), errors for unknown names and for the reference's flags the port
 does not act on yet, define_flag, and FLAGS_fast_bn_stats read from the
 environment when the flags are defined (in a fresh process, where the
@@ -12,6 +14,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 import paddle_tpu as pt
@@ -20,8 +23,8 @@ import paddle_tpu_torch as ptt
 import paddle_tpu_torch.core.flags as tflags
 
 ROOT = Path(__file__).resolve().parents[1]
-PORTED = ["FLAGS_fast_bn_stats", "FLAGS_watchdog_abort",
-          "FLAGS_watchdog_timeout_s"]
+PORTED = ["FLAGS_check_nan_inf", "FLAGS_fast_bn_stats", "FLAGS_seed",
+          "FLAGS_watchdog_abort", "FLAGS_watchdog_timeout_s"]
 
 
 def test_the_ported_flags_and_defaults():
@@ -110,3 +113,45 @@ def test_fast_bn_stats_from_the_environment(value, want):
     assert mine == {"FLAGS_fast_bn_stats": want}
     assert out.returncode != 0
     assert "NameError" in out.stderr and "_bump_trace_epoch" in out.stderr
+
+
+def _nan_case(P, op):
+    x = P.to_tensor(np.array([1.0, -1.0, 0.0], np.float32))
+    return {"log": lambda: P.log(x), "divide": lambda: x / x,
+            "sqrt": lambda: P.sqrt(x)}[op]()
+
+
+@pytest.mark.parametrize("op", ["log", "divide", "sqrt"])
+def test_check_nan_inf_raises_as_in_the_reference(op):
+    """Under FLAGS_check_nan_inf an op whose float output holds a NaN or
+    an Inf raises FloatingPointError with the reference's message; off,
+    it returns the value."""
+    ptt.set_device("cpu")
+    for P in (pt, ptt):
+        assert np.isnan(_nan_case(P, op).numpy()).any() or \
+            np.isinf(_nan_case(P, op).numpy()).any()
+        P.set_flags({"FLAGS_check_nan_inf": True})
+        try:
+            with pytest.raises(FloatingPointError,
+                               match=f"NaN or Inf detected in output of "
+                                     f"op `{op}`"):
+                _nan_case(P, op)
+            finite = P.exp(P.to_tensor(np.zeros(2, np.float32)))
+            assert finite.numpy().tolist() == [1.0, 1.0]
+        finally:
+            P.set_flags({"FLAGS_check_nan_inf": False})
+
+
+def test_flags_seed_seeds_the_default_generator_at_import():
+    """FLAGS_seed from the environment is the default generator's seed
+    in a fresh process (the reference only registers the flag)."""
+    code = ("import paddle_tpu_torch as P\n"
+            "from paddle_tpu_torch.core import generator as G\n"
+            "print(G.default_generator().seed(), "
+            "P.get_flags('FLAGS_seed')['FLAGS_seed'])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT),
+                                  FLAGS_seed="17"))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["17", "17"]

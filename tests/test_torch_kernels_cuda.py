@@ -859,3 +859,100 @@ def test_ragged_int8_engine_wave_shape(cuda_device):
     d0 = dict(ragged_paged_attention.design_launches)
     _run(case, kw, cuda_device, None, torch.bfloat16, with_pool=False)
     assert ragged_paged_attention.design_launches["sm90"] == d0["sm90"] + 1
+
+
+# ---------------------------------------------------------------------------
+# the eager API on CUDA Tensors
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_eager_sdpa_op_launches_b1_and_b2(cuda_device, dtype):
+    """The registered scaled_dot_product_attention op on CUDA Tensors
+    launches B1 and, through loss.backward(), B2 (bf16 on the sm90
+    designs), and equals the torch-level call on the same values."""
+    import paddle_tpu_torch as P
+    b, s, H, D = 2, 256, 4, 64
+    rng = np.random.default_rng(8)
+    arrs = [rng.standard_normal((b, s, H, D)).astype(np.float32)
+            for _ in range(3)]
+    dt = {"f32": "float32", "bf16": "bfloat16"}[dtype]
+    ts = [P.to_tensor(a, dtype=dt, place="gpu:0", stop_gradient=False)
+          for a in arrs]
+    n_f = dict(fa.flash_fwd.design_launches)
+    n_b = dict(fa.flash_bwd.design_launches)
+    out = P.nn.functional.scaled_dot_product_attention(*ts, is_causal=True)
+    out.astype("float32").sum().backward()
+    torch.cuda.synchronize()
+    design = "sm90" if dtype == "bf16" else "simple"
+    assert fa.flash_fwd.design_launches[design] == n_f[design] + 1
+    assert fa.flash_bwd.design_launches[design] == n_b[design] + 1
+    assert sum(fa.flash_fwd.design_launches.values()) == \
+        sum(n_f.values()) + 1
+    tq = [t._data.detach().clone().requires_grad_() for t in ts]
+    want = F.scaled_dot_product_attention(*tq, is_causal=True)
+    want.float().sum().backward()
+    torch.testing.assert_close(out._data, want, rtol=0, atol=0)
+    for t, w in zip(ts, tq):
+        torch.testing.assert_close(t.grad._data, w.grad, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_op_on_cuda_and_cpu_tensors_raises(cuda_device):
+    """A CUDA Tensor and a CPU Tensor in one op raise, and neither moves
+    (a 0-d CPU tensor, which torch itself would take, too)."""
+    import paddle_tpu_torch as P
+    g = P.to_tensor(np.ones((2, 3), np.float32), place="gpu:0")
+    c = P.to_tensor(np.ones((2, 3), np.float32), place="cpu")
+    c0 = P.to_tensor(np.float32(2.0), place="cpu")
+    for fn in (lambda: g + c, lambda: P.add(c, g), lambda: g * c0,
+               lambda: P.concat([g, c]),
+               lambda: P.nn.functional.linear(g, c)):
+        with pytest.raises(RuntimeError, match="move them to one device"):
+            fn()
+    assert g._data.device.type == "cuda" and c._data.device.type == "cpu"
+    assert c0._data.device.type == "cpu"
+
+
+@pytest.mark.cuda
+def test_to_tensor_without_a_card_raises(cuda_device):
+    """With no card visible, to_tensor and set_device("gpu") raise until
+    set_device("cpu") is called (a process of its own, the card hidden)."""
+    import os
+    import subprocess
+    import sys
+    code = (
+        "import numpy as np, paddle_tpu_torch as P\n"
+        "for f in (lambda: P.to_tensor(np.ones(2)), lambda: P.zeros([2]),\n"
+        "          lambda: P.set_device('gpu')):\n"
+        "    try:\n"
+        "        f()\n"
+        "        raise SystemExit('did not raise')\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'no CUDA device' in str(e), e\n"
+        "P.set_device('cpu')\n"
+        "assert P.to_tensor(np.ones(2)).place == P.CPUPlace()\n"
+        "print('ok')\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _op_cases():
+    import sys as _sys
+    _sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import eager_op_cases
+    return eager_op_cases
+
+
+@pytest.mark.cuda
+def test_eager_op_sweep_cuda_matches_cpu(cuda_device):
+    """Every case of tests/eager_op_cases.py on CUDA Tensors against the
+    same case on CPU Tensors (chip_smoke.py phase 22's sweep, whose
+    limits it keeps), values and backward() grads, and every op of the
+    registry dispatched."""
+    sys_path_cases = _op_cases()
+    res = cs.eager_op_sweep(sys_path_cases)
+    assert not res["failures"], res["failures"]
+    assert not res["not_run"], res["not_run"]

@@ -163,6 +163,90 @@ PORTED_MODULES = {
     # to_jnp is JAX's own
     "paddle_tpu.core.dtype": ("paddle_tpu_torch.core.dtype", {"to_jnp"}),
     "paddle_tpu.amp": ("paddle_tpu_torch.amp", set()),
+    # the eager API (ROADMAP items 20-22); what is left is JAX's own:
+    # TPUPlace (CUDAPlace is its counterpart), next_key (a jax.random
+    # key), the JAX tape's nodes, the dispatch queue's float0 and fused
+    # chain caches, and XLA's executable cache
+    "paddle_tpu.core.tensor": ("paddle_tpu_torch.core.tensor", set()),
+    "paddle_tpu.core.device": ("paddle_tpu_torch.core.device", {"TPUPlace"}),
+    "paddle_tpu.core.generator": ("paddle_tpu_torch.core.generator",
+                                  {"next_key"}),
+    "paddle_tpu.autograd": ("paddle_tpu_torch.autograd",
+                            {"GradNode", "InputEdge"}),
+    "paddle_tpu.autograd.tape": ("paddle_tpu_torch.autograd.tape", {
+        "GradNode", "InputEdge", "build_node", "record_apply"}),
+    "paddle_tpu.autograd.dispatch_queue": (
+        "paddle_tpu_torch.autograd.dispatch_queue", {
+            "chain_cache_size", "clear_chain_cache", "clear_const_caches",
+            "is_float0", "ones_seed_array", "run_batched",
+            "zero_cotangent_array"}),
+    "paddle_tpu.ops.registry": ("paddle_tpu_torch.ops.registry",
+                                {"exec_cache_size"}),
+    "paddle_tpu.ops.creation": ("paddle_tpu_torch.ops.creation", set()),
+    "paddle_tpu.ops.math": ("paddle_tpu_torch.ops.math", set()),
+    "paddle_tpu.ops.reduction": ("paddle_tpu_torch.ops.reduction", set()),
+    "paddle_tpu.ops.manipulation": ("paddle_tpu_torch.ops.manipulation",
+                                    set()),
+    "paddle_tpu.ops.logic": ("paddle_tpu_torch.ops.logic", set()),
+    "paddle_tpu.ops.search": ("paddle_tpu_torch.ops.search", set()),
+    "paddle_tpu.ops.random": ("paddle_tpu_torch.ops.random", set()),
+    "paddle_tpu.ops.linalg": ("paddle_tpu_torch.ops.linalg", set()),
+    # the nn ops the port computes are registered; the rest of nn_ops,
+    # and longtail, vision_ops and sequence_ops, take ROADMAP item 25
+    "paddle_tpu.ops": ("paddle_tpu_torch.ops", {
+        "accuracy_op", "adaptive_max_pool1d", "adaptive_max_pool3d",
+        "addbmm", "affine_grid", "alpha_dropout", "assign_value", "auc_op",
+        "baddbmm", "bce_loss", "bilinear", "binary_cross_entropy",
+        "binary_cross_entropy_with_logits", "block_diag", "cartesian_prod",
+        "cdist", "celu", "channel_shuffle", "check_numerics",
+        "cholesky_inverse", "class_center_sample", "column_stack",
+        "combinations", "cond", "cosine_embedding_loss", "ctc_loss",
+        "deformable_conv", "depthwise_conv2d", "diagonal_scatter",
+        "distribute_fpn_proposals", "dropout2d", "dsplit", "dstack",
+        "edit_distance", "elu", "fill", "fill_diagonal_tensor",
+        "float_power", "fold", "frexp", "full_batch_size_like", "gammainc",
+        "gammaincc", "gammaln", "gather_tree", "generate_proposals",
+        "geqrf", "glu", "group_norm", "gumbel_softmax", "hardshrink",
+        "hardsigmoid", "hardswish", "hardtanh", "hinge_embedding_loss",
+        "histogram_bin_edges", "histogramdd", "hsigmoid_loss", "hsplit",
+        "hstack", "huber_loss", "index_select_strided", "instance_norm",
+        "interpolate", "isneginf", "isposinf", "isreal", "kl_div",
+        "l1_loss", "label_smooth", "leaky_relu", "local_response_norm",
+        "log_loss", "log_softmax", "longtail", "margin_cross_entropy",
+        "margin_ranking_loss", "matrix_exp", "matrix_nms",
+        "max_pool2d_with_index", "max_pool3d_with_index", "maxout",
+        "mean_all", "mish", "mse_loss", "multiclass_nms", "multigammaln",
+        "negative", "nll_loss", "npair_loss", "numel", "one_hot", "orgqr",
+        "pdist", "pixel_shuffle", "pixel_unshuffle", "polar", "positive",
+        "prelu", "prior_box", "psroi_pool", "relu6", "reverse",
+        "rnnt_loss_op", "roi_pool", "row_stack", "rrelu", "select_scatter",
+        "selu", "sequence_ops", "sgn", "shape_op",
+        "sigmoid_cross_entropy_with_logits", "signbit", "sinc",
+        "slice_scatter", "smooth_l1_loss", "softmax",
+        "softmax_with_cross_entropy", "softplus", "softshrink", "softsign",
+        "square_error_cost", "squared_l2_norm", "swish", "take",
+        "tanhshrink", "temporal_shift", "tensor_split", "thresholded_relu",
+        "top_p_sampling", "trans_layout", "triplet_margin_loss",
+        "unflatten", "unfold_im2col", "unpool", "unpool3d", "upsample",
+        "vander", "view_as_complex", "view_as_real", "view_dtype",
+        "vision_ops", "viterbi_decode", "vsplit", "vstack", "yolo_box"}),
+    "paddle_tpu.ops.nn_ops": ("paddle_tpu_torch.ops.nn_ops", {
+        "adaptive_max_pool1d", "adaptive_max_pool3d", "affine_grid",
+        "alpha_dropout", "bce_loss", "bilinear", "binary_cross_entropy",
+        "binary_cross_entropy_with_logits", "celu", "channel_shuffle",
+        "cosine_embedding_loss", "dropout2d", "elu", "glu", "group_norm",
+        "gumbel_softmax", "hardshrink", "hardsigmoid", "hardswish",
+        "hardtanh", "hinge_embedding_loss", "hsigmoid_loss", "huber_loss",
+        "instance_norm", "interpolate", "kl_div", "l1_loss",
+        "label_smooth", "leaky_relu", "local_response_norm", "log_loss",
+        "log_softmax", "margin_cross_entropy", "margin_ranking_loss",
+        "maxout", "mish", "mse_loss", "nll_loss", "npair_loss", "one_hot",
+        "pixel_shuffle", "pixel_unshuffle", "prelu", "relu6", "rrelu",
+        "selu", "sigmoid_cross_entropy_with_logits", "smooth_l1_loss",
+        "softmax", "softmax_with_cross_entropy", "softplus", "softshrink",
+        "softsign", "square_error_cost", "swish", "tanhshrink",
+        "temporal_shift", "thresholded_relu", "triplet_margin_loss",
+        "unfold_im2col", "upsample"}),
 }
 
 

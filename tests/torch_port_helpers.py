@@ -9,6 +9,9 @@ import numpy as np
 import torch
 
 import paddle_tpu as pt
+# the eager GPT loop both packages run (written once, package-neutral,
+# in a module without JAX that chip_smoke.py's phase 22 imports too)
+from eager_gpt_script import eager_gpt_steps, gpt_loss  # noqa: F401
 from paddle_tpu.models import GPTForCausalLM as JaxGPT
 from paddle_tpu.models import llama as jllama
 from paddle_tpu_torch import gpt_params_from_numpy, llama_params_from_numpy

@@ -201,7 +201,21 @@ Run from the root of a checkout. Phases, each of which must pass:
      through the scaled_dot_product_attention op, the step by wall
      beside phase 6's graph step, the ops dispatched a step, the host
      µs of a dispatched op and the device's idle share in a profiled
-     step.
+     step; then the same config as the GPT of
+     tests/eager_gpt_layer_script.py, built from nn.Layers (Embedding,
+     LayerNorm, Linear; weights in by set_state_dict, AdamW over
+     model.parameters()), its state_dict keys GPTForCausalLM's, held
+     bit for bit to GPTForCausalLM's eager steps (losses and every
+     parameter), B1 and B2 at 12 sm90 launches a step, the ops of the
+     dict script, its step by wall beside the dict script's (steps of
+     the two forms in turns, with the allocator's counters, and two
+     profiled pairs: device ms, idle share, device events and the
+     kernels most apart), the host µs of a no-op Layer call against
+     its forward; and a save/load round
+     trip: save(model.state_dict()), the file read back with pickle
+     and numpy alone and held to the model's values, set_state_dict(
+     load(path)) into a fresh model, and one more step of each (a fresh
+     AdamW each) bit-equal.
 
 The last three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
@@ -2114,14 +2128,14 @@ def _rms_on_activations(model, captured) -> dict:
     fwd = norms.rms_norm_fwd
     with torch.no_grad():
         fwd.kernel_launches = fwd.plain_calls = 0
-        outs = [fused_rms_norm(x, l.input_layernorm.weight,
+        outs = [fused_rms_norm(x, l.input_layernorm.weight._data,
                                l.input_layernorm.epsilon)
                 for l, x in zip(layers, captured)]
         torch.cuda.synchronize()
         launches, plain_calls = fwd.kernel_launches, fwd.plain_calls
         split = max(_lim_err(o, l.input_layernorm(x), SPLIT_TOL)
                     for o, l, x in zip(outs, layers, captured))
-        vs_plain = max(_lim_err(o, fwd(x, l.input_layernorm.weight,
+        vs_plain = max(_lim_err(o, fwd(x, l.input_layernorm.weight._data,
                                        l.input_layernorm.epsilon,
                                        path="torch"), NORM_TOL["bf16"])
                        for o, l, x in zip(outs, layers, captured))
@@ -4141,6 +4155,8 @@ RANDOM_RANGES = {"rand": (0.0, 1.0), "uniform": (-2.0, 3.0),
                  "truncated_normal": (-2.0, 2.0)}
 EAGER_STEPS = 3
 EAGER_LR = 1e-4
+# pairs of one dict-script step and one nn.Layer-GPT step timed in turns
+ALTERNATE = 4
 
 
 def _tests_module(name):
@@ -4314,6 +4330,190 @@ def _dispatch_overhead(P, n=5000) -> dict:
     return out
 
 
+def _layer_call_overhead(P, n=20000, rounds=3) -> dict:
+    """Host µs that ``Layer.__call__`` adds: a Layer whose forward
+    returns its input, called (torch's ``_call_impl``) and its forward
+    called directly, n times each, in alternating blocks (`rounds`
+    each, the medians kept); and one read of a Parameter by attribute
+    (``layer.weight``, the wrapper's cached lookup)."""
+    class Noop(P.nn.Layer):
+        def forward(self, x):
+            return x
+
+    layer, lin = Noop(), P.nn.Linear(16, 16)
+    x = P.to_tensor(np.ones((1, 16), np.float32), place="gpu:0")
+    times = {"call": [], "forward": [], "weight": []}
+    for _ in range(rounds):
+        for what, fn in (("call", lambda: layer(x)),
+                         ("forward", lambda: layer.forward(x)),
+                         ("weight", lambda: lin.weight)):
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            times[what].append(1e6 * (time.perf_counter() - t) / n)
+    out = {k: statistics.median(v) for k, v in times.items()}
+    out["overhead"] = out["call"] - out["forward"]
+    return out
+
+
+_ALLOC_KEYS = ("num_device_alloc", "num_device_free", "num_alloc_retries",
+               "num_sync_all_streams")
+
+
+def _alloc_counts() -> dict:
+    """The caching allocator's counters of device allocations, frees,
+    retries and whole-device syncs (None where this torch lacks one)."""
+    import torch
+    st = torch.cuda.memory_stats()
+    return {k: st.get(k) for k in _ALLOC_KEYS}
+
+
+def _alloc_delta(before) -> dict:
+    after = _alloc_counts()
+    return {k: None if after[k] is None or before[k] is None
+            else after[k] - before[k] for k in _ALLOC_KEYS}
+
+
+def _profiled_pairs(dict_step, layer_step, pairs=2, top=6) -> dict:
+    """Each form's step under torch.profiler (CUDA events), in turns,
+    `pairs` times each, both models held: the wall ms, the device ms,
+    the idle share, the device events and the allocator's counters of
+    each step, and the `top` kernels whose device ms differ most
+    between the forms (the means of each form's steps)."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {"dict": [], "layers": []}
+    kernels = {"dict": {}, "layers": {}}
+    for _ in range(pairs):
+        for what, fn in (("dict", dict_step), ("layers", layer_step)):
+            a0 = _alloc_counts()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                fn()
+                wall = 1e3 * (time.perf_counter() - t)
+            dev = _device_ms(prof)
+            events = 0
+            for e in prof.key_averages():
+                ms = getattr(e, "self_device_time_total", 0.0) / 1e3
+                kernels[what][e.key] = kernels[what].get(e.key, 0.0) \
+                    + ms / pairs
+                events += e.count
+            out[what].append(dict(
+                wall_ms=wall, device_ms=dev, device_events=events,
+                idle_share=(1 - dev / wall) if dev else None,
+                allocator=_alloc_delta(a0)))
+    names = set(kernels["dict"]) | set(kernels["layers"])
+    diff = sorted(((kernels["layers"].get(n, 0.0)
+                    - kernels["dict"].get(n, 0.0), n) for n in names),
+                  key=lambda d: -abs(d[0]))[:top]
+    out["kernels_most_apart"] = [
+        dict(name=n[:80], layers_minus_dict_ms=d,
+             dict_ms=kernels["dict"].get(n, 0.0)) for d, n in diff]
+    return out
+
+
+def _step_marks(marks):
+    """Per step: wall ms, ops dispatched and B1/B2 launches by design,
+    from the marks ``on_step`` took before each step and after the
+    last."""
+    steps = []
+    for (t0, n0, f0, b0), (t1, n1, f1, b1) in zip(marks, marks[1:]):
+        steps.append(dict(
+            ms=1e3 * (t1 - t0), ops=n1 - n0,
+            b1={k: f1[k] - f0[k] for k in f1},
+            b2={k: b1[k] - b0[k] for k in b1}))
+    return steps
+
+
+def eager_layer_gpt(P, S, weights, batches, want_losses, want_params,
+                    names, L, H, mark, dict_step) -> dict:
+    """The GPT of tests/eager_gpt_layer_script.py (``P.nn.Layer``s,
+    weights in by ``set_state_dict``, ``AdamW(parameters=
+    model.parameters())``) on CUDA Tensors for the batches of phase 22,
+    held bit for bit to GPTForCausalLM's eager steps (`want_losses`,
+    `want_params` in the order of `names`); `mark()` is taken before
+    each step and after the last. Then the save/load round trip: the
+    state_dict saved, the file read back with pickle and numpy alone and
+    held to the model's values, loaded into a fresh model by
+    ``set_state_dict(load(path))``, and one more step from the same
+    batch on each model (a fresh AdamW each), bit-equal. Between the
+    two, ALTERNATE pairs of one more step of the dict script
+    (`dict_step()`, synchronised) and of this model, each timed by
+    wall with the allocator's counters around it, then two such pairs
+    profiled (``_profiled_pairs``): the two forms compared in turns on
+    one card, both models held."""
+    import tempfile
+
+    import torch
+    marks = []
+    losses, model, opt = S.layer_gpt_steps(
+        P, weights, batches, L, H, lr=EAGER_LR, amp=True, place="gpu:0",
+        on_step=lambda _i: marks.append(mark()))
+    marks.append(mark())
+    steps = _step_marks(marks)
+    sd = model.state_dict()
+    keys_ok = list(sd) == names
+    got = [sd[k]._data for k in names]
+    held = _held_to(losses, want_losses, got, want_params, EAGER_LR,
+                    EAGER_STEPS)
+    bit_equal = losses == want_losses and all(
+        torch.equal(g, w) for g, w in zip(got, want_params))
+    del got
+    ids_t = P.to_tensor(batches[0][0], place="gpu:0")
+    labels_t = P.to_tensor(batches[0][1], place="gpu:0")
+
+    def layer_step():           # dict_step's form, on this model
+        with P.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = S.layer_gpt_loss(P, model, ids_t, labels_t)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+
+    pairs = {"dict": [], "layers": []}
+    allocs = {"dict": [], "layers": []}
+    for _ in range(ALTERNATE):
+        for what, fn in (("dict", dict_step), ("layers", layer_step)):
+            a0 = _alloc_counts()
+            t = time.perf_counter()
+            fn()
+            pairs[what].append(1e3 * (time.perf_counter() - t))
+            allocs[what].append(_alloc_delta(a0))
+    profiled = _profiled_pairs(dict_step, layer_step)
+    del opt, ids_t, labels_t
+    before = {k: v._data.detach().to("cpu", copy=True)
+              for k, v in sd.items()}
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/gpt2_small.pdparams"
+        t = time.perf_counter()
+        arrays, fresh, (loss_fresh, loss_orig) = S.round_trip(
+            P, model, path, batches[0], L, H, lr=EAGER_LR, amp=True,
+            place="gpu:0")
+        round_trip_s = time.perf_counter() - t
+        file_mb = __import__("os").path.getsize(path) / 2 ** 20
+    file_ok = list(arrays) == names and all(
+        np.array_equal(arrays[k], before[k].numpy()) for k in names)
+    a, b = fresh.state_dict(), model.state_dict()
+    step_equal = loss_fresh == loss_orig and all(
+        torch.equal(a[k]._data, b[k]._data) for k in names)
+    del arrays, before, a, b, fresh, model, sd
+    return dict(losses=losses, held_to_model=held, bit_equal=bit_equal,
+                keys_are_the_models=keys_ok,
+                step_ms=[s["ms"] for s in steps],
+                step_ms_after_first=statistics.mean(
+                    s["ms"] for s in steps[1:]),
+                ops_per_step=[s["ops"] for s in steps],
+                b1_by_step=[s["b1"] for s in steps],
+                b2_by_step=[s["b2"] for s in steps],
+                alternating_ms=pairs, alternating_ms_median={
+                    k: statistics.median(v) for k, v in pairs.items()},
+                alternating_allocator=allocs, profiled=profiled,
+                round_trip=dict(file_form_and_values=file_ok,
+                                next_step_bit_equal=step_equal,
+                                loss_loaded=loss_fresh,
+                                loss_original=loss_orig, file_mib=file_mb,
+                                seconds=round_trip_s))
+
+
 def eager_gpt_phase(train) -> dict:
     """bench_gpt2_small's config at full width and depth (b16 x s1024,
     bf16 O1, AdamW, dropout 0) as the eager script of
@@ -4366,11 +4566,14 @@ def eager_gpt_phase(train) -> dict:
     # the eager script on Tensors, marks taken before each step
     marks = []
 
-    def on_step(_i):
+    def mark():
         torch.cuda.synchronize()
-        marks.append((time.perf_counter(), registry.dispatch_count(),
-                      dict(fa.flash_fwd.design_launches),
-                      dict(fa.flash_bwd.design_launches)))
+        return (time.perf_counter(), registry.dispatch_count(),
+                dict(fa.flash_fwd.design_launches),
+                dict(fa.flash_bwd.design_launches))
+
+    def on_step(_i):
+        marks.append(mark())
 
     saved_place = tdevice._current_place
     P.set_device("gpu:0")
@@ -4379,19 +4582,13 @@ def eager_gpt_phase(train) -> dict:
             P, weights, batches, L, H, lr=EAGER_LR, amp=True, place="gpu:0",
             on_step=on_step)
         on_step(EAGER_STEPS)
-        steps = []
-        for (t0, n0, f0, b0), (t1, n1, f1, b1) in zip(marks, marks[1:]):
-            steps.append(dict(
-                ms=1e3 * (t1 - t0), ops=n1 - n0,
-                b1={k: f1[k] - f0[k] for k in f1},
-                b2={k: b1[k] - b0[k] for k in b1}))
+        steps = _step_marks(marks)
         held = _held_to(losses, want_losses,
                         [params[k]._data for k in names], want_params,
                         EAGER_LR, EAGER_STEPS)
         bit_equal = losses == want_losses and all(
             torch.equal(params[k]._data, w)
             for k, w in zip(names, want_params))
-        del want_params
 
         # one more step unprofiled and one profiled (the device's idle
         # share), on the script's parameters with an optimizer of their
@@ -4420,6 +4617,14 @@ def eager_gpt_phase(train) -> dict:
             profiled_ms = 1e3 * (time.perf_counter() - t)
         device_ms = _device_ms(prof)
         overhead = _dispatch_overhead(P)
+        # the same GPT built from nn.Layers (held bit for bit, then
+        # timed in turns with the dict script's one_step), and the
+        # save/load round trip
+        layers = eager_layer_gpt(
+            P, _tests_module("eager_gpt_layer_script"), weights, batches,
+            want_losses, want_params, names, L, H, mark, one_step)
+        del want_params, params, opt2, ids_t, labels_t
+        layer_call = _layer_call_overhead(P)
     finally:
         tdevice._current_place = saved_place
     timed = [s["ms"] for s in steps[1:]]
@@ -4441,8 +4646,13 @@ def eager_gpt_phase(train) -> dict:
         host_us_dispatched_op=overhead["dispatched"],
         host_us_torch_op=overhead["torch"],
         host_us_dispatch_overhead=overhead["overhead"],
+        nn_layer_gpt=layers, host_us_layer_call=layer_call["call"],
+        host_us_layer_forward=layer_call["forward"],
+        host_us_layer_call_overhead=layer_call["overhead"],
+        host_us_parameter_read=layer_call["weight"],
         card=card_line())
     want_designs = {"sm90": L, "simple": 0}
+    rt = layers["round_trip"]
     _check("[eager]", {
         "every loss finite": all(np.isfinite(losses)),
         "the script held to GPTForCausalLM's eager steps (phase 7's "
@@ -4453,6 +4663,20 @@ def eager_gpt_phase(train) -> dict:
             s["b2"] == want_designs for s in steps),
         "the same ops dispatched every step": len(set(
             rec["ops_per_step"])) == 1,
+        "the nn.Layer GPT's state_dict keys are GPTForCausalLM's":
+            layers["keys_are_the_models"],
+        "the nn.Layer GPT bit-equal to GPTForCausalLM's eager steps "
+        "(losses and every parameter)": layers["bit_equal"],
+        f"the nn.Layer GPT: B1 at {L} sm90 launches a step": all(
+            s == want_designs for s in layers["b1_by_step"]),
+        f"the nn.Layer GPT: B2 at {L} sm90 launches a step": all(
+            s == want_designs for s in layers["b2_by_step"]),
+        "the nn.Layer GPT dispatches the dict script's ops":
+            layers["ops_per_step"] == rec["ops_per_step"],
+        "save: the file read by pickle and numpy holds every value under "
+        "the model's names": rt["file_form_and_values"],
+        "load: the loaded model's next step bit-equal to the original's":
+            rt["next_step_bit_equal"],
     }, rec)
     idle = "not measured" if rec["idle_share"] is None \
         else f"{100 * rec['idle_share']:.1f} %"
@@ -4468,7 +4692,28 @@ def eager_gpt_phase(train) -> dict:
         f"{idle}; losses {losses} against the model's {want_losses} "
         f"(bit-equal {bit_equal}, {held}); B1 {rec['b1_by_step']}, B2 "
         f"{rec['b2_by_step']}; card {rec['card']}")
-    del params, weights
+    log(f"[eager] gpt2_small from nn.Layers, the same config: steps "
+        f"{[round(x, 2) for x in layers['step_ms']]} ms by wall (the dict "
+        f"script's {[round(x, 2) for x in rec['step_ms']]}; phase 6's "
+        f"graph step {rec['graph_step_ms']:.2f} ms); "
+        f"{layers['ops_per_step']} ops a step; bit-equal to the model "
+        f"{layers['bit_equal']}; B1 {layers['b1_by_step']}, B2 "
+        f"{layers['b2_by_step']}; in turns with the dict script "
+        f"{json.dumps(layers['alternating_ms'])} ms (medians "
+        f"{json.dumps(layers['alternating_ms_median'])}); a no-op Layer "
+        f"call {layer_call['call']:.3f} us of host time against "
+        f"{layer_call['forward']:.3f} us for its forward "
+        f"({layer_call['overhead']:.3f} us of __call__), a Parameter read "
+        f"{layer_call['weight']:.3f} us; save/load "
+        f"{rt['file_mib']:.1f} MiB in {rt['seconds']:.2f} s, the next step "
+        f"{rt['loss_loaded']} against {rt['loss_original']} (bit-equal "
+        f"{rt['next_step_bit_equal']}); card {rec['card']}")
+    log(f"[eager] the two forms in turns, allocator counters a step "
+        f"{json.dumps(layers['alternating_allocator'])}; profiled in turns "
+        f"{json.dumps({k: layers['profiled'][k] for k in ('dict', 'layers')})}"
+        f"; kernels most apart "
+        f"{json.dumps(layers['profiled']['kernels_most_apart'])}")
+    del weights
     _fresh_card()
     return rec
 
@@ -4626,6 +4871,10 @@ def main() -> int:
             launches_eager_api=sum(
                 s["sm90"] for s in eager["gpt"]["b1_by_step" if i == 0
                                                 else "b2_by_step"]),
+            # phase 22's GPT built from nn.Layers, over its 3 steps
+            launches_eager_layers=sum(
+                s["sm90"] for s in eager["gpt"]["nn_layer_gpt"][
+                    "b1_by_step" if i == 0 else "b2_by_step"]),
             max_abs_err=max(e for c in flash for dt in ("bf16", "f16")
                             for what, e in c[f"max_abs_err_{dt}"].items()
                             if (what in ("o", "lse")) == (kind == "fwd")),

@@ -11,13 +11,17 @@ on the CUDA card unless the caller passes device="cpu"; without a card
 they raise.
 
 The eager API (``Tensor``, ``to_tensor``, the registered ops, autograd,
-``seed``, places) keeps the reference's root names, so one eager script
-runs on either package by swapping the import. Its default place is the
-card; ``set_device("cpu")`` asks for the CPU."""
+``seed``, places, ``nn.Layer`` / ``nn.Parameter`` / ``nn.ParamAttr``,
+``save`` / ``load``) keeps the reference's root names, so one eager
+script runs on either package by swapping the import. Its default place
+is the card; ``set_device("cpu")`` asks for the CPU. The port's models
+(GPTForCausalLM, LlamaForCausalLM, BertForMaskedLM, the ResNets) stay
+torch ``nn.Module``s whose children are ``Layer``s."""
 # the op registry first: nn.functional registers its ops in it
 from . import core, ops  # noqa: I001
-from . import (amp, autograd, distributed, incubate, inference, jit, kernels,
-               models, nn, optimizer, resilience, vision)
+from . import (amp, autograd, distributed, framework_io, incubate,
+               inference, jit, kernels, models, nn, optimizer, resilience,
+               vision)
 from .convert import (bert_params_from_numpy, fused_params_from_numpy,
                       gpt_params_from_numpy, llama_params_from_numpy,
                       optimizer_state_from_numpy, resnet_params_from_numpy)
@@ -36,6 +40,7 @@ from .core.tensor import Tensor, to_tensor
 from .ops import *  # noqa: F401,F403
 from .ops import cast, slice, split, unique  # noqa: F401
 from .core.flags import get_flags, set_flags
+from .framework_io import load, save
 from .inference import LLMEngine, PagedKVCache
 from .jit import TrainStep
 from .models import (BertConfig, BertForMaskedLM, GPTConfig, GPTForCausalLM,
@@ -57,4 +62,4 @@ __all__ = ["amp", "core", "distributed", "incubate", "inference", "jit",
            "device_count", "is_compiled_with_cuda", "autograd", "ops",
            "DType", "bool", "uint8", "int8", "int16", "int32", "int64",
            "float16", "bfloat16", "float32", "float64", "complex64",
-           "complex128", "finfo", "iinfo"]
+           "complex128", "finfo", "iinfo", "framework_io", "save", "load"]

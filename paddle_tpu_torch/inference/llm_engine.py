@@ -174,7 +174,7 @@ class _GPTFamily:
         cfg = model.config
         self.kv_heads = cfg.num_heads
         self.head_dim = cfg.head_dim
-        self.dtype = model.gpt.embeddings.word_embeddings.weight.dtype
+        self.dtype = model.gpt.embeddings.word_embeddings.weight._data.dtype
 
     def rope_tables(self, max_len, device):
         return None
@@ -185,8 +185,8 @@ class _GPTFamily:
     def embed(self, ids, pos):
         """ids/pos [...] -> [..., hidden] (dropout-free: serving)."""
         emb = self.model.gpt.embeddings
-        return emb.word_embeddings.weight[ids] \
-            + emb.position_embeddings.weight[pos]
+        return emb.word_embeddings.weight._data[ids] \
+            + emb.position_embeddings.weight._data[pos]
 
     def layers(self):
         return list(self.model.gpt.layers)
@@ -217,7 +217,7 @@ class _LlamaFamily:
         cfg = model.config
         self.kv_heads = cfg.num_kv_heads
         self.head_dim = cfg.head_dim
-        self.dtype = model.llama.embed_tokens.weight.dtype
+        self.dtype = model.llama.embed_tokens.weight._data.dtype
 
     def rope_tables(self, max_len, device):
         """[2, max_len, head_dim // 2] f32: the cos and sin half tables."""
@@ -236,7 +236,7 @@ class _LlamaFamily:
                 _apply_rotary(k, cos, sin, True).to(k.dtype))
 
     def embed(self, ids, pos):
-        return self.model.llama.embed_tokens.weight[ids]
+        return self.model.llama.embed_tokens.weight._data[ids]
 
     def layers(self):
         return list(self.model.llama.layers)

@@ -29,6 +29,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch import nn
 from torch.profiler import record_function
 
 from ..optimizer.lr import LRScheduler
@@ -89,8 +90,9 @@ class TrainStep:
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.has_aux = has_aux
-        self._params = [p for p in model.parameters() if p.requires_grad]
-        self._buffers = list(model.buffers())
+        self._params = [p for p in nn.Module.parameters(model)
+                        if p.requires_grad]
+        self._buffers = list(nn.Module.buffers(model))
         if not self._params:
             raise ValueError("TrainStep: the model has no trainable "
                              "parameters")

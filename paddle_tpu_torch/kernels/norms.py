@@ -82,12 +82,13 @@ def _rms_plain(x, w, eps):
 # the reference's off-TPU forms (the CPU path, and what the backward
 # differentiates)
 # ---------------------------------------------------------------------------
-def _ln_xla(x, w, b, eps):
-    """_ln_xla (:105-115): f32 statistics, the normalised value cast to
-    x's dtype, then the affine in the promoted dtype."""
+def _ln_xla(x, w, b, eps, axes=(-1,)):
+    """_ln_xla (:105-115): f32 statistics over `axes` (the last one by
+    default), the normalised value cast to x's dtype, then the affine in
+    the promoted dtype."""
     x32 = _wide(x)
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    mean = x32.mean(dim=axes, keepdim=True)
+    var = x32.var(dim=axes, unbiased=False, keepdim=True)
     y = ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
     if w is not None:
         y = y * w

@@ -26,9 +26,10 @@ from torch import nn
 
 from ..nn import functional as F
 from ..nn.initializer import Constant, Normal
-from ..nn.layers import (Dropout, Embedding, LayerNorm, MultiHeadAttention,
-                         TransformerEncoder, TransformerEncoderLayer)
-from ..nn.layers.common import _drawn, _drawn_linear, _factory
+from ..nn.layers import (Dropout, Embedding, LayerNorm, Linear,
+                         MultiHeadAttention, TransformerEncoder,
+                         TransformerEncoderLayer)
+from ..nn.layers.common import _drawn, _factory
 
 __all__ = ["BertConfig", "bert_tiny", "bert_base", "BertEmbeddings",
            "BertModel", "BertForMaskedLM"]
@@ -76,9 +77,9 @@ class BertEmbeddings(nn.Module):
                             config.max_position_embeddings),
                            ("token_type_embeddings",
                             config.type_vocab_size)):
-            emb = Embedding(rows, h, **fk)
-            emb.weight = _drawn(w, (rows, h), fk, init_generator)
-            setattr(self, name, emb)
+            setattr(self, name, Embedding(rows, h, weight_attr=w,
+                                          init_generator=init_generator,
+                                          **fk))
         self.layer_norm = LayerNorm(h, config.layer_norm_eps, **fk)
         self.dropout = Dropout(config.hidden_dropout_prob)
 
@@ -113,8 +114,8 @@ class BertModel(nn.Module):
             normalize_before=False, layer_norm_eps=config.layer_norm_eps,
             init_generator=init_generator, **fk)
         self.encoder = TransformerEncoder(enc_layer, config.num_layers)
-        self.pooler = _drawn_linear(config.hidden_size, config.hidden_size,
-                                    None, None, fk, init_generator)
+        self.pooler = Linear(config.hidden_size, config.hidden_size,
+                             init_generator=init_generator, **fk)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         x = self.embeddings(input_ids, token_type_ids)
@@ -149,9 +150,8 @@ class BertForMaskedLM(nn.Module):
         gen.manual_seed(seed)
         self.config = config
         self.bert = BertModel(config, init_generator=gen, **fk)
-        self.transform = _drawn_linear(config.hidden_size,
-                                       config.hidden_size, None, None, fk,
-                                       gen)
+        self.transform = Linear(config.hidden_size, config.hidden_size,
+                                init_generator=gen, **fk)
         self.transform_norm = LayerNorm(config.hidden_size,
                                         config.layer_norm_eps, **fk)
         self.decoder_bias = _drawn(Constant(0.0), (config.vocab_size,), fk,
@@ -173,7 +173,7 @@ class BertForMaskedLM(nn.Module):
                 labels=None):
         hidden, _ = self.bert(input_ids, token_type_ids, attention_mask)
         h = self.transform_norm(F.gelu(self.transform(hidden)))
-        w = self.bert.embeddings.word_embeddings.weight
+        w = self.bert.embeddings.word_embeddings.weight._data
         logits = F.matmul(h, w, transpose_y=True) + self.decoder_bias
         if labels is not None:
             loss = F.cross_entropy(logits, labels, ignore_index=-100)

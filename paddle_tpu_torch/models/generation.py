@@ -16,6 +16,7 @@ from __future__ import annotations
 import collections
 
 import torch
+from torch import nn
 
 from ..core.device import resolve_device
 from ..incubate.nn.functional import fused_rotary_position_embedding
@@ -122,10 +123,10 @@ def _family(model):
     decode stack supports."""
     if hasattr(model, "gpt"):
         return (_forward_with_cache,
-                model.gpt.embeddings.word_embeddings.weight.dtype)
+                model.gpt.embeddings.word_embeddings.weight._data.dtype)
     if hasattr(model, "llama"):
         return (_llama_forward_with_cache,
-                model.llama.embed_tokens.weight.dtype)
+                model.llama.embed_tokens.weight._data.dtype)
     raise NotImplementedError(
         "generate() supports the GPT and LLaMA families")
 
@@ -259,7 +260,7 @@ class _FusedLoop:
 
 def _param_ptrs(model):
     """The addresses a captured graph reads the model's weights at."""
-    return tuple(t.data_ptr() for t in model.state_dict().values())
+    return tuple(t.data_ptr() for t in nn.Module.state_dict(model).values())
 
 
 def _fused_loop(model, fwd_fn, key, b, max_len, dtype, dev, pick, eos):

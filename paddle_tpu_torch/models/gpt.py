@@ -27,6 +27,7 @@ from ..core.dtype import to_dtype
 from ..distributed.meta_parallel import recompute
 from ..incubate.nn.functional import fused_flash_attention
 from ..nn import functional as F
+from ..nn.initializer import Normal
 from ..nn.layers import Dropout, Embedding, LayerList, LayerNorm, Linear
 
 __all__ = ["GPTConfig", "gpt_tiny", "gpt2_small", "gpt3_1p3b", "gpt3_6p7b",
@@ -93,6 +94,15 @@ def gpt3_6p7b(**kw):
                      num_heads=32, max_position_embeddings=2048, **kw)
 
 
+def _normal(config: GPTConfig, residual: bool = False) -> Normal:
+    """A GPT weight's initializer: normal(0, initializer_range), the
+    residual projections (out_proj, fc2) scaled by 1/sqrt(2 * layers),
+    as the reference draws them; `fk`'s ``init_generator`` draws it."""
+    std = config.initializer_range
+    return Normal(0.0, std / math.sqrt(2 * config.num_layers)
+                  if residual else std)
+
+
 class GPTAttention(nn.Module):
     """Causal self-attention with a fused QKV projection. `generator`
     (set by GPTForCausalLM) draws the attention-dropout masks of the
@@ -105,8 +115,9 @@ class GPTAttention(nn.Module):
         self.head_dim = config.head_dim
         self.hidden_size = config.hidden_size
         self.qkv_proj = Linear(config.hidden_size, 3 * config.hidden_size,
-                               **fk)
-        self.out_proj = Linear(config.hidden_size, config.hidden_size, **fk)
+                               _normal(config), **fk)
+        self.out_proj = Linear(config.hidden_size, config.hidden_size,
+                               _normal(config, residual=True), **fk)
         self.attn_dropout_prob = config.attention_dropout_prob
         self.use_flash_attention = config.use_flash_attention
         self.generator = None
@@ -128,8 +139,10 @@ class GPTAttention(nn.Module):
 class GPTMLP(nn.Module):
     def __init__(self, config: GPTConfig, **fk):
         super().__init__()
-        self.fc1 = Linear(config.hidden_size, config.intermediate_size, **fk)
-        self.fc2 = Linear(config.intermediate_size, config.hidden_size, **fk)
+        self.fc1 = Linear(config.hidden_size, config.intermediate_size,
+                          _normal(config), **fk)
+        self.fc2 = Linear(config.intermediate_size, config.hidden_size,
+                          _normal(config, residual=True), **fk)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate=True))
@@ -155,9 +168,11 @@ class GPTEmbeddings(nn.Module):
     def __init__(self, config: GPTConfig, **fk):
         super().__init__()
         self.word_embeddings = Embedding(config.vocab_size,
-                                         config.hidden_size, **fk)
+                                         config.hidden_size,
+                                         weight_attr=_normal(config), **fk)
         self.position_embeddings = Embedding(
-            config.max_position_embeddings, config.hidden_size, **fk)
+            config.max_position_embeddings, config.hidden_size,
+            weight_attr=_normal(config), **fk)
         self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, input_ids, position_ids=None):
@@ -209,41 +224,29 @@ class GPTForCausalLM(nn.Module):
                  dtype="float32", seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
-        fk = {"device": dev, "dtype": to_dtype(dtype)}
+        init_gen = torch.Generator(device=dev)
+        init_gen.manual_seed(seed)
+        fk = {"device": dev, "dtype": to_dtype(dtype),
+              "init_generator": init_gen}
         self.config = config
         self.gpt = GPTModel(config, **fk)
         self.lm_head = None if config.tie_word_embeddings else Linear(
-            config.hidden_size, config.vocab_size, bias=False, **fk)
-        self._init_weights(seed)
+            config.hidden_size, config.vocab_size, _normal(config),
+            bias_attr=False, **fk)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed + 1)
         for m in self.modules():
             if isinstance(m, (Dropout, GPTAttention)):
                 m.generator = gen
 
-    @torch.no_grad()
-    def _init_weights(self, seed: int):
-        cfg = self.config
-        gen = torch.Generator(device=self.gpt.final_norm.weight.device)
-        gen.manual_seed(seed)
-        std = cfg.initializer_range
-        out_std = std / math.sqrt(2 * cfg.num_layers)
-        for name, p in self.named_parameters():
-            if name.endswith("bias") or ".ln" in name \
-                    or "final_norm" in name:
-                continue            # constructed as 0 (bias) / 1 (LN)
-            s = out_std if (".out_proj." in name or ".fc2." in name) \
-                else std
-            p.normal_(0.0, s, generator=gen)
-
     @property
     def device(self) -> torch.device:
-        return self.gpt.final_norm.weight.device
+        return self.gpt.final_norm.weight._data.device
 
     def lm_logits(self, hidden):
         """Project hidden states to vocab logits (tied or untied head)."""
         if self.lm_head is None:
-            w = self.gpt.embeddings.word_embeddings.weight
+            w = self.gpt.embeddings.word_embeddings.weight._data
             return F.matmul(hidden, w, transpose_y=True)
         return self.lm_head(hidden)
 

@@ -28,6 +28,7 @@ from ..core.dtype import to_dtype
 from ..incubate.nn.functional import (fused_flash_attention,
                                       fused_rotary_position_embedding)
 from ..nn import functional as F
+from ..nn.initializer import Normal
 from ..nn.layers import Embedding, LayerList, Linear, RMSNorm
 
 __all__ = ["LlamaConfig", "llama_tiny", "llama2_7b", "llama2_13b",
@@ -84,6 +85,13 @@ def _rope_cos_sin(seq_len, head_dim, theta, dtype, device=None):
     return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
 
 
+def _normal(config: LlamaConfig) -> Normal:
+    """The initializer of the embedding and every projection:
+    normal(0, initializer_range), as the reference draws them; `fk`'s
+    ``init_generator`` draws it."""
+    return Normal(0.0, config.initializer_range)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, **fk):
         super().__init__()
@@ -93,11 +101,11 @@ class LlamaAttention(nn.Module):
         self.hidden_size = config.hidden_size
         self.rope_theta = config.rope_theta
         kv_out = self.num_kv_heads * self.head_dim
-        h = config.hidden_size
-        self.q_proj = Linear(h, h, bias=False, **fk)
-        self.k_proj = Linear(h, kv_out, bias=False, **fk)
-        self.v_proj = Linear(h, kv_out, bias=False, **fk)
-        self.o_proj = Linear(h, h, bias=False, **fk)
+        h, w = config.hidden_size, _normal(config)
+        self.q_proj = Linear(h, h, w, bias_attr=False, **fk)
+        self.k_proj = Linear(h, kv_out, w, bias_attr=False, **fk)
+        self.v_proj = Linear(h, kv_out, w, bias_attr=False, **fk)
+        self.o_proj = Linear(h, h, w, bias_attr=False, **fk)
         self.use_flash_attention = config.use_flash_attention
 
     def forward(self, x, rope_cos_sin=None):
@@ -128,9 +136,10 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, **fk):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
-        self.gate_proj = Linear(h, i, bias=False, **fk)
-        self.up_proj = Linear(h, i, bias=False, **fk)
-        self.down_proj = Linear(i, h, bias=False, **fk)
+        w = _normal(config)
+        self.gate_proj = Linear(h, i, w, bias_attr=False, **fk)
+        self.up_proj = Linear(h, i, w, bias_attr=False, **fk)
+        self.down_proj = Linear(i, h, w, bias_attr=False, **fk)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -156,7 +165,7 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
-                                      **fk)
+                                      weight_attr=_normal(config), **fk)
         self.layers = LayerList(
             [LlamaDecoderLayer(config, **fk)
              for _ in range(config.num_layers)])
@@ -187,25 +196,18 @@ class LlamaForCausalLM(nn.Module):
                  dtype="float32", seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
-        fk = {"device": dev, "dtype": to_dtype(dtype)}
+        init_gen = torch.Generator(device=dev)
+        init_gen.manual_seed(seed)
+        fk = {"device": dev, "dtype": to_dtype(dtype),
+              "init_generator": init_gen}
         self.config = config
         self.llama = LlamaModel(config, **fk)
         self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                              bias=False, **fk)
-        self._init_weights(seed)
-
-    @torch.no_grad()
-    def _init_weights(self, seed: int):
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        for name, p in self.named_parameters():
-            if name.endswith("norm.weight"):
-                continue            # RMSNorm weights are constructed as 1
-            p.normal_(0.0, self.config.initializer_range, generator=gen)
+                              _normal(config), bias_attr=False, **fk)
 
     @property
     def device(self) -> torch.device:
-        return self.llama.norm.weight.device
+        return self.llama.norm.weight._data.device
 
     def forward(self, input_ids):
         return self.lm_head(self.llama(input_ids))

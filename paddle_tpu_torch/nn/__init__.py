@@ -1,4 +1,6 @@
 from . import functional, initializer
+from .layer import Layer, Parameter
+from .param_attr import ParamAttr
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_)
 from .layers import (GELU, AdaptiveAvgPool1D, AdaptiveAvgPool2D,
@@ -15,5 +17,6 @@ from .layers import (GELU, AdaptiveAvgPool1D, AdaptiveAvgPool2D,
                      TransformerEncoderLayer)
 from .layers import __all__ as _layers
 
-__all__ = ["functional", "initializer", "ClipGradByGlobalNorm",
+__all__ = ["functional", "initializer", "Layer", "Parameter", "ParamAttr",
+           "ClipGradByGlobalNorm",
            "ClipGradByNorm", "ClipGradByValue", "clip_grad_norm_"] + _layers

@@ -23,7 +23,8 @@ import torch
 
 from ..amp.state import maybe_cast_inputs as _amp
 from ..kernels import norms as _norms
-from ..kernels.flash_attention import _shapes_ok, flash_attention
+from ..kernels.flash_attention import _shapes_ok
+from ..kernels.flash_attention import flash_attention as _flash
 from ..ops.registry import register_op
 from .cnn_ops import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       adaptive_avg_pool3d, adaptive_max_pool2d, avg_pool1d,
@@ -33,7 +34,8 @@ from .cnn_ops import (adaptive_avg_pool1d, adaptive_avg_pool2d,
 
 __all__ = ["linear", "matmul", "embedding", "layer_norm", "rms_norm", "gelu",
            "relu", "silu", "tanh", "dropout", "cross_entropy", "flatten",
-           "pad", "scaled_dot_product_attention", "conv1d", "conv2d",
+           "pad", "scaled_dot_product_attention", "flash_attention",
+           "conv1d", "conv2d",
            "conv3d", "conv2d_transpose", "conv3d_transpose", "max_pool1d",
            "max_pool2d", "max_pool3d", "avg_pool1d", "avg_pool2d",
            "avg_pool3d", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
@@ -76,18 +78,34 @@ def matmul(x, y, transpose_x=False, transpose_y=False):
 
 
 @register_op("embedding", amp_in_fn=True)
-def embedding(ids, weight):
+def embedding(x, weight, padding_idx=None, sparse=False):
+    """The rows of `weight` at ids `x` (ops/nn_ops.py:222-227); the rows
+    of ids equal to `padding_idx` are zeros (the product with a 0/1
+    mask, so their gradient is zero too). `sparse` is taken and not
+    used, as in the reference."""
     (weight,) = _amp("embedding", None, weight)
-    return weight[ids]
+    out = weight[x]
+    if padding_idx is not None:
+        out = out * (x != padding_idx).unsqueeze(-1).to(out.dtype)
+    return out
 
 
 @register_op("layer_norm", amp_policy="black", amp_in_fn=True)
-def layer_norm(x, weight=None, bias=None, epsilon=1e-5):
-    """LayerNorm over the last axis: f32 statistics, then a cast back to
-    the input dtype BEFORE the affine (ops/nn_ops.py:501-509): the same
-    form as the reference's off-TPU ``_ln_xla``."""
+def layer_norm(x, weight=None, bias=None, epsilon=1e-5,
+               begin_norm_axis=None, normalized_shape=None):
+    """LayerNorm over the axes from `begin_norm_axis` on (default: the
+    last ``len(normalized_shape)`` axes, else the last one): the
+    reference's off-TPU ``_ln_xla`` over those axes, f32 statistics, then
+    a cast back to the input dtype BEFORE the affine
+    (ops/nn_ops.py:491-510)."""
     x, weight, bias = _amp("layer_norm", "black", x, weight, bias)
-    return _norms._ln_xla(x, weight, bias, epsilon)
+    if begin_norm_axis is None:
+        n = 1 if normalized_shape is None else (
+            len(normalized_shape) if isinstance(
+                normalized_shape, (list, tuple, torch.Size)) else 1)
+        begin_norm_axis = x.dim() - n
+    axes = tuple(range(begin_norm_axis, x.dim()))
+    return _norms._ln_xla(x, weight, bias, epsilon, axes)
 
 
 @register_op("rms_norm", amp_policy="black", amp_in_fn=True)
@@ -109,6 +127,8 @@ def gelu(x, approximate=False):
 @register_op("relu", amp_in_fn=True)
 def relu(x):
     (x,) = _amp("relu", None, x)
+    if x.dtype == torch.bool:
+        x = x.to(torch.int32)      # jax.nn.relu's bool gives int32
     return torch.relu(x)
 
 
@@ -292,7 +312,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         attn_mask)
     if query.device.type == "cuda" and _sdpa_takes_kernel(
             query.shape, key.shape, attn_mask, dropout_p, training):
-        return flash_attention(query, key, value, causal=is_causal)
+        return _flash(query, key, value, causal=is_causal)
     q = query.transpose(1, 2)                            # [b, h, s, d]
     k = key.transpose(1, 2)
     v = value.transpose(1, 2)
@@ -317,3 +337,20 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                             0.0).to(q.dtype)
     out = torch.matmul(probs, v)
     return out.transpose(1, 2)                           # [b, s, h, d]
+
+
+@register_op("flash_attention", amp_in_fn=True)
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, training=True, name=None,
+                    segment_ids=None):
+    """The reference's API (nn/functional/__init__.py:114): attention on
+    [batch, seq, heads, head_dim] through ``fused_flash_attention``, so
+    the kernels B1/B2 on the card and their plain form on the CPU.
+    Returns (out, None): the softmax is never materialised. key/value
+    may carry fewer heads (GQA/MQA); ``segment_ids=(q_seg, kv_seg)``
+    masks attention to equal ids."""
+    from ..incubate.nn.functional import fused_flash_attention
+    out = fused_flash_attention(query, key, value, causal=causal,
+                                dropout=dropout, training=training,
+                                segment_ids=segment_ids)
+    return out, None

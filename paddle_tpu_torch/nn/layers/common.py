@@ -1,62 +1,92 @@
 """Linear, Embedding, Dropout and Flatten (counterparts of
-paddle_tpu/nn/layers/common.py:12, 44, 79, 100).
+paddle_tpu/nn/layers/common.py:12, 44, 79, 100), as ``Layer``s on the
+reference's constructors.
 
-Linear and Embedding are built with uninitialised weights: a model
-draws them (GPT's and LLaMA's ``_init_weights``), or a layer that
-follows the reference's initializers builds them with ``_drawn`` and
-``_drawn_linear``."""
+Parameters are made by ``Layer.create_parameter`` with the reference's
+defaults (Linear: XavierUniform and a zero bias; Embedding: Normal(0,
+1)); `weight_attr` / `bias_attr` take a ``ParamAttr`` or an
+initializer, and ``bias_attr=False`` drops the bias. The port's own
+keyword-only arguments come after the reference's: ``device`` (None:
+the default place), ``dtype`` and ``init_generator``, the
+``torch.Generator`` the weights are drawn from (None: the port's
+default generator)."""
 from __future__ import annotations
 
-import torch
 from torch import nn
 
 from ...core.device import resolve_device
 from ...core.dtype import to_dtype
 from .. import functional as F
-from ..initializer import Constant, XavierUniform
+from ..initializer import Normal
+from ..layer import Layer
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     """y = x @ W + b. ``weight`` keeps paddle_tpu's [in, out] layout, so
     a paddle_tpu state_dict loads name for name with no transpose."""
 
-    def __init__(self, in_features, out_features, bias=True, *,
-                 device=None, dtype=None):
-        super().__init__()
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None,
+                 dtype="float32", init_generator=None):
+        super().__init__(dtype=dtype)
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = nn.Parameter(torch.empty(
-            (in_features, out_features), device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(
-            (out_features,), device=device, dtype=dtype)) if bias else None
+        kw = dict(device=device, generator=init_generator)
+        self.weight = self.create_parameter(
+            (in_features, out_features), attr=weight_attr, **kw)
+        if bias_attr is False:
+            self.add_parameter("bias", None)
+        else:
+            self.bias = self.create_parameter(
+                (out_features,), attr=bias_attr, is_bias=True, **kw)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(x, self._parameters["weight"],
+                        self._parameters["bias"])
 
     def extra_repr(self):
         return (f"in_features={self.in_features}, "
                 f"out_features={self.out_features}")
 
 
-class Embedding(nn.Module):
-    def __init__(self, num_embeddings, embedding_dim, *, device=None,
-                 dtype=None):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(
-            (num_embeddings, embedding_dim), device=device, dtype=dtype))
+class Embedding(Layer):
+    """Rows of ``weight`` [num_embeddings, embedding_dim] by id; the rows
+    of ids equal to `padding_idx` read as zeros. `sparse` is taken and
+    not used, as in the reference."""
 
-    def forward(self, ids):
-        return F.embedding(ids, self.weight)
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *, device=None,
+                 dtype="float32", init_generator=None):
+        super().__init__(dtype=dtype)
+        self.num_embeddings = num_embeddings
+        self.embedding_dim = embedding_dim
+        self.padding_idx = padding_idx
+        self.weight = self.create_parameter(
+            (num_embeddings, embedding_dim), attr=weight_attr,
+            default_initializer=Normal(0.0, 1.0)
+            if weight_attr is None else None, device=device,
+            generator=init_generator)
+
+    def forward(self, x):
+        return F.embedding(x, self._parameters["weight"],
+                           padding_idx=self.padding_idx)
+
+    def extra_repr(self):
+        return f"{self.num_embeddings}, {self.embedding_dim}"
 
 
-class Dropout(nn.Module):
-    """Dropout in training mode (nn/layers/common.py:44). `generator`: a
-    torch.Generator on the layer's device that the masks are drawn from
-    (None: torch's default generator)."""
+class Dropout(Layer):
+    """Dropout in training mode (nn/layers/common.py:44); `axis` is taken
+    and not used, as in the reference. `generator`: a torch.Generator on
+    the input's device that the masks are drawn from (None: the eager
+    generator for a Tensor input, torch's default generator for a torch
+    one)."""
 
-    def __init__(self, p=0.5, mode="upscale_in_train", *, generator=None):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
+                 name=None, *, generator=None):
         super().__init__()
         self.p = p
+        self.axis = axis
         self.mode = mode
         self.generator = generator
 
@@ -65,7 +95,7 @@ class Dropout(nn.Module):
                          generator=self.generator)
 
 
-class Flatten(nn.Module):
+class Flatten(Layer):
     """Axes start_axis..stop_axis merged into one (default: all but the
     batch axis)."""
 
@@ -79,7 +109,7 @@ class Flatten(nn.Module):
 
 
 def _factory(device, dtype):
-    """The factory keywords of a layer built on `device` (None: the CUDA
+    """The factory keywords of a model built on `device` (None: the CUDA
     card, raising without one) in `dtype` (a name or a torch dtype)."""
     return {"device": resolve_device(device), "dtype": to_dtype(dtype)}
 
@@ -89,31 +119,3 @@ def _drawn(init, shape, fk, generator):
     ``fk["dtype"]`` on ``fk["device"]`` from `generator`."""
     return nn.Parameter(init(shape, fk["dtype"], device=fk["device"],
                              generator=generator))
-
-
-def _attr_initializer(attr, default):
-    """The initializer the reference's ``create_parameter`` takes for a
-    ``weight_attr`` / ``bias_attr`` (nn/layer.py:143-158): a callable
-    itself, anything else (None, True, ...) `default`. A ``ParamAttr``
-    is not ported yet (ROADMAP item 14) and raises."""
-    if type(attr).__name__ == "ParamAttr":
-        raise NotImplementedError(
-            "ParamAttr is not ported yet: pass an initializer as "
-            "weight_attr / bias_attr")
-    return attr if callable(attr) else default
-
-
-def _drawn_linear(in_features, out_features, weight_attr, bias_attr, fk,
-                  generator):
-    """The reference's ``Linear(in, out, weight_attr, bias_attr)``: the
-    weight drawn by `weight_attr`, the bias by `bias_attr`, each as
-    ``_attr_initializer`` takes them (defaults XavierUniform and 0); no
-    bias when `bias_attr` is False."""
-    lin = Linear(in_features, out_features, bias=bias_attr is not False,
-                 **fk)
-    lin.weight = _drawn(_attr_initializer(weight_attr, XavierUniform()),
-                        (in_features, out_features), fk, generator)
-    if lin.bias is not None:
-        lin.bias = _drawn(_attr_initializer(bias_attr, Constant(0.0)),
-                          (out_features,), fk, generator)
-    return lin

@@ -2,14 +2,13 @@
 CrossEntropyLoss over ``nn.functional.cross_entropy``."""
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from ..layer import Layer
 
 __all__ = ["CrossEntropyLoss"]
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     """`weight`: a [classes] tensor (or None) passed on as it is."""
 
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",

@@ -6,16 +6,15 @@ used, ``ceil_mode`` is passed on and ignored there, and the 1-D pools
 take no data_format."""
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from ..layer import Layer
 
 __all__ = ["MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D", "AvgPool2D",
            "AvgPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
            "AdaptiveAvgPool3D", "AdaptiveMaxPool2D"]
 
 
-class _Pool(nn.Module):
+class _Pool(Layer):
     def __init__(self, op, kernel_size, stride=None, padding=0,
                  ceil_mode=False, data_format=None, **kw):
         super().__init__()
@@ -82,7 +81,7 @@ class AvgPool3D(_Pool):
                          ceil_mode, data_format, exclusive=exclusive)
 
 
-class AdaptiveAvgPool1D(nn.Module):
+class AdaptiveAvgPool1D(Layer):
     def __init__(self, output_size, name=None):
         super().__init__()
         self.output_size = output_size
@@ -91,7 +90,7 @@ class AdaptiveAvgPool1D(nn.Module):
         return F.adaptive_avg_pool1d(x, self.output_size)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         self.output_size = output_size
@@ -101,7 +100,7 @@ class AdaptiveAvgPool2D(nn.Module):
         return F.adaptive_avg_pool2d(x, self.output_size, self.data_format)
 
 
-class AdaptiveAvgPool3D(nn.Module):
+class AdaptiveAvgPool3D(Layer):
     def __init__(self, output_size, data_format="NCDHW", name=None):
         super().__init__()
         self.output_size = output_size
@@ -111,7 +110,7 @@ class AdaptiveAvgPool3D(nn.Module):
         return F.adaptive_avg_pool3d(x, self.output_size, self.data_format)
 
 
-class AdaptiveMaxPool2D(nn.Module):
+class AdaptiveMaxPool2D(Layer):
     """NCHW, as the reference's layer takes it (no data_format)."""
 
     def __init__(self, output_size, return_mask=False, name=None):

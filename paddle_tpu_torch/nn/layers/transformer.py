@@ -8,14 +8,14 @@ it into its TPU kernel. Parameter names and layouts are the
 reference's (Linear weights [in, out]), so a reference state_dict loads
 name for name.
 
-Construction follows the reference's arguments, plus ``device`` (None:
-the CUDA card, raises without one; "cpu" by request), ``dtype`` and
-``init_generator``, the ``torch.Generator`` the initial weights are
-drawn from (None: torch's default generator of the device; no layer
-keeps it). Defaults are the reference's: Linear weights
-``XavierUniform``, biases 0 (``weight_attr`` / ``bias_attr`` take
-initializers, any other value the default, ``ParamAttr`` not yet;
-``bias_attr=False`` drops the bias), LayerNorm 1 and 0.
+The layers are ``Layer``s on the reference's constructors, plus the
+port's keyword-only ``device`` (None: the default place, which is the
+card, raising without one, unless ``set_device("cpu")``), ``dtype``
+and ``init_generator``, the ``torch.Generator`` the initial weights are
+drawn from (None: the port's default generator; no layer keeps it).
+Defaults are the reference's: Linear weights ``XavierUniform``, biases
+0 (``weight_attr`` / ``bias_attr`` take a ``ParamAttr`` or an
+initializer; ``bias_attr=False`` drops the bias), LayerNorm 1 and 0.
 Dropout masks, here and in the composite attention, are drawn from the
 ``generator`` attribute of each ``Dropout`` and ``MultiHeadAttention``
 (None: torch's default generator), which a model sets after
@@ -31,11 +31,11 @@ import collections
 import copy
 
 import torch
-from torch import nn
 
 from ...core.device import resolve_device
 from .. import functional as F
-from .common import Dropout, _drawn_linear, _factory
+from ..layer import Layer, layer_device
+from .common import Dropout, Linear
 from .container import LayerList
 from .norm import LayerNorm
 
@@ -44,7 +44,7 @@ __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerDecoder", "Transformer"]
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     Cache = collections.namedtuple("Cache", ["k", "v"])
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
 
@@ -52,8 +52,8 @@ class MultiHeadAttention(nn.Module):
                  vdim=None, need_weights=False, weight_attr=None,
                  bias_attr=None, *, device=None, dtype="float32",
                  init_generator=None):
-        super().__init__()
-        fk = _factory(device, dtype)
+        super().__init__(dtype=dtype)
+        fk = {"device": layer_device(device), "dtype": dtype}
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
@@ -61,16 +61,17 @@ class MultiHeadAttention(nn.Module):
         self.need_weights = need_weights
         kdim = kdim or embed_dim
         vdim = vdim or embed_dim
-        attrs = (weight_attr, bias_attr, fk, init_generator)
-        self.q_proj = _drawn_linear(embed_dim, embed_dim, *attrs)
-        self.k_proj = _drawn_linear(kdim, embed_dim, *attrs)
-        self.v_proj = _drawn_linear(vdim, embed_dim, *attrs)
-        self.out_proj = _drawn_linear(embed_dim, embed_dim, *attrs)
+        attrs = (weight_attr, bias_attr)
+        fk["init_generator"] = init_generator
+        self.q_proj = Linear(embed_dim, embed_dim, *attrs, **fk)
+        self.k_proj = Linear(kdim, embed_dim, *attrs, **fk)
+        self.v_proj = Linear(vdim, embed_dim, *attrs, **fk)
+        self.out_proj = Linear(embed_dim, embed_dim, *attrs, **fk)
         self.generator = None   # attention-dropout masks (composite path)
 
     def _split_heads(self, x):
         b, s, _ = x.shape
-        return x.reshape(b, s, self.num_heads, self.head_dim)
+        return x.reshape([b, s, self.num_heads, self.head_dim])
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
@@ -90,7 +91,7 @@ class MultiHeadAttention(nn.Module):
             q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
             training=self.training, generator=self.generator)
         b, s = out.shape[0], out.shape[1]
-        out = self.out_proj(out.reshape(b, s, self.embed_dim))
+        out = self.out_proj(out.reshape([b, s, self.embed_dim]))
         if isinstance(cache, self.Cache):
             return out, cache
         return out
@@ -109,23 +110,24 @@ class MultiHeadAttention(nn.Module):
         return self.Cache(empty, empty)
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
                  layer_norm_eps=1e-5, *, device=None, dtype="float32",
                  init_generator=None):
-        super().__init__()
-        fk = _factory(device, dtype)
+        super().__init__(dtype=dtype)
+        fk = {"device": layer_device(device), "dtype": dtype}
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(
             d_model, nhead, attn_dropout, weight_attr=weight_attr,
             bias_attr=bias_attr, init_generator=init_generator, **fk)
-        attrs = (weight_attr, bias_attr, fk, init_generator)
-        self.linear1 = _drawn_linear(d_model, dim_feedforward, *attrs)
-        self.linear2 = _drawn_linear(dim_feedforward, d_model, *attrs)
+        attrs = (weight_attr, bias_attr)
+        gk = dict(fk, init_generator=init_generator)
+        self.linear1 = Linear(d_model, dim_feedforward, *attrs, **gk)
+        self.linear2 = Linear(dim_feedforward, d_model, *attrs, **gk)
         self.norm1 = LayerNorm(d_model, layer_norm_eps, **fk)
         self.norm2 = LayerNorm(d_model, layer_norm_eps, **fk)
         self.dropout1 = Dropout(dropout)
@@ -160,7 +162,7 @@ class TransformerEncoderLayer(nn.Module):
         return self.self_attn.gen_cache(src)
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     def __init__(self, encoder_layer, num_layers, norm=None):
         super().__init__()
         # the reference's copies: every layer starts as `encoder_layer`
@@ -187,14 +189,14 @@ class TransformerEncoder(nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
                  layer_norm_eps=1e-5, *, device=None, dtype="float32",
                  init_generator=None):
-        super().__init__()
-        fk = _factory(device, dtype)
+        super().__init__(dtype=dtype)
+        fk = {"device": layer_device(device), "dtype": dtype}
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = normalize_before
@@ -204,9 +206,10 @@ class TransformerDecoderLayer(nn.Module):
                                             **mha)
         self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
                                              **mha)
-        attrs = (weight_attr, bias_attr, fk, init_generator)
-        self.linear1 = _drawn_linear(d_model, dim_feedforward, *attrs)
-        self.linear2 = _drawn_linear(dim_feedforward, d_model, *attrs)
+        attrs = (weight_attr, bias_attr)
+        gk = dict(fk, init_generator=init_generator)
+        self.linear1 = Linear(d_model, dim_feedforward, *attrs, **gk)
+        self.linear2 = Linear(dim_feedforward, d_model, *attrs, **gk)
         self.norm1 = LayerNorm(d_model, layer_norm_eps, **fk)
         self.norm2 = LayerNorm(d_model, layer_norm_eps, **fk)
         self.norm3 = LayerNorm(d_model, layer_norm_eps, **fk)
@@ -258,7 +261,7 @@ class TransformerDecoderLayer(nn.Module):
         return incremental, static
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     def __init__(self, decoder_layer, num_layers, norm=None):
         super().__init__()
         self.layers = LayerList(
@@ -285,15 +288,15 @@ class TransformerDecoder(nn.Module):
         return [layer.gen_cache(memory) for layer in self.layers]
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
                  custom_encoder=None, custom_decoder=None, *, device=None,
                  dtype="float32", init_generator=None):
-        super().__init__()
-        fk = _factory(device, dtype)
+        super().__init__(dtype=dtype)
+        fk = {"device": layer_device(device), "dtype": dtype}
         self.d_model = d_model
         self.nhead = nhead
         args = (d_model, nhead, dim_feedforward, dropout, activation,

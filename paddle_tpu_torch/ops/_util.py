@@ -55,6 +55,9 @@ def as_tensor(x, like: torch.Tensor) -> torch.Tensor:
         return x
     if isinstance(x, bool):
         return torch.tensor(x, device=like.device)
+    if isinstance(x, int) and like.dtype == torch.bool:
+        # a weak int takes a bool array to int32 in jnp
+        return torch.tensor(x, dtype=torch.int32, device=like.device)
     if isinstance(x, int) and not like.is_floating_point():
         return torch.tensor(x, dtype=like.dtype, device=like.device)
     if isinstance(x, float) and (like.is_floating_point()

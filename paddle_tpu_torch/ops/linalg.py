@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..nn.functional import matmul
-from ._util import floatlike, promote, promote_all
+from ._util import floatlike, pair, promote, promote_all
 from .registry import register_op
 
 __all__ = ["matmul", "mm", "bmm", "dot", "inner", "outer", "addmm", "mv",
@@ -45,13 +45,13 @@ def dot(x, y):
 
 @register_op("inner")
 def inner(x, y):
-    x, y = promote(x, y)
+    x, y = pair(x, y)
     return torch.inner(x, y)
 
 
 @register_op("outer")
 def outer(x, y):
-    x, y = promote(x, y)
+    x, y = pair(x, y)
     return torch.outer(x.reshape(-1), y.reshape(-1))
 
 
@@ -67,7 +67,8 @@ def mv(x, vec):
 
 @register_op("t")
 def t(x):
-    return x.transpose(0, 1) if x.dim() >= 2 else x
+    """x.T: every axis reversed (rank 0 and 1 unchanged)."""
+    return x.permute(*range(x.dim() - 1, -1, -1)) if x.dim() >= 2 else x
 
 
 @register_op("cross")
@@ -191,7 +192,11 @@ def triangular_solve(x, y, upper=True, transpose=False, unitriangular=False):
 def lstsq(x, y, rcond=None):
     drv = "gelsd" if x.device.type == "cpu" else "gels"
     r = torch.linalg.lstsq(x, y, rcond=rcond, driver=drv)
-    return r.solution, r.residuals, r.rank, r.singular_values
+    # the residuals of every system, as jnp returns them (torch, as
+    # numpy, returns none for an under-determined or rank-deficient one)
+    resid = (y - torch.matmul(x, r.solution)).square().sum(-2 if y.dim()
+                                                         > 1 else -1)
+    return r.solution, resid, r.rank, r.singular_values
 
 
 @register_op("qr")
@@ -267,7 +272,7 @@ def cov(x, rowvar=True, ddof=True, fweights=None, aweights=None):
 
 @register_op("kron")
 def kron(x, y):
-    return torch.kron(*promote(x, y))
+    return torch.kron(*pair(x, y))
 
 
 @register_op("multi_dot")

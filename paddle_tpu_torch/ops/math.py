@@ -26,6 +26,10 @@ __all__ = [
     "logcumsumexp", "clip_by_norm", "renorm", "add_n", "elementwise_pow"]
 
 
+def _is_bool(t):
+    return isinstance(t, torch.Tensor) and t.dtype == torch.bool
+
+
 # ---- binary ----
 @register_op("add")
 def add(x, y):
@@ -35,6 +39,10 @@ def add(x, y):
 
 @register_op("subtract")
 def subtract(x, y):
+    if _is_bool(x) or _is_bool(y):
+        # a Python int takes a bool tensor to int32, as jnp's weak int
+        # does (torch refuses to subtract from a bool)
+        x, y = _pair(x, y)
     x, y = promote(x, y)
     return x - y
 
@@ -116,8 +124,10 @@ def logaddexp(x, y):
 
 @register_op("heaviside")
 def heaviside(x, y):
+    """Integer inputs compute in float32, as jnp.heaviside promotes
+    them."""
     x, y = _pair(x, y)
-    return torch.heaviside(x, y)
+    return torch.heaviside(floatlike(x), floatlike(y))
 
 
 @register_op("copysign")
@@ -153,7 +163,7 @@ def ldexp(x, y):
 # ---- unary ----
 @register_op("abs")
 def abs(x):
-    return torch.abs(x)
+    return x if x.dtype == torch.bool else torch.abs(x)
 
 
 @register_op("neg")
@@ -273,12 +283,16 @@ def atanh(x):
 
 @register_op("ceil")
 def ceil(x):
-    return torch.ceil(x)
+    # a bool (or integer) tensor is its own ceil, as in jnp
+    return x if not (x.is_floating_point() or x.is_complex()) \
+        else torch.ceil(x)
 
 
 @register_op("floor")
 def floor(x):
-    return torch.floor(x)
+    # a bool (or integer) tensor is its own floor, as in jnp
+    return x if not (x.is_floating_point() or x.is_complex()) \
+        else torch.floor(x)
 
 
 @register_op("round")
@@ -288,7 +302,9 @@ def round(x, decimals=0):
 
 @register_op("trunc")
 def trunc(x):
-    return torch.trunc(x)
+    # a bool (or integer) tensor is its own trunc, as in jnp
+    return x if not (x.is_floating_point() or x.is_complex()) \
+        else torch.trunc(x)
 
 
 @register_op("frac")
@@ -390,6 +406,8 @@ def imag(x):
 
 @register_op("clip")
 def clip(x, min=None, max=None):
+    if min is None and max is None:
+        return x
     if isinstance(min, torch.Tensor) or isinstance(max, torch.Tensor):
         return torch.clamp(x, None if min is None else as_tensor(min, x),
                            None if max is None else as_tensor(max, x))

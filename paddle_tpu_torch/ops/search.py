@@ -14,12 +14,16 @@ __all__ = ["argmax", "argmin", "argsort", "sort", "topk", "kthvalue", "mode",
 
 @register_op("argmax")
 def argmax(x, axis=None, keepdim=False, dtype="int64"):
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
     out = torch.argmax(x, dim=axis, keepdim=keepdim and axis is not None)
     return out.to(dt(dtype))
 
 
 @register_op("argmin")
 def argmin(x, axis=None, keepdim=False, dtype="int64"):
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
     out = torch.argmin(x, dim=axis, keepdim=keepdim and axis is not None)
     return out.to(dt(dtype))
 

@@ -25,9 +25,9 @@ import torch
 from torch import nn
 
 from ...nn import functional as F
-from ...nn.layers import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, MaxPool2D,
-                          ReLU, Sequential)
-from ...nn.layers.common import _drawn_linear, _factory
+from ...nn.layers import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
+                          MaxPool2D, ReLU, Sequential)
+from ...nn.layers.common import _factory
 
 __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18",
            "resnet34", "resnet50", "resnet101", "resnet152",
@@ -143,8 +143,8 @@ class ResNet(nn.Module):
         if with_pool:
             self.avgpool = AdaptiveAvgPool2D((1, 1), data_format=df)
         if num_classes > 0:
-            self.fc = _drawn_linear(512 * block.expansion, num_classes,
-                                    None, None, fk, gen)
+            self.fc = Linear(512 * block.expansion, num_classes,
+                             init_generator=gen, **fk)
 
     def _make_layer(self, block, planes, blocks, fk, stride=1):
         """`fk`: the factory keywords and generator the layers take."""
@@ -174,7 +174,7 @@ class ResNet(nn.Module):
             0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 4 * c)
         # the [O, 3, 7, 7] weight padded to 8 at the front, so tap
         # dh + 1 = 2 * jh + ph splits into (block tap jh, parity ph)
-        wt = self.conv1.weight
+        wt = self.conv1.weight._data
         o = wt.shape[0]
         w8 = F.pad(wt, [0, 0, 0, 0, 1, 0, 1, 0])
         w8 = w8.reshape(o, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)

@@ -486,6 +486,48 @@ case("adaptive_pools", lambda P, T: (
     P.nn.functional.adaptive_max_pool2d(T(IMG), 3),
     P.nn.functional.adaptive_avg_pool3d(T(IMG3), 2)), tol=1e-5)
 
+case("flash_attention", lambda P, T: _flash_attention(P, T), tol=1e-4,
+     grad_tol=1e-4)
+case("embedding_padding_idx", lambda P, T: (
+    P.nn.functional.embedding(T(ints(0, 1, 0)), T(np.ones((3, 2),
+                                                         np.float32)),
+                              padding_idx=0),
+    P.nn.functional.embedding(x=T(np.array([[0, 3], [2, 2]], np.int32)),
+                              weight=T(f32(5, 4)), padding_idx=2)))
+case("layer_norm_normalized_shape", lambda P, T: (
+    P.nn.functional.layer_norm(T(A345), T(pos(4, 5)), T(f32(4, 5)),
+                               normalized_shape=[4, 5]),
+    P.nn.functional.layer_norm(T(A345), begin_norm_axis=1)), tol=1e-5)
+
+
+def _flash_attention(P, T):
+    """The reference's API returns (out, None)."""
+    out, softmax = P.nn.functional.flash_attention(
+        T(QKV), T(QKV[::-1].copy()), T(QKV * 0.5), causal=True)
+    assert softmax is None
+    return out
+
+
+# ---------------------------------------------------------------------------
+# inputs the port once refused or answered otherwise (ROADMAP Queue C)
+# ---------------------------------------------------------------------------
+BOOL3 = np.array([True, False, True])
+case("t_rank3", lambda P, T: (P.t(T(A345)), T(A345).t()))
+case("clip_no_bounds", lambda P, T: P.clip(T(A34)))
+case("scalar_outer_inner_kron", lambda P, T: (
+    P.outer(T(V8), 2.0), P.inner(T(V8), 2.0), P.kron(T(A23), 2.0)))
+case("heaviside_int", lambda P, T: P.heaviside(T(I34), T(J34 - 4)))
+case("bool_with_int", lambda P, T: [
+    getattr(P, op)(T(BOOL3), 2) for op in (
+        "maximum", "minimum", "fmax", "fmin", "bitwise_and", "bitwise_or",
+        "bitwise_xor", "subtract")])
+case("bool_unary", lambda P, T: [
+    P.abs(T(BOOL3)), P.floor(T(BOOL3)), P.ceil(T(BOOL3)),
+    P.trunc(T(BOOL3)), P.argmax(T(BOOL3)), P.argmin(T(BOOL3)),
+    P.nn.functional.relu(T(BOOL3))])
+case("lstsq_underdetermined", lambda P, T: P.lstsq(T(A34), T(B34))[:2],
+     tol=1e-4, grad=False)
+
 
 def _batch_norm(P, T):
     x = T(IMG)

@@ -15,6 +15,7 @@ from paddle_tpu_torch.amp import GradScaler
 from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import AdamW
+from torch_port_helpers import cpu_place
 
 W = 6
 # f32: the same f32 forward and backward on both sides, sums in other
@@ -22,6 +23,13 @@ W = 6
 # parameter moves by about lr a step and its error stays a few ulps of
 # lr: 1e-6 absolute at lr 1e-2
 F32_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture(autouse=True)
+def _cpu():
+    # the layers are made on the default place: the CPU here
+    with cpu_place():
+        yield
 
 
 def _arrays(seed):
@@ -50,7 +58,8 @@ class _Both:
                 tl.weight.copy_(torch.from_numpy(w))
                 tl.bias.copy_(torch.from_numpy(b))
         self.jp = [p for lyr in self.jlin for p in lyr.parameters()]
-        self.tp = [p for lyr in self.tlin for p in lyr.parameters()]
+        self.tp = [p for lyr in self.tlin
+                   for p in torch.nn.Module.parameters(lyr)]
         self.jopt = pt.optimizer.AdamW(learning_rate=lr, parameters=self.jp)
         self.topt = AdamW(learning_rate=lr, parameters=self.tp)
         self.o2 = o2_f16

@@ -12,11 +12,13 @@ import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
+from torch_port_helpers import cpu_place
 
 
 @pytest.fixture(autouse=True)
 def _cpu():
-    ptt.set_device("cpu")
+    with cpu_place():
+        yield
 
 
 TOL = dict(rtol=1e-5, atol=1e-5)

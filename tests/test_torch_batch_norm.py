@@ -141,7 +141,7 @@ def test_layer_without_affine_and_with_initializers():
     np.testing.assert_allclose(_np(tl(torch.from_numpy(x))),
                                _np(jl(pt.to_tensor(x))), **TOL)
     t2 = tnn.BatchNorm2D(4, weight_attr=Constant(2.0), device="cpu")
-    assert torch.all(t2.weight == 2.0) and torch.all(t2.bias == 0)
+    assert torch.all(t2.weight._data == 2.0) and torch.all(t2.bias._data == 0)
     assert t2._mean.dtype == t2._variance.dtype == torch.float32
 
 

@@ -290,9 +290,9 @@ def test_conv_layer_initializers_follow_the_reference():
             assert np.abs(arr).max() <= bound
             assert np.abs(arr).max() >= 0.9 * bound
     zero = tnn.Conv2D(4, 4, 1, bias_attr=True, device="cpu")
-    assert torch.count_nonzero(zero.bias) == 0
+    assert torch.count_nonzero(zero.bias._data) == 0
     const = tnn.Conv2D(4, 4, 1, weight_attr=Constant(0.5), device="cpu")
-    assert torch.all(const.weight == 0.5)
+    assert torch.all(const.weight._data == 0.5)
     assert tnn.Conv2D(4, 4, 1, bias_attr=False, device="cpu").bias is None
 
 

@@ -236,7 +236,7 @@ def test_fused_loops_are_an_lru_of_eight(gpt_twins):
     loop = loops[next(reversed(loops))]
     generate(tm, p, max_new_tokens=3, eos_token_id=9, device="cpu")
     assert loops[next(reversed(loops))] is loop
-    w = tm.gpt.final_norm.weight
+    w = tm.gpt.final_norm.weight._data
     saved = w.data
     w.data = saved.clone()
     try:

@@ -27,7 +27,7 @@ from paddle_tpu_torch.amp import auto_cast
 from paddle_tpu_torch.models import (GPTForCausalLM, GPTPretrainingCriterion,
                                      gpt_tiny)
 from paddle_tpu_torch.optimizer import AdamW
-from torch_port_helpers import eager_gpt_steps
+from torch_port_helpers import cpu_place, eager_gpt_steps
 
 LR = 1e-3
 STEPS = 3
@@ -37,7 +37,8 @@ TOLS = {False: dict(loss=1e-5, param=1e-4),
 
 @pytest.fixture(autouse=True)
 def _cpu():
-    ptt.set_device("cpu")
+    with cpu_place():
+        yield
 
 
 def _setup(seed=0):

@@ -21,6 +21,7 @@ import paddle_tpu as pt
 import paddle_tpu.core.flags as jflags
 import paddle_tpu_torch as ptt
 import paddle_tpu_torch.core.flags as tflags
+from torch_port_helpers import cpu_place
 
 ROOT = Path(__file__).resolve().parents[1]
 PORTED = ["FLAGS_check_nan_inf", "FLAGS_fast_bn_stats", "FLAGS_seed",
@@ -126,7 +127,11 @@ def test_check_nan_inf_raises_as_in_the_reference(op):
     """Under FLAGS_check_nan_inf an op whose float output holds a NaN or
     an Inf raises FloatingPointError with the reference's message; off,
     it returns the value."""
-    ptt.set_device("cpu")
+    with cpu_place():
+        _check_nan_inf_case(op)
+
+
+def _check_nan_inf_case(op):
     for P in (pt, ptt):
         assert np.isnan(_nan_case(P, op).numpy()).any() or \
             np.isinf(_nan_case(P, op).numpy()).any()

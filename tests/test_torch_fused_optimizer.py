@@ -63,7 +63,8 @@ def _port(init, dtype="bfloat16", mp=True, steps=STEPS, **kw):
     lin = Linear(16, 16, device="cpu", dtype=tdt)
     lin.load_state_dict({n: _to_tensor(a) for n, a in init.items()})
     x = torch.from_numpy(_x()).to(tdt)
-    opt = AdamW(learning_rate=LR, parameters=lin.named_parameters(),
+    opt = AdamW(learning_rate=LR,
+                parameters=torch.nn.Module.named_parameters(lin),
                 multi_precision=mp, weight_decay=0.01, **kw)
     for _ in range(steps):
         loss = (lin(x).float() ** 2).mean()
@@ -86,7 +87,8 @@ def test_multi_precision_adamw_matches_reference(fused):
     # every parameter's work array is its f32 master: one multi-tensor
     # call a step
     assert mta.multi_tensor_adam.plain_calls - n0 == STEPS
-    for (n, tp), jp in zip(tlin.named_parameters(), jlin.parameters()):
+    for (n, tp), jp in zip(torch.nn.Module.named_parameters(tlin),
+                           jlin.parameters()):
         assert tp.dtype == torch.bfloat16
         np.testing.assert_allclose(_f32(tp), np.asarray(jp._data,
                                                         np.float32),
@@ -177,7 +179,7 @@ def test_multi_precision_master_update_matches_reference(fused,
 def test_masters_are_f32_and_moments_follow_them():
     init, jopt, jlin = _reference(True, steps=1)
     topt, tlin = _port(init, steps=1)
-    ps = list(tlin.parameters())
+    ps = list(torch.nn.Module.parameters(tlin))
     assert len(topt._master_weights) == len(ps) == 2
     assert all(m.dtype == torch.float32
                for m in topt._master_weights.values())
@@ -189,14 +191,14 @@ def test_masters_are_f32_and_moments_follow_them():
     # moment_dtype overrides the master's dtype, on both sides
     _, jopt, jlin = _reference(True, steps=1, moment_dtype="bfloat16")
     topt, tlin = _port(init, steps=1, moment_dtype="bfloat16")
-    for tp, jp in zip(tlin.parameters(), jlin.parameters()):
+    for tp, jp in zip(torch.nn.Module.parameters(tlin), jlin.parameters()):
         assert topt._accumulators[id(tp)]["moment1"].dtype == torch.bfloat16
         assert str(jopt._accumulators[id(jp)]["moment1"].dtype) == \
             "bfloat16"
     # without masters, a bf16 parameter's moments are bf16 (its dtype)
     topt, tlin = _port(init, mp=False, steps=1)
     assert not topt._master_weights
-    for tp in tlin.parameters():
+    for tp in torch.nn.Module.parameters(tlin):
         assert topt._accumulators[id(tp)]["moment2"].dtype == torch.bfloat16
 
 
@@ -207,7 +209,7 @@ def test_bf16_without_masters_takes_the_per_tensor_rule():
     n0 = mta.multi_tensor_adam.plain_calls
     _, tlin = _port(init, mp=False)
     assert mta.multi_tensor_adam.plain_calls == n0
-    for tp, jp in zip(tlin.parameters(), jlin.parameters()):
+    for tp, jp in zip(torch.nn.Module.parameters(tlin), jlin.parameters()):
         assert tp.dtype == torch.bfloat16
         np.testing.assert_allclose(_f32(tp), np.asarray(jp._data,
                                                         np.float32),
@@ -218,23 +220,25 @@ def test_state_dict_round_trips_the_masters():
     init, _, _ = _reference(True, steps=1)
     topt, tlin = _port(init, steps=2)
     sd = topt.state_dict()
-    names = [n for n, _ in tlin.named_parameters()]
+    names = [n for n, _ in torch.nn.Module.named_parameters(tlin)]
     assert sorted(k for k in sd if k.endswith("_master")) == \
         sorted(f"{n}_master" for n in names)
-    for n, p in tlin.named_parameters():
+    for n, p in torch.nn.Module.named_parameters(tlin):
         assert sd[f"{n}_master"].dtype == torch.float32
         assert torch.equal(sd[f"{n}_master"], topt._master_weights[id(p)])
     # a fresh optimizer loaded from it takes the same next step
     twin = Linear(16, 16, device="cpu", dtype=torch.bfloat16)
-    twin.load_state_dict(tlin.state_dict())
-    topt2 = AdamW(learning_rate=LR, parameters=twin.named_parameters(),
+    twin.load_state_dict(torch.nn.Module.state_dict(tlin))
+    topt2 = AdamW(learning_rate=LR,
+                  parameters=torch.nn.Module.named_parameters(twin),
                   multi_precision=True, weight_decay=0.01)
     topt2.set_state_dict(sd)
     x = torch.from_numpy(_x()).to(torch.bfloat16)
     for opt, lin in ((topt, tlin), (topt2, twin)):
         (lin(x).float() ** 2).mean().backward()
         opt.step()
-    for a, b in zip(tlin.parameters(), twin.parameters()):
+    for a, b in zip(torch.nn.Module.parameters(tlin),
+                    torch.nn.Module.parameters(twin)):
         assert torch.equal(a, b)
     for a, b in zip(topt.state_dict().values(), topt2.state_dict().values()):
         if isinstance(a, torch.Tensor):
@@ -336,12 +340,13 @@ def test_resume_from_reference_state_with_masters(mp):
     tlin = Linear(16, 16, device="cpu", dtype=torch.bfloat16)
     tlin.load_state_dict({n: _to_tensor(np.asarray(p._data))
                           for n, p in jlin.named_parameters()})
-    topt = AdamW(learning_rate=LR, parameters=tlin.named_parameters(),
+    topt = AdamW(learning_rate=LR,
+                 parameters=torch.nn.Module.named_parameters(tlin),
                  multi_precision=mp, weight_decay=0.01)
     topt.set_state_dict(optimizer_state_from_numpy(sd, names))
     assert topt._step_count == 2
     if mp:
-        for n, p in tlin.named_parameters():
+        for n, p in torch.nn.Module.named_parameters(tlin):
             m = topt._master_weights[id(p)]
             assert m.dtype == torch.float32
             ref = next(v for k, v in sd.items()
@@ -358,7 +363,7 @@ def test_resume_from_reference_state_with_masters(mp):
     (tlin(torch.from_numpy(_x()).to(torch.bfloat16)).float() ** 2
      ).mean().backward()
     topt.step()
-    for tp, jp in zip(tlin.parameters(), jlin.parameters()):
+    for tp, jp in zip(torch.nn.Module.parameters(tlin), jlin.parameters()):
         np.testing.assert_allclose(_f32(tp), np.asarray(jp._data,
                                                         np.float32),
                                    **MP_TOL)
@@ -377,12 +382,12 @@ def test_set_state_dict_refills_existing_state_in_place():
           for k, v in topt.state_dict().items()}
     held = {id(p): (dict(topt._accumulators[id(p)]),
                     topt._master_weights[id(p)])
-            for p in tlin.parameters()}
+            for p in torch.nn.Module.parameters(tlin)}
     x = torch.from_numpy(_x()).to(torch.bfloat16)
     (tlin(x).float() ** 2).mean().backward()
     topt.step()
     topt.set_state_dict(sd)
-    for n, p in tlin.named_parameters():
+    for n, p in torch.nn.Module.named_parameters(tlin):
         st, mw = held[id(p)]
         for k, t in st.items():
             assert topt._accumulators[id(p)][k] is t

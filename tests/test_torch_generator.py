@@ -16,13 +16,15 @@ import eager_op_cases as C
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.core import generator as G
+from torch_port_helpers import cpu_place
 
 N = 200_000
 
 
 @pytest.fixture(autouse=True)
 def _cpu():
-    ptt.set_device("cpu")
+    with cpu_place():
+        yield
 
 
 _draws = C.random_draws
@@ -121,3 +123,17 @@ def test_permutation_multinomial_dirichlet_structure():
     np.testing.assert_allclose(d.numpy().mean(0), [1 / 3] * 3, atol=0.01)
     t = ptt.truncated_normal([N], mean=1.0, std=2.0).numpy()
     assert t.min() >= -3.0 and t.max() <= 5.0
+
+
+def test_building_a_model_leaves_the_eager_generator_alone():
+    """The port's models draw each weight once, from their own seeded
+    generator: building one neither draws from nor advances the
+    port's default generator."""
+    from paddle_tpu_torch.models import gpt, llama
+    ptt.seed(5)
+    want = _arrays(_draws(ptt))
+    ptt.seed(5)
+    gpt.GPTForCausalLM(gpt.gpt_tiny(), device="cpu", seed=1)
+    llama.LlamaForCausalLM(llama.llama_tiny(), device="cpu", seed=1)
+    for a, b in zip(_arrays(_draws(ptt)), want):
+        np.testing.assert_array_equal(a, b)

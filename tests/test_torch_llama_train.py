@@ -227,8 +227,9 @@ def test_llama2_13b_parameter_count():
     cfg = dataclasses.replace(tllama.llama2_13b(), num_layers=4)
     meta = {"device": torch.device("meta"), "dtype": torch.float32}
     model = tllama.LlamaModel(cfg, **meta)
-    head = Linear(cfg.hidden_size, cfg.vocab_size, bias=False, **meta)
-    count = sum(p.numel() for p in model.parameters()) + head.weight.numel()
+    head = Linear(cfg.hidden_size, cfg.vocab_size, bias_attr=False, **meta)
+    count = sum(p.numel() for p in model.parameters()) + \
+        head.weight._data.numel()
     assert count == formula(cfg) == formula(dataclasses.replace(
         jllama.llama2_13b(), num_layers=4)) == 1_596_503_040
     assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == (40, 40, 128)

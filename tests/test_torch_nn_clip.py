@@ -110,6 +110,18 @@ PORTED_MODULES = {
         "paddle_tpu_torch.optimizer.optimizers", set()),
     "paddle_tpu.core.flags": ("paddle_tpu_torch.core.flags", set()),
     "paddle_tpu.nn.layers.conv": ("paddle_tpu_torch.nn.layers.conv", set()),
+    # nn.Layer, Parameter, ParamAttr, save / load (ROADMAP item 14)
+    "paddle_tpu.nn.layer": ("paddle_tpu_torch.nn.layer", set()),
+    "paddle_tpu.nn.param_attr": ("paddle_tpu_torch.nn.param_attr", set()),
+    "paddle_tpu.framework_io": ("paddle_tpu_torch.framework_io", set()),
+    "paddle_tpu.utils.fs": ("paddle_tpu_torch.utils.fs", set()),
+    "paddle_tpu.nn.layers.common": (
+        "paddle_tpu_torch.nn.layers.common", {
+            "AlphaDropout", "Bilinear", "ChannelShuffle", "CosineSimilarity",
+            "Dropout2D", "Dropout3D", "Fold", "Identity", "Pad1D", "Pad2D",
+            "Pad3D", "PairwiseDistance", "PixelShuffle", "PixelUnshuffle",
+            "Unfold", "Upsample", "UpsamplingBilinear2D",
+            "UpsamplingNearest2D", "ZeroPad2D"}),
     # the rest of the layer zoo takes ROADMAP Queue A item 25
     "paddle_tpu.nn.layers.pooling": (
         "paddle_tpu_torch.nn.layers.pooling", {

@@ -16,11 +16,13 @@ import eager_op_cases as C
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.ops import OPS
+from torch_port_helpers import cpu_place
 
 
 @pytest.fixture(autouse=True)
 def _cpu():
-    ptt.set_device("cpu")
+    with cpu_place():
+        yield
 
 
 def _close(got, want, tol, what):

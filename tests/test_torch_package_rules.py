@@ -125,5 +125,6 @@ def test_entry_points_need_cuda_unless_cpu_requested():
                  lambda **kw: BatchNorm2D(4, **kw)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
-        assert {p.device.type for p in make(device="cpu").parameters()} \
+        made = make(device="cpu")
+        assert {p.device.type for p in torch.nn.Module.parameters(made)} \
             == {"cpu"}

@@ -13,6 +13,7 @@ import torch
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.core import device as tdevice
+from torch_port_helpers import cpu_place
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 rng = np.random.default_rng(3)
@@ -22,7 +23,8 @@ Y = rng.standard_normal((3, 4)).astype(np.float32)
 
 @pytest.fixture(autouse=True)
 def _cpu():
-    ptt.set_device("cpu")
+    with cpu_place():
+        yield
 
 
 def _name(dtype):

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import paddle_tpu as pt
+import paddle_tpu_torch as ptt
 from paddle_tpu.nn.layers import common as jcommon
 from paddle_tpu.nn.layers import container as jcontainer
 from paddle_tpu.nn.layers import transformer as jt
@@ -249,11 +250,11 @@ def test_encoder_layers_start_identical_as_in_reference():
                 for i in (1, 2):
                     np.testing.assert_array_equal(
                         sd[name.replace("layers.0.", f"layers.{i}.")], val)
-    ptrs = {p.data_ptr() for p in port.parameters()}
-    assert len(ptrs) == len(list(port.parameters()))
+    ptrs = {p.data_ptr() for p in torch.nn.Module.parameters(port)}
+    assert len(ptrs) == len(list(torch.nn.Module.parameters(port)))
     decoder = tt.TransformerDecoder(_decoder_layer("port", False), 2)
-    for a, b in zip(decoder.layers[0].parameters(),
-                    decoder.layers[1].parameters()):
+    for a, b in zip(torch.nn.Module.parameters(decoder.layers[0]),
+                    torch.nn.Module.parameters(decoder.layers[1])):
         assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
 
 
@@ -271,16 +272,17 @@ def test_layers_draw_the_reference_defaults():
     assert float(w.abs().max()) <= limit and float(w.abs().max()) > \
         0.9 * limit
     assert float(layer.linear1.bias.abs().max()) == 0.0
-    assert torch.equal(layer.norm1.weight, torch.ones(D_MODEL))
+    assert torch.equal(layer.norm1.weight._data, torch.ones(D_MODEL))
     again = tt.TransformerEncoderLayer(
         D_MODEL, NHEAD, FFN, device="cpu",
         init_generator=torch.Generator().manual_seed(0))
-    for a, b in zip(layer.parameters(), again.parameters()):
+    for a, b in zip(torch.nn.Module.parameters(layer),
+                    torch.nn.Module.parameters(again)):
         assert torch.equal(a, b)
     mha = tt.MultiHeadAttention(D_MODEL, NHEAD, weight_attr=I.Constant(0.5),
                                 bias_attr=False, device="cpu")
     assert mha.q_proj.bias is None
-    assert torch.equal(mha.out_proj.weight,
+    assert torch.equal(mha.out_proj.weight._data,
                        torch.full((D_MODEL, D_MODEL), 0.5))
     jm = jt.MultiHeadAttention(D_MODEL, NHEAD, bias_attr=False)
     assert sorted(jax_state_numpy(jm)) == sorted(mha.state_dict())
@@ -292,7 +294,7 @@ def test_other_attrs_take_the_defaults_as_in_reference(attr):
     default initializer for a weight_attr / bias_attr that is neither
     None, False, a ParamAttr nor callable: both packages build such a
     layer with the same names, Xavier-bounded weights and zero biases.
-    A ParamAttr is not ported: the port raises NotImplementedError."""
+    A ParamAttr's initializer is taken, as in the reference's."""
     from paddle_tpu.nn.param_attr import ParamAttr
     from paddle_tpu_torch.nn import initializer as I
     pt.seed(0)
@@ -309,10 +311,17 @@ def test_other_attrs_take_the_defaults_as_in_reference(attr):
                 assert not x.any()
             else:
                 assert 0.9 * limit < np.abs(x).max() <= limit
-    with pytest.raises(NotImplementedError, match="ParamAttr"):
-        tt.MultiHeadAttention(
-            D_MODEL, NHEAD, weight_attr=ParamAttr(initializer=I.Constant(
-                0.5)), device="cpu")
+    from paddle_tpu.nn import initializer as JI
+    from paddle_tpu_torch.nn import ParamAttr as TParamAttr
+    got = tt.MultiHeadAttention(
+        D_MODEL, NHEAD, weight_attr=TParamAttr(initializer=I.Constant(0.5)),
+        device="cpu")
+    want = jt.MultiHeadAttention(
+        D_MODEL, NHEAD, weight_attr=ParamAttr(initializer=JI.Constant(0.5)))
+    for (n, a), (_, b) in zip(got.named_parameters(),
+                              want.named_parameters()):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b._data),
+                                      err_msg=n)
 
 
 def test_transformer_layers_need_cuda_unless_cpu_requested():
@@ -379,7 +388,8 @@ def test_sequential_matches_reference(form):
     chain = [Linear(2, 3, device="cpu"), Linear(3, 3, device="cpu")]
     gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
-        for p in (p for lin in chain for p in lin.parameters()):
+        for p in (p for lin in chain
+                  for p in torch.nn.Module.parameters(lin)):
             p.normal_(generator=gen)
     x = torch.as_tensor(_x((4, 2), 13))
     torch.testing.assert_close(tcontainer.Sequential(*chain)(x),
@@ -416,7 +426,9 @@ def test_parameter_list_matches_reference():
     tp.append(torch.as_tensor(vals[2]))
     assert len(tp) == len(jp) == 3
     assert _names(tp) == _names(jp) == ["0", "1", "2"]
-    assert all(isinstance(p, torch.nn.Parameter) for p in tp)
+    # the reference's Parameters, each over a torch parameter
+    assert all(isinstance(p, ptt.nn.Parameter) for p in tp)
+    assert all(isinstance(p._data, torch.nn.Parameter) for p in tp)
     for a, b in zip(tp, jp):
         np.testing.assert_array_equal(a.detach().numpy(), b.numpy())
     np.testing.assert_array_equal(tp[1].detach().numpy(), jp[1].numpy())
@@ -449,5 +461,6 @@ def test_layer_dict_matches_reference():
 def test_containers_deep_copy_with_their_children():
     seq = tcontainer.Sequential(*_linears("port", 2))
     twin = copy.deepcopy(seq)
-    for a, b in zip(seq.parameters(), twin.parameters()):
+    for a, b in zip(torch.nn.Module.parameters(seq),
+                    torch.nn.Module.parameters(twin)):
         assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()

@@ -20,6 +20,23 @@ from paddle_tpu_torch.models import LlamaForCausalLM as TorchLlama
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models import llama as tllama
 
+@contextlib.contextmanager
+def cpu_place():
+    """The eager API's default place set to the CPU for the block, and
+    the place it had put back after: pytest-xdist runs many test files
+    in one process, and a default left behind would change where a later
+    file's layers and Tensors are made (and whether they raise without a
+    card)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core import device as tdevice
+    saved = tdevice._current_place
+    ptt.set_device("cpu")
+    try:
+        yield
+    finally:
+        tdevice._current_place = saved
+
+
 # greedy tokens are compared up to the first position whose top-1/top-2
 # logit margin falls below this: f32 sums in XLA and in torch run in
 # different orders (~1e-6 apart at these sizes), so a closer race may

@@ -216,6 +216,24 @@ Run from the root of a checkout. Phases, each of which must pass:
      and numpy alone and held to the model's values, set_state_dict(
      load(path)) into a fresh model, and one more step of each (a fresh
      AdamW each) bit-equal.
+  23. io: the CPUs, the affinity set and /dev/shm's free bytes, and the
+     process tier's worker count W (the largest <= 8 whose batches fit
+     in /dev/shm at once); then (a) phase 19's config (resnet50, NHWC,
+     s2d stem, b256 x 224^2, bf16 O1, Momentum, FLAGS_fast_bn_stats) fed
+     by a DataLoader over 512 pooled images from a numpy seed, 2 + 10
+     steps with num_workers=0 and again with W spawned workers, through
+     one TrainStep: one capture and every later call a replay, losses
+     finite, one host-to-device copy a batch, no fallback warning; step
+     ms and images/s beside phase 19's, the consumer's wait a batch;
+     (b) resnet50 at b8 x 64^2 in f32 (TF32 off, cuDNN deterministic):
+     3 graph steps fed by the process tier bit-equal to 3 fed the same
+     arrays; (c) the ImageNet-style pipeline: DatasetFolder over 1,280
+     uint8 256^2 .npy files through RandomResizedCrop(224),
+     RandomHorizontalFlip and an HWC Normalize on W workers, images/s of
+     the loader alone and feeding (a)'s step (a reading), the temp dir
+     and this process's segments gone after; (d) phase 22's nn.Layer
+     GPT fed its 3 batches by a DataLoader with 2 workers, bit-equal to
+     phase 22's steps, B1 and B2 at 12 sm90 launches a step.
 
 The last three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
@@ -446,6 +464,7 @@ def build_all() -> dict:
     """Build every native library at once (one compiler per source, all
     started together); returns {name: seconds}."""
     from paddle_tpu_torch.inference import paged_cache
+    from paddle_tpu_torch.io import native
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import multi_tensor_adam as mta
     from paddle_tpu_torch.kernels import norms
@@ -457,7 +476,8 @@ def build_all() -> dict:
             "flash_bwd_sm90.cu (nvcc)": fa._load_sm90_bwd,
             "norms.cu (nvcc)": norms._load_kernel,
             "multi_tensor_adam.cu (nvcc)": mta._load_kernel,
-            "_block_allocator.cpp (g++)": paged_cache._load_lib}
+            "_block_allocator.cpp (g++)": paged_cache._load_lib,
+            "io/native/queue.cc (g++)": native.load}
     secs, errors = {}, {}
 
     def run(name, fn):
@@ -4155,6 +4175,9 @@ RANDOM_RANGES = {"rand": (0.0, 1.0), "uniform": (-2.0, 3.0),
                  "truncated_normal": (-2.0, 2.0)}
 EAGER_STEPS = 3
 EAGER_LR = 1e-4
+# what phase 22 leaves for phase 23: the GPT's weights, batches and the
+# model's eager losses and parameters
+EAGER_GPT = {}
 # pairs of one dict-script step and one nn.Layer-GPT step timed in turns
 ALTERNATE = 4
 
@@ -4623,6 +4646,11 @@ def eager_gpt_phase(train) -> dict:
         layers = eager_layer_gpt(
             P, _tests_module("eager_gpt_layer_script"), weights, batches,
             want_losses, want_params, names, L, H, mark, one_step)
+        # phase 23 feeds the nn.Layer GPT the same batches from a
+        # DataLoader and holds it to these steps
+        EAGER_GPT.update(weights=weights, batches=batches,
+                         losses=want_losses, params=want_params,
+                         names=names, L=L, H=H)
         del want_params, params, opt2, ids_t, labels_t
         layer_call = _layer_call_overhead(P)
     finally:
@@ -4744,6 +4772,409 @@ def eager_phase(train) -> dict:
     return dict(sweep=sweep, random=rand, gpt=eager_gpt_phase(train))
 
 
+# ---------------------------------------------------------------------------
+# phase 23: io and the vision input path
+# ---------------------------------------------------------------------------
+IO_PREFETCH = 2
+IO_WARMUP, IO_TIMED = 2, 10
+IO_POOL = 512
+IO_MAX_WORKERS = 8
+# phase 23c's folder: 10 classes x 128 uint8 256^2 x 3 images, 1 + 4
+# batches of 256 through the ImageNet-style transform
+IO_FOLDER = dict(classes=10, per_class=128, hw=256)
+IO_PIPELINE_BATCHES = 5
+IMAGENET_MEAN = [123.675, 116.28, 103.53]
+IMAGENET_STD = [58.395, 57.12, 57.375]
+# phase 23d's loader: phase 22's batches from 2 spawned workers
+IO_GPT_WORKERS = 2
+
+
+def _io_cases():
+    """tests/torch_io_cases.py imported by name (tests/ put on sys.path):
+    spawned workers unpickle its datasets by that name."""
+    import importlib
+    import pathlib
+    tests = str(pathlib.Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module("torch_io_cases")
+
+
+def _shm_free() -> int:
+    import os
+    st = os.statvfs("/dev/shm")
+    return st.f_bavail * st.f_frsize
+
+
+def _own_segments() -> list:
+    """This process's loaders' segments left in /dev/shm."""
+    import os
+
+    from paddle_tpu_torch.io import _process_worker as PW
+    prefix = PW.shm_prefix(os.getpid())
+    return [f for f in os.listdir("/dev/shm") if f.startswith(prefix)]
+
+
+def _io_workers(batch_bytes) -> dict:
+    """The process tier's worker count: the largest W <= 8 (and <= the
+    CPUs this process may run on) whose segments fit in /dev/shm's free
+    bytes at once. A worker holds up to prefetch_factor batches in its
+    queue and one more it has packed and waits to put, and the parent
+    one it is copying out: W * (prefetch_factor + 1) + 1 batches. Raises
+    when /dev/shm cannot hold even one batch."""
+    import os
+    free = _shm_free()
+    if free < batch_bytes:
+        raise RuntimeError(
+            f"[io] /dev/shm has {free} bytes free: not even one batch of "
+            f"{batch_bytes} bytes fits, so the process tier cannot run")
+    cpus = len(os.sched_getaffinity(0))
+    w = min(IO_MAX_WORKERS, cpus)
+    while w > 1 and (w * (IO_PREFETCH + 1) + 1) * batch_bytes > free:
+        w -= 1
+    return dict(workers=w, shm_free=free, cpus=cpus,
+                batches_held=w * (IO_PREFETCH + 1) + 1,
+                why=f"largest W <= min({IO_MAX_WORKERS}, {cpus} CPUs) with "
+                    f"(W * (prefetch {IO_PREFETCH} + 1) + 1) x {batch_bytes}"
+                    f" bytes <= {free} bytes free in /dev/shm")
+
+
+@contextlib.contextmanager
+def _io_warnings():
+    """Every warning of the block recorded (the loader's fallback and
+    respawn warnings among them)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        yield caught
+
+
+def _loader_fed(step, loader, n):
+    """`n` TrainStep calls, each on the loader's next batch: per call
+    the consumer's wait for the batch and the call (both synchronised),
+    by wall; the loader's host-to-device copies; the losses."""
+    import torch
+    waits, iters, losses = [], [], []
+    copies0 = loader.h2d_copies
+    it = iter(loader)
+    try:
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, y = next(it)
+            t1 = time.perf_counter()
+            loss = step(x, y)
+            torch.cuda.synchronize()
+            waits.append(t1 - t0)
+            iters.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+    finally:
+        it.close()
+    return dict(wait_s=waits, iter_s=iters, losses=losses,
+                h2d_copies=loader.h2d_copies - copies0)
+
+
+def _io_summary(run, batch, warmup):
+    timed = [1e3 * t for t in run["iter_s"][warmup:]]
+    waits = [1e3 * t for t in run["wait_s"][warmup:]]
+    med = statistics.median(timed)
+    return dict(step_ms_median=med, step_ms_min=min(timed),
+                step_ms_max=max(timed), images_per_s=batch / (med / 1e3),
+                wait_ms_median=statistics.median(waits),
+                wait_ms_max=max(waits),
+                h2d_copies_per_batch=run["h2d_copies"] / len(run["iter_s"]),
+                losses=run["losses"])
+
+
+def _io_resnet(C, workers, resnet) -> dict:
+    """23a: bench_resnet50's config fed by a DataLoader over 512 pooled
+    images (12 batches of 256), with num_workers=0 (the buffered prefetch
+    thread) and with `workers` spawned workers, through one TrainStep:
+    one capture, every later call a replay."""
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.jit import cuda_graph
+    n = IO_WARMUP + IO_TIMED
+    b = RESNET_BATCH
+    ds = C.ImagePool(n * b, pool=IO_POOL, hw=RESNET_HW)
+    _fresh_card()
+    model, step = _resnet_train_step()
+    cap0 = cuda_graph.captures["train_step"]
+    rep0 = cuda_graph.replays["train_step"]
+    runs = {}
+    with _io_warnings() as caught:
+        for tier, kw in (("num_workers=0", dict(num_workers=0)),
+                         (f"process tier, {workers} workers",
+                          dict(num_workers=workers,
+                               prefetch_factor=IO_PREFETCH))):
+            loader = DataLoader(ds, batch_size=b, **kw)
+            runs[tier] = _io_summary(_loader_fed(step, loader, n), b,
+                                     IO_WARMUP)
+            if kw["num_workers"]:
+                runs[tier]["spawn_picklable"] = \
+                    loader._spawn_picklable_result
+    rec = dict(runs=runs, batch=b, image=RESNET_HW, pool=IO_POOL,
+               batches=n, workers=workers,
+               captures=cuda_graph.captures["train_step"] - cap0,
+               replays=cuda_graph.replays["train_step"] - rep0,
+               warnings=[str(w.message) for w in caught],
+               phase19_step_ms_median=resnet["step_ms_median"],
+               phase19_images_per_s=resnet["images_per_s"])
+    return rec, model, step
+
+
+def _io_exact(C, workers) -> dict:
+    """23b: resnet50 at phase 19's sub-size (b8 x 64^2, f32, TF32 off,
+    cuDNN deterministic): 3 graph steps fed by the process tier against
+    3 graph steps fed the same arrays directly, bit for bit."""
+    import torch
+    from paddle_tpu_torch.io import DataLoader
+    rng = np.random.default_rng(5)
+    bs, hw = RESNET_SUB_BATCH, RESNET_SUB_HW
+    xs = rng.standard_normal((PARITY_STEPS * bs, hw, hw, 3),
+                             dtype=np.float32)
+    ys = rng.integers(0, 1000, (PARITY_STEPS * bs,)).astype(np.int32)
+    out = {}
+    with _f32_exact():
+        for fed in ("loader", "arrays"):
+            model, step = _resnet_train_step(lr=0.01, amp=False, seed=1)
+            if fed == "loader":
+                loader = DataLoader(C.ArraysDs(xs, ys), batch_size=bs,
+                                    num_workers=min(workers, 2))
+                with _io_warnings() as caught:
+                    batches = list(loader)
+                losses = [float(step(x, y)) for x, y in batches]
+                copies = loader.h2d_copies
+                del batches
+            else:
+                losses = [float(step(
+                    torch.from_numpy(xs[i * bs:(i + 1) * bs]).to(
+                        step.device),
+                    torch.from_numpy(ys[i * bs:(i + 1) * bs]).to(
+                        step.device)))
+                    for i in range(PARITY_STEPS)]
+            out[fed] = dict(losses=losses, params=_state(model),
+                            captures=len(step._graphs))
+            del model, step
+    a, b = out["loader"], out["arrays"]
+    equal = a["losses"] == b["losses"] and all(
+        torch.equal(p, q) for p, q in zip(a.pop("params"), b.pop("params")))
+    return dict(loader=a, arrays=b, bit_equal=equal, h2d_copies=copies,
+                warnings=[str(w.message) for w in caught])
+
+
+def _io_pipeline(C, workers, step) -> dict:
+    """23c: DatasetFolder over 1,280 uint8 256^2 .npy images through
+    RandomResizedCrop(224), RandomHorizontalFlip and an HWC Normalize,
+    on `workers` spawned workers: 1 + 4 batches of 256 read alone, then
+    1 + 4 more each feeding `step` (23a's TrainStep). A reading: can
+    the host feed the card?"""
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision import datasets
+    from paddle_tpu_torch.vision import transforms as T
+    b = RESNET_BATCH
+    rec = {}
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        n = C.write_image_folder(root, **IO_FOLDER)
+        rec["write_s"] = time.perf_counter() - t
+        pipe = T.Compose([T.RandomResizedCrop(RESNET_HW),
+                          T.RandomHorizontalFlip(),
+                          T.Normalize(IMAGENET_MEAN, IMAGENET_STD,
+                                      data_format="HWC")])
+        ds = datasets.DatasetFolder(root, transform=pipe)
+        loader = DataLoader(ds, batch_size=b, shuffle=True, drop_last=True,
+                            num_workers=workers,
+                            prefetch_factor=IO_PREFETCH)
+        with _io_warnings() as caught:
+            marks, shapes = [], None
+            it = iter(loader)
+            for x, y in it:
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                shapes = (x.shape, str(x.dtype), y.shape, str(y.dtype))
+            alone_s = marks[-1] - marks[0]
+            fed = _io_summary(_loader_fed(step, loader,
+                                          IO_PIPELINE_BATCHES), b, 1)
+        rec.update(
+            files=n, workers=workers, batches=len(marks),
+            batch_shapes=shapes,
+            loader_images_per_s=(len(marks) - 1) * b / alone_s,
+            in_step=fed, warnings=[str(w.message) for w in caught])
+    rec["segments_left"] = _own_segments()
+    return rec
+
+
+def _io_gpt(C) -> dict:
+    """23d: phase 22's nn.Layer GPT (bench_gpt2_small's config) fed its
+    3 batches by a DataLoader with 2 spawned workers over host int32
+    rows, held bit for bit to phase 22's eager steps; B1/B2 launches
+    counted a step."""
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    g = EAGER_GPT
+    S = _tests_module("eager_gpt_layer_script")
+    marks = []
+
+    def mark(_i=None):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), 0,
+                      dict(fa.flash_fwd.design_launches),
+                      dict(fa.flash_bwd.design_launches)))
+
+    saved_place = tdevice._current_place
+    P.set_device("gpu:0")
+    try:
+        _fresh_card()
+        model = S.gpt_from_weights(P, g["weights"], g["L"], g["H"])
+        opt = P.optimizer.AdamW(learning_rate=EAGER_LR,
+                                parameters=model.parameters(),
+                                weight_decay=0.01)
+        loader = DataLoader(C.RowsDs(g["batches"]),
+                            batch_size=len(g["batches"][0][0]),
+                            num_workers=IO_GPT_WORKERS)
+        with _io_warnings() as caught:
+            losses = S.train_steps(P, model, opt, loader, amp=True,
+                                   on_step=mark)
+        mark()
+        steps = _step_marks(marks)
+        sd = model.state_dict()
+        bit_equal = losses == g["losses"] and all(
+            torch.equal(sd[k]._data, w)
+            for k, w in zip(g["names"], g["params"]))
+        copies = loader.h2d_copies
+        del model, opt, sd
+    finally:
+        tdevice._current_place = saved_place
+    return dict(losses=losses, phase22_losses=g["losses"],
+                bit_equal=bit_equal, b1_by_step=[s["b1"] for s in steps],
+                b2_by_step=[s["b2"] for s in steps],
+                step_ms=[s["ms"] for s in steps], h2d_copies=copies,
+                batches=len(g["batches"]), workers=IO_GPT_WORKERS,
+                layers=g["L"],
+                warnings=[str(w.message) for w in caught])
+
+
+def _fallback_warnings(messages):
+    return [m for m in messages if "falling back" in m or "respawn" in m]
+
+
+def io_phase(resnet) -> dict:
+    """Phase 23: the DataLoader feeding the card. Prints the CPUs, the
+    affinity set and /dev/shm's free bytes, then runs 23a-23d."""
+    import os
+
+    from paddle_tpu_torch import get_flags, set_flags
+    C = _io_cases()
+    batch_bytes = RESNET_BATCH * RESNET_HW * RESNET_HW * 3 * 4
+    affinity = sorted(os.sched_getaffinity(0))
+    log(f"[io] os.cpu_count() {os.cpu_count()}, affinity {len(affinity)} "
+        f"CPUs {affinity}, /dev/shm {_shm_free()} bytes free; a ResNet-50 "
+        f"batch is {batch_bytes} bytes")
+    w = _io_workers(batch_bytes)
+    log(f"[io] process tier at W = {w['workers']}: {w['why']}")
+    workers = w["workers"]
+    flag = "FLAGS_fast_bn_stats"
+    saved = get_flags(flag)
+    set_flags({flag: True})
+    secs = {}
+    t = time.perf_counter()
+    try:
+        a, model, step = _io_resnet(C, workers, resnet)
+        secs["a"] = time.perf_counter() - t
+        c = _io_pipeline(C, workers, step)
+        secs["c"] = time.perf_counter() - t - secs["a"]
+        del model, step
+        _fresh_card()
+        t = time.perf_counter()
+        b = _io_exact(C, workers)
+        secs["b"] = time.perf_counter() - t
+    finally:
+        set_flags(saved)
+    _fresh_card()
+    t = time.perf_counter()
+    d = _io_gpt(C)
+    secs["d"] = time.perf_counter() - t
+    EAGER_GPT.clear()
+    _fresh_card()
+    n = IO_WARMUP + IO_TIMED
+    L = d["layers"]     # one B1 and one B2 launch a layer a step
+    checks = {
+        "23a: one capture and every later call a replay (Tensor batches "
+        "from both loaders)": (a["captures"], a["replays"]) == (1, 2 * n - 1),
+        "23a: every loss finite": all(
+            np.isfinite(r["losses"]).all() for r in a["runs"].values()),
+        "23a: one host-to-device copy a batch": all(
+            r["h2d_copies_per_batch"] == 1 for r in a["runs"].values()),
+        "23a: no fallback or respawn warning, the process tier kept":
+            not _fallback_warnings(a["warnings"]) and all(
+                r.get("spawn_picklable", True) for r in a["runs"].values()),
+        "23b: 3 graph steps fed by the process tier bit-equal to 3 fed "
+        "the arrays directly": b["bit_equal"],
+        "23b: one capture each": (b["loader"]["captures"],
+                                  b["arrays"]["captures"]) == (1, 1),
+        "23b: one host-to-device copy a batch":
+            b["h2d_copies"] == PARITY_STEPS,
+        "23b: no fallback warning": not _fallback_warnings(b["warnings"]),
+        "23c: the pipeline's batches [256, 224, 224, 3] f32 and [256] "
+        "int32": c["batch_shapes"] == (
+            [RESNET_BATCH, RESNET_HW, RESNET_HW, 3], "torch.float32",
+            [RESNET_BATCH], "torch.int32"),
+        "23c: every loss finite": np.isfinite(c["in_step"]["losses"]).all(),
+        "23c: no fallback warning": not _fallback_warnings(c["warnings"]),
+        "23c: no segment of this process left in /dev/shm":
+            not c["segments_left"],
+        "23d: the loader-fed nn.Layer GPT bit-equal to phase 22's eager "
+        "steps (losses and every parameter)": d["bit_equal"],
+        f"23d: B1 at {L} sm90 launches a step": all(
+            s == {"sm90": L, "simple": 0} for s in d["b1_by_step"]),
+        f"23d: B2 at {L} sm90 launches a step": all(
+            s == {"sm90": L, "simple": 0} for s in d["b2_by_step"]),
+        "23d: one host-to-device copy a batch":
+            d["h2d_copies"] == d["batches"],
+        "23d: no fallback warning": not _fallback_warnings(d["warnings"]),
+    }
+    rec = dict(workers=w, resnet=a, exact=b, pipeline=c, gpt=d,
+               seconds=secs, card=card_line())
+    _check("[io]", checks, rec)
+    card = rec["card"]
+    for tier, r in a["runs"].items():
+        log(f"[io] 23a resnet50 b{RESNET_BATCH} x {RESNET_HW}^2 fed by the "
+            f"DataLoader, {tier}: step {r['step_ms_median']:.2f} ms median "
+            f"({r['step_ms_min']:.2f}-{r['step_ms_max']:.2f} over "
+            f"{IO_TIMED}), {r['images_per_s']:.1f} images/s, the "
+            f"consumer's wait {r['wait_ms_median']:.3f} ms a batch (max "
+            f"{r['wait_ms_max']:.3f}), {r['h2d_copies_per_batch']:.0f} H2D "
+            f"copy a batch; phase 19 (arrays on the card) "
+            f"{resnet['step_ms_median']:.2f} ms, "
+            f"{resnet['images_per_s']:.1f} images/s; card {card}")
+    log(f"[io] 23a: {a['captures']} capture, {a['replays']} replays over "
+        f"both loaders")
+    log(f"[io] 23b resnet50 f32 b{RESNET_SUB_BATCH} x {RESNET_SUB_HW}^2: "
+        f"loader-fed losses {b['loader']['losses']} against array-fed "
+        f"{b['arrays']['losses']}: bit-equal {b['bit_equal']}")
+    log(f"[io] 23c DatasetFolder ({c['files']} files, written in "
+        f"{c['write_s']:.2f} s) through RandomResizedCrop(224), "
+        f"RandomHorizontalFlip, Normalize(HWC) on {c['workers']} workers: "
+        f"the loader alone {c['loader_images_per_s']:.1f} images/s; "
+        f"feeding 23a's step {c['in_step']['images_per_s']:.1f} images/s "
+        f"(step {c['in_step']['step_ms_median']:.2f} ms median, wait "
+        f"{c['in_step']['wait_ms_median']:.2f} ms); card {card}")
+    log(f"[io] 23d nn.Layer GPT fed by {d['workers']} workers: losses "
+        f"{d['losses']} (phase 22 {d['phase22_losses']}), bit-equal "
+        f"{d['bit_equal']}; B1 {d['b1_by_step']}, B2 {d['b2_by_step']}; "
+        f"steps {[round(x, 2) for x in d['step_ms']]} ms (the last with "
+        f"the epoch's end: the workers joined)")
+    log(f"[io] seconds by part {json.dumps(secs)}")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -4786,6 +5217,7 @@ def main() -> int:
     spec = spec_phase()
     int8 = int8_engine_phase()
     eager = eager_phase(train)
+    io = io_phase(train_resnet)
     runs_17_18 =(("llama13b", train_llama["no_recompute"]),
                   ("llama13b_recompute", train_llama["recompute"]),
                   ("bert_base", train_bert))
@@ -4875,6 +5307,10 @@ def main() -> int:
             launches_eager_layers=sum(
                 s["sm90"] for s in eager["gpt"]["nn_layer_gpt"][
                     "b1_by_step" if i == 0 else "b2_by_step"]),
+            # phase 23d: that GPT fed by a DataLoader, over its 3 steps
+            launches_io=sum(
+                s["sm90"] for s in io["gpt"][
+                    "b1_by_step" if i == 0 else "b2_by_step"]),
             max_abs_err=max(e for c in flash for dt in ("bf16", "f16")
                             for what, e in c[f"max_abs_err_{dt}"].items()
                             if (what in ("o", "lse")) == (kind == "fwd")),
@@ -4961,6 +5397,7 @@ def main() -> int:
     log("[spec] " + json.dumps(spec))
     log("[int8] " + json.dumps(int8))
     log("[eager] " + json.dumps(eager))
+    log("[io] " + json.dumps(io))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from . import dtype as dtypes
-from .device import Place, _parse, default_torch_device, place_of
+from .device import (Place, _parse, default_torch_device, get_place,
+                     place_of)
 
 __all__ = ["Tensor", "to_tensor"]
 
@@ -320,13 +321,15 @@ class Tensor:
 
     def __reduce__(self):
         # through numpy: the payload is device-neutral and carries no
-        # autograd meta, as the reference's pickle (core/tensor.py:290)
+        # autograd meta, as the reference's pickle (core/tensor.py:312):
+        # it unpickles onto the default place of the process that loads
+        # it, so a Tensor a CPU-only DataLoader worker made lands on the
+        # parent's card. bf16 travels as f32 and is cast back
         d = self._data.detach()
         if d.dtype == torch.bfloat16:
             d = d.float()
         return (_rebuild_tensor, (d.cpu().numpy(), str(self._data.dtype),
-                                  str(self._data.device), self.stop_gradient,
-                                  self.name))
+                                  self.stop_gradient, self.name))
 
     def __repr__(self):
         grad_info = "" if self.stop_gradient else ", stop_gradient=False"
@@ -353,9 +356,12 @@ def _narrow_dtype(dtype) -> torch.dtype:
     return NARROW.get(d, d)
 
 
-def _rebuild_tensor(arr, dtype, device, stop_gradient, name):
+def _rebuild_tensor(arr, dtype, stop_gradient, name):
+    """Unpickle target of Tensor.__reduce__: the array on the default
+    place (which raises without a card until ``set_device("cpu")``)."""
     d = torch.from_numpy(arr).to(getattr(torch, dtype.removeprefix("torch.")))
-    return Tensor(d.to(device), stop_gradient=stop_gradient, name=name)
+    return Tensor(d, place=get_place(), stop_gradient=stop_gradient,
+                  name=name)
 
 
 def to_tensor(data, dtype=None, place=None, stop_gradient=True) -> Tensor:

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from ..core.tensor import Tensor
 from ..optimizer.lr import LRScheduler
 from ..utils.watchdog import watchdog
 from .cuda_graph import CapturedStep
@@ -50,7 +51,8 @@ class TrainStep:
         step.sync()
 
     If loss_fn is None the model itself must return the scalar loss. Batch
-    arrays (numpy or tensors) are moved to the device of the model's
+    arrays (numpy, torch tensors, or the port's Tensors, which step as
+    the torch tensors they hold) are moved to the device of the model's
     parameters. On CUDA parameters each batch signature (shapes and
     dtypes of the arrays, values of the other arguments) is captured
     once as a CUDA graph, the last 8 kept; loss_fn must then take
@@ -113,6 +115,11 @@ class TrainStep:
         return torch.as_tensor(a, device=self.device)
 
     def __call__(self, *args, **kwargs):
+        # Tensor batches (a DataLoader's) step as their torch tensors, as
+        # the reference unwraps its Tensors first (jit/__init__.py:483)
+        args = [a._data if isinstance(a, Tensor) else a for a in args]
+        kwargs = {k: v._data if isinstance(v, Tensor) else v
+                  for k, v in kwargs.items()}
         opt = self.optimizer
         # FLAGS_watchdog_timeout_s arms a hang detector around the step,
         # as the reference's TrainStep does; armed, the step waits for

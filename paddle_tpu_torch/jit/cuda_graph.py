@@ -24,17 +24,27 @@ made after another was freed brings a fresh pool.
 ``captures``, ``capture_seconds`` and ``replays`` count by the name each
 caller gives its graphs ("engine_decode", "generate_prefill",
 "generate_decode", "train_step"), as the kernels count their launches.
+
+Every capture holds ``capture_lock``. CUDA refuses many calls (an
+allocation, an event wait) from any thread of the process while a
+capture is under way, and the refusal invalidates the capture; a thread
+that makes such calls beside a capturing consumer (a DataLoader's
+prefetch thread issuing a batch's copy to the card) takes the lock
+around them.
 """
 from __future__ import annotations
 
 import collections
 import gc
+import threading
 import time
 
 import torch
 
 __all__ = ["CapturedStep", "captures", "capture_seconds", "replays",
-           "reset_counters"]
+           "reset_counters", "capture_lock"]
+
+capture_lock = threading.Lock()
 
 captures: collections.Counter = collections.Counter()
 capture_seconds: collections.Counter = collections.Counter()
@@ -92,7 +102,7 @@ class CapturedStep:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph, pool=pool):
+            with capture_lock, torch.cuda.graph(self.graph, pool=pool):
                 self.output = fn()
         finally:
             if collecting:

@@ -121,14 +121,19 @@ def layer_gpt_loss(P, model, ids, labels):
 def train_steps(P, model, opt, batches, amp=False, place=None,
                 on_step=None):
     """One step of `opt` on `model` per (ids, labels) of `batches` (numpy
-    int arrays), in bf16 O1 ``auto_cast`` when `amp`; the losses as
-    floats. `on_step(i)` runs before step i."""
+    int arrays, or int32 Tensors as a DataLoader yields them, taken as
+    they are), in bf16 O1 ``auto_cast`` when `amp`; the losses as floats.
+    `on_step(i)` runs before step i."""
+
+    def tensor(a):
+        return a if isinstance(a, P.Tensor) else P.to_tensor(
+            np.asarray(a, np.int32), place=place)
+
     losses = []
     for i, (ids, labels) in enumerate(batches):
         if on_step is not None:
             on_step(i)
-        ids_t = P.to_tensor(np.asarray(ids, np.int32), place=place)
-        labels_t = P.to_tensor(np.asarray(labels, np.int32), place=place)
+        ids_t, labels_t = tensor(ids), tensor(labels)
         with P.amp.auto_cast(enable=amp, level="O1", dtype="bfloat16"):
             loss = layer_gpt_loss(P, model, ids_t, labels_t)
         loss.backward()

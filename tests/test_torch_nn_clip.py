@@ -157,6 +157,16 @@ PORTED_MODULES = {
             "vgg19"}),
     "paddle_tpu.vision.models.resnet": (
         "paddle_tpu_torch.vision.models.resnet", set()),
+    # io and the vision input path (ROADMAP item 27); vision.ops is item 25's
+    "paddle_tpu.io": ("paddle_tpu_torch.io", set()),
+    "paddle_tpu.io.native": ("paddle_tpu_torch.io.native", set()),
+    "paddle_tpu.io._process_worker": ("paddle_tpu_torch.io._process_worker",
+                                      set()),
+    "paddle_tpu.vision": ("paddle_tpu_torch.vision", {"ops"}),
+    "paddle_tpu.vision.transforms": ("paddle_tpu_torch.vision.transforms",
+                                     set()),
+    "paddle_tpu.vision.datasets": ("paddle_tpu_torch.vision.datasets",
+                                   set()),
     "paddle_tpu.kernels.pallas.flash_attention": (
         "paddle_tpu_torch.kernels.flash_attention", set()),
     "paddle_tpu.kernels.pallas.norms": ("paddle_tpu_torch.kernels.norms",

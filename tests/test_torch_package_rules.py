@@ -1,7 +1,9 @@
 """paddle_tpu_torch's package rules: it never imports jax or anything of
 paddle_tpu (chip_smoke.py neither), serving GPT and LLaMA, training (a
-ResNet too) and the fused incubate ops included, and its entry points
-run on the CUDA card unless the caller asks for the CPU."""
+ResNet too), the fused incubate ops and the input path (io, the vision
+transforms and datasets, the DataLoader's spawned workers) included, and
+its entry points run on the CUDA card unless the caller asks for the
+CPU."""
 import os
 import re
 import subprocess
@@ -70,6 +72,14 @@ step = TrainStep(rm, Momentum(learning_rate=0.1, momentum=0.9,
 img = np.random.default_rng(0).standard_normal((2, 32, 32, 3))
 assert np.isfinite(float(step(img.astype(np.float32),
                               np.array([1, 2], np.int32))))
+from paddle_tpu_torch import io
+from paddle_tpu_torch.vision import datasets, transforms
+paddle_tpu_torch.set_device("cpu")
+pipe = transforms.Compose([transforms.RandomResizedCrop(8),
+                           transforms.Normalize(0.5, 0.5, data_format="HWC")])
+imgs = [(pipe(np.full((12, 12, 3), k, np.uint8)), k) for k in range(4)]
+x, y = next(iter(io.DataLoader(imgs, batch_size=4)))
+assert x.shape == [4, 8, 8, 3] and y.dtype == paddle_tpu_torch.int32
 bad = [k for k in sys.modules
        if k == "jax" or k.startswith("jax.") or k == "paddle_tpu"
        or k.startswith("paddle_tpu.")]
@@ -95,6 +105,20 @@ def test_sources_import_no_jax_or_paddle_tpu():
         text = f.read_text()
         hits = [m.group(0) for m in pat.finditer(text)]
         assert not hits, f"{f.relative_to(ROOT)}: {hits}"
+
+
+def test_loader_workers_load_no_jax_and_make_no_cuda_context():
+    """The DataLoader's spawned workers import the port, never JAX or
+    paddle_tpu, and never create a CUDA context: the env guard hides the
+    card before the dataset is unpickled (on a box with a card too:
+    tests/test_torch_io_cuda.py)."""
+    import torch_io_cases as C
+    from paddle_tpu_torch.io import DataLoader
+    from torch_port_helpers import cpu_place
+    with cpu_place():
+        rows = np.concatenate([b.numpy() for b in DataLoader(
+            C.ModulesProbeDs(n=4), batch_size=2, num_workers=2)])
+    assert rows.tolist() == [[0, 0]] * 4
 
 
 def test_entry_points_need_cuda_unless_cpu_requested():

@@ -98,3 +98,35 @@ def test_parameter_param_attr_and_io_match_the_reference():
         assert inspect.signature(port) == inspect.signature(ref)
     port_head, _ = _split(inspect.signature(ptt.load))
     assert port_head[0][0] == "path"
+
+
+IO_NAMES = ["DataLoader", "Dataset", "TensorDataset", "ComposeDataset",
+            "ChainDataset", "Subset", "random_split", "Sampler",
+            "SequenceSampler", "RandomSampler", "WeightedRandomSampler",
+            "BatchSampler", "DistributedBatchSampler", "default_collate_fn",
+            "get_worker_info"]
+TRANSFORM_NAMES = ["Compose", "ToTensor", "Normalize", "Resize",
+                   "CenterCrop", "RandomCrop", "RandomHorizontalFlip",
+                   "RandomVerticalFlip", "RandomResizedCrop", "Transpose",
+                   "to_tensor", "normalize", "resize", "hflip", "vflip",
+                   "center_crop"]
+DATASET_NAMES = ["MNIST", "FashionMNIST", "Cifar10", "Cifar100", "Flowers",
+                 "DatasetFolder"]
+
+
+def _callable_sig(obj):
+    return inspect.signature(obj.__init__ if inspect.isclass(obj) else obj)
+
+
+@pytest.mark.parametrize("module,name", [
+    *(("io", n) for n in IO_NAMES),
+    *(("vision.transforms", n) for n in TRANSFORM_NAMES),
+    *(("vision.datasets", n) for n in DATASET_NAMES)])
+def test_io_and_vision_match_the_reference(module, name):
+    """The loader, its datasets and samplers, the transforms and the
+    vision datasets take the reference's parameters exactly."""
+    import importlib
+    port = importlib.import_module(f"paddle_tpu_torch.{module}")
+    ref = importlib.import_module(f"paddle_tpu.{module}")
+    assert _callable_sig(getattr(port, name)) == \
+        _callable_sig(getattr(ref, name))

@@ -234,6 +234,41 @@ Run from the root of a checkout. Phases, each of which must pass:
      and this process's segments gone after; (d) phase 22's nn.Layer
      GPT fed its 3 batches by a DataLoader with 2 workers, bit-equal to
      phase 22's steps, B1 and B2 at 12 sm90 launches a step.
+ 24. the LSTM language model of tests/lstm_lm_script.py at Zaremba et
+     al.'s "large" PTB config (2 layers of 1500, 10,000 words, batch 20
+     x 35 steps, 66.0 M parameters, f32, SGD lr 1, weights uniform in
+     ±0.04 from numpy seed 0, random tokens): 3 eager steps on CUDA
+     Tensors at dropout 0.65 with clip_grad_norm_(10), the states
+     carried and detached (step ms by wall, one more step profiled:
+     device ms, idle share); 2 + 10 TrainStep calls through one
+     captured graph at dropout 0.65, the states carried in tensors the
+     step writes (one capture, every later call a replay, no kernel of
+     the port launched: the recurrence is plain PyTorch); the step by
+     wall and by replay, the idle share, tokens/s and peak memory; at
+     dropout 0 in f32 (TF32 off), 3 graph steps held to 3 of the same
+     step run eagerly and to the script's 3 eager Tensor steps by
+     phase 7's rule, the carried states to the script's; the port's
+     nn.LSTM alone forward + backward beside torch.nn.LSTM (cuDNN, a
+     yardstick only) with the same weights, held to it; one LBFGS step
+     (strong Wolfe, history 10, max_iter 5): the loss falls and every
+     iteration begins below max_eval;
+ 25. nn.functional.flash_attn_unpadded through B1/B2: 32 sequences of
+     128-512 tokens from a numpy seed packed into one row (the total
+     padded to a multiple of 128), at bert_base's widths (12 x 64,
+     non-causal) and gpt2_small's (causal, equal packings), bf16: one
+     sm90 B1 and one sm90 B2 launch a call with segment ids, the
+     outputs and gradients held to B1/B2's plain versions in f32 on
+     the card (phase 3's bf16 limit), padding rows and their
+     gradients exactly 0; timed by events (the call, forward +
+     backward) and B1 / B2 alone by replay beside the same sequences
+     padded to [32, 512], with the block pairs each walks;
+ 26. the rest of the nn surface: the new op cases of phase 22's sweep
+     (card against CPU) reported; weight_quantize (int8, int4,
+     llm.int8) codes and scales equal to the CPU's, weight_only_linear
+     (int8, int4) and llm_int8_linear at LLaMA-2-7B's MLP widths (4096
+     -> 11008, 2048 tokens, bf16) held to the CPU, LLM.int8()'s split
+     equal, each timed beside a bf16 product; LSTM, GRU and SimpleRNN
+     (2 layers, bidirect) on the card held to the CPU.
 
 The last three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
@@ -4271,6 +4306,7 @@ def eager_op_sweep(C) -> dict:
     finally:
         tdevice._current_place = saved_place
     ran = set().union(*seen.values()) if seen else set()
+    nn_cases = {n: errs[n] for n in C.NN_CASES}
     by_module = {}
     for name, ops in seen.items():
         for op in ops:
@@ -4279,7 +4315,9 @@ def eager_op_sweep(C) -> dict:
     return dict(cases=len(C.CASES), ops_in_table=len(OPS),
                 ops_run=len(ran), not_run=sorted(set(OPS) - ran),
                 failures=failures, max_abs_err_by_module=by_module,
-                max_abs_err=max(errs.values()))
+                max_abs_err=max(errs.values()), nn_cases=nn_cases,
+                nn_failures=[f for f in failures
+                             if f.split(":")[0] in nn_cases])
 
 
 def eager_random_checks(C) -> dict:
@@ -5175,6 +5213,697 @@ def io_phase(resnet) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 24: an LSTM language model at PTB-large widths
+# ---------------------------------------------------------------------------
+def lstm_train_step(model, lr, layers, batch, hidden, device="cuda"):
+    """(TrainStep, (h, c)) for the LSTM LM of tests/lstm_lm_script.py
+    with SGD at `lr`: the loss function starts each batch from the
+    states (h, c) [layers, batch, hidden] (zeros at first; clones, so
+    autograd keeps its inputs) and writes the batch's final states into
+    them, so the states carry across the graph's replays as they do
+    across eager steps. TrainStep clips nothing (as the reference's)."""
+    import torch
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch import jit
+    carry = tuple(torch.zeros((layers, batch, hidden), device=device)
+                  for _ in range(2))
+
+    def loss_fn(m, ids, labels):
+        logits, h, c = m(ids, carry[0].clone(), carry[1].clone())
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1))
+        with torch.no_grad():
+            carry[0].copy_(h)
+            carry[1].copy_(c)
+        return loss
+
+    opt = SGD(learning_rate=lr,
+              parameters=torch.nn.Module.parameters(model))
+    return jit.TrainStep(model, opt, loss_fn), carry
+
+
+# phase 24: the LSTM LM of tests/lstm_lm_script.py at its PTB_LARGE config
+# (2 layers of 1500, 10,000 words, batch 20 x 35 steps): 3 eager steps
+# on Tensors, 2 + 10 TrainStep calls through its graph (the timed run,
+# dropout 0.65), 3 graph steps held to 3 eager ones at dropout 0, the
+# LSTM alone beside cuDNN's, then one LBFGS step
+LSTM_EAGER_STEPS = 3
+LSTM_WARMUP, LSTM_TIMED = 2, 10
+LSTM_LBFGS = dict(line_search_fn="strong_wolfe", history_size=10,
+                  max_iter=5)
+# the port's LSTM against torch.nn.LSTM (cuDNN) at the same widths in
+# f32 with TF32 off: the same gates in the same order, summed in other
+# orders over 35 steps
+LSTM_VS_CUDNN_TOL = 1e-4
+
+
+def _port_kernel_counts():
+    """Every counter of the port's kernels and of their plain versions
+    (B1, B2, B3, B4, B5, the update), and a function that sets them to
+    0."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
+    from paddle_tpu_torch.kernels import norms
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    fns = (fa.flash_fwd, fa.flash_bwd, rpa.ragged_paged_attention,
+           norms.layer_norm_fwd, norms.rms_norm_fwd, mta.multi_tensor_adam)
+
+    def read():
+        return [(f.kernel_launches, f.plain_calls) for f in fns]
+
+    def reset():
+        for f in fns:
+            f.kernel_launches = f.plain_calls = 0
+
+    return read, reset
+
+
+def _lm_setup():
+    """(the script module, its PTB_LARGE config, the weights from numpy
+    seed 0, the batches of every run)."""
+    S = _tests_module("lstm_lm_script")
+    c = S.PTB_LARGE
+    weights = S.lm_weights(c["vocab_size"], c["hidden_size"],
+                           c["num_layers"], seed=0,
+                           init_scale=c["init_scale"])
+    n = max(LSTM_EAGER_STEPS + 1, LSTM_WARMUP + LSTM_TIMED)
+    batches = S.lm_batches(c["vocab_size"], c["batch_size"],
+                           c["num_steps"], n, seed=0)
+    return S, c, weights, batches
+
+
+def _lm_eager(P, S, c, weights, batches) -> dict:
+    """Run 1: LSTM_EAGER_STEPS eager steps on CUDA Tensors through the
+    script (dropout 0.65, SGD lr 1, clip_grad_norm_ 10, the states
+    carried and detached), each timed by wall to its loss's host read,
+    then one more step under torch.profiler: its device ms and idle
+    share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    L, B, H = c["num_layers"], c["batch_size"], c["hidden_size"]
+    model = S.lm_from_weights(P, weights, L, c["dropout"])
+    opt = P.optimizer.SGD(learning_rate=c["lr"],
+                          parameters=model.parameters())
+    marks = []
+
+    def mark(_i=None):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    losses, states = S.lm_steps(
+        P, model, opt, batches[:LSTM_EAGER_STEPS],
+        S.zero_states(P, L, B, H, place="gpu:0"), c["max_grad_norm"],
+        place="gpu:0", on_step=mark)
+    mark()
+    step_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        more, _ = S.lm_steps(P, model, opt, batches[LSTM_EAGER_STEPS:
+                                                    LSTM_EAGER_STEPS + 1],
+                             states, c["max_grad_norm"], place="gpu:0")
+        wall = 1e3 * (time.perf_counter() - t)
+    dev = _device_ms(prof)
+    events = sum(e.count for e in prof.key_averages())
+    del model, opt, states, prof
+    return dict(losses=losses + more, step_ms=step_ms,
+                profiled_step=dict(wall_ms=wall, device_ms=dev,
+                                   idle_share=1 - dev / wall,
+                                   device_events=events))
+
+
+def _lm_graph_run(P, S, c, weights, batches) -> dict:
+    """Run 2, the timed run: LSTM_WARMUP + LSTM_TIMED TrainStep calls at
+    dropout 0.65 through one captured graph (chip_smoke.lstm_train_step:
+    the states carried in the tensors the step writes), a batch of its
+    own each call, synchronised and timed by wall; the step by replay of
+    the graph, the idle share, tokens/s and peak memory."""
+    import torch
+    from paddle_tpu_torch.jit import cuda_graph
+    L, B, H = c["num_layers"], c["batch_size"], c["hidden_size"]
+    _fresh_card()
+    model = S.lm_from_weights(P, weights, L, c["dropout"])
+    step, carry = lstm_train_step(model, c["lr"], L, B, H)
+    dev_batches = [tuple(torch.as_tensor(a, device="cuda") for a in b)
+                   for b in batches]
+    read, reset = _port_kernel_counts()
+    reset()
+    cuda_graph.reset_counters()
+    losses, step_s = [], []
+    with stream_mismatch_warnings() as warned:
+        for i in range(LSTM_WARMUP + LSTM_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = step(*dev_batches[i])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            losses.append(float(loss))
+    captures, replays = dict(cuda_graph.captures), dict(cuda_graph.replays)
+    port_kernels = read()
+    carried = float(carry[0].abs().sum()) > 0 and float(
+        carry[1].abs().sum()) > 0
+    graph = next(iter(step._graphs.values()))[0].graph
+    replay_ms = _replay_ms(graph)
+    del graph
+    wall_ms = 1e3 * statistics.median(step_s[LSTM_WARMUP:])
+    tokens = B * c["num_steps"]
+    n = sum(p.numel() for p in torch.nn.Module.parameters(model))
+    rec = dict(params=n, tokens_per_step=tokens, losses=losses,
+               step_ms_median=wall_ms,
+               step_ms=[1e3 * s for s in step_s[LSTM_WARMUP:]],
+               first_step_ms=1e3 * step_s[0],
+               capture_s=cuda_graph.capture_seconds["train_step"],
+               step_ms_replay=replay_ms, idle_share=1 - replay_ms / wall_ms,
+               tokens_per_s=tokens / (wall_ms / 1e3),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+               captures=captures, replays=replays,
+               stream_warnings=len(warned), states_carried=carried,
+               port_kernel_counts=port_kernels)
+    _check("[lstm] graph run:", {
+        "every loss finite": all(np.isfinite(losses)),
+        "one graph captured, every later step a replay": (
+            captures, replays) == ({"train_step": 1}, {
+                "train_step": LSTM_WARMUP + LSTM_TIMED - 1}),
+        "the states carried across the replays (nonzero)": carried,
+        "no kernel of the port on this path and no plain version (the "
+        "recurrence is plain PyTorch, no TPU kernel stands behind it)":
+            not any(map(any, port_kernels)),
+        "no AccumulateGrad stream-mismatch warning": not warned,
+    }, rec)
+    del model, step, carry, dev_batches
+    return rec
+
+
+def _lm_state(model):
+    """Copies of `model`'s state (torch's state_dict values), in order."""
+    import torch
+    return [v.detach().clone()
+            for v in torch.nn.Module.state_dict(model).values()]
+
+
+def _lm_parity(P, S, c, weights, batches) -> dict:
+    """Run 3, at dropout 0 in f32 with TF32 off: 3 TrainStep calls
+    through the graph, 3 through the same step run eagerly
+    (``step._eager``), and the script's 3 eager Tensor steps without a
+    clip (TrainStep clips nothing, as the reference's), each from the
+    weights; the graph's held to both by phase 7's rule (_held_to), and
+    its carried states to the script's last ones."""
+    import torch
+    L, B, H = c["num_layers"], c["batch_size"], c["hidden_size"]
+    n = LSTM_EAGER_STEPS
+    dev_batches = [tuple(torch.as_tensor(a, device="cuda") for a in b)
+                   for b in batches[:n]]
+    runs = {}
+    with _f32_exact():
+        for eager in (False, True):
+            _fresh_card()
+            model = S.lm_from_weights(P, weights, L, 0.0)
+            step, carry = lstm_train_step(model, c["lr"], L, B, H)
+            step._eager = eager
+            losses = [float(step(*b)) for b in dev_batches]
+            runs[eager] = (losses, _lm_state(model),
+                           [t.clone() for t in carry])
+            del model, step, carry
+        model = S.lm_from_weights(P, weights, L, 0.0)
+        opt = P.optimizer.SGD(learning_rate=c["lr"],
+                              parameters=model.parameters())
+        s_losses, (h, c_) = S.lm_steps(
+            P, model, opt, batches[:n],
+            S.zero_states(P, L, B, H, place="gpu:0"), place="gpu:0")
+        script = (s_losses, _lm_state(model), [h._data, c_._data])
+        del model, opt
+    (g_losses, g_params, g_carry) = runs[False]
+    to_eager = _held_to(g_losses, runs[True][0], g_params, runs[True][1],
+                        c["lr"], n)
+    to_script = _held_to(g_losses, script[0], g_params, script[1], c["lr"],
+                         n)
+    states_err = max(float((a - b).abs().max())
+                     for a, b in zip(g_carry, script[2]))
+    rec = dict(graph_losses=g_losses, eager_losses=runs[True][0],
+               script_losses=script[0], to_trainstep_eager=to_eager,
+               to_script=to_script, carried_states_max_abs_diff=states_err)
+    _check("[lstm] parity, dropout 0:", {
+        "graph steps == TrainStep's eager steps (phase 7's rule)":
+            to_eager["ok"],
+        "graph steps == the script's eager Tensor steps (phase 7's rule)":
+            to_script["ok"],
+        "carried states == the script's (1e-4)": states_err <= 1e-4,
+    }, rec)
+    _fresh_card()
+    return rec
+
+
+def _lm_lstm_vs_cudnn(P, c, weights) -> dict:
+    """The port's nn.LSTM alone (time-major, dropout 0) beside
+    torch.nn.LSTM (cuDNN, a yardstick only) with the same weights, at
+    the LM's shape: forward + backward of every weight and the input by
+    CUDA events, the port's also by graph replay; their outputs held to
+    each other in f32 with TF32 off (LSTM_VS_CUDNN_TOL)."""
+    import torch
+    L, B, H, T = (c["num_layers"], c["batch_size"], c["hidden_size"],
+                  c["num_steps"])
+    port = P.nn.LSTM(H, H, num_layers=L, time_major=True)
+    lib = torch.nn.LSTM(H, H, num_layers=L).cuda()
+    with torch.no_grad():
+        for k in range(L):
+            for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                w = torch.as_tensor(weights[f"lstm.{n}_l{k}"], device="cuda")
+                port._parameters[f"{n}_l{k}"].copy_(w)
+                getattr(lib, f"{n}_l{k}").copy_(w)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((T, B, H), generator=g, device="cuda").requires_grad_()
+    h0 = torch.zeros((L, B, H), device="cuda")
+    dout = torch.randn((T, B, H), generator=g, device="cuda")
+    p_params = list(torch.nn.Module.parameters(port)) + [x]
+    l_params = list(lib.parameters()) + [x]
+
+    def port_fb():
+        out, _ = port(x, (h0, h0))
+        return torch.autograd.grad(out, p_params, dout)
+
+    def lib_fb():
+        out, _ = lib(x, (h0, h0))
+        return torch.autograd.grad(out, l_params, dout)
+
+    with _f32_exact():
+        got, want = port_fb(), lib_fb()
+        with torch.no_grad():
+            out_p, out_l = port(x, (h0, h0))[0], lib(x, (h0, h0))[0]
+        err = max([_norm_err(out_p, out_l, rows=False)]
+                  + [_norm_err(a, b, rows=False) for a, b in zip(got, want)])
+    with _f32_exact():      # both in full f32: no TF32 on either side
+        rec = dict(port_fwd_bwd_ms=cuda_ms(port_fb, iters=10),
+                   port_fwd_bwd_ms_graph=graph_ms(port_fb, reps=2, iters=5),
+                   cudnn_fwd_bwd_ms=cuda_ms(lib_fb, iters=10),
+                   port_vs_cudnn_norm_err=err)
+    rec["factor"] = rec["port_fwd_bwd_ms"] / rec["cudnn_fwd_bwd_ms"]
+    _check("[lstm] nn.LSTM vs cuDNN:", {
+        f"outputs and grads within {LSTM_VS_CUDNN_TOL:g}":
+            err <= LSTM_VS_CUDNN_TOL}, rec)
+    del port, lib, got, want
+    return rec
+
+
+def _lm_lbfgs(P, S, c, weights, batches) -> dict:
+    """Run 5: one LBFGS step (LSTM_LBFGS, lr 1) over the dropout-0 model
+    on the first batch from zero states: the loss before and after, the
+    closure calls, and the calls made before each iteration began (the
+    reference's max_eval rule: an iteration begins only below
+    max_eval), timed by wall."""
+    import torch
+    L, B, H = c["num_layers"], c["batch_size"], c["hidden_size"]
+    _fresh_card()
+    model = S.lm_from_weights(P, weights, L, 0.0)
+    opt = P.optimizer.LBFGS(learning_rate=1.0, parameters=list(
+        torch.nn.Module.parameters(model)), **LSTM_LBFGS)
+    ids, labels = (torch.as_tensor(a, device="cuda") for a in batches[0])
+    zeros = torch.zeros((L, B, H), device="cuda")
+    calls, begins = [0], []
+
+    def closure():
+        calls[0] += 1
+        opt.clear_grad()
+        loss = S.lm_loss(P, model, ids, labels, zeros, zeros)[0]
+        loss.backward()
+        return loss
+
+    direction = opt._direction
+
+    def counted(g):
+        begins.append(calls[0])
+        return direction(g)
+
+    opt._direction = counted
+    with torch.no_grad():
+        f0 = float(S.lm_loss(P, model, ids, labels, zeros, zeros)[0])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    f_step = float(opt.step(closure))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    with torch.no_grad():
+        f1 = float(S.lm_loss(P, model, ids, labels, zeros, zeros)[0])
+    rec = dict(loss_before=f0, loss_after=f1, step_returned=f_step,
+               closure_calls=calls[0], max_eval=opt.max_eval,
+               calls_at_iteration_starts=begins, seconds=secs,
+               history=len(opt._s_hist),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    _check("[lstm] LBFGS:", {
+        "the loss fell": f1 < f0,
+        "every iteration began below max_eval (the reference's rule)":
+            all(b < opt.max_eval for b in begins),
+        "the closure calls are the step's count of evaluations":
+            calls[0] == opt._n_evals,
+    }, rec)
+    del model, opt
+    _fresh_card()
+    return rec
+
+
+def lstm_phase() -> dict:
+    """Phase 24: the LSTM language model at PTB-large widths."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import device as tdevice
+    S, c, weights, batches = _lm_setup()
+    saved = tdevice._current_place
+    P.set_device("gpu:0")
+    try:
+        eager = _lm_eager(P, S, c, weights, batches)
+        graph = _lm_graph_run(P, S, c, weights, batches)
+        parity = _lm_parity(P, S, c, weights, batches)
+        cudnn = _lm_lstm_vs_cudnn(P, c, weights)
+        lbfgs = _lm_lbfgs(P, S, c, weights, batches)
+    finally:
+        tdevice._current_place = saved
+    rec = dict(config=c, eager=eager, graph=graph, parity=parity,
+               lstm_vs_cudnn=cudnn, lbfgs=lbfgs)
+    prof = eager["profiled_step"]
+    log(f"[lstm] PTB-large LM ({graph['params']} params, "
+        f"{graph['tokens_per_step']} tokens a step, dropout "
+        f"{c['dropout']}): eager steps "
+        f"{[round(x, 1) for x in eager['step_ms']]} ms by wall (profiled "
+        f"step: device {prof['device_ms']:.1f} of {prof['wall_ms']:.1f} "
+        f"ms, idle {100 * prof['idle_share']:.1f} %); graph step "
+        f"median {graph['step_ms_median']:.2f} ms by wall, "
+        f"{graph['step_ms_replay']:.2f} by replay (idle "
+        f"{100 * graph['idle_share']:.1f} %), {graph['tokens_per_s']:.0f} "
+        f"tokens/s, peak {graph['peak_mem_gb']:.2f} GiB, capture "
+        f"{graph['capture_s']:.2f} s; losses eager "
+        f"{[round(x, 4) for x in eager['losses']]} graph "
+        f"{[round(x, 4) for x in graph['losses']]}")
+    log(f"[lstm] parity at dropout 0: graph {parity['graph_losses']} vs "
+        f"TrainStep eager {parity['eager_losses']} vs script "
+        f"{parity['script_losses']}; params max diff "
+        f"{parity['to_trainstep_eager']['param_max_abs_diff']:.3e} / "
+        f"{parity['to_script']['param_max_abs_diff']:.3e}; states "
+        f"{parity['carried_states_max_abs_diff']:.3e}")
+    log(f"[lstm] nn.LSTM 2x{c['hidden_size']} fwd+bwd at "
+        f"[{c['num_steps']}, {c['batch_size']}]: port "
+        f"{cudnn['port_fwd_bwd_ms']:.2f} ms by events "
+        f"({cudnn['port_fwd_bwd_ms_graph']:.2f} by replay), cuDNN "
+        f"{cudnn['cudnn_fwd_bwd_ms']:.2f} ms (x{cudnn['factor']:.1f}); "
+        f"norm err vs cuDNN {cudnn['port_vs_cudnn_norm_err']:.2e}")
+    log(f"[lstm] LBFGS {LSTM_LBFGS}: loss {lbfgs['loss_before']:.4f} -> "
+        f"{lbfgs['loss_after']:.4f}, {lbfgs['closure_calls']} closure calls"
+        f" (max_eval {lbfgs['max_eval']}; at iteration starts "
+        f"{lbfgs['calls_at_iteration_starts']}), {lbfgs['seconds']:.2f} s")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 25: flash_attn_unpadded through B1/B2
+# ---------------------------------------------------------------------------
+# (name, heads, head_dim, causal, seed): bert_base's widths non-causal,
+# gpt2_small's causal (equal packings); each 32 sequences of 128-512
+# tokens drawn from the seed, packed, the total padded to a multiple of
+# 128
+UNPADDED_CASES = [("bert_base non-causal", 12, 64, False, 0),
+                  ("gpt2_small causal", 12, 64, True, 1)]
+UNPADDED_SEQS, UNPADDED_MIN, UNPADDED_MAX = 32, 128, 512
+
+
+def _unpadded_inputs(H, D, seed):
+    import torch
+    lens = np.random.default_rng(seed).integers(
+        UNPADDED_MIN, UNPADDED_MAX + 1, UNPADDED_SEQS)
+    cu = np.cumsum([0] + list(lens)).astype(np.int32)
+    total = -(-int(cu[-1]) // 128) * 128
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((total, H, D), generator=g, device="cuda"
+                               ).to(torch.bfloat16) for _ in range(4))
+    return lens, cu, total, q, k, v, do
+
+
+def _block_pairs(cu, total, causal, per_seq=None):
+    """The 128 x 128 (q, k) block pairs B1 walks on the packed row (every
+    pair, or below the diagonal when causal), those whose segment ranges
+    meet (what a kernel that skipped segment-disjoint pairs would walk),
+    and the padded batch's [n_seqs, per_seq] pairs, per head."""
+    n = total // 128
+    seg = np.full(total, -1)
+    for i in range(len(cu) - 1):
+        seg[cu[i]:cu[i + 1]] = i
+    blocks = seg.reshape(n, 128)
+    lo = np.where(blocks >= 0, blocks, 1 << 30).min(1)
+    hi = blocks.max(1)
+    walk = meet = 0
+    for i in range(n):
+        for j in range(i + 1 if causal else n):
+            walk += 1
+            meet += int(hi[i] >= 0 and hi[j] >= 0 and lo[i] <= hi[j]
+                        and lo[j] <= hi[i])
+    m = (per_seq or UNPADDED_MAX) // 128
+    padded = (len(cu) - 1) * (m * (m + 1) // 2 if causal else m * m)
+    return dict(packed=walk, segments_meet=meet, padded=padded)
+
+
+def unpadded_case(name, H, D, causal, seed) -> dict:
+    """One flash_attn_unpadded case: the call end to end in bf16 with its
+    backward, B1/B2's launches counted by design around it; outputs and
+    gradients held to B1/B2's plain versions run in f32 on the card on
+    the same bf16 values (B2's from B1's own o and lse; FLASH_TOL bf16,
+    as phase 3), padding rows and
+    their gradients exactly 0; then timed by events (the call, its
+    forward + backward) and B1 / B2 alone by graph replay, beside the
+    same sequences padded to [n_seqs, 512] through B1 / B2 without
+    segment ids, and the block pairs each walks."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn import functional as F
+    lens, cu, total, q, k, v, do = _unpadded_inputs(H, D, seed)
+    cu_t = torch.as_tensor(cu, device="cuda")
+    mx = int(lens.max())
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    fa.reset_counters()
+    out, soft = F.flash_attn_unpadded(qg, kg, vg, cu_t, cu_t, mx, mx,
+                                      causal=causal)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launches = dict(fwd=dict(fa.flash_fwd.design_launches),
+                    bwd=dict(fa.flash_bwd.design_launches),
+                    plain=(fa.flash_fwd.plain_calls,
+                           fa.flash_bwd.plain_calls))
+    end = int(cu[-1])
+    pad_zero = all(not bool(t[end:].any())
+                   for t in (out, qg.grad, kg.grad, vg.grad))
+    # B1 / B2's plain versions (f32 inside) on the same bf16 operands,
+    # B2's from the kernel's own (o, lse), as phase 3 holds them: B2's
+    # delta reads o as B1 rounded it
+    sc = D ** -0.5
+    qs = q * float(torch.tensor(sc, dtype=q.dtype))
+    q_seg = F._segments_of(cu_t, total, q.device)
+    kv_seg = torch.where(q_seg < 0, -2, q_seg)
+    segs = (q_seg[None], kv_seg[None])
+    qs1, k1, v1, do1 = qs[None], k[None], v[None], do[None]
+    o1, lse1 = fa._fwd_cuda(qs1, k1, v1, causal, segs)
+    wo, _ = fa.flash_fwd(qs1, k1, v1, causal, segs, path="torch")
+    wdq, wdk, wdv = fa.flash_bwd(qs1, k1, v1, o1, lse1, do1, sc, causal,
+                                 segs, path="torch")
+    pairs = (("o", out.detach(), wo), ("dq", qg.grad, wdq),
+             ("dk", kg.grad, wdk), ("dv", vg.grad, wdv))
+    errs = {n: _norm_err(g[None], w) for n, g, w in pairs}
+    abs_errs = {n: float((g[None].float() - w.float()).abs().max())
+                for n, g, w in pairs}
+    same_o = torch.equal(o1[0], out.detach())
+    del pairs
+    del wo, wdq, wdk, wdv
+    torch.cuda.empty_cache()
+    # times
+    call = lambda: F.flash_attn_unpadded(q, k, v, cu_t, cu_t, mx, mx,
+                                         causal=causal)
+    fwd_bwd = lambda: torch.autograd.grad(
+        F.flash_attn_unpadded(qg, kg, vg, cu_t, cu_t, mx, mx,
+                              causal=causal)[0], (qg, kg, vg), do)
+    b1 = lambda: fa._fwd_cuda(qs1, k1, v1, causal, segs)
+    b2 = lambda: fa._bwd_cuda(qs1, k1, v1, o1, lse1, do1, causal, segs, sc)
+    # the padded yardstick: each sequence at the start of its own row
+    nseq = len(lens)
+    pads = [torch.zeros((nseq, UNPADDED_MAX, H, D), dtype=q.dtype,
+                        device="cuda") for _ in range(4)]
+    for i in range(nseq):
+        for p, t in zip(pads, (qs, k, v, do)):
+            p[i, :lens[i]] = t[cu[i]:cu[i + 1]]
+    po, plse = fa._fwd_cuda(pads[0], pads[1], pads[2], causal, None)
+    b1p = lambda: fa._fwd_cuda(pads[0], pads[1], pads[2], causal, None)
+    b2p = lambda: fa._bwd_cuda(pads[0], pads[1], pads[2], po, plse, pads[3],
+                               causal, None, sc)
+    pairs_valid = int(sum(int(n) * (int(n) + 1) // 2 if causal
+                          else int(n) ** 2 for n in lens)) * H
+    spec = (1, total, total, H, H, D, causal, True, False)
+    rec = dict(case=name, seqs=nseq, tokens=end, total=total, H=H, D=D,
+               causal=causal, launches_by_design=launches,
+               padding_exactly_zero=pad_zero,
+               call_o_equals_b1s=same_o, norm_err=errs,
+               max_abs_err=abs_errs, call_ms=cuda_ms(call),
+               fwd_bwd_ms=cuda_ms(fwd_bwd), b1_ms_graph=graph_ms(b1),
+               b2_ms_graph=graph_ms(b2), padded_b1_ms_graph=graph_ms(b1p),
+               padded_b2_ms_graph=graph_ms(b2p),
+               block_pairs=_block_pairs(cu, total, causal),
+               valid_pairs=pairs_valid)
+    for kind in ("fwd", "bwd"):
+        bms, by, _nb, _fl = _flash_bound(spec, pairs_valid, 2, kind == "bwd")
+        rec[f"{kind}_bound_ms"], rec[f"{kind}_bound_by"] = bms, by
+    rec["b1_factor_vs_padded"] = rec["b1_ms_graph"] / rec["padded_b1_ms_graph"]
+    rec["b2_factor_vs_padded"] = rec["b2_ms_graph"] / rec["padded_b2_ms_graph"]
+    _check(f"[unpadded] {name}:", {
+        "one sm90 B1 and one sm90 B2 launch, no plain version": (
+            launches["fwd"], launches["bwd"], launches["plain"]) == (
+            {"sm90": 1, "simple": 0}, {"sm90": 1, "simple": 0}, (0, 0)),
+        "the softmax is not returned": soft is None,
+        "padding rows and their gradients exactly 0": pad_zero,
+        "the call's output is B1's on the packed row": same_o,
+        f"o, dq, dk, dv within {FLASH_TOL['bf16']:.2e} of the plain "
+        "versions (f32 inside; B2's from B1's o and lse)":
+            max(errs.values()) <= FLASH_TOL["bf16"],
+    }, rec)
+    bp = rec["block_pairs"]
+    log(f"[unpadded] {name}: {nseq} sequences, {end} tokens packed into "
+        f"{total}; launches {launches}; normalised err "
+        f"{ {n: f'{e:.2e}' for n, e in errs.items()} }; the call "
+        f"{rec['call_ms']:.3f} ms by events, fwd+bwd "
+        f"{rec['fwd_bwd_ms']:.3f}; B1 {rec['b1_ms_graph']:.4f} ms by replay"
+        f" (padded [{nseq}, {UNPADDED_MAX}] {rec['padded_b1_ms_graph']:.4f},"
+        f" x{rec['b1_factor_vs_padded']:.2f}; bound "
+        f"{rec['fwd_bound_ms']:.4f} {rec['fwd_bound_by']}), B2 "
+        f"{rec['b2_ms_graph']:.4f} (padded {rec['padded_b2_ms_graph']:.4f},"
+        f" x{rec['b2_factor_vs_padded']:.2f}; bound {rec['bwd_bound_ms']:.4f}"
+        f"); block pairs a head: packed {bp['packed']}, of which "
+        f"{bp['segments_meet']} meet a segment, padded {bp['padded']}")
+    del q, k, v, do, qg, kg, vg, out, pads, po, plse, o1, lse1
+    _fresh_card()
+    return rec
+
+
+def unpadded_phase() -> list:
+    """Phase 25: flash_attn_unpadded through B1/B2."""
+    return [unpadded_case(*case) for case in UNPADDED_CASES]
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the rest of the nn surface on the card
+# ---------------------------------------------------------------------------
+# LLaMA-2-7B's MLP up projection: 4096 -> 11008, 2048 tokens, bf16
+QUANT_IN, QUANT_OUT, QUANT_TOKENS = 4096, 11008, 2048
+# the card against the CPU on the same bf16 inputs: both dequantize to
+# f32 and sum 4096 f32 products (in other orders), then round to bf16;
+# a sum near a rounding boundary lands on either side: one bf16 ulp
+# (2^-8 relative) of the row's size
+QUANT_TOL = 2.0 ** -7
+# the bidirectional RNNs, card against CPU in f32 with TF32 off: the
+# same recurrence, its products summed in other orders over 20 steps
+RNN_CARD_TOL = 1e-4
+
+
+def _quant_on_card() -> dict:
+    """weight_quantize (int8, int4, llm.int8) on the card and on the
+    CPU from the same f32 weight: the codes and scales equal exactly;
+    weight_only_linear (int8, int4) and llm_int8_linear on bf16
+    activations (two columns of outliers for LLM.int8()) held to the CPU
+    within QUANT_TOL, LLM.int8()'s split (outlier columns, int8 codes)
+    equal exactly; each timed by events beside a bf16 torch.matmul of
+    the dequantized weight (a yardstick)."""
+    import torch
+    from paddle_tpu_torch.nn import quant as tq
+    g = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn((QUANT_IN, QUANT_OUT), generator=g, device="cuda") * 0.02
+    x = torch.randn((QUANT_TOKENS, QUANT_IN), generator=g, device="cuda")
+    x[:, 7] *= 40.0
+    x[:, QUANT_IN // 4] *= 25.0
+    x = x.to(torch.bfloat16)
+    w_cpu, x_cpu = w.cpu(), x.cpu()
+    rec, checks = {}, {}
+    for algo, wdt in (("weight_only_int8", "int8"),
+                      ("weight_only_int4", "int4"), ("llm.int8", None)):
+        q, s = tq.weight_quantize(w, algo=algo)
+        q_cpu, s_cpu = tq.weight_quantize(w_cpu, algo=algo)
+        same = torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)
+        checks[f"{algo} codes and scales equal the CPU's"] = same
+        if wdt is not None:
+            fn = lambda: tq.weight_only_linear(x, q, None, s, wdt)
+            want = tq.weight_only_linear(x_cpu, q_cpu, None, s_cpu, wdt)
+        else:
+            fn = lambda: tq.llm_int8_linear(x, q, None, s)
+            want = tq.llm_int8_linear(x_cpu, q_cpu, None, s_cpu)
+            split = tq._int8_split(x.float(), 6.0)
+            split_cpu = tq._int8_split(x_cpu.float(), 6.0)
+            checks["LLM.int8() outlier columns and codes equal the CPU's"] = (
+                torch.equal(split[0].cpu(), split_cpu[0])
+                and torch.equal(split[2].cpu(), split_cpu[2]))
+            rec["llm_int8_outlier_columns"] = int(split[0].sum())
+        err = _norm_err(fn().cpu(), want)
+        checks[f"{algo} product within {QUANT_TOL:g} of the CPU's"] = \
+            err <= QUANT_TOL
+        wdq = tq.weight_dequantize(q, s, "weight_only_int4" if wdt == "int4"
+                                   else "weight_only_int8", "bfloat16")
+        rec[algo] = dict(norm_err=err, ms=cuda_ms(fn, iters=10),
+                         bf16_matmul_ms=cuda_ms(lambda: x @ wdq, iters=10),
+                         codes_bytes=q.numel() * q.element_size())
+    _check("[nn-surface] quant at LLaMA-2-7B's MLP widths:", checks, rec)
+    return rec
+
+
+def _rnn_on_card() -> dict:
+    """LSTM, GRU and SimpleRNN, 2 layers, direction "bidirect", on the
+    card and on the CPU from the same weights and inputs (f32, TF32
+    off): outputs, final states and the grads of the input and every
+    weight within RNN_CARD_TOL (normalised by each tensor's size)."""
+    import torch
+    import paddle_tpu_torch as P
+    rec, checks = {}, {}
+    x0 = np.random.default_rng(3).standard_normal((8, 20, 64)).astype(
+        np.float32)
+    for mode in ("LSTM", "GRU", "SimpleRNN"):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            layer = getattr(P.nn, mode)(64, 128, num_layers=2,
+                                        direction="bidirect", device=dev)
+            if dev == "cpu":
+                sd = {k: v.numpy() for k, v in layer.state_dict().items()}
+            else:
+                layer.set_state_dict(sd)
+            x = torch.tensor(x0, device=dev, requires_grad=True)
+            with _f32_exact():
+                out, st = layer(x)
+                flat = [out] + (list(st) if mode == "LSTM" else [st])
+                crng = np.random.default_rng(4)
+                cot = [torch.tensor(crng.standard_normal(tuple(t.shape)),
+                                    dtype=torch.float32, device=dev)
+                       for t in flat]
+                grads = torch.autograd.grad(
+                    flat, list(torch.nn.Module.parameters(layer)) + [x],
+                    cot)
+            outs[dev] = [t.detach().cpu() for t in flat + list(grads)]
+        err = max(_norm_err(a, b, rows=False)
+                  for a, b in zip(outs["cuda"], outs["cpu"]))
+        rec[mode] = dict(norm_err=err)
+        checks[f"{mode} bidirect: outputs, states and grads within "
+               f"{RNN_CARD_TOL:g} of the CPU"] = err <= RNN_CARD_TOL
+    _check("[nn-surface] RNN layers on the card:", checks, rec)
+    return rec
+
+
+def surface_phase(eager) -> dict:
+    """Phase 26: the new ops' cases of phase 22's sweep (card against
+    CPU), quantized linears at LLaMA-2-7B's MLP widths against the CPU,
+    and the bidirectional RNN layers against the CPU."""
+    sweep = eager["sweep"]
+    cases = sweep["nn_cases"]
+    _check("[nn-surface] sweep:", {
+        f"the {len(cases)} new cases agree with the CPU (phase 22)":
+            not sweep["nn_failures"],
+    }, cases)
+    quant = _quant_on_card()
+    rnn = _rnn_on_card()
+    log(f"[nn-surface] {len(cases)} new op cases on the card, largest "
+        f"difference {max(cases.values()):.2e}; quant "
+        + "; ".join(f"{a}: {r['ms']:.3f} ms (bf16 matmul "
+                    f"{r['bf16_matmul_ms']:.3f}), err {r['norm_err']:.2e}"
+                    for a, r in quant.items() if isinstance(r, dict))
+        + f"; RNN bidirect vs CPU {json.dumps(rnn)}")
+    return dict(sweep_cases=cases, quant=quant, rnn=rnn)
+
+
 def main() -> int:
     try:
         import torch
@@ -5218,6 +5947,9 @@ def main() -> int:
     int8 = int8_engine_phase()
     eager = eager_phase(train)
     io = io_phase(train_resnet)
+    lstm = lstm_phase()
+    unpadded = unpadded_phase()
+    surface = surface_phase(eager)
     runs_17_18 =(("llama13b", train_llama["no_recompute"]),
                   ("llama13b_recompute", train_llama["recompute"]),
                   ("bert_base", train_bert))
@@ -5311,6 +6043,9 @@ def main() -> int:
             launches_io=sum(
                 s["sm90"] for s in io["gpt"][
                     "b1_by_step" if i == 0 else "b2_by_step"]),
+            # phase 25: flash_attn_unpadded's packed calls, one a case
+            launches_unpadded=sum(
+                c["launches_by_design"][kind]["sm90"] for c in unpadded),
             max_abs_err=max(e for c in flash for dt in ("bf16", "f16")
                             for what, e in c[f"max_abs_err_{dt}"].items()
                             if (what in ("o", "lse")) == (kind == "fwd")),
@@ -5398,6 +6133,9 @@ def main() -> int:
     log("[int8] " + json.dumps(int8))
     log("[eager] " + json.dumps(eager))
     log("[io] " + json.dumps(io))
+    log("[lstm] " + json.dumps(lstm))
+    log("[unpadded] " + json.dumps(unpadded))
+    log("[nn-surface] " + json.dumps(surface))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import os
 import queue
+import secrets
 import threading
 import time
 
@@ -517,13 +518,19 @@ class DataLoader:
             (self.dataset, custom, self.worker_init_fn))
         # io.* faults cross the spawn boundary via snapshot/install
         specs = faults.snapshot()
-        prefix = PW.shm_prefix(os.getpid())
+        # this epoch's segments, by worker incarnation: a dead one's are
+        # swept by name (_process_worker's docstring says why)
+        prefix = PW.shm_prefix(os.getpid()) + secrets.token_hex(4)
+
+        def seg_prefix(w, attempt):
+            return f"{prefix}w{w}a{attempt}_"
 
         def spawn(w, resume_from=0, attempt=0):
             p = ctx.Process(
                 target=PW.worker_main,
                 args=(w, W, payload_bytes, idx_batches, queues[w], stop,
-                      resume_from, specs, attempt, False, prefix),
+                      resume_from, specs, attempt, False,
+                      seg_prefix(w, attempt)),
                 daemon=True)
             p.start()
             return p
@@ -569,6 +576,7 @@ class DataLoader:
                                 break
                             if kind == "batch":
                                 PW.discard(payload)
+                        PW.sweep(seg_prefix(w, restarts[w] - 1))
                         queues[w] = ctx.Queue(maxsize=self.prefetch_factor)
                         q = queues[w]
                         procs[w] = spawn(w, resume_from=bi,
@@ -659,6 +667,7 @@ class DataLoader:
                         break
                     if kind == "batch":
                         PW.discard(payload)
+            PW.sweep(prefix)
 
     def _iter_buffered(self, feed):
         """One prefetch thread loads, collates and (with the default

@@ -19,8 +19,10 @@ Tensors, on the card through one pinned copy a batch
 (``io/_device_feed.py``). Large arrays travel through
 multiprocessing.shared_memory (one copy into the segment, one copy out
 in the parent, no pickle of the payload bytes); small leaves ride the
-queue pickle. Segments are named ``pttio_<parent pid>_<token>``, so a
-process can count its own loader's segments in /dev/shm.
+queue pickle. Segments are named ``pttio_<parent pid>_<epoch
+token>w<worker>a<attempt>_<token>``, so a process can count its own
+loaders' segments in /dev/shm and a loader can find those of one worker
+incarnation.
 
 Self-healing contract: a worker that dies without reporting (OOM kill,
 segfault, the chaos fault `io.worker.batch`) is detected by the
@@ -29,11 +31,13 @@ the first batch the parent still needs; on every soft exit path
 (orderly stop, early consumer exit, error) SharedMemory payloads that
 never reached the parent are unlinked (worker-side for unplaced ones,
 parent-side `discard()` after join for in-flight ones), so /dev/shm
-does not leak. Known residual window, as in the reference: a hard kill
-landing strictly between segment creation in `_pack` and the payload
-reaching the parent's queue can leak that one batch's segments (they
-are unregistered from the resource tracker so ownership can pass to the
-consumer).
+does not leak. A hard kill can land between segment creation in
+`_pack` and the payload reaching the parent's queue (the queue's feeder
+thread dies with the process before it flushes); those segments are
+unregistered from the resource tracker so ownership can pass to the
+consumer, so the parent unlinks them by name (`sweep`): a dead
+incarnation's after draining its queue, and the whole epoch's when the
+iterator ends.
 
 Observability (the reference's worker metrics and trace events) waits
 for ROADMAP item 8: `obs_enabled` is kept and must be off, and the
@@ -157,6 +161,22 @@ def discard(obj):
     elif isinstance(obj, dict):
         for v in obj.values():
             discard(v)
+
+
+def sweep(prefix):
+    """Unlink every /dev/shm segment whose name starts with `prefix`:
+    those of worker incarnations that died before their payloads
+    reached the parent."""
+    try:
+        names = os.listdir("/dev/shm")
+    except FileNotFoundError:
+        return
+    for name in names:
+        if name.startswith(prefix):
+            try:
+                os.unlink(os.path.join("/dev/shm", name))
+            except FileNotFoundError:
+                pass
 
 
 def attach(obj, segments):

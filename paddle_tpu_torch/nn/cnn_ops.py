@@ -1,7 +1,10 @@
 """Convolution, pooling and batch norm (counterparts of
 paddle_tpu/ops/nn_ops.py:235-437 and :523-571, and of
-ops/vision_ops.py:38's ``conv3d_transpose``), re-exported by
-``nn.functional``.
+ops/vision_ops.py:38's ``conv3d_transpose``), and the spatial ops (the
+1-D and 3-D adaptive max pools, the shuffles, ``interpolate`` /
+``upsample``, ``unfold_im2col``, ``temporal_shift``, ``affine_grid``,
+nn.functional's ``grid_sample``, and vision_ops' ``fold`` and
+``unpool``), re-exported by ``nn.functional``.
 
 The reference computes these with XLA, not Pallas: convolutions through
 ``lax.conv_general_dilated``, pools through ``lax.reduce_window``, batch
@@ -46,7 +49,11 @@ __all__ = ["conv1d", "conv2d", "conv3d", "conv2d_transpose",
            "conv3d_transpose", "max_pool1d", "max_pool2d", "max_pool3d",
            "avg_pool1d", "avg_pool2d", "avg_pool3d", "adaptive_avg_pool1d",
            "adaptive_avg_pool2d", "adaptive_avg_pool3d",
-           "adaptive_max_pool2d", "batch_norm"]
+           "adaptive_max_pool2d", "batch_norm", "adaptive_max_pool1d",
+           "adaptive_max_pool3d", "pixel_shuffle", "pixel_unshuffle",
+           "channel_shuffle", "interpolate", "upsample", "unfold_im2col",
+           "fold", "unpool", "temporal_shift", "affine_grid",
+           "grid_sample"]
 
 
 # ---------------------------------------------------------------- helpers
@@ -347,7 +354,9 @@ def _adaptive(x, output_size, n, data_format, kind):
     fn = {("avg", 1): TF.adaptive_avg_pool1d,
           ("avg", 2): TF.adaptive_avg_pool2d,
           ("avg", 3): TF.adaptive_avg_pool3d,
-          ("max", 2): TF.adaptive_max_pool2d}[kind, n]
+          ("max", 1): TF.adaptive_max_pool1d,
+          ("max", 2): TF.adaptive_max_pool2d,
+          ("max", 3): TF.adaptive_max_pool3d}[kind, n]
     return _restore_layout(fn(xc, out), channel_last)
 
 
@@ -493,3 +502,346 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     if bias is not None:
         out = out + bias.reshape(shape)
     return out, new_rm, new_rv
+
+
+# ---------------------------------------------------------------- adaptive max
+def _adaptive_max_mask(x, output_size, n):
+    """(max, argmax) of the adaptive windows of an NC* input, the argmax
+    int32 and flat into the input's spatial volume (the unpool
+    contract)."""
+    fn = {1: TF.adaptive_max_pool1d, 3: TF.adaptive_max_pool3d}[n]
+    out, idx = fn(x, _norm_tuple(output_size, n), return_indices=True)
+    return out, idx.to(torch.int32)
+
+
+@register_op("adaptive_max_pool1d", amp_in_fn=True)
+def adaptive_max_pool1d(x, output_size, return_mask=False):
+    """nn_ops.py:1171: the max of each adaptive window along L; with
+    `return_mask` also the int32 argmax positions along L."""
+    (x,) = _amp("adaptive_max_pool1d", None, x)
+    if return_mask:
+        return _adaptive_max_mask(x, output_size, 1)
+    return _adaptive(x, output_size, 1, "NCW", "max")
+
+
+@register_op("adaptive_max_pool3d", amp_in_fn=True)
+def adaptive_max_pool3d(x, output_size, data_format="NCDHW",
+                        return_mask=False):
+    """nn_ops.py:1197: the max of each adaptive window; with
+    `return_mask` (NCDHW only, as in the reference) also the int32
+    argmax flat into D*H*W."""
+    (x,) = _amp("adaptive_max_pool3d", None, x)
+    if not return_mask:
+        return _adaptive(x, output_size, 3, data_format, "max")
+    if data_format[-1] == "C":
+        raise NotImplementedError(
+            "adaptive_max_pool3d(return_mask=True) supports NCDHW only "
+            "(the reference AdaptiveMaxPool3D has no data_format)")
+    return _adaptive_max_mask(x, output_size, 3)
+
+
+# ---------------------------------------------------------------- shuffles
+@register_op("pixel_shuffle", amp_in_fn=True)
+def pixel_shuffle(x, upscale_factor, data_format="NCHW"):
+    (x,) = _amp("pixel_shuffle", None, x)
+    r = upscale_factor
+    if data_format == "NCHW":
+        n, c, h, w = x.shape
+        x = x.reshape(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+        return x.reshape(n, c // (r * r), h * r, w * r)
+    n, h, w, c = x.shape
+    x = x.reshape(n, h, w, r, r, c // (r * r)).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h * r, w * r, c // (r * r))
+
+
+@register_op("pixel_unshuffle", amp_in_fn=True)
+def pixel_unshuffle(x, downscale_factor, data_format="NCHW"):
+    """NCHW, as the reference computes it whatever `data_format` says."""
+    (x,) = _amp("pixel_unshuffle", None, x)
+    r = downscale_factor
+    n, c, h, w = x.shape
+    x = x.reshape(n, c, h // r, r, w // r, r).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(n, c * r * r, h // r, w // r)
+
+
+@register_op("channel_shuffle", amp_in_fn=True)
+def channel_shuffle(x, groups, data_format="NCHW"):
+    """NCHW, as the reference computes it whatever `data_format` says."""
+    (x,) = _amp("channel_shuffle", None, x)
+    n, c, h, w = x.shape
+    return x.reshape(n, groups, c // groups, h, w).transpose(1, 2).reshape(
+        n, c, h, w)
+
+
+# ---------------------------------------------------------------- resize
+def _jnp_linspace(start, stop, num, device):
+    """jnp.linspace in f32: start * (1 - i / (num - 1)) + stop * i /
+    (num - 1), the last point `stop` itself."""
+    if num == 1:
+        return torch.full((1,), float(start), device=device)
+    step = torch.arange(num - 1, dtype=torch.float32, device=device) \
+        / (num - 1)
+    out = start * (1 - step) + stop * step
+    return torch.cat([out, torch.full((1,), float(stop), device=device)])
+
+
+def _keys_cubic(x):
+    """The Keys cubic kernel with a = -0.5 (jax.image's CUBIC)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+def _triangle(x):
+    return torch.clamp_min(1 - x.abs(), 0.0)
+
+
+def _resize_weights(n_in, n_out, kernel, device):
+    """jax.image's weight matrix [n_in, n_out] for one axis: half-pixel
+    sample points, the kernel widened by the downsampling factor (its
+    antialiasing), each column normalised to sum 1, columns whose sample
+    lies outside the input zeroed; in f32."""
+    inv = 1.0 / (n_out / n_in)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device)
+              + 0.5) * inv - 0.5
+    x = (sample[None, :] - torch.arange(
+        n_in, dtype=torch.float32, device=device)[:, None]).abs() \
+        / max(inv, 1.0)
+    w = kernel(x)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def _along(x, ax, w):
+    """x contracted with w [x.shape[ax], n] on axis `ax` (which becomes
+    n long)."""
+    return torch.matmul(x.movedim(ax, -1), w).movedim(-1, ax)
+
+
+def _resize(x, shape, method):
+    """jax.image.resize(x, shape, method) (antialiased), each axis whose
+    size changes in turn: "nearest" takes index floor((i + 0.5) * n_in
+    / n_out) (half-pixel centres, torch's "nearest-exact"), "linear" and
+    "cubic" contract with ``_resize_weights``."""
+    if method == "nearest":
+        for ax, n in enumerate(shape):
+            m = x.shape[ax]
+            if m == n:
+                continue
+            off = (torch.arange(n, dtype=torch.float32, device=x.device)
+                   + 0.5) * m / n
+            x = x.index_select(ax, torch.floor(off).long())
+        return x
+    if not (x.is_floating_point() or x.is_complex()):
+        x = x.float()
+    kernel = _triangle if method == "linear" else _keys_cubic
+    for ax, n in enumerate(shape):
+        if x.shape[ax] != n:
+            x = _along(x, ax, _resize_weights(x.shape[ax], n, kernel,
+                                              x.device).to(x.dtype))
+    return x
+
+
+def _resize_align_corners(x, shape, channel_last):
+    """nn_ops.py:979: linear interpolation on each spatial axis at the
+    points jnp.linspace(0, n_in - 1, n_out) (whatever the mode)."""
+    axes = range(1, x.dim() - 1) if channel_last else range(2, x.dim())
+    out = x
+    for ax in axes:
+        n_in, n_out = x.shape[ax], shape[ax]
+        if n_in == n_out:
+            continue
+        pos = _jnp_linspace(0.0, n_in - 1.0, n_out, x.device)
+        lo = torch.floor(pos).long()
+        hi = torch.clamp_max(lo + 1, n_in - 1)
+        bshape = [1] * out.dim()
+        bshape[ax] = n_out
+        w = (pos - lo).to(x.dtype).reshape(bshape)
+        out = out.index_select(ax, lo) * (1 - w) \
+            + out.index_select(ax, hi) * w
+    return out
+
+
+_RESIZE_MODES = {"nearest": "nearest", "bilinear": "linear",
+                 "linear": "linear", "trilinear": "linear",
+                 "bicubic": "cubic", "area": "linear"}
+
+
+@register_op("interpolate", amp_in_fn=True)
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, data_format="NCHW"):
+    """nn_ops.py:955: resize the spatial axes to `size` (or int(s * f)
+    of `scale_factor`) as jax.image.resize computes it, which differs
+    from torch.nn.functional.interpolate: "nearest" takes half-pixel
+    centres (torch's "nearest-exact"), linear and cubic antialias when
+    they downsample, "area" is antialiased linear, and cubic is Keys'
+    with a = -0.5 (torch's bicubic uses -0.75). With `align_corners`
+    every mode but "nearest" interpolates linearly between the corners
+    (``_resize_align_corners``)."""
+    (x,) = _amp("interpolate", None, x)
+    channel_last = data_format[-1] == "C"
+    spatial = tuple(x.shape[1:-1] if channel_last else x.shape[2:])
+    if size is None:
+        if isinstance(scale_factor, (int, float)):
+            scale_factor = [scale_factor] * len(spatial)
+        size = [int(s * f) for s, f in zip(spatial, scale_factor)]
+    size = [int(s.item()) if hasattr(s, "item") else int(s) for s in (
+        size if isinstance(size, (list, tuple)) else [size])]
+    method = _RESIZE_MODES[mode]
+    if channel_last:
+        shape = (x.shape[0],) + tuple(size) + (x.shape[-1],)
+    else:
+        shape = tuple(x.shape[:2]) + tuple(size)
+    if mode == "nearest":
+        return _resize(x, shape, "nearest")
+    if align_corners:
+        return _resize_align_corners(x, shape, channel_last)
+    return _resize(x, shape, method)
+
+
+@register_op("upsample", amp_in_fn=True)
+def upsample(x, size=None, scale_factor=None, mode="nearest",
+             align_corners=False, data_format="NCHW"):
+    return interpolate.raw_fn(x, size, scale_factor, mode, align_corners,
+                              data_format)
+
+
+# ---------------------------------------------------------------- patches
+@register_op("unfold_im2col", amp_in_fn=True)
+def unfold_im2col(x, kernel_sizes, strides=1, paddings=0, dilations=1):
+    """[N, C * kh * kw, L] patch columns (channel-major, then the kernel
+    rows and columns) of a zero-padded NCHW input (nn_ops.py:1001)."""
+    (x,) = _amp("unfold_im2col", None, x)
+    n, c, h, w = x.shape
+    kh, kw = _norm_tuple(kernel_sizes, 2)
+    sh, sw = _norm_tuple(strides, 2)
+    ph, pw = _norm_tuple(paddings, 2)
+    dh, dw = _norm_tuple(dilations, 2)
+    xp = TF.pad(x, [pw, pw, ph, ph])
+    oh = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    ow = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    patches = [xp[:, :, i * dh:i * dh + oh * sh:sh, j * dw:j * dw + ow * sw:sw]
+               for i in range(kh) for j in range(kw)]
+    return torch.stack(patches, 2).reshape(n, c * kh * kw, oh * ow)
+
+
+@register_op("fold", amp_in_fn=True)
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0,
+         dilations=1):
+    """col2im (ops/vision_ops.py:147), the inverse of unfold: [N, C * kh
+    * kw, L] patch columns summed into [N, C, H, W]."""
+    (x,) = _amp("fold", None, x)
+    kh, kw = _norm_tuple(kernel_sizes, 2)
+    sh, sw = _norm_tuple(strides, 2)
+    dh, dw = _norm_tuple(dilations, 2)
+    pad = _conv_padding(paddings, 2)
+    H, W = _norm_tuple(output_sizes, 2)
+    N, CKK, _ = x.shape
+    C = CKK // (kh * kw)
+    Hp, Wp = H + pad[0][0] + pad[0][1], W + pad[1][0] + pad[1][1]
+    Lh = (Hp - dh * (kh - 1) - 1) // sh + 1
+    Lw = (Wp - dw * (kw - 1) - 1) // sw + 1
+    cols = x.reshape(N, C, kh, kw, Lh, Lw)
+    out = torch.zeros((N, C, Hp, Wp), dtype=x.dtype, device=x.device)
+    for iy in range(kh):
+        for ix in range(kw):
+            out[:, :, iy * dh:iy * dh + Lh * sh:sh,
+                ix * dw:ix * dw + Lw * sw:sw] += cols[:, :, iy, ix]
+    return out[:, :, pad[0][0]:Hp - pad[0][1], pad[1][0]:Wp - pad[1][1]]
+
+
+@register_op("unpool", amp_in_fn=True)
+def unpool(x, indices, kernel_size=2, stride=None, padding=0,
+           output_size=None):
+    """max_unpool2d (ops/vision_ops.py:229): each pooled value written
+    at its flat H * W index of a zero [N, C, H, W], H and W from the
+    pool's arguments unless `output_size` gives them."""
+    (x,) = _amp("unpool", None, x)
+    N, C, Ho, Wo = x.shape
+    if output_size is None:
+        kh, kw = _norm_tuple(kernel_size, 2)
+        sh, sw = _norm_tuple(stride if stride is not None else kernel_size,
+                             2)
+        pad = _conv_padding(padding, 2)
+        H = (Ho - 1) * sh - pad[0][0] - pad[0][1] + kh
+        W = (Wo - 1) * sw - pad[1][0] - pad[1][1] + kw
+    else:
+        H, W = output_size[-2:]
+    flat = torch.zeros((N, C, H * W), dtype=x.dtype, device=x.device)
+    flat = flat.scatter(2, indices.reshape(N, C, -1).long(),
+                        x.reshape(N, C, -1))
+    return flat.reshape(N, C, H, W)
+
+
+@register_op("temporal_shift", amp_in_fn=True)
+def temporal_shift(x, seg_num, shift_ratio=0.25, data_format="NCHW"):
+    """The first shift_ratio of the channels shifted one segment back in
+    time, the next as many one forward, zeros where nothing shifts in
+    (nn_ops.py:1021)."""
+    (x,) = _amp("temporal_shift", None, x)
+    nt, c, h, w = x.shape
+    xr = x.reshape(nt // seg_num, seg_num, c, h, w)
+    fold_ = int(c * shift_ratio)
+    left = torch.cat([xr[:, 1:, :fold_],
+                      torch.zeros_like(xr[:, :1, :fold_])], 1)
+    right = torch.cat([torch.zeros_like(xr[:, :1, fold_:2 * fold_]),
+                       xr[:, :-1, fold_:2 * fold_]], 1)
+    return torch.cat([left, right, xr[:, :, 2 * fold_:]], 2).reshape(
+        nt, c, h, w)
+
+
+@register_op("affine_grid", amp_in_fn=True)
+def affine_grid(theta, out_shape, align_corners=True):
+    """[N, H, W, 2] sampling points: theta [N, 2, 3] applied to the (x,
+    y, 1) grid over [-1, 1] (corner-aligned, or pixel centres)."""
+    (theta,) = _amp("affine_grid", None, theta)
+    _, _, h, w = [int(v) for v in out_shape]
+    dev = theta.device
+    if align_corners:
+        ys = _jnp_linspace(-1.0, 1.0, h, dev)
+        xs = _jnp_linspace(-1.0, 1.0, w, dev)
+    else:
+        ys = (torch.arange(h, device=dev) + 0.5) / h * 2 - 1
+        xs = (torch.arange(w, device=dev) + 0.5) / w * 2 - 1
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    base = torch.stack([gx, gy, torch.ones_like(gx)], -1)
+    return torch.einsum("hwk,njk->nhwj", base.to(theta.dtype), theta)
+
+
+@register_op("grid_sample", amp_in_fn=True)
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True):
+    """x [N, C, H, W] sampled at grid [N, Hg, Wg, 2] in [-1, 1]
+    (paddle_tpu/nn/functional/__init__.py:58): bilinear from the four
+    neighbours, or the nearest (rounded half to even); "zeros" zeroes
+    neighbours outside the image, any other padding_mode clamps them to
+    the border."""
+    x, grid = _amp("grid_sample", None, x, grid)
+    n, c, h, w = x.shape
+    gx, gy = grid[..., 0], grid[..., 1]
+    if align_corners:
+        fx, fy = (gx + 1) * (w - 1) / 2, (gy + 1) * (h - 1) / 2
+    else:
+        fx, fy = ((gx + 1) * w - 1) / 2, ((gy + 1) * h - 1) / 2
+    flat = x.reshape(n, c, h * w)
+
+    def gather(xi, yi):
+        idx = torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1)
+        val = flat.gather(2, idx.reshape(n, 1, -1).expand(n, c, -1)
+                          ).reshape(n, c, *idx.shape[1:])
+        if padding_mode == "zeros":
+            valid = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+            val = val * valid[:, None].to(val.dtype)
+        return val
+
+    if mode == "nearest":
+        return gather(torch.round(fx).long(), torch.round(fy).long())
+    x0, y0 = torch.floor(fx).long(), torch.floor(fy).long()
+    wx, wy = (fx - x0)[:, None], (fy - y0)[:, None]
+    return (gather(x0, y0) * (1 - wx) * (1 - wy)
+            + gather(x0 + 1, y0) * wx * (1 - wy)
+            + gather(x0, y0 + 1) * (1 - wx) * wy
+            + gather(x0 + 1, y0 + 1) * wx * wy)

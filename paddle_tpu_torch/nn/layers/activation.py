@@ -1,12 +1,22 @@
 """Activation layers (counterpart of paddle_tpu/nn/layers/activation.py)
-over the activations ``nn.functional`` has: ReLU, GELU, Silu (also
-spelt SiLU, and Swish), Tanh."""
+over the activations of ``nn.functional``, on the
+reference's constructors. As in the reference, ``Hardsigmoid`` takes no
+slope or offset (the op's defaults) and ``Softmax2D`` is the softmax
+over the channel axis of a 3-D or 4-D input. ``PReLU``'s weight
+([num_parameters], ``init``) takes the port's keyword-only ``device``,
+``dtype`` and ``init_generator``."""
 from __future__ import annotations
 
 from .. import functional as F
+from ..initializer import Constant
 from ..layer import Layer
 
-__all__ = ["ReLU", "GELU", "Silu", "SiLU", "Swish", "Tanh"]
+__all__ = ["ReLU", "ReLU6", "GELU", "Sigmoid", "Tanh", "Softmax",
+           "LogSoftmax", "LeakyReLU", "PReLU", "ELU", "SELU", "CELU",
+           "Silu", "SiLU", "Swish", "Mish", "Hardswish", "Hardsigmoid",
+           "Hardtanh", "Hardshrink", "Softshrink", "Tanhshrink", "Softplus",
+           "Softsign", "ThresholdedReLU", "LogSigmoid", "Maxout", "GLU",
+           "Softmax2D"]
 
 
 class ReLU(Layer):
@@ -15,6 +25,14 @@ class ReLU(Layer):
 
     def forward(self, x):
         return F.relu(x)
+
+
+class ReLU6(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.relu6(x)
 
 
 class GELU(Layer):
@@ -26,12 +44,90 @@ class GELU(Layer):
         return F.gelu(x, self.approximate)
 
 
+class Sigmoid(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.sigmoid(x)
+
+
 class Tanh(Layer):
     def __init__(self, name=None):
         super().__init__()
 
     def forward(self, x):
         return F.tanh(x)
+
+
+class Softmax(Layer):
+    def __init__(self, axis=-1, name=None):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return F.softmax(x, self.axis)
+
+
+class LogSoftmax(Layer):
+    def __init__(self, axis=-1, name=None):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return F.log_softmax(x, self.axis)
+
+
+class LeakyReLU(Layer):
+    def __init__(self, negative_slope=0.01, name=None):
+        super().__init__()
+        self.negative_slope = negative_slope
+
+    def forward(self, x):
+        return F.leaky_relu(x, self.negative_slope)
+
+
+class PReLU(Layer):
+    def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
+                 data_format="NCHW", name=None, *, device=None,
+                 dtype="float32", init_generator=None):
+        super().__init__(dtype=dtype)
+        self.data_format = data_format
+        self.weight = self.create_parameter(
+            (num_parameters,), attr=weight_attr,
+            default_initializer=Constant(init), device=device,
+            generator=init_generator)
+
+    def forward(self, x):
+        return F.prelu(x, self._parameters["weight"], self.data_format)
+
+
+class ELU(Layer):
+    def __init__(self, alpha=1.0, name=None):
+        super().__init__()
+        self.alpha = alpha
+
+    def forward(self, x):
+        return F.elu(x, self.alpha)
+
+
+class SELU(Layer):
+    def __init__(self, scale=1.0507009873554805, alpha=1.6732632423543772,
+                 name=None):
+        super().__init__()
+        self.scale, self.alpha = scale, alpha
+
+    def forward(self, x):
+        return F.selu(x, self.scale, self.alpha)
+
+
+class CELU(Layer):
+    def __init__(self, alpha=1.0, name=None):
+        super().__init__()
+        self.alpha = alpha
+
+    def forward(self, x):
+        return F.celu(x, self.alpha)
 
 
 class Silu(Layer):
@@ -47,3 +143,123 @@ class Swish(Silu):
 
 
 SiLU = Silu  # the reference exports both spellings
+
+
+class Mish(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.mish(x)
+
+
+class Hardswish(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.hardswish(x)
+
+
+class Hardsigmoid(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.hardsigmoid(x)
+
+
+class Hardtanh(Layer):
+    def __init__(self, min=-1.0, max=1.0, name=None):
+        super().__init__()
+        self.min, self.max = min, max
+
+    def forward(self, x):
+        return F.hardtanh(x, self.min, self.max)
+
+
+class Hardshrink(Layer):
+    def __init__(self, threshold=0.5, name=None):
+        super().__init__()
+        self.threshold = threshold
+
+    def forward(self, x):
+        return F.hardshrink(x, self.threshold)
+
+
+class Softshrink(Layer):
+    def __init__(self, threshold=0.5, name=None):
+        super().__init__()
+        self.threshold = threshold
+
+    def forward(self, x):
+        return F.softshrink(x, self.threshold)
+
+
+class Tanhshrink(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.tanhshrink(x)
+
+
+class Softplus(Layer):
+    def __init__(self, beta=1.0, threshold=20.0, name=None):
+        super().__init__()
+        self.beta, self.threshold = beta, threshold
+
+    def forward(self, x):
+        return F.softplus(x, self.beta, self.threshold)
+
+
+class Softsign(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.softsign(x)
+
+
+class ThresholdedReLU(Layer):
+    def __init__(self, threshold=1.0, value=0.0, name=None):
+        super().__init__()
+        self.threshold, self.value = threshold, value
+
+    def forward(self, x):
+        return F.thresholded_relu(x, self.threshold, self.value)
+
+
+class LogSigmoid(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.logsigmoid(x)
+
+
+class Maxout(Layer):
+    def __init__(self, groups, axis=1, name=None):
+        super().__init__()
+        self.groups, self.axis = groups, axis
+
+    def forward(self, x):
+        return F.maxout(x, self.groups, self.axis)
+
+
+class GLU(Layer):
+    def __init__(self, axis=-1, name=None):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return F.glu(x, self.axis)
+
+
+class Softmax2D(Layer):
+    """Softmax over the channel axis (-3) of a 3-D or 4-D input."""
+
+    def forward(self, x):
+        if x.ndim not in (3, 4):
+            raise ValueError("Softmax2D expects 3D or 4D input")
+        return F.softmax(x, axis=-3)

@@ -34,6 +34,9 @@ from .reduction import *  # noqa: F401,F403
 from .registry import OPS, get_op, register_op  # noqa: F401
 from .search import *  # noqa: F401,F403
 from ..nn.functional import conv3d_transpose, pad  # noqa: F401
+# the reference's ops namespace also carries these of ops/vision_ops.py
+# and ops/longtail.py
+from ..nn.functional import fold, rnnt_loss_op, unpool  # noqa: F401
 from ..core.generator import torch_generator as _torch_generator
 from .math import abs as _abs_op, pow as _pow_op
 from .math import add, divide, floor_divide, mod, multiply, neg, subtract

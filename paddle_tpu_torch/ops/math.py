@@ -2,12 +2,13 @@
 
 Binary ops promote two tensors of different dtypes as jnp does
 (``_util.promote``); integer inputs to a float function compute in
-float32, as jnp's do. ``tanh`` is the nn functional's registered op."""
+float32, as jnp's do. ``tanh``, ``sigmoid`` and ``logsigmoid`` are the
+nn functional's registered ops."""
 from __future__ import annotations
 
 import torch
 
-from ..nn.functional import tanh
+from ..nn.functional import logsigmoid, sigmoid, tanh
 from ._util import as_tensor, floatlike, pair as _pair, promote
 from .registry import register_op
 
@@ -357,21 +358,11 @@ def i1e(x):
     return torch.special.i1e(x)
 
 
-@register_op("sigmoid")
-def sigmoid(x):
-    return torch.sigmoid(x)
-
-
 @register_op("logit")
 def logit(x, eps=None):
     if eps is not None:
         x = torch.clamp(x, eps, 1.0 - eps)
     return torch.log(x / (1 - x))
-
-
-@register_op("logsigmoid")
-def logsigmoid(x):
-    return torch.nn.functional.logsigmoid(x)
 
 
 @register_op("rad2deg")

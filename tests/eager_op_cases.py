@@ -543,6 +543,239 @@ case("batch_norm", _batch_norm, tol=1e-5, grad_tol=1e-4)
 
 
 # ---------------------------------------------------------------------------
+# the rest of the nn surface: the other nn ops, nn.functional's own,
+# the recurrences, nn.quant (NN_CASES names them for chip_smoke.py's
+# phase 26)
+# ---------------------------------------------------------------------------
+_NN_FIRST = len(CASES)
+
+
+def _fn(P, name):
+    return getattr(P.nn.functional, name)
+
+
+for _op in ("relu6", "mish", "hardswish", "hardsigmoid", "tanhshrink",
+            "softsign", "selu"):
+    case(_op, lambda P, T, op=_op: _fn(P, op)(T(A34 * 4)), tol=1e-5)
+case("act_params", lambda P, T: (
+    P.nn.functional.leaky_relu(T(A34), 0.2),
+    P.nn.functional.elu(T(A34 * 3), 0.7),
+    P.nn.functional.celu(T(A34 * 3), 1.5),
+    P.nn.functional.hardtanh(T(A34 * 3), -0.5, 0.8),
+    P.nn.functional.hardshrink(T(A34), 0.3),
+    P.nn.functional.softshrink(T(A34), 0.3),
+    P.nn.functional.softplus(T(A34 * 30), 2.0, 20.0),
+    P.nn.functional.thresholded_relu(T(A34), 0.2, 0.5),
+    P.nn.functional.swish(T(A34))), tol=1e-5)
+case("prelu", lambda P, T: (
+    P.nn.functional.prelu(T(IMG), T(pos(4))),
+    P.nn.functional.prelu(T(IMG.transpose(0, 2, 3, 1).copy()), T(pos(4)),
+                          data_format="NHWC"),
+    P.nn.functional.prelu(T(A34), T(np.array([0.25], np.float32)))))
+case("maxout_glu", lambda P, T: (
+    P.nn.functional.maxout(T(IMG), 2), P.nn.functional.maxout(
+        T(IMG.transpose(0, 2, 3, 1).copy()), 2, axis=-1),
+    P.nn.functional.glu(T(A34)), P.nn.functional.glu(T(IMG), axis=1)),
+     tol=1e-5)
+case("softmax_family", lambda P, T: (
+    P.nn.functional.softmax(T(A345), 1),
+    P.nn.functional.log_softmax(T(A345)),
+    P.nn.functional.softmax_(T(A34), 0)), tol=1e-5)
+# the draws differ by design: the rows of a sample sum to 1, and the hard
+# sample is one-hot
+case("gumbel_softmax", lambda P, T: (
+    P.sum(P.nn.functional.gumbel_softmax(T(A34), 0.5), -1),
+    P.sum(P.nn.functional.gumbel_softmax(T(A34), hard=True), -1),
+    P.max(P.nn.functional.gumbel_softmax(T(A34), hard=True), -1)),
+     tol=1e-5, grad=False)
+case("dropouts_eval", lambda P, T: (
+    P.nn.functional.dropout2d(T(IMG), 0.5, training=False),
+    P.nn.functional.alpha_dropout(T(A34), 0.5, training=False),
+    P.nn.functional.rrelu(T(A34), training=False)))
+case("one_hot", lambda P, T: P.nn.functional.one_hot(
+    T(np.array([[0, 3], [2, 5], [-1, 1]], np.int32)), 4))
+case("group_instance_norm", lambda P, T: (
+    P.nn.functional.group_norm(T(IMG), 2, T(pos(4)), T(f32(4))),
+    P.nn.functional.group_norm(T(IMG.transpose(0, 2, 3, 1).copy()), 4,
+                               data_format="NHWC"),
+    P.nn.functional.instance_norm(T(IMG), T(pos(4)), T(f32(4))),
+    P.nn.functional.instance_norm(T(SEQ))), tol=1e-5, grad_tol=1e-4)
+case("local_response_norm", lambda P, T: P.nn.functional.local_response_norm(
+    T(IMG), 3, 1e-2, 0.75, 2.0), tol=1e-5)
+case("regression_losses", lambda P, T: [
+    getattr(P.nn.functional, op)(T(A34), T(B34), reduction=r)
+    for op in ("mse_loss", "l1_loss", "smooth_l1_loss", "huber_loss")
+    for r in ("mean", "sum", "none")], tol=1e-5)
+case("classification_losses", lambda P, T: (
+    P.nn.functional.softmax_with_cross_entropy(
+        T(A34), T(ints(0, 3, 1)[:, None])),
+    P.nn.functional.softmax_with_cross_entropy(
+        T(A34), T(ints(0, -100, 1)[:, None]), return_softmax=True),
+    P.nn.functional.softmax_with_cross_entropy(
+        T(A34), T(np.full((3, 4), 0.25, np.float32), grad=False),
+        soft_label=True),
+    P.nn.functional.nll_loss(T(A34), T(ints(0, 3, 1))),
+    P.nn.functional.nll_loss(T(A34), T(ints(0, -100, 1)), T(pos(4)),
+                             reduction="none"),
+    P.nn.functional.nll_loss(T(A34), T(ints(0, 2, 1)), T(pos(4)))),
+     tol=1e-5)
+case("binary_losses", lambda P, T: (
+    P.nn.functional.binary_cross_entropy(T(U34 * 0.5 + 0.5), T(P34 / 2)),
+    P.nn.functional.bce_loss(T(U34 * 0.5 + 0.5), T(P34 / 2), T(pos(4)),
+                             reduction="none"),
+    P.nn.functional.binary_cross_entropy_with_logits(T(A34 * 3),
+                                                     T(P34 / 2)),
+    P.nn.functional.binary_cross_entropy_with_logits(
+        T(A34 * 3), T(P34 / 2), pos_weight=T(pos(4)), reduction="sum"),
+    P.nn.functional.sigmoid_cross_entropy_with_logits(
+        T(A34 * 3), T(np.where(A34 > 0.5, -100.0, P34 / 2).astype(
+            np.float32), grad=False), normalize=True),
+    P.nn.functional.log_loss(T(U34 * 0.5 + 0.5), T(P34 / 2))), tol=1e-5,
+     grad_tol=1e-4)
+case("kl_div", lambda P, T: (
+    P.nn.functional.kl_div(T(A34), T(P34 / 2)),
+    P.nn.functional.kl_div(T(A34), T(A34 * 0.5), "batchmean", True),
+    P.nn.functional.kl_div(T(A34), T(P34 / 2), "none")), tol=1e-5)
+case("ranking_losses", lambda P, T: (
+    P.nn.functional.margin_ranking_loss(
+        T(V8), T(V8[::-1].copy()), T(np.sign(f32(8)), grad=False), 0.1),
+    P.nn.functional.hinge_embedding_loss(
+        T(A34), T(np.where(B34 > 0, 1.0, -1.0).astype(np.float32),
+                  grad=False), 0.5, "sum"),
+    P.nn.functional.cosine_embedding_loss(
+        T(A34), T(B34), T(ints(1, -1, 1), grad=False), 0.1),
+    P.nn.functional.triplet_margin_loss(T(A34), T(B34), T(P34), swap=True),
+    P.nn.functional.triplet_margin_loss(T(A34), T(B34), T(P34), p=1.0,
+                                        reduction="none"),
+    P.nn.functional.square_error_cost(T(A34), T(B34))), tol=1e-5,
+     grad_tol=1e-4)
+case("label_smooth_npair", lambda P, T: (
+    P.nn.functional.label_smooth(T(P34 / 2)),
+    P.nn.functional.label_smooth(T(P34 / 2), T(np.full((1, 4), 0.25,
+                                                       np.float32)), 0.2),
+    P.nn.functional.npair_loss(T(A34), T(B34), T(ints(0, 1, 2)))),
+     tol=1e-5)
+case("hsigmoid_loss", lambda P, T: (
+    P.nn.functional.hsigmoid_loss(T(A34), T(ints(0, 4, 2)), 6,
+                                  T(f32(5, 4)), T(f32(5))),
+    P.nn.functional.hsigmoid_loss(
+        T(A34), T(ints(0, 1, 2)), 6, T(f32(5, 4)),
+        path_table=T(np.array([[0, 1, -1], [0, 2, 4], [1, -1, -1]],
+                              np.int32)),
+        path_code=T(np.array([[1, 0, 0], [0, 1, 1], [1, 0, 0]],
+                             np.int32)))), tol=1e-5)
+case("margin_cross_entropy", lambda P, T:
+     P.nn.functional.margin_cross_entropy(
+         T(U34), T(ints(0, 3, 1)), 1.0, 0.3, 0.1, 8.0, return_softmax=True),
+     tol=1e-5, grad_tol=1e-4)
+case("bilinear", lambda P, T: P.nn.functional.bilinear(
+    T(A34), T(B34[:, :3]), T(f32(5, 4, 3)), T(f32(5))), tol=1e-5)
+case("shuffles", lambda P, T: (
+    P.nn.functional.pixel_shuffle(T(IMG), 2),
+    P.nn.functional.pixel_shuffle(T(IMG.transpose(0, 2, 3, 1).copy()), 2,
+                                  "NHWC"),
+    P.nn.functional.pixel_unshuffle(T(IMG), 2),
+    P.nn.functional.channel_shuffle(T(IMG), 2)))
+case("interpolate", lambda P, T: (
+    P.nn.functional.interpolate(T(IMG), size=[12, 5], mode="bilinear"),
+    P.nn.functional.interpolate(T(IMG), scale_factor=0.5, mode="bicubic"),
+    P.nn.functional.interpolate(T(IMG), size=[5, 11], mode="nearest"),
+    P.nn.functional.upsample(T(IMG), scale_factor=1.5, mode="bilinear",
+                             align_corners=True)), tol=1e-5)
+case("unfold_fold", lambda P, T: (
+    P.nn.functional.unfold(T(IMG), 3, 2, 1, 1),
+    P.nn.functional.fold(T(f32(2, 12, 9)), (4, 4), 2, 1)), tol=1e-5)
+case("temporal_shift_affine_grid", lambda P, T: (
+    P.nn.functional.temporal_shift(T(f32(4, 8, 3, 3)), 2, 0.25),
+    P.nn.functional.affine_grid(T(f32(2, 2, 3)), [2, 3, 5, 4]),
+    P.nn.functional.affine_grid(T(f32(2, 2, 3)), [2, 3, 4, 6],
+                                align_corners=False)), tol=1e-5)
+case("grid_sample", lambda P, T: (
+    P.nn.functional.grid_sample(T(IMG), T(U34.reshape(1, 3, 2, 2).repeat(
+        2, 0) * 1.2)),
+    P.nn.functional.grid_sample(T(IMG), T(f32(2, 3, 4, 2)),
+                                align_corners=False, padding_mode="border"),
+    P.nn.functional.grid_sample(T(IMG), T(f32(2, 3, 4, 2)),
+                                mode="nearest")), tol=1e-5, grad_tol=1e-4)
+case("adaptive_max_pools", lambda P, T: (
+    P.nn.functional.adaptive_max_pool1d(T(SEQ), 5),
+    P.nn.functional.adaptive_max_pool1d(T(SEQ), 4, return_mask=True),
+    P.nn.functional.adaptive_max_pool3d(T(IMG3), (2, 3, 4)),
+    P.nn.functional.adaptive_max_pool3d(T(IMG3), 2, return_mask=True)))
+case("unpool", lambda P, T: P.nn.functional.unpool(
+    T(f32(2, 3, 2, 2)), T(np.array([0, 3, 9, 14] * 6, np.int32).reshape(
+        2, 3, 2, 2)), 2))
+case("cosine_similarity_normalize", lambda P, T: (
+    P.nn.functional.cosine_similarity(T(A34), T(B34)),
+    P.nn.functional.cosine_similarity(T(A34), T(B34), axis=-1),
+    P.nn.functional.normalize(T(A34)),
+    P.nn.functional.normalize(T(A345), 1.0, axis=-1)), tol=1e-5)
+case("sequence_mask", lambda P, T: P.nn.functional.sequence_mask(
+    T(ints(1, 3, 0)), maxlen=4))
+
+
+def _unpadded(P, T):
+    """flash_attn_unpadded on 3 sequences packed into 128 rows, 18 of
+    them padding: the padding's outputs are 0."""
+    q, k, v = (T(f32(128, 2, 64)) for _ in range(3))
+    cu = T(ints(0, 50, 90, 110), grad=False)
+    out, soft = P.nn.functional.flash_attn_unpadded(q, k, v, cu, cu, 50, 50)
+    assert soft is None
+    return out
+
+
+case("flash_attn_unpadded", _unpadded, tol=1e-4, grad_tol=1e-4)
+
+
+def _rnnt(P, T):
+    logits = T(f32(2, 4, 3, 5) * 2)
+    labels = T(np.array([[1, 2], [3, 0]], np.int32))
+    t_len, u_len = T(ints(4, 3)), T(ints(2, 1))
+    return (P.ops.rnnt_loss_op(logits, labels, t_len, u_len),
+            P.nn.functional.rnnt_loss(logits, labels, t_len, u_len,
+                                      reduction="sum"))
+
+
+case("rnnt_loss", _rnnt, tol=1e-5, grad_tol=1e-4)
+
+
+def _scans(P, T):
+    rnn = P.nn.layers.rnn
+    x, h0, c0 = T(f32(4, 2, 3)), T(f32(2, 5)), T(f32(2, 5))
+    lstm = [T(f32(20, 3)), T(f32(20, 5)), T(f32(20)), T(f32(20))]
+    gru = [T(f32(15, 3)), T(f32(15, 5)), T(f32(15)), T(f32(15))]
+    srnn = [T(f32(5, 3)), T(f32(5, 5)), T(f32(5)), T(f32(5))]
+    return (rnn._lstm_scan(x, h0, c0, *lstm),
+            rnn._lstm_scan(x, h0, c0, *lstm, reverse=True),
+            rnn._gru_scan(x, h0, *gru, reverse=True),
+            rnn._rnn_scan(x, h0, *srnn),
+            rnn._rnn_scan(x, h0, *srnn, activation="relu", reverse=True))
+
+
+case("rnn_scans", _scans, tol=1e-5, grad_tol=1e-4)
+
+
+def _quant(P, T):
+    q = P.nn.quant
+    w = T(f32(8, 6) * 3)
+    codes8, s8 = q.weight_quantize(w)
+    codes4, s4 = q.weight_quantize(w, algo="weight_only_int4")
+    x = T(A45[:3, :4].repeat(2, 1))
+    xo = T(np.where(np.arange(8) == 2, A45[:3, :1] * 20, 1.0).astype(
+        np.float32) * f32(3, 8))
+    return (codes8, s8, codes4, s4,
+            q.weight_dequantize(codes8, s8, out_dtype="float32"),
+            q.weight_dequantize(codes4, s4, "weight_only_int4", "float32"),
+            q.weight_only_linear(x, codes8, T(f32(6)), s8),
+            q.weight_only_linear(x, codes4, None, s4, "int4"),
+            q.llm_int8_linear(xo, codes8, T(f32(6)), s8, threshold=6.0))
+
+
+case("quant", _quant, tol=1e-5, grad_tol=1e-4)
+NN_CASES = [c[0] for c in CASES[_NN_FIRST:]]
+
+
+# ---------------------------------------------------------------------------
 # running a case
 # ---------------------------------------------------------------------------
 def flat_outputs(out):

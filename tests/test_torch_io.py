@@ -323,6 +323,24 @@ class TestSelfHealingDataLoader:
             np.testing.assert_array_equal(sy, py)
 
 
+def test_sweep_unlinks_a_dead_incarnations_segments():
+    """A worker hard-killed after packing a batch, before its queue's
+    feeder flushed it, leaves segments no message names: the parent
+    unlinks them by their incarnation's prefix, and nothing else."""
+    import os
+    base = PW.shm_prefix(os.getpid()) + "feed"
+    big = np.zeros((300, 70))
+    dead, live = [], []
+    PW._pack({"x": big}, dead, base + "w0a0_")
+    PW._pack({"x": big}, live, base + "w1a0_")
+    for seg in dead + live:
+        seg.close()
+    PW.sweep(base + "w0a0_")
+    assert _own_segments() == {live[0].name}
+    PW.sweep(base)
+    assert not _own_segments()
+
+
 def test_pack_unpack_round_trip():
     """A packed batch: big leaves in segments named with the loader's
     prefix, their bytes counted from the markers alone, the rest

@@ -115,34 +115,24 @@ PORTED_MODULES = {
     "paddle_tpu.nn.param_attr": ("paddle_tpu_torch.nn.param_attr", set()),
     "paddle_tpu.framework_io": ("paddle_tpu_torch.framework_io", set()),
     "paddle_tpu.utils.fs": ("paddle_tpu_torch.utils.fs", set()),
-    "paddle_tpu.nn.layers.common": (
-        "paddle_tpu_torch.nn.layers.common", {
-            "AlphaDropout", "Bilinear", "ChannelShuffle", "CosineSimilarity",
-            "Dropout2D", "Dropout3D", "Fold", "Identity", "Pad1D", "Pad2D",
-            "Pad3D", "PairwiseDistance", "PixelShuffle", "PixelUnshuffle",
-            "Unfold", "Upsample", "UpsamplingBilinear2D",
-            "UpsamplingNearest2D", "ZeroPad2D"}),
-    # the rest of the layer zoo takes ROADMAP Queue A item 25
-    "paddle_tpu.nn.layers.pooling": (
-        "paddle_tpu_torch.nn.layers.pooling", {
-            "AdaptiveMaxPool1D", "AdaptiveMaxPool3D", "MaxUnPool2D"}),
-    "paddle_tpu.nn.layers.norm": (
-        "paddle_tpu_torch.nn.layers.norm", {
-            "SyncBatchNorm", "GroupNorm", "InstanceNorm1D", "InstanceNorm2D",
-            "InstanceNorm3D", "LocalResponseNorm", "SpectralNorm"}),
+    # the rest of nn (ROADMAP item 25's nn part): the layer zoo, the RNN
+    # layers, nn.functional's own names, nn.utils, nn.quant, and LBFGS
+    "paddle_tpu.nn.layers.common": ("paddle_tpu_torch.nn.layers.common",
+                                    set()),
+    "paddle_tpu.nn.layers.pooling": ("paddle_tpu_torch.nn.layers.pooling",
+                                     set()),
+    "paddle_tpu.nn.layers.norm": ("paddle_tpu_torch.nn.layers.norm", set()),
     "paddle_tpu.nn.layers.activation": (
-        "paddle_tpu_torch.nn.layers.activation", {
-            "CELU", "ELU", "GLU", "Hardshrink", "Hardsigmoid", "Hardswish",
-            "Hardtanh", "LeakyReLU", "LogSigmoid", "LogSoftmax", "Maxout",
-            "Mish", "PReLU", "ReLU6", "SELU", "Sigmoid", "Softmax",
-            "Softmax2D", "Softplus", "Softshrink", "Softsign", "Tanhshrink",
-            "ThresholdedReLU"}),
-    "paddle_tpu.nn.layers.loss": (
-        "paddle_tpu_torch.nn.layers.loss", {
-            "BCELoss", "BCEWithLogitsLoss", "CosineEmbeddingLoss",
-            "HingeEmbeddingLoss", "KLDivLoss", "L1Loss", "MSELoss",
-            "MarginRankingLoss", "NLLLoss", "SmoothL1Loss",
-            "TripletMarginLoss"}),
+        "paddle_tpu_torch.nn.layers.activation", set()),
+    "paddle_tpu.nn.layers.loss": ("paddle_tpu_torch.nn.layers.loss", set()),
+    "paddle_tpu.nn.layers.rnn": ("paddle_tpu_torch.nn.layers.rnn", set()),
+    "paddle_tpu.nn": ("paddle_tpu_torch.nn", set()),
+    "paddle_tpu.nn.functional": ("paddle_tpu_torch.nn.functional", set()),
+    "paddle_tpu.nn.utils": ("paddle_tpu_torch.nn.utils", set()),
+    "paddle_tpu.nn.quant": ("paddle_tpu_torch.nn.quant", set()),
+    "paddle_tpu.optimizer": ("paddle_tpu_torch.optimizer", set()),
+    "paddle_tpu.optimizer.lbfgs": ("paddle_tpu_torch.optimizer.lbfgs",
+                                   set()),
     # ResNet is ported; the other vision models take item 25
     "paddle_tpu.vision.models": (
         "paddle_tpu_torch.vision.models", {
@@ -213,62 +203,31 @@ PORTED_MODULES = {
     "paddle_tpu.ops.search": ("paddle_tpu_torch.ops.search", set()),
     "paddle_tpu.ops.random": ("paddle_tpu_torch.ops.random", set()),
     "paddle_tpu.ops.linalg": ("paddle_tpu_torch.ops.linalg", set()),
-    # the nn ops the port computes are registered; the rest of nn_ops,
-    # and longtail, vision_ops and sequence_ops, take ROADMAP item 25
+    # the nn ops are registered; longtail, vision_ops and sequence_ops
+    # (but fold, unpool and rnnt_loss_op) take ROADMAP item 25
     "paddle_tpu.ops": ("paddle_tpu_torch.ops", {
-        "accuracy_op", "adaptive_max_pool1d", "adaptive_max_pool3d",
-        "addbmm", "affine_grid", "alpha_dropout", "assign_value", "auc_op",
-        "baddbmm", "bce_loss", "bilinear", "binary_cross_entropy",
-        "binary_cross_entropy_with_logits", "block_diag", "cartesian_prod",
-        "cdist", "celu", "channel_shuffle", "check_numerics",
+        "accuracy_op", "addbmm", "assign_value", "auc_op", "baddbmm",
+        "block_diag", "cartesian_prod", "cdist", "check_numerics",
         "cholesky_inverse", "class_center_sample", "column_stack",
-        "combinations", "cond", "cosine_embedding_loss", "ctc_loss",
-        "deformable_conv", "depthwise_conv2d", "diagonal_scatter",
-        "distribute_fpn_proposals", "dropout2d", "dsplit", "dstack",
-        "edit_distance", "elu", "fill", "fill_diagonal_tensor",
-        "float_power", "fold", "frexp", "full_batch_size_like", "gammainc",
-        "gammaincc", "gammaln", "gather_tree", "generate_proposals",
-        "geqrf", "glu", "group_norm", "gumbel_softmax", "hardshrink",
-        "hardsigmoid", "hardswish", "hardtanh", "hinge_embedding_loss",
-        "histogram_bin_edges", "histogramdd", "hsigmoid_loss", "hsplit",
-        "hstack", "huber_loss", "index_select_strided", "instance_norm",
-        "interpolate", "isneginf", "isposinf", "isreal", "kl_div",
-        "l1_loss", "label_smooth", "leaky_relu", "local_response_norm",
-        "log_loss", "log_softmax", "longtail", "margin_cross_entropy",
-        "margin_ranking_loss", "matrix_exp", "matrix_nms",
-        "max_pool2d_with_index", "max_pool3d_with_index", "maxout",
-        "mean_all", "mish", "mse_loss", "multiclass_nms", "multigammaln",
-        "negative", "nll_loss", "npair_loss", "numel", "one_hot", "orgqr",
-        "pdist", "pixel_shuffle", "pixel_unshuffle", "polar", "positive",
-        "prelu", "prior_box", "psroi_pool", "relu6", "reverse",
-        "rnnt_loss_op", "roi_pool", "row_stack", "rrelu", "select_scatter",
-        "selu", "sequence_ops", "sgn", "shape_op",
-        "sigmoid_cross_entropy_with_logits", "signbit", "sinc",
-        "slice_scatter", "smooth_l1_loss", "softmax",
-        "softmax_with_cross_entropy", "softplus", "softshrink", "softsign",
-        "square_error_cost", "squared_l2_norm", "swish", "take",
-        "tanhshrink", "temporal_shift", "tensor_split", "thresholded_relu",
-        "top_p_sampling", "trans_layout", "triplet_margin_loss",
-        "unflatten", "unfold_im2col", "unpool", "unpool3d", "upsample",
+        "combinations", "cond", "ctc_loss", "deformable_conv",
+        "depthwise_conv2d", "diagonal_scatter",
+        "distribute_fpn_proposals", "dsplit", "dstack",
+        "edit_distance", "fill", "fill_diagonal_tensor", "float_power",
+        "frexp", "full_batch_size_like", "gammainc", "gammaincc",
+        "gammaln", "gather_tree", "generate_proposals", "geqrf",
+        "histogram_bin_edges", "histogramdd", "hsplit", "hstack",
+        "index_select_strided", "isneginf", "isposinf", "isreal",
+        "longtail", "matrix_exp", "matrix_nms",
+        "max_pool2d_with_index", "max_pool3d_with_index", "mean_all",
+        "multiclass_nms", "multigammaln", "negative", "numel", "orgqr",
+        "pdist", "polar", "positive", "prior_box", "psroi_pool",
+        "reverse", "roi_pool", "row_stack", "select_scatter",
+        "sequence_ops", "sgn", "shape_op", "signbit", "sinc",
+        "slice_scatter", "squared_l2_norm", "take", "tensor_split",
+        "top_p_sampling", "trans_layout", "unflatten", "unpool3d",
         "vander", "view_as_complex", "view_as_real", "view_dtype",
         "vision_ops", "viterbi_decode", "vsplit", "vstack", "yolo_box"}),
-    "paddle_tpu.ops.nn_ops": ("paddle_tpu_torch.ops.nn_ops", {
-        "adaptive_max_pool1d", "adaptive_max_pool3d", "affine_grid",
-        "alpha_dropout", "bce_loss", "bilinear", "binary_cross_entropy",
-        "binary_cross_entropy_with_logits", "celu", "channel_shuffle",
-        "cosine_embedding_loss", "dropout2d", "elu", "glu", "group_norm",
-        "gumbel_softmax", "hardshrink", "hardsigmoid", "hardswish",
-        "hardtanh", "hinge_embedding_loss", "hsigmoid_loss", "huber_loss",
-        "instance_norm", "interpolate", "kl_div", "l1_loss",
-        "label_smooth", "leaky_relu", "local_response_norm", "log_loss",
-        "log_softmax", "margin_cross_entropy", "margin_ranking_loss",
-        "maxout", "mish", "mse_loss", "nll_loss", "npair_loss", "one_hot",
-        "pixel_shuffle", "pixel_unshuffle", "prelu", "relu6", "rrelu",
-        "selu", "sigmoid_cross_entropy_with_logits", "smooth_l1_loss",
-        "softmax", "softmax_with_cross_entropy", "softplus", "softshrink",
-        "softsign", "square_error_cost", "swish", "tanhshrink",
-        "temporal_shift", "thresholded_relu", "triplet_margin_loss",
-        "unfold_im2col", "upsample"}),
+    "paddle_tpu.ops.nn_ops": ("paddle_tpu_torch.ops.nn_ops", set()),
 }
 
 

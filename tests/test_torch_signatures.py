@@ -1,11 +1,13 @@
 """Signatures against the reference's: every layer class
 ``paddle_tpu_torch.nn`` exports that the reference's ``nn`` has, and
-the functional ops ``flash_attention``, ``layer_norm`` and
-``embedding``, take the reference's parameters: the same names, in the
+the functional ops (``flash_attention``, ``layer_norm``, ``embedding``,
+nn.functional's own functions and every op of ops/nn_ops.py), nn.utils,
+nn.quant and LBFGS take the reference's parameters: the same names, in the
 same order, of the same kinds, with the same defaults. The port may add
 keyword-only parameters after them, and only its own: ``device``,
 ``dtype``, ``generator`` and ``init_generator`` (the generator a
-layer's initial weights are drawn from)."""
+layer's initial weights are drawn from). A random op's ``generator``
+takes the place of the reference's ``key``."""
 import inspect
 
 import pytest
@@ -130,3 +132,78 @@ def test_io_and_vision_match_the_reference(module, name):
     ref = importlib.import_module(f"paddle_tpu.{module}")
     assert _callable_sig(getattr(port, name)) == \
         _callable_sig(getattr(ref, name))
+
+
+# nn.functional's own functions, and the ops of ops/nn_ops.py
+OWN_FUNCTIONALS = ["cosine_similarity", "normalize", "grid_sample",
+                   "sequence_mask", "softmax_", "flash_attn_unpadded",
+                   "rnnt_loss"]
+
+
+def _nn_op_names():
+    from paddle_tpu.ops import nn_ops
+    return sorted(n for n in ptt.ops.nn_ops.__all__
+                  if callable(getattr(nn_ops, n, None)))
+
+
+@pytest.mark.parametrize("name", OWN_FUNCTIONALS)
+def test_own_functional_matches_the_reference(name):
+    _check_sigs(inspect.signature(getattr(ptt.nn.functional, name)),
+                inspect.signature(getattr(pt.nn.functional, name)))
+
+
+@pytest.mark.parametrize("name", _nn_op_names())
+def test_nn_op_matches_the_reference(name):
+    """A random op (``OpDef.random``) takes the port's ``generator``
+    where the reference takes ``key`` (rrelu, the dropouts), or after
+    the reference's parameters when the reference draws from its global
+    key (scaled_dot_product_attention)."""
+    from paddle_tpu.ops import nn_ops
+    port = inspect.signature(getattr(ptt.ops.nn_ops, name))
+    ref = inspect.signature(getattr(nn_ops, name))
+    if ptt.ops.OPS.get(name) is not None and ptt.ops.OPS[name].random:
+        params = [p.replace(name="generator")
+                  if p.name == "key" and p.default is None else p
+                  for p in ref.parameters.values()]
+        if "generator" not in [p.name for p in params]:
+            last = list(port.parameters.values())[-1]
+            assert last.name == "generator" and last.default is None
+            port = port.replace(
+                parameters=list(port.parameters.values())[:-1])
+        ref = ref.replace(parameters=params)
+    _check_sigs(port, ref)
+
+
+def _check_sigs(port, ref):
+    port_head, port_kw = _split(port)
+    ref_head, ref_kw = _split(ref)
+    assert port_head == ref_head
+    assert [p.name for p in port_kw][:len(ref_kw)] == [p.name
+                                                       for p in ref_kw]
+    assert {p.name for p in port_kw} - {p.name for p in ref_kw} \
+        <= PORT_EXTRAS
+
+
+@pytest.mark.parametrize("module,name", [
+    ("nn.utils", n) for n in ("spectral_norm", "weight_norm",
+                              "remove_weight_norm", "clip_grad_norm_",
+                              "clip_grad_value_", "parameters_to_vector",
+                              "vector_to_parameters")] + [
+    ("nn.quant", n) for n in ("weight_quantize", "weight_dequantize",
+                              "weight_only_linear", "llm_int8_linear")] + [
+    ("optimizer", "LBFGS"), ("ops", "rnnt_loss_op"), ("ops", "fold"),
+    ("ops", "unpool")])
+def test_utils_quant_lbfgs_match_the_reference(module, name):
+    import importlib
+    port = getattr(importlib.import_module(f"paddle_tpu_torch.{module}"),
+                   name)
+    ref = getattr(importlib.import_module(f"paddle_tpu.{module}"), name)
+    _check_sigs(_callable_sig(port), _callable_sig(ref))
+
+
+def test_rnn_scans_match_the_reference():
+    from paddle_tpu.nn.layers import rnn as jrnn
+    from paddle_tpu_torch.nn.layers import rnn as trnn
+    for name in ("_lstm_scan", "_gru_scan", "_rnn_scan"):
+        _check_sigs(inspect.signature(getattr(trnn, name)),
+                    inspect.signature(getattr(jrnn, name)))

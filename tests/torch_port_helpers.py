@@ -369,3 +369,19 @@ def fast_bn_flag(value):
         pt.set_flags(saved[0])
         ptt.set_flags(saved[1])
     return restore
+
+
+def twin_layers(name, *args, seed=0, **kw):
+    """(reference layer, port layer) of class `name` of both packages'
+    ``nn``: the reference draws the weights (after ``seed``), the port
+    loads them from its numpy ``state_dict`` by name (every key on both
+    sides, in one order). The port's layer is made on the default place
+    (the CPU under ``cpu_place``)."""
+    import paddle_tpu_torch as ptt
+    pt.seed(seed)
+    jm = getattr(pt.nn, name)(*args, **kw)
+    tm = getattr(ptt.nn, name)(*args, **kw)
+    sd = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
+    assert tm.set_state_dict(sd) == ([], [])
+    assert list(tm.state_dict()) == list(sd)
+    return jm, tm

@@ -269,6 +269,30 @@ Run from the root of a checkout. Phases, each of which must pass:
      -> 11008, 2048 tokens, bf16) held to the CPU, LLM.int8()'s split
      equal, each timed beside a bf16 product; LSTM, GRU and SimpleRNN
      (2 layers, bidirect) on the card held to the CPU.
+ 27. jit.save and the inference Predictor: a bert_base encoder
+     (BertModel, 12 x 768, 12 heads, vocab 30,522, weights from numpy
+     seed 0 through bert_params_from_numpy) cast to bf16 by
+     amp.decorate(level="O2"), saved with InputSpec([None, 512],
+     "int64") (the batch symbolic, bench_bert_base's s512), loaded by
+     inference.Config + create_predictor and served at b32 and b8
+     through the handle API: 12 sm90 B1 launches a run from inside the
+     loaded program (the operator's CUDA implementation), the outputs
+     against the eager model (bit-equal expected; EXPORT_TOL bounds
+     them), the Predictor's graph replays bit-equal to the loaded
+     module's eager call, one capture a batch size, a run's ms by wall
+     (host copies included) and by replay beside the loaded module's and
+     the eager model's forward, save and load seconds and the artifact's
+     MiB; then bert_tiny in f32 saved on the CPU, served on the card and
+     held to its CPU run within 1e-5;
+ 28. hapi: phase 22's nn.Layer GPT at bench_gpt2_small's config trained
+     3 steps by Model.fit (AdamW, the next-token loss, metric.Accuracy)
+     over a DataLoader of an io.Dataset of phase 22's batches, under the
+     same bf16 O1 auto_cast (tests/hapi_gpt_script.py): losses and every
+     parameter bit-equal to phase 22's eager steps, B1/B2 at 12 sm90
+     launches a step, the step by wall beside phase 22's; summary's
+     parameter count and FLOPs row, evaluate and predict on one batch, a
+     Model.save / load round trip whose next step is bit-equal, and the
+     net through jit.to_static equal to its eager forward.
 
 The last three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
@@ -4210,8 +4234,8 @@ RANDOM_RANGES = {"rand": (0.0, 1.0), "uniform": (-2.0, 3.0),
                  "truncated_normal": (-2.0, 2.0)}
 EAGER_STEPS = 3
 EAGER_LR = 1e-4
-# what phase 22 leaves for phase 23: the GPT's weights, batches and the
-# model's eager losses and parameters
+# what phase 22 leaves for phases 23 and 28: the GPT's weights, batches
+# and the model's eager losses and parameters
 EAGER_GPT = {}
 # pairs of one dict-script step and one nn.Layer-GPT step timed in turns
 ALTERNATE = 4
@@ -4684,8 +4708,8 @@ def eager_gpt_phase(train) -> dict:
         layers = eager_layer_gpt(
             P, _tests_module("eager_gpt_layer_script"), weights, batches,
             want_losses, want_params, names, L, H, mark, one_step)
-        # phase 23 feeds the nn.Layer GPT the same batches from a
-        # DataLoader and holds it to these steps
+        # phases 23 and 28 feed the nn.Layer GPT the same batches from a
+        # DataLoader and hold it to these steps
         EAGER_GPT.update(weights=weights, batches=batches,
                          losses=want_losses, params=want_params,
                          names=names, L=L, H=H)
@@ -5139,7 +5163,6 @@ def io_phase(resnet) -> dict:
     t = time.perf_counter()
     d = _io_gpt(C)
     secs["d"] = time.perf_counter() - t
-    EAGER_GPT.clear()
     _fresh_card()
     n = IO_WARMUP + IO_TIMED
     L = d["layers"]     # one B1 and one B2 launch a layer a step
@@ -5904,6 +5927,394 @@ def surface_phase(eager) -> dict:
     return dict(sweep_cases=cases, quant=quant, rnn=rnn)
 
 
+# ---------------------------------------------------------------------------
+# phase 27: jit.save / inference.Predictor; phase 28: hapi.Model.fit
+# ---------------------------------------------------------------------------
+EXPORT_BATCHES = (32, 8)
+EXPORT_RUNS = 10
+# the exported program against the eager model: the same torch ops on
+# the same bf16 weights, so bit-equal is expected; a difference beyond
+# one bf16 rounding of the hidden states' scale would be a fault
+EXPORT_TOL = 2.0 ** -6
+
+
+def _bert_numpy_weights(model, std, seed=0):
+    """`model`'s state from a numpy seed (the reference's initializer
+    scales: N(0, std) for embeddings and weights, norms at 1 and 0,
+    biases 0), by its names."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in model.state_dict().items():
+        shape = tuple(v.shape)
+        if "norm" in k:
+            out[k] = (np.ones if k.endswith("weight") else np.zeros)(
+                shape, np.float32)
+        elif k.endswith("bias"):
+            out[k] = np.zeros(shape, np.float32)
+        else:
+            out[k] = std * rng.standard_normal(shape, dtype=np.float32)
+    return out
+
+
+def _bitwise_equal(a, b):
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+        b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+
+
+def _export_small_cpu_program(P, d) -> dict:
+    """27's last part: bert_tiny in f32 exported from CPU tensors, loaded
+    onto the CPU and, through a Predictor, onto the card (the program
+    moved there at load); the two held within 1e-5 with TF32 off."""
+    import torch
+
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_tiny(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    torch.manual_seed(0)
+    m = bert.BertModel(cfg, device="cpu").eval()
+    path = f"{d}/bert_tiny_cpu"
+    P.jit.save(m, path, input_spec=[P.jit.InputSpec([None, 128], "int64")])
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 128))
+    cpu = [t.numpy() for t in P.jit.load(path, device="cpu")(ids)]
+    with _f32_exact():
+        pred = P.inference.create_predictor(P.inference.Config(path))
+        card = pred.run([ids])
+    err = max(float(np.abs(g - c).max()) for g, c in zip(card, cpu))
+    return dict(saved_on="cpu", served_on=str(pred._layer._device),
+                max_abs_err=err, ok=err <= 1e-5)
+
+
+def export_phase() -> dict:
+    """Phase 27: a bert_base encoder (BertModel, 12 x 768, 12 heads,
+    vocab 30,522) from numpy-seeded weights through
+    ``bert_params_from_numpy``, bf16 by ``amp.decorate(level="O2")``,
+    saved by ``jit.save`` with ``InputSpec([None, 512], "int64")``,
+    loaded by ``inference.Config`` + ``create_predictor`` and served at
+    batches 32 and 8 through the handle API: B1's launches from inside
+    the loaded program, the outputs against the eager model, the replay
+    against the loaded module's eager call, a run's ms by wall (host
+    copies included) and by replay beside the eager forward, captures
+    and replays, save and load seconds and the artifact's MiB; then a
+    small program saved on the CPU and served on the card."""
+    import os
+    import tempfile
+
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import bert_params_from_numpy
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.jit import cuda_graph
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    L, s = cfg.num_layers, BERT_SEQ
+    hd = cfg.hidden_size // cfg.num_heads
+    _require_sm90("bert_base export", (max(EXPORT_BATCHES), s, cfg.num_heads,
+                                       hd), (max(EXPORT_BATCHES), s,
+                                             cfg.num_heads, hd))
+    _fresh_card()
+    saved_place = tdevice._current_place
+    P.set_device("gpu:0")
+    try:
+        model = bert.BertModel(cfg, device="cuda")
+        model.load_state_dict(bert_params_from_numpy(
+            _bert_numpy_weights(model, cfg.initializer_range)))
+        P.amp.decorate(models=model, level="O2", dtype="bfloat16")
+        model.eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        rng = np.random.default_rng(0)
+        ids = {b: rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int64)
+               for b in EXPORT_BATCHES}
+        with torch.no_grad():
+            want = {b: model(torch.as_tensor(x, device="cuda"))
+                    for b, x in ids.items()}
+        with tempfile.TemporaryDirectory() as d:
+            path = f"{d}/bert_base"
+            t = time.perf_counter()
+            P.jit.save(model, path, input_spec=[
+                P.jit.InputSpec([None, s], "int64")])
+            save_s = time.perf_counter() - t
+            mib = sum(os.path.getsize(path + suf) for suf in (
+                ".pdmodel", ".pdiparams", ".pdconsts")) / 2 ** 20
+            t = time.perf_counter()
+            pred = P.inference.create_predictor(P.inference.Config(
+                path + ".pdmodel", path + ".pdiparams"))
+            load_s = time.perf_counter() - t
+            small = _export_small_cpu_program(P, d)
+        loaded = pred._layer
+
+        # B1 from inside the loaded program: one eager call a batch
+        eager_runs = {}
+        for b, x in ids.items():
+            fa.reset_counters()
+            out = loaded._run(loaded._inputs([x]))
+            torch.cuda.synchronize()
+            eager_runs[b] = dict(
+                out=out, launches=dict(fa.flash_fwd.design_launches),
+                plain=fa.flash_fwd.plain_calls)
+        # the Predictor's runs: handle API, one graph a batch signature
+        cuda_graph.reset_counters()
+        fa.reset_counters()
+        served = {}
+        for b, x in ids.items():
+            pred.get_input_handle("x0").copy_from_cpu(x)
+            pred.run()
+            served[b] = [pred.get_output_handle(n).copy_to_cpu()
+                         for n in pred.get_output_names()]
+        capture_launches = dict(fa.flash_fwd.design_launches)
+        rows = {}
+        for b in EXPORT_BATCHES:
+            host = [torch.as_tensor(a.view(np.int16)).view(torch.bfloat16)
+                    if a.dtype.name == "bfloat16" else torch.as_tensor(a)
+                    for a in served[b]]
+            rows[b] = dict(
+                replay_bit_equal_to_loaded=all(
+                    _bitwise_equal(h, o.cpu())
+                    for h, o in zip(host, eager_runs[b]["out"])),
+                bit_equal_to_eager_model=all(
+                    _bitwise_equal(o, w) for o, w in zip(
+                        eager_runs[b]["out"], want[b])),
+                max_abs_err_to_eager_model=max(
+                    float((o.float() - w.float()).abs().max())
+                    for o, w in zip(eager_runs[b]["out"], want[b])),
+                finite=all(bool(torch.isfinite(h.float()).all())
+                           for h in host),
+                shapes=[list(h.shape) for h in host],
+                b1_launches=eager_runs[b]["launches"],
+                b1_plain_calls=eager_runs[b]["plain"])
+        del eager_runs, want
+
+        # timing at batch 32: a run by wall (the host copies and the
+        # numpy outputs included), the graph alone by replay, the eager
+        # module and the eager model by events
+        b = EXPORT_BATCHES[0]
+        x = ids[b]
+        walls = []
+        for _ in range(EXPORT_RUNS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pred.run([x])
+            walls.append(1e3 * (time.perf_counter() - t))
+        captured, _ = next(iter(pred._graphs.values()))
+        replay_ms = cuda_ms(captured.graph.replay, iters=EXPORT_RUNS)
+        xs = loaded._inputs([x])
+        loaded_ms = cuda_ms(lambda: loaded._run(xs), iters=EXPORT_RUNS)
+        xt = torch.as_tensor(x, device="cuda")
+        with torch.no_grad():
+            model_ms = cuda_ms(lambda: model(xt), iters=EXPORT_RUNS)
+        captures = dict(cuda_graph.captures)
+        replays = dict(cuda_graph.replays)
+        del pred, loaded, model, captured, xs, xt
+    finally:
+        tdevice._current_place = saved_place
+    rec = dict(
+        config="bert_base encoder (BertModel), bf16 O2", layers=L,
+        params=n_params, seq=s, batches=list(EXPORT_BATCHES),
+        save_s=save_s, load_s=load_s, artifact_mib=mib,
+        by_batch={str(k): v for k, v in rows.items()},
+        b1_launches_per_run=rows[b]["b1_launches"],
+        b1_launches_capturing=capture_launches,
+        captures=captures, replays=replays,
+        run_ms_wall=walls, run_ms_wall_median=statistics.median(walls),
+        run_ms_replay=replay_ms, loaded_module_ms=loaded_ms,
+        eager_model_ms=model_ms, cpu_saved_program=small, card=card_line())
+    want_launches = {"sm90": L, "simple": 0}
+    _check("[export]", {
+        f"B1 at {L} sm90 launches a run from inside the loaded program, no "
+        "plain call": all(r["b1_launches"] == want_launches
+                          and r["b1_plain_calls"] == 0
+                          for r in rows.values()),
+        "the Predictor's replays bit-equal to the loaded module's eager "
+        "call": all(r["replay_bit_equal_to_loaded"] for r in rows.values()),
+        f"the loaded program within {EXPORT_TOL} of the eager model":
+            all(r["max_abs_err_to_eager_model"] <= EXPORT_TOL
+                for r in rows.values()),
+        "every output finite, of the encoder's shapes": all(
+            r["finite"] and r["shapes"] == [[k, s, cfg.hidden_size],
+                                            [k, cfg.hidden_size]]
+            for k, r in rows.items()),
+        "one capture a batch size, every run a replay":
+            captures.get("predictor") == len(EXPORT_BATCHES)
+            and replays.get("predictor") == len(EXPORT_BATCHES)
+            + EXPORT_RUNS,
+        "the capture's runs launch B1 through the operator, sm90 only":
+            capture_launches == {"sm90": 2 * L * len(EXPORT_BATCHES),
+                                 "simple": 0},
+        "a program saved on the CPU serves on the card (within 1e-5)":
+            small["ok"],
+    }, rec)
+    log(f"[export] bert_base encoder ({n_params:,} parameters, bf16 O2) "
+        f"saved by jit.save in {save_s:.2f} s ({mib:.1f} MiB), loaded by "
+        f"create_predictor in {load_s:.2f} s; B1 a run from inside the "
+        f"loaded program {rec['b1_launches_per_run']}; batch {b} x s{s}: "
+        f"a run {rec['run_ms_wall_median']:.2f} ms by wall (host copies "
+        f"included), {replay_ms:.3f} ms by replay, the loaded module "
+        f"eagerly {loaded_ms:.3f} ms, the eager model {model_ms:.3f} ms; "
+        f"captures {captures}, replays {replays}; by batch "
+        f"{json.dumps(rec['by_batch'])}; saved on the CPU, served on the "
+        f"card {json.dumps(small)}; card {rec['card']}")
+    _fresh_card()
+    return rec
+
+
+def hapi_phase(eager) -> dict:
+    """Phase 28: phase 22's nn.Layer GPT (bench_gpt2_small's config:
+    b16 x s1024, 12 x 768, dropout 0) trained 3 steps by
+    ``hapi.Model(net).prepare(AdamW, loss, metric.Accuracy()).fit(...)``
+    over a DataLoader of an io.Dataset of phase 22's batches, under phase
+    22's bf16 O1 auto_cast (tests/hapi_gpt_script.py): losses and every
+    parameter bit-equal to phase 22's eager steps, B1/B2 at 12 sm90
+    launches a step, the step by wall beside phase 22's; summary's
+    parameter count and FLOPs row, evaluate and predict on one batch, a
+    Model.save / load round trip whose next step is bit-equal, and the
+    net's forward through to_static equal to its eager forward."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    g = EAGER_GPT
+    S = _tests_module("eager_gpt_layer_script")
+    H = _tests_module("hapi_gpt_script")
+    L, heads, batches = g["L"], g["H"], g["batches"]
+    b, s = batches[0][0].shape
+    marks = []
+
+    def mark(_i=None):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), 0,
+                      dict(fa.flash_fwd.design_launches),
+                      dict(fa.flash_bwd.design_launches)))
+
+    saved_place = tdevice._current_place
+    P.set_device("gpu:0")
+    try:
+        _fresh_card()
+        losses, accs, model = H.hapi_fit(
+            P, S, g["weights"], batches, L, heads, lr=EAGER_LR, amp=True,
+            on_step=mark)
+        steps = _step_marks(marks)
+        net = model.network
+        sd = net.state_dict()
+        bit_equal = losses == g["losses"] and all(
+            torch.equal(sd[k]._data, w)
+            for k, w in zip(g["names"], g["params"]))
+        del sd
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            summ = P.summary(net, (b, s), dtypes="int32")
+        flops_row = next(line for line in text.getvalue().splitlines()
+                         if line.startswith("Total FLOPs"))
+        one = H.batch_loader(P, batches[:1])
+        with P.amp.auto_cast(level="O1", dtype="bfloat16"):
+            t = time.perf_counter()
+            ev = model.evaluate(one)
+            evaluate_s = time.perf_counter() - t
+            (logits,) = model.predict(one)
+        pred_shape, pred_finite = logits.shape, bool(
+            torch.isfinite(logits._data.float()).all())
+        # what a fit step adds to the eager step: Accuracy over the
+        # logits (top-1 on the card, its hits read back) and the
+        # loader's batch, each by wall, synchronised
+        labels = P.to_tensor(batches[0][1])
+        metric_ms, loader_ms = [], []
+        for _ in range(3):
+            acc = P.metric.Accuracy()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            acc.update(acc.compute(logits, labels))
+            torch.cuda.synchronize()
+            metric_ms.append(1e3 * (time.perf_counter() - t))
+            t = time.perf_counter()
+            next(iter(one))
+            torch.cuda.synchronize()
+            loader_ms.append(1e3 * (time.perf_counter() - t))
+        del logits, labels
+        with tempfile.TemporaryDirectory() as d:
+            t = time.perf_counter()
+            fresh, loss_fresh, loss_orig = H.round_trip(
+                P, S, model, f"{d}/gpt2_small", batches[0], g["weights"], L,
+                heads, lr=EAGER_LR, amp=True)
+            round_trip_s = time.perf_counter() - t
+        a, c = fresh.network.state_dict(), net.state_dict()
+        round_trip_equal = loss_fresh == loss_orig and all(
+            torch.equal(a[k]._data, c[k]._data) for k in g["names"])
+        del a, c, fresh
+        ids = P.to_tensor(batches[0][0])
+        net.eval()
+        with P.amp.auto_cast(level="O1", dtype="bfloat16"):
+            eager_out = net(ids)._data.clone()
+            P.jit.to_static(net)
+            t = time.perf_counter()
+            static_out = net(ids)._data
+            to_static_s = time.perf_counter() - t
+        (program,) = net.forward.concrete_programs
+        probe_b1 = sum(1 for n in program.graph.nodes
+                       if n.target is torch.ops.paddle_tpu_torch.flash_fwd
+                       .default)
+        static_equal = torch.equal(static_out, eager_out)
+        del model, net, program, eager_out, static_out, ids
+    finally:
+        tdevice._current_place = saved_place
+    layer_ms = eager["gpt"]["nn_layer_gpt"]["step_ms"]
+    rec = dict(
+        config="gpt2_small from nn.Layers (bench_gpt2_small)", layers=L,
+        batch=b, seq=s, steps=len(batches), losses=losses,
+        phase22_losses=g["losses"], accuracies=accs, bit_equal=bit_equal,
+        step_ms=[st["ms"] for st in steps],
+        step_ms_after_first=statistics.mean(st["ms"] for st in steps[1:]),
+        phase22_layer_step_ms=layer_ms,
+        accuracy_update_ms=statistics.median(metric_ms),
+        loader_batch_ms=statistics.median(loader_ms),
+        b1_by_step=[st["b1"] for st in steps],
+        b2_by_step=[st["b2"] for st in steps],
+        summary=summ, flops_row=flops_row, evaluate=ev,
+        evaluate_s=evaluate_s, predict_shape=pred_shape,
+        round_trip_next_step_bit_equal=round_trip_equal,
+        round_trip_losses=[loss_fresh, loss_orig],
+        round_trip_s=round_trip_s, to_static_equal=static_equal,
+        to_static_probe_b1_ops=probe_b1, to_static_first_call_s=to_static_s,
+        card=card_line())
+    want = {"sm90": L, "simple": 0}
+    _check("[hapi]", {
+        "Model.fit's losses and parameters bit-equal to phase 22's eager "
+        "steps": bit_equal,
+        f"B1 and B2 at {L} sm90 launches a step": all(
+            st["b1"] == want and st["b2"] == want for st in steps),
+        "summary counts the GPT's parameters and a FLOPs row":
+            summ["total_params"] == sum(
+                int(np.prod(w.shape)) for w in g["weights"].values())
+            and summ.get("total_flops", 0) > 0,
+        "evaluate's loss finite, predict's logits finite of [b, s, vocab]":
+            bool(np.isfinite(ev["loss"])) and pred_finite
+            and pred_shape[:2] == [b, s],
+        "Model.save / load: the next step bit-equal": round_trip_equal,
+        f"to_static: the forward equal to eager, its probe holding {L} B1 "
+        "operators": static_equal and probe_b1 == L,
+    }, rec)
+    log(f"[hapi] gpt2_small from nn.Layers through Model.fit, bf16 O1, "
+        f"b{b} x s{s}: steps {[round(x, 2) for x in rec['step_ms']]} ms by "
+        f"wall (phase 22's nn.Layer steps "
+        f"{[round(x, 2) for x in layer_ms]}; of a fit step, Accuracy's "
+        f"update {rec['accuracy_update_ms']:.2f} ms and a loader batch "
+        f"{rec['loader_batch_ms']:.2f} ms); losses {losses} (bit-equal "
+        f"to phase 22 {bit_equal}); B1 {rec['b1_by_step']}, B2 "
+        f"{rec['b2_by_step']}; summary {summ} ({flops_row}); evaluate "
+        f"{ev} in {evaluate_s:.2f} s; predict {pred_shape}; save/load "
+        f"round trip {round_trip_s:.2f} s, next step {loss_fresh} against "
+        f"{loss_orig} (bit-equal {round_trip_equal}); to_static equal "
+        f"{static_equal}, probe {probe_b1} B1 operators, first call "
+        f"{to_static_s:.2f} s; card {rec['card']}")
+    _fresh_card()
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -5950,6 +6361,9 @@ def main() -> int:
     lstm = lstm_phase()
     unpadded = unpadded_phase()
     surface = surface_phase(eager)
+    export = export_phase()
+    hapi = hapi_phase(eager)
+    EAGER_GPT.clear()       # phases 23d and 28 read phase 22's GPT
     runs_17_18 =(("llama13b", train_llama["no_recompute"]),
                   ("llama13b_recompute", train_llama["recompute"]),
                   ("bert_base", train_bert))
@@ -6046,6 +6460,20 @@ def main() -> int:
             # phase 25: flash_attn_unpadded's packed calls, one a case
             launches_unpadded=sum(
                 c["launches_by_design"][kind]["sm90"] for c in unpadded),
+            # phase 27 (B1 only): one eager run of the loaded program at
+            # each batch, and the Predictor's captures (warm-up and
+            # capture of each batch signature; replays launch nothing
+            # the host counts)
+            **(dict(launches_export=sum(
+                r["b1_launches"]["sm90"]
+                for r in export["by_batch"].values()),
+                launches_predictor_capturing=export[
+                    "b1_launches_capturing"]["sm90"]) if kind == "fwd"
+               else {}),
+            # phase 28: hapi.Model.fit's 3 steps
+            launches_hapi=sum(
+                st["sm90"] for st in hapi[
+                    "b1_by_step" if i == 0 else "b2_by_step"]),
             max_abs_err=max(e for c in flash for dt in ("bf16", "f16")
                             for what, e in c[f"max_abs_err_{dt}"].items()
                             if (what in ("o", "lse")) == (kind == "fwd")),
@@ -6136,6 +6564,8 @@ def main() -> int:
     log("[lstm] " + json.dumps(lstm))
     log("[unpadded] " + json.dumps(unpadded))
     log("[nn-surface] " + json.dumps(surface))
+    log("[export] " + json.dumps(export))
+    log("[hapi] " + json.dumps(hapi))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

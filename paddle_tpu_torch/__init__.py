@@ -12,7 +12,9 @@ they raise.
 
 The eager API (``Tensor``, ``to_tensor``, the registered ops, autograd,
 ``seed``, places, ``nn.Layer`` / ``nn.Parameter`` / ``nn.ParamAttr``,
-``save`` / ``load``, ``io``'s datasets and DataLoader) keeps the
+``save`` / ``load``, ``io``'s datasets and DataLoader, ``jit``'s
+to_static / save / load, ``inference``'s Predictor, ``metric``,
+``utils``, ``callbacks``, ``Model`` and ``summary``) keeps the
 reference's root names, so one eager script runs on either package by
 swapping the import. Its default place
 is the card; ``set_device("cpu")`` asks for the CPU. The port's models
@@ -23,6 +25,7 @@ from . import core, ops  # noqa: I001
 from . import (amp, autograd, distributed, framework_io, incubate,
                inference, io, jit, kernels, models, nn, optimizer,
                resilience, vision)
+from . import callbacks, metric, utils
 from .convert import (bert_params_from_numpy, fused_params_from_numpy,
                       gpt_params_from_numpy, llama_params_from_numpy,
                       optimizer_state_from_numpy, resnet_params_from_numpy)
@@ -42,6 +45,7 @@ from .ops import *  # noqa: F401,F403
 from .ops import cast, slice, split, unique  # noqa: F401
 from .core.flags import get_flags, set_flags
 from .framework_io import load, save
+from .hapi.model_api import Model, summary
 from .inference import LLMEngine, PagedKVCache
 from .jit import TrainStep
 from .models import (BertConfig, BertForMaskedLM, GPTConfig, GPTForCausalLM,
@@ -64,4 +68,4 @@ __all__ = ["amp", "core", "distributed", "incubate", "inference", "jit",
            "DType", "bool", "uint8", "int8", "int16", "int32", "int64",
            "float16", "bfloat16", "float32", "float64", "complex64",
            "complex128", "finfo", "iinfo", "framework_io", "save", "load",
-           "io"]
+           "io", "callbacks", "metric", "utils", "Model", "summary"]

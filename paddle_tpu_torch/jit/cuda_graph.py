@@ -41,8 +41,8 @@ import time
 
 import torch
 
-__all__ = ["CapturedStep", "captures", "capture_seconds", "replays",
-           "reset_counters", "capture_lock"]
+__all__ = ["CapturedStep", "GraphCache", "captures", "capture_seconds",
+           "replays", "reset_counters", "capture_lock"]
 
 capture_lock = threading.Lock()
 
@@ -114,3 +114,44 @@ class CapturedStep:
         self.graph.replay()
         replays[self.name] += 1
         return self.output
+
+
+class GraphCache:
+    """One owner's graphs keyed by input signature: the last ``size``
+    used are kept (the least recently used is dropped first, its memory
+    left to the pool), all captured into the owner's one pool, made at
+    the first capture (the module docstring says why owners do not
+    share one). An entry is whatever the owner keeps beside its graph,
+    typically (CapturedStep, static inputs)."""
+
+    def __init__(self, size: int = 8):
+        self.size = size
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+        self._pool = None
+
+    def pool(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def get(self, key):
+        """The entry of `key`, now the most recently used, or None."""
+        entry = self._entries.get(key)
+        if entry is not None:
+            self._entries.move_to_end(key)
+        return entry
+
+    def put(self, key, entry):
+        """Keep `entry` for `key`, dropping the least recently used past
+        ``size``; returns `entry`."""
+        self._entries[key] = entry
+        if len(self._entries) > self.size:
+            self._entries.popitem(last=False)
+        return entry
+
+    def values(self):
+        """The entries, least recently used first."""
+        return self._entries.values()
+
+    def __len__(self):
+        return len(self._entries)

@@ -31,7 +31,11 @@ dtype before dv, ds to q's dtype before dk and to k's before dq
 (:413-429); dq is scaled by sm_scale in f32 and cast to q's dtype (:697).
 
 Dispatch: CPU tensors take the plain versions; CUDA tensors take the
-kernels, or raise when the kernel refuses the call. Shapes that
+kernels, or raise when the kernel refuses the call. Under a trace
+(``torch.export``, ``make_fx``: fake tensors) B1 goes through its
+operator ``torch.ops.paddle_tpu_torch.flash_fwd`` (kernels/__init__.py),
+whose implementation is this dispatch; B2 stays ``_FlashCore``'s
+backward, which no export needs. Shapes that
 ``attention_path`` rejects never reach either: ``flash_attention``
 routes them to the composite, as the reference does, and
 ``attention_path`` says why. Nothing falls back silently.
@@ -41,10 +45,12 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
+from typing import Optional
 
 import torch
 
 from ..utils.build import load_cuda
+from . import tracing
 
 __all__ = ["flash_attention", "attention_path", "flash_fwd", "flash_bwd"]
 
@@ -435,6 +441,10 @@ def flash_fwd(qs, k, v, causal=False, segment_ids=None, path=None):
     tensors, the plain version for CPU tensors); "cuda" | "torch" force
     one (tests and the kernel-vs-plain comparison)."""
     if path is None:
+        if tracing(qs):
+            q_seg, kv_seg = segment_ids or (None, None)
+            return torch.ops.paddle_tpu_torch.flash_fwd(qs, k, v, q_seg,
+                                                        kv_seg, bool(causal))
         path = "cuda" if qs.device.type == "cuda" else "torch"
     if path == "cuda":
         return _fwd_cuda(qs, k, v, causal, segment_ids)
@@ -460,6 +470,26 @@ def flash_bwd(qs, k, v, o, lse, do, sm_scale, causal=False,
     dq, dk, dv = _flash_bwd_reference(qs, k, v, o, lse, do, causal,
                                       segment_ids)
     return (dq * sm_scale).to(qs.dtype), dk, dv
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_seg: Optional[torch.Tensor],
+                  kv_seg: Optional[torch.Tensor],
+                  causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """B1 as an operator (kernels/__init__.py): the launcher on CUDA
+    tensors, the plain version on CPU tensors, counted as flash_fwd
+    counts them."""
+    seg = None if q_seg is None else (q_seg, kv_seg)
+    return flash_fwd(qs, k, v, causal, seg,
+                     path="cuda" if qs.device.type == "cuda" else "torch")
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(qs, k, v, q_seg, kv_seg, causal):
+    b, sq, h, _ = qs.shape
+    return qs.new_empty(qs.shape), qs.new_empty((b, h, sq),
+                                                dtype=torch.float32)
 
 
 # launches of the CUDA kernels (one per call: B2's call launches its delta,

@@ -28,7 +28,11 @@ Dispatch (``layer_norm_fwd``, ``rms_norm_fwd``): CUDA tensors take the
 kernel, or raise when it refuses the call; CPU tensors take the
 ``_xla`` form. Nothing falls back. The reference's gate (rows % 8 == 0
 and h % 128 == 0, :132, :162) is a TPU tiling rule and is dropped: the
-kernels take any n >= 1 rows of any width h >= 1. The reference has no
+kernels take any n >= 1 rows of any width h >= 1. Under a trace (fake
+tensors) both go through their operators,
+``torch.ops.paddle_tpu_torch.layer_norm`` and ``.rms_norm``
+(kernels/__init__.py): the kernel on CUDA tensors, the plain version on
+CPU tensors, each returning x's dtype. The reference has no
 backward kernel, so the port has none: the backward is torch autograd
 through the ``_xla`` form, and a missing weight or bias gets no
 gradient.
@@ -38,8 +42,11 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+from typing import Optional
 
 import torch
+
+from . import tracing
 
 __all__ = ["layer_norm", "rms_norm", "layer_norm_fwd", "rms_norm_fwd"]
 
@@ -206,8 +213,12 @@ def _norm_cuda(rms, x, w, b, eps):
 def layer_norm_fwd(x, weight=None, bias=None, eps=1e-5, path=None):
     """B4's forward over the last axis. path: None = by device (the CUDA
     kernel for CUDA tensors, the ``_xla`` form for CPU tensors, as
-    ``_ln_core`` takes it off the TPU); "cuda" | "torch" (the kernel's
-    own math: its plain version) force one."""
+    ``_ln_core`` takes it off the TPU; the operator under a trace);
+    "cuda" | "torch" (the kernel's own math: its plain version) force
+    one."""
+    if path is None and tracing(x):
+        return torch.ops.paddle_tpu_torch.layer_norm(x, weight, bias,
+                                                     float(eps))
     if path == "cuda" or (path is None and x.device.type == "cuda"):
         return _norm_cuda(False, x, weight, bias, eps)
     if path not in (None, "torch"):
@@ -219,6 +230,8 @@ def layer_norm_fwd(x, weight=None, bias=None, eps=1e-5, path=None):
 
 def rms_norm_fwd(x, weight=None, eps=1e-6, path=None):
     """B5's forward over the last axis; path as for layer_norm_fwd."""
+    if path is None and tracing(x):
+        return torch.ops.paddle_tpu_torch.rms_norm(x, weight, float(eps))
     if path == "cuda" or (path is None and x.device.type == "cuda"):
         return _norm_cuda(True, x, weight, None, eps)
     if path not in (None, "torch"):
@@ -226,6 +239,29 @@ def rms_norm_fwd(x, weight=None, eps=1e-6, path=None):
     rms_norm_fwd.plain_calls += 1
     fn = _rms_plain if path == "torch" else _rms_xla
     return fn(x, weight, eps)
+
+
+@torch.library.custom_op("paddle_tpu_torch::layer_norm", mutates_args=())
+def _layer_norm_op(x: torch.Tensor, weight: Optional[torch.Tensor],
+                   bias: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+    """B4 as an operator (kernels/__init__.py): the kernel on CUDA
+    tensors, its plain version on CPU tensors, so the output is x's
+    dtype on every device (a program saved on one serves on another)."""
+    return layer_norm_fwd(x, weight, bias, eps,
+                          path="cuda" if x.device.type == "cuda" else "torch")
+
+
+@torch.library.custom_op("paddle_tpu_torch::rms_norm", mutates_args=())
+def _rms_norm_op(x: torch.Tensor, weight: Optional[torch.Tensor],
+                 eps: float) -> torch.Tensor:
+    """B5 as an operator: as B4's."""
+    return rms_norm_fwd(x, weight, eps,
+                        path="cuda" if x.device.type == "cuda" else "torch")
+
+
+_layer_norm_op.register_fake(lambda x, weight, bias, eps: x.new_empty(
+    x.shape))
+_rms_norm_op.register_fake(lambda x, weight, eps: x.new_empty(x.shape))
 
 
 # launches of the CUDA kernels, and calls of the plain versions (either

@@ -20,7 +20,7 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..incubate.nn.functional import fused_rotary_position_embedding
-from ..jit.cuda_graph import CapturedStep
+from ..jit.cuda_graph import CapturedStep, GraphCache
 from ..nn import functional as F
 from .llama import _rope_cos_sin
 
@@ -182,16 +182,11 @@ class _FusedLoop:
         self.nxt = torch.zeros((b,), **i64)
         self.finished = torch.zeros((b,), dtype=torch.bool, device=dev)
         self.out = torch.zeros((b, max_len), **i64)
-        # prompt_len -> (static ids [b, prompt_len], its prefill graph)
-        self.prefills = collections.OrderedDict()
+        # prompt_len -> (static ids [b, prompt_len], its prefill graph);
+        # the decode step's graph shares their pool
+        self.prefills = GraphCache(_LOOP_CACHE)
         self.step_graph = None
-        self.pool = None        # the graphs' own pool, made at need
         self.params = _param_ptrs(model)
-
-    def _pool(self):
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        return self.pool
 
     def _prefill(self, ids):
         logits, _ = self.fwd_fn(self.model, ids, self.caches, self.pos0)
@@ -206,15 +201,13 @@ class _FusedLoop:
         if self.dev.type == "cpu":
             return self._prefill(ids)
         n = ids.shape[1]
-        if n not in self.prefills:
-            if len(self.prefills) >= _LOOP_CACHE:
-                self.prefills.popitem(last=False)
+        entry = self.prefills.get(n)
+        if entry is None:
             buf = ids.clone()
-            self.prefills[n] = (buf, CapturedStep(
+            entry = self.prefills.put(n, (buf, CapturedStep(
                 "generate_prefill", lambda: self._prefill(buf),
-                pool=self._pool()))
-        self.prefills.move_to_end(n)
-        buf, graph = self.prefills[n]
+                pool=self.prefills.pool())))
+        buf, graph = entry
         buf.copy_(ids)
         return graph.replay()
 
@@ -247,7 +240,7 @@ class _FusedLoop:
         load()
         if n_steps and self.dev.type != "cpu" and self.step_graph is None:
             self.step_graph = CapturedStep(
-                "generate_decode", self.step, pool=self._pool(),
+                "generate_decode", self.step, pool=self.prefills.pool(),
                 generators=(self.gen,))
             load()
         for _ in range(n_steps):

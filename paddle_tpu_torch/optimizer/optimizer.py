@@ -272,10 +272,14 @@ class Optimizer:
         return sd
 
     def set_state_dict(self, state_dict):
-        """Load accumulators and masters. A tensor that already exists
-        with the same shape and dtype is refilled in place, so a
-        captured TrainStep graph goes on reading the loaded values."""
+        """Load accumulators and masters (torch tensors, arrays, or the
+        Tensors ``load`` reads back from ``save(opt.state_dict())``). A
+        tensor that already exists with the same shape and dtype is
+        refilled in place, so a captured TrainStep graph goes on reading
+        the loaded values."""
         def load(old, value, dtype=None):
+            if isinstance(value, Tensor):
+                value = value._data
             new = torch.as_tensor(value).to(p.device, dtype)
             if old is not None and old.shape == new.shape \
                     and old.dtype == new.dtype:

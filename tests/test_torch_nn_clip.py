@@ -228,6 +228,23 @@ PORTED_MODULES = {
         "vander", "view_as_complex", "view_as_real", "view_dtype",
         "vision_ops", "viterbi_decode", "vsplit", "vstack", "yolo_box"}),
     "paddle_tpu.ops.nn_ops": ("paddle_tpu_torch.ops.nn_ops", set()),
+    # jit, the inference Predictor and hapi (ROADMAP item 25's part); the
+    # inference fleet (router, autoscaler, traffic, disaggregation) takes
+    # ROADMAP item 24
+    "paddle_tpu.jit": ("paddle_tpu_torch.jit", set()),
+    "paddle_tpu.jit.dy2static": ("paddle_tpu_torch.jit.dy2static", set()),
+    "paddle_tpu.inference": ("paddle_tpu_torch.inference", {
+        "Autoscaler", "Cohort", "DisaggActuator", "DisaggRouter",
+        "ReplicaGone", "ReplicaHandle", "ReplicaSet", "Router",
+        "RouterActuator", "TrafficEvent", "TrafficModel", "autoscaler",
+        "disagg", "router", "run_traffic", "traffic"}),
+    "paddle_tpu.hapi": ("paddle_tpu_torch.hapi", set()),
+    "paddle_tpu.hapi.model_api": ("paddle_tpu_torch.hapi.model_api", set()),
+    "paddle_tpu.hapi.summary_writer": ("paddle_tpu_torch.hapi.summary_writer",
+                                       set()),
+    "paddle_tpu.callbacks": ("paddle_tpu_torch.callbacks", set()),
+    "paddle_tpu.metric": ("paddle_tpu_torch.metric", set()),
+    "paddle_tpu.utils": ("paddle_tpu_torch.utils", set()),
 }
 
 

@@ -2,7 +2,9 @@
 ``paddle_tpu_torch.nn`` exports that the reference's ``nn`` has, and
 the functional ops (``flash_attention``, ``layer_norm``, ``embedding``,
 nn.functional's own functions and every op of ops/nn_ops.py), nn.utils,
-nn.quant and LBFGS take the reference's parameters: the same names, in the
+nn.quant, LBFGS, jit, the inference Predictor, hapi's Model and
+summary, the callbacks, the metrics and utils take the reference's
+parameters: the same names, in the
 same order, of the same kinds, with the same defaults. The port may add
 keyword-only parameters after them, and only its own: ``device``,
 ``dtype``, ``generator`` and ``init_generator`` (the generator a
@@ -207,3 +209,63 @@ def test_rnn_scans_match_the_reference():
     for name in ("_lstm_scan", "_gru_scan", "_rnn_scan"):
         _check_sigs(inspect.signature(getattr(trnn, name)),
                     inspect.signature(getattr(jrnn, name)))
+
+
+# jit, the inference Predictor, hapi, the callbacks, metric and utils
+# (ROADMAP item 25's jit / inference / hapi part): exactly the
+# reference's parameters
+FACADE_NAMES = [
+    *(("jit", n) for n in ("to_static", "save", "load", "InputSpec",
+                           "not_to_static", "ignore_module",
+                           "StaticFunction", "GraphBreakFunction")),
+    *(("jit.dy2static", n) for n in ("convert_ifelse", "convert_while",
+                                     "ast_transform", "pack",
+                                     "graph_break_transform")),
+    *(("inference", n) for n in ("Config", "create_predictor",
+                                 "Predictor")),
+    *(("hapi.model_api", n) for n in ("Model", "summary", "Callback",
+                                      "ProgBarLogger", "ModelCheckpoint",
+                                      "EarlyStopping",
+                                      "LRSchedulerCallback")),
+    *(("hapi.summary_writer", n) for n in ("SummaryWriter", "VisualDL")),
+    *(("metric", n) for n in ("Accuracy", "Precision", "Recall", "Auc",
+                              "accuracy")),
+    *(("utils", n) for n in ("try_import", "unique_name_guard",
+                             "to_dlpack", "from_dlpack", "run_check",
+                             "flops", "deprecated"))]
+MODEL_METHODS = ["prepare", "train_batch", "eval_batch", "predict_batch",
+                 "fit", "evaluate", "predict", "save", "load", "parameters",
+                 "summary"]
+CONFIG_METHODS = ["set_prog_file", "prog_file", "enable_use_gpu",
+                  "disable_gpu", "enable_memory_optim", "switch_ir_optim",
+                  "set_cpu_math_library_num_threads"]
+PREDICTOR_METHODS = ["get_input_names", "get_input_handle", "run",
+                     "get_output_names", "get_output_handle"]
+
+
+def _params(sig):
+    """(name, kind, default) of each parameter: the annotations may name
+    the port's own types (a layer is any torch.nn.Module)."""
+    return [(p.name, p.kind, p.default) for p in sig.parameters.values()]
+
+
+@pytest.mark.parametrize("module,name", FACADE_NAMES)
+def test_facade_matches_the_reference(module, name):
+    import importlib
+    port = importlib.import_module(f"paddle_tpu_torch.{module}")
+    ref = importlib.import_module(f"paddle_tpu.{module}")
+    assert _params(_callable_sig(getattr(port, name))) == \
+        _params(_callable_sig(getattr(ref, name)))
+
+
+@pytest.mark.parametrize("cls,name", [
+    *(("Model", n) for n in MODEL_METHODS),
+    *(("Config", n) for n in CONFIG_METHODS),
+    *(("Predictor", n) for n in PREDICTOR_METHODS)])
+def test_facade_method_matches_the_reference(cls, name):
+    port = {"Model": ptt.Model, "Config": ptt.inference.Config,
+            "Predictor": ptt.inference.Predictor}[cls]
+    ref = {"Model": pt.Model, "Config": pt.inference.Config,
+           "Predictor": pt.inference.Predictor}[cls]
+    assert _params(inspect.signature(getattr(port, name))) == \
+        _params(inspect.signature(getattr(ref, name)))

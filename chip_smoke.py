@@ -293,6 +293,35 @@ Run from the root of a checkout. Phases, each of which must pass:
      parameter count and FLOPs row, evaluate and predict on one batch, a
      Model.save / load round trip whose next step is bit-equal, and the
      net through jit.to_static equal to its eager forward.
+ 29. the vision zoo: every constructor but the ResNets (21, 1000
+     classes, batch 2; LeNet at 28^2, InceptionV3 at 299^2, the rest at
+     224^2) built on the CPU from one seed, its eval logits on the card
+     against the CPU's within ZOO_TOL of the largest (f32, TF32 off);
+     then mobilenet_v2 at bench_resnet50's recipe (scale 1.0, NCHW,
+     b256 x 224^2, bf16 O1, Momentum(0.1, 0.9, wd 1e-4),
+     FLAGS_fast_bn_stats) through TrainStep's graph, 2 + 10 calls, every
+     batch-norm buffer kept, no kernel of the port on the path: the
+     step by wall and by replay, the idle share, images/s, MFU by
+     bench.py's convention (the forward's multiply-adds counted from the
+     layers' shapes, x 3), peak memory, the update alone by replay;
+     then in f32 at b8 x 64^2 (dropout 0), 3 graph steps bit-equal to
+     3 eager steps, and one step on the card against the CPU's stage
+     by stage (each stage from the CPU's input and cotangent) within
+     MOBILENET_STAGE_TOL;
+ 30. detection at COCO widths, the card against the CPU on the same
+     inputs: phase 22's long-tail op cases; YOLOv3's three heads (b8 at
+     608^2, 80 classes, the paper's nine anchors, 50 ground truths an
+     image): yolo_loss forward and backward, yolo_box, then
+     multiclass_nms over the heads' 22,743 boxes (the card's yolo_box
+     output on both devices, held exactly); Faster R-CNN's C4 RPN (2
+     images of 800 x 1333, a 50 x 84 map, 15 anchors a cell):
+     generate_proposals at Detectron's test settings (6000 / 1000, IoU
+     0.7), then on its proposals roi_align from a 1024-channel map at
+     14 x 14 (1.5 GiB out), distribute_fpn_proposals, roi_pool,
+     psroi_pool, matrix_nms and nms; each timed by events, the NMS loops
+     also by wall, profiled and not, and by the device time
+     torch.profiler records (their host share against the unprofiled
+     events time), every output on the card.
 
 The last three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
@@ -3499,7 +3528,7 @@ def _f32_exact():
          torch.backends.cudnn.deterministic) = saved
 
 
-def _resnet_update(step) -> dict:
+def _image_update(step) -> dict:
     """The main run's optimizer update alone, on the model's parameters
     and velocities with gradients from a seed (measurement after the
     run): its launches on the card (torch.profiler's device events of
@@ -3528,28 +3557,36 @@ def _resnet_update(step) -> dict:
                 update_bound_by="bytes")
 
 
-def _resnet_main(warmup=2, steps=10) -> dict:
-    """bench_resnet50's config through TrainStep's graph: `warmup` +
-    `steps` calls, checked and timed."""
+def _nhwc(model) -> bool:
+    return getattr(model, "data_format", "NCHW") == "NHWC"
+
+
+def _image_train_main(tag, build, config, n_buffers, flop, warmup=2,
+                      steps=10) -> dict:
+    """bench_resnet50's config through TrainStep's graph for the model
+    and step `build()` makes: RESNET_BATCH x RESNET_HW^2 images in the
+    model's layout, `warmup` + `steps` calls, checked and timed; MFU
+    from `flop(model)`, a step's FLOPs an image by bench.py's
+    convention."""
     import torch
     b, hw = RESNET_BATCH, RESNET_HW
     held = _fresh_card()
-    model, step = _resnet_train_step()
+    model, step = build()
     n_params = sum(p.numel() for p in model.parameters())
-    x, y = _images(b, hw, 0)
+    x, y = _images(b, hw, 0, channels_last=_nhwc(model))
     before = [t.detach().clone() for t in model.buffers()]
     torch.cuda.reset_peak_memory_stats()
     run = _counted_steps(step, (x, y), warmup + steps)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     n_calls = warmup + steps
-    _check("[train-resnet50]", {
+    _check(tag, {
         "every loss finite": all(np.isfinite(run["losses"])),
         "every returned loss a tensor of its own": run["distinct"],
         "the first call eager and captured, every later call a replay": (
             run["captures"], run["replays"]) == (
             {"train_step": 1}, {"train_step": n_calls - 1}),
-        f"{RESNET50_BUFFERS} batch-norm buffers, every one bit-equal to "
-        f"its value before the run": len(before) == RESNET50_BUFFERS
+        f"{n_buffers} batch-norm buffers, every one bit-equal to its "
+        f"value before the run": len(before) == n_buffers
             and _same_buffers(model, before),
         "no kernel of the port on this path (B1, B2, the Adam update) and "
         "no plain version": run["counted"] == (0, 0, 0)
@@ -3563,25 +3600,26 @@ def _resnet_main(warmup=2, steps=10) -> dict:
     timed = run["step_s"][warmup:]
     wall_ms = 1e3 * statistics.median(timed)
     img_s = b / (wall_ms / 1e3)
-    flop = RESNET_TRAIN_FLOP * (hw / 224.0) ** 2
+    per_image = flop(model)
     rec = dict(
-        config="resnet50 (bench_resnet50), NHWC, s2d stem, bf16 O1, "
-               "Momentum, FLAGS_fast_bn_stats", batch=b, image=hw,
-        params=n_params, buffers=len(before), held_at_start_gb=held,
-        timed_steps=steps, step_ms_median=wall_ms,
-        step_ms=[1e3 * t for t in timed],
+        config=config, batch=b, image=hw, params=n_params,
+        buffers=len(before), held_at_start_gb=held,
+        train_flop_per_image=per_image, timed_steps=steps,
+        step_ms_median=wall_ms, step_ms=[1e3 * t for t in timed],
         first_step_ms=1e3 * run["step_s"][0], capture_s=run["capture_s"],
         captures=run["captures"], replays=run["replays"],
         step_ms_replay=replay_ms, idle_share=1 - replay_ms / wall_ms,
-        images_per_s=img_s, mfu=flop * img_s / BF16_FLOPS_PER_S,
-        step_floor_ms=flop * b / BF16_FLOPS_PER_S * 1e3, peak_mem_gb=peak,
-        stream_warnings=run["stream_warnings"], losses=run["losses"])
-    rec.update(_resnet_update(step))
-    log(f"[train-resnet50] {n_params} params, batch {b} x {hw}^2: step "
+        images_per_s=img_s, mfu=per_image * img_s / BF16_FLOPS_PER_S,
+        step_floor_ms=per_image * b / BF16_FLOPS_PER_S * 1e3,
+        peak_mem_gb=peak, stream_warnings=run["stream_warnings"],
+        losses=run["losses"])
+    rec.update(_image_update(step))
+    log(f"{tag} {n_params} params, batch {b} x {hw}^2: step "
         f"median {wall_ms:.2f} ms by wall ({min(rec['step_ms']):.2f}-"
         f"{max(rec['step_ms']):.2f} over {steps}), {replay_ms:.2f} ms by "
         f"replay (device idle {100 * rec['idle_share']:.1f} %); "
-        f"{img_s:.1f} images/s, MFU {rec['mfu']:.4f} (floor "
+        f"{img_s:.1f} images/s, MFU {rec['mfu']:.4f} ({per_image / 1e9:.3f}"
+        f" GFLOP an image a step, bench.py's convention; floor "
         f"{rec['step_floor_ms']:.2f} ms); peak mem {peak:.2f} GiB; first "
         f"call {rec['first_step_ms']:.0f} ms (capture "
         f"{run['capture_s']:.2f} s); the update alone "
@@ -3594,17 +3632,29 @@ def _resnet_main(warmup=2, steps=10) -> dict:
     return rec
 
 
-def _resnet_graph_vs_eager(build, n_steps=PARITY_STEPS, seed=1) -> dict:
+def _resnet_main() -> dict:
+    """bench_resnet50's config through TrainStep's graph (phase 19's main
+    run)."""
+    return _image_train_main(
+        "[train-resnet50]", _resnet_train_step,
+        "resnet50 (bench_resnet50), NHWC, s2d stem, bf16 O1, Momentum, "
+        "FLAGS_fast_bn_stats", RESNET50_BUFFERS,
+        lambda m: RESNET_TRAIN_FLOP)
+
+
+def _image_graph_vs_eager(build, n_steps=PARITY_STEPS, seed=1) -> dict:
     """`n_steps` TrainStep calls through the graph of the model and step
     `build()` makes, then as many eager steps of another from the same
-    seed, on one batch of RESNET_SUB_BATCH x RESNET_SUB_HW^2 images,
+    seed, on one batch of RESNET_SUB_BATCH x RESNET_SUB_HW^2 images in
+    the model's layout,
     held by phase 7's rule (_held_to); each run's buffers after its
     steps bit-equal to before, and its AccumulateGrad stream-mismatch
     warnings counted."""
-    x, y = _images(RESNET_SUB_BATCH, RESNET_SUB_HW, seed)
     runs = {}
     for eager in (False, True):
         model, step = build()
+        x, y = _images(RESNET_SUB_BATCH, RESNET_SUB_HW, seed,
+                       channels_last=_nhwc(model))
         step._eager = eager
         before = [t.detach().clone() for t in model.buffers()]
         with stream_mismatch_warnings() as warned:
@@ -3688,7 +3738,7 @@ def resnet_train_phase() -> dict:
     try:
         rec = _resnet_main()
         with _f32_exact():
-            sub = _resnet_graph_vs_eager(lambda: _resnet_train_step(
+            sub = _image_graph_vs_eager(lambda: _resnet_train_step(
                 lr=0.01, amp=False, seed=1))
             _log_resnet_parity("resnet50 f32, batch "
                                f"{RESNET_SUB_BATCH} x {RESNET_SUB_HW}^2, "
@@ -3697,7 +3747,7 @@ def resnet_train_phase() -> dict:
             rec["layout"] = _resnet_layout()
             opts = {}
             for name, kw in RESNET_OPTIMIZERS:
-                res = _resnet_graph_vs_eager(
+                res = _image_graph_vs_eager(
                     lambda: _resnet_train_step("resnet18", name, lr=1e-3,
                                                amp=False, seed=4, **kw))
                 _log_resnet_parity(f"resnet18 f32, {name} {kw}", res)
@@ -4331,6 +4381,7 @@ def eager_op_sweep(C) -> dict:
         tdevice._current_place = saved_place
     ran = set().union(*seen.values()) if seen else set()
     nn_cases = {n: errs[n] for n in C.NN_CASES}
+    lt_cases = {n: errs[n] for n in C.LONGTAIL_CASES}
     by_module = {}
     for name, ops in seen.items():
         for op in ops:
@@ -4341,7 +4392,10 @@ def eager_op_sweep(C) -> dict:
                 failures=failures, max_abs_err_by_module=by_module,
                 max_abs_err=max(errs.values()), nn_cases=nn_cases,
                 nn_failures=[f for f in failures
-                             if f.split(":")[0] in nn_cases])
+                             if f.split(":")[0] in nn_cases],
+                longtail_cases=lt_cases,
+                longtail_failures=[f for f in failures
+                                   if f.split(":")[0] in lt_cases])
 
 
 def eager_random_checks(C) -> dict:
@@ -6315,6 +6369,602 @@ def hapi_phase(eager) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the vision zoo on the card; MobileNetV2 trained at
+# bench_resnet50's recipe (bench.py:193)
+# ---------------------------------------------------------------------------
+# the card (phases 29-30 put their tensors there)
+CARD = "cuda"
+# (constructor, image side, in channels): every constructor of the zoo
+# but the ResNets (phase 19), 1000 classes, batch 2
+ZOO_MODELS = [("LeNet", 28, 1), ("alexnet", 224, 3), ("vgg11", 224, 3),
+              ("vgg13", 224, 3), ("vgg16", 224, 3), ("vgg19", 224, 3),
+              ("mobilenet_v2", 224, 3), ("densenet121", 224, 3),
+              ("densenet161", 224, 3), ("densenet169", 224, 3),
+              ("densenet201", 224, 3), ("squeezenet1_0", 224, 3),
+              ("squeezenet1_1", 224, 3), ("mobilenet_v1", 224, 3),
+              ("mobilenet_v3_small", 224, 3), ("mobilenet_v3_large", 224, 3),
+              ("shufflenet_v2_x0_5", 224, 3), ("shufflenet_v2_x1_0", 224, 3),
+              ("shufflenet_v2_x2_0", 224, 3), ("googlenet", 224, 3),
+              ("inception_v3", 299, 3)]
+# eval logits, card against CPU, f32 with TF32 off: the same convolutions
+# summed in other orders (cuDNN's algorithms against oneDNN's), no batch
+# statistics to amplify them; within this share of the largest logit
+ZOO_TOL = 1e-4
+# a stage's output (over its largest) and gradients (over the stage's
+# largest gradient norm), card against CPU in f32 with TF32 off
+MOBILENET_STAGE_TOL = 1e-4
+
+
+def _zoo_forward_on_card() -> dict:
+    """Phase 29a: each zoo constructor's eval logits at batch 2, built
+    from one seed on the CPU, then moved to the card: the card's logits
+    against the CPU's (f32, TF32 off) within ZOO_TOL of the largest."""
+    import torch
+    from paddle_tpu_torch.vision import models
+    rec = {}
+    for name, hw, cin in ZOO_MODELS:
+        model = getattr(models, name)(num_classes=1000, device="cpu",
+                                      seed=0).eval()
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (2, cin, hw, hw)).astype(np.float32))
+        with torch.no_grad():
+            want = model(x)
+            model.to(CARD)
+            got = model(x.to(CARD))
+            ms = cuda_ms(lambda: model(x.to(CARD)), iters=3, warmup=1)
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        rec[name] = dict(image=hw, rel_err=err, ms=ms,
+                         on_card=got.device.type == CARD,
+                         params=sum(p.numel() for p in model.parameters()))
+        del model, got
+    _fresh_card()
+    return rec
+
+
+def _mobilenet_step(amp=True, seed=0, lr=0.1, dropout=None):
+    """bench_resnet50's recipe on mobilenet_v2 (scale 1.0, 1000 classes,
+    NCHW, random weights from `seed`): Momentum(lr, 0.9, weight decay
+    1e-4), the forward under bf16 O1 auto_cast when `amp`, the loss
+    cross_entropy of the logits outside it; `dropout` sets the
+    classifier's."""
+    from paddle_tpu_torch import TrainStep
+    from paddle_tpu_torch import amp as tamp
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import optimizers
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+    model = mobilenet_v2(device=CARD, seed=seed)
+    if dropout is not None:
+        model.classifier[0].p = dropout
+    model.train()
+    opt = optimizers.Momentum(learning_rate=lr, momentum=0.9,
+                              weight_decay=1e-4,
+                              parameters=model.parameters())
+
+    def loss_fn(m, x, y):
+        with tamp.auto_cast(enable=amp, level="O1", dtype="bfloat16"):
+            logits = m(x)
+        return F.cross_entropy(logits, y)
+
+    return model, TrainStep(model, opt, loss_fn)
+
+
+def _mac_count(model, hw) -> float:
+    """Multiply-adds of one image's forward, from the layers' shapes: a
+    convolution's output elements x (in channels / groups) x kh x kw, a
+    Linear's in x out."""
+    import torch
+    from paddle_tpu_torch.nn.layers import Conv2D, Linear
+    macs = [0]
+
+    def conv(m, inputs, out):
+        w = m._parameters["weight"]
+        macs[0] += out[0].numel() * w.shape[1] * w.shape[2] * w.shape[3]
+
+    def lin(m, inputs, out):
+        w = m._parameters["weight"]
+        macs[0] += out[0].numel() * w.shape[0]
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, Conv2D) else lin)
+             for m in model.modules() if isinstance(m, (Conv2D, Linear))]
+    was = model.training
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros((1, 3, hw, hw), device=CARD))
+    model.train(was)
+    for h in hooks:
+        h.remove()
+    return float(macs[0])
+
+
+def _mobilenet_stages(m):
+    """mobilenet_v2's forward cut into stages: the stem (conv, bn,
+    ReLU6), each inverted residual block, the last 1x1 conv with its bn
+    and ReLU6, the head (pool, flatten, classifier)."""
+    from paddle_tpu_torch.nn import functional as F
+    f = m.features
+    n = len(f)
+    return ([("stem", lambda v: f[2](f[1](f[0](v))))]
+            + [(f"features.{i}", f[i]) for i in range(3, n - 3)]
+            + [("last", lambda v: f[n - 1](f[n - 2](f[n - 3](v)))),
+               ("head", lambda v: m.classifier(F.flatten(m.pool2d_avg(v),
+                                                         1)))])
+
+
+def _mobilenet_stage_of(name, n=23):
+    head = name.split(".")
+    if head[0] == "classifier":
+        return "head"
+    i = int(head[1])
+    return "stem" if i < 3 else "last" if i >= n - 3 else f"features.{i}"
+
+
+def _mobilenet_card_vs_cpu(seed=2) -> dict:
+    """Phase 29c: one train-mode step of mobilenet_v2 (f32, dropout 0)
+    on the CPU, stage by stage (each stage's input a leaf, its output's
+    cotangent the next stage's input gradient), then each stage on the
+    card from the CPU's input and cotangent: the card's stage output
+    within MOBILENET_STAGE_TOL of its largest, its parameters' and
+    input's gradients within MOBILENET_STAGE_TOL of the stage's largest
+    gradient norm."""
+    import torch
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+    cpu = mobilenet_v2(device="cpu", seed=seed)
+    card = mobilenet_v2(device=CARD, seed=seed)
+    card.load_state_dict(cpu.state_dict())
+    for m in (cpu, card):
+        m.classifier[0].p = 0.0
+        m.train()
+    x, y = _images(RESNET_SUB_BATCH, RESNET_SUB_HW, seed,
+                   channels_last=False)
+    x, y = x.cpu(), y.cpu()
+    stages = _mobilenet_stages(cpu)
+    leaves, outs, cur = [], [], x
+    for _, f in stages:
+        leaves.append(cur.detach().requires_grad_())
+        outs.append(f(leaves[-1]))
+        cur = outs[-1]
+    F.cross_entropy(outs[-1], y).backward()
+    cots = [None] * (len(stages) - 1)
+    for k in reversed(range(len(stages) - 1)):
+        cots[k] = leaves[k + 1].grad
+        outs[k].backward(cots[k])
+    params = dict(torch.nn.Module.named_parameters(cpu))
+    rec = {}
+    for k, (name, f) in enumerate(_mobilenet_stages(card)):
+        xin = leaves[k].detach().to(CARD).requires_grad_()
+        got = f(xin)
+        if name == "head":
+            F.cross_entropy(got, y.to(CARD)).backward()
+        else:
+            got.backward(cots[k].to(CARD))
+        want = outs[k].detach()
+        out_err = float((got.detach().cpu() - want).abs().max()
+                        / want.abs().max())
+        grads = {f"{name} input": (xin.grad, leaves[k].grad)}
+        grads.update((n, (p.grad, params[n].grad))
+                     for n, p in torch.nn.Module.named_parameters(card)
+                     if _mobilenet_stage_of(n) == name)
+        scale = max(float(w.norm()) for _, w in grads.values())
+        rec[name] = dict(out_err=out_err, grad_err=max(
+            float((g.cpu() - w).norm()) / scale for g, w in grads.values()))
+    del cpu, card
+    _fresh_card()
+    return rec
+
+
+def mobilenet_phase() -> dict:
+    """Phase 29: the zoo's eval logits on the card against the CPU;
+    mobilenet_v2 trained at bench_resnet50's recipe through TrainStep's
+    graph (FLAGS_fast_bn_stats on, put back after); then in f32 with
+    TF32 off and cuDNN deterministic, graph steps bit-equal to eager
+    steps and the card's step against the CPU's by stage."""
+    from paddle_tpu_torch import get_flags, set_flags
+    with _f32_exact():
+        zoo = _zoo_forward_on_card()
+    _check("[zoo]", {
+        f"{len(zoo)} constructors' logits on the card within {ZOO_TOL:g} "
+        f"of the CPU's": all(r["rel_err"] <= ZOO_TOL and r["on_card"]
+                              for r in zoo.values()),
+    }, zoo)
+    log("[zoo] eval logits, card vs CPU (largest difference over the "
+        "largest logit; ms a batch-2 forward by events): " + "; ".join(
+            f"{n} {r['rel_err']:.1e} {r['ms']:.2f} ms"
+            for n, r in zoo.items()))
+    flag = "FLAGS_fast_bn_stats"
+    saved = get_flags(flag)
+    set_flags({flag: True})
+    try:
+        rec = _image_train_main(
+            "[train-mobilenet_v2]", _mobilenet_step,
+            "mobilenet_v2 (scale 1.0, 1000 classes, NCHW), bench_resnet50's"
+            " recipe: bf16 O1, Momentum(0.1, 0.9, wd 1e-4), "
+            "FLAGS_fast_bn_stats", 104,
+            # bench.py's convention (bench.py:229-230): ResNet-50's 4.09e9
+            # is its forward's multiply-adds at 224^2, counted as FLOPs; a
+            # step 3x that
+            lambda m: 3 * _mac_count(m, RESNET_HW))
+    finally:
+        set_flags(saved)
+    with _f32_exact():
+        sub = _image_graph_vs_eager(lambda: _mobilenet_step(
+            amp=False, seed=1, lr=0.01, dropout=0.0))
+        stages = _mobilenet_card_vs_cpu()
+    _check("[train-mobilenet_v2]", {
+        "graph steps == eager steps, bit for bit, buffers kept":
+            sub["ok"] and sub["bit_equal"],
+        f"every stage on the card within {MOBILENET_STAGE_TOL:g} of the "
+        f"CPU's": all(r["out_err"] <= MOBILENET_STAGE_TOL
+                      and r["grad_err"] <= MOBILENET_STAGE_TOL
+                      for r in stages.values()),
+    }, dict(graph_vs_eager=sub, stages=stages))
+    worst = max(stages.items(), key=lambda kv: kv[1]["grad_err"])
+    log(f"[train-mobilenet_v2] f32 batch {RESNET_SUB_BATCH} x "
+        f"{RESNET_SUB_HW}^2: graph vs eager losses "
+        f"{[round(v, 5) for v in sub['graph']['losses']]} vs "
+        f"{[round(v, 5) for v in sub['eager']['losses']]}, bit-equal "
+        f"{sub['bit_equal']}; card vs CPU by stage: largest output "
+        f"difference {max(r['out_err'] for r in stages.values()):.2e}, "
+        f"largest gradient difference {worst[1]['grad_err']:.2e} "
+        f"({worst[0]})")
+    rec.update(zoo=zoo, graph_vs_eager=sub, stages=stages)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 30: detection at COCO widths
+# ---------------------------------------------------------------------------
+# YOLOv3 (arXiv 1804.02767): 608^2 inputs, heads at strides 32, 16 and 8,
+# 3 of the 9 COCO anchors each, 80 classes; 50 ground truths an image
+YOLO_BATCH, YOLO_HW, YOLO_CLASSES, YOLO_GT = 8, 608, 80, 50
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_HEADS = (([6, 7, 8], 32), ([3, 4, 5], 16), ([0, 1, 2], 8))
+# images of the batch the CPU recomputes multiclass_nms for (80 classes
+# x 1000 candidates an image: an IoU matrix of 8e7 pairs each)
+YOLO_NMS_CPU = 2
+# Faster R-CNN's C4 RPN on 2 images of 800 x 1333: a stride-16 map of
+# 50 x 84, 15 anchors a cell (5 sizes x 3 ratios), Detectron's test
+# proposal settings, RoIs pooled from a 1024-channel C4 map; R-FCN's
+# position-sensitive map for psroi_pool (81 classes x 7 x 7)
+RPN_IMAGES, RPN_H, RPN_W, RPN_STRIDE = 2, 50, 84, 16
+RPN_IMAGE = (800, 1333)
+RPN_SIZES, RPN_RATIOS = (32, 64, 128, 256, 512), (0.5, 1.0, 2.0)
+RPN_PRE, RPN_POST, RPN_NMS = 6000, 1000, 0.7
+C4_CHANNELS, PS_CLASSES, ROI_OUT = 1024, 81, 14
+# the CPU recomputes every ROI_CPU_EVERY-th RoI of the pooling ops (each
+# RoI's output depends on it alone)
+ROI_CPU_EVERY = 10
+# card against CPU: floats within this share of the largest, the
+# decoded boxes within DET_BOX_TOL pixels
+DET_TOL, DET_BOX_TOL = 1e-5, 1e-3
+
+
+def _rpn_anchors():
+    """[H, W, 15, 4] anchors (x1, y1, x2, y2) centred on the stride-16
+    grid."""
+    cells = []
+    for s in RPN_SIZES:
+        for r in RPN_RATIOS:
+            w, h = s / np.sqrt(r), s * np.sqrt(r)
+            cells.append((-w / 2, -h / 2, w / 2, h / 2))
+    cells = np.asarray(cells, np.float32)
+    ys = (np.arange(RPN_H) + 0.5) * RPN_STRIDE
+    xs = (np.arange(RPN_W) + 0.5) * RPN_STRIDE
+    ctr = np.stack(np.meshgrid(xs, ys), -1)                    # [H, W, 2]
+    ctr = np.concatenate([ctr, ctr], -1)[:, :, None, :]
+    return (ctr + cells[None, None]).astype(np.float32)
+
+
+def _timed(fn, iters=3):
+    """(result, times) of `fn` on the card. Unprofiled: `ms`, the median
+    by CUDA events of `iters` calls, and `wall_ms`, one synchronised
+    call by the host's clock. Under torch.profiler, in a call of its
+    own: `device_ms`, the device time it records, and
+    `profiled_wall_ms`, that call's wall time, the profiler's cost a
+    launch included. `host_share` = 1 - device_ms / ms: how much of the
+    op's unprofiled time its host loop does not hide (the events bracket
+    the whole loop, the device's idle gaps included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    out = fn()
+    ms = cuda_ms(fn, iters=iters, warmup=0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_wall = 1e3 * (time.perf_counter() - t)
+    dev_ms = _device_ms(prof)
+    return out, dict(ms=ms, wall_ms=wall, device_ms=dev_ms,
+                     profiled_wall_ms=prof_wall,
+                     host_share=1 - dev_ms / ms)
+
+
+def _fpn_levels(out, rois):
+    """Each RoI's place in distribute_fpn_proposals' output `out` (on the
+    CPU): its level's index where the output is consistent (the counts
+    cover the RoIs, restore_index is a permutation whose rows, level by
+    level in input order, hold the RoI's box), -1 for each RoI where it
+    is not."""
+    import torch
+    *levels, counts, restore = [t.cpu() for t in out]
+    r = rois.shape[0]
+    idx = restore[:, 0].long()
+    ends = torch.cumsum(counts.long(), 0)
+    lv = torch.searchsorted(ends, idx, right=True)
+    bad = torch.ones(r, dtype=torch.bool)
+    if int(ends[-1]) == r and torch.equal(idx.sort().values,
+                                          torch.arange(r)):
+        lv = lv.clamp_max(len(levels) - 1)
+        start = torch.cat([torch.zeros(1, dtype=torch.long), ends[:-1]])
+        row = idx - start[lv]
+        boxes = torch.cat(levels)[lv * r + row]
+        # input order within a level: rows rise with the RoI's index
+        ordered = torch.ones(r, dtype=torch.bool)
+        for k in range(len(levels)):
+            mine = (lv == k).nonzero()[:, 0]
+            ordered[mine] = bool((row[mine].diff() > 0).all())
+        bad = ~(torch.equal(boxes, rois) & ordered)
+    return torch.where(bad, torch.full_like(lv, -1), lv)
+
+
+def _rel(a, b):
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def _yolo_phase(rng) -> dict:
+    """Phase 30a: YOLOv3's three heads at COCO widths on the card and on
+    the CPU from the same inputs: yolo_loss forward and backward,
+    yolo_box, then multiclass_nms over the three heads' boxes (the
+    card's yolo_box output on both devices, so its decisions are held
+    exactly)."""
+    import torch
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.vision import ops as vops
+    n = YOLO_BATCH
+    gt = np.concatenate([rng.uniform(0.02, 0.98, (n, YOLO_GT, 2)),
+                         rng.uniform(0.01, 0.5, (n, YOLO_GT, 2))], -1)
+    gt = torch.from_numpy(gt.astype(np.float32))
+    label = torch.from_numpy(rng.integers(0, YOLO_CLASSES, (n, YOLO_GT))
+                             .astype(np.int32))
+    img = torch.full((n, 2), YOLO_HW, dtype=torch.int32)
+    rec, checks, boxes, scores = {"heads": []}, {}, [], []
+    for mask, down in YOLO_HEADS:
+        hw = YOLO_HW // down
+        x = torch.from_numpy(rng.standard_normal(
+            (n, 3 * (5 + YOLO_CLASSES), hw, hw)).astype(np.float32))
+        res = {}
+        for dev in ("cpu", CARD):
+            xd = x.to(dev).requires_grad_()
+
+            def loss_fn(xd=xd, dev=dev):
+                return vops.yolo_loss(xd, gt.to(dev), label.to(dev),
+                                      YOLO_ANCHORS, mask, YOLO_CLASSES, 0.7,
+                                      down)
+            loss = loss_fn()
+            grad, = torch.autograd.grad(loss.sum(), xd)
+            res[dev] = (loss.detach(), grad)
+        xc = x.to(CARD).requires_grad_()
+
+        def fwd_bwd():
+            loss = vops.yolo_loss(xc, gt.to(CARD), label.to(CARD), YOLO_ANCHORS,
+                                  mask, YOLO_CLASSES, 0.7, down)
+            return torch.autograd.grad(loss.sum(), xc)
+        loss_ms = cuda_ms(fwd_bwd, iters=5)
+        box = {dev: ops.yolo_box(x.to(dev), img.to(dev), [
+            YOLO_ANCHORS[2 * i + j] for i in mask for j in (0, 1)],
+            YOLO_CLASSES, conf_thresh=0.005, downsample_ratio=down,
+            clip_bbox=True) for dev in ("cpu", CARD)}
+        box_ms = cuda_ms(lambda: ops.yolo_box(
+            x.to(CARD), img.to(CARD), [YOLO_ANCHORS[2 * i + j] for i in mask
+                                   for j in (0, 1)], YOLO_CLASSES, 0.005,
+            down, True), iters=5)
+        live = {d: (b[0].abs().sum(-1) > 0) for d, b in box.items()}
+        flips = int((live["cpu"] != live[CARD].cpu()).sum())
+        both = live["cpu"] & live[CARD].cpu()
+        box_err = float((box[CARD][0].detach().cpu()
+                         - box["cpu"][0].detach())[both].abs().max())
+        head = dict(grid=hw, loss_rel_err=_rel(res[CARD][0],
+                                               res["cpu"][0]),
+                    grad_rel_err=float((res[CARD][1].cpu() - res["cpu"][1])
+                                       .norm() / res["cpu"][1].norm()),
+                    loss_fwd_bwd_ms=loss_ms, yolo_box_ms=box_ms,
+                    box_err_px=box_err, score_rel_err=_rel(
+                        box[CARD][1], box["cpu"][1]),
+                    keep_flips=flips, boxes=int(both.numel()))
+        rec["heads"].append(head)
+        checks[f"stride {down}: yolo_loss and its gradient within 1e-4 of "
+               f"the CPU's"] = head["loss_rel_err"] <= 1e-4 \
+            and head["grad_rel_err"] <= 1e-4
+        checks[f"stride {down}: yolo_box within {DET_BOX_TOL:g} px and "
+               f"{DET_TOL:g}, at most 1e-4 of the boxes across conf_thresh"] \
+            = box_err <= DET_BOX_TOL and head["score_rel_err"] <= DET_TOL \
+            and flips <= 1e-4 * both.numel()
+        boxes.append(box[CARD][0])
+        scores.append(box[CARD][1])
+    bb = torch.cat(boxes, 1)
+    sc = torch.cat(scores, 1).permute(0, 2, 1).contiguous()
+    kw = dict(score_threshold=0.01, nms_top_k=1000, keep_top_k=100,
+              nms_threshold=0.45, background_label=-1)
+    (out, num), times = _timed(lambda: ops.multiclass_nms(bb, sc, **kw),
+                               iters=2)
+    # the CPU redoes the first YOLO_NMS_CPU images (each image's result
+    # depends on it alone)
+    k = YOLO_NMS_CPU
+    want, want_num = ops.multiclass_nms(bb[:k].cpu(), sc[:k].cpu(), **kw)
+    rec["multiclass_nms"] = dict(
+        candidates=int(bb.shape[1]), classes=YOLO_CLASSES, **times,
+        kept=num.tolist(), on_card=out.device.type == CARD)
+    checks["multiclass_nms on the card equal to the CPU's on the same "
+           "boxes, on the card"] = bool(torch.equal(out[:k].cpu(), want)) \
+        and bool(torch.equal(num[:k].cpu(), want_num)) \
+        and out.device.type == CARD
+    _check("[detect-yolo]", checks, rec)
+    return rec
+
+
+def _rpn_phase(rng) -> dict:
+    """Phase 30b: Faster R-CNN's C4 RPN: generate_proposals on the card
+    and on the CPU from the same inputs; then, on the card's proposals
+    (on both devices), roi_align, distribute_fpn_proposals, roi_pool,
+    psroi_pool, matrix_nms and nms."""
+    import torch
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.vision import ops as vops
+    a = len(RPN_SIZES) * len(RPN_RATIOS)
+    n, h, w = RPN_IMAGES, RPN_H, RPN_W
+    anchors = torch.from_numpy(_rpn_anchors())
+    var = torch.ones_like(anchors)
+    scores = torch.from_numpy(rng.standard_normal((n, a, h, w)).astype(
+        np.float32))
+    deltas = torch.from_numpy((rng.standard_normal((n, 4 * a, h, w)) * 0.2)
+                              .astype(np.float32))
+    im = torch.tensor([RPN_IMAGE] * n, dtype=torch.float32)
+    kw = dict(pre_nms_top_n=RPN_PRE, post_nms_top_n=RPN_POST,
+              nms_thresh=RPN_NMS, min_size=0.0)
+    cuda = [t.to(CARD) for t in (scores, deltas, im, anchors, var)]
+    (rois, probs, num), times = _timed(
+        lambda: ops.generate_proposals(*cuda, **kw), iters=2)
+    w_rois, w_probs, w_num = ops.generate_proposals(
+        scores, deltas, im, anchors, var, **kw)
+    apart = int(((rois.cpu() - w_rois).abs().amax(-1) > DET_BOX_TOL).sum())
+    rec = {"generate_proposals": dict(
+        anchors=int(h * w * a), **times, proposals=num.tolist(),
+        cpu_proposals=w_num.tolist(), rows_apart=apart,
+        on_card=rois.device.type == CARD)}
+    checks = {"generate_proposals on the card, its counts, scores and "
+              f"order the CPU's and its boxes within {DET_BOX_TOL:g} px":
+              rois.device.type == CARD and apart == 0
+              and bool(torch.equal(num.cpu(), w_num))
+              and bool(torch.equal(probs.cpu(), w_probs))}
+    # the pooling ops on the card's proposals
+    flat = rois.reshape(-1, 4)
+    cnt = num.to(torch.int32)
+    c4 = torch.from_numpy(rng.standard_normal(
+        (n, C4_CHANNELS, h, w)).astype(np.float32)).to(CARD)
+    ps = torch.from_numpy(rng.standard_normal(
+        (n, PS_CLASSES * 49, h, w)).astype(np.float32)).to(CARD)
+    # every ROI_CPU_EVERY-th RoI of each image for the CPU
+    pick = torch.arange(0, RPN_POST, ROI_CPU_EVERY)
+    sub = torch.cat([flat[i * RPN_POST + pick] for i in range(n)]).cpu()
+    sub_rows = torch.cat([i * RPN_POST + pick for i in range(n)])
+    sub_num = torch.full((n,), len(pick), dtype=torch.int32)
+    full_num = torch.full((n,), RPN_POST, dtype=torch.int32)
+    for name, fn, x in (
+            ("roi_align", lambda x, b, k: vops.roi_align(
+                x, b, k, ROI_OUT, 1 / RPN_STRIDE, -1, True), c4),
+            ("roi_pool", lambda x, b, k: ops.roi_pool(
+                x, b, k, 7, 1 / RPN_STRIDE), c4),
+            ("psroi_pool", lambda x, b, k: ops.psroi_pool(
+                x, b, k, 7, 1 / RPN_STRIDE), ps)):
+        out, times = _timed(lambda: fn(x, flat, full_num.to(CARD)),
+                            iters=2)
+        want = fn(x.cpu(), sub, sub_num)
+        err = _rel(out[sub_rows.to(CARD)], want)
+        rec[name] = dict(rois=int(flat.shape[0]), out_shape=list(out.shape),
+                         out_gb=out.numel() * 4 / 2 ** 30, ms=times["ms"],
+                         rel_err=err, on_card=out.device.type == CARD)
+        checks[f"{name} on the card within {DET_TOL:g} of the CPU's"] = \
+            err <= DET_TOL and out.device.type == CARD
+        del out
+    dist, times = _timed(lambda: ops.distribute_fpn_proposals(
+        flat, 2, 5, 4, 224, rois_num=cnt), iters=3)
+    want = ops.distribute_fpn_proposals(flat.cpu(), 2, 5, 4, 224,
+                                        rois_num=cnt.cpu())
+    # RoIs whose level (in float64) lies within 1e-5 of a boundary: the
+    # two devices' log2 may put them on either side; every other RoI's
+    # level, and so its row, is held exactly
+    f64 = flat.cpu().double()
+    lvl = 4 + torch.log2(torch.sqrt(((f64[:, 2] - f64[:, 0])
+                                     * (f64[:, 3] - f64[:, 1])).clamp_min(
+        1e-12)) / 224 + 1e-12)
+    near = (lvl - lvl.round()).abs() < 1e-5
+    got_lv, want_lv = (_fpn_levels(d, flat.cpu()) for d in (dist, want))
+    equal = all(torch.equal(g.cpu(), w) for g, w in zip(dist, want))
+    moved = int((got_lv != want_lv).sum())
+    rec["distribute_fpn_proposals"] = dict(
+        ms=times["ms"], per_level=dist[-2].tolist(), equal=equal,
+        near_boundary=int(near.sum()), moved=moved)
+    checks["distribute_fpn_proposals: each RoI's level, row and restore "
+           "index consistent on both devices, the levels equal to the "
+           "CPU's but for a RoI within 1e-5 of a level boundary, which "
+           "moves at most one level"] = (
+        bool(got_lv.ge(0).all()) and bool(want_lv.ge(0).all())
+        and bool((got_lv == want_lv)[~near].all())
+        and bool(((got_lv - want_lv).abs() <= 1).all()))
+    live = torch.arange(RPN_POST, device=probs.device)[None] < num[:, None]
+    sc = torch.where(live, torch.sigmoid(probs),
+                     torch.zeros_like(probs))[:, None, :]
+    mkw = dict(score_threshold=0.05, post_threshold=0.05, nms_top_k=1000,
+               keep_top_k=100)
+    (mout, mnum), times = _timed(lambda: ops.matrix_nms(rois, sc, **mkw),
+                                 iters=3)
+    want = ops.matrix_nms(rois.cpu(), sc.cpu(), **mkw)
+    rec["matrix_nms"] = dict(ms=times["ms"], kept=mnum.tolist())
+    checks["matrix_nms equal to the CPU's"] = bool(
+        torch.equal(mout.cpu(), want[0])) and bool(torch.equal(
+            mnum.cpu(), want[1]))
+    keep, times = _timed(lambda: vops.nms(rois[0], 0.5, probs[0]),
+                         iters=2)
+    want = vops.nms(rois[0].cpu(), 0.5, probs[0].cpu())
+    rec["nms"] = dict(candidates=int(rois.shape[1]), kept=int(keep.numel()),
+                      **times)
+    checks["nms (eager, a read-back a candidate) equal to the CPU's, on "
+           "the card"] = bool(torch.equal(keep.cpu(), want)) \
+        and keep.device.type == CARD
+    _check("[detect-rpn]", checks, rec)
+    return rec
+
+
+def _loop_times(name, t) -> str:
+    return (f"{name} {t['ms']:.2f} ms by events, {t['wall_ms']:.2f} by "
+            f"wall ({t['profiled_wall_ms']:.2f} profiled), "
+            f"{t['device_ms']:.2f} on the device (host share "
+            f"{t['host_share']:.3f})")
+
+
+def detection_phase(eager) -> dict:
+    """Phase 30: the long-tail op cases of phase 22's sweep (card against
+    CPU), YOLOv3's head and Faster R-CNN's C4 RPN at COCO widths on the
+    card against the CPU."""
+    sweep = eager["sweep"]
+    cases = sweep["longtail_cases"]
+    _check("[detect] sweep:", {
+        f"the {len(cases)} long-tail, sequence and detection cases agree "
+        f"with the CPU (phase 22)": not sweep["longtail_failures"],
+    }, cases)
+    rng = np.random.default_rng(30)
+    t = time.perf_counter()
+    yolo = _yolo_phase(rng)
+    rpn = _rpn_phase(rng)
+    _fresh_card()
+    rec = dict(sweep_cases=cases, yolo=yolo, rpn=rpn,
+               seconds=time.perf_counter() - t)
+    log(f"[detect] {len(cases)} op cases on the card, largest difference "
+        f"{max(cases.values()):.2e}; YOLOv3 heads: " + "; ".join(
+            f"{hd['grid']}^2 loss+grad {hd['loss_fwd_bwd_ms']:.2f} ms, "
+            f"yolo_box {hd['yolo_box_ms']:.3f} ms" for hd in yolo["heads"])
+        + f"; {_loop_times('multiclass_nms', yolo['multiclass_nms'])}; "
+        f"RPN: {_loop_times('generate_proposals', rpn['generate_proposals'])}"
+        f", roi_align {rpn['roi_align']['ms']:.2f} ms "
+        f"({rpn['roi_align']['out_gb']:.2f} GiB out), roi_pool "
+        f"{rpn['roi_pool']['ms']:.2f}, psroi_pool "
+        f"{rpn['psroi_pool']['ms']:.2f}, distribute "
+        f"{rpn['distribute_fpn_proposals']['ms']:.2f} (levels moved "
+        f"{rpn['distribute_fpn_proposals']['moved']}, near a boundary "
+        f"{rpn['distribute_fpn_proposals']['near_boundary']}), matrix_nms "
+        f"{rpn['matrix_nms']['ms']:.2f}, {_loop_times('nms', rpn['nms'])}; "
+        f"{rec['seconds']:.1f} s")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -6363,6 +7013,8 @@ def main() -> int:
     surface = surface_phase(eager)
     export = export_phase()
     hapi = hapi_phase(eager)
+    mobilenet = mobilenet_phase()
+    detection = detection_phase(eager)
     EAGER_GPT.clear()       # phases 23d and 28 read phase 22's GPT
     runs_17_18 =(("llama13b", train_llama["no_recompute"]),
                   ("llama13b_recompute", train_llama["recompute"]),
@@ -6566,6 +7218,8 @@ def main() -> int:
     log("[nn-surface] " + json.dumps(surface))
     log("[export] " + json.dumps(export))
     log("[hapi] " + json.dumps(hapi))
+    log("[train-mobilenet_v2] " + json.dumps(mobilenet))
+    log("[detect] " + json.dumps(detection))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

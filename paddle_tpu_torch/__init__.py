@@ -25,10 +25,11 @@ from . import core, ops  # noqa: I001
 from . import (amp, autograd, distributed, framework_io, incubate,
                inference, io, jit, kernels, models, nn, optimizer,
                resilience, vision)
-from . import callbacks, metric, utils
+from . import callbacks, metric, tensor_array, utils
 from .convert import (bert_params_from_numpy, fused_params_from_numpy,
                       gpt_params_from_numpy, llama_params_from_numpy,
-                      optimizer_state_from_numpy, resnet_params_from_numpy)
+                      optimizer_state_from_numpy, resnet_params_from_numpy,
+                      vision_params_from_numpy)
 from .autograd import (enable_grad, grad, is_grad_enabled, no_grad,
                        set_grad_enabled)
 from .core import resolve_device
@@ -46,6 +47,8 @@ from .ops import cast, slice, split, unique  # noqa: F401
 from .core.flags import get_flags, set_flags
 from .framework_io import load, save
 from .hapi.model_api import Model, summary
+from .tensor_array import (array_length, array_read, array_write,
+                           create_array)
 from .inference import LLMEngine, PagedKVCache
 from .jit import TrainStep
 from .models import (BertConfig, BertForMaskedLM, GPTConfig, GPTForCausalLM,
@@ -68,4 +71,6 @@ __all__ = ["amp", "core", "distributed", "incubate", "inference", "jit",
            "DType", "bool", "uint8", "int8", "int16", "int32", "int64",
            "float16", "bfloat16", "float32", "float64", "complex64",
            "complex128", "finfo", "iinfo", "framework_io", "save", "load",
-           "io", "callbacks", "metric", "utils", "Model", "summary"]
+           "io", "callbacks", "metric", "utils", "Model", "summary",
+           "tensor_array", "create_array", "array_write", "array_read",
+           "array_length", "vision_params_from_numpy"]

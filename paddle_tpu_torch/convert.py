@@ -19,7 +19,8 @@ import torch
 
 __all__ = ["gpt_params_from_numpy", "llama_params_from_numpy",
            "bert_params_from_numpy", "resnet_params_from_numpy",
-           "fused_params_from_numpy", "optimizer_state_from_numpy"]
+           "fused_params_from_numpy", "optimizer_state_from_numpy",
+           "vision_params_from_numpy"]
 
 # every optimizer's accumulators (reference optimizers.py): Adam, AdamW
 # and Lamb; Momentum; Adamax and Adagrad; RMSProp; Adadelta
@@ -51,6 +52,8 @@ llama_params_from_numpy = gpt_params_from_numpy
 bert_params_from_numpy = gpt_params_from_numpy
 resnet_params_from_numpy = gpt_params_from_numpy
 fused_params_from_numpy = gpt_params_from_numpy
+# the vision zoo (LeNet ... InceptionV3): names and layouts one for one
+vision_params_from_numpy = gpt_params_from_numpy
 
 
 def optimizer_state_from_numpy(state: Dict, names: Dict[str, str]) -> Dict:

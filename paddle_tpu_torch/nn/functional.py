@@ -1159,3 +1159,13 @@ def rnnt_loss(input, label, input_lengths, label_lengths, blank=0,
     if reduction == "sum":
         return per_sample.sum()
     return per_sample
+
+
+# the reference's nn.functional re-exports these long-tail ops of ops/
+# (ops/ imports this module first, so they are imported at its end)
+from ..ops.sequence_ops import ctc_loss  # noqa: E402,F401
+from ..ops.vision_ops import (deformable_conv,  # noqa: E402,F401
+                              depthwise_conv2d, max_pool2d_with_index)
+
+__all__ += ["ctc_loss", "deformable_conv", "depthwise_conv2d",
+            "max_pool2d_with_index"]

@@ -23,6 +23,7 @@ from ..core.tensor import NARROW, Tensor
 from ..core.tensor import _diffable
 from . import (creation, linalg, logic, manipulation, math,  # noqa: F401
                nn_ops, random, reduction, registry, search)
+from . import longtail, parity, sequence_ops, vision_ops  # noqa: F401
 from .creation import *  # noqa: F401,F403
 from .linalg import *  # noqa: F401,F403
 from .logic import *  # noqa: F401,F403
@@ -33,10 +34,10 @@ from .random import *  # noqa: F401,F403
 from .reduction import *  # noqa: F401,F403
 from .registry import OPS, get_op, register_op  # noqa: F401
 from .search import *  # noqa: F401,F403
-from ..nn.functional import conv3d_transpose, pad  # noqa: F401
-# the reference's ops namespace also carries these of ops/vision_ops.py
-# and ops/longtail.py
-from ..nn.functional import fold, rnnt_loss_op, unpool  # noqa: F401
+from ..nn.functional import pad  # noqa: F401
+from .longtail import *  # noqa: F401,F403
+from .sequence_ops import *  # noqa: F401,F403
+from .vision_ops import *  # noqa: F401,F403
 from ..core.generator import torch_generator as _torch_generator
 from .math import abs as _abs_op, pow as _pow_op
 from .math import add, divide, floor_divide, mod, multiply, neg, subtract

@@ -189,14 +189,21 @@ def _holds_tensor(seq):
     return False
 
 
-def _torch_level(args, kwargs):
-    """True when the call holds no Tensor but a torch tensor."""
-    if _holds_tensor(args) or (kwargs and _holds_tensor(kwargs.values())):
-        return False
-    for a in args:
+def _holds_torch(seq):
+    for a in seq:
         if isinstance(a, torch.Tensor):
             return True
+        if type(a) in (list, tuple) and _holds_torch(a):
+            return True
     return False
+
+
+def _torch_level(args, kwargs):
+    """True when the call holds no Tensor but a torch tensor among its
+    positional arguments (or in a list or tuple of them, as concat's)."""
+    if _holds_tensor(args) or (kwargs and _holds_tensor(kwargs.values())):
+        return False
+    return _holds_torch(args)
 
 
 def register_op(name: str = None, amp_policy: str = None, tags=(),

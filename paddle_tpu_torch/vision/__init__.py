@@ -1,6 +1,5 @@
 """paddle_tpu_torch.vision (counterpart of paddle_tpu/vision): the
-models (ResNet so far), the transforms and the datasets. ``vision.ops``
-is ROADMAP item 25's."""
-from . import datasets, models, transforms
+model zoo, the transforms, the datasets and the vision ops."""
+from . import datasets, models, ops, transforms
 
-__all__ = ["datasets", "models", "transforms"]
+__all__ = ["datasets", "models", "ops", "transforms"]

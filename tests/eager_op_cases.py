@@ -776,6 +776,298 @@ NN_CASES = [c[0] for c in CASES[_NN_FIRST:]]
 
 
 # ---------------------------------------------------------------------------
+# the long-tail ops, sequence ops and vision / detection ops (ops/longtail,
+# ops/sequence_ops, ops/vision_ops, vision/ops)
+# ---------------------------------------------------------------------------
+_LT_FIRST = len(CASES)
+
+
+def _split_pieces(P, T):
+    x = T(A345, grad=False)
+    return (P.ops.tensor_split(x, 2), P.ops.tensor_split(x, [1, 3], axis=1),
+            P.ops.hsplit(x, 2), P.ops.vsplit(x, [1]), P.ops.dsplit(x, 5))
+
+
+case("tensor_splits", _split_pieces, grad=False)
+case("stacks", lambda P, T: (
+    P.ops.column_stack([T(V6), T(V6[::-1].copy())]),
+    P.ops.column_stack([T(A23.T.copy()), T(V6[:3])]),
+    P.ops.row_stack([T(A34), T(B34)]), P.ops.hstack([T(A34), T(B34)]),
+    P.ops.vstack([T(V6), T(V6)]), P.ops.dstack([T(A34), T(B34)])))
+case("unflatten", lambda P, T: (P.ops.unflatten(T(A345), 2, [5, 1]),
+                                P.ops.unflatten(T(A345), -2, [2, -1])))
+case("take", lambda P, T: (
+    P.ops.take(T(A34), T(ints(0, 11, -1, 5))),
+    P.ops.take(T(A34), T(ints(13, -15, 2)), mode="wrap"),
+    P.ops.take(T(A34), T(ints(30, -20, 4)), mode="clip")))
+case("block_diag_cartesian_combinations", lambda P, T: (
+    P.ops.block_diag([T(A23), T(V6[:2]), T(SQ[:3, :3])]),
+    P.ops.cartesian_prod([T(V6[:3]), T(V8[:2]), T(V6[3:5])]),
+    P.ops.combinations(T(V6[:4])),
+    P.ops.combinations(T(V6[:3]), r=3, with_replacement=True)))
+case("scatters", lambda P, T: (
+    P.ops.diagonal_scatter(T(A34), T(V6[:3])),
+    P.ops.diagonal_scatter(T(A34), T(V6[:3]), offset=1),
+    P.ops.diagonal_scatter(T(A345), T(f32(5, 2)), offset=-1, axis1=0,
+                           axis2=1),
+    P.ops.select_scatter(T(A345), T(f32(3, 5)), 1, 2),
+    P.ops.slice_scatter(T(A345), T(f32(3, 2, 2)), [1, 2], [0, 1], [4, 5],
+                        [2, 2]),
+    P.ops.fill_diagonal_tensor(T(A34), T(V6[:3]), offset=1)))
+case("reverse", lambda P, T: (P.ops.reverse(T(A345), 1),
+                              P.ops.reverse(T(A345), [0, 2])))
+case("sinc_sign_tests", lambda P, T: (
+    P.ops.sinc(T(A34 * 3)), P.ops.signbit(T(A34, grad=False)),
+    P.ops.isposinf(T(np.array([1, np.inf, -np.inf], np.float32),
+                     grad=False)),
+    P.ops.isneginf(T(np.array([1, np.inf, -np.inf], np.float32),
+                     grad=False)),
+    P.ops.isreal(T(CPLX, grad=False)), P.ops.isreal(T(A23, grad=False)),
+    P.ops.positive(T(A23)), P.ops.negative(T(A23)), P.ops.sgn(T(A34)),
+    P.ops.sgn(T(np.array([0, 3 + 4j, -2j], np.complex64), grad=False))))
+case("float_power_vander", lambda P, T: (
+    P.ops.float_power(T(P34), T(A34)), P.ops.float_power(T(P34), 2.5),
+    P.ops.vander(T(V6[:4])), P.ops.vander(T(V6[:3]), n=5,
+                                          increasing=True)), tol=1e-5)
+case("gamma_functions", lambda P, T: (
+    P.ops.gammaln(T(P34 * 3)), P.ops.gammainc(T(P34 * 2), T(P34)),
+    P.ops.gammaincc(T(P34 + 1), T(P34 * 2)),
+    P.ops.multigammaln(T(P34 + 2), 3)), tol=1e-5, grad_tol=1e-4)
+case("histograms", lambda P, T: (
+    P.ops.histogram_bin_edges(T(V8, grad=False), bins=5),
+    P.ops.histogram_bin_edges(T(V8, grad=False), bins=4, min=-2, max=2),
+    P.ops.histogramdd(T(f32(20, 2), grad=False), bins=3),
+    P.ops.histogramdd(T(f32(20, 3), grad=False), bins=[2, 3, 4],
+                      ranges=[(-1, 1), (-0.5, 0.5), (0, 1)],
+                      weights=T(pos(20), grad=False)),
+    P.ops.histogramdd(T(f32(30, 2), grad=False), bins=4, density=True)),
+    grad=False, tol=1e-5)
+case("distances", lambda P, T: (
+    P.ops.pdist(T(A45)), P.ops.pdist(T(A45), p=1.0),
+    P.ops.pdist(T(A45), p=float("inf")), P.ops.pdist(T(A45), p=3.0),
+    P.ops.cdist(T(A34), T(B34[:2])),
+    P.ops.cdist(T(f32(2, 3, 4)), T(f32(2, 5, 4)), p=1.0),
+    P.ops.cdist(T(A34), T(B34), compute_mode="donot_use_mm_for_euclid_dist"),
+    P.ops.cdist(T(A34), T(B34), p=0.0)), tol=1e-5, grad_tol=1e-4)
+case("complex_views", lambda P, T: (
+    P.ops.polar(T(P34), T(A34)),
+    P.ops.view_as_real(P.ops.view_as_complex(T(f32(3, 2)))),
+    P.ops.view_as_real(T(CPLX, grad=False))))
+case("linalg_tail", lambda P, T: (
+    P.ops.cond(T(SQ)), P.ops.cond(T(SQ), p="fro"), P.ops.cond(T(SQ), p=1),
+    P.ops.cond(T(SQ), p=-2), P.ops.matrix_exp(T(A34[:3, :3])),
+    P.ops.addbmm(T(A34), T(f32(2, 3, 5)), T(f32(2, 5, 4)), beta=0.5,
+                 alpha=2.0),
+    P.ops.baddbmm(T(f32(2, 3, 4)), T(f32(2, 3, 5)), T(f32(2, 5, 4)),
+                  beta=1.5),
+    P.ops.cholesky_inverse(T(TRIL)),
+    P.ops.cholesky_inverse(T(TRIL.T.copy()), upper=True)),
+    tol=1e-4, grad_tol=1e-4)
+case("geqrf_orgqr", lambda P, T: (
+    P.ops.geqrf(T(f32(5, 3), grad=False)),
+    P.ops.geqrf(T(f32(2, 4, 4), grad=False)),
+    P.ops.orgqr(*P.ops.geqrf(T(f32(5, 3), grad=False)))), tol=1e-4,
+    grad=False)
+case("yaml_misc", lambda P, T: (
+    P.ops.mean_all(T(A345)), P.ops.check_numerics(T(A34)),
+    P.ops.index_select_strided(T(A345), T(ints(2, 0)), axis=2),
+    P.ops.trans_layout(T(A345), [2, 0, 1]),
+    P.ops.squared_l2_norm(T(A34)),
+    P.ops.frexp(T(np.array([0.0, 1.0, -3.5, 1e-3, 6e4, -0.75],
+                           np.float32)))))
+# outputs that are constant in the inputs' values (counts, shapes, fills,
+# the metrics): the reference records them (a zero gradient), the port
+# does not (no gradient)
+case("yaml_constants", lambda P, T: (
+    P.ops.accuracy_op(T(f32(6, 5)), T(ints(0, 1, 2, 3, 4, 0)), k=2),
+    P.ops.auc_op(T(pos(10, 2)), T(ints(0, 1, 1, 0, 1, 0, 0, 1, 1, 0))),
+    P.ops.numel(T(A345)), P.ops.shape_op(T(A345)), P.ops.fill(T(A34), 2.5),
+    P.ops.view_dtype(T(A34, grad=False), "int32"),
+    P.ops.assign_value([2, 3], "float32", [1, 2, 3, 4, 5, 6]),
+    P.ops.full_batch_size_like(T(A345), [1, 7], 0.5, input_dim_idx=1,
+                               output_dim_idx=1)), grad=False)
+
+# sequence ops
+case("ctc_loss", lambda P, T: tuple(
+    P.ops.ctc_loss(T(f32(6, 2, 4) * 2), T(np.array([[1, 2], [3, 1]],
+                                                    np.int32)),
+                   T(ints(6, 5)), T(ints(2, 1)), reduction=r,
+                   norm_by_times=n)
+    for r, n in (("mean", False), ("sum", False), ("none", True))) + (
+    P.nn.functional.ctc_loss(T(f32(5, 1, 3)), T(ints(1, 2)[None]),
+                             T(ints(5)), T(ints(2))),), tol=1e-5,
+    grad_tol=1e-4)
+case("viterbi_decode", lambda P, T: (
+    P.ops.viterbi_decode(T(f32(2, 5, 4)), T(f32(4, 4)), T(ints(5, 3)),
+                         include_bos_eos_tag=False),
+    P.ops.viterbi_decode(T(f32(2, 4, 5)), T(f32(5, 5)), T(ints(2, 4)))),
+    tol=1e-5, grad=False)
+case("gather_tree", lambda P, T: P.ops.gather_tree(
+    T(np.array([[[2, 5, 1]], [[3, 6, 2]], [[4, 7, 3]], [[8, 9, 1]]],
+               np.int32)),
+    T(np.array([[[0, 0, 0]], [[1, 0, 2]], [[0, 2, 1]], [[2, 2, 0]]],
+               np.int32))))
+case("top_p_sampling_nucleus_of_one", lambda P, T: P.ops.top_p_sampling(
+    T(np.array([[0.5, 0.3, 0.15, 0.05], [0.05, 0.1, 0.8, 0.05]],
+               np.float32), grad=False),
+    T(np.array([0.1, 0.5], np.float32)), seed=3), grad=False)
+case("edit_distance", lambda P, T: (
+    P.ops.edit_distance(T(np.array([[1, 2, 3, 0], [4, 4, 1, 2]], np.int32)),
+                        T(np.array([[1, 3, 3, 4, 1], [4, 1, 2, 0, 0]],
+                                   np.int32)),
+                        T(ints(3, 4)), T(ints(5, 3)), normalized=False),
+    P.ops.edit_distance(T(np.array([[5, 1, 2]], np.int32)),
+                        T(np.array([[1, 2, 5]], np.int32)))))
+case("class_center_sample_positives", lambda P, T: P.ops.class_center_sample(
+    T(ints(3, 7, 3, 1)), 10, 3, seed=2), grad=False)
+
+
+def _boxes(n, size, lo=2.0, hi=None):
+    """n random (x1, y1, x2, y2) boxes inside [0, size]."""
+    hi = size / 2 if hi is None else hi
+    xy = f32(n, 2, lo=0.0, hi=size - hi)
+    wh = f32(n, 2, lo=lo, hi=hi)
+    return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+
+# vision / detection ops
+case("depthwise_conv2d", lambda P, T: (
+    P.ops.depthwise_conv2d(T(IMG), T(f32(4, 1, 3, 3)), padding=1),
+    P.nn.functional.depthwise_conv2d(T(IMG), T(f32(8, 1, 3, 3)),
+                                     T(f32(8)), stride=2)), tol=1e-5,
+    grad_tol=1e-5)
+
+
+def _deform(P, T, fn, groups):
+    x = T(f32(1, 4, 6, 6))
+    return (fn(x, T(f32(1, 18, 6, 6) * 0.7), T(f32(6, 4, 3, 3)),
+               padding=1),
+            fn(x, T(f32(1, 36, 4, 4) * 0.7), T(f32(6, 4 // groups, 3, 3)),
+               mask=T(pos(1, 18, 4, 4) / 2), bias=T(f32(6)),
+               deformable_groups=2, groups=groups))
+
+
+# the reference's ops.deformable_conv takes groups=1 only (its weight
+# reshape fails otherwise); vision.ops.deform_conv2d takes groups
+case("deformable_conv", lambda P, T: _deform(P, T, P.ops.deformable_conv, 1),
+     tol=1e-5, grad_tol=1e-4)
+case("deform_conv2d", lambda P, T: _deform(P, T, P.vision.ops.deform_conv2d,
+                                           2), tol=1e-5, grad_tol=1e-4)
+case("max_pools_with_index", lambda P, T: (
+    P.ops.max_pool2d_with_index(T(IMG), 3, 2, padding=1),
+    P.nn.functional.max_pool2d_with_index(T(IMG), 2),
+    P.ops.max_pool3d_with_index(T(IMG3), 2, padding=[0, 1, 1])))
+case("unpool3d", lambda P, T: P.ops.unpool3d(
+    *P.ops.max_pool3d_with_index(T(IMG3), 2), 2))
+case("roi_pools", lambda P, T: (
+    P.ops.roi_pool(T(f32(2, 3, 12, 14)),
+                   T(_boxes(5, 24.0, hi=14.0), grad=False), T(ints(2, 3)),
+                   output_size=3, spatial_scale=0.5),
+    P.ops.roi_pool(T(IMG), T(_boxes(3, 8.0, lo=1.0, hi=5.0), grad=False),
+                   output_size=(2, 4)),
+    P.ops.psroi_pool(T(f32(2, 8, 10, 12)),
+                     T(_boxes(4, 20.0, hi=12.0), grad=False), T(ints(1, 3)),
+                     output_size=2, spatial_scale=0.5)), tol=1e-5)
+case("roi_align", lambda P, T: (
+    P.vision.ops.roi_align(T(f32(2, 3, 10, 12)),
+                           T(_boxes(5, 20.0, hi=12.0), grad=False),
+                           T(ints(2, 3)), 3, spatial_scale=0.5),
+    P.vision.ops.roi_align(T(IMG), T(_boxes(2, 8.0), grad=False),
+                           T(ints(1, 1)), (2, 3), aligned=False)),
+    tol=1e-5, grad_tol=1e-5)
+case("prior_box", lambda P, T: P.ops.prior_box(
+    T(f32(1, 3, 4, 5)), T(f32(1, 3, 32, 40)), [8.0, 12.0],
+    max_sizes=[16.0, 20.0], aspect_ratios=[2.0, 3.0], flip=True, clip=True),
+    grad=False)
+case("yolo_box", lambda P, T: (
+    P.ops.yolo_box(T(f32(2, 2 * 8, 3, 4) * 2), T(ints(64, 96, 80, 40)
+                                                 .reshape(2, 2)),
+                   [10, 13, 30, 20], 3, conf_thresh=0.3),
+    P.ops.yolo_box(T(f32(1, 2 * 9, 3, 3) * 2), T(ints(48, 48)[None]),
+                   [12, 10, 20, 30], 3, conf_thresh=0.2, clip_bbox=False,
+                   scale_x_y=1.05, iou_aware=True)), tol=1e-5,
+    grad_tol=1e-4)
+
+
+def _nms_inputs(T, n, m, c):
+    boxes = np.stack([_boxes(m, 50.0, lo=5.0, hi=25.0) for _ in range(n)])
+    return T(boxes, grad=False), T(pos(n, c, m) / 2, grad=False)
+
+
+case("matrix_nms", lambda P, T: (
+    P.ops.matrix_nms(*_nms_inputs(T, 2, 12, 3), score_threshold=0.3,
+                     nms_top_k=8, keep_top_k=10),
+    P.ops.matrix_nms(*_nms_inputs(T, 1, 10, 2), score_threshold=0.2,
+                     post_threshold=0.3, keep_top_k=30, use_gaussian=True,
+                     normalized=False)), grad=False, tol=1e-5)
+case("multiclass_nms", lambda P, T: (
+    P.ops.multiclass_nms(*_nms_inputs(T, 2, 15, 3), score_threshold=0.3,
+                         nms_top_k=10, keep_top_k=12, nms_threshold=0.4),
+    P.ops.multiclass_nms(*_nms_inputs(T, 1, 12, 3), score_threshold=0.2,
+                         keep_top_k=40, nms_threshold=0.6, normalized=False,
+                         nms_eta=0.8, background_label=0)),
+    grad=False, tol=1e-6)
+
+
+def _proposals(P, T, pixel_offset):
+    a, h, w = 3, 4, 5
+    anchors = np.stack([_boxes(h * w * a, 64.0, lo=6.0, hi=24.0)]).reshape(
+        h, w, a, 4)
+    var = np.broadcast_to(np.array([0.1, 0.1, 0.2, 0.2], np.float32),
+                          (h, w, a, 4)).copy()
+    return P.ops.generate_proposals(
+        T(f32(2, a, h, w), grad=False), T(f32(2, 4 * a, h, w), grad=False),
+        T(np.array([[64, 60], [50, 64]], np.float32), grad=False),
+        T(anchors, grad=False), T(var, grad=False), pre_nms_top_n=40,
+        post_nms_top_n=12, nms_thresh=0.5, min_size=2.0,
+        pixel_offset=pixel_offset)
+
+
+case("generate_proposals", lambda P, T: (_proposals(P, T, False),
+                                         _proposals(P, T, True)),
+     grad=False, tol=1e-5)
+case("distribute_fpn_proposals", lambda P, T: (
+    P.ops.distribute_fpn_proposals(
+        T(_boxes(12, 800.0, lo=10.0, hi=400.0), grad=False), 2, 5, 4, 224),
+    P.ops.distribute_fpn_proposals(
+        T(_boxes(10, 600.0, lo=8.0, hi=300.0), grad=False), 2, 4, 3, 112,
+        rois_num=T(ints(4, 3)), pixel_offset=True)), grad=False)
+case("nms", lambda P, T: (
+    P.vision.ops.nms(T(_boxes(20, 40.0, lo=6.0, hi=16.0), grad=False), 0.4,
+                     T(pos(20), grad=False)),
+    P.vision.ops.nms(T(_boxes(12, 30.0, lo=6.0, hi=14.0), grad=False), 0.3,
+                     top_k=5)))
+case("box_coder", lambda P, T: (
+    P.vision.ops.box_coder(T(_boxes(6, 40.0)), T(pos(6, 4) / 4),
+                           T(_boxes(6, 40.0))),
+    P.vision.ops.box_coder(T(_boxes(5, 40.0)), None, T(f32(3, 5, 4) / 2),
+                           code_type="decode_center_size"),
+    P.vision.ops.box_coder(T(_boxes(5, 40.0)), T(pos(5, 4) / 4),
+                           T(f32(5, 4) / 2), code_type="decode_center_size")),
+    tol=1e-5, grad_tol=1e-4)
+
+
+def _yolo_loss(P, T):
+    n, b, c, h, w = 2, 4, 3, 4, 5
+    xy = f32(n, b, 2, lo=0.05, hi=0.95)
+    wh = f32(n, b, 2, lo=0.05, hi=0.6)
+    wh[1, 3] = 0.0                               # an empty ground truth
+    gt = T(np.concatenate([xy, wh], -1), grad=False)
+    label = T(np.array([[0, 2, 1, 1], [2, 0, 1, 0]], np.int32))
+    x = T(f32(n, 3 * (5 + c), h, w) * 2)
+    anchors = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119]
+    return (P.vision.ops.yolo_loss(x, gt, label, anchors, [3, 4, 5], c,
+                                   0.5, 32),
+            P.vision.ops.yolo_loss(x, gt, label, anchors, [0, 1, 2], c,
+                                   0.3, 16, gt_score=T(pos(n, b) / 2),
+                                   use_label_smooth=False))
+
+
+case("yolo_loss", _yolo_loss, tol=1e-4, grad_tol=1e-4)
+LONGTAIL_CASES = [c[0] for c in CASES[_LT_FIRST:]]
+
+
+# ---------------------------------------------------------------------------
 # running a case
 # ---------------------------------------------------------------------------
 def flat_outputs(out):

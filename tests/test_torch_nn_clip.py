@@ -133,26 +133,21 @@ PORTED_MODULES = {
     "paddle_tpu.optimizer": ("paddle_tpu_torch.optimizer", set()),
     "paddle_tpu.optimizer.lbfgs": ("paddle_tpu_torch.optimizer.lbfgs",
                                    set()),
-    # ResNet is ported; the other vision models take item 25
-    "paddle_tpu.vision.models": (
-        "paddle_tpu_torch.vision.models", {
-            "AlexNet", "DenseNet", "GoogLeNet", "InceptionV3", "LeNet",
-            "MobileNetV1", "MobileNetV2", "MobileNetV3", "ShuffleNetV2",
-            "SqueezeNet", "VGG", "alexnet", "densenet121", "densenet161",
-            "densenet169", "densenet201", "extra", "googlenet",
-            "inception_v3", "lenet_vgg_mobilenet", "mobilenet_v1",
-            "mobilenet_v2", "mobilenet_v3_large", "mobilenet_v3_small",
-            "shufflenet_v2_x0_5", "shufflenet_v2_x1_0", "shufflenet_v2_x2_0",
-            "squeezenet1_0", "squeezenet1_1", "vgg11", "vgg13", "vgg16",
-            "vgg19"}),
+    # the vision zoo (ROADMAP item 25's vision part)
+    "paddle_tpu.vision.models": ("paddle_tpu_torch.vision.models", set()),
+    "paddle_tpu.vision.models.extra": (
+        "paddle_tpu_torch.vision.models.extra", set()),
+    "paddle_tpu.vision.models.lenet_vgg_mobilenet": (
+        "paddle_tpu_torch.vision.models.lenet_vgg_mobilenet", set()),
     "paddle_tpu.vision.models.resnet": (
         "paddle_tpu_torch.vision.models.resnet", set()),
-    # io and the vision input path (ROADMAP item 27); vision.ops is item 25's
+    # io and the vision input path (ROADMAP item 27), vision.ops
     "paddle_tpu.io": ("paddle_tpu_torch.io", set()),
     "paddle_tpu.io.native": ("paddle_tpu_torch.io.native", set()),
     "paddle_tpu.io._process_worker": ("paddle_tpu_torch.io._process_worker",
                                       set()),
-    "paddle_tpu.vision": ("paddle_tpu_torch.vision", {"ops"}),
+    "paddle_tpu.vision": ("paddle_tpu_torch.vision", set()),
+    "paddle_tpu.vision.ops": ("paddle_tpu_torch.vision.ops", set()),
     "paddle_tpu.vision.transforms": ("paddle_tpu_torch.vision.transforms",
                                      set()),
     "paddle_tpu.vision.datasets": ("paddle_tpu_torch.vision.datasets",
@@ -203,30 +198,15 @@ PORTED_MODULES = {
     "paddle_tpu.ops.search": ("paddle_tpu_torch.ops.search", set()),
     "paddle_tpu.ops.random": ("paddle_tpu_torch.ops.random", set()),
     "paddle_tpu.ops.linalg": ("paddle_tpu_torch.ops.linalg", set()),
-    # the nn ops are registered; longtail, vision_ops and sequence_ops
-    # (but fold, unpool and rnnt_loss_op) take ROADMAP item 25
-    "paddle_tpu.ops": ("paddle_tpu_torch.ops", {
-        "accuracy_op", "addbmm", "assign_value", "auc_op", "baddbmm",
-        "block_diag", "cartesian_prod", "cdist", "check_numerics",
-        "cholesky_inverse", "class_center_sample", "column_stack",
-        "combinations", "cond", "ctc_loss", "deformable_conv",
-        "depthwise_conv2d", "diagonal_scatter",
-        "distribute_fpn_proposals", "dsplit", "dstack",
-        "edit_distance", "fill", "fill_diagonal_tensor", "float_power",
-        "frexp", "full_batch_size_like", "gammainc", "gammaincc",
-        "gammaln", "gather_tree", "generate_proposals", "geqrf",
-        "histogram_bin_edges", "histogramdd", "hsplit", "hstack",
-        "index_select_strided", "isneginf", "isposinf", "isreal",
-        "longtail", "matrix_exp", "matrix_nms",
-        "max_pool2d_with_index", "max_pool3d_with_index", "mean_all",
-        "multiclass_nms", "multigammaln", "negative", "numel", "orgqr",
-        "pdist", "polar", "positive", "prior_box", "psroi_pool",
-        "reverse", "roi_pool", "row_stack", "select_scatter",
-        "sequence_ops", "sgn", "shape_op", "signbit", "sinc",
-        "slice_scatter", "squared_l2_norm", "take", "tensor_split",
-        "top_p_sampling", "trans_layout", "unflatten", "unpool3d",
-        "vander", "view_as_complex", "view_as_real", "view_dtype",
-        "vision_ops", "viterbi_decode", "vsplit", "vstack", "yolo_box"}),
+    # every op module, the long tail (ROADMAP item 25's ops part) and the
+    # op-parity audit
+    "paddle_tpu.ops": ("paddle_tpu_torch.ops", set()),
+    "paddle_tpu.ops.longtail": ("paddle_tpu_torch.ops.longtail", set()),
+    "paddle_tpu.ops.sequence_ops": ("paddle_tpu_torch.ops.sequence_ops",
+                                    set()),
+    "paddle_tpu.ops.vision_ops": ("paddle_tpu_torch.ops.vision_ops", set()),
+    "paddle_tpu.ops.parity": ("paddle_tpu_torch.ops.parity", set()),
+    "paddle_tpu.tensor_array": ("paddle_tpu_torch.tensor_array", set()),
     "paddle_tpu.ops.nn_ops": ("paddle_tpu_torch.ops.nn_ops", set()),
     # jit, the inference Predictor and hapi (ROADMAP item 25's part); the
     # inference fleet (router, autoscaler, traffic, disaggregation) takes

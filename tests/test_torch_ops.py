@@ -35,8 +35,11 @@ def _close(got, want, tol, what):
                                rtol=tol, atol=tol, err_msg=what)
 
 
-@pytest.mark.parametrize("name,fn,opts", C.CASES,
-                         ids=[c[0] for c in C.CASES])
+# the long-tail cases run in tests/test_torch_longtail.py
+_CASES = [c for c in C.CASES if c[0] not in set(C.LONGTAIL_CASES)]
+
+
+@pytest.mark.parametrize("name,fn,opts", _CASES, ids=[c[0] for c in _CASES])
 def test_op_matches_reference(name, fn, opts):
     grad = opts.get("grad", True)
     got, got_g = C.run_case(ptt, fn, grad=grad)
@@ -97,3 +100,26 @@ def test_torch_level_calls_skip_the_dispatch():
     assert registry.dispatch_count() == before + 1
     assert isinstance(t, ptt.Tensor) and torch.equal(
         t._data, F.linear.raw_fn(x, w, b))
+
+
+def test_torch_level_calls_with_lists_skip_the_dispatch():
+    """A registered op whose torch tensors come in a list (concat, stack,
+    the stacks of the long tail) runs torch-level too: the zoo's
+    DenseNet, SqueezeNet, ShuffleNetV2, GoogLeNet and InceptionV3 concat
+    their branches so, and got the eager API's Tensors back before."""
+    import torch
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops import registry
+    a, b = torch.randn(2, 3), torch.randn(2, 3)
+    before = registry.dispatch_count()
+    for got in (ops.concat([a, b], axis=1), ops.stack((a, b)),
+                ops.hstack([a, b]), ops.block_diag([a, b])):
+        assert type(got) is torch.Tensor
+    assert registry.dispatch_count() == before
+    t = ops.concat([ptt.to_tensor(a.numpy()), ptt.to_tensor(b.numpy())])
+    assert isinstance(t, ptt.Tensor)
+    assert registry.dispatch_count() == before + 1
+    from paddle_tpu_torch.vision.models import squeezenet1_1
+    m = squeezenet1_1(num_classes=10, device="cpu").eval()
+    with torch.no_grad():
+        assert type(m(torch.randn(1, 3, 32, 32))) is torch.Tensor

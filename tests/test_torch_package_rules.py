@@ -1,7 +1,8 @@
 """paddle_tpu_torch's package rules: it never imports jax or anything of
 paddle_tpu (chip_smoke.py neither), serving GPT and LLaMA, training (a
-ResNet too), the fused incubate ops and the input path (io, the vision
-transforms and datasets, the DataLoader's spawned workers) included, and
+ResNet too), the fused incubate ops, the input path (io, the vision
+transforms and datasets, the DataLoader's spawned workers), the vision
+zoo, vision.ops, the op-parity audit and TensorArray included, and
 its entry points run on the CUDA card unless the caller asks for the
 CPU."""
 import os
@@ -80,6 +81,18 @@ pipe = transforms.Compose([transforms.RandomResizedCrop(8),
 imgs = [(pipe(np.full((12, 12, 3), k, np.uint8)), k) for k in range(4)]
 x, y = next(iter(io.DataLoader(imgs, batch_size=4)))
 assert x.shape == [4, 8, 8, 3] and y.dtype == paddle_tpu_torch.int32
+from paddle_tpu_torch.vision.models import mobilenet_v3_small
+from paddle_tpu_torch.vision import ops as vops
+from paddle_tpu_torch.ops import parity
+mb = mobilenet_v3_small(num_classes=10, device="cpu").eval()
+assert tuple(mb(torch.randn(1, 3, 32, 32)).shape) == (1, 10)
+keep = vops.nms(torch.tensor([[0., 0, 4, 4], [0, 0, 4, 5], [9, 9, 12, 12]]),
+                0.5, torch.tensor([0.9, 0.8, 0.7]))
+assert keep.tolist() == [0, 2]
+arr = paddle_tpu_torch.create_array()
+paddle_tpu_torch.array_write(paddle_tpu_torch.to_tensor([1.0]), 0, arr)
+assert int(paddle_tpu_torch.array_length(arr).numpy()) == 1
+assert parity.classify()[0]
 bad = [k for k in sys.modules
        if k == "jax" or k.startswith("jax.") or k == "paddle_tpu"
        or k.startswith("paddle_tpu.")]
@@ -143,8 +156,9 @@ def test_entry_points_need_cuda_unless_cpu_requested():
     layer = FusedTransformerEncoderLayer(64, 4, 128, device="cpu")
     assert {p.device.type for p in layer.parameters()} == {"cpu"}
     from paddle_tpu_torch.nn import BatchNorm2D, Conv2D
-    from paddle_tpu_torch.vision.models import resnet18
+    from paddle_tpu_torch.vision.models import mobilenet_v2, resnet18
     for make in (lambda **kw: resnet18(**kw),
+                 lambda **kw: mobilenet_v2(**kw),
                  lambda **kw: Conv2D(3, 4, 3, **kw),
                  lambda **kw: BatchNorm2D(4, **kw)):
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -269,3 +269,75 @@ def test_facade_method_matches_the_reference(cls, name):
            "Predictor": pt.inference.Predictor}[cls]
     assert _params(inspect.signature(getattr(port, name))) == \
         _params(inspect.signature(getattr(ref, name)))
+
+
+# ROADMAP item 25's ops and vision part: the long-tail, sequence and
+# detection ops, vision.ops, TensorArray and the vision zoo
+def _own_functions(module_name):
+    import importlib
+    ref = importlib.import_module(f"paddle_tpu.{module_name}")
+    return sorted(n for n, v in vars(ref).items() if not n.startswith("_")
+                  and callable(v) and getattr(v, "__module__", None)
+                  == ref.__name__)
+
+
+LONGTAIL_NAMES = [(m, n) for m in ("ops.longtail", "ops.sequence_ops",
+                                   "ops.vision_ops")
+                  for n in _own_functions(m)] + [
+    ("vision.ops", n) for n in ("nms", "roi_align", "box_coder",
+                                "deform_conv2d", "read_file", "decode_jpeg",
+                                "yolo_loss")] + [
+    ("tensor_array", n) for n in ("create_array", "array_write",
+                                  "array_read", "array_length")]
+
+
+@pytest.mark.parametrize("module,name", LONGTAIL_NAMES)
+def test_longtail_function_matches_the_reference(module, name):
+    """The reference's parameters; a random op takes the port's
+    ``generator`` where the reference takes ``key`` (top_p_sampling), or
+    after the reference's parameters where it draws from its global key
+    (class_center_sample)."""
+    import importlib
+    port = inspect.signature(getattr(importlib.import_module(
+        f"paddle_tpu_torch.{module}"), name))
+    ref = inspect.signature(getattr(importlib.import_module(
+        f"paddle_tpu.{module}"), name))
+    op = getattr(getattr(importlib.import_module(
+        f"paddle_tpu_torch.{module}"), name), "op_def", None)
+    if op is not None and op.random:
+        params = [p.replace(name="generator")
+                  if p.name == "key" and p.default is None else p
+                  for p in ref.parameters.values()]
+        if "generator" not in [p.name for p in params]:
+            last = list(port.parameters.values())[-1]
+            assert last.name == "generator" and last.default is None
+            port = port.replace(
+                parameters=list(port.parameters.values())[:-1])
+        ref = ref.replace(parameters=params)
+    _check_sigs(port, ref)
+
+
+ZOO_NAMES = sorted(n for n in pt.vision.models.__dict__
+                   if not n.startswith("_") and callable(
+                       getattr(pt.vision.models, n))
+                   and not n.startswith("resnet") and n not in (
+                       "ResNet", "BasicBlock", "BottleneckBlock",
+                       "wide_resnet50_2", "resnext50_32x4d"))
+
+
+def test_every_zoo_name_is_checked():
+    assert len(ZOO_NAMES) == 33 - 2   # less the modules extra and
+    # lenet_vgg_mobilenet, which are not callable
+
+
+@pytest.mark.parametrize("name", ZOO_NAMES)
+def test_zoo_constructor_matches_the_reference(name):
+    """The reference's parameters, then the port's keyword-only device,
+    dtype and seed (the ResNets' own)."""
+    port = _callable_sig(getattr(ptt.vision.models, name))
+    ref = _callable_sig(getattr(pt.vision.models, name))
+    port_head, port_kw = _split(port)
+    ref_head, ref_kw = _split(ref)
+    assert port_head == ref_head
+    assert not ref_kw
+    assert [p.name for p in port_kw] in ([], ["device", "dtype", "seed"])

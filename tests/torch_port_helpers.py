@@ -177,14 +177,15 @@ def _autocast(module, o1):
         else contextlib.nullcontext()
 
 
-def reference_stages(jm, x, y, o1=False):
+def reference_stages(jm, x, y, o1=False, stages_of=None):
     """The reference's train-mode step of ResNet `jm` (f32, or bf16 O1),
-    run stage by stage (resnet_stages), each stage's input a leaf: the
-    same forward and gradients as one call of the model. Returns the
-    loss, {stage: (input, output, output's cotangent, input's
-    gradient)} as numpy, and the parameters' gradients by name."""
+    run stage by stage (resnet_stages, or `stages_of(model, flatten)`
+    for another model), each stage's input a leaf: the same forward and
+    gradients as one call of the model. Returns the loss, {stage:
+    (input, output, output's cotangent, input's gradient)} as numpy, and
+    the parameters' gradients by name."""
     import paddle_tpu.nn.functional as JF
-    stages = resnet_stages(jm, pt.flatten)
+    stages = (stages_of or resnet_stages)(jm, pt.flatten)
     leaves, outs, cur = [], [], x
     with _autocast(pt, o1):
         for _, f in stages:
@@ -204,7 +205,8 @@ def reference_stages(jm, x, y, o1=False):
         {n: np.asarray(p.grad._data) for n, p in jm.named_parameters()}
 
 
-def stage_grads(tm, ref_stages, y, o1=False):
+def stage_grads(tm, ref_stages, y, o1=False, stages_of=None,
+                stage_of=None):
     """Each stage of the port's ResNet `tm` run on the reference's input
     to that stage (reference_stages, cast to `tm`'s dtype) and
     differentiated against the reference's cotangent of its output (the
@@ -216,7 +218,7 @@ def stage_grads(tm, ref_stages, y, o1=False):
     dtype = next(tm.parameters()).dtype
     tm.zero_grad(set_to_none=True)
     out = {}
-    for name, f in resnet_stages(tm, TF.flatten):
+    for name, f in (stages_of or resnet_stages)(tm, TF.flatten):
         x, want, cot, _ = ref_stages[name]
         xt = torch.from_numpy(x).to(dtype).requires_grad_()
         with _autocast(ptt, o1):
@@ -229,18 +231,20 @@ def stage_grads(tm, ref_stages, y, o1=False):
             (got * torch.from_numpy(cot).to(got.dtype)).sum().backward()
         grads = {f"{name} input": xt.grad}
         grads.update((n, p.grad) for n, p in tm.named_parameters()
-                     if _stage_of(n) == name)
+                     if (stage_of or _stage_of)(n) == name)
         out[name] = (got.detach().double().numpy(),
                      {n: g.double().numpy() for n, g in grads.items()})
     return out
 
 
-def stage_distances(tm, ref_stages, ref_grads, y, o1=False):
+def stage_distances(tm, ref_stages, ref_grads, y, o1=False, stages_of=None,
+                    stage_of=None):
     """stage_grads held to the reference's: {stage: (output error over
     the output's largest, {tensor: its gradient's distance from the
     reference's over the reference's norm})}."""
     out = {}
-    for name, (got, grads) in stage_grads(tm, ref_stages, y, o1).items():
+    for name, (got, grads) in stage_grads(tm, ref_stages, y, o1, stages_of,
+                                          stage_of).items():
         want = ref_stages[name][1].astype(np.float64)
         refs = dict(ref_grads, **{f"{name} input": ref_stages[name][3]})
         out[name] = (float(np.abs(got - want).max() / np.abs(want).max()),
@@ -385,3 +389,42 @@ def twin_layers(name, *args, seed=0, **kw):
     assert tm.set_state_dict(sd) == ([], [])
     assert list(tm.state_dict()) == list(sd)
     return jm, tm
+
+
+def zero_filled_reference_init(monkeypatch):
+    """The reference's Layer.create_parameter making zeros of the shape
+    it is asked for (no initializer runs: each compiles a JAX program
+    per shape), for as long as `monkeypatch` lasts."""
+    import jax.numpy as jnp
+    from paddle_tpu.nn import layer as L
+
+    def zeros(self, shape, dtype=None, attr=None, is_bias=False,
+              default_initializer=None):
+        return L.Parameter(jnp.asarray(np.zeros(
+            tuple(int(s) for s in shape), np.float32)))
+
+    monkeypatch.setattr(L.Layer, "create_parameter", zeros)
+
+
+def twin_models(name, kw, seed=0, classes=None):
+    """(reference model, port model) of the vision zoo's `name` with the
+    port's weights (seed `seed`) loaded into the reference's parameters
+    and buffers (``vision_params_from_numpy`` carries them back name for
+    name); call under zero_filled_reference_init."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu.vision import models as jm
+    from paddle_tpu_torch.vision import models as tm
+    kw = dict(kw)
+    if classes is not None:
+        kw["num_classes"] = classes
+    port = getattr(tm, name)(device="cpu", seed=seed, **kw)
+    ref = getattr(jm, name)(**kw)
+    # copies: the reference's arrays may alias numpy memory on the CPU,
+    # and the port's optimizers update its tensors in place
+    state = {k: v.detach().numpy().copy()
+             for k, v in port.state_dict().items()}
+    missing, unexpected = ref.set_state_dict(state)
+    assert not missing and not unexpected
+    back = ptt.vision_params_from_numpy(jax_state_numpy(ref))
+    assert all(torch.equal(back[k], v) for k, v in port.state_dict().items())
+    return ref, port

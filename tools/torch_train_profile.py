@@ -2,6 +2,7 @@
 """Where a paddle_tpu_torch training step spends the card's time.
 
     python3 tools/torch_train_profile.py [--steps 2] [--config resnet50]
+    python3 tools/torch_train_profile.py --config mobilenet_v2
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU. It
 builds one of chip_smoke.py's training steps, random weights and batch
@@ -13,8 +14,9 @@ LLaMA-2-13B's widths at 4 layers, batch 2 x seq 4096, no recompute) or
 `bert_base` (phase 18, bench.py::bench_bert_base's config: batch 32 x
 seq 512, MLM labels at ~15 % of the positions) or `resnet50` (phase
 19, bench.py::bench_resnet50's config: NHWC with the space-to-depth
-stem, batch 256 x 224^2, bf16 O1, Momentum, FLAGS_fast_bn_stats on),
-and traces with torch.profiler, separately:
+stem, batch 256 x 224^2, bf16 O1, Momentum, FLAGS_fast_bn_stats on)
+or `mobilenet_v2` (phase 29: scale 1.0, NCHW, the same recipe and
+batch), and traces with torch.profiler, separately:
 
   * the eager step: TrainStep's first call, which runs the step eagerly
     and then captures it as a CUDA graph (the capture runs nothing on
@@ -30,7 +32,8 @@ and traces with torch.profiler, separately:
 For each it prints the wall time under the profiler, the summed device
 time of every kernel (and so the device's idle share), that kernel time
 split by kind (the flash-attention kernels, the multi-tensor update,
-cuDNN's implicit-GEMM convolutions, the GEMM kernels of cuBLAS's
+PyTorch's depthwise-convolution kernels, cuDNN's implicit-GEMM
+convolutions, the GEMM kernels of cuBLAS's
 products and of the 1x1 convolutions cuDNN runs as GEMMs, and the rest
 split into reductions, casts and copies, ReLU and clamps, pools and
 elementwise arithmetic) and the 25 kernels that take the most device
@@ -67,6 +70,8 @@ def _part(name: str) -> str:
         return "B2 flash backward"
     if "mta_" in n:
         return "multi-tensor update"
+    if "depthwise" in n:
+        return "depthwise convolutions"
     if "convert" not in n and any(
             w in n for w in ("conv", "fprop", "dgrad", "wgrad", "implicit",
                              "winograd", "cudnn")):
@@ -200,7 +205,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--config", choices=("gpt2_small", "gpt_1p3b",
                                          "llama13b", "bert_base",
-                                         "resnet50"),
+                                         "resnet50", "mobilenet_v2"),
                     default="gpt2_small")
     args = ap.parse_args()
     import torch
@@ -213,7 +218,7 @@ def main() -> int:
                             BERT_BATCH, BERT_SEQ, LLAMA13_BATCH,
                             LLAMA13_LAYERS, LLAMA13_SEQ, RESNET_BATCH,
                             RESNET_HW, _bert_train_step, _gpt_train_step,
-                            _llama_train_step, _replay_ms,
+                            _llama_train_step, _mobilenet_step, _replay_ms,
                             _resnet_train_step)
     from paddle_tpu_torch.models import (bert_base, gpt2_small, gpt3_1p3b,
                                          llama2_13b)
@@ -230,6 +235,14 @@ def main() -> int:
         model, step = _resnet_train_step()
         what = f"resnet50, batch {batch} x {hw}^2"
         arrays = [rng.standard_normal((batch, hw, hw, 3), dtype=np.float32),
+                  rng.integers(0, 1000, (batch,))]
+    elif args.config == "mobilenet_v2":
+        from paddle_tpu_torch import set_flags
+        set_flags({"FLAGS_fast_bn_stats": True})
+        batch, hw = RESNET_BATCH, RESNET_HW
+        model, step = _mobilenet_step()
+        what = f"mobilenet_v2, batch {batch} x {hw}^2"
+        arrays = [rng.standard_normal((batch, 3, hw, hw), dtype=np.float32),
                   rng.integers(0, 1000, (batch,))]
     elif args.config == "llama13b":
         cfg = dataclasses.replace(llama2_13b(use_flash_attention=True),
@@ -266,7 +279,7 @@ def main() -> int:
         step(*batch_t)
         torch.cuda.synchronize()
         first_ms = 1e3 * (time.perf_counter() - t0)
-    if args.config != "resnet50":
+    if args.config not in ("resnet50", "mobilenet_v2"):
         what = (f"{args.config}, {cfg.num_layers} layers, batch {batch} x "
                 f"seq {seq}")
     _report(torch, prof, 1, first_ms,

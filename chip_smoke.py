@@ -80,7 +80,8 @@ Run from the root of a checkout. Phases, each of which must pass:
      (GQA through B3's simple design, whose launches it reports, and the
      decode path);
  11. 12 FusedTransformerEncoderLayers at bert_base's widths (post-LN,
-     eval, bf16, batch 16 x seq 512): B4's and B1's counters read
+     eval, bf16, batch 16 x seq 512; each layer drawn from its own
+     seeded init_generator): B4's and B1's counters read
      around one forward (24 and 12), B1's operands in that forward
      recorded and its results held to its plain version, the forward
      timed, and a 2-layer f32 copy on the card held to the same stack
@@ -321,7 +322,26 @@ Run from the root of a checkout. Phases, each of which must pass:
      psroi_pool, matrix_nms and nms; each timed by events, the NMS loops
      also by wall, profiled and not, and by the device time
      torch.profiler records (their host share against the unprofiled
-     events time), every output on the card.
+     events time), every output on the card;
+ 31. incubate whole: its 16 registered op cases of phase 22's sweep;
+     (a) FusedMultiTransformer at gpt3_1p3b's widths uncut (24 layers,
+     2048 wide, 16 heads of 128, FFN 8192, gelu, pre-LN, bf16, weights
+     from ParamAttr initializers on a seeded generator), 8 requests of
+     512-token prompts prefilled into dense caches, then 64 decode steps
+     through time_step, each held to a full forward of the 576 tokens
+     without caches within MT_TOL, a corrupted cache row rejected; the
+     prefill and each step timed by events beside the weight-read floor,
+     one step profiled, peak memory; (b) 12 FusedTransformerEncoderLayers
+     at bert_base's widths (post-LN, dropout 0.1) trained 3 eager steps
+     on Tensors at b16 x s512 in bf16 O1 under asp.decorate(LookAhead(
+     AdamW, k=2)) with the FFN weights pruned 2:4 and an identity_loss:
+     B1 12, B2 12 and B4 24 sm90 launches a step, no plain version, every
+     B1 call held to its plain version, the masks kept, ModelAverage's
+     restore bit-equal; (c) at llama2_7b's widths, fused_rms_norm (B5),
+     rotary, and B1/B2 through loss.backward() of fused_flash_attention
+     and memory_efficient_attention (lower-triangular; block-diagonal
+     causal over packed lengths, through segment ids), each call held to
+     the plain versions, the packed call timed beside the padded batch.
 
 The last three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
@@ -2315,12 +2335,14 @@ BERT_BASE = dict(d_model=768, nhead=12, dim_feedforward=3072,
 
 def _encoder_stack(n_layers, dtype, device="cuda"):
     """bert_base-wide post-LN FusedTransformerEncoderLayers in eval,
-    layer i seeded with 4 * i."""
+    layer i drawn from a generator seeded with 4 * i."""
     import torch
     from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
     stack = torch.nn.Sequential(*[FusedTransformerEncoderLayer(
         **BERT_BASE, dropout_rate=0.1, normalize_before=False,
-        device=device, dtype=dtype, seed=4 * i) for i in range(n_layers)])
+        device=device, dtype=dtype,
+        init_generator=torch.Generator(device).manual_seed(4 * i))
+        for i in range(n_layers)])
     return stack.eval()
 
 
@@ -4310,7 +4332,7 @@ def _sweep_diff(got, want, tol):
     g, w = got.astype(kind), np.asarray(want).astype(kind)
     same = (g == w) | (np.isnan(g) & np.isnan(w))
     d = np.where(same, 0.0, np.abs(g - w))
-    ok = bool((d <= tol + tol * np.abs(w)).all())
+    ok = bool((same | (d <= tol + tol * np.abs(w))).all())
     return (float(d.max()) if d.size else 0.0), ok
 
 
@@ -4382,6 +4404,7 @@ def eager_op_sweep(C) -> dict:
     ran = set().union(*seen.values()) if seen else set()
     nn_cases = {n: errs[n] for n in C.NN_CASES}
     lt_cases = {n: errs[n] for n in C.LONGTAIL_CASES}
+    inc_cases = {n: errs[n] for n in C.INCUBATE_CASES}
     by_module = {}
     for name, ops in seen.items():
         for op in ops:
@@ -4395,7 +4418,10 @@ def eager_op_sweep(C) -> dict:
                              if f.split(":")[0] in nn_cases],
                 longtail_cases=lt_cases,
                 longtail_failures=[f for f in failures
-                                   if f.split(":")[0] in lt_cases])
+                                   if f.split(":")[0] in lt_cases],
+                incubate_cases=inc_cases,
+                incubate_failures=[f for f in failures
+                                   if f.split(":")[0] in inc_cases])
 
 
 def eager_random_checks(C) -> dict:
@@ -6965,6 +6991,439 @@ def detection_phase(eager) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 31: incubate whole on the card
+# ---------------------------------------------------------------------------
+# 31a: FusedMultiTransformer at gpt3_1p3b's widths, uncut (24 layers,
+# d_model 2048, 16 heads of 128, FFN 8192, gelu, pre-LN, bf16), 8
+# requests of 512-token prompts then 64 decode steps through dense caches
+MT_LAYERS, MT_DM, MT_HEADS, MT_FFN = 24, 2048, 16, 8192
+MT_BATCH, MT_PROMPT, MT_STEPS = 8, 512, 64
+# decode against the full forward, element by element (_norm_err: |got -
+# want| / (|want| + rms of want's row + rms of want)): the decode steps
+# read k and v back from the bf16 caches where the full forward keeps
+# them in f32 (2^-9 relative each), and the two paths' products run at
+# other row counts, so an activation near a bf16 rounding boundary may
+# round the other way (2^-8 relative) before the next product: 2^-6 is
+# 2-4 such roundings. A cache row corrupted in one layer must fail it.
+MT_TOL = 2.0 ** -6
+# 31b: bench_bert_base's encoder as 12 fused layers trained eagerly
+ENC_LAYERS, ENC_BATCH, ENC_SEQ = 12, 16, 512
+# 31c: llama2_7b's widths (32 heads of 128) at 2 x 2048 tokens, and the
+# packed lengths of the block-diagonal call
+LLAMA_Q = (2, 2048, 32, 128)
+PACKED_LENS = (512, 1024, 384, 128)
+
+
+def _mt_serving() -> dict:
+    """31a: prefill, 64 decode steps, the full forward of the 576 tokens
+    without caches; each decode step (and the prefill) held to the full
+    forward within MT_TOL, then a planted cache fault rejected. Timed by
+    events: the prefill, each decode step (beside its weight-read
+    floor), peak memory."""
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core.tensor import Tensor
+    from paddle_tpu_torch.nn import ParamAttr
+    from paddle_tpu_torch.nn.initializer import Normal
+    held = _fresh_card()
+    gen = torch.Generator("cuda").manual_seed(31)
+    w_attr = ParamAttr(initializer=Normal(0.0, 0.02))
+    mt = P.incubate.nn.FusedMultiTransformer(
+        MT_DM, MT_HEADS, MT_FFN, activation="gelu", normalize_before=True,
+        qkv_weight_attrs=[w_attr] * MT_LAYERS, linear_weight_attrs=w_attr,
+        ffn1_weight_attrs=w_attr, ffn2_weight_attrs=w_attr,
+        dtype="bfloat16", device="cuda", init_generator=gen)
+    mt.eval()
+    params = list(torch.nn.Module.parameters(mt))
+    n_params = sum(p.numel() for p in params)
+    w_bytes = sum(p.numel() * p.element_size() for p in params)
+    total = MT_PROMPT + MT_STEPS
+    x = torch.randn((MT_BATCH, total, MT_DM), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    caches = [Tensor._wrap(torch.zeros(
+        (2, MT_BATCH, MT_HEADS, total, MT_DM // MT_HEADS),
+        dtype=torch.bfloat16, device="cuda")) for _ in range(MT_LAYERS)]
+    cache_bytes = sum(c._data.numel() * 2 for c in caches)
+    read_counts, reset_counts = _port_kernel_counts()
+    reset_counts()
+
+    def prefill():
+        return mt(Tensor._wrap(x[:, :MT_PROMPT]), caches=caches)
+
+    with torch.no_grad():
+        prefill()                        # warm-up (cuBLAS plans)
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out, caches = prefill()
+        e.record()
+        torch.cuda.synchronize()
+        prefill_ms = s.elapsed_time(e)
+        steps, step_ms = [], []
+        for i in range(MT_STEPS):
+            t = MT_PROMPT + i
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            o, caches = mt(Tensor._wrap(x[:, t:t + 1]), caches=caches,
+                           time_step=torch.tensor(t, dtype=torch.int32))
+            e.record()
+            steps.append(o._data[:, 0])
+            step_ms.append((s, e))
+        torch.cuda.synchronize()
+        step_ms = [a.elapsed_time(b) for a, b in step_ms]
+        full = mt(Tensor._wrap(x))._data
+        torch.cuda.synchronize()
+        # (launches, plain calls) of B1, B2, B3, B4, B5 and the update
+        launches = read_counts()
+        prefill_err = _norm_err(out._data, full[:, :MT_PROMPT])
+        step_errs = [_norm_err(o, full[:, MT_PROMPT + i])
+                     for i, o in enumerate(steps)]
+        finite = bool(torch.isfinite(full).all()) and all(
+            bool(torch.isfinite(o).all()) for o in steps)
+        # the planted fault: layer 5's cache row of request 0 (its k and
+        # v at every position) replaced by request 1's, as a wrong row
+        # mapping would; the last step run again over it
+        t = total - 1
+        kc = caches[5]._data
+        saved = kc[:, 0].clone()
+        kc[:, 0] = kc[:, 1]
+        o_bad, _ = mt(Tensor._wrap(x[:, t:t + 1]), caches=caches,
+                      time_step=torch.tensor(t, dtype=torch.int32))
+        planted_err = _norm_err(o_bad._data[:, 0], full[:, t])
+        kc[:, 0] = saved
+        o_again, _ = mt(Tensor._wrap(x[:, t:t + 1]), caches=caches,
+                        time_step=torch.tensor(t, dtype=torch.int32))
+        again_err = _norm_err(o_again._data[:, 0], full[:, t])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # one more step (the last, written again) under torch.profiler:
+        # its device time, events and largest kernels against its wall
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            mt(Tensor._wrap(x[:, t:t + 1]), caches=caches,
+               time_step=torch.tensor(t, dtype=torch.int32))
+            torch.cuda.synchronize()
+            prof_wall = 1e3 * (time.perf_counter() - w0)
+    prof_dev = _device_ms(prof)
+    by_kernel = sorted(((getattr(e, "self_device_time_total", 0.0) / 1e3,
+                         e.count, e.key) for e in prof.key_averages()),
+                       reverse=True)
+    profiled = dict(
+        wall_ms=prof_wall, device_ms=prof_dev,
+        device_events=sum(c for _, c, _ in by_kernel),
+        idle_share=(1 - prof_dev / prof_wall) if prof_dev else None,
+        top=[dict(kernel=k[:120], ms=ms, count=c)
+             for ms, c, k in by_kernel[:6]])
+    floor_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    rec = dict(layers=MT_LAYERS, d_model=MT_DM, heads=MT_HEADS, ffn=MT_FFN,
+               batch=MT_BATCH, prompt=MT_PROMPT, decode_steps=MT_STEPS,
+               params=n_params, weight_gb=w_bytes / 1e9,
+               cache_gb=cache_bytes / 1e9, prefill_ms=prefill_ms,
+               decode_ms_median=statistics.median(step_ms),
+               decode_ms_min=min(step_ms), decode_ms_max=max(step_ms),
+               weight_read_floor_ms=floor_ms,
+               prefill_err=prefill_err, max_step_err=max(step_errs),
+               planted_err=planted_err, restored_err=again_err,
+               port_kernel_launches=launches, peak_gib=peak,
+               gib_held_before=held, profiled_step=profiled)
+    _check("[incubate] 31a", {
+        "prefill and every decode step finite": finite,
+        f"prefill == the full forward (within {MT_TOL:.2e})":
+            prefill_err <= MT_TOL,
+        f"each of the {MT_STEPS} decode steps == the full forward (within "
+        f"{MT_TOL:.2e})": max(step_errs) <= MT_TOL,
+        "a corrupted cache row (layer 5, request 0) is rejected":
+            planted_err > MT_TOL,
+        "the step over the restored row passes again": again_err <= MT_TOL,
+        "no kernel of the port on the path (plain einsums, as the "
+        "reference)": not any(a or b for a, b in launches),
+    }, rec)
+    log(f"[incubate] 31a FusedMultiTransformer at gpt3_1p3b's widths "
+        f"({n_params / 1e9:.3f} G parameters, {w_bytes / 1e9:.2f} GB bf16; "
+        f"caches {cache_bytes / 1e9:.3f} GB): prefill {MT_BATCH} x "
+        f"{MT_PROMPT} in {prefill_ms:.2f} ms, decode "
+        f"{rec['decode_ms_median']:.3f} ms a step (median of {MT_STEPS}, "
+        f"{min(step_ms):.3f}-{max(step_ms):.3f}) against a "
+        f"{floor_ms:.3f} ms weight-read floor; decode vs full forward "
+        f"{max(step_errs):.2e}, prefill {prefill_err:.2e}, planted fault "
+        f"{planted_err:.2e}; peak {peak:.2f} GiB; a profiled step "
+        f"{prof_wall:.2f} ms by wall, {prof_dev:.3f} ms on the device in "
+        f"{profiled['device_events']} events (idle share "
+        f"{profiled['idle_share'] or 0:.3f})")
+    del mt, caches, x, full, steps, params, prof
+    _fresh_card()
+    return rec
+
+
+def _encoder_training() -> dict:
+    """31b: 12 FusedTransformerEncoderLayers (bert_base, post-LN, dropout
+    0.1, attention dropout 0 so B1/B2 take the attention) trained 3
+    eager steps on Tensors at b16 x s512 in bf16 O1: the FFN weights
+    pruned 2:4 by asp, asp.decorate(LookAhead(AdamW, k=2)), an
+    identity_loss mean loss; B1/B2/B4 counted a step, B1's calls held to
+    its plain version; then ModelAverage's apply() / restore() around an
+    eval forward."""
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core.tensor import Tensor
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import norms
+    held = _fresh_card()
+    gi = torch.Generator("cuda").manual_seed(311)
+    gd = torch.Generator("cuda").manual_seed(312)
+    stack = P.nn.Sequential(*[P.incubate.nn.FusedTransformerEncoderLayer(
+        **BERT_BASE, dropout_rate=0.1, attn_dropout_rate=0.0,
+        normalize_before=False, device="cuda", init_generator=gi,
+        generator=gd) for _ in range(ENC_LAYERS)])
+    asp.reset_excluded_layers()
+    asp.set_excluded_layers([n for n, _ in stack.named_parameters()
+                             if "fused_attn" in n])
+    masks = asp.prune_model(stack)
+    opt = asp.decorate(P.incubate.LookAhead(P.optimizer.AdamW(
+        learning_rate=1e-4, parameters=stack.parameters()), alpha=0.5, k=2))
+    ma = P.incubate.ModelAverage(0.5, parameters=stack.parameters(),
+                                 min_average_window=10,
+                                 max_average_window=100)
+    x = Tensor._wrap(torch.randn((ENC_BATCH, ENC_SEQ, BERT_BASE["d_model"]),
+                                 generator=gi, device="cuda"))
+    tgt = Tensor._wrap(torch.randn(x._data.shape, generator=gi,
+                                   device="cuda"))
+    counters = (fa.flash_fwd, fa.flash_bwd, norms.layer_norm_fwd)
+    by_step, losses, step_ms, recorded = [], [], [], []
+
+    def keep(args, r):
+        qs, k, v, causal, segs = args[:5]
+        return ((qs.clone(), k.clone(), v.clone(), causal, segs),
+                tuple(t.clone() for t in r))
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        fa.reset_counters()
+        norms.layer_norm_fwd.kernel_launches = 0
+        norms.layer_norm_fwd.plain_calls = 0
+        t0 = time.perf_counter()
+        with kernel_calls(fa, "_fwd_cuda", keep=keep) as calls:
+            with P.amp.auto_cast(level="O1"):
+                out = stack(x)
+                loss = P.incubate.identity_loss((out - tgt) ** 2,
+                                                reduction="mean")
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            ma.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.numpy()))
+        recorded.extend(calls)
+        by_step.append(dict(
+            b1=fa.flash_fwd.kernel_launches, b2=fa.flash_bwd.kernel_launches,
+            b4=norms.layer_norm_fwd.kernel_launches,
+            b1_designs=dict(fa.flash_fwd.design_launches),
+            b2_designs=dict(fa.flash_bwd.design_launches),
+            plain=[c.plain_calls for c in counters]))
+        del out, loss
+    b1_err = b1_lse_err = 0.0
+    for (qs, k, v, causal, segs), (o, lse) in recorded:
+        wo, wlse = fa.flash_fwd(qs, k, v, causal, segs, path="torch")
+        b1_err = max(b1_err, _norm_err(o, wo))
+        b1_lse_err = max(b1_lse_err, _norm_err(lse, wlse, rows=False))
+    n_b1 = len(recorded)
+    del recorded
+    named = dict(stack.named_parameters())
+    still_24 = all(bool(((named[n]._data.reshape(-1, 4) != 0).sum(-1)
+                         <= 2).all()) for n in masks)
+    before = {n: p._data.detach().clone() for n, p in named.items()}
+    stack.eval()
+    with torch.no_grad():
+        with ma.apply():
+            averaged = any(not torch.equal(named[n]._data, before[n])
+                           for n in named)
+            y_eval = stack(x)._data
+        restored = all(torch.equal(named[n]._data, before[n])
+                       for n in named)
+    L = ENC_LAYERS
+    rec = dict(layers=L, batch=ENC_BATCH, seq=ENC_SEQ, losses=losses,
+               step_ms=step_ms, launches_by_step=by_step,
+               masks=len(masks), b1_calls_held=n_b1, b1_norm_err=b1_err,
+               b1_lse_norm_err=b1_lse_err, gib_held_before=held)
+    _check("[incubate] 31b", {
+        "losses finite": all(np.isfinite(losses)),
+        f"B1 {L}, B2 {L} and B4 {2 * L} launches a step, all sm90": all(
+            (s["b1"], s["b2"], s["b4"]) == (L, L, 2 * L)
+            and s["b1_designs"] == {"sm90": L, "simple": 0}
+            and s["b2_designs"] == {"sm90": L, "simple": 0}
+            for s in by_step),
+        "no plain version ran on CUDA tensors": all(
+            s["plain"] == [0, 0, 0] for s in by_step),
+        f"every recorded B1 call ({n_b1}) == its plain version (o within "
+        f"{FLASH_TOL['bf16']:.2e}, lse within {FLASH_TOL['f32']:.0e})":
+            n_b1 == 3 * L and b1_err <= FLASH_TOL["bf16"]
+            and b1_lse_err <= FLASH_TOL["f32"],
+        f"the {2 * L} pruned FFN weights still 2:4 after the steps":
+            len(masks) == 2 * L and still_24,
+        "ModelAverage.apply() swapped averages in": averaged,
+        "restore() put every weight back bit for bit": restored,
+        "the eval forward under the averages finite":
+            bool(torch.isfinite(y_eval).all()),
+    }, rec)
+    log(f"[incubate] 31b {L} FusedTransformerEncoderLayers (bert_base, "
+        f"post-LN, dropout 0.1), b{ENC_BATCH} x s{ENC_SEQ}, bf16 O1, asp "
+        f"2:4 on the FFN, LookAhead(AdamW, k=2): steps "
+        f"{[round(t, 2) for t in step_ms]} ms by wall, losses "
+        f"{[round(v, 5) for v in losses]}; (B1, B2, B4) "
+        f"{[(s['b1'], s['b2'], s['b4']) for s in by_step]} a step; B1 vs "
+        f"plain o {b1_err:.2e}, lse {b1_lse_err:.2e}")
+    del stack, opt, ma, x, tgt, y_eval, before, named
+    asp.reset_excluded_layers()
+    asp._masks.clear()
+    _fresh_card()
+    return rec
+
+
+def _llama_width_functionals() -> dict:
+    """31c: fused_rms_norm (B5) on [4096, 4096], rotary on q and k, then
+    B1 and B2 through loss.backward() of fused_flash_attention (causal),
+    memory_efficient_attention with a LowerTriangularMask and with a
+    BlockDiagonalCausalMask over PACKED_LENS (segment ids), every call
+    held to the plain versions; the packed call timed beside the same
+    sequences padded into a batch."""
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core.tensor import Tensor
+    from paddle_tpu_torch.incubate.nn import attn_bias
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import norms
+    _fresh_card()
+    g = torch.Generator("cuda").manual_seed(313)
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    fa.reset_counters()
+    norms.rms_norm_fwd.kernel_launches = norms.rms_norm_fwd.plain_calls = 0
+    xs = torch.randn((4096, 4096), generator=g, **bf)
+    ws = torch.randn(4096, generator=g, **bf)
+    rms = IF.fused_rms_norm(Tensor._wrap(xs), Tensor._wrap(ws))._data
+    q, k, v = (torch.randn(LLAMA_Q, generator=g, **bf) for _ in range(3))
+    qr, kr = IF.fused_rotary_position_embedding(Tensor._wrap(q),
+                                                Tensor._wrap(k))
+    cot = torch.randn(LLAMA_Q, generator=g, **bf)
+    b, s = LLAMA_Q[:2]
+    calls = {
+        "fused_flash_attention causal": lambda *t: IF.fused_flash_attention(
+            *t, causal=True),
+        "memory_efficient_attention LowerTriangularMask":
+            lambda *t: P.incubate.nn.memory_efficient_attention(
+                *t, attn_bias=attn_bias.LowerTriangularMask()),
+        "memory_efficient_attention BlockDiagonalCausalMask "
+        f"{list(PACKED_LENS)}":
+            lambda *t: P.incubate.nn.memory_efficient_attention(
+                *t, attn_bias=attn_bias.BlockDiagonalCausalMask
+                .from_seqlens(list(PACKED_LENS))),
+    }
+    keep = (lambda args, r: (tuple(a.clone() if torch.is_tensor(a) else a
+                                   for a in args),
+                             tuple(t.clone() for t in r)))
+    with kernel_calls(fa, "_fwd_cuda", keep=keep) as fwd, \
+            kernel_calls(fa, "_bwd_cuda", keep=keep) as bwd:
+        for fn in calls.values():
+            leaves = [Tensor._wrap(t._data.detach().clone().requires_grad_())
+                      for t in (qr, kr)] + [
+                Tensor._wrap(v.clone().requires_grad_())]
+            out = fn(*leaves)
+            (out * Tensor._wrap(cot)).sum().backward()
+    torch.cuda.synchronize()
+    launches = dict(
+        b1=fa.flash_fwd.kernel_launches, b2=fa.flash_bwd.kernel_launches,
+        b5=norms.rms_norm_fwd.kernel_launches,
+        b1_designs=dict(fa.flash_fwd.design_launches),
+        b2_designs=dict(fa.flash_bwd.design_launches),
+        plain=[fa.flash_fwd.plain_calls, fa.flash_bwd.plain_calls,
+               norms.rms_norm_fwd.plain_calls])
+    rms_err = _lim_err(rms, norms.rms_norm_fwd(xs, ws, 1e-6, path="torch"),
+                       NORM_TOL["bf16"])
+    rope_cpu = IF.fused_rotary_position_embedding(q.cpu(), k.cpu())
+    rope_err = max(_lim_err(a._data.cpu(), w, NORM_TOL["bf16"])
+                   for a, w in zip((qr, kr), rope_cpu))
+    flash = {}
+    for name, ((fargs, (o, lse)), (bargs, (dq, dk, dv))) in zip(
+            calls, zip(fwd, bwd)):
+        qs, kk, vv, causal, segs = fargs[:5]
+        wo, wlse = fa.flash_fwd(qs, kk, vv, causal, segs, path="torch")
+        _, _, _, bo, blse, do, bcausal, bsegs, scale = bargs[:9]
+        wdq, wdk, wdv = fa.flash_bwd(qs, kk, vv, bo, blse, do, scale,
+                                     bcausal, bsegs, path="torch")
+        abs_errs, errs, planted = _check_flash(
+            name, "bf16", (o, lse, dq, dk, dv), (wo, wlse, wdq, wdk, wdv))
+        flash[name] = dict(max_abs_err=abs_errs, norm_err=errs,
+                           planted=planted, segments=segs is not None)
+    del fwd, bwd
+    # the packed call's B1 beside the same sequences padded into a batch
+    # (one padded row a sequence, at the longest length), forward only
+    bias = attn_bias.BlockDiagonalCausalMask.from_seqlens(list(PACKED_LENS))
+    longest = max(PACKED_LENS)
+    pad = [torch.zeros((b * len(PACKED_LENS), longest) + LLAMA_Q[2:], **bf)
+           for _ in range(3)]
+    for src, dst in zip((qr._data, kr._data, v), pad):
+        for r in range(b):
+            at = 0
+            for i, n in enumerate(PACKED_LENS):
+                dst[r * len(PACKED_LENS) + i, :n] = src[r, at:at + n]
+                at += n
+    with torch.no_grad():
+        packed_ms = cuda_ms(lambda: P.incubate.nn.memory_efficient_attention(
+            qr, kr, Tensor._wrap(v), attn_bias=bias), iters=10)
+        padded_ms = cuda_ms(lambda: IF.fused_flash_attention(
+            *map(Tensor._wrap, pad), causal=True), iters=10)
+    rec = dict(launches=launches, rms_lim_err=rms_err, rope_lim_err=rope_err,
+               flash=flash, packed_fwd_ms=packed_ms, padded_fwd_ms=padded_ms)
+    _check("[incubate] 31c", {
+        "B5 once, B1 and B2 three times each, all sm90": (
+            launches["b1"], launches["b2"], launches["b5"]) == (3, 3, 1)
+            and launches["b1_designs"] == {"sm90": 3, "simple": 0}
+            and launches["b2_designs"] == {"sm90": 3, "simple": 0},
+        "no plain version ran on CUDA tensors": launches["plain"] == [0] * 3,
+        "B5 == its plain version (NORM_TOL bf16)": rms_err <= 1.0,
+        "rotary on the card == on the CPU (NORM_TOL bf16)": rope_err <= 1.0,
+        "the block-diagonal call reached B1/B2 with segment ids":
+            len(flash) == 3 and list(flash.values())[2]["segments"],
+    }, rec)
+    log(f"[incubate] 31c llama2_7b widths {list(LLAMA_Q)}: B5 vs plain "
+        f"{rms_err:.3f} of its limit, rotary vs CPU {rope_err:.3f}; "
+        + "; ".join(f"{n}: o {r['norm_err']['o']:.2e} dq "
+                    f"{r['norm_err']['dq']:.2e}" for n, r in flash.items())
+        + f"; packed B1 forward {packed_ms:.3f} ms against "
+        f"{padded_ms:.3f} ms padded")
+    del pad, q, k, v, qr, kr, xs, rms
+    _fresh_card()
+    return rec
+
+
+def incubate_phase(eager) -> dict:
+    """Phase 31: incubate whole (31a serving, 31b training, 31c the
+    registered functionals at llama2_7b's widths), and the incubate op
+    cases of phase 22's sweep."""
+    sweep = eager["sweep"]
+    cases = sweep["incubate_cases"]
+    _check("[incubate] sweep:", {
+        f"the {len(cases)} incubate op cases agree with the CPU (phase 22)":
+            bool(cases) and not sweep["incubate_failures"],
+    }, cases)
+    t0 = time.perf_counter()
+    serving = _mt_serving()
+    training = _encoder_training()
+    functionals = _llama_width_functionals()
+    secs = time.perf_counter() - t0
+    log(f"[incubate] phase 31 took {secs:.1f} s")
+    return dict(sweep_cases=cases, serving=serving, training=training,
+                functionals=functionals, seconds=secs)
+
+
 def main() -> int:
     try:
         import torch
@@ -7015,6 +7474,7 @@ def main() -> int:
     hapi = hapi_phase(eager)
     mobilenet = mobilenet_phase()
     detection = detection_phase(eager)
+    incubate = incubate_phase(eager)
     EAGER_GPT.clear()       # phases 23d and 28 read phase 22's GPT
     runs_17_18 =(("llama13b", train_llama["no_recompute"]),
                   ("llama13b_recompute", train_llama["recompute"]),
@@ -7126,6 +7586,14 @@ def main() -> int:
             launches_hapi=sum(
                 st["sm90"] for st in hapi[
                     "b1_by_step" if i == 0 else "b2_by_step"]),
+            # phase 31b: the fused encoder layers' 3 eager training steps
+            # on Tensors; 31c: fused_flash_attention and the two
+            # memory_efficient_attention calls through loss.backward()
+            launches_incubate_training=sum(
+                st["b1" if i == 0 else "b2"]
+                for st in incubate["training"]["launches_by_step"]),
+            launches_incubate_functionals=incubate["functionals"][
+                "launches"]["b1" if i == 0 else "b2"],
             max_abs_err=max(e for c in flash for dt in ("bf16", "f16")
                             for what, e in c[f"max_abs_err_{dt}"].items()
                             if (what in ("o", "lse")) == (kind == "fwd")),
@@ -7164,17 +7632,21 @@ def main() -> int:
                                 == (kind == "fwd"))),
             cases=flash))
     # B4 at the fused encoder's shape, B5 at LLaMA-2-7B's packed prefill,
-    # both bf16 with their affine; launches from phases 11 and 9
-    for kind, main_name, line, launches in (
-            ("layer_norm", "bert_base", 68, fused["b4_launches"]),
-            ("rms_norm", "llama2_7b prefill", 88, llama["b5_launches"])):
+    # both bf16 with their affine; launches from phases 11 and 9, and
+    # phase 31's (31b's training steps, 31c's fused_rms_norm)
+    for kind, main_name, line, launches, inc in (
+            ("layer_norm", "bert_base", 68, fused["b4_launches"],
+             sum(st["b4"] for st in incubate["training"][
+                 "launches_by_step"])),
+            ("rms_norm", "llama2_7b prefill", 88, llama["b5_launches"],
+             incubate["functionals"]["launches"]["b5"])):
         mine = [c for c in norm_cases if c["kind"] == kind]
         m = next(c for c in mine if c["case"] == main_name
                  and c["dtype"] == "bf16" and c["affine"])
         kernels.append(dict(
             name=kind, route="cuda", source=src + "norms.cu",
             replaces=f"paddle_tpu/kernels/pallas/norms.py:{line}",
-            launches=launches,
+            launches=launches, launches_incubate=inc,
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=m["library_ms"],
@@ -7220,6 +7692,7 @@ def main() -> int:
     log("[hapi] " + json.dumps(hapi))
     log("[train-mobilenet_v2] " + json.dumps(mobilenet))
     log("[detect] " + json.dumps(detection))
+    log("[incubate] " + json.dumps(incubate))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -647,6 +647,11 @@ def one_hot(x, num_classes):
 # group, instance and local response norm (nn_ops.py:575-625)
 # ---------------------------------------------------------------------------
 def _moments(x32, axes):
+    """(mean, biased variance) over `axes`; over no axis (instance norm of
+    an [N, C] input) each element alone, as jnp's moments over an empty
+    axis tuple (torch would reduce every axis)."""
+    if not axes:
+        return x32, torch.square(x32 - x32)
     return x32.mean(axes, keepdim=True), x32.var(axes, unbiased=False,
                                                 keepdim=True)
 

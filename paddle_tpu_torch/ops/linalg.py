@@ -86,6 +86,11 @@ def _axis(axis):
 @register_op("norm")
 def norm(x, p=None, axis=None, keepdim=False):
     x = floatlike(x)
+    if isinstance(axis, (list, tuple)) and not axis:
+        # jnp.linalg.norm refuses an empty axis list, as the reference
+        raise ValueError(
+            "Improper number of axes for norm: axis=(). Pass one axis to "
+            "compute a vector-norm, or two axes to compute a matrix-norm.")
     if p is None or p == "fro":
         if axis is None:
             return torch.sqrt(torch.sum(torch.square(x)))
@@ -141,6 +146,14 @@ def histogram(input, bins=100, min=0, max=0, weight=None):
 
 @register_op("bincount")
 def bincount(x, weights=None, minlength=0):
+    """Integer weights keep their dtype, as jnp.bincount keeps it
+    (torch.bincount returns a float for any weights)."""
+    if weights is not None and not (weights.is_floating_point()
+                                    or weights.is_complex()):
+        xl = x.reshape(-1).long()
+        n = max(int(minlength), int(xl.max()) + 1 if xl.numel() else 0)
+        return torch.zeros(n, dtype=weights.dtype, device=x.device) \
+            .scatter_add_(0, xl, weights.reshape(-1))
     return torch.bincount(x.long(), weights=weights, minlength=minlength)
 
 

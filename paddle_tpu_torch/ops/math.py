@@ -330,7 +330,8 @@ def lgamma(x):
 
 @register_op("digamma")
 def digamma(x):
-    return torch.digamma(x)
+    """nan at 0, as jax.scipy.special.digamma gives it (torch: -inf)."""
+    return torch.where(x == 0, float("nan"), torch.digamma(x))
 
 
 @register_op("polygamma")

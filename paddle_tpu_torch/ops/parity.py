@@ -9,7 +9,7 @@ YAML files (``_yaml_ops.py``, the reference's snapshot) maps to one of
 
 or it is unmapped: its reference counterpart lives in a module the port
 has not ported yet (sparse, fft and signal, geometric, distribution,
-the collectives, incubate's ModelAverage). An alias counts only where
+the collectives). An alias counts only where
 its path resolves in the port, so the unmapped list shrinks as modules
 are ported (tests/test_torch_parity.py holds it).
 """

@@ -24,6 +24,14 @@ def _dims(x, axis):
     return a if isinstance(a, tuple) else (a,)
 
 
+def _no_axes(axis):
+    """True for an empty axis list: the reference (jnp) reduces no axis
+    there, where torch reduces every axis over an empty `dim`. (Paddle
+    itself reduces every axis: ROADMAP Queue C, known gaps.)"""
+    a = ax(axis)
+    return isinstance(a, tuple) and not a
+
+
 def _int_acc(x):
     """jnp sums bool and narrow ints in int32 (torch in int64)."""
     return torch.int32 if not (x.is_floating_point() or x.is_complex()) \
@@ -33,6 +41,8 @@ def _int_acc(x):
 @register_op("sum")
 def sum(x, axis=None, dtype=None, keepdim=False):
     d = dt(dtype) if dtype is not None else _int_acc(x)
+    if _no_axes(axis):
+        return x if d is None else x.to(d)
     if axis is None and not keepdim:
         # the whole-tensor reduction torch's own x.sum() runs
         return torch.sum(x, dtype=d)
@@ -41,13 +51,15 @@ def sum(x, axis=None, dtype=None, keepdim=False):
 
 @register_op("mean")
 def mean(x, axis=None, keepdim=False):
+    if _no_axes(axis):
+        return floatlike(x)
     if axis is None and not keepdim:
         return torch.mean(floatlike(x))
     return torch.mean(floatlike(x), dim=_dims(x, axis), keepdim=keepdim)
 
 
 def _minmax(fn, x, axis, keepdim):
-    if x.dim() == 0:
+    if x.dim() == 0 or _no_axes(axis):
         return x
     return fn(x, dim=_dims(x, axis), keepdim=keepdim)
 
@@ -87,19 +99,32 @@ def prod(x, axis=None, keepdim=False, dtype=None):
 
 @register_op("logsumexp")
 def logsumexp(x, axis=None, keepdim=False):
+    if _no_axes(axis):
+        return floatlike(x)
     return torch.logsumexp(floatlike(x), dim=_dims(x, axis), keepdim=keepdim)
 
 
 @register_op("var")
 def var(x, axis=None, unbiased=True, keepdim=False):
+    if _no_axes(axis):
+        return _var_of_one(x, unbiased)
     return torch.var(floatlike(x), dim=_dims(x, axis),
                      correction=1 if unbiased else 0, keepdim=keepdim)
 
 
 @register_op("std")
 def std(x, axis=None, unbiased=True, keepdim=False):
+    if _no_axes(axis):
+        return torch.sqrt(_var_of_one(x, unbiased))
     return torch.std(floatlike(x), dim=_dims(x, axis),
                      correction=1 if unbiased else 0, keepdim=keepdim)
+
+
+def _var_of_one(x, unbiased):
+    """The variance of each element alone, as jnp.var over no axis gives
+    it: 0 / (1 - ddof), so nan when unbiased."""
+    xf = floatlike(x)
+    return torch.square(xf - xf) / (0.0 if unbiased else 1.0)
 
 
 def _moved(x, axis):
@@ -137,11 +162,18 @@ def nanmedian(x, axis=None, keepdim=False):
 
 @register_op("nansum")
 def nansum(x, axis=None, dtype=None, keepdim=False):
+    if _no_axes(axis):
+        if x.is_floating_point() or x.is_complex():
+            return torch.nan_to_num(x, nan=0.0, posinf=float("inf"),
+                                    neginf=float("-inf"))
+        return x.to(torch.int32)
     return torch.nansum(x, dim=_dims(x, axis), keepdim=keepdim)
 
 
 @register_op("nanmean")
 def nanmean(x, axis=None, keepdim=False):
+    if _no_axes(axis):
+        return floatlike(x)
     return torch.nanmean(floatlike(x), dim=_dims(x, axis), keepdim=keepdim)
 
 
@@ -157,20 +189,22 @@ def nanquantile(x, q, axis=None, keepdim=False):
 
 @register_op("all")
 def all(x, axis=None, keepdim=False):
-    if x.dim() == 0:
+    if x.dim() == 0 or _no_axes(axis):
         return x.bool()
     return torch.all(x.bool(), dim=_dims(x, axis), keepdim=keepdim)
 
 
 @register_op("any")
 def any(x, axis=None, keepdim=False):
-    if x.dim() == 0:
+    if x.dim() == 0 or _no_axes(axis):
         return x.bool()
     return torch.any(x.bool(), dim=_dims(x, axis), keepdim=keepdim)
 
 
 @register_op("count_nonzero")
 def count_nonzero(x, axis=None, keepdim=False):
+    if _no_axes(axis):
+        return (x != 0).to(torch.int32)
     return torch.sum(x != 0, dim=_dims(x, axis), keepdim=keepdim,
                      dtype=torch.int32)
 

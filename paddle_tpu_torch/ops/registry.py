@@ -51,8 +51,8 @@ from ..core.flags import define_flag
 from ..core.generator import torch_generator
 from ..core.tensor import NARROW, Tensor
 
-__all__ = ["OPS", "OpDef", "register_op", "get_op", "dispatch",
-           "dispatch_count"]
+__all__ = ["OPS", "OpDef", "register_op", "eager_function", "get_op",
+           "dispatch", "dispatch_count"]
 
 define_flag("FLAGS_check_nan_inf", False,
             "post-op NaN/Inf sanitizer: an eager op whose float output "
@@ -223,16 +223,39 @@ def register_op(name: str = None, amp_policy: str = None, tags=(),
         opdef = OpDef(op_name, fn, amp_policy=amp_policy, tags=tags,
                       amp_in_fn=amp_in_fn, random=random)
         OPS[op_name] = opdef
+        return _wrapper(opdef)
 
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
-            if _torch_level(args, kwargs):
-                return fn(*args, **kwargs)
-            return dispatch(opdef, args, kwargs)
+    return deco
 
-        wrapper.op_def = opdef
-        wrapper.raw_fn = fn
-        return wrapper
+
+def _wrapper(opdef: OpDef):
+    """The public function of `opdef`: a torch-level call runs its
+    function directly, any other is dispatched."""
+    fn = opdef.fn
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if _torch_level(args, kwargs):
+            return fn(*args, **kwargs)
+        return dispatch(opdef, args, kwargs)
+
+    wrapper.op_def = opdef
+    wrapper.raw_fn = fn
+    return wrapper
+
+
+def eager_function(random=False):
+    """Make a function over torch tensors take Tensors as a registered op
+    does, without joining the op table: the composites the reference
+    leaves unregistered (the fused attention and feed-forward blocks,
+    the serving functionals), whose bodies call registered ops or apply
+    their AMP rules themselves. A call that holds Tensors (or numpy
+    arrays) is dispatched like an ``amp_in_fn`` op, `random` filling its
+    ``generator``; a torch-level call runs the function directly."""
+
+    def deco(fn: Callable):
+        return _wrapper(OpDef(fn.__name__, fn, amp_in_fn=True,
+                              random=random))
 
     return deco
 

@@ -527,6 +527,22 @@ case("bool_unary", lambda P, T: [
     P.nn.functional.relu(T(BOOL3))])
 case("lstsq_underdetermined", lambda P, T: P.lstsq(T(A34), T(B34))[:2],
      tol=1e-4, grad=False)
+# an empty axis list reduces no axis, as jnp reduces none
+case("reduce_no_axes", lambda P, T: [
+    getattr(P, op)(T(A34), axis=[]) for op in (
+        "sum", "mean", "max", "min", "amax", "amin", "prod", "logsumexp",
+        "nansum", "nanmean", "median")] + [
+    P.sum(T(I34), axis=[]), P.all(T(BOOL34), axis=[]),
+    P.any(T(I34), axis=[]), P.count_nonzero(T(A34), axis=[])])
+case("var_std_no_axes", lambda P, T: [
+    P.var(T(A34), axis=[]), P.std(T(A34), axis=[]),
+    P.var(T(A34), axis=[], unbiased=False)], grad=False)
+case("instance_norm_2d", lambda P, T: P.nn.functional.instance_norm(
+    T(A34), T(pos(4)), T(f32(4))), tol=1e-5)
+case("bincount_int_weights", lambda P, T: P.bincount(
+    T(ints(0, 1, 1, 3)), weights=T(ints(2, 3, 4, 5))), grad=False)
+case("digamma_at_zero", lambda P, T: P.digamma(T(np.array(
+    [0.0, -0.0, -1.0, 1.0, 2.5], np.float32))), tol=1e-5, grad=False)
 
 
 def _batch_norm(P, T):
@@ -1065,6 +1081,114 @@ def _yolo_loss(P, T):
 
 case("yolo_loss", _yolo_loss, tol=1e-4, grad_tol=1e-4)
 LONGTAIL_CASES = [c[0] for c in CASES[_LT_FIRST:]]
+
+
+# ---------------------------------------------------------------------------
+# incubate's registered fused ops (incubate/nn/functional), dropout off
+# (INCUBATE_CASES names them for chip_smoke.py's phase 31)
+# ---------------------------------------------------------------------------
+_INC_FIRST = len(CASES)
+
+
+def _inc(P, name):
+    return getattr(P.incubate.nn.functional, name)
+
+
+case("fused_rms_norm", lambda P, T: _inc(P, "fused_rms_norm")(
+    T(A345), T(pos(5))), tol=1e-5)
+case("fused_layer_norm", lambda P, T: _inc(P, "fused_layer_norm")(
+    T(A345), T(pos(5)), T(f32(5))), tol=1e-5)
+
+
+def _rotary(P, T):
+    rope = _inc(P, "fused_rotary_position_embedding")
+    q, k = T(f32(2, 4, 2, 8)), T(f32(2, 4, 2, 8))
+    pid = T(np.array([[3, 2, 1, 0], [0, 1, 2, 3]], np.int32))
+    sin, cos = T(f32(6, 8), grad=False), T(f32(6, 8), grad=False)
+    return (*rope(q, k), rope(q, use_neox_rotary_style=False),
+            rope(q, sin=sin, cos=cos, position_ids=pid))
+
+
+case("fused_rotary_position_embedding", _rotary, tol=1e-5)
+case("fused_flash_attention", lambda P, T: _inc(P, "fused_flash_attention")(
+    T(QKV), T(QKV[::-1].copy()), T(QKV * 0.5), causal=True), tol=1e-4,
+    grad_tol=1e-4)
+case("fused_bias_dropout_residual_layer_norm", lambda P, T: _inc(
+    P, "fused_bias_dropout_residual_layer_norm")(
+    T(f32(2, 3, 8)), T(f32(2, 3, 8)), T(f32(8)), T(pos(8)), T(f32(8)),
+    dropout_rate=0.0), tol=1e-5)
+case("fused_linear", lambda P, T: (
+    _inc(P, "fused_linear")(T(A34), T(A45), T(f32(5))),
+    _inc(P, "fused_linear")(T(A34), T(f32(5, 4)), transpose_weight=True)),
+    tol=1e-5)
+case("fused_linear_activation", lambda P, T: (
+    _inc(P, "fused_linear_activation")(T(A34), T(A45), T(f32(5))),
+    _inc(P, "fused_linear_activation")(T(A34), T(f32(5, 4)), T(f32(5)),
+                                       trans_y=True, activation="relu")),
+    tol=1e-5)
+case("swiglu", lambda P, T: (_inc(P, "swiglu")(T(A34), T(B34)),
+                             _inc(P, "swiglu")(T(A34))), tol=1e-5)
+case("fused_dropout_add", lambda P, T: (
+    _inc(P, "fused_dropout_add")(T(A34), T(B34), p=0.3, training=False),
+    _inc(P, "fused_dropout_add")(T(A34), T(B34), p=0.3, training=False,
+                                 mode="downscale_in_infer")), tol=1e-6)
+case("fused_softmax_mask", lambda P, T: _inc(P, "fused_softmax_mask")(
+    T(f32(1, 2, 3, 4)), T(f32(1, 1, 3, 4))), tol=1e-5)
+case("fused_softmax_mask_upper_triangle", lambda P, T: _inc(
+    P, "fused_softmax_mask_upper_triangle")(T(f32(1, 2, 4, 4))), tol=1e-5)
+case("fused_bias_act", lambda P, T: [
+    _inc(P, "fused_bias_act")(T(A34), T(f32(4)), act_method=a)
+    for a in ("gelu", "relu", "silu", "swish", "geglu", "swiglu")],
+    tol=1e-5)
+case("fused_matmul_bias", lambda P, T: (
+    _inc(P, "fused_matmul_bias")(T(A34), T(A45), T(f32(5))),
+    _inc(P, "fused_matmul_bias")(T(f32(4, 3)), T(f32(5, 4)), T(f32(5)),
+                                 transpose_x=True, transpose_y=True)),
+    tol=1e-5)
+
+
+def _dot_product_attention(P, T):
+    fdpa = _inc(P, "fused_dot_product_attention")
+    q, k, v = (T(f32(2, 4, 2, 8)) for _ in range(3))
+    mask = T((f32(2, 1, 4, 4) > -0.5).astype(np.int32))
+    return (fdpa(q, k, v, mask=mask),
+            fdpa(q, k, v, scaling_factor=0.3, is_causal_masking=True))
+
+
+case("fused_dot_product_attention", _dot_product_attention, tol=1e-5)
+
+
+def _ec_moe(P, T):
+    moe = _inc(P, "fused_ec_moe")
+    x, gate = T(f32(2, 3, 4)), T(f32(2, 3, 2))
+    b0, b1 = T(f32(2, 1, 6)), T(f32(2, 1, 4))
+    return (moe(x, gate, T(f32(2, 4, 6)), b0, T(f32(2, 6, 4)), b1),
+            moe(x, gate, T(f32(2, 4, 6)), b0, T(f32(2, 4, 6)), b1,
+                act_type="relu"))
+
+
+case("fused_ec_moe", _ec_moe, tol=1e-5)
+
+
+def _gate_attention(P, T):
+    ga = _inc(P, "fused_gate_attention")
+    q, kv = T(f32(1, 2, 3, 4)), T(f32(1, 2, 5, 4))
+    gate_w, gate_b = T(f32(4, 2, 2)), T(f32(2, 2))
+    out_w, out_b = T(f32(2, 2, 4)), T(f32(4))
+    merged = ga(q, qkv_weight=T(f32(3, 2, 2, 4)), gate_linear_weight=gate_w,
+                gate_linear_bias=gate_b, out_linear_weight=out_w,
+                out_linear_bias=out_b,
+                nonbatched_bias=T(f32(1, 2, 3, 3)))
+    separate = ga(q, kv, query_weight=T(f32(4, 2, 2)),
+                  key_weight=T(f32(4, 2, 2)), value_weight=T(f32(4, 2, 2)),
+                  out_linear_weight=out_w, out_linear_bias=out_b,
+                  attn_mask=T(f32(1, 2, 1, 1, 5)), has_gating=False,
+                  merge_qkv=False)
+    return merged, separate
+
+
+case("fused_gate_attention", _gate_attention, tol=1e-5)
+INCUBATE_CASES = [c[0] for c in CASES[_INC_FIRST:]]
 
 
 # ---------------------------------------------------------------------------

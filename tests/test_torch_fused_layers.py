@@ -105,14 +105,14 @@ def test_short_sequence_takes_the_composite():
 
 def test_training_dropout_draws_from_the_layer_generator():
     """In training the dropout masks come from the layer's own generator
-    (seeded with seed + 1): two layers of one seed agree, and differ
-    from eval."""
+    (`generator`): two layers of one seed agree, and differ from eval."""
     x = torch.from_numpy(_x(5))
     outs = []
     for _ in range(2):
         layer = tnn.FusedTransformerEncoderLayer(
             D_MODEL, HEADS, FFN, dropout_rate=0.2, attn_dropout_rate=0.0,
-            device="cpu", seed=7)
+            device="cpu", init_generator=torch.Generator().manual_seed(7),
+            generator=torch.Generator().manual_seed(8))
         with torch.no_grad():
             outs.append(layer(x))
     torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
@@ -122,6 +122,15 @@ def test_training_dropout_draws_from_the_layer_generator():
 
 
 def test_parameter_attrs_are_not_ported():
-    with pytest.raises(NotImplementedError, match="qkv_weight_attr"):
-        tnn.FusedMultiHeadAttention(D_MODEL, HEADS, qkv_weight_attr=1,
-                                    device="cpu")
+    """The name predates the port of the ``*_attr`` arguments, which used
+    to raise: a ParamAttr's initializer and name now build the weight,
+    as in the reference."""
+    from paddle_tpu_torch.nn import ParamAttr
+    from paddle_tpu_torch.nn.initializer import Constant
+    layer = tnn.FusedMultiHeadAttention(
+        D_MODEL, HEADS, qkv_weight_attr=ParamAttr(
+            name="qkv", initializer=Constant(0.5)), device="cpu")
+    w = layer.qkv_weight
+    assert w.name == "qkv" and w.shape == [3, HEADS, D_MODEL // HEADS,
+                                           D_MODEL]
+    assert bool((w._data == 0.5).all())

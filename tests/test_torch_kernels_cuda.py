@@ -793,8 +793,9 @@ def test_fused_encoder_refuses_shapes_b1_does_not_take(cuda_device):
     tokens raise rather than run the composite, while an explicit
     attn_mask is the caller's choice of the composite."""
     from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
-    layer = FusedTransformerEncoderLayer(128, 2, 256, device=cuda_device,
-                                         seed=0).eval()
+    layer = FusedTransformerEncoderLayer(
+        128, 2, 256, device=cuda_device,
+        init_generator=torch.Generator(cuda_device).manual_seed(0)).eval()
     x = torch.randn((2, 40, 128), device=cuda_device)
     with torch.no_grad(), pytest.raises(ValueError, match="B1 does not"):
         layer(x)

@@ -225,6 +225,25 @@ PORTED_MODULES = {
     "paddle_tpu.callbacks": ("paddle_tpu_torch.callbacks", set()),
     "paddle_tpu.metric": ("paddle_tpu_torch.metric", set()),
     "paddle_tpu.utils": ("paddle_tpu_torch.utils", set()),
+    # incubate whole, but autotune (it goes with the kernels' autotune
+    # cache, ROADMAP Queue A item 23)
+    "paddle_tpu.incubate": ("paddle_tpu_torch.incubate", {"autotune"}),
+    "paddle_tpu.incubate.nn": ("paddle_tpu_torch.incubate.nn", set()),
+    "paddle_tpu.incubate.nn.functional": (
+        "paddle_tpu_torch.incubate.nn.functional", set()),
+    "paddle_tpu.incubate.nn.functional.serving": (
+        "paddle_tpu_torch.incubate.nn.functional.serving", set()),
+    "paddle_tpu.incubate.nn.layer": ("paddle_tpu_torch.incubate.nn.layer",
+                                     set()),
+    "paddle_tpu.incubate.nn.attn_bias": (
+        "paddle_tpu_torch.incubate.nn.attn_bias", set()),
+    "paddle_tpu.incubate.nn.memory_efficient_attention": (
+        "paddle_tpu_torch.incubate.nn.memory_efficient_attention", set()),
+    "paddle_tpu.incubate.nn.loss": ("paddle_tpu_torch.incubate.nn.loss",
+                                    set()),
+    "paddle_tpu.incubate.optimizer": ("paddle_tpu_torch.incubate.optimizer",
+                                      set()),
+    "paddle_tpu.incubate.asp": ("paddle_tpu_torch.incubate.asp", set()),
 }
 
 

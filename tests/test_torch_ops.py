@@ -35,8 +35,10 @@ def _close(got, want, tol, what):
                                rtol=tol, atol=tol, err_msg=what)
 
 
-# the long-tail cases run in tests/test_torch_longtail.py
-_CASES = [c for c in C.CASES if c[0] not in set(C.LONGTAIL_CASES)]
+# the long-tail cases run in tests/test_torch_longtail.py, incubate's in
+# tests/test_torch_incubate_functional.py
+_CASES = [c for c in C.CASES
+          if c[0] not in set(C.LONGTAIL_CASES) | set(C.INCUBATE_CASES)]
 
 
 @pytest.mark.parametrize("name,fn,opts", _CASES, ids=[c[0] for c in _CASES])

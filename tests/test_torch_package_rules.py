@@ -154,7 +154,8 @@ def test_entry_points_need_cuda_unless_cpu_requested():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FusedTransformerEncoderLayer(64, 4, 128)
     layer = FusedTransformerEncoderLayer(64, 4, 128, device="cpu")
-    assert {p.device.type for p in layer.parameters()} == {"cpu"}
+    assert {p.device.type for p in torch.nn.Module.parameters(layer)} \
+        == {"cpu"}
     from paddle_tpu_torch.nn import BatchNorm2D, Conv2D
     from paddle_tpu_torch.vision.models import mobilenet_v2, resnet18
     for make in (lambda **kw: resnet18(**kw),

@@ -12,24 +12,17 @@ from paddle_tpu_torch.ops import parity as tparity
 from test_torch_nn_clip import PORTED_MODULES
 
 # the YAML ops whose reference counterpart is in a module still to port:
-# the collectives (distributed), incubate's ModelAverage and its fused
-# and attention functionals, distribution, fft and signal, geometric,
+# the collectives (distributed), distribution, fft and signal, geometric,
 # sparse
 STILL_UNMAPPED = {
-    "all_gather", "all_reduce", "all_to_all", "average_accumulates_",
-    "binomial", "block_multihead_attention_", "broadcast", "c_allgather",
-    "c_allreduce_max", "c_allreduce_sum", "c_broadcast", "c_concat",
-    "c_embedding", "c_identity", "c_reduce_sum", "coalesce", "dirichlet",
-    "dist_concat", "fft_c2c", "fft_c2r", "fft_r2c", "frame",
-    "fused_bias_act", "fused_bias_dropout_residual_layer_norm",
-    "fused_dot_product_attention", "fused_dropout_add",
-    "fused_rotary_position_embedding", "fused_softmax_mask_upper_triangle",
-    "masked_matmul", "masked_multihead_attention_", "maxpool",
-    "memory_efficient_attention", "overlap_add", "p_recv", "p_recv_array",
+    "all_gather", "all_reduce", "all_to_all", "binomial", "broadcast",
+    "c_allgather", "c_allreduce_max", "c_allreduce_sum", "c_broadcast",
+    "c_concat", "c_embedding", "c_identity", "c_reduce_sum", "coalesce",
+    "dirichlet", "dist_concat", "fft_c2c", "fft_c2r", "fft_r2c", "frame",
+    "masked_matmul", "maxpool", "overlap_add", "p_recv", "p_recv_array",
     "reduce", "reduce_scatter", "reindex_graph", "segment_pool",
     "send_u_recv", "send_ue_recv", "send_uv", "sparse_coo_tensor",
     "to_dense", "to_sparse_coo", "to_sparse_csr", "values",
-    "variable_length_memory_efficient_attention",
     "weighted_sample_neighbors"}
 
 

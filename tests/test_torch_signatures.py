@@ -13,6 +13,7 @@ takes the place of the reference's ``key``."""
 import inspect
 
 import pytest
+import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
@@ -341,3 +342,72 @@ def test_zoo_constructor_matches_the_reference(name):
     assert port_head == ref_head
     assert not ref_kw
     assert [p.name for p in port_kw] in ([], ["device", "dtype", "seed"])
+
+
+# incubate whole (but autotune): the fused functionals, the serving
+# family, memory_efficient_attention, identity_loss, LookAhead /
+# ModelAverage, asp, and the fused layers' constructors
+def _incubate_names():
+    import importlib
+    out = []
+    for mod in ("incubate.nn.functional", "incubate.nn.functional.serving",
+                "incubate.nn.attn_bias", "incubate.nn.memory_efficient_attention",
+                "incubate.nn.loss", "incubate.optimizer", "incubate.asp",
+                "incubate.nn.layer"):
+        ref = importlib.import_module(f"paddle_tpu.{mod}")
+        for n in sorted(vars(ref)):
+            v = getattr(ref, n)
+            if not n.startswith("_") and callable(v) and getattr(
+                    v, "__module__", None) == ref.__name__:
+                out.append((mod, n))
+    return out
+
+
+INCUBATE_NAMES = _incubate_names()
+
+
+def test_every_incubate_name_is_checked():
+    names = {n for _, n in INCUBATE_NAMES}
+    assert {"fused_multi_transformer", "memory_efficient_attention",
+            "FusedMultiTransformer", "FusedTransformerEncoderLayer",
+            "LookAhead", "ModelAverage", "prune_model", "identity_loss",
+            "BlockDiagonalCausalMask", "fused_gate_attention"} <= names
+    assert len(INCUBATE_NAMES) == 46
+
+
+@pytest.mark.parametrize("module,name", INCUBATE_NAMES,
+                         ids=[f"{m}.{n}" for m, n in INCUBATE_NAMES])
+def test_incubate_name_matches_the_reference(module, name):
+    """The reference's parameters, the port's keyword-only device,
+    dtype, init_generator and generator after them (a random op's
+    generator in place of the reference's key, or after its parameters
+    where it draws from its global key), for functions, classes and each
+    method a class defines."""
+    import importlib
+    port_obj = getattr(importlib.import_module(f"paddle_tpu_torch.{module}"),
+                       name)
+    ref_obj = getattr(importlib.import_module(f"paddle_tpu.{module}"), name)
+    pairs = [(port_obj, ref_obj)]
+    if inspect.isclass(ref_obj):
+        pairs = [(port_obj.__init__, ref_obj.__init__)] + [
+            (getattr(port_obj, m), f) for m, f in vars(ref_obj).items()
+            if inspect.isfunction(f) and not m.startswith("_")]
+    op = getattr(port_obj, "op_def", None)
+    for port_fn, ref_fn in pairs:
+        port, ref = inspect.signature(port_fn), inspect.signature(ref_fn)
+        if op is not None and op.random:
+            params = [p.replace(name="generator")
+                      if p.name == "key" and p.default is None else p
+                      for p in ref.parameters.values()]
+            if "generator" not in [p.name for p in params]:
+                last = list(port.parameters.values())[-1]
+                assert last.name == "generator" and last.default is None
+                port = port.replace(
+                    parameters=list(port.parameters.values())[:-1])
+            ref = ref.replace(parameters=params)
+        # a jnp dtype default (attn_bias' materialize) is torch's own
+        ref = ref.replace(parameters=[
+            p.replace(default=getattr(torch, p.default.__name__))
+            if isinstance(p.default, type) and p.default.__module__
+            .startswith("jax") else p for p in ref.parameters.values()])
+        _check_sigs(port, ref)

@@ -4405,6 +4405,7 @@ def eager_op_sweep(C) -> dict:
     nn_cases = {n: errs[n] for n in C.NN_CASES}
     lt_cases = {n: errs[n] for n in C.LONGTAIL_CASES}
     inc_cases = {n: errs[n] for n in C.INCUBATE_CASES}
+    os_cases = {n: errs[n] for n in C.OPSURF_CASES}
     by_module = {}
     for name, ops in seen.items():
         for op in ops:
@@ -4421,7 +4422,10 @@ def eager_op_sweep(C) -> dict:
                                    if f.split(":")[0] in lt_cases],
                 incubate_cases=inc_cases,
                 incubate_failures=[f for f in failures
-                                   if f.split(":")[0] in inc_cases])
+                                   if f.split(":")[0] in inc_cases],
+                opsurf_cases=os_cases,
+                opsurf_failures=[f for f in failures
+                                 if f.split(":")[0] in os_cases])
 
 
 def eager_random_checks(C) -> dict:
@@ -7424,6 +7428,873 @@ def incubate_phase(eager) -> dict:
                 functionals=functionals, seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# phase 32: the op surfaces (fft, signal, audio, geometric, sparse,
+# distribution, quantization) on the card
+# ---------------------------------------------------------------------------
+# 32a: PANNs CNN14's feature config as PaddleSpeech's ESC-50 recipe uses
+# it: 32 kHz, n_fft 1024, hop 320, a Hann window of 1024, 64 mels from 50
+# to 14,000 Hz; 64 clips of 5 s; MFCC with 40 coefficients
+AUDIO = dict(sr=32000, n_fft=1024, hop_length=320, win_length=1024,
+             window="hann", n_mels=64, f_min=50.0, f_max=14000.0)
+AUDIO_CLIPS, AUDIO_SAMPLES, AUDIO_MFCC = 64, 160000, 40
+# log-mel in dB: cuFFT and pocketfft give f32 powers a few ulps apart,
+# 1e-5 relative at worst, 4e-5 dB; the bound allows 25x that
+AUDIO_DB_TOL = 1e-3
+# 32b: ogbn-arxiv's size (169,343 nodes, 1,166,243 edges, 128 features,
+# 40 classes), power-law in-degrees; GraphSAGE-mean 128 -> 256 -> 40;
+# GraphSAGE's fan-outs [25, 10] from 1,024 seeds
+GRAPH_NODES, GRAPH_EDGES, GRAPH_FEAT = 169_343, 1_166_243, 128
+GRAPH_HIDDEN, GRAPH_CLASSES = 256, 40
+GRAPH_SEEDS, GRAPH_FANOUTS = 1024, (25, 10)
+# index_add / scatter sums in other orders on the card (atomics) and the
+# CPU, through two f32 layers
+GRAPH_TOL = 1e-4
+# 32c: SECOND's third middle-encoder stage on KITTI's voxel grid: [1, 11,
+# 400, 352] sites, 64 channels, 40,000 active; the card-vs-CPU check on a
+# [1, 11, 100, 88] cut at the same density
+VOXEL_GRID, VOXEL_C, VOXEL_ACTIVE = (1, 11, 400, 352), 64, 40_000
+VOXEL_CUT = (1, 11, 100, 88)
+# sparse attention: b 4, h 12, s 1024, d 64 under a 128-wide band
+SPATTN = (4, 12, 1024, 64)
+SPATTN_BAND = 128
+# f32 with TF32 off for the comparisons (27-tap convolutions and the
+# products summed in other orders): 1e-4 of the largest value
+SPARSE_TOL = 1e-4
+# 32d: a PPO policy's heads: Normal over MuJoCo Humanoid's 17 action dims
+# at batch 4096, Categorical over LLaMA's 32,000-token vocabulary at
+# batch 256; moments of 10^6 draws within 6 standard errors
+PPO_BATCH, PPO_ACT = 4096, 17
+CAT_BATCH, CAT_VOCAB = 256, 32_000
+DIST_DRAWS = 1_000_000
+# 32e: MobileNetV2 QAT at phase 29's recipe; the card-vs-CPU step at
+# batch 4 x 224^2 in f32
+QAT_EAGER_STEPS, QAT_GRAPH_CALLS = 2, 4
+QAT_SUB_BATCH, QAT_SUB_HW = 4, 224
+# the whole step's loss, card against CPU: a flip in one layer moves
+# every later one (first runs on an H100: 1.1e-3 at 224^2; 4.1e-3 and
+# 1.7e-2 at 64^2, where batch norm normalises 2 x 2 maps)
+QAT_LOSS_TOL = 2e-2
+
+
+def _card_ms(dev, fn, iters=5):
+    """Device ms of fn by CUDA events on the card, None elsewhere."""
+    return cuda_ms(fn, iters=iters, warmup=1) if dev == "cuda" else None
+
+
+def _sync():
+    import torch
+    if CARD == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_gib(held):
+    import torch
+    if CARD != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 2 ** 30 - held
+
+
+def _rel_err(got, want):
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max() / max(float(want.abs().max()),
+                                                1e-30))
+
+
+def _audio_clips(n, samples, seed=32):
+    """5 s clips at 32 kHz: a few partials with a decaying envelope over
+    noise, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(samples, dtype=np.float64) / AUDIO["sr"]
+    f0 = rng.uniform(80, 4000, (n, 1, 1))
+    k = np.arange(1, 6)[None, :, None]
+    tone = (np.sin(2 * np.pi * f0 * k * t + rng.uniform(0, 6, (n, 5, 1)))
+            / k).sum(1)
+    env = np.exp(-t * rng.uniform(0.2, 2.0, (n, 1)))
+    x = 0.3 * tone * env + 0.05 * rng.standard_normal((n, samples))
+    return x.astype(np.float32)
+
+
+def _audio_run(dev, x_np):
+    """32a on `dev`: the log-mel and MFCC features, stft -> istft with
+    length, the stft's gradient of a power sum; times on the card."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import audio, signal
+    x = P.to_tensor(x_np, place=dev)
+    logmel = audio.LogMelSpectrogram(**AUDIO, device=dev)
+    mfcc = audio.MFCC(n_mfcc=AUDIO_MFCC, **AUDIO, device=dev)
+    lm, mf = logmel(x), mfcc(x)
+    w = audio.functional.get_window("hann", AUDIO["n_fft"], device=dev)
+    st = dict(n_fft=AUDIO["n_fft"], hop_length=AUDIO["hop_length"],
+              window=w)
+    spec = signal.stft(x, **st)
+    back = signal.istft(spec, length=AUDIO_SAMPLES, **st)
+    g = P.to_tensor(x_np[:8], place=dev, stop_gradient=False)
+    (signal.stft(g, **st).abs() ** 2).sum().backward()
+    rec = dict(logmel=lm._data, mfcc=mf._data, roundtrip=back._data,
+               grad=g.grad._data, stop_gradient=lm.stop_gradient)
+    if dev == CARD:
+        rec["ms"] = dict(
+            logmel=_card_ms(dev, lambda: logmel(x)),
+            mfcc=_card_ms(dev, lambda: mfcc(x)),
+            stft=_card_ms(dev, lambda: signal.stft(x, **st)),
+            istft=_card_ms(dev, lambda: signal.istft(
+                spec, length=AUDIO_SAMPLES, **st)))
+    return rec
+
+
+def _audio_front_end(n=None, samples=None) -> dict:
+    """Phase 32a."""
+    import torch
+    x = _audio_clips(n or AUDIO_CLIPS, samples or AUDIO_SAMPLES)
+    card, cpu = (_audio_run(d, x) for d in (CARD, "cpu"))
+    frames = 1 + (x.shape[1] // AUDIO["hop_length"])
+    rec = dict(
+        shape=list(card["logmel"].shape), frames=frames,
+        logmel_max_abs_db=float((card["logmel"].cpu()
+                                 - cpu["logmel"]).abs().max()),
+        mfcc_rel_err=_rel_err(card["mfcc"], cpu["mfcc"]),
+        roundtrip_max_abs_err=float((card["roundtrip"].cpu()
+                                     - torch.from_numpy(x)).abs().max()),
+        grad_rel_err=_rel_err(card["grad"], cpu["grad"]),
+        features_record_no_grad=card["stop_gradient"],
+        ms=card.get("ms"))
+    return rec
+
+
+def _power_law_graph(seed=33):
+    """ogbn-arxiv-sized directed graph: uniform sources, destinations
+    drawn with probability ~ rank^-0.8 over a shuffled node order (a
+    power-law in-degree); edges sorted by destination, with the CSC
+    colptr."""
+    rng = np.random.default_rng(seed)
+    n, e = GRAPH_NODES, GRAPH_EDGES
+    p = np.arange(1, n + 1, dtype=np.float64) ** -0.8
+    p /= p.sum()
+    dst = rng.permutation(n)[rng.choice(n, size=e, p=p)]
+    order = np.argsort(dst, kind="stable")
+    dst = dst[order].astype(np.int32)
+    src = rng.integers(0, n, e).astype(np.int32)[order]
+    colptr = np.concatenate([[0], np.cumsum(np.bincount(
+        dst, minlength=n))]).astype(np.int32)
+    return src, dst, colptr
+
+
+def _sage_weights(seed=34):
+    rng = np.random.default_rng(seed)
+    dims = [(GRAPH_FEAT, GRAPH_HIDDEN)] * 2 + [(GRAPH_HIDDEN,
+                                                GRAPH_CLASSES)] * 2
+    return [(rng.standard_normal(d) / np.sqrt(d[0])).astype(np.float32)
+            for d in dims]
+
+
+def _graph_run(dev, graph, x_np, wts, seeds):
+    """32b on `dev`: GraphSAGE-mean forward and backward through
+    send_u_recv, sum and max once, send_ue_recv and send_uv, the two-hop
+    sample and reindex_graph."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import geometric as G
+    src_np, dst_np, colptr_np = graph
+    T = lambda a, **kw: P.to_tensor(a, place=dev, **kw)  # noqa: E731
+    src, dst, x = T(src_np), T(dst_np), T(x_np)
+    ws = [T(w, stop_gradient=False) for w in wts]
+    n = GRAPH_NODES
+
+    def sage():
+        h = x
+        for i in range(2):
+            agg = G.send_u_recv(h, src, dst, "mean", out_size=n)
+            h = P.matmul(h, ws[2 * i]) + P.matmul(agg, ws[2 * i + 1])
+            if i == 0:
+                h = P.nn.functional.relu(h)
+        return h
+
+    logits = sage()
+    labels = T(np.arange(n, dtype=np.int32) % GRAPH_CLASSES)
+    loss = P.nn.functional.cross_entropy(logits, labels)
+    loss.backward()
+    ew = T(np.random.default_rng(35).uniform(0.5, 1.5, GRAPH_EDGES)
+           .astype(np.float32))
+    rec = dict(logits=logits._data.detach(), loss=float(loss),
+               grads=[w.grad._data for w in ws],
+               sum=G.send_u_recv(x, src, dst, "sum")._data,
+               max=G.send_u_recv(x, src, dst, "max")._data,
+               ue=G.send_ue_recv(x, ew, src, dst, "mul", "sum")._data,
+               uv=G.send_uv(x, x, src, dst, "mul")._data)
+    P.seed(36)
+    row, cp = T(src_np), T(colptr_np)
+    nodes = T(seeds)
+    hops = []
+    for k in GRAPH_FANOUTS:
+        nb, cnt = G.sample_neighbors(row, cp, nodes, sample_size=k)
+        r_src, r_dst, out_nodes = G.reindex_graph(nodes, nb, cnt)
+        hops.append([t._data.cpu().numpy() for t in
+                     (nodes, nb, cnt, r_src, r_dst, out_nodes)])
+        nodes = out_nodes
+    rec["hops"] = hops
+    if dev == CARD:
+        def step():
+            for w in ws:
+                w.clear_grad()
+            P.nn.functional.cross_entropy(sage(), labels).backward()
+        rec["ms"] = dict(
+            sage_step=_card_ms(dev, step, iters=3),
+            send_u_recv_sum=_card_ms(dev, lambda: G.send_u_recv(
+                x, src, dst, "sum")),
+            send_u_recv_mean=_card_ms(dev, lambda: G.send_u_recv(
+                x, src, dst, "mean")),
+            send_u_recv_max=_card_ms(dev, lambda: G.send_u_recv(
+                x, src, dst, "max")))
+    return rec
+
+
+def _samples_hold_the_rule(hops, colptr, row, fanouts):
+    """Each node's picks lie among its neighbours, with no repeats, and
+    number min(degree, fan-out)."""
+    for (nodes, nb, cnt, *_), k in zip(hops, fanouts):
+        deg = np.diff(colptr)[nodes]
+        if not np.array_equal(cnt, np.minimum(deg, k)):
+            return False
+        off = np.concatenate([[0], np.cumsum(cnt)])
+        for i, node in enumerate(nodes.tolist()):
+            picks = nb[off[i]:off[i + 1]]
+            nbrs = row[colptr[node]:colptr[node + 1]]
+            # multi-edges may repeat a neighbour id: compare as multisets
+            vals, counts = np.unique(picks, return_counts=True)
+            have = dict(zip(*np.unique(nbrs, return_counts=True)))
+            if any(have.get(v, 0) < c for v, c in zip(vals, counts)):
+                return False
+    return True
+
+
+def _graph_phase() -> dict:
+    """Phase 32b."""
+    graph = _power_law_graph()
+    src, dst, colptr = graph
+    x = np.random.default_rng(37).standard_normal(
+        (GRAPH_NODES, GRAPH_FEAT)).astype(np.float32)
+    wts = _sage_weights()
+    seeds = np.random.default_rng(38).choice(
+        GRAPH_NODES, GRAPH_SEEDS, replace=False).astype(np.int32)
+    card, cpu = (_graph_run(d, graph, x, wts, seeds) for d in (CARD, "cpu"))
+    hops_equal = all(np.array_equal(a, b) for ha, hb in
+                     zip(card["hops"], cpu["hops"]) for a, b in zip(ha, hb))
+    deg = np.bincount(dst, minlength=GRAPH_NODES)
+    return dict(
+        nodes=GRAPH_NODES, edges=GRAPH_EDGES, max_in_degree=int(deg.max()),
+        median_in_degree=float(np.median(deg)),
+        isolated=int((deg == 0).sum()),
+        loss=card["loss"], loss_cpu=cpu["loss"],
+        logits_rel_err=_rel_err(card["logits"], cpu["logits"]),
+        grad_rel_err=max(_rel_err(a, b) for a, b in
+                         zip(card["grads"], cpu["grads"])),
+        sum_rel_err=_rel_err(card["sum"], cpu["sum"]),
+        max_equal=bool(np.array_equal(card["max"].cpu().numpy(),
+                                      cpu["max"].numpy())),
+        ue_rel_err=_rel_err(card["ue"], cpu["ue"]),
+        uv_equal=bool(np.array_equal(card["uv"].cpu().numpy(),
+                                     cpu["uv"].numpy())),
+        samples_equal=hops_equal,
+        samples_hold_rule=_samples_hold_the_rule(card["hops"], colptr, src,
+                                                 GRAPH_FANOUTS),
+        sampled=[int(h[2].sum()) for h in card["hops"]],
+        subgraph_nodes=[int(len(h[5])) for h in card["hops"]],
+        ms=card.get("ms"))
+
+
+def _voxels(grid, active, seed):
+    """A [*grid, C] NDHWC input with `active` distinct active sites."""
+    rng = np.random.default_rng(seed)
+    n_sites = int(np.prod(grid))
+    sites = rng.choice(n_sites, active, replace=False)
+    feats = rng.standard_normal((active, VOXEL_C)).astype(np.float32)
+    idx = np.stack(np.unravel_index(np.sort(sites), grid))
+    return idx.astype(np.int64), feats
+
+
+def _second_stage(dev, idx, feats, grid, seed=39):
+    """Two SubmConv3D(64, 64, 3) + ReLU, Conv3D(64, 64, 3, stride 2,
+    padding 1), MaxPool3D(2): forward, and backward of the squared
+    output."""
+    import torch
+
+    from paddle_tpu_torch import sparse
+    # the weights drawn on the CPU from the seed, so every device gets
+    # the same ones
+    mk = dict(device="cpu",
+              init_generator=torch.Generator("cpu").manual_seed(seed))
+    layers = [sparse.nn.SubmConv3D(VOXEL_C, VOXEL_C, 3, **mk),
+              sparse.nn.SubmConv3D(VOXEL_C, VOXEL_C, 3, **mk),
+              sparse.nn.Conv3D(VOXEL_C, VOXEL_C, 3, stride=2, padding=1,
+                               **mk)]
+    for lay in layers:
+        torch.nn.Module.to(lay, dev)
+    x = sparse.sparse_coo_tensor(idx, feats, shape=grid + (VOXEL_C,),
+                                 place=dev)
+    relu, pool = sparse.nn.ReLU(), sparse.nn.MaxPool3D(2)
+    h1 = relu(layers[0](x))
+    h2 = relu(layers[1](h1))
+    h3 = layers[2](h2)
+    out = pool(h3)
+    (out.to_dense() ** 2).sum().backward()
+    return dict(x=x, h1=h1, h2=h2, h3=h3, out=out, layers=layers,
+                grads=[p.grad._data for lay in layers
+                       for p in (lay.weight, lay.bias)])
+
+
+def _reach(mask, k=3, stride=2, pad=1):
+    """The regular conv's site rule, independently: any active site in
+    the receptive field (a max-pool of the mask)."""
+    import torch.nn.functional as TF
+    return TF.max_pool3d(mask[:, None].float(), k, stride, pad)[:, 0] > 0
+
+
+def _band_csr(b, h, s, band):
+    """A causal band of `band` keys a row as Paddle's flat batched CSR."""
+    cols, crow = [], [0]
+    for r in range(s):
+        cols.extend(range(max(0, r - band + 1), r + 1))
+        crow.append(len(cols))
+    nb = b * h
+    return (np.tile(np.asarray(crow, np.int64), nb),
+            np.tile(np.asarray(cols, np.int64), nb), len(cols))
+
+
+def _sparse_phase() -> dict:
+    """Phase 32c: SECOND's stage at full size on the card (the site rules
+    and the backward checked, timed with cuDNN's default TF32 and
+    without), the same stage on a cut grid against the CPU (TF32 off),
+    the graph's row-normalised adjacency through sparse.matmul against
+    send_u_recv's mean, and the band-masked attention against SDPA with
+    the band as a dense mask."""
+    import torch
+    import torch.nn.functional as TF
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import geometric, sparse
+    held = _fresh_card()
+    rec = dict(dense_activation_mb=float(np.prod(VOXEL_GRID) * VOXEL_C * 4
+                                         / 1e6),
+               tf32=dict(cudnn_default=bool(torch.backends.cudnn.allow_tf32),
+                         matmul_default=bool(
+                             torch.backends.cuda.matmul.allow_tf32)))
+    idx, feats = _voxels(VOXEL_GRID, VOXEL_ACTIVE, 40)
+    run = _second_stage(CARD, idx, feats, VOXEL_GRID)
+
+    def sites(t):
+        """The active sites of a sparse tensor's dense form."""
+        return torch.nonzero((t._todense() != 0).any(-1)).t().to(
+            torch.int32)
+    rec.update(
+        active_in=run["x"].nnz(), active_subm=[run["h1"].nnz(),
+                                               run["h2"].nnz()],
+        active_conv=run["h3"].nnz(), active_pool=run["out"].nnz(),
+        subm_keeps_sites=bool(torch.equal(run["h1"].indices()._data,
+                                          run["x"].indices()._data)
+                              and torch.equal(run["h2"].indices()._data,
+                                              sites(run["h1"]))),
+        conv_sites_by_rule=bool(torch.equal(
+            run["h3"].indices()._data, torch.nonzero(_reach(
+                (run["h2"]._todense() != 0).any(-1))).t().to(torch.int32))),
+        grads_finite_nonzero=all(bool(torch.isfinite(g).all())
+                                 and float(g.abs().sum()) > 0
+                                 for g in run["grads"]),
+        peak_gib=_peak_gib(held))
+    layers = run["layers"]
+    del run
+
+    def stage():
+        x = sparse.sparse_coo_tensor(idx, feats, shape=VOXEL_GRID
+                                     + (VOXEL_C,), place=CARD)
+        h = sparse.nn.ReLU()(layers[0](x))
+        h = sparse.nn.ReLU()(layers[1](h))
+        out = sparse.nn.MaxPool3D(2)(layers[2](h))
+        (out.to_dense() ** 2).sum().backward()
+
+    rec["stage_ms"] = _card_ms(CARD, stage, iters=3)
+    with _f32_exact():
+        rec["stage_ms_no_tf32"] = _card_ms(CARD, stage, iters=3)
+        cut_active = VOXEL_ACTIVE * int(np.prod(VOXEL_CUT)) // int(
+            np.prod(VOXEL_GRID))
+        cidx, cfeats = _voxels(VOXEL_CUT, cut_active, 41)
+        card, cpu = (_second_stage(d, cidx, cfeats, VOXEL_CUT)
+                     for d in (CARD, "cpu"))
+        rec["cut"] = dict(
+            active=cut_active,
+            indices_equal=all(torch.equal(card[k].indices()._data.cpu(),
+                                          cpu[k].indices()._data)
+                              for k in ("h1", "h2", "h3", "out")),
+            out_rel_err=_rel_err(card["out"].values()._data,
+                                 cpu["out"].values()._data),
+            grad_rel_err=max(_rel_err(a, b) for a, b in
+                             zip(card["grads"], cpu["grads"])))
+        del card, cpu
+        # the row-normalised adjacency of 32b's graph, A[dst, src] =
+        # 1 / in-degree(dst), against send_u_recv's mean
+        src, dst, _ = _power_law_graph()
+        deg = np.bincount(dst, minlength=GRAPH_NODES)
+        vals = (1.0 / np.maximum(deg[dst], 1)).astype(np.float32)
+        adj = sparse.sparse_coo_tensor(np.stack([dst, src]).astype(np.int64),
+                                       vals, shape=[GRAPH_NODES] * 2,
+                                       place=CARD)
+        xg = P.to_tensor(np.random.default_rng(37).standard_normal(
+            (GRAPH_NODES, GRAPH_FEAT)).astype(np.float32), place=CARD)
+        got = sparse.matmul(adj, xg)._data
+        want = geometric.send_u_recv(xg, P.to_tensor(src, place=CARD),
+                                     P.to_tensor(dst, place=CARD),
+                                     "mean")._data
+        tsrc, tdst = (P.to_tensor(a, place=CARD) for a in (src, dst))
+        rec["adjacency"] = dict(
+            nnz=adj.nnz(), rel_err_vs_mean=_rel_err(got, want),
+            ms=_card_ms(CARD, lambda: sparse.matmul(adj, xg)),
+            mean_ms=_card_ms(CARD, lambda: geometric.send_u_recv(
+                xg, tsrc, tdst, "mean")))
+        del adj, xg, got, want
+        b, h, s, d = SPATTN
+        crows, cols, nnz = _band_csr(b, h, s, SPATTN_BAND)
+        m = sparse.sparse_csr_tensor(crows, cols, np.ones(
+            b * h * nnz, np.float32), [b * h, s, s], place=CARD)
+        gen = torch.Generator(CARD).manual_seed(42)
+        q, k, v = (torch.randn(SPATTN, generator=gen, device=CARD)
+                   for _ in range(3))
+        got = sparse.nn.functional.attention(q, k, v, m)
+        r = torch.arange(s, device=CARD)
+        band = (r[None, :] <= r[:, None]) & (r[None, :]
+                                             > r[:, None] - SPATTN_BAND)
+        want = TF.scaled_dot_product_attention(q, k, v, attn_mask=band)
+        cpu_got = sparse.nn.functional.attention(
+            q[:1].cpu(), k[:1].cpu(), v[:1].cpu(),
+            sparse.sparse_csr_tensor(crows[:h * (s + 1)], cols[:h * nnz],
+                                     np.ones(h * nnz, np.float32),
+                                     [h, s, s], place="cpu"))
+        rec["attention"] = dict(
+            shape=list(SPATTN), band=SPATTN_BAND, nnz_per_head=nnz,
+            rel_err_vs_sdpa=_rel_err(got, want),
+            rel_err_vs_cpu=_rel_err(got[:1], cpu_got),
+            ms=_card_ms(CARD, lambda: sparse.nn.functional.attention(
+                q, k, v, m)),
+            sdpa_ms=_card_ms(CARD, lambda: TF.scaled_dot_product_attention(
+                q, k, v, attn_mask=band)))
+    _fresh_card()
+    return rec
+
+
+def _moments_within(x, mean, var, se=6.0):
+    """x [N, ...] (a torch tensor on the card): each mean within `se`
+    standard errors of `mean`, each variance within `se` standard errors
+    of `var` (from the fourth central moment of the draws)."""
+    import torch
+    x = x.double()
+    mean = torch.as_tensor(mean, dtype=torch.float64, device=x.device)
+    var = torch.as_tensor(var, dtype=torch.float64, device=x.device)
+    n = x.shape[0]
+    m, v = x.mean(0), x.var(0, unbiased=False)
+    m4 = ((x - mean) ** 4).mean(0)
+    ok_m = (m - mean).abs() <= se * (var / n).sqrt() + 1e-12
+    ok_v = (v - var).abs() <= se * ((m4 - var ** 2).clamp(min=1e-24)
+                                    / n).sqrt() + 1e-12
+    return bool(ok_m.all() and ok_v.all()), [
+        float(t) for t in (m.flatten()[0], v.flatten()[0],
+                           mean.flatten()[0], var.flatten()[0])]
+
+
+def _ppo_run(dev, arrays):
+    """32d's policy heads on `dev`: values, gradients, rsample's."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import distribution as D
+    T = lambda a, **kw: P.to_tensor(a, place=dev, **kw)  # noqa: E731
+    mu = T(arrays["mu"], stop_gradient=False)
+    log_std = T(arrays["log_std"], stop_gradient=False)
+    old = D.Normal(T(arrays["mu_old"]), T(np.exp(arrays["log_std_old"])))
+    pi = D.Normal(mu, P.exp(log_std))
+    act = T(arrays["act"])
+    lp, ent, kl = pi.log_prob(act), pi.entropy(), D.kl_divergence(old, pi)
+    ratio = P.exp(lp.sum(-1) - old.log_prob(act).sum(-1))
+    adv = T(arrays["adv"])
+    loss = -(ratio * adv).mean() - 0.01 * ent.mean() + kl.mean()
+    loss.backward()
+    # rsample's reparameterised gradient: d sum(s) / d mu = 1 and
+    # d sum(s) / d log_std = s - mu (the draws are the device's own)
+    mu2 = T(arrays["mu"], stop_gradient=False)
+    ls2 = T(arrays["log_std"], stop_gradient=False)
+    P.seed(43)
+    s = D.Normal(mu2, P.exp(ls2)).rsample((2,))
+    s.sum().backward()
+    dev_s = (s._data - mu2._data).detach()
+    rsample_err = max(
+        float((mu2.grad._data - 2.0).abs().max()),
+        float((ls2.grad._data - dev_s.sum(0)).abs().max()
+              / dev_s.abs().max()))
+    logits = T(arrays["logits"], stop_gradient=False)
+    cat, cat_old = D.Categorical(logits), D.Categorical(T(arrays[
+        "logits_old"]))
+    tok = T(arrays["tokens"])
+    cl = cat.log_prob(tok).mean() - 0.01 * cat.entropy().mean() \
+        + D.kl_divergence(cat_old, cat).mean()
+    cl.backward()
+    rec = dict(lp=lp._data.detach(), ent=ent._data.detach(),
+               kl=kl._data.detach(), loss=float(loss),
+               grads=[mu.grad._data, log_std.grad._data, logits.grad._data],
+               cat=float(cl), rsample_shape=s.shape,
+               rsample_grad_err=rsample_err)
+    if dev == CARD:
+        P.seed(44)
+        draws = cat.sample((4,))._data
+        rec["cat_sample_ok"] = bool((draws >= 0).all() and (
+            draws < CAT_VOCAB).all()) and list(draws.shape) == [
+            4, CAT_BATCH]
+        rec["ms"] = dict(
+            normal_rsample_logprob=_card_ms(dev, lambda: pi.log_prob(
+                pi.rsample())),
+            categorical_sample=_card_ms(dev, lambda: cat.sample()),
+            categorical_entropy=_card_ms(dev, lambda: cat.entropy()))
+    return rec
+
+
+def _distribution_phase() -> dict:
+    """Phase 32d: the PPO heads on the card against the CPU (values and
+    gradients), then the moments of 10^6 draws on the card."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import distribution as D
+    rng = np.random.default_rng(45)
+    arrays = dict(
+        mu=np.tanh(rng.standard_normal((PPO_BATCH, PPO_ACT))).astype(
+            np.float32),
+        log_std=np.full((PPO_BATCH, PPO_ACT), -0.5, np.float32),
+        mu_old=np.tanh(rng.standard_normal((PPO_BATCH, PPO_ACT))).astype(
+            np.float32),
+        log_std_old=np.full((PPO_BATCH, PPO_ACT), -0.4, np.float32),
+        act=None,
+        adv=rng.standard_normal(PPO_BATCH).astype(np.float32),
+        logits=rng.standard_normal((CAT_BATCH, CAT_VOCAB)).astype(
+            np.float32),
+        logits_old=rng.standard_normal((CAT_BATCH, CAT_VOCAB)).astype(
+            np.float32),
+        tokens=rng.integers(0, CAT_VOCAB, CAT_BATCH).astype(np.int32))
+    # actions the old policy took
+    arrays["act"] = (arrays["mu_old"] + np.exp(arrays["log_std_old"])
+                     * rng.standard_normal((PPO_BATCH, PPO_ACT))).astype(
+        np.float32)
+    card, cpu = (_ppo_run(d, arrays) for d in (CARD, "cpu"))
+    rec = dict(
+        values_rel_err=max(_rel_err(card[k], cpu[k])
+                           for k in ("lp", "ent", "kl")),
+        loss=card["loss"], loss_cpu=cpu["loss"],
+        cat_loss=card["cat"], cat_loss_cpu=cpu["cat"],
+        grad_rel_err=max(_rel_err(a, b) for a, b in
+                         zip(card["grads"], cpu["grads"])),
+        cat_sample_ok=card["cat_sample_ok"], ms=card["ms"],
+        rsample_grad_err=max(card["rsample_grad_err"],
+                             cpu["rsample_grad_err"]))
+    n = DIST_DRAWS
+    P.seed(46)
+    c = lambda a: P.to_tensor(np.asarray(a, np.float32),  # noqa: E731
+                              place=CARD)
+    a3 = np.array([1.0, 2.0, 3.5])
+    p3 = np.array([0.2, 0.5, 0.3])
+    a0 = a3.sum()
+    cases = {
+        "Gamma": (D.Gamma(c(2.5), c(1.5)), 2.5 / 1.5, 2.5 / 1.5 ** 2),
+        "Beta": (D.Beta(c(2.0), c(5.0)), 2 / 7, 10 / (49 * 8)),
+        "Dirichlet": (D.Dirichlet(c(a3)), a3 / a0,
+                      a3 * (a0 - a3) / (a0 ** 2 * (a0 + 1))),
+        "Binomial": (D.Binomial(10, c(0.3)), 3.0, 2.1),
+        "Multinomial": (D.Multinomial(8, c(p3)), 8 * p3, 8 * p3 * (1 - p3)),
+    }
+    moments, ok = {}, True
+    for name, (d, mean, var) in cases.items():
+        x = d.sample((n,))._data
+        good, got = _moments_within(x, mean, var)
+        moments[name] = dict(ok=good, mean_var=got, sample_ms=_card_ms(
+            CARD, lambda: d.sample((n,)), iters=3))
+        ok = ok and good
+    rec.update(moments=moments, moments_ok=ok, draws=n)
+    _fresh_card()
+    return rec
+
+
+def _qat_config():
+    from paddle_tpu_torch import quantization as Q
+    q = Q.FakeQuanterWithAbsMaxObserver(moving_rate=0.9)
+    return Q.QAT(Q.QuantConfig(activation=q, weight=q))
+
+
+def _quanters(model):
+    from paddle_tpu_torch.quantization import \
+        FakeQuanterWithAbsMaxObserverLayer as Q
+    return [m for m in model.modules() if isinstance(m, Q)]
+
+
+def _scales(model):
+    import torch
+    return torch.cat([q._parameters["scale"].detach().clone()
+                      for q in _quanters(model)])
+
+
+def _qat_card_vs_cpu(seed=47) -> dict:
+    """32e's card-vs-CPU check at batch 4 x 224^2 in f32 (dropout 0,
+    TF32 off), from one state. Each quanter of the CPU's first QAT step
+    is held to a fresh quanter on the card fed the CPU's own input: the
+    same scale, and the same fake-quantized values but where x / s * 127
+    lies within float rounding of k + 0.5, which may land one step
+    (s / 127) apart. The whole step's loss on each device: within
+    QAT_LOSS_TOL."""
+    import torch
+
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.quantization import \
+        FakeQuanterWithAbsMaxObserverLayer as Quanter
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+    cpu = mobilenet_v2(device="cpu", seed=seed)
+    card = mobilenet_v2(device=CARD, seed=seed)
+    card.load_state_dict(cpu.state_dict())
+    x, y = _images(QAT_SUB_BATCH, QAT_SUB_HW, seed, channels_last=False)
+    seen, losses, models = [], {}, {}
+    for name, m, dev in (("card", card, CARD), ("cpu", cpu, "cpu")):
+        m.classifier[0].p = 0.0
+        m = _qat_config().quantize(m)
+        m.train()
+        hooks = [q.register_forward_hook(
+            lambda mod, inp, out: seen.append((inp[0].detach(),
+                                               out.detach())))
+            for q in _quanters(m)] if name == "cpu" else []
+        losses[name] = float(F.cross_entropy(m(x.to(dev)), y.to(dev)))
+        for h in hooks:
+            h.remove()
+        models[name] = m
+    scales_cpu = _scales(models["cpu"])
+    same_scale, flips, off = 0, 0, 0
+    for (inp, want), s_cpu in zip(seen, scales_cpu):
+        q = Quanter(device=CARD)
+        q.train()
+        got = q(inp.to(CARD)).cpu()
+        s = q._parameters["scale"].detach().cpu()[0]
+        same_scale += int(s == s_cpu)
+        bad = got != want
+        pos = inp[bad].double() / float(s_cpu) * 127
+        near_half = ((pos - torch.floor(pos)) - 0.5).abs() <= 1e-5 * (
+            pos.abs() + 1)
+        one_step = (got[bad] - want[bad]).abs() <= s_cpu / 127 * 1.0001
+        flips += int(bad.sum())
+        off += int((~(near_half & one_step)).sum())
+    sc = _scales(models["card"]).cpu()
+    return dict(loss=losses["card"], loss_cpu=losses["cpu"],
+                loss_rel_err=abs(losses["card"] - losses["cpu"])
+                / abs(losses["cpu"]),
+                quanters=len(seen), same_scale_from_cpu_input=same_scale,
+                flips=flips, flips_off_rule=off,
+                end_to_end_scales_equal=int((sc == scales_cpu).sum()),
+                end_to_end_scale_max_rel_err=float(
+                    ((sc - scales_cpu).abs() / scales_cpu).max()))
+
+
+def _qat_phase() -> dict:
+    """Phase 32e: mobilenet_v2 at phase 29's recipe (b256 x 224^2, bf16
+    O1, Momentum) with every Conv2D and Linear fake-quantized: eager
+    steps (the observers move), TrainStep's graph (they do not), then
+    convert; and the card-vs-CPU step."""
+    import torch
+
+    from paddle_tpu_torch.nn.layers import Conv2D, Linear
+    from paddle_tpu_torch.quantization import QuantedLayer
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+    held = _fresh_card()
+    model = mobilenet_v2(device=CARD, seed=0)
+    n_layers = sum(isinstance(m, (Conv2D, Linear)) for m in model.modules())
+    qat = _qat_config()
+    model = qat.quantize(model)
+    wrapped = sum(isinstance(m, QuantedLayer) for m in model.modules())
+    model, step = _qat_train(model)
+    x, y = _images(RESNET_BATCH, RESNET_HW, 48, channels_last=False)
+    opt = step.optimizer
+    s0 = _scales(model)
+    eager_ms = []
+    for _ in range(QAT_EAGER_STEPS):
+        t0 = time.perf_counter()
+        loss = step.loss_fn(model, x, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        _sync()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    # the last eager step's graph must not live into the capture (its
+    # AccumulateGrad nodes are on the default stream)
+    del loss
+    s1 = _scales(model)
+    losses = [step(x, y) for _ in range(QAT_GRAPH_CALLS)]
+    _sync()
+    s2 = _scales(model)
+    graph_ms = _card_ms(CARD, lambda: step(x, y), iters=3)
+    s3 = _scales(model)
+    peak = _peak_gib(held)
+    model.eval()
+    with torch.no_grad():
+        xe = x[:32]
+        qat_logits = model(xe).float()
+        # the same weights without the activation quanters
+        wrappers = [m for m in model.modules()
+                    if isinstance(m, QuantedLayer)]
+        acts = [m.activation_quanter for m in wrappers]
+        for m in wrappers:
+            m.activation_quanter = None
+        weight_only = model(xe).float()
+        for m, a in zip(wrappers, acts):
+            m.activation_quanter = a
+        conv = qat.convert(model)
+        conv_logits = conv(xe).float()
+    distinct = max(int(torch.unique(m._parameters["weight"]).numel())
+                   for m in conv.modules() if isinstance(m, (Conv2D,
+                                                            Linear)))
+    rec = dict(
+        layers=n_layers, wrapped=wrapped, quanters=len(s0),
+        eager_moved=int((s1 != s0).sum()),
+        graph_moved=int((s2 != s1).sum() + (s3 != s2).sum()),
+        losses=[float(v) for v in losses],
+        eager_step_ms=eager_ms, graph_step_ms=graph_ms, peak_gib=peak,
+        converted_unwrapped=not any(isinstance(m, QuantedLayer)
+                                    for m in conv.modules()),
+        max_distinct_weight_values=distinct,
+        convert_vs_weight_only_rel_err=_rel_err(conv_logits, weight_only),
+        convert_vs_qat_rel_l2=float((conv_logits - qat_logits).norm()
+                                    / qat_logits.norm()),
+        convert_vs_qat_top1=float((conv_logits.argmax(-1)
+                                   == qat_logits.argmax(-1)).float()
+                                  .mean()))
+    del model, step, conv
+    _fresh_card()
+    with _f32_exact():
+        rec["card_vs_cpu"] = _qat_card_vs_cpu()
+    _fresh_card()
+    return rec
+
+
+def _qat_train(model):
+    """The TrainStep of phase 29's recipe over an already built (and
+    quantized) model."""
+    from paddle_tpu_torch import TrainStep
+    from paddle_tpu_torch import amp as tamp
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import optimizers
+    model.train()
+    opt = optimizers.Momentum(learning_rate=0.1, momentum=0.9,
+                              weight_decay=1e-4,
+                              parameters=model.parameters())
+
+    def loss_fn(m, x, y):
+        with tamp.auto_cast(enable=True, level="O1", dtype="bfloat16"):
+            logits = m(x)
+        return F.cross_entropy(logits, y)
+
+    return model, TrainStep(model, opt, loss_fn)
+
+
+def opsurf_phase(eager) -> dict:
+    """Phase 32: the op surfaces' cases of phase 22's sweep, then 32a-32e
+    at their users' sizes, each held to the CPU on the same inputs."""
+    sweep = eager["sweep"]
+    cases = sweep["opsurf_cases"]
+    _check("[opsurf] sweep:", {
+        f"the {len(cases)} op-surface cases agree with the CPU (phase 22)":
+            bool(cases) and not sweep["opsurf_failures"],
+    }, cases)
+    card = card_line()
+    t0 = time.perf_counter()
+    _fresh_card()
+    audio = _audio_front_end()
+    _check("[opsurf] 32a audio:", {
+        f"log-mel [{AUDIO_CLIPS}, {AUDIO['n_mels']}, "
+        f"{audio['frames']}] within {AUDIO_DB_TOL} dB of the CPU":
+            audio["shape"] == [AUDIO_CLIPS, AUDIO["n_mels"],
+                               audio["frames"]]
+            and audio["logmel_max_abs_db"] <= AUDIO_DB_TOL,
+        "MFCC within 1e-4 of the CPU's largest": audio["mfcc_rel_err"]
+            <= 1e-4,
+        "istft(stft(x), length) within 1e-5 of x":
+            audio["roundtrip_max_abs_err"] <= 1e-5,
+        "stft's gradient within 1e-4 of the CPU's": audio["grad_rel_err"]
+            <= 1e-4,
+        "the features record no gradient": audio["features_record_no_grad"],
+    }, audio)
+    _fresh_card()
+    graph = _graph_phase()
+    _check("[opsurf] 32b graph:", {
+        f"GraphSAGE logits and gradients within {GRAPH_TOL:g} of the CPU":
+            graph["logits_rel_err"] <= GRAPH_TOL
+            and graph["grad_rel_err"] <= GRAPH_TOL,
+        "send_u_recv max equal to the CPU's": graph["max_equal"],
+        "send_uv equal, sum and send_ue_recv within 1e-5":
+            graph["uv_equal"] and graph["sum_rel_err"] <= 1e-5
+            and graph["ue_rel_err"] <= 1e-5,
+        "samples, counts and reindexing equal to the CPU's":
+            graph["samples_equal"],
+        "each sample holds the rule": graph["samples_hold_rule"],
+    }, graph)
+    _fresh_card()
+    sp = _sparse_phase()
+    _check("[opsurf] 32c sparse:", {
+        "submanifold convs keep the input's sites": sp["subm_keeps_sites"],
+        "the regular conv's sites by the reach rule":
+            sp["conv_sites_by_rule"],
+        "every weight's gradient finite and nonzero":
+            sp["grads_finite_nonzero"],
+        f"the cut stage's sites equal and values within {SPARSE_TOL:g} of "
+        "the CPU (TF32 off)": sp["cut"]["indices_equal"]
+            and sp["cut"]["out_rel_err"] <= SPARSE_TOL
+            and sp["cut"]["grad_rel_err"] <= SPARSE_TOL,
+        "A_norm @ X within 1e-5 of send_u_recv's mean":
+            sp["adjacency"]["rel_err_vs_mean"] <= 1e-5,
+        "band attention within 1e-4 of SDPA and of the CPU":
+            sp["attention"]["rel_err_vs_sdpa"] <= 1e-4
+            and sp["attention"]["rel_err_vs_cpu"] <= 1e-4,
+    }, sp)
+    _fresh_card()
+    dist = _distribution_phase()
+    _check("[opsurf] 32d distributions:", {
+        "PPO heads' values and gradients within 1e-5 of the CPU":
+            dist["values_rel_err"] <= 1e-5 and dist["grad_rel_err"] <= 1e-5
+            and abs(dist["loss"] - dist["loss_cpu"]) <= 1e-5 * max(
+                1.0, abs(dist["loss_cpu"])),
+        "categorical draws in range": dist["cat_sample_ok"],
+        "rsample's gradients the reparameterised ones within 1e-5":
+            dist["rsample_grad_err"] <= 1e-5,
+        f"moments of {DIST_DRAWS} draws within 6 standard errors":
+            dist["moments_ok"],
+    }, dist)
+    qat = _qat_phase()
+    cvc = qat["card_vs_cpu"]
+    _check("[opsurf] 32e QAT:", {
+        "every Conv2D and Linear wrapped": qat["wrapped"] == qat["layers"],
+        "the eager steps move the observers": qat["eager_moved"] > 0,
+        "TrainStep's graph leaves them": qat["graph_moved"] == 0,
+        "converted weights take at most 255 values":
+            qat["converted_unwrapped"]
+            and qat["max_distinct_weight_values"] <= 255,
+        # convert drops the activation quanters (as the reference's
+        # does): its logits are the QAT model's with those off
+        "converted logits equal the QAT model's without activation "
+        "quanters within 1e-3": qat["convert_vs_weight_only_rel_err"]
+            <= 1e-3,
+        "card vs CPU: each quanter's scale equal and its values equal "
+        "but for one-step flips at k + 0.5, the loss within "
+        f"{QAT_LOSS_TOL:g}": cvc["same_scale_from_cpu_input"]
+            == cvc["quanters"] and cvc["flips_off_rule"] == 0
+            and cvc["loss_rel_err"] <= QAT_LOSS_TOL,
+    }, qat)
+    secs = time.perf_counter() - t0
+    ms = dict(audio=audio["ms"], graph=graph["ms"],
+              second_stage=sp["stage_ms"],
+              second_stage_no_tf32=sp["stage_ms_no_tf32"],
+              adjacency_spmm=sp["adjacency"]["ms"],
+              band_attention=sp["attention"]["ms"],
+              band_sdpa=sp["attention"]["sdpa_ms"], distributions=dist["ms"],
+              qat_graph_step=qat["graph_step_ms"],
+              qat_eager_step=qat["eager_step_ms"])
+    log(f"[opsurf] phase 32 on {card} took {secs:.1f} s; ms by CUDA events: "
+        + json.dumps(ms))
+    return dict(card=card, seconds=secs, sweep_cases=cases, audio=audio,
+                graph=graph, sparse=sp, distributions=dist, qat=qat)
+
+
 def main() -> int:
     try:
         import torch
@@ -7475,6 +8346,7 @@ def main() -> int:
     mobilenet = mobilenet_phase()
     detection = detection_phase(eager)
     incubate = incubate_phase(eager)
+    opsurf = opsurf_phase(eager)
     EAGER_GPT.clear()       # phases 23d and 28 read phase 22's GPT
     runs_17_18 =(("llama13b", train_llama["no_recompute"]),
                   ("llama13b_recompute", train_llama["recompute"]),
@@ -7693,6 +8565,7 @@ def main() -> int:
     log("[train-mobilenet_v2] " + json.dumps(mobilenet))
     log("[detect] " + json.dumps(detection))
     log("[incubate] " + json.dumps(incubate))
+    log("[opsurf] " + json.dumps(opsurf))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@ The eager API (``Tensor``, ``to_tensor``, the registered ops, autograd,
 ``seed``, places, ``nn.Layer`` / ``nn.Parameter`` / ``nn.ParamAttr``,
 ``save`` / ``load``, ``io``'s datasets and DataLoader, ``jit``'s
 to_static / save / load, ``inference``'s Predictor, ``metric``,
-``utils``, ``callbacks``, ``Model`` and ``summary``) keeps the
+``utils``, ``callbacks``, ``Model`` and ``summary``; ``distribution``,
+and lazily, as the reference resolves them, ``fft``, ``signal``,
+``sparse``, ``geometric``, ``quantization`` and ``audio``) keeps the
 reference's root names, so one eager script runs on either package by
 swapping the import. Its default place
 is the card; ``set_device("cpu")`` asks for the CPU. The port's models
@@ -22,8 +24,8 @@ is the card; ``set_device("cpu")`` asks for the CPU. The port's models
 torch ``nn.Module``s whose children are ``Layer``s."""
 # the op registry first: nn.functional registers its ops in it
 from . import core, ops  # noqa: I001
-from . import (amp, autograd, distributed, framework_io, incubate,
-               inference, io, jit, kernels, models, nn, optimizer,
+from . import (amp, autograd, distributed, distribution, framework_io,
+               incubate, inference, io, jit, kernels, models, nn, optimizer,
                resilience, vision)
 from . import callbacks, metric, tensor_array, utils
 from .convert import (bert_params_from_numpy, fused_params_from_numpy,
@@ -55,8 +57,9 @@ from .models import (BertConfig, BertForMaskedLM, GPTConfig, GPTForCausalLM,
                      GPTPretrainingCriterion, LlamaConfig, LlamaForCausalLM,
                      generate)
 
-__all__ = ["amp", "core", "distributed", "incubate", "inference", "jit",
-           "kernels", "models", "nn", "optimizer", "resilience", "vision",
+__all__ = ["amp", "core", "distributed", "distribution", "incubate",
+           "inference", "jit", "kernels", "models", "nn", "optimizer",
+           "resilience", "vision",
            "bert_params_from_numpy", "fused_params_from_numpy",
            "gpt_params_from_numpy", "llama_params_from_numpy",
            "optimizer_state_from_numpy", "resnet_params_from_numpy",
@@ -74,3 +77,18 @@ __all__ = ["amp", "core", "distributed", "incubate", "inference", "jit",
            "io", "callbacks", "metric", "utils", "Model", "summary",
            "tensor_array", "create_array", "array_write", "array_read",
            "array_length", "vision_params_from_numpy"]
+
+
+_LAZY = ("fft", "signal", "sparse", "geometric", "quantization", "audio")
+
+
+def __getattr__(name):
+    # the op surfaces resolved at first use, as the reference's root
+    # resolves them
+    if name in _LAZY:
+        import importlib
+        mod = importlib.import_module("." + name, __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module 'paddle_tpu_torch' has no attribute "
+                         f"{name!r}")

@@ -281,6 +281,23 @@ class Tensor:
         from ..ops import assign
         return assign(self)
 
+    def to_sparse_coo(self, sparse_dim=None):
+        """The nonzero sites as a SparseCooTensor (row-major); with
+        sparse_dim below the rank a hybrid COO: indices over the leading
+        sparse_dim dims, values keeping the trailing ones."""
+        from ..sparse import _dense_to_coo
+        nd = self._data.dim()
+        if sparse_dim is not None and not 1 <= int(sparse_dim) <= nd:
+            raise ValueError(
+                f"to_sparse_coo: sparse_dim must be in [1, {nd}], "
+                f"got {sparse_dim}")
+        return _dense_to_coo(self._data, sparse_dim)
+
+    def to_sparse_csr(self):
+        """A 2-D Tensor as a SparseCsrTensor."""
+        from ..sparse import _dense_to_csr
+        return _dense_to_csr(self._data)
+
     def to(self, *args, **kwargs):
         """to(dtype) / to(place or device string) / to(place, dtype),
         recorded: the gradient flows back through a move or a cast."""

@@ -76,6 +76,17 @@ __all__ = ["InputSpec", "StaticFunction", "to_static", "GraphBreakFunction",
            "not_to_static", "ignore_module", "TrainStep", "save", "load",
            "TranslatedLayer"]
 
+# TrainSteps whose step body is running (eager or being captured): an
+# observer (quantization's abs-max quanters) updates only outside one,
+# as the reference's updates only outside a trace
+_STEPPING = [0]
+
+
+def in_train_step() -> bool:
+    """True while a TrainStep's step body runs on this process."""
+    return _STEPPING[0] > 0
+
+
 # the .pdmodel format of this package's programs (the reference's is
 # its StableHLO format, which load refuses)
 FORMAT = "paddle_tpu_torch.export.v1"
@@ -695,12 +706,17 @@ class TrainStep:
         masters; the buffers put back as they were."""
         opt = self.optimizer
         held = [b.detach().clone() for b in self._buffers]
-        with record_function("TrainStep.forward"):
-            if self.loss_fn is None:
-                loss = self.model(*args, **kwargs)
-            else:
-                loss = self.loss_fn(self.model, *args, **kwargs)
-        grads = torch.autograd.grad(loss, self._params, allow_unused=True)
+        _STEPPING[0] += 1
+        try:
+            with record_function("TrainStep.forward"):
+                if self.loss_fn is None:
+                    loss = self.model(*args, **kwargs)
+                else:
+                    loss = self.loss_fn(self.model, *args, **kwargs)
+            grads = torch.autograd.grad(loss, self._params,
+                                        allow_unused=True)
+        finally:
+            _STEPPING[0] -= 1
         group = opt._param_groups[0] if opt._param_groups else {}
         with torch.no_grad(), record_function("TrainStep.update"):
             # an unused parameter gets a zero gradient, as jax.grad gives

@@ -8,8 +8,7 @@ YAML files (``_yaml_ops.py``, the reference's snapshot) maps to one of
 - a documented exclusion with its reason,
 
 or it is unmapped: its reference counterpart lives in a module the port
-has not ported yet (sparse, fft and signal, geometric, distribution,
-the collectives). An alias counts only where
+has not ported yet (the collectives). An alias counts only where
 its path resolves in the port, so the unmapped list shrinks as modules
 are ported (tests/test_torch_parity.py holds it).
 """
@@ -263,7 +262,9 @@ def classify():
     YAML ops that map to none of them in the port (an alias whose path
     does not resolve yet among them)."""
     for m in ("paddle_tpu_torch", "paddle_tpu_torch.vision",
-              "paddle_tpu_torch.incubate.nn.functional"):
+              "paddle_tpu_torch.incubate.nn.functional",
+              "paddle_tpu_torch.fft", "paddle_tpu_torch.signal",
+              "paddle_tpu_torch.geometric", "paddle_tpu_torch.quantization"):
         importlib.import_module(m)
     from .registry import OPS
     where = {}

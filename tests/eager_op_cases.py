@@ -1192,6 +1192,133 @@ INCUBATE_CASES = [c[0] for c in CASES[_INC_FIRST:]]
 
 
 # ---------------------------------------------------------------------------
+# the op surfaces' registered ops: fft, signal, geometric's message
+# passing and segment pools, quantization's fake quant (OPSURF_CASES
+# names them for chip_smoke.py's phase 32)
+# ---------------------------------------------------------------------------
+_OS_FIRST = len(CASES)
+_NORMS = ("backward", "ortho", "forward")
+
+
+def _cplx(*shape):
+    return (f32(*shape) + 1j * f32(*shape)).astype(np.complex64)
+
+
+# each op under one norm, the norms in turn (each reference call compiles)
+for _i, _op in enumerate(("fft", "ifft", "rfft", "ihfft", "fft2", "ifft2",
+                          "rfft2", "ihfft2", "fftn", "ifftn", "rfftn",
+                          "ihfftn")):
+    case(f"fft_{_op}", lambda P, T, op=_op, nm=_NORMS[_i % 3]: getattr(
+        P.fft, op)(T(f32(3, 10)), norm=nm), tol=1e-5)
+for _i, _op in enumerate(("hfft", "irfft", "hfft2", "irfft2", "hfftn",
+                          "irfftn")):
+    case(f"fft_{_op}", lambda P, T, op=_op, nm=_NORMS[_i % 3]: getattr(
+        P.fft, op)(T(_cplx(3, 9)), norm=nm), tol=1e-5)
+case("fft_sizes_axes", lambda P, T: (
+    P.fft.fft(T(f32(4, 6)), n=9, axis=0),
+    P.fft.rfft(T(f32(4, 6)), n=4),
+    P.fft.irfft(T(_cplx(4, 5)), n=7, axis=0),
+    P.fft.fftn(T(f32(2, 3, 4)), s=(5, 4), axes=(0, 2)),
+    P.fft.rfft2(T(f32(2, 3, 4)), s=(4, 6)),
+    P.fft.hfftn(T(_cplx(2, 3, 4)), s=(3, 6), axes=(0, 2)),
+    P.fft.ihfft2(T(f32(2, 3, 4)), s=(3, 5), norm="ortho")), tol=1e-5)
+# half precision promoted to complex64 / float32 (the reference's rfft
+# family raises on it instead: tests/test_torch_fft_signal.py)
+case("fft_half_precision", lambda P, T: (
+    P.fft.fft(T(f32(2, 16)).astype("float16")),
+    P.fft.fftn(T(f32(2, 12)).astype("bfloat16")),
+    P.fft.irfft(T(f32(2, 9)).astype("float16")),
+    P.fft.hfft(T(f32(2, 9)).astype("bfloat16"))), tol=1e-5)
+case("fft_grads", lambda P, T: (
+    P.fft.rfft(T(f32(3, 10)), norm="ortho").abs(),
+    P.fft.fft2(T(f32(2, 3, 4))).abs(),
+    P.fft.ihfftn(T(f32(2, 5))).abs(),
+    P.fft.hfft(P.fft.rfft(T(f32(2, 6)))),
+    P.fft.irfftn(P.fft.rfftn(T(f32(2, 4, 6))), s=(4, 6))), tol=1e-5,
+    grad_tol=1e-4)
+case("fft_freq_shift", lambda P, T: (
+    P.fft.fftfreq(8, d=0.5), P.fft.rfftfreq(9, d=2.0),
+    P.fft.fftfreq(7, dtype="float64"),
+    P.fft.fftshift(T(f32(4, 5))), P.fft.fftshift(T(f32(4, 5)), axes=1),
+    P.fft.ifftshift(T(f32(4, 5))),
+    P.fft.ifftshift(T(f32(3, 4)), axes=[0])), tol=1e-6)
+case("signal_frame", lambda P, T: (
+    P.signal.frame(T(f32(2, 20)), 6, 3), P.signal.frame(T(f32(20)), 5, 5),
+    P.signal.frame(T(f32(20, 3)), 4, 2, axis=0)), tol=1e-6)
+case("signal_overlap_add", lambda P, T: (
+    P.signal.overlap_add(T(f32(2, 6, 5)), 3),
+    P.signal.overlap_add(T(f32(6, 4)), 2),
+    P.signal.overlap_add(T(f32(5, 6, 3)), 4, axis=0)), tol=1e-6)
+
+
+def _stft_cases(P, T):
+    sig, w = T(f32(2, 200)), T(pos(48))
+    return (P.signal.stft(sig, 64, 16, win_length=48, window=w,
+                          normalized=True).abs(),
+            P.signal.stft(T(f32(150)), 32, 20, center=False,
+                          pad_mode="constant").abs(),
+            P.signal.stft(T(_cplx(2, 100)), 32, 8, onesided=False).abs())
+
+
+def _istft_cases(P, T):
+    spec = P.signal.stft(T(f32(2, 200)), 64, 16)
+    w = T(pos(64), grad=False)
+    return (P.signal.istft(spec, 64, 16, window=w, length=190),
+            P.signal.istft(spec, 64, 16, length=230, normalized=True),
+            P.signal.istft(P.signal.stft(T(f32(120)), 32, 8, center=False),
+                           32, 8, center=False))
+
+
+case("signal_stft", _stft_cases, tol=1e-5, grad_tol=1e-4)
+case("signal_istft", _istft_cases, tol=1e-5, grad_tol=1e-4)
+
+_SRC = [0, 1, 2, 3, 0, 2, 4, 1, 3, 4, 2]
+_DST = [1, 2, 0, 0, 3, 3, 0, 4, 2, 1, 0]
+
+
+def _send_u_recv(P, T):
+    x = T(f32(5, 3))
+    src, dst = T(ints(*_SRC)), T(ints(*_DST))
+    return [P.geometric.send_u_recv(x, src, dst, op, out_size=n)
+            for op in ("sum", "mean", "max", "min") for n in (None, 6)]
+
+
+def _send_ue_recv(P, T):
+    x, e, e1 = T(f32(5, 3)), T(f32(11, 3)), T(pos(11))
+    src, dst = T(ints(*_SRC)), T(ints(*_DST))
+    G = P.geometric
+    return ([G.send_ue_recv(x, e, src, dst, cop, "sum")
+             for cop in ("add", "sub", "mul", "div")]
+            + [G.send_ue_recv(x, e1, src, dst, "mul", rop, out_size=6)
+               for rop in ("mean", "max", "min")])
+
+
+def _send_uv(P, T):
+    x, y = T(f32(5, 3)), T(pos(5, 3))
+    src, dst = T(ints(*_SRC)), T(ints(*_DST))
+    return [P.geometric.send_uv(x, y, src, dst, op)
+            for op in ("add", "sub", "mul", "div")]
+
+
+def _segment_pool(P, T):
+    x, ids = T(f32(7, 3)), T(ints(0, 0, 1, 3, 3, 3, 4))
+    G = P.geometric
+    return (G.segment_sum(x, ids), G.segment_max(x, ids),
+            G.segment_min(x, ids), G.segment_pool(x, ids, "AVG", out_size=6))
+
+
+case("send_u_recv", _send_u_recv, tol=1e-6)
+case("send_ue_recv", _send_ue_recv, tol=1e-5, grad_tol=1e-4)
+case("send_uv", _send_uv, tol=1e-6, grad_tol=1e-5)
+case("segment_pool", _segment_pool, tol=1e-6)
+case("fake_quantize_dequantize_moving_average_abs_max", lambda P, T: (
+    P.quantization._fake_quant_op(T(f32(4, 6) * 2), T(np.float32(1.1))),
+    P.quantization._fake_quant_op(T(f32(3, 5)), T(np.float32(0.7)),
+                                  bit_length=4)), tol=1e-6)
+OPSURF_CASES = [c[0] for c in CASES[_OS_FIRST:]]
+
+
+# ---------------------------------------------------------------------------
 # running a case
 # ---------------------------------------------------------------------------
 def flat_outputs(out):

@@ -244,6 +244,21 @@ PORTED_MODULES = {
     "paddle_tpu.incubate.optimizer": ("paddle_tpu_torch.incubate.optimizer",
                                       set()),
     "paddle_tpu.incubate.asp": ("paddle_tpu_torch.incubate.asp", set()),
+    # the op surfaces and audio (ROADMAP item 25's next part)
+    "paddle_tpu.fft": ("paddle_tpu_torch.fft", set()),
+    "paddle_tpu.signal": ("paddle_tpu_torch.signal", set()),
+    "paddle_tpu.sparse": ("paddle_tpu_torch.sparse", set()),
+    "paddle_tpu.sparse.nn": ("paddle_tpu_torch.sparse.nn", set()),
+    "paddle_tpu.sparse.nn.functional": (
+        "paddle_tpu_torch.sparse.nn.functional", set()),
+    "paddle_tpu.distribution": ("paddle_tpu_torch.distribution", set()),
+    "paddle_tpu.geometric": ("paddle_tpu_torch.geometric", set()),
+    "paddle_tpu.quantization": ("paddle_tpu_torch.quantization", set()),
+    "paddle_tpu.audio": ("paddle_tpu_torch.audio", set()),
+    "paddle_tpu.audio.functional": ("paddle_tpu_torch.audio.functional",
+                                    set()),
+    "paddle_tpu.audio.features": ("paddle_tpu_torch.audio.features", set()),
+    "paddle_tpu.audio.datasets": ("paddle_tpu_torch.audio.datasets", set()),
 }
 
 

@@ -36,13 +36,22 @@ def _close(got, want, tol, what):
 
 
 # the long-tail cases run in tests/test_torch_longtail.py, incubate's in
-# tests/test_torch_incubate_functional.py
+# tests/test_torch_incubate_functional.py, the op surfaces' in
+# tests/test_torch_fft_signal.py, test_torch_geometric.py and
+# test_torch_quantization.py
 _CASES = [c for c in C.CASES
-          if c[0] not in set(C.LONGTAIL_CASES) | set(C.INCUBATE_CASES)]
+          if c[0] not in set(C.LONGTAIL_CASES) | set(C.INCUBATE_CASES)
+          | set(C.OPSURF_CASES)]
 
 
 @pytest.mark.parametrize("name,fn,opts", _CASES, ids=[c[0] for c in _CASES])
 def test_op_matches_reference(name, fn, opts):
+    check_case(name, fn, opts)
+
+
+def check_case(name, fn, opts):
+    """One case of eager_op_cases.py on both packages, held by this
+    file's rule."""
     grad = opts.get("grad", True)
     got, got_g = C.run_case(ptt, fn, grad=grad)
     want, want_g = C.run_case(pt, fn, grad=grad)

@@ -2,7 +2,9 @@
 paddle_tpu (chip_smoke.py neither), serving GPT and LLaMA, training (a
 ResNet too), the fused incubate ops, the input path (io, the vision
 transforms and datasets, the DataLoader's spawned workers), the vision
-zoo, vision.ops, the op-parity audit and TensorArray included, and
+zoo, vision.ops, the op-parity audit, TensorArray and the op surfaces
+(fft, signal, sparse, distribution, geometric, quantization, audio)
+included, and
 its entry points run on the CUDA card unless the caller asks for the
 CPU."""
 import os
@@ -93,6 +95,17 @@ arr = paddle_tpu_torch.create_array()
 paddle_tpu_torch.array_write(paddle_tpu_torch.to_tensor([1.0]), 0, arr)
 assert int(paddle_tpu_torch.array_length(arr).numpy()) == 1
 assert parity.classify()[0]
+from paddle_tpu_torch import (audio, distribution, fft, geometric,
+                              quantization, signal, sparse)
+x = paddle_tpu_torch.to_tensor(np.random.default_rng(0).standard_normal(
+    (2, 1024)).astype(np.float32))
+assert audio.MFCC(sr=16000, n_fft=256, device="cpu")(x).shape[1] == 40
+assert fft.rfft(x).shape == [2, 513] and signal.frame(x, 64, 32).shape[0] == 2
+assert float(distribution.Normal(0.0, 1.0).entropy()) > 1.4
+src = paddle_tpu_torch.to_tensor(np.array([0, 1], np.int32))
+assert geometric.send_u_recv(x, src, src).shape == [2, 1024]
+assert sparse.matmul(x.to_sparse_coo(), x.t()).shape == [2, 2]
+assert quantization.quantize_linear(x, 1.0).dtype == paddle_tpu_torch.int8
 bad = [k for k in sys.modules
        if k == "jax" or k.startswith("jax.") or k == "paddle_tpu"
        or k.startswith("paddle_tpu.")]
@@ -167,3 +180,58 @@ def test_entry_points_need_cuda_unless_cpu_requested():
         made = make(device="cpu")
         assert {p.device.type for p in torch.nn.Module.parameters(made)} \
             == {"cpu"}
+
+
+def test_opsurf_creation_needs_cuda_unless_cpu():
+    """The op surfaces' creation entry points (the sparse constructors,
+    the distributions' parameters, the audio matrices and feature layers'
+    buffers, the quanters' parameters, fftfreq) put their results on the
+    eager default place: the card, which raises without one, unless the
+    CPU is asked for (``place=`` / ``device=`` "cpu", or
+    ``set_device("cpu")``)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is valid here")
+    from paddle_tpu_torch import (audio, distribution, fft, quantization,
+                                  sparse)
+    from torch_port_helpers import cpu_place
+    idx, vals = np.array([[0, 1]]), np.ones(2, np.float32)
+    # each gives a torch tensor it made, on `place` (None: the default)
+    makers = [
+        lambda place=None: sparse.sparse_coo_tensor(
+            idx, vals, place=place)._vals,
+        lambda place=None: sparse.sparse_csr_tensor(
+            [0, 1, 2], [1, 0], vals, [2, 2], place=place)._vals,
+        lambda place=None: audio.functional.get_window(
+            "hann", 8, device=place)._data,
+        lambda place=None: audio.functional.compute_fbank_matrix(
+            16000, 64, 8, device=place)._data,
+        lambda place=None: next(torch.nn.Module.buffers(
+            audio.MelSpectrogram(n_fft=64, n_mels=8, device=place)))]
+    for make in makers:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        assert make("cpu").device.type == "cpu"
+    for make in (lambda: distribution.Normal(0.0, 1.0).loc,
+                 lambda: fft.fftfreq(8)._data,
+                 lambda: quantization.FakeQuanterWithAbsMaxObserverLayer()
+                 ._parameters["scale"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        with cpu_place():
+            assert make().device.type == "cpu"
+
+
+def test_chip_smoke_defines_each_name_once():
+    """chip_smoke.py is one long module of phases: a helper defined twice
+    silently replaces the first for every earlier phase."""
+    import ast
+    from collections import Counter
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = Counter()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names[node.name] += 1
+        elif isinstance(node, ast.Assign):
+            names.update(e.id for t in node.targets for e in ast.walk(t)
+                         if isinstance(e, ast.Name))
+    assert not sorted(n for n, k in names.items() if k > 1)

@@ -12,18 +12,12 @@ from paddle_tpu_torch.ops import parity as tparity
 from test_torch_nn_clip import PORTED_MODULES
 
 # the YAML ops whose reference counterpart is in a module still to port:
-# the collectives (distributed), distribution, fft and signal, geometric,
-# sparse
+# the collectives (distributed)
 STILL_UNMAPPED = {
-    "all_gather", "all_reduce", "all_to_all", "binomial", "broadcast",
-    "c_allgather", "c_allreduce_max", "c_allreduce_sum", "c_broadcast",
-    "c_concat", "c_embedding", "c_identity", "c_reduce_sum", "coalesce",
-    "dirichlet", "dist_concat", "fft_c2c", "fft_c2r", "fft_r2c", "frame",
-    "masked_matmul", "maxpool", "overlap_add", "p_recv", "p_recv_array",
-    "reduce", "reduce_scatter", "reindex_graph", "segment_pool",
-    "send_u_recv", "send_ue_recv", "send_uv", "sparse_coo_tensor",
-    "to_dense", "to_sparse_coo", "to_sparse_csr", "values",
-    "weighted_sample_neighbors"}
+    "all_gather", "all_reduce", "all_to_all", "broadcast", "c_allgather",
+    "c_allreduce_max", "c_allreduce_sum", "c_broadcast", "c_concat",
+    "c_embedding", "c_identity", "c_reduce_sum", "dist_concat", "p_recv",
+    "p_recv_array", "reduce", "reduce_scatter"}
 
 
 def _reference_module(name, table):

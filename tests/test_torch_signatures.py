@@ -411,3 +411,65 @@ def test_incubate_name_matches_the_reference(module, name):
             if isinstance(p.default, type) and p.default.__module__
             .startswith("jax") else p for p in ref.parameters.values()])
         _check_sigs(port, ref)
+
+
+# the op surfaces and audio: fft, signal, sparse (with nn and
+# nn.functional), distribution, geometric, quantization and audio's
+# functional, features and datasets
+OPSURF_MODULES = ("fft", "signal", "sparse", "sparse.nn",
+                  "sparse.nn.functional", "distribution", "geometric",
+                  "quantization", "audio.functional", "audio.features",
+                  "audio.datasets")
+# the sparse tensors' constructors take the reference's JAX storage (a
+# BCOO / BCSR); the port's take torch tensors (indices, values, shape)
+OPSURF_SKIP = {("sparse", "SparseCooTensor", "__init__"),
+               ("sparse", "SparseCsrTensor", "__init__")}
+
+
+def _opsurf_names():
+    import importlib
+    out = []
+    for mod in OPSURF_MODULES:
+        ref = importlib.import_module(f"paddle_tpu.{mod}")
+        for n in sorted(vars(ref)):
+            v = getattr(ref, n)
+            if not n.startswith("_") and callable(v) and getattr(
+                    v, "__module__", None) == ref.__name__:
+                out.append((mod, n))
+    return out
+
+
+OPSURF_NAMES = _opsurf_names()
+
+
+def test_every_opsurf_name_is_checked():
+    names = {n for _, n in OPSURF_NAMES}
+    assert {"stft", "istft", "fft", "hfftn", "Normal", "Binomial",
+            "StickBreakingTransform", "kl_divergence", "send_u_recv",
+            "reindex_graph", "SparseCooTensor", "sparse_coo_tensor",
+            "SubmConv3D", "attention", "QAT", "QuantedLayer",
+            "FakeQuanterWithAbsMaxObserver", "MFCC", "get_window",
+            "ESC50"} <= names
+    assert len(OPSURF_NAMES) > 120
+
+
+@pytest.mark.parametrize("module,name", OPSURF_NAMES,
+                         ids=[f"{m}.{n}" for m, n in OPSURF_NAMES])
+def test_opsurf_name_matches_the_reference(module, name):
+    """The reference's parameters, then the port's keyword-only device
+    and init_generator (the creation functions' and layers' place, a
+    layer's initial weights' generator), for functions, classes and each
+    method a class defines."""
+    import importlib
+    port_obj = getattr(importlib.import_module(f"paddle_tpu_torch.{module}"),
+                       name)
+    ref_obj = getattr(importlib.import_module(f"paddle_tpu.{module}"), name)
+    pairs = [("", port_obj, ref_obj)]
+    if inspect.isclass(ref_obj):
+        pairs = [("__init__", port_obj.__init__, ref_obj.__init__)] + [
+            (m, getattr(port_obj, m), f) for m, f in vars(ref_obj).items()
+            if inspect.isfunction(f) and not m.startswith("_")]
+    for meth, port_fn, ref_fn in pairs:
+        if (module, name, meth) in OPSURF_SKIP:
+            continue
+        _check_sigs(inspect.signature(port_fn), inspect.signature(ref_fn))

@@ -342,6 +342,35 @@ Run from the root of a checkout. Phases, each of which must pass:
      and memory_efficient_attention (lower-triangular; block-diagonal
      causal over packed lengths, through segment ids), each call held to
      the plain versions, the packed call timed beside the padded batch.
+ 33. observability on the serving and training paths, in two parts
+     that each run on the last phase's model and free it: (a) right
+     after phase 4, on its gpt3_1p3b model, fresh engines serve phase
+     4's 16 requests with observability off, on, off and on (metrics
+     and tracing, the flight recorder armed in the last run); every run
+     gives phase 4's tokens and launches B3 sm90 only; in the last,
+     every decode step is a replay, paddle_tpu_engine_events_total
+     equals engine.stats key by key, the TTFT / TPOT / e2e histograms
+     count 16 requests, the spans engine.step > engine.prefill >
+     engine.ragged and engine.step > engine.decode_chunk are there and
+     each request's events hang under its own root span,
+     paddle_tpu_compile_total{family} equals the captures, and every
+     engine_decode and engine_ragged roofline sample and the window's
+     record lie in (0, 1.05] (printed beside phase 4's weight-read
+     floor); a planted deadline miss drops one flight bundle holding
+     the metrics and the trace; a Profiler session over two engine
+     steps exports a chrome trace with host spans and device kernels;
+     tokens/s and the median steady decode step (a chunk alone, no
+     capture, no packed wave) of each run. (b) right after phase 6, on
+     its gpt2_small TrainStep: 4 calls from one state (a fresh capture,
+     then replays) with observability off, on, off and on, the losses
+     bit-equal, the captures equal paddle_tpu_compile_total, every
+     train_step roofline sample and the window in (0, 1.05]; a Profiler
+     session over one replayed train step (in a RecordEvent) exports a
+     chrome trace with host spans and device kernels, a second one over
+     an eager step, each printing the hand-written kernels it names;
+     device.max_memory_allocated() equals torch.cuda's across a reset;
+     the step's median ms off and on. Both print the card's name and
+     power limit.
 
 The last three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
@@ -1033,7 +1062,7 @@ SERVED = {}
 
 
 def serve_phase(label, build, engine_kw, wave_hooks=None, after=None,
-                oracle=None, b3_check=_all_sm90) -> dict:
+                oracle=None, b3_check=_all_sm90, keep=None) -> dict:
     """Serve 16 requests sharing a 512-token prefix (64 new tokens each)
     through LLMEngine on the model `build()` returns ((model, cfg), bf16
     or f16 at full width and depth); `engine_kw` is the engine's
@@ -1043,7 +1072,9 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None,
     captured)` runs checks on them before the model is freed and returns
     a dict merged into the record; so does `oracle(model, prompts, done)`
     with the requests' results. `b3_check(designs, launches)` says which
-    B3 designs the run must launch."""
+    B3 designs the run must launch. `keep`, a dict, receives the model,
+    its config, the prompts and the engine's keywords (phase 33a serves
+    them again) instead of the model being freed."""
     import torch
     from paddle_tpu_torch.inference import LLMEngine
     from paddle_tpu_torch.inference import llm_engine as eng_mod
@@ -1198,6 +1229,9 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None,
     rec["dtype"] = dname
     pools = str(eng.cache.key_caches[0].dtype).removeprefix("torch.")
     SERVED[label, dname, pools] = {i: r.output_ids for i, r in done.items()}
+    if keep is not None:
+        keep.update(model=model, cfg=cfg, prompts=prompts,
+                    engine_kw=engine_kw, n_new=n_new)
     log(f"[engine] {label} {dname} {cfg.num_layers} layers: {n_tok} tokens "
         f"in {run_s:.3f} s = {rec['tokens_per_s']:.1f} tokens/s; "
         f"{len(step_s)} steps, step wall ms mean "
@@ -1287,15 +1321,17 @@ def _decode_device_ms(eng, width):
     return step_ms, attn_ms, err, tol
 
 
-def engine_phase() -> dict:
-    """Phase 4: gpt3_1p3b served at full width and depth."""
+def engine_phase(keep=None) -> dict:
+    """Phase 4: gpt3_1p3b served at full width and depth (`keep`: see
+    serve_phase)."""
     def build():
         from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
         cfg = gpt3_1p3b()
         return GPTForCausalLM(cfg, dtype="bfloat16", seed=0), cfg
 
     return serve_phase("gpt3_1p3b", build, dict(
-        max_batch=8, block_size=64, decode_chunk=16, prompt_quantum=128))
+        max_batch=8, block_size=64, decode_chunk=16, prompt_quantum=128),
+        keep=keep)
 
 
 # ---------------------------------------------------------------------------
@@ -1850,7 +1886,9 @@ def _counted_steps(step, batch, n_calls) -> dict:
     return run
 
 
-def train_phase() -> dict:
+def train_phase(keep=None) -> dict:
+    """Phase 6 (`keep`, a dict, receives the model, the TrainStep and
+    its batch for phase 33b instead of their being freed)."""
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import multi_tensor_adam as mta
@@ -1985,6 +2023,8 @@ def train_phase() -> dict:
         f"step {in_graph}, on the card {on_device} over {n_replays} "
         f"replays; peak mem {peak:.2f} GiB; losses "
         f"{[round(x, 4) for x in losses]}")
+    if keep is not None:
+        keep.update(model=model, step=step, ids=ids, labels=labels)
     del model, step
     torch.cuda.empty_cache()
     return rec
@@ -8295,6 +8335,442 @@ def opsurf_phase(eager) -> dict:
                 graph=graph, sparse=sp, distributions=dist, qat=qat)
 
 
+# ---------------------------------------------------------------------------
+# phase 33: observability on the serving and training paths
+# ---------------------------------------------------------------------------
+# phase 4's model, kept for phase 33a (main frees it right after), and
+# phase 6's TrainStep, kept for phase 33b (freed right after): nothing
+# of one phase's lives into another's measured run
+OBS_KEEP = {"serve": {}, "train": {}}
+OBS_ROOFLINE_MAX = 1.05
+# the hand-written kernels a profiler session may name (substrings of
+# the demangled names)
+HAND_KERNELS = ("rpa_sm90", "flash_fwd_sm90", "flash_bwd_dkdv_sm90",
+                "flash_bwd_dq_sm90", "flash_bwd_delta", "mta_update")
+
+
+@contextlib.contextmanager
+def roofline_samples():
+    """Measurement only: every roofline sample published while the block
+    runs, {family: [(hbm, flops) utilization, ...]}, by the gauges' own
+    formula (the recorder is wrapped, not changed; a gauge keeps only
+    its last sample)."""
+    from paddle_tpu_torch.observability import metrics as om
+    from paddle_tpu_torch.observability import perf
+    observe = perf.observe_roofline
+    out = {}
+
+    def sampled(family, seconds, cost):
+        observe(family, seconds, cost)
+        peaks = perf.device_peaks()
+        if om._ENABLED and cost is not None and seconds > 0 and peaks:
+            out.setdefault(family, []).append(
+                (cost.bytes_accessed / seconds / peaks[1],
+                 cost.flops / seconds / peaks[0]))
+
+    perf.observe_roofline = sampled
+    try:
+        yield out
+    finally:
+        perf.observe_roofline = observe
+
+
+def _roofline_checks(families, samples, window) -> dict:
+    """Every sample of each family and its window's record (the gauges'
+    bounds, hbm and flops) in (0, OBS_ROOFLINE_MAX]."""
+    ok = lambda x: x is not None and 0.0 < x <= OBS_ROOFLINE_MAX  # noqa
+    return {
+        f"{f} roofline: every sample ({len(samples.get(f, ()))}) and the "
+        f"window in (0, {OBS_ROOFLINE_MAX}]": bool(samples.get(f)) and all(
+            ok(x) for s in samples[f] for x in s) and f in window and ok(
+            window[f]["utilization_hbm"]) and ok(
+            window[f]["utilization_flops"])
+        for f in families}
+
+
+def _sample_range(samples) -> dict:
+    """{family: [[min hbm, max hbm], [min flops, max flops], samples]}."""
+    return {f: [[min(s[0] for s in v), max(s[0] for s in v)],
+                [min(s[1] for s in v), max(s[1] for s in v)], len(v)]
+            for f, v in samples.items()}
+
+
+def _obs_serve(model, prompts, n_new, engine_kw) -> dict:
+    """`prompts` served to the end through a fresh LLMEngine over
+    `model`: tokens by request, wall seconds, each step's wall ms with
+    the captures and packed waves it ran (a step reads its tokens back,
+    so its wall covers its device time), B3's launches by design, the
+    decode steps the chunks ran (counted around `_decode_chunk`,
+    measurement only) and the engine, kept for the caller."""
+    import torch
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.jit import cuda_graph
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    eng = LLMEngine(model, **engine_kw)
+    steps = [0]
+    decode_chunk = eng._decode_chunk
+
+    def counted(cur, lens, tbl, chunk):
+        steps[0] += chunk
+        return decode_chunk(cur, lens, tbl, chunk)
+
+    eng._decode_chunk = counted
+    rpa.reset_counters()
+    for i, p in enumerate(prompts):
+        eng.add_request(i, p, max_new_tokens=n_new)
+    done, walls = {}, []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    while eng.has_unfinished:
+        caps = sum(cuda_graph.captures.values())
+        waves = eng.stats["ragged_launches"]
+        t1 = time.perf_counter()
+        for r in eng.step():
+            done[r.request_id] = r
+        walls.append((1e3 * (time.perf_counter() - t1),
+                      sum(cuda_graph.captures.values()) - caps,
+                      eng.stats["ragged_launches"] - waves))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    eng._decode_chunk = decode_chunk
+    f = rpa.ragged_paged_attention
+    # steady steps: a decode chunk alone, no capture, no packed wave
+    steady = [w for w, c, n in walls if not c and not n]
+    return dict(eng=eng, done=done, seconds=secs,
+                tokens=sum(len(r.output_ids) for r in done.values()),
+                step_walls=walls, steady_ms=statistics.median(steady),
+                steady_steps=len(steady), launches=f.kernel_launches,
+                designs=dict(f.design_launches), decode_steps=steps[0])
+
+
+def _series(doc, name):
+    """{label tuple (sorted items): value} of one metric of a to_json
+    document."""
+    return {tuple(sorted(s["labels"].items())): s["value"]
+            for s in doc.get(name, {}).get("series", [])}
+
+
+def _trace_shape(evs) -> dict:
+    """Checks of the trace ring after the observed run: the engine's
+    spans and their parents, and every request's events under its own
+    root span."""
+    by_id = {e.get("span_id"): e for e in evs}
+
+    def parent(e):
+        p = by_id.get(e.get("parent_id"))
+        return p["name"] if p is not None else None
+
+    names = {e["name"] for e in evs}
+    roots = {e["trace_id"]: e for e in evs if e["name"] == "request"}
+    req_evs = [e for e in evs if e["name"].startswith("request.")]
+    return {
+        "engine.step, .prefill, .ragged, .decode_chunk present":
+            {"engine.step", "engine.prefill", "engine.ragged",
+             "engine.decode_chunk"} <= names,
+        "engine.prefill and .decode_chunk under engine.step, engine."
+        "ragged under engine.prefill": all(
+            parent(e) == want for e in evs for n, want in (
+                ("engine.prefill", "engine.step"),
+                ("engine.decode_chunk", "engine.step"),
+                ("engine.ragged", "engine.prefill")) if e["name"] == n),
+        "16 request roots, each request's prefill and decode chunks "
+        "under its own root": len(roots) == 16 and all(
+            e["trace_id"] in roots
+            and e.get("parent_id") == roots[e["trace_id"]]["span_id"]
+            for e in req_evs) and {
+            e["trace_id"] for e in req_evs
+            if e["name"] == "request.prefill"} == set(roots) and {
+            e["trace_id"] for e in req_evs
+            if e["name"] == "request.decode_chunk"} == set(roots),
+    }
+
+
+def _named_kernels(evs) -> dict:
+    """{hand-written kernel: device events naming it} of a session."""
+    out = {}
+    for e in evs:
+        if e.get("cat") != "kernel":
+            continue
+        for k in HAND_KERNELS:
+            if k in e["name"]:
+                out[k] = out.get(k, 0) + 1
+    return out
+
+
+def _chrome_trace(prof, tmp, name):
+    """The session's exported chrome trace: (host span names, kernel
+    events, {hand-written kernel: events})."""
+    from paddle_tpu_torch import profiler
+    path = profiler.export_chrome_tracing(f"{tmp}/prof", name)(prof)
+    trace = profiler.load_profiler_result(path)["traceEvents"]
+    return (sorted({e["name"] for e in trace if "cat" not in e}),
+            sum(e.get("cat") == "kernel" for e in trace),
+            _named_kernels(trace))
+
+
+def _report(phase, checks, rec):
+    for what, ok in checks.items():
+        log(f"[obs] {phase} check: {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise RuntimeError(f"observability phase {phase} failed: {rec}")
+
+
+def obs_serve_phase(engine: dict) -> dict:
+    """Phase 33a (see the module docstring), on phase 4's model."""
+    import gc
+    import tempfile
+    import torch
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.jit import cuda_graph
+    from paddle_tpu_torch.observability import flight
+    sv = OBS_KEEP["serve"]
+    model, prompts, kw = sv["model"], sv["prompts"], sv["engine_kw"]
+    n_new = sv["n_new"]
+    want = SERVED["gpt3_1p3b", "bfloat16", "bfloat16"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    checks = {}
+
+    def served(r):
+        return set(r["done"]) == set(want) and all(
+            np.array_equal(r["done"][i].output_ids, want[i]) for i in want)
+
+    # -- off, on, off, then on with the flight recorder armed: the checks
+    # read the last run; the rates and steady steps of all four --------
+    runs = {"off": [], "on": []}
+    for mode in ("off", "on", "off", "on"):
+        obs.disable()
+        obs.reset()
+        last = len(runs["on"]) == 1 and mode == "on"
+        if last:
+            flight.arm(f"{tmp}/flight")
+        if mode == "on":
+            obs.enable()
+        cuda_graph.reset_counters()
+        with roofline_samples() as samples:
+            r = _obs_serve(model, prompts, n_new, kw)
+        runs[mode].append(dict(
+            tokens_per_s=r["tokens"] / r["seconds"],
+            steady_ms=r["steady_ms"], steady_steps=r["steady_steps"],
+            step_ms=[w for w, _c, _n in r["step_walls"]]))
+        checks[f"observability {mode} (run {len(runs[mode])}): phase 4's "
+               f"tokens"] = served(r)
+        checks[f"observability {mode} (run {len(runs[mode])}): every B3 "
+               f"launch sm90"] = r["designs"].get("sm90", 0) \
+            == r["launches"] > 0
+        if not last:
+            del r["eng"], r
+            gc.collect()        # an engine's graphs and pools form cycles
+            torch.cuda.empty_cache()
+    on, eng = r, r["eng"]
+    caps = dict(cuda_graph.captures)
+    doc = json.loads(obs.to_json())
+    evs = obs.trace_events()
+    window = obs.perf.family_records()
+    events = {dict(k)["event"]: v for k, v in
+              _series(doc, "paddle_tpu_engine_events_total").items()}
+    mirrored = {k: v for k, v in eng.stats.items() if v and k not in (
+        "prefix_cache_hit_tokens", "prefix_cache_miss_tokens",
+        "spec_drafted_tokens", "spec_accepted_tokens")}
+    hist_n = {n: sum(v["count"] for v in _series(
+        doc, f"paddle_tpu_request_{n}_seconds").values())
+        for n in ("ttft", "tpot", "e2e")}
+    compiles = {dict(k)["family"]: v for k, v in _series(
+        doc, "paddle_tpu_compile_total").items() if v}
+    roof = {}
+    for k, v in _series(doc, "paddle_tpu_roofline_utilization").items():
+        d = dict(k)
+        roof.setdefault(d["family"], {})[d["bound"]] = v
+    checks["observability on: every decode step a replay"] = \
+        cuda_graph.replays["engine_decode"] == on["decode_steps"]
+    checks["paddle_tpu_engine_events_total == engine.stats"] = \
+        events == {k: float(v) for k, v in mirrored.items()}
+    checks["TTFT, TPOT and e2e histograms count 16 requests"] = \
+        hist_n == {"ttft": 16, "tpot": 16, "e2e": 16}
+    checks["paddle_tpu_compile_total{family} == the captures"] = \
+        compiles == {"engine_decode": float(caps.get("engine_decode", 0))}
+    checks.update(_trace_shape(evs))
+    checks.update(_roofline_checks(("engine_decode", "engine_ragged"),
+                                   samples, window))
+
+    # -- a planted deadline miss: one flight bundle --------------------
+    clock = {"now": 0.0}
+    eng._now = lambda: clock["now"]
+    eng.add_request("late", prompts[0], max_new_tokens=4, deadline_s=1.0)
+    clock["now"] = 10.0
+    eng.step()
+    bundles = flight.bundles()
+    bundle = flight.load_bundle(bundles[-1]) if bundles else None
+    checks["a planted deadline miss drops one bundle with the metrics "
+           "and the trace"] = (
+        len(bundles) == 1 and bundle["meta"]["reason"] == "deadline_miss"
+        and "paddle_tpu_engine_events_total" in bundle["metrics"]
+        and any(e["name"] == "engine.step" for e in bundle["trace"]))
+    flight.disarm()
+
+    # -- a profiler session over two engine steps -----------------------
+    for i, p in enumerate(prompts[:2]):
+        eng.add_request(f"prof{i}", p, max_new_tokens=n_new)
+    clock["now"] = 0.0
+    with profiler.Profiler() as prof:
+        eng.step()
+        eng.step()
+    host, n_kernels, named = _chrome_trace(prof, tmp, "serve")
+    checks["a profiler session's chrome trace over two engine steps "
+           "holds host spans and device kernels"] = (
+        "engine.step" in host and n_kernels > 0)
+    while eng.has_unfinished:
+        eng.step()
+    obs.disable()
+    obs.reset()
+    b3_launches = on["launches"]
+    del eng, on, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = dict(
+        tokens_per_s_off=[x["tokens_per_s"] for x in runs["off"]],
+        tokens_per_s_on=[x["tokens_per_s"] for x in runs["on"]],
+        steady_ms_off=[x["steady_ms"] for x in runs["off"]],
+        steady_ms_on=[x["steady_ms"] for x in runs["on"]], runs=runs,
+        roofline=roof, roofline_samples=_sample_range(samples),
+        family_records=window, weight_read_ms=engine["weight_read_ms"],
+        decode_ms_per_step=engine["decode_ms_per_step"],
+        b3_launches=b3_launches, captures=caps,
+        compiles=compiles, events=events, histogram_counts=hist_n,
+        kernels_named=named, device_kernel_events=n_kernels,
+        host_span_names=host, card=card_line())
+    log(f"[obs] 33a gpt3_1p3b served 16 requests a run (off, on, off, "
+        f"on): {[round(x, 1) for x in rec['tokens_per_s_off']]} tokens/s "
+        f"off, {[round(x, 1) for x in rec['tokens_per_s_on']]} on; steady "
+        f"decode steps (median ms, a chunk alone, no capture, no packed "
+        f"wave) {[round(x, 3) for x in rec['steady_ms_off']]} off, "
+        f"{[round(x, 3) for x in rec['steady_ms_on']]} on; rooflines "
+        f"(hbm min-max, flops min-max, samples) "
+        f"{json.dumps(rec['roofline_samples'])}, over the window "
+        f"{json.dumps({f: (w['utilization_hbm'], w['utilization_flops'], w['runs']) for f, w in window.items()})} "
+        f"beside phase 4's weight-read floor "
+        f"{engine['weight_read_ms']:.3f} ms and decode "
+        f"{engine['decode_ms_per_step']:.3f} ms a step; compiles "
+        f"{compiles}; the profiler names {named} over 2 engine steps "
+        f"({n_kernels} kernel events); card {rec['card']}")
+    _report("33a", checks, rec)
+    return rec
+
+
+def _obs_train(step, ids, labels, state, n_calls=4) -> dict:
+    """`n_calls` TrainStep calls from `state` (restored first), through
+    a fresh graph cache (a capture, then replays), each timed by wall
+    with a sync; the losses and the step times."""
+    import torch
+    from paddle_tpu_torch.jit.cuda_graph import GraphCache
+    with torch.no_grad():
+        for p, (p0, st0) in zip(step._params, state):
+            p.copy_(p0)
+            for k, v in step.optimizer._get_state(p).items():
+                v.copy_(st0[k])
+    step._graphs = GraphCache()
+    losses, times = [], []
+    for _ in range(n_calls):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(loss))
+    return dict(losses=losses, step_s=times)
+
+
+def obs_train_phase(train: dict) -> dict:
+    """Phase 33b (see the module docstring), on phase 6's TrainStep."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch import device as pdev
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.jit import cuda_graph
+    tr = OBS_KEEP["train"]
+    step, ids, labels = tr["step"], tr["ids"], tr["labels"]
+    state = [(p.detach().clone(), {
+        k: v.detach().clone() for k, v in step.optimizer._get_state(
+            p).items()}) for p in step._params]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    checks = {}
+
+    # -- 4 calls off, 4 from the same state on, in turns ----------------
+    times = {"off": [], "on": []}
+    for mode in ("off", "on", "off", "on"):
+        obs.disable()
+        obs.reset()
+        if mode == "on":
+            obs.enable()
+        cuda_graph.reset_counters()
+        with roofline_samples() as samples:
+            r = _obs_train(step, ids, labels, state)
+            torch.cuda.synchronize()
+            step._read_timings()
+        times[mode].append(1e3 * statistics.median(r["step_s"][1:]))
+        if mode == "off":
+            want = r["losses"]
+        checks[f"train_step losses bit-equal, observability {mode} (run "
+               f"{len(times[mode])}) and off"] = r["losses"] == want
+    caps = dict(cuda_graph.captures)
+    doc = json.loads(obs.to_json())
+    window = obs.perf.family_records()
+    compiles = {dict(k)["family"]: v for k, v in _series(
+        doc, "paddle_tpu_compile_total").items() if v}
+    checks["paddle_tpu_compile_total{family} == the captures"] = \
+        compiles == {"train_step": float(caps.get("train_step", 0))}
+    roof = {dict(k)["bound"]: v for k, v in _series(
+        doc, "paddle_tpu_roofline_utilization").items()}
+    checks.update(_roofline_checks(("train_step",), samples, window))
+
+    # -- profiler sessions: a replayed step, then an eager one ---------
+    with profiler.Profiler() as prof:
+        with profiler.RecordEvent("train_step"):
+            step(ids, labels)
+    host, n_kernels, named_replay = _chrome_trace(prof, tmp, "train")
+    checks["a profiler session's chrome trace over a replayed train "
+           "step holds host spans and device kernels"] = (
+        "train_step" in host and n_kernels > 0)
+    step._eager = True
+    with profiler.Profiler() as prof2:
+        step(ids, labels)
+    step._eager = False
+    named_eager = _named_kernels(prof2.events())
+
+    # -- device.memory against torch.cuda across a reset ----------------
+    pdev.cuda.reset_peak_memory_stats()
+    base = (pdev.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_allocated())
+    held = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
+    peak = (pdev.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_allocated())
+    del held
+    checks["device.max_memory_allocated() == torch.cuda's across a "
+           "reset"] = base[0] == base[1] and peak[0] == peak[1] \
+        and peak[0] >= base[0] + (1 << 28)
+    obs.disable()
+    obs.reset()
+    rec = dict(
+        step_ms_off=times["off"], step_ms_on=times["on"],
+        phase6_step_ms_median=train["step_ms_median"], roofline=roof,
+        roofline_samples=_sample_range(samples), family_records=window,
+        captures=caps, compiles=compiles, losses=r["losses"],
+        kernels_named_replay=named_replay, kernels_named_eager=named_eager,
+        device_kernel_events=n_kernels, host_span_names=host,
+        memory_base=base, memory_peak=peak, card=card_line())
+    log(f"[obs] 33b gpt2_small TrainStep, median ms of calls 2-4 (off, "
+        f"on, off, on): {[round(x, 3) for x in times['off']]} off, "
+        f"{[round(x, 3) for x in times['on']]} on; roofline (hbm min-max, "
+        f"flops min-max, samples) {json.dumps(rec['roofline_samples'])}, "
+        f"over the window {json.dumps({f: (w['utilization_hbm'], w['utilization_flops'], w['runs']) for f, w in window.items()})}; "
+        f"compiles {compiles}; the profiler names {named_replay} (a "
+        f"replayed train step, {n_kernels} kernel events) and "
+        f"{named_eager} (an eager train step); card {rec['card']}")
+    _report("33b", checks, rec)
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -8318,9 +8794,15 @@ def main() -> int:
     log("[build] " + "; ".join(f"{k}: {v:.1f} s" for k, v in secs.items()))
     cases = kernel_phase()
     flash = flash_phase()
-    engine = engine_phase()
+    engine = engine_phase(keep=OBS_KEEP["serve"])
+    observed = {"serve": obs_serve_phase(engine)}   # 33a, on 4's model
+    OBS_KEEP["serve"].clear()
+    _fresh_card()
     parity = parity_phase()
-    train = train_phase()
+    train = train_phase(keep=OBS_KEEP["train"])
+    observed["train"] = obs_train_phase(train)      # 33b, on 6's step
+    OBS_KEEP["train"].clear()
+    _fresh_card()
     train_parity = train_parity_phase()
     norm_cases = norm_phase()
     llama = llama_engine_phase()
@@ -8407,6 +8889,8 @@ def main() -> int:
                        launches=spec["spec_on"]["verify"]["launches"]),
         int8=b3_call(int8_case, launches=int8["b3_simple_dequant_launches"],
                      launches_by_design=int8["b3_launches_by_design"]),
+        # phase 33a's last observed serving run (every launch sm90)
+        launches_observed=observed["serve"]["b3_launches"],
         cases=cases)]
     t13 = train_1p3b["recompute"]
     for i, (kind, name, line, launches, source) in enumerate((
@@ -8566,6 +9050,7 @@ def main() -> int:
     log("[detect] " + json.dumps(detection))
     log("[incubate] " + json.dumps(incubate))
     log("[opsurf] " + json.dumps(opsurf))
+    log("[obs] " + json.dumps(observed))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

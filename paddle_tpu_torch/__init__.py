@@ -14,7 +14,8 @@ The eager API (``Tensor``, ``to_tensor``, the registered ops, autograd,
 ``seed``, places, ``nn.Layer`` / ``nn.Parameter`` / ``nn.ParamAttr``,
 ``save`` / ``load``, ``io``'s datasets and DataLoader, ``jit``'s
 to_static / save / load, ``inference``'s Predictor, ``metric``,
-``utils``, ``callbacks``, ``Model`` and ``summary``; ``distribution``,
+``utils``, ``callbacks``, ``Model`` and ``summary``; ``observability``,
+``profiler`` and ``device`` (with ``device.memory``); ``distribution``,
 and lazily, as the reference resolves them, ``fft``, ``signal``,
 ``sparse``, ``geometric``, ``quantization`` and ``audio``) keeps the
 reference's root names, so one eager script runs on either package by
@@ -28,6 +29,7 @@ from . import (amp, autograd, distributed, distribution, framework_io,
                incubate, inference, io, jit, kernels, models, nn, optimizer,
                resilience, vision)
 from . import callbacks, metric, tensor_array, utils
+from . import device, observability, profiler
 from .convert import (bert_params_from_numpy, fused_params_from_numpy,
                       gpt_params_from_numpy, llama_params_from_numpy,
                       optimizer_state_from_numpy, resnet_params_from_numpy,
@@ -76,7 +78,8 @@ __all__ = ["amp", "core", "distributed", "distribution", "incubate",
            "complex128", "finfo", "iinfo", "framework_io", "save", "load",
            "io", "callbacks", "metric", "utils", "Model", "summary",
            "tensor_array", "create_array", "array_write", "array_read",
-           "array_length", "vision_params_from_numpy"]
+           "array_length", "vision_params_from_numpy", "device",
+           "observability", "profiler"]
 
 
 _LAZY = ("fft", "signal", "sparse", "geometric", "quantization", "audio")

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from ..core.dtype import to_dtype
+from ..observability import metrics as _om
 from .state import (BLACK_LIST, WHITE_LIST, amp_dtype, amp_state,
                     is_auto_cast_enabled, maybe_cast_inputs)
 
@@ -68,6 +69,33 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
     return models if single_model else model_list
 
 
+_AMP_METRICS = None
+
+
+def _amp_metrics():
+    global _AMP_METRICS
+    if _AMP_METRICS is None:
+        r = _om.registry()
+        _AMP_METRICS = {
+            "scale": r.gauge(
+                "paddle_tpu_amp_loss_scale",
+                "current dynamic loss scale of the GradScaler "
+                "(recorded at every step/update)"),
+            "steps": r.counter(
+                "paddle_tpu_amp_steps_total",
+                "GradScaler.step outcomes: ok = optimizer step "
+                "applied, skipped = nonfinite grads found after "
+                "unscale (the step was dropped and the scale decay "
+                "accounting advanced)",
+                ("outcome",)),
+            "decr": r.counter(
+                "paddle_tpu_amp_scale_decreases_total",
+                "dynamic loss-scale decreases (decr_every_n_nan_or_"
+                "inf consecutive skipped steps reached)"),
+        }
+    return _AMP_METRICS
+
+
 class GradScaler:
     """Dynamic loss scaling (reference :119-368, after
     python/paddle/amp/grad_scaler.py).
@@ -86,9 +114,13 @@ class GradScaler:
     repeated by ``step``.
 
     The reference's unscale is an XLA executable, not a TPU kernel, so
-    plain torch ops compute it here. Its observability hooks (the AMP
-    metrics, ``numerics`` notes and the ``numerics.check`` fault point)
-    come with the port's observability (ROADMAP Queue A item 8)."""
+    plain torch ops compute it here. While observability is enabled the
+    scaler records the reference's series (:98-112):
+    ``paddle_tpu_amp_loss_scale`` at every update,
+    ``paddle_tpu_amp_steps_total{outcome=ok|skipped}`` at every step and
+    ``paddle_tpu_amp_scale_decreases_total``. The ``numerics`` notes and
+    the ``numerics.check`` fault point come with the port's numerics
+    plane (ROADMAP)."""
 
     def __init__(self, enable=True, init_loss_scaling=2.0 ** 15,
                  incr_ratio=2.0, decr_ratio=0.5, incr_every_n_steps=1000,
@@ -171,23 +203,31 @@ class GradScaler:
             return
         if not self._unscaled:
             self.unscale_(optimizer)
-        if not self._found_inf:
+        skipped = self._found_inf
+        if not skipped:
             optimizer.step()
         self._unscaled = False
         self.update()
+        if _om._ENABLED:
+            _amp_metrics()["steps"].labels(
+                outcome="skipped" if skipped else "ok").inc()
 
     def minimize(self, optimizer, scaled_loss):
         self.step(optimizer)
 
     def update(self):
         if not (self._enable and self._dynamic):
+            if self._enable and _om._ENABLED:
+                _amp_metrics()["scale"].set(self._scale)
             return
+        decreased = False
         if self._found_inf:
             self._bad_steps += 1
             self._good_steps = 0
             if self._bad_steps >= self._decr_every:
                 self._scale = max(self._scale * self._decr_ratio, 1.0)
                 self._bad_steps = 0
+                decreased = True
         else:
             self._good_steps += 1
             self._bad_steps = 0
@@ -195,6 +235,11 @@ class GradScaler:
                 self._scale *= self._incr_ratio
                 self._good_steps = 0
         self._found_inf = False
+        if _om._ENABLED:
+            m = _amp_metrics()
+            m["scale"].set(self._scale)
+            if decreased:
+                m["decr"].inc()
 
     def get_loss_scaling(self):
         """The scale as a 0-d f32 tensor."""
@@ -207,6 +252,8 @@ class GradScaler:
         self._good_steps = 0
         self._bad_steps = 0
         self._found_inf = False
+        if self._enable and _om._ENABLED:
+            _amp_metrics()["scale"].set(self._scale)
 
     def state_dict(self):
         return {"scale": self._scale, "incr_ratio": self._incr_ratio,

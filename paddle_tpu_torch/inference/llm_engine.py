@@ -54,10 +54,37 @@ engines' `stats` agree exactly on the same traffic.
     (a packed wave, a verify wave, a decode chunk: a kernel, a graph
     replay, a CUDA error) propagates out of `step()`.
 
+  * Observability (``observability``), recorded only while enabled, at
+    the reference's call sites and under its names: the series of
+    `_metrics` (step, prefill, packed-wave, decode-chunk and verify
+    latencies; queue, page-pool and prefix-cache gauges; prefix and
+    speculative token counters; the per-request TTFT, TTFT budget, TPOT,
+    queue-wait and e2e histograms and finish reasons; the HBM gauges),
+    every `stats` counter mirrored onto
+    ``paddle_tpu_engine_events_total`` (`_EngineStats`), one connected
+    trace per request (its root span "request" and the events
+    "request.queue_wait", ".prefill", ".decode_chunk", ".verify",
+    ".preempt"; `obs_carry` adopts an earlier life's), the spans
+    "engine.step", "engine.prefill", "engine.ragged",
+    "engine.decode_chunk" and "engine.verify", the ``engine_decode`` and
+    ``engine_ragged`` rooflines (`perf.count_cost`), and the flight
+    triggers "step_latency", "deadline_miss" and "preempt_storm".
+    Every recorder sits around a launch, never inside a captured decode
+    step: a graph replays the kernels its capture saw and none of the
+    Python. Timing: the packed wave and the decode chunk read their
+    tokens back to the host, so a host clock around them covers their
+    device time; a chunk that captured a graph is not a roofline
+    sample, as the reference skips a compiling first call. Departures:
+    ``paddle_tpu_hbm_live_array_bytes`` is the caching allocator's
+    allocated bytes (``torch.cuda.memory_allocated``; the reference
+    walks ``jax.live_arrays()``, which has no counterpart), 0 on the
+    CPU; the packed waves build no executable (they run eagerly), so
+    they report no compile and their TTFT budget's compile_stall is 0;
+    the decode graphs' captures are the "engine_decode" compiles.
+
 Not in this port yet (each raises NotImplementedError): tensor-parallel
 placement (mesh/shard_param), the persistent executable cache
-(exec_cache_dir), KV-page export/import and the observability series
-and spans (obs_carry).
+(exec_cache_dir) and KV-page export/import.
 """
 from __future__ import annotations
 
@@ -72,6 +99,10 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..observability import flight as _fl
+from ..observability import metrics as _om
+from ..observability import perf as _pf
+from ..observability import tracing as _ot
 from ..incubate.nn.functional.serving import _apply_rotary, _quantize_kv
 from ..jit.cuda_graph import CapturedStep
 from ..kernels.ragged_paged_attention import (ragged_paged_attention,
@@ -84,6 +115,161 @@ from .paged_cache import PagedKVCache
 from .speculative import accept_drafts
 
 __all__ = ["LLMEngine", "GenerationResult", "calibrate_kv_scales"]
+
+
+# ---------------------------------------------------------------------------
+# observability (process-global series; per-engine exact counts live on
+# engine.stats). Handles are created once and cached: the disabled path
+# through any of them is a single module-flag check.
+# ---------------------------------------------------------------------------
+_METRICS = None
+
+
+def _metrics():
+    global _METRICS
+    if _METRICS is None:
+        r = _om.registry()
+        _METRICS = {
+            "step": r.histogram(
+                "paddle_tpu_engine_step_seconds",
+                "LLMEngine.step() wall time (admission + prefills + one "
+                "decode chunk + retirement)"),
+            "prefill": r.histogram(
+                "paddle_tpu_engine_prefill_seconds",
+                "one packed prefill wave incl. host prep"),
+            "decode": r.histogram(
+                "paddle_tpu_engine_decode_chunk_seconds",
+                "one decode chunk (its graph replays and the tokens' "
+                "read-back) incl. host prep"),
+            "queue": r.gauge(
+                "paddle_tpu_engine_queue_depth",
+                "requests per scheduler queue after a step",
+                ("queue",)),
+            "pool": r.gauge(
+                "paddle_tpu_engine_page_pool_blocks",
+                "paged KV cache pool occupancy after a step",
+                ("state",)),
+            "events": r.counter(
+                "paddle_tpu_engine_events_total",
+                "engine.stats counters (preemptions, prefills, "
+                "decode_chunks, decode_tokens, failed/rejected "
+                "requests, deadline_expired) aggregated across engines",
+                ("event",)),
+            "prefix": r.counter(
+                "paddle_tpu_engine_prefix_cache_tokens_total",
+                "prompt tokens served from the prefix cache (hit) vs "
+                "prefilled from scratch (miss), counted at admission",
+                ("outcome",)),
+            "spec": r.counter(
+                "paddle_tpu_engine_spec_tokens_total",
+                "speculative draft tokens by verification outcome: "
+                "accepted = matched the target model's greedy pick "
+                "and committed in bulk, rejected = rolled back (KV "
+                "truncated, pages unref'd)",
+                ("outcome",)),
+            "spec_rate": r.gauge(
+                "paddle_tpu_engine_spec_acceptance_ratio",
+                "cumulative fraction of drafted tokens accepted by "
+                "verification (accepted / drafted), updated after "
+                "every verify step"),
+            "verify": r.histogram(
+                "paddle_tpu_engine_verify_seconds",
+                "one speculative verify wave (k+1 positions per row) "
+                "incl. host prep"),
+            "ragged": r.histogram(
+                "paddle_tpu_engine_ragged_seconds",
+                "one ragged packed-batch launch (mixed prefill/"
+                "prefix-resume/verify rows in a single wave) incl. "
+                "host prep"),
+            "prefix_pages": r.gauge(
+                "paddle_tpu_engine_prefix_cache_pages",
+                "prefix-cache page index occupancy after a step: "
+                "indexed = hash-addressable pages (leased or parked), "
+                "lru = parked cached-but-unreferenced pages",
+                ("state",)),
+            # -- request-scoped SLO series (one observation per
+            # request-lifecycle event; request identity stays in trace
+            # spans, never in labels) --
+            "ttft": r.histogram(
+                "paddle_tpu_request_ttft_seconds",
+                "per-request time to first token: enqueue -> first "
+                "sampled token (includes queue wait and prefill)"),
+            "ttft_budget": r.histogram(
+                "paddle_tpu_request_ttft_budget_seconds",
+                "per-request TTFT latency-budget decomposition, one "
+                "observation per component when the first token lands:"
+                " queue_wait = (re)enqueue -> admission, summed across"
+                " requeues; prefill_compute = first-build prefill wall"
+                " the request rode; affinity_miss = re-prefill wall "
+                "spent REBUILDING context already computed once "
+                "(preemption resume, or a re-serve passed in through "
+                "obs_carry); compile_stall = packed-wave compile wall "
+                "the request waited behind (0 here: the packed waves "
+                "build no executable); other = the remainder. "
+                "Components sum to the request's "
+                "paddle_tpu_request_ttft_seconds observation",
+                ("component",)),
+            "tpot": r.histogram(
+                "paddle_tpu_request_tpot_seconds",
+                "per-request mean inter-token latency over the decode "
+                "phase, observed once per finished request"),
+            "queue_wait": r.histogram(
+                "paddle_tpu_request_queue_wait_seconds",
+                "time from (re)enqueue to admission into a batch slot "
+                "(observed per admission, incl. post-preemption "
+                "resumes)"),
+            "e2e": r.histogram(
+                "paddle_tpu_request_e2e_seconds",
+                "end-to-end latency of successfully finished requests "
+                "(enqueue -> eos/length)"),
+            "req_finished": r.counter(
+                "paddle_tpu_request_finished_total",
+                "terminal request outcomes by finish_reason",
+                ("reason",)),
+            # -- HBM telemetry (compile telemetry: the shared
+            # _om.compile_metrics() registration) --
+            "hbm_pool": r.gauge(
+                "paddle_tpu_hbm_page_pool_bytes",
+                "paged KV pool HBM after a step: reserved = the whole "
+                "pool allocation, used = currently leased pages",
+                ("state",)),
+            "hbm_live": r.gauge(
+                "paddle_tpu_hbm_live_array_bytes",
+                "bytes held by live tensors on the card (the caching "
+                "allocator's allocated bytes), sampled at engine step "
+                "boundaries (at most one read per second)"),
+        }
+        _METRICS["compiles"], _METRICS["compile_time"] = \
+            _om.compile_metrics()
+    return _METRICS
+
+
+class _EngineStats(dict):
+    """The stats dict, mirrored onto the registry while staying a real
+    dict: every increment site (`stats[k] += n`) keeps its exact
+    per-engine semantics, and the write mirrors the delta onto the
+    process-global `paddle_tpu_engine_events_total{event=k}` counter
+    (a no-op while observability is disabled). The prefix-cache and
+    speculative token tallies are not mirrored: they land on their own
+    counters (`paddle_tpu_engine_prefix_cache_tokens_total`,
+    `paddle_tpu_engine_spec_tokens_total`)."""
+
+    _UNMIRRORED = frozenset(
+        ("prefix_cache_hit_tokens", "prefix_cache_miss_tokens",
+         "spec_drafted_tokens", "spec_accepted_tokens"))
+
+    def __setitem__(self, key, value):
+        if _om._ENABLED and key not in self._UNMIRRORED:
+            delta = value - self.get(key, 0)
+            if delta > 0:
+                _metrics()["events"].labels(event=key).inc(delta)
+        super().__setitem__(key, value)
+
+
+class _BeforeLaunch(Exception):
+    """A failure raised while a wave or chunk was built, before its
+    launch (its __cause__ is the original): the poisoned-request
+    isolation retries those; a launch's own failure propagates."""
 
 
 @dataclasses.dataclass
@@ -100,6 +286,27 @@ class GenerationResult:
         return self.finish_reason in ("eos", "length")
 
 
+@dataclasses.dataclass(eq=False)
+class _Life:
+    """A request's observability state over its whole lifetime, shared
+    by reference by each of its `_Request` and `_Seq` lives (preemption
+    and a re-serve hand the same object on), so a resumed life's events
+    join the ORIGINAL trace and TTFT / e2e stay anchored at the first
+    enqueue."""
+    trace_id: Optional[str] = None
+    root_span: Optional[str] = None
+    t_enq: float = 0.0                       # first enqueue (perf_counter)
+    t_first: Optional[float] = None          # first token landed
+    # TTFT latency-budget accumulators (seconds); recompute: a life
+    # rebuilds a context computed once already (a preemption resume, a
+    # re-serve), so its prefill wall charges to affinity_miss
+    bud_queue: float = 0.0
+    bud_prefill: float = 0.0
+    bud_miss: float = 0.0
+    bud_compile: float = 0.0
+    recompute: bool = False
+
+
 @dataclasses.dataclass(eq=False)        # identity eq: waiting.remove()
 class _Request:                         # must not compare prompts
     rid: object
@@ -108,6 +315,8 @@ class _Request:                         # must not compare prompts
     resume_out: List[int] = dataclasses.field(default_factory=list)
     deadline: Optional[float] = None         # absolute `_now()` seconds
     hash_chain: Optional[list] = None        # memoized block_hashes()
+    life: _Life = dataclasses.field(default_factory=_Life)
+    t_queued: float = 0.0                    # latest (re)enqueue
 
     @property
     def context_len(self) -> int:
@@ -117,7 +326,7 @@ class _Request:                         # must not compare prompts
 
 class _Seq:
     __slots__ = ("rid", "prompt", "max_new", "slot", "length", "out",
-                 "admit_seq", "deadline", "cached_len")
+                 "admit_seq", "deadline", "cached_len", "life")
 
     def __init__(self, req: _Request, slot: int, admit_seq: int):
         self.rid = req.rid
@@ -129,6 +338,7 @@ class _Seq:
         self.admit_seq = admit_seq      # monotonic admission order
         self.deadline = req.deadline
         self.cached_len = 0             # prefix tokens leased from cache
+        self.life = req.life            # shared with the request
 
     @property
     def token_budget(self) -> int:
@@ -207,6 +417,16 @@ class _GPTFamily:
     def logits(self, x):
         return self.model.lm_logits(x)
 
+    def gather_only(self):
+        """The tables read by index only, never in a matrix product: the
+        position embeddings, and the word embeddings under an untied
+        head."""
+        emb = self.model.gpt.embeddings
+        out = [emb.position_embeddings.weight._data]
+        if self.model.lm_head is not None:
+            out.append(emb.word_embeddings.weight._data)
+        return out
+
 
 class _LlamaFamily:
     """LLaMA: split q/k/v projections (GQA kv heads un-repeated in the
@@ -259,6 +479,11 @@ class _LlamaFamily:
 
     def logits(self, x):
         return self.model.lm_head(x)
+
+    def gather_only(self):
+        """The token embeddings: read by index only (the head is its own
+        weight)."""
+        return [self.model.llama.embed_tokens.weight._data]
 
 
 def _family_for(model):
@@ -427,6 +652,10 @@ class LLMEngine:
         if model.device != self.device:
             raise ValueError(
                 f"model lives on {model.device}, engine on {self.device}")
+        # fleet identity: a bare engine process ships its series as
+        # process_role "engine" (a weak suggestion)
+        from ..observability import fleet as _ofleet
+        _ofleet.suggest_role("engine")
         cfg = model.config
         self.model = model
         self.fam = _family_for(model)
@@ -484,6 +713,15 @@ class LLMEngine:
         self._trash_page = self.cache.allocator.alloc(1)[0]
         # rope half tables built once (None for a family without rope)
         self._rope = self.fam.rope_tables(self.max_model_len, self.device)
+        # pool bytes are fixed at construction (the step's HBM gauges)
+        self._pool_bytes = \
+            sum(k.numel() * k.element_size() for k in self.cache.key_caches) \
+            + sum(v.numel() * v.element_size()
+                  for v in self.cache.value_caches)
+        self._hbm_sampled_at = -1.0
+        # the shapes the engine_decode / engine_ragged expectations are
+        # counted from (observability.perf.count_cost)
+        self._cost_shape = self._count_shapes(cache_dtype)
 
         self.waiting: collections.deque = collections.deque()
         self.slots: List[Optional[_Seq]] = [None] * self.max_batch
@@ -508,7 +746,9 @@ class LLMEngine:
                     "supported")
             self._proposer = speculative_config.build_proposer()
             self._spec_k = int(speculative_config.num_speculative_tokens)
-        self.stats = dict(
+        # per-engine exact counts; writes mirror onto the observability
+        # registry (see _EngineStats)
+        self.stats = _EngineStats(
             preemptions=0, prefills=0, decode_chunks=0,
             decode_tokens=0, failed_requests=0, rejected_requests=0,
             aborted_requests=0,
@@ -533,14 +773,69 @@ class LLMEngine:
         # plain version the graphs are held to (chip_smoke.py, the cuda
         # tests); the CPU always runs them eagerly
         self._eager_decode = self.device.type == "cpu"
+        # whether the last decode chunk captured a graph (not a roofline
+        # sample, as the reference skips a compiling first call)
+        self._captured = False
+
+    def _count_shapes(self, cache_dtype):
+        """The model's counts for `perf.count_cost`: the parameters a
+        token multiplies by (every parameter but the tables read by
+        index only) and their bytes, the head's, and the bytes of one
+        token's k and v over every layer's pool."""
+        cfg = self.model.config
+        params = list(torch.nn.Module.parameters(self.model))
+        gather = {id(t) for t in self.fam.gather_only()}
+        mm = [p for p in params if id(p) not in gather]
+        hidden = cfg.hidden_size
+        elem = torch.empty((), dtype=cache_dtype).element_size()
+        return dict(
+            params=float(sum(p.numel() for p in mm)),
+            param_bytes=float(sum(p.numel() * p.element_size()
+                                  for p in mm)),
+            head_params=float(cfg.vocab_size * hidden),
+            layers=cfg.num_layers, heads=cfg.num_heads,
+            head_dim=self.fam.head_dim,
+            kv_token_bytes=float(cfg.num_layers * 2 * self.fam.kv_heads
+                                 * self.fam.head_dim * elem),
+            logit_bytes=float(cfg.vocab_size * torch.empty(
+                (), dtype=self.fam.dtype).element_size()))
 
     # -- request lifecycle -------------------------------------------------
+    def _finish_obs(self, rid, reason: str, life: _Life,
+                    n_out: int) -> None:
+        """Terminal accounting every finish path funnels through: the
+        outcome counter, e2e / TPOT observations (successful requests
+        only: failures would poison the latency SLOs), and the
+        request's ROOT span covering enqueue -> finish, which parents
+        every lifecycle event recorded along the way."""
+        if not (_om._ENABLED or _ot._ENABLED):
+            return
+        t_fin = time.perf_counter()
+        if _om._ENABLED:
+            m = _metrics()
+            m["req_finished"].labels(reason=reason).inc()
+            if reason in ("eos", "length"):
+                m["e2e"].observe(t_fin - life.t_enq)
+                if life.t_first is not None and n_out > 1:
+                    m["tpot"].observe(
+                        (t_fin - life.t_first) / (n_out - 1))
+        if _ot._ENABLED and life.trace_id is not None:
+            _ot.add_event(
+                "request", life.t_enq * 1e6, (t_fin - life.t_enq) * 1e6,
+                trace=(life.trace_id, life.root_span, None),
+                args={"request_id": str(rid), "finish_reason": reason})
+
     def _reject(self, request_id, prompt, reason: str, exc_type=None):
         """Load-shedding admission: record a rejected result instead of
         raising (shed_load=True), or raise (the default)."""
         if not self.shed_load:
             raise (exc_type or RuntimeError)(reason)
         self.stats["rejected_requests"] += 1
+        life = _Life(t_enq=time.perf_counter())
+        if _ot._ENABLED:
+            life.trace_id, life.root_span = (_ot.new_trace_id(),
+                                             _ot.new_span_id())
+        self._finish_obs(request_id, "rejected", life, 0)
         self._failed.append(GenerationResult(
             request_id=request_id, prompt_ids=prompt,
             output_ids=np.zeros((0,), np.int32),
@@ -558,10 +853,15 @@ class LLMEngine:
         not finished by then fails with finish_reason "deadline", queued
         or running, while the others keep serving. prefix_hashes: this
         prompt's `cache.block_hashes` chain, computed elsewhere;
-        admission uses it instead of hashing again."""
-        if obs_carry is not None:
-            raise NotImplementedError(
-                "add_request(obs_carry=...) is not ported yet")
+        admission uses it instead of hashing again.
+
+        obs_carry: a (trace_id, root_span, t_enq[, reserve]) tuple from
+        an EARLIER life of this request (a request re-served after its
+        first engine failed): the request stays ONE connected trace and
+        its TTFT, queue-wait and e2e keep charging the time the earlier
+        life burned. A true 4th element marks a re-serve: the new
+        life's prefill wall charges to the affinity_miss component of
+        the TTFT budget instead of prefill_compute."""
         if isinstance(prompt_ids, torch.Tensor):
             prompt_ids = prompt_ids.cpu().numpy()
         prompt = np.asarray(prompt_ids, dtype=np.int32).reshape(-1)
@@ -588,9 +888,23 @@ class LLMEngine:
                 f"({self.max_waiting})", RuntimeError)
         deadline = (self._now() + deadline_s
                     if deadline_s is not None else None)
+        # one trace per request lifetime (ids only while tracing is on;
+        # the timestamps are taken either way: SLO accounting needs them
+        # if metrics get enabled mid-flight)
+        t_now = time.perf_counter()
+        if obs_carry is not None:
+            trace_id, root, t_enq = obs_carry[:3]
+            life = _Life(trace_id, root, t_enq, recompute=bool(
+                obs_carry[3]) if len(obs_carry) > 3 else False)
+        else:
+            life = _Life(t_enq=t_now)
+            if _ot._ENABLED:
+                life.trace_id, life.root_span = (_ot.new_trace_id(),
+                                                 _ot.new_span_id())
         self.waiting.append(_Request(
             request_id, prompt, int(max_new_tokens), deadline=deadline,
-            hash_chain=list(prefix_hashes) if prefix_hashes else None))
+            hash_chain=list(prefix_hashes) if prefix_hashes else None,
+            life=life, t_queued=t_now))
 
     def abort_request(self, request_id) -> bool:
         """Cancel a queued or running request: its leased pages return
@@ -602,6 +916,8 @@ class LLMEngine:
             if req.rid == request_id:
                 self.waiting.remove(req)
                 self.stats["aborted_requests"] += 1
+                self._finish_obs(req.rid, "aborted", req.life,
+                                 len(req.resume_out))
                 self._failed.append(GenerationResult(
                     request_id=req.rid, prompt_ids=req.prompt,
                     output_ids=np.asarray(req.resume_out, np.int32),
@@ -613,6 +929,8 @@ class LLMEngine:
                 self.stats["aborted_requests"] += 1
                 self.cache.free_sequence(seq.rid)
                 self.slots[seq.slot] = None
+                self._finish_obs(seq.rid, "aborted", seq.life,
+                                 len(seq.out))
                 self._failed.append(GenerationResult(
                     request_id=seq.rid, prompt_ids=seq.prompt,
                     output_ids=np.asarray(seq.out, np.int32),
@@ -675,6 +993,25 @@ class LLMEngine:
             self.stats["prefix_cache_hit_tokens"] += ncached
             self.stats["prefix_cache_miss_tokens"] += \
                 req.context_len - ncached
+            if _om._ENABLED:
+                m = _metrics()
+                pm = m["prefix"]
+                if ncached:
+                    pm.labels(outcome="hit").inc(ncached)
+                pm.labels(outcome="miss").inc(req.context_len - ncached)
+                qw = time.perf_counter() - req.t_queued
+                seq.life.bud_queue += qw    # TTFT budget: queue wait
+                m["queue_wait"].observe(qw)
+            if _ot._ENABLED and req.life.trace_id is not None:
+                now = time.perf_counter()
+                _ot.add_event(
+                    "request.queue_wait", req.t_queued * 1e6,
+                    (now - req.t_queued) * 1e6,
+                    trace=(req.life.trace_id, _ot.new_span_id(),
+                           req.life.root_span),
+                    args={"request_id": str(req.rid),
+                          "resumed": bool(req.resume_out),
+                          "cached_tokens": ncached})
         return fresh
 
     def _preempt_one(self, exclude=None) -> bool:
@@ -688,9 +1025,19 @@ class LLMEngine:
         self.stats["preemptions"] += 1
         self.cache.free_sequence(victim.rid)
         self.slots[victim.slot] = None
+        now = time.perf_counter()
+        life = victim.life
+        if _ot._ENABLED and life.trace_id is not None:
+            _ot.add_event(
+                "request.preempt", now * 1e6, 0.0,
+                trace=(life.trace_id, _ot.new_span_id(), life.root_span),
+                args={"request_id": str(victim.rid),
+                      "generated": len(victim.out)})
         self.waiting.appendleft(_Request(
             victim.rid, victim.prompt, victim.max_new,
-            resume_out=list(victim.out), deadline=victim.deadline))
+            resume_out=list(victim.out), deadline=victim.deadline,
+            life=life, t_queued=now))
+        life.recompute = True
         return True
 
     def _grow(self, seq: _Seq, by: int) -> bool:
@@ -705,6 +1052,46 @@ class LLMEngine:
                     return False
 
     # -- device steps ------------------------------------------------------
+    def _run_prefills(self, seqs: List[_Seq]) -> List[int]:
+        """ONE ragged packed pass over every admitted sequence's uncached
+        tokens. Returns each sequence's first sampled token; a failure
+        while the wave is built raises `_BeforeLaunch`."""
+        t0 = time.perf_counter()
+        with _ot.span("engine.prefill", seqs=len(seqs)):
+            try:
+                entries, merged = self._prefill_entries(seqs)
+            except Exception as e:
+                raise _BeforeLaunch() from e
+            out = self._launch_prefills(seqs, entries, merged)
+        t1 = time.perf_counter()
+        _metrics()["prefill"].observe(t1 - t0)
+        if _om._ENABLED:
+            # TTFT budget: every sequence of the wave waited its whole
+            # wall; a recompute life's charges to affinity_miss (the
+            # packed waves build no executable: no compile stall)
+            work = t1 - t0
+            for s in seqs:
+                if self.slots[s.slot] is not s:
+                    continue
+                if s.life.recompute:
+                    s.life.bud_miss += work
+                else:
+                    s.life.bud_prefill += work
+        if _ot._ENABLED:
+            # per-request attribution of the packed pass: each sequence
+            # gets a child event in ITS trace spanning the wave
+            for s in seqs:
+                if s.life.trace_id is None or self.slots[s.slot] is not s:
+                    continue
+                _ot.add_event(
+                    "request.prefill", t0 * 1e6, (t1 - t0) * 1e6,
+                    trace=(s.life.trace_id, _ot.new_span_id(),
+                           s.life.root_span),
+                    args={"request_id": str(s.rid),
+                          "cached_tokens": s.cached_len,
+                          "prefill_tokens": s.length - s.cached_len})
+        return out
+
     def _launch_prefills(self, seqs, entries, merged) -> List[int]:
         """ONE ragged packed pass over the wave `_prefill_entries`
         built for `seqs`. Returns each sequence's first sampled
@@ -869,16 +1256,78 @@ class LLMEngine:
             spans[b] = (c, m)
             c += m
         dev = self.device
-        with self._step_watchdog("engine ragged launch"):
-            nxt = self._ragged_wave(
-                *(torch.from_numpy(a).to(dev)
-                  for a in (ids, rows, pos, kvs, off, wf, sel)), with_pool,
-                all_pos)
-            nxt = nxt.cpu().numpy().astype(np.int32)
+        t0 = time.perf_counter()
+        with _ot.span("engine.ragged", rows=len(entries), tokens=T_raw,
+                      bucket=tb, path=dev.type):
+            with self._step_watchdog("engine ragged launch"):
+                nxt = self._ragged_wave(
+                    *(torch.from_numpy(a).to(dev)
+                      for a in (ids, rows, pos, kvs, off, wf, sel)),
+                    with_pool, all_pos)
+                nxt = nxt.cpu().numpy().astype(np.int32)
+        t1 = time.perf_counter()
         self.stats["ragged_launches"] += 1
+        if _om._ENABLED:
+            # roofline: the wave's tokens are read back above, so the
+            # host clock around it covers its device time
+            _metrics()["ragged"].observe(t1 - t0)
+            _pf.observe_roofline("engine_ragged", t1 - t0,
+                                 self._ragged_cost(entries, all_pos))
         if all_pos:
             return {b: nxt[cc:cc + m] for b, (cc, m) in spans.items()}
         return {b: nxt[b:b + 1] for b in spans}
+
+    def _ragged_cost(self, entries, all_pos):
+        """The packed wave's expectation (`perf.count_cost`): its live
+        tokens, the context each attends, the rows' cached pages."""
+        tokens = attended = cached = 0
+        for _s, toks, st, _ap in entries:
+            m = len(toks)
+            tokens += m
+            cached += st
+            attended += m * st + m * (m + 1) // 2
+        head_rows = tokens if all_pos else len(entries)
+        c = self._cost_shape
+        return _pf.count_cost(
+            "engine_ragged", tokens=tokens, head_rows=head_rows,
+            attended=attended, cached=cached,
+            logits_bytes=head_rows * c["logit_bytes"], **c)
+
+    def _decode_cost(self, rows, steps, attended):
+        """A decode chunk's expectation (`perf.count_cost`)."""
+        c = self._cost_shape
+        return _pf.count_cost(
+            "engine_decode", steps=steps, rows=rows, attended=attended,
+            logits_bytes=rows * c["logit_bytes"], **c)
+
+    def _run_decode_chunk(self, only: Optional[_Seq] = None
+                          ) -> Dict[int, np.ndarray]:
+        """One chunk of decode steps for every active slot (or for
+        `only`: the poisoned-request isolation retry). Returns {slot: np
+        tokens [chunk]}; a failure of the lease phase raises
+        `_BeforeLaunch`."""
+        t0 = time.perf_counter()
+        with _ot.span("engine.decode_chunk"):
+            try:
+                lease = self._lease_decode_chunk(only)
+            except Exception as e:
+                raise _BeforeLaunch() from e
+            out = self._launch_decode_chunk(lease)
+        if out:     # skip empty calls (no active slots)
+            t1 = time.perf_counter()
+            _metrics()["decode"].observe(t1 - t0)
+            if _ot._ENABLED:
+                for slot in out:
+                    s = self.slots[slot]
+                    if s is None or s.life.trace_id is None:
+                        continue
+                    _ot.add_event(
+                        "request.decode_chunk", t0 * 1e6,
+                        (t1 - t0) * 1e6,
+                        trace=(s.life.trace_id, _ot.new_span_id(),
+                               s.life.root_span),
+                        args={"request_id": str(s.rid)})
+        return out
 
     def _lease_decode_chunk(self, only: Optional[_Seq] = None):
         """The host phase of a decode chunk for every active slot (or
@@ -939,10 +1388,20 @@ class LLMEngine:
         # graph was captured for; the padding is trash pages past every
         # row's length, which the attention masks out
         width = -(-int(lens.max() + chunk) // bs)
+        t0 = time.perf_counter()
         with self._step_watchdog("engine decode chunk"):
             toks = self._decode_chunk(
                 cur, lens, tbl[:, :_width_bucket(width, self.npb_full)],
                 chunk)
+        if _om._ENABLED and not self._captured:
+            # the chunk's tokens are read back inside _decode_chunk, so
+            # this host clock covers its device time (host prep of the
+            # inputs excluded); a chunk that captured is no sample
+            attended = sum(chunk * s.length + chunk * (chunk + 1) // 2
+                           for s in active)
+            _pf.observe_roofline(
+                "engine_decode", time.perf_counter() - t0,
+                self._decode_cost(len(active), chunk, attended))
         self.stats["decode_chunks"] += 1
         out = {}
         for s in active:
@@ -1021,6 +1480,7 @@ class LLMEngine:
             self._dec_step.zero_()
 
         load()
+        self._captured = False
         if self._eager_decode:
             for _ in range(chunk):
                 self._decode_step(inp)
@@ -1029,9 +1489,15 @@ class LLMEngine:
             if graph is None:
                 if self._graph_pool is None:
                     self._graph_pool = torch.cuda.graph_pool_handle()
+                # the graph's expectation: one step over every row and
+                # the width's every slot, as the capture computes it
+                B = self.max_batch
                 graph = self._dec_graphs[W] = CapturedStep(
                     "engine_decode", lambda: self._decode_step(inp),
-                    pool=self._graph_pool, generators=(self._gen,))
+                    pool=self._graph_pool, generators=(self._gen,),
+                    expected=self._decode_cost(
+                        B, 1, B * W * self.block_size))
+                self._captured = True
                 load()
             for _ in range(chunk):
                 graph.replay()
@@ -1108,6 +1574,7 @@ class LLMEngine:
             return True                 # everything preempted mid-lease
         tgt, active = self._spec_device_phase(entries)
         self.stats["spec_steps"] += 1
+        step_drafted = step_accepted = 0
         for s in active:
             b = s.slot
             d = drafts[b]
@@ -1119,11 +1586,11 @@ class LLMEngine:
                 if len(s.out) >= s.max_new:
                     break
                 s.out.append(int(t))
-                self.stats["decode_tokens"] += 1
                 if (self.eos_token_id is not None
                         and int(t) == self.eos_token_id):
                     break
             n_app = len(s.out) - n_before
+            self.stats["decode_tokens"] += n_app
             # KV rollback: the cache holds valid KV exactly for the
             # committed tokens; rejected positions' writes fall past the
             # truncated lease (pages unref'd, never hash-indexed)
@@ -1133,8 +1600,20 @@ class LLMEngine:
             # accepted = drafts that COMMITTED (a match clamped by eos
             # or max_new was rolled back like a mismatch)
             a = min(a, n_app)
+            step_drafted += len(d)
+            step_accepted += a
             self.stats["spec_drafted_tokens"] += len(d)
             self.stats["spec_accepted_tokens"] += a
+            if _ot._ENABLED and s.life.trace_id is not None:
+                _ot.add_event(
+                    "request.verify", self._t_verify0 * 1e6,
+                    (self._t_verify1 - self._t_verify0) * 1e6,
+                    trace=(s.life.trace_id, _ot.new_span_id(),
+                           s.life.root_span),
+                    args={"request_id": str(s.rid),
+                          "drafted": int(len(d)),
+                          "accepted": int(a),
+                          "committed": int(n_app)})
             if self.cache.enable_prefix_caching:
                 # as after a decode chunk: only fully ACCEPTED full
                 # blocks can reach the hash index
@@ -1145,6 +1624,16 @@ class LLMEngine:
                         [ctxs[b], np.asarray(s.out[n_before:], np.int32)])
                     self.cache.commit_prefix(s.rid, merged, upto=ntok)
             self._maybe_finish(s, finished)
+        if _om._ENABLED:
+            m = _metrics()
+            if step_accepted:
+                m["spec"].labels(outcome="accepted").inc(step_accepted)
+            if step_drafted - step_accepted:
+                m["spec"].labels(outcome="rejected").inc(
+                    step_drafted - step_accepted)
+            if self.stats["spec_drafted_tokens"]:
+                m["spec_rate"].set(self.stats["spec_accepted_tokens"]
+                                   / self.stats["spec_drafted_tokens"])
         return True
 
     def _spec_lease(self, drafts):
@@ -1183,7 +1672,15 @@ class LLMEngine:
         """The verify wave: every window position of every row scored in
         one packed launch. Returns ({slot: np.int32 [1+len(drafts)]
         greedy targets}, the rows)."""
-        return self._run_ragged(entries), [e[0] for e in entries]
+        k_step = max(len(e[1]) for e in entries) - 1
+        t0 = time.perf_counter()
+        with _ot.span("engine.verify", rows=len(entries), k=k_step):
+            tgt = self._run_ragged(entries)
+        t1 = time.perf_counter()
+        self._t_verify0, self._t_verify1 = t0, t1
+        if _om._ENABLED:
+            _metrics()["verify"].observe(t1 - t0)
+        return tgt, [e[0] for e in entries]
 
     # -- failures ----------------------------------------------------------
     def _fail_seq(self, seq: _Seq, reason: str, finish_reason: str,
@@ -1193,6 +1690,7 @@ class LLMEngine:
         self.stats["failed_requests"] += 1
         self.cache.free_sequence(seq.rid)
         self.slots[seq.slot] = None
+        self._finish_obs(seq.rid, finish_reason, seq.life, len(seq.out))
         finished.append(GenerationResult(
             request_id=seq.rid, prompt_ids=seq.prompt,
             output_ids=np.asarray(seq.out, np.int32),
@@ -1209,6 +1707,12 @@ class LLMEngine:
             self.waiting.remove(req)
             self.stats["deadline_expired"] += 1
             self.stats["failed_requests"] += 1
+            self._finish_obs(req.rid, "deadline", req.life,
+                             len(req.resume_out))
+            if _fl._ARMED:
+                _fl.trigger("deadline_miss", detail={
+                    "request_id": str(req.rid), "where": "queued",
+                    "overrun_s": now - req.deadline})
             finished.append(GenerationResult(
                 request_id=req.rid, prompt_ids=req.prompt,
                 output_ids=np.asarray(req.resume_out, np.int32),
@@ -1218,6 +1722,10 @@ class LLMEngine:
         for seq in [s for s in self.slots if s is not None]:
             if seq.deadline is not None and now >= seq.deadline:
                 self.stats["deadline_expired"] += 1
+                if _fl._ARMED:
+                    _fl.trigger("deadline_miss", detail={
+                        "request_id": str(seq.rid), "where": "running",
+                        "overrun_s": now - seq.deadline})
                 self._fail_seq(seq, "deadline expired mid-generation",
                                "deadline", finished)
 
@@ -1229,23 +1737,22 @@ class LLMEngine:
         the ones that still raise before their launch are failed and
         evicted. A launch that raises propagates."""
         try:
-            entries, merged = self._prefill_entries(seqs)
-        except Exception:
+            return list(zip(seqs, self._run_prefills(seqs)))
+        except _BeforeLaunch:
             pairs = []
             for s in seqs:
                 if self.slots[s.slot] is not s:  # preempted meanwhile
                     continue
                 try:
-                    entries, merged = self._prefill_entries([s])
-                except Exception as e:
+                    (first,) = self._run_prefills([s])
+                except _BeforeLaunch as e:
+                    err = e.__cause__
                     self._fail_seq(
-                        s, f"prefill raised {type(e).__name__}: {e}",
+                        s, f"prefill raised {type(err).__name__}: {err}",
                         "error", finished)
                     continue
-                (first,) = self._launch_prefills([s], entries, merged)
                 pairs.append((s, first))
             return pairs
-        return list(zip(seqs, self._launch_prefills(seqs, entries, merged)))
 
     def _safe_decode_chunk(self, finished: List[GenerationResult]
                            ) -> Dict[int, np.ndarray]:
@@ -1256,8 +1763,8 @@ class LLMEngine:
         undersized pool): it is raised, unless shed_load says degrade
         anyway. A launch that raises propagates."""
         try:
-            lease = self._lease_decode_chunk()
-        except Exception:
+            return self._run_decode_chunk()
+        except _BeforeLaunch as first:
             out: Dict[int, np.ndarray] = {}
             survivors = 0
             casualties = []
@@ -1265,20 +1772,18 @@ class LLMEngine:
                 if self.slots[s.slot] is not s:  # preempted meanwhile
                     continue
                 try:
-                    lease = self._lease_decode_chunk(only=s)
-                except Exception as e:
-                    casualties.append((s, e))
+                    out.update(self._run_decode_chunk(only=s))
+                except _BeforeLaunch as e:
+                    casualties.append((s, e.__cause__))
                     continue
-                out.update(self._launch_decode_chunk(lease))
                 survivors += 1
             if casualties and not survivors and not self.shed_load:
-                raise
+                raise first.__cause__
             for s, e in casualties:
                 self._fail_seq(
                     s, f"decode raised {type(e).__name__}: {e}",
                     "error", finished)
             return out
-        return self._launch_decode_chunk(lease)
 
     # -- main loop ---------------------------------------------------------
     def step(self) -> List[GenerationResult]:
@@ -1287,6 +1792,58 @@ class LLMEngine:
         chunk, retire finished sequences (paddle_tpu's _step_impl, in
         its order). Returns the results finished this step, failed,
         rejected, aborted and expired ones included (check `.ok`)."""
+        t0 = time.perf_counter()
+        pre0 = self.stats["preemptions"] if _fl._ARMED else 0
+        with _ot.span("engine.step") as sp:
+            finished = self._step_impl()
+        dt = time.perf_counter() - t0
+        if _om._ENABLED:
+            m = _metrics()
+            m["step"].observe(dt)
+            m["queue"].labels(queue="waiting").set(len(self.waiting))
+            m["queue"].labels(queue="running").set(
+                sum(s is not None for s in self.slots))
+            free = self.cache.allocator.num_free
+            nb = self.cache.allocator.num_blocks
+            m["pool"].labels(state="free").set(free)
+            m["pool"].labels(state="used").set(nb - free)
+            m["prefix_pages"].labels(state="indexed").set(
+                self.cache.cached_pages)
+            m["prefix_pages"].labels(state="lru").set(
+                self.cache.lru_pages)
+            # HBM at the step boundary: the pool is the engine's
+            # dominant persistent allocation; the live bytes (the
+            # caching allocator's, read at most once a second) the
+            # process's whole footprint on the card
+            m["hbm_pool"].labels(state="reserved").set(self._pool_bytes)
+            m["hbm_pool"].labels(state="used").set(
+                self._pool_bytes * (nb - free) // max(nb, 1))
+            now = time.perf_counter()
+            if now - self._hbm_sampled_at >= 1.0:
+                m["hbm_live"].set(
+                    torch.cuda.memory_allocated(self.device)
+                    if self.device.type == "cuda" else 0)
+                self._hbm_sampled_at = now
+        if _fl._ARMED:
+            cfg = _fl.config()
+            thr = cfg.step_latency_threshold_s if cfg else None
+            storm = cfg.preempt_storm if cfg else None
+            if thr is not None and dt > thr:
+                _fl.trigger("step_latency", detail={
+                    "step_seconds": dt, "threshold_s": thr,
+                    "trace_id": sp.trace_id, "span_id": sp.span_id},
+                    extra={"engine_stats": dict(self.stats)})
+            elif storm and \
+                    self.stats["preemptions"] - pre0 >= storm:
+                _fl.trigger("preempt_storm", detail={
+                    "preemptions_in_step":
+                        self.stats["preemptions"] - pre0,
+                    "threshold": storm,
+                    "trace_id": sp.trace_id, "span_id": sp.span_id},
+                    extra={"engine_stats": dict(self.stats)})
+        return finished
+
+    def _step_impl(self) -> List[GenerationResult]:
         finished: List[GenerationResult] = []
         if self._failed:                    # rejections and aborts
             finished.extend(self._failed)
@@ -1298,6 +1855,10 @@ class LLMEngine:
             for seq, first in self._safe_prefills(fresh, finished):
                 seq.out.append(first)
                 self.stats["decode_tokens"] += 1
+                if seq.life.t_first is None:    # resumed lives keep it
+                    seq.life.t_first = time.perf_counter()
+                    if _om._ENABLED:
+                        self._observe_ttft(seq)
                 self._maybe_finish(seq, finished)
         if self._proposer is not None and self._run_spec_step(finished):
             # the speculative step committed tokens, rolled the leases
@@ -1307,14 +1868,17 @@ class LLMEngine:
             seq = self.slots[slot]
             if seq is None:
                 continue
+            n_before = len(seq.out)
             for t in toks:
                 if len(seq.out) >= seq.max_new:
                     break
                 seq.out.append(int(t))
-                self.stats["decode_tokens"] += 1
                 if (self.eos_token_id is not None
                         and int(t) == self.eos_token_id):
                     break
+            # counted once a row, not a token: a `stats` write mirrors
+            # onto the registry while observability is on
+            self.stats["decode_tokens"] += len(seq.out) - n_before
             if self.cache.enable_prefix_caching:
                 # register newly FILLED full blocks before the sequence
                 # can retire, capped at what the chunk actually wrote
@@ -1326,16 +1890,36 @@ class LLMEngine:
             self._maybe_finish(seq, finished)
         return finished
 
+    @staticmethod
+    def _observe_ttft(seq: _Seq) -> None:
+        """The first token's TTFT and its budget: the accumulated
+        components plus a residual, so the five observations sum to the
+        TTFT observation exactly."""
+        m = _metrics()
+        life = seq.life
+        ttft = life.t_first - life.t_enq
+        m["ttft"].observe(ttft)
+        known = (life.bud_queue + life.bud_prefill + life.bud_miss
+                 + life.bud_compile)
+        bh = m["ttft_budget"]
+        bh.labels(component="queue_wait").observe(life.bud_queue)
+        bh.labels(component="prefill_compute").observe(life.bud_prefill)
+        bh.labels(component="affinity_miss").observe(life.bud_miss)
+        bh.labels(component="compile_stall").observe(life.bud_compile)
+        bh.labels(component="other").observe(max(ttft - known, 0.0))
+
     def _maybe_finish(self, seq: _Seq, finished: List[GenerationResult]):
         done_eos = (self.eos_token_id is not None and seq.out
                     and seq.out[-1] == self.eos_token_id)
         done_len = len(seq.out) >= seq.max_new
         if not (done_eos or done_len):
             return
+        reason = "eos" if done_eos else "length"
+        self._finish_obs(seq.rid, reason, seq.life, len(seq.out))
         finished.append(GenerationResult(
             request_id=seq.rid, prompt_ids=seq.prompt,
             output_ids=np.asarray(seq.out, np.int32),
-            finish_reason="eos" if done_eos else "length"))
+            finish_reason=reason))
         self.cache.free_sequence(seq.rid)
         self.slots[seq.slot] = None
 

@@ -25,9 +25,21 @@ place, on the card through one pinned host-to-device copy a batch on a
 copy stream of the loader's own, which the consumer's stream waits on.
 In the buffered tier that copy is issued from the prefetch thread.
 
-Departures: a native library that does not build raises (the reference
-falls back to the buffered thread); the loader's metrics and the
-workers' farewell observability wait for ROADMAP item 8."""
+Observability (the reference's series, recorded only while enabled):
+``paddle_tpu_dataloader_batch_wait_seconds``, the consumer's wait for
+its next batch in the buffered, thread-worker and process tiers (the
+direct tier waits for nothing, as in the reference); in the process
+tier ``paddle_tpu_dataloader_worker_restarts_total``,
+``paddle_tpu_dataloader_shm_bytes_total`` and
+``paddle_tpu_dataloader_shm_bytes_in_flight`` (counted where the
+receiving thread takes a payload), and the spawned workers' own
+``paddle_tpu_dataloader_worker_batch_seconds`` /
+``paddle_tpu_dataloader_worker_batches_total`` and "io.worker.batch"
+trace events, shipped back in each worker's farewell bundle and merged
+into this process (`observability.fleet.merge_bundle_local`).
+
+Departure: a native library that does not build raises (the reference
+falls back to the buffered thread)."""
 from __future__ import annotations
 
 import os
@@ -40,6 +52,8 @@ import numpy as np
 import torch
 
 from ..core.device import default_torch_device
+from ..observability import metrics as _om
+from ..observability import tracing as _ot
 from ..core.generator import default_generator
 from ..core.tensor import Tensor
 from ._device_feed import DeviceFeed
@@ -49,6 +63,44 @@ __all__ = ["Dataset", "IterableDataset", "TensorDataset", "ComposeDataset",
            "SequenceSampler", "RandomSampler", "WeightedRandomSampler",
            "BatchSampler", "DistributedBatchSampler", "default_collate_fn",
            "DataLoader", "get_worker_info"]
+
+
+# process-global DataLoader metrics (handles cached: the disabled path
+# through any of them is one module-flag check inside inc/observe)
+_IO_METRICS = None
+
+
+def _io_metrics():
+    global _IO_METRICS
+    if _IO_METRICS is None:
+        r = _om.registry()
+        _IO_METRICS = {
+            "wait": r.histogram(
+                "paddle_tpu_dataloader_batch_wait_seconds",
+                "consumer-side wait for the next batch (all tiers)"),
+            "restarts": r.counter(
+                "paddle_tpu_dataloader_worker_restarts_total",
+                "spawned workers respawned after dying without "
+                "reporting (OOM kill, segfault)"),
+            "shm_bytes": r.counter(
+                "paddle_tpu_dataloader_shm_bytes_total",
+                "bytes transported worker->parent via SharedMemory "
+                "segments"),
+            "shm_inflight": r.gauge(
+                "paddle_tpu_dataloader_shm_bytes_in_flight",
+                "SharedMemory payload bytes received but not yet "
+                "copied out of /dev/shm"),
+        }
+    return _IO_METRICS
+
+
+def _merge_farewell(payload) -> None:
+    """Fold a spawned worker's farewell bundle into this process: its
+    metric snapshot merges additively, its trace events append to the
+    ring verbatim (their pid tells them apart; perf_counter is
+    CLOCK_MONOTONIC on Linux, so the timestamps interleave)."""
+    from ..observability import fleet as _ofleet
+    _ofleet.merge_bundle_local(payload)
 
 
 class Dataset:
@@ -525,11 +577,16 @@ class DataLoader:
         def seg_prefix(w, attempt):
             return f"{prefix}w{w}a{attempt}_"
 
+        # workers take this process's observability flags at spawn time
+        # and ship their metric snapshots and trace events back with
+        # their "done" farewell
+        obs_on = (_om._ENABLED, _ot._ENABLED)
+
         def spawn(w, resume_from=0, attempt=0):
             p = ctx.Process(
                 target=PW.worker_main,
                 args=(w, W, payload_bytes, idx_batches, queues[w], stop,
-                      resume_from, specs, attempt, False,
+                      resume_from, specs, attempt, obs_on,
                       seg_prefix(w, attempt)),
                 daemon=True)
             p.start()
@@ -558,6 +615,7 @@ class DataLoader:
                                 f"exhausted its {self.max_worker_restarts}"
                                 " restarts") from None
                         restarts[w] += 1
+                        _io_metrics()["restarts"].inc()
                         backoff = min(0.05 * (1 << (restarts[w] - 1)), 2.0)
                         warnings.warn(
                             f"DataLoader worker {w} died without "
@@ -576,6 +634,8 @@ class DataLoader:
                                 break
                             if kind == "batch":
                                 PW.discard(payload)
+                            elif kind == "done":
+                                _merge_farewell(payload)
                         PW.sweep(seg_prefix(w, restarts[w] - 1))
                         queues[w] = ctx.Queue(maxsize=self.prefetch_factor)
                         q = queues[w]
@@ -593,7 +653,10 @@ class DataLoader:
                     raise RuntimeError(
                         f"DataLoader worker {tag} failed:\n{payload}")
                 if kind == "done":
-                    continue        # a finished worker's farewell
+                    # a finished worker's farewell (its successor may
+                    # still owe batches): merge its metrics and trace
+                    _merge_farewell(payload)
+                    continue
                 if kind != "batch":
                     raise RuntimeError(f"DataLoader: unexpected message "
                                        f"{kind!r} from worker {tag}")
@@ -608,6 +671,20 @@ class DataLoader:
             return None
 
         def receive(payload):
+            shm_bytes = 0
+            if _om._ENABLED:
+                shm_bytes = PW.shm_payload_bytes(payload)
+                if shm_bytes:
+                    iom = _io_metrics()
+                    iom["shm_bytes"].inc(shm_bytes)
+                    iom["shm_inflight"].inc(shm_bytes)
+            try:
+                return copy_out(payload)
+            finally:
+                if shm_bytes:
+                    _io_metrics()["shm_inflight"].dec(shm_bytes)
+
+        def copy_out(payload):
             if custom is not None:
                 return PW.unpack(payload)
             if feed.device.type != "cuda":
@@ -639,11 +716,17 @@ class DataLoader:
         thread.start()
         try:
             while True:
+                # one wait a batch, as the reference's tier observes it
+                # (the end-of-epoch sentinel's wait is not a batch's)
+                obs = _om._ENABLED
+                t0 = time.perf_counter() if obs else 0.0
                 item = out.get()
                 if item is sentinel:
                     if err:
                         raise err[0]
                     break
+                if obs:
+                    _io_metrics()["wait"].observe(time.perf_counter() - t0)
                 yield self._take(item, feed)
         finally:
             done.set()
@@ -667,6 +750,10 @@ class DataLoader:
                         break
                     if kind == "batch":
                         PW.discard(payload)
+                    elif kind == "done":
+                        # the common race: the farewell lands after the
+                        # last batch was consumed; merge it here
+                        _merge_farewell(payload)
             PW.sweep(prefix)
 
     def _iter_buffered(self, feed):
@@ -692,7 +779,14 @@ class DataLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                # the end-of-epoch sentinel's wait counts too, as in the
+                # reference's buffered tier
+                if _om._ENABLED:
+                    t0 = time.perf_counter()
+                    item = q.get()
+                    _io_metrics()["wait"].observe(time.perf_counter() - t0)
+                else:
+                    item = q.get()
                 if item is sentinel:
                     if err:
                         raise err[0]
@@ -748,6 +842,8 @@ class DataLoader:
             t.start()
         try:
             for bi in range(len(idx_batches)):
+                obs = _om._ENABLED
+                t0 = time.perf_counter() if obs else 0.0
                 while True:
                     if errs:
                         raise errs[0]
@@ -756,6 +852,8 @@ class DataLoader:
                         break
                     except TimeoutError:
                         continue
+                if obs:
+                    _io_metrics()["wait"].observe(time.perf_counter() - t0)
                 if batch is _WORKER_ERROR:
                     raise errs[0] if errs else RuntimeError(
                         "dataloader worker failed")

@@ -39,13 +39,20 @@ consumer, so the parent unlinks them by name (`sweep`): a dead
 incarnation's after draining its queue, and the whole epoch's when the
 iterator ends.
 
-Observability (the reference's worker metrics and trace events) waits
-for ROADMAP item 8: `obs_enabled` is kept and must be off, and the
-"done" farewell carries None."""
+Observability: a worker takes the parent's flags at spawn
+(`obs_enabled`); with them on it records its produce latency and batch
+count (``paddle_tpu_dataloader_worker_batch_seconds``,
+``paddle_tpu_dataloader_worker_batches_total``) and an "io.worker.batch"
+trace event a batch, and ships them in its "done" farewell as a fleet
+bundle (`observability.fleet.worker_farewell`, None when observability
+is off), which the parent merges. A worker killed before its farewell
+loses its partial series; its replacement recounts the recomputed
+batches."""
 from __future__ import annotations
 
 import os
 import secrets
+import time
 import traceback
 
 import numpy as np
@@ -259,8 +266,8 @@ def worker_main(wid, num_workers, payload_bytes, idx_batches, out_queue,
     attempt: this worker slot's incarnation number (0 = original spawn),
     in the fault context so a chaos kill can target only the first life
     (match={"bi": 2, "attempt": 0}) and let the respawn survive.
-    obs_enabled: the parent's observability flags; observability is not
-    ported yet (ROADMAP item 8), so a true value raises.
+    obs_enabled: the parent's observability flags at spawn time, a
+    (metrics, tracing) pair (a bare bool means metrics only).
     shm_name_prefix: the prefix of this worker's segment names."""
     import pickle
     import queue as _q
@@ -268,15 +275,32 @@ def worker_main(wid, num_workers, payload_bytes, idx_batches, out_queue,
     # runs before any user code (dataset unpickle / init fn) executes
     _hide_the_card()
     try:
-        flags = obs_enabled if isinstance(obs_enabled, tuple) \
-            else (obs_enabled,)
-        if any(flags):
-            raise NotImplementedError(
-                "DataLoader worker observability is not ported yet "
-                "(ROADMAP item 8)")
         dataset, collate_fn, worker_init_fn = pickle.loads(payload_bytes)
         from ..resilience import faults
         faults.install(fault_specs)
+        metrics_on, tracing_on = (
+            obs_enabled if isinstance(obs_enabled, tuple)
+            else (obs_enabled, False))
+        wm = wt = None
+        if metrics_on or tracing_on:
+            from ..observability import metrics as _om
+            from ..observability import tracing as _otr
+            if tracing_on:
+                _otr.enable()
+                wt = _otr
+            if metrics_on:
+                _om.enable()
+                r = _om.registry()
+                wm = {
+                    "produce": r.histogram(
+                        "paddle_tpu_dataloader_worker_batch_seconds",
+                        "worker-side dataset load + collate + shm pack "
+                        "time per batch"),
+                    "batches": r.counter(
+                        "paddle_tpu_dataloader_worker_batches_total",
+                        "batches produced by spawned DataLoader "
+                        "workers"),
+                }
         global _WORKER_INFO
         import types
         _WORKER_INFO = types.SimpleNamespace(
@@ -291,6 +315,7 @@ def worker_main(wid, num_workers, payload_bytes, idx_batches, out_queue,
                 return
             faults.fault_point("io.worker.batch", wid=wid, bi=bi,
                                attempt=attempt)
+            t_produce = time.perf_counter() if (wm or wt) else 0.0
             samples = [dataset[i] for i in idx_batches[bi]]
             batch = collate(samples)
             segments = []
@@ -302,6 +327,17 @@ def worker_main(wid, num_workers, payload_bytes, idx_batches, out_queue,
                 # tracker, so this worker must unlink them
                 release(segments)
                 raise
+            if wm:
+                wm["produce"].observe(time.perf_counter() - t_produce)
+                wm["batches"].inc()
+            if wt:
+                # one trace event a produced batch, recorded in this
+                # process (its pid); it ships with the farewell
+                t_done = time.perf_counter()
+                wt.add_event("io.worker.batch", t_produce * 1e6,
+                             (t_done - t_produce) * 1e6,
+                             args={"wid": wid, "bi": bi,
+                                   "attempt": attempt})
             placed = False
             while not stop_event.is_set():
                 try:
@@ -315,12 +351,21 @@ def worker_main(wid, num_workers, payload_bytes, idx_batches, out_queue,
             if not placed:      # consumer went away: free the payload
                 discard(payload)
                 return
-        # the farewell: stop-aware like the batch puts, but always
-        # attempted at least once (the parent sets stop the instant it
-        # consumes the last batch; its post-join drain reads this)
+        # the farewell carries this worker's observability as a fleet
+        # bundle (None when observability is off). Stop-aware like the
+        # batch puts, but always attempted at least once (the parent
+        # sets stop the instant it consumes the last batch; its
+        # post-join drain reads this)
+        snap = None
+        if wm is not None or wt is not None:
+            from ..observability import fleet as _ofleet
+            _ofleet.set_identity(process=f"io-worker-{wid}",
+                                 role="io-worker")
+            snap = _ofleet.worker_farewell(metrics=wm is not None,
+                                           trace=wt is not None)
         while True:
             try:
-                out_queue.put(("done", wid, None), timeout=0.2)
+                out_queue.put(("done", wid, snap), timeout=0.2)
                 break
             except _q.Full:
                 if stop_event.is_set():

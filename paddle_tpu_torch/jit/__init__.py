@@ -50,13 +50,32 @@ The forward and the update run inside profiler ranges
 of an eager step splits its device time into forward, backward (the
 rest: autograd launches it from its own thread) and update
 (tools/torch_train_profile.py); a replay is one graph launch to the
-profiler. With no profiler active a range costs a few microseconds."""
+profiler. With no profiler active a range costs a few microseconds.
+
+Observability (while enabled): the first call of each batch signature is
+the "train_step" family's compile (on the card the graph's capture
+reports it, `cuda_graph.CapturedStep`; on the CPU the TrainStep reports
+its eager first call), with the family's expectation counted from the
+shapes (`observability.perf.count_cost`) for a model that states its
+`attention_shape()` (the GPT, LLaMA and BERT models do; another model
+records no expectation and no roofline). The
+``train_step`` roofline takes each later step's time from CUDA events
+recorded on the step's stream around its replay, read at a later call
+once they have completed: a replay is one launch, so the host runs
+ahead of the card and a host clock between calls would measure
+nothing. Reading them adds no synchronisation. On the CPU the step is
+synchronous and the host clock around it is the step's time. As in the
+reference, the first call of a signature (its capture) gives no sample
+and a call's sample is published at a later call: after N calls of one
+signature, N - 2 samples."""
 from __future__ import annotations
 
+import collections
 import functools
 import io
 import os
 import pickle
+import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -68,6 +87,8 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from ..core.tensor import Tensor
 from ..kernels import tracing
 from ..nn.layer import Layer
+from ..observability import metrics as _om
+from ..observability import perf as _pf
 from ..optimizer.lr import LRScheduler
 from ..utils.watchdog import watchdog
 from .cuda_graph import CapturedStep, GraphCache
@@ -666,6 +687,12 @@ class TrainStep:
             optimizer._get_state(p)
         self._step_count = 0
         self._graphs = GraphCache()   # one graph per batch signature
+        # observability: the signatures whose first (compile) call ran
+        # eagerly, their expectations, and the timings of earlier steps
+        # not read yet: ((start, end) CUDA events or host seconds, the
+        # step's expectation)
+        self._compiled = {}
+        self._pending = collections.deque()
         # checking only: run steps on CUDA parameters eagerly, without a
         # graph (the same update in place)
         self._eager = False
@@ -682,23 +709,92 @@ class TrainStep:
         kwargs = {k: v._data if isinstance(v, Tensor) else v
                   for k, v in kwargs.items()}
         opt = self.optimizer
+        obs = _om._ENABLED
+        if obs:
+            self._read_timings()
         # FLAGS_watchdog_timeout_s arms a hang detector around the step,
         # as the reference's TrainStep does; armed, the step waits for
         # the card so that the detector sees the device finish
         with watchdog(what=f"TrainStep step {self._step_count}") as wd:
             if self.device.type == "cuda" and not self._eager:
-                loss = self._graph_step(args, kwargs)
+                loss = self._graph_step(args, kwargs, obs)
             else:
-                loss = self._step_in_place(
-                    [self._batch(a) for a in args],
-                    {k: self._batch(v) if isinstance(v, torch.Tensor)
-                     else v for k, v in kwargs.items()})
+                loss = self._eager_step(args, kwargs, obs)
             if wd is not None and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         self._step_count += 1
         if isinstance(opt._lr, LRScheduler):
             opt._lr.step()
         return loss
+
+    def _eager_step(self, args, kwargs, obs):
+        """One step run eagerly (the CPU, or `_eager` on the card), its
+        compile and time reported while observability is on: the first
+        call of a signature is the family's compile, a later call's
+        host time a roofline sample (a CPU step is synchronous)."""
+        first = False
+        if obs:
+            key = self._key(args, kwargs)
+            first = key not in self._compiled
+            if first:
+                self._compiled[key] = _pf.record_compile(
+                    "train_step", self._count_cost(args))
+        t0 = time.perf_counter()
+        loss = self._step_in_place(
+            [self._batch(a) for a in args],
+            {k: self._batch(v) if isinstance(v, torch.Tensor)
+             else v for k, v in kwargs.items()})
+        if obs:
+            seconds = time.perf_counter() - t0
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+                seconds = time.perf_counter() - t0
+            if first:
+                c, h = _om.compile_metrics()
+                c.labels(family="train_step", outcome="compile").inc()
+                h.labels(family="train_step").observe(seconds)
+            else:
+                self._pending.append((seconds, self._compiled[key]))
+        return loss
+
+    def _read_timings(self):
+        """Publish the roofline of every earlier step whose timing is in
+        hand: host seconds, or CUDA events that have completed (an event
+        still queued waits for a later call; nothing here waits for the
+        card)."""
+        pend = self._pending
+        while pend:
+            t, cost = pend[0]
+            if isinstance(t, tuple):
+                if not t[1].query():
+                    break
+                seconds = t[0].elapsed_time(t[1]) / 1e3
+            else:
+                seconds = t
+            pend.popleft()
+            _pf.observe_roofline("train_step", seconds, cost)
+
+    def _count_cost(self, args):
+        """The step's expectation (`perf.count_cost`) from the model's
+        `attention_shape()` (layers, heads, head_dim, causal) and the
+        first argument's [batch, seq] token ids; None for a model that
+        states no attention shape."""
+        shape = getattr(self.model, "attention_shape", None)
+        ids = args[0] if args else None
+        if shape is None or ids is None \
+                or len(getattr(ids, "shape", ())) != 2:
+            return None
+        opt = self.optimizer
+        nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+        update = sum(3 * nbytes(p) + 2 * sum(
+            nbytes(v) for v in opt._get_state(p).values()
+            if isinstance(v, torch.Tensor) and v.numel() > 1)
+            for p in self._params)
+        return _pf.count_cost(
+            "train_step", params=float(sum(p.numel() for p in self._params)),
+            tokens=float(ids.shape[0] * ids.shape[1]), seq=ids.shape[1],
+            param_bytes=float(sum(nbytes(p) for p in self._params)),
+            update_bytes=float(update), **shape())
 
     def _step_in_place(self, args, kwargs):
         """One step that writes parameters and state in place (what a
@@ -734,21 +830,37 @@ class TrainStep:
             return ("array", tuple(a.shape), torch.as_tensor(a).dtype)
         return ("value", a)
 
-    def _graph_step(self, args, kwargs):
+    def _key(self, args, kwargs):
+        """The batch signature: shapes and dtypes of the arrays, values
+        of the other arguments."""
+        return (tuple(map(self._signature, args)),
+                tuple((k, self._signature(kwargs[k]))
+                      for k in sorted(kwargs)))
+
+    def _graph_step(self, args, kwargs, obs=False):
         """Replay the graph of this batch signature, capturing it first
-        (the capture's warm-up run is this call's step)."""
+        (the capture's warm-up run is this call's step). With `obs`, a
+        replay is timed by CUDA events around it on the step's
+        stream."""
         names = sorted(kwargs)
-        key = (tuple(map(self._signature, args)),
-               tuple((k, self._signature(kwargs[k])) for k in names))
+        key = self._key(args, kwargs)
         entry = self._graphs.get(key)
         if entry is not None:
             captured, statics = entry
+            if obs:
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
             self._fill(statics, list(args) + [kwargs[k] for k in names])
             # this call's lr into the static scalar the graph reads (an
             # eager or captured step's update refills it itself)
             opt = self.optimizer
             opt._lr_tensor(opt.get_lr(), self.device)
-            return captured.replay().clone()
+            loss = captured.replay().clone()
+            if obs:
+                t1.record()
+                self._pending.append(((t0, t1), captured.expected))
+            return loss
         vals = list(args) + [kwargs[k] for k in names]
         statics = [torch.empty(tuple(v.shape), device=self.device,
                                dtype=torch.as_tensor(v).dtype)
@@ -761,7 +873,7 @@ class TrainStep:
         captured = CapturedStep(
             "train_step", lambda: self._step_in_place(s_args, s_kwargs),
             generators=self._generators(), warmup_counts=True,
-            pool=self._graphs.pool())
+            pool=self._graphs.pool(), expected=self._count_cost(args))
         self._graphs.put(key, (captured, statics))
         return captured.warmup_output.clone()
 

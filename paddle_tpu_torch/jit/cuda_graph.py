@@ -24,6 +24,15 @@ made after another was freed brings a fresh pool.
 ``captures``, ``capture_seconds`` and ``replays`` count by the name each
 caller gives its graphs ("engine_decode", "generate_prefill",
 "generate_decode", "train_step"), as the kernels count their launches.
+A capture is the port's counterpart of the reference's compile: with
+observability enabled each one also reports into
+``observability.metrics.compile_metrics()`` under its name as the
+family (outcome "compile", its wall time in the histogram), and the
+family's expected cost (``expected``, a ``perf.CostModel`` counted from
+the shapes) is published through ``perf.record_compile`` and kept on
+the step's ``expected``, as the reference's ``CompileTimed`` shim keeps
+the executable's. All of it happens after the capture has ended: a
+recorder must not touch the card while a capture is under way.
 
 Every capture holds ``capture_lock``. CUDA refuses many calls (an
 allocation, an event wait) from any thread of the process while a
@@ -40,6 +49,9 @@ import threading
 import time
 
 import torch
+
+from ..observability import metrics as _om
+from ..observability import perf as _pf
 
 __all__ = ["CapturedStep", "GraphCache", "captures", "capture_seconds",
            "replays", "reset_counters", "capture_lock"]
@@ -73,6 +85,9 @@ class CapturedStep:
     nothing is put back. The default CUDA generator needs no entry in
     ``generators``: PyTorch registers it with every graph.
 
+    ``expected``: the family's ``perf.CostModel`` for one replay (the
+    module docstring says where it goes).
+
     ``pool`` is the owner's memory pool (``torch.cuda.graph_pool_handle()``,
     made once by the owner and given to each of its graphs; the module
     docstring says why no two owners share one).
@@ -83,7 +98,7 @@ class CapturedStep:
     (the capture is invalidated)."""
 
     def __init__(self, name: str, fn, *, pool, generators=(),
-                 warmup_counts=False):
+                 warmup_counts=False, expected=None):
         t0 = time.perf_counter()
         self.name = name
         states = [g.get_state() for g in generators]
@@ -107,8 +122,14 @@ class CapturedStep:
         finally:
             if collecting:
                 gc.enable()
+        seconds = time.perf_counter() - t0
         captures[name] += 1
-        capture_seconds[name] += time.perf_counter() - t0
+        capture_seconds[name] += seconds
+        self.expected = _pf.record_compile(name, expected)
+        if _om._ENABLED:
+            c, h = _om.compile_metrics()
+            c.labels(family=name, outcome="compile").inc()
+            h.labels(family=name).observe(seconds)
 
     def replay(self):
         self.graph.replay()

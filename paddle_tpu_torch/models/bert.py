@@ -169,6 +169,13 @@ class BertForMaskedLM(nn.Module):
     def device(self) -> torch.device:
         return self.decoder_bias.device
 
+    def attention_shape(self) -> dict:
+        """The attention a training step runs, for `TrainStep`'s shape
+        count (`observability.perf.count_cost`, ``train_step``)."""
+        c = self.config
+        return dict(layers=c.num_layers, heads=c.num_heads,
+                    head_dim=c.hidden_size // c.num_heads, causal=False)
+
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 labels=None):
         hidden, _ = self.bert(input_ids, token_type_ids, attention_mask)

@@ -243,6 +243,13 @@ class GPTForCausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.gpt.final_norm.weight._data.device
 
+    def attention_shape(self) -> dict:
+        """The attention a training step runs, for `TrainStep`'s shape
+        count (`observability.perf.count_cost`, ``train_step``)."""
+        c = self.config
+        return dict(layers=c.num_layers, heads=c.num_heads,
+                    head_dim=c.hidden_size // c.num_heads, causal=True)
+
     def lm_logits(self, hidden):
         """Project hidden states to vocab logits (tied or untied head)."""
         if self.lm_head is None:

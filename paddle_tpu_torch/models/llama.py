@@ -209,5 +209,12 @@ class LlamaForCausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.llama.norm.weight._data.device
 
+    def attention_shape(self) -> dict:
+        """The attention a training step runs, for `TrainStep`'s shape
+        count (`observability.perf.count_cost`, ``train_step``)."""
+        c = self.config
+        return dict(layers=c.num_layers, heads=c.num_heads,
+                    head_dim=c.hidden_size // c.num_heads, causal=True)
+
     def forward(self, input_ids):
         return self.lm_head(self.llama(input_ids))

@@ -33,6 +33,9 @@ function directly and returns what it returns: the port's models, its
 engine and ``TrainStep`` call the nn ops that way, with no wrapping and
 no second AMP cast.
 
+While a ``profiler.Profiler`` session runs, ``dispatch`` is the
+profiled variant, which times each op for the profiler's per-op table.
+
 Gradients come from torch.autograd, never from a registered rule. The
 per-signature executable cache (:120-287, ``exec_cache_size``) is
 XLA's and is not ported: torch runs each op eagerly.
@@ -40,6 +43,7 @@ XLA's and is not ported: torch runs each op eagerly.
 from __future__ import annotations
 
 import functools
+import time
 from typing import Callable, Dict
 
 import numpy as np
@@ -148,7 +152,7 @@ def _check_nan_inf(op_name, t):
             f"NaN or Inf detected in output of op `{op_name}`")
 
 
-def dispatch(opdef: OpDef, args, kwargs):
+def _dispatch(opdef: OpDef, args, kwargs):
     """The eager per-op path (module docstring, steps 2-6)."""
     _count[0] += 1
     st = amp_state()
@@ -178,6 +182,36 @@ def dispatch(opdef: OpDef, args, kwargs):
                 out = out.view_as(out)
                 break
     return _wrap(out, opdef.name)
+
+
+def _dispatch_profiled(opdef: OpDef, args, kwargs):
+    """The profiling variant of the dispatch (the reference's
+    ``_dispatch_profiled``, :288): each call's host time goes to the
+    profiler's per-op table (``profiler._record_op``). Under
+    ``FLAGS_benchmark`` it waits for the card after the op, so the time
+    covers the op's device work. `Profiler.start()` / `stop()` swap the
+    module's `dispatch` between this and the plain `_dispatch`
+    (`_set_op_profiling`; every wrapper resolves `dispatch` at call
+    time), so the path that is not profiled pays nothing."""
+    from ..profiler import _BENCHMARK, _record_op
+    t0 = time.perf_counter_ns()
+    try:
+        return _dispatch(opdef, args, kwargs)
+    finally:
+        if _BENCHMARK.value and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        _record_op(opdef.name, t0, False)
+
+
+dispatch = _dispatch
+_PROFILING = False
+
+
+def _set_op_profiling(on: bool) -> None:
+    """Swap the profiled dispatch in (on) or out."""
+    global dispatch, _PROFILING
+    _PROFILING = on
+    dispatch = _dispatch_profiled if on else _dispatch
 
 
 def _holds_tensor(seq):

@@ -26,6 +26,19 @@ not f32 (``_master``, reference :173-183): the update runs on the master
 and its cast is written into the parameter; the moments follow the
 master's dtype unless ``moment_dtype`` is set; ``state_dict`` carries it
 as ``<name>_master`` (reference :491-494, :512-515).
+
+Observability (while enabled): an ``Optimizer.step`` whose every work
+array is f32 is the reference's fused step, counted on
+``paddle_tpu_optimizer_fused_step_total{outcome=}`` (reference :75-96):
+"hit" when the optimizer has a multi-tensor form (its one kernel
+launch is the port's fused step), "fallback" when it runs the
+per-tensor rule; a step with a low-precision work array counts nothing,
+as in the reference. Departure: the port builds no executable, so it
+never counts "compile" and reports no "optimizer_fused" compile; each
+new set of work shapes records the family's expectation instead
+(`observability.perf.count_cost`, the executable gauges). TrainStep's
+update (inside its graph) counts nothing, as the reference's
+``functional_update`` does not.
 """
 from __future__ import annotations
 
@@ -35,9 +48,25 @@ from typing import Dict, List
 import torch
 
 from ..core.tensor import Tensor
+from ..observability import metrics as _om
+from ..observability import perf as _pf
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
+
+_FUSED_COUNTER = None
+
+
+def _fused_counter(outcome: str) -> None:
+    """paddle_tpu_optimizer_fused_step_total{outcome=} (the module
+    docstring says what each outcome counts here)."""
+    global _FUSED_COUNTER
+    if _FUSED_COUNTER is None:
+        _FUSED_COUNTER = _om.registry().counter(
+            "paddle_tpu_optimizer_fused_step_total",
+            "fused optimizer-step executable cache outcomes",
+            ("outcome",))
+    _FUSED_COUNTER.labels(outcome=outcome).inc()
 
 
 def _unpack(item, index):
@@ -201,6 +230,41 @@ class Optimizer:
                             zip(params_grads, clipped)]
         self._step_count += 1
         self._update_in_place(params_grads)
+        if _om._ENABLED and params_grads:
+            self._note_fused_step(params_grads)
+
+    def _note_fused_step(self, params_grads):
+        """The step's fused-step outcome (module docstring), and the
+        expectation of a new set of work shapes."""
+        work = []
+        for p, _g, _grp in params_grads:
+            mw = self._master(p)
+            w = p if mw is None else mw
+            if w.dtype != torch.float32:
+                return          # not a fused step, as in the reference
+            work.append(w)
+        if self._multi_tensor_update is None:
+            _fused_counter("fallback")
+            return
+        _fused_counter("hit")
+        key = tuple((tuple(w.shape), g.dtype) for w, (_p, g, _grp)
+                    in zip(work, params_grads))
+        seen = self.__dict__.setdefault("_fused_shapes", set())
+        if key in seen:
+            return
+        seen.add(key)
+        elements = update = 0
+        for w, (p, g, _grp) in zip(work, params_grads):
+            n = w.numel()
+            mom = [v for v in self._get_state(p).values()
+                   if isinstance(v, torch.Tensor) and v.numel() > 1]
+            elements += n
+            update += n * (2 * 4 + g.element_size()
+                           + 2 * sum(v.element_size() for v in mom)
+                           + (0 if w is p else p.element_size()))
+        _pf.record_compile("optimizer_fused", _pf.count_cost(
+            "optimizer_fused", elements=float(elements),
+            update_bytes=float(update)))
 
     @torch.no_grad()
     def _update_in_place(self, params_grads, masters=True):

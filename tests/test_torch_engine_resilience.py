@@ -358,9 +358,12 @@ def test_unported_options_still_raise(gpts):
                dict(exec_cache_dir="x")):
         with pytest.raises(NotImplementedError):
             LLMEngine(tm, device="cpu", **BASE_KW, **kw)
+    # obs_carry is ported (observability): an earlier life's trace
+    # identity is accepted and the request serves as any other
     eng = LLMEngine(tm, device="cpu", **BASE_KW)
-    with pytest.raises(NotImplementedError):
-        eng.add_request(0, np.arange(4), obs_carry=("t", "s", 0.0))
+    eng.add_request(0, np.arange(4), max_new_tokens=2,
+                    obs_carry=("t", "s", 0.0))
+    assert [len(r.output_ids) for r in _drain(eng).values()] == [2]
 
 
 # ---------------------------------------------------------------------------

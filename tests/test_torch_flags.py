@@ -1,8 +1,9 @@
 """paddle_tpu_torch.core.flags against paddle_tpu.core.flags: the flags
 the port acts on (FLAGS_fast_bn_stats, utils.watchdog's
 FLAGS_watchdog_timeout_s and FLAGS_watchdog_abort, the op registry's
-FLAGS_check_nan_inf and core.generator's FLAGS_seed) with the
-reference's default and type, what FLAGS_check_nan_inf and FLAGS_seed
+FLAGS_check_nan_inf, core.generator's FLAGS_seed, the profiler's
+FLAGS_benchmark and device.memory's FLAGS_allocator_strategy, the last
+with a default of its own) with the reference's default and type, what FLAGS_check_nan_inf and FLAGS_seed
 do, set / get (one name or a list, strings coerced to the
 flag's type), errors for unknown names and for the reference's flags the port
 does not act on yet, define_flag, and FLAGS_fast_bn_stats read from the
@@ -24,15 +25,23 @@ import paddle_tpu_torch.core.flags as tflags
 from torch_port_helpers import cpu_place
 
 ROOT = Path(__file__).resolve().parents[1]
-PORTED = ["FLAGS_check_nan_inf", "FLAGS_fast_bn_stats", "FLAGS_seed",
+PORTED = ["FLAGS_allocator_strategy", "FLAGS_benchmark",
+          "FLAGS_check_nan_inf", "FLAGS_fast_bn_stats", "FLAGS_seed",
           "FLAGS_watchdog_abort", "FLAGS_watchdog_timeout_s"]
+# a ported flag whose default is the port's own (device/memory.py says
+# why: the reference's "pjrt" names its allocator, the port's is torch's
+# caching allocator, Paddle's "auto_growth")
+OWN_DEFAULTS = {"FLAGS_allocator_strategy": "auto_growth"}
 
 
 def test_the_ported_flags_and_defaults():
+    import paddle_tpu_torch.device  # noqa: F401 (registers its flag)
+    import paddle_tpu_torch.profiler  # noqa: F401 (registers its flag)
     assert sorted(tflags._REGISTRY) == PORTED
     for name in PORTED:
         flag, mine = jflags._REGISTRY[name], tflags._REGISTRY[name]
-        assert (mine.default, mine.type) == (flag.default, flag.type), name
+        want = OWN_DEFAULTS.get(name, flag.default)
+        assert (mine.default, mine.type) == (want, flag.type), name
     assert ptt.get_flags is tflags.get_flags
     assert ptt.set_flags is tflags.set_flags
 

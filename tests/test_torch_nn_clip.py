@@ -259,6 +259,37 @@ PORTED_MODULES = {
                                     set()),
     "paddle_tpu.audio.features": ("paddle_tpu_torch.audio.features", set()),
     "paddle_tpu.audio.datasets": ("paddle_tpu_torch.audio.datasets", set()),
+    # observability (ROADMAP item 8), the profiler and device memory.
+    # Still to port: the numerics and comms planes (their own PR), the
+    # fleet's agent and aggregator (item 24); JAX's own: read_cost_model
+    # (XLA's cost analysis), the dispatch-queue recorders,
+    # interconnect_peaks and set_interconnect_peaks (they go with comms),
+    # CompileTimed (the capture, jit.cuda_graph.CapturedStep, is its
+    # counterpart) and the PJRT plugin names
+    "paddle_tpu.observability": ("paddle_tpu_torch.observability",
+                                 {"comms", "numerics"}),
+    "paddle_tpu.observability.metrics": (
+        "paddle_tpu_torch.observability.metrics", set()),
+    "paddle_tpu.observability.tracing": (
+        "paddle_tpu_torch.observability.tracing", set()),
+    "paddle_tpu.observability.flight": (
+        "paddle_tpu_torch.observability.flight", set()),
+    "paddle_tpu.observability.slo": ("paddle_tpu_torch.observability.slo",
+                                     set()),
+    "paddle_tpu.observability.perf": (
+        "paddle_tpu_torch.observability.perf", {
+            "CompileTimed", "read_cost_model", "note_dispatch_gap",
+            "note_dispatch_batch", "note_graph_cache",
+            "interconnect_peaks", "set_interconnect_peaks"}),
+    "paddle_tpu.observability.fleet": (
+        "paddle_tpu_torch.observability.fleet", {
+            "FleetAgent", "FleetAggregator", "aggregator",
+            "serve_aggregator"}),
+    "paddle_tpu.profiler": ("paddle_tpu_torch.profiler", set()),
+    "paddle_tpu.device": ("paddle_tpu_torch.device", {
+        "register_pjrt_plugin", "get_all_custom_device_type",
+        "get_available_custom_device", "is_compiled_with_custom_device"}),
+    "paddle_tpu.device.memory": ("paddle_tpu_torch.device.memory", set()),
 }
 
 

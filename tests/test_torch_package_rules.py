@@ -2,9 +2,9 @@
 paddle_tpu (chip_smoke.py neither), serving GPT and LLaMA, training (a
 ResNet too), the fused incubate ops, the input path (io, the vision
 transforms and datasets, the DataLoader's spawned workers), the vision
-zoo, vision.ops, the op-parity audit, TensorArray and the op surfaces
-(fft, signal, sparse, distribution, geometric, quantization, audio)
-included, and
+zoo, vision.ops, the op-parity audit, TensorArray, the op surfaces
+(fft, signal, sparse, distribution, geometric, quantization, audio),
+observability, the profiler and device included, and
 its entry points run on the CUDA card unless the caller asks for the
 CPU."""
 import os
@@ -106,6 +106,17 @@ src = paddle_tpu_torch.to_tensor(np.array([0, 1], np.int32))
 assert geometric.send_u_recv(x, src, src).shape == [2, 1024]
 assert sparse.matmul(x.to_sparse_coo(), x.t()).shape == [2, 2]
 assert quantization.quantize_linear(x, 1.0).dtype == paddle_tpu_torch.int8
+from paddle_tpu_torch import device, observability, profiler
+observability.enable()
+with profiler.Profiler() as prof:
+    eng = LLMEngine(m, max_batch=2, block_size=16, max_model_len=64,
+                    prompt_quantum=16, decode_chunk=2, device="cpu")
+    eng.generate([np.arange(5, dtype=np.int32)], max_new_tokens=3)
+observability.disable()
+assert "engine.step" in {e["name"] for e in prof.events()}
+assert observability.snapshot()["paddle_tpu_request_e2e_seconds"][
+    "series"][()]["count"] == 1
+assert device.memory.memory_allocated() == 0        # the CPU place
 bad = [k for k in sys.modules
        if k == "jax" or k.startswith("jax.") or k == "paddle_tpu"
        or k.startswith("paddle_tpu.")]
@@ -235,3 +246,27 @@ def test_chip_smoke_defines_each_name_once():
             names.update(e.id for t in node.targets for e in ast.walk(t)
                          if isinstance(e, ast.Name))
     assert not sorted(n for n, k in names.items() if k > 1)
+
+
+def test_device_and_profiler_need_cuda_unless_cpu():
+    """device's functions take the default place, the card: without one
+    they raise until set_device("cpu"), as the creation ops do, and then
+    answer as the reference's CPU run (zeros). A Profiler session on a
+    box without a card records no device timeline and raises nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is valid here")
+    from paddle_tpu_torch import device, profiler
+    from torch_port_helpers import cpu_place
+    for fn in (device.synchronize, device.Stream, device.Event,
+               device.current_stream, device.memory.memory_allocated,
+               device.memory.max_memory_allocated,
+               device.memory.memory_stats, device.cuda.memory_reserved):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn()
+    with cpu_place():
+        assert device.memory.max_memory_allocated() == 0
+        assert device.memory.memory_stats() == {}
+        device.synchronize()
+    with profiler.Profiler() as prof:
+        pass
+    assert not [e for e in prof.events() if "cat" in e]

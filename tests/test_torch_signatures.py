@@ -473,3 +473,62 @@ def test_opsurf_name_matches_the_reference(module, name):
         if (module, name, meth) in OPSURF_SKIP:
             continue
         _check_sigs(inspect.signature(port_fn), inspect.signature(ref_fn))
+
+
+# observability, the profiler and device (ROADMAP item 8): every function
+# and class the reference's modules define, and each method a class
+# defines, but the names still to port (tests/test_torch_nn_clip.py's
+# PORTED_MODULES lists them and why)
+OBS_MODULES = ("observability", "observability.metrics",
+               "observability.tracing", "observability.flight",
+               "observability.slo", "observability.perf",
+               "observability.fleet", "profiler", "device",
+               "device.memory")
+
+
+def _obs_names():
+    import importlib
+    from test_torch_nn_clip import PORTED_MODULES
+    out = []
+    for mod in OBS_MODULES:
+        ref = importlib.import_module(f"paddle_tpu.{mod}")
+        todo = PORTED_MODULES[f"paddle_tpu.{mod}"][1]
+        for n in sorted(vars(ref)):
+            v = getattr(ref, n)
+            if not n.startswith("_") and n not in todo and callable(v) \
+                    and getattr(v, "__module__", None) == ref.__name__:
+                out.append((mod, n))
+    return out
+
+
+OBS_NAMES = _obs_names()
+
+
+def test_every_obs_name_is_checked():
+    names = {n for _, n in OBS_NAMES}
+    assert {"span", "trace_context", "MetricsRegistry", "Histogram",
+            "quantile_from_buckets", "arm", "trigger", "SLO", "evaluate",
+            "observe_roofline", "CostModel", "delta_snapshot",
+            "worker_farewell", "Profiler", "RecordEvent", "Stream",
+            "Event", "max_memory_allocated",
+            "state_bytes_per_device"} <= names
+    assert len(OBS_NAMES) > 90
+
+
+@pytest.mark.parametrize("module,name", OBS_NAMES,
+                         ids=[f"{m}.{n}" for m, n in OBS_NAMES])
+def test_obs_name_matches_the_reference(module, name):
+    """The reference's parameters, for functions, classes and each
+    method a class defines."""
+    import importlib
+    port_obj = getattr(importlib.import_module(f"paddle_tpu_torch.{module}"),
+                       name)
+    ref_obj = getattr(importlib.import_module(f"paddle_tpu.{module}"), name)
+    if inspect.isclass(ref_obj):
+        pairs = [(port_obj.__init__, ref_obj.__init__)] + [
+            (getattr(port_obj, m), f) for m, f in vars(ref_obj).items()
+            if inspect.isfunction(f) and not m.startswith("_")]
+    else:
+        pairs = [(port_obj, ref_obj)]
+    for port_fn, ref_fn in pairs:
+        _check_sigs(inspect.signature(port_fn), inspect.signature(ref_fn))

@@ -227,3 +227,22 @@ def write_image_folder(root, classes=10, per_class=128, hw=256, seed=0):
             np.save(os.path.join(d, f"img_{k:05d}.npy"),
                     rng.integers(0, 256, (hw, hw, 3), dtype=np.uint8))
     return classes * per_class
+
+
+class ObsShmDs(_Base):
+    """tests/test_observability.py's ObsShmDs: 256 KiB samples take the
+    SharedMemory transport. Plain numpy samples: the reference's
+    DataLoader takes it too (tests/test_torch_io_obs.py runs both)."""
+
+    def __getitem__(self, i):
+        rng = np.random.RandomState(i)
+        return rng.standard_normal(64 * 1024).astype(np.float32), \
+            np.int64(i)
+
+
+class ObsSmallDs(_Base):
+    """tests/test_request_tracing.py's SpawnTraceDs: tiny samples that
+    ride the queue pickle."""
+
+    def __getitem__(self, i):
+        return np.full((4,), i, np.float32)

@@ -8,7 +8,7 @@ Run from the root of a checkout. Phases, each of which must pass:
   1. the card (nvidia-smi name and power limit); build the CUDA kernels
      (nvcc, sm_90a: ragged paged attention's simple and sm90 designs,
      flash attention, B1's and B2's sm90 designs, norms, the
-     multi-tensor update) and the block
+     multi-tensor update and its statistics variant) and the block
      allocator (g++) from the checkout's sources, all at once, timed;
   2. the serving kernel (B3) against its plain PyTorch version in f32 on
      the card, at the engine's shapes (gpt3_1p3b's 16 heads, GQA, int8,
@@ -371,8 +371,38 @@ Run from the root of a checkout. Phases, each of which must pass:
      device.max_memory_allocated() equals torch.cuda's across a reset;
      the step's median ms off and on. Both print the card's name and
      power limit.
+ 34. the numerics plane on phase 6's gpt2_small TrainStep (all 12
+     layers, bf16 O1, AdamW, b16 x s1024), right after 33b: (a) the
+     multi-tensor update's statistics variant against its plain version
+     at phase 6's 148 f32 shapes (phase 12's first case): the packed
+     sums within NUM_STATS_RTOL of pack_stats over a clone of the
+     pre-update work arrays, the counts equal, parameters, moments and
+     powers bit-equal to the statistics-off launch, a row left out of
+     the table caught; on and off timed by replay in turns beside the
+     byte bound; (b) 8 calls from one state with the plane off, on, off
+     and on (metrics on throughout), each a fresh capture: one graph a
+     run counted as a train_step compile, one pull a published step,
+     the statistics kernel launched on the path and not with the plane
+     off, losses and parameters bit-equal on and off, step 1's grad
+     norm, param norm and update ratio within NUM_RECOMPUTE_RTOL of a
+     plain recomputation, the step's median ms off and on; (c) an eager
+     step (the eager API's backward, Optimizer.step) with one
+     parameter's gradient poisoned through the numerics.check fault
+     point gives exactly one numerics_divergence flight bundle naming
+     it, with the backward tap's record; a clean step re-arms the
+     sentinel; an f16 GradScaler run poisoned at every step halves its
+     scale from 16 to the floor and fires one more bundle with the
+     scale history; (d) the goodput fractions (comms, compute, stall)
+     published by the timed replays, summing to at most 1;
+ 35. the host modules on the card: text.ViterbiDecoder (64 x 256 x 48)
+     on CUDA tensors equals the CPU's, a static.Executor program with a
+     static.nn.while_loop runs on the card as on the CPU,
+     save_inference_model / load_inference_model round-trip an MLP on
+     the card, and a g++ utils.cpp_extension op gives the same result
+     on CUDA and CPU tensors.
 
-The last three lines of standard output are a JSON record of the
+Each phase's wall seconds are printed ("[phase-seconds]"). The last
+three lines of standard output are a JSON record of the
 kernels, the card's name and power limit, and the final
 {"ok": true, "device": ...} line. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
@@ -382,6 +412,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -8771,6 +8802,519 @@ def obs_train_phase(train: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 34: the numerics plane on phase 6's gpt2_small TrainStep
+# ---------------------------------------------------------------------------
+# the statistics kernel against pack_stats over a clone of the pre-update
+# work arrays: f32 sums of the same positive terms in another order (per
+# thread, warp shuffles, chunk rows, tensor rows) against torch's
+# reductions, so a relative tolerance; counts exactly
+NUM_STATS_RTOL = 1e-5
+# the plane's record against a plain recomputation at one step: norms of
+# the same f32 arrays in float64 (param, update), and the gradient of an
+# eager forward and backward from the same state and batch, whose
+# reductions the graph's launches may order differently
+NUM_RECOMPUTE_RTOL = 1e-3
+NUM_STEPS = 8
+
+
+def _stats_errs(got, want):
+    """{part: largest relative error} of a packed bundle against the
+    plain one, and whether the counts are equal."""
+    import torch
+    P = (want.numel() - 3) // 2
+    g, w = got.double().cpu(), want.double().cpu()
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+    errs = {"grad_sq": rel(g[:P], w[:P]), "param_sq": rel(g[2 * P],
+                                                          w[2 * P]),
+            "update_sq": rel(g[2 * P + 1], w[2 * P + 1])}
+    counts = torch.equal(g[P:2 * P], w[P:2 * P]) and float(
+        g[2 * P + 2]) == float(w[2 * P + 2])
+    return errs, counts, float((g - w).abs().max())
+
+
+def _numerics_kernel(shapes, init) -> dict:
+    """34a: the statistics variant against its plain version at phase 6's
+    148 shapes (phase 12's first case: f32, AdamW, two groups' decays),
+    bit-equality with the statistics-off launch, and both timed by
+    replay beside the byte bound."""
+    import torch
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
+    from paddle_tpu_torch.observability import numerics
+    case = UPDATE_CASES[0]
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, decoupled=case[1])
+    lr = torch.full((), UPDATE_LR, device="cuda")
+    on = _update_slots(shapes, init, case, seed=34)
+    off = _update_slots(shapes, init, case, seed=34)
+    olds = [s.w.clone() for s in on]
+    P = len(shapes)
+    table = torch.zeros(P, mta.STATS_COLS, device="cuda")
+    packed = torch.zeros(2 * P + 3, device="cuda")
+    scratch = torch.zeros(mta.scratch_floats(s.w.numel() for s in on),
+                          device="cuda")
+    n0 = mta.multi_tensor_adam.stats_launches
+    mta.multi_tensor_adam(on, lr, stats=table, scratch=scratch, **kw)
+    mta.pack_rows(table, out=packed)
+    mta.multi_tensor_adam(off, lr, **kw)
+    torch.cuda.synchronize()
+    launches = mta.multi_tensor_adam.stats_launches - n0
+    bit_equal = all(torch.equal(getattr(a, k), getattr(b, k))
+                    for a, b in zip(on, off)
+                    for k in ("w", "m", "v", "beta1_pow", "beta2_pow"))
+    want = numerics.pack_stats(olds, [s.g for s in on], [s.w for s in on])
+    errs, counts, max_abs = _stats_errs(packed, want)
+    del olds
+    # a fault planted: one tensor's row left out of the table
+    planted = table.clone()
+    planted[P // 2] = 0.0
+    perrs, _pc, _pa = _stats_errs(mta.pack_rows(planted), want)
+    ms_on = graph_ms(lambda: (mta.multi_tensor_adam(
+        on, lr, stats=table, scratch=scratch, **kw),
+        mta.pack_rows(table, out=packed)), reps=5, iters=10)
+    ms_off = graph_ms(lambda: mta.multi_tensor_adam(off, lr, **kw), reps=5,
+                      iters=10)
+    ms_on2 = graph_ms(lambda: (mta.multi_tensor_adam(
+        on, lr, stats=table, scratch=scratch, **kw),
+        mta.pack_rows(table, out=packed)), reps=5, iters=10)
+    ms_off2 = graph_ms(lambda: mta.multi_tensor_adam(off, lr, **kw),
+                       reps=5, iters=10)
+    plain_ms = cuda_ms(lambda: (mta.multi_tensor_adam(
+        off, lr, path="torch", stats=table, **kw), mta.pack_rows(
+            table, out=packed)), iters=3, warmup=1)
+    bms, _by, nbytes, flops = _update_bound(on)
+    chunks = sum(-(-s.w.numel() // 16384) for s in on)
+    # the statistics add a [chunks, 5] row each block writes and the fold
+    # reads, the [P, 5] table written and read, and the bundle written
+    extra = 2 * 20 * chunks + 2 * 20 * P + 4 * (2 * P + 3)
+    t_bytes = (nbytes + extra) / HBM_BYTES_PER_S * 1e3
+    t_ops = (flops + 8 * sum(s.w.numel() for s in on)) / F32_FLOPS_PER_S \
+        * 1e3
+    checks = {
+        "one statistics launch for 148 tensors": launches == 1,
+        "parameters, moments and powers bit-equal to the statistics-off "
+        "launch": bit_equal,
+        f"every sum within rel {NUM_STATS_RTOL} of pack_stats": all(
+            e <= NUM_STATS_RTOL for e in errs.values()),
+        "the nonfinite counts equal (0)": counts,
+        "a tensor's row left out is caught": perrs["grad_sq"] > 0.5,
+    }
+    rec = dict(tensors=P, chunks=chunks, launches=launches,
+               errs=errs, planted_errs=perrs, max_abs_err=max_abs,
+               ms_on=[ms_on, ms_on2], ms_off=[ms_off, ms_off2],
+               plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_ms_off=bms, extra_bytes=extra)
+    log(f"[numerics] 34a statistics kernel, {P} tensors ({chunks} chunks): "
+        f"statistics launches {launches}, bit-equal {bit_equal}, rel "
+        f"errs {errs}, counts equal {counts}; planted row {perrs}; by "
+        f"replay on {ms_on:.4f} / {ms_on2:.4f} ms, off {ms_off:.4f} / "
+        f"{ms_off2:.4f} ms (off, on, off, on); plain {plain_ms:.3f} ms; "
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; off "
+        f"{bms:.4f}); card {card_line()}")
+    _check("[numerics] 34a", checks, rec)
+    del on, off, table, packed, scratch, planted
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _restore(step, state):
+    import torch
+    with torch.no_grad():
+        for p, (p0, st0) in zip(step._params, state):
+            p.copy_(p0)
+            for k, v in step.optimizer._get_state(p).items():
+                v.copy_(st0[k])
+
+
+def _numerics_run(step, ids, labels, state, plane) -> dict:
+    """NUM_STEPS TrainStep calls from `state` through a fresh graph cache
+    (a capture, then replays), each timed by wall with a sync, the plane
+    on or off (metrics on in both); with the plane on, the statistics
+    launches counted around the run and split at its capture, the pulls,
+    the record of step 1 and the parameters after step 1."""
+    import torch
+    from paddle_tpu_torch.jit import cuda_graph
+    from paddle_tpu_torch.jit.cuda_graph import GraphCache
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
+    from paddle_tpu_torch.observability import numerics
+    _restore(step, state)
+    step._graphs = GraphCache()
+    step._pending.clear()
+    numerics.disable()
+    numerics.reset_window()
+    if plane:
+        numerics.enable(interval=1)
+    cuda_graph.reset_counters()
+
+    def read():
+        return (mta.multi_tensor_adam.stats_launches,)
+
+    losses, times, rec1, w1 = [], [], None, None
+    pulls0 = numerics.pulls()
+    with capture_counts(read) as spans:
+        mta.multi_tensor_adam.stats_launches = 0
+        for i in range(NUM_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = step(ids, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(float(loss))
+            if plane and i == 0:
+                w1 = [p.detach().clone() for p in step._params]
+            if plane and i == 1:
+                rec1 = numerics.last()
+        counted = read()[0]
+    pulls_before_flush = numerics.pulls() - pulls0
+    last = numerics.flush() if plane else None
+    in_graph = sum(b[0] - a[0] for a, b in spans)
+    eager = counted - in_graph
+    replays = cuda_graph.replays.get("train_step", 0)
+    numerics.disable()
+    return dict(
+        losses=losses, step_s=times, rec1=rec1, w1=w1, last=last,
+        pulls_before_flush=pulls_before_flush,
+        pulls=numerics.pulls() - pulls0, counted=counted,
+        on_device=eager + in_graph * replays,
+        captures=dict(cuda_graph.captures),
+        params=[p.detach().clone() for p in step._params])
+
+
+def _numerics_recompute(step, ids, labels, state, w1) -> dict:
+    """Step 1's grad norm, param norm and update ratio recomputed plainly
+    from `state` (the parameters before step 1) and `w1` (after it): the
+    gradient of an eager forward and backward of the step's loss."""
+    import torch
+    _restore(step, state)
+    ids_t = torch.as_tensor(ids, device="cuda")
+    labels_t = torch.as_tensor(labels, device="cuda")
+    loss = step.loss_fn(step.model, ids_t, labels_t)
+    grads = torch.autograd.grad(loss, step._params)
+    gsq = sum(float(g.double().square().sum()) for g in grads)
+    psq = sum(float(p0.double().square().sum()) for p0, _ in state)
+    dsq = sum(float((a.double() - p0.double()).square().sum())
+              for a, (p0, _) in zip(w1, state))
+    del grads, loss
+    return dict(grad_norm=gsq ** 0.5, param_norm=psq ** 0.5,
+                update_ratio=dsq ** 0.5 / psq ** 0.5)
+
+
+def _eager_poisoned(step, ids, labels, state, tmp) -> dict:
+    """34c: an eager step (the eager API's backward, Optimizer.step) with
+    one parameter's gradient poisoned through the numerics.check fault
+    point, then a clean step; then an f16 GradScaler run poisoned at
+    every step until the scale reaches the floor."""
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.autograd import backward
+    from paddle_tpu_torch.core.tensor import Tensor
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.observability import flight, numerics
+    from paddle_tpu_torch.resilience import faults
+    opt, model = step.optimizer, step.model
+    ids_t = torch.as_tensor(ids, device="cuda")
+    labels_t = torch.as_tensor(labels, device="cuda")
+    name = opt._names[id(step._params[5])]
+    flight.arm(tmp, min_interval_s=0.0)
+    numerics.reset_window()
+    numerics.enable(interval=1, loss_scale_floor=2.0)
+
+    def eager_step(poison):
+        loss = step.loss_fn(model, ids_t, labels_t)
+        backward([Tensor._wrap(loss, stop_gradient=False)])
+        if poison:
+            with faults.inject("numerics.check", times=1,
+                               exc=numerics.PoisonGradient(param=name),
+                               match={"where": "step"}):
+                opt.step()
+        else:
+            opt.step()
+        opt.clear_grad()
+
+    _restore(step, state)
+    eager_step(poison=True)
+    numerics.flush()
+    poisoned = flight.bundles(tmp)
+    _restore(step, state)
+    eager_step(poison=False)
+    rec_clean = numerics.flush()
+    rearmed = not numerics._DIVERGED
+    # the f16 scaler: a scale of 16 halved at each skipped step
+    scaler = amp.GradScaler(init_loss_scaling=16.0,
+                            decr_every_n_nan_or_inf=1)
+    scales = []
+    with faults.inject("numerics.check", exc=numerics.PoisonGradient(),
+                       match={"where": "amp"}):
+        for _ in range(4):
+            with amp.auto_cast(level="O1", dtype="float16"):
+                logits = model(ids_t)
+            loss = GPTPretrainingCriterion()(logits, labels_t)
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            opt.clear_grad()
+            scales.append(scaler._scale)
+    numerics.disable()
+    bundles = flight.bundles(tmp)
+    flight.disarm()
+    metas = [flight.load_bundle(b)["meta"] for b in bundles]
+    return dict(name=name, poisoned_bundles=len(poisoned),
+                bundles=len(bundles), metas=metas, rearmed=rearmed,
+                clean_source=rec_clean["source"],
+                clean_nonfinite=rec_clean["nonfinite"], scales=scales)
+
+
+def numerics_phase() -> dict:
+    """Phase 34 (see the module docstring), on phase 6's TrainStep."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch import observability as obs
+    t0 = time.perf_counter()
+    tr = OBS_KEEP["train"]
+    step, ids, labels = tr["step"], tr["ids"], tr["labels"]
+    state = [(p.detach().clone(), {
+        k: v.detach().clone() for k, v in step.optimizer._get_state(
+            p).items()}) for p in step._params]
+    shapes = [tuple(p.shape) for p in step._params]
+    kernel = _numerics_kernel(shapes, [p0 for p0, _ in state])
+
+    # -- 34b: off, on, off, on from the same state ----------------------
+    obs.disable()
+    obs.reset()
+    obs.metrics.enable()
+    runs = {"off": [], "on": []}
+    with roofline_samples() as samples:
+        for mode in ("off", "on", "off", "on"):
+            runs[mode].append(_numerics_run(step, ids, labels, state,
+                                            mode == "on"))
+        torch.cuda.synchronize()
+        step._read_timings()
+    doc = json.loads(obs.to_json())
+    compiles = {dict(k)["family"]: v for k, v in _series(
+        doc, "paddle_tpu_compile_total").items() if v}
+    goodput = {dict(k)["component"]: v for k, v in _series(
+        doc, "paddle_tpu_train_goodput_fraction").items()}
+    off, on = runs["off"][0], runs["on"][0]
+    rec1, w1 = on["rec1"], on["w1"]
+    plain = _numerics_recompute(step, ids, labels, state, w1)
+    near = lambda a, b: a is not None and math.isfinite(a) and abs(  # noqa
+        a - b) <= NUM_RECOMPUTE_RTOL * abs(b)
+    ms = {m: [1e3 * statistics.median(r["step_s"][1:]) for r in runs[m]]
+          for m in runs}
+    checks = {
+        "the plane's runs capture one graph each, counted as train_step "
+        "compiles": all(r["captures"] == {"train_step": 1}
+                        for rs in runs.values() for r in rs)
+        and compiles == {"train_step": 4.0},
+        f"one pull a published step ({NUM_STEPS} steps: "
+        f"{NUM_STEPS - 1} before the flush, {NUM_STEPS} after)": all(
+            (r["pulls_before_flush"], r["pulls"]) == (NUM_STEPS - 1,
+                                                      NUM_STEPS)
+            for r in runs["on"]),
+        "the statistics kernel launched on the path (eager warm-up and "
+        "capture; on the card once a step)": all(
+            r["counted"] == 2 and r["on_device"] == NUM_STEPS
+            for r in runs["on"]),
+        "no statistics launch with the plane off": all(
+            r["counted"] == 0 for r in runs["off"]),
+        "losses bit-equal, plane on and off": all(
+            r["losses"] == off["losses"] for rs in runs.values()
+            for r in rs),
+        f"parameters after {NUM_STEPS} steps bit-equal, plane on and off":
+            all(all(torch.equal(a, b) for a, b in zip(r["params"],
+                                                       off["params"]))
+                for r in runs["on"] + runs["off"][1:]),
+        "step 1's grad norm, param norm and update ratio finite and within "
+        f"rel {NUM_RECOMPUTE_RTOL} of a plain recomputation": rec1 is not
+        None and rec1["step"] == 1 and all(near(rec1[k], plain[k]) for k in
+                                           ("grad_norm", "param_norm",
+                                            "update_ratio")),
+        "the last record is step 8's, clean, with its loss": on["last"][
+            "step"] == NUM_STEPS and on["last"]["nonfinite"] == {
+            "grad": 0, "param": 0, "loss": 0} and on["last"]["loss"] ==
+        on["losses"][-1],
+        # 34d
+        "goodput published (comms, compute, stall), summing to <= 1":
+            set(goodput) == {"comms", "compute", "stall"} and sum(
+                goodput.values()) <= 1.0 + 1e-9,
+    }
+    del w1
+    for r in runs["on"] + runs["off"]:
+        r.pop("params")
+        r.pop("w1")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_numerics_")
+    obs.enable()
+    sent = _eager_poisoned(step, ids, labels, state, tmp)
+    obs.disable()
+    obs.reset()
+    first, *rest = sent["metas"]
+    det = first["detail"]
+    floor = rest[0]["detail"] if rest else {}
+    checks.update({
+        "the poisoned eager step gives exactly one numerics_divergence "
+        "bundle naming the parameter, with the backward tap's record":
+            sent["poisoned_bundles"] == 1
+            and first["reason"] == "numerics_divergence"
+            and det["first_nonfinite_param"] == sent["name"]
+            and "nonfinite" in det["reasons"]
+            and det["backward"] is not None
+            and det["backward"]["segments"] == 1,
+        "a clean step re-arms the sentinel": sent["rearmed"]
+        and sent["clean_source"] == "optimizer_fused"
+        and sent["clean_nonfinite"] == {"grad": 0, "param": 0, "loss": 0},
+        "the f16 scaler reaching the floor fires one more bundle with the "
+        "scale history": sent["bundles"] == 2
+        and floor.get("reasons") == ["loss_scale_floor"]
+        and floor.get("loss_scale_history", [])[-3:] == [8.0, 4.0, 2.0]
+        and sent["scales"] == [8.0, 4.0, 2.0, 1.0],
+    })
+    rec = dict(kernel=kernel, step_ms_off=ms["off"], step_ms_on=ms["on"],
+               losses=on["losses"], record_step1={
+                   k: rec1[k] for k in ("grad_norm", "param_norm",
+                                        "update_ratio", "source")},
+               plain_step1=plain, compiles=compiles, goodput=goodput,
+               roofline_samples=_sample_range(samples),
+               stats_launches=on["counted"],
+               stats_launches_on_device=on["on_device"],
+               sentinel={k: v for k, v in sent.items() if k != "metas"},
+               bundle_reasons=[m["detail"]["reasons"] for m in sent["metas"]],
+               card=card_line())
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[numerics] 34b gpt2_small TrainStep, {NUM_STEPS} calls a run, "
+        f"median ms of calls 2-{NUM_STEPS} (off, on, off, on): "
+        f"{[round(x, 3) for x in ms['off']]} off, "
+        f"{[round(x, 3) for x in ms['on']]} on; step 1 {rec['record_step1']}"
+        f" vs plain {plain}; compiles {compiles}; statistics launches "
+        f"counted {on['counted']}, on the card {on['on_device']}; 34c "
+        f"bundles {rec['bundle_reasons']}, scales {sent['scales']}; 34d "
+        f"goodput {goodput}; {rec['seconds']:.1f} s; card {rec['card']}")
+    _report("34", checks, rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 35: text, static, the inference model and a cpp_extension op
+# ---------------------------------------------------------------------------
+CPP_EXT_SRC = r"""
+#include <cmath>
+extern "C" void axpb(const void* const* in, const long long* sizes,
+                     int n, void* out, long long n_out) {
+  const float* x = static_cast<const float*>(in[0]);
+  const float* y = static_cast<const float*>(in[1]);
+  float* o = static_cast<float*>(out);
+  for (long long i = 0; i < n_out; ++i) o[i] = 2.f * x[i] + std::sqrt(y[i]);
+}
+"""
+
+
+def host_modules_phase() -> dict:
+    """Phase 35 (see the module docstring)."""
+    import os
+    import tempfile
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import static, text
+    from paddle_tpu_torch.utils import cpp_extension
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(35)
+    checks = {}
+    # ViterbiDecoder: a CRF over 64 sequences of 256 steps, 48 tags
+    pots = rng.standard_normal((64, 256, 48)).astype(np.float32)
+    trans = rng.standard_normal((48, 48)).astype(np.float32)
+    lens = rng.integers(1, 257, 64).astype(np.int64)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        dec = text.ViterbiDecoder(ptt.to_tensor(trans, place=dev))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        scores, paths = dec(ptt.to_tensor(pots, place=dev),
+                            ptt.to_tensor(lens, place=dev))
+        torch.cuda.synchronize()
+        out[dev] = (scores._data.cpu(), paths._data.cpu(),
+                    scores._data.device.type, time.perf_counter() - t)
+    checks["ViterbiDecoder on CUDA tensors equals the CPU's (paths "
+           "exactly, scores within 1e-5)"] = (
+        out["cuda"][2] == "cuda" and torch.equal(out["cuda"][1],
+                                                 out["cpu"][1])
+        and torch.allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                           atol=1e-5))
+    # a static.Executor program and a static.nn.while_loop on the card
+    x = rng.standard_normal((512, 512)).astype(np.float32)
+
+    def prog(x):
+        y = ptt.tanh(ptt.matmul(x, x))
+        i, s = static.nn.while_loop(
+            lambda i, s: i < 4, lambda i, s: (i + 1, s + y.sum()),
+            [ptt.to_tensor(np.array(0), place=x.place),
+             ptt.to_tensor(np.array(0.0, np.float32), place=x.place)])
+        return y, s
+    res = {dev: static.Executor().run(prog, feed={"x": ptt.to_tensor(
+        x, place=dev)}) for dev in ("cuda", "cpu")}
+    checks["a static.Executor program with a static.nn.while_loop runs on "
+           "the card as on the CPU"] = (
+        res["cuda"][0]._data.device.type == "cuda"
+        and torch.allclose(res["cuda"][0]._data.cpu(), res["cpu"][0]._data,
+                           rtol=1e-4, atol=1e-4)
+        and abs(float(res["cuda"][1]._data) - float(res["cpu"][1]._data))
+        <= 1e-3 * abs(float(res["cpu"][1]._data)))
+    # save_inference_model / load_inference_model on the card
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_static_")
+    ptt.set_device("gpu:0")
+    mlp = ptt.nn.Sequential(ptt.nn.Linear(64, 128), ptt.nn.GELU(),
+                            ptt.nn.Linear(128, 10))
+    feed = rng.standard_normal((32, 64)).astype(np.float32)
+    want = mlp(ptt.to_tensor(feed))._data
+    prefix = os.path.join(tmp, "mlp")
+    static.save_inference_model(prefix, [static.data("x", [None, 64])],
+                                None, program=mlp)
+    program, feeds, _fetch = static.load_inference_model(prefix)
+    (got,) = static.Executor().run(program, feed={"x": feed})
+    checks["save_inference_model / load_inference_model round-trip on "
+           "the card"] = (feeds == ["x"] and got._data.device.type == "cuda"
+                          and torch.allclose(got._data, want, rtol=1e-5,
+                                             atol=1e-5))
+    # a g++ cpp_extension op on CUDA and CPU tensors
+    src = os.path.join(tmp, "axpb.cc")
+    with open(src, "w") as f:
+        f.write(CPP_EXT_SRC)
+    t = time.perf_counter()
+    mod = cpp_extension.load("chip_smoke_axpb", [src],
+                             build_directory=os.path.join(tmp, "build"))
+    build_s = time.perf_counter() - t
+    a = rng.standard_normal((256, 256)).astype(np.float32)
+    b = rng.random((256, 256)).astype(np.float32)
+    on_card = mod.axpb(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda())
+    on_cpu = mod.axpb(torch.from_numpy(a), torch.from_numpy(b))
+    checks["a g++ cpp_extension op gives the same result on CUDA and CPU "
+           "tensors (the CUDA result back on the card)"] = (
+        on_card._data.device.type == "cuda"
+        and torch.equal(on_card._data.cpu(), on_cpu._data)
+        and torch.allclose(on_cpu._data, torch.from_numpy(
+            2 * a + np.sqrt(b)), rtol=1e-6, atol=1e-6))
+    rec = dict(viterbi_s={d: out[d][3] for d in out}, cpp_build_s=build_s,
+               seconds=time.perf_counter() - t0)
+    log(f"[host-modules] 35: ViterbiDecoder 64 x 256 x 48 in "
+        f"{out['cuda'][3] * 1e3:.1f} ms on the card, {out['cpu'][3] * 1e3:.1f}"
+        f" on the CPU; the cpp_extension op built in {build_s:.2f} s; "
+        f"{rec['seconds']:.1f} s")
+    _check("[host-modules] 35", checks, rec)
+    return rec
+
+
+# seconds each phase took, by phase number (printed with the results)
+PHASE_S = {}
+
+
+def timed(phase, fn, *args, **kw):
+    """fn(*args, **kw), its wall seconds recorded as PHASE_S[phase]."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        PHASE_S[phase] = round(time.perf_counter() - t0, 2)
+
+
 def main() -> int:
     try:
         import torch
@@ -8790,45 +9334,49 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
-    secs = build_all()
+    secs = timed("1", build_all)
     log("[build] " + "; ".join(f"{k}: {v:.1f} s" for k, v in secs.items()))
-    cases = kernel_phase()
-    flash = flash_phase()
-    engine = engine_phase(keep=OBS_KEEP["serve"])
-    observed = {"serve": obs_serve_phase(engine)}   # 33a, on 4's model
+    cases = timed("2", kernel_phase)
+    flash = timed("3", flash_phase)
+    engine = timed("4", engine_phase, keep=OBS_KEEP["serve"])
+    # 33a, on 4's model
+    observed = {"serve": timed("33a", obs_serve_phase, engine)}
     OBS_KEEP["serve"].clear()
     _fresh_card()
-    parity = parity_phase()
-    train = train_phase(keep=OBS_KEEP["train"])
-    observed["train"] = obs_train_phase(train)      # 33b, on 6's step
+    parity = timed("5", parity_phase)
+    train = timed("6", train_phase, keep=OBS_KEEP["train"])
+    # 33b and 34, on 6's step
+    observed["train"] = timed("33b", obs_train_phase, train)
+    numerics = timed("34", numerics_phase)
     OBS_KEEP["train"].clear()
     _fresh_card()
-    train_parity = train_parity_phase()
-    norm_cases = norm_phase()
-    llama = llama_engine_phase()
-    llama_parity = llama_parity_phase()
-    fused = fused_phase()
-    updates = update_phase()
-    train_1p3b = train_1p3b_phase()
-    recompute_parity = recompute_parity_phase()
-    train_f16 = f16_train_phase()
-    engine_f16 = f16_engine_phase()
-    train_llama = llama_train_phase()
-    train_bert = bert_train_phase()
-    train_resnet = resnet_train_phase()
-    spec = spec_phase()
-    int8 = int8_engine_phase()
-    eager = eager_phase(train)
-    io = io_phase(train_resnet)
-    lstm = lstm_phase()
-    unpadded = unpadded_phase()
-    surface = surface_phase(eager)
-    export = export_phase()
-    hapi = hapi_phase(eager)
-    mobilenet = mobilenet_phase()
-    detection = detection_phase(eager)
-    incubate = incubate_phase(eager)
-    opsurf = opsurf_phase(eager)
+    train_parity = timed("7", train_parity_phase)
+    norm_cases = timed("8", norm_phase)
+    llama = timed("9", llama_engine_phase)
+    llama_parity = timed("10", llama_parity_phase)
+    fused = timed("11", fused_phase)
+    updates = timed("12", update_phase)
+    train_1p3b = timed("13", train_1p3b_phase)
+    recompute_parity = timed("14", recompute_parity_phase)
+    train_f16 = timed("15", f16_train_phase)
+    engine_f16 = timed("16", f16_engine_phase)
+    train_llama = timed("17", llama_train_phase)
+    train_bert = timed("18", bert_train_phase)
+    train_resnet = timed("19", resnet_train_phase)
+    spec = timed("20", spec_phase)
+    int8 = timed("21", int8_engine_phase)
+    eager = timed("22", eager_phase, train)
+    io = timed("23", io_phase, train_resnet)
+    lstm = timed("24", lstm_phase)
+    unpadded = timed("25", unpadded_phase)
+    surface = timed("26", surface_phase, eager)
+    export = timed("27", export_phase)
+    hapi = timed("28", hapi_phase, eager)
+    mobilenet = timed("29", mobilenet_phase)
+    detection = timed("30", detection_phase, eager)
+    incubate = timed("31", incubate_phase, eager)
+    opsurf = timed("32", opsurf_phase, eager)
+    host_modules = timed("35", host_modules_phase)
     EAGER_GPT.clear()       # phases 23d and 28 read phase 22's GPT
     runs_17_18 =(("llama13b", train_llama["no_recompute"]),
                   ("llama13b_recompute", train_llama["recompute"]),
@@ -9023,6 +9571,20 @@ def main() -> int:
         ms=u["ms"], ms_graph=u["ms_graph"], plain_ms=u["plain_ms"],
         bound_ms=u["bound_ms"], bound_by=u["bound_by"],
         library_ms=u["library_ms"], cases=updates))
+    # its statistics variant (the numerics plane's bundle) at phase 6's
+    # shapes (34a); launches from phase 34b's runs with the plane on
+    nk = numerics["kernel"]
+    kernels.append(dict(
+        name="multi_tensor_adam_stats", route="cuda",
+        source=src + "multi_tensor_adam.cu",
+        replaces="paddle_tpu/optimizer/optimizer.py:388",
+        design="mta_update<true> + mta_advance<true>",
+        launches=numerics["stats_launches"],
+        launches_on_device=numerics["stats_launches_on_device"],
+        max_abs_err=nk["max_abs_err"], max_rel_err=max(nk["errs"].values()),
+        ms=nk["ms_on"][0], ms_graph=nk["ms_on"], ms_off_graph=nk["ms_off"],
+        plain_ms=nk["plain_ms"], bound_ms=nk["bound_ms"],
+        bound_by=nk["bound_by"], library_ms=None))
     log("[engine] " + json.dumps(engine))
     log("[parity] " + json.dumps(parity))
     log("[train] " + json.dumps(train))
@@ -9051,6 +9613,9 @@ def main() -> int:
     log("[incubate] " + json.dumps(incubate))
     log("[opsurf] " + json.dumps(opsurf))
     log("[obs] " + json.dumps(observed))
+    log("[numerics] " + json.dumps(numerics))
+    log("[host-modules] " + json.dumps(host_modules))
+    log("[phase-seconds] " + json.dumps(PHASE_S))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -15,11 +15,14 @@ The eager API (``Tensor``, ``to_tensor``, the registered ops, autograd,
 ``save`` / ``load``, ``io``'s datasets and DataLoader, ``jit``'s
 to_static / save / load, ``inference``'s Predictor, ``metric``,
 ``utils``, ``callbacks``, ``Model`` and ``summary``; ``observability``,
-``profiler`` and ``device`` (with ``device.memory``); ``distribution``,
-and lazily, as the reference resolves them, ``fft``, ``signal``,
-``sparse``, ``geometric``, ``quantization`` and ``audio``) keeps the
-reference's root names, so one eager script runs on either package by
-swapping the import. Its default place
+``profiler`` and ``device`` (with ``device.memory``); ``distribution``;
+``static`` (with ``enable_static`` / ``disable_static`` /
+``in_dynamic_mode``), ``onnx`` and ``hub``; and lazily, as the reference
+resolves them, ``fft``, ``signal``, ``sparse``, ``geometric``,
+``quantization``, ``audio`` and ``text``) keeps the reference's root
+names, so one eager script runs on either package by swapping the
+import. ``TPUPlace`` stays out: it is JAX's own (``CUDAPlace`` is its
+counterpart); ``is_compiled_with_tpu()`` is False. Its default place
 is the card; ``set_device("cpu")`` asks for the CPU. The port's models
 (GPTForCausalLM, LlamaForCausalLM, BertForMaskedLM, the ResNets) stay
 torch ``nn.Module``s whose children are ``Layer``s."""
@@ -30,6 +33,7 @@ from . import (amp, autograd, distributed, distribution, framework_io,
                resilience, vision)
 from . import callbacks, metric, tensor_array, utils
 from . import device, observability, profiler
+from . import hub, onnx, static
 from .convert import (bert_params_from_numpy, fused_params_from_numpy,
                       gpt_params_from_numpy, llama_params_from_numpy,
                       optimizer_state_from_numpy, resnet_params_from_numpy,
@@ -40,9 +44,10 @@ from .core import resolve_device
 from .core.device import (CPUPlace, CUDAPlace, Place, device_count,
                           get_device, get_place, is_compiled_with_cuda,
                           set_device)
-from .core.dtype import (DType, bfloat16, complex64, complex128, finfo,
-                         float16, float32, float64, iinfo, int8, int16,
-                         int32, int64, uint8)
+from .core import dtype as dtypes
+from .core.dtype import (DType, bfloat16, bool_, complex64, complex128,
+                         finfo, float8_e4m3, float8_e5m2, float16, float32,
+                         float64, iinfo, int8, int16, int32, int64, uint8)
 from .core.dtype import bool_ as bool  # noqa: A001
 from .core.generator import Generator, default_generator, seed
 from .core.tensor import Tensor, to_tensor
@@ -79,10 +84,13 @@ __all__ = ["amp", "core", "distributed", "distribution", "incubate",
            "io", "callbacks", "metric", "utils", "Model", "summary",
            "tensor_array", "create_array", "array_write", "array_read",
            "array_length", "vision_params_from_numpy", "device",
-           "observability", "profiler"]
+           "observability", "profiler", "hub", "onnx", "static", "dtypes",
+           "bool_", "float8_e4m3", "float8_e5m2", "enable_static",
+           "disable_static", "in_dynamic_mode", "is_compiled_with_tpu"]
 
 
-_LAZY = ("fft", "signal", "sparse", "geometric", "quantization", "audio")
+_LAZY = ("fft", "signal", "sparse", "geometric", "quantization", "audio",
+         "text")
 
 
 def __getattr__(name):
@@ -95,3 +103,24 @@ def __getattr__(name):
         return mod
     raise AttributeError(f"module 'paddle_tpu_torch' has no attribute "
                          f"{name!r}")
+
+
+def is_compiled_with_tpu() -> bool:
+    """False: this package runs on CUDA cards and the CPU."""
+    return False
+
+
+def disable_static():
+    """Eager is the default (the reference's API-compat no-op)."""
+    from .static import _disable_static_mode
+    _disable_static_mode()
+
+
+def enable_static():
+    from .static import _enable_static_mode
+    _enable_static_mode()
+
+
+def in_dynamic_mode():
+    from .static import _in_static_mode
+    return not _in_static_mode()

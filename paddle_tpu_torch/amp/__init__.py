@@ -10,6 +10,8 @@ import torch
 
 from ..core.dtype import to_dtype
 from ..observability import metrics as _om
+from ..observability import numerics as _num
+from ..resilience import faults as _faults
 from .state import (BLACK_LIST, WHITE_LIST, amp_dtype, amp_state,
                     is_auto_cast_enabled, maybe_cast_inputs)
 
@@ -118,9 +120,14 @@ class GradScaler:
     scaler records the reference's series (:98-112):
     ``paddle_tpu_amp_loss_scale`` at every update,
     ``paddle_tpu_amp_steps_total{outcome=ok|skipped}`` at every step and
-    ``paddle_tpu_amp_scale_decreases_total``. The ``numerics`` notes and
-    the ``numerics.check`` fault point come with the port's numerics
-    plane (ROADMAP)."""
+    ``paddle_tpu_amp_scale_decreases_total``. It reports to the
+    numerics plane as the reference's does (:260-340): the
+    ``numerics.check`` fault point (ctx ``where="amp"``) fires before the
+    unscale when faults are armed, a skipped step notes its nonfinite
+    gradients (``note_found_inf``) and ticks the plane's cadence, every
+    dynamic ``update`` notes the scale and whether it decreased (a
+    decrease to the plane's floor fires the sentinel), and
+    ``set_loss_scaling`` re-arms the sentinel and notes the new scale."""
 
     def __init__(self, enable=True, init_loss_scaling=2.0 ** 15,
                  incr_ratio=2.0, decr_ratio=0.5, incr_every_n_steps=1000,
@@ -201,11 +208,23 @@ class GradScaler:
         if not self._enable:
             optimizer.step()
             return
+        # numerics.check chaos hook (ctx where="amp"): before the unscale,
+        # so an injected PoisonGradient reaches the found_inf check
+        if _faults._ACTIVE:
+            _num.check_fault("amp", [
+                (optimizer._names[id(p)], p.grad)
+                for p in dict.fromkeys(optimizer._all_params())])
         if not self._unscaled:
             self.unscale_(optimizer)
         skipped = self._found_inf
         if not skipped:
             optimizer.step()
+        else:
+            # the optimizer never ran: count the nonfinite event and
+            # advance the plane's cadence (a training step happened)
+            _num.note_found_inf()
+            if _num._ENABLED:
+                _num.tick()
         self._unscaled = False
         self.update()
         if _om._ENABLED:
@@ -240,6 +259,7 @@ class GradScaler:
             m["scale"].set(self._scale)
             if decreased:
                 m["decr"].inc()
+        _num.note_loss_scale(self._scale, decreased=decreased)
 
     def get_loss_scaling(self):
         """The scale as a 0-d f32 tensor."""
@@ -254,6 +274,10 @@ class GradScaler:
         self._found_inf = False
         if self._enable and _om._ENABLED:
             _amp_metrics()["scale"].set(self._scale)
+        # a remediation ends the divergence episode: a floored run has
+        # only skipped steps, so no clean publish would re-arm it
+        _num.rearm()
+        _num.note_loss_scale(self._scale, decreased=False)
 
     def state_dict(self):
         return {"scale": self._scale, "incr_ratio": self._incr_ratio,

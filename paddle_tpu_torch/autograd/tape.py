@@ -14,6 +14,9 @@ import functools
 
 import torch
 
+from ..observability import numerics as _num
+from . import dispatch_queue
+
 __all__ = ["is_grad_enabled", "set_grad_enabled", "no_grad", "enable_grad",
            "run_backward"]
 
@@ -73,6 +76,53 @@ def _seed(t, g, create_graph):
     return g if create_graph else g.detach()
 
 
+class _LeafTap:
+    """The numerics plane's backward tap (the reference's leaf-edge tap,
+    paddle_tpu/autograd/dispatch_queue.py:530-541): one `[grad_sq,
+    nonfinite]` device pair over the cotangents this backward adds to the
+    leaves, not over their accumulated ``.grad``. A hook on each leaf
+    that the graph of `outs` accumulates into sees that cotangent before
+    torch adds it (and returns nothing, so the gradient is untouched);
+    the pairs are summed in the graph walk's order. The reference taps
+    each fused segment of its own backward engine; the port runs one
+    torch backward, so a backward is one tap (a record's
+    ``backward.segments`` counts backwards)."""
+
+    def __init__(self, outs):
+        self.leaves, self.pairs, self.handles = [], {}, []
+        seen, stack = set(), [t.grad_fn for t in outs]
+        while stack:
+            fn = stack.pop()
+            if fn is None or fn in seen:
+                continue
+            seen.add(fn)
+            leaf = getattr(fn, "variable", None)
+            if leaf is not None and id(leaf) not in self.pairs:
+                self.pairs[id(leaf)] = None
+                self.leaves.append(leaf)
+                self.handles.append(leaf.register_hook(
+                    functools.partial(self._note, id(leaf))))
+            stack.extend(f for f, _ in fn.next_functions)
+
+    @torch.no_grad()
+    def _note(self, key, g):
+        gf = g.detach().float()
+        self.pairs[key] = torch.stack([torch.sum(gf * gf),
+                                       torch.sum(~torch.isfinite(gf)).float()])
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+
+    @torch.no_grad()
+    def pair(self):
+        got = [self.pairs[id(leaf)] for leaf in self.leaves
+               if self.pairs[id(leaf)] is not None]
+        if not got:
+            return torch.zeros(2)
+        return torch.stack(got).sum(0)
+
+
 def run_backward(tensors, grad_tensors=None, retain_graph=False,
                  grad_targets=None, create_graph=False,
                  accumulate_leaf_grads=True):
@@ -81,7 +131,9 @@ def run_backward(tensors, grad_tensors=None, retain_graph=False,
     grad contribute nothing, as in the reference. With `grad_targets`
     and ``accumulate_leaf_grads=False`` (paddle.grad) it returns the
     torch gradient of each target (None where unreachable) and touches
-    no ``.grad``; otherwise it accumulates into the leaves' ``.grad``."""
+    no ``.grad``; otherwise it accumulates into the leaves' ``.grad``,
+    and on the numerics plane's sampled steps, in the "whole_graph"
+    dispatch mode, notes a backward tap (`_LeafTap`)."""
     if grad_tensors is None:
         grad_tensors = [None] * len(tensors)
     outs, seeds = [], []
@@ -103,8 +155,16 @@ def run_backward(tensors, grad_tensors=None, retain_graph=False,
                 results[i] = r
         return results
     if outs:
-        torch.autograd.backward(outs, seeds, retain_graph=retain_graph,
-                                create_graph=create_graph)
+        tap = _LeafTap(outs) if _num._ENABLED and _num.want_stats() \
+            and dispatch_queue.dispatch_mode() == "whole_graph" else None
+        try:
+            torch.autograd.backward(outs, seeds, retain_graph=retain_graph,
+                                    create_graph=create_graph)
+        finally:
+            if tap is not None:
+                tap.close()
+        if tap is not None:
+            _num.note_backward_tap(tap.pair())
     if grad_targets is not None:
         return [None if x.grad is None else x.grad._data
                 for x in grad_targets]

@@ -67,7 +67,21 @@ nothing. Reading them adds no synchronisation. On the CPU the step is
 synchronous and the host clock around it is the step's time. As in the
 reference, the first call of a signature (its capture) gives no sample
 and a call's sample is published at a later call: after N calls of one
-signature, N - 2 samples."""
+signature, N - 2 samples. Each sample also publishes the goodput
+fractions (`observability.comms.note_train_step`, the same seconds and
+expectation).
+
+The numerics plane (`observability.numerics`, while enabled; the
+reference's :400-412, :444-472, :504-540): the step's update is the
+optimizer's statistics variant, and the plane's flag is part of the
+graph key, so a signature has a statistics graph beside its plain one
+(its capture is a "train_step" compile). Its packed bundle is a static
+output of the graph; a sampled call submits it with the loss
+(`numerics.submit` starts its host copy on the stream at once, before
+the next replay can overwrite it), under the trainable parameters'
+names and group labels (computed once), source "train_step"; every call
+ticks the plane's cadence. The CPU's eager step does the same without a
+graph, taking the statistics on sampled calls only."""
 from __future__ import annotations
 
 import collections
@@ -87,7 +101,9 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from ..core.tensor import Tensor
 from ..kernels import tracing
 from ..nn.layer import Layer
+from ..observability import comms as _cm
 from ..observability import metrics as _om
+from ..observability import numerics as _num
 from ..observability import perf as _pf
 from ..optimizer.lr import LRScheduler
 from ..utils.watchdog import watchdog
@@ -682,6 +698,14 @@ class TrainStep:
             raise ValueError("TrainStep: the model has no trainable "
                              "parameters")
         self.device = self._params[0].device
+        # the numerics plane's names and group labels of the trainable
+        # parameters, computed once (the reference's :400-412)
+        names = {id(p): n for n, p in nn.Module.named_parameters(model)}
+        gidx = {id(p): i for i, g in enumerate(optimizer._param_groups)
+                for p in g["params"]}
+        self._train_pnames = [names[id(p)] for p in self._params]
+        self._train_groups = [f"g{gidx.get(id(p), 0)}"
+                              for p in self._params]
         # the optimizer's state exists before any capture
         for p in self._params:
             optimizer._get_state(p)
@@ -712,38 +736,49 @@ class TrainStep:
         obs = _om._ENABLED
         if obs:
             self._read_timings()
+        numerics = _num._ENABLED
+        lr = opt.get_lr()
         # FLAGS_watchdog_timeout_s arms a hang detector around the step,
         # as the reference's TrainStep does; armed, the step waits for
         # the card so that the detector sees the device finish
         with watchdog(what=f"TrainStep step {self._step_count}") as wd:
             if self.device.type == "cuda" and not self._eager:
-                loss = self._graph_step(args, kwargs, obs)
+                loss, packed = self._graph_step(args, kwargs, obs,
+                                                numerics)
             else:
-                loss = self._eager_step(args, kwargs, obs)
+                loss, packed = self._eager_step(
+                    args, kwargs, obs, numerics and _num.want_stats())
             if wd is not None and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        if numerics:
+            if packed is not None and _num.want_stats():
+                _num.submit(packed, names=self._train_pnames,
+                            groups=self._train_groups, loss=loss,
+                            lr=float(lr), source="train_step")
+            _num.tick()
         self._step_count += 1
         if isinstance(opt._lr, LRScheduler):
             opt._lr.step()
         return loss
 
-    def _eager_step(self, args, kwargs, obs):
+    def _eager_step(self, args, kwargs, obs, stats=False):
         """One step run eagerly (the CPU, or `_eager` on the card), its
         compile and time reported while observability is on: the first
         call of a signature is the family's compile, a later call's
-        host time a roofline sample (a CPU step is synchronous)."""
+        host time a roofline sample (a CPU step is synchronous). Returns
+        (loss, the numerics bundle with `stats`, else None)."""
         first = False
         if obs:
-            key = self._key(args, kwargs)
+            key = (self._key(args, kwargs), _num._ENABLED)
             first = key not in self._compiled
             if first:
                 self._compiled[key] = _pf.record_compile(
                     "train_step", self._count_cost(args))
         t0 = time.perf_counter()
-        loss = self._step_in_place(
+        loss, packed = self._step_in_place(
             [self._batch(a) for a in args],
             {k: self._batch(v) if isinstance(v, torch.Tensor)
-             else v for k, v in kwargs.items()})
+             else v for k, v in kwargs.items()}, stats)
         if obs:
             seconds = time.perf_counter() - t0
             if self.device.type == "cuda":
@@ -755,7 +790,7 @@ class TrainStep:
                 h.labels(family="train_step").observe(seconds)
             else:
                 self._pending.append((seconds, self._compiled[key]))
-        return loss
+        return loss, packed
 
     def _read_timings(self):
         """Publish the roofline of every earlier step whose timing is in
@@ -773,6 +808,7 @@ class TrainStep:
                 seconds = t
             pend.popleft()
             _pf.observe_roofline("train_step", seconds, cost)
+            _cm.note_train_step(seconds, cost)
 
     def _count_cost(self, args):
         """The step's expectation (`perf.count_cost`) from the model's
@@ -796,10 +832,11 @@ class TrainStep:
             param_bytes=float(sum(nbytes(p) for p in self._params)),
             update_bytes=float(update), **shape())
 
-    def _step_in_place(self, args, kwargs):
+    def _step_in_place(self, args, kwargs, stats=False):
         """One step that writes parameters and state in place (what a
         graph captures): the first group's hyperparameters, no clip, no
-        masters; the buffers put back as they were."""
+        masters; the buffers put back as they were. Returns (loss, the
+        packed numerics bundle of the update with `stats`, else None)."""
         opt = self.optimizer
         held = [b.detach().clone() for b in self._buffers]
         _STEPPING[0] += 1
@@ -814,15 +851,19 @@ class TrainStep:
         finally:
             _STEPPING[0] -= 1
         group = opt._param_groups[0] if opt._param_groups else {}
+        packed = None
         with torch.no_grad(), record_function("TrainStep.update"):
             # an unused parameter gets a zero gradient, as jax.grad gives
-            opt._update_in_place(
-                [(p, torch.zeros_like(p) if g is None else g, group)
-                 for p, g in zip(self._params, grads)], masters=False)
+            pgs = [(p, torch.zeros_like(p) if g is None else g, group)
+                   for p, g in zip(self._params, grads)]
+            if stats:
+                packed = opt._update_with_stats(pgs, masters=False)
+            else:
+                opt._update_in_place(pgs, masters=False)
         with torch.no_grad():
             for b, h in zip(self._buffers, held):
                 b.copy_(h)
-        return loss.detach()
+        return loss.detach(), packed
 
     @staticmethod
     def _signature(a):
@@ -837,13 +878,14 @@ class TrainStep:
                 tuple((k, self._signature(kwargs[k]))
                       for k in sorted(kwargs)))
 
-    def _graph_step(self, args, kwargs, obs=False):
-        """Replay the graph of this batch signature, capturing it first
-        (the capture's warm-up run is this call's step). With `obs`, a
-        replay is timed by CUDA events around it on the step's
-        stream."""
+    def _graph_step(self, args, kwargs, obs=False, stats=False):
+        """Replay the graph of this batch signature (its statistics
+        variant with `stats`), capturing it first (the capture's warm-up
+        run is this call's step). With `obs`, a replay is timed by CUDA
+        events around it on the step's stream. Returns (loss, the static
+        packed bundle or None)."""
         names = sorted(kwargs)
-        key = self._key(args, kwargs)
+        key = (self._key(args, kwargs), stats)
         entry = self._graphs.get(key)
         if entry is not None:
             captured, statics = entry
@@ -856,11 +898,12 @@ class TrainStep:
             # eager or captured step's update refills it itself)
             opt = self.optimizer
             opt._lr_tensor(opt.get_lr(), self.device)
-            loss = captured.replay().clone()
+            loss, packed = captured.replay()
+            loss = loss.clone()
             if obs:
                 t1.record()
                 self._pending.append(((t0, t1), captured.expected))
-            return loss
+            return loss, packed
         vals = list(args) + [kwargs[k] for k in names]
         statics = [torch.empty(tuple(v.shape), device=self.device,
                                dtype=torch.as_tensor(v).dtype)
@@ -871,11 +914,13 @@ class TrainStep:
         s_args = inputs[:len(args)]
         s_kwargs = dict(zip(names, inputs[len(args):]))
         captured = CapturedStep(
-            "train_step", lambda: self._step_in_place(s_args, s_kwargs),
+            "train_step",
+            lambda: self._step_in_place(s_args, s_kwargs, stats),
             generators=self._generators(), warmup_counts=True,
             pool=self._graphs.pool(), expected=self._count_cost(args))
         self._graphs.put(key, (captured, statics))
-        return captured.warmup_output.clone()
+        loss, packed = captured.warmup_output
+        return loss.clone(), packed
 
     def _generators(self):
         """The CUDA generators the model's modules draw dropout masks

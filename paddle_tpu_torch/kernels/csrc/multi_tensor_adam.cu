@@ -32,6 +32,24 @@
 // types and decays: up to MTA_MAX_TENSORS a launch, under the 32,764
 // bytes CUDA 12.1+ allows), so nothing is copied from the host before a
 // launch and a CUDA graph captures the table with the launch.
+//
+// The statistics variant (mta_launch_stats: the numerics plane's packed
+// bundle, the reference's pack_stats over (work, grad, new work),
+// paddle_tpu/optimizer/optimizer.py:388-402). The update is in place, so
+// a separate pass would need a copy of every pre-update work array and
+// would read g, w and the new w from HBM once more; the update already
+// holds all three in registers. So each block also sums, over its chunk,
+// five f32 values: g^2 and g's nonfinite elements (g widened to f32,
+// before Adam's L2 term), w^2, (new w - w)^2 and the new w's nonfinite
+// elements; each thread in its own order, then warp shuffles and shared
+// memory in a fixed order, one row of a [chunks, 5] scratch a block.
+// mta_advance, which runs after the update anyway, folds each tensor's
+// rows (one warp a tensor, a fixed order) into row `pos` of a [P, 5]
+// table, which the caller lays out as pack_stats does. Every sum
+// is taken in a fixed order, so the bundle is the same from run to run;
+// the update's own arithmetic is the same code in both variants, so
+// parameters and moments are bit-equal with the statistics on and off.
+// It adds 20 bytes a chunk and a [P, 5] table to the update's traffic.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -55,6 +73,7 @@ struct MtaTensor {
   long long n;
   float wd;           // the tensor's group decay (0: none)
   int codes;          // g | m << 2 | out << 4, each a DT_* code
+  int pos;            // its row in the statistics table (stats variant)
 };
 
 struct MtaTable {
@@ -67,7 +86,10 @@ struct MtaHyper {
   const float* lr;    // f32 device scalar
   float b1, omb1, b2, omb2, eps;
   int decoupled;      // 1: AdamW (decay after the step), 0: Adam (L2)
+  float* rows;        // stats variant: [chunks, MTA_STATS] scratch
 };
+
+#define MTA_STATS 5   // g^2, g nonfinite, w^2, (new w - w)^2, new w nonfinite
 
 static_assert(sizeof(MtaTable) + sizeof(MtaHyper) <= 32764,
               "kernel parameters exceed CUDA's limit");
@@ -90,6 +112,26 @@ __device__ __forceinline__ void store_f(void* p, long long i, int code,
     static_cast<__half*>(p)[i] = __float2half_rn(x);
 }
 
+__device__ __forceinline__ float nonfinite(float x) {
+  return isfinite(x) ? 0.f : 1.f;
+}
+
+// sum of `x` over the block, the same order every run; every thread gets
+// the result in lane 0 of warp 0 only
+__device__ __forceinline__ float block_sum(float x, float* smem) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) smem[warp] = x;
+  __syncthreads();
+  float t = 0.f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < MTA_THREADS / 32; ++w) t += smem[w];
+  __syncthreads();
+  return t;
+}
+
+template <bool STATS>
 __global__ void __launch_bounds__(MTA_THREADS)
 mta_update(const __grid_constant__ MtaTable tab,
            const __grid_constant__ MtaHyper hp) {
@@ -117,6 +159,8 @@ mta_update(const __grid_constant__ MtaTable tab,
   const float lrwd = __fmul_rn(lr, wd);
   const bool l2 = !hp.decoupled && wd != 0.f;
   const bool decay = hp.decoupled && wd != 0.f;
+  // the statistics' partial sums (STATS only)
+  float s_gsq = 0.f, s_gnf = 0.f, s_wsq = 0.f, s_dsq = 0.f, s_pnf = 0.f;
 
   for (long long base = start + threadIdx.x; base < end;
        base += MTA_ILP * MTA_THREADS) {
@@ -147,21 +191,61 @@ mta_update(const __grid_constant__ MtaTable tab,
                                   __fadd_rn(__fsqrt_rn(vh), hp.eps));
       float nw = __fsub_rn(w[k], upd);
       if (decay) nw = __fsub_rn(nw, __fmul_rn(lrwd, w[k]));
+      if (STATS) {
+        const float d = __fsub_rn(nw, w[k]);
+        s_gsq = __fadd_rn(s_gsq, __fmul_rn(g[k], g[k]));
+        s_gnf += nonfinite(g[k]);
+        s_wsq = __fadd_rn(s_wsq, __fmul_rn(w[k], w[k]));
+        s_dsq = __fadd_rn(s_dsq, __fmul_rn(d, d));
+        s_pnf += nonfinite(nw);
+      }
       T.w[i] = nw;
       store_f(T.m, i, mc, mk);
       store_f(T.v, i, mc, vk);
       if (oc != DT_NONE) store_f(T.out, i, oc, nw);
     }
   }
+  if (STATS) {
+    __shared__ float smem[MTA_THREADS / 32];
+    const float part[MTA_STATS] = {s_gsq, s_gnf, s_wsq, s_dsq, s_pnf};
+#pragma unroll
+    for (int j = 0; j < MTA_STATS; ++j) {
+      const float t = block_sum(part[j], smem);
+      if (threadIdx.x == 0) hp.rows[b * MTA_STATS + j] = t;
+    }
+  }
 }
 
 // beta*_pow *= beta*, once a tensor, after every block of mta_update
-// has read the old values (stream order)
+// has read the old values (stream order). STATS: one warp a tensor folds
+// its chunks' rows of `rows` into row T.pos of `table`: lane l sums chunks
+// l, l + 32, ... in order, then a fixed shuffle tree.
+template <bool STATS>
 __global__ void mta_advance(const __grid_constant__ MtaTable tab,
-                            float b1, float b2) {
+                            float b1, float b2, const float* rows,
+                            float* table) {
   for (int t = threadIdx.x; t < tab.count; t += blockDim.x) {
     *tab.t[t].pow1 = __fmul_rn(*tab.t[t].pow1, b1);
     *tab.t[t].pow2 = __fmul_rn(*tab.t[t].pow2, b2);
+  }
+  if (!STATS) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int t = warp; t < tab.count; t += blockDim.x >> 5) {
+    const int first = t == 0 ? 0 : tab.chunk_end[t - 1];
+    const int last = tab.chunk_end[t];
+    float acc[MTA_STATS] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int c = first + lane; c < last; c += 32)
+#pragma unroll
+      for (int j = 0; j < MTA_STATS; ++j)
+        acc[j] = __fadd_rn(acc[j], rows[c * MTA_STATS + j]);
+#pragma unroll
+    for (int j = 0; j < MTA_STATS; ++j) {
+      float x = acc[j];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
+      if (lane == 0) table[tab.t[t].pos * MTA_STATS + j] = x;
+    }
   }
 }
 
@@ -169,15 +253,13 @@ extern "C" int mta_max_tensors() { return MTA_MAX_TENSORS; }
 
 extern "C" int mta_chunk() { return MTA_CHUNK; }
 
-// One update of `count` tensors. ptrs: count x 7 addresses (w, g, m, v,
-// out or 0, beta1_pow, beta2_pow); n, wd, codes: one each a tensor;
-// lr: an f32 device scalar. Returns the first CUDA error of the two
-// launches, or 0.
-extern "C" int mta_launch(int count, const unsigned long long* ptrs,
-                          const long long* n, const float* wd,
-                          const int* codes, const void* lr, float b1,
-                          float omb1, float b2, float omb2, float eps,
-                          int decoupled, void* stream) {
+extern "C" int mta_stats_cols() { return MTA_STATS; }
+
+static int launch(int count, const unsigned long long* ptrs,
+                  const long long* n, const float* wd, const int* codes,
+                  const int* pos, const void* lr, float b1, float omb1,
+                  float b2, float omb2, float eps, int decoupled,
+                  float* rows, float* table, void* stream) {
   if (count < 1 || count > MTA_MAX_TENSORS) return cudaErrorInvalidValue;
   MtaTable tab;
   int chunks = 0;
@@ -194,6 +276,7 @@ extern "C" int mta_launch(int count, const unsigned long long* ptrs,
     T.n = n[i];
     T.wd = wd[i];
     T.codes = codes[i];
+    T.pos = pos == nullptr ? 0 : pos[i];
     const long long c = (n[i] + MTA_CHUNK - 1) / MTA_CHUNK;
     if (n[i] < 0 || chunks + c > 0x7fffffffLL) return cudaErrorInvalidValue;
     chunks += static_cast<int>(c);
@@ -201,13 +284,51 @@ extern "C" int mta_launch(int count, const unsigned long long* ptrs,
   }
   tab.count = count;
   MtaHyper hp{static_cast<const float*>(lr), b1, omb1, b2, omb2, eps,
-              decoupled};
+              decoupled, rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool stats = rows != nullptr;
   if (chunks > 0) {
-    mta_update<<<chunks, MTA_THREADS, 0, s>>>(tab, hp);
+    if (stats)
+      mta_update<true><<<chunks, MTA_THREADS, 0, s>>>(tab, hp);
+    else
+      mta_update<false><<<chunks, MTA_THREADS, 0, s>>>(tab, hp);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  mta_advance<<<1, 256, 0, s>>>(tab, b1, b2);
+  if (stats)
+    mta_advance<true><<<1, 256, 0, s>>>(tab, b1, b2, rows, table);
+  else
+    mta_advance<false><<<1, 256, 0, s>>>(tab, b1, b2, nullptr, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
+
+// One update of `count` tensors. ptrs: count x 7 addresses (w, g, m, v,
+// out or 0, beta1_pow, beta2_pow); n, wd, codes: one each a tensor;
+// lr: an f32 device scalar. Returns the first CUDA error of the two
+// launches, or 0.
+extern "C" int mta_launch(int count, const unsigned long long* ptrs,
+                          const long long* n, const float* wd,
+                          const int* codes, const void* lr, float b1,
+                          float omb1, float b2, float omb2, float eps,
+                          int decoupled, void* stream) {
+  return launch(count, ptrs, n, wd, codes, nullptr, lr, b1, omb1, b2, omb2,
+                eps, decoupled, nullptr, nullptr, stream);
+}
+
+// The same update with the statistics: `rows` is a scratch of at least
+// chunks x MTA_STATS floats (chunks: the sum over the tensors of
+// ceil(n / MTA_CHUNK)), `table` the [P, MTA_STATS] table, `pos` each
+// tensor's row in it.
+extern "C" int mta_launch_stats(int count, const unsigned long long* ptrs,
+                                const long long* n, const float* wd,
+                                const int* codes, const int* pos,
+                                const void* lr, float b1, float omb1,
+                                float b2, float omb2, float eps,
+                                int decoupled, void* rows, void* table,
+                                void* stream) {
+  if (rows == nullptr || table == nullptr) return cudaErrorInvalidValue;
+  return launch(count, ptrs, n, wd, codes, pos, lr, b1, omb1, b2, omb2, eps,
+                decoupled, static_cast<float*>(rows),
+                static_cast<float*>(table), stream);
+}
+

@@ -20,8 +20,9 @@ Built-in instrumentation (recorded only while enabled):
   restarts and SharedMemory bytes, and in spawned workers the produce
   latency, batch counts and trace events, merged into the parent when
   each worker finishes (`fleet.worker_farewell`).
-* `jit.TrainStep`: the captures as compiles and the ``train_step``
-  roofline, timed by CUDA events on the card; the optimizer's
+* `jit.TrainStep`: the captures as compiles, the ``train_step``
+  roofline and the goodput fractions, timed by CUDA events on the
+  card; the optimizer's
   ``paddle_tpu_optimizer_fused_step_total``; `amp.GradScaler`'s loss
   scale, step outcomes and scale decreases.
 * `profiler.RecordEvent` and `profiler.Profiler`'s host spans go
@@ -31,9 +32,10 @@ Sub-surfaces: `slo` (declarative latency objectives read from the
 registry), `flight` (atomic metrics + trace bundles on slow steps,
 deadline misses, preemption storms, fault-point fires and SLO
 breaches), `perf` (shape-counted cost models and the roofline gauges)
-and `fleet`'s local part (the worker bundle). The reference's
-``numerics`` and ``comms`` planes and the fleet's agent and aggregator
-are not ported yet (ROADMAP).
+`fleet`'s local part (the worker bundle), `numerics` (in-step gradient
+and parameter statistics, the NaN/Inf sentinel, loss-scale forensics)
+and `comms` (collective timing and goodput). The fleet's agent and
+aggregator are not ported yet (ROADMAP).
 
 Quick start::
 
@@ -49,7 +51,8 @@ submodules expose the flags separately (`obs.metrics.enable()`,
 `merge()` carry metrics across spawn boundaries."""
 from __future__ import annotations
 
-from . import fleet, flight, metrics, perf, slo, tracing  # noqa: F401
+from . import (comms, fleet, flight, metrics, numerics, perf,  # noqa: F401
+               slo, tracing)
 from .metrics import (  # noqa: F401
     Counter, Gauge, Histogram, MetricsRegistry, registry,
     DEFAULT_BUCKETS, MergeSkewError,
@@ -65,7 +68,8 @@ __all__ = [
     "reset", "to_prometheus", "to_json", "span", "current_trace",
     "trace_context", "trace_events", "trace_clear",
     "export_chrome_trace", "export_jsonl", "summary",
-    "metrics", "tracing", "slo", "flight", "perf", "fleet", "SLO",
+    "metrics", "tracing", "slo", "flight", "perf", "fleet", "comms",
+    "numerics", "SLO",
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "DEFAULT_BUCKETS", "MergeSkewError",
 ]
@@ -100,12 +104,16 @@ def merge(snap: dict, on_skew: str = "raise") -> list:
 
 def reset() -> None:
     """Full observable-state reset: zero every metric series, drop every
-    buffered trace event and the perf window's accumulators, which move
-    together so a fresh measurement window never mixes old spans with
-    new counters. Use `trace_clear()` for the ring alone."""
+    buffered trace event, the perf and comms windows' accumulators and
+    the numerics window (pending bundle, taps, sentinel windows, cadence
+    and latch), which move together so a fresh measurement window never
+    mixes old spans with new counters. Use `trace_clear()` for the ring
+    alone."""
     registry().reset()
     tracing.clear()
     perf.reset_window()
+    comms.reset_window()
+    numerics.reset_window()
 
 
 def to_prometheus() -> str:

@@ -17,11 +17,13 @@ trigger site — the recorder does nothing until `arm()`:
 Wired triggers in this package (grep `_fl._ARMED` / `flight.trigger`
 for ground truth): LLMEngine.step latency over threshold, request
 deadline miss, a preemption storm inside one step, any resilience
-fault point firing (capture_faults) and SLO breaches found by
-`slo.evaluate()`. The reference's other reasons (numerics divergence,
-collective skew, autopilot and autoscale decisions) stay in
-`TRIGGER_REASONS` for their modules, which are not ported yet. Anything
-else can call `flight.trigger(reason, detail=...)` directly.
+fault point firing (capture_faults), SLO breaches found by
+`slo.evaluate()` and training divergence found by the numerics plane
+(``numerics_divergence``: nonfinite values, a gradient-norm spike, a
+loss scale at its floor). The reference's other reasons (collective
+skew, autopilot and autoscale decisions) stay in `TRIGGER_REASONS` for
+their modules, which are not ported yet. Anything else can call
+`flight.trigger(reason, detail=...)` directly.
 
 A bundle is one directory, written to a hidden tmp name and renamed
 into place (the checkpoint atomicity idiom — a crash mid-dump never

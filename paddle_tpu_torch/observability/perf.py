@@ -20,6 +20,8 @@ accounting (counterpart of paddle_tpu/observability/perf.py).
   ``torch.cuda.get_device_name()``; a device that matches no entry (the
   CPU) gets NO roofline series, as in the reference.
   `set_device_peaks()` pins the denominators explicitly.
+  `interconnect_peaks()` / `set_interconnect_peaks()` are the same for
+  the links that `observability.comms` reads.
 
 * **The dispatch-engine series.** The reference's eager backward engine
   and its whole-graph backward cache report host dispatch gaps, batch
@@ -44,8 +46,9 @@ from . import metrics as _m
 __all__ = [
     "CostModel", "count_cost", "record_compile", "observe_roofline",
     "family_records", "reset_window", "device_peaks",
-    "set_device_peaks", "lookup", "PEAK_BF16_FLOPS", "HBM_BYTES_PER_SEC",
-    "DISPATCH_GAP_BUCKETS",
+    "set_device_peaks", "interconnect_peaks", "set_interconnect_peaks",
+    "lookup", "PEAK_BF16_FLOPS", "HBM_BYTES_PER_SEC", "ICI_BYTES_PER_SEC",
+    "DCN_BYTES_PER_SEC", "DISPATCH_GAP_BUCKETS",
 ]
 
 # ---------------------------------------------------------------------------
@@ -66,6 +69,18 @@ HBM_BYTES_PER_SEC = {
     # HBM3 bandwidth (spec)
     "h100": 3.35e12,
 }
+
+# the card's aggregate ONE-WAY interconnect bandwidth (spec), under the
+# reference's link labels: "ici" is the card's NVLink to the other cards
+# of its host (H100 SXM, NVLink 4: 18 links x 25 GB/s = 450 GB/s each way,
+# NVIDIA's data sheet), "dcn" the network between hosts, which no table
+# here knows. observability.comms reads these strictly: a link without a
+# known peak publishes no link-utilization series.
+ICI_BYTES_PER_SEC = {
+    "h100": 450e9,
+}
+
+DCN_BYTES_PER_SEC: Dict[str, float] = {}
 
 
 def _device_name(device) -> str:
@@ -115,6 +130,39 @@ def set_device_peaks(flops: Optional[float] = None,
         _PEAK_OVERRIDE = None
     else:
         _PEAK_OVERRIDE = (float(flops or 0.0), float(bytes_per_sec or 0.0))
+
+
+# operator/test override for the interconnect denominators:
+# {"ici": x, "dcn": y} or None
+_INTERCONNECT_OVERRIDE: Optional[dict] = None
+
+
+def set_interconnect_peaks(ici: Optional[float] = None,
+                           dcn: Optional[float] = None) -> None:
+    """Pin the interconnect peak denominators explicitly (tests on the
+    CPU, sessions that measured their fabric). Call with no arguments to
+    clear the override."""
+    global _INTERCONNECT_OVERRIDE
+    if ici is None and dcn is None:
+        _INTERCONNECT_OVERRIDE = None
+    else:
+        _INTERCONNECT_OVERRIDE = {"ici": float(ici or 0.0),
+                                  "dcn": float(dcn or 0.0)}
+
+
+def interconnect_peaks(device=None) -> Optional[dict]:
+    """{"ici": bytes/s, "dcn": bytes/s} of the card (the current CUDA
+    device by default; 0.0 for a link no table knows), or None when its
+    name matches neither table or there is no card: the collective
+    link-utilization gauges then publish NOTHING, the device_peaks()
+    convention."""
+    if _INTERCONNECT_OVERRIDE is not None:
+        return _INTERCONNECT_OVERRIDE
+    ici = lookup(device, ICI_BYTES_PER_SEC)
+    dcn = lookup(device, DCN_BYTES_PER_SEC)
+    if ici is None and dcn is None:
+        return None
+    return {"ici": ici or 0.0, "dcn": dcn or 0.0}
 
 
 def device_peaks(device=None) -> Optional[Tuple[float, float]]:

@@ -38,18 +38,42 @@ never counts "compile" and reports no "optimizer_fused" compile; each
 new set of work shapes records the family's expectation instead
 (`observability.perf.count_cost`, the executable gauges). TrainStep's
 update (inside its graph) counts nothing, as the reference's
-``functional_update`` does not.
+``functional_update`` does not. ``PADDLE_TPU_FUSED_OPT=0`` is read as
+the reference reads it (:317-321) for what a step reports: no fused step
+is counted and the numerics source is ``optimizer_eager``. It does not
+move the update: the multi-tensor form computes the per-tensor rule op
+for op, so every f32 work array still goes through it (the kernel on the
+card).
+
+The numerics plane (``observability.numerics``, while enabled): the
+``numerics.check`` fault point fires at the top of ``step`` (before
+clipping, ctx ``where="step"``) when faults are armed; on a sampled step
+the update also writes each parameter's statistics into a [P, 5] table
+(the multi-tensor kernel's statistics variant, with its per-chunk
+scratch, both kept beside the table; the per-tensor rule's from
+``work``, the gradient and the new value before ``work.copy_``, so no
+copy is kept), ``pack_rows`` lays it out as ``pack_stats`` does, and
+one ``submit`` hands it over, labelled ``g<i>`` by group position and
+sourced ``optimizer_fused`` when every work array is f32 and the fused
+step is on (the reference's fused step; whether the port has a kernel
+for the rule does not matter), else ``optimizer_eager``. ``tick`` ends
+every step.
 """
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 from typing import Dict, List
 
 import torch
 
 from ..core.tensor import Tensor
+from ..kernels.multi_tensor_adam import STATS_COLS, pack_rows, \
+    scratch_floats
 from ..observability import metrics as _om
+from ..observability import numerics as _num
 from ..observability import perf as _pf
+from ..resilience import faults as _faults
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
@@ -67,6 +91,13 @@ def _fused_counter(outcome: str) -> None:
             "fused optimizer-step executable cache outcomes",
             ("outcome",))
     _FUSED_COUNTER.labels(outcome=outcome).inc()
+
+
+def fused_enabled() -> bool:
+    """False when ``PADDLE_TPU_FUSED_OPT`` is "0", as the reference reads
+    it (optimizer.py:317-321): then no step reports itself fused (the
+    module docstring)."""
+    return os.environ.get("PADDLE_TPU_FUSED_OPT", "1") != "0"
 
 
 def _unpack(item, index):
@@ -211,6 +242,42 @@ class Optimizer:
             return grad + float(getattr(wd, "_coeff", wd)) * param
         return grad
 
+    def _numerics_group_labels(self, groups):
+        """The numerics plane's per-group labels: g<i> by position in
+        the optimizer's groups (reference :204-210)."""
+        gidx = {id(g): i for i, g in enumerate(self._param_groups)}
+        return [f"g{gidx.get(id(grp), 0)}" for grp in groups]
+
+    def _numerics_source(self, params_grads) -> str:
+        """"optimizer_fused" when the step is the reference's fused step
+        (every work array f32, PADDLE_TPU_FUSED_OPT not "0"), else
+        "optimizer_eager"."""
+        if fused_enabled() and all(
+                self._master(p) is not None or p.dtype == torch.float32
+                for p, _g, _grp in params_grads):
+            return "optimizer_fused"
+        return "optimizer_eager"
+
+    def _stats_table(self, params_grads, device):
+        """The statistics buffers of an update of `params_grads` on
+        `device`: the [P, STATS_COLS] table, its packed [2P + 3] bundle
+        and the multi-tensor kernel's per-chunk scratch (sized for every
+        parameter). Made once for each (device, parameter sizes), so a
+        graph that captured an update writes the same buffers at each
+        replay."""
+        sizes = tuple(p.numel() for p, _g, _grp in params_grads)
+        tabs = self.__dict__.setdefault("_stats_tables", {})
+        hit = tabs.get((device, sizes))
+        if hit is None:
+            n = len(sizes)
+            hit = tabs[(device, sizes)] = (
+                torch.zeros((n, STATS_COLS), dtype=torch.float32,
+                            device=device),
+                torch.zeros(2 * n + 3, dtype=torch.float32, device=device),
+                torch.zeros(max(1, scratch_floats(sizes)),
+                            dtype=torch.float32, device=device))
+        return hit
+
     # -- public API --
     @torch.no_grad()
     def step(self):
@@ -224,18 +291,54 @@ class Optimizer:
                     continue
                 seen.add(id(p))
                 params_grads.append((p, p.grad, group))
+        # numerics.check chaos hook (ctx where="step"), before clipping;
+        # the disarmed loop never builds the pairs
+        if _faults._ACTIVE:
+            _num.check_fault("step", [(self._names[id(p)], g)
+                                      for p, g, _ in params_grads])
         if self._grad_clip is not None:
             clipped = self._grad_clip([(p, g) for p, g, _ in params_grads])
             params_grads = [(p, g2, grp) for (p, _g, grp), (_, g2) in
                             zip(params_grads, clipped)]
         self._step_count += 1
-        self._update_in_place(params_grads)
+        packed = None
+        if _num._ENABLED and _num.want_stats() and params_grads:
+            packed = self._update_with_stats(params_grads)
+        else:
+            self._update_in_place(params_grads)
         if _om._ENABLED and params_grads:
             self._note_fused_step(params_grads)
+        if packed is not None:
+            _num.submit(
+                packed, names=[self._names[id(p)] for p, _, _ in
+                               params_grads],
+                groups=self._numerics_group_labels(
+                    [grp for _, _, grp in params_grads]),
+                lr=self.get_lr(), source=self._numerics_source(
+                    params_grads))
+        if _num._ENABLED:
+            _num.tick()
+
+    def _update_with_stats(self, params_grads, masters=True):
+        """`_update_in_place` with the statistics: returns the packed
+        bundle (a buffer of the optimizer's, rewritten by the next such
+        update)."""
+        devs = {p.device for p, _g, _grp in params_grads}
+        if len(devs) != 1:
+            raise ValueError("the numerics plane's statistics need every "
+                             "parameter on one device, got "
+                             f"{sorted(map(str, devs))}")
+        table, packed, scratch = self._stats_table(params_grads,
+                                                   devs.pop())
+        self._update_in_place(params_grads, masters=masters,
+                              stats=(table, scratch))
+        return pack_rows(table, out=packed)
 
     def _note_fused_step(self, params_grads):
         """The step's fused-step outcome (module docstring), and the
         expectation of a new set of work shapes."""
+        if not fused_enabled():
+            return              # no fused step, as in the reference
         work = []
         for p, _g, _grp in params_grads:
             mw = self._master(p)
@@ -267,36 +370,46 @@ class Optimizer:
             update_bytes=float(update)))
 
     @torch.no_grad()
-    def _update_in_place(self, params_grads, masters=True):
+    def _update_in_place(self, params_grads, masters=True, stats=None):
         """Update each (param, grad, group) in place: every f32 work
         array (an f32 parameter, or a master) through
         ``_multi_tensor_update`` in one call per device, the rest through
         ``_update_rule`` tensor by tensor, at the lr scalar of each
         device (``_lr_tensor``). TrainStep passes the first group for
         every parameter and ``masters=False``: like the reference's
-        functional_update, it updates the parameters themselves."""
+        functional_update, it updates the parameters themselves.
+        `stats`: (a [P, STATS_COLS] table that receives row i's
+        statistics for params_grads[i], the multi-tensor form's scratch)
+        (module docstring)."""
         lr = self.get_lr()
+        multi = self._multi_tensor_update is not None
+        table, scratch = (None, None) if stats is None else stats
         fused = {}
-        for p, g, grp in params_grads:
+        for i, (p, g, grp) in enumerate(params_grads):
             mw = self._master(p) if masters else None
             work = p.detach() if mw is None else mw
             state = self._get_state(p)
             out = None if mw is None else p.detach()
-            if self._multi_tensor_update is not None \
-                    and work.dtype == torch.float32:
+            if multi and work.dtype == torch.float32:
                 fused.setdefault(work.device, []).append(
-                    (work, g, state, grp, out))
+                    (i, (work, g, state, grp, out)))
                 continue
             garr = g if g.dtype == work.dtype else g.to(work.dtype)
             new_w, new_state = self._update_rule(
                 work, garr, state, self._lr_tensor(lr, work.device), grp)
+            if table is not None:
+                table[i].copy_(_num.pack_stats([work], [garr], [new_w]))
             work.copy_(new_w)
             if out is not None:
                 out.copy_(new_w)
             for k, v in new_state.items():
                 state[k].copy_(v)
         for dev, items in fused.items():
-            self._multi_tensor_update(items, self._lr_tensor(lr, dev))
+            self._multi_tensor_update(
+                [item for _i, item in items], self._lr_tensor(lr, dev),
+                **({} if table is None else dict(
+                    stats=table, positions=[i for i, _item in items],
+                    scratch=scratch)))
 
     def clear_grad(self, set_to_zero=False):
         for p in self._all_params():

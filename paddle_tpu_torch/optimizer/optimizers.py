@@ -108,14 +108,18 @@ class Adam(Optimizer):
         wd = group.get("weight_decay", self.weight_decay)
         return float(getattr(wd, "_coeff", wd)) if wd else 0.0
 
-    def _multi_tensor_update(self, items, lr):
+    def _multi_tensor_update(self, items, lr, stats=None, positions=None,
+                             scratch=None):
         """The rule over every (work, grad, state, group, out) item in one
-        multi_tensor_adam call: one launch on the card."""
+        multi_tensor_adam call: one launch on the card (its statistics
+        variant with `stats` and its `scratch`, each item's row at its
+        `positions` entry)."""
         multi_tensor_adam(
             [AdamSlot(w, g, st["moment1"], st["moment2"], st["beta1_pow"],
                       st["beta2_pow"], self._decay(grp), out)
              for w, g, st, grp, out in items], lr, beta1=self.beta1,
-            beta2=self.beta2, eps=self.epsilon, decoupled=self._decoupled)
+            beta2=self.beta2, eps=self.epsilon, decoupled=self._decoupled,
+            stats=stats, positions=positions, scratch=scratch)
 
     def _decayed_grad(self, param, grad, group):
         return self._apply_decay(param, grad, group)

@@ -12,7 +12,16 @@ import numpy as np
 from . import fs  # noqa: F401  (the reference's utils carries it too)
 
 __all__ = ["try_import", "unique_name_guard", "to_dlpack", "from_dlpack",
-           "dlpack", "run_check", "flops", "deprecated"]
+           "dlpack", "run_check", "flops", "deprecated", "cpp_extension"]
+
+
+def __getattr__(name):
+    # cpp_extension (g++ host ops) resolved at first use: it imports the
+    # eager Tensor, which the kernels' build helper here must not need
+    if name == "cpp_extension":
+        import importlib
+        return importlib.import_module(".cpp_extension", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def try_import(module_name, err_msg=None):

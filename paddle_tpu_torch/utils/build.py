@@ -1,8 +1,9 @@
 """Build native sources into shared libraries at first use.
 
-Counterpart of paddle_tpu/utils/cpp_extension.py::_compile, cut to what
-the serving slice needs: the paged-cache block allocator (g++) and the
-hand-written CUDA kernels (nvcc). Libraries land in ``build/paddle_tpu_torch/``
+Counterpart of paddle_tpu/utils/cpp_extension.py::_compile: the
+paged-cache block allocator, the data loader's native queue and
+`utils.cpp_extension`'s host ops (g++), and the hand-written CUDA
+kernels (nvcc). Libraries land in ``build/paddle_tpu_torch/``
 under the repository root, named by a hash of the sources and flags, so
 an edited source rebuilds and an unchanged one loads straight away.
 Each build writes a private temporary file and renames it into place, so
@@ -48,20 +49,25 @@ def nvcc_path() -> str:
 
 
 def build_shared(name: str, sources: Sequence[str], compiler: str,
-                 flags: Sequence[str], headers: Sequence[str] = ()) -> str:
+                 flags: Sequence[str], headers: Sequence[str] = (),
+                 out_dir=None, libs: Sequence[str] = ()) -> str:
     """Compile ``sources`` with ``compiler`` and ``flags`` into
-    ``build_dir()/<name>_<hash>.so``; returns the library's path.
-    ``headers`` are the files the sources include: hashed with them, so
-    an edited header rebuilds every library that names it."""
+    ``<out_dir or build_dir()>/<name>_<hash>.so``; returns the library's
+    path. ``headers`` are the files the sources include: hashed with
+    them, so an edited header rebuilds every library that names it.
+    ``libs`` (linker flags) follow the sources on the command line."""
     tag = hashlib.sha256()
     for s in (*sources, *headers):
         tag.update(Path(s).read_bytes())
-    tag.update(" ".join([os.path.basename(compiler), *flags]).encode())
-    out = build_dir() / f"{name}_{tag.hexdigest()[:16]}.so"
+    tag.update(" ".join([os.path.basename(compiler), *flags,
+                         *libs]).encode())
+    d = build_dir() if out_dir is None else Path(out_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    out = d / f"{name}_{tag.hexdigest()[:16]}.so"
     if out.exists():
         return str(out)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [compiler, *flags, "-o", str(tmp), *map(str, sources)]
+    cmd = [compiler, *flags, "-o", str(tmp), *map(str, sources), *libs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

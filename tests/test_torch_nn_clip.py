@@ -260,14 +260,16 @@ PORTED_MODULES = {
     "paddle_tpu.audio.features": ("paddle_tpu_torch.audio.features", set()),
     "paddle_tpu.audio.datasets": ("paddle_tpu_torch.audio.datasets", set()),
     # observability (ROADMAP item 8), the profiler and device memory.
-    # Still to port: the numerics and comms planes (their own PR), the
-    # fleet's agent and aggregator (item 24); JAX's own: read_cost_model
-    # (XLA's cost analysis), the dispatch-queue recorders,
-    # interconnect_peaks and set_interconnect_peaks (they go with comms),
-    # CompileTimed (the capture, jit.cuda_graph.CapturedStep, is its
-    # counterpart) and the PJRT plugin names
-    "paddle_tpu.observability": ("paddle_tpu_torch.observability",
-                                 {"comms", "numerics"}),
+    # Still to port: the fleet's agent and aggregator (item 24); JAX's
+    # own: read_cost_model (XLA's cost analysis), the dispatch-queue
+    # recorders, CompileTimed (the capture, jit.cuda_graph.CapturedStep,
+    # is its counterpart) and the PJRT plugin names
+    "paddle_tpu.observability": ("paddle_tpu_torch.observability", set()),
+    # the numerics and comms planes
+    "paddle_tpu.observability.numerics": (
+        "paddle_tpu_torch.observability.numerics", set()),
+    "paddle_tpu.observability.comms": (
+        "paddle_tpu_torch.observability.comms", set()),
     "paddle_tpu.observability.metrics": (
         "paddle_tpu_torch.observability.metrics", set()),
     "paddle_tpu.observability.tracing": (
@@ -279,8 +281,7 @@ PORTED_MODULES = {
     "paddle_tpu.observability.perf": (
         "paddle_tpu_torch.observability.perf", {
             "CompileTimed", "read_cost_model", "note_dispatch_gap",
-            "note_dispatch_batch", "note_graph_cache",
-            "interconnect_peaks", "set_interconnect_peaks"}),
+            "note_dispatch_batch", "note_graph_cache"}),
     "paddle_tpu.observability.fleet": (
         "paddle_tpu_torch.observability.fleet", {
             "FleetAgent", "FleetAggregator", "aggregator",
@@ -290,6 +291,18 @@ PORTED_MODULES = {
         "register_pjrt_plugin", "get_all_custom_device_type",
         "get_available_custom_device", "is_compiled_with_custom_device"}),
     "paddle_tpu.device.memory": ("paddle_tpu_torch.device.memory", set()),
+    # text, static, onnx, hub, cpp_extension and the package root's
+    # names (ROADMAP "next PRs" item 2); TPUPlace is JAX's own (CUDAPlace
+    # is its counterpart)
+    "paddle_tpu.text": ("paddle_tpu_torch.text", set()),
+    "paddle_tpu.text.datasets": ("paddle_tpu_torch.text.datasets", set()),
+    "paddle_tpu.static": ("paddle_tpu_torch.static", set()),
+    "paddle_tpu.static.nn": ("paddle_tpu_torch.static.nn", set()),
+    "paddle_tpu.onnx": ("paddle_tpu_torch.onnx", set()),
+    "paddle_tpu.hub": ("paddle_tpu_torch.hub", set()),
+    "paddle_tpu.utils.cpp_extension": ("paddle_tpu_torch.utils.cpp_extension",
+                                       set()),
+    "paddle_tpu": ("paddle_tpu_torch", {"TPUPlace"}),
 }
 
 

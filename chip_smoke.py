@@ -399,7 +399,26 @@ Run from the root of a checkout. Phases, each of which must pass:
      static.nn.while_loop runs on the card as on the CPU,
      save_inference_model / load_inference_model round-trip an MLP on
      the card, and a g++ utils.cpp_extension op gives the same result
-     on CUDA and CPU tensors.
+     on CUDA and CPU tensors;
+ 36. the serving fleet on gpt3_1p3b at full width (bf16, 120 pages of
+     64 tokens a replica, bench.py's fleet configurations), its oracle
+     one never-killed engine's greedy tokens under the margin guard:
+     (a) two in-process replicas behind a Router on
+     bench_router_serving's traffic (8 sessions x 4 turns, a 512-token
+     prefix each), affinity on and off (tokens/s, prefix hit rates),
+     then replica 0 killed by the `router.replica.step` fault: one
+     failover, no leaked page, B3 sm90 in every replica; (b) a
+     DisaggRouter (1 prefill, 2 decode replicas) on bench_disagg's 80
+     events, a fixed prompt set on the migrated rung and, under the
+     `disagg.migrate` fault, on the re-admission rung (bytes = pages x
+     12 MiB, handoff MiB/s), then an Autoscaler over a FleetSLOMonitor
+     growing 1 -> 2 replicas on a burst and retiring one when calm, one
+     flight bundle a decision; (c) two replica processes on the card
+     (one exec-cache store, a FleetAggregator), 8 requests, one process
+     SIGKILLed mid-decode: ReplicaGone, failover, a replacement whose
+     kernel libraries are all disk hits (no compiler run), bundles from
+     every process, the failed-over traces connected; spawn-to-ready
+     cold and warm.
 
 Each phase's wall seconds are printed ("[phase-seconds]"). The last
 three lines of standard output are a JSON record of the
@@ -7659,10 +7678,13 @@ def _sage_weights(seed=34):
             for d in dims]
 
 
-def _graph_run(dev, graph, x_np, wts, seeds):
+def _graph_run(dev, graph, x_np, wts, seeds, relu_mask=None):
     """32b on `dev`: GraphSAGE-mean forward and backward through
     send_u_recv, sum and max once, send_ue_recv and send_uv, the two-hop
-    sample and reindex_graph."""
+    sample and reindex_graph. With `relu_mask` (a bool array of the
+    hidden layer's shape) the hidden ReLU keeps the units the mask holds
+    instead of the positive ones; `positive` is the pre-activation's
+    sign as this device computed it."""
     import paddle_tpu_torch as P
     from paddle_tpu_torch import geometric as G
     src_np, dst_np, colptr_np = graph
@@ -7670,6 +7692,9 @@ def _graph_run(dev, graph, x_np, wts, seeds):
     src, dst, x = T(src_np), T(dst_np), T(x_np)
     ws = [T(w, stop_gradient=False) for w in wts]
     n = GRAPH_NODES
+    keep = (None if relu_mask is None
+            else T(relu_mask.astype(np.float32)))
+    positive = []
 
     def sage():
         h = x
@@ -7677,7 +7702,10 @@ def _graph_run(dev, graph, x_np, wts, seeds):
             agg = G.send_u_recv(h, src, dst, "mean", out_size=n)
             h = P.matmul(h, ws[2 * i]) + P.matmul(agg, ws[2 * i + 1])
             if i == 0:
-                h = P.nn.functional.relu(h)
+                if not positive:
+                    positive.append(h._data.detach() > 0)
+                h = (P.nn.functional.relu(h) if keep is None
+                     else h * keep)
         return h
 
     logits = sage()
@@ -7688,6 +7716,7 @@ def _graph_run(dev, graph, x_np, wts, seeds):
            .astype(np.float32))
     rec = dict(logits=logits._data.detach(), loss=float(loss),
                grads=[w.grad._data for w in ws],
+               positive=positive[0].cpu().numpy(),
                sum=G.send_u_recv(x, src, dst, "sum")._data,
                max=G.send_u_recv(x, src, dst, "max")._data,
                ue=G.send_ue_recv(x, ew, src, dst, "mul", "sum")._data,
@@ -7747,7 +7776,17 @@ def _graph_phase() -> dict:
     wts = _sage_weights()
     seeds = np.random.default_rng(38).choice(
         GRAPH_NODES, GRAPH_SEEDS, replace=False).astype(np.int32)
-    card, cpu = (_graph_run(d, graph, x, wts, seeds) for d in (CARD, "cpu"))
+    card = _graph_run(CARD, graph, x, wts, seeds)
+    # The CPU's reference takes the card's hidden ReLU mask. A hidden
+    # pre-activation within rounding of 0 can land on either side of it on
+    # the two devices (the card's index_add sums in another order), and
+    # one such unit moves a layer-0 gradient column by ~2e-4 of its
+    # largest while moving the logits by ~1e-7: the gradients are held to
+    # the CPU's on the same branch, and the plain ReLU's CPU run is kept
+    # to show what the flips alone cost.
+    cpu_own = _graph_run("cpu", graph, x, wts, seeds)
+    cpu = _graph_run("cpu", graph, x, wts, seeds,
+                     relu_mask=card["positive"])
     hops_equal = all(np.array_equal(a, b) for ha, hb in
                      zip(card["hops"], cpu["hops"]) for a, b in zip(ha, hb))
     deg = np.bincount(dst, minlength=GRAPH_NODES)
@@ -7759,6 +7798,10 @@ def _graph_phase() -> dict:
         logits_rel_err=_rel_err(card["logits"], cpu["logits"]),
         grad_rel_err=max(_rel_err(a, b) for a, b in
                          zip(card["grads"], cpu["grads"])),
+        relu_flips=int((card["positive"] != cpu_own["positive"]).sum()),
+        logits_rel_err_own_relu=_rel_err(card["logits"], cpu_own["logits"]),
+        grad_rel_err_own_relu=max(_rel_err(a, b) for a, b in
+                                  zip(card["grads"], cpu_own["grads"])),
         sum_rel_err=_rel_err(card["sum"], cpu["sum"]),
         max_equal=bool(np.array_equal(card["max"].cpu().numpy(),
                                       cpu["max"].numpy())),
@@ -9302,6 +9345,706 @@ def host_modules_phase() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 36: the serving fleet at full width (Router, DisaggRouter, the
+# Autoscaler, replica processes)
+# ---------------------------------------------------------------------------
+# bench.py's fleet configurations (bench_router_serving, bench_disagg):
+# gpt3_1p3b in bf16, 120 pages of 64 tokens a replica
+FLEET_ENGINE_KW = dict(max_batch=8, block_size=64, num_blocks=120,
+                       decode_chunk=16, prompt_quantum=128)
+# 36b: bench_disagg's schedule (80 events over ~7 s; the default cohorts'
+# prompts are short: 2 of the 80 span a 64-token page, so most handoffs
+# take the re-admission rung)
+DISAGG_TRAFFIC = dict(seed=7, base_rate=3.0, burst_rate=30.0, off_s=2.0,
+                      on_s=1.5, max_body=768, max_out=64)
+DISAGG_EVENTS = 80
+
+
+def _fleet_gpt(device="cuda", seed=0):
+    """gpt3_1p3b at full width in bf16, weights drawn from `seed`, on
+    `device`: phase 36's model, and the model builder of 36c's replica
+    processes (module-level, so the spawn context pickles it by
+    reference)."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    return GPTForCausalLM(gpt3_1p3b(), device=device, dtype="bfloat16",
+                          seed=seed)
+
+
+def _b3_launches():
+    """B3's launches by design in this process: called in a replica
+    process over its RPC layer (module-level, pickled by reference)."""
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    return dict(rpa.ragged_paged_attention.design_launches)
+
+
+def _router_traffic(vocab, seed=0):
+    """bench_router_serving's traffic: 8 sessions x 4 turns, each session
+    its own 512-token prefix, turns of 8-32 fresh tokens, the arrivals
+    shuffled, drawn from `seed`. [(session, prompt)]."""
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(0, vocab, (512,)).astype(np.int32)
+                for _ in range(8)]
+    traffic = []
+    for _t in range(4):
+        for s in range(8):
+            tail = rng.integers(0, vocab, (int(rng.integers(8, 33)),))
+            traffic.append((f"s{s}", np.concatenate(
+                [prefixes[s], tail]).astype(np.int32)))
+    return [traffic[i] for i in rng.permutation(len(traffic))]
+
+
+def _drive(router, traffic, n_new, tag):
+    """Submit [(session, prompt)] to a router and step it to the end:
+    ({index: result}, wall s)."""
+    import torch
+    for i, (sess, p) in enumerate(traffic):
+        router.submit((tag, i), p, max_new_tokens=n_new, session_id=sess)
+    done = {}
+    t0 = time.perf_counter()
+    while router.has_unfinished:
+        for r in router.step():
+            done[r.request_id[1]] = r
+    torch.cuda.synchronize()
+    return done, time.perf_counter() - t0
+
+
+def _engine_tokens(model, prompts, n_new):
+    """One engine, never killed, on `prompts`: the oracle's tokens."""
+    from paddle_tpu_torch.inference import LLMEngine
+    eng = LLMEngine(model, device="cuda", **FLEET_ENGINE_KW)
+    for i, p in enumerate(prompts):
+        eng.add_request(i, p, max_new_tokens=n_new)
+    done = {}
+    while eng.has_unfinished:
+        for r in eng.step():
+            done[r.request_id] = r.output_ids
+    del eng
+    return [done[i] for i in range(len(prompts))]
+
+
+def _exact(want, got):
+    """How many requests' tokens equal the oracle's whole (the margin
+    guard compares only each one's leading safe positions)."""
+    return sum(np.array_equal(np.asarray(w), np.asarray(g))
+               for w, g in zip(want, got))
+
+
+def _reconciled(router):
+    """Live replicas whose pools do not reconcile (a leaked page): free
+    plus parked pages must be every block but the trash page."""
+    return [h.name for h in router.replicas if h.engine is not None
+            and h.engine.cache.available_blocks
+            != h.engine.cache.allocator.num_blocks - 1]
+
+
+def _counted_factory(model, per_replica):
+    """An engine factory whose engines count, in `per_replica[name]`,
+    the sm90 B3 launches of their own steps (measurement only)."""
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    f = rpa.ragged_paged_attention
+
+    def factory(i):
+        eng = LLMEngine(model, device="cuda", **FLEET_ENGINE_KW)
+        step, name = eng.step, f"replica-{i}"
+
+        def counted():
+            before = f.design_launches["sm90"]
+            try:
+                return step()
+            finally:
+                per_replica[name] += f.design_launches["sm90"] - before
+        eng.step = counted
+        return eng
+    return factory
+
+
+def fleet_router_phase(model, traffic, want, lengths) -> dict:
+    """36a: two in-process replicas behind a Router at
+    bench_router_serving's config, affinity on and off (a pass over
+    unrelated prompts of the same lengths, then the timed pass over the
+    traffic, whose prefixes no pool holds yet), then a run whose
+    `router.replica.step` fault kills replica 0 mid-run."""
+    import collections
+    import torch
+    from paddle_tpu_torch.inference import ReplicaGone, Router
+    from paddle_tpu_torch.jit import cuda_graph
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    from paddle_tpu_torch.resilience import faults
+
+    f = rpa.ragged_paged_attention
+    n_new = 64
+    rec, checks = {}, {}
+    unrelated = _router_traffic(model.config.vocab_size, seed=1)
+    for label, affinity in (("affinity", True), ("least_loaded", False)):
+        per_replica = collections.Counter()
+        router = Router(_counted_factory(model, per_replica), n_replicas=2,
+                        affinity=affinity)
+        # the first pass captures the decode graphs on prompts that
+        # share no prefix with the traffic, so the timed pass is the
+        # traffic's cold pass, where the policies' prefix hits part
+        _drive(router, unrelated, n_new, "warm")
+        hit0 = sum(h.engine.stats["prefix_cache_hit_tokens"]
+                   for h in router.replicas)
+        miss0 = sum(h.engine.stats["prefix_cache_miss_tokens"]
+                    for h in router.replicas)
+        per_replica.clear()
+        plain0 = f.plain_calls
+        cap0 = cuda_graph.captures["engine_decode"]
+        done, wall = _drive(router, traffic, n_new, "timed")
+        hit = sum(h.engine.stats["prefix_cache_hit_tokens"]
+                  for h in router.replicas) - hit0
+        miss = sum(h.engine.stats["prefix_cache_miss_tokens"]
+                   for h in router.replicas) - miss0
+        tokens = sum(len(r.output_ids) for r in done.values())
+        got = [done[i].output_ids for i in range(len(traffic))]
+        rec[label] = dict(tokens=tokens, wall_s=wall,
+                          tokens_per_s=tokens / wall,
+                          prefix_hit_tokens=hit, prefix_miss_tokens=miss,
+                          prefix_hit_rate=hit / max(hit + miss, 1),
+                          captures_timed=cuda_graph.captures[
+                              "engine_decode"] - cap0,
+                          b3_sm90_by_replica=dict(per_replica),
+                          mismatched=_mismatched(want, got, lengths),
+                          exact=_exact(want, got),
+                          leaked=_reconciled(router),
+                          plain_calls=f.plain_calls - plain0)
+        checks[f"{label}: every request ok with 64 tokens"] = all(
+            r.ok and len(r.output_ids) == n_new for r in done.values())
+        checks[f"{label}: tokens == the single engine's (margin guard)"] = \
+            not rec[label]["mismatched"]
+        checks[f"{label}: each replica launched B3 sm90"] = \
+            len(per_replica) == 2 and min(per_replica.values()) > 0
+        checks[f"{label}: no pool block leaked"] = not rec[label]["leaked"]
+        checks[f"{label}: B3's plain version never ran"] = \
+            rec[label]["plain_calls"] == 0
+        del router, done
+        _fresh_card()
+    checks["affinity's prefix-hit tokens exceed least-loaded's"] = \
+        rec["affinity"]["prefix_hit_tokens"] > \
+        rec["least_loaded"]["prefix_hit_tokens"]
+
+    # the kill: replica 0's 6th step raises ReplicaGone (its process
+    # "vanished"); its in-flight requests re-serve on replica 1
+    faults.clear_all()
+    seen = {"n": 0}
+
+    def sixth(ctx):
+        seen["n"] += 1
+        return seen["n"] == 6
+    faults.inject("router.replica.step", exc=ReplicaGone("phase 36a kill"),
+                  times=1, match={"replica": "replica-0"}, when=sixth)
+    per_replica = collections.Counter()
+    router = Router(_counted_factory(model, per_replica), n_replicas=2)
+    try:
+        done, wall = _drive(router, traffic, n_new, "kill")
+    finally:
+        kills = faults.fired("router.replica.step")
+        faults.clear_all()
+    got = [done[i].output_ids for i in range(len(traffic))]
+    rec["killed"] = dict(
+        kills=kills, failovers=router.stats["failovers"],
+        reroutes=router.stats["reroutes"], wall_s=wall,
+        tokens_per_s=sum(len(r.output_ids) for r in done.values()) / wall,
+        b3_sm90_by_replica=dict(per_replica),
+        mismatched=_mismatched(want, got, lengths), exact=_exact(want, got),
+        leaked=_reconciled(router),
+        states=[(h.name, h.state) for h in router.replicas])
+    checks["killed: failovers == injected kills (1)"] = \
+        kills == 1 and router.stats["failovers"] == 1
+    checks["killed: every request ok, tokens == the single engine's"] = \
+        all(r.ok for r in done.values()) and not rec["killed"]["mismatched"]
+    checks["killed: survivors leak no pool block"] = \
+        not rec["killed"]["leaked"]
+    del router, done
+    _fresh_card()
+    rec["b3_sm90_launches"] = sum(
+        sum(rec[k]["b3_sm90_by_replica"].values())
+        for k in ("affinity", "least_loaded", "killed"))
+    torch.cuda.synchronize()
+    log(f"[fleet] 36a: tokens compared per request (margin guard) "
+        f"{lengths} of {n_new} (whole requests equal: affinity "
+        f"{rec['affinity']['exact']}, least-loaded "
+        f"{rec['least_loaded']['exact']}, killed {rec['killed']['exact']} "
+        f"of {len(traffic)}); timed (cold) pass: affinity "
+        f"{rec['affinity']['tokens_per_s']:.1f} tokens/s, prefix hit rate "
+        f"{rec['affinity']['prefix_hit_rate']:.4f} "
+        f"({rec['affinity']['prefix_hit_tokens']} tokens), captures "
+        f"{rec['affinity']['captures_timed']}; least-loaded "
+        f"{rec['least_loaded']['tokens_per_s']:.1f} tokens/s, hit rate "
+        f"{rec['least_loaded']['prefix_hit_rate']:.4f} "
+        f"({rec['least_loaded']['prefix_hit_tokens']} tokens), captures "
+        f"{rec['least_loaded']['captures_timed']}; killed run "
+        f"{rec['killed']['tokens_per_s']:.1f} tokens/s, failovers "
+        f"{rec['killed']['failovers']}, reroutes {rec['killed']['reroutes']}; "
+        f"B3 sm90 launches by replica {rec['affinity']['b3_sm90_by_replica']} "
+        f"/ {rec['least_loaded']['b3_sm90_by_replica']} / "
+        f"{rec['killed']['b3_sm90_by_replica']}")
+    _check("[fleet] 36a", checks, rec)
+    return rec
+
+
+def _p50_ttft(om, before):
+    """Median TTFT (s) of the engine's histogram since `before` (its
+    bucket counts then), and the counts now."""
+    m = om.registry().get("paddle_tpu_request_ttft_seconds")
+    counts = [0] * (len(m.buckets) + 1)
+    for _key, child in m._series():
+        counts = [a + b for a, b in zip(counts, child._buckets)]
+    delta = [a - b for a, b in zip(counts, before)] if before else counts
+    return om.quantile_from_buckets(m.buckets, delta, 0.5), counts
+
+
+def fleet_disagg_phase(model) -> dict:
+    """36b: a DisaggRouter over 1 prefill and 2 decode in-process replicas
+    on bench_disagg's schedule; a fixed greedy prompt set on the migrated
+    rung and, with a `disagg.migrate` fault, on the re-admission rung,
+    against a role-less engine; then an Autoscaler with a RouterActuator
+    over a FleetSLOMonitor reading the engine's real TTFT series."""
+    import collections
+    import os
+    import tempfile
+    import torch
+    import paddle_tpu_torch.observability as obs
+    from paddle_tpu_torch.inference import (Autoscaler, DisaggRouter,
+                                            LLMEngine, Router,
+                                            RouterActuator, TrafficModel,
+                                            run_traffic)
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    from paddle_tpu_torch.observability import flight
+    from paddle_tpu_torch.observability import metrics as om
+    from paddle_tpu_torch.observability import slo, slo_fleet
+    from paddle_tpu_torch.resilience import faults
+
+    f = rpa.ragged_paged_attention
+    # the fixed greedy prompt set served below (fresh to every pool) and
+    # the oracle's tokens for it, before the fleet runs: the oracle's
+    # launches are none of the fleet's
+    rng = np.random.default_rng(36)
+    fixed = [rng.integers(0, model.config.vocab_size, (int(n),)).astype(
+        np.int32) for n in rng.integers(200, 700, 9)]
+    n_new = 32
+    want = _engine_tokens(model, fixed, n_new)
+    lengths, _margins = _guard_lengths(model, fixed, want)
+    torch.cuda.synchronize()
+
+    obs.disable()
+    obs.reset()
+    obs.enable()
+    shipped = collections.Counter()     # pages reaching a replica's import
+    imported = collections.Counter()    # pages it registered
+    pool_waves = collections.Counter()  # B3 prefix-resume waves, by replica
+    per_replica = collections.Counter()     # B3 sm90 launches, by replica
+
+    def factory(i):
+        # measurement only: the B3 sm90 launches of each replica's own
+        # steps (as `_counted_factory`), the pages each migration chunk
+        # carries to its target, and the prefix-resume (with_pool)
+        # waves each replica launches
+        eng = _counted_factory(model, per_replica)(i)
+        name = f"replica-{i}"
+        imp, wave = eng.import_kv_pages, eng._ragged_wave
+
+        def import_(payload):
+            shipped[name] += len(payload["pages"])
+            n = imp(payload)
+            imported[name] += n
+            return n
+
+        def ragged(*a, **k):
+            with_pool = k.get("with_pool", a[7] if len(a) > 7 else None)
+            pool_waves[name] += bool(with_pool)
+            return wave(*a, **k)
+        eng.import_kv_pages, eng._ragged_wave = import_, ragged
+        return eng
+
+    router = DisaggRouter(factory, n_prefill=1, n_decode=2)
+    roles = {h.name: h.role for h in router.replicas}
+    c = router.replicas.handles[0].engine.cache
+    # one page of the pool: layers x (k, v) x tokens x kv heads x head
+    # dim x bytes (gpt3_1p3b in bf16: 24 x 2 x 64 x 16 x 128 x 2 = 12 MiB)
+    page_bytes = 2 * c.num_layers * c.block_size * c.kv_heads * \
+        c.head_dim * c.key_caches[0].element_size()
+    decode = [n for n, r in roles.items() if r == "decode"]
+    handoffs = []
+    handoff = router._handoff
+
+    def timed_handoff(req, src):        # measurement only
+        b0 = router.stats["migrated_bytes"]
+        t0 = time.perf_counter()
+        handoff(req, src)
+        torch.cuda.synchronize()
+        handoffs.append((time.perf_counter() - t0,
+                         router.stats["migrated_bytes"] - b0))
+    router._handoff = timed_handoff
+    evs = list(TrafficModel(**DISAGG_TRAFFIC).events(80))[:DISAGG_EVENTS]
+    launches0 = f.design_launches["sm90"]
+    report = run_traffic(router, evs, max_prompt=768)
+    torch.cuda.synchronize()
+    st = dict(router.stats)
+    rec = dict(events=len(evs), traffic=dict(
+        submitted=report["submitted"], ok=report["ok"],
+        shed=report["shed"], failed=report["failed"],
+        wall_s=report["wall_s"], req_per_s=report["req_per_s"]),
+        traffic_stats=st,
+        b3_sm90_launches_traffic=sum(per_replica.values()))
+    checks = {
+        f"traffic: {len(evs)} of 80 events served, none failed":
+            report["ok"] + report["shed"] == len(evs)
+            and report["failed"] == 0,
+    }
+
+    # the fixed set: six migrated, then three more on the re-admission
+    # rung (`disagg.migrate` raising)
+    hits0 = {n: h.engine.stats["prefix_cache_hit_tokens"]
+             for h in router.replicas for n in [h.name] if n in decode}
+    imp0 = dict(imported)
+    waves0 = {n: pool_waves[n] for n in decode}
+    st0 = dict(router.stats)
+    done, _wall = _drive(router, [(None, p) for p in fixed[:6]], n_new, "mig")
+    hits = sum(h.engine.stats["prefix_cache_hit_tokens"] - hits0[h.name]
+               for h in router.replicas if h.name in decode)
+    pages = sum(imported[n] - imp0.get(n, 0) for n in decode)
+    migrated = router.stats["handoff_migrated"] - st0["handoff_migrated"]
+    st1 = dict(router.stats)
+    faults.inject("disagg.migrate", exc=RuntimeError("phase 36b fault"))
+    try:
+        done2, _w = _drive(router, [(None, p) for p in fixed[6:]], n_new,
+                           "fallback")
+    finally:
+        faults.clear_all()
+    fallback = router.stats["handoff_fallback"] - st1["handoff_fallback"]
+    st = dict(router.stats)
+    mig = [(dt, b) for dt, b in handoffs if b]
+    rec.update(
+        stats=st, page_bytes=page_bytes,
+        pages_shipped=sum(shipped.values()), pages_imported=dict(imported),
+        handoffs_timed=len(handoffs),
+        handoff_s_mean=sum(dt for dt, _b in handoffs) / max(len(handoffs), 1),
+        migrated_handoff_s=[dt for dt, _b in mig],
+        migrated_handoff_mib=[b / 2 ** 20 for _dt, b in mig],
+        migrated_mib_per_s=(sum(b for _dt, b in mig) / 2 ** 20
+                            / sum(dt for dt, _b in mig) if mig else None))
+    checks.update({
+        "handoffs{path=migrated} > 0": st["handoff_migrated"] > 0,
+        f"migrated bytes == pages shipped x {page_bytes / 2 ** 20:g} MiB":
+            st["migrated_bytes"] == sum(shipped.values()) * page_bytes,
+    })
+    got = [done[i].output_ids for i in range(6)] + \
+        [done2[i].output_ids for i in range(3)]
+    rec.update(fixed=dict(
+        guarded=lengths, n_new=n_new, migrated=migrated, fallback=fallback,
+        decode_hit_tokens=hits, decode_pages_imported=pages,
+        decode_pool_waves={n: pool_waves[n] - waves0[n] for n in decode},
+        mismatched=_mismatched(want, got, lengths), exact=_exact(want, got)))
+    checks.update({
+        "fixed set: 6 handoffs on the migrated rung": migrated == 6,
+        "fixed set: decode replicas' prefix-resume waves read the imported "
+        "pages (hits > 0, <= 64 x pages imported)":
+            0 < hits <= 64 * pages
+            and sum(rec["fixed"]["decode_pool_waves"].values()) > 0,
+        "disagg.migrate fault: 3 handoffs on the re-admission rung":
+            fallback == 3,
+        "fixed set: tokens == a role-less engine's (margin guard), both "
+        "rungs": not rec["fixed"]["mismatched"],
+        "no pool block leaked": not _reconciled(router),
+    })
+    # the fleet's launches, counted in its replicas' own steps; every
+    # sm90 launch of this process since the traffic began was one
+    rec["b3_sm90_by_replica"] = dict(per_replica)
+    rec["b3_sm90_launches"] = sum(per_replica.values())
+    rec["b3_sm90_launches_process"] = f.design_launches["sm90"] - launches0
+    checks["B3 sm90 launches: each replica launched, and the process "
+           "launched no other"] = (
+        len(per_replica) == 3 and min(per_replica.values()) > 0
+        and rec["b3_sm90_launches"] == rec["b3_sm90_launches_process"])
+    series = obs.snapshot()
+    rec["disagg_series"] = {
+        "handoffs": series["paddle_tpu_disagg_handoffs_total"]["series"],
+        "migrated_bytes": series[
+            "paddle_tpu_disagg_migrated_bytes_total"]["series"],
+        "handoff_seconds_count": series[
+            "paddle_tpu_disagg_handoff_seconds"]["series"][()]["count"],
+        "pool": series["paddle_tpu_disagg_pool_replicas"]["series"]}
+    rec["disagg_series"] = {k: {str(kk): vv for kk, vv in v.items()}
+                            if isinstance(v, dict) else v
+                            for k, v in rec["disagg_series"].items()}
+    del router, done, done2
+    _fresh_card()
+
+    # the Autoscaler: one replica, a TTFT objective below the TTFT a
+    # measured 8-prompt burst gets there; the next burst breaches, the
+    # fleet grows to 2; idle scans are calm and retire one
+    def burst(seed):
+        r = np.random.default_rng(seed)
+        return [(None, r.integers(0, model.config.vocab_size, (int(n),))
+                 .astype(np.int32)) for n in r.integers(300, 500, 8)]
+    fdir = tempfile.mkdtemp(prefix="chip_smoke_flight_")
+    flight.arm(fdir, retention=64)
+    try:
+        router = Router(lambda _i: LLMEngine(model, device="cuda",
+                                             **FLEET_ENGINE_KW),
+                        n_replicas=1)
+        _drive(router, burst(1), 16, "b1")          # warm-up
+        _p, counts = _p50_ttft(om, None)
+        _drive(router, burst(2), 16, "b2")          # the measured burst
+        p50, counts = _p50_ttft(om, counts)
+        rule = slo.SLO("fleet_ttft", "paddle_tpu_request_ttft_seconds",
+                       threshold_s=0.5 * p50, objective=0.9)
+        mon = slo_fleet.FleetSLOMonitor(registry=om.registry(), rules=[rule])
+        mon.evaluate()              # the window starts after the bursts
+        asc = Autoscaler(RouterActuator(router), mon, min_replicas=1,
+                         max_replicas=2, grow_after=1, retire_after=2,
+                         cooldown_scans=0)
+        _drive(router, burst(3), 16, "b3")          # breaches
+        scans = [asc.scan()]
+        grown = len(router.replicas)
+        _drive(router, burst(4), 16, "b4")          # on 2 replicas
+        mon.evaluate()              # that window is read, not acted on
+        scans += [asc.scan(), asc.scan()]           # idle: calm, calm
+        decisions = [(d["action"], d["replicas_before"],
+                      d["replicas_after"]) for d in asc.decisions]
+        dec_bundles = [b for b in flight.bundles(fdir)
+                       if "autoscale_decision" in os.path.basename(b)]
+        rec["autoscaler"] = dict(
+            ttft_p50_burst_s=p50, threshold_s=rule.threshold_s,
+            decisions=decisions, replicas_after_grow=grown,
+            replicas_end=len(router.replicas),
+            decision_bundles=len(dec_bundles),
+            scans=[None if s is None else s["action"] for s in scans])
+        checks.update({
+            "autoscaler: grew 1 -> 2 on the burst, retired one when calm":
+                decisions == [("grow", 1, 2), ("retire", 2, 1)]
+                and grown == 2 and len(router.replicas) == 1,
+            "autoscaler: one flight bundle per decision":
+                len(dec_bundles) == len(decisions) == 2,
+        })
+        del router
+    finally:
+        flight.disarm()
+        obs.disable()
+        obs.reset()
+    _fresh_card()
+    ts = rec["traffic_stats"]
+    log(f"[fleet] 36b: {len(evs)} of 80 events, handoffs {ts['handoffs']} "
+        f"(migrated {ts['handoff_migrated']}, readmitted "
+        f"{ts['handoff_readmitted']}, fallback {ts['handoff_fallback']}); "
+        f"with the fixed sets {st['handoffs']} (migrated "
+        f"{st['handoff_migrated']}, fallback {st['handoff_fallback']}), "
+        f"{rec['pages_shipped']} pages shipped = "
+        f"{st['migrated_bytes'] / 2 ** 20:.0f} MiB; a handoff "
+        f"{rec['handoff_s_mean']:.4f} s mean, migrated ones "
+        f"{[round(x, 4) for x in rec['migrated_handoff_s']]} s for "
+        f"{[round(x) for x in rec['migrated_handoff_mib']]} MiB: "
+        f"{rec['migrated_mib_per_s']} MiB/s; fixed set tokens "
+        f"compared per request {lengths} of {n_new} (whole requests "
+        f"equal {rec['fixed']['exact']} of 9); autoscaler "
+        f"{rec['autoscaler']}")
+    _check("[fleet] 36b", checks, rec)
+    return rec
+
+
+def fleet_process_phase(traffic, want, lengths) -> dict:
+    """36c: two replica processes on the card (process_engine_factory,
+    one shared exec-cache store, a FleetAggregator served in this
+    process), 8 requests of 36a's traffic through a Router over them,
+    replica 0's process SIGKILLed mid-decode, its replacement spawned
+    warm from the store."""
+    import concurrent.futures as cf
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import paddle_tpu_torch.observability as obs
+    from paddle_tpu_torch.inference import ReplicaGone, Router
+    from paddle_tpu_torch.inference.replica_proc import \
+        process_engine_factory
+    from paddle_tpu_torch.observability import fleet, tracing
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_exec_cache_")
+    obs.disable()
+    obs.reset()
+    obs.enable()            # the workers trace too (their parent does)
+    agg = fleet.serve_aggregator(stale_after_s=600.0)
+    factory = process_engine_factory(
+        _fleet_gpt, dict(seed=0), FLEET_ENGINE_KW, exec_cache_dir=store,
+        aggregator_endpoint=agg.endpoint, device="cuda",
+        start_timeout_s=300.0, step_timeout_s=300.0)
+    spawn_s = {}
+
+    def timed(i):
+        t0 = time.perf_counter()
+        c = factory(i)
+        spawn_s.setdefault(i, []).append(time.perf_counter() - t0)
+        return c
+    clients = []
+    try:
+        with cf.ThreadPoolExecutor(2) as ex:     # both cold, at once
+            ready = dict(zip((0, 1), ex.map(timed, (0, 1))))
+        clients += ready.values()
+        cold = {i: spawn_s[i][0] for i in (0, 1)}
+
+        def router_factory(i):
+            c = ready.pop(i, None)
+            if c is None:
+                c = timed(i)        # the replacement
+                clients.append(c)
+            return c
+        router = Router(router_factory, n_replicas=2, cooldown_s=0.0)
+        first = router.replicas.handles[0].engine
+        deadline = time.monotonic() + 60
+        while not {"engine-0", "engine-1"} <= set(agg.processes()):
+            if time.monotonic() > deadline:
+                raise RuntimeError("no bundle from the replica processes")
+            time.sleep(0.05)
+        eight = traffic[:8]
+        for i, (sess, p) in enumerate(eight):
+            router.submit(("proc", i), p, max_new_tokens=64,
+                          session_id=sess)
+        done, steps, killed = {}, 0, None
+        t0 = time.perf_counter()
+        while router.has_unfinished:
+            for r in router.step():
+                done[r.request_id[1]] = r
+            steps += 1
+            if steps == 2 and killed is None:       # mid-decode
+                killed = first.pid
+                os.kill(killed, signal.SIGKILL)
+                first._proc.join(timeout=30)
+        wall = time.perf_counter() - t0
+        second = router.replicas.handles[0].engine
+        # four more of 36a's requests: the replacement serves some
+        for i, (sess, p) in enumerate(traffic[8:12], 8):
+            router.submit(("proc", i), p, max_new_tokens=64,
+                          session_id=sess)
+        while router.has_unfinished:
+            for r in router.step():
+                done[r.request_id[1]] = r
+        outcomes = second.compile_outcomes()
+        runs = second.compiler_runs()
+        b3 = {h.name: h.engine._call(_b3_launches)
+              for h in router.replicas}
+        got = [done[i].output_ids for i in range(12)]
+        mism = _mismatched(want[:12], got, lengths[:12])
+        for c in clients:
+            c.shutdown()                # their agents ship a farewell
+        procs = agg.processes()
+        restarts = agg.registry.snapshot().get(
+            "paddle_tpu_fleet_process_restarts_total", {}).get(
+                "series", {})
+        evs = tracing.events()
+        reroutes = [e["trace_id"] for e in evs
+                    if e["name"] == "router.reroute"]
+        trees = {}
+        for tid in reroutes:
+            mine = [e for e in evs if e.get("trace_id") == tid]
+            spans = {e["span_id"] for e in mine}
+            roots = [e for e in mine if e["name"] == "request"]
+            trees[tid] = dict(
+                events=len(mine), pids=sorted({e["pid"] for e in mine}),
+                connected=len(roots) == 1 and all(
+                    e.get("parent_id") in spans
+                    for e in mine if e is not roots[0]))
+        # the kernel libraries' outcomes (the graphs, captured again in
+        # every process, report "engine_decode" compiles beside them)
+        lib_names = ("paged_block_allocator", "ragged_paged_attention_sm90")
+        libs = {k: v for k, v in outcomes.items() if k[0] in lib_names}
+        rec = dict(spawn_to_ready_cold_s=cold,
+                   spawn_to_ready_warm_s=spawn_s[0][1:],
+                   wall_s=wall, killed_pid=killed,
+                   failovers=router.stats["failovers"],
+                   reroutes=router.stats["reroutes"],
+                   replacement_compile_outcomes={
+                       f"{fam}/{o}": v for (fam, o), v in outcomes.items()},
+                   replacement_compiler_runs=runs,
+                   b3_launches_by_replica=b3,
+                   b3_sm90_launches=sum(d["sm90"] for d in b3.values()),
+                   mismatched=mism, exact=_exact(want[:12], got),
+                   aggregator={p: dict(role=s["role"], bundles=s["bundles"],
+                                       pid=s["pid"])
+                               for p, s in procs.items()},
+                   restarts={str(k): v for k, v in restarts.items()},
+                   rerouted_traces=list(trees.values()))
+        checks = {
+            "12 requests ok, tokens == 36a's single engine's (margin "
+            "guard)": len(done) == 12
+                and all(r.ok for r in done.values()) and not mism,
+            "SIGKILL: ReplicaGone failed over once":
+                router.stats["failovers"] == 1 and second.pid != killed,
+            "replacement: every kernel library a disk_hit, no compile":
+                sorted(libs) == [(n, "disk_hit") for n in lib_names]
+                and not [f for f, o in outcomes
+                         if o == "compile" and f != "engine_decode"],
+            "replacement: no nvcc (no compiler) run": not runs,
+            "the survivor and the replacement launched B3 sm90":
+                all(d["sm90"] > 0 for d in b3.values()),
+            "aggregator: bundles from every process, role engine":
+                {"engine-0", "engine-1"} <= set(procs) and all(
+                    s["role"] == "engine" and s["bundles"] > 0
+                    for s in procs.values()),
+            "a failed-over request's trace is one connected tree, across "
+            "this process and a surviving replica process":
+                bool(trees) and all(
+                    t["connected"] and os.getpid() in t["pids"]
+                    and set(t["pids"]) - {os.getpid(), killed}
+                    for t in trees.values()),
+        }
+        del router
+    finally:
+        for c in clients:
+            try:
+                c.shutdown(timeout_s=10.0)
+            except Exception as e:      # the check below reports it
+                log(f"[fleet] 36c: shutdown of {c.endpoint}: {e!r}")
+        agg.close()
+        obs.disable()
+        obs.reset()
+        shutil.rmtree(store, ignore_errors=True)
+    alive = [c.pid for c in clients if c._proc.is_alive()]
+    checks["every replica process stopped"] = not alive
+    _fresh_card()
+    log(f"[fleet] 36c: spawn-to-ready cold {cold} s, warm "
+        f"{rec['spawn_to_ready_warm_s']} s; killed pid {killed} at step 2, "
+        f"failovers {rec['failovers']}, reroutes {rec['reroutes']}; "
+        f"replacement outcomes {rec['replacement_compile_outcomes']}, "
+        f"compiler runs {runs}; whole requests equal {rec['exact']} of 12; "
+        f"B3 by replica {b3}; aggregator "
+        f"{rec['aggregator']}; rerouted traces {rec['rerouted_traces']}")
+    _check("[fleet] 36c", checks, rec)
+    return rec
+
+
+def fleet_phase() -> dict:
+    """Phase 36: the serving fleet on gpt3_1p3b at full width: 36a the
+    Router, 36b the DisaggRouter and the Autoscaler, 36c replica
+    processes. The single engine's tokens on 36a's traffic (and their
+    margin-guard lengths) are the oracle of 36a and 36c."""
+    import torch
+
+    t0 = time.perf_counter()
+    model = _fleet_gpt()
+    traffic = _router_traffic(model.config.vocab_size)
+    prompts = [p for _s, p in traffic]
+    want = _engine_tokens(model, prompts, 64)
+    lengths, margins = _guard_lengths(model, prompts, want)
+    torch.cuda.synchronize()
+    rec = dict(oracle_s=time.perf_counter() - t0, guarded=lengths,
+               margins=margins)
+    rec["router"] = timed("36a", fleet_router_phase, model, traffic, want,
+                          lengths)
+    rec["disagg"] = timed("36b", fleet_disagg_phase, model)
+    del model
+    _fresh_card()
+    rec["process"] = timed("36c", fleet_process_phase, traffic, want,
+                           lengths)
+    rec["b3_sm90_launches"] = dict(
+        router=rec["router"]["b3_sm90_launches"],
+        disagg=rec["disagg"]["b3_sm90_launches"],
+        process=rec["process"]["b3_sm90_launches"])
+    return rec
+
+
 # seconds each phase took, by phase number (printed with the results)
 PHASE_S = {}
 
@@ -9377,6 +10120,7 @@ def main() -> int:
     incubate = timed("31", incubate_phase, eager)
     opsurf = timed("32", opsurf_phase, eager)
     host_modules = timed("35", host_modules_phase)
+    fleet = timed("36", fleet_phase)
     EAGER_GPT.clear()       # phases 23d and 28 read phase 22's GPT
     runs_17_18 =(("llama13b", train_llama["no_recompute"]),
                   ("llama13b_recompute", train_llama["recompute"]),
@@ -9439,6 +10183,12 @@ def main() -> int:
                      launches_by_design=int8["b3_launches_by_design"]),
         # phase 33a's last observed serving run (every launch sm90)
         launches_observed=observed["serve"]["b3_launches"],
+        # phase 36's fleet paths (sm90 launches): 36a's Router runs (the
+        # timed affinity and least-loaded passes and the killed run),
+        # 36b's DisaggRouter (its traffic, the fixed prompt sets; the
+        # decode replicas' prefix-resume waves over imported pages), 36c's
+        # replica processes (the survivor's and the replacement's)
+        launches_fleet=fleet["b3_sm90_launches"],
         cases=cases)]
     t13 = train_1p3b["recompute"]
     for i, (kind, name, line, launches, source) in enumerate((
@@ -9615,6 +10365,7 @@ def main() -> int:
     log("[obs] " + json.dumps(observed))
     log("[numerics] " + json.dumps(numerics))
     log("[host-modules] " + json.dumps(host_modules))
+    log("[fleet] " + json.dumps(fleet, default=str))
     log("[phase-seconds] " + json.dumps(PHASE_S))
     log(json.dumps({"kernels": kernels}))
     log(card)

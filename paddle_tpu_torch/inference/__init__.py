@@ -13,8 +13,13 @@ captures it as one CUDA graph per input signature
 every run, the inputs copied into the graph's static tensors first. On
 the CPU each run calls the program eagerly.
 
-The fleet layer of the reference's package (router, autoscaler,
-traffic, disaggregation) is not ported yet (ROADMAP Queue A item 24).
+The fleet layer: `Router` (a health-checked router over N engine
+replicas: prefix-cache affinity, failover, circuit breaking, load
+shedding), `DisaggRouter` (prefill/decode pools with KV-page
+migration), `Autoscaler` (SLO-driven elastic scaling), `TrafficModel` /
+`run_traffic` (heavy-tailed session traffic), and in submodules the
+replica processes (`replica_proc`) and the persistent kernel-library
+store (`exec_cache`).
 """
 from __future__ import annotations
 
@@ -29,11 +34,23 @@ from .paged_cache import BlockAllocator, PagedKVCache
 # LLMEngine(speculative_config=...)
 from .speculative import (DraftModelProposer, DraftProposer, NgramProposer,
                           SpeculativeConfig)
+# replicated serving: health-checked router over N engine replicas
+from .router import ReplicaGone, ReplicaHandle, ReplicaSet, Router
+# the SLO control plane: elastic autoscaling over the router's
+# add_replica / retire_replica surface, and the traffic harness
+from .autoscaler import SCALE_ACTIONS, Autoscaler, RouterActuator
+from .traffic import Cohort, TrafficEvent, TrafficModel, run_traffic
+# prefill/decode disaggregation with cross-process KV-page migration
+from .disagg import PROCESS_ROLES, ROLES, DisaggActuator, DisaggRouter
 
-__all__ = ["BlockAllocator", "Config", "DraftModelProposer", "DraftProposer",
-           "GenerationResult", "LLMEngine", "NgramProposer", "PagedKVCache",
-           "Predictor", "SpeculativeConfig", "calibrate_kv_scales",
-           "create_predictor"]
+__all__ = ["Autoscaler", "BlockAllocator", "Cohort", "Config",
+           "DisaggActuator", "DisaggRouter", "DraftModelProposer",
+           "DraftProposer", "GenerationResult", "LLMEngine", "NgramProposer",
+           "PROCESS_ROLES", "PagedKVCache", "Predictor", "ROLES",
+           "ReplicaGone", "ReplicaHandle", "ReplicaSet", "Router",
+           "RouterActuator", "SCALE_ACTIONS", "SpeculativeConfig",
+           "TrafficEvent", "TrafficModel", "calibrate_kv_scales",
+           "create_predictor", "run_traffic"]
 
 
 class Config:

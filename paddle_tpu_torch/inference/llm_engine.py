@@ -82,9 +82,16 @@ engines' `stats` agree exactly on the same traffic.
     they report no compile and their TTFT budget's compile_stall is 0;
     the decode graphs' captures are the "engine_decode" compiles.
 
-Not in this port yet (each raises NotImplementedError): tensor-parallel
-placement (mesh/shard_param), the persistent executable cache
-(exec_cache_dir) and KV-page export/import.
+KV-page migration (`export_kv_pages` / `import_kv_pages`, the
+reference's v1 chunk format) serves prefill/decode disaggregation
+(inference.disagg). `exec_cache_dir` (default $PADDLE_TPU_EXEC_CACHE)
+names a persistent store of the kernel libraries the engine launches
+(inference.exec_cache): every build consults it first, so a
+crash-restarted replica process comes back without running a compiler;
+the CUDA graphs are captured again in each process.
+
+Not in this port yet (raises NotImplementedError): tensor-parallel
+placement (mesh/shard_param).
 """
 from __future__ import annotations
 
@@ -111,6 +118,7 @@ from ..models.generation import _family, _pick_token, _static_cache
 from ..models.llama import _rope_cos_sin
 from ..resilience import faults
 from ..utils.watchdog import watchdog
+from . import paged_cache as _paged_cache
 from .paged_cache import PagedKVCache
 from .speculative import accept_drafts
 
@@ -642,9 +650,8 @@ class LLMEngine:
                  enable_prefix_caching: bool = True,
                  speculative_config=None,
                  mesh=None, shard_param=None,
-                 exec_cache_dir: Optional[str] = None, device=None):
-        for name, val in (("mesh", mesh), ("shard_param", shard_param),
-                          ("exec_cache_dir", exec_cache_dir)):
+                 exec_cache_dir: Optional[str] = None, *, device=None):
+        for name, val in (("mesh", mesh), ("shard_param", shard_param)):
             if val is not None:
                 raise NotImplementedError(
                     f"LLMEngine({name}=...) is not ported yet")
@@ -652,6 +659,18 @@ class LLMEngine:
         if model.device != self.device:
             raise ValueError(
                 f"model lives on {model.device}, engine on {self.device}")
+        # persistent store of the kernel libraries (inference.exec_cache):
+        # handed to the loads of the pool's allocator library (here,
+        # before the pool is made) and of B3 (`_load_kernels`)
+        from . import exec_cache as _exec_cache
+        self._exec_cache = self._lib_store = None
+        exec_cache_dir = exec_cache_dir or _exec_cache.default_dir()
+        if exec_cache_dir:
+            self._exec_cache = _exec_cache.ExecCache(exec_cache_dir)
+            self._lib_store = _exec_cache.LibraryStore(
+                self._exec_cache,
+                _exec_cache.device_fingerprint(device=self.device))
+            _paged_cache._load_lib(self._lib_store)
         # fleet identity: a bare engine process ships its series as
         # process_role "engine" (a weak suggestion)
         from ..observability import fleet as _ofleet
@@ -776,6 +795,30 @@ class LLMEngine:
         # whether the last decode chunk captured a graph (not a roofline
         # sample, as the reference skips a compiling first call)
         self._captured = False
+        if self._exec_cache is not None and self.device.type == "cuda":
+            self._load_kernels()
+
+    def _load_kernels(self) -> None:
+        """Load (build, or take from the persistent store) the B3
+        library this engine's waves launch, at construction: a replica
+        is ready once its kernels are, and a warm start shows here as
+        disk hits with no compiler run."""
+        from ..kernels import ragged_paged_attention as _rpa
+        design = _rpa._rpa_design(
+            self.fam.dtype, self.cache.key_caches[0].dtype,
+            self.fam.head_dim, aligned=True,
+            dequant=self._kq is not None)
+        if design == "sm90":
+            _rpa._load_sm90(store=self._lib_store)
+        else:
+            _rpa._load_kernel(self._lib_store)
+
+    @property
+    def _fns(self):
+        """The captured decode graphs by width bucket: the counterpart
+        of the reference's executable table, whose growth the Router
+        reads to exempt a capturing step from its slow-step check."""
+        return self._dec_graphs
 
     def _count_shapes(self, cache_dtype):
         """The model's counts for `perf.count_cost`: the parameters a
@@ -943,6 +986,55 @@ class LLMEngine:
     def has_unfinished(self) -> bool:
         return (bool(self.waiting) or bool(self._failed)
                 or any(s is not None for s in self.slots))
+
+    # -- KV-page migration (prefill/decode disaggregation) -----------------
+    def _kv_scale_digest(self) -> Optional[str]:
+        """Content digest of the int8 quant scales (None on fp pools).
+        Migrated int8 page bytes mean something only under the SAME
+        static scales, so the digest rides every migration chunk and the
+        importer refuses a mismatch. The reference's digest: sha256 over
+        the f32 bytes of the k scales, then the v scales."""
+        if self._kq is None:
+            return None
+        dig = getattr(self, "_kq_digest", None)
+        if dig is None:
+            import hashlib
+            # scales are small, immutable engine config; one host read
+            dig = hashlib.sha256(
+                self._kq.detach().cpu().numpy().astype(np.float32).tobytes()
+                + self._vq.detach().cpu().numpy().astype(np.float32)
+                .tobytes()).hexdigest()
+            self._kq_digest = dig
+        return dig
+
+    def export_kv_pages(self, hashes: list, start: int = 0,
+                        limit: Optional[int] = None) -> dict:
+        """One migration chunk (wire format v1, the reference's): the
+        committed pages for `hashes[start:start+limit]` (stopping at the
+        first hash this pool does not hold) plus the pool-compatibility
+        metadata the importer checks — geometry, cache dtype, int8-scale
+        digest."""
+        meta = self.cache.page_meta()
+        meta["kv_scale_digest"] = self._kv_scale_digest()
+        return {"v": 1, "start": int(start), "meta": meta,
+                "pages": self.cache.export_pages(hashes, start, limit)}
+
+    def import_kv_pages(self, payload: dict) -> int:
+        """Register one migration chunk's pages in this engine's pool
+        (parked in the prefix-cache LRU, leased on the next matching
+        admission). Raises ValueError on any pool-compatibility
+        mismatch: migrated bytes are valid only on an identically
+        provisioned pool (the disagg driver then re-admits). Returns how
+        many of the chunk's pages are now resident (pool exhaustion
+        imports a valid chain prefix and stops)."""
+        meta = dict(payload.get("meta") or {})
+        mine = self.cache.page_meta()
+        mine["kv_scale_digest"] = self._kv_scale_digest()
+        if payload.get("v") != 1 or meta != mine:
+            raise ValueError(
+                "incompatible KV-page migration chunk: peer pool %r "
+                "vs local %r" % (meta, mine))
+        return self.cache.import_pages(payload.get("pages") or [])
 
     # -- scheduling --------------------------------------------------------
     def _free_slot(self) -> Optional[int]:

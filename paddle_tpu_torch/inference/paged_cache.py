@@ -1,8 +1,11 @@
 """Paged KV-cache manager (counterpart of paddle_tpu/inference/paged_cache.py).
 
-The device holds ONE fixed pool of physical cache blocks per layer,
-token-major ([num_blocks*block_size, kv_heads, head_dim] torch tensors;
-block b's slot s lives at row b*block_size+s). Sequences lease pages
+The device holds ONE fixed pool of physical cache blocks per layer:
+layout="block" ([num_blocks, kv_heads, block_size, head_dim], the
+block_multihead_attention operand layout) or layout="token"
+([num_blocks*block_size, kv_heads, head_dim]; block b's slot s lives at
+row b*block_size+s), the one `LLMEngine` uses because B3 reads the
+token-major pool. Sequences lease pages
 from the native C++ refcounting free-list allocator
 (_block_allocator.cpp, the same source and C ABI as paddle_tpu's,
 loaded through ctypes), and the manager renders int32 block tables.
@@ -15,6 +18,13 @@ existing pages at +1 refcount. Pages of finished sequences park in an
 LRU and are evicted only when an allocation would otherwise fail.
 Shared pages are never written: `ensure_writable` copies any page other
 sequences still reference before the engine writes into it.
+
+KV-page migration (prefill/decode disaggregation): `export_pages` ships
+committed pages as numpy host copies under their chained hashes, and
+`import_pages` parks them in another pool's LRU, so a later admission
+leases them as a prefix hit. bfloat16 pages travel as their int16 bits
+(numpy has no bfloat16); an importer also takes the reference's
+ml_dtypes bfloat16 arrays.
 """
 from __future__ import annotations
 
@@ -37,7 +47,9 @@ _LIB = None
 _LIB_LOCK = threading.Lock()
 
 
-def _load_lib():
+def _load_lib(store=None):
+    """Build and load the block allocator at first use; `store` (a
+    persistent library store, `utils.build`) is asked first."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is not None:
@@ -47,7 +59,7 @@ def _load_lib():
         lib = ctypes.CDLL(build_shared(
             "paged_block_allocator", [os.path.join(here,
                                                    "_block_allocator.cpp")],
-            "g++", GXX_FLAGS))
+            "g++", GXX_FLAGS, store=store))
         i32p = ctypes.POINTER(ctypes.c_int32)
         lib.pba_create.restype = ctypes.c_void_p
         lib.pba_create.argtypes = [ctypes.c_int32]
@@ -131,19 +143,47 @@ class BlockAllocator:
             self._h = None
 
 
-class PagedKVCache:
-    """Per-layer token-major K/V pools + per-sequence page tables.
+def _to_host(rows: torch.Tensor) -> np.ndarray:
+    """A numpy host copy of pool rows; bfloat16 leaves as its int16 bits
+    (numpy has no bfloat16)."""
+    rows = rows.detach().cpu()
+    if rows.dtype == torch.bfloat16:
+        rows = rows.view(torch.int16)
+    return rows.numpy()
 
-    Only paddle_tpu's layout="token" exists here (the layout its
-    LLMEngine uses); "block" raises. device: None = the CUDA card."""
+
+def _from_host(arr, like: torch.Tensor) -> torch.Tensor:
+    """Host page rows as a tensor of `like`'s dtype on its device: the
+    int16 bits `_to_host` ships for bfloat16, or a reference export's
+    arrays (ml_dtypes bfloat16 among them), cast as the reference casts
+    them."""
+    a = np.ascontiguousarray(arr)
+    if a.dtype.name == "bfloat16":      # an ml_dtypes array
+        a = a.view(np.int16)
+    t = torch.from_numpy(a)
+    if t.dtype == torch.int16 and like.dtype == torch.bfloat16:
+        t = t.view(torch.bfloat16)
+    return t.to(device=like.device, dtype=like.dtype)
+
+
+class PagedKVCache:
+    """Per-layer K/V pools + per-sequence page tables.
+
+    Pairs with incubate.nn.functional.block_multihead_attention: in the
+    "block" layout the `key_cache(i)` / `value_cache(i)` tensors and
+    `block_table(...)` rows are exactly its operands. device: None = the
+    CUDA card."""
 
     def __init__(self, num_layers: int, num_blocks: int, kv_heads: int,
                  block_size: int, head_dim: int, dtype=torch.bfloat16,
-                 layout: str = "token",
-                 enable_prefix_caching: bool = False, device=None):
-        if layout != "token":
-            raise NotImplementedError(
-                f"layout {layout!r}: the port keeps token-major pools only")
+                 layout: str = "block",
+                 enable_prefix_caching: bool = False, *, device=None):
+        """layout="block": [num_blocks, kv_heads, block_size, head_dim]
+        (the reference contract). layout="token": [num_blocks*block_size,
+        kv_heads, head_dim], token-major, the layout LLMEngine and B3
+        use."""
+        if layout not in ("block", "token"):
+            raise ValueError(f"unknown cache layout {layout!r}")
         self.num_layers = num_layers
         self.block_size = block_size
         self.kv_heads = kv_heads
@@ -152,7 +192,9 @@ class PagedKVCache:
         self.device = resolve_device(device)
         self.allocator = BlockAllocator(num_blocks)
         self.enable_prefix_caching = bool(enable_prefix_caching)
-        shape = (num_blocks * block_size, kv_heads, head_dim)
+        shape = ((num_blocks * block_size, kv_heads, head_dim)
+                 if layout == "token"
+                 else (num_blocks, kv_heads, block_size, head_dim))
         dt = to_dtype(dtype)
         self.key_caches = [torch.zeros(shape, dtype=dt, device=self.device)
                            for _ in range(num_layers)]
@@ -316,12 +358,110 @@ class PagedKVCache:
                 self._hash_to_page.pop(h, None)
                 self._lru.pop(p, None)
 
+    def _rows(self, page: int):
+        """The index of one page's rows in a pool of this layout."""
+        if self.layout == "token":
+            bs = self.block_size
+            return slice(page * bs, (page + 1) * bs)
+        return page
+
     def _copy_block(self, src: int, dst: int) -> None:
         """Copy one page's rows in every layer, in place."""
-        bs = self.block_size
+        s, d = self._rows(src), self._rows(dst)
         for caches in (self.key_caches, self.value_caches):
             for arr in caches:
-                arr[dst * bs:(dst + 1) * bs] = arr[src * bs:(src + 1) * bs]
+                arr[d] = arr[s]
+
+    # -- cross-pool page migration (prefill/decode disaggregation) ---------
+    def export_pages(self, hashes: List[bytes], start: int = 0,
+                     limit: Optional[int] = None) -> List[dict]:
+        """Serialize committed content-addressed pages for a chained
+        hash prefix. Walks `hashes[start:start+limit]` IN CHAIN ORDER and
+        stops at the first hash this pool does not hold, so an exported
+        slice is always a contiguous extension of the chain. Each entry
+        carries the page's rows of every layer as numpy host copies
+        ([num_layers, *page rows]; the page bytes are the migration
+        payload) plus its hash. Leased and parked pages both export
+        (reads only; refcounts untouched)."""
+        out: List[dict] = []
+        if not self.enable_prefix_caching:
+            return out
+        stop = len(hashes) if limit is None else \
+            min(len(hashes), start + int(limit))
+        for h in hashes[start:stop]:
+            page = self._hash_to_page.get(h)
+            if page is None:
+                break
+            sl = self._rows(page)
+            # every layer's rows gathered on the device, then one copy
+            k = _to_host(torch.stack([kc[sl] for kc in self.key_caches]))
+            v = _to_host(torch.stack([vc[sl] for vc in self.value_caches]))
+            out.append({"hash": h, "k": k, "v": v})
+        return out
+
+    def import_pages(self, pages: List[dict]) -> int:
+        """Register migrated pages under their content hashes: each entry
+        of a peer pool's `export_pages` is written into a freshly
+        allocated block and PARKED in the LRU (refcount held by the LRU,
+        like a finished sequence's committed page), so a later
+        `add_sequence(match=...)` leases it as a prefix hit and pool
+        pressure can evict it first. Entries arrive in chain order.
+        Already-present hashes count as imported without touching the
+        pool (first writer wins). Stops cleanly at pool exhaustion,
+        never evicting a page of the chain being imported. Returns how
+        many of `pages` are now resident."""
+        if not self.enable_prefix_caching:
+            return 0
+        done = 0
+        placed: set = set()     # this chain's pages — never evicted
+        for ent in pages:
+            h = ent["hash"]
+            page = self._hash_to_page.get(h)
+            if page is not None:
+                placed.add(page)
+                done += 1
+                continue
+            if self.allocator.num_free < 1:
+                # displace the coldest parked page that is NOT part of
+                # the chain being imported (_alloc's oldest-first
+                # eviction would take this call's own pages)
+                victim = next((p for p in self._lru
+                               if p not in placed), None)
+                if victim is None:
+                    break
+                vh = self._lru.pop(victim)
+                del self._hash_to_page[vh]
+                del self._page_hash[victim]
+                self.allocator.free([victim])
+            try:
+                (page,) = self.allocator.alloc(1)
+            except MemoryError:
+                break
+            sl = self._rows(page)
+            k = _from_host(ent["k"], self.key_caches[0])
+            v = _from_host(ent["v"], self.value_caches[0])
+            for li in range(self.num_layers):
+                self.key_caches[li][sl] = k[li]
+                self.value_caches[li][sl] = v[li]
+            self._hash_to_page[h] = page
+            self._page_hash[page] = h
+            self._lru[page] = h         # parked: LRU inherits the ref
+            placed.add(page)
+            done += 1
+        return done
+
+    def page_meta(self) -> dict:
+        """Pool-compatibility metadata shipped with every migration
+        chunk (the reference's keys and dtype spelling: "bfloat16",
+        "float32", "int8"): an importer refuses pages whose geometry or
+        dtype does not match its own pool."""
+        return {
+            "num_layers": int(self.num_layers),
+            "block_size": int(self.block_size),
+            "kv_heads": int(self.kv_heads),
+            "head_dim": int(self.head_dim),
+            "dtype": str(self.key_caches[0].dtype).removeprefix("torch."),
+        }
 
     # -- capacity views ----------------------------------------------------
     @property
@@ -432,9 +572,15 @@ class PagedKVCache:
             tbl[i, :len(r)] = r
         return torch.from_numpy(tbl).to(self.device)
 
-    def export_pages(self, *args, **kwargs):
-        raise NotImplementedError(
-            "KV-page export/import (disaggregated serving) is not ported "
-            "yet")
+    def key_cache(self, layer: int):
+        return self.key_caches[layer]
 
-    import_pages = export_pages
+    def value_cache(self, layer: int):
+        return self.value_caches[layer]
+
+    def update(self, layer: int, key_cache, value_cache) -> None:
+        """Store the cache tensors an attention call returned (the
+        port's attention writes its pools in place, so these are
+        usually the same tensors)."""
+        self.key_caches[layer] = key_cache
+        self.value_caches[layer] = value_cache

@@ -297,13 +297,14 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SM90_HEADERS = ("sm90_wgmma.cuh",)
 
 
-def _load_kernel():
+def _load_kernel(store=None):
     """Build and load ragged_paged_attention.cu (the simple design) at
-    first use."""
+    first use; `store` (a persistent library store, `utils.build`) is
+    asked first."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
-            lib = load_cuda("ragged_paged_attention")
+            lib = load_cuda("ragged_paged_attention", store=store)
             fn = lib.ragged_paged_attention_launch
             fn.restype = _I
             fn.argtypes = [_P] * 15 + [_I] * 9 + [_L] * 3 + [
@@ -312,15 +313,16 @@ def _load_kernel():
     return _LIB
 
 
-def _load_sm90(extra_flags=()):
+def _load_sm90(extra_flags=(), store=None):
     """Build and load ragged_paged_attention_sm90.cu (the tiled design),
     its own library, at first use. `extra_flags` (-D ring depths) builds
-    and returns a variant without installing it."""
+    and returns a variant without installing it. `store` as in
+    `_load_kernel`."""
     global _SM90_LIB
     with _LIB_LOCK:
         if _SM90_LIB is None or extra_flags:
             lib = load_cuda("ragged_paged_attention_sm90", _SM90_HEADERS,
-                            extra_flags)
+                            extra_flags, store=store)
             fn = lib.ragged_paged_attention_sm90_launch
             fn.restype = _I
             fn.argtypes = [_P] * 12 + [_I] * 9 + [_L] * 3 + [

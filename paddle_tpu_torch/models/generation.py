@@ -278,7 +278,7 @@ def _fused_loop(model, fwd_fn, key, b, max_len, dtype, dev, pick, eos):
 @torch.no_grad()
 def generate(model, input_ids, max_new_tokens=32, do_sample=False,
              temperature=1.0, top_p=1.0, top_k=0, eos_token_id=None,
-             seed=0, use_fused_step=True, device=None):
+             seed=None, use_fused_step=True, device=None):
     """Greedy / sampled decode for GPT and LLaMA causal LMs.
 
     input_ids: [b, prompt_len] ints (array or tensor). Returns a
@@ -288,12 +288,22 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
     reference's one executable of the whole loop); False keeps the eager
     per-step loop, the conformance oracle. On the CPU both run eagerly
     and give the same tokens. device: None = the CUDA card; the model
-    must live on the resolved device."""
+    must live on the resolved device. seed: the sampling generator's
+    seed; None draws it from the default generator on the device
+    (`core.generator`, what `paddle.seed` seeds), as the reference
+    splits its global key, so successive calls draw anew. Greedy
+    decoding touches no generator."""
     fwd_fn, emb_dtype = _family(model)
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(
             f"generate: model lives on {model.device}, not on {dev}")
+    if seed is None:
+        seed = 0
+        if do_sample:
+            from ..core.generator import torch_generator
+            seed = int(torch.randint(0, 2 ** 62, (), device=dev,
+                                     generator=torch_generator(dev)))
     ids = torch.as_tensor(input_ids, device=dev).to(torch.int64)
     b, prompt_len = ids.shape
     cfg = model.config

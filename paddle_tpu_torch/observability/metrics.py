@@ -702,16 +702,19 @@ def compile_metrics() -> Tuple[Counter, Histogram]:
     `jit.cuda_graph.CapturedStep` reports each capture here under its
     family ("engine_decode", "train_step", "generate_decode", ...) with
     outcome=compile, and the histogram holds the capture's wall time
-    (its eager warm-up run plus the capture). The reference's other
-    outcome, disk_hit (an executable loaded from its persistent cache),
-    never occurs: the port has no such cache."""
+    (its eager warm-up run plus the capture). With a persistent store
+    set (`inference.exec_cache`), each kernel library a build obtains is
+    reported under the library's name: outcome=disk_hit when it came
+    from the store with no compiler run, compile when it was built
+    (`observability.perf.note_build`)."""
     return (
         _GLOBAL.counter(
             "paddle_tpu_compile_total",
             "executables instantiated (in this package: CUDA graphs "
-            "captured), by family and outcome (compile = a fresh "
-            "capture; disk_hit = loaded from a persistent cache, which "
-            "this package does not have); entries beyond the "
+            "captured, and kernel libraries obtained with a persistent "
+            "store set), by family and outcome (compile = a fresh "
+            "capture or a compiler run; disk_hit = a library loaded "
+            "from the persistent store); entries beyond the "
             "steady-state bucket set are recaptures",
             ("family", "outcome")),
         _GLOBAL.histogram(

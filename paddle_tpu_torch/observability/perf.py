@@ -44,7 +44,8 @@ from typing import Dict, Optional, Tuple
 from . import metrics as _m
 
 __all__ = [
-    "CostModel", "count_cost", "record_compile", "observe_roofline",
+    "CostModel", "count_cost", "record_compile", "note_build",
+    "observe_roofline",
     "family_records", "reset_window", "device_peaks",
     "set_device_peaks", "interconnect_peaks", "set_interconnect_peaks",
     "lookup", "PEAK_BF16_FLOPS", "HBM_BYTES_PER_SEC", "ICI_BYTES_PER_SEC",
@@ -382,6 +383,20 @@ def record_compile(family: str, compiled) -> Optional[CostModel]:
         b.labels(family=family, kind="temp").set(cm.bytes_temp)
         _family_slot(family)["compiles"] += 1
     return cm
+
+
+def note_build(family: str, outcome: str, seconds: float) -> None:
+    """Account one kernel library obtained through a persistent store
+    (`inference.exec_cache.LibraryStore`): outcome "disk_hit" (loaded from the store, no
+    compiler run) or "compile" (built, then saved), on
+    `paddle_tpu_compile_total{family,outcome}` and the compile-seconds
+    histogram, family = the library's name. No-op while observability
+    is disabled."""
+    if not _m._ENABLED:
+        return
+    c, h = _m.compile_metrics()
+    c.labels(family=family, outcome=outcome).inc()
+    h.labels(family=family).observe(seconds)
 
 
 def observe_roofline(family: str, seconds: float,

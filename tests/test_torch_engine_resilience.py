@@ -352,12 +352,17 @@ def test_prefix_hashes_are_used(gpts):
     assert eng.stats["prefix_cache_hit_tokens"] == 32
 
 
-def test_unported_options_still_raise(gpts):
+def test_unported_options_still_raise(gpts, tmp_path):
     _jm, tm = gpts
-    for kw in (dict(mesh=object()), dict(shard_param=lambda *a: None),
-               dict(exec_cache_dir="x")):
+    for kw in (dict(mesh=object()), dict(shard_param=lambda *a: None)):
         with pytest.raises(NotImplementedError):
             LLMEngine(tm, device="cpu", **BASE_KW, **kw)
+    # exec_cache_dir is ported (the persistent kernel-library store,
+    # tests/test_torch_exec_cache.py): the engine takes it
+    eng = LLMEngine(tm, device="cpu", exec_cache_dir=str(tmp_path),
+                    **BASE_KW)
+    assert eng._exec_cache.root == str(tmp_path)
+    assert eng._lib_store.cache is eng._exec_cache
     # obs_carry is ported (observability): an earlier life's trace
     # identity is accepted and the request serves as any other
     eng = LLMEngine(tm, device="cpu", **BASE_KW)

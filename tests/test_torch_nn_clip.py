@@ -208,16 +208,42 @@ PORTED_MODULES = {
     "paddle_tpu.ops.parity": ("paddle_tpu_torch.ops.parity", set()),
     "paddle_tpu.tensor_array": ("paddle_tpu_torch.tensor_array", set()),
     "paddle_tpu.ops.nn_ops": ("paddle_tpu_torch.ops.nn_ops", set()),
-    # jit, the inference Predictor and hapi (ROADMAP item 25's part); the
-    # inference fleet (router, autoscaler, traffic, disaggregation) takes
-    # ROADMAP item 24
+    # jit, the inference Predictor and hapi (ROADMAP item 25's part), and
+    # the inference fleet (router, autoscaler, traffic, disaggregation,
+    # replica processes, the exec cache; ROADMAP item 24)
     "paddle_tpu.jit": ("paddle_tpu_torch.jit", set()),
     "paddle_tpu.jit.dy2static": ("paddle_tpu_torch.jit.dy2static", set()),
-    "paddle_tpu.inference": ("paddle_tpu_torch.inference", {
-        "Autoscaler", "Cohort", "DisaggActuator", "DisaggRouter",
-        "ReplicaGone", "ReplicaHandle", "ReplicaSet", "Router",
-        "RouterActuator", "TrafficEvent", "TrafficModel", "autoscaler",
-        "disagg", "router", "run_traffic", "traffic"}),
+    "paddle_tpu.inference": ("paddle_tpu_torch.inference", set()),
+    "paddle_tpu.inference.router": ("paddle_tpu_torch.inference.router",
+                                    set()),
+    "paddle_tpu.inference.disagg": ("paddle_tpu_torch.inference.disagg",
+                                    set()),
+    "paddle_tpu.inference.autoscaler": (
+        "paddle_tpu_torch.inference.autoscaler", set()),
+    "paddle_tpu.inference.traffic": ("paddle_tpu_torch.inference.traffic",
+                                     set()),
+    "paddle_tpu.inference.replica_proc": (
+        "paddle_tpu_torch.inference.replica_proc", set()),
+    "paddle_tpu.inference.exec_cache": (
+        "paddle_tpu_torch.inference.exec_cache", set()),
+    "paddle_tpu.distributed.rpc": ("paddle_tpu_torch.distributed.rpc",
+                                   set()),
+    # distributed, touched for rpc: the collectives, parallel, fleet,
+    # sharding and the rest are ROADMAP Queue A item 26
+    "paddle_tpu.distributed": ("paddle_tpu_torch.distributed", {
+        "CommunicateTopology", "DataParallel", "DistModel", "Group",
+        "HybridCommunicateGroup", "P2POp", "ParallelEnv", "Partial",
+        "ProcessMesh", "ReduceOp", "Replicate", "Shard", "ShardingStage1",
+        "ShardingStage2", "ShardingStage3", "Work", "all_gather",
+        "all_reduce", "all_to_all", "alltoall", "auto_parallel", "barrier",
+        "batch_isend_irecv", "broadcast", "checkpoint", "communication",
+        "destroy_process_group", "dtensor_from_fn", "fleet", "get_group",
+        "get_hybrid_communicate_group", "get_rank", "get_world_size",
+        "get_world_size_by_group", "init_parallel_env", "irecv",
+        "is_initialized", "isend", "new_group", "parallel", "ps", "recv",
+        "reduce", "reduce_scatter", "reshard", "scatter", "send",
+        "shard_layer", "shard_optimizer", "shard_tensor", "sharding",
+        "spawn", "to_static", "topology"}),
     "paddle_tpu.hapi": ("paddle_tpu_torch.hapi", set()),
     "paddle_tpu.hapi.model_api": ("paddle_tpu_torch.hapi.model_api", set()),
     "paddle_tpu.hapi.summary_writer": ("paddle_tpu_torch.hapi.summary_writer",
@@ -259,9 +285,8 @@ PORTED_MODULES = {
                                     set()),
     "paddle_tpu.audio.features": ("paddle_tpu_torch.audio.features", set()),
     "paddle_tpu.audio.datasets": ("paddle_tpu_torch.audio.datasets", set()),
-    # observability (ROADMAP item 8), the profiler and device memory.
-    # Still to port: the fleet's agent and aggregator (item 24); JAX's
-    # own: read_cost_model (XLA's cost analysis), the dispatch-queue
+    # observability (ROADMAP item 8; the fleet plane and slo_fleet with
+    # item 24), the profiler and device memory. JAX's own: read_cost_model (XLA's cost analysis), the dispatch-queue
     # recorders, CompileTimed (the capture, jit.cuda_graph.CapturedStep,
     # is its counterpart) and the PJRT plugin names
     "paddle_tpu.observability": ("paddle_tpu_torch.observability", set()),
@@ -283,9 +308,9 @@ PORTED_MODULES = {
             "CompileTimed", "read_cost_model", "note_dispatch_gap",
             "note_dispatch_batch", "note_graph_cache"}),
     "paddle_tpu.observability.fleet": (
-        "paddle_tpu_torch.observability.fleet", {
-            "FleetAgent", "FleetAggregator", "aggregator",
-            "serve_aggregator"}),
+        "paddle_tpu_torch.observability.fleet", set()),
+    "paddle_tpu.observability.slo_fleet": (
+        "paddle_tpu_torch.observability.slo_fleet", set()),
     "paddle_tpu.profiler": ("paddle_tpu_torch.profiler", set()),
     "paddle_tpu.device": ("paddle_tpu_torch.device", {
         "register_pjrt_plugin", "get_all_custom_device_type",

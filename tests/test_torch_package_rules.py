@@ -117,6 +117,18 @@ assert "engine.step" in {e["name"] for e in prof.events()}
 assert observability.snapshot()["paddle_tpu_request_e2e_seconds"][
     "series"][()]["count"] == 1
 assert device.memory.memory_allocated() == 0        # the CPU place
+# the fleet, and the model builder a spawned replica process imports
+sys.path.insert(0, "tests")
+import torch_fleet_cases
+from paddle_tpu_torch.distributed import rpc
+from paddle_tpu_torch.inference import DisaggRouter, Router, TrafficModel
+from paddle_tpu_torch.inference import exec_cache, replica_proc
+from paddle_tpu_torch.observability import fleet, slo_fleet
+fm = torch_fleet_cases.tiny_gpt()
+make = lambda _i: LLMEngine(fm, device="cpu", **torch_fleet_cases.ENGINE_KW)
+p = [np.arange(20, dtype=np.int32)]
+assert Router(make, n_replicas=2).generate(p, 2)[0].ok
+assert DisaggRouter(make).generate(p, 2)[0].ok
 bad = [k for k in sys.modules
        if k == "jax" or k.startswith("jax.") or k == "paddle_tpu"
        or k.startswith("paddle_tpu.")]

@@ -16,7 +16,7 @@ BS, NB, L, KVH, D = 4, 12, 2, 1, 8
 def _pair(caching=True):
     j = JaxCache(L, NB, KVH, BS, D, dtype=jnp.float32, layout="token",
                  enable_prefix_caching=caching)
-    t = PagedKVCache(L, NB, KVH, BS, D, dtype=torch.float32,
+    t = PagedKVCache(L, NB, KVH, BS, D, dtype=torch.float32, layout="token",
                      enable_prefix_caching=caching, device="cpu")
     return j, t
 

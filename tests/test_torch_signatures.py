@@ -532,3 +532,74 @@ def test_obs_name_matches_the_reference(module, name):
         pairs = [(port_obj, ref_obj)]
     for port_fn, ref_fn in pairs:
         _check_sigs(inspect.signature(port_fn), inspect.signature(ref_fn))
+
+
+# the serving fleet (ROADMAP item 24): every function and class the
+# reference's fleet modules define, and each method a class defines;
+# the paged cache and the engine, whose export / import and layout this
+# slice ported (their dtype defaults compared by name: jnp's bfloat16
+# against torch's)
+FLEET_MODULES = ("inference.router", "inference.disagg",
+                 "inference.autoscaler", "inference.traffic",
+                 "inference.replica_proc", "inference.exec_cache",
+                 "inference.paged_cache", "inference.llm_engine",
+                 "observability.slo_fleet", "distributed.rpc")
+
+
+def _fleet_names():
+    import importlib
+    out = []
+    for mod in FLEET_MODULES:
+        ref = importlib.import_module(f"paddle_tpu.{mod}")
+        for n in sorted(vars(ref)):
+            v = getattr(ref, n)
+            if not n.startswith("_") and callable(v) \
+                    and getattr(v, "__module__", None) == ref.__name__:
+                out.append((mod, n))
+    return out
+
+
+FLEET_NAMES = _fleet_names()
+
+
+def _dtype_names(sig):
+    """`sig` with dtype defaults replaced by their names."""
+    params = []
+    for p in sig.parameters.values():
+        d = p.default
+        if isinstance(d, torch.dtype):
+            d = str(d).removeprefix("torch.")
+        elif isinstance(d, type) and d.__module__.startswith(("jax",
+                                                              "numpy")):
+            d = d.__name__
+        params.append(p.replace(default=d))
+    return sig.replace(parameters=params)
+
+
+def test_every_fleet_name_is_checked():
+    names = {n for _, n in FLEET_NAMES}
+    assert {"Router", "ReplicaSet", "ReplicaHandle", "DisaggRouter",
+            "DisaggActuator", "process_role", "Autoscaler",
+            "RouterActuator", "TrafficModel", "run_traffic",
+            "start_replica_process", "process_engine_factory",
+            "ReplicaProcessClient", "ExecCache", "device_fingerprint",
+            "PagedKVCache", "LLMEngine", "FleetSLOMonitor", "init_rpc",
+            "call_endpoint", "serve"} <= names
+
+
+@pytest.mark.parametrize("module,name", FLEET_NAMES,
+                         ids=[f"{m}.{n}" for m, n in FLEET_NAMES])
+def test_fleet_name_matches_the_reference(module, name):
+    import importlib
+    port_obj = getattr(importlib.import_module(f"paddle_tpu_torch.{module}"),
+                       name)
+    ref_obj = getattr(importlib.import_module(f"paddle_tpu.{module}"), name)
+    if inspect.isclass(ref_obj):
+        pairs = [(port_obj.__init__, ref_obj.__init__)] + [
+            (getattr(port_obj, m), f) for m, f in vars(ref_obj).items()
+            if inspect.isfunction(f) and not m.startswith("_")]
+    else:
+        pairs = [(port_obj, ref_obj)]
+    for port_fn, ref_fn in pairs:
+        _check_sigs(_dtype_names(inspect.signature(port_fn)),
+                    _dtype_names(inspect.signature(ref_fn)))

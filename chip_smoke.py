@@ -8,8 +8,10 @@ Run from the root of a checkout. Phases, each of which must pass:
   1. the card (nvidia-smi name and power limit); build the CUDA kernels
      (nvcc, sm_90a: ragged paged attention's simple and sm90 designs,
      flash attention, B1's and B2's sm90 designs, norms, the
-     multi-tensor update and its statistics variant) and the block
-     allocator (g++) from the checkout's sources, all at once, timed;
+     multi-tensor update and its statistics variant, and the build
+     variants of B1's, B2's and B3's sm90 sources that the block-config
+     cache times) and the block allocator (g++) from the checkout's
+     sources, all at once, timed;
   2. the serving kernel (B3) against its plain PyTorch version in f32 on
      the card, at the engine's shapes (gpt3_1p3b's 16 heads, GQA, int8,
      padding, and llama2_7b's 32 heads, in bf16; gpt3_1p3b's fresh and
@@ -419,6 +421,29 @@ Run from the root of a checkout. Phases, each of which must pass:
      kernel libraries are all disk hits (no compiler run), bundles from
      every process, the failed-over traces connected; spawn-to-ready
      cold and warm.
+ 37. the models on Tensors: gpt2_small at full width (f32) called on a
+     Tensor gives a Tensor bit-equal to the torch-level call;
+     model.generate on a Tensor (32 new tokens) gives generate's tokens
+     on torch tensors; save(state_dict) / set_state_dict(load) gives
+     bit-equal logits; AdamW.minimize equals backward, step,
+     clear_grad bit for bit; LLaMA at LLaMA-2-7B's widths (2 layers,
+     bf16) and BERT-base (2 layers) take Tensors;
+ 38. the block-config cache: from an empty cache under build/, B1 and
+     B2 tuned at gpt2_small's training shape and B3 at gpt3_1p3b's
+     fresh wave (each candidate build's time, the winner, the
+     bandwidth probes, persisted), each winner held to the plain
+     version at phase 3's and phase 2's tolerances, a fresh process
+     reading the winners with no timing, the kill switch restoring the
+     defaults, phase 6's run again with the winners (its step by
+     replay beside phase 6's), and no timing inside a capture over the
+     whole run (every phase tunes at its first shape class, from an
+     empty cache of the run's own);
+ 39. the collectives: gpt2_small's 148 gradient-sized tensors through
+     every collective, eager rank-major at the card's world (1) and
+     per-rank through an NCCL process group of world size 1, each
+     equal to its value, the comms series (bytes, seconds,
+     algorithmic bandwidth) recorded; a DataParallel gpt2_small step
+     bit-equal to the bare step; destroy_process_group.
 
 Each phase's wall seconds are printed ("[phase-seconds]"). The last
 three lines of standard output are a JSON record of the
@@ -465,6 +490,29 @@ B3_SOURCES = {"sm90": "ragged_paged_attention_sm90.cu",
 
 def log(*a):
     print(*a, flush=True)
+
+
+# The models are Layers, whose own parameters() / state_dict() /
+# buffers() give the eager API's Parameters and Tensors; the torch-level
+# phases read torch's.
+def _torch_params(model):
+    import torch
+    return torch.nn.Module.parameters(model)
+
+
+def _torch_named_params(model):
+    import torch
+    return torch.nn.Module.named_parameters(model)
+
+
+def _torch_state(model):
+    import torch
+    return torch.nn.Module.state_dict(model)
+
+
+def _torch_buffers(model):
+    import torch
+    return torch.nn.Module.buffers(model)
 
 
 @contextlib.contextmanager
@@ -665,6 +713,15 @@ def build_all() -> dict:
             "multi_tensor_adam.cu (nvcc)": mta._load_kernel,
             "_block_allocator.cpp (g++)": paged_cache._load_lib,
             "io/native/queue.cc (g++)": native.load}
+    # the build variants the block-config cache times (phase 38): one
+    # nvcc each, with the rest
+    for src, table in (("flash_fwd_sm90.cu", fa._FWD_VARIANTS),
+                       ("flash_bwd_sm90.cu", fa._BWD_VARIANTS),
+                       ("ragged_paged_attention_sm90.cu", rpa._RPA_VARIANTS)):
+        for v in table.variants[1:]:
+            d = min(v)
+            jobs[f"{src} {' '.join(table.flags(d, v[d]))} (nvcc)"] = (
+                lambda t=table, d=d, c=v[d]: t.library(d, c))
     secs, errors = {}, {}
 
     def run(name, fn):
@@ -1228,7 +1285,7 @@ def serve_phase(label, build, engine_kw, wave_hooks=None, after=None,
         raise RuntimeError(f"engine phase failed: bad={bad} stats={st}")
     n_tok = sum(len(r.output_ids) for r in done.values())
     weight_bytes = sum(p.numel() * p.element_size()
-                       for p in model.parameters())
+                       for p in _torch_params(model))
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     step_ms, attn_step_ms, attn_err, attn_tol = _decode_device_ms(
         eng, widths[-1])
@@ -1853,7 +1910,7 @@ def _gpt_train_step(cfg, use_amp, lr=1e-4, seed=0, moment_dtype=None,
     from paddle_tpu_torch.optimizer import AdamW
     model = GPTForCausalLM(cfg, dtype="float32", seed=seed)
     model.train()
-    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+    opt = AdamW(learning_rate=lr, parameters=_torch_params(model),
                 weight_decay=0.01, moment_dtype=moment_dtype)
     crit = GPTPretrainingCriterion()
 
@@ -2006,7 +2063,7 @@ def train_phase(keep=None) -> dict:
         p.shape, device="cuda", generator=gen) * 1e-3,
         *(opt._get_state(p)[k] for k in ("moment1", "moment2",
                                           "beta1_pow", "beta2_pow")),
-        wd=0.01) for p in model.parameters()]
+        wd=0.01) for p in _torch_params(model)]
     lr_t = opt._lr_tensor(opt.get_lr(), torch.device("cuda"))
     update_ms = graph_ms(lambda: mta.multi_tensor_adam(
         slots, lr_t, beta1=opt.beta1, beta2=opt.beta2, eps=opt.epsilon,
@@ -2114,7 +2171,7 @@ def _held_to(losses, want_losses, params, want_params, lr, n_steps):
 
 def _state(model):
     """A copy of the model's state dict values, in their order."""
-    return [v.detach().clone() for v in model.state_dict().values()]
+    return [v.detach().clone() for v in _torch_state(model).values()]
 
 
 def train_parity_phase() -> dict:
@@ -2392,7 +2449,7 @@ def llama_engine_phase() -> dict:
         g = torch.Generator(device="cuda")
         g.manual_seed(1)
         with torch.no_grad():
-            for name, p in model.named_parameters():
+            for name, p in _torch_named_params(model):
                 if name.endswith("norm.weight"):
                     p.normal_(1.0, 0.1, generator=g)
         return model, cfg
@@ -2634,7 +2691,7 @@ def update_phase() -> list:
     from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
     model = GPTForCausalLM(gpt2_small(), device="cuda", dtype="float32",
                            seed=0)
-    init = [p.detach().clone() for p in model.parameters()]
+    init = [p.detach().clone() for p in _torch_params(model)]
     shapes = [tuple(p.shape) for p in init]
     del model
     lr = torch.full((), UPDATE_LR, device="cuda")
@@ -2776,7 +2833,7 @@ def _train_run(tag, label, model, step, batch, per_step, warmup=2,
     del graph
     timed = run["step_s"][warmup:]
     wall_ms = 1e3 * statistics.median(timed)
-    n = sum(p.numel() for p in model.parameters())
+    n = sum(p.numel() for p in _torch_params(model))
     tokens = int(np.prod(np.shape(batch[0])))
     tok_s = tokens / (wall_ms / 1e3)
     rec = dict(
@@ -2979,14 +3036,14 @@ def _scaler_steps(cfg, ids, labels) -> dict:
     from paddle_tpu_torch.optimizer import AdamW
     model = GPTForCausalLM(cfg, dtype="float32", seed=0)
     model.train()
-    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+    opt = AdamW(learning_rate=1e-4, parameters=_torch_params(model),
                 weight_decay=0.01)
     scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15,
                             decr_every_n_nan_or_inf=1)
     crit = GPTPretrainingCriterion()
     ids_t, labels_t = (torch.as_tensor(a, device="cuda")
                        for a in (ids, labels))
-    w0 = next(model.parameters())
+    w0 = next(_torch_params(model))
     fa.reset_counters()
     mta.multi_tensor_adam.kernel_launches = 0
     losses, step_s, scales, ran, syncs = [], [], [], [], []
@@ -3038,14 +3095,14 @@ def _o2_step(cfg, ids, labels) -> dict:
     from paddle_tpu_torch.optimizer import AdamW
     model = GPTForCausalLM(cfg, dtype="float32", seed=0)
     model.train()
-    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+    opt = AdamW(learning_rate=1e-4, parameters=_torch_params(model),
                 weight_decay=0.01)
     model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
     scaler = amp.GradScaler(init_loss_scaling=2.0 ** 10)
     crit = GPTPretrainingCriterion()
     ids_t, labels_t = (torch.as_tensor(a, device="cuda")
                        for a in (ids, labels))
-    before = [p.detach().clone() for p in model.parameters()]
+    before = [p.detach().clone() for p in _torch_params(model)]
     n0 = mta.multi_tensor_adam.kernel_launches
     with amp.auto_cast(level="O2", dtype="float16"):
         logits = model(ids_t)
@@ -3053,7 +3110,7 @@ def _o2_step(cfg, ids, labels) -> dict:
     scaler.scale(loss).backward()
     scaler.step(opt)
     torch.cuda.synchronize()
-    params = list(model.parameters())
+    params = list(_torch_params(model))
     masters = [opt._master_weights.get(id(p)) for p in params]
     rec = dict(
         loss=float(loss.detach()), logits_dtype=str(logits.dtype),
@@ -3108,7 +3165,7 @@ def f16_train_phase() -> dict:
     eager_losses = [float(step(ids, labels))
                     for _ in range(F16_GRAPH_CALLS)]
     cmp = _held_to(run["losses"], eager_losses, graph_params,
-                   list(model.state_dict().values()),
+                   list(_torch_state(model).values()),
                    step.optimizer.get_lr(), F16_GRAPH_CALLS)
     loss_err, param_err = cmp["loss_max_rel_diff"], cmp["param_max_abs_diff"]
     far, n_el, bound = cmp["params_far"], cmp["params_total"], \
@@ -3412,7 +3469,7 @@ def _llama_train_step(cfg, lr=1e-4, seed=0, recompute_layers=False):
         for i, layer in enumerate(layers):
             layers[i] = RecomputedLayer(layer)
     model.train()
-    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+    opt = AdamW(learning_rate=lr, parameters=_torch_params(model),
                 weight_decay=0.01)
 
     def loss_fn(m, ids):
@@ -3500,7 +3557,7 @@ def _bert_train_step(cfg, lr=1e-4, seed=0):
     from paddle_tpu_torch.optimizer import AdamW
     model = BertForMaskedLM(cfg, dtype="float32", seed=seed)
     model.train()
-    opt = AdamW(learning_rate=lr, parameters=model.parameters())
+    opt = AdamW(learning_rate=lr, parameters=_torch_params(model))
 
     def loss_fn(m, ids, labels):
         with amp.auto_cast(level="O1", dtype="bfloat16"):
@@ -3528,7 +3585,7 @@ def bert_train_phase() -> dict:
     labels = np.where(rng.random((b, s)) < 0.15, ids, -100).astype(np.int32)
     held = _fresh_card()
     model, step = _bert_train_step(cfg)
-    n_tensors = len(list(model.parameters()))
+    n_tensors = len(list(_torch_params(model)))
     _check("[train-bert]", {
         "bert_base's 204 tensors (2 update launches a step)":
             n_tensors == 204}, n_tensors)
@@ -3591,7 +3648,7 @@ def _resnet_train_step(arch="resnet50", opt="Momentum", lr=0.1, amp=True,
     if opt == "Momentum" and not opt_kw:
         opt_kw = dict(momentum=0.9, weight_decay=1e-4)
     optimizer = getattr(optimizers, opt)(
-        learning_rate=lr, parameters=model.parameters(), **opt_kw)
+        learning_rate=lr, parameters=_torch_params(model), **opt_kw)
 
     def loss_fn(m, x, y):
         with tamp.auto_cast(enable=amp, level="O1", dtype="bfloat16"):
@@ -3615,7 +3672,7 @@ def _images(batch, hw, seed, channels_last=True):
 def _same_buffers(model, before):
     """Every buffer of `model` bit-equal to `before` (a copy, in order)."""
     import torch
-    now = list(model.buffers())
+    now = list(_torch_buffers(model))
     return len(now) == len(before) and all(
         torch.equal(a, b) for a, b in zip(now, before))
 
@@ -3684,9 +3741,9 @@ def _image_train_main(tag, build, config, n_buffers, flop, warmup=2,
     b, hw = RESNET_BATCH, RESNET_HW
     held = _fresh_card()
     model, step = build()
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = sum(p.numel() for p in _torch_params(model))
     x, y = _images(b, hw, 0, channels_last=_nhwc(model))
-    before = [t.detach().clone() for t in model.buffers()]
+    before = [t.detach().clone() for t in _torch_buffers(model)]
     torch.cuda.reset_peak_memory_stats()
     run = _counted_steps(step, (x, y), warmup + steps)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3768,7 +3825,7 @@ def _image_graph_vs_eager(build, n_steps=PARITY_STEPS, seed=1) -> dict:
         x, y = _images(RESNET_SUB_BATCH, RESNET_SUB_HW, seed,
                        channels_last=_nhwc(model))
         step._eager = eager
-        before = [t.detach().clone() for t in model.buffers()]
+        before = [t.detach().clone() for t in _torch_buffers(model)]
         with stream_mismatch_warnings() as warned:
             losses = [float(step(x, y)) for _ in range(n_steps)]
         runs[eager] = dict(losses=losses, params=_state(model),
@@ -3814,7 +3871,7 @@ def _resnet_layout() -> dict:
     from paddle_tpu_torch.vision.models import resnet50
     nchw = resnet50(data_format="NCHW", seed=2)
     nhwc = resnet50(data_format="NHWC", space_to_depth_stem=True, seed=3)
-    nhwc.load_state_dict(nchw.state_dict())
+    nhwc.load_state_dict(_torch_state(nchw))
     nchw.eval()
     nhwc.eval()
     x, _ = _images(RESNET_SUB_BATCH, RESNET_SUB_HW, 2)
@@ -4801,12 +4858,12 @@ def eager_gpt_phase(train) -> dict:
     batches = [tuple(rng.integers(0, cfg.vocab_size, (batch, seq)).astype(
         np.int32) for _ in range(2)) for _ in range(EAGER_STEPS)]
     model = GPTForCausalLM(cfg, seed=0)
-    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    weights = {k: v.detach().clone() for k, v in _torch_state(model).items()}
     names = list(weights)
 
     # the model's own eager steps on torch tensors
     crit = GPTPretrainingCriterion()
-    opt = AdamW(learning_rate=EAGER_LR, parameters=model.parameters(),
+    opt = AdamW(learning_rate=EAGER_LR, parameters=_torch_params(model),
                 weight_decay=0.01)
     want_losses = []
     for ids, labels in batches:
@@ -4817,7 +4874,7 @@ def eager_gpt_phase(train) -> dict:
         opt.step()
         opt.clear_grad()
         want_losses.append(float(loss.detach()))
-    state = model.state_dict()
+    state = _torch_state(model)
     want_params = [state[k].detach().clone() for k in names]
     del model, opt, state, loss
     _fresh_card()
@@ -6118,7 +6175,7 @@ def _bert_numpy_weights(model, std, seed=0):
     biases 0), by its names."""
     rng = np.random.default_rng(seed)
     out = {}
-    for k, v in model.state_dict().items():
+    for k, v in _torch_state(model).items():
         shape = tuple(v.shape)
         if "norm" in k:
             out[k] = (np.ones if k.endswith("weight") else np.zeros)(
@@ -6197,7 +6254,7 @@ def export_phase() -> dict:
             _bert_numpy_weights(model, cfg.initializer_range)))
         P.amp.decorate(models=model, level="O2", dtype="bfloat16")
         model.eval()
-        n_params = sum(p.numel() for p in model.parameters())
+        n_params = sum(p.numel() for p in _torch_params(model))
         rng = np.random.default_rng(0)
         ids = {b: rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int64)
                for b in EXPORT_BATCHES}
@@ -6536,7 +6593,7 @@ def _zoo_forward_on_card() -> dict:
         err = float((got.cpu() - want).abs().max() / want.abs().max())
         rec[name] = dict(image=hw, rel_err=err, ms=ms,
                          on_card=got.device.type == CARD,
-                         params=sum(p.numel() for p in model.parameters()))
+                         params=sum(p.numel() for p in _torch_params(model)))
         del model, got
     _fresh_card()
     return rec
@@ -6559,7 +6616,7 @@ def _mobilenet_step(amp=True, seed=0, lr=0.1, dropout=None):
     model.train()
     opt = optimizers.Momentum(learning_rate=lr, momentum=0.9,
                               weight_decay=1e-4,
-                              parameters=model.parameters())
+                              parameters=_torch_params(model))
 
     def loss_fn(m, x, y):
         with tamp.auto_cast(enable=amp, level="O1", dtype="bfloat16"):
@@ -6632,7 +6689,7 @@ def _mobilenet_card_vs_cpu(seed=2) -> dict:
     from paddle_tpu_torch.vision.models import mobilenet_v2
     cpu = mobilenet_v2(device="cpu", seed=seed)
     card = mobilenet_v2(device=CARD, seed=seed)
-    card.load_state_dict(cpu.state_dict())
+    card.load_state_dict(_torch_state(cpu))
     for m in (cpu, card):
         m.classifier[0].p = 0.0
         m.train()
@@ -8161,7 +8218,7 @@ def _qat_card_vs_cpu(seed=47) -> dict:
     from paddle_tpu_torch.vision.models import mobilenet_v2
     cpu = mobilenet_v2(device="cpu", seed=seed)
     card = mobilenet_v2(device=CARD, seed=seed)
-    card.load_state_dict(cpu.state_dict())
+    card.load_state_dict(_torch_state(cpu))
     x, y = _images(QAT_SUB_BATCH, QAT_SUB_HW, seed, channels_last=False)
     seen, losses, models = [], {}, {}
     for name, m, dev in (("card", card, CARD), ("cpu", cpu, "cpu")):
@@ -8292,7 +8349,7 @@ def _qat_train(model):
     model.train()
     opt = optimizers.Momentum(learning_rate=0.1, momentum=0.9,
                               weight_decay=1e-4,
-                              parameters=model.parameters())
+                              parameters=_torch_params(model))
 
     def loss_fn(m, x, y):
         with tamp.auto_cast(enable=True, level="O1", dtype="bfloat16"):
@@ -10046,6 +10103,544 @@ def fleet_phase() -> dict:
 
 
 # seconds each phase took, by phase number (printed with the results)
+# ---------------------------------------------------------------------------
+# phase 37: the models on Tensors (Queue C faults 1-4)
+# ---------------------------------------------------------------------------
+MODELS_IO_BATCH, MODELS_IO_SEQ, MODELS_IO_NEW = 2, 128, 32
+
+
+def models_io_phase() -> dict:
+    """gpt2_small at full width (12 x 768, f32): a Tensor in gives a
+    Tensor out, bit-equal to the torch-level call; model.generate on a
+    Tensor gives models.generation.generate's tokens on torch tensors;
+    save(state_dict) / set_state_dict(load) gives bit-equal logits;
+    AdamW.minimize is bit-equal to backward, step, clear_grad; LLaMA at
+    LLaMA-2-7B's widths (2 layers, bf16) and BERT-base (2 layers) take a
+    Tensor, bit-equal to their torch-level calls."""
+    import os
+    import tempfile
+
+    import torch
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion,
+                                         generate, gpt2_small)
+    from paddle_tpu_torch.models import bert, llama
+    from paddle_tpu_torch.optimizer import AdamW
+    rng = np.random.default_rng(37)
+    b, s = MODELS_IO_BATCH, MODELS_IO_SEQ
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    ids = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    ids_t = torch.as_tensor(ids, device="cuda")
+    saved_place = P.get_device()
+    P.set_device("gpu:0")
+    try:
+        model = GPTForCausalLM(cfg, device="cuda", seed=0)
+        model.eval()
+        with torch.no_grad():
+            want = model(ids_t)
+            got = model(P.to_tensor(ids))
+        logits_equal = isinstance(got, P.Tensor) and torch.equal(
+            got._data, want)
+        prompt = ids[:, :64]
+        t0 = time.perf_counter()
+        gen = model.generate(P.to_tensor(prompt),
+                             max_new_tokens=MODELS_IO_NEW)
+        gen_s = time.perf_counter() - t0
+        ref = generate(model, torch.as_tensor(prompt, device="cuda"),
+                       max_new_tokens=MODELS_IO_NEW)
+        tokens_equal = isinstance(gen, P.Tensor) and torch.equal(
+            gen._data, ref)
+        with tempfile.TemporaryDirectory(dir=_build_dir()) as d:
+            path = os.path.join(d, "gpt2_small.pdparams")
+            t0 = time.perf_counter()
+            P.save(model.state_dict(), path)
+            fresh = GPTForCausalLM(cfg, device="cuda", seed=5)
+            fresh.eval()
+            missing, unexpected = fresh.set_state_dict(P.load(path))
+            round_trip_s = time.perf_counter() - t0
+            file_mb = os.path.getsize(path) / 2 ** 20
+        with torch.no_grad():
+            round_trip_equal = torch.equal(fresh(ids_t), want) \
+                and missing == [] and unexpected == []
+        del fresh, got, want
+        # one AdamW step by minimize against backward / step / clear_grad
+        params = []
+        for how in ("minimize", "steps"):
+            m = GPTForCausalLM(cfg, device="cuda", seed=1)
+            m.train()
+            opt = AdamW(learning_rate=1e-4, parameters=m.parameters(),
+                        weight_decay=0.01)
+            x = P.to_tensor(ids)
+            loss = GPTPretrainingCriterion()(m(x)[:, :-1], x[:, 1:])
+            if how == "minimize":
+                out = opt.minimize(loss)
+            else:
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+            params.append([p.detach().clone() for p in _torch_params(m)])
+            cleared = all(p.grad is None for p in _torch_params(m))
+            del m, opt, loss
+        minimize_equal = out == (None, None) and cleared and all(
+            torch.equal(a, c) for a, c in zip(*params))
+        del params, model
+        _fresh_card()
+        # LLaMA at LLaMA-2-7B's widths and BERT-base, cut in depth
+        lcfg = llama.llama2_7b(num_layers=2)
+        lm = llama.LlamaForCausalLM(lcfg, device="cuda", dtype="bfloat16",
+                                    seed=0)
+        lm.eval()
+        lids = rng.integers(0, lcfg.vocab_size, (b, s)).astype(np.int32)
+        with torch.no_grad():
+            lt = lm(P.to_tensor(lids))
+            llama_equal = isinstance(lt, P.Tensor) and torch.equal(
+                lt._data, lm(torch.as_tensor(lids, device="cuda")))
+        del lm, lt
+        bcfg = bert.bert_base(num_layers=2, hidden_dropout_prob=0.0,
+                              attention_dropout_prob=0.0)
+        bm = bert.BertForMaskedLM(bcfg, device="cuda", seed=0)
+        bm.eval()
+        bids = rng.integers(0, bcfg.vocab_size, (b, s)).astype(np.int32)
+        mask = np.ones((b, s), np.float32)
+        with torch.no_grad():
+            bt = bm(P.to_tensor(bids), attention_mask=P.to_tensor(mask))
+            bert_equal = isinstance(bt, P.Tensor) and torch.equal(
+                bt._data, bm(torch.as_tensor(bids, device="cuda"),
+                             attention_mask=torch.as_tensor(
+                                 mask, device="cuda")))
+        del bm, bt
+        layers = all(issubclass(c, P.nn.Layer) for c in (
+            GPTForCausalLM, llama.LlamaForCausalLM, bert.BertForMaskedLM))
+    finally:
+        P.set_device(saved_place)
+    _fresh_card()
+    rec = dict(batch=b, seq=s, new_tokens=MODELS_IO_NEW,
+               generate_s=gen_s, round_trip_s=round_trip_s,
+               file_mb=file_mb)
+    _check("[models-io]", {
+        "gpt2_small(Tensor) is a Tensor bit-equal to the torch-level "
+        "call": logits_equal,
+        "model.generate(Tensor) gives generate's tokens on torch "
+        "tensors": tokens_equal,
+        "set_state_dict(load(save(state_dict))) gives bit-equal logits":
+            round_trip_equal,
+        "AdamW.minimize is bit-equal to backward, step, clear_grad":
+            minimize_equal,
+        "LLaMA (7B widths, 2 layers, bf16) takes a Tensor": llama_equal,
+        "BERT-base (2 layers) takes a Tensor": bert_equal,
+        "the models are Layers": layers}, rec)
+    log(f"[models-io] gpt2_small b{b} s{s}: generate {MODELS_IO_NEW} "
+        f"tokens from a Tensor in {gen_s:.2f} s; save / set_state_dict "
+        f"round trip {round_trip_s:.2f} s ({file_mb:.1f} MiB)")
+    return rec
+
+
+def _build_dir():
+    from paddle_tpu_torch.utils.build import build_dir
+    return str(build_dir().parent)
+
+
+# ---------------------------------------------------------------------------
+# phase 38: the block-config cache of B1, B2 and B3
+# ---------------------------------------------------------------------------
+# timings made while a stream was capturing, over the whole run (the
+# cache never times inside a capture: _count_capture_timings wraps its
+# timer at the start of main)
+CAPTURE_TIMINGS = {"timed": 0, "capturing": 0}
+
+
+def _count_capture_timings():
+    import torch
+    from paddle_tpu_torch.kernels import autotune
+    timer = autotune._time_call
+
+    def counted(fn, iters=20):
+        CAPTURE_TIMINGS["timed"] += 1
+        CAPTURE_TIMINGS["capturing"] += int(
+            torch.cuda.is_current_stream_capturing())
+        return timer(fn, iters)
+
+    autotune._time_call = counted
+
+
+AUTOTUNE_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from paddle_tpu_torch.kernels import autotune
+from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+timings = []
+real = autotune._time_call
+autotune._time_call = lambda *a, **k: timings.append(1) or real(*a, **k)
+libs = cs._autotune_calls()
+print(json.dumps(dict(libs=libs, sweeps=autotune.drain_sweeps(),
+                      timings=len(timings))))
+"""
+
+
+def _autotune_calls():
+    """One call each of B1 and B2 at gpt2_small's training shape and of
+    B3 at gpt3_1p3b's fresh wave (phase 2's first case); returns the
+    build flags of the library each launched, and the calls' outputs
+    and inputs as `_AUTOTUNE_LAST`."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    name, spec = FLASH_CASES[0]
+    causal = spec[6]
+    qs, k, v, do, segs = _flash_inputs(spec, torch.bfloat16, seed=0)
+    o, lse = fa._fwd_cuda(qs, k, v, causal, segs)
+    grads = fa._bwd_cuda(qs, k, v, o, lse, do, causal, segs,
+                         spec[5] ** -0.5)
+    rname, kw = _ragged_specs(np.random.default_rng(0))[0]
+    x, meta = _case(rname, np.random.default_rng(38), **kw)
+    args = [x[key] for key in ("q", "k_new", "v_new", "kpool", "vpool",
+                               "rows", "pos", "kv_start", "off")]
+    common = dict(block_size=meta["bs"], scale=1.0 / np.sqrt(meta["D"]),
+                  kdq=x["kdq"], vdq=x["vdq"], with_pool=meta["with_pool"])
+    out = rpa._ragged_cuda(*args, **common)
+    torch.cuda.synchronize()
+    _AUTOTUNE_LAST.update(flash=(name, spec, qs, k, v, do, segs, o, lse,
+                                 grads), ragged=(args, common, out, meta))
+    fkey = fa._tune_key("fwd", qs, k, causal, segs is not None)
+    bkey = fa._tune_key("bwd", qs, k, causal, segs is not None)
+    T, H, D = x["q"].shape
+    rkey = ("ragged", T, x["kpool"].shape[0] if meta["with_pool"] else 0,
+            H, x["k_new"].shape[1], D, "bfloat16", 0, meta["bs"])
+    return {kind: list(table.chosen_flags(key))
+            for kind, table, key in (
+                ("B1", fa._FWD_VARIANTS, fkey),
+                ("B2", fa._BWD_VARIANTS, bkey),
+                ("B3", rpa._RPA_VARIANTS, rkey))}
+
+
+_AUTOTUNE_LAST = {}
+
+
+def autotune_phase(train) -> dict:
+    """From an empty cache under build/: tune B1 and B2 at gpt2_small's
+    training shape and B3 at gpt3_1p3b's fresh wave, print every
+    candidate's time, the winners, the bandwidth probes and whether each
+    was persisted; hold each winner to the plain version at phases 3's
+    and 2's tolerances; a fresh process reads the winners from disk with
+    no timing; the kill switch restores the defaults; then phase 6's run
+    (its checks) with the winners, its step by replay beside phase 6's.
+    `train`: phase 6's record."""
+    import os
+    import shutil
+    import torch
+    from paddle_tpu_torch.kernels import autotune
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
+    cache = os.path.join(_build_dir(), "autotune_phase38")
+    shutil.rmtree(cache, ignore_errors=True)
+    saved = os.environ.get("PADDLE_TPU_CACHE_DIR")
+    os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+    try:
+        autotune.clear()
+        autotune.drain_sweeps()
+        probes = [autotune.measure_effective_bw() for _ in range(20)]
+        t0 = time.perf_counter()
+        libs = _autotune_calls()
+        sweep_s = time.perf_counter() - t0
+        sweeps = autotune.drain_sweeps()
+        # each winner against the plain version
+        name, spec, qs, k, v, do, segs, o, lse, grads = \
+            _AUTOTUNE_LAST["flash"]
+        causal, sc = spec[6], spec[5] ** -0.5
+        wo, wlse = fa.flash_fwd(qs, k, v, causal, segs, path="torch")
+        wg = fa.flash_bwd(qs, k, v, o, lse, do, sc, causal, segs,
+                          path="torch")
+        flash_err, _norm, _planted = _check_flash(
+            name, "bf16", (o, lse, *grads), (wo, wlse, *wg))
+        del wo, wlse, wg
+        args, common, out, meta = _AUTOTUNE_LAST["ragged"]
+        low = (torch.bfloat16, torch.float16)
+        f32 = [a.float() if a.dtype in low else a for a in args]
+        want = rpa.ragged_paged_attention(*f32, path="torch", **common)
+        plain = rpa.ragged_paged_attention(*args, path="torch", **common)
+        gap = float((plain - want).abs().max())
+        ragged_tol = max(KERNEL_ATOL, 2 * gap)
+        ragged_err = float((out - want).abs().max())
+        _AUTOTUNE_LAST.clear()
+        del want, plain, f32, args, out
+        persisted = [sw["persisted"] for sw in sweeps]
+        files = [f for f in os.listdir(cache) if f.endswith(".json")] \
+            if os.path.isdir(cache) else []
+        on_disk = json.load(open(os.path.join(cache, files[0]))) \
+            if files else {}
+        # a fresh process: the winners from disk, no timing
+        env = dict(os.environ, PADDLE_TPU_CACHE_DIR=cache)
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", AUTOTUNE_CHILD], capture_output=True,
+            text=True, timeout=600, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise RuntimeError(f"autotune child failed: {child.stderr}")
+        fresh = json.loads(child.stdout.strip().splitlines()[-1])
+        # the kill switch over the cached winners
+        os.environ["PADDLE_TPU_PALLAS_AUTOTUNE"] = "0"
+        try:
+            killed = {kind: table.select(("kill-switch",), d, None)
+                      is table.library(d, table.defaults(d))
+                      for kind, table, d in (
+                          ("B1", fa._FWD_VARIANTS, 64),
+                          ("B2", fa._BWD_VARIANTS, 64),
+                          ("B3", rpa._RPA_VARIANTS, 128))}
+        finally:
+            del os.environ["PADDLE_TPU_PALLAS_AUTOTUNE"]
+        # phase 6's run with the winners (its checks raise on a fault)
+        _fresh_card()
+        tuned = train_phase()
+    finally:
+        if saved is None:
+            os.environ.pop("PADDLE_TPU_CACHE_DIR", None)
+        else:
+            os.environ["PADDLE_TPU_CACHE_DIR"] = saved
+    window = autotune._validated_bw_window()
+    good = [p for p in probes if p is not None]
+    rec = dict(sweeps=sweeps, winners_flags=libs, sweep_s=sweep_s,
+               bw_probes=probes, bw_min=min(good), bw_median=float(
+                   np.median(good)), bw_max=max(good),
+               bw_window=window, flash_max_abs_err=flash_err,
+               ragged_max_abs_err=ragged_err, ragged_tol=ragged_tol,
+               on_disk=on_disk, fresh_process=fresh, fresh_process_s=child_s,
+               kill_switch_defaults=killed,
+               capture_timings=dict(CAPTURE_TIMINGS),
+               train_step_ms_replay=tuned["step_ms_replay"],
+               train_step_ms_median=tuned["step_ms_median"],
+               phase6_step_ms_replay=train["step_ms_replay"],
+               phase6_step_ms_median=train["step_ms_median"])
+    for sw in sweeps:
+        log(f"[autotune] {sw['key']}: candidates (s) {sw['candidates']}, "
+            f"winner {sw['winner']}, probes {sw['bw_probes_bytes_per_s']} "
+            f"(window {sw['bw_window']}), persisted {sw['persisted']}")
+    _check("[autotune]", {
+        "three sweeps from the empty cache (B1, B2, B3)":
+            [sw["key"][0] for sw in sweeps] == ["fwd", "bwd", "ragged"],
+        "every candidate timed (none failed)": all(
+            t is not None for sw in sweeps
+            for t in sw["candidates"].values()),
+        "every winner persisted": all(persisted) and len(on_disk) == 3,
+        "B1 and B2's winners within phase 3's tolerance (_check_flash "
+        "raises otherwise)": bool(flash_err),
+        f"B3's winner within phase 2's limit ({ragged_tol:.3e})":
+            ragged_err <= ragged_tol,
+        "a fresh process reads the winners with no sweep and no timing":
+            fresh["sweeps"] == [] and fresh["timings"] == 0
+            and fresh["libs"] == libs,
+        "PADDLE_TPU_PALLAS_AUTOTUNE=0 restores the defaults":
+            all(killed.values()),
+        "no timing inside a CUDA-graph capture, over the whole run":
+            CAPTURE_TIMINGS["capturing"] == 0},
+        rec)
+    log(f"[autotune] winners (build flags) {libs}; sweeps {sweep_s:.2f} s "
+        f"(builds included); bandwidth probes min {rec['bw_min'] / 1e12:.4f}"
+        f" median {rec['bw_median'] / 1e12:.4f} max "
+        f"{rec['bw_max'] / 1e12:.4f} TB/s (window {window}); fresh process "
+        f"{child_s:.1f} s; gpt2_small step with the winners "
+        f"{tuned['step_ms_replay']:.3f} ms by replay, "
+        f"{tuned['step_ms_median']:.2f} by wall (phase 6: "
+        f"{train['step_ms_replay']:.3f}, {train['step_ms_median']:.2f}); "
+        f"timings {CAPTURE_TIMINGS}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 39: the collectives through NCCL at world size 1
+# ---------------------------------------------------------------------------
+def _collectives_on(dist, grads, rank_major):
+    """Every collective on each of `grads` (a list of CUDA tensors),
+    smallest first, so each op's algorithmic-bandwidth gauge keeps the
+    largest tensor's sample; in rank-major mode each is the world's
+    [1, ...] rank-major tensor. Returns {collective: all results equal
+    their expected values}."""
+    import torch
+    ok = {}
+    grads = sorted(grads, key=lambda g: g.numel())
+    R = dist.ReduceOp
+
+    def each(name, fn):
+        ok[name] = all(fn(g) for g in grads)
+
+    def rm(g):
+        return g[None] if rank_major else g
+
+    def reduced(op):
+        def f(g):
+            t = rm(g).clone()
+            dist.all_reduce(t, op=op)
+            return torch.equal(t, rm(g))
+        return f
+
+    for nm in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+        each(f"all_reduce {nm}", reduced(getattr(R, nm)))
+
+    def reduce(g):
+        t = rm(g).clone()
+        dist.reduce(t, dst=0)
+        return torch.equal(t, rm(g))
+
+    def broadcast(g):
+        t = rm(g).clone()
+        dist.broadcast(t, src=0)
+        return torch.equal(t, rm(g))
+
+    def all_gather(g):
+        parts = []
+        dist.all_gather(parts, rm(g))
+        cat = dist.all_gather(rm(g))
+        # a part is one rank's local tensor
+        return len(parts) == 1 and torch.equal(parts[0], g) \
+            and torch.equal(cat.reshape(rm(g).shape), rm(g))
+
+    def reduce_scatter(g):
+        out = dist.reduce_scatter(rm(g).clone())
+        return torch.equal(out.reshape(rm(g).shape), rm(g))
+
+    def all_to_all(g):
+        return torch.equal(dist.all_to_all(rm(g).clone()), rm(g))
+
+    def scatter(g):
+        t = torch.empty_like(rm(g))
+        dist.scatter(t, [rm(g)[0] if rank_major else rm(g)], src=0)
+        return torch.equal(t, rm(g))
+
+    def p2p(g):
+        if not rank_major:
+            # one rank cannot send to itself over NCCL
+            return True
+        dist.send(rm(g), dst=0)
+        t = torch.empty_like(rm(g))
+        dist.recv(t, src=0)
+        return torch.equal(t, rm(g))
+
+    for f in (reduce, broadcast, all_gather, reduce_scatter, all_to_all,
+              scatter, p2p):
+        each(f.__name__, f)
+    w = dist.all_reduce(rm(grads[-1]).clone(), sync_op=False)
+    ok["async all_reduce"] = w.wait() is True
+    dist.barrier()
+    return ok
+
+
+def collectives_phase() -> dict:
+    """gpt2_small's 148 gradient-sized tensors (~124 M f32) through every
+    collective, eager rank-major at the card's world (1) and per-rank
+    through an NCCL process group of world size 1, each equal to its
+    expected value, the comms series recorded; a DataParallel gpt2_small
+    step bit-equal to the bare step; the group destroyed."""
+    import socket
+
+    import torch
+    import torch.distributed as tdist
+    import paddle_tpu_torch as P
+    import paddle_tpu_torch.distributed as dist
+    import paddle_tpu_torch.observability as obs
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion,
+                                         gpt2_small)
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                     use_flash_attention=True)
+    shapes = [tuple(p.shape) for p in _torch_params(
+        GPTForCausalLM(cfg, device="cuda"))]
+    _fresh_card()
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    grads = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    n_elems = sum(g.numel() for g in grads)
+    dist.destroy_process_group()
+    obs.disable()
+    obs.reset()
+    obs.enable()
+    try:
+        world = dist.get_world_size()
+        t0 = time.perf_counter()
+        rank_major = _collectives_on(dist, grads, rank_major=True)
+        rm_s = time.perf_counter() - t0
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                                 f"{port}", world_size=1, rank=0)
+        g = dist.init_parallel_env()
+        backend = str(tdist.get_backend())
+        t0 = time.perf_counter()
+        per_rank = _collectives_on(dist, grads, rank_major=False)
+        pg_s = time.perf_counter() - t0
+        snap = obs.snapshot()
+
+        def series(name):
+            return {str(k): v for k, v in snap.get(name, {}).get(
+                "series", {}).items()}
+
+        seconds = series("paddle_tpu_collective_seconds")
+        nbytes = series("paddle_tpu_collective_bytes_total")
+        algbw = series("paddle_tpu_collective_algbw_bytes_per_sec")
+        # a DataParallel step against the bare step
+        losses, params = [], []
+        rng = np.random.default_rng(39)
+        ids = rng.integers(0, cfg.vocab_size, (4, 1024)).astype(np.int32)
+        for wrap in (True, False):
+            m = GPTForCausalLM(cfg, device="cuda", seed=0)
+            m.train()
+            net = dist.DataParallel(m) if wrap else m
+            opt = AdamW(learning_rate=1e-4, parameters=net.parameters(),
+                        weight_decay=0.01)
+            x = torch.as_tensor(ids, device="cuda")
+            loss = GPTPretrainingCriterion()(net(x)[:, :-1], x[:, 1:])
+            loss.backward()
+            if wrap:
+                net.apply_collective_grads()
+            opt.step()
+            losses.append(float(loss.detach()))
+            params.append([p.detach().clone() for p in _torch_params(m)])
+            del m, net, opt, loss
+        dp_equal = losses[0] == losses[1] and all(
+            torch.equal(a, b) for a, b in zip(*params))
+        del params
+        dist.destroy_process_group()
+        destroyed = not tdist.is_initialized() and not dist.is_initialized()
+    finally:
+        obs.disable()
+        obs.reset()
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+    del grads
+    _fresh_card()
+    bw = {k: v for k, v in algbw.items() if v}
+    rec = dict(tensors=len(shapes), elements=n_elems, world=world,
+               backend=backend, rank_major=rank_major, per_rank=per_rank,
+               rank_major_s=rm_s, per_rank_s=pg_s,
+               seconds={k: v["sum"] for k, v in seconds.items()},
+               counts={k: v["count"] for k, v in seconds.items()},
+               bytes=nbytes, algbw=bw, card=card_line(),
+               data_parallel_loss=losses[0])
+    _check("[collectives]", {
+        "148 gradient tensors": len(shapes) == 148,
+        "the card's rank-major world is one rank": world == 1,
+        "every collective equals its value, rank-major":
+            all(rank_major.values()),
+        "every collective equals its value through NCCL":
+            all(per_rank.values()) and "nccl" in backend,
+        "comms recorded non-zero bytes, seconds and algorithmic bandwidth":
+            bool(bw) and all(v for v in nbytes.values())
+            and all(v["sum"] > 0 for v in seconds.values()),
+        "a DataParallel step is bit-equal to the bare step": dp_equal,
+        "destroy_process_group ends the group": destroyed}, rec)
+    log(f"[collectives] {len(shapes)} tensors, {n_elems} f32: rank-major "
+        f"{rm_s:.2f} s, NCCL ({backend}) {pg_s:.2f} s; all_reduce algbw "
+        f"{ {k: round(v / 1e9, 2) for k, v in bw.items()} } GB/s on "
+        f"{rec['card']}")
+    return rec
+
+
 PHASE_S = {}
 
 
@@ -10077,6 +10672,14 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
+    # every phase tunes B1, B2 and B3 at its first shape class, from an
+    # empty block-config cache of this run's own under build/
+    import os
+    import shutil
+    cache = os.path.join(_build_dir(), "autotune_smoke")
+    shutil.rmtree(cache, ignore_errors=True)
+    os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+    _count_capture_timings()
     secs = timed("1", build_all)
     log("[build] " + "; ".join(f"{k}: {v:.1f} s" for k, v in secs.items()))
     cases = timed("2", kernel_phase)
@@ -10121,6 +10724,10 @@ def main() -> int:
     opsurf = timed("32", opsurf_phase, eager)
     host_modules = timed("35", host_modules_phase)
     fleet = timed("36", fleet_phase)
+    models_io = timed("37", models_io_phase)
+    tuned = timed("38", autotune_phase, train)
+    collectives = timed("39", collectives_phase)
+    winners = tuned["winners_flags"]
     EAGER_GPT.clear()       # phases 23d and 28 read phase 22's GPT
     runs_17_18 =(("llama13b", train_llama["no_recompute"]),
                   ("llama13b_recompute", train_llama["recompute"]),
@@ -10189,6 +10796,9 @@ def main() -> int:
         # decode replicas' prefix-resume waves over imported pages), 36c's
         # replica processes (the survivor's and the replacement's)
         launches_fleet=fleet["b3_sm90_launches"],
+        # the build variant phase 38 chose at this case's shape class
+        # (its -D flags; none: the source's defaults)
+        variant=winners["B3"],
         cases=cases)]
     t13 = train_1p3b["recompute"]
     for i, (kind, name, line, launches, source) in enumerate((
@@ -10262,6 +10872,7 @@ def main() -> int:
             ms_graph=fmain[f"{kind}_ms_graph"],
             library_ms_graph=fmain[f"library_{kind}_ms_graph"],
             design=fmain[f"{kind}_design"],
+            variant=winners["B1" if kind == "fwd" else "B2"],
             simple_ms=fmain[f"simple_{kind}_ms_graph"],
             # f16 at the same shape (phase 3) and its launches in phase
             # 15's graph steps, counted and on the card
@@ -10366,6 +10977,9 @@ def main() -> int:
     log("[numerics] " + json.dumps(numerics))
     log("[host-modules] " + json.dumps(host_modules))
     log("[fleet] " + json.dumps(fleet, default=str))
+    log("[models-io] " + json.dumps(models_io))
+    log("[autotune] " + json.dumps(tuned))
+    log("[collectives] " + json.dumps(collectives))
     log("[phase-seconds] " + json.dumps(PHASE_S))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -261,9 +261,9 @@ class BatchSampler(Sampler):
 
 class DistributedBatchSampler(BatchSampler):
     """(ref: io/dataloader/batch_sampler.py DistributedBatchSampler):
-    shards sample indices across data-parallel ranks. The port has no
-    ``distributed.get_world_size`` / ``get_rank`` yet, so `num_replicas`
-    and `rank` must be given."""
+    shards sample indices across data-parallel ranks; `num_replicas` and
+    `rank` default to ``distributed.get_world_size()`` and
+    ``get_rank()``."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
@@ -272,10 +272,9 @@ class DistributedBatchSampler(BatchSampler):
         self.shuffle = shuffle
         self.drop_last = drop_last
         if num_replicas is None or rank is None:
-            raise NotImplementedError(
-                "DistributedBatchSampler: pass num_replicas and rank "
-                "(paddle_tpu_torch.distributed has no get_world_size / "
-                "get_rank yet)")
+            from ..distributed import get_rank, get_world_size
+            num_replicas = num_replicas or get_world_size()
+            rank = rank if rank is not None else get_rank()
         self.nranks = num_replicas
         self.local_rank = rank
         self.epoch = 0

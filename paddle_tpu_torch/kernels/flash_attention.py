@@ -50,7 +50,7 @@ from typing import Optional
 import torch
 
 from ..utils.build import load_cuda
-from . import tracing
+from . import autotune, tracing
 
 __all__ = ["flash_attention", "attention_path", "flash_fwd", "flash_bwd"]
 
@@ -268,6 +268,37 @@ def _load_sm90_bwd(extra_flags=()):
     return _SM90_BWD_LIB
 
 
+# the block-config cache (kernels/autotune.py): B1's and B2's sm90 tile
+# knobs per head_dim, and the build variants a sweep times, the
+# sources' own defaults first (the reference's candidates are
+# {block_q, block_k} pairs, flash_attention.py:244-247)
+_FWD_VARIANTS = autotune.BuildVariants(
+    {64: ("FA90_D64_BN", "FA90_D64_STAGES"),
+     128: ("FA90_D128_BN", "FA90_D128_STAGES")},
+    [{64: (64, 3), 128: (64, 3)},
+     {64: (64, 2), 128: (64, 2)},
+     {64: (128, 2), 128: (128, 2)}],
+    lambda flags: _load_sm90(flags))
+_BWD_VARIANTS = autotune.BuildVariants(
+    {64: ("FB90_D64_BQ", "FB90_D64_BN", "FB90_D64_KV_STAGES",
+          "FB90_D64_DQ_STAGES"),
+     128: ("FB90_D128_BQ", "FB90_D128_BN", "FB90_D128_KV_STAGES",
+           "FB90_D128_DQ_STAGES")},
+    [{64: (128, 128, 3, 3), 128: (64, 128, 3, 2)},
+     {64: (128, 128, 2, 2), 128: (64, 128, 2, 2)},
+     {64: (64, 128, 3, 3), 128: (64, 64, 3, 3)}],
+    lambda flags: _load_sm90_bwd(flags))
+
+
+def _tune_key(kind, qs, k, causal, segmented):
+    """The reference's cache key (flash_attention.py:231-232): the shape
+    class without the batch, which only multiplies the grid."""
+    b, sq, h, d = qs.shape
+    return (kind, sq, k.shape[1], h, k.shape[2], d,
+            str(qs.dtype).removeprefix("torch."), int(causal),
+            int(segmented))
+
+
 def _kernel_operand(name, t, dev, dtype, heads, d):
     """t as the kernels read it: on `dev`, of `dtype`, [b, s, heads, d]
     with dense heads and head_dim and 16-byte aligned rows. A view whose
@@ -350,9 +381,7 @@ def _fwd_cuda(qs, k, v, causal, segment_ids, design=None):
     q_seg, kv_seg = _seg_operands(segment_ids, b, sq, sk, dev)
     o = torch.empty((b, sq, h, d), dtype=qs.dtype, device=dev)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    launch = (_load_sm90().flash_fwd_sm90_launch if design == "sm90"
-              else _load_kernel().flash_attention_fwd_launch)
-    rc = launch(
+    args = (
         qs.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if q_seg is None else q_seg.data_ptr(),
         None if kv_seg is None else kv_seg.data_ptr(),
@@ -360,6 +389,13 @@ def _fwd_cuda(qs, k, v, causal, segment_ids, design=None):
         _DTYPE_CODE[qs.dtype], qs.stride(0), qs.stride(1), k.stride(0),
         k.stride(1), v.stride(0), v.stride(1),
         torch.cuda.current_stream(dev).cuda_stream)
+    if design == "sm90":
+        key = _tune_key("fwd", qs, k, causal, q_seg is not None)
+        launch = _FWD_VARIANTS.select(key, d, lambda lib: autotune.time_launch(
+            lib.flash_fwd_sm90_launch, args)).flash_fwd_sm90_launch
+    else:
+        launch = _load_kernel().flash_attention_fwd_launch
+    rc = launch(*args)
     if rc != 0:
         raise RuntimeError(f"flash attention forward kernel ({design}) "
                            f"launch failed: error {rc}")
@@ -412,9 +448,7 @@ def _bwd_cuda(qs, k, v, o, lse, do, causal, segment_ids, sm_scale,
     dq = torch.empty((b, sq, h, d), dtype=qs.dtype, device=dev)
     dk = torch.empty((b, sk, hk, d), dtype=qs.dtype, device=dev)
     dv = torch.empty((b, sk, hk, d), dtype=qs.dtype, device=dev)
-    launch = (_load_sm90_bwd().flash_bwd_sm90_launch if design == "sm90"
-              else _load_kernel().flash_attention_bwd_launch)
-    rc = launch(
+    args = (
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         None if q_seg is None else q_seg.data_ptr(),
@@ -424,6 +458,13 @@ def _bwd_cuda(qs, k, v, o, lse, do, causal, segment_ids, sm_scale,
         qs.stride(0), qs.stride(1), k.stride(0), k.stride(1), v.stride(0),
         v.stride(1), do.stride(0), do.stride(1),
         torch.cuda.current_stream(dev).cuda_stream)
+    if design == "sm90":
+        key = _tune_key("bwd", qs, k, causal, q_seg is not None)
+        launch = _BWD_VARIANTS.select(key, d, lambda lib: autotune.time_launch(
+            lib.flash_bwd_sm90_launch, args)).flash_bwd_sm90_launch
+    else:
+        launch = _load_kernel().flash_attention_bwd_launch
+    rc = launch(*args)
     if rc != 0:
         raise RuntimeError(f"flash attention backward kernel ({design}) "
                            f"launch failed: error {rc}")

@@ -60,6 +60,7 @@ import threading
 import torch
 
 from ..utils.build import load_cuda
+from . import autotune
 
 __all__ = ["ragged_paged_attention", "ragged_attention_path", "ragged_plan"]
 
@@ -291,6 +292,7 @@ def _check_plan(plan, T, B, NB, block_size, with_pool, device):
 
 _LIB = None
 _SM90_LIB = None
+_SM90_STORE = None
 _LIB_LOCK = threading.Lock()
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the Hopper sources' shared helpers, hashed with them
@@ -317,8 +319,14 @@ def _load_sm90(extra_flags=(), store=None):
     """Build and load ragged_paged_attention_sm90.cu (the tiled design),
     its own library, at first use. `extra_flags` (-D ring depths) builds
     and returns a variant without installing it. `store` as in
-    `_load_kernel`."""
-    global _SM90_LIB
+    `_load_kernel`; the last store handed in is kept for the builds of
+    the autotune variants (`_RPA_VARIANTS`), so an engine that loads
+    its libraries from a store finds its variants there too."""
+    global _SM90_LIB, _SM90_STORE
+    if store is not None:
+        _SM90_STORE = store
+    elif extra_flags:
+        store = _SM90_STORE
     with _LIB_LOCK:
         if _SM90_LIB is None or extra_flags:
             lib = load_cuda("ragged_paged_attention_sm90", _SM90_HEADERS,
@@ -330,7 +338,21 @@ def _load_sm90(extra_flags=(), store=None):
             if extra_flags:
                 return lib
             _SM90_LIB = lib
+    if store is not None and not extra_flags and autotune.enabled():
+        # a store-backed engine keeps every build variant in its store,
+        # so a later process loading from that store never runs the
+        # compiler, whichever winner its shape classes meet
+        _RPA_VARIANTS.load_all()
     return _SM90_LIB
+
+
+# the block-config cache (kernels/autotune.py): the tiled design's ring
+# depth per head_dim, and the build variants a sweep times, the
+# source's own defaults first
+_RPA_VARIANTS = autotune.BuildVariants(
+    {64: ("RPA90_D64_STAGES",), 128: ("RPA90_D128_STAGES",)},
+    [{64: (3,), 128: (2,)}, {64: (2,), 128: (3,)}, {64: (4,), 128: (4,)}],
+    lambda flags: _load_sm90(flags))
 
 
 def _shape_reject_reason(T, T_pool, H, Hk, D, block_size, with_pool):
@@ -466,7 +488,7 @@ def _ragged_cuda(q, k_new, v_new, kpool, vpool, rows, pos, kv_start, off,
     stream = torch.cuda.current_stream(dev).cuda_stream
     if design == "sm90":
         tiles = _plan["tiles"]
-        rc = _load_sm90().ragged_paged_attention_sm90_launch(
+        args = (
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             _ptr(kpool) if with_pool else None,
             _ptr(vpool) if with_pool else None,
@@ -477,6 +499,14 @@ def _ragged_cuda(q, k_new, v_new, kpool, vpool, rows, pos, kv_start, off,
             block_size, T_pool // block_size if with_pool else 0,
             int(bool(with_pool)), _DTYPE_CODE[q.dtype], q.stride(0),
             k_new.stride(0), v_new.stride(0), float(scale), stream)
+        # the reference's key (ragged_paged_attention.py:281); the
+        # tiled design never reads an int8 pool
+        key = ("ragged", T, T_pool, H, Hk, D,
+               str(q.dtype).removeprefix("torch."), 0, block_size)
+        rc = _RPA_VARIANTS.select(
+            key, D, lambda lib: autotune.time_launch(
+                lib.ragged_paged_attention_sm90_launch, args)
+        ).ragged_paged_attention_sm90_launch(*args)
     else:
         dq = [None, None]
         if with_pool:

@@ -22,14 +22,15 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-from torch import nn
 
 from ..nn import functional as F
 from ..nn.initializer import Constant, Normal
 from ..nn.layers import (Dropout, Embedding, LayerNorm, Linear,
                          MultiHeadAttention, TransformerEncoder,
                          TransformerEncoderLayer)
+from ..nn.layer import Layer
 from ..nn.layers.common import _drawn, _factory
+from ..ops.registry import eager_method
 
 __all__ = ["BertConfig", "bert_tiny", "bert_base", "BertEmbeddings",
            "BertModel", "BertForMaskedLM"]
@@ -60,7 +61,7 @@ def bert_base(**kw):
     return BertConfig(**kw)
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     """Word + position (+ token-type) embeddings, each drawn from
     Normal(0, initializer_range), then LayerNorm and dropout.
     `init_generator`: the torch.Generator the weights are drawn from
@@ -83,6 +84,7 @@ class BertEmbeddings(nn.Module):
         self.layer_norm = LayerNorm(h, config.layer_norm_eps, **fk)
         self.dropout = Dropout(config.hidden_dropout_prob)
 
+    @eager_method
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[-1],
@@ -94,7 +96,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(x))
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     """Embeddings, a post-LN GELU TransformerEncoder of one layer
     deep-copied ``num_layers`` times, and a tanh pooler over the first
     token. Returns (hidden [b, s, h], pooled [b, h]). Construction as
@@ -117,6 +119,7 @@ class BertModel(nn.Module):
         self.pooler = Linear(config.hidden_size, config.hidden_size,
                              init_generator=init_generator, **fk)
 
+    @eager_method
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         x = self.embeddings(input_ids, token_type_ids)
         if attention_mask is not None:
@@ -128,7 +131,7 @@ class BertModel(nn.Module):
         return x, pooled
 
 
-class BertForMaskedLM(nn.Module):
+class BertForMaskedLM(Layer):
     """BertModel with the MLM head: transform, GELU, LayerNorm, then the
     decoder tied to the word embeddings plus ``decoder_bias``. With
     `labels` ([b, s], -100 where no token is predicted) returns (loss,
@@ -167,7 +170,7 @@ class BertForMaskedLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.decoder_bias.device
+        return self._parameters["decoder_bias"].device
 
     def attention_shape(self) -> dict:
         """The attention a training step runs, for `TrainStep`'s shape
@@ -176,12 +179,14 @@ class BertForMaskedLM(nn.Module):
         return dict(layers=c.num_layers, heads=c.num_heads,
                     head_dim=c.hidden_size // c.num_heads, causal=False)
 
+    @eager_method
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 labels=None):
         hidden, _ = self.bert(input_ids, token_type_ids, attention_mask)
         h = self.transform_norm(F.gelu(self.transform(hidden)))
         w = self.bert.embeddings.word_embeddings.weight._data
-        logits = F.matmul(h, w, transpose_y=True) + self.decoder_bias
+        logits = F.matmul(h, w, transpose_y=True) \
+            + self._parameters["decoder_bias"]
         if labels is not None:
             loss = F.cross_entropy(logits, labels, ignore_index=-100)
             return loss, logits

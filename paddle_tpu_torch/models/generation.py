@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
+from ..core.tensor import Tensor
 from ..incubate.nn.functional import fused_rotary_position_embedding
 from ..jit.cuda_graph import CapturedStep, GraphCache
 from ..nn import functional as F
@@ -281,18 +282,24 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
              seed=None, use_fused_step=True, device=None):
     """Greedy / sampled decode for GPT and LLaMA causal LMs.
 
-    input_ids: [b, prompt_len] ints (array or tensor). Returns a
-    [b, prompt_len + max_new_tokens] int32 tensor (positions after an
-    eos stay eos). use_fused_step=True runs the prefill and each decode
+    input_ids: [b, prompt_len] ints (array, torch tensor or ``Tensor``).
+    Returns a [b, prompt_len + max_new_tokens] int32 tensor (positions
+    after an eos stay eos), a ``Tensor`` for a ``Tensor`` in. use_fused_step=True runs the prefill and each decode
     step as CUDA graphs over a cached static state (`_FusedLoop`, the
     reference's one executable of the whole loop); False keeps the eager
     per-step loop, the conformance oracle. On the CPU both run eagerly
-    and give the same tokens. device: None = the CUDA card; the model
-    must live on the resolved device. seed: the sampling generator's
+    and give the same tokens. device: None = the CUDA card (a
+    ``Tensor``'s own device for a ``Tensor`` in); the model must live on
+    the resolved device. seed: the sampling generator's
     seed; None draws it from the default generator on the device
     (`core.generator`, what `paddle.seed` seeds), as the reference
     splits its global key, so successive calls draw anew. Greedy
     decoding touches no generator."""
+    if isinstance(input_ids, Tensor):
+        return Tensor._wrap(generate(
+            model, input_ids._data, max_new_tokens, do_sample, temperature,
+            top_p, top_k, eos_token_id, seed, use_fused_step,
+            device=input_ids._data.device if device is None else device))
     fwd_fn, emb_dtype = _family(model)
     dev = resolve_device(device)
     if model.device != dev:

@@ -20,7 +20,6 @@ import math
 from dataclasses import dataclass
 
 import torch
-from torch import nn
 
 from ..core.device import resolve_device
 from ..core.dtype import to_dtype
@@ -28,7 +27,9 @@ from ..distributed.meta_parallel import recompute
 from ..incubate.nn.functional import fused_flash_attention
 from ..nn import functional as F
 from ..nn.initializer import Normal
+from ..nn.layer import Layer
 from ..nn.layers import Dropout, Embedding, LayerList, LayerNorm, Linear
+from ..ops.registry import eager_method
 
 __all__ = ["GPTConfig", "gpt_tiny", "gpt2_small", "gpt3_1p3b", "gpt3_6p7b",
            "GPTAttention", "GPTMLP", "GPTDecoderLayer", "GPTEmbeddings",
@@ -103,7 +104,7 @@ def _normal(config: GPTConfig, residual: bool = False) -> Normal:
                   if residual else std)
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     """Causal self-attention with a fused QKV projection. `generator`
     (set by GPTForCausalLM) draws the attention-dropout masks of the
     composite path; the flash path has no attention dropout, as in
@@ -122,21 +123,30 @@ class GPTAttention(nn.Module):
         self.use_flash_attention = config.use_flash_attention
         self.generator = None
 
-    def forward(self, x):
+    @eager_method
+    def forward(self, x, cache=None):
+        """`cache`: (k, v) [b, past, h, d] of the earlier positions, or
+        None; with one, returns (out, (k, v) with this call's appended),
+        as paddle_tpu models/gpt.py:103-121."""
         b, s, _ = x.shape
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
         q, k, v = qkv.unbind(dim=2)                      # [b, s, h, d]
+        if cache is not None:
+            k = torch.cat([cache[0].to(k.dtype), k], dim=1)
+            v = torch.cat([cache[1].to(v.dtype), v], dim=1)
+            cache = (k, v)
         if self.use_flash_attention:
             out = fused_flash_attention(q, k, v, causal=True)
         else:
             out = F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, dropout_p=self.attn_dropout_prob,
                 training=self.training, generator=self.generator)
-        return self.out_proj(out.reshape(b, s, self.hidden_size))
+        out = self.out_proj(out.reshape(b, s, self.hidden_size))
+        return (out, cache) if cache is not None else out
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     def __init__(self, config: GPTConfig, **fk):
         super().__init__()
         self.fc1 = Linear(config.hidden_size, config.intermediate_size,
@@ -144,11 +154,12 @@ class GPTMLP(nn.Module):
         self.fc2 = Linear(config.intermediate_size, config.hidden_size,
                           _normal(config, residual=True), **fk)
 
+    @eager_method
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate=True))
 
 
-class GPTDecoderLayer(nn.Module):
+class GPTDecoderLayer(Layer):
     """Pre-norm decoder block."""
 
     def __init__(self, config: GPTConfig, **fk):
@@ -159,12 +170,19 @@ class GPTDecoderLayer(nn.Module):
         self.mlp = GPTMLP(config, **fk)
         self.dropout = Dropout(config.hidden_dropout_prob)
 
-    def forward(self, x):
-        x = x + self.dropout(self.attn(self.ln1(x)))
-        return x + self.dropout(self.mlp(self.ln2(x)))
+    @eager_method
+    def forward(self, x, cache=None):
+        h = self.ln1(x)
+        if cache is not None:
+            h, cache = self.attn(h, cache)
+        else:
+            h = self.attn(h)
+        x = x + self.dropout(h)
+        x = x + self.dropout(self.mlp(self.ln2(x)))
+        return (x, cache) if cache is not None else x
 
 
-class GPTEmbeddings(nn.Module):
+class GPTEmbeddings(Layer):
     def __init__(self, config: GPTConfig, **fk):
         super().__init__()
         self.word_embeddings = Embedding(config.vocab_size,
@@ -175,6 +193,7 @@ class GPTEmbeddings(nn.Module):
             weight_attr=_normal(config), **fk)
         self.dropout = Dropout(config.hidden_dropout_prob)
 
+    @eager_method
     def forward(self, input_ids, position_ids=None):
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[-1],
@@ -184,7 +203,7 @@ class GPTEmbeddings(nn.Module):
         return self.dropout(x)
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, config: GPTConfig, **fk):
         super().__init__()
         self.config = config
@@ -194,9 +213,24 @@ class GPTModel(nn.Module):
         self.final_norm = LayerNorm(config.hidden_size,
                                     config.layer_norm_eps, **fk)
 
-    def forward(self, input_ids, position_ids=None):
+    @eager_method
+    def forward(self, input_ids, position_ids=None, caches=None):
+        """`caches`: one (k, v) a layer, as GPTAttention takes, or None;
+        with them, returns (hidden, new caches), and positions default
+        to those after the cached prefix (paddle_tpu models/gpt.py:189-
+        221)."""
+        if position_ids is None and caches is not None:
+            past = caches[0][0].shape[1]
+            position_ids = torch.arange(past, past + input_ids.shape[-1],
+                                        device=input_ids.device)
         x = self.embeddings(input_ids, position_ids)
         cfg = self.config
+        if caches is not None:
+            new_caches = []
+            for layer, cache in zip(self.layers, caches):
+                x, cache = layer(x, cache)
+                new_caches.append(cache)
+            return self.final_norm(x), new_caches
         remat = cfg.recompute and self.training
         pol = cfg.recompute_policy
         for i, layer in enumerate(self.layers):
@@ -209,7 +243,7 @@ class GPTModel(nn.Module):
         return self.final_norm(x)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """GPT with a (tied) LM head producing [b, s, vocab] logits.
 
     device: None = the CUDA card (raises without one), or "cpu" by
@@ -257,15 +291,26 @@ class GPTForCausalLM(nn.Module):
             return F.matmul(hidden, w, transpose_y=True)
         return self.lm_head(hidden)
 
-    def forward(self, input_ids, position_ids=None):
+    def generate(self, input_ids, **kwargs):
+        """Decode after `input_ids` (models/generation.py's `generate`,
+        paddle_tpu models/gpt.py:226-229)."""
+        from .generation import generate
+        return generate(self, input_ids, **kwargs)
+
+    @eager_method
+    def forward(self, input_ids, position_ids=None, caches=None):
+        if caches is not None:
+            hidden, caches = self.gpt(input_ids, position_ids, caches)
+            return self.lm_logits(hidden), caches
         return self.lm_logits(self.gpt(input_ids, position_ids))
 
 
-class GPTPretrainingCriterion(nn.Module):
+class GPTPretrainingCriterion(Layer):
     """Next-token cross-entropy (labels = input shifted by the caller),
     paddle_tpu models/gpt.py:261: the mean over tokens, or the
     loss_mask-weighted mean."""
 
+    @eager_method
     def forward(self, logits, labels, loss_mask=None):
         loss = F.cross_entropy(logits, labels, reduction="none")
         if loss_mask is not None:

@@ -21,7 +21,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-from torch import nn
 
 from ..core.device import resolve_device
 from ..core.dtype import to_dtype
@@ -29,7 +28,9 @@ from ..incubate.nn.functional import (fused_flash_attention,
                                       fused_rotary_position_embedding)
 from ..nn import functional as F
 from ..nn.initializer import Normal
+from ..nn.layer import Layer
 from ..nn.layers import Embedding, LayerList, Linear, RMSNorm
+from ..ops.registry import eager_method
 
 __all__ = ["LlamaConfig", "llama_tiny", "llama2_7b", "llama2_13b",
            "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer", "LlamaModel",
@@ -92,7 +93,7 @@ def _normal(config: LlamaConfig) -> Normal:
     return Normal(0.0, config.initializer_range)
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, config: LlamaConfig, **fk):
         super().__init__()
         self.num_heads = config.num_heads
@@ -108,6 +109,7 @@ class LlamaAttention(nn.Module):
         self.o_proj = Linear(h, h, w, bias_attr=False, **fk)
         self.use_flash_attention = config.use_flash_attention
 
+    @eager_method
     def forward(self, x, rope_cos_sin=None):
         b, s, _ = x.shape
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
@@ -130,7 +132,7 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out.reshape(b, s, self.hidden_size))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     """SwiGLU: down(silu(gate(x)) * up(x))."""
 
     def __init__(self, config: LlamaConfig, **fk):
@@ -141,11 +143,12 @@ class LlamaMLP(nn.Module):
         self.up_proj = Linear(h, i, w, bias_attr=False, **fk)
         self.down_proj = Linear(i, h, w, bias_attr=False, **fk)
 
+    @eager_method
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, config: LlamaConfig, **fk):
         super().__init__()
         self.input_layernorm = RMSNorm(config.hidden_size,
@@ -155,12 +158,13 @@ class LlamaDecoderLayer(nn.Module):
             config.hidden_size, epsilon=config.rms_norm_eps, **fk)
         self.mlp = LlamaMLP(config, **fk)
 
+    @eager_method
     def forward(self, x, rope_cos_sin=None):
         x = x + self.self_attn(self.input_layernorm(x), rope_cos_sin)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     def __init__(self, config: LlamaConfig, **fk):
         super().__init__()
         self.config = config
@@ -172,6 +176,7 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
                             **fk)
 
+    @eager_method
     def forward(self, input_ids):
         x = self.embed_tokens(input_ids)
         # the rope tables are shared by every layer: built once
@@ -183,7 +188,7 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(Layer):
     """LLaMA with an untied LM head producing [b, s, vocab] logits.
 
     device: None = the CUDA card (raises without one), or "cpu" by
@@ -216,5 +221,6 @@ class LlamaForCausalLM(nn.Module):
         return dict(layers=c.num_layers, heads=c.num_heads,
                     head_dim=c.hidden_size // c.num_heads, causal=True)
 
+    @eager_method
     def forward(self, input_ids):
         return self.lm_head(self.llama(input_ids))

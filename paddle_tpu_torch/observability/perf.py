@@ -48,7 +48,8 @@ __all__ = [
     "observe_roofline",
     "family_records", "reset_window", "device_peaks",
     "set_device_peaks", "interconnect_peaks", "set_interconnect_peaks",
-    "lookup", "PEAK_BF16_FLOPS", "HBM_BYTES_PER_SEC", "ICI_BYTES_PER_SEC",
+    "lookup", "PEAK_BF16_FLOPS", "HBM_BYTES_PER_SEC", "VALIDATED_BW_WINDOW",
+    "ICI_BYTES_PER_SEC",
     "DCN_BYTES_PER_SEC", "DISPATCH_GAP_BUCKETS",
 ]
 
@@ -69,6 +70,19 @@ PEAK_BF16_FLOPS = {
 HBM_BYTES_PER_SEC = {
     # HBM3 bandwidth (spec)
     "h100": 3.35e12,
+}
+
+# the card's measured effective bandwidth window (bytes/s): the range
+# in which kernels/autotune.py accepts a sweep's timings. Its probe is
+# autotune.measure_effective_bw (4 passes of a + 1.0 over 64 MiB of f32
+# into one output, read and write counted). On "NVIDIA H100 80GB HBM3"
+# at 700.00 W it read 2.49-2.82 TB/s (median 2.78) in a fresh process
+# and 2.22-2.41 TB/s in chip_smoke.py's, after its training phases
+# (phase 38); the window takes 1.8 TB/s (~19 % below the lowest
+# reading) up to the card's 3.35 TB/s data-sheet rate. A card without
+# an entry tunes unvalidated, as in the reference.
+VALIDATED_BW_WINDOW: Dict[str, Tuple[float, float]] = {
+    "h100": (1.8e12, 3.35e12),
 }
 
 # the card's aggregate ONE-WAY interconnect bandwidth (spec), under the

@@ -55,8 +55,8 @@ from ..core.flags import define_flag
 from ..core.generator import torch_generator
 from ..core.tensor import NARROW, Tensor
 
-__all__ = ["OPS", "OpDef", "register_op", "eager_function", "get_op",
-           "dispatch", "dispatch_count"]
+__all__ = ["OPS", "OpDef", "register_op", "eager_function", "eager_method",
+           "get_op", "dispatch", "dispatch_count"]
 
 define_flag("FLAGS_check_nan_inf", False,
             "post-op NaN/Inf sanitizer: an eager op whose float output "
@@ -292,6 +292,27 @@ def eager_function(random=False):
                               random=random))
 
     return deco
+
+
+def eager_method(fn: Callable):
+    """Make a model's ``forward`` (or another entry point over torch
+    tensors) take Tensors: a call that holds a Tensor, in its positional
+    or keyword arguments or in a list or tuple of them, is dispatched as
+    an ``eager_function`` call (Tensors unwrapped, the outputs wrapped,
+    no input cast: the body applies AMP itself); any other call, torch
+    tensors from the engine or ``TrainStep`` included, runs the function
+    directly, with no wrap."""
+    opdef = OpDef(fn.__qualname__, fn, amp_in_fn=True)
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if _holds_tensor(args) or (kwargs and _holds_tensor(
+                kwargs.values())):
+            return dispatch(opdef, args, kwargs)
+        return fn(*args, **kwargs)
+
+    wrapper.raw_fn = fn
+    return wrapper
 
 
 def get_op(name: str) -> OpDef:

@@ -417,6 +417,17 @@ class Optimizer:
 
     clear_gradients = clear_grad
 
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """``loss.backward()``, ``step()``, ``clear_grad()``; returns
+        (None, None). `startup_program`, `parameters` and `no_grad_set`
+        are taken and not read, as in the reference (:473-478). `loss`
+        is a Tensor or a torch tensor."""
+        loss.backward()
+        self.step()
+        self.clear_grad()
+        return None, None
+
     def functional_update(self, params_flat, grads_flat, states, lr):
         """params/grads: flat lists of tensors; states: list of dicts; lr
         an f32 scalar tensor. Returns (new_params, new_states) without

@@ -2,7 +2,7 @@
 GoogLeNet and InceptionV3 (counterpart of
 paddle_tpu/vision/models/extra.py). Names follow the reference so its
 state_dicts load name for name (``convert.vision_params_from_numpy``);
-every model is NCHW, a torch ``nn.Module`` of the port's layers built
+every model is NCHW, a ``Layer`` of the port's layers built
 on `device` (None: the CUDA card) in `dtype`, its weights drawn from a
 ``torch.Generator`` seeded with `seed`."""
 from __future__ import annotations
@@ -11,6 +11,7 @@ from torch import nn
 
 from ... import ops
 from ...nn import functional as F
+from ...nn.layer import Layer
 from ...nn.layers import (BatchNorm2D, Conv2D, Dropout, Hardswish, Linear,
                           MaxPool2D, ReLU, Sequential)
 from .lenet_vgg_mobilenet import _keywords, _no_pretrained
@@ -62,7 +63,7 @@ class _Transition(nn.Module):
         return F.avg_pool2d(self.conv(F.relu(self.norm(x))), 2, 2)
 
 
-class DenseNet(nn.Module):
+class DenseNet(Layer):
     """The 121 / 161 / 169 / 201 / 264 configurations."""
 
     _cfgs = {121: (64, 32, (6, 12, 24, 16)),
@@ -140,7 +141,7 @@ class _Fire(nn.Module):
                            F.relu(self.expand3(s))], axis=1)
 
 
-class SqueezeNet(nn.Module):
+class SqueezeNet(Layer):
     """The 1.0 and 1.1 variants."""
 
     def __init__(self, version="1.0", num_classes=1000, with_pool=True, *,
@@ -195,7 +196,7 @@ def squeezenet1_1(pretrained=False, **kw):
 
 
 # ======================= MobileNetV1 =======================
-class MobileNetV1(nn.Module):
+class MobileNetV1(Layer):
     """Depthwise-separable stacks."""
 
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True, *,
@@ -267,7 +268,7 @@ class _MBV3Block(nn.Module):
         return x + out if self.use_res else out
 
 
-class MobileNetV3(nn.Module):
+class MobileNetV3(Layer):
     """The small and large configurations."""
 
     _small = [  # k, exp, cout, se, act, stride
@@ -378,7 +379,7 @@ class _ShuffleUnit(nn.Module):
         return _channel_shuffle(out, 2)
 
 
-class ShuffleNetV2(nn.Module):
+class ShuffleNetV2(Layer):
     _stage_out = {0.25: (24, 24, 48, 96, 512),
                   0.33: (24, 32, 64, 128, 512),
                   0.5: (24, 48, 96, 192, 1024),
@@ -451,7 +452,7 @@ class _InceptionA(nn.Module):
                            self.bp(pooled)], axis=1)
 
 
-class GoogLeNet(nn.Module):
+class GoogLeNet(Layer):
     def __init__(self, num_classes=1000, with_pool=True, *, device=None,
                  dtype="float32", seed: int = 0):
         super().__init__()
@@ -548,7 +549,7 @@ class _InceptionV3C(nn.Module):
                            self.bp(p)], axis=1)
 
 
-class InceptionV3(nn.Module):
+class InceptionV3(Layer):
     """The 299x299 v3 trunk: the A (35x35), reduction and C (17x17)
     stages and the reference's simplified final stage (dense 3x3s)."""
 

@@ -3,7 +3,7 @@ paddle_tpu/vision/models/lenet_vgg_mobilenet.py). Module and parameter
 names, shapes and buffers are the reference's, so its state_dict loads
 name for name (``convert.vision_params_from_numpy``).
 
-As the ResNets, each model is a torch ``nn.Module`` of the port's
+As the ResNets, each model is a ``Layer`` of the port's
 layers, built on `device` (None: the CUDA card, raising without one) in
 `dtype`, its weights drawn by the reference's initializers from a
 ``torch.Generator`` seeded with `seed`."""
@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ...nn import functional as F
+from ...nn.layer import Layer
 from ...nn.layers import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout,
                           Linear, MaxPool2D, ReLU, ReLU6, Sequential)
 from ...nn.layers.common import _factory
@@ -30,7 +31,7 @@ def _keywords(device, dtype, seed):
     return dict(fk, init_generator=gen)
 
 
-class LeNet(nn.Module):
+class LeNet(Layer):
     def __init__(self, num_classes=10, *, device=None, dtype="float32",
                  seed: int = 0):
         super().__init__()
@@ -49,7 +50,7 @@ class LeNet(nn.Module):
         return self.fc(F.flatten(x, 1))
 
 
-class AlexNet(nn.Module):
+class AlexNet(Layer):
     def __init__(self, num_classes=1000, *, device=None, dtype="float32",
                  seed: int = 0):
         super().__init__()
@@ -90,7 +91,7 @@ _VGG_CFG = {
 }
 
 
-class VGG(nn.Module):
+class VGG(Layer):
     """`features` a Sequential of the convolutions (``_make_vgg_layers``
     builds the four configurations); the classifier draws from `seed`
     after it."""
@@ -177,7 +178,7 @@ class _InvertedResidual(nn.Module):
         return self.conv(x)
 
 
-class MobileNetV2(nn.Module):
+class MobileNetV2(Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True, *,
                  device=None, dtype="float32", seed: int = 0):
         super().__init__()

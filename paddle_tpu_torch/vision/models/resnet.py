@@ -14,7 +14,7 @@ identical 4x4/s1 convolution of the image's 2x2 pixel blocks over 12
 channels, transforming the standard [64, 3, 7, 7] ``conv1.weight`` at
 every call, so gradients reach that weight.
 
-Entry points build the model on `device` (None: the CUDA card, raising
+Each model is a ``Layer``. Entry points build the model on `device` (None: the CUDA card, raising
 without one) in `dtype`, drawing every weight from a
 ``torch.Generator`` seeded with `seed` by the reference's initializers
 (the conv layers' KaimingUniform, batch norm 1 and 0, the fc's
@@ -22,9 +22,9 @@ XavierUniform and zero bias)."""
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ...nn import functional as F
+from ...nn.layer import Layer
 from ...nn.layers import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                           MaxPool2D, ReLU, Sequential)
 from ...nn.layers.common import _factory
@@ -49,7 +49,7 @@ def _norm(norm_layer, ch, df, fk):
     return norm_layer(ch, data_format=df)
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -76,7 +76,7 @@ class BasicBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -108,7 +108,7 @@ class BottleneckBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, data_format="NCHW",
                  space_to_depth_stem=False, *, device=None, dtype="float32",

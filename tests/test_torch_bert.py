@@ -23,6 +23,7 @@ from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.nn.layers import Dropout, MultiHeadAttention
 from paddle_tpu_torch.optimizer import AdamW
 from torch_port_helpers import jax_state_numpy
+from torch_port_helpers import tnamed, tparams, tstate
 
 NO_DROPOUT = dict(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
 BATCH, SEQ, LR, STEPS = 2, 64, 1e-3, 3
@@ -111,7 +112,7 @@ def test_loss_logits_and_gradients_match_reference(amp_on, types, mask):
     assert np.abs(got_l - want_l).max() <= \
         LOGIT_TOL[amp_on] * np.abs(want_l).max()
     jg = _grads(jm.named_parameters(), port=False)
-    tg = _grads(tm.named_parameters(), port=True)
+    tg = _grads(tnamed(tm), port=True)
     assert list(jg) == list(tg)
     # the pooler never reaches the MLM loss, nor the token-type table
     # without token types: no gradient on either side
@@ -144,7 +145,7 @@ def _train(pkg, init, amp_on, ids, labels):
                                       device="cpu")
         model.load_state_dict(bert_params_from_numpy(init))
         model.train()
-        opt = AdamW(learning_rate=LR, parameters=model.named_parameters())
+        opt = AdamW(learning_rate=LR, parameters=tnamed(model))
         amp, step_cls = ptt.amp, ptt.TrainStep
 
     def loss_fn(m, ids, labels):
@@ -156,7 +157,7 @@ def _train(pkg, init, amp_on, ids, labels):
     losses = [float(np.asarray(step(ids, labels))) for _ in range(STEPS)]
     step.sync()
     state = jax_state_numpy(model) if pkg == "ref" else {
-        k: v.detach().numpy() for k, v in model.state_dict().items()}
+        k: v.detach().numpy() for k, v in tstate(model).items()}
     return losses, state
 
 
@@ -277,7 +278,7 @@ def test_parameter_count_of_bert_base():
     assert formula(tbert.bert_base()) == formula(jbert.bert_base()) \
         == 110_104_890
     tm = tbert.BertForMaskedLM(tbert.bert_base(), device="cpu")
-    assert sum(p.numel() for p in tm.parameters()) == 110_104_890
+    assert sum(p.numel() for p in tparams(tm)) == 110_104_890
 
 
 def test_bert_needs_cuda_unless_cpu_requested():

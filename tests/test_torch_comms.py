@@ -1,9 +1,9 @@
 """The port's collective observability (paddle_tpu_torch.observability.
 comms and perf's interconnect tables) against the reference's, the parts
-of tests/test_comms_obs.py that need no collective: the port has none yet
-(ROADMAP item 26 brings them and their calls of start/finish), so these
-tests drive start/finish/count directly on both sides, as the
-reference's sync collectives do. Counts, label sets, trace events and
+of tests/test_comms_obs.py that need no collective: these tests drive
+start/finish/count directly on both sides, as the reference's sync
+collectives do (the collectives' own recording is
+tests/test_torch_distributed.py's). Counts, label sets, trace events and
 ledger records are equal; durations are never compared, only bounded
 where a fault point injects a delay."""
 import time
@@ -34,6 +34,11 @@ SERIES = ("paddle_tpu_collective_seconds",
 
 @pytest.fixture(autouse=True)
 def _clean():
+    # each side's per-(op, group) arrival counter survives obs.reset() by
+    # design; other files in this process (the reference's
+    # tests/test_comms_obs.py) count from where they find it, so it is
+    # put back after each test
+    seqs = [(c._SEQ, dict(c._SEQ)) for _o, c, _p, _f in SIDES.values()]
     for obs, _c, perf, faults in SIDES.values():
         obs.disable()
         obs.reset()
@@ -46,6 +51,9 @@ def _clean():
         perf.set_interconnect_peaks()
         obs.disable()
         obs.reset()
+    for seq, saved in seqs:
+        seq.clear()
+        seq.update(saved)
 
 
 def _out(side):

@@ -28,6 +28,7 @@ from paddle_tpu_torch.models import (GPTForCausalLM, GPTPretrainingCriterion,
                                      gpt_tiny)
 from paddle_tpu_torch.optimizer import AdamW
 from torch_port_helpers import cpu_place, eager_gpt_steps
+from torch_port_helpers import tparams, tstate
 
 LR = 1e-3
 STEPS = 3
@@ -45,7 +46,7 @@ def _setup(seed=0):
     cfg = gpt_tiny(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
     model = GPTForCausalLM(cfg, device="cpu", seed=seed)
     weights = {k: v.detach().numpy().copy()
-               for k, v in model.state_dict().items()}
+               for k, v in tstate(model).items()}
     rng = np.random.default_rng(seed)
     batches = [(rng.integers(0, cfg.vocab_size, (2, 32)),
                 rng.integers(0, cfg.vocab_size, (2, 32)))
@@ -85,7 +86,7 @@ def test_eager_script_equals_the_ports_model(amp):
                                        cfg.num_layers, cfg.num_heads, lr=LR,
                                        amp=amp)
         crit = GPTPretrainingCriterion()
-        opt = AdamW(learning_rate=LR, parameters=model.parameters(),
+        opt = AdamW(learning_rate=LR, parameters=tparams(model),
                     weight_decay=0.01)
         want_l = []
         for ids, labels in batches:
@@ -99,7 +100,7 @@ def test_eager_script_equals_the_ports_model(amp):
     finally:
         torch.set_num_threads(threads)
     assert got_l == want_l
-    state = model.state_dict()
+    state = tstate(model)
     for k in weights:
         torch.testing.assert_close(got_p[k]._data, state[k], rtol=0, atol=0)
 

@@ -21,6 +21,7 @@ from paddle_tpu_torch.models import GPTPretrainingCriterion
 from paddle_tpu_torch.optimizer import AdamW
 from test_torch_eager_gpt import LR, TOLS, _np, _setup
 from torch_port_helpers import cpu_place, eager_gpt_steps
+from torch_port_helpers import tparams, tstate
 
 
 @pytest.fixture(autouse=True)
@@ -68,7 +69,7 @@ def test_layer_script_equals_the_ports_model(amp, one_thread):
     dict_l, dict_p = eager_gpt_steps(ptt, weights, batches, cfg.num_layers,
                                      cfg.num_heads, lr=LR, amp=amp)
     crit = GPTPretrainingCriterion()
-    opt = AdamW(learning_rate=LR, parameters=model.parameters(),
+    opt = AdamW(learning_rate=LR, parameters=tparams(model),
                 weight_decay=0.01)
     want_l = []
     for ids, labels in batches:
@@ -80,7 +81,7 @@ def test_layer_script_equals_the_ports_model(amp, one_thread):
         opt.clear_grad()
         want_l.append(float(loss))
     assert got_l == want_l == dict_l
-    state, got = model.state_dict(), got_m.state_dict()
+    state, got = tstate(model), got_m.state_dict()
     for k in weights:
         torch.testing.assert_close(got[k]._data, state[k], rtol=0, atol=0)
         torch.testing.assert_close(dict_p[k]._data, state[k], rtol=0,

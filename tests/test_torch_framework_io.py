@@ -18,6 +18,7 @@ import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.resilience import faults
 from torch_port_helpers import cpu_place
+from torch_port_helpers import tstate
 
 
 @pytest.fixture(autouse=True)
@@ -95,7 +96,7 @@ def test_torch_state_dicts_are_written_in_the_reference_form(tmp_path):
     has none); the reference loads them as Tensors."""
     from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
     model = GPTForCausalLM(gpt_tiny(), device="cpu")
-    sd = model.state_dict()
+    sd = tstate(model)
     ours, theirs = str(tmp_path / "port.pdparams"), str(tmp_path / "ref")
     ptt.save(sd, ours)
     pt.save({k: pt.to_tensor(v.numpy()) for k, v in sd.items()}, theirs)

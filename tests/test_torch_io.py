@@ -416,8 +416,16 @@ def test_distributed_batch_sampler_equals_the_reference(
 
 
 def test_distributed_batch_sampler_needs_replicas_and_rank():
-    with pytest.raises(NotImplementedError, match="num_replicas and rank"):
-        tio.DistributedBatchSampler(_Len(4), 2)
+    """Without num_replicas and rank the sampler takes
+    distributed.get_world_size() and get_rank(), as the reference's
+    does: the world of 8 CPU ranks here (the reference's 8 host devices,
+    the port's rule for the CPU world), rank 0."""
+    from paddle_tpu_torch import distributed as tdist
+    want = pt.io.DistributedBatchSampler(_Len(20), 2)
+    got = tio.DistributedBatchSampler(_Len(20), 2)
+    assert (got.nranks, got.local_rank) == (want.nranks, want.local_rank) \
+        == (tdist.get_world_size(), tdist.get_rank()) == (8, 0)
+    assert list(got) == list(want) and len(got) == len(want)
 
 
 @pytest.mark.parametrize("lengths", [[3, 7], [0.5, 0.3, 0.2]])

@@ -31,6 +31,7 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layers import Linear
 from paddle_tpu_torch.optimizer import AdamW
 from torch_port_helpers import jax_state_numpy, twin_llamas
+from torch_port_helpers import tnamed, tparams, tstate
 
 LR, STEPS = 1e-3, 3
 # (twin_llamas config, use_flash_attention, seq)
@@ -94,7 +95,7 @@ def _port_loss(m, ids, amp_on):
 def _port_grads(model, ids, amp_on):
     """(loss, [gradient of each parameter, in order]) of one backward."""
     loss = _port_loss(model, torch.as_tensor(ids), amp_on)
-    params = list(model.parameters())
+    params = list(tparams(model))
     return loss.detach(), torch.autograd.grad(loss, params)
 
 
@@ -118,7 +119,7 @@ def test_loss_and_gradients_match_reference(case, amp_on):
     np.testing.assert_allclose(float(loss), float(jloss.numpy()),
                                **LOSS_TOL[amp_on])
     named = dict(jm.named_parameters())
-    names = [n for n, _ in tm.named_parameters()]
+    names = [n for n, _ in tnamed(tm)]
     assert sorted(names) == sorted(named)
     for n, g in zip(names, grads):
         w = np.asarray(named[n].grad.numpy(), np.float32)
@@ -147,10 +148,10 @@ def test_train_steps_match_reference(case, amp_on):
     jstep.sync()
     want = jax_state_numpy(jm)
     tstep = ptt.TrainStep(tm, AdamW(learning_rate=LR, weight_decay=0.01,
-                                    parameters=tm.named_parameters()),
+                                    parameters=tnamed(tm)),
                           lambda m, i: _port_loss(m, i, amp_on))
     got_losses = [float(tstep(ids)) for _ in range(STEPS)]
-    got = {k: v.detach().numpy() for k, v in tm.state_dict().items()}
+    got = {k: v.detach().numpy() for k, v in tstate(tm).items()}
     assert all(np.isfinite(got_losses))
     np.testing.assert_allclose(got_losses, want_losses, **LOSS_TOL[amp_on])
     assert sorted(got) == sorted(want)
@@ -228,7 +229,7 @@ def test_llama2_13b_parameter_count():
     meta = {"device": torch.device("meta"), "dtype": torch.float32}
     model = tllama.LlamaModel(cfg, **meta)
     head = Linear(cfg.hidden_size, cfg.vocab_size, bias_attr=False, **meta)
-    count = sum(p.numel() for p in model.parameters()) + \
+    count = sum(p.numel() for p in tparams(model)) + \
         head.weight._data.numel()
     assert count == formula(cfg) == formula(dataclasses.replace(
         jllama.llama2_13b(), num_layers=4)) == 1_596_503_040

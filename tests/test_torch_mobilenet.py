@@ -35,6 +35,7 @@ import paddle_tpu_torch.nn.functional as TF
 import paddle_tpu_torch.optimizer as topt
 from torch_port_helpers import (reference_stages, stage_grads, twin_models,
                                 zero_filled_reference_init)
+from torch_port_helpers import tbuffers, tnamed, tnamed_buffers, tparams
 
 CLASSES, BATCH, HW = 10, 2, 64
 
@@ -87,14 +88,14 @@ def _batch(seed=0):
 
 def _buffers(m, port):
     if port:
-        return {n: b.double().numpy() for n, b in m.named_buffers()}
+        return {n: b.double().numpy() for n, b in tnamed_buffers(m)}
     return {n: np.asarray(b._data, np.float64) for n, b in m.named_buffers()}
 
 
 def test_train_loss_statistics_and_stage_gradients(twins):
     jm, tm = twins()
     x, y = _batch()
-    start = [b.clone() for b in tm.buffers()]
+    start = [b.clone() for b in tbuffers(tm)]
     jl, ref_stages, jg = reference_stages(jm, x, y,
                                           stages_of=mobilenet_stages)
     tl = TF.cross_entropy(tm(torch.from_numpy(x)), torch.from_numpy(y))
@@ -111,9 +112,9 @@ def test_train_loss_statistics_and_stage_gradients(twins):
             err = np.abs(tb[n] - jb[n]).max() / sd
         assert err <= 5e-5, (n, err)
     with torch.no_grad():
-        for b, b0 in zip(tm.buffers(), start):
+        for b, b0 in zip(tbuffers(tm), start):
             b.copy_(b0)
-    names = [n for n, _ in tm.named_parameters()]
+    names = [n for n, _ in tnamed(tm)]
     got = stage_grads(tm, ref_stages, y, stages_of=mobilenet_stages,
                       stage_of=mobilenet_stage_of)
     assert sum(len(g) for _, g in got.values()) == len(names) + len(got)
@@ -159,15 +160,15 @@ def test_train_step_momentum_matches_reference(twins):
         return TF.cross_entropy(m(x), y)
 
     jstep = JTrainStep(jm, _momentum(jm.parameters(), False), jloss)
-    topt_ = _momentum(tm.parameters(), True)
+    topt_ = _momentum(tparams(tm), True)
     tstep = ptt.TrainStep(tm, topt_, tloss)
-    assert jstep._pnames == [n for n, _ in tm.named_parameters()]
+    assert jstep._pnames == [n for n, _ in tnamed(tm)]
     for seed in range(3):
         x, y = _batch(seed)
         start = [np.asarray(a, np.float64) for a in jstep.params]
         if seed:
             with torch.no_grad():
-                for p, a, st in zip(tm.parameters(), jstep.params,
+                for p, a, st in zip(tparams(tm), jstep.params,
                                     jstep.opt_states):
                     p.copy_(torch.from_numpy(np.asarray(a)))
                     topt_._accumulators[id(p)]["velocity"].copy_(
@@ -177,7 +178,7 @@ def test_train_step_momentum_matches_reference(twins):
         refs = [np.asarray(a, np.float64) - a0
                 for a, a0 in zip(jstep.params, start)]
         gots = [p.detach().double().numpy() - a0
-                for p, a0 in zip(tm.parameters(), start)]
+                for p, a0 in zip(tparams(tm), start)]
         floor = 1e-2 * max(np.linalg.norm(r) for r in refs)
         for n, got, ref in zip(jstep._pnames, gots, refs):
             far = np.linalg.norm(got - ref) / max(np.linalg.norm(ref), floor)

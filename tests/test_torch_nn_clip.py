@@ -228,22 +228,21 @@ PORTED_MODULES = {
         "paddle_tpu_torch.inference.exec_cache", set()),
     "paddle_tpu.distributed.rpc": ("paddle_tpu_torch.distributed.rpc",
                                    set()),
-    # distributed, touched for rpc: the collectives, parallel, fleet,
-    # sharding and the rest are ROADMAP Queue A item 26
+    # distributed: rpc, the collectives, parallel and topology (ROADMAP
+    # item 26a); fleet, auto_parallel, sharding, checkpoint and ps are
+    # items 26b-e
     "paddle_tpu.distributed": ("paddle_tpu_torch.distributed", {
-        "CommunicateTopology", "DataParallel", "DistModel", "Group",
-        "HybridCommunicateGroup", "P2POp", "ParallelEnv", "Partial",
-        "ProcessMesh", "ReduceOp", "Replicate", "Shard", "ShardingStage1",
-        "ShardingStage2", "ShardingStage3", "Work", "all_gather",
-        "all_reduce", "all_to_all", "alltoall", "auto_parallel", "barrier",
-        "batch_isend_irecv", "broadcast", "checkpoint", "communication",
-        "destroy_process_group", "dtensor_from_fn", "fleet", "get_group",
-        "get_hybrid_communicate_group", "get_rank", "get_world_size",
-        "get_world_size_by_group", "init_parallel_env", "irecv",
-        "is_initialized", "isend", "new_group", "parallel", "ps", "recv",
-        "reduce", "reduce_scatter", "reshard", "scatter", "send",
-        "shard_layer", "shard_optimizer", "shard_tensor", "sharding",
-        "spawn", "to_static", "topology"}),
+        "DistModel", "Partial", "ProcessMesh", "Replicate", "Shard",
+        "ShardingStage1", "ShardingStage2", "ShardingStage3",
+        "auto_parallel", "checkpoint", "dtensor_from_fn", "fleet", "ps",
+        "reshard", "shard_layer", "shard_optimizer", "shard_tensor",
+        "sharding", "to_static"}),
+    "paddle_tpu.distributed.communication": (
+        "paddle_tpu_torch.distributed.communication", set()),
+    "paddle_tpu.distributed.parallel": (
+        "paddle_tpu_torch.distributed.parallel", set()),
+    "paddle_tpu.distributed.topology": (
+        "paddle_tpu_torch.distributed.topology", set()),
     "paddle_tpu.hapi": ("paddle_tpu_torch.hapi", set()),
     "paddle_tpu.hapi.model_api": ("paddle_tpu_torch.hapi.model_api", set()),
     "paddle_tpu.hapi.summary_writer": ("paddle_tpu_torch.hapi.summary_writer",
@@ -251,9 +250,14 @@ PORTED_MODULES = {
     "paddle_tpu.callbacks": ("paddle_tpu_torch.callbacks", set()),
     "paddle_tpu.metric": ("paddle_tpu_torch.metric", set()),
     "paddle_tpu.utils": ("paddle_tpu_torch.utils", set()),
-    # incubate whole, but autotune (it goes with the kernels' autotune
-    # cache, ROADMAP Queue A item 23)
-    "paddle_tpu.incubate": ("paddle_tpu_torch.incubate", {"autotune"}),
+    # incubate whole; its autotune with the kernels' block-config cache
+    # (ROADMAP item 23), which lives at kernels.autotune (the port has no
+    # kernels.pallas package)
+    "paddle_tpu.incubate": ("paddle_tpu_torch.incubate", set()),
+    "paddle_tpu.incubate.autotune": ("paddle_tpu_torch.incubate.autotune",
+                                     set()),
+    "paddle_tpu.kernels.pallas.autotune": ("paddle_tpu_torch.kernels.autotune",
+                                           set()),
     "paddle_tpu.incubate.nn": ("paddle_tpu_torch.incubate.nn", set()),
     "paddle_tpu.incubate.nn.functional": (
         "paddle_tpu_torch.incubate.nn.functional", set()),

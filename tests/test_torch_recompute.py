@@ -33,6 +33,7 @@ from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.nn.layers import Dropout
 from paddle_tpu_torch.optimizer import AdamW
 from torch_port_helpers import jax_state_numpy
+from torch_port_helpers import tnamed, tstate
 
 # the modules (each package's meta_parallel exports the function under
 # the module's name)
@@ -118,7 +119,7 @@ def _port_grads(model, cfg, amp_on, seq=SEQ):
     with ptt.amp.auto_cast(enable=amp_on, level="O1", dtype="bfloat16"):
         logits = model(torch.as_tensor(ids))
     loss = GPTPretrainingCriterion()(logits, torch.as_tensor(labels))
-    names, params = zip(*model.named_parameters())
+    names, params = zip(*tnamed(model))
     grads = torch.autograd.grad(loss, params)
     return loss.detach(), dict(zip(names, grads))
 
@@ -265,9 +266,9 @@ def test_train_step_with_recompute_matches_paddle_tpu(interval, policy,
         return crit(logits, l)
 
     step = ptt.TrainStep(tm, AdamW(learning_rate=LR, weight_decay=0.01,
-                                   parameters=tm.named_parameters()), loss)
+                                   parameters=tnamed(tm)), loss)
     got_losses = [float(step(ids, labels)) for _ in range(STEPS)]
-    got = {k: v.detach().numpy() for k, v in tm.state_dict().items()}
+    got = {k: v.detach().numpy() for k, v in tstate(tm).items()}
     np.testing.assert_allclose(got_losses, want_losses, **LOSS_TOL[amp_on])
     assert sorted(got) == sorted(want)
     bound, far = 2 * LR * STEPS, 0

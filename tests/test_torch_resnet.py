@@ -60,13 +60,14 @@ from torch_port_helpers import RESNET_CLASSES as CLASSES
 from torch_port_helpers import reference_stages, stage_distances
 from torch_port_helpers import resnet_batch as batch
 from torch_port_helpers import twin_resnets as twins
+from torch_port_helpers import tbuffers, tnamed, tnamed_buffers, tparams, tstate
 
 LOSS_TOL = dict(rtol=1e-5, atol=0)
 
 
 def _buffers(m, port):
     if port:
-        return {n: b.double().numpy() for n, b in m.named_buffers()}
+        return {n: b.double().numpy() for n, b in tnamed_buffers(m)}
     return {n: np.asarray(b._data, np.float64) for n, b in m.named_buffers()}
 
 
@@ -75,15 +76,15 @@ def _buffers(m, port):
 def test_f32_logits_loss_gradients_and_statistics(block, layout):
     jm, tm = twins(block, layout)
     x, y = batch(layout)
-    start = [b.clone() for b in tm.buffers()]
+    start = [b.clone() for b in tbuffers(tm)]
     jl, ref_stages, jg = reference_stages(jm, x, y)
     tl = TF.cross_entropy(tm(torch.from_numpy(x)), torch.from_numpy(y))
     tl.backward()
     np.testing.assert_allclose(float(tl), jl, **LOSS_TOL)
-    names = [n for n, _ in tm.named_parameters()]
+    names = [n for n, _ in tnamed(tm)]
     assert names == [n for n, _ in jm.named_parameters()]
     if block == "BasicBlock":
-        for n, p in tm.named_parameters():
+        for n, p in tnamed(tm):
             got, want = p.grad.numpy(), jg[n]
             err = np.abs(got - want).max() / np.abs(want).max()
             assert err <= 1e-4, (n, err)
@@ -102,7 +103,7 @@ def test_f32_logits_loss_gradients_and_statistics(block, layout):
     # stage by stage, from the statistics the reference's stages saw
     tm.train()
     with torch.no_grad():
-        for b, b0 in zip(tm.buffers(), start):
+        for b, b0 in zip(tbuffers(tm), start):
             b.copy_(b0)
     dist = stage_distances(tm, ref_stages, jg, y)
     assert sum(len(d[1]) for d in dist.values()) == len(names) + len(dist)
@@ -124,7 +125,7 @@ def test_s2d_stem_equals_the_plain_stem():
     s2d = tres.ResNet(tres.BottleneckBlock, 50, num_classes=CLASSES,
                       data_format="NHWC", space_to_depth_stem=True,
                       device="cpu")
-    s2d.load_state_dict(plain.state_dict())
+    s2d.load_state_dict(tstate(plain))
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (2, 64, 64, 3)).astype(np.float32))
     a, b = plain._stem_conv(x), s2d._stem_conv(x)
@@ -172,7 +173,7 @@ def test_train_step_momentum_matches_reference_and_keeps_buffers():
     _, t64 = twins("BasicBlock", "nhwc_s2d", dtype="float64")
     before = _buffers(tm, True)
     init = {n: p.detach().double().numpy().copy()
-            for n, p in tm.named_parameters()}
+            for n, p in tnamed(tm)}
 
     def jloss(m, x, y):
         return JF.cross_entropy(m(x), y)
@@ -181,25 +182,25 @@ def test_train_step_momentum_matches_reference_and_keeps_buffers():
         return TF.cross_entropy(m(x), y)
 
     jstep = JTrainStep(jm, _momentum(jm.parameters(), False), jloss)
-    topt_ = _momentum(tm.parameters(), True)
+    topt_ = _momentum(tparams(tm), True)
     tstep = ptt.TrainStep(tm, topt_, tloss)
-    free_step = ptt.TrainStep(free, _momentum(free.parameters(), True),
+    free_step = ptt.TrainStep(free, _momentum(tparams(free), True),
                               tloss)
-    step64 = ptt.TrainStep(t64, _momentum(t64.parameters(), True), tloss)
-    assert jstep._pnames == [n for n, _ in tm.named_parameters()]
+    step64 = ptt.TrainStep(t64, _momentum(tparams(t64), True), tloss)
+    assert jstep._pnames == [n for n, _ in tnamed(tm)]
     for seed in range(3):
         x, y = batch("nhwc_s2d", seed)
         start = [np.asarray(a, np.float64) for a in jstep.params]
         if seed:
             with torch.no_grad():
-                for p, a, st in zip(tm.parameters(), jstep.params,
+                for p, a, st in zip(tparams(tm), jstep.params,
                                     jstep.opt_states):
                     p.copy_(torch.from_numpy(np.asarray(a)))
                     topt_._accumulators[id(p)]["velocity"].copy_(
                         torch.from_numpy(np.asarray(st["velocity"])))
         got, want = float(tstep(x, y)), float(jstep(x, y).numpy())
         np.testing.assert_allclose(got, want, rtol=1e-5)
-        for n, p, a, a0 in zip(jstep._pnames, tm.parameters(),
+        for n, p, a, a0 in zip(jstep._pnames, tparams(tm),
                                jstep.params, start):
             ref = np.asarray(a, np.float64) - a0
             far = np.linalg.norm(p.detach().double().numpy() - a0 - ref) \
@@ -217,9 +218,9 @@ def test_train_step_momentum_matches_reference_and_keeps_buffers():
             np.testing.assert_array_equal(jb[n], before[n])
     # each tensor's update over the three steps, run freely
     exact = {k: v.detach().numpy() - init[k]
-             for k, v in t64.named_parameters()}
+             for k, v in tnamed(t64)}
     far_exact = 0.0
-    for n, p in free.named_parameters():
+    for n, p in tnamed(free):
         got = p.detach().double().numpy() - init[n]
         far_exact = max(far_exact, np.linalg.norm(got - exact[n])
                         / np.linalg.norm(exact[n]))
@@ -231,7 +232,7 @@ def test_eager_step_moves_buffers_equally():
     batch norms wrote, in both packages."""
     jm, tm = twins("BasicBlock", "nchw", seed=1)
     jo, to = _momentum(jm.parameters(), False), \
-        _momentum(tm.parameters(), True)
+        _momentum(tparams(tm), True)
     x, y = batch("nchw", 4)
     JF.cross_entropy(jm(pt.to_tensor(x)), pt.to_tensor(y)).backward()
     jo.step()
@@ -242,7 +243,7 @@ def test_eager_step_moves_buffers_equally():
     for n in tb:
         np.testing.assert_allclose(tb[n], jb[n], rtol=1e-5, atol=1e-6)
     want = {k: np.asarray(v._data) for k, v in jm.named_parameters()}
-    for n, p in tm.named_parameters():
+    for n, p in tnamed(tm):
         np.testing.assert_allclose(p.detach().numpy(), want[n], rtol=1e-5,
                                    atol=1e-6)
 
@@ -254,9 +255,9 @@ def test_parameter_names_shapes_and_counts(name):
     jm = getattr(jres, name)()
     tm = getattr(tres, name)(device="cpu")
     want = {k: tuple(v.shape) for k, v in jm.state_dict().items()}
-    got = {k: tuple(v.shape) for k, v in tm.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in tstate(tm).items()}
     assert got == want
-    count = sum(p.numel() for p in tm.parameters())
+    count = sum(p.numel() for p in tparams(tm))
     assert count == sum(int(np.prod(p.shape))
                         for p in jm.parameters())
     assert count == {"resnet50": 25557032, "resnext50_32x4d": 25028904,

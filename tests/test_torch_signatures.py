@@ -603,3 +603,90 @@ def test_fleet_name_matches_the_reference(module, name):
     for port_fn, ref_fn in pairs:
         _check_sigs(_dtype_names(inspect.signature(port_fn)),
                     _dtype_names(inspect.signature(ref_fn)))
+
+
+# the collectives, parallel and topology (ROADMAP item 26a), the
+# kernels' block-config cache and incubate.autotune (item 23): every
+# function and class each reference module defines, and each method a
+# class defines
+SLICE26_MODULES = {
+    "distributed.communication": "distributed.communication",
+    "distributed.parallel": "distributed.parallel",
+    "distributed.topology": "distributed.topology",
+    "kernels.pallas.autotune": "kernels.autotune",
+    "incubate.autotune": "incubate.autotune"}
+
+
+def _slice26_names():
+    import importlib
+    out = []
+    for ref_mod in SLICE26_MODULES:
+        ref = importlib.import_module(f"paddle_tpu.{ref_mod}")
+        for n in sorted(vars(ref)):
+            v = getattr(ref, n)
+            if not n.startswith("_") and callable(v) \
+                    and getattr(v, "__module__", None) == ref.__name__:
+                out.append((ref_mod, n))
+    return out
+
+
+SLICE26_NAMES = _slice26_names()
+
+
+def test_every_slice26_name_is_checked():
+    names = {n for _, n in SLICE26_NAMES}
+    assert {"all_reduce", "Group", "Work", "P2POp", "DataParallel",
+            "init_parallel_env", "HybridCommunicateGroup", "tune",
+            "measure_effective_bw", "set_config"} <= names
+
+
+@pytest.mark.parametrize("module,name", SLICE26_NAMES,
+                         ids=[f"{m}.{n}" for m, n in SLICE26_NAMES])
+def test_slice26_name_matches_the_reference(module, name):
+    import importlib
+    port_obj = getattr(importlib.import_module(
+        f"paddle_tpu_torch.{SLICE26_MODULES[module]}"), name)
+    ref_obj = getattr(importlib.import_module(f"paddle_tpu.{module}"), name)
+    if inspect.isclass(ref_obj):
+        pairs = [(port_obj.__init__, ref_obj.__init__)] + [
+            (getattr(port_obj, m), f) for m, f in vars(ref_obj).items()
+            if inspect.isfunction(f) and not m.startswith("_")]
+    else:
+        pairs = [(port_obj, ref_obj)]
+    for port_fn, ref_fn in pairs:
+        _check_sigs(inspect.signature(port_fn), inspect.signature(ref_fn))
+
+
+# the methods of the model classes and of Optimizer that the reference
+# defines (GPTForCausalLM.generate, Optimizer.minimize, the forwards with
+# their caches): the constructors are the port's own (device, dtype,
+# seed; the models' docstrings)
+MODEL_METHOD_CLASSES = [
+    ("models.gpt", n) for n in (
+        "GPTAttention", "GPTMLP", "GPTDecoderLayer", "GPTEmbeddings",
+        "GPTModel", "GPTForCausalLM", "GPTPretrainingCriterion")] + [
+    ("models.llama", n) for n in (
+        "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer", "LlamaModel",
+        "LlamaForCausalLM")] + [
+    ("models.bert", n) for n in (
+        "BertEmbeddings", "BertModel", "BertForMaskedLM")] + [
+    ("vision.models", n) for n in (
+        "BasicBlock", "BottleneckBlock", "ResNet", "MobileNetV2", "LeNet",
+        "AlexNet", "VGG", "DenseNet", "SqueezeNet", "MobileNetV1",
+        "MobileNetV3", "ShuffleNetV2", "GoogLeNet", "InceptionV3")] + [
+    ("optimizer", "Optimizer")]
+
+
+@pytest.mark.parametrize("module,name", MODEL_METHOD_CLASSES,
+                         ids=[n for _, n in MODEL_METHOD_CLASSES])
+def test_model_methods_match_the_reference(module, name):
+    import importlib
+    port = getattr(importlib.import_module(f"paddle_tpu_torch.{module}"),
+                   name)
+    ref = getattr(importlib.import_module(f"paddle_tpu.{module}"), name)
+    methods = [m for m, f in vars(ref).items()
+               if inspect.isfunction(f) and not m.startswith("_")]
+    assert methods
+    for m in methods:
+        _check_sigs(inspect.signature(getattr(port, m)),
+                    inspect.signature(getattr(ref, m)))

@@ -23,6 +23,7 @@ from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.models import GPTPretrainingCriterion
 from paddle_tpu_torch.optimizer import AdamW
 from torch_port_helpers import jax_state_numpy
+from torch_port_helpers import tnamed, tparams, tstate
 
 SMOKE = dict(vocab_size=1024, hidden_size=128, num_layers=2, num_heads=4,
              max_position_embeddings=256, hidden_dropout_prob=0.0,
@@ -91,7 +92,7 @@ def _port(cfg, seq, amp_dtype, init):
     model = GPTForCausalLM(GPTConfig(**cfg), device="cpu")
     model.load_state_dict(gpt_params_from_numpy(init))
     model.train()
-    opt = AdamW(learning_rate=LR, parameters=model.named_parameters(),
+    opt = AdamW(learning_rate=LR, parameters=tnamed(model),
                 weight_decay=0.01)
     crit = GPTPretrainingCriterion()
 
@@ -106,7 +107,7 @@ def _port(cfg, seq, amp_dtype, init):
     losses = [float(step(ids, labels)) for _ in range(STEPS)]
     step.sync()
     return losses, {k: v.detach().numpy() for k, v in
-                    model.state_dict().items()}
+                    tstate(model).items()}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -164,7 +165,7 @@ def _grads_both(cfg, seq, amp_dtype):
     tloss.backward()
     jg = {n: np.asarray(p._grad._data, np.float32)
           for n, p in jm.named_parameters()}
-    tg = {n: p.grad.float().numpy() for n, p in tm.named_parameters()}
+    tg = {n: p.grad.float().numpy() for n, p in tnamed(tm)}
     assert sorted(jg) == sorted(tg)
     return float(jloss.numpy()), float(tloss), {n: (jg[n], tg[n])
                                                for n in jg}
@@ -205,7 +206,7 @@ def test_train_step_reads_lr_per_call_and_steps_the_scheduler():
     cfg = dict(SMOKE)
     model = GPTForCausalLM(GPTConfig(**cfg), device="cpu")
     sched = tlr.StepDecay(1e-3, step_size=1, gamma=0.5)
-    opt = AdamW(learning_rate=sched, parameters=model.parameters())
+    opt = AdamW(learning_rate=sched, parameters=tparams(model))
     seen = []
     real = opt._lr_tensor
 
@@ -233,13 +234,13 @@ def test_train_step_ignores_grad_clip_like_the_reference():
     outs = []
     for clip in (None, ClipGradByGlobalNorm(1e-12)):
         model = GPTForCausalLM(GPTConfig(**cfg), device="cpu", seed=3)
-        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+        opt = AdamW(learning_rate=1e-3, parameters=tparams(model),
                     grad_clip=clip)
         step = ptt.TrainStep(
             model, opt, lambda m, i, l: GPTPretrainingCriterion()(m(i), l))
         step(ids, labels)
         outs.append(torch.cat([p.detach().flatten()
-                               for p in model.parameters()]))
+                               for p in tparams(model)]))
     assert torch.equal(outs[0], outs[1])
 
 
@@ -264,7 +265,7 @@ def test_num_params_matches_reference():
     from paddle_tpu_torch.models import num_params as tn
     assert tn(tg()) == jn(gpt2_small())
     m = GPTForCausalLM(GPTConfig(**SMOKE), device="cpu")
-    assert tn(GPTConfig(**SMOKE)) == sum(p.numel() for p in m.parameters())
+    assert tn(GPTConfig(**SMOKE)) == sum(p.numel() for p in tparams(m))
 
 
 def test_fused_flash_attention_refuses_training_dropout():

@@ -18,6 +18,7 @@ import torch
 from paddle_tpu.vision import models as jm
 from paddle_tpu_torch.vision import models as tm
 from torch_port_helpers import zero_filled_reference_init
+from torch_port_helpers import tbuffers, tnamed, tparams, tstate
 
 CONSTRUCTORS = [
     ("LeNet", {}), ("alexnet", {}), ("vgg11", {}), ("vgg13", {}),
@@ -45,7 +46,7 @@ def _ref_state(model):
 
 def _port_state(model):
     return {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
-            for k, v in model.state_dict().items()}
+            for k, v in tstate(model).items()}
 
 
 @pytest.mark.parametrize("name,kw", CONSTRUCTORS,
@@ -56,9 +57,9 @@ def test_state_dict_names_shapes_and_count(name, kw, fast_reference_init):
     port = getattr(tm, name)(device="cpu", **kw)
     want, got = _ref_state(ref), _port_state(port)
     assert got == want
-    count = sum(p.numel() for p in port.parameters())
+    count = sum(p.numel() for p in tparams(port))
     assert count == sum(int(np.prod(p.shape)) for p in ref.parameters())
-    assert [n for n, _ in port.named_parameters()] == \
+    assert [n for n, _ in tnamed(port)] == \
         [n for n, _ in ref.named_parameters()]
 
 
@@ -69,14 +70,14 @@ def test_constructors_take_device_dtype_and_seed():
     a = tm.mobilenet_v3_small(device="cpu", seed=3)
     b = tm.mobilenet_v3_small(device="cpu", seed=3)
     c = tm.mobilenet_v3_small(device="cpu", seed=4)
-    for (n, p), q, r in zip(a.named_parameters(), b.parameters(),
-                            c.parameters()):
+    for (n, p), q, r in zip(tnamed(a), tparams(b),
+                            tparams(c)):
         assert torch.equal(p, q), n
-    assert not all(torch.equal(p, r) for p, r in zip(a.parameters(),
-                                                     c.parameters()))
+    assert not all(torch.equal(p, r) for p, r in zip(tparams(a),
+                                                     tparams(c)))
     h = tm.shufflenet_v2_x0_5(device="cpu", dtype="bfloat16")
-    assert {p.dtype for p in h.parameters()} == {torch.bfloat16}
-    assert {v.dtype for v in h.buffers()} == {torch.float32}
+    assert {p.dtype for p in tparams(h)} == {torch.bfloat16}
+    assert {v.dtype for v in tbuffers(h)} == {torch.float32}
     with pytest.raises(NotImplementedError):
         tm.vgg11(pretrained=True, device="cpu")
     with pytest.raises(TypeError):

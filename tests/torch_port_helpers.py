@@ -20,6 +20,28 @@ from paddle_tpu_torch.models import LlamaForCausalLM as TorchLlama
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models import llama as tllama
 
+# The port's models are Layers, whose paddle-named methods give the eager
+# API's Parameters and Tensors; the torch-level checks read torch's.
+def tparams(m):
+    return list(torch.nn.Module.parameters(m))
+
+
+def tnamed(m):
+    return list(torch.nn.Module.named_parameters(m))
+
+
+def tbuffers(m):
+    return list(torch.nn.Module.buffers(m))
+
+
+def tnamed_buffers(m):
+    return list(torch.nn.Module.named_buffers(m))
+
+
+def tstate(m):
+    return torch.nn.Module.state_dict(m)
+
+
 @contextlib.contextmanager
 def cpu_place():
     """The eager API's default place set to the CPU for the block, and
@@ -215,7 +237,7 @@ def stage_grads(tm, ref_stages, y, o1=False, stages_of=None,
     parameters and its input ("<stage> input")."""
     import paddle_tpu_torch as ptt
     import paddle_tpu_torch.nn.functional as TF
-    dtype = next(tm.parameters()).dtype
+    dtype = tparams(tm)[0].dtype
     tm.zero_grad(set_to_none=True)
     out = {}
     for name, f in (stages_of or resnet_stages)(tm, TF.flatten):
@@ -230,7 +252,7 @@ def stage_grads(tm, ref_stages, y, o1=False, stages_of=None,
         else:
             (got * torch.from_numpy(cot).to(got.dtype)).sum().backward()
         grads = {f"{name} input": xt.grad}
-        grads.update((n, p.grad) for n, p in tm.named_parameters()
+        grads.update((n, p.grad) for n, p in tnamed(tm)
                      if (stage_of or _stage_of)(n) == name)
         out[name] = (got.detach().double().numpy(),
                      {n: g.double().numpy() for n, g in grads.items()})
@@ -288,7 +310,7 @@ def check_resnet_o1(block, layout):
     jm, tm = twin_resnets(block, layout)
     _, t64 = twin_resnets(block, layout, dtype="float64")
     x, y = resnet_batch(layout)
-    start = [b.clone() for b in tm.buffers()]
+    start = [b.clone() for b in tbuffers(tm)]
     jdt, stop = _output_dtypes(jm, port=False)
     jl, ref_stages, ref_grads = reference_stages(jm, x, y, o1=True)
     stop()
@@ -310,11 +332,11 @@ def check_resnet_o1(block, layout):
     assert tlogits.dtype == torch.bfloat16 and tl.dtype == torch.float32
     np.testing.assert_allclose(float(tl), jl, rtol=3e-2)
 
-    names = [n for n, _ in tm.named_parameters()]
+    names = [n for n, _ in tnamed(tm)]
     exact = _flat_grads({n: p.grad.numpy()
-                         for n, p in t64.named_parameters()}, names)
+                         for n, p in tnamed(t64)}, names)
     mine = _flat_grads({n: p.grad.double().numpy()
-                        for n, p in tm.named_parameters()}, names)
+                        for n, p in tnamed(tm)}, names)
     ref = _flat_grads({n: ref_grads[n].astype(np.float64)
                        for n in names}, names)
     scale = np.linalg.norm(exact)
@@ -324,7 +346,7 @@ def check_resnet_o1(block, layout):
 
     jb = {n: np.asarray(b._data) for n, b in jm.named_buffers()}
     stats = 0.0
-    for n, b in tm.named_buffers():
+    for n, b in tnamed_buffers(tm):
         assert b.dtype == torch.float32
         np.testing.assert_allclose(b.numpy(), jb[n], rtol=0, atol=2e-2)
         stats = max(stats, float(np.abs(b.numpy() - jb[n]).max()))
@@ -342,7 +364,7 @@ def check_resnet_o1(block, layout):
     # with the running statistics the reference's stages started from
     tm.train()
     with torch.no_grad():
-        for b, b0 in zip(tm.buffers(), start):
+        for b, b0 in zip(tbuffers(tm), start):
             b.copy_(b0)
     dist = stage_distances(tm, ref_stages, ref_grads, y, o1=True)
     assert len([n for d in dist.values() for n in d[1]]) == \
@@ -387,7 +409,7 @@ def twin_layers(name, *args, seed=0, **kw):
     tm = getattr(ptt.nn, name)(*args, **kw)
     sd = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
     assert tm.set_state_dict(sd) == ([], [])
-    assert list(tm.state_dict()) == list(sd)
+    assert list(tstate(tm)) == list(sd)
     return jm, tm
 
 
@@ -422,9 +444,9 @@ def twin_models(name, kw, seed=0, classes=None):
     # copies: the reference's arrays may alias numpy memory on the CPU,
     # and the port's optimizers update its tensors in place
     state = {k: v.detach().numpy().copy()
-             for k, v in port.state_dict().items()}
+             for k, v in tstate(port).items()}
     missing, unexpected = ref.set_state_dict(state)
     assert not missing and not unexpected
     back = ptt.vision_params_from_numpy(jax_state_numpy(ref))
-    assert all(torch.equal(back[k], v) for k, v in port.state_dict().items())
+    assert all(torch.equal(back[k], v) for k, v in tstate(port).items())
     return ref, port

@@ -138,7 +138,7 @@ def main() -> int:
     total = sum(by_name.values()) / 1e3 / steps
     gemm = gemm / 1e3 / steps
     weight_bytes = sum(p.numel() * p.element_size()
-                       for p in model.parameters())
+                       for p in torch.nn.Module.parameters(model))
     print(f"{args.model} bf16 {cfg.num_layers} layers, 8 rows: {steps} "
           f"eager decode steps profiled; kernels {total:.3f} ms a step, "
           f"{len(kernels) / steps:.0f} launches a step (weight read floor "

@@ -280,6 +280,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("flash_fwd_probe: no CUDA device is available", file=sys.stderr)
         return 1
+    # the probe swaps the builds itself: the block-config cache keeps to
+    # the default build (kernels/autotune.py's kill switch)
+    os.environ["PADDLE_TPU_PALLAS_AUTOTUNE"] = "0"
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
     cs.log(f"[card] {cs.card_line()}")

@@ -16,12 +16,14 @@ It serves chip_smoke.py phase 4's traffic (gpt3_1p3b in bf16, 24
 layers, random weights from seed 0; 16 requests on a 512-token prefix,
 64 new tokens each; max_batch 8, block 64, decode chunk 16) through a
 fresh LLMEngine a round, after one warm-up run, and prints each round's
-tokens/s and the median wall of its steady steps (a decode chunk alone:
+tokens/s, the median wall of its steady steps (a decode chunk alone:
 no graph captured, no packed wave; a step reads its tokens back to the
-host, so its wall covers its device time). With `--train` it also runs
-phase 6's gpt2_small TrainStep (b16 s1024, bf16 O1, AdamW, flash
-attention) for 12 calls a round through a fresh graph cache and prints
-the median ms of the last 10. The card's name and power limit lead the
+host, so its wall covers its device time) and of its steps that ran
+packed (eager) ragged waves. With `--train` it also runs phase 6's
+gpt2_small TrainStep (b16 s1024, bf16 O1, AdamW, flash attention) for
+12 calls a round through a fresh graph cache and prints the median ms
+of the last 10, then the median of the last 2 of 3 eager steps (the
+model's host path shows there, a replay hides it). The card's name and power limit lead the
 output; the JSON record goes to --out.
 """
 from __future__ import annotations
@@ -50,7 +52,7 @@ def _serve(model, prompts) -> dict:
                     prompt_quantum=128)
     for i, p in enumerate(prompts):
         eng.add_request(i, p, max_new_tokens=64)
-    steps, steady, n = [], [], 0
+    steps, steady, waves_ms, n = [], [], [], 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while eng.has_unfinished:
@@ -60,14 +62,18 @@ def _serve(model, prompts) -> dict:
         n += sum(len(r.output_ids) for r in eng.step())
         ms = 1e3 * (time.perf_counter() - t)
         steps.append(ms)
-        if sum(cuda_graph.captures.values()) == caps \
-                and eng.stats["ragged_launches"] == waves:
-            steady.append(ms)
+        if sum(cuda_graph.captures.values()) == caps:
+            if eng.stats["ragged_launches"] == waves:
+                steady.append(ms)
+            else:
+                waves_ms.append(ms)     # a step that ran packed waves
     secs = time.perf_counter() - t0
     del eng
     torch.cuda.empty_cache()
     return dict(tokens=n, seconds=secs, tokens_per_s=n / secs,
-                steady_ms=statistics.median(steady), step_ms=steps)
+                steady_ms=statistics.median(steady), step_ms=steps,
+                wave_step_ms=statistics.median(waves_ms),
+                wave_steps_ms=waves_ms)
 
 
 def _train(step, batch, calls=12) -> dict:
@@ -81,8 +87,17 @@ def _train(step, batch, calls=12) -> dict:
         step(*batch)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t))
+    step._eager = True              # eager steps: the host path shows
+    eager = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(*batch)
+        torch.cuda.synchronize()
+        eager.append(1e3 * (time.perf_counter() - t))
+    step._eager = False
     return dict(step_ms_median=statistics.median(times[2:]),
-                step_ms=times)
+                step_ms=times, eager_step_ms=statistics.median(eager[1:]))
 
 
 def main() -> int:
@@ -116,7 +131,8 @@ def main() -> int:
         rec = _serve(model, prompts)
         runs.append(rec)
         print(f"round {r}: {rec['tokens_per_s']:.1f} tokens/s, steady "
-              f"step median {rec['steady_ms']:.3f} ms, steps ms "
+              f"step median {rec['steady_ms']:.3f} ms, packed-wave step "
+              f"median {rec['wave_step_ms']:.3f} ms, steps ms "
               f"{[round(x, 2) for x in rec['step_ms']]}", flush=True)
     train = []
     if a.train:
@@ -145,14 +161,18 @@ def main() -> int:
             rec = _train(step, (ids, ids))
             train.append(rec)
             print(f"round {r}: train step median "
-                  f"{rec['step_ms_median']:.3f} ms", flush=True)
+                  f"{rec['step_ms_median']:.3f} ms, eager step "
+                  f"{rec['eager_step_ms']:.3f} ms", flush=True)
     out = dict(card=card, root=root, torch=torch.__version__, runs=runs,
                train=train,
                tokens_per_s=[x["tokens_per_s"] for x in runs],
                steady_ms=[x["steady_ms"] for x in runs],
-               train_step_ms=[x["step_ms_median"] for x in train])
-    print(json.dumps({k: out[k] for k in ("tokens_per_s", "steady_ms",
-                                          "train_step_ms")}))
+               wave_step_ms=[x["wave_step_ms"] for x in runs],
+               train_step_ms=[x["step_ms_median"] for x in train],
+               eager_train_step_ms=[x["eager_step_ms"] for x in train])
+    print(json.dumps({k: out[k] for k in (
+        "tokens_per_s", "steady_ms", "wave_step_ms", "train_step_ms",
+        "eager_train_step_ms")}))
     if a.out:
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
         with open(a.out, "w") as f:

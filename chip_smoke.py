@@ -443,7 +443,28 @@ Run from the root of a checkout. Phases, each of which must pass:
      per-rank through an NCCL process group of world size 1, each
      equal to its value, the comms series (bytes, seconds,
      algorithmic bandwidth) recorded; a DataParallel gpt2_small step
-     bit-equal to the bare step; destroy_process_group.
+     bit-equal to the bare step; destroy_process_group;
+ 40. model parallelism: (a) fleet.init with every degree 1,
+     gpt3_1p3b (dropout 0) as gpt_pipeline_model(recompute_interval 1)
+     in PipelineParallel, 4 micro-batches of bench_gpt_1p3b's b4 x
+     s2048 under 1F1B, fleet.distributed_optimizer(AdamW), bf16 O1: the
+     replicated single pass's loss, one forward_backward_pipeline under
+     1F1B and one under FThenB (the executed orders the schedules'), the
+     1F1B gradients against FThenB's and against one whole-batch
+     forward and backward of the same weights without the executor,
+     then 3 train_batch calls (the first loss within 5e-3 of the single
+     pass, the loss falling, every parameter moved; B1, B2 and the
+     update counted against the launches the code gives: 192, 96 and 2
+     a call), the step by wall, tokens/s, MFU and peak memory beside
+     phase 13's; (b) PipelineLayer(num_stages=2,
+     num_virtual_pipeline_stages=2) over the same descriptions at 8
+     layers: the executed order build_schedule's Interleaved1F1B, the
+     loss the single pass's, the gradients the whole batch's, B1 / B2
+     counted; (c) MoELayer(2048, 8192,
+     8 experts, top 2, capacity 1.5) in f32 on 2048 tokens: the routing
+     integers the CPU port's, the output and gradients a per-token
+     formulation's; (d) ring attention at (1, 8192, 16, 128), one chunk
+     and four, against the plain composite.
 
 Each phase's wall seconds are printed ("[phase-seconds]"). The last
 three lines of standard output are a JSON record of the
@@ -10413,6 +10434,7 @@ def autotune_phase(train) -> dict:
                on_disk=on_disk, fresh_process=fresh, fresh_process_s=child_s,
                kill_switch_defaults=killed,
                capture_timings=dict(CAPTURE_TIMINGS),
+               live_threads=[t.name for t in threading.enumerate()],
                train_step_ms_replay=tuned["step_ms_replay"],
                train_step_ms_median=tuned["step_ms_median"],
                phase6_step_ms_replay=train["step_ms_replay"],
@@ -10641,6 +10663,538 @@ def collectives_phase() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 40: model parallelism on the card (fleet, PipelineParallel over the
+# hybrid GPT, the interleaved schedule, MoE, ring attention)
+# ---------------------------------------------------------------------------
+def PP_CONFIG(**kw):
+    """40a's and 40b's model: gpt3_1p3b (bench_gpt_1p3b's config)."""
+    from paddle_tpu_torch.models import gpt3_1p3b
+    return gpt3_1p3b(**kw)
+
+
+PP_MICRO = 4            # bench_gpt_1p3b's b4 x s2048 as 4 micro-batches
+PP_STEPS = 3
+PP_LOSS_RTOL = 5e-3     # the reference's single-pass rule
+# 1F1B's gradients against FThenB's: max |a - b| over max |b|, each
+# parameter, bf16 O1 (the two schedules run the same kernels on the same
+# micro-batches; only the order of the units differs)
+PP_GRAD_TOL = 2.0 ** -7
+# the pipeline's accumulated gradients against one whole-batch forward and
+# backward of the same weights without the executor: max |a - b| over
+# max |b|, each parameter, bf16 O1. The activations and their cotangents
+# are the same row for row; a weight's gradient is rounded to bf16 once
+# per micro-batch instead of once, ~2^-8 of its largest entry. A dropped
+# tied-head gradient, micro-batch or misaligned cotangent moves some
+# tensor's gradient by a quarter of its size or more.
+PP_WHOLE_TOL = 2.0 ** -6
+PP_VPP_LAYERS = 8
+# 40a's AdamW learning rate: at 1e-4 Adam's first steps (each weight
+# moved by ~lr whatever its gradient's scale) overshoot on the one
+# random batch (losses 11.236, 10.787, 11.422 on the card); 1e-5 keeps
+# the 3 steps in the descent the check asks for
+PP_LR = 1e-5
+MOE_CFG = dict(d_model=2048, d_hidden=8192, num_experts=8, top_k=2,
+               capacity_factor=1.5)
+MOE_TOKENS = 2048
+# a token whose gate probabilities around its k-th choice lie closer than
+# this may route differently on the card and the CPU (f32 products of
+# length 2048 in other orders move a probability by ~1e-7): its experts
+# are not compared, and the buffer slots and drops (which count every
+# earlier token's choices) are held up to the first such token
+MOE_MARGIN = 1e-5
+MOE_TOL = 1e-4          # f32, TF32 off: max |a - b| over max |b|
+RING_SHAPE = (1, 8192, 16, 128)
+RING_TOL = 1e-4         # f32, TF32 off: max |a - b| over max |b|
+
+
+def _pp_counts():
+    """(B1, B2, update) launch counters."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
+    return (fa.flash_fwd.kernel_launches, fa.flash_bwd.kernel_launches,
+            mta.multi_tensor_adam.kernel_launches)
+
+
+def _pp_reset_counts():
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
+    fa.reset_counters()
+    mta.multi_tensor_adam.kernel_launches = 0
+    mta.multi_tensor_adam.plain_calls = 0
+
+
+def _pp_kernels_clean() -> bool:
+    """Every B1/B2 launch since the reset ran the sm90 design, and no plain
+    version ran on CUDA tensors."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
+    return (fa.flash_fwd.plain_calls, fa.flash_bwd.plain_calls,
+            mta.multi_tensor_adam.plain_calls) == (0, 0, 0) and \
+        fa.flash_fwd.design_launches.get("simple", 0) == 0 and \
+        fa.flash_bwd.design_launches.get("simple", 0) == 0
+
+
+def _hybrid_descs(cfg):
+    """gpt_pipeline_model's descriptions: the tied embedding, the blocks,
+    the final norm, the tied head."""
+    from paddle_tpu_torch.distributed.meta_parallel import (LayerDesc,
+                                                            SharedLayerDesc)
+    from paddle_tpu_torch.models import gpt_hybrid as gh
+    return ([SharedLayerDesc("embed", gh.HybridGPTEmbedding, cfg)]
+            + [LayerDesc(gh.HybridGPTBlock, cfg)
+               for _ in range(cfg.num_layers)]
+            + [LayerDesc(gh.HybridGPTNorm, cfg),
+               SharedLayerDesc("embed", gh.HybridGPTEmbedding, cfg,
+                               forward_func=lambda layer, x: layer.head(x))])
+
+
+def _pp_batch(vocab, seed):
+    import paddle_tpu_torch as P
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (B1P3_BATCH, B1P3_SEQ)).astype(np.int32)
+    return P.to_tensor(ids), P.to_tensor(np.roll(ids, -1, axis=1))
+
+
+def _single_pass(layer, ids, labels, backward=False) -> float:
+    """The replicated single pass of the same weights: the whole batch
+    through every part (forward_part chained, the stage transfers between)
+    under no_grad, bf16 O1 (the reference's rule,
+    __graft_entry__.py:148-171). With `backward` autograd records it and
+    the loss's backward runs: the whole batch's gradients, without the
+    schedule's executor."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.autograd import no_grad
+    with (contextlib.nullcontext() if backward else no_grad()), \
+            amp.auto_cast(level="O1", dtype="bfloat16"):
+        x = ids
+        for part in range(layer.num_parts):
+            if part > 0:
+                x = layer.transfer_to_part(x, part)
+            x = layer.forward_part(x, part)
+        loss = layer._loss_fn(x, labels)
+    if backward:
+        loss.backward()
+    return float(loss)
+
+
+def _grad_copies(params):
+    return [None if p.grad is None else p.grad.detach().clone()
+            for p in params]
+
+
+def _grad_errs(grads, want):
+    """max |a - b| over max |b| for each parameter both have a gradient of
+    (b from `want`)."""
+    return [float((a.float() - b.float()).abs().max()
+                  / b.float().abs().max().clamp_min(1e-30))
+            for a, b in zip(grads, want) if a is not None and b is not None]
+
+
+def _bit_sums(params):
+    """A checksum of each tensor's bits (int64 sum of its int32 words): a
+    changed entry changes it."""
+    import torch
+    return [int(p.detach().view(torch.int32).to(torch.int64).sum())
+            for p in params]
+
+
+def _pipeline_1f1b(train_1p3b) -> dict:
+    """40a: gpt3_1p3b (dropout 0) as gpt_pipeline_model(recompute_interval
+    1) in PipelineParallel (4 micro-batches, 1F1B), fleet.init with every
+    degree 1, fleet.distributed_optimizer(AdamW), bf16 O1, on
+    bench_gpt_1p3b's batch (module docstring of phase 40)."""
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.meta_parallel import PipelineParallel
+    from paddle_tpu_torch.distributed.meta_parallel.pipeline_schedules \
+        import build_schedule
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
+    from paddle_tpu_torch.models.gpt_hybrid import gpt_pipeline_model
+    from paddle_tpu_torch.optimizer import AdamW
+    held = _fresh_card()
+    strategy = fleet.DistributedStrategy()
+    strategy.pipeline_configs = {"accumulate_steps": PP_MICRO,
+                                 "schedule_mode": "1F1B"}
+    fleet.init(strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    cfg = PP_CONFIG(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    L = cfg.num_layers
+    _require_sm90("gpt3_1p3b's micro-batch", (1, B1P3_SEQ, cfg.num_heads,
+                                              cfg.head_dim),
+                  (1, B1P3_SEQ, cfg.num_heads, cfg.head_dim))
+    P.seed(40)
+    layer = gpt_pipeline_model(cfg, recompute_interval=1)
+    pipe = PipelineParallel(layer, hcg, strategy)
+    params = [p for p in _torch_params(layer)]
+    n_params = sum(p.numel() for p in params)
+    opt = fleet.distributed_optimizer(AdamW(
+        learning_rate=PP_LR, parameters=layer.parameters(),
+        weight_decay=0.01))
+    ids, labels = _pp_batch(cfg.vocab_size, 40)
+    single = _single_pass(layer, ids, labels)
+    # the derived launches of one forward_backward_pipeline: each
+    # micro-batch runs every block forward (B1), recomputes it in the
+    # backward (B1 again: recompute_interval 1 puts every block in a
+    # chunk of its own) and runs its backward (B2)
+    want = (PP_MICRO * 2 * L, PP_MICRO * L)
+    per = mta._load_kernel().mta_max_tensors()
+    want_update = -(-len(params) // per)
+    # one forward_backward_pipeline under each schedule, same weights
+    grads, fb_counts, executed_ok = {}, {}, True
+    for mode in ("1F1B", "FThenB"):
+        pipe.schedule_mode = mode
+        _pp_reset_counts()
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            pipe.forward_backward_pipeline([ids, labels])
+        torch.cuda.synchronize()
+        fb_counts[mode] = _pp_counts()[:2]
+        grads[mode] = _grad_copies(params)
+        executed_ok &= pipe.last_executed == [
+            (u.kind, u.part, u.micro) for u in
+            build_schedule(mode, 1, PP_MICRO)]
+        opt.clear_grad()
+    pipe.schedule_mode = "1F1B"
+    # the same weights' whole batch, one forward and backward without the
+    # executor: what the accumulated micro-batch gradients must equal
+    whole_loss = _single_pass(layer, ids, labels, backward=True)
+    torch.cuda.synchronize()
+    grads["whole"] = _grad_copies(params)
+    opt.clear_grad()
+    errs = _grad_errs(grads["1F1B"], grads["FThenB"])
+    whole_errs = _grad_errs(grads["1F1B"], grads["whole"])
+    n_grads = sum(g is not None for g in grads["1F1B"])
+    n_whole = sum(g is not None for g in grads["whole"])
+    del grads
+    sums_before = _bit_sums(params)
+    _fresh_card()
+    # PP_STEPS train_batch calls on the one batch, each synchronised and
+    # timed by wall, the counters set to 0 just before and read after
+    _pp_reset_counts()
+    losses, step_s = [], []
+    for _ in range(PP_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = pipe.train_batch([ids, labels], opt)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(float(loss))
+    counted = _pp_counts()
+    clean = _pp_kernels_clean()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    unmoved = sum(a == b for a, b in zip(sums_before, _bit_sums(params)))
+    wall_ms = 1e3 * statistics.median(step_s)
+    tokens = B1P3_BATCH * B1P3_SEQ
+    tok_s = tokens / (wall_ms / 1e3)
+    t13 = (train_1p3b or {}).get("recompute")
+    rec = dict(
+        config="gpt3_1p3b (bench_gpt_1p3b's batch), gpt_pipeline_model "
+               "recompute_interval 1, PipelineParallel 1F1B",
+        micro_batches=PP_MICRO, params=n_params, tensors=len(params),
+        tokens_per_step=tokens, single_pass_loss=single, losses=losses,
+        first_loss_rel_err=abs(losses[0] - single) / max(1.0, abs(single)),
+        grad_rel_err_max=max(errs), grads_compared=len(errs),
+        whole_batch_loss=whole_loss,
+        whole_grad_rel_err_max=max(whole_errs),
+        whole_grad_rel_err_median=statistics.median(whole_errs),
+        whole_grads_compared=len(whole_errs), params_unmoved=unmoved,
+        fb_launches=fb_counts, launches_per_batch=list(want) + [want_update],
+        launches_counted=list(counted), step_ms=[1e3 * s for s in step_s],
+        step_ms_median=wall_ms, tokens_per_s=tok_s,
+        mfu=6.0 * n_params * tok_s / BF16_FLOPS_PER_S, peak_mem_gb=peak,
+        held_at_start_gb=held, card=card_line())
+    if t13 is not None:
+        rec.update(phase13_step_ms=t13["step_ms_median"],
+                   phase13_tokens_per_s=t13["tokens_per_s"],
+                   phase13_mfu=t13["mfu"],
+                   phase13_peak_mem_gb=t13["peak_mem_gb"])
+    _check("[pipeline-1f1b]", {
+        "the executed orders are build_schedule's (1F1B, FThenB)":
+            executed_ok,
+        f"the first loss within {PP_LOSS_RTOL} of the single pass":
+            rec["first_loss_rel_err"] < PP_LOSS_RTOL,
+        "every loss finite and the loss falls over the steps":
+            all(np.isfinite(losses)) and losses[-1] < losses[0],
+        f"1F1B's gradients equal FThenB's within {PP_GRAD_TOL}":
+            n_grads == len(params) == len(errs)
+            and max(errs) <= PP_GRAD_TOL,
+        f"1F1B's gradients equal the whole batch's within {PP_WHOLE_TOL}":
+            n_whole == len(params) == len(whole_errs)
+            and max(whole_errs) <= PP_WHOLE_TOL,
+        "every parameter moved over the train_batch calls": unmoved == 0,
+        f"(B1, B2) at {want} launches a forward_backward_pipeline under "
+        f"each schedule": all(c == want for c in fb_counts.values()),
+        f"(B1, B2, update) at {PP_STEPS} x {list(want) + [want_update]} "
+        f"over the train_batch calls": list(counted) == [
+            PP_STEPS * x for x in list(want) + [want_update]],
+        "every B1/B2 launch sm90, no plain version on CUDA tensors": clean,
+    }, rec)
+    beside = "" if t13 is None else (
+        f"; phase 13's TrainStep (recompute interval {B1P3_INTERVAL}): "
+        f"{t13['step_ms_median']:.2f} ms, {t13['tokens_per_s']:.1f} "
+        f"tokens/s, MFU {t13['mfu']:.4f}, {t13['peak_mem_gb']:.2f} GiB")
+    log(f"[pipeline-1f1b] {n_params} params, {tokens} tokens a step as "
+        f"{PP_MICRO} micro-batches: step median {wall_ms:.2f} ms by wall "
+        f"({min(rec['step_ms']):.2f}-{max(rec['step_ms']):.2f}), "
+        f"{tok_s:.1f} tokens/s, MFU {rec['mfu']:.4f}, peak mem {peak:.2f} "
+        f"GiB{beside}; losses "
+        f"{[round(x, 4) for x in losses]} (single pass {single:.4f}); "
+        f"1F1B vs FThenB grads max rel {max(errs):.2e}, vs the whole "
+        f"batch max rel {max(whole_errs):.2e} (median "
+        f"{statistics.median(whole_errs):.2e}); launches "
+        f"{list(counted)} on {rec['card']}")
+    del pipe, layer, opt, params
+    _fresh_card()
+    return rec
+
+
+def _pipeline_interleaved() -> dict:
+    """40b: a PipelineLayer(num_stages=2, num_virtual_pipeline_stages=2)
+    over the hybrid GPT's descriptions at gpt3_1p3b's widths, cut to
+    PP_VPP_LAYERS layers, one forward_backward_pipeline under
+    Interleaved1F1B (PipelineParallel's default with virtual stages)."""
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.meta_parallel import (PipelineLayer,
+                                                            PipelineParallel)
+    from paddle_tpu_torch.distributed.meta_parallel.pipeline_schedules \
+        import build_schedule
+    from paddle_tpu_torch.nn import functional as F
+    _fresh_card()
+    strategy = fleet.DistributedStrategy()
+    strategy.pipeline_configs = {"accumulate_steps": PP_MICRO}
+    fleet.init(strategy=strategy)
+    cfg = dataclasses.replace(
+        PP_CONFIG(hidden_dropout_prob=0.0, attention_dropout_prob=0.0),
+        num_layers=PP_VPP_LAYERS)
+    P.seed(41)
+    layer = PipelineLayer(
+        layers=_hybrid_descs(cfg), num_stages=2,
+        num_virtual_pipeline_stages=2, seg_method="layer:HybridGPTBlock",
+        loss_fn=lambda logits, lbl: F.cross_entropy(
+            logits, lbl, reduction="none").mean())
+    pipe = PipelineParallel(layer, fleet.get_hybrid_communicate_group(),
+                            strategy)
+    ids, labels = _pp_batch(cfg.vocab_size, 41)
+    single = _single_pass(layer, ids, labels)
+    _pp_reset_counts()
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss = float(pipe.forward_backward_pipeline([ids, labels]))
+    torch.cuda.synchronize()
+    counted = _pp_counts()[:2]
+    clean = _pp_kernels_clean()
+    # the executor's gradients (cut at the 4 parts' boundaries, the
+    # cotangents carried across) against the whole batch's, no executor
+    params = list(_torch_params(layer))
+    piped = _grad_copies(params)
+    for p in params:
+        p.grad = None
+    _single_pass(layer, ids, labels, backward=True)
+    torch.cuda.synchronize()
+    whole = _grad_copies(params)
+    n_grads = (sum(g is not None for g in piped),
+               sum(g is not None for g in whole))
+    errs = _grad_errs(piped, whole)
+    del piped, whole
+    want_order = [(u.kind, u.part, u.micro) for u in
+                  build_schedule("Interleaved1F1B", 2, PP_MICRO, 2)]
+    want = (PP_MICRO * PP_VPP_LAYERS, PP_MICRO * PP_VPP_LAYERS)
+    rec = dict(layers=PP_VPP_LAYERS, parts=layer.num_parts,
+               segment_parts=layer.segment_parts,
+               schedule=pipe.schedule_mode, loss=loss, single_pass=single,
+               loss_rel_err=abs(loss - single) / max(1.0, abs(single)),
+               launches=list(counted), want_launches=list(want),
+               units=len(pipe.last_executed),
+               whole_grad_rel_err_max=max(errs), grads_compared=len(errs))
+    _check("[pipeline-interleaved]", {
+        "4 parts, 2 a stage, the Interleaved1F1B default":
+            layer.num_parts == 4 and pipe.schedule_mode == "Interleaved1F1B",
+        "the executed order is build_schedule('Interleaved1F1B', 2, 4, 2)":
+            pipe.last_executed == want_order,
+        f"the loss within {PP_LOSS_RTOL} of the single pass":
+            rec["loss_rel_err"] < PP_LOSS_RTOL,
+        f"the gradients equal the whole batch's within {PP_WHOLE_TOL}":
+            n_grads == (len(params),) * 2 == (len(errs),) * 2
+            and max(errs) <= PP_WHOLE_TOL,
+        f"(B1, B2) at {want} launches": tuple(counted) == want,
+        "every B1/B2 launch sm90, no plain version on CUDA tensors": clean,
+    }, rec)
+    log(f"[pipeline-interleaved] {PP_VPP_LAYERS} layers in parts "
+        f"{layer.segment_parts}: {len(want_order)} units in the schedule's "
+        f"order, loss {loss:.5f} (single pass {single:.5f}), gradients "
+        f"vs the whole batch max rel {max(errs):.2e}, (B1, B2) "
+        f"{list(counted)}")
+    del pipe, layer, params
+    _fresh_card()
+    return rec
+
+
+def _moe_per_token(x, gw, w1, b1, w2, b2, topi, keep, top_k):
+    """MoE's function written per token: each token's kept experts'
+    FFNs (GELU tanh) weighted by its renormalised gate probabilities, and
+    the GShard auxiliary loss; the routing (topi, keep) given."""
+    import torch
+    e = gw.shape[1]
+    probs = torch.softmax(x.float() @ gw.float(), dim=-1)
+    gates = probs.gather(1, topi) * keep.to(probs.dtype)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    out = torch.zeros_like(x)
+    for ex in range(e):
+        tok, k = torch.nonzero((topi == ex) & keep, as_tuple=True)
+        h = torch.nn.functional.gelu(x[tok] @ w1[ex] + b1[ex],
+                                     approximate="tanh") @ w2[ex] + b2[ex]
+        out = out.index_add(0, tok, gates[tok, k, None] * h)
+    ce = torch.nn.functional.one_hot(topi[:, 0], e).float().mean(0)
+    aux = (probs.mean(0) * ce).sum() * e
+    return out, aux
+
+
+def _moe_margin(x, gw, k) -> np.ndarray:
+    """Each token's smallest gap in its sorted gate probabilities around
+    its k choices (f64 on the host)."""
+    logits = x.astype(np.float64) @ gw.astype(np.float64)
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    s = -np.sort(-p, axis=-1)
+    return np.min(s[:, :k] - s[:, 1:k + 1], axis=-1)
+
+
+def _max_rel(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max().clamp_min(1e-30))
+
+
+def _moe_phase() -> dict:
+    """40c: MoELayer(MOE_CFG) in f32 on MOE_TOKENS tokens: the card's
+    routing integers equal the CPU port's (the gate computed on each),
+    held up to the first token within MOE_MARGIN; its output, auxiliary
+    loss and every gradient equal the per-token formulation on the card
+    (TF32 off)."""
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.distributed.meta_parallel import MoELayer
+    from paddle_tpu_torch.distributed.meta_parallel.moe_layer import _route
+    _fresh_card()
+    P.seed(42)
+    moe = MoELayer(**MOE_CFG)
+    names = ("gate_weight", "w1", "b1", "w2", "b2")
+    ws = [moe._parameters[n] for n in names]
+    with torch.no_grad():
+        for w in (ws[2], ws[4]):        # non-zero biases
+            w.normal_(0.0, 0.02)
+    rng = np.random.default_rng(42)
+    x_np = rng.standard_normal((MOE_TOKENS, MOE_CFG["d_model"])).astype(
+        np.float32)
+    k, cf = MOE_CFG["top_k"], MOE_CFG["capacity_factor"]
+    with _f32_exact():
+        xc = torch.tensor(x_np, device=CARD)
+        _p, _v, topi, pos, keep, _g, cap = _route(xc, ws[0], k, cf)
+        cpu = _route(torch.tensor(x_np), ws[0].detach().cpu(), k, cf)
+        margins = _moe_margin(x_np, ws[0].detach().cpu().numpy(), k)
+        clear = torch.from_numpy(margins >= MOE_MARGIN)
+        low = np.nonzero(margins < MOE_MARGIN)[0]
+        held = int(low[0]) if len(low) else MOE_TOKENS
+        routing_equal = torch.equal(topi.cpu()[clear], cpu[2][clear]) \
+            and all(torch.equal(a[:held].cpu(), b[:held])
+                    for a, b in ((pos, cpu[3]), (keep, cpu[4])))
+        outs = {}
+        for how in ("layer", "per_token"):
+            x = xc.clone().requires_grad_(True)
+            for w in ws:
+                w.grad = None
+            if how == "layer":
+                out = moe(P.Tensor._wrap(x)[None])._data[0]
+                aux = moe.aux_loss._data
+            else:
+                out, aux = _moe_per_token(x, *ws, topi, keep, k)
+            loss = (out.float() ** 2).mean() + 0.01 * aux
+            loss.backward()
+            outs[how] = [out.detach(), aux.detach(), x.grad] + [
+                w.grad.clone() for w in ws]
+        errs = dict(zip(("out", "aux", "x") + names,
+                        (_max_rel(a, b) for a, b in zip(outs["layer"],
+                                                    outs["per_token"]))))
+    rec = dict(config=MOE_CFG, tokens=MOE_TOKENS, capacity=cap,
+               dropped=int((~keep).sum()), min_margin=float(margins.min()),
+               experts_held=int(clear.sum()), slots_held=held,
+               routing_equal=routing_equal, errs=errs)
+    _check("[moe]", {
+        "the card's routing equals the CPU port's: every token's experts "
+        "outside the margin, the slots and drops up to the first token "
+        "within it": routing_equal,
+        f"output, aux loss and gradients equal the per-token form within "
+        f"{MOE_TOL}": max(errs.values()) <= MOE_TOL,
+    }, rec)
+    log(f"[moe] {MOE_TOKENS} tokens over {MOE_CFG['num_experts']} experts "
+        f"(capacity {cap}, {rec['dropped']} choices dropped): the CPU's "
+        f"experts on {rec['experts_held']} tokens, its slots on the first "
+        f"{held} (min margin {rec['min_margin']:.2e}); max rel err "
+        f"{max(errs.values()):.2e}")
+    del moe, ws, outs
+    _fresh_card()
+    return rec
+
+
+def _ring_phase() -> dict:
+    """40d: ring attention at sep 1 (and a 4-chunk ring on the one card)
+    against the plain attention composite, f32, TF32 off, causal."""
+    import torch
+
+    from paddle_tpu_torch.distributed.meta_parallel.ring_attention import (
+        ring_attention_impl)
+    from paddle_tpu_torch.distributed.topology import RankMesh
+    _fresh_card()
+    gen = torch.Generator(device=CARD).manual_seed(43)
+    q, k, v = (torch.randn(RING_SHAPE, generator=gen, device=CARD)
+               for _ in range(3))
+
+    def composite():
+        b, s, h, d = q.shape
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / d ** 0.5
+        mask = torch.ones((s, s), dtype=torch.bool, device=CARD).tril()
+        p = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+    errs, ms = {}, {}
+    with _f32_exact(), torch.no_grad():
+        want = composite()
+        for n in (1, 4):
+            mesh = RankMesh(np.arange(n), ("sep",))
+            got = ring_attention_impl(q, k, v, mesh, "sep", causal=True)
+            errs[f"sep{n}"] = _max_rel(got, want)
+            del got
+            ms[f"sep{n}"] = cuda_ms(lambda m=mesh: ring_attention_impl(
+                q, k, v, m, "sep", causal=True), iters=3, warmup=1)
+        ms["composite"] = cuda_ms(composite, iters=3, warmup=1)
+    rec = dict(shape=RING_SHAPE, errs=errs, ms=ms, card=card_line())
+    _check("[ring]", {f"ring attention equals the composite within "
+                      f"{RING_TOL}": max(errs.values()) <= RING_TOL}, rec)
+    log(f"[ring] {RING_SHAPE} causal f32: rel err {errs}; ms {ms}")
+    del q, k, v, want
+    _fresh_card()
+    return rec
+
+
+def model_parallel_phase(train_1p3b=None) -> dict:
+    """Phase 40 (40a-40d); `train_1p3b` is phase 13's record, set beside
+    40a's step (None: run alone)."""
+    from paddle_tpu_torch.distributed import topology
+    try:
+        return dict(pipeline_1f1b=_pipeline_1f1b(train_1p3b),
+                    pipeline_interleaved=_pipeline_interleaved(),
+                    moe=_moe_phase(), ring=_ring_phase())
+    finally:
+        topology.set_hybrid_communicate_group(None)
+
+
 PHASE_S = {}
 
 
@@ -10727,6 +11281,9 @@ def main() -> int:
     models_io = timed("37", models_io_phase)
     tuned = timed("38", autotune_phase, train)
     collectives = timed("39", collectives_phase)
+    model_parallel = timed("40", model_parallel_phase, train_1p3b)
+    pp_a = model_parallel["pipeline_1f1b"]
+    pp_b = model_parallel["pipeline_interleaved"]
     winners = tuned["winners_flags"]
     EAGER_GPT.clear()       # phases 23d and 28 read phase 22's GPT
     runs_17_18 =(("llama13b", train_llama["no_recompute"]),
@@ -10820,6 +11377,11 @@ def main() -> int:
             launches_1p3b=t13["launches_counted"][i],
             launches_on_device_1p3b=t13["launches_on_device"][i],
             **_launches_17_18(runs_17_18, i),
+            # phase 40a: gpt3_1p3b's 3 train_batch calls through
+            # PipelineParallel (1F1B, every block recomputed); 40b: the
+            # interleaved schedule's forward_backward_pipeline at 8 layers
+            launches_pipeline_1f1b=pp_a["launches_counted"][i],
+            launches_pipeline_interleaved=pp_b["launches"][i],
             # phase 22: the eager API's scaled_dot_product_attention op
             # (and its backward) over the eager script's 3 steps
             launches_eager_api=sum(
@@ -10928,6 +11490,8 @@ def main() -> int:
         launches_1p3b=t13["launches_counted"][2],
         launches_on_device_1p3b=t13["launches_on_device"][2],
         **_launches_17_18(runs_17_18, 2),
+        # phase 40a's 3 train_batch calls (HybridParallelOptimizer)
+        launches_pipeline_1f1b=pp_a["launches_counted"][2],
         max_abs_err=max(c["max_abs_err"] for c in updates),
         ms=u["ms"], ms_graph=u["ms_graph"], plain_ms=u["plain_ms"],
         bound_ms=u["bound_ms"], bound_by=u["bound_by"],
@@ -10980,6 +11544,7 @@ def main() -> int:
     log("[models-io] " + json.dumps(models_io))
     log("[autotune] " + json.dumps(tuned))
     log("[collectives] " + json.dumps(collectives))
+    log("[model-parallel] " + json.dumps(model_parallel, default=str))
     log("[phase-seconds] " + json.dumps(PHASE_S))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -35,7 +35,8 @@ from . import callbacks, metric, tensor_array, utils
 from . import device, observability, profiler
 from . import hub, onnx, static
 from .convert import (bert_params_from_numpy, fused_params_from_numpy,
-                      gpt_params_from_numpy, llama_params_from_numpy,
+                      gpt_params_from_numpy, hybrid_gpt_params_from_numpy,
+                      llama_params_from_numpy,
                       optimizer_state_from_numpy, resnet_params_from_numpy,
                       vision_params_from_numpy)
 from .autograd import (enable_grad, grad, is_grad_enabled, no_grad,

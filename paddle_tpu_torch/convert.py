@@ -20,7 +20,8 @@ import torch
 __all__ = ["gpt_params_from_numpy", "llama_params_from_numpy",
            "bert_params_from_numpy", "resnet_params_from_numpy",
            "fused_params_from_numpy", "optimizer_state_from_numpy",
-           "vision_params_from_numpy"]
+           "vision_params_from_numpy", "hybrid_gpt_params_from_numpy",
+           "mp_shard_state", "mp_gather_state"]
 
 # every optimizer's accumulators (reference optimizers.py): Adam, AdamW
 # and Lamb; Momentum; Adamax and Adagrad; RMSProp; Adadelta
@@ -54,6 +55,72 @@ resnet_params_from_numpy = gpt_params_from_numpy
 fused_params_from_numpy = gpt_params_from_numpy
 # the vision zoo (LeNet ... InceptionV3): names and layouts one for one
 vision_params_from_numpy = gpt_params_from_numpy
+# the hybrid GPT (GPTForCausalLMHybrid, and its PipelineLayer form keyed
+# ``stages.<part>.<i>.``, the tied embedding under its home position's
+# ``layer.``): the reference's names one for one
+hybrid_gpt_params_from_numpy = gpt_params_from_numpy
+
+
+def _mp_axis(name, shape):
+    """The axis `name` is split on under ``gpt_tp_rules`` (None:
+    replicated)."""
+    from .models.shard_plans import gpt_tp_rules
+    spec = tuple(gpt_tp_rules(name, shape))
+    return spec.index("mp") if "mp" in spec else None
+
+
+def _qkv_blocks(arr, mp):
+    """A fused QKV weight's or bias's last axis as [3, mp, cols]: the q,
+    k and v blocks, each cut into mp runs of whole heads."""
+    cols = arr.shape[-1] // 3
+    return arr.reshape(arr.shape[:-1] + (3, mp, cols // mp))
+
+
+def mp_shard_state(full: Dict, rank: int, mp: int, num_heads: int) -> Dict:
+    """Rank `rank`'s shard (of `mp`) of a whole hybrid GPT state (numpy
+    arrays or torch tensors by the reference's names), for a model built
+    in process-group mode: each array cut by ``shard_plans.gpt_tp_rules``
+    into `mp` equal runs of its split axis, except the fused QKV
+    projection, whose q, k and v blocks are each cut by head
+    (`num_heads` divisible by `mp`), rank r keeping [q_r | k_r | v_r]."""
+    if num_heads % mp:
+        raise ValueError(f"{num_heads} heads do not split over mp {mp}")
+    out = {}
+    for name, v in full.items():
+        arr = np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor)
+                         else v)
+        ax = _mp_axis(name, arr.shape)
+        if ax is None:
+            out[name] = arr
+        elif "qkv_proj" in name:
+            out[name] = _qkv_blocks(arr, mp)[..., rank, :].reshape(
+                arr.shape[:-1] + (-1,))
+        else:
+            out[name] = np.split(arr, mp, axis=ax)[rank]
+    return {k: _to_tensor(a) for k, a in out.items()}
+
+
+def mp_gather_state(shards) -> Dict:
+    """The inverse of `mp_shard_state` (for gradients): the whole arrays
+    (numpy) from every rank's shard (a list by rank); a replicated array
+    is rank 0's."""
+    mp = len(shards)
+    out = {}
+    for name in shards[0]:
+        parts = [np.asarray(s[name].detach().cpu()
+                            if isinstance(s[name], torch.Tensor) else s[name])
+                 for s in shards]
+        cols = parts[0].shape
+        ax = _mp_axis(name, cols)
+        if ax is None:
+            out[name] = parts[0]
+        elif "qkv_proj" in name:
+            blocks = [p.reshape(p.shape[:-1] + (3, -1)) for p in parts]
+            out[name] = np.stack(blocks, axis=-2).reshape(
+                cols[:-1] + (-1,))
+        else:
+            out[name] = np.concatenate(parts, axis=ax)
+    return out
 
 
 def optimizer_state_from_numpy(state: Dict, names: Dict[str, str]) -> Dict:

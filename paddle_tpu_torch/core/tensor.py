@@ -130,6 +130,14 @@ class Tensor:
         return self._data.grad_fn is None
 
     @property
+    def _dist_attr(self):
+        """The PartitionSpec of the placement recorded on this tensor
+        (``distributed.topology.place``), or None: the reference's
+        ``_dist_attr``."""
+        pl = getattr(self._data, "_placement", None)
+        return None if pl is None else pl.spec
+
+    @property
     def stop_gradient(self) -> bool:
         d = self._data
         if d.requires_grad:

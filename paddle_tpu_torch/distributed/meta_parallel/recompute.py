@@ -100,7 +100,8 @@ def _resolve_policy(policy):
 def _generators(function, args):
     """The generators a recomputation must draw from as its forward did:
     those of the block's modules, torch's CPU default, and the CUDA
-    default of each device a tensor argument lies on."""
+    default of each device a tensor argument (or an eager Tensor's)
+    lies on."""
     owner = function if isinstance(function, nn.Module) \
         else getattr(function, "__self__", None)
     gens = {}
@@ -111,6 +112,7 @@ def _generators(function, args):
                 gens[id(g)] = g
     gens[id(torch.default_generator)] = torch.default_generator
     for a in args:
+        a = getattr(a, "_data", a)      # an eager Tensor's torch tensor
         if isinstance(a, torch.Tensor) and a.is_cuda:
             g = torch.cuda.default_generators[a.device.index]
             gens[id(g)] = g

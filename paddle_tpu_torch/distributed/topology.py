@@ -12,6 +12,14 @@ coordinate of this process is 0. In process-group mode each axis group
 is the ``torch.distributed`` group of the ranks that share this
 process's other coordinates (every process makes every such group, in
 one order, as torch requires), and the coordinates are this rank's.
+
+Placement is data. The reference commits an array to a
+``NamedSharding(mesh, PartitionSpec(...))`` and XLA moves it; the port
+records the same pair (`NamedSharding` over a `RankMesh` and a
+`PartitionSpec`, equal to and printed like JAX's) on the torch tensor
+(`place`, read back by `placement` and by a Tensor's ``_dist_attr``),
+and moves nothing: every rank of the single controller sees the whole
+array, which is the function the reference computes.
 """
 from __future__ import annotations
 
@@ -24,7 +32,8 @@ from .communication import Group, _new_group_obj, _pg_active
 
 __all__ = ["CommunicateTopology", "HybridCommunicateGroup",
            "get_hybrid_communicate_group", "set_hybrid_communicate_group",
-           "RankMesh"]
+           "RankMesh", "PartitionSpec", "NamedSharding", "place",
+           "placement"]
 
 # the reference's axis order (outermost -> innermost)
 _AXES = ("dp", "pp", "sharding", "sep", "mp")
@@ -80,6 +89,56 @@ class RankMesh:
 
     def __repr__(self):
         return f"RankMesh({dict(self.shape)})"
+
+
+class PartitionSpec(tuple):
+    """The reference's ``jax.sharding.PartitionSpec``: per array axis a
+    mesh axis name, a tuple of names, or None (replicated). A tuple,
+    equal to JAX's for the same entries and printed as it is."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self):
+        return "PartitionSpec" + tuple.__repr__(self)
+
+
+class NamedSharding:
+    """A recorded placement: the reference's ``NamedSharding(mesh,
+    spec)``, here a `RankMesh` and a `PartitionSpec` (module docstring)."""
+
+    __slots__ = ("mesh", "spec")
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = PartitionSpec(*spec)
+
+    def __eq__(self, other):
+        return isinstance(other, NamedSharding) and \
+            self.mesh is other.mesh and self.spec == other.spec
+
+    def __hash__(self):
+        return hash((id(self.mesh), self.spec))
+
+    def __repr__(self):
+        return f"NamedSharding(mesh={self.mesh!r}, spec={self.spec!r})"
+
+
+def place(t, mesh, spec):
+    """Record `t`'s placement (a Tensor's or a torch tensor's) as
+    `NamedSharding(mesh, spec)`; returns `t`."""
+    data = getattr(t, "_data", t)
+    data._placement = NamedSharding(mesh, spec)
+    return t
+
+
+def placement(t) -> Optional[NamedSharding]:
+    """The placement recorded on `t` (a Tensor or a torch tensor), or
+    None."""
+    return getattr(getattr(t, "_data", t), "_placement", None)
 
 
 class HybridCommunicateGroup:

@@ -28,7 +28,8 @@ The contract is the reference's:
     winner is cached (`incubate.autotune.set_config` sets it);
   - a reentrant call returns the first candidate; a candidate that fails
     to build or launch scores inf; if all fail, or the bandwidth probes
-    (`measure_effective_bw`, before and after the rounds) fall outside
+    (`measure_effective_bw`, before and after the rounds; it times the
+    card alone, with no host gap inside its span) fall outside
     ``observability.perf.VALIDATED_BW_WINDOW``, the defaults are used
     and nothing is persisted; every sweep is logged (`drain_sweeps`);
   - a multi-process job (`distributed.parallel.process_count() > 1`,
@@ -151,15 +152,25 @@ def _capturing() -> bool:
         torch.cuda.is_current_stream_capturing()
 
 
+_SPACER_CYCLES = 1 << 20
+
+
 def measure_effective_bw(nbytes=1 << 26, iters=4):
     """The card's effective bandwidth (bytes/s) right now: `iters`
     passes of ``a + 1.0`` over `nbytes` of f32 on the current CUDA
     device into one preallocated output (read and write: 2 × nbytes a
-    pass), timed with CUDA events. Two warm-up passes are queued first
-    and left running while the timed ones are queued, so the host's
-    launch time does not enter (a pass is ~50 µs on an H100). None
-    without a card, or when a pass fails (the caller cannot validate
-    then)."""
+    pass), timed with CUDA events, after two warm-up passes.
+
+    Only the card's time enters: a spin kernel (`_SPACER_CYCLES` clock
+    cycles, ~0.5 ms on an H100) holds the stream while the start event,
+    the timed passes and the end event are queued, and the reading is
+    kept only if the start event was still pending once all of them
+    were. Otherwise the host
+    stalled past the spacer (another thread held the GIL, the process
+    was descheduled) and the card may have idled inside the timed span:
+    the measurement is repeated with an 8× longer spacer, up to four
+    times. None without a card, when a pass fails, or when no attempt
+    was covered (the caller cannot validate then)."""
     import torch
     if not torch.cuda.is_available() or _capturing():
         return None
@@ -168,16 +179,23 @@ def measure_effective_bw(nbytes=1 << 26, iters=4):
         y = torch.empty_like(x)
         for _ in range(2):
             torch.add(x, 1.0, out=y)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            torch.add(x, 1.0, out=y)
-        end.record()
-        end.synchronize()
-        dt = start.elapsed_time(end) / 1e3 / iters
+        bw = None
+        for attempt in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(_SPACER_CYCLES << (3 * attempt))
+            start.record()
+            for _ in range(iters):
+                torch.add(x, 1.0, out=y)
+            end.record()
+            covered = not start.query()
+            end.synchronize()
+            if covered:
+                dt = start.elapsed_time(end) / 1e3 / iters
+                bw = (2.0 * nbytes) / dt if dt > 0 else None
+                break
         del x, y
-        return (2.0 * nbytes) / dt if dt > 0 else None
+        return bw
     except RuntimeError:
         return None
 

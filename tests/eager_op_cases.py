@@ -1319,6 +1319,37 @@ OPSURF_CASES = [c[0] for c in CASES[_OS_FIRST:]]
 
 
 # ---------------------------------------------------------------------------
+# model parallelism's registered ops (distributed.meta_parallel): the
+# reshard, GShard's MoE dispatch (capacity 1.0 drops some choices) and
+# ring attention on a one-rank sequence axis (MODEL_PARALLEL_CASES names
+# them)
+# ---------------------------------------------------------------------------
+_MP_FIRST = len(CASES)
+
+
+def _moe_dispatch(P, T):
+    moe = P.distributed.meta_parallel.moe_layer
+    return moe._moe_forward(
+        T(f32(12, 8)), T(f32(8, 4)), T(f32(4, 8, 16) * 0.5),
+        T(f32(4, 16) * 0.1), T(f32(4, 16, 8) * 0.5), T(f32(4, 8) * 0.1),
+        top_k=2, capacity_factor=1.0)
+
+
+def _ring_attention(P, T):
+    mesh = P.distributed.HybridCommunicateGroup().mesh
+    q, k, v = T(f32(1, 8, 2, 4)), T(f32(1, 8, 2, 4)), T(f32(1, 8, 2, 4))
+    return P.distributed.meta_parallel.ring_flash_attention(
+        q, k, v, mesh, causal=True)
+
+
+case("dist_reshard", lambda P, T:
+     P.distributed.meta_parallel.mp_layers._dist_reshard(T(f32(3, 4))))
+case("moe_gshard_dispatch", _moe_dispatch, tol=1e-5, grad_tol=1e-4)
+case("ring_flash_attention", _ring_attention, tol=1e-5, grad_tol=1e-5)
+MODEL_PARALLEL_CASES = [c[0] for c in CASES[_MP_FIRST:]]
+
+
+# ---------------------------------------------------------------------------
 # running a case
 # ---------------------------------------------------------------------------
 def flat_outputs(out):

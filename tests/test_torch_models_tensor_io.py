@@ -308,7 +308,22 @@ MODEL_CLASSES = [
         "MobileNetV3", "ShuffleNetV2", "GoogLeNet", "InceptionV3")] + [
     ("optimizer", "Optimizer"), ("distributed", "Group"),
     ("distributed", "DataParallel"),
-    ("distributed", "HybridCommunicateGroup")]
+    ("distributed", "HybridCommunicateGroup")] + [
+    # model parallelism (ROADMAP item 26b)
+    ("distributed.fleet", n) for n in ("Fleet", "DistributedStrategy")] + [
+    ("distributed.meta_parallel", n) for n in (
+        "RNGStatesTracker", "VocabParallelEmbedding", "ColumnParallelLinear",
+        "RowParallelLinear", "ParallelCrossEntropy",
+        "ColumnSequenceParallelLinear", "RowSequenceParallelLinear",
+        "MetaParallelBase", "TensorParallel", "ShardingParallel",
+        "SegmentParallel", "LayerDesc", "SharedLayerDesc", "SegmentLayers",
+        "PipelineLayer", "PipelineParallel", "HybridParallelOptimizer",
+        "HybridParallelGradScaler", "MoELayer", "RingAttention")] + [
+    ("distributed.meta_parallel.pipeline_schedules", n)
+    for n in ("Unit", "ScheduleExecutor")] + [
+    ("models.gpt_hybrid", n) for n in (
+        "HybridGPTAttention", "HybridGPTMLP", "HybridGPTBlock",
+        "HybridGPTEmbedding", "HybridGPTNorm", "GPTForCausalLMHybrid")]
 
 
 def _public_methods(cls):

@@ -229,14 +229,30 @@ PORTED_MODULES = {
     "paddle_tpu.distributed.rpc": ("paddle_tpu_torch.distributed.rpc",
                                    set()),
     # distributed: rpc, the collectives, parallel and topology (ROADMAP
-    # item 26a); fleet, auto_parallel, sharding, checkpoint and ps are
-    # items 26b-e
+    # item 26a), fleet and meta_parallel's model parallelism (item 26b);
+    # auto_parallel, sharding, checkpoint and ps are items 26c-e
     "paddle_tpu.distributed": ("paddle_tpu_torch.distributed", {
         "DistModel", "Partial", "ProcessMesh", "Replicate", "Shard",
         "ShardingStage1", "ShardingStage2", "ShardingStage3",
-        "auto_parallel", "checkpoint", "dtensor_from_fn", "fleet", "ps",
+        "auto_parallel", "checkpoint", "dtensor_from_fn", "ps",
         "reshard", "shard_layer", "shard_optimizer", "shard_tensor",
         "sharding", "to_static"}),
+    "paddle_tpu.distributed.fleet": ("paddle_tpu_torch.distributed.fleet",
+                                     set()),
+    "paddle_tpu.distributed.fleet.fleet": (
+        "paddle_tpu_torch.distributed.fleet.fleet", set()),
+    "paddle_tpu.distributed.meta_parallel": (
+        "paddle_tpu_torch.distributed.meta_parallel", set()),
+    **{f"paddle_tpu.distributed.meta_parallel.{m}": (
+        f"paddle_tpu_torch.distributed.meta_parallel.{m}", set())
+       for m in ("random", "mp_layers", "sequence_parallel",
+                 "parallel_wrappers", "pp_layers", "pipeline_schedules",
+                 "pipeline_parallel", "hybrid_optimizer", "moe_layer",
+                 "ring_attention")},
+    "paddle_tpu.models.gpt_hybrid": ("paddle_tpu_torch.models.gpt_hybrid",
+                                     set()),
+    "paddle_tpu.models.shard_plans": ("paddle_tpu_torch.models.shard_plans",
+                                      set()),
     "paddle_tpu.distributed.communication": (
         "paddle_tpu_torch.distributed.communication", set()),
     "paddle_tpu.distributed.parallel": (

@@ -129,6 +129,21 @@ make = lambda _i: LLMEngine(fm, device="cpu", **torch_fleet_cases.ENGINE_KW)
 p = [np.arange(20, dtype=np.int32)]
 assert Router(make, n_replicas=2).generate(p, 2)[0].ok
 assert DisaggRouter(make).generate(p, 2)[0].ok
+# model parallelism: fleet, a pipeline of the hybrid GPT under 1F1B
+from paddle_tpu_torch.distributed import fleet as dfleet
+from paddle_tpu_torch.distributed.meta_parallel import PipelineParallel
+from paddle_tpu_torch.models.gpt_hybrid import gpt_pipeline_model
+paddle_tpu_torch.set_device("cpu")
+s = dfleet.DistributedStrategy()
+s.pipeline_configs = {"accumulate_steps": 2, "schedule_mode": "1F1B"}
+dfleet.init(strategy=s)
+pm = gpt_pipeline_model(gpt_tiny(hidden_dropout_prob=0.0,
+                                 attention_dropout_prob=0.0),
+                        recompute_interval=1)
+pp = PipelineParallel(pm, dfleet.get_hybrid_communicate_group(), s)
+popt = dfleet.distributed_optimizer(AdamW(learning_rate=1e-4,
+                                          parameters=pm.parameters()))
+assert np.isfinite(float(pp.train_batch([ids, ids], popt)))
 bad = [k for k in sys.modules
        if k == "jax" or k.startswith("jax.") or k == "paddle_tpu"
        or k.startswith("paddle_tpu.")]
@@ -203,6 +218,36 @@ def test_entry_points_need_cuda_unless_cpu_requested():
         made = make(device="cpu")
         assert {p.device.type for p in torch.nn.Module.parameters(made)} \
             == {"cpu"}
+
+
+def test_model_parallel_layers_need_cuda_unless_cpu():
+    """The model-parallel layers make their parameters on the eager
+    default place, as the reference's create_parameter does: the card,
+    which raises without one, unless the CPU is asked for
+    (``set_device("cpu")``)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is valid here")
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.meta_parallel import MoELayer
+    from paddle_tpu_torch.models.gpt_hybrid import GPTForCausalLMHybrid
+    from paddle_tpu_torch.distributed.topology import \
+        set_hybrid_communicate_group
+    saved = tdevice._current_place
+    try:
+        fleet.init()
+        with pytest.raises(RuntimeError, match="cpu"):
+            GPTForCausalLMHybrid(gpt_tiny())
+        with pytest.raises(RuntimeError, match="cpu"):
+            MoELayer(8, 16, num_experts=2)
+        import paddle_tpu_torch as ptt
+        ptt.set_device("cpu")
+        made = GPTForCausalLMHybrid(gpt_tiny())
+        assert {p.device.type for p in torch.nn.Module.parameters(made)} \
+            == {"cpu"}
+    finally:
+        tdevice._current_place = saved
+        set_hybrid_communicate_group(None)
 
 
 def test_opsurf_creation_needs_cuda_unless_cpu():

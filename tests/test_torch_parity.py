@@ -12,9 +12,9 @@ from paddle_tpu_torch.ops import parity as tparity
 from test_torch_nn_clip import PORTED_MODULES
 
 # the YAML ops whose reference counterpart is in a module still to port:
-# the model-parallel layers (distributed.meta_parallel, ROADMAP item 26b);
-# the collectives map since item 26a
-STILL_UNMAPPED = {"c_embedding", "c_identity"}
+# none (the collectives map since ROADMAP item 26a, the model-parallel
+# layers' c_embedding and c_identity since item 26b)
+STILL_UNMAPPED = set()
 
 
 def _reference_module(name, table):

@@ -657,6 +657,67 @@ def test_slice26_name_matches_the_reference(module, name):
         _check_sigs(inspect.signature(port_fn), inspect.signature(ref_fn))
 
 
+# model parallelism (ROADMAP item 26b): every function and class the
+# reference's fleet, meta_parallel, gpt_hybrid and shard_plans modules
+# define, and each method a class defines
+SLICE27_MODULES = (
+    "distributed.fleet.fleet", "distributed.meta_parallel.random",
+    "distributed.meta_parallel.mp_layers",
+    "distributed.meta_parallel.sequence_parallel",
+    "distributed.meta_parallel.parallel_wrappers",
+    "distributed.meta_parallel.pp_layers",
+    "distributed.meta_parallel.pipeline_schedules",
+    "distributed.meta_parallel.pipeline_parallel",
+    "distributed.meta_parallel.hybrid_optimizer",
+    "distributed.meta_parallel.moe_layer",
+    "distributed.meta_parallel.ring_attention", "models.gpt_hybrid",
+    "models.shard_plans")
+
+
+def _slice27_names():
+    import importlib
+    out = []
+    for mod in SLICE27_MODULES:
+        ref = importlib.import_module(f"paddle_tpu.{mod}")
+        for n in sorted(vars(ref)):
+            v = getattr(ref, n)
+            if not n.startswith("_") and callable(v) \
+                    and getattr(v, "__module__", None) == ref.__name__:
+                out.append((mod, n))
+    return out
+
+
+SLICE27_NAMES = _slice27_names()
+
+
+def test_every_slice27_name_is_checked():
+    names = {n for _, n in SLICE27_NAMES}
+    assert {"Fleet", "DistributedStrategy", "init", "RNGStatesTracker",
+            "ColumnParallelLinear", "ParallelCrossEntropy", "scatter",
+            "RowSequenceParallelLinear", "TensorParallel", "PipelineLayer",
+            "SegmentLayers", "build_schedule", "ScheduleExecutor",
+            "PipelineParallel", "HybridParallelOptimizer", "MoELayer",
+            "ring_flash_attention", "RingAttention", "GPTForCausalLMHybrid",
+            "gpt_pipeline_model", "gpt_tp_rules", "fsdp_rules"} <= names
+
+
+@pytest.mark.parametrize("module,name", SLICE27_NAMES,
+                         ids=[f"{m}.{n}" for m, n in SLICE27_NAMES])
+def test_slice27_name_matches_the_reference(module, name):
+    import importlib
+    port_obj = getattr(importlib.import_module(f"paddle_tpu_torch.{module}"),
+                       name)
+    ref_obj = getattr(importlib.import_module(f"paddle_tpu.{module}"), name)
+    if inspect.isclass(ref_obj):
+        pairs = [(port_obj.__init__, ref_obj.__init__)] + [
+            (getattr(port_obj, m), f) for m, f in vars(ref_obj).items()
+            if inspect.isfunction(f) and not m.startswith("_")]
+    else:
+        pairs = [(port_obj, ref_obj)]
+    for port_fn, ref_fn in pairs:
+        _check_sigs(inspect.signature(port_fn), inspect.signature(ref_fn))
+
+
 # the methods of the model classes and of Optimizer that the reference
 # defines (GPTForCausalLM.generate, Optimizer.minimize, the forwards with
 # their caches): the constructors are the port's own (device, dtype,
